@@ -59,6 +59,11 @@ def pytest_configure(config):
         "slow: long-running test (multi-process spawns, big compiles); "
         "skipped unless --runslow",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skipped where torch.cuda.is_available() is false",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
