@@ -3,16 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``rocket_tpu_torch/csrc`` with
-``nvcc`` (into ``build/kernels/``, first use), holds each kernel against
-its plain PyTorch version at the serving path's shapes, serves GPT-2 124M
-(random weights from a fixed seed, bf16) through ``ServeEngine``, runs
-``generate()`` on it, and checks the whole model on the card against the
-CPU. Each phase prints one JSON line; the last three lines are the
-per-kernel summary, the card's name and power limit as ``nvidia-smi``
-reports them, and ``{"ok": true, "device": {...}}``. Any failure raises
-and exits non-zero; without a CUDA device it exits 2 and prints no
-result. The full record is also written to ``chiprun_out/chip_smoke.json``.
+Builds the port's five CUDA kernels from ``rocket_tpu_torch/csrc`` with
+``nvcc`` (into ``build/kernels/``, first use, all in parallel) and holds
+each against its plain PyTorch version at its path's shapes, and times the
+flash backward under both dq strategies (f32 partials, or the separate
+accumulating dq kernel) at T=1024 and 2048. Then the
+main paths, each with the kernel launch counts zeroed just before it and
+read just after: serving GPT-2 124M (random weights from a fixed seed,
+bf16) through ``ServeEngine``; ``generate()`` with the KV cache; training
+GPT-2 124M through the capsule ``Launcher`` (the flash forward and fused
+backward), with a ``torch.profiler`` window over its last steps; a
+longer-context run whose dq partial buffer passes the byte bound (the
+accumulating dq kernel). Last, the whole model on the card against the
+CPU, for decoding and for one training forward and backward.
+
+Each phase prints one JSON line; the last three lines are the per-kernel
+summary, the card's name and power limit as ``nvidia-smi`` reports them,
+and ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero; without a CUDA device it exits 2 and prints no result. The full
+record is also written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -28,10 +37,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rocket_tpu_torch.models.transformer import TransformerConfig, TransformerLM, generate
+import rocket_tpu_torch as rt
+from rocket_tpu_torch import optim
+from rocket_tpu_torch.core.capsule import Capsule
+from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
+from rocket_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    generate,
+    next_token_loss,
+)
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import decode_attention as da
+from rocket_tpu_torch.ops import flash_native as fa
 from rocket_tpu_torch.ops import paged_attention as pa
 from rocket_tpu_torch.serve import ServeConfig, ServeEngine
 
@@ -39,19 +58,37 @@ ROOT = Path(__file__).resolve().parent
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-#: Kernel vs plain version on the same CUDA tensors. f32: the same math in
-#: another order (and TF32 off). bf16: the plain versions round the
-#: attention weights to bf16 before the PV product, the kernels keep them
-#: in f32 — about 4e-3 relative on values of order one.
+#: Kernel vs plain version on the same CUDA tensors: the decode kernels'
+#: max abs error, the flash kernels' every element as
+#: ``|got - want| <= tol * (1 + |want|)`` (``assert_close`` with atol =
+#: rtol = tol). f32: the same math in another order (and TF32 off). bf16:
+#: the decode plain versions round the attention weights to bf16 before the
+#: PV product where the decode kernels keep them in f32; the flash kernels
+#: and their plain versions both round p and ds to bf16, but from f32
+#: scores summed in another order, so a rounding can flip by one bf16 step.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: decode_step_paged on the card vs the CPU, f32 logits of order one.
 MODEL_TOL = 1e-3
+#: One train forward + backward on the card (flash kernels) vs the CPU
+#: (plain path), f32: the loss absolutely, each gradient relative to its
+#: largest element (sums over 1024 tokens in another order).
+TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}
+#: Train phases: GPT-2 124M at B=8, T=1024; the profiled window is the
+#: last PROFILE_STEPS steps; step times are taken after WARM_STEPS.
+TRAIN_STEPS, PROFILE_STEPS, WARM_STEPS = 20, 3, 3
 RECORD: dict = {}
+#: Every kernel wrapper, whose launch count is zeroed before each main path.
+COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq)
 
 
 def emit(phase: str, **fields) -> None:
     RECORD.setdefault(phase, []).append(fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def zero_launches() -> None:
+    for fn in COUNTED:
+        fn.launches = 0
 
 
 def require(cond: bool, msg: str) -> None:
@@ -192,6 +229,170 @@ def check_decode_attention(timer, gen):
     return row
 
 
+# -- phase 3b: the flash kernels against their plain versions ---------------
+
+def _flash_operands(gen, dtype, b, t, hq, h_kv, d, fused):
+    """((q_arr, k_arr, v_arr), offsets): the fused (B, T, 3HD) projection
+    output read at its q/k/v offsets, or three bthd operands."""
+    mk = lambda *shape: torch.randn(*shape, generator=gen).to(dtype).cuda()  # noqa: E731
+    if fused:
+        arr = mk(b, t, 3 * hq * d)
+        return (arr, arr, arr), (0, hq * d, 2 * hq * d)
+    return (mk(b, t, hq * d), mk(b, t, h_kv * d), mk(b, t, h_kv * d)), (0, 0, 0)
+
+
+def _flash_err(got, want, dtype, what):
+    """Max abs error; every element is held to ``TOL * (1 + |want|)``, so
+    small outputs are held as tightly as large ones."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    tol = TOL[dtype]
+    excess = (diff - tol * (1.0 + want.abs())).max().item()
+    require(math.isfinite(excess) and excess <= 0.0,
+            f"{what}: an element is off by {excess} more than {tol} * (1 + |want|)")
+    return diff.max().item()
+
+
+def flash_bounds(b, t, hq, h_kv, d, dtype, causal):
+    """(fwd, bwd, dq) least times of the functions: each input read once,
+    each output written once — fwd reads q/k/v and writes out and lse; bwd
+    reads q/k/v, dout, lse and delta and writes dq, dk and dv; dq reads the
+    same and writes dq — and 2*D flops per visible (query, key) pair and
+    product: 2 products forward, 5 in the fused backward (s, dp, dv, dk,
+    dq), 3 in the dq pass. The f32 dq partials are the kernel's design, not
+    the function's, so they are left out (:func:`dq_partial_bytes`)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    qkv = b * t * (hq + 2 * h_kv) * d * item
+    act = b * t * hq * d * item                  # out, dout or dq
+    stats = b * hq * t * 4                       # lse or delta (f32)
+    pairs = b * hq * (t * (t + 1) / 2 if causal else t * t)
+    return (bound_ms(qkv + act + stats, 4 * d * pairs, dtype),
+            bound_ms(qkv + 2 * act + 2 * stats + 2 * b * t * h_kv * d * item,
+                     10 * d * pairs, dtype),
+            bound_ms(qkv + 2 * act + 2 * stats, 6 * d * pairs, dtype))
+
+
+def dq_partial_bytes(b, t, hq, d):
+    """The f32 dq partial buffer of ``flash_bwd``: one (B, T, Hq*D) copy per
+    TILE-row k-tile."""
+    return -(-t // fa.TILE) * b * t * hq * d * 4
+
+
+def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=False):
+    """flash_fwd / flash_bwd / flash_dq against _fwd_plain / _bwd_plain /
+    _dq_plain on the same CUDA tensors; with ``time_it`` also the kernel,
+    plain and SDPA times and the bounds."""
+    (q, k, v), offs = _flash_operands(gen, dtype, b, t, hq, h_kv, d, fused)
+    geo = (hq, h_kv, d, offs, causal)
+    what = (f"flash {'fused' if fused else 'bthd'} B={b} T={t} Hq={hq} Hkv={h_kv} {dtype} "
+            f"causal={causal}")
+    out, lse = fa.flash_fwd(q, k, v, *geo)
+    out_p, lse_p = fa._fwd_plain(q, k, v, *geo)
+    err = {"fwd": max(_flash_err(out, out_p, dtype, what + " out"),
+                      _flash_err(lse, lse_p, dtype, what + " lse"))}
+    del out_p, lse_p
+    dout = torch.randn(b, t, hq * d, generator=gen).to(dtype).cuda()
+    delta = (dout.float() * out.float()).reshape(b, t, hq, d).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dout, lse, delta, *geo)
+    dqp, dk, dv = fa.flash_bwd(*args)
+    dqp_p, dk_p, dv_p = fa._bwd_plain(*args)
+    err["bwd"] = max(_flash_err(dqp.sum(0), dqp_p.sum(0), dtype, what + " bwd dq"),
+                     _flash_err(dk, dk_p, dtype, what + " dk"),
+                     _flash_err(dv, dv_p, dtype, what + " dv"))
+    del dqp, dqp_p, dk_p, dv_p
+    err["dq"] = _flash_err(fa.flash_dq(*args), fa._dq_plain(*args), dtype, what + " dq")
+    torch.cuda.synchronize()
+    row = {"layout": "fused" if fused else "bthd", "dtype": str(dtype).removeprefix("torch."),
+           "b": b, "t": t, "hq": hq, "hkv": h_kv, "d": d, "causal": causal,
+           "max_abs_err": err, "tol": TOL[dtype]}
+    if not time_it:
+        return row
+    heads = lambda a, off, n: a[..., off:off + n * d].reshape(b, t, n, d).transpose(1, 2)  # noqa
+    qh, kh, vh = (heads(a, o, n).contiguous().requires_grad_()
+                  for a, o, n in ((q, offs[0], hq), (k, offs[1], h_kv), (v, offs[2], h_kv)))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=causal, enable_gqa=h_kv != hq)
+    lib_out = sdpa()
+    dout_h = dout.reshape(b, t, hq, d).transpose(1, 2)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout_h,  # noqa: E731
+                                          retain_graph=True)
+    ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
+    bounds = flash_bounds(b, t, hq, h_kv, d, dtype, causal)
+    for name, kernel, plain, library, bound in (
+        ("flash_fwd", lambda: fa.flash_fwd(q, k, v, *geo),
+         lambda: fa._fwd_plain(q, k, v, *geo), sdpa, bounds[0]),
+        ("flash_bwd", lambda: fa.flash_bwd(*args), lambda: fa._bwd_plain(*args), lib_bwd,
+         bounds[1]),
+        ("flash_dq", lambda: fa.flash_dq(*args), lambda: fa._dq_plain(*args), lib_bwd,
+         bounds[2]),
+    ):
+        row[name] = {"ms": ms(kernel), "plain_ms": ms(plain), "library_ms": ms(library),
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "max_abs_err": err[name.removeprefix("flash_")]}
+    # The design cost of the partials: writing them once at the HBM rate.
+    partials = dq_partial_bytes(b, t, hq, d)
+    row["flash_bwd"].update(dq_partial_bytes=partials,
+                            dq_partial_write_ms=partials / HBM_BYTES_PER_S * 1e3)
+    return row
+
+
+def time_dq_strategies(timer, gen):
+    """The backward's two dq strategies end to end — delta, the kernels
+    and, for the partials, their f32 sum — on one fused MHA bf16 causal
+    operand at B=8, H=12, D=64, T=1024 and 2048: ``flash_bwd`` with dq
+    partials (``dq_split=False``) against ``flash_bwd`` without dq plus
+    ``flash_dq`` (``dq_split=True``). Both must give the same dq, dk, dv."""
+    b, hq, d, dtype = 8, 12, 64, torch.bfloat16
+    rows = []
+    for t in (1024, 2048):
+        (q, k, v), offs = _flash_operands(gen, dtype, b, t, hq, hq, d, True)
+        out, lse = fa.flash_fwd(q, k, v, hq, hq, d, offs, True)
+        dout = torch.randn(b, t, hq * d, generator=gen).to(dtype).cuda()
+        run = lambda split: fa._backward(q, k, v, out, lse, dout, hq, hq, d, offs,  # noqa: E731
+                                         True, split)
+        (dq_p, dk_p, dv_p), (dq_s, dk_s, dv_s) = run(False), run(True)
+        require(torch.equal(dk_p, dk_s) and torch.equal(dv_p, dv_s),
+                f"dq strategies T={t}: dk/dv differ")
+        err = _flash_err(dq_p, dq_s, dtype, f"dq strategies T={t}: dq")
+        del dq_p, dk_p, dv_p, dq_s, dk_s, dv_s
+        ms = lambda split: timer.ms(lambda: run(split), iters=10, warmup=2)  # noqa: E731
+        partials = dq_partial_bytes(b, t, hq, d)
+        row = {"b": b, "t": t, "hq": hq, "d": d, "dtype": "bfloat16", "causal": True,
+               "partials_ms": ms(False), "split_ms": ms(True), "dq_max_abs_err": err,
+               "dq_partial_bytes": partials,
+               "auto": "split" if partials > fa.DQ_PARTIALS_MAX_BYTES else "partials"}
+        emit("dq_strategies", **row)
+        rows.append(row)
+    return rows
+
+
+def check_flash(timer, gen):
+    """GPT-2 shapes (B=8, T=1024, H=12, D=64): the fused MHA operand the
+    train phase feeds the kernels (timed in bf16), and GQA bthd operands
+    (Hq=12, Hkv=4), causal and not, bf16 and f32."""
+    timed = None
+    for fused, h_kv, causal, dtype in (
+        (True, 12, True, torch.bfloat16), (True, 12, True, torch.float32),
+        (False, 4, True, torch.bfloat16), (False, 4, False, torch.bfloat16),
+        (False, 4, True, torch.float32), (False, 4, False, torch.float32),
+    ):
+        time_it = timed is None
+        row = flash_case(timer, gen, 8, 1024, 12, h_kv, 64, dtype, causal, fused, time_it)
+        emit("parity_flash", **row)
+        if time_it:
+            timed = row
+    return timed
+
+
+def check_flash_long(timer, gen):
+    """The train_long phase's shape (B=8, T=2048, fused MHA, bf16, causal),
+    where the dq partial buffer passes DQ_PARTIALS_MAX_BYTES: all three
+    kernels held to their plain versions there, timed for flash_dq."""
+    row = flash_case(timer, gen, 8, 2048, 12, 12, 64, torch.bfloat16, True, True, time_it=True)
+    emit("parity_flash", **row)
+    return row
+
+
 # -- phases 4-6: the main path ---------------------------------------------
 
 def serve_phase(model, params, card):
@@ -205,8 +406,7 @@ def serve_phase(model, params, card):
     prompts = [rng.integers(0, model.config.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.integers(32, 513, size=16)]
     waves0 = engine.engine.decode_waves
-    pa.paged_decode.launches = 0
-    da.decode_attention.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_new_tokens=64, temperature=0.0) for p in prompts]
     engine.drain()
@@ -267,7 +467,7 @@ def generate_phase(model, params, card):
     prompt = np.random.default_rng(1).integers(0, model.config.vocab_size, size=(4, 128))
     generate(model, params, prompt, 4, temperature=0)  # warmup
     torch.cuda.synchronize()
-    da.decode_attention.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = generate(model, params, prompt, 64, temperature=0)
     torch.cuda.synchronize()
@@ -324,6 +524,193 @@ def model_check_phase():
          serve_equals_generate=True)
 
 
+# -- phases 7-9: training ---------------------------------------------------
+
+class StepClock(Capsule):
+    """Runs after the Module in every iteration (priority 10): reads the
+    step's loss (a device sync), stamps the host clock after a
+    ``synchronize``, and keeps a ``torch.profiler`` window over the last
+    ``profile_last`` steps."""
+
+    def __init__(self, profile_last: int = 0):
+        super().__init__(priority=10)
+        self.profile_last = profile_last
+        self.stamps, self.losses = [], []
+        self.prof, self.prof_wall = None, None
+
+    def set(self, attrs=None):
+        super().set(attrs)
+        self.repeats = attrs.looper.repeats
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def launch(self, attrs=None):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.losses.append(float(attrs.step_metrics["loss"]))
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        done = len(self.losses)
+        if self.profile_last and done == self.repeats - self.profile_last:
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+            self.prof_t0 = self.stamps[-1]
+        elif self.prof is not None and done == self.repeats:
+            self.prof.stop()
+            self.prof_wall = self.stamps[-1] - self.prof_t0
+
+
+def train_data(seq_len: int, vocab: int) -> TokenDataset:
+    """``examples/gpt2.py``'s corpus: CharTokenizer over the synthetic text."""
+    text = synthetic_corpus(num_chars=1_000_000)
+    return TokenDataset(CharTokenizer(text).encode(text) % vocab, seq_len=seq_len)
+
+
+def run_train(cfg, batch: int, steps: int, profile_last: int = 0):
+    """``steps`` steps of ``examples/gpt2.py``'s capsule tree (no
+    Checkpointer, Profiler or Tracker) on a fresh Runtime on the card, with
+    the kernel launch counts zeroed just before and read just after."""
+    model = TransformerLM(cfg)
+    clock = StepClock(profile_last)
+    launcher = rt.Launcher([rt.Looper([
+        rt.Dataset(train_data(cfg.max_seq_len, cfg.vocab_size), batch_size=batch, shuffle=True,
+                   drop_last=True),
+        rt.Module(model, [
+            rt.Loss(next_token_loss()),
+            rt.Optimizer(optim.adamw(weight_decay=0.1)),
+            rt.Scheduler(optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, steps // 50),
+                                                decay_steps=steps)),
+        ], compute_dtype=torch.bfloat16, remat=True),
+        clock,
+    ], repeats=steps, progress=False)], runtime=rt.Runtime(seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    launcher.launch()
+    counts = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
+              "flash_dq": fa.flash_dq.launches}
+    require(len(clock.losses) == steps, f"train ran {len(clock.losses)} of {steps} steps")
+    require(all(math.isfinite(x) for x in clock.losses), f"non-finite loss: {clock.losses}")
+    return clock, counts
+
+
+def _train_group(kernel: str) -> str:
+    """The train profile's device-time group of a kernel name. Nearly all
+    int64 elementwise work in a train step is the dropout masks' counter
+    hash (``nn/keys.py``); the rest is a few T-long index vectors."""
+    if "flash_" in kernel and "_kernel<" in kernel:
+        return "flash kernels"
+    if any(k in kernel for k in ("gemm", "nvjet", "xmma")):
+        return "GEMMs"
+    if "elementwise" in kernel and "<long" in kernel:
+        return "int64 elementwise"
+    if "multi_tensor_apply" in kernel:
+        return "optimizer (multi-tensor apply)"
+    return "other"
+
+
+def _device_profile(prof, wall):
+    """(busy seconds, idle share, top device ops, seconds per
+    :func:`_train_group`) of a profiler window. One stream, so summed
+    kernel/copy times do not overlap."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() * 1e-6
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    groups: dict = {}
+    for name, t in by_name.items():
+        groups[_train_group(name)] = groups.get(_train_group(name), 0.0) + t
+    return busy, (1.0 - busy / wall) if busy else None, [
+        {"name": n[:120], "s": t, "share_of_device": t / busy} for n, t in top], groups
+
+
+def train_phase(card):
+    """GPT-2 124M at full width (dropout 0.1, loss_chunk 128, bf16 compute,
+    remat) through the Launcher: B=8, T=1024, TRAIN_STEPS timed steps then
+    PROFILE_STEPS under torch.profiler. Under the whole-forward remat each
+    layer's flash forward runs twice per step (forward and recompute) and
+    its backward once."""
+    cfg = TransformerConfig.gpt2_124m()
+    b, t, layers = 8, cfg.max_seq_len, cfg.num_layers
+    steps = TRAIN_STEPS + PROFILE_STEPS
+    clock, counts = run_train(cfg, b, steps, profile_last=PROFILE_STEPS)
+    losses = clock.losses
+    require(float(np.mean(losses[-5:])) < losses[0],
+            f"train loss did not fall: first {losses[0]}, last five {losses[-5:]}")
+    require(counts == {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps,
+                       "flash_dq": 0}, f"train launches {counts} over {steps} steps")
+    step_s = np.diff(clock.stamps)[WARM_STEPS:TRAIN_STEPS]
+    median = float(np.median(step_s))
+    # examples/gpt2.py:114-120: analytic params and FLOPs per sample.
+    n_params = cfg.vocab_size * cfg.dim + cfg.max_seq_len * cfg.dim + layers * 12 * cfg.dim ** 2
+    flops_per_sample = 6.0 * n_params * t + 12.0 * layers * cfg.dim * t ** 2
+    tokens_per_s = b * t / median
+    emit("train", model="gpt2_124m", dtype="bfloat16", batch=b, seq_len=t, steps=steps,
+         losses=losses, step_ms_median=median * 1e3, step_ms=[x * 1e3 for x in step_s],
+         first_step_s=float(np.diff(clock.stamps)[0]), tokens_per_s=tokens_per_s,
+         mfu=tokens_per_s / t * flops_per_sample / PEAK_FLOPS[torch.bfloat16],
+         flops_per_sample=flops_per_sample, launches=counts,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    busy, idle, top, groups = _device_profile(clock.prof, clock.prof_wall)
+    emit("train_profile", steps=PROFILE_STEPS, wall_s=clock.prof_wall, device_busy_s=busy,
+         device_idle_share=idle, device_time_measured=busy > 0, top_kernels=top,
+         device_s_by_group=groups, card=card)
+    return counts
+
+
+def train_long_phase(card):
+    """GPT-2 124M at T=2048, B=8: the f32 dq partial buffer (nk * B * T *
+    H * D * 4 bytes, nk = T / 64) passes DQ_PARTIALS_MAX_BYTES, so the
+    backward takes flash_bwd without dq plus the accumulating flash_dq."""
+    cfg = TransformerConfig.gpt2_124m(max_seq_len=2048)
+    b, t, layers, steps = 8, 2048, cfg.num_layers, 3
+    partial_bytes = -(-t // fa.TILE) * b * t * cfg.dim * 4
+    require(partial_bytes > fa.DQ_PARTIALS_MAX_BYTES, "train_long does not pass the switch")
+    clock, counts = run_train(cfg, b, steps)
+    require(counts == {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps,
+                       "flash_dq": layers * steps}, f"train_long launches {counts}")
+    step_s = np.diff(clock.stamps)[1:]
+    emit("train_long", model="gpt2_124m", dtype="bfloat16", batch=b, seq_len=t, steps=steps,
+         losses=clock.losses, step_ms=[x * 1e3 for x in step_s],
+         tokens_per_s=b * t / float(np.median(step_s)), dq_partial_bytes=partial_bytes,
+         launches=counts, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    return counts
+
+
+def train_model_check():
+    """One training forward + backward at GPT-2 width, 2 layers, f32,
+    dropout 0, B=4, T=256 (the fused chunked loss): loss and every gradient
+    on the card (flash kernels) against the same params on the CPU (plain
+    attention)."""
+    cfg = TransformerConfig.gpt2_124m()
+    cfg.num_layers, cfg.activation_dtype, cfg.dropout = 2, None, 0.0
+    model = TransformerLM(cfg)
+    init = model.init(torch.Generator().manual_seed(4), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 256)))
+    result = {}
+    for dev in ("cpu", "cuda"):
+        params = map_params(lambda x: x.to(dev).requires_grad_(), init)
+        zero_launches()
+        out = model.apply(params, {"tokens": tokens.to(dev)}, mode="train")
+        loss = next_token_loss()(out)
+        leaves = optim.param_leaves(params)
+        grads = torch.autograd.grad(loss, leaves)
+        result[dev] = (loss.item(), [g.cpu() for g in grads])
+    require(fa.flash_fwd.launches == 2 and fa.flash_bwd.launches == 2,
+            "train_model_check: the card pass did not run the flash kernels")
+    loss_err = abs(result["cuda"][0] - result["cpu"][0])
+    grad_err = max(((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+                   for g, w in zip(result["cuda"][1], result["cpu"][1]))
+    require(loss_err <= TRAIN_TOL["loss"], f"train loss card vs cpu: {loss_err}")
+    require(grad_err <= TRAIN_TOL["grad"], f"train grads card vs cpu: relative {grad_err}")
+    emit("train_model_check", layers=2, dim=768, dtype="float32", batch=4, seq_len=256,
+         loss=result["cuda"][0], loss_err=loss_err, grad_rel_err=grad_err, tol=TRAIN_TOL,
+         n_grads=len(result["cuda"][1]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -340,21 +727,31 @@ def main() -> int:
     built = _build.build()
     emit("build", seconds=time.perf_counter() - t0, kernels={
         name: {"seconds": info["seconds"],
-               "ptxas": [ln.strip() for ln in info["ptxas"].splitlines() if "Used" in ln]}
+               "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
+                         if "Used" in ln or "spill" in ln]}
         for name, info in built.items()})
 
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
     paged = check_paged(timer, gen)
     decode = check_decode_attention(timer, gen)
+    flash = check_flash(timer, gen)
+    flash_long = check_flash_long(timer, gen)
+    time_dq_strategies(timer, gen)
     del timer
+    torch.cuda.empty_cache()
 
     model = TransformerLM(TransformerConfig.gpt2_124m())
     params = model.init(torch.Generator().manual_seed(0))
     paged["launches"] = serve_phase(model, params, card)
     decode["launches"] = generate_phase(model, params, card)
     del params
+    train = train_phase(card)
+    flash["flash_fwd"]["launches"] = train["flash_fwd"]
+    flash["flash_bwd"]["launches"] = train["flash_bwd"]
+    flash_long["flash_dq"]["launches"] = train_long_phase(card)["flash_dq"]
     model_check_phase()
+    train_model_check()
 
     kernels = []
     for name, row, src, replaces in (
@@ -362,6 +759,12 @@ def main() -> int:
          "rocket_tpu/ops/paged_attention.py:137"),
         ("decode_attention", decode, "rocket_tpu_torch/csrc/decode_attention.cu",
          "rocket_tpu/ops/decode_attention.py:64"),
+        ("flash_fwd", flash["flash_fwd"], "rocket_tpu_torch/csrc/flash_fwd.cu",
+         "rocket_tpu/ops/flash_native.py:134"),
+        ("flash_bwd", flash["flash_bwd"], "rocket_tpu_torch/csrc/flash_bwd.cu",
+         "rocket_tpu/ops/flash_native.py:270"),
+        ("flash_dq", flash_long["flash_dq"], "rocket_tpu_torch/csrc/flash_dq.cu",
+         "rocket_tpu/ops/flash_native.py:348"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",

@@ -1,18 +1,43 @@
 """rocket_tpu_torch — the PyTorch/CUDA port of ``rocket_tpu`` for NVIDIA Hopper.
 
 The JAX package ``rocket_tpu`` stays the reference; this package mirrors
-its module paths (``nn/``, ``ops/``, ``models/``, ``serve/``, ``data/``) so
-each counterpart is easy to find, and never imports it (nor ``jax``).
+its module paths (``core/``, ``nn/``, ``ops/``, ``models/``, ``serve/``,
+``data/``, ``optim``, ``runtime``) so each counterpart is easy to find,
+and never imports it (nor ``jax``).
 
-What is ported so far is the serving path: GPT-2 / Llama-style decoder
-LMs served through the paged-KV engine (``serve.ServeEngine``) and
-``models.transformer.generate``. The two TPU kernels on that path are
-hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc``
-into ``build/kernels/`` at first use (``ops/_build.py``).
+Ported so far: training decoder LMs (GPT-2 124M, Llama-style GQA/RoPE)
+through the capsule tree ``Launcher -> Looper -> Dataset, Module(Loss,
+Optimizer, Scheduler)``, and serving them through the paged-KV engine
+(``serve.ServeEngine``) and ``models.transformer.generate``. The TPU
+kernels on those paths — flash attention forward, fused backward and
+accumulating dq, paged decode and decode attention — are hand-written
+CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc`` into
+``build/kernels/`` at first use (``ops/_build.py``).
+
+A training script reads as the JAX one does::
+
+    import rocket_tpu_torch as rt
+    rt.Launcher([rt.Looper([rt.Dataset(data, batch_size=8),
+                            rt.Module(model, [rt.Loss(...), rt.Optimizer(...)])])],
+                runtime=rt.Runtime()).launch()
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``runtime.resolve_device``); on CPU tensors every kernel wrapper takes
 its plain PyTorch version.
 """
 
-__version__ = "0.1.0"
+from rocket_tpu_torch.core import (
+    Dataset,
+    Launcher,
+    Looper,
+    Loss,
+    Module,
+    Optimizer,
+    Scheduler,
+)
+from rocket_tpu_torch.runtime import Runtime
+
+__version__ = "0.2.0"
+
+__all__ = ["Dataset", "Launcher", "Looper", "Loss", "Module", "Optimizer", "Runtime",
+           "Scheduler"]

@@ -1,0 +1,160 @@
+"""Looper — the per-phase iteration loop, one per train/val/test phase
+(counterpart of ``rocket_tpu/core/loop.py``).
+
+* ``set()`` infers the iteration count by summing child ``Dataset``
+  totals (an explicit ``repeats`` wins; none at all is an error), and
+  publishes the loop contract ``attrs.looper = {repeats, state,
+  terminate, tag}``;
+* ``launch()`` per iteration clears ``attrs.batch``, sets ``attrs.mode``,
+  runs the children as one dispatch wave and breaks on
+  ``attrs.looper.terminate``;
+* ``grad_enabled`` becomes ``attrs.mode = "train" | "eval"``, which
+  Module / Loss / Optimizer read from the bag (the reference's explicit
+  mode, not torch's ambient grad mode); ``run_every`` skips whole
+  epochs; nested Loopers are forbidden; ``epoch_idx`` / ``batch_idx`` are
+  the stateful position.
+
+The telemetry spans, drain, fault injection, health and strict-mode hooks
+of the reference loop wait for the ops plane (ROADMAP Queue A 7).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+from rocket_tpu_torch.core.attributes import Attributes
+from rocket_tpu_torch.core.capsule import Capsule
+from rocket_tpu_torch.core.dispatcher import Dispatcher
+
+__all__ = ["Looper"]
+
+
+class Looper(Dispatcher):
+    """Drives its children for ``repeats`` iterations per epoch.
+
+    ``tag``: phase name. ``grad_enabled``: True -> ``attrs.mode =
+    "train"``, False -> ``"eval"``. ``repeats``: explicit iteration count
+    (None: inferred each epoch from child ``Dataset`` totals).
+    ``run_every``: run only on epochs where ``epoch_idx % run_every ==
+    0``. ``progress``: a tqdm bar (when tqdm is installed) whose postfix,
+    every ``postfix_every`` iterations, reads ``attrs.looper.state`` —
+    a device sync each time it does.
+    """
+
+    def __init__(self, capsules: Iterable[Capsule] = (), tag: str = "train",
+                 grad_enabled: bool = True, repeats: Optional[int] = None, run_every: int = 1,
+                 progress: bool = True, postfix_every: int = 1, statefull: bool = True,
+                 priority: int = 1000, runtime=None) -> None:
+        super().__init__(capsules, statefull=statefull, priority=priority, runtime=runtime)
+        if run_every < 1:
+            raise RuntimeError(f"Looper: run_every must be >= 1, got {run_every}")
+        self._tag = tag
+        self._grad_enabled = grad_enabled
+        self._explicit_repeats = repeats
+        self._repeats: Optional[int] = repeats
+        self._run_every = run_every
+        self._progress = progress
+        self._postfix_every = max(1, postfix_every)
+        self._epoch_idx = 0
+        self._batch_idx = 0
+        self._active = True
+
+    @property
+    def tag(self) -> str:
+        return self._tag
+
+    @property
+    def mode(self) -> str:
+        return "train" if self._grad_enabled else "eval"
+
+    def guard(self, capsules: Iterable[Capsule]) -> None:
+        super().guard(capsules)
+        for capsule in capsules:
+            if isinstance(capsule, Looper):
+                raise RuntimeError("Looper: nested Loopers are forbidden; compose phases "
+                                   "side by side under the Launcher.")
+
+    def _gated(self, attrs: Attributes | None) -> bool:
+        epoch = 0
+        if attrs is not None and attrs.launcher is not None:
+            epoch = attrs.launcher.epoch_idx or 0
+        return epoch % self._run_every != 0
+
+    # -- events ------------------------------------------------------------
+
+    def set(self, attrs: Attributes | None = None) -> None:
+        self._active = not self._gated(attrs)
+        if not self._active:
+            return
+        attrs = Attributes() if attrs is None else attrs
+        if self._explicit_repeats is None:
+            self._repeats = self._infer_repeats()
+        if self._repeats is None:
+            raise RuntimeError("Looper: cannot infer repeats — no child Dataset reports a "
+                               "finite total; pass repeats= explicitly.")
+        attrs.mode = self.mode
+        attrs.looper = Attributes(repeats=self._repeats, state=Attributes(), terminate=False,
+                                  tag=self._tag)
+        super().set(attrs)
+
+    def launch(self, attrs: Attributes | None = None) -> None:
+        if not self._active:
+            return
+        attrs = Attributes() if attrs is None else attrs
+        self.log_debug(f"launch: {self._repeats} iterations [{self._tag}]")
+        bar = self._progress_bar()
+        try:
+            for _ in range(self._batch_idx, self._repeats):
+                attrs.batch = None
+                attrs.mode = self.mode
+                Dispatcher.launch(self, attrs)
+                if attrs.looper is not None and attrs.looper.terminate:
+                    break
+                self._batch_idx += 1
+                if bar is not None:
+                    bar.update(1)
+                    if (self._batch_idx % self._postfix_every == 0 and attrs.looper is not None
+                            and attrs.looper.state):
+                        bar.set_postfix({k: f"{float(v):.4g}"
+                                         for k, v in attrs.looper.state.items()}, refresh=False)
+        finally:
+            if bar is not None:
+                bar.close()
+
+    def reset(self, attrs: Attributes | None = None) -> None:
+        if not self._active:
+            return
+        self._epoch_idx += 1
+        self._batch_idx = 0
+        super().reset(attrs)
+        if attrs is not None:
+            attrs.mode = None
+            attrs.looper = None
+
+    # -- helpers -----------------------------------------------------------
+
+    def _infer_repeats(self) -> Optional[int]:
+        from rocket_tpu_torch.core.dataset import Dataset
+
+        totals = [d.total for d in self.find(Dataset)]
+        totals = [t for t in totals if t is not None]
+        return sum(totals) if totals else None
+
+    def _progress_bar(self):
+        if not self._progress:
+            return None
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            return None
+        return tqdm(total=self._repeats, initial=self._batch_idx, desc=self._tag, leave=True,
+                    dynamic_ncols=True)
+
+    # -- checkpoint state --------------------------------------------------
+
+    def state_dict(self) -> dict:
+        return {"epoch_idx": self._epoch_idx, "batch_idx": self._batch_idx}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._epoch_idx = int(state["epoch_idx"])
+        self._batch_idx = int(state["batch_idx"])

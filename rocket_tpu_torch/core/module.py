@@ -1,0 +1,263 @@
+"""Module capsule — wraps a model and runs its train and eval steps
+(counterpart of ``rocket_tpu/core/module.py``).
+
+* children are the post-forward pipeline — Loss / Optimizer / Scheduler —
+  and in eval the forward *replaces the batch*;
+* the model is prepared once per raw model object through the runtime's
+  ``models`` registry, so a train and an eval Module wrapping one model
+  share one set of params (and a caller may pre-register a prepared
+  record, as the JAX package allows);
+* train/eval follow ``attrs.mode`` set by the Looper.
+
+The train step is one function: the step's key ``fold_in(base key,
+step)`` (``nn/keys.py``), the forward (optionally under a whole-forward
+``torch.utils.checkpoint``), the objective, the backward, then gradient
+accumulation — the update happens on every ``accum``-th step with the
+mean of the window's gradients, at ``opt_step = step // accum`` — and the
+optimizer update at the schedule's lr for ``opt_step``. Params are f32
+masters; ``compute_dtype`` casts float batch inputs, and the model casts
+its params at use.
+
+Not ported yet, and raising ``NotImplementedError``: ``param_sharding``
+(ROADMAP Queue A 6), EMA params and ``batch_transform`` (Queue A 2).
+Bucketed gradient sync and the pipelined value-and-grad belong to Queue A
+6 as well (``Optimizer(grad_sync=...)`` and ``TransformerConfig.
+pipeline_axis`` raise there).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from rocket_tpu_torch import optim as optim_lib
+from rocket_tpu_torch.core.attributes import Attributes
+from rocket_tpu_torch.core.dispatcher import Dispatcher
+from rocket_tpu_torch.nn import keys
+from rocket_tpu_torch.nn.module import map_params
+
+__all__ = ["Module", "PreparedModule"]
+
+
+class PreparedModule:
+    """The shared prepared record of one raw model: its live state —
+    ``params`` (nested dict of f32 tensors), ``step`` (host int),
+    ``base_key`` (the counter-hash key the step keys fold from) and, once
+    a train Module set up, ``optimizer`` and the accumulation buffers.
+    Mutable on purpose: train and eval capsules wrapping one model see the
+    same state."""
+
+    def __init__(self, model, state: dict) -> None:
+        self.model = model
+        self.state = state
+
+
+class Module(Dispatcher):
+    """Capsule wrapping a model with ``init(generator, device) -> params``
+    and ``apply(params, batch, *, mode, rng) -> batch``.
+
+    ``compute_dtype``: float batch inputs are cast to it before the
+    forward. ``remat``: run the train forward under
+    ``torch.utils.checkpoint(use_reentrant=False)`` — activations are
+    recomputed in the backward (the dropout keys are counter hashes, so
+    the recompute draws the same masks). ``return_outputs``: ``"eval"``
+    (default) replaces ``attrs.batch`` with the forward's output in eval
+    only; ``"always"`` in train too.
+    """
+
+    def __init__(self, model, capsules=(), compute_dtype=None, remat: bool = False,
+                 param_sharding=None, return_outputs: str = "eval",
+                 ema_decay: Optional[float] = None, use_ema: bool = False,
+                 batch_transform=None, statefull: bool = False, priority: int = 1000,
+                 runtime=None) -> None:
+        if param_sharding is not None:
+            raise NotImplementedError("Module(param_sharding=...) needs multi-device "
+                                      "parallelism, not ported yet (ROADMAP Queue A 6)")
+        if ema_decay is not None or use_ema:
+            raise NotImplementedError("Module EMA params are not ported yet (ROADMAP Queue A 2)")
+        if batch_transform is not None:
+            raise NotImplementedError("Module(batch_transform=...) is not ported yet "
+                                      "(ROADMAP Queue A 2)")
+        if return_outputs not in ("eval", "always", "never"):
+            raise ValueError(f"Module: unknown return_outputs {return_outputs!r}")
+        super().__init__(capsules, statefull=statefull, priority=priority, runtime=runtime)
+        self._model = model
+        self._compute_dtype = compute_dtype
+        self._remat = remat
+        self._return_outputs = return_outputs
+        self._prepared: Optional[PreparedModule] = None
+        self._objective = None
+
+    @property
+    def prepared(self) -> Optional[PreparedModule]:
+        return self._prepared
+
+    @property
+    def state(self) -> Optional[dict]:
+        return None if self._prepared is None else self._prepared.state
+
+    def _find_contrib(self):
+        from rocket_tpu_torch.core.loss import Loss
+        from rocket_tpu_torch.core.optimizer import Optimizer
+        from rocket_tpu_torch.core.scheduler import Scheduler
+
+        losses, optimizers, schedulers = self.find(Loss), self.find(Optimizer), self.find(Scheduler)
+        if len(losses) > 1 or len(optimizers) > 1 or len(schedulers) > 1:
+            raise RuntimeError("Module: at most one Loss, Optimizer and Scheduler per Module.")
+        return (losses[0] if losses else None, optimizers[0] if optimizers else None,
+                schedulers[0] if schedulers else None)
+
+    # -- events ------------------------------------------------------------
+
+    def setup(self, attrs: Attributes | None = None) -> None:
+        super().setup(attrs)
+        runtime = self._runtime
+        prepared = runtime.models.lookup(self._model)
+        if prepared is None:
+            gen = torch.Generator().manual_seed(runtime.next_seed())
+            params = self._model.init(gen, device=runtime.device)
+            prepared = PreparedModule(self._model, {"params": params})
+            runtime.models.add(self._model, prepared)
+        state = prepared.state
+        state.setdefault("step", 0)
+        if "base_key" not in state:
+            state["base_key"] = keys.key(runtime.next_seed())
+        self._prepared = prepared
+
+        loss, opt, sched = self._find_contrib()
+        if opt is not None:
+            if loss is None:
+                raise RuntimeError("Module: an Optimizer child requires a Loss child.")
+            if "optimizer" not in state:
+                state["params"] = map_params(
+                    lambda t: t.detach().to(runtime.device).requires_grad_(t.is_floating_point()),
+                    state["params"])
+                state["optimizer"] = optim_lib.resolve(opt.opt, state["params"])
+                if runtime.gradient_accumulation_steps > 1:
+                    state["grad_accum"] = [torch.zeros_like(p) for p in
+                                           optim_lib.param_leaves(state["params"])]
+                    state["loss_acc"] = torch.zeros((), device=runtime.device)
+            if sched is not None:
+                self._lr_fn = sched.schedule
+            else:
+                lr = opt.learning_rate if opt.learning_rate is not None else 1e-3
+                self._lr_fn = optim_lib.constant_lr(lr)
+            self._objective = loss.objective
+            self._clip_norm = opt.clip_norm
+        elif loss is not None:
+            raise RuntimeError("Module: a Loss child requires an Optimizer child.")
+        else:
+            state["params"] = map_params(lambda t: t.to(runtime.device), state["params"])
+
+    # -- steps -------------------------------------------------------------
+
+    def _forward(self, params, batch, mode, rng):
+        if self._compute_dtype is not None:
+            batch = {k: v.to(self._compute_dtype)
+                     if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+                     for k, v in batch.items()}
+        fn = lambda b: self._model.apply(params, b, mode=mode, rng=rng)  # noqa: E731
+        if self._remat and mode == "train":
+            return checkpoint(fn, batch, use_reentrant=False)
+        return fn(batch)
+
+    def _update(self, leaves, grads, opt_step):
+        """Clip (optax's ``clip_by_global_norm``), set the schedule's lr for
+        ``opt_step`` and take one optimizer step. Returns the pre-clip
+        global norm when clipping, else None."""
+        norm = None
+        if self._clip_norm is not None:
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            factor = self._clip_norm / torch.clamp(norm, min=self._clip_norm)
+            grads = [g * factor for g in grads]
+        opt = self._prepared.state["optimizer"]
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        lr = float(self._lr_fn(opt_step))
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        for p in leaves:
+            p.grad = None
+        return norm
+
+    def _train_step(self, batch):
+        state = self._prepared.state
+        step = state["step"]
+        accum = self._runtime.gradient_accumulation_steps
+        leaves = optim_lib.param_leaves(state["params"])
+        rng = keys.fold_in(state["base_key"], step)
+        with torch.enable_grad():
+            out = self._forward(state["params"], batch, "train", rng)
+            loss = self._objective(out).float()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        loss = loss.detach()
+        metrics = {"loss": loss}
+        if accum == 1:
+            opt_step = step
+            grad_norm = self._update(leaves, grads, opt_step)
+            metrics["loss_window"] = loss
+        else:
+            opt_step = step // accum
+            for a, g in zip(state["grad_accum"], grads):
+                a.add_(g)
+            state["loss_acc"] = state["loss_acc"] + loss / accum
+            grad_norm = None
+            if (step + 1) % accum == 0:
+                grad_norm = self._update(leaves, [a / accum for a in state["grad_accum"]],
+                                         opt_step)
+                for a in state["grad_accum"]:
+                    a.zero_()
+                metrics["loss_window"] = state["loss_acc"]
+                state["loss_acc"] = torch.zeros_like(state["loss_acc"])
+            else:
+                metrics["loss_window"] = torch.zeros_like(loss)
+        metrics["lr"] = float(self._lr_fn(opt_step))
+        if self._clip_norm is not None:
+            metrics["grad_norm"] = grad_norm if grad_norm is not None else torch.zeros_like(loss)
+        state["step"] = step + 1
+        return out, metrics
+
+    # -- launch ------------------------------------------------------------
+
+    def launch(self, attrs: Attributes | None = None) -> None:
+        if attrs is None or attrs.batch is None:
+            return
+        batch = dict(attrs.batch)
+        state = self._prepared.state
+        if attrs.mode == "train":
+            if self._objective is None:
+                raise RuntimeError("Module: train launch without Loss/Optimizer children — give "
+                                   "this Module its post-forward pipeline or run it in an eval "
+                                   "Looper.")
+            out, metrics = self._train_step(batch)
+            attrs.sync_gradients = state["step"] % self._runtime.gradient_accumulation_steps == 0
+            attrs.step_metrics = Attributes(metrics)
+            if self._return_outputs == "always":
+                attrs.batch = out
+        else:
+            with torch.no_grad():
+                attrs.batch = self._forward(state["params"], batch, "eval", None)
+            attrs.step_metrics = None
+            attrs.sync_gradients = None
+        Dispatcher.launch(self, attrs)
+
+    def destroy(self, attrs: Attributes | None = None) -> None:
+        if self._prepared is not None and self._runtime is not None:
+            self._runtime.models.remove(self._model)
+        self._prepared = None
+        super().destroy(attrs)
+
+    def __repr__(self) -> str:
+        head = f"Module({type(self._model).__name__})"
+        if not self._capsules:
+            return head
+        lines = [head + "("]
+        for capsule in self._capsules:
+            lines.append("\n".join("    " + ln for ln in repr(capsule).splitlines()) + ",")
+        lines.append(")")
+        return "\n".join(lines)

@@ -1,0 +1,76 @@
+"""Optimizer capsule — contributes the update rule to the Module's train
+step (counterpart of ``rocket_tpu/core/optimizer.py``).
+
+``opt`` is a factory ``fn(params) -> torch.optim.Optimizer``
+(``rocket_tpu_torch.optim``); the Module builds it over its params and
+sets its learning rate before every update. ``clip_norm`` clips the
+gradients to that global L2 norm first, by optax's formula
+``g * c / max(||g||, c)`` (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
+to the norm and would differ). At launch the capsule keeps its host-side
+roles: on the sync boundary it publishes lr (and the pre-clip grad norm)
+and counts updates.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from rocket_tpu_torch.core.attributes import Attributes
+from rocket_tpu_torch.core.capsule import Capsule
+
+__all__ = ["Optimizer"]
+
+
+class Optimizer(Capsule):
+    def __init__(self, opt: Callable, learning_rate: Optional[float] = None,
+                 clip_norm: Optional[float] = None, grad_sync: str = "auto",
+                 statefull: bool = False, priority: int = 1000, runtime=None) -> None:
+        """``grad_sync``: "auto" and "off" are the same in one process (no
+        gradient reduction exists); "bucketed" needs the data-parallel
+        slice (ROADMAP Queue A 6)."""
+        if grad_sync not in ("auto", "bucketed", "off"):
+            raise ValueError(f"Optimizer: grad_sync must be auto|bucketed|off, got {grad_sync!r}")
+        if grad_sync == "bucketed":
+            raise NotImplementedError("Optimizer(grad_sync='bucketed') needs multi-device "
+                                      "parallelism, not ported yet (ROADMAP Queue A 6)")
+        super().__init__(statefull=statefull, priority=priority, runtime=runtime)
+        self._opt = opt
+        self._learning_rate = learning_rate
+        self._clip_norm = clip_norm
+        self._iter_idx = 0
+
+    @property
+    def opt(self) -> Callable:
+        return self._opt
+
+    @property
+    def clip_norm(self) -> Optional[float]:
+        return self._clip_norm
+
+    @property
+    def learning_rate(self) -> Optional[float]:
+        return self._learning_rate
+
+    @property
+    def iter_idx(self) -> int:
+        return self._iter_idx
+
+    def launch(self, attrs: Attributes | None = None) -> None:
+        if attrs is None or attrs.mode != "train" or not attrs.sync_gradients:
+            return
+        self._iter_idx += 1
+        metrics = attrs.step_metrics
+        if metrics is None:
+            return
+        for key in ("lr", "grad_norm"):
+            if metrics[key] is not None:
+                if attrs.tracker is not None:
+                    attrs.tracker.scalars[key] = metrics[key]
+                if attrs.looper is not None:
+                    attrs.looper.state[key] = metrics[key]
+
+    def state_dict(self) -> dict:
+        return {"iter_idx": self._iter_idx}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._iter_idx = int(state["iter_idx"])

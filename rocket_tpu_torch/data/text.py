@@ -1,13 +1,13 @@
-"""Text data for the char-LM serving config: the character tokenizer and
-the deterministic synthetic corpus (counterparts of the two in
-``rocket_tpu/data/text.py``; the rest of that module lands with the
-training slice)."""
+"""Text data (counterparts in ``rocket_tpu/data/text.py``): the
+deterministic synthetic corpus, the character tokenizer and
+:class:`TokenDataset`, fixed-length windows over a token stream. The BPE
+tokenizer waits for a later slice (ROADMAP Queue A 2)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["CharTokenizer", "synthetic_corpus"]
+__all__ = ["CharTokenizer", "TokenDataset", "synthetic_corpus"]
 
 
 def synthetic_corpus(num_chars: int = 1_000_000, seed: int = 0) -> str:
@@ -47,3 +47,28 @@ class CharTokenizer:
 
     def decode(self, tokens) -> str:
         return "".join(self.vocab[int(t)] for t in tokens)
+
+
+class TokenDataset:
+    """Fixed-length windows over a token stream: sample i is
+    ``tokens[i*stride : i*stride + seq_len]``, batches are ``{"tokens":
+    (B, T) int32}`` (the next-token objective shifts internally).
+    ``get_batch`` is the vectorized path the ``Dataset`` capsule takes."""
+
+    def __init__(self, tokens: np.ndarray, seq_len: int, stride: int | None = None):
+        self._tokens = np.asarray(tokens, np.int32)
+        self.seq_len = seq_len
+        self.stride = stride or seq_len
+        self._n = max(0, (len(self._tokens) - seq_len) // self.stride + 1)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, idx: int) -> dict:
+        start = idx * self.stride
+        return {"tokens": self._tokens[start:start + self.seq_len]}
+
+    def get_batch(self, indices) -> dict:
+        starts = np.asarray(indices) * self.stride
+        window = starts[:, None] + np.arange(self.seq_len)[None, :]
+        return {"tokens": self._tokens[window]}

@@ -1,15 +1,16 @@
-"""Decoder-only transformer LM for decoding and serving (counterpart of
+"""Decoder-only transformer LM (counterpart of
 ``rocket_tpu/models/transformer.py``): the config and its presets, the
-pre-LN :class:`Block` decode paths and :class:`TransformerLM`'s
-``init`` / ``init_cache`` / ``decode_step`` / ``decode_step_paged``, plus
-:func:`generate` with the KV cache.
+pre-LN :class:`Block`, :class:`TransformerLM`'s training forward
+(``apply``, with the fused chunked head + cross-entropy), its decode
+entry points (``init_cache`` / ``decode_step`` / ``decode_step_paged``),
+:func:`next_token_loss` and :func:`generate` (KV cache or recompute).
 
 Parameters are nested dicts laid out as the JAX param tree with the
 per-layer ``blocks`` subtree (a scanned JAX tree's ``blocks_stacked`` is
 unstacked by ``rocket_tpu_torch.bridge``). Not ported yet, and raising
-``NotImplementedError`` where a config asks for them: the training
-forward and ``generate(use_cache=False)`` (ROADMAP Queue A 1), MoE
-(Queue A 5), pipeline and tensor parallelism (Queue A 6).
+``NotImplementedError`` where a config asks for them: MoE (ROADMAP
+Queue A 5), pipeline and tensor parallelism and ring attention (Queue A
+6); ``scan_layers`` has no counterpart (the blocks run as a Python loop).
 """
 
 from __future__ import annotations
@@ -19,14 +20,20 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rocket_tpu_torch.models.sampling import freeze_after_eos, sample_tokens, seed_from
-from rocket_tpu_torch.nn.attention import MultiHeadAttention
-from rocket_tpu_torch.nn.layers import Dense, Embedding, LayerNorm, RMSNorm, gelu, silu
+from rocket_tpu_torch.nn import keys
+from rocket_tpu_torch.nn.attention import IMPLS, MultiHeadAttention
+from rocket_tpu_torch.nn.layers import Dense, Dropout, Embedding, LayerNorm, RMSNorm, gelu, silu
 from rocket_tpu_torch.nn.module import Layer, map_params
 from rocket_tpu_torch.runtime import resolve_device
 
-__all__ = ["TransformerConfig", "TransformerLM", "Block", "generate", "decode_params"]
+__all__ = [
+    "TransformerConfig", "TransformerLM", "Block", "next_token_loss", "generate",
+    "decode_params",
+]
 
 
 @dataclass
@@ -39,9 +46,15 @@ class TransformerConfig:
     #: Grouped-query attention: K/V heads (None = num_heads; 1 = MQA).
     num_kv_heads: Optional[int] = None
     mlp_ratio: int = 4
-    #: Training-only in the JAX package; decoding runs in eval semantics.
+    #: Train-mode dropout on the embedding, each residual branch and the
+    #: attention output; decoding runs in eval semantics.
     dropout: float = 0.0
+    #: Causal (decoder) attention; False builds encoder blocks.
+    causal: bool = True
     tied_embeddings: bool = True
+    #: "auto" | "plain" | "flash" (``nn.attention.resolve_impl``); "ring"
+    #: is not ported yet and raises.
+    attention_impl: str = "auto"
     #: Activation dtype of the trunk (e.g. "bfloat16"); params stay f32
     #: masters and are cast once before decoding (:func:`decode_params`).
     activation_dtype: Optional[str] = None
@@ -56,6 +69,14 @@ class TransformerConfig:
     num_experts: int = 0
     #: Pipeline parallelism: not ported yet (must stay None).
     pipeline_axis: Optional[str] = None
+    #: Fused head + cross-entropy chunk (0 = off): in train mode the model
+    #: writes the next-token NLL (``batch["nll"]``) computed per T-chunk
+    #: with each chunk's logits recomputed in the backward, so the (B, T,
+    #: V) logits never exist. Eval mode always materializes logits.
+    loss_chunk: int = 0
+    #: Label smoothing of the training loss (target (1-eps) one-hot + eps
+    #: uniform), applied by whichever loss path runs.
+    label_smoothing: float = 0.0
 
     def validate(self) -> None:
         if self.norm not in ("layernorm", "rmsnorm"):
@@ -64,6 +85,17 @@ class TransformerConfig:
             raise ValueError(f"TransformerConfig: unknown mlp {self.mlp!r}")
         if self.pos_embedding not in ("learned", "rope"):
             raise ValueError(f"TransformerConfig: unknown pos_embedding {self.pos_embedding!r}")
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ValueError(
+                f"TransformerConfig: label_smoothing must be in [0, 1), got {self.label_smoothing}"
+            )
+        if self.attention_impl not in IMPLS:
+            raise ValueError(f"TransformerConfig: unknown attention_impl {self.attention_impl!r}")
+        if self.attention_impl == "ring":
+            raise NotImplementedError(
+                "TransformerConfig: attention_impl='ring' (sequence parallelism) is not ported "
+                "yet (ROADMAP Queue A 6)"
+            )
         if self.num_experts > 0:
             raise NotImplementedError(
                 "TransformerConfig: MoE (num_experts > 0) is not ported yet "
@@ -96,7 +128,7 @@ class TransformerConfig:
         return TransformerConfig(
             vocab_size=vocab_size, max_seq_len=max_seq_len,
             dim=768, num_layers=12, num_heads=12, dropout=0.1,
-            activation_dtype="bfloat16",
+            activation_dtype="bfloat16", loss_chunk=128,
         )
 
     @staticmethod
@@ -109,7 +141,7 @@ class TransformerConfig:
             dim=dim, num_layers=num_layers, num_heads=num_heads,
             num_kv_heads=num_kv_heads, pos_embedding="rope", norm="rmsnorm",
             mlp="swiglu", tied_embeddings=False, dropout=0.0,
-            activation_dtype="bfloat16",
+            activation_dtype="bfloat16", loss_chunk=128,
         )
 
     @staticmethod
@@ -117,19 +149,20 @@ class TransformerConfig:
         return TransformerConfig(
             vocab_size=vocab_size, max_seq_len=max_seq_len,
             dim=1024, num_layers=24, num_heads=16, dropout=0.1,
-            activation_dtype="bfloat16",
+            activation_dtype="bfloat16", loss_chunk=128,
         )
 
 
 class Block(Layer):
     """Pre-LN block: ``x += attn(ln1(x)); x += mlp(ln2(x))``."""
 
-    def __init__(self, config: TransformerConfig):
+    def __init__(self, config: TransformerConfig, layer_idx: int = 0):
         c = config
         norm_cls = c.norm_cls()
         self.ln1 = norm_cls(c.dim)
         self.attn = MultiHeadAttention(
-            c.dim, c.num_heads, num_kv_heads=c.num_kv_heads,
+            c.dim, c.num_heads, num_kv_heads=c.num_kv_heads, causal=c.causal,
+            dropout=c.dropout, impl=c.attention_impl,
             rope=c.pos_embedding == "rope", rope_base=c.rope_base,
         )
         self.ln2 = norm_cls(c.dim)
@@ -137,8 +170,10 @@ class Block(Layer):
         self.fc_in = Dense(c.dim, hidden)        # the "up" projection under swiglu
         self.fc_gate = Dense(c.dim, hidden) if c.mlp == "swiglu" else None
         self.fc_out = Dense(hidden, c.dim)
+        self.dropout = Dropout(c.dropout) if c.dropout else None
         # GPT-2: residual projections scaled by 1/sqrt(2 * num_layers).
         self._resid_scale = (2 * c.num_layers) ** -0.5
+        self.layer_idx = layer_idx
 
     def init_params(self, gen):
         params = {
@@ -161,6 +196,21 @@ class Block(Layer):
             h = gelu(up)
         return self.fc_out(p["fc_out"], h)
 
+    def apply(self, params, x, *, mode="train", rng=None):
+        """``(B, T, D)`` through the block. Its keys are the reference's:
+        ``split(fold_in(rng, layer_idx), 3)`` for attention and the two
+        residual dropouts."""
+        rngs = (keys.split(keys.fold_in(rng, self.layer_idx), 3) if rng is not None
+                else (None, None, None))
+        h = self.attn.apply(params["attn"], self.ln1(params["ln1"], x), mode=mode, rng=rngs[0])
+        if self.dropout is not None:
+            h = self.dropout.apply({}, h, mode=mode, rng=rngs[1])
+        x = x + h
+        h = self._mlp(params["mlp"], self.ln2(params["ln2"], x))
+        if self.dropout is not None:
+            h = self.dropout.apply({}, h, mode=mode, rng=rngs[2])
+        return x + h
+
     def apply_cached(self, params, x, cache: dict, pos: int):
         """``(B, S, D)`` through the block with the dense KV cache."""
         h, cache = self.attn.apply_cached(params["attn"], self.ln1(params["ln1"], x), cache, pos)
@@ -178,22 +228,32 @@ class Block(Layer):
 
 
 class TransformerLM:
-    """GPT-2 / Llama-style decoder LM: the decode and serving entry points."""
+    """GPT-2 / Llama-style decoder LM.
 
-    def __init__(self, config: TransformerConfig):
+    Batch contract of :meth:`apply`: reads ``batch["tokens"]`` (B, T) and
+    writes ``batch["logits"]`` (B, T, V) — except in train mode with
+    ``config.loss_chunk > 0`` (and T a multiple of it), where the fused
+    head + cross-entropy writes the scalar ``batch["nll"]`` and no logits
+    exist."""
+
+    def __init__(self, config: TransformerConfig, tokens_key: str = "tokens",
+                 logits_key: str = "logits"):
         config.validate()
         self.config = config
+        self.tokens_key = tokens_key
+        self.logits_key = logits_key
         self.wte = Embedding(config.vocab_size, config.dim)
         self.wpe = (
             None if config.pos_embedding == "rope"
             else Embedding(config.max_seq_len, config.dim)
         )
-        self.blocks = [Block(config) for _ in range(config.num_layers)]
+        self.blocks = [Block(config, i) for i in range(config.num_layers)]
         self.ln_f = config.norm_cls()(config.dim)
         self.head = (
             None if config.tied_embeddings
             else Dense(config.dim, config.vocab_size, use_bias=False)
         )
+        self.drop = Dropout(config.dropout) if config.dropout else None
 
     def init(self, generator: Optional[torch.Generator] = None, device=None) -> dict:
         """Random f32 parameters (GPT-2 init: normal(0.02) embeddings,
@@ -210,6 +270,55 @@ class TransformerLM:
         if self.head is not None:
             params["head"] = self.head.init_params(gen)
         return map_params(lambda t: t.to(device), params)
+
+    def num_params(self, params: dict) -> int:
+        """The number of parameter elements."""
+        sizes = []
+        map_params(lambda t: sizes.append(t.numel()), params)
+        return sum(sizes)
+
+    # -- the training forward ----------------------------------------------
+
+    def apply(self, params, batch: dict, *, mode: str = "train", rng=None) -> dict:
+        """The full-sequence forward -> a copy of ``batch`` with ``logits``
+        (or, fused, ``nll``) added. ``rng`` is the step's counter-hash key
+        (``nn/keys.py``); train-mode dropout needs it. The embedding's key
+        is ``fold_in(rng, 0x0E0BED)``, a domain apart from the blocks'
+        ``fold_in(rng, layer_idx)``, as in the reference."""
+        c = self.config
+        tokens = batch[self.tokens_key]
+        b, t = tokens.shape
+        if t > c.max_seq_len:
+            raise ValueError(f"sequence length {t} > max_seq_len {c.max_seq_len}")
+        x = self.wte(params["wte"], tokens)
+        if self.wpe is not None:
+            x = x + params["wpe"]["table"][:t]
+        x = x.to(c.dtype)
+        if self.drop is not None:
+            x = self.drop.apply({}, x, mode=mode,
+                                rng=None if rng is None else keys.fold_in(rng, 0x0E0BED))
+        for i, block in enumerate(self.blocks):
+            x = block.apply(params["blocks"][str(i)], x, mode=mode, rng=rng)
+        x = self.ln_f(params["ln_f"], x)
+        out = dict(batch)
+        if c.label_smoothing and mode == "train":
+            out["label_smoothing"] = c.label_smoothing
+        if c.loss_chunk > 0 and mode == "train" and t > 1 and t % c.loss_chunk == 0:
+            # The head weight is cast once, outside the chunk loop.
+            if self.head is not None:
+                w = params["head"]["w"].to(x.dtype)
+                proj = lambda xc: xc @ w  # noqa: E731
+            else:
+                table = params["wte"]["table"].to(x.dtype)
+                proj = lambda xc: torch.einsum("bcd,vd->bcv", xc, table)  # noqa: E731
+            out["nll"] = _chunked_next_token_nll(x, tokens, c.loss_chunk, proj,
+                                                 c.label_smoothing)
+        elif self.head is not None:
+            out[self.logits_key] = self.head(params["head"], x)
+        else:
+            out[self.logits_key] = torch.einsum(
+                "btd,vd->btv", x, params["wte"]["table"].to(x.dtype))
+        return out
 
     # -- incremental decoding ---------------------------------------------
 
@@ -270,6 +379,56 @@ class TransformerLM:
         return self._head(params, x), k_pages, v_pages
 
 
+def _chunk_nll(x_c, y_c, m_c, proj, label_smoothing):
+    logits = proj(x_c).float()                                   # (b, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = logits.gather(-1, y_c[..., None])[..., 0]
+    if label_smoothing:
+        # Smoothed CE: lse - (1-eps)*label_logit - eps*mean(logits).
+        lab = (1.0 - label_smoothing) * lab + label_smoothing * logits.mean(-1)
+    return ((lse - lab) * m_c).sum()
+
+
+def _chunked_next_token_nll(x, tokens, chunk: int, proj, label_smoothing: float = 0.0):
+    """Mean next-token NLL without materializing (B, T, V) logits.
+
+    Each T-chunk's head projection + f32 softmax-CE runs under
+    ``torch.utils.checkpoint``, so the backward recomputes the chunk's
+    logits and only x (B, T, D) is kept. Position i predicts tokens[i+1];
+    the last position has no target and is masked, and the sum is divided
+    by ``b * (t - 1)`` — the mean of ``next_token_loss`` exactly."""
+    b, t, _ = x.shape
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+    mask = (torch.arange(t, device=x.device) < t - 1).float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(_chunk_nll, x[:, sl], targets[:, sl], mask[sl], proj,
+                                   label_smoothing, use_reentrant=False)
+    return total / (b * (t - 1))
+
+
+def next_token_loss(logits_key: str = "logits", tokens_key: str = "tokens"):
+    """Objective: mean cross-entropy of logits[:, :-1] vs tokens[:, 1:]
+    (f32 softmax). A batch from the fused path carries the ready ``nll``
+    scalar instead of logits."""
+
+    def objective(batch):
+        if "nll" in batch:
+            return batch["nll"]  # the fused path applied any label smoothing
+        logits = batch[logits_key][:, :-1].float()
+        targets = batch[tokens_key][:, 1:].long()
+        loss = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
+        eps = batch.get("label_smoothing")
+        if eps is not None:
+            # CE_smooth = (1-eps)*CE + eps*(lse - mean(logits)).
+            lse = torch.logsumexp(logits, dim=-1).flatten()
+            loss = (1.0 - eps) * loss + eps * (lse - logits.mean(-1).flatten())
+        return loss.mean()
+
+    return objective
+
+
 def decode_params(params: dict, activation_dtype: Optional[str]) -> dict:
     """Cast float params ONCE to the compute dtype before decoding: decode
     streams every weight each step, and reading f32 masters to make bf16
@@ -315,13 +474,9 @@ def generate(
     limit (or EOS) freeze, filling with their EOS (or 0 without one).
     Returns ``(B, prompt_len + max(max_new_tokens))`` int32 on the device.
 
-    ``use_cache=False`` (recomputing the prefix through the training
-    forward) is not ported yet (ROADMAP Queue A 1)."""
-    if not use_cache:
-        raise NotImplementedError(
-            "generate(use_cache=False) needs the training forward and flash "
-            "attention, not ported yet (ROADMAP Queue A 1)"
-        )
+    ``use_cache=False`` recomputes the whole causal prefix every step
+    through :meth:`TransformerLM.apply` in eval mode (on CUDA: the flash
+    kernels) — O(T^2) per token, but it exercises the training forward."""
     device = resolve_device(device)
     prompt = torch.as_tensor(np.asarray(prompt_tokens, np.int32))
     if prompt.dim() == 1:
@@ -351,14 +506,19 @@ def generate(
     buf = torch.zeros((b, total), dtype=torch.int32, device=device)
     buf[:, :start] = prompt.to(device)
     limits = torch.as_tensor(start + per_seq_new, device=device)
-    caches = model.init_cache(b, total, model.config.dtype, device)
     with torch.no_grad():
-        logits, caches = model.decode_step(params, buf[:, :start], caches, 0)
         done = start >= limits
+        if use_cache:
+            caches = model.init_cache(b, total, model.config.dtype, device)
+            logits, caches = model.decode_step(params, buf[:, :start], caches, 0)
         for i in range(start, total):
+            if not use_cache:
+                out = model.apply(params, {model.tokens_key: buf}, mode="eval")
+                logits = out[model.logits_key][:, i - 1]
             nxt = sample_tokens(logits, seed, i, temperature, top_k, top_p)
             nxt, done = freeze_after_eos(nxt.to(torch.int32), done, eos_vec)
             done = done | (i + 1 >= limits)
             buf[:, i] = nxt
-            logits, caches = model.decode_step(params, buf[:, i:i + 1], caches, i)
+            if use_cache:
+                logits, caches = model.decode_step(params, buf[:, i:i + 1], caches, i)
     return buf

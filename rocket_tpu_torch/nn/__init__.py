@@ -1,1 +1,1 @@
-"""Layers of the decode path (counterpart of ``rocket_tpu.nn``)."""
+"""Layers of the port (counterpart of ``rocket_tpu.nn``)."""

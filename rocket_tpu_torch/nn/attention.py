@@ -1,10 +1,12 @@
-"""Multi-head attention for decoding — the inference half of
-``rocket_tpu/nn/attention.py``: the fused QKV projection, RoPE, the
-dense-cache decode step (:meth:`MultiHeadAttention.apply_cached`) and the
-paged-pool step (:meth:`MultiHeadAttention.apply_paged`).
+"""Multi-head attention (counterpart of ``rocket_tpu/nn/attention.py``):
+the fused QKV projection, RoPE, the training forward
+(:meth:`MultiHeadAttention.apply`: the flash kernels of
+``ops/flash_native.py`` or the plain path), the dense-cache decode step
+(:meth:`MultiHeadAttention.apply_cached`) and the paged-pool step
+(:meth:`MultiHeadAttention.apply_paged`).
 
-The training forward, flash, ring attention and the tensor-parallel paths
-are not ported yet (ROADMAP, Queue A 1 and 6).
+Ring attention and the tensor-parallel paths are not ported yet (ROADMAP
+Queue A 6).
 """
 
 from __future__ import annotations
@@ -14,12 +16,74 @@ from typing import Optional
 
 import torch
 
+from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.layers import Dense
 from rocket_tpu_torch.nn.module import Layer
 from rocket_tpu_torch.ops.decode_attention import decode_attention, decode_attention_supported
+from rocket_tpu_torch.ops.flash_native import HEAD_DIMS, flash_bthd, flash_fused, flash_supported
 from rocket_tpu_torch.ops.paged_attention import paged_attention
 
-__all__ = ["MultiHeadAttention", "apply_rope", "apply_rope_offsets"]
+__all__ = [
+    "MultiHeadAttention", "apply_rope", "apply_rope_bthd", "apply_rope_offsets",
+    "dot_product_attention", "grouped_dot_product_attention", "resolve_impl",
+]
+
+IMPLS = ("auto", "plain", "flash", "ring")
+
+
+def resolve_impl(impl: str, d: int, device) -> str:
+    """Resolve an ``attention_impl`` of "auto" to "plain" or "flash".
+
+    CPU tensors take the plain path (as the reference does on the CPU).
+    CUDA tensors take the flash kernels, which support head dims D in
+    ``ops.flash_native.HEAD_DIMS`` (64, every preset's) and any sequence length
+    T; another D raises rather than falling back silently (pass
+    ``impl="plain"`` to choose the plain path on the card). The
+    reference's 128-multiple block rule for T is a TPU rule and does not
+    apply. Explicit impls pass through; "ring" is not ported yet."""
+    if impl == "ring":
+        raise NotImplementedError(
+            "attention impl='ring' (sequence parallelism) is not ported yet (ROADMAP Queue A 6)"
+        )
+    if impl != "auto":
+        return impl
+    if torch.device(device).type == "cpu":
+        return "plain"
+    if not flash_supported(d):
+        raise ValueError(
+            f"attention: head dim {d} has no flash kernel on CUDA (supported: {HEAD_DIMS}); "
+            "pass attention_impl='plain' to run the plain path"
+        )
+    return "flash"
+
+
+def dot_product_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """``(B, H, T, D)`` attention, scores and softmax in f32, the weights
+    cast to v's dtype before the PV product (the plain path)."""
+    t_q, d = q.shape[-2], q.shape[-1]
+    t_k = k.shape[-2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).tril(t_k - t_q)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+
+
+def grouped_dot_product_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """GQA attention: q ``(B, H, Tq, D)`` against k/v ``(B, Hkv, Tk, D)``,
+    each kv head serving its group of H/Hkv query heads (no repeat of K/V).
+    f32 softmax."""
+    b, h, t_q, d = q.shape
+    h_kv, t_k = k.shape[1], k.shape[-2]
+    q5 = q.reshape(b, h_kv, h // h_kv, t_q, d)
+    logits = torch.einsum("bkgqd,bkmd->bkgqm", q5.float(), k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).tril(t_k - t_q)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqm,bkmd->bkgqd", weights.to(v.dtype), v)
+    return out.reshape(b, h, t_q, d)
 
 
 def _rope_freqs(half: int, base: float, device) -> torch.Tensor:
@@ -46,6 +110,15 @@ def apply_rope(x: torch.Tensor, offset: int = 0, base: float = 10000.0) -> torch
     return _rope_rotate(x, torch.cos(angles), torch.sin(angles))
 
 
+def apply_rope_bthd(x: torch.Tensor, offset: int = 0, base: float = 10000.0) -> torch.Tensor:
+    """:func:`apply_rope` on feature-major ``(B, T, H, D)``, the flash
+    kernels' layout: positions ``offset .. offset+T`` along axis 1."""
+    half = x.shape[-1] // 2
+    pos = offset + torch.arange(x.shape[1], device=x.device)
+    angles = pos[:, None].float() * _rope_freqs(half, base, x.device)[None, :]
+    return _rope_rotate(x, torch.cos(angles)[:, None, :], torch.sin(angles)[:, None, :])
+
+
 def apply_rope_offsets(x: torch.Tensor, offsets: torch.Tensor,
                        base: float = 10000.0) -> torch.Tensor:
     """Rotary embedding on feature-major ``(B, T, H, D)`` with a per-row
@@ -60,14 +133,19 @@ def apply_rope_offsets(x: torch.Tensor, offsets: torch.Tensor,
 
 class MultiHeadAttention(Layer):
     """Self-attention with a fused ``[q | k | v]`` projection (k and v with
-    ``num_kv_heads`` heads each: GQA) and GPT-2 parameter layout."""
+    ``num_kv_heads`` heads each: GQA) and GPT-2 parameter layout.
+    ``dropout`` drops the attention OUTPUT (``(B, T, H, D)``, before the
+    output projection) in train mode, as the reference does."""
 
     def __init__(
         self,
         features: int,
         num_heads: int,
         num_kv_heads: Optional[int] = None,
+        causal: bool = True,
+        dropout: float = 0.0,
         use_bias: bool = True,
+        impl: str = "auto",
         rope: bool = False,
         rope_base: float = 10000.0,
     ):
@@ -75,6 +153,8 @@ class MultiHeadAttention(Layer):
             raise ValueError(
                 f"MultiHeadAttention: features {features} not divisible by num_heads {num_heads}"
             )
+        if impl not in IMPLS:
+            raise ValueError(f"MultiHeadAttention: unknown impl {impl!r}")
         num_kv_heads = num_heads if num_kv_heads is None else num_kv_heads
         if num_kv_heads < 1 or num_heads % num_kv_heads:
             raise ValueError(
@@ -87,6 +167,9 @@ class MultiHeadAttention(Layer):
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = features // num_heads
+        self.causal = causal
+        self.dropout = dropout
+        self.impl = impl
         self.rope = rope
         self.rope_base = rope_base
         self.qkv = Dense(features, (num_heads + 2 * num_kv_heads) * self.head_dim, use_bias)
@@ -104,6 +187,51 @@ class MultiHeadAttention(Layer):
         k = fused[..., hw:hw + kvw].reshape(*lead, self.num_kv_heads, self.head_dim)
         v = fused[..., hw + kvw:].reshape(*lead, self.num_kv_heads, self.head_dim)
         return q, k, v
+
+    def _attn_dropout(self, out, mode, rng):
+        """Attention-output dropout, salted ``fold_in(rng, 1)``."""
+        if not (self.dropout and mode == "train"):
+            return out
+        if rng is None:
+            raise ValueError("MultiHeadAttention: dropout needs rng in train")
+        keep = 1.0 - self.dropout
+        mask = keys.bernoulli(keys.fold_in(rng, 1), keep, out.shape, out.device)
+        return torch.where(mask, out / keep, torch.zeros((), dtype=out.dtype, device=out.device))
+
+    def apply(self, params, x: torch.Tensor, *, mode: str = "train", rng=None) -> torch.Tensor:
+        """Full-sequence attention ``(B, T, D) -> (B, T, D)``.
+
+        The flash path keeps operands feature-major: MHA without RoPE runs
+        :func:`flash_fused` on the QKV projection output itself; RoPE or
+        GQA slice it into ``(B, T, Hq*D)`` / ``(B, T, Hkv*D)`` operands for
+        :func:`flash_bthd`. The plain path is head-major einsums."""
+        b, t, _ = x.shape
+        fused = self.qkv(params["qkv"], x)
+        impl = resolve_impl(self.impl, self.head_dim, x.device)
+        h, h_kv, d = self.num_heads, self.num_kv_heads, self.head_dim
+        if impl == "flash":
+            if self.rope or h_kv != h:
+                hw, kvw = h * d, h_kv * d
+                q2, k2, v2 = fused[..., :hw], fused[..., hw:hw + kvw], fused[..., hw + kvw:]
+                if self.rope:
+                    q2 = apply_rope_bthd(q2.reshape(b, t, h, d), 0, self.rope_base).reshape(b, t, hw)
+                    k2 = apply_rope_bthd(k2.reshape(b, t, h_kv, d), 0,
+                                         self.rope_base).reshape(b, t, kvw)
+                out = flash_bthd(q2, k2, v2, h, h_kv, causal=self.causal)
+            else:
+                out = flash_fused(fused, h, causal=self.causal)
+        else:
+            q, k, v = (u.transpose(1, 2) for u in self._split(fused))
+            if self.rope:
+                q = apply_rope(q, 0, self.rope_base)
+                k = apply_rope(k, 0, self.rope_base)
+            if h_kv != h:
+                out = grouped_dot_product_attention(q, k, v, causal=self.causal)
+            else:
+                out = dot_product_attention(q, k, v, causal=self.causal)
+            out = out.transpose(1, 2)                          # (B, T, H, D)
+        out = self._attn_dropout(out, mode, rng)
+        return self.proj(params["proj"], out.reshape(b, t, self.features))
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> dict:
         """Empty ``(B, Hkv, T_max, D)`` K/V caches for :meth:`apply_cached`."""

@@ -1,0 +1,69 @@
+"""Counter-hash random keys for the training path (dropout), standing in
+for ``jax.random``'s ``fold_in`` / ``split`` / ``bernoulli``.
+
+A key is a plain 32-bit Python int. :func:`fold_in` and :func:`split`
+derive child keys on the host, so a step's keys follow from ``(base
+seed, step, layer, salt)`` alone; :func:`uniform` hashes ``(key,
+element index)`` on the tensor's device into uniforms in (0, 1). No
+generator state exists anywhere, which is what dropout under
+``torch.utils.checkpoint`` needs: checkpointing replays the default
+generators' state but not an explicit ``torch.Generator``, so a
+generator-drawn mask would differ between the forward and its
+recompute and the gradients would be silently wrong. A counter hash
+gives the recompute the same mask by construction.
+
+The bits cannot match JAX's; the tests compare distributions and the
+forward/recompute identity, and run the JAX comparisons with dropout 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rocket_tpu_torch.models.sampling import _mix
+
+__all__ = ["key", "fold_in", "split", "uniform", "bernoulli"]
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: int) -> int:
+    """The host twin of ``sampling._mix`` on a Python int."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _M32
+    x ^= x >> 15
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def key(seed: int) -> int:
+    """The root key of a seed."""
+    return _mix32(int(seed) ^ 0x5EED0001)
+
+
+def fold_in(k: int, data: int) -> int:
+    """A child key of ``k`` for the integer ``data`` (``jax.random.fold_in``)."""
+    return _mix32(k ^ _mix32((int(data) * 0x61C88647 + 0x7F4A7C15) & _M32))
+
+
+def split(k: int, num: int = 2) -> list:
+    """``num`` child keys of ``k`` (``jax.random.split``); a domain apart
+    from :func:`fold_in`'s small integers."""
+    return [fold_in(k, 0x5B11_7000 + i) for i in range(num)]
+
+
+def uniform(k: int, shape, device) -> torch.Tensor:
+    """f32 uniforms in (0, 1) of ``shape``: element ``i`` (row-major) is a
+    hash of ``(k, i)``, so one key gives the same values on any call."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    idx = torch.arange(n, device=device, dtype=torch.int64)
+    bits = _mix((idx * 0x61C88647 + _mix32(k)) & _M32)
+    return (((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))).reshape(shape)
+
+
+def bernoulli(k: int, p: float, shape, device) -> torch.Tensor:
+    """A boolean mask of ``shape``, True with probability ``p``."""
+    return uniform(k, shape, device) < p

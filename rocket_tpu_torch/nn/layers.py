@@ -1,5 +1,5 @@
-"""Core layers of the decode path: Dense, LayerNorm, RMSNorm, Embedding,
-Dropout (the identity in eval) and the activations.
+"""Core layers: Dense, LayerNorm, RMSNorm, Embedding, Dropout and the
+activations.
 
 Numerics follow ``rocket_tpu/nn/layers.py``: parameters are float32
 masters cast to the activation dtype at use; both norms compute their
@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.module import Layer
 
 __all__ = ["Dense", "LayerNorm", "RMSNorm", "Embedding", "Dropout", "gelu", "silu"]
@@ -122,14 +123,23 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    """Dropout in eval semantics: the identity. The port has no training
-    path yet, so there is no train mode to drop in."""
+    """Inverted dropout: in train mode keeps each element with probability
+    ``1 - rate`` and scales the kept ones by ``1 / (1 - rate)``; the
+    identity otherwise. The mask comes from the counter-hash key ``rng``
+    (``nn/keys.py``), never from a generator, so a checkpointed forward
+    and its recompute drop the same elements."""
 
     def __init__(self, rate: float):
         self.rate = rate
 
-    def apply(self, params, x):
-        return x
+    def apply(self, params, x, *, mode="eval", rng=None):
+        if mode != "train" or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("Dropout needs an rng in train mode")
+        keep = 1.0 - self.rate
+        mask = keys.bernoulli(rng, keep, x.shape, x.device)
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def __repr__(self):
         return f"Dropout({self.rate})"

@@ -3,9 +3,10 @@ an explicit nested dict of tensors threaded through :meth:`Layer.apply`.
 
 The dicts are laid out exactly as the JAX package's param pytrees
 (``{"w", "b"}``, ``{"scale", "bias"}``, ``{"table"}``), so a JAX tree
-converts with a rename-free copy (``rocket_tpu_torch.bridge``). Only the
-inference half of the JAX protocol is here: no ``state``, no ``mode`` and
-no rng — the ported layers run in eval semantics.
+converts with a rename-free copy (``rocket_tpu_torch.bridge``). There is
+no ``state``: the ported layers hold none. Layers that behave differently
+in training (dropout, attention) take keyword ``mode`` and ``rng`` (a
+counter-hash key, ``nn/keys.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ class Layer:
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return self.apply(params, x)
+    def __call__(self, params: dict, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.apply(params, x, **kwargs)
 
     def __repr__(self) -> str:
         return type(self).__name__

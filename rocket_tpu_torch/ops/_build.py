@@ -30,6 +30,9 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNELS = {
     "paged_decode": "paged_decode.cu",
     "decode_attention": "decode_attention.cu",
+    "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
+    "flash_dq": "flash_dq.cu",
 }
 
 _FLAGS = [

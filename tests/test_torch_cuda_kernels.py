@@ -7,14 +7,17 @@ machine without JAX it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerances: float32 1e-4 (the same math in another order); bfloat16 2e-2
-(the plain versions round the attention weights to bf16 before the PV
-product, the kernels keep them in float32).
+(the decode plain versions round the attention weights to bf16 before the
+PV product where the decode kernels keep them in float32; the flash
+kernels and their plain versions both round p and ds to bf16, but from
+scores summed in another order, so a rounding can flip by one bf16 step).
 """
 
 import pytest
 import torch
 
 from rocket_tpu_torch.ops import decode_attention as tda
+from rocket_tpu_torch.ops import flash_native as tfn
 from rocket_tpu_torch.ops import paged_attention as tpa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -84,3 +87,72 @@ def test_decode_attention_matches_plain(cuda, hq, h_kv, d, dtype):
         torch.testing.assert_close(got[0].float(), want[0].float(), atol=TOL[dtype],
                                    rtol=TOL[dtype])
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+# -- flash attention: forward, fused backward, accumulating dq ---------------
+
+FLASH_CASES = [  # (B, T, Hq, Hkv, D, causal)
+    (2, 256, 4, 4, 64, True),
+    (2, 200, 4, 2, 64, True),
+    (1, 130, 4, 1, 64, False),
+    (2, 96, 2, 2, 64, True),
+    (1, 64, 4, 4, 64, False),
+]
+
+
+def _flash_operands(gen, dtype, b, t, hq, h_kv, d, fused):
+    """(q_arr, k_arr, v_arr, offsets): one fused (B, T, 3HD) operand for
+    MHA cases with ``fused``, else three bthd operands."""
+    if fused:
+        arr = _randn(gen, dtype, b, t, 3 * hq * d)
+        return arr, arr, arr, (0, hq * d, 2 * hq * d)
+    return (_randn(gen, dtype, b, t, hq * d), _randn(gen, dtype, b, t, h_kv * d),
+            _randn(gen, dtype, b, t, h_kv * d), (0, 0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "b{}t{}h{}kv{}d{}{}".format(
+    *c[:5], "c" if c[5] else "n"))
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    b, t, hq, h_kv, d, causal = case
+    gen = torch.Generator().manual_seed(t + hq + d)
+    for fused in ([True, False] if hq == h_kv else [False]):
+        q, k, v, offs = _flash_operands(gen, dtype, b, t, hq, h_kv, d, fused)
+        geo = (hq, h_kv, d, offs, causal)
+        before = tfn.flash_fwd.launches
+        out, lse = tfn.flash_fwd(q, k, v, *geo)
+        assert tfn.flash_fwd.launches == before + 1
+        out_p, lse_p = tfn._fwd_plain(q, k, v, *geo)
+        torch.testing.assert_close(out.float(), out_p.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        torch.testing.assert_close(lse, lse_p, atol=TOL[dtype], rtol=TOL[dtype])
+
+        dout = _randn(gen, dtype, b, t, hq * d)
+        delta = (dout.float() * out.float()).reshape(b, t, hq, d).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta.contiguous(), *geo)
+        dqp, dk, dv = tfn.flash_bwd(*args, with_dq=True)
+        dqp_p, dk_p, dv_p = tfn._bwd_plain(*args, with_dq=True)
+        torch.testing.assert_close(dqp, dqp_p, atol=TOL[dtype], rtol=TOL[dtype])
+        torch.testing.assert_close(dk.float(), dk_p.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        torch.testing.assert_close(dv.float(), dv_p.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        none, dk2, dv2 = tfn.flash_bwd(*args, with_dq=False)
+        assert none is None and torch.equal(dk2, dk) and torch.equal(dv2, dv)
+        dq = tfn.flash_dq(*args)
+        torch.testing.assert_close(dq.float(), tfn._dq_plain(*args).float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        torch.testing.assert_close(dq.float(), dqp.sum(0), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_rejects_bad_operands(cuda):
+    q = torch.zeros(1, 64, 4 * 64, device=cuda)
+    with pytest.raises(ValueError):
+        tfn.flash_fwd(q.half(), q.half(), q.half(), 4, 4, 64, (0, 0, 0), True)
+    for h, d in ((8, 32), (2, 128), (8, 32 + 8)):  # head dims not compiled
+        with pytest.raises(ValueError):
+            tfn.flash_fwd(q[..., :h * d], q[..., :h * d], q[..., :h * d], h, h, d, (0, 0, 0),
+                          True)
+    with pytest.raises(ValueError):  # head slices past the operand
+        tfn.flash_fwd(q, q, q, 4, 4, 64, (0, 64, 0), True)
+    with pytest.raises(ValueError):
+        tfn.flash_fwd(q[:, ::2], q[:, ::2], q[:, ::2], 4, 4, 64, (0, 0, 0), True)

@@ -35,9 +35,10 @@ def test_port_never_imports_jax_or_the_jax_package(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    mods = ["rocket_tpu_torch." + m for m in (
+    mods = ["rocket_tpu_torch"] + ["rocket_tpu_torch." + m for m in (
         "serve", "serve.__main__", "models.transformer", "bridge", "data.text",
-        "ops.paged_attention", "ops.decode_attention",
+        "ops.paged_attention", "ops.decode_attention", "ops.flash_native", "nn.keys",
+        "optim", "runtime", "core", "core.module", "core.dataset", "core.loop",
     )]
     code = (
         "import sys\n"

@@ -122,15 +122,19 @@ def test_sampling_generate_deterministic_and_unported_paths_raise(pair):
     _, _, tmodel, tparams = pair
     prompt = np.arange(5, dtype=np.int32)[None]
 
-    def run(seed):
+    def run(seed, use_cache=True):
         return tt.generate(tmodel, tparams, prompt, 8, temperature=0.8, top_k=10,
-                           generator=torch.Generator().manual_seed(seed), device="cpu")
+                           generator=torch.Generator().manual_seed(seed), use_cache=use_cache,
+                           device="cpu")
 
     torch.testing.assert_close(run(3), run(3))
+    # The recompute path (ported with the training forward) samples the
+    # same tokens: the draw is keyed by the position, not by the path.
+    torch.testing.assert_close(run(3, use_cache=False), run(3))
     with pytest.raises(ValueError, match="Generator"):
         tt.generate(tmodel, tparams, prompt, 4, temperature=1.0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.generate(tmodel, tparams, prompt, 4, temperature=0, use_cache=False, device="cpu")
+        tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], attention_impl="ring")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], num_experts=4)))
 
