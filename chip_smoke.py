@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``rocket_tpu_torch/csrc`` with
+Builds the port's six CUDA kernels from ``rocket_tpu_torch/csrc`` with
 ``nvcc`` (into ``build/kernels/``, first use, all in parallel) and holds
 each against its plain PyTorch version at its path's shapes, and times the
 flash backward under both dq strategies (f32 partials, or the separate
@@ -14,8 +14,14 @@ bf16) through ``ServeEngine``; ``generate()`` with the KV cache; training
 GPT-2 124M through the capsule ``Launcher`` (the flash forward and fused
 backward), with a ``torch.profiler`` window over its last steps; a
 longer-context run whose dq partial buffer passes the byte bound (the
-accumulating dq kernel). Last, the whole model on the card against the
-CPU, for decoding and for one training forward and backward.
+accumulating dq kernel); saving and restoring that GPT-2 train state.
+Then the char-LM slice with ``ROCKET_TPU_BLOCK_ATTN=fused``, in a temporary
+directory: ``examples.char_lm`` trains one epoch and checkpoints (the
+fused-block kernel, separate epilogue), a resumed run against an
+uninterrupted one, one eval forward (fused epilogue) against the unforced
+chain (flash kernels), ``examples.generate`` and ``serve --checkpoint``
+from the checkpoint. Last, the whole model on the card against the CPU,
+for decoding and for one training forward and backward.
 
 Each phase prints one JSON line; the last three lines are the per-kernel
 summary, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -26,10 +32,16 @@ record is also written to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,6 +53,8 @@ import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim
 from rocket_tpu_torch.core.capsule import Capsule
 from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
+from rocket_tpu_torch.examples import char_lm
+from rocket_tpu_torch.examples import generate as char_generate
 from rocket_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -51,8 +65,12 @@ from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import decode_attention as da
 from rocket_tpu_torch.ops import flash_native as fa
+from rocket_tpu_torch.ops import fused_block as fb
 from rocket_tpu_torch.ops import paged_attention as pa
+from rocket_tpu_torch.resilience.supervisor import newest_complete_step
+from rocket_tpu_torch.runtime import checkpoint_io
 from rocket_tpu_torch.serve import ServeConfig, ServeEngine
+from rocket_tpu_torch.serve import __main__ as serve_cli
 
 ROOT = Path(__file__).resolve().parent
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -78,7 +96,11 @@ TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3}
 TRAIN_STEPS, PROFILE_STEPS, WARM_STEPS = 20, 3, 3
 RECORD: dict = {}
 #: Every kernel wrapper, whose launch count is zeroed before each main path.
-COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq)
+COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq,
+           fb.fused_block)
+#: char-LM resume: a resumed run against an uninterrupted one on the card,
+#: losses and each final param leaf relative to its largest element.
+RESUME_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -393,6 +415,86 @@ def check_flash_long(timer, gen):
     return row
 
 
+# -- phase 3c: the fused attention half against its plain version ----------
+
+def block_bounds(b, t, d, h, dtype, epilogue):
+    """Least time of the fused block function: x read and the output
+    written once, the weights it uses read once (ln in f32); 2 flops per
+    multiply-add of the QKV projection, the causal QK^T and PV products
+    and, fused, the output projection."""
+    item = torch.empty((), dtype=dtype).element_size()
+    weights = (d * 3 * d + 3 * d) * item + 2 * d * 4
+    flops = 2 * b * t * d * 3 * d + 2 * 2 * 64 * h * b * t * (t + 1) / 2
+    if epilogue == "fused":
+        weights += (d * d + d) * item
+        flops += 2 * b * t * d * d
+    return bound_ms(2 * b * t * d * item + weights, flops, dtype)
+
+
+def _block_operands(gen, dtype, b, t, h):
+    """x in the dtype; the layer's f32 master params (scale, bias, wqkv,
+    bqkv, wproj, bproj) as ``Block`` passes them."""
+    d = 64 * h
+    mk = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen) * s).cuda()  # noqa: E731
+    return [mk(b, t, d, s=0.5).to(dtype), 1.0 + mk(d, s=0.1), mk(d, s=0.1),
+            mk(d, 3 * d, s=d ** -0.5), mk(3 * d, s=0.01), mk(d, d, s=d ** -0.5), mk(d, s=0.01)]
+
+
+def check_fused_block(timer, gen):
+    """``block_attn_half``'s forward (the kernel) against
+    ``reference_block_attn`` on the same CUDA tensors: the char-LM shape
+    (B=128, T=256, D=256, H=4) and a ragged one (B=3, T=100), bf16 and
+    f32, both epilogues, ``block_b`` 1 and 2 where B tiles. At the char-LM
+    shape in bf16 also the kernel, its plain version and the library
+    chain (``F.layer_norm`` -> ``F.linear`` -> SDPA -> ``F.linear``, four
+    calls: no single PyTorch call computes this function), timed."""
+    timed = {}
+    for (b, t, h), dtype, epilogue in [
+        (shape, dtype, epilogue) for shape in ((128, 256, 4), (3, 100, 4))
+        for dtype in (torch.bfloat16, torch.float32) for epilogue in fb.EPILOGUES
+    ]:
+        ops = _block_operands(gen, dtype, b, t, h)
+        with torch.no_grad():
+            want = fb.reference_block_attn(*ops, num_heads=h, epilogue=epilogue)
+            errs = {}
+            for block_b in (1, 2):
+                if b % block_b:
+                    continue
+                got = fb.block_attn_half(*ops, num_heads=h, epilogue=epilogue, block_b=block_b)
+                errs[block_b] = _flash_err(got, want, dtype, f"fused_block {epilogue} B={b} "
+                                           f"T={t} {dtype} block_b={block_b}")
+        torch.cuda.synchronize()
+        row = {"dtype": str(dtype).removeprefix("torch."), "epilogue": epilogue, "b": b, "t": t,
+               "d": 64 * h, "h": h, "max_abs_err": max(errs.values()),
+               "max_abs_err_by_block_b": errs, "tol": TOL[dtype]}
+        if (b, t, dtype) == (128, 256, torch.bfloat16):
+            x, ln_s, ln_b, wqkv, bqkv, wproj, bproj = ops
+            ln = torch.stack([ln_s, ln_b])
+            cast = [w.to(dtype).contiguous() for w in (wqkv, bqkv, wproj, bproj)]
+            kw = dict(num_heads=h, epilogue=epilogue)
+            wqkv_t, wproj_t = cast[0].t().contiguous(), cast[2].t().contiguous()
+            ln_c = [ln_s.to(dtype), ln_b.to(dtype)]
+
+            def chain():
+                y = F.linear(F.layer_norm(x, (64 * h,), *ln_c), wqkv_t, cast[1])
+                q, k, v = y.reshape(b, t, 3, h, 64).permute(2, 0, 3, 1, 4)
+                o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                o = o.transpose(1, 2).reshape(b, t, 64 * h)
+                return F.linear(o, wproj_t, cast[3]) if epilogue == "fused" else o
+
+            with torch.no_grad():
+                row.update(ms=timer.ms(lambda: fb.fused_block(x, ln, *cast, **kw), iters=10),
+                           plain_ms=timer.ms(lambda: fb.fused_block_plain(x, ln, *cast, **kw),
+                                             iters=10),
+                           library_ms=timer.ms(chain, iters=10),
+                           library="F.layer_norm -> F.linear -> SDPA"
+                           + (" -> F.linear" if epilogue == "fused" else ""))
+            row["bound_ms"], row["bound_by"] = block_bounds(b, t, 64 * h, h, dtype, epilogue)
+            timed[epilogue] = row
+        emit("parity_fused_block", **row)
+    return timed
+
+
 # -- phases 4-6: the main path ---------------------------------------------
 
 def serve_phase(model, params, card):
@@ -532,9 +634,11 @@ class StepClock(Capsule):
     ``synchronize``, and keeps a ``torch.profiler`` window over the last
     ``profile_last`` steps."""
 
-    def __init__(self, profile_last: int = 0):
+    def __init__(self, profile_last: int = 0, module=None):
         super().__init__(priority=10)
         self.profile_last = profile_last
+        self.module = module
+        self.prepared = None
         self.stamps, self.losses = [], []
         self.prof, self.prof_wall = None, None
 
@@ -548,6 +652,8 @@ class StepClock(Capsule):
         from torch.profiler import ProfilerActivity, profile
 
         self.losses.append(float(attrs.step_metrics["loss"]))
+        if self.module is not None:
+            self.prepared = self.module.prepared  # the train state, past destroy
         torch.cuda.synchronize()
         self.stamps.append(time.perf_counter())
         done = len(self.losses)
@@ -571,16 +677,17 @@ def run_train(cfg, batch: int, steps: int, profile_last: int = 0):
     Checkpointer, Profiler or Tracker) on a fresh Runtime on the card, with
     the kernel launch counts zeroed just before and read just after."""
     model = TransformerLM(cfg)
-    clock = StepClock(profile_last)
+    module = rt.Module(model, [
+        rt.Loss(next_token_loss()),
+        rt.Optimizer(optim.adamw(weight_decay=0.1)),
+        rt.Scheduler(optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, steps // 50),
+                                            decay_steps=steps)),
+    ], compute_dtype=torch.bfloat16, remat=True)
+    clock = StepClock(profile_last, module)
     launcher = rt.Launcher([rt.Looper([
         rt.Dataset(train_data(cfg.max_seq_len, cfg.vocab_size), batch_size=batch, shuffle=True,
                    drop_last=True),
-        rt.Module(model, [
-            rt.Loss(next_token_loss()),
-            rt.Optimizer(optim.adamw(weight_decay=0.1)),
-            rt.Scheduler(optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, steps // 50),
-                                                decay_steps=steps)),
-        ], compute_dtype=torch.bfloat16, remat=True),
+        module,
         clock,
     ], repeats=steps, progress=False)], runtime=rt.Runtime(seed=0))
     torch.cuda.reset_peak_memory_stats()
@@ -599,6 +706,8 @@ def _train_group(kernel: str) -> str:
     hash (``nn/keys.py``); the rest is a few T-long index vectors."""
     if "flash_" in kernel and "_kernel<" in kernel:
         return "flash kernels"
+    if "fused_block_kernel" in kernel:
+        return "fused_block kernel"
     if any(k in kernel for k in ("gemm", "nvjet", "xmma")):
         return "GEMMs"
     if "elementwise" in kernel and "<long" in kernel:
@@ -658,7 +767,7 @@ def train_phase(card):
     emit("train_profile", steps=PROFILE_STEPS, wall_s=clock.prof_wall, device_busy_s=busy,
          device_idle_share=idle, device_time_measured=busy > 0, top_kernels=top,
          device_s_by_group=groups, card=card)
-    return counts
+    return counts, clock.prepared
 
 
 def train_long_phase(card):
@@ -678,6 +787,272 @@ def train_long_phase(card):
          tokens_per_s=b * t / float(np.median(step_s)), dq_partial_bytes=partial_bytes,
          launches=counts, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
     return counts
+
+
+def checkpoint_gpt2_phase(prepared, card):
+    """The GPT-2 124M train state of the ``train`` phase (params and the
+    AdamW moments, f32) through ``checkpoint_io``: the synchronous
+    snapshot to host, the file write, the load back to host and the
+    restore into the live state after zeroing it. The restored state must
+    snapshot bitwise equal to the saved one."""
+    view = prepared.checkpoint_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = checkpoint_io.snapshot(view)
+        t1 = time.perf_counter()
+        checkpoint_io.write_snapshot(tmp, plan)
+        t2 = time.perf_counter()
+        flat = checkpoint_io.load_pytree(tmp)
+        t3 = time.perf_counter()
+        file_bytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+    with torch.no_grad():
+        for p in optim.param_leaves(prepared.state["params"]):
+            p.zero_()
+        for st in prepared.state["optimizer"].state.values():
+            for v in st.values():
+                v.zero_()
+    t4 = time.perf_counter()
+    prepared.load_checkpoint_state(checkpoint_io.unflatten(flat))
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    again = checkpoint_io.snapshot(prepared.checkpoint_state())["local"]
+    require(again.keys() == plan["local"].keys(), "checkpoint_gpt2: leaves differ")
+    require(all(np.array_equal(again[k], v) and np.array_equal(flat[k[:-2]], v)
+                for k, v in plan["local"].items()), "checkpoint_gpt2: restore is not bitwise")
+    nbytes = sum(v.nbytes for v in plan["local"].values())
+    emit("checkpoint_gpt2", model="gpt2_124m", leaves=len(plan["local"]), bytes=nbytes,
+         file_bytes=file_bytes, snapshot_s=t1 - t0, write_s=t2 - t1, load_s=t3 - t2,
+         restore_s=t5 - t4, snapshot_gb_per_s=nbytes / (t1 - t0) / 1e9,
+         write_gb_per_s=nbytes / (t2 - t1) / 1e9, bitwise=True, card=card)
+
+
+# -- phases 10-14: the char-LM slice ----------------------------------------
+
+def _char_lm_losses(path="runs/char_lm.jsonl"):
+    """(loss, host time) per Tracker flush: one per step."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["train/loss"] for r in rows], [r["time"] for r in rows]
+
+
+def _flash_launches():
+    return fa.flash_fwd.launches + fa.flash_bwd.launches + fa.flash_dq.launches
+
+
+def char_lm_train_phase(card):
+    """``examples.char_lm.main(num_epochs=1)`` at the preset (B=128, T=256,
+    bf16, dropout 0.1) with the fused attention half forced: every block's
+    forward is one ``fused_block`` launch (separate epilogue: dropout and
+    the projection outside), its backward the plain recompute. Step times
+    are the gaps between the Tracker's flushes, each after the loss's
+    device sync."""
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        run = char_lm.main(num_epochs=1, out_dir="checkpoints/char_lm")
+    wall = time.perf_counter() - t0
+    launches, flash = fb.fused_block.launches, _flash_launches()
+    steps = run["total_steps"]
+    layers = run["model"].config.num_layers
+    losses, stamps = _char_lm_losses()
+    require(len(losses) == steps, f"char_lm: {len(losses)} tracker lines for {steps} steps")
+    require(all(math.isfinite(x) for x in losses), f"char_lm: non-finite loss {losses}")
+    require(float(np.mean(losses[-5:])) < losses[0], f"char_lm: loss did not fall {losses}")
+    require(launches == layers * steps and flash == 0,
+            f"char_lm: {launches} fused_block and {flash} flash launches over {steps} steps")
+    ckpt = "checkpoints/char_lm"
+    steps_dirs = sorted(d for d in os.listdir(ckpt) if d.isdigit())
+    require(steps_dirs == [str(steps)] and newest_complete_step(ckpt) == steps,
+            f"char_lm: checkpoint steps {steps_dirs}")
+    step_s = np.diff(stamps)[2:]
+    cfg = run["model"].config
+    save = run["checkpointer"].save_times[0]
+    emit("char_lm_train", model="char_lm", dtype="bfloat16", batch=128, seq_len=cfg.max_seq_len,
+         vocab=cfg.vocab_size, steps=steps, losses=losses, fused_block_launches=launches,
+         fused_block_per_step=launches / steps, flash_launches=flash,
+         step_ms_median=float(np.median(step_s)) * 1e3, step_ms=[x * 1e3 for x in step_s],
+         tokens_per_s=128 * cfg.max_seq_len / float(np.median(step_s)), wall_s=wall,
+         checkpoint_snapshot_s=save["snapshot_s"], checkpoint_write_s=save["write_s"],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         sample=run["sample"][:80], card=card)
+    return launches, run
+
+
+def _resume_run(root, num_epochs, resume_from=None, profile=False):
+    """``char_lm.build``'s tree at the preset in ``root`` -> (losses, final
+    params, step directories, the launch's (profiler, wall seconds) or
+    None)."""
+    root.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        text = synthetic_corpus()
+        tok = CharTokenizer(text)
+        tokens = tok.encode(text)
+        data = TokenDataset(tokens[:int(len(tokens) * 0.95)], seq_len=256)
+        config = TransformerConfig.char_lm(vocab_size=tok.vocab_size, max_seq_len=256)
+        run = char_lm.build(data, config, batch_size=128, num_epochs=num_epochs, out_dir="ckpt",
+                            runtime=rt.Runtime(seed=0), resume_from=resume_from)
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile \
+            else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), prof:
+            run["launcher"].launch()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (_char_lm_losses()[0], run["trained"]["params"],
+                sorted((d for d in os.listdir("ckpt") if d.isdigit()), key=int),
+                (prof, wall) if profile else None)
+    finally:
+        os.chdir(cwd)
+
+
+def char_lm_resume_phase(root, card):
+    """An uninterrupted three-epoch run (B), and a fresh tree (A) resumed
+    with ``resume_from="latest"`` from a copy of B's epoch-two checkpoint
+    (the schedule spans a run's total steps, so it must be B's), which
+    trains the third epoch only. A's losses and final params must equal
+    B's within RESUME_TOL; B's step directories must be the last two saves
+    (``keep_last=2``: three epoch-end saves, the first pruned). A's whole
+    launch (resume, one epoch of steps, one save) runs under
+    ``torch.profiler``: where a char-LM train step's device time goes."""
+    t0 = time.perf_counter()
+    whole, want, dirs, _ = _resume_run(root / "b", 3)
+    spe = len(whole) // 3
+    require(dirs == [str(2 * spe), str(3 * spe)], f"char_lm_resume: keep_last left {dirs}")
+    shutil.copytree(root / "b" / "ckpt" / str(2 * spe), root / "a" / "ckpt" / str(2 * spe))
+    resumed, got, _, (prof, prof_wall) = _resume_run(root / "a", 3, resume_from="latest",
+                                                     profile=True)
+    wall = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[2 * spe:]))
+    require(len(resumed) == spe and loss_err <= RESUME_TOL,
+            f"char_lm_resume: {len(resumed)} steps, loss rel err {loss_err}")
+    param_err = max(((p - q).abs().max() / q.abs().max().clamp(min=1e-30)).item()
+                    for p, q in zip(optim.param_leaves(got), optim.param_leaves(want)))
+    require(param_err <= RESUME_TOL, f"char_lm_resume: param rel err {param_err}")
+    emit("char_lm_resume", steps_per_epoch=spe, uninterrupted_epochs=3, resumed_epochs=1,
+         loss_rel_err=loss_err, param_rel_err=param_err, tol=RESUME_TOL, kept_steps=dirs,
+         bitwise=loss_err == 0.0 and param_err == 0.0, wall_s=wall, card=card)
+    busy, idle, top, groups = _device_profile(prof, prof_wall)
+    emit("char_lm_profile", steps=spe, wall_s=prof_wall, device_busy_s=busy,
+         device_idle_share=idle, device_time_measured=busy > 0, top_kernels=top,
+         device_s_by_group=groups, card=card)
+
+
+def char_lm_eval_phase(run, card):
+    """One eval forward at the preset (B=128, T=256) with the trained
+    params: forced, it takes the fused epilogue (one launch per block);
+    unforced, the flash kernels. In f32 activations the logits must agree
+    element by element within TOL (this pins the math); in bf16, the
+    preset, within the bf16 TOL of their norm: six layers of bf16 roundings
+    taken at different places (the flash kernel rounds exp(s - m), the
+    fused one p / l) spread the elements apart by a few bf16 steps."""
+    model, params = run["model"], run["trained"]["params"]
+    text = synthetic_corpus()
+    tokens = CharTokenizer(text).encode(text)[:128 * 256].reshape(128, 256)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    row = {"batch": 128, "seq_len": 256}
+    layers = model.config.num_layers
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        cfg = dataclasses.replace(model.config, activation_dtype=name)
+        m = TransformerLM(cfg)
+        logits, launches = {}, {}
+        with torch.no_grad():
+            for forced in (True, False):
+                if forced:
+                    os.environ["ROCKET_TPU_BLOCK_ATTN"] = "fused"
+                else:
+                    os.environ.pop("ROCKET_TPU_BLOCK_ATTN", None)
+                zero_launches()
+                logits[forced] = m.apply(params, batch, mode="eval")["logits"].float()
+                torch.cuda.synchronize()
+                launches[forced] = (fb.fused_block.launches, fa.flash_fwd.launches)
+        os.environ["ROCKET_TPU_BLOCK_ATTN"] = "fused"
+        require(launches == {True: (layers, 0), False: (0, layers)},
+                f"char_lm_eval {name}: launches (fused_block, flash_fwd) {launches}")
+        got, want = logits[True], logits[False]
+        rel = ((got - want).norm() / want.norm()).item()
+        if dtype == torch.float32:
+            err = _flash_err(got, want, dtype, "char_lm_eval f32 logits")
+        else:
+            err = (got - want).abs().max().item()
+            require(rel <= TOL[dtype], f"char_lm_eval bf16 logits: relative error {rel}")
+        row[name] = {"max_abs_err": err, "norm_rel_err": rel, "tol": TOL[dtype],
+                     "max_abs_logit": want.abs().max().item()}
+    emit("char_lm_eval", fused_block_launches=layers, flash_fwd_launches_unforced=layers,
+         **row, card=card)
+
+
+def char_lm_generate_phase(card):
+    """``examples.generate`` loads the checkpoint and generates 128 tokens,
+    greedy and sampled (``decode_attention``); a timed ``generate()`` of the
+    loaded params gives tokens/s. Then ``python -m rocket_tpu_torch.serve
+    run --config charlm --checkpoint`` serves 4 requests (``paged_decode``)."""
+    ckpt = "checkpoints/char_lm"
+    counts = {}
+    for mode, flags in (("greedy", ["--greedy"]), ("sampled", [])):
+        zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            text = char_generate.main(["--ckpt", ckpt, "--tokens", "128", *flags])
+        require("loaded params from" in out.getvalue() and len(text) == len("the ") + 128,
+                f"generate {mode}: {out.getvalue()[-300:]}")
+        counts[mode] = da.decode_attention.launches
+        require(counts[mode] > 0, f"generate {mode}: no decode_attention launch")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        model = TransformerLM(TransformerConfig(**json.load(f)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        params = char_generate.load_params(model, ckpt)
+    prompt = CharTokenizer(synthetic_corpus()).encode("the ")[None, :]
+    generate(model, params, prompt, 8, temperature=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(model, params, prompt, 128, temperature=0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+
+    zero_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = serve_cli.main(["run", "--config", "charlm", "--checkpoint", ckpt, "--requests", "4",
+                             "--max-new-tokens", "32", "--show", "0"])
+    paged = pa.paged_decode.launches
+    printed = out.getvalue()
+    require(rc == 0 and "loaded params from" in printed and paged > 0,
+            f"serve --checkpoint: rc {rc}, paged_decode {paged}: {printed[-300:]}")
+    report = json.loads(printed[printed.index('{\n "serve_report"'):])["serve_report"]
+    emit("char_lm_generate", tokens=128, decode_attention_launches=counts,
+         generate_tokens_per_s=128 / gen_s, serve_requests=4,
+         serve_completed=report["requests"]["completed"],
+         serve_tokens_per_s=report["tokens_per_sec"], paged_decode_launches=paged, card=card)
+
+
+def char_lm_phases(card):
+    """The char-LM phases in a temporary directory (checkpoints, runs/),
+    with the fused attention half forced; the environment and working
+    directory are restored after."""
+    cwd, forced = os.getcwd(), os.environ.get("ROCKET_TPU_BLOCK_ATTN")
+    os.environ["ROCKET_TPU_BLOCK_ATTN"] = "fused"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            launches, run = char_lm_train_phase(card)
+            char_lm_eval_phase(run, card)
+            del run
+            char_lm_generate_phase(card)
+            char_lm_resume_phase(Path(tmp) / "resume", card)
+            os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+        if forced is None:
+            os.environ.pop("ROCKET_TPU_BLOCK_ATTN", None)
+        else:
+            os.environ["ROCKET_TPU_BLOCK_ATTN"] = forced
+    return launches
 
 
 def train_model_check():
@@ -738,6 +1113,7 @@ def main() -> int:
     flash = check_flash(timer, gen)
     flash_long = check_flash_long(timer, gen)
     time_dq_strategies(timer, gen)
+    block = check_fused_block(timer, gen)
     del timer
     torch.cuda.empty_cache()
 
@@ -746,10 +1122,15 @@ def main() -> int:
     paged["launches"] = serve_phase(model, params, card)
     decode["launches"] = generate_phase(model, params, card)
     del params
-    train = train_phase(card)
+    train, prepared = train_phase(card)
+    checkpoint_gpt2_phase(prepared, card)
+    del prepared
     flash["flash_fwd"]["launches"] = train["flash_fwd"]
     flash["flash_bwd"]["launches"] = train["flash_bwd"]
     flash_long["flash_dq"]["launches"] = train_long_phase(card)["flash_dq"]
+    torch.cuda.empty_cache()
+    # The char-LM train step runs the separate epilogue (attention dropout).
+    block["separate"]["launches"] = char_lm_phases(card)
     model_check_phase()
     train_model_check()
 
@@ -765,6 +1146,8 @@ def main() -> int:
          "rocket_tpu/ops/flash_native.py:270"),
         ("flash_dq", flash_long["flash_dq"], "rocket_tpu_torch/csrc/flash_dq.cu",
          "rocket_tpu/ops/flash_native.py:348"),
+        ("fused_block", block["separate"], "rocket_tpu_torch/csrc/fused_block.cu",
+         "rocket_tpu/ops/fused_block.py:125"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",

@@ -5,14 +5,17 @@ its module paths (``core/``, ``nn/``, ``ops/``, ``models/``, ``serve/``,
 ``data/``, ``optim``, ``runtime``) so each counterpart is easy to find,
 and never imports it (nor ``jax``).
 
-Ported so far: training decoder LMs (GPT-2 124M, Llama-style GQA/RoPE)
-through the capsule tree ``Launcher -> Looper -> Dataset, Module(Loss,
-Optimizer, Scheduler)``, and serving them through the paged-KV engine
-(``serve.ServeEngine``) and ``models.transformer.generate``. The TPU
-kernels on those paths — flash attention forward, fused backward and
-accumulating dq, paged decode and decode attention — are hand-written
-CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc`` into
-``build/kernels/`` at first use (``ops/_build.py``).
+Ported so far: training decoder LMs (GPT-2 124M, Llama-style GQA/RoPE,
+the char-LM) through the capsule tree ``Launcher -> Looper -> Dataset,
+Module(Loss, Optimizer, Scheduler), Checkpointer, Tracker`` with
+checkpoints and resume (``runtime/checkpoint_io.py``, the JAX package's
+format), and serving them through the paged-KV engine
+(``serve.ServeEngine``) and ``models.transformer.generate``
+(``examples/char_lm.py`` and ``examples/generate.py``). The TPU kernels on
+those paths — flash attention forward, fused backward and accumulating
+dq, paged decode, decode attention and the fused attention half of a
+block — are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built
+with ``nvcc`` into ``build/kernels/`` at first use (``ops/_build.py``).
 
 A training script reads as the JAX one does::
 
@@ -27,6 +30,8 @@ its plain PyTorch version.
 """
 
 from rocket_tpu_torch.core import (
+    Capsule,
+    Checkpointer,
     Dataset,
     Launcher,
     Looper,
@@ -34,10 +39,12 @@ from rocket_tpu_torch.core import (
     Module,
     Optimizer,
     Scheduler,
+    Tracker,
+    register_tracker_backend,
 )
 from rocket_tpu_torch.runtime import Runtime
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
-__all__ = ["Dataset", "Launcher", "Looper", "Loss", "Module", "Optimizer", "Runtime",
-           "Scheduler"]
+__all__ = ["Capsule", "Checkpointer", "Dataset", "Launcher", "Looper", "Loss", "Module",
+           "Optimizer", "Runtime", "Scheduler", "Tracker", "register_tracker_backend"]

@@ -1,9 +1,10 @@
 """The capsule core (counterpart of ``rocket_tpu.core``): the five-event
-lifecycle and the capsules of a training tree. Checkpointer, Meter,
-Tracker and Profiler wait for later slices (ROADMAP Queue A 2, 3, 7)."""
+lifecycle and the capsules of a training tree, with checkpointing and
+tracking. Meter and Profiler wait for a later slice (ROADMAP Queue A 2)."""
 
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import Capsule, Events
+from rocket_tpu_torch.core.checkpoint import Checkpointer
 from rocket_tpu_torch.core.dataset import Dataset
 from rocket_tpu_torch.core.dispatcher import Dispatcher
 from rocket_tpu_torch.core.launcher import Launcher
@@ -12,8 +13,9 @@ from rocket_tpu_torch.core.loss import Loss
 from rocket_tpu_torch.core.module import Module
 from rocket_tpu_torch.core.optimizer import Optimizer
 from rocket_tpu_torch.core.scheduler import Scheduler
+from rocket_tpu_torch.core.tracker import Tracker, register_tracker_backend
 
 __all__ = [
-    "Attributes", "Capsule", "Dataset", "Dispatcher", "Events", "Launcher", "Looper", "Loss",
-    "Module", "Optimizer", "Scheduler",
+    "Attributes", "Capsule", "Checkpointer", "Dataset", "Dispatcher", "Events", "Launcher",
+    "Looper", "Loss", "Module", "Optimizer", "Scheduler", "Tracker", "register_tracker_backend",
 ]

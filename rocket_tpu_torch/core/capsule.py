@@ -6,9 +6,9 @@
 * A capsule holds a priority (default 1000; higher runs earlier inside a
   Dispatcher), a statefulness flag, a late-bound runtime handle and a
   logger.
-* ``statefull`` and ``state_dict`` mark and hold what the Checkpointer
-  will persist; the Checkpointer and the runtime's checkpoint stack it
-  reads wait for a later slice (ROADMAP Queue A 2).
+* ``statefull`` capsules push themselves on the runtime's checkpoint
+  stack at ``setup`` and pop at ``destroy`` (LIFO-checked); the
+  Checkpointer saves and restores their ``state_dict`` in that order.
 
 The run telemetry span around every dispatched event waits for the ops
 plane (ROADMAP Queue A 7).
@@ -38,14 +38,16 @@ class Events(Enum):
 # Priority conventions: within one Dispatcher, higher priority runs earlier.
 PRIORITY_LOSS = 1100
 PRIORITY_DEFAULT = 1000
+PRIORITY_TRACKER = 200
+PRIORITY_CHECKPOINT = 100
 
 
 class Capsule:
     """Base unit: receives the five events, reads/writes the ``Attributes`` bag.
 
     ``statefull``: the capsule has state for the Checkpointer to persist
-    (spelling kept from the reference API; read once the Checkpointer is
-    ported). ``priority``: dispatch
+    (spelling kept from the reference API): ``setup`` registers it on the
+    runtime's checkpoint stack. ``priority``: dispatch
     order inside a Dispatcher — higher runs earlier. ``runtime``: usually
     late-bound by the root ``Launcher`` via :meth:`bind`.
     """
@@ -74,6 +76,8 @@ class Capsule:
     def setup(self, attrs: Attributes | None = None) -> None:
         """One-time initialization."""
         self._check_runtime()
+        if self._statefull:
+            self._runtime.register_for_checkpointing(self)
         self.log_debug("setup")
 
     def set(self, attrs: Attributes | None = None) -> None:
@@ -90,6 +94,8 @@ class Capsule:
 
     def destroy(self, attrs: Attributes | None = None) -> None:
         """Final teardown."""
+        if self._statefull and self._runtime is not None:
+            self._runtime.unregister_from_checkpointing(self)
         self.log_debug("destroy")
 
     # -- dispatch ----------------------------------------------------------

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -39,6 +40,36 @@ from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.module import map_params
 
 __all__ = ["Module", "PreparedModule"]
+
+
+def _paths(tree, prefix=()):
+    """The key paths of a nested param dict, in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield prefix
+
+
+def _nest(items) -> dict:
+    """{path tuple: value} pairs -> a nested dict."""
+    tree: dict = {}
+    for path, value in items:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _at(tree: dict, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _host(value) -> torch.Tensor:
+    return value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
 
 
 class PreparedModule:
@@ -52,6 +83,60 @@ class PreparedModule:
     def __init__(self, model, state: dict) -> None:
         self.model = model
         self.state = state
+
+    def checkpoint_state(self) -> dict:
+        """The train state as the tree ``checkpoint_io`` saves: ``params``;
+        ``optimizer``, one tree per key of the optimizer's per-param state
+        (AdamW: ``exp_avg``, ``exp_avg_sq``, ``step``) laid out as the
+        params; ``step`` and ``base_key`` (ints); ``grad_accum`` (as the
+        params) and ``loss_acc`` under gradient accumulation."""
+        state = self.state
+        params = state["params"]
+        paths = list(_paths(params))
+        leaves = optim_lib.param_leaves(params)
+        view = {"params": map_params(lambda t: t.detach(), params),
+                "step": int(state["step"]), "base_key": int(state["base_key"])}
+        opt = state.get("optimizer")
+        if opt is not None:
+            per_key: dict = {}
+            for p, path in zip(leaves, paths):
+                for key, value in opt.state.get(p, {}).items():
+                    per_key.setdefault(key, []).append((path, value))
+            view["optimizer"] = {key: _nest(items) for key, items in per_key.items()}
+        if "grad_accum" in state:
+            view["grad_accum"] = _nest(zip(paths, state["grad_accum"]))
+            view["loss_acc"] = state["loss_acc"]
+        return view
+
+    def load_checkpoint_state(self, view: dict) -> None:
+        """The inverse of :meth:`checkpoint_state` (tensors or numpy
+        leaves): params are copied into the live tensors in place, so the
+        optimizer keeps its references; the optimizer state goes through
+        ``torch.optim``'s own ``load_state_dict``."""
+        state = self.state
+        params = state["params"]
+        paths = list(_paths(params))
+        leaves = optim_lib.param_leaves(params)
+        with torch.no_grad():
+            for p, path in zip(leaves, paths):
+                p.copy_(_host(_at(view["params"], path)))
+        state["step"] = int(view["step"])
+        state["base_key"] = int(view["base_key"])
+        opt = state.get("optimizer")
+        if opt is not None and view.get("optimizer"):
+            path_of = {id(p): path for p, path in zip(leaves, paths)}
+            order = [p for group in opt.param_groups for p in group["params"]]
+            saved = opt.state_dict()
+            saved["state"] = {
+                i: {key: _host(_at(tree, path_of[id(p)]))
+                    for key, tree in view["optimizer"].items()}
+                for i, p in enumerate(order)
+            }
+            opt.load_state_dict(saved)
+        if "grad_accum" in state and "grad_accum" in view:
+            for buf, path in zip(state["grad_accum"], paths):
+                buf.copy_(_host(_at(view["grad_accum"], path)))
+            state["loss_acc"] = _host(view["loss_acc"]).to(state["loss_acc"].device)
 
 
 class Module(Dispatcher):

@@ -1,13 +1,17 @@
 """Text data (counterparts in ``rocket_tpu/data/text.py``): the
-deterministic synthetic corpus, the character tokenizer and
-:class:`TokenDataset`, fixed-length windows over a token stream. The BPE
-tokenizer waits for a later slice (ROADMAP Queue A 2)."""
+TinyShakespeare loader with its deterministic synthetic fallback, the
+character tokenizer and :class:`TokenDataset`, fixed-length windows over a
+token stream. The BPE tokenizer waits for a later slice (ROADMAP Queue A
+2)."""
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 
-__all__ = ["CharTokenizer", "TokenDataset", "synthetic_corpus"]
+__all__ = ["CharTokenizer", "TokenDataset", "synthetic_corpus", "tiny_shakespeare"]
 
 
 def synthetic_corpus(num_chars: int = 1_000_000, seed: int = 0) -> str:
@@ -32,6 +36,19 @@ def synthetic_corpus(num_chars: int = 1_000_000, seed: int = 0) -> str:
             out.append(" ")
         word = int(rng.choice(len(words), p=trans[word]))
     return "".join(out)[:num_chars]
+
+
+def tiny_shakespeare(root: Optional[str] = None) -> str:
+    """The TinyShakespeare text from ``root`` (default: ``$TEXT_ROOT`` or
+    ``data``) under any of its usual file names, else
+    :func:`synthetic_corpus` (there is no download)."""
+    root = root or os.environ.get("TEXT_ROOT", "data")
+    for name in ("tinyshakespeare.txt", "tiny_shakespeare.txt", "input.txt"):
+        path = os.path.join(root, name)
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                return f.read()
+    return synthetic_corpus()
 
 
 class CharTokenizer:

@@ -10,12 +10,20 @@ per-layer ``blocks`` subtree (a scanned JAX tree's ``blocks_stacked`` is
 unstacked by ``rocket_tpu_torch.bridge``). Not ported yet, and raising
 ``NotImplementedError`` where a config asks for them: MoE (ROADMAP
 Queue A 5), pipeline and tensor parallelism and ring attention (Queue A
-6); ``scan_layers`` has no counterpart (the blocks run as a Python loop).
+6); ``scan_layers`` and its knobs are layout-only (the blocks run as a
+Python loop).
+
+``Block``'s attention half takes the fused whole-block kernel
+(``ops/fused_block.py``) where the reference's gate would: the
+``block_attn`` tune table pins it (not ported yet, so it reads as the
+reference's shipped table, which is empty) or ``ROCKET_TPU_BLOCK_ATTN=fused``
+forces it. By default the chain is the per-op one, as before.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
@@ -28,12 +36,23 @@ from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.attention import IMPLS, MultiHeadAttention
 from rocket_tpu_torch.nn.layers import Dense, Dropout, Embedding, LayerNorm, RMSNorm, gelu, silu
 from rocket_tpu_torch.nn.module import Layer, map_params
+from rocket_tpu_torch.ops import fused_block
 from rocket_tpu_torch.runtime import resolve_device
 
 __all__ = [
     "TransformerConfig", "TransformerLM", "Block", "next_token_loss", "generate",
     "decode_params",
 ]
+
+
+#: Unported config fields, each group with the ROADMAP Queue A item that
+#: brings it: ``validate`` raises when one is set off its default.
+_UNPORTED = (
+    (("seq_axis",), "sequence parallelism", 6),
+    (("pipeline_axis", "pipeline_microbatches", "pipeline_schedule"), "pipeline parallelism", 6),
+    (("num_experts", "expert_top_k", "expert_capacity_factor", "expert_dispatch",
+      "moe_aux_weight"), "the MoE FFN", 5),
+)
 
 
 @dataclass
@@ -52,9 +71,29 @@ class TransformerConfig:
     #: Causal (decoder) attention; False builds encoder blocks.
     causal: bool = True
     tied_embeddings: bool = True
-    #: "auto" | "plain" | "flash" (``nn.attention.resolve_impl``); "ring"
-    #: is not ported yet and raises.
+    #: "auto" | "plain" (alias "xla", the reference's name) | "flash"
+    #: (``nn.attention.resolve_impl``); "ring" is not ported yet and raises.
     attention_impl: str = "auto"
+    #: Mesh axis of impl="ring": not ported yet (must stay "seq").
+    seq_axis: str = "seq"
+    #: Layout-only in the port: the blocks run as a Python loop and a
+    #: scanned JAX tree's ``blocks_stacked`` is unstacked on load
+    #: (``bridge.py``). Carried so that a config of either package loads
+    #: into the other; ``scan_remat_policy`` is still validated.
+    scan_layers: bool = False
+    scan_remat: bool = True
+    scan_remat_policy: Optional[str] = None
+    scan_unroll: int = 1
+    #: Pipeline parallelism: not ported yet (must stay at the defaults).
+    pipeline_axis: Optional[str] = None
+    pipeline_microbatches: Optional[int] = None
+    pipeline_schedule: str = "gpipe"
+    #: Mixture-of-Experts FFN: not ported yet (must stay at the defaults).
+    num_experts: int = 0
+    expert_top_k: int = 2
+    expert_capacity_factor: float = 1.25
+    expert_dispatch: str = "einsum"
+    moe_aux_weight: float = 0.01
     #: Activation dtype of the trunk (e.g. "bfloat16"); params stay f32
     #: masters and are cast once before decoding (:func:`decode_params`).
     activation_dtype: Optional[str] = None
@@ -65,10 +104,6 @@ class TransformerConfig:
     norm: str = "layernorm"
     #: "gelu" (GPT-2) or "swiglu" (Llama family).
     mlp: str = "gelu"
-    #: Mixture-of-Experts FFN: not ported yet (must stay 0).
-    num_experts: int = 0
-    #: Pipeline parallelism: not ported yet (must stay None).
-    pipeline_axis: Optional[str] = None
     #: Fused head + cross-entropy chunk (0 = off): in train mode the model
     #: writes the next-token NLL (``batch["nll"]``) computed per T-chunk
     #: with each chunk's logits recomputed in the backward, so the (B, T,
@@ -96,15 +131,20 @@ class TransformerConfig:
                 "TransformerConfig: attention_impl='ring' (sequence parallelism) is not ported "
                 "yet (ROADMAP Queue A 6)"
             )
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "TransformerConfig: MoE (num_experts > 0) is not ported yet "
-                "(ROADMAP Queue A 5)"
-            )
-        if self.pipeline_axis is not None:
-            raise NotImplementedError(
-                "TransformerConfig: pipeline parallelism is not ported yet (ROADMAP Queue A 6)"
-            )
+        if self.scan_remat_policy not in (None, "dots", "block_io"):
+            raise ValueError(f"TransformerConfig: unknown scan_remat_policy "
+                             f"{self.scan_remat_policy!r} (None | 'dots' | 'block_io')")
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"TransformerConfig: unknown pipeline_schedule "
+                             f"{self.pipeline_schedule!r} ('gpipe' | '1f1b')")
+        defaults = {f.name: f.default for f in fields(self)}
+        for names, what, queue in _UNPORTED:
+            changed = [n for n in names if getattr(self, n) != defaults[n]]
+            if changed:
+                raise NotImplementedError(
+                    f"TransformerConfig: {what} ({', '.join(changed)} off its default) is not "
+                    f"ported yet (ROADMAP Queue A {queue})"
+                )
 
     def norm_cls(self):
         self.validate()
@@ -174,6 +214,19 @@ class Block(Layer):
         # GPT-2: residual projections scaled by 1/sqrt(2 * num_layers).
         self._resid_scale = (2 * c.num_layers) ** -0.5
         self.layer_idx = layer_idx
+        # The fused ln1 + QKV + attention (+ proj) kernel covers exactly the
+        # LayerNorm / learned-positions / MHA / causal / biased layer (the
+        # char-LM shape; ring attention, the reference's other exclusion,
+        # is refused by validate); anything else stays on the per-op chain.
+        self._block_attn_ok = (
+            c.norm == "layernorm"
+            and c.pos_embedding != "rope"
+            and c.causal
+            and (c.num_kv_heads is None or c.num_kv_heads == c.num_heads)
+            and self.ln1.use_bias
+            and self.attn.qkv.use_bias
+            and self.attn.proj.use_bias
+        )
 
     def init_params(self, gen):
         params = {
@@ -202,7 +255,7 @@ class Block(Layer):
         residual dropouts."""
         rngs = (keys.split(keys.fold_in(rng, self.layer_idx), 3) if rng is not None
                 else (None, None, None))
-        h = self.attn.apply(params["attn"], self.ln1(params["ln1"], x), mode=mode, rng=rngs[0])
+        h = self._attn_half(params, x, mode, rngs[0])
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[1])
         x = x + h
@@ -210,6 +263,57 @@ class Block(Layer):
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[2])
         return x + h
+
+    def _block_attn_config(self, x):
+        """The ``block_attn`` config when the fused kernel serves this call,
+        else None. It engages only when the tune table or the
+        ``ROCKET_TPU_BLOCK_ATTN`` override pins ``impl="fused"``; forced,
+        it runs on the CPU too, through the kernel's plain version (the
+        reference's interpret mode). Shapes past
+        :func:`block_attn_supported` or the kernel's own limits stay on
+        the per-op chain."""
+        if not self._block_attn_ok or x.dim() != 3:
+            return None
+        b, t, d = x.shape
+        h = self.attn.num_heads
+        # The block_attn tune table: not ported yet (ROADMAP Queue A 8), so
+        # it reads as the reference's shipped table, which has no entries.
+        config: dict = {}
+        forced = os.environ.get("ROCKET_TPU_BLOCK_ATTN")
+        if (forced or config.get("impl", "reference")) != "fused":
+            return None
+        if not forced and x.device.type == "cpu":
+            return None
+        block_b = config.get("block_b", 1)
+        epilogue = config.get("epilogue", "fused")
+        if not (fused_block.block_attn_supported(b, t, d, h, block_b)
+                and fused_block.kernel_supported(t, d, h, epilogue)):
+            return None
+        return {"epilogue": epilogue, "block_b": block_b}
+
+    def _attn_half(self, params, x, mode, rng):
+        """ln1 + attention, through the per-op chain (the default) or the
+        fused kernel when :meth:`_block_attn_config` pins it. Train-mode
+        attention dropout forces ``epilogue="separate"``: dropout sits
+        between the attention core and the output projection, so the
+        kernel stops there and the same dropout + projection run outside."""
+        cfg = self._block_attn_config(x)
+        if cfg is None:
+            return self.attn.apply(params["attn"], self.ln1(params["ln1"], x), mode=mode, rng=rng)
+        attn, pa = self.attn, params["attn"]
+        epilogue = cfg["epilogue"]
+        if attn.dropout and mode == "train":
+            epilogue = "separate"
+        out = fused_block.block_attn_half(
+            x, params["ln1"]["scale"], params["ln1"]["bias"], pa["qkv"]["w"], pa["qkv"]["b"],
+            pa["proj"]["w"], pa["proj"]["b"], num_heads=attn.num_heads, eps=self.ln1.eps,
+            causal=attn.causal, epilogue=epilogue, block_b=cfg["block_b"],
+        )
+        if epilogue == "separate":
+            b, t, _ = x.shape
+            out = attn._attn_dropout(out.reshape(b, t, attn.num_heads, attn.head_dim), mode, rng)
+            out = attn.proj(pa["proj"], out.reshape(b, t, attn.features))
+        return out
 
     def apply_cached(self, params, x, cache: dict, pos: int):
         """``(B, S, D)`` through the block with the dense KV cache."""

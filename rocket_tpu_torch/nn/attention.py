@@ -28,7 +28,8 @@ __all__ = [
     "dot_product_attention", "grouped_dot_product_attention", "resolve_impl",
 ]
 
-IMPLS = ("auto", "plain", "flash", "ring")
+#: "xla" is the reference's name of the plain path.
+IMPLS = ("auto", "plain", "xla", "flash", "ring")
 
 
 def resolve_impl(impl: str, d: int, device) -> str:

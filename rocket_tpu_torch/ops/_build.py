@@ -33,6 +33,7 @@ KERNELS = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "flash_dq": "flash_dq.cu",
+    "fused_block": "fused_block.cu",
 }
 
 _FLAGS = [

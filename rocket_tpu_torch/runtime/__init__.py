@@ -1,12 +1,13 @@
 """The port's runtime: device resolution for the entry points, and the
 single-process :class:`Runtime` shared by a capsule tree (counterpart of
 ``rocket_tpu/runtime/context.py``, without the mesh, the process group
-and the ops plane — ROADMAP Queue A 3, 6 and 7)."""
+and the ops plane — ROADMAP Queue A 3, 6 and 7). ``checkpoint_io`` holds
+the checkpoint file format."""
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Optional, Union
+from typing import Any, Optional, Sequence, Union
 
 import torch
 
@@ -59,12 +60,17 @@ class IdentityRegistry:
     def remove(self, raw: Any) -> None:
         self._entries.pop(id(raw), None)
 
+    def values(self) -> list:
+        """The prepared records in registration order."""
+        return [prepared for _, prepared in self._entries.values()]
+
 
 class Runtime:
     """Execution context shared by every capsule of a tree: the device,
-    the seeds, gradient accumulation and the models registry. The
-    checkpoint stack of stateful capsules comes with the Checkpointer
-    (ROADMAP Queue A 2).
+    the seeds, gradient accumulation, the models registry, the checkpoint
+    stack of stateful capsules and the tracker backends. One process: it
+    is always the main process and its barrier is a no-op (the process
+    group is ROADMAP Queue A 3).
 
     ``device`` resolves through :func:`resolve_device` (CUDA unless
     ``"cpu"`` is asked for). Every seed a capsule takes derives from
@@ -85,7 +91,18 @@ class Runtime:
         self._seed_counter = 0
         self.gradient_accumulation_steps = int(gradient_accumulation_steps)
         self.models = IdentityRegistry("models")
+        self.trackers: dict = {}
+        self._checkpoint_stack: list = []
         Runtime._current = self
+
+    # -- processes ------------------------------------------------------------
+
+    @property
+    def is_main_process(self) -> bool:
+        return True
+
+    def wait_for_everyone(self) -> None:
+        """The cross-process barrier; one process has nothing to wait for."""
 
     # -- seeds ----------------------------------------------------------------
 
@@ -99,11 +116,66 @@ class Runtime:
         self._seed_counter += 1
         return value
 
+    def rng_state_dict(self) -> dict:
+        """The seed and the draw counter (``rng.json`` of a checkpoint)."""
+        return {"seed": self._seed, "key_counter": self._seed_counter}
+
+    def load_rng_state_dict(self, state: dict) -> None:
+        self._seed = int(state["seed"])
+        self._seed_counter = int(state["key_counter"])
+
+    # -- checkpoint stack -------------------------------------------------------
+
+    @property
+    def checkpoint_stack(self) -> Sequence[Any]:
+        """The stateful capsules in setup order (what a checkpoint saves)."""
+        return tuple(self._checkpoint_stack)
+
+    def register_for_checkpointing(self, obj: Any) -> None:
+        if any(existing is obj for existing in self._checkpoint_stack):
+            raise RuntimeError(
+                f"Runtime: {type(obj).__name__} registered for checkpointing twice."
+            )
+        self._checkpoint_stack.append(obj)
+
+    def unregister_from_checkpointing(self, obj: Any) -> None:
+        """Pop the stack, verifying LIFO identity: destroy unwinds setup."""
+        if not self._checkpoint_stack:
+            raise RuntimeError(
+                f"Runtime: checkpoint stack empty while unregistering {type(obj).__name__}."
+            )
+        top = self._checkpoint_stack.pop()
+        if top is not obj:
+            raise RuntimeError(
+                f"Runtime: checkpoint stack corrupted — expected {type(obj).__name__}, found "
+                f"{type(top).__name__}. Destroy order must unwind setup order."
+            )
+
     # -- logging and teardown -------------------------------------------------
 
     def get_logger(self, name: str) -> logging.Logger:
         return logging.getLogger(f"rocket_tpu_torch.{name}")
 
+    # -- trackers ---------------------------------------------------------------
+
+    def get_tracker(self, name: str):
+        return self.trackers.get(name)
+
+    def init_tracker(self, name: str, tracker: Any) -> Any:
+        self.trackers[name] = tracker
+        return tracker
+
     def end_training(self) -> None:
-        """End of a launch. Nothing to flush yet: trackers and telemetry
-        arrive with the ops plane (ROADMAP Queue A 7)."""
+        """End of a launch: close every registered tracker backend, each
+        on its own (one failing ``close`` must not leak the others). Run
+        telemetry waits for the ops plane (ROADMAP Queue A 7)."""
+        logger = self.get_logger("runtime")
+        for name, tracker in list(self.trackers.items()):
+            close = getattr(tracker, "close", None)
+            if close is None:
+                continue
+            try:
+                close()
+            except Exception as exc:  # noqa: BLE001 — isolate per backend
+                logger.warning("tracker backend %r failed to close: %r", name, exc)
+        self.trackers.clear()

@@ -1,0 +1,305 @@
+"""Checkpoint I/O — the single-process counterpart of
+``rocket_tpu/runtime/checkpoint_io.py``, with the same on-disk layout, so
+each package reads what the other writes:
+
+* ``index.json`` maps each leaf path (the nested keys joined by ``/``) to
+  ``{"kind": "array", "shape", "dtype", "chunks": [{"file", "key",
+  "index"}]}`` or ``{"kind": "json", "value"}`` for ``None``, bools, ints,
+  floats and strings;
+* arrays live in ``shard_p0.npz`` (no pickle); one process owns every
+  chunk, so each array is one chunk covering it whole. The reader
+  assembles any chunk layout, so a checkpoint the JAX package wrote under
+  a sharding reads here too.
+
+Write protocol: :func:`snapshot` pulls every tensor to host synchronously
+(after it returns the live tensors may change), :func:`write_snapshot`
+does file I/O only and may run on :class:`AsyncWriter`'s thread. Every
+file is committed by :func:`atomic_write` (write a temp file, fsync it,
+replace), through the filesystem seam :class:`HostFS` that :func:`use_fs`
+swaps. A leaf whose dtype numpy lacks (``bfloat16``) raises: params and
+AdamW moments are f32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import tempfile
+import threading
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "HostFS", "use_fs", "atomic_write", "snapshot", "write_snapshot", "save_pytree",
+    "load_leaf", "load_pytree", "unflatten", "AsyncWriter",
+]
+
+_INDEX = "index.json"
+_SHARD = "shard_p0.npz"
+
+
+class HostFS:
+    """The real filesystem behind the write paths: every durable effect
+    goes through ``makedirs`` / ``mktemp`` / ``write`` / ``fsync`` /
+    ``replace``, so a recording shim (:func:`use_fs`) sees the exact
+    effect sequence. An atomic commit is write(tmp) -> fsync(tmp) ->
+    replace(tmp, final)."""
+
+    def makedirs(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+
+    def mktemp(self, directory: str, suffix: str = ".tmp") -> str:
+        fd, tmp = tempfile.mkstemp(dir=directory, suffix=suffix)
+        os.close(fd)
+        return tmp
+
+    def write(self, path: str, data: bytes) -> None:
+        with open(path, "wb") as f:
+            f.write(data)
+
+    def fsync(self, path: str) -> None:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    def replace(self, src: str, dst: str) -> None:
+        os.replace(src, dst)
+
+
+_FS: HostFS = HostFS()
+
+
+@contextlib.contextmanager
+def use_fs(fs):
+    """Swap the module's filesystem for the duration of the block. Not
+    reentrant; the caller drains any :class:`AsyncWriter` inside it."""
+    global _FS
+    previous, _FS = _FS, fs
+    try:
+        yield fs
+    finally:
+        _FS = previous
+
+
+def atomic_write(path: str, data: bytes) -> None:
+    """Commit ``data`` at ``path`` so that a crash leaves either the old
+    file or the whole new one: temp file, fsync, rename."""
+    fs = _FS
+    directory = os.path.dirname(path) or "."
+    fs.makedirs(directory)
+    tmp = fs.mktemp(directory)
+    try:
+        fs.write(tmp, data)
+        fs.fsync(tmp)
+        fs.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+# -- save -----------------------------------------------------------------------
+
+
+def _leaves(tree, prefix=()):
+    """(path tuple, leaf) of a nested dict / list / tuple, depth first."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _to_numpy(name: str, leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16 or leaf.is_complex():
+            raise TypeError(
+                f"checkpoint leaf {name!r} has dtype {leaf.dtype}, which the npz format cannot "
+                "hold; cast it (params and optimizer moments are float32)"
+            )
+        return leaf.detach().to("cpu", copy=True).numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        raise TypeError(f"checkpoint leaf {name!r} has dtype bfloat16, which the npz format "
+                        "cannot hold; cast it first")
+    return arr
+
+
+def snapshot(tree: Any) -> dict:
+    """Phase 1: the index and every array pulled to host (synchronous).
+    Tensors and numpy arrays become npz entries; ``None``, bools, ints,
+    floats and strings stay inline as JSON."""
+    index: dict = {}
+    local: dict = {}
+    for path, leaf in _leaves(tree):
+        name = "/".join(path)
+        if name in index:
+            raise ValueError(f"checkpoint: duplicate leaf path {name!r}")
+        if isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
+            arr = _to_numpy(name, leaf)
+            key = f"{name}:0"
+            index[name] = {
+                "kind": "array", "shape": list(arr.shape), "dtype": arr.dtype.name,
+                "chunks": [{"file": _SHARD, "key": key, "index": [[0, d] for d in arr.shape]}],
+            }
+            local[key] = arr
+        elif leaf is None or isinstance(leaf, (bool, int, float, str)):
+            index[name] = {"kind": "json", "value": leaf}
+        else:
+            raise TypeError(f"checkpoint leaf {name!r} has unsupported type "
+                            f"{type(leaf).__name__}; convert it to a tensor or a scalar")
+    return {"process": 0, "index": index, "local": local}
+
+
+def write_snapshot(path: str, plan: dict) -> None:
+    """Phase 2: file I/O only (safe on a background thread). The shard
+    first, then ``index.json``, whose presence marks a complete write."""
+    _FS.makedirs(path)
+    buf = io.BytesIO()
+    np.savez(buf, **plan["local"])
+    atomic_write(os.path.join(path, _SHARD), buf.getvalue())
+    atomic_write(os.path.join(path, _INDEX), json.dumps(plan["index"]).encode("utf-8"))
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """:func:`snapshot` and :func:`write_snapshot` in one call."""
+    write_snapshot(path, snapshot(tree))
+
+
+# -- restore --------------------------------------------------------------------
+
+
+class _ChunkReader:
+    """Lazy npz access: opens each shard file once, loads only the keys asked for."""
+
+    def __init__(self, path: str) -> None:
+        self._path = path
+        self._files: dict = {}
+
+    def read(self, file: str, key: str) -> np.ndarray:
+        npz = self._files.get(file)
+        if npz is None:
+            full = os.path.join(self._path, file)
+            if not os.path.exists(full):
+                raise FileNotFoundError(f"checkpoint shard {full} missing — incomplete save?")
+            npz = self._files[file] = np.load(full, allow_pickle=False)
+        return npz[key]
+
+
+def _assemble(meta: dict, reader: _ChunkReader) -> np.ndarray:
+    """The whole array from the saved chunks (any chunk layout)."""
+    shape = tuple(meta["shape"])
+    out = np.empty(shape, dtype=np.dtype(meta["dtype"]))
+    filled = 0
+    for chunk in meta["chunks"]:
+        have = [tuple(p) for p in chunk["index"]]
+        region = tuple(slice(lo, hi) for lo, hi in have)
+        out[region] = reader.read(chunk["file"], chunk["key"])
+        filled += int(np.prod([hi - lo for lo, hi in have])) if have else 1
+    if filled < (int(np.prod(shape)) if shape else 1):
+        raise ValueError("checkpoint chunks do not cover the array — torn or mixed-version save?")
+    return out
+
+
+def _read_index(path: str) -> dict:
+    with open(os.path.join(path, _INDEX), "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _value(meta: dict, reader: _ChunkReader):
+    return meta["value"] if meta["kind"] == "json" else _assemble(meta, reader)
+
+
+def load_leaf(path: str, name: str) -> Any:
+    """One leaf of a checkpoint directory, to host (numpy or a scalar)."""
+    return _value(_read_index(path)[name], _ChunkReader(path))
+
+
+def load_pytree(path: str, template: Any | None = None) -> Any:
+    """Restore a checkpoint directory.
+
+    With ``template`` (a nested dict / list of tensors and scalars): a
+    tree of the template's structure, each tensor leaf rebuilt with the
+    template leaf's dtype and device (its shape must match), each other
+    leaf the stored value. Without: a flat ``{leaf path: value}`` dict of
+    numpy arrays and scalars (:func:`unflatten` nests it)."""
+    index = _read_index(path)
+    reader = _ChunkReader(path)
+    if template is None:
+        return {name: _value(meta, reader) for name, meta in index.items()}
+
+    def rebuild(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: rebuild(v, prefix + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rebuild(v, prefix + (str(i),)) for i, v in enumerate(tree))
+        name = "/".join(prefix)
+        meta = index.get(name)
+        if meta is None:
+            raise KeyError(f"checkpoint at {path} has no leaf {name!r} "
+                           f"(has: {sorted(index)[:8]}...)")
+        value = _value(meta, reader)
+        if not isinstance(tree, torch.Tensor):
+            return value
+        if tuple(meta["shape"]) != tuple(tree.shape):
+            raise ValueError(f"checkpoint leaf {name!r} shape {tuple(meta['shape'])} != live "
+                             f"shape {tuple(tree.shape)}")
+        return torch.from_numpy(np.asarray(value)).to(device=tree.device, dtype=tree.dtype)
+
+    return rebuild(template, ())
+
+
+def unflatten(flat: dict) -> dict:
+    """``{"a/b/c": v}`` -> ``{"a": {"b": {"c": v}}}`` (keys stay strings)."""
+    tree: dict = {}
+    for name, value in flat.items():
+        node = tree
+        *parents, last = name.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = value
+    return tree
+
+
+# -- async write ----------------------------------------------------------------
+
+
+class AsyncWriter:
+    """One-deep background write queue: the snapshot stays on the
+    caller's thread, only file I/O overlaps training. Submitting while a
+    write runs first waits for it; an error surfaces on the next
+    :meth:`submit` or :meth:`wait`."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # surfaced on the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name="rocket-tpu-torch-ckpt-writer",
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err

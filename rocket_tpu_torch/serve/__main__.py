@@ -1,18 +1,22 @@
-"""``python -m rocket_tpu_torch.serve run`` — serve a synthetic workload.
+"""``python -m rocket_tpu_torch.serve run`` — serve a checkpoint or
+random weights.
 
-Builds a model with random parameters from ``--seed`` (``--config tiny``
-or ``charlm``), serves ``--requests`` random prompts (or prompts from
-stdin with ``--stdin``, charlm only) through :class:`ServeEngine`,
-streams the first ``--show`` requests and prints the report as JSON.
-Runs on the GPU unless ``--device cpu`` is given.
+Builds a model (``--config tiny`` or ``charlm``) with the params of the
+newest complete checkpoint under ``--checkpoint`` (the loader of
+``examples/generate.py``), or random params from ``--seed`` when no
+checkpoint is given or none is complete (with a warning), serves
+``--requests`` random prompts (or prompts from stdin with ``--stdin``,
+charlm only) through :class:`ServeEngine`, streams the first ``--show``
+requests and prints the report as JSON. Runs on the GPU unless
+``--device cpu`` is given.
 
 Examples::
 
     python -m rocket_tpu_torch.serve run --requests 20 --max-new-tokens 24
-    python -m rocket_tpu_torch.serve run --config charlm --stdin < prompts.txt
+    python -m rocket_tpu_torch.serve run --config charlm --checkpoint checkpoints/char_lm --stdin
 
-Loading a checkpoint and the telemetry/SLO/trace flags of the JAX CLI
-come with the checkpoint and observability slices (ROADMAP Queue A 3, 7).
+The telemetry/SLO/trace flags and the ``report`` subcommand of the JAX
+CLI come with the observability slice (ROADMAP Queue A 7).
 """
 
 from __future__ import annotations
@@ -35,12 +39,21 @@ def _build_model(args):
             vocab_size=128, max_seq_len=128, dim=64, num_layers=2, num_heads=4,
         )
     else:
-        from rocket_tpu_torch.data.text import CharTokenizer, synthetic_corpus
+        from rocket_tpu_torch.data.text import CharTokenizer, tiny_shakespeare
 
-        tokenizer = CharTokenizer(synthetic_corpus())
+        tokenizer = CharTokenizer(tiny_shakespeare())
         config = TransformerConfig.char_lm(vocab_size=tokenizer.vocab_size, max_seq_len=256)
     model = TransformerLM(config)
-    params = model.init(torch.Generator().manual_seed(args.seed), device=args.device)
+    params = None
+    if args.checkpoint:
+        from rocket_tpu_torch.examples.generate import load_params
+
+        params = load_params(model, args.checkpoint, device=args.device)
+        if params is None:
+            print(f"serve: no complete checkpoint under {args.checkpoint!r} — using random-init "
+                  "params", file=sys.stderr)
+    if params is None:
+        params = model.init(torch.Generator().manual_seed(args.seed), device=args.device)
     return model, params, tokenizer
 
 
@@ -108,6 +121,8 @@ def main(argv=None) -> int:
     for p in (parser, run):
         p.add_argument("--config", default="tiny", choices=["tiny", "charlm"])
         p.add_argument("--device", default=None, help="default: cuda")
+        p.add_argument("--checkpoint", default=None,
+                       help="serve the newest complete checkpoint under this directory")
         p.add_argument("--requests", type=int, default=16)
         p.add_argument("--prompt-len", type=int, default=12, help="max synthetic prompt length")
         p.add_argument("--max-new-tokens", type=int, default=16)

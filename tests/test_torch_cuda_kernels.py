@@ -10,7 +10,10 @@ Tolerances: float32 1e-4 (the same math in another order); bfloat16 2e-2
 (the decode plain versions round the attention weights to bf16 before the
 PV product where the decode kernels keep them in float32; the flash
 kernels and their plain versions both round p and ds to bf16, but from
-scores summed in another order, so a rounding can flip by one bf16 step).
+scores summed in another order, so a rounding can flip by one bf16 step;
+the fused-block kernel rounds xn, qkv, the weights and the heads to bf16
+where its plain version does, from sums in another order). The flash and
+fused-block checks hold every element to ``tol * (1 + |want|)``.
 """
 
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 from rocket_tpu_torch.ops import decode_attention as tda
 from rocket_tpu_torch.ops import flash_native as tfn
+from rocket_tpu_torch.ops import fused_block as tfb
 from rocket_tpu_torch.ops import paged_attention as tpa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -156,3 +160,63 @@ def test_flash_rejects_bad_operands(cuda):
         tfn.flash_fwd(q, q, q, 4, 4, 64, (0, 64, 0), True)
     with pytest.raises(ValueError):
         tfn.flash_fwd(q[:, ::2], q[:, ::2], q[:, ::2], 4, 4, 64, (0, 0, 0), True)
+
+
+# -- the fused attention half of a block -------------------------------------
+
+BLOCK_CASES = [  # (B, T, H): the char-LM shape, a ragged T, one head, the longest T
+    (8, 256, 4), (3, 100, 4), (2, 64, 1), (2, 320, 2),
+]
+
+
+def _block_operands(gen, dtype, b, t, h):
+    d = 64 * h
+    mk = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen) * s).cuda()  # noqa: E731
+    x = mk(b, t, d, s=0.5).to(dtype)
+    ln = torch.stack([1.0 + 0.1 * torch.randn(d, generator=gen),
+                      0.1 * torch.randn(d, generator=gen)]).cuda()
+    weights = [mk(d, 3 * d, s=d ** -0.5), mk(3 * d, s=0.01), mk(d, d, s=d ** -0.5), mk(d, s=0.01)]
+    return x, ln, [w.to(dtype) for w in weights]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("epilogue", ["fused", "separate"])
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=lambda c: "b{}t{}h{}".format(*c))
+def test_fused_block_matches_plain(cuda, case, epilogue, dtype):
+    b, t, h = case
+    x, ln, weights = _block_operands(torch.Generator().manual_seed(t + h), dtype, b, t, h)
+    before = tfb.fused_block.launches
+    got = tfb.fused_block(x, ln, *weights, num_heads=h, epilogue=epilogue)
+    assert tfb.fused_block.launches == before + 1
+    want = tfb.fused_block_plain(x, ln, *weights, num_heads=h, epilogue=epilogue)
+    assert got.shape == want.shape == (b, t, 64 * h)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_fused_block_limits_match_the_build_and_shapes_past_them_raise(cuda):
+    assert tfb.kernel_limits() == (tfb.MAX_T, tfb.MAX_FUSED_HEADS)
+    gen = torch.Generator().manual_seed(0)
+    x, ln, weights = _block_operands(gen, torch.float32, 1, tfb.MAX_T + 1, 1)
+    with pytest.raises(ValueError):
+        tfb.fused_block(x, ln, *weights, num_heads=1)
+    x, ln, weights = _block_operands(gen, torch.float32, 1, 64, 1)
+    with pytest.raises(ValueError):  # head dim 32
+        tfb.fused_block(x, ln, *weights, num_heads=2)
+    with pytest.raises(ValueError):  # weights in another dtype than x
+        tfb.fused_block(x, ln, *(w.to(torch.bfloat16) for w in weights), num_heads=1)
+
+
+@pytest.mark.cuda
+def test_block_attn_half_gradients_recompute_through_the_plain_path(cuda):
+    gen = torch.Generator().manual_seed(7)
+    x, ln, weights = _block_operands(gen, torch.float32, 2, 128, 2)
+    args = [x, ln[0].clone(), ln[1].clone(), *weights]
+    grads = {}
+    for name, fn in (("kernel", tfb.block_attn_half), ("plain", tfb.reference_block_attn)):
+        leaves = [a.clone().requires_grad_() for a in args]
+        y = fn(*leaves, num_heads=2)
+        grads[name] = [y] + list(torch.autograd.grad(y.square().sum(), leaves))
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

@@ -39,6 +39,8 @@ def test_importing_the_port_loads_no_jax():
         "serve", "serve.__main__", "models.transformer", "bridge", "data.text",
         "ops.paged_attention", "ops.decode_attention", "ops.flash_native", "nn.keys",
         "optim", "runtime", "core", "core.module", "core.dataset", "core.loop",
+        "ops.fused_block", "runtime.checkpoint_io", "resilience.supervisor", "core.checkpoint",
+        "core.tracker", "examples.char_lm", "examples.generate",
     )]
     code = (
         "import sys\n"
