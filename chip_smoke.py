@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from ``rocket_tpu_torch/csrc`` with
+Builds the port's CUDA kernels from ``rocket_tpu_torch/csrc`` with
 ``nvcc`` (into ``build/kernels/``, first use, all in parallel) and holds
 each against its plain PyTorch version at its path's shapes, and times the
 flash backward under both dq strategies (f32 partials, or the separate
@@ -20,15 +20,21 @@ directory: ``examples.char_lm`` trains one epoch and checkpoints (the
 fused-block kernel, separate epilogue), a resumed run against an
 uninterrupted one, one eval forward (fused epilogue) against the unforced
 chain (flash kernels), ``examples.generate`` and ``serve --checkpoint``
-from the checkpoint. Last, the whole model on the card against the CPU,
-for decoding and for one training forward and backward.
+from the checkpoint. Then the CIFAR-10 ResNet-18 slice with
+``ROCKET_TPU_FUSED_CONV=pallas``, cuDNN deterministic: ``examples.
+cifar_resnet.main`` trains three epochs at B=512 with eval and a
+checkpoint at step 200 (the fused BatchNorm two-pass kernel), a fresh tree
+resumed from that checkpoint against the uninterrupted run (bitwise, under
+``torch.profiler``), ten steps with a table entry pinning the
+``stats_xla`` schedule (the normalise kernel), and one train step of the
+card against the CPU. Last, the whole GPT-2 model on the card against the
+CPU, for decoding and for one training forward and backward.
 
 Each phase prints one JSON line; the last three lines are the per-kernel
 summary, the card's name and power limit as ``nvidia-smi`` reports them,
 and ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits 2 and prints no result. The full
-record is also written to ``chiprun_out/chip_smoke.json``.
-"""
+record is also written to ``chiprun_out/chip_smoke.json``."""
 
 from __future__ import annotations
 
@@ -48,12 +54,13 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim
 from rocket_tpu_torch.core.capsule import Capsule
 from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
-from rocket_tpu_torch.examples import char_lm
+from rocket_tpu_torch.examples import char_lm, cifar_resnet
 from rocket_tpu_torch.examples import generate as char_generate
 from rocket_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -61,11 +68,15 @@ from rocket_tpu_torch.models.transformer import (
     generate,
     next_token_loss,
 )
+from rocket_tpu_torch.data.datasets import ArrayDataset
+from rocket_tpu_torch.models.resnet import resnet18
+from rocket_tpu_torch.nn import layers as nn_layers
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import decode_attention as da
 from rocket_tpu_torch.ops import flash_native as fa
 from rocket_tpu_torch.ops import fused_block as fb
+from rocket_tpu_torch.ops import fused_conv as fc
 from rocket_tpu_torch.ops import paged_attention as pa
 from rocket_tpu_torch.resilience.supervisor import newest_complete_step
 from rocket_tpu_torch.runtime import checkpoint_io
@@ -97,10 +108,28 @@ TRAIN_STEPS, PROFILE_STEPS, WARM_STEPS = 20, 3, 3
 RECORD: dict = {}
 #: Every kernel wrapper, whose launch count is zeroed before each main path.
 COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq,
-           fb.fused_block)
+           fb.fused_block, fc.bn_twopass, fc.bn_normalize)
 #: char-LM resume: a resumed run against an uninterrupted one on the card,
 #: losses and each final param leaf relative to its largest element.
 RESUME_TOL = 1e-5
+#: The fused BatchNorm kernels vs their plain versions: the reference's own
+#: bound for this kernel (rocket_tpu/tune/space.py:536, its moments are
+#: reassociated f32 sums), f32 |got - want| <= 5e-5 + 5e-5 * |want| for y
+#: and the stats; bf16 y within 2e-2 * (1 + |want|) (one bf16 rounding).
+BN_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+#: ResNet-18 one train forward + backward on the card (fused kernels, TF32
+#: off) vs the CPU: logits, loss and the new BN state relative to their
+#: largest element (20 BatchNorm layers of f32 sums in another order). The
+#: gradients are held relative to their norm within the larger of CIFAR_TOL
+#: and CIFAR_GRAD_FLOOR times the CPU's own gap when the same batch is fed
+#: in another order: at initialisation the BN biases' and scales' gradients
+#: are sums that nearly cancel (each BN backward subtracts per-channel
+#: means), so reordering the f32 sums alone moves them by ~0.5% of their
+#: norm on the CPU.
+CIFAR_TOL, CIFAR_GRAD_FLOOR = 1e-3, 3.0
+#: ResNet-18 CIFAR: BatchNorm layers per train step, epochs of the train
+#: phase, the step the Checkpointer saves, and the train images per step.
+CIFAR_BN_LAYERS, CIFAR_EPOCHS, CIFAR_SAVE_STEP, CIFAR_BATCH = 20, 3, 200, 512
 
 
 def emit(phase: str, **fields) -> None:
@@ -495,6 +524,92 @@ def check_fused_block(timer, gen):
     return timed
 
 
+# -- phase 3d: the fused BatchNorm epilogue against its plain version -------
+
+#: ResNet-18 CIFAR train shapes at B=512 (stem and stage 1, then stages
+#: 2-4) in f32, and the tuner's bf16 shapes (rocket_tpu/tune/tuner.py:737-740).
+BN_SHAPES = [(524288, 64, torch.float32), (131072, 128, torch.float32),
+             (32768, 256, torch.float32), (8192, 512, torch.float32),
+             (262144, 64, torch.bfloat16), (401408, 64, torch.bfloat16)]
+
+
+def bn_bounds(n, c, dtype):
+    """(twopass, normalize) least times: x read once and y written once,
+    plus scale/bias and stats (twopass) or the (4, C) rows (normalize), all
+    bytes; 3 flops per element for the moments (add, multiply, add), 3 for
+    the epilogue (subtract, multiply, add) and 1 for the relu, at the f32
+    rate (the arithmetic is f32 for either operand type)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    xy = 2 * n * c * item
+    return (bound_ms(xy + 2 * c * 4 + 2 * c * 4, 7.0 * n * c, torch.float32),
+            bound_ms(xy + 4 * c * 4, 4.0 * n * c, torch.float32))
+
+
+def _bn_excess(got, want, dtype):
+    """Largest excess of |got - want| over atol + rtol * |want| (<= 0 passes)
+    and the max abs error."""
+    atol, rtol = BN_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    return (diff - atol - rtol * want.float().abs()).max().item(), diff.max().item()
+
+
+def check_fused_conv(timer, gen):
+    """Both fused BatchNorm kernels against their plain versions on the
+    same CUDA tensors, act on and off, at :data:`BN_SHAPES`; two launches
+    of the two-pass kernel must give the same bits. At each shape with the
+    relu (the main path's epilogue of conv1 of every block) the kernels,
+    their plain versions and the library yardstick ``F.batch_norm`` [+
+    ``F.relu``] (training mode for row 9, given the statistics for row 10;
+    timed only, never called by the port) are timed."""
+    timed = {}
+    for n, c, dtype in BN_SHAPES:
+        x = (torch.randn(n, c, generator=gen) * 2 + 0.5).to(dtype).cuda()
+        sc = torch.stack([1 + 0.1 * torch.randn(c, generator=gen),
+                          0.1 * torch.randn(c, generator=gen)]).cuda()
+        name = str(dtype).removeprefix("torch.")
+        for act in (True, False):
+            what = f"fused_conv N={n} C={c} {name} act={act}"
+            y, stats = fc.bn_twopass(x, sc, eps=1e-5, act=act)
+            y2, stats2 = fc.bn_twopass(x, sc, eps=1e-5, act=act)
+            want_y, want_stats = fc.bn_twopass_plain(x, sc, eps=1e-5, act=act)
+            mi = fc.epilogue_rows(want_stats, sc[0], sc[1], 1e-5).contiguous()
+            yn = fc.bn_normalize(x, mi, act=act)
+            want_yn = fc.bn_normalize_plain(x, mi, act=act)
+            torch.cuda.synchronize()
+            require(torch.equal(y, y2) and torch.equal(stats, stats2),
+                    f"{what}: two launches differ")
+            ex_y, err_y = _bn_excess(y, want_y, dtype)
+            ex_s, err_s = _bn_excess(stats, want_stats, torch.float32)
+            ex_n, err_n = _bn_excess(yn, want_yn, dtype)
+            require(max(ex_y, ex_s, ex_n) <= 0 and math.isfinite(ex_y + ex_s + ex_n),
+                    f"{what}: y {ex_y}, stats {ex_s}, normalize {ex_n} past the bound")
+            row = {"n": n, "c": c, "dtype": name, "act": act, "tol": BN_TOL[dtype],
+                   "twopass": {"max_abs_err": max(err_y, err_s)},
+                   "normalize": {"max_abs_err": err_n}, "deterministic": True}
+            if act:
+                w, b = sc[0], sc[1]
+                mean = want_stats[:, 0].contiguous()
+                var = torch.clamp(want_stats[:, 1] - mean.square(), min=0.0)
+                lib_train = lambda: F.relu(F.batch_norm(  # noqa: E731
+                    x, None, None, w, b, training=True, eps=1e-5))
+                lib_eval = lambda: F.relu(F.batch_norm(  # noqa: E731
+                    x, mean, var, w, b, training=False, eps=1e-5))
+                bounds = bn_bounds(n, c, dtype)
+                for key, kernel, plain, library, bound in (
+                    ("twopass", lambda: fc.bn_twopass(x, sc, eps=1e-5, act=True),
+                     lambda: fc.bn_twopass_plain(x, sc, eps=1e-5, act=True), lib_train, bounds[0]),
+                    ("normalize", lambda: fc.bn_normalize(x, mi, act=True),
+                     lambda: fc.bn_normalize_plain(x, mi, act=True), lib_eval, bounds[1]),
+                ):
+                    row[key].update(ms=timer.ms(kernel), plain_ms=timer.ms(plain),
+                                    library_ms=timer.ms(library), bound_ms=bound[0],
+                                    bound_by=bound[1])
+                timed[(n, c, name)] = row
+            emit("parity_fused_conv", **row)
+        del x, y, y2, want_y, yn, want_yn
+    return timed
+
+
 # -- phases 4-6: the main path ---------------------------------------------
 
 def serve_phase(model, params, card):
@@ -539,7 +654,6 @@ def profile_serve(engine, vocab, card):
     """Where a serve run's time goes: a torch.profiler trace of 8 requests
     (prompt 128, 32 new tokens) on the warm engine. Device busy share is the
     summed kernel/copy time over the wall time (one stream, so no overlap)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(5)
@@ -552,10 +666,7 @@ def profile_serve(engine, vocab, card):
         engine.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() * 1e-6
+    by_name = _device_s_by_name(_device_events(prof))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit("serve_profile", requests=8, prompt=128, new_tokens=32, wall_s=wall,
@@ -717,16 +828,26 @@ def _train_group(kernel: str) -> str:
     return "other"
 
 
+def _device_events(prof) -> list:
+    """The kernels and copies of a profiler window: its device events, less
+    the ``record_function`` ranges the profiler mirrors onto the device's
+    timeline (they span kernels already counted)."""
+    return [ev for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation]
+
+
+def _device_s_by_name(events) -> dict:
+    by_name: dict = {}
+    for ev in events:
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() * 1e-6
+    return by_name
+
+
 def _device_profile(prof, wall):
     """(busy seconds, idle share, top device ops, seconds per
     :func:`_train_group`) of a profiler window. One stream, so summed
     kernel/copy times do not overlap."""
-    from torch.autograd import DeviceType
-
-    by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() * 1e-6
+    by_name = _device_s_by_name(_device_events(prof))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     groups: dict = {}
@@ -1055,6 +1176,331 @@ def char_lm_phases(card):
     return launches
 
 
+# -- phases 15-18: the CIFAR-10 ResNet-18 slice -------------------------------
+
+def _cifar_lines(path="runs/cifar_resnet18.jsonl"):
+    """(train losses, their host times, val accuracies) from the Tracker's
+    jsonl: one train line per step, one val line per epoch."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if "train/loss" in r]
+    return ([r["train/loss"] for r in train], [r["time"] for r in train],
+            [r["val/accuracy"] for r in rows if "val/accuracy" in r])
+
+
+def _bn_launches():
+    return {"bn_twopass": fc.bn_twopass.launches, "bn_normalize": fc.bn_normalize.launches}
+
+
+def cifar_train_phase(val, card):
+    """``examples.cifar_resnet.main(num_epochs=3, batch_size=512)``: ResNet-18
+    at full width on the synthetic CIFAR-10 (50,000 train images), f32
+    with cuDNN's default TF32 convolutions, augmentation on the device,
+    every train-mode BatchNorm(+relu) through the two-pass kernel
+    (``ROCKET_TPU_FUSED_CONV=pallas``): 20 launches per step, none in eval.
+    Step times are the gaps between the Tracker's flushes within an epoch
+    (each after the loss's device sync), from the third step on."""
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = cifar_resnet.main(num_epochs=CIFAR_EPOCHS, batch_size=CIFAR_BATCH)
+    wall = time.perf_counter() - t0
+    launches = _bn_launches()
+    steps = run["total_steps"]
+    spe = steps // CIFAR_EPOCHS
+    losses, stamps, accuracy = _cifar_lines()
+    require(len(losses) == steps, f"cifar: {len(losses)} tracker lines for {steps} steps")
+    require(all(math.isfinite(x) for x in losses), f"cifar: non-finite loss {losses}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    require(last < first, f"cifar: loss did not fall, first ten {first}, last ten {last}")
+    require(launches == {"bn_twopass": CIFAR_BN_LAYERS * steps, "bn_normalize": 0},
+            f"cifar: launches {launches} over {steps} steps")
+    ckpt = "checkpoints/cifar"
+    dirs = sorted(d for d in os.listdir(ckpt) if d.isdigit())
+    require(dirs == [str(CIFAR_SAVE_STEP)] and newest_complete_step(ckpt) == CIFAR_SAVE_STEP,
+            f"cifar: checkpoint steps {dirs}")
+    with open(os.path.join(ckpt, str(CIFAR_SAVE_STEP), "model_0", "index.json")) as f:
+        n_state = sum(k.startswith("model_state/") for k in json.load(f))
+    require(n_state == 2 * CIFAR_BN_LAYERS, f"cifar: checkpoint holds {n_state} state leaves")
+    require(len(accuracy) == CIFAR_EPOCHS and accuracy[-1] > 0.2,
+            f"cifar: val accuracy {accuracy}")
+    # Eval reads the running statistics: no kernel launch.
+    state = run["trained"]["state"]
+    zero_launches()
+    with torch.no_grad():
+        run["model"].apply(state["params"], {"image": torch.from_numpy(
+            val.get_batch(np.arange(CIFAR_BATCH))["image"]).cuda()},
+            state=state["model_state"], mode="eval")
+    torch.cuda.synchronize()
+    require(_bn_launches() == {"bn_twopass": 0, "bn_normalize": 0},
+            f"cifar: eval launched {_bn_launches()}")
+    step_s = np.concatenate([np.diff(stamps[e * spe:(e + 1) * spe])[2 if e == 0 else 0:]
+                             for e in range(CIFAR_EPOCHS)])
+    median = float(np.median(step_s))
+    save = run["checkpointer"].save_times[0]
+    RECORD["cifar_losses"] = losses
+    emit("cifar_train", model="resnet18_cifar", dtype="float32 (convs in cuDNN's TF32)",
+         batch=CIFAR_BATCH, steps=steps, epochs=CIFAR_EPOCHS, loss_first10_mean=first,
+         loss_last10_mean=last, val_accuracy=accuracy, bn_twopass_launches=launches["bn_twopass"],
+         bn_twopass_per_step=launches["bn_twopass"] / steps, eval_launches=0,
+         step_ms_median=median * 1e3, step_ms_p10_p90=[float(np.percentile(step_s, q)) * 1e3
+                                                       for q in (10, 90)],
+         images_per_s=CIFAR_BATCH / median, wall_s=wall, checkpoint_step=save["step"],
+         checkpoint_snapshot_s=save["snapshot_s"], checkpoint_write_s=save["write_s"],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         cudnn={"deterministic": torch.backends.cudnn.deterministic,
+                "benchmark": torch.backends.cudnn.benchmark,
+                "allow_tf32": torch.backends.cudnn.allow_tf32}, card=card)
+    return run, launches["bn_twopass"]
+
+
+def _cifar_group(kernel: str) -> str:
+    """The CIFAR profile's device-time group of a kernel name."""
+    low = kernel.lower()
+    if any(k in kernel for k in ("moments_kernel", "finalize_kernel", "normalize_kernel")):
+        return "fused_conv kernels"
+    if "multi_tensor_apply" in low or "sgd" in low:
+        return "SGD (multi-tensor apply)"
+    if "memcpy" in low:
+        return "copies (the batch to the device)"
+    if any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
+                              "cutlass", "winograd", "gemm", "nvjet", "nhwc", "nchw")):
+        return "convolutions and GEMMs"
+    if "reduce" in low:
+        return "reductions (BN backward sums, loss, pool)"
+    return "elementwise (BN backward, relu, residual, masks, casts)"
+
+
+def _range_kernels(prof, name: str, before: float) -> dict:
+    """{kernel name: device seconds} of the kernels launched inside the
+    ``record_function`` ranges ``name`` that start before ``before`` (the
+    profiler's µs), found through each range's tree of host events."""
+    by_name: dict = {}
+
+    def walk(ev):
+        for k in ev.kernels:
+            if k.name != name:  # the range's own mirror, if the profiler attaches one
+                by_name[k.name] = by_name.get(k.name, 0.0) + k.duration * 1e-6
+        for child in ev.cpu_children:
+            walk(child)
+
+    for ev in prof.events():
+        if ev.name == name and ev.device_type == DeviceType.CPU and ev.time_range.start < before:
+            walk(ev)
+    return by_name
+
+
+def cifar_resume_phase(root, train, val, run, card):
+    """A fresh tree (``cifar_resnet.build``) resumed with ``resume_from=
+    "latest"`` from a copy of the train phase's step-200 checkpoint runs to
+    the end of epoch 3 under ``torch.profiler``. Its losses, val accuracy,
+    params and BatchNorm state must equal the uninterrupted run's bitwise
+    (cuDNN deterministic, no autotuning, as for the train phase).
+
+    Where the time goes is read from one window of the trace: from the
+    start of the first train step's ``Module.batch_transform`` range to the
+    start of the last one's, so whole train steps (each ends on the loss's
+    device sync) and nothing of the resume or the eval epoch. The idle share
+    is that window's device time over its own wall time (profiler overhead
+    included); augmentation is every kernel launched inside the range. The
+    augmentation of one batch is also timed alone with CUDA events."""
+    whole, _, whole_acc = _cifar_lines()
+    want = run["trained"]["state"]
+    src = Path("checkpoints/cifar") / str(CIFAR_SAVE_STEP)
+    shutil.copytree(src, root / "ck" / str(CIFAR_SAVE_STEP))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        resumed = cifar_resnet.build(train, val, batch_size=CIFAR_BATCH, num_epochs=CIFAR_EPOCHS,
+                                     out_dir="ck", runtime=rt.Runtime(seed=0),
+                                     resume_from="latest")
+        from torch.profiler import ProfilerActivity, profile
+
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            resumed["launcher"].launch()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses, _, accuracy = _cifar_lines()
+    finally:
+        os.chdir(cwd)
+    got = resumed["trained"]["state"]
+    n = len(whole) - CIFAR_SAVE_STEP
+    require(losses == whole[CIFAR_SAVE_STEP:], f"cifar_resume: {len(losses)} losses, want the "
+            f"uninterrupted run's last {n}, equal bitwise")
+    require(accuracy[-1:] == whole_acc[-1:], f"cifar_resume: accuracy {accuracy} vs {whole_acc}")
+    for tree in ("params", "model_state"):
+        for a, b in zip(optim.param_leaves(got[tree]), optim.param_leaves(want[tree])):
+            require(torch.equal(a, b), f"cifar_resume: {tree} differs from the uninterrupted run")
+    launches = _bn_launches()
+    require(launches["bn_twopass"] == CIFAR_BN_LAYERS * n, f"cifar_resume: launches {launches}")
+    emit("cifar_resume", resumed_from_step=CIFAR_SAVE_STEP, steps=n, bitwise=True,
+         cudnn={"deterministic": torch.backends.cudnn.deterministic,
+                "benchmark": torch.backends.cudnn.benchmark}, wall_s=wall, card=card)
+
+    starts = sorted(ev.time_range.start for ev in prof.events()
+                    if ev.name == "Module.batch_transform" and ev.device_type == DeviceType.CPU)
+    require(len(starts) == n, f"cifar_profile: {len(starts)} batch_transform ranges, {n} steps")
+    w0, w1 = starts[0], starts[-1]
+    steps, window = n - 1, (w1 - w0) * 1e-6
+    by_name = _device_s_by_name(ev for ev in _device_events(prof)
+                                if w0 <= ev.time_range.start < w1)
+    busy = sum(by_name.values())
+    augment = _range_kernels(prof, "Module.batch_transform", w1)
+    groups: dict = {"augmentation (the batch_transform range)": sum(augment.values())}
+    for name, t in by_name.items():
+        rest = t - augment.get(name, 0.0)
+        groups[_cifar_group(name)] = groups.get(_cifar_group(name), 0.0) + rest
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    images = torch.from_numpy(train.get_batch(np.arange(CIFAR_BATCH))["image"]).cuda()
+    transform = cifar_resnet.image_augment(crop_padding=4, flip=True)
+    aug = Timer().ms(lambda: transform({"image": images}, 12345), iters=20)
+    emit("cifar_profile", steps=steps, window_s=window, step_ms=window / steps * 1e3,
+         device_busy_s=busy, device_idle_share=(1.0 - busy / window) if busy else None,
+         device_busy_ms_per_step=busy / steps * 1e3, device_time_measured=busy > 0,
+         device_s_by_group=groups, share_by_group={k: v / busy for k, v in groups.items()}
+         if busy else None, augment_kernels=len(augment),
+         top_kernels=[{"name": k[:120], "s": t, "share_of_device": t / busy} for k, t in top],
+         augment_alone_ms=aug, launch_wall_s=wall, card=card)
+
+
+def cifar_stats_xla_phase(root, train, val, card):
+    """The seam's other schedule on the main path: 10 train steps of the
+    same tree with a ``fused_conv`` table entry pinning ``{"impl":
+    "pallas", "schedule": "stats_xla"}`` (the reference's table is empty,
+    so the entry is stood in for the run, and the force override is off):
+    every train-mode BatchNorm runs the plain moments and the normalise
+    kernel, 20 ``bn_normalize`` launches per step."""
+    entry = {"impl": "pallas", "schedule": "stats_xla", "block_rows": 512}
+    table, forced = nn_layers._fused_conv_config, os.environ.pop("ROCKET_TPU_FUSED_CONV", None)
+    nn_layers._fused_conv_config = lambda n, c, dtype: entry
+    root.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        steps = 10
+        sub_train = train.get_batch(np.arange(steps * CIFAR_BATCH))
+        sub_val = val.get_batch(np.arange(CIFAR_BATCH))
+        run = cifar_resnet.build(ArrayDataset(sub_train["image"], sub_train["label"]),
+                                 ArrayDataset(sub_val["image"], sub_val["label"]),
+                                 batch_size=CIFAR_BATCH, num_epochs=1, out_dir="ck",
+                                 runtime=rt.Runtime(seed=0))
+        zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run["launcher"].launch()
+        torch.cuda.synchronize()
+        launches = _bn_launches()
+        losses, _, _ = _cifar_lines()
+    finally:
+        os.chdir(cwd)
+        nn_layers._fused_conv_config = table
+        if forced is not None:
+            os.environ["ROCKET_TPU_FUSED_CONV"] = forced
+    require(launches == {"bn_twopass": 0, "bn_normalize": CIFAR_BN_LAYERS * steps},
+            f"cifar_stats_xla: launches {launches}")
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"cifar_stats_xla: losses {losses}")
+    emit("cifar_stats_xla", table_entry=entry, steps=steps, losses=losses, launches=launches,
+         card=card)
+    return launches["bn_normalize"]
+
+
+def cifar_model_check(card):
+    """One train forward + backward of ResNet-18 (CIFAR stem, B=32, 32x32:
+    the smallest batch whose every BatchNorm tiles 512 rows) on the card,
+    every BatchNorm through the two-pass kernel, against the same params
+    on the CPU (the plain version). With TF32 off the logits, the loss and
+    the new BN state must agree within CIFAR_TOL of their largest element,
+    and every gradient within CIFAR_TOL of its norm or CIFAR_GRAD_FLOOR
+    times the CPU's own worst gap when the batch is permuted (the same math
+    summed in another order), whichever is larger. The gap with TF32 on,
+    as the train phase runs, is reported."""
+    model = resnet18(10, stem="cifar")
+    params = model.init(torch.Generator().manual_seed(5), device="cpu")
+    state = model.init_state(device="cpu")
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 32).astype(np.int32))
+    perm = torch.from_numpy(rng.permutation(32))
+    results = {}
+    for key in (("cpu", False), ("cpu", "permuted"), ("cuda", False), ("cuda", True)):
+        dev, flag = key
+        torch.backends.cudnn.allow_tf32 = flag is True
+        order = perm if flag == "permuted" else torch.arange(32)
+        p = map_params(lambda t: t.detach().to(dev).requires_grad_(), params)
+        zero_launches()
+        out, new_state = model.apply(p, {"image": images[order].to(dev)}, state=map_params(
+            lambda t: t.to(dev), state), mode="train")
+        loss = cifar_resnet.cross_entropy({"logits": out["logits"], "label": labels[order].to(dev)})
+        grads = torch.autograd.grad(loss, optim.param_leaves(p))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            require(fc.bn_twopass.launches == CIFAR_BN_LAYERS,
+                    f"cifar_model_check: {fc.bn_twopass.launches} kernel launches")
+        logits = out["logits"].detach().cpu()
+        if flag == "permuted":
+            logits = logits[torch.argsort(perm)]
+        results[key] = ([logits, loss.detach().cpu()[None]]
+                        + [t.cpu() for t in optim.param_leaves(new_state)],
+                        [g.cpu() for g in grads])
+
+    def gaps(key):
+        vals, grads = results[key]
+        wvals, wgrads = results[("cpu", False)]
+        val_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                      for a, b in zip(vals, wvals))
+        grad_err = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                       for a, b in zip(grads, wgrads))
+        return val_err, grad_err
+
+    floor, off, on = gaps(("cpu", "permuted")), gaps(("cuda", False)), gaps(("cuda", True))
+    grad_tol = max(CIFAR_TOL, CIFAR_GRAD_FLOOR * floor[1])
+    require(off[0] <= CIFAR_TOL and off[1] <= grad_tol,
+            f"cifar_model_check: card vs CPU with TF32 off: values {off[0]} (tol {CIFAR_TOL}), "
+            f"grads {off[1]} (tol {grad_tol}; the CPU's own reorder gap {floor[1]})")
+    emit("cifar_model_check", model="resnet18_cifar", batch=32, dtype="float32",
+         tf32_off={"value_rel_err": off[0], "grad_norm_rel_err": off[1]},
+         tf32_on={"value_rel_err": on[0], "grad_norm_rel_err": on[1]},
+         cpu_reorder_gap={"value_rel_err": floor[0], "grad_norm_rel_err": floor[1]},
+         tol={"values": CIFAR_TOL, "grads": grad_tol},
+         loss=float(results[("cuda", False)][0][1]), card=card)
+
+
+def cifar_phases(card):
+    """The CIFAR-10 ResNet-18 phases in a temporary directory, with the
+    fused BatchNorm forced (``ROCKET_TPU_FUSED_CONV=pallas``), cuDNN
+    deterministic without autotuning (bitwise resume needs both) and
+    cuDNN's TF32 convolutions on, PyTorch's default, which the port leaves
+    alone; the settings, environment and directory are restored after."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    cwd, forced = os.getcwd(), os.environ.get("ROCKET_TPU_FUSED_CONV")
+    os.environ["ROCKET_TPU_FUSED_CONV"] = "pallas"
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = True, False, True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            train, val = cifar_resnet.cifar10(train=True), cifar_resnet.cifar10(train=False)
+            run, twopass = cifar_train_phase(val, card)
+            cifar_resume_phase(Path(tmp) / "resume", train, val, run, card)
+            del run
+            normalize = cifar_stats_xla_phase(Path(tmp) / "stats_xla", train, val, card)
+            os.chdir(cwd)
+            cifar_model_check(card)
+    finally:
+        os.chdir(cwd)
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved
+        if forced is None:
+            os.environ.pop("ROCKET_TPU_FUSED_CONV", None)
+        else:
+            os.environ["ROCKET_TPU_FUSED_CONV"] = forced
+    return twopass, normalize
+
+
 def train_model_check():
     """One training forward + backward at GPT-2 width, 2 layers, f32,
     dropout 0, B=4, T=256 (the fused chunked loss): loss and every gradient
@@ -1114,6 +1560,7 @@ def main() -> int:
     flash_long = check_flash_long(timer, gen)
     time_dq_strategies(timer, gen)
     block = check_fused_block(timer, gen)
+    conv = check_fused_conv(timer, gen)[(524288, 64, "float32")]
     del timer
     torch.cuda.empty_cache()
 
@@ -1131,6 +1578,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # The char-LM train step runs the separate epilogue (attention dropout).
     block["separate"]["launches"] = char_lm_phases(card)
+    torch.cuda.empty_cache()
+    # Row 9 on the main path (cifar_train); row 10 on the stats_xla drive.
+    conv["twopass"]["launches"], conv["normalize"]["launches"] = cifar_phases(card)
     model_check_phase()
     train_model_check()
 
@@ -1148,6 +1598,10 @@ def main() -> int:
          "rocket_tpu/ops/flash_native.py:348"),
         ("fused_block", block["separate"], "rocket_tpu_torch/csrc/fused_block.cu",
          "rocket_tpu/ops/fused_block.py:125"),
+        ("fused_bn_twopass", {**conv["twopass"]}, "rocket_tpu_torch/csrc/fused_conv.cu",
+         "rocket_tpu/ops/fused_conv.py:102"),
+        ("fused_bn_normalize", {**conv["normalize"]}, "rocket_tpu_torch/csrc/fused_conv.cu",
+         "rocket_tpu/ops/fused_conv.py:139"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",

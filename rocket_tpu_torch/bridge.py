@@ -1,11 +1,14 @@
-"""Parameter bridge: a JAX param tree (as numpy) -> the port's params.
+"""Parameter bridge: a JAX param tree (as numpy) -> the port's params, and
+a JAX model's ``variables`` (params and state) -> the port's.
 
 The port's param dicts use the JAX package's names, so the copy is
 rename-free. A scanned JAX tree (``blocks_stacked``, every leaf with a
 leading layer dim) is unstacked into the per-layer ``blocks`` subtree the
 port uses. Dtypes are kept, bfloat16 included (numpy holds it as the
 ``ml_dtypes`` type, which torch cannot read directly, so its bits are
-reinterpreted). This module takes numpy only and never imports JAX.
+reinterpreted). The model state (the ResNets' BatchNorm running
+statistics) carries over beside the params, as laid out, with conv
+kernels kept HWIO. This module takes numpy only and never imports JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "tensor_from_numpy", "variables_from_jax"]
 
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
@@ -49,3 +52,12 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
             leaf = next(iter(leaf.values()))
         tree["blocks"] = {str(i): _unstack(stacked, i) for i in range(np.shape(leaf)[0])}
     return _convert(tree, device)
+
+
+def variables_from_jax(variables: dict, device="cpu") -> dict:
+    """Convert a JAX model's ``{"params": ..., "state": ...}`` of numpy
+    arrays (e.g. ``jax.tree.map(np.asarray, model.init(key))``) to
+    ``{"params", "state"}`` of port tensors on ``device``; a missing state
+    is empty."""
+    return {"params": params_from_jax(variables["params"], device),
+            "state": _convert(variables.get("state", {}), device)}

@@ -1,0 +1,112 @@
+"""Meter / Metric — evaluation metrics over the batches of a phase
+(counterpart of ``rocket_tpu/core/meter.py``, for one process).
+
+* ``Meter`` selects batch keys, trims the padding of a short last batch
+  (``attrs.batch_info.size`` is the real sample count) and dispatches its
+  children — the ``Metric`` capsules — on that batch. One process holds
+  the whole batch, so the cross-replica gather is the identity.
+* A ``Metric`` that overrides :meth:`Metric.device_reduce` gets the
+  device path: the Meter hands it the (untrimmed) key tensors and the real
+  size, it returns a few device scalars that :meth:`Metric.consume`
+  accumulates on the device, and ``reset`` reads them on the host once per
+  epoch. Other metrics get the trimmed batch in ``launch``.
+* Errors inside metric children propagate — the reference's deliberate fix
+  of ``rocket/core/meter.py:91-93``, whose bare ``except:`` masked them as
+  "keys not found".
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Iterable, Optional, Sequence
+
+from rocket_tpu_torch.core.attributes import Attributes
+from rocket_tpu_torch.core.capsule import Capsule
+from rocket_tpu_torch.core.dispatcher import Dispatcher
+
+__all__ = ["Meter", "Metric"]
+
+
+class Meter(Dispatcher):
+    """``keys``: the batch keys the metrics read. ``gather_on`` ("all" or
+    "main") is the reference's choice of which hosts keep the gathered
+    batch; one process is both, so the two behave alike."""
+
+    def __init__(self, keys: Sequence[str], capsules: Iterable[Capsule] = (),
+                 gather_on: str = "all", statefull: bool = False, priority: int = 1000,
+                 runtime=None) -> None:
+        super().__init__(capsules, statefull=statefull, priority=priority, runtime=runtime)
+        if gather_on not in ("all", "main"):
+            raise ValueError(f"Meter: gather_on must be 'all'|'main', got {gather_on!r}")
+        self._keys = tuple(keys)
+        self._gather_on = gather_on
+
+    @staticmethod
+    def gather_for_metrics(value, real_size: Optional[int]):
+        """The value with the padding rows past ``real_size`` trimmed."""
+        if real_size is not None and getattr(value, "ndim", 0) >= 1 and len(value) > real_size:
+            return value[:real_size]
+        return value
+
+    def launch(self, attrs: Attributes | None = None) -> None:
+        if attrs is None or attrs.batch is None:
+            return
+        batch = attrs.batch
+        if not isinstance(batch, Mapping):
+            raise TypeError(f"Meter: expects a dict batch, got {type(batch).__name__}")
+        missing = [k for k in self._keys if k not in batch]
+        if missing:
+            raise KeyError(f"Meter: keys {missing} not found in batch "
+                           f"(available: {sorted(batch.keys())})")
+        real_size = attrs.batch_info.size if attrs.batch_info is not None else None
+        subset = {k: batch[k] for k in self._keys}
+        size = len(subset[self._keys[0]]) if real_size is None else real_size
+        host_kids = []
+        for child in self._capsules:
+            if isinstance(child, Metric) and type(child).device_reduce is not Metric.device_reduce:
+                child.consume(child.device_reduce(subset, size))
+            else:
+                host_kids.append(child)
+        if not host_kids:
+            return
+        gathered = {k: self.gather_for_metrics(v, real_size) for k, v in subset.items()}
+        original = attrs.batch
+        attrs.batch = {**batch, **gathered}
+        try:
+            for child in host_kids:  # already priority-sorted
+                child.launch(attrs)
+        finally:
+            attrs.batch = original
+
+
+class Metric(Capsule):
+    """Abstract accumulator: override ``launch`` and ``reset``
+    (``rocket/core/meter.py:98-111``), or :meth:`device_reduce` +
+    :meth:`consume` and ``reset`` for the device path."""
+
+    def launch(self, attrs: Attributes | None = None) -> None:
+        raise NotImplementedError(f"{type(self).__name__}: implement launch(attrs) to accumulate.")
+
+    def reset(self, attrs: Attributes | None = None) -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__}: implement reset(attrs) to finalize/clear.")
+
+    def device_reduce(self, batch, real_size):
+        """Mapping of the Meter's keys to tensors + the real size -> a
+        small dict of device scalars. Overriding it selects the device
+        path."""
+        return None
+
+    def consume(self, reduced) -> None:
+        """Accumulate a :meth:`device_reduce` result on the device; a host
+        read here would put a sync on every eval batch."""
+        raise NotImplementedError
+
+    def publish(self, attrs: Attributes | None, tag: str, value) -> None:
+        """Route a finalised scalar to the tracker buffers and the live loop
+        state."""
+        if attrs is not None:
+            if attrs.tracker is not None:
+                attrs.tracker.scalars[tag] = value
+            if attrs.looper is not None:
+                attrs.looper.state[tag] = value

@@ -10,16 +10,24 @@
 * train/eval follow ``attrs.mode`` set by the Looper.
 
 The train step is one function: the step's key ``fold_in(base key,
-step)`` (``nn/keys.py``), the forward (optionally under a whole-forward
-``torch.utils.checkpoint``), the objective, the backward, then gradient
-accumulation — the update happens on every ``accum``-th step with the
-mean of the window's gradients, at ``opt_step = step // accum`` — and the
-optimizer update at the schedule's lr for ``opt_step``. Params are f32
-masters; ``compute_dtype`` casts float batch inputs, and the model casts
-its params at use.
+step)`` (``nn/keys.py``), the ``batch_transform`` (on-device augmentation,
+once per step on the raw batch, keyed ``fold_in(step key, 0xA9517)``), the
+forward (optionally under a whole-forward ``torch.utils.checkpoint``), the
+objective, the backward, then gradient accumulation — the update happens
+on every ``accum``-th step with the mean of the window's gradients, at
+``opt_step = step // accum`` — and the optimizer update at the schedule's
+lr for ``opt_step``. Params are f32 masters; ``compute_dtype`` casts float
+batch inputs, and the model casts its params at use.
+
+Model state: a model with ``init_state`` (the ResNets' BatchNorm running
+statistics) gets ``state["model_state"]``, which the train forward takes
+and replaces by its (detached) new state after each step, the eval
+forward reads, and the checkpoint carries under ``model_state/...`` as the
+JAX Checkpointer does. Models without it (the transformer) run exactly as
+before.
 
 Not ported yet, and raising ``NotImplementedError``: ``param_sharding``
-(ROADMAP Queue A 6), EMA params and ``batch_transform`` (Queue A 2).
+(ROADMAP Queue A 6) and EMA params (Queue A 2).
 Bucketed gradient sync and the pipelined value-and-grad belong to Queue A
 6 as well (``Optimizer(grad_sync=...)`` and ``TransformerConfig.
 pipeline_axis`` raise there).
@@ -74,7 +82,8 @@ def _host(value) -> torch.Tensor:
 
 class PreparedModule:
     """The shared prepared record of one raw model: its live state —
-    ``params`` (nested dict of f32 tensors), ``step`` (host int),
+    ``params`` (nested dict of f32 tensors), ``model_state`` (for a model
+    with ``init_state``), ``step`` (host int),
     ``base_key`` (the counter-hash key the step keys fold from) and, once
     a train Module set up, ``optimizer`` and the accumulation buffers.
     Mutable on purpose: train and eval capsules wrapping one model see the
@@ -86,16 +95,19 @@ class PreparedModule:
 
     def checkpoint_state(self) -> dict:
         """The train state as the tree ``checkpoint_io`` saves: ``params``;
-        ``optimizer``, one tree per key of the optimizer's per-param state
-        (AdamW: ``exp_avg``, ``exp_avg_sq``, ``step``) laid out as the
-        params; ``step`` and ``base_key`` (ints); ``grad_accum`` (as the
-        params) and ``loss_acc`` under gradient accumulation."""
+        ``model_state`` when the model has one; ``optimizer``, one tree per
+        key of the optimizer's per-param state (AdamW: ``exp_avg``,
+        ``exp_avg_sq``, ``step``; momentum SGD: ``momentum_buffer``) laid
+        out as the params; ``step`` and ``base_key`` (ints); ``grad_accum``
+        (as the params) and ``loss_acc`` under gradient accumulation."""
         state = self.state
         params = state["params"]
         paths = list(_paths(params))
         leaves = optim_lib.param_leaves(params)
         view = {"params": map_params(lambda t: t.detach(), params),
                 "step": int(state["step"]), "base_key": int(state["base_key"])}
+        if state.get("model_state"):
+            view["model_state"] = map_params(lambda t: t.detach(), state["model_state"])
         opt = state.get("optimizer")
         if opt is not None:
             per_key: dict = {}
@@ -120,6 +132,10 @@ class PreparedModule:
         with torch.no_grad():
             for p, path in zip(leaves, paths):
                 p.copy_(_host(_at(view["params"], path)))
+            if state.get("model_state") and "model_state" in view:
+                mstate = state["model_state"]
+                for t, path in zip(optim_lib.param_leaves(mstate), _paths(mstate)):
+                    t.copy_(_host(_at(view["model_state"], path)))
         state["step"] = int(view["step"])
         state["base_key"] = int(view["base_key"])
         opt = state.get("optimizer")
@@ -141,7 +157,9 @@ class PreparedModule:
 
 class Module(Dispatcher):
     """Capsule wrapping a model with ``init(generator, device) -> params``
-    and ``apply(params, batch, *, mode, rng) -> batch``.
+    and ``apply(params, batch, *, mode, rng) -> batch`` — or, for a model
+    with ``init_state(device) -> state``, ``apply(params, batch, *, state,
+    mode, rng) -> (batch, new_state)``.
 
     ``compute_dtype``: float batch inputs are cast to it before the
     forward. ``remat``: run the train forward under
@@ -149,7 +167,9 @@ class Module(Dispatcher):
     recomputed in the backward (the dropout keys are counter hashes, so
     the recompute draws the same masks). ``return_outputs``: ``"eval"``
     (default) replaces ``attrs.batch`` with the forward's output in eval
-    only; ``"always"`` in train too.
+    only; ``"always"`` in train too. ``batch_transform``: ``fn(batch,
+    key) -> batch`` run on the raw train batch before the forward
+    (``data/augment.image_augment``); eval is never transformed.
     """
 
     def __init__(self, model, capsules=(), compute_dtype=None, remat: bool = False,
@@ -162,15 +182,13 @@ class Module(Dispatcher):
                                       "parallelism, not ported yet (ROADMAP Queue A 6)")
         if ema_decay is not None or use_ema:
             raise NotImplementedError("Module EMA params are not ported yet (ROADMAP Queue A 2)")
-        if batch_transform is not None:
-            raise NotImplementedError("Module(batch_transform=...) is not ported yet "
-                                      "(ROADMAP Queue A 2)")
         if return_outputs not in ("eval", "always", "never"):
             raise ValueError(f"Module: unknown return_outputs {return_outputs!r}")
         super().__init__(capsules, statefull=statefull, priority=priority, runtime=runtime)
         self._model = model
         self._compute_dtype = compute_dtype
         self._remat = remat
+        self._batch_transform = batch_transform
         self._return_outputs = return_outputs
         self._prepared: Optional[PreparedModule] = None
         self._objective = None
@@ -206,6 +224,11 @@ class Module(Dispatcher):
             prepared = PreparedModule(self._model, {"params": params})
             runtime.models.add(self._model, prepared)
         state = prepared.state
+        if hasattr(self._model, "init_state"):
+            if "model_state" not in state:
+                state["model_state"] = self._model.init_state(device=runtime.device)
+            state["model_state"] = map_params(lambda t: t.to(runtime.device),
+                                              state["model_state"])
         state.setdefault("step", 0)
         if "base_key" not in state:
             state["base_key"] = keys.key(runtime.next_seed())
@@ -233,17 +256,27 @@ class Module(Dispatcher):
             self._clip_norm = opt.clip_norm
         elif loss is not None:
             raise RuntimeError("Module: a Loss child requires an Optimizer child.")
+        elif self._batch_transform is not None:
+            raise RuntimeError("Module: batch_transform runs in the TRAIN step and requires "
+                               "Loss + Optimizer children (eval is never transformed).")
         else:
             state["params"] = map_params(lambda t: t.to(runtime.device), state["params"])
 
     # -- steps -------------------------------------------------------------
 
     def _forward(self, params, batch, mode, rng):
+        """The model's forward: the output batch, or ``(batch, new_state)``
+        for a model with state."""
         if self._compute_dtype is not None:
             batch = {k: v.to(self._compute_dtype)
                      if isinstance(v, torch.Tensor) and v.is_floating_point() else v
                      for k, v in batch.items()}
-        fn = lambda b: self._model.apply(params, b, mode=mode, rng=rng)  # noqa: E731
+        mstate = self._prepared.state.get("model_state")
+        if mstate is None:
+            fn = lambda b: self._model.apply(params, b, mode=mode, rng=rng)  # noqa: E731
+        else:
+            fn = lambda b: self._model.apply(params, b, state=mstate, mode=mode,  # noqa: E731
+                                             rng=rng)
         if self._remat and mode == "train":
             return checkpoint(fn, batch, use_reentrant=False)
         return fn(batch)
@@ -275,8 +308,15 @@ class Module(Dispatcher):
         accum = self._runtime.gradient_accumulation_steps
         leaves = optim_lib.param_leaves(state["params"])
         rng = keys.fold_in(state["base_key"], step)
+        if self._batch_transform is not None:
+            # A profiler range, so a trace can tell augmentation's kernels apart.
+            with torch.profiler.record_function("Module.batch_transform"):
+                batch = self._batch_transform(dict(batch), keys.fold_in(rng, 0xA9517))
         with torch.enable_grad():
             out = self._forward(state["params"], batch, "train", rng)
+            if "model_state" in state:
+                out, mstate = out
+                state["model_state"] = map_params(lambda t: t.detach(), mstate)
             loss = self._objective(out).float()
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
@@ -326,7 +366,8 @@ class Module(Dispatcher):
                 attrs.batch = out
         else:
             with torch.no_grad():
-                attrs.batch = self._forward(state["params"], batch, "eval", None)
+                out = self._forward(state["params"], batch, "eval", None)
+            attrs.batch = out[0] if "model_state" in state else out
             attrs.step_metrics = None
             attrs.sync_gradients = None
         Dispatcher.launch(self, attrs)

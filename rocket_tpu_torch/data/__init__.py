@@ -1,1 +1,2 @@
-"""Text data of the port (counterpart of ``rocket_tpu.data``)."""
+"""Data of the port (counterpart of ``rocket_tpu.data``): text, array
+datasets and on-device image augmentation."""

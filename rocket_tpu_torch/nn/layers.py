@@ -1,27 +1,46 @@
-"""Core layers: Dense, LayerNorm, RMSNorm, Embedding, Dropout and the
-activations.
+"""Core layers: Dense, the NHWC convolution and pools, BatchNorm,
+LayerNorm, RMSNorm, Embedding, Dropout and the activations.
 
 Numerics follow ``rocket_tpu/nn/layers.py``: parameters are float32
-masters cast to the activation dtype at use; both norms compute their
+masters cast to the activation dtype at use; the norms compute their
 statistics in float32 and cast back; ``gelu`` is the tanh approximation
 (``jax.nn.gelu``'s default).
+
+Convolutions and pools take and return **NHWC** activations with **HWIO**
+kernels, the JAX package's layout, so params and checkpoints carry over
+rename-free. Inside, an NHWC tensor permuted to NCHW is a ``channels_last``
+tensor, which cuDNN convolves without a copy, and the conv's NHWC output
+viewed as (N, C) rows is what the BatchNorm kernels read. ``"SAME"``
+padding splits as XLA's does, ``lo = total // 2`` and the rest high, and
+pads explicitly where the split is uneven (a stride-2 3x3 on an even size
+pads (0, 1), where ``F.conv2d(padding=1)`` would pad (1, 1)).
 """
 
 from __future__ import annotations
 
 import math
+import os
+from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
 from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.module import Layer
+from rocket_tpu_torch.ops import fused_conv
 
-__all__ = ["Dense", "LayerNorm", "RMSNorm", "Embedding", "Dropout", "gelu", "silu"]
+__all__ = [
+    "Dense", "Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D", "BatchNorm", "bn_act_train",
+    "LayerNorm", "RMSNorm", "Embedding", "Dropout", "Flatten", "relu", "gelu", "silu",
+]
 
 #: Standard deviation of a unit normal truncated to [-2, 2]; dividing by it
 #: keeps lecun-normal's variance after truncation (as jax's initializer does).
 _TRUNC_STD = 0.87962566103423978
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +76,225 @@ class Dense(Layer):
 
     def __repr__(self):
         return f"Dense({self.in_features}->{self.out_features})"
+
+
+def _pair(v: Union[int, Sequence[int]]) -> tuple:
+    return (v, v) if isinstance(v, int) else (v[0], v[1])
+
+
+def _same_pads(size: int, k: int, s: int) -> tuple:
+    """XLA's ``"SAME"`` split of one spatial dim: the output is ``ceil(size
+    / s)``, the padding ``total = max((out - 1) * s + k - size, 0)``, ``lo =
+    total // 2`` and the rest high."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(padding, spatial, window, strides) -> list:
+    """((lo, hi), (lo, hi)) for H and W from ``"SAME"``, ``"VALID"`` or an
+    explicit ``[(lo, hi), (lo, hi)]``."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return [(0, 0), (0, 0)]
+        if padding.upper() == "SAME":
+            return [_same_pads(n, k, s) for n, k, s in zip(spatial, window, strides)]
+        raise ValueError(f"unknown padding {padding!r}")
+    return [tuple(p) for p in padding]
+
+
+def _pad_nhwc(x, pads, value: float = 0.0):
+    (ht, hb), (wl, wr) = pads
+    return F.pad(x, (0, 0, wl, wr, ht, hb), value=value)
+
+
+def _nchw(x):
+    """An NHWC tensor as its NCHW view: ``channels_last`` memory."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+class Conv2D(Layer):
+    """NHWC convolution with an HWIO kernel; he-normal init truncated as
+    jax's (fan_in = kh * kw * cin). ``padding``: ``"SAME"``, ``"VALID"``,
+    an int or ``[(lo, hi), (lo, hi)]``. The convolution itself is
+    ``F.conv2d`` on ``channels_last`` operands: the JAX package leaves it to
+    XLA outside any Pallas kernel, as it leaves the big matmuls."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3, stride=1,
+                 padding="SAME", use_bias: bool = True):
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        if isinstance(padding, int):
+            padding = [(padding, padding), (padding, padding)]
+        self.padding = padding
+        self.use_bias = use_bias
+
+    def init_params(self, gen):
+        kh, kw = self.kernel_size
+        std = math.sqrt(2.0 / (kh * kw * self.in_channels)) / _TRUNC_STD
+        w = torch.empty(kh, kw, self.in_channels, self.out_channels)
+        torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+        params = {"w": w}
+        if self.use_bias:
+            params["b"] = torch.zeros(self.out_channels)
+        return params
+
+    def apply(self, params, x):
+        pads = _pads(self.padding, x.shape[1:3], self.kernel_size, self.stride)
+        if any(lo != hi for lo, hi in pads):
+            x, conv_pad = _pad_nhwc(x, pads), (0, 0)
+        else:
+            conv_pad = (pads[0][0], pads[1][0])
+        w = params["w"].to(x.dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        y = _nhwc(F.conv2d(_nchw(x), w, stride=self.stride, padding=conv_pad))
+        if self.use_bias:
+            y = y + params["b"].to(x.dtype)
+        return y
+
+    def __repr__(self):
+        return (f"Conv2D({self.in_channels}->{self.out_channels}, "
+                f"k={self.kernel_size}, s={self.stride})")
+
+
+class _Pool2D(Layer):
+    def __init__(self, window, stride=None, padding="VALID"):
+        self.window = _pair(window)
+        self.stride = _pair(stride if stride is not None else window)
+        self.padding = padding
+
+    def _padded(self, x, value: float):
+        pads = _pads(self.padding, x.shape[1:3], self.window, self.stride)
+        return _nchw(_pad_nhwc(x, pads, value) if any(map(any, pads)) else x)
+
+
+class MaxPool2D(_Pool2D):
+    """Max over each window; ``"SAME"`` pads with -inf, as XLA does."""
+
+    def apply(self, params, x):
+        return _nhwc(F.max_pool2d(self._padded(x, float("-inf")), self.window, self.stride))
+
+
+class AvgPool2D(_Pool2D):
+    """Sum over each window divided by the full window size, zero padding
+    included, as the reference does."""
+
+    def apply(self, params, x):
+        y = F.avg_pool2d(self._padded(x, 0.0), self.window, self.stride)
+        return _nhwc(y).to(x.dtype)
+
+
+class GlobalAvgPool2D(Layer):
+    def apply(self, params, x):
+        return x.mean(dim=(1, 2))
+
+
+class Flatten(Layer):
+    def apply(self, params, x):
+        return x.reshape(x.shape[0], -1)
+
+
+# -- BatchNorm ------------------------------------------------------------------
+
+
+def _bn_train(x, scale, bias, eps: float):
+    """Train-mode BN over all but the last (channel) axis of ``x``: returns
+    ``(y, stats)`` with ``stats`` (C, 2) f32 [mean, E[x^2]]. One-pass
+    statistics ``var = E[x^2] - E[x]^2`` in f32, clamped at 0, and the
+    reference's fused backward (``_bn_train_bwd``: one stacked (C, 2) sum of
+    ``dy`` and ``dy * x̂`` gives d_bias, d_scale and dx); ``stats`` feeds the
+    running averages only and takes no gradient."""
+    c = x.shape[-1]
+    y, stats = fused_conv.BnAct.apply(x.reshape(-1, c), scale.float(), bias.float(),
+                                      float(eps), False, "plain")
+    return y.reshape(x.shape), stats
+
+
+def _fused_conv_config(n: int, c: int, dtype: torch.dtype) -> dict:
+    """The ``fused_conv`` tune table's entry for an (N, C) activation. The
+    tables are not ported yet (ROADMAP Queue A 8), so this reads as the
+    reference's shipped table, which has no entries."""
+    return {}
+
+
+def bn_act_train(x, scale, bias, eps: float, act: bool = False):
+    """Train-mode BN with an optionally fused relu — the conv stack's seam
+    (the reference's gate, ``rocket_tpu/nn/layers.py:294-348``).
+
+    The impl comes from the ``fused_conv`` tune table
+    (:func:`_fused_conv_config`, empty as the reference ships it), so it is
+    ``"reference"`` — bitwise :func:`_bn_train` followed by relu — unless
+    ``ROCKET_TPU_FUSED_CONV=pallas`` forces the fused kernel
+    (``ops/fused_conv.py``) at the table's schedule and ``block_rows``
+    (defaults ``"twopass"`` and 512, the reference's). A table entry
+    engages the kernel on CUDA tensors only; forced, CPU tensors run its
+    plain version (the reference's interpret mode) and CUDA tensors the
+    kernel. Shapes past the reference's gate stay on the reference path; a
+    CUDA tensor the kernel does not take (not f32 or bf16, or C not a
+    multiple of 8 up to 2048) raises. Returns ``(y, stats)`` like
+    :func:`_bn_train`."""
+    c = x.shape[-1]
+    n = x.numel() // c
+    config = _fused_conv_config(n, c, x.dtype)
+    forced = os.environ.get("ROCKET_TPU_FUSED_CONV")
+    impl = forced or config.get("impl", "reference")
+    if impl == "pallas":
+        block_rows = config.get("block_rows", 512)
+        if ((forced or x.device.type != "cpu")
+                and fused_conv.fused_bn_act_supported(n, block_rows, x.element_size())):
+            return fused_conv.fused_bn_act(x, scale, bias, eps=eps, act=act,
+                                           schedule=config.get("schedule", "twopass"),
+                                           block_rows=block_rows)
+    return fused_conv.reference_bn_act(x, scale, bias, eps, act)
+
+
+class BatchNorm(Layer):
+    """Batch normalization over all but the last (channel) axis: params
+    ``scale``/``bias``, state ``mean``/``var`` (the biased batch variance),
+    updated as ``momentum * old + (1 - momentum) * batch`` in train mode
+    from the detached batch statistics. Eval normalises with the state,
+    associating as ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+
+    def init_params(self, gen):
+        return {"scale": torch.ones(self.num_features), "bias": torch.zeros(self.num_features)}
+
+    def init_state(self):
+        return {"mean": torch.zeros(self.num_features), "var": torch.ones(self.num_features)}
+
+    def apply(self, params, x, *, state, mode="train"):
+        return self.apply_act(params, x, state=state, mode=mode, act=False)
+
+    def apply_act(self, params, x, *, state, mode="train", act=False):
+        """``apply`` with the relu folded into the BN epilogue, so the
+        ``fused_conv`` kernel can serve the whole post-conv chain
+        (:func:`bn_act_train`); unforced it is bitwise ``relu(apply(...))``.
+        Returns ``(y, new_state)``."""
+        if mode == "train":
+            y, stats = bn_act_train(x, params["scale"], params["bias"], self.eps, act=act)
+            stats = stats.detach()
+            mean = stats[:, 0]
+            var = torch.clamp(stats[:, 1] - mean.square(), min=0.0)
+            m = self.momentum
+            return y, {"mean": m * state["mean"] + (1 - m) * mean,
+                       "var": m * state["var"] + (1 - m) * var}
+        inv = torch.rsqrt(state["var"] + self.eps) * params["scale"]
+        y = ((x.float() - state["mean"]) * inv + params["bias"]).to(x.dtype)
+        if act:
+            y = relu(y)
+        return y, state
+
+    def __repr__(self):
+        return f"BatchNorm({self.num_features})"
 
 
 class LayerNorm(Layer):

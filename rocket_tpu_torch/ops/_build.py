@@ -34,6 +34,7 @@ KERNELS = {
     "flash_bwd": "flash_bwd.cu",
     "flash_dq": "flash_dq.cu",
     "fused_block": "fused_block.cu",
+    "fused_conv": "fused_conv.cu",
 }
 
 _FLAGS = [

@@ -1,0 +1,300 @@
+"""Fused train-mode BatchNorm + activation — the conv stack's epilogue
+(counterpart of ``rocket_tpu/ops/fused_conv.py``).
+
+One program computes the per-channel moments of the flattened activation
+``x2`` (N, C) and the normalise + scale + bias [+ relu] epilogue, with
+``stats`` (C, 2) f32 = [mean, E[x^2]] for the running averages. Two
+schedules, the reference's:
+
+* ``"twopass"``: the moments and the epilogue both in the kernel
+  (:func:`bn_twopass`, ``csrc/fused_conv.cu``'s ``rkt_bn_twopass``);
+* ``"stats_xla"``: the moments are the plain stacked reduction outside the
+  kernel (:func:`moments`) and the kernel only normalises
+  (:func:`bn_normalize`, ``rkt_bn_normalize``).
+
+Each kernel wrapper takes its plain version for CPU tensors (the
+counterpart of the reference's interpret mode) and, for CUDA tensors,
+launches the kernel or raises; each counts its launches in
+``<wrapper>.launches``.
+
+:func:`fused_bn_act` is the differentiable entry point, a
+``torch.autograd.Function``: the forward is the kernel, the backward the
+reference's plain fused BN backward (``_bn_act_bwd``, ``:240-258``: one
+stacked (C, 2) reduction gives d_bias, d_scale and dx, with the relu mask
+taken from ``x̂·scale + bias > 0``). That backward is the reference's own
+design, not a fallback: the JAX package has no backward kernel for this
+function. The stats output carries no gradient (callers detach it for the
+running averages, as the reference stops its gradient).
+
+The CUDA kernels take C a multiple of 8 up to :data:`MAX_C` in f32 or
+bf16 (:func:`kernel_supported`); a CUDA tensor past that raises, whatever
+the call-site gate (``nn/layers.bn_act_train``, the reference's shape gate
+:func:`fused_bn_act_supported`) let through. ``block_rows`` is the TPU
+grid's row tile: it is checked as the reference checks it, and the CUDA
+kernels' result does not depend on it. The same :class:`BnAct` Function
+with ``schedule="plain"`` is ``nn/layers._bn_train``, the seam's default.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rocket_tpu_torch.ops import _build
+from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+
+__all__ = [
+    "SCHEDULES", "MAX_C", "BnAct", "fused_bn_act", "fused_bn_act_supported",
+    "kernel_supported", "reference_bn_act", "moments", "epilogue_rows", "bn_backward",
+    "bn_twopass", "bn_twopass_plain", "bn_normalize", "bn_normalize_plain",
+]
+
+#: Sublane minimum per itemsize — the reference's ``_SUBLANE``.
+_SUBLANE = {4: 8, 2: 16, 1: 32}
+
+SCHEDULES = ("twopass", "stats_xla")
+#: Widest channel count of the kernels (``kMaxC`` in ``csrc/fused_conv.cu``).
+MAX_C = 2048
+#: Launch geometry of both passes, all chosen here (:func:`_grids`). The
+#: moments pass runs at most MOMENT_CTAS CTAs (two per SM of an H100) of at
+#: least MOMENT_MIN_ROWS rows each. It is a constant, not read from the card:
+#: the grid fixes the order in which the partial sums add, so the same input
+#: gives the same bits on any card. The normalise pass is a grid-stride loop
+#: of THREADS-thread CTAs (``kThreads``), up to NORM_CTAS_PER_SM per SM.
+MOMENT_CTAS, MOMENT_MIN_ROWS = 264, 64
+THREADS, NORM_CTAS_PER_SM = 256, 8
+
+
+def fused_bn_act_supported(n: int, block_rows: int, itemsize: int) -> bool:
+    """The reference's shape gate: the flattened activation tiles
+    ``block_rows`` exactly."""
+    sub = _SUBLANE.get(itemsize, 8)
+    return block_rows % sub == 0 and n % block_rows == 0
+
+
+def kernel_supported(c: int, dtype: torch.dtype) -> bool:
+    """What the CUDA kernels take: f32 or bf16, C a multiple of 8 up to
+    :data:`MAX_C`."""
+    return dtype in DTYPE_CODES and c % 8 == 0 and 8 <= c <= MAX_C
+
+
+def reference_bn_act(x, scale, bias, eps: float, act: bool):
+    """The composition the fused kernel is measured against:
+    ``nn/layers._bn_train`` followed by relu. Bitwise the seam's default
+    path."""
+    from rocket_tpu_torch.nn.layers import _bn_train, relu
+
+    y, stats = _bn_train(x, scale, bias, eps)
+    if act:
+        y = relu(y)
+    return y, stats
+
+
+# -- plain versions -----------------------------------------------------------
+
+
+def moments(x2: torch.Tensor) -> torch.Tensor:
+    """(C, 2) f32 [mean, E[x^2]] over the rows of ``x2``, one mean per
+    moment: the two means the reference's moment reduction computes (its
+    ``"separate"`` form; the ``"stacked"`` default takes both in one
+    reduction over a stacked (N, C, 2) array)."""
+    xf = x2.float()
+    return torch.stack([xf.mean(0), xf.square().mean(0)], dim=-1)
+
+
+def epilogue_rows(stats, scale, bias, eps: float) -> torch.Tensor:
+    """The (4, C) f32 rows the epilogue reads from the stats: mean, inv =
+    rsqrt(max(E[x^2] - mean^2, 0) + eps), inv*scale, bias."""
+    mean = stats[:, 0]
+    var = torch.clamp(stats[:, 1] - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + eps)
+    return torch.stack([mean, inv, inv * scale.float(), bias.float()])
+
+
+def bn_normalize_plain(x2, mi, *, act: bool):
+    """``(x - mean) * (inv*scale) + bias`` [+ max(., 0)], the reference's
+    ``_emit`` association, in f32, written in x's dtype."""
+    y = (x2.float() - mi[0]) * mi[2] + mi[3]
+    if act:
+        y = torch.clamp(y, min=0.0)
+    return y.to(x2.dtype)
+
+
+def bn_twopass_plain(x2, sc, *, eps: float, act: bool):
+    """Plain version of the two-pass kernel: ``sc`` (2, C) f32 = [scale,
+    bias] -> (y, stats)."""
+    stats = moments(x2)
+    return bn_normalize_plain(x2, epilogue_rows(stats, sc[0], sc[1], eps), act=act), stats
+
+
+# -- kernels ------------------------------------------------------------------
+
+
+def _lib():
+    lib = _build.load("fused_conv")
+    if lib.rkt_bn_twopass.argtypes is None:
+        lib.rkt_bn_twopass.restype = ctypes.c_int
+        lib.rkt_bn_twopass.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.rkt_bn_normalize.restype = ctypes.c_int
+        lib.rkt_bn_normalize.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+    return lib
+
+
+def _grids(x2: torch.Tensor) -> tuple:
+    """(moments CTAs, normalise CTAs) for ``x2`` (N, C) on its card."""
+    n, c = x2.shape
+    moments_ctas = max(1, min(MOMENT_CTAS, -(-n // MOMENT_MIN_ROWS)))
+    vectors = n * c * x2.element_size() // 16
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    return moments_ctas, max(1, min(sms * NORM_CTAS_PER_SM, -(-vectors // THREADS)))
+
+
+def _check(what: str, x2: torch.Tensor, **f32) -> None:
+    check_cuda_operands(what, x2=x2, **f32)
+    n, c = x2.shape
+    if not kernel_supported(c, x2.dtype):
+        raise ValueError(f"{what}: the kernel takes f32 or bf16 x with C a multiple of 8 up to "
+                         f"{MAX_C}, got {x2.dtype} C={c}")
+    for name, t in f32.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+    if x2.data_ptr() % 16:
+        raise ValueError(f"{what}: x2 must start on a 16-byte boundary (the kernels load 16 "
+                         "bytes at a time)")
+
+
+def bn_twopass(x2, sc, *, eps: float, act: bool):
+    """Row 9: ``x2`` (N, C), ``sc`` (2, C) f32 [scale, bias] -> (y (N, C) in
+    x's dtype, stats (C, 2) f32). CPU tensors: :func:`bn_twopass_plain`;
+    CUDA tensors: ``rkt_bn_twopass`` or raise."""
+    if x2.device.type == "cpu":
+        return bn_twopass_plain(x2, sc, eps=eps, act=act)
+    _check("bn_twopass", x2, sc=sc)
+    n, c = x2.shape
+    if sc.shape != (2, c):
+        raise ValueError(f"bn_twopass: sc must be (2, {c}), got {tuple(sc.shape)}")
+    grid, norm_grid = _grids(x2)
+    y = torch.empty_like(x2)
+    stats = torch.empty((c, 2), dtype=torch.float32, device=x2.device)
+    mi = torch.empty((4, c), dtype=torch.float32, device=x2.device)
+    partial = torch.empty((grid, 2, c), dtype=torch.float32, device=x2.device)
+    err = _lib().rkt_bn_twopass(x2.data_ptr(), sc.data_ptr(), y.data_ptr(), stats.data_ptr(),
+                                mi.data_ptr(), partial.data_ptr(), n, c, grid, norm_grid,
+                                float(eps), int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
+    if err:
+        raise RuntimeError(f"bn_twopass: kernel launch failed with cudaError {err}")
+    bn_twopass.launches += 1
+    return y, stats
+
+
+bn_twopass.launches = 0
+
+
+def bn_normalize(x2, mi, *, act: bool):
+    """Row 10: ``x2`` (N, C), ``mi`` (4, C) f32 [mean, inv, inv*scale,
+    bias] -> y (N, C) in x's dtype. CPU tensors: :func:`bn_normalize_plain`;
+    CUDA tensors: ``rkt_bn_normalize`` or raise."""
+    if x2.device.type == "cpu":
+        return bn_normalize_plain(x2, mi, act=act)
+    _check("bn_normalize", x2, mi=mi)
+    n, c = x2.shape
+    if mi.shape != (4, c):
+        raise ValueError(f"bn_normalize: mi must be (4, {c}), got {tuple(mi.shape)}")
+    y = torch.empty_like(x2)
+    err = _lib().rkt_bn_normalize(x2.data_ptr(), mi.data_ptr(), y.data_ptr(), n, c,
+                                  _grids(x2)[1], int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
+    if err:
+        raise RuntimeError(f"bn_normalize: kernel launch failed with cudaError {err}")
+    bn_normalize.launches += 1
+    return y
+
+
+bn_normalize.launches = 0
+
+
+def _run(x2, scale, bias, eps: float, act: bool, schedule: str):
+    """The forward of a schedule: ``"twopass"`` and ``"stats_xla"`` launch
+    their kernel on a CUDA tensor; ``"plain"`` is the plain composition on
+    any device."""
+    if schedule == "plain":
+        stats = moments(x2)
+        return bn_normalize_plain(x2, epilogue_rows(stats, scale, bias, eps), act=act), stats
+    if schedule == "stats_xla":
+        stats = moments(x2)
+        return bn_normalize(x2, epilogue_rows(stats, scale, bias, eps).contiguous(), act=act), stats
+    return bn_twopass(x2, torch.stack([scale, bias]).float().contiguous(), eps=eps, act=act)
+
+
+# -- autograd (the reference's plain fused backward) --------------------------
+
+
+def bn_backward(dy, x2, scale, mean, inv, relu_bias=None):
+    """The reference's fused train-mode BN backward (``_bn_train_bwd``; with
+    ``relu_bias``, ``_bn_act_bwd``, whose relu mask is ``x̂·scale + bias >
+    0``): one stacked (C, 2) reduction of dy and dy·x̂ gives d_bias, d_scale
+    and dx. Returns ``(dx in x2's dtype, d_scale, d_bias)``."""
+    n = x2.shape[0]
+    dyf = dy.float()
+    xhat = (x2.float() - mean) * inv
+    if relu_bias is not None:
+        dyf = torch.where(xhat * scale + relu_bias > 0, dyf, torch.zeros((), device=dyf.device))
+    sum_dy = dyf.sum(0)
+    sum_dy_xhat = (dyf * xhat).sum(0)
+    dx = (scale * inv) * (dyf - sum_dy / n - xhat * (sum_dy_xhat / n))
+    return dx.to(x2.dtype), sum_dy_xhat, sum_dy
+
+
+class BnAct(torch.autograd.Function):
+    """Train-mode BN(+relu) over the rows of ``x2`` (N, C):
+    ``apply(x2, scale, bias, eps, act, schedule)`` -> ``(y, stats)``. The
+    forward is the ``schedule``'s (:func:`_run`: a kernel, or ``"plain"``);
+    the backward is always :func:`bn_backward`."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps, act, schedule):
+        y, stats = _run(x2, scale, bias, eps, act, schedule)
+        mi = epilogue_rows(stats, scale, bias, eps)
+        ctx.save_for_backward(x2, scale, bias, mi[0], mi[1])
+        ctx.act = act
+        ctx.mark_non_differentiable(stats)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, dy, _dstats):
+        """The stats cotangent is ignored: the running averages take no
+        gradient."""
+        x2, scale, bias, mean, inv = ctx.saved_tensors
+        return (*bn_backward(dy, x2, scale, mean, inv, bias if ctx.act else None),
+                None, None, None)
+
+
+def fused_bn_act(x, scale, bias, *, eps: float = 1e-5, act: bool = True,
+                 schedule: str = "twopass", block_rows: int = 512):
+    """Fused train-mode BN(+relu) over the channel-minor activation ``x``
+    (..., C); ``scale``/``bias`` (C,) f32 masters. Returns ``(y, stats)``
+    with ``stats`` the (C, 2) raw moments (mean, E[x^2]). The leading dims
+    flatten to N rows, which must tile ``block_rows`` exactly
+    (:func:`fused_bn_act_supported`)."""
+    if schedule not in SCHEDULES:
+        raise ValueError(
+            f"fused_bn_act: unknown schedule {schedule!r} — the table is "
+            f"ahead of the implementation (expected one of {SCHEDULES})"
+        )
+    c = x.shape[-1]
+    n = x.numel() // c if c else 0
+    itemsize = x.element_size()
+    if not fused_bn_act_supported(n, block_rows, itemsize):
+        raise ValueError(
+            f"fused_bn_act: N={n} must tile block_rows={block_rows} "
+            f"(sublane {_SUBLANE.get(itemsize, 8)} for {x.dtype})"
+        )
+    y, stats = BnAct.apply(x.reshape(n, c).contiguous(), scale.float(), bias.float(),
+                           float(eps), bool(act), schedule)
+    return y.reshape(x.shape), stats

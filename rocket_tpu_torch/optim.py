@@ -8,7 +8,7 @@ schedule (or the ``Optimizer`` capsule's constant), so the factories
 construct with ``lr=0``. A schedule is a plain ``step -> lr`` function,
 read at the count of updates made BEFORE the update it drives, as optax
 reads its schedule: under :func:`warmup_cosine_lr` the first update has
-lr 0. Momentum SGD and Lion wait for a later slice.
+lr 0. Lion waits for a later slice.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from rocket_tpu_torch.nn.module import map_params
 
 __all__ = [
-    "sgd", "adam", "adamw",
+    "sgd", "momentum", "adam", "adamw",
     "constant_lr", "step_lr", "cosine_lr", "linear_lr", "warmup_stable_decay_lr",
     "warmup_cosine_lr", "resolve", "param_leaves",
 ]
@@ -42,6 +42,20 @@ def sgd(weight_decay: float = 0.0) -> Factory:
     optax's ``add_decayed_weights`` ahead of ``sgd`` does."""
     def make(params):
         return torch.optim.SGD(param_leaves(params), lr=0.0, weight_decay=weight_decay)
+
+    return make
+
+
+def momentum(beta: float = 0.9, nesterov: bool = False) -> Factory:
+    """SGD with momentum (optax ``sgd(lr, momentum=beta, nesterov=...)``).
+
+    ``torch.optim.SGD(momentum=beta, dampening=0)`` keeps the same trace:
+    ``m_t = beta * m_{t-1} + g_t`` from ``m_1 = g_1`` (optax's trace starts
+    at zero, which gives the same first step), and the update ``-lr * m_t``,
+    or ``-lr * (g_t + beta * m_t)`` with ``nesterov``."""
+    def make(params):
+        return torch.optim.SGD(param_leaves(params), lr=0.0, momentum=beta, dampening=0.0,
+                               nesterov=nesterov)
 
     return make
 

@@ -13,7 +13,10 @@ kernels and their plain versions both round p and ds to bf16, but from
 scores summed in another order, so a rounding can flip by one bf16 step;
 the fused-block kernel rounds xn, qkv, the weights and the heads to bf16
 where its plain version does, from sums in another order). The flash and
-fused-block checks hold every element to ``tol * (1 + |want|)``.
+fused-block checks hold every element to ``tol * (1 + |want|)``. The
+fused BatchNorm kernels are held to the reference's own bound for them,
+f32 ``5e-5 + 5e-5 * |want|`` (the moments are reassociated f32 sums), and
+bf16 y to ``2e-2 * (1 + |want|)`` (one bf16 rounding).
 """
 
 import pytest
@@ -22,6 +25,7 @@ import torch
 from rocket_tpu_torch.ops import decode_attention as tda
 from rocket_tpu_torch.ops import flash_native as tfn
 from rocket_tpu_torch.ops import fused_block as tfb
+from rocket_tpu_torch.ops import fused_conv as tfc
 from rocket_tpu_torch.ops import paged_attention as tpa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -220,3 +224,104 @@ def test_block_attn_half_gradients_recompute_through_the_plain_path(cuda):
         grads[name] = [y] + list(torch.autograd.grad(y.square().sum(), leaves))
     for got, want in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# -- the fused BatchNorm(+relu) epilogue ---------------------------------------
+
+BN_CASES = [  # (N, C): a ResNet-18 CIFAR train shape, the widest C, small and ragged ones
+    (131072, 128), (1024, 2048), (512, 24), (64, 8),
+]
+BN_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _bn_operands(gen, dtype, n, c):
+    x = (torch.randn(n, c, generator=gen) * 2 + 0.5).to(dtype).cuda()
+    sc = torch.stack([1 + 0.1 * torch.randn(c, generator=gen),
+                      0.1 * torch.randn(c, generator=gen)]).cuda()
+    return x, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("case", BN_CASES, ids=lambda c: "n{}c{}".format(*c))
+def test_fused_bn_kernels_match_plain(cuda, case, act, dtype):
+    n, c = case
+    x, sc = _bn_operands(torch.Generator().manual_seed(n + c), dtype, n, c)
+    before = (tfc.bn_twopass.launches, tfc.bn_normalize.launches)
+    y, stats = tfc.bn_twopass(x, sc, eps=1e-5, act=act)
+    want_y, want_stats = tfc.bn_twopass_plain(x, sc, eps=1e-5, act=act)
+    atol, rtol = BN_TOL[dtype]
+    torch.testing.assert_close(stats, want_stats, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=rtol)
+    mi = tfc.epilogue_rows(want_stats, sc[0], sc[1], 1e-5).contiguous()
+    torch.testing.assert_close(tfc.bn_normalize(x, mi, act=act).float(),
+                               tfc.bn_normalize_plain(x, mi, act=act).float(),
+                               atol=atol, rtol=rtol)
+    assert (tfc.bn_twopass.launches, tfc.bn_normalize.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_bn_twopass_is_deterministic(cuda, dtype):
+    x, sc = _bn_operands(torch.Generator().manual_seed(1), dtype, 524288, 64)
+    first = tfc.bn_twopass(x, sc, eps=1e-5, act=True)
+    second = tfc.bn_twopass(x, sc, eps=1e-5, act=True)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
+def test_fused_bn_limits_match_the_build_and_bad_operands_raise(cuda):
+    x, sc = _bn_operands(torch.Generator().manual_seed(2), torch.float32, 64, 16)
+    wide, wide_sc = _bn_operands(torch.Generator().manual_seed(4), torch.float32, 8,
+                                 tfc.MAX_C + 8)
+    with pytest.raises(ValueError):  # C past the build's widest
+        tfc.bn_twopass(wide, wide_sc, eps=1e-5, act=True)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        tfc.bn_twopass(x[:, :12].contiguous(), sc[:, :12].contiguous(), eps=1e-5, act=True)
+    with pytest.raises(ValueError):  # float16
+        tfc.bn_twopass(x.half(), sc, eps=1e-5, act=True)
+    with pytest.raises(ValueError):  # scale/bias not f32
+        tfc.bn_twopass(x, sc.double(), eps=1e-5, act=True)
+    with pytest.raises(ValueError):  # not contiguous
+        tfc.bn_normalize(x.t(), torch.zeros(4, 64, device=cuda), act=True)
+    with pytest.raises(ValueError):  # mi of the wrong shape
+        tfc.bn_normalize(x, torch.zeros(4, 8, device=cuda), act=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["twopass", "stats_xla"])
+def test_fused_bn_act_gradients_are_the_plain_backward(cuda, schedule):
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn(4, 16, 16, 64, generator=gen) + 0.3).cuda()
+    scale = (1 + 0.1 * torch.randn(64, generator=gen)).cuda()
+    bias = (0.1 * torch.randn(64, generator=gen)).cuda()
+    results = {}
+    for name, fn in (("kernel", lambda *a: tfc.fused_bn_act(*a, schedule=schedule)),
+                     ("plain", lambda *a: tfc.reference_bn_act(*a, 1e-5, True))):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y, stats = fn(*leaves)
+        results[name] = [y, stats, *torch.autograd.grad(y.square().sum(), leaves)]
+    for got, want in zip(results["kernel"], results["plain"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float16", "c12"])
+def test_forced_seam_raises_on_what_the_kernel_does_not_take(cuda, case, monkeypatch):
+    """Forced, a CUDA tensor that passes the reference's shape gate goes to
+    the kernel, which raises: no plain fallback on the card."""
+    import os
+
+    from rocket_tpu_torch.nn import layers as tl
+
+    monkeypatch.setitem(os.environ, "ROCKET_TPU_FUSED_CONV", "pallas")
+    c = 12 if case == "c12" else 16
+    dtype = torch.float16 if case == "float16" else torch.float32
+    x = torch.randn(2, 16, 16, c, generator=torch.Generator().manual_seed(5)).to(dtype).cuda()
+    before = tfc.bn_twopass.launches
+    with pytest.raises(ValueError, match="the kernel takes f32 or bf16"):
+        tl.bn_act_train(x, torch.ones(c, device=cuda), torch.zeros(c, device=cuda), 1e-5,
+                        act=True)
+    assert tfc.bn_twopass.launches == before

@@ -40,7 +40,9 @@ def test_importing_the_port_loads_no_jax():
         "ops.paged_attention", "ops.decode_attention", "ops.flash_native", "nn.keys",
         "optim", "runtime", "core", "core.module", "core.dataset", "core.loop",
         "ops.fused_block", "runtime.checkpoint_io", "resilience.supervisor", "core.checkpoint",
-        "core.tracker", "examples.char_lm", "examples.generate",
+        "core.tracker", "examples.char_lm", "examples.generate", "ops.fused_conv", "nn.layers",
+        "models.resnet", "core.meter", "utils.metrics", "data.augment", "data.datasets",
+        "examples.cifar_resnet",
     )]
     code = (
         "import sys\n"
