@@ -27,8 +27,15 @@ checkpoint at step 200 (the fused BatchNorm two-pass kernel), a fresh tree
 resumed from that checkpoint against the uninterrupted run (bitwise, under
 ``torch.profiler``), ten steps with a table entry pinning the
 ``stats_xla`` schedule (the normalise kernel), and one train step of the
-card against the CPU. Last, the whole GPT-2 model on the card against the
-CPU, for decoding and for one training forward and backward.
+card against the CPU. Then the MoE LM slice (GPT-2 widths, 4 experts,
+top-2, dropless; ``ROCKET_TPU_MOE_GMM=fused`` where it says so): the
+gather_gmm, gmm and tgmm kernels against their plain versions at the main
+path's shapes and ragged ones; 12 train steps through the ``Launcher``
+with the ``Profiler`` capsule (forced fused), 3 unforced (``impl="gmm"``);
+``ServeEngine`` and ``generate()`` (greedy tokens equal in f32); and
+``examples.moe_lm`` (einsum dispatch, head dim 32). Last, the whole GPT-2
+model on the card against the CPU, for decoding and for one training
+forward and backward, and the same for a 2-layer MoE LM with its routing.
 
 Each phase prints one JSON line; the last three lines are the per-kernel
 summary, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -60,7 +67,7 @@ import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim
 from rocket_tpu_torch.core.capsule import Capsule
 from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
-from rocket_tpu_torch.examples import char_lm, cifar_resnet
+from rocket_tpu_torch.examples import char_lm, cifar_resnet, moe_lm
 from rocket_tpu_torch.examples import generate as char_generate
 from rocket_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -72,11 +79,14 @@ from rocket_tpu_torch.data.datasets import ArrayDataset
 from rocket_tpu_torch.models.resnet import resnet18
 from rocket_tpu_torch.nn import layers as nn_layers
 from rocket_tpu_torch.nn.module import map_params
+from rocket_tpu_torch.nn.moe import MoE
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import decode_attention as da
 from rocket_tpu_torch.ops import flash_native as fa
 from rocket_tpu_torch.ops import fused_block as fb
 from rocket_tpu_torch.ops import fused_conv as fc
+from rocket_tpu_torch.ops import gather_gmm as gg
+from rocket_tpu_torch.ops import grouped_matmul as gm
 from rocket_tpu_torch.ops import paged_attention as pa
 from rocket_tpu_torch.resilience.supervisor import newest_complete_step
 from rocket_tpu_torch.runtime import checkpoint_io
@@ -108,7 +118,7 @@ TRAIN_STEPS, PROFILE_STEPS, WARM_STEPS = 20, 3, 3
 RECORD: dict = {}
 #: Every kernel wrapper, whose launch count is zeroed before each main path.
 COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq,
-           fb.fused_block, fc.bn_twopass, fc.bn_normalize)
+           fb.fused_block, fc.bn_twopass, fc.bn_normalize, gg.gather_gmm_fwd, gm.gmm, gm.tgmm)
 #: char-LM resume: a resumed run against an uninterrupted one on the card,
 #: losses and each final param leaf relative to its largest element.
 RESUME_TOL = 1e-5
@@ -420,7 +430,8 @@ def time_dq_strategies(timer, gen):
 def check_flash(timer, gen):
     """GPT-2 shapes (B=8, T=1024, H=12, D=64): the fused MHA operand the
     train phase feeds the kernels (timed in bf16), and GQA bthd operands
-    (Hq=12, Hkv=4), causal and not, bf16 and f32."""
+    (Hq=12, Hkv=4), causal and not, bf16 and f32; then head dim 32 at the
+    moe_lm example's shape."""
     timed = None
     for fused, h_kv, causal, dtype in (
         (True, 12, True, torch.bfloat16), (True, 12, True, torch.float32),
@@ -432,6 +443,10 @@ def check_flash(timer, gen):
         emit("parity_flash", **row)
         if time_it:
             timed = row
+    # Head dim 32: the moe_lm example's attention (B=64, T=128, dim 128 in
+    # 4 heads), f32 as the example runs and bf16.
+    for dtype in (torch.float32, torch.bfloat16):
+        emit("parity_flash", **flash_case(timer, gen, 64, 128, 4, 4, 32, dtype, True, True))
     return timed
 
 
@@ -650,10 +665,11 @@ def serve_phase(model, params, card):
     return launches
 
 
-def profile_serve(engine, vocab, card):
+def profile_serve(engine, vocab, card, phase="serve_profile"):
     """Where a serve run's time goes: a torch.profiler trace of 8 requests
     (prompt 128, 32 new tokens) on the warm engine. Device busy share is the
-    summed kernel/copy time over the wall time (one stream, so no overlap)."""
+    summed kernel/copy time over the wall time (one stream, so no overlap);
+    the host's share shows in the operators' own CPU time."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(5)
@@ -669,10 +685,13 @@ def profile_serve(engine, vocab, card):
     by_name = _device_s_by_name(_device_events(prof))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit("serve_profile", requests=8, prompt=128, new_tokens=32, wall_s=wall,
+    host = sorted(((ev.key, ev.self_cpu_time_total * 1e-6, ev.count)
+                   for ev in prof.key_averages()), key=lambda row: -row[1])[:10]
+    emit(phase, requests=8, prompt=128, new_tokens=32, wall_s=wall,
          device_busy_s=busy, device_idle_share=(1.0 - busy / wall) if busy else None,
          device_time_measured=busy > 0,
          top_kernels=[{"name": n[:120], "s": t, "share_of_device": t / busy} for n, t in top],
+         top_host_ops=[{"name": n[:80], "self_cpu_s": t, "calls": c} for n, t, c in host],
          card=card)
 
 
@@ -751,6 +770,7 @@ class StepClock(Capsule):
         self.module = module
         self.prepared = None
         self.stamps, self.losses = [], []
+        self.moe_aux, self.moe_dropped, self.perf = [], [], []
         self.prof, self.prof_wall = None, None
 
     def set(self, attrs=None):
@@ -763,6 +783,12 @@ class StepClock(Capsule):
         from torch.profiler import ProfilerActivity, profile
 
         self.losses.append(float(attrs.step_metrics["loss"]))
+        if isinstance(attrs.batch, dict) and "moe_aux_loss" in attrs.batch:
+            self.moe_aux.append(float(attrs.batch["moe_aux_loss"].detach()))
+            self.moe_dropped.append(float(attrs.batch["moe_frac_dropped"]))
+        state = attrs.looper.state
+        if state is not None and state.steps_per_sec is not None:
+            self.perf.append({"steps_per_sec": state.steps_per_sec, "mfu": state.mfu})
         if self.module is not None:
             self.prepared = self.module.prepared  # the train state, past destroy
         torch.cuda.synchronize()
@@ -783,22 +809,26 @@ def train_data(seq_len: int, vocab: int) -> TokenDataset:
     return TokenDataset(CharTokenizer(text).encode(text) % vocab, seq_len=seq_len)
 
 
-def run_train(cfg, batch: int, steps: int, profile_last: int = 0):
+def run_train(cfg, batch: int, steps: int, profile_last: int = 0, capsules=()):
     """``steps`` steps of ``examples/gpt2.py``'s capsule tree (no
-    Checkpointer, Profiler or Tracker) on a fresh Runtime on the card, with
-    the kernel launch counts zeroed just before and read just after."""
+    Checkpointer or Tracker; ``capsules`` join the Looper, e.g. a Profiler)
+    on a fresh Runtime on the card, with the kernel launch counts zeroed
+    just before and read just after (the MoE kernels' too for an MoE
+    config, whose train forward also hands the clock its outputs)."""
     model = TransformerLM(cfg)
     module = rt.Module(model, [
         rt.Loss(next_token_loss()),
         rt.Optimizer(optim.adamw(weight_decay=0.1)),
         rt.Scheduler(optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, steps // 50),
                                             decay_steps=steps)),
-    ], compute_dtype=torch.bfloat16, remat=True)
+    ], compute_dtype=torch.bfloat16, remat=True,
+        return_outputs="always" if cfg.num_experts else "eval")
     clock = StepClock(profile_last, module)
     launcher = rt.Launcher([rt.Looper([
         rt.Dataset(train_data(cfg.max_seq_len, cfg.vocab_size), batch_size=batch, shuffle=True,
                    drop_last=True),
         module,
+        *capsules,
         clock,
     ], repeats=steps, progress=False)], runtime=rt.Runtime(seed=0))
     torch.cuda.reset_peak_memory_stats()
@@ -806,6 +836,8 @@ def run_train(cfg, batch: int, steps: int, profile_last: int = 0):
     launcher.launch()
     counts = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
               "flash_dq": fa.flash_dq.launches}
+    if cfg.num_experts:
+        counts.update(moe_launches())
     require(len(clock.losses) == steps, f"train ran {len(clock.losses)} of {steps} steps")
     require(all(math.isfinite(x) for x in clock.losses), f"non-finite loss: {clock.losses}")
     return clock, counts
@@ -1501,6 +1533,543 @@ def cifar_phases(card):
     return twopass, normalize
 
 
+# -- phases 19-24: the MoE LM slice -------------------------------------------
+
+#: moe_train: bench.py's moe_gpt2_e4 (GPT-2 124M widths, 4 experts, top-2,
+#: capacity factor 1.25, dropout 0) with the dropless dispatch, B=8,
+#: T=1024, bf16, remat: MOE_STEPS steps, the last MOE_PROFILE_STEPS under
+#: torch.profiler, step times after MOE_WARM_STEPS.
+MOE_STEPS, MOE_PROFILE_STEPS, MOE_WARM_STEPS, MOE_BATCH = 12, 2, 2, 8
+#: moe_model_check: card vs CPU, f32, TF32 off: the loss relative to
+#: itself, the logits and every gradient relative to their norm (two layers
+#: of f32 sums in another order).
+MOE_CHECK_TOL = {"loss": 1e-4, "values": 1e-3}
+
+
+def moe_launches() -> dict:
+    return {"gather_gmm": gg.gather_gmm_fwd.launches, "gmm": gm.gmm.launches,
+            "tgmm": gm.tgmm.launches}
+
+
+@contextlib.contextmanager
+def moe_gmm(value):
+    """``ROCKET_TPU_MOE_GMM`` set to ``value`` (None clears it) inside,
+    restored after."""
+    saved = os.environ.get("ROCKET_TPU_MOE_GMM")
+    if value is None:
+        os.environ.pop("ROCKET_TPU_MOE_GMM", None)
+    else:
+        os.environ["ROCKET_TPU_MOE_GMM"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ROCKET_TPU_MOE_GMM", None)
+        else:
+            os.environ["ROCKET_TPU_MOE_GMM"] = saved
+
+
+def moe_config(activation_dtype="bfloat16", **over):
+    """bench.py's ``moe_gpt2_e4`` with ``expert_dispatch="dropless"``."""
+    cfg = TransformerConfig.gpt2_124m()
+    cfg.dropout, cfg.activation_dtype = 0.0, activation_dtype
+    cfg.num_experts, cfg.expert_top_k, cfg.expert_capacity_factor = 4, 2, 1.25
+    cfg.expert_dispatch = "dropless"
+    for key, value in over.items():
+        setattr(cfg, key, value)
+    return cfg
+
+
+def _moe_routing(gen, n_tok, dim=768, e=4, k=2, tile_m=512, dtype=torch.bfloat16):
+    """The main path's routing of ``n_tok`` seeded token rows through a
+    seeded router (the MoE layer's own init): ``(x, experts, counts,
+    sorted_token, padded layout)``."""
+    moe = MoE(dim, 4 * dim, e, top_k=k, dispatch="dropless")
+    params = map_params(lambda t: t.cuda(), moe.init_params(gen))
+    x = (torch.randn(n_tok, dim, generator=gen) * 0.5).to(dtype).cuda()
+    _, _, top_idx = moe.route(params, x[None])
+    pair_expert = top_idx.reshape(-1)
+    order = torch.argsort(pair_expert, stable=True)
+    sorted_token = torch.arange(n_tok, device="cuda").repeat_interleave(k)[order]
+    counts = torch.bincount(pair_expert, minlength=e).to(torch.int32)
+    layout = gg.padded_group_layout(counts, sorted_token, min(tile_m, n_tok * k), n_tok * k,
+                                    sorted_expert=pair_expert[order])
+    return x, params["experts"], counts, sorted_token, layout
+
+
+def _rows_in_groups(sizes, m: int) -> int:
+    return min(int(sizes.clamp(min=0).sum()), m)
+
+
+def gmm_bounds(kind, m, k, n, e, rows, dtype, src_rows=0):
+    """Least time of one grouped product: its inputs read once and its
+    output written once (the int32 group sizes, and for gather_gmm the
+    row ids and the ``src_rows`` unsorted token rows), and 2*K*N flops per
+    row that lies in a group."""
+    item = torch.empty((), dtype=dtype).element_size()
+    flops = 2.0 * rows * k * n
+    if kind == "gather_gmm":
+        nbytes = src_rows * k * item + m * 4 + e * k * n * item + m * n * item
+    elif kind == "gmm":
+        nbytes = m * k * item + e * k * n * item + m * n * item
+    else:  # tgmm: lhs (m, k), dy (m, n) -> (e, k, n)
+        nbytes = m * k * item + m * n * item + e * k * n * item
+    return bound_ms(nbytes + e * 4, flops, dtype)
+
+
+def _library_grouped(kind, lhs, other, sizes, transpose=False):
+    """The library yardstick of a grouped product (``other`` is the rhs, or
+    dy for tgmm), timed and never used by the port: ``torch._grouped_mm``
+    with int32 cumulative offsets where this torch has it, takes the
+    operands and agrees with the plain version, else a loop of
+    ``torch.matmul`` over the groups (host bounds taken before timing).
+    Returns ``(name, fn)``."""
+    bounds = gm.group_bounds(sizes, lhs.shape[0])
+    if kind == "tgmm":
+        want = gm.tgmm_reference(lhs, other, sizes)
+        loop = lambda: [lhs[s:e].t() @ other[s:e] for s, e in bounds]  # noqa: E731
+        grouped = lambda offs: torch._grouped_mm(lhs.t(), other, offs=offs)  # noqa: E731
+    else:
+        rhs = other.transpose(-2, -1) if transpose else other
+        want = gm.gmm_reference(lhs, other, sizes, transpose)
+        loop = lambda: [lhs[s:e] @ rhs[g] for g, (s, e) in enumerate(bounds)]  # noqa: E731
+        grouped = lambda offs: torch._grouped_mm(lhs, rhs, offs=offs)  # noqa: E731
+    if hasattr(torch, "_grouped_mm") and lhs.dtype == torch.bfloat16:
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        try:
+            got = grouped(offs)
+        except (RuntimeError, TypeError, ValueError) as exc:
+            emit("moe_library_note", kind=kind, error=str(exc)[:200])
+        else:
+            if kind != "tgmm":  # rows past the groups are not the function's
+                rows = _rows_in_groups(sizes, lhs.shape[0])
+                got, want = got[:rows], want[:rows]
+            tol = TOL[torch.bfloat16] * (1.0 + want.float().abs().max().item())
+            if got.shape == want.shape and (got.float() - want.float()).abs().max().item() <= tol:
+                return "torch._grouped_mm", lambda: grouped(offs)
+            emit("moe_library_note", kind=kind, error="torch._grouped_mm disagrees")
+    return "torch.matmul loop over groups", loop
+
+
+def _moe_case(what, dtype, kernel, plain):
+    """Kernel vs plain on the same CUDA tensors, every element within
+    TOL * (1 + |want|); two launches must give the same bits. Returns (max
+    abs error, the tightest element's slack: its bound less its error)."""
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), f"{what}: two launches differ")
+    got, want = got.float(), want.float()
+    slack = (TOL[dtype] * (1.0 + want.abs()) - (got - want).abs()).min().item()
+    return _flash_err(got, want, dtype, what), slack
+
+
+def check_moe_kernels(timer, gen):
+    """gather_gmm, gmm (both modes) and tgmm against their plain versions
+    on the same CUDA tensors, f32 and bf16, at the main path's shapes — the
+    fused in-projection (18432, 768) -> 3072 over the padded layout of a
+    seeded router's 8192 tokens, the out-projection (18432, 3072) -> 768,
+    the unpadded ``impl="gmm"`` layout with the raw counts, the backward's
+    transposed gmm and both tgmm — and ragged ones: an empty group, groups
+    straddling the kernels' 128-row tiles, and NK = 16 at tile_m = 16 (the
+    decode size). At the main shapes in bf16 each kernel, its plain version
+    and the library yardstick are timed with the L2 flushed."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        x, ex, counts, sorted_token, (row_ids, gsz, _, m_pad) = _moe_routing(gen, 8192,
+                                                                             dtype=dtype)
+        w_in, w_out = ex["w_in"].to(dtype), ex["w_out"].to(dtype)
+        h = (torch.randn(m_pad, 3072, generator=gen) * 0.5).to(dtype).cuda()
+        dy_h = (torch.randn(m_pad, 3072, generator=gen) * 0.5).to(dtype).cuda()
+        dy_o = (torch.randn(m_pad, 768, generator=gen) * 0.5).to(dtype).cuda()
+        xs = x[sorted_token]
+        xg = x[row_ids.long()]
+        hs = h[:xs.shape[0]].contiguous()
+        cases = [
+            ("gather_gmm", "in-proj fused", (m_pad, 768, 3072, 8192, gsz),
+             lambda: gg.gather_gmm_fwd(x, w_in, row_ids, gsz, 512),
+             lambda: gg.gather_gmm_reference(x, w_in, row_ids, gsz, 512)),
+            ("gmm", "out-proj fused", (m_pad, 3072, 768, 0, gsz),
+             lambda: gm.gmm(h, w_out, gsz), lambda: gm.gmm_reference(h, w_out, gsz)),
+            ("gmm", "in-proj gmm (raw counts)", (xs.shape[0], 768, 3072, 0, counts),
+             lambda: gm.gmm(xs, w_in, counts), lambda: gm.gmm_reference(xs, w_in, counts)),
+            ("gmm", "out-proj gmm (raw counts)", (hs.shape[0], 3072, 768, 0, counts),
+             lambda: gm.gmm(hs, w_out, counts), lambda: gm.gmm_reference(hs, w_out, counts)),
+            ("gmm", "in-proj dlhs (transpose_rhs)", (m_pad, 3072, 768, 0, gsz),
+             lambda: gm.gmm(dy_h, w_in, gsz, transpose_rhs=True),
+             lambda: gm.gmm_reference(dy_h, w_in, gsz, transpose_rhs=True)),
+            ("tgmm", "in-proj drhs", (m_pad, 768, 3072, 0, gsz),
+             lambda: gm.tgmm(xg, dy_h, gsz), lambda: gm.tgmm_reference(xg, dy_h, gsz)),
+            ("tgmm", "out-proj drhs", (m_pad, 3072, 768, 0, gsz),
+             lambda: gm.tgmm(h, dy_o, gsz), lambda: gm.tgmm_reference(h, dy_o, gsz)),
+        ]
+        # Ragged: one empty group and groups straddling the 128-row tiles;
+        # then the decode size, 8 tokens x top-2 at tile_m = 16.
+        rag = torch.tensor([0, 301, 0, 699], dtype=torch.int32, device="cuda")
+        lhs_r = (torch.randn(1000, 768, generator=gen) * 0.5).to(dtype).cuda()
+        dy_r = (torch.randn(1000, 3072, generator=gen) * 0.5).to(dtype).cuda()
+        xd, exd, _, _, (ids_d, gsz_d, _, m_d) = _moe_routing(gen, 8, tile_m=16, dtype=dtype)
+        wd = exd["w_in"].to(dtype)
+        hd = (torch.randn(m_d, 3072, generator=gen) * 0.5).to(dtype).cuda()
+        cases += [
+            ("gmm", "ragged (0, 301, 0, 699)", (1000, 768, 3072, 0, rag),
+             lambda: gm.gmm(lhs_r, w_in, rag), lambda: gm.gmm_reference(lhs_r, w_in, rag)),
+            ("gmm", "ragged transpose_rhs", (1000, 3072, 768, 0, rag),
+             lambda: gm.gmm(dy_r, w_in, rag, transpose_rhs=True),
+             lambda: gm.gmm_reference(dy_r, w_in, rag, transpose_rhs=True)),
+            ("tgmm", "ragged, empty groups zero", (1000, 768, 3072, 0, rag),
+             lambda: gm.tgmm(lhs_r, dy_r, rag), lambda: gm.tgmm_reference(lhs_r, dy_r, rag)),
+            ("gather_gmm", "decode NK=16 tile_m=16", (m_d, 768, 3072, 8, gsz_d),
+             lambda: gg.gather_gmm_fwd(xd, wd, ids_d, gsz_d, 16),
+             lambda: gg.gather_gmm_reference(xd, wd, ids_d, gsz_d, 16)),
+            ("gmm", "decode out-proj", (m_d, 3072, 768, 0, gsz_d),
+             lambda: gm.gmm(hd, exd["w_out"].to(dtype), gsz_d),
+             lambda: gm.gmm_reference(hd, exd["w_out"].to(dtype), gsz_d)),
+        ]
+        errs = []
+        for kind, label, shape, kernel, plain in cases:
+            what = f"{kind} {label} {name}"
+            err, slack = _moe_case(what, dtype, kernel, plain)
+            errs.append({"kernel": kind, "case": label, "m_k_n": list(shape[:3]),
+                         "max_abs_err": err, "min_slack": slack})
+            rows.setdefault(kind, {"max_abs_err": 0.0})
+            rows[kind]["max_abs_err"] = max(rows[kind]["max_abs_err"], err)
+        require(not gm.tgmm(lhs_r, dy_r, rag)[0].any(), "tgmm: an empty group is not zeros")
+        emit("parity_moe_kernels", dtype=name, tol=TOL[dtype], cases=errs,
+             counts=counts.tolist(), padded_group_sizes=gsz.tolist(), m_pad=m_pad)
+        if dtype != torch.bfloat16:
+            continue
+        # Timed at the main path's shapes (forced fused): the in-projection,
+        # the out-projection forward, and the in-projection's drhs.
+        timed = {
+            "gather_gmm": cases[0], "gmm": cases[1], "tgmm": cases[5],
+        }
+        library = {
+            "gather_gmm": _library_grouped("gmm", xg, w_in, gsz),
+            "gmm": _library_grouped("gmm", h, w_out, gsz),
+            "tgmm": _library_grouped("tgmm", xg, dy_h, gsz),
+        }
+        # gather_gmm's yardstick is the explicit gather, then the grouped
+        # product (timed on xg, the same rows the gather gives).
+        lib_name, product = library["gather_gmm"]
+        library["gather_gmm"] = (lib_name + " after x[row_ids]",
+                                 lambda: (x[row_ids.long()], product()))
+        for kind, (_, label, (m, k, n, src, sizes), kernel, plain) in timed.items():
+            bound = gmm_bounds(kind, m, k, n, 4, _rows_in_groups(sizes, m), dtype, src)
+            rows[kind].update(case=label, m=m, k=k, n=n, ms=timer.ms(kernel, iters=10),
+                              plain_ms=timer.ms(plain, iters=5), library=library[kind][0],
+                              library_ms=timer.ms(library[kind][1], iters=10),
+                              bound_ms=bound[0], bound_by=bound[1])
+        emit("parity_moe_kernels_timed", dtype=name, **rows)
+        del x, h, dy_h, dy_o, xs, xg, hs, lhs_r, dy_r, cases, timed, library
+    return rows
+
+
+class _RouteLog:
+    """Records each MoE layer's routing (top-k ids and the gap between the
+    k-th and the (k+1)-th gate) while installed over ``MoE.route``."""
+
+    def __init__(self):
+        self.calls = []
+        self._route = MoE.route
+
+    def __enter__(self):
+        log, route = self, self._route
+
+        def recording(moe, params, x):
+            gates, top_gates, top_idx = route(moe, params, x)
+            ranked = torch.sort(gates.detach(), dim=-1, descending=True).values
+            gap = (ranked[..., moe.top_k - 1] - ranked[..., moe.top_k]).min()
+            log.calls.append((top_idx.detach().cpu(), float(gap)))
+            return gates, top_gates, top_idx
+
+        MoE.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        MoE.route = self._route
+
+
+def _moe_group(kernel: str) -> str:
+    """The MoE train profile's device-time group of a kernel name."""
+    low = kernel.lower()
+    if "rkt_gg::" in kernel:
+        return "MoE kernels (gather_gmm, gmm, tgmm)"
+    if "flash_" in kernel and "_kernel<" in kernel:
+        return "flash kernels"
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "cuBLAS GEMMs"
+    if any(k in low for k in ("sort", "radix", "index", "gather", "scatter", "scan", "search",
+                              "embedding", "segment", "grad_weight")):
+        return "routing glue (sort, counts, layout, gathers and their backward, index_add)"
+    if "multi_tensor_apply" in kernel:
+        return "optimizer (multi-tensor apply)"
+    return "other elementwise"
+
+
+def _moe_param_counts(cfg) -> tuple:
+    """(all params, expert params) of the MoE LM from its shapes."""
+    d, h, e, v, t = cfg.dim, cfg.mlp_ratio * cfg.dim, cfg.num_experts, cfg.vocab_size, \
+        cfg.max_seq_len
+    experts = e * (2 * d * h + h + d)
+    block = 4 * d + 3 * d * d + 3 * d + d * d + d + d * e + experts
+    return v * d + t * d + cfg.num_layers * block + 2 * d, cfg.num_layers * experts
+
+
+def _active_flops_per_token(cfg) -> tuple:
+    """bench.py:331-336: 6 x active params (the expert params count k/E)
+    + 12 * L * T * D attention; returns (flops per token, params, expert
+    params)."""
+    n_params, experts = _moe_param_counts(cfg)
+    active = n_params - experts * (1 - cfg.expert_top_k / cfg.num_experts)
+    return 6 * active + 12 * cfg.num_layers * cfg.max_seq_len * cfg.dim, n_params, experts
+
+
+def moe_train_phase(card):
+    """moe_gpt2_e4, dropless, forced fused, through the Launcher with the
+    Profiler capsule in the tree: finite, falling loss, no drops, a finite
+    aux loss, and per step (remat runs each layer's forward twice): 2
+    gather_gmm (forward and recompute), 4 gmm (out-projection forward twice,
+    the in- and out-projection's dlhs) and 2 tgmm per layer, with the flash
+    kernels' 2 forward and 1 backward."""
+    cfg = moe_config()
+    b, t, layers, steps = MOE_BATCH, cfg.max_seq_len, cfg.num_layers, MOE_STEPS
+    per_token, n_params, n_experts = _active_flops_per_token(cfg)
+    profiler = rt.Profiler(flops_per_sample=per_token * t, warmup=MOE_WARM_STEPS)
+    with moe_gmm("fused"):
+        clock, counts = run_train(cfg, b, steps, profile_last=MOE_PROFILE_STEPS,
+                                  capsules=[profiler])
+    losses = clock.losses
+    live = clock.prepared.state["params"]
+    require(clock.prepared.model.num_params(live) == n_params,
+            f"moe_train: {clock.prepared.model.num_params(live)} params, counted {n_params}")
+    del live
+    want = {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps, "flash_dq": 0,
+            "gather_gmm": 2 * layers * steps, "gmm": 4 * layers * steps,
+            "tgmm": 2 * layers * steps}
+    require(counts == want, f"moe_train launches {counts}, want {want}")
+    require(float(np.mean(losses[-3:])) < float(np.mean(losses[:3])),
+            f"moe_train loss did not fall: {losses}")
+    require(all(d == 0.0 for d in clock.moe_dropped), f"dropless dropped: {clock.moe_dropped}")
+    require(len(clock.moe_aux) == steps and all(math.isfinite(a) for a in clock.moe_aux),
+            f"moe_aux_loss {clock.moe_aux}")
+    step_s = np.diff(clock.stamps)[MOE_WARM_STEPS + 1:steps - MOE_PROFILE_STEPS + 1]
+    median = float(np.median(step_s))
+    tokens_per_s = b * t / median
+    emit("moe_train", model="moe_gpt2_e4 (dropless, ROCKET_TPU_MOE_GMM=fused)",
+         dtype="bfloat16", batch=b, seq_len=t, steps=steps, params=n_params,
+         expert_params=n_experts, losses=losses, moe_aux_loss=clock.moe_aux,
+         moe_frac_dropped=clock.moe_dropped, step_ms_median=median * 1e3,
+         step_ms=[x * 1e3 for x in step_s], first_step_s=float(np.diff(clock.stamps)[0]),
+         tokens_per_s=tokens_per_s, active_flops_per_token=per_token,
+         mfu_active=tokens_per_s * per_token / PEAK_FLOPS[torch.bfloat16],
+         profiler_capsule=clock.perf[-1] if clock.perf else None,
+         launches=counts, launches_per_step={k: v / steps for k, v in counts.items()},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    by_name = _device_s_by_name(_device_events(clock.prof))
+    busy = sum(by_name.values())
+    groups: dict = {}
+    for name, sec in by_name.items():
+        groups[_moe_group(name)] = groups.get(_moe_group(name), 0.0) + sec
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    emit("moe_train_profile", steps=MOE_PROFILE_STEPS, wall_s=clock.prof_wall,
+         device_busy_s=busy, device_idle_share=(1.0 - busy / clock.prof_wall) if busy else None,
+         device_time_measured=busy > 0, device_s_by_group=groups,
+         top_kernels=[{"name": n[:120], "s": sec, "share_of_device": sec / busy}
+                      for n, sec in top], card=card)
+    return counts
+
+
+def moe_train_gmm_phase(card):
+    """Three steps unforced (``impl="gmm"``, the shipped table's): no
+    gather_gmm; per layer and step 6 gmm (both projections' forward twice,
+    their dlhs) and 2 tgmm."""
+    cfg = moe_config()
+    layers, steps = cfg.num_layers, 3
+    with moe_gmm(None):
+        clock, counts = run_train(cfg, MOE_BATCH, steps)
+    want = {"gather_gmm": 0, "gmm": 6 * layers * steps, "tgmm": 2 * layers * steps}
+    require({k: counts[k] for k in want} == want, f"moe_train_gmm launches {counts}")
+    step_s = np.diff(clock.stamps)[1:]
+    emit("moe_train_gmm", steps=steps, losses=clock.losses, step_ms=[x * 1e3 for x in step_s],
+         tokens_per_s=MOE_BATCH * cfg.max_seq_len / float(np.median(step_s)), launches=counts,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+
+def _serve_run(engine, prompts, new_tokens):
+    rids = [engine.submit(p, max_new_tokens=new_tokens, temperature=0.0) for p in prompts]
+    engine.drain()
+    return [engine.result(r).tokens for r in rids]
+
+
+def moe_serve_phase(card):
+    """The MoE LM (random weights, dropless, forced fused) served: 8 slots,
+    16 greedy requests with prompts of 32-512 tokens and 32 new tokens, then
+    ``generate()`` (batch 4, prompt 128, 32 tokens), each with the kernel
+    counts zeroed before and read after. Dropless routes each token alone,
+    so the engine and ``generate()`` must give the same greedy tokens: held
+    in f32 at full width (12 layers), where the paged and dense decode
+    paths agree to f32 rounding; in bf16 their roundings differ, so the
+    bf16 agreement is reported."""
+    cfg = moe_config()
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(32, 513, size=16)]
+    gen_prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(4, 128))
+    with moe_gmm("fused"):
+        engine = ServeEngine(model, params, ServeConfig(max_slots=8, block_len=16,
+                                                        prefill_chunk=64),
+                             generator=torch.Generator().manual_seed(0))
+        _serve_run(engine, [np.arange(40, dtype=np.int32)] * 2, 4)  # warmup
+        engine.reset_metrics()
+        waves0 = engine.engine.decode_waves
+        zero_launches()
+        t0 = time.perf_counter()
+        tokens = _serve_run(engine, prompts, 32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        serve_counts = {**moe_launches(), "paged_decode": pa.paged_decode.launches}
+        waves = engine.engine.decode_waves - waves0
+        rep = engine.report()
+        require(rep["requests"]["completed"] == 16 and all(
+            len(tk) == 32 and all(0 <= v < cfg.vocab_size for v in tk) for tk in tokens),
+            f"moe serve: {rep['requests']}")
+        require(serve_counts["paged_decode"] == cfg.num_layers * waves,
+                f"moe serve: paged_decode {serve_counts} over {waves} waves")
+        require(serve_counts["gather_gmm"] > 0 and serve_counts["gmm"] > 0,
+                f"moe serve: the MoE kernels did not run: {serve_counts}")
+        generate(model, params, gen_prompt, 2, temperature=0)  # warmup
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = generate(model, params, gen_prompt, 32, temperature=0)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        gen_counts = {**moe_launches(), "decode_attention": da.decode_attention.launches}
+        require(tuple(out.shape) == (4, 160), f"moe generate shape {tuple(out.shape)}")
+        bf16_serve = _serve_run(engine, list(gen_prompt.astype(np.int32)), 32)
+        bf16_agree = [int(np.mean(np.asarray(s) == out[i, 128:].cpu().numpy()) * 32)
+                      for i, s in enumerate(bf16_serve)]
+        profile_serve(engine, cfg.vocab_size, card, phase="moe_serve_profile")
+        del engine
+        # f32, full width: the two decode paths must give the same tokens.
+        cfg32 = moe_config(activation_dtype=None)
+        model32 = TransformerLM(cfg32)
+        engine32 = ServeEngine(model32, params, ServeConfig(max_slots=4, block_len=16,
+                                                            prefill_chunk=64))
+        served = _serve_run(engine32, list(gen_prompt.astype(np.int32)), 32)
+        ref = generate(model32, params, gen_prompt, 32, temperature=0)[:, 128:].cpu().tolist()
+        require(served == ref, "moe serve vs generate greedy tokens differ (f32)")
+        del engine32
+    ttft, itl = rep["time_to_first_token_s"], rep["inter_token_latency_s"]
+    emit("moe_serve", model="moe_gpt2_e4 (dropless, fused)", dtype="bfloat16", requests=16,
+         new_tokens=32, prompt_lens=[len(p) for p in prompts], decode_waves=waves,
+         prefill_chunks=rep["compiled"]["prefill_chunks"], serve_launches=serve_counts,
+         tokens_per_s=rep["tokens_per_sec"], wall_s=wall, ttft_p50_s=ttft["p50"],
+         ttft_p99_s=ttft["p99"], itl_p50_s=itl["p50"], itl_p99_s=itl["p99"],
+         generate_launches=gen_counts, generate_wall_s=gen_wall,
+         generate_tokens_per_s=4 * 32 / gen_wall, serve_equals_generate_f32=True,
+         bf16_tokens_agreeing_of_32=bf16_agree, card=card)
+    del params
+
+
+def moe_model_check():
+    """One train forward + backward of a 2-layer full-width MoE LM (dim 768,
+    E=4, top-2, dropless, forced fused; f32, TF32 off; B=2, T=256, logits
+    materialised) on the card against the same params on the CPU (the
+    kernels' plain versions): identical routing in both layers (compared
+    first, with the smallest gap between the k-th and (k+1)-th gate, so a
+    flip cannot hide behind the value tolerance), the loss and aux loss,
+    the logits and every gradient."""
+    cfg = moe_config(activation_dtype=None, num_layers=2, loss_chunk=0)
+    model = TransformerLM(cfg)
+    init = model.init(torch.Generator().manual_seed(5), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 256)))
+    result = {}
+    with moe_gmm("fused"):
+        for dev in ("cpu", "cuda"):
+            params = map_params(lambda x: x.to(dev).requires_grad_(), init)
+            zero_launches()
+            with _RouteLog() as log:
+                out = model.apply(params, {"tokens": tokens.to(dev)}, mode="train")
+            loss = next_token_loss()(out)
+            grads = torch.autograd.grad(loss, optim.param_leaves(params))
+            result[dev] = {"loss": loss.item(), "aux": out["moe_aux_loss"].item(),
+                           "logits": out["logits"].detach().cpu(),
+                           "grads": [g.cpu() for g in grads], "routes": log.calls,
+                           "launches": moe_launches()}
+    cpu, card = result["cpu"], result["cuda"]
+    gaps = [gap for _, gap in card["routes"]]
+    require(len(card["routes"]) == len(cpu["routes"]) == cfg.num_layers,
+            f"moe_model_check: {len(card['routes'])} routings")
+    for layer, ((got, gap), (want, _)) in enumerate(zip(card["routes"], cpu["routes"])):
+        flips = int((got != want).sum())
+        require(flips == 0, f"moe_model_check: layer {layer} routes {flips} choices elsewhere "
+                f"on the card (smallest k-th gate gap {gap})")
+    require(card["launches"] == {"gather_gmm": 2, "gmm": 6, "tgmm": 4},
+            f"moe_model_check: the card pass launched {card['launches']}")
+    require(cpu["launches"] == {"gather_gmm": 0, "gmm": 0, "tgmm": 0}, "cpu pass launched")
+    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()  # noqa: E731
+    logits_err = rel(card["logits"], cpu["logits"])
+    grad_err = max(rel(g, w) for g, w in zip(card["grads"], cpu["grads"]))
+    require(loss_err <= MOE_CHECK_TOL["loss"], f"moe_model_check loss: relative {loss_err}")
+    require(logits_err <= MOE_CHECK_TOL["values"], f"moe_model_check logits: {logits_err}")
+    require(grad_err <= MOE_CHECK_TOL["values"], f"moe_model_check grads: relative {grad_err}")
+    emit("moe_model_check", layers=2, dim=768, experts=4, top_k=2, dtype="float32", batch=2,
+         seq_len=256, routing_identical=True, min_gate_gap=min(gaps), loss=card["loss"],
+         loss_rel_err=loss_err, aux_loss=card["aux"], aux_loss_cpu=cpu["aux"],
+         logits_rel_err=logits_err, grad_rel_err=grad_err, tol=MOE_CHECK_TOL,
+         n_grads=len(card["grads"]), card_launches=card["launches"])
+
+
+def moe_lm_phase(card):
+    """``examples.moe_lm.main(num_epochs=1)`` in a temporary directory: the
+    MoE char-LM (dim 128, 4 heads of 32, 4 layers, einsum dispatch, f32) on
+    the synthetic corpus, B=64, T=128. Each step launches the D=32 flash
+    forward and backward once per layer (no remat) and no grouped kernel."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, moe_gmm(None):
+        os.chdir(tmp)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            run = moe_lm.main(num_epochs=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    losses = [float(v) for v in run["trained"]["losses"]]
+    steps, layers = len(losses), run["model"].config.num_layers
+    counts = {**moe_launches(), "flash_fwd": fa.flash_fwd.launches,
+              "flash_bwd": fa.flash_bwd.launches}
+    require(steps > 10 and all(math.isfinite(x) for x in losses), f"moe_lm losses {losses[:5]}")
+    require(float(np.mean(losses[-10:])) < float(np.mean(losses[:10])),
+            f"moe_lm loss did not fall: first {losses[:10]}, last {losses[-10:]}")
+    require(counts == {"gather_gmm": 0, "gmm": 0, "tgmm": 0, "flash_fwd": layers * steps,
+                       "flash_bwd": layers * steps}, f"moe_lm launches {counts}")
+    emit("moe_lm", steps=steps, head_dim=32, dispatch="einsum", wall_s=wall,
+         loss_first10=float(np.mean(losses[:10])), loss_last10=float(np.mean(losses[-10:])),
+         launches=counts, profiler_steps_per_sec=run["profiler"]._ema and 1.0 / run["profiler"]._ema,
+         card=card)
+
+
+def moe_phases(card):
+    """The MoE slice's main paths, each with the launch counts zeroed
+    before and read after; ``ROCKET_TPU_MOE_GMM`` is restored after each."""
+    counts = moe_train_phase(card)
+    torch.cuda.empty_cache()
+    moe_train_gmm_phase(card)
+    torch.cuda.empty_cache()
+    moe_serve_phase(card)
+    torch.cuda.empty_cache()
+    moe_lm_phase(card)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def train_model_check():
     """One training forward + backward at GPT-2 width, 2 layers, f32,
     dropout 0, B=4, T=256 (the fused chunked loss): loss and every gradient
@@ -1561,6 +2130,7 @@ def main() -> int:
     time_dq_strategies(timer, gen)
     block = check_fused_block(timer, gen)
     conv = check_fused_conv(timer, gen)[(524288, 64, "float32")]
+    moe = check_moe_kernels(timer, gen)
     del timer
     torch.cuda.empty_cache()
 
@@ -1581,8 +2151,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Row 9 on the main path (cifar_train); row 10 on the stats_xla drive.
     conv["twopass"]["launches"], conv["normalize"]["launches"] = cifar_phases(card)
+    torch.cuda.empty_cache()
+    # Rows 11, gmm and tgmm: launches of the moe_train main path.
+    for name, count in moe_phases(card).items():
+        if name in moe:
+            moe[name]["launches"] = count
     model_check_phase()
     train_model_check()
+    moe_model_check()
 
     kernels = []
     for name, row, src, replaces in (
@@ -1602,6 +2178,12 @@ def main() -> int:
          "rocket_tpu/ops/fused_conv.py:102"),
         ("fused_bn_normalize", {**conv["normalize"]}, "rocket_tpu_torch/csrc/fused_conv.cu",
          "rocket_tpu/ops/fused_conv.py:139"),
+        ("gather_gmm", moe["gather_gmm"], "rocket_tpu_torch/csrc/gather_gmm.cu",
+         "rocket_tpu/ops/gather_gmm.py:117"),
+        # The megablox gmm/tgmm kernels live in JAX's library; the TPU
+        # path reaches them at this call.
+        ("gmm", moe["gmm"], "rocket_tpu_torch/csrc/grouped_gemm.cu", "rocket_tpu/nn/moe.py:85"),
+        ("tgmm", moe["tgmm"], "rocket_tpu_torch/csrc/grouped_gemm.cu", "rocket_tpu/nn/moe.py:85"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",

@@ -6,19 +6,21 @@ its module paths (``core/``, ``nn/``, ``ops/``, ``models/``, ``serve/``,
 and never imports it (nor ``jax``).
 
 Ported so far: training decoder LMs (GPT-2 124M, Llama-style GQA/RoPE,
-the char-LM) and the ResNets (CIFAR-10 ResNet-18, ``examples/
-cifar_resnet.py``: BatchNorm state, on-device augmentation, eval through
-``Meter``) through the capsule tree ``Launcher -> Looper -> Dataset,
-Module(Loss, Optimizer, Scheduler), Checkpointer, Tracker, Meter`` with
-checkpoints and resume (``runtime/checkpoint_io.py``, the JAX package's
-format), and serving the LMs through the paged-KV engine
-(``serve.ServeEngine``) and ``models.transformer.generate``
-(``examples/char_lm.py`` and ``examples/generate.py``). The TPU kernels on
+the char-LM, the MoE LM with routed expert FFNs) and the ResNets
+(CIFAR-10 ResNet-18, ``examples/cifar_resnet.py``: BatchNorm state,
+on-device augmentation, eval through ``Meter``) through the capsule tree
+``Launcher -> Looper -> Dataset, Module(Loss, Optimizer, Scheduler),
+Checkpointer, Tracker, Meter, Profiler`` with checkpoints and resume
+(``runtime/checkpoint_io.py``, the JAX package's format), and serving the
+LMs through the paged-KV engine (``serve.ServeEngine``) and
+``models.transformer.generate`` (``examples/char_lm.py``,
+``examples/moe_lm.py`` and ``examples/generate.py``). The TPU kernels on
 those paths — flash attention forward, fused backward and accumulating
-dq, paged decode, decode attention, the fused attention half of a block
-and the fused BatchNorm(+relu) epilogue — are hand-written CUDA C++ for
-``sm_90a`` under ``csrc/``, built with ``nvcc`` into ``build/kernels/`` at
-first use (``ops/_build.py``).
+dq, paged decode, decode attention, the fused attention half of a block,
+the fused BatchNorm(+relu) epilogue, and the MoE's grouped matrix
+products (gather-GMM and the megablox gmm/tgmm pair) — are hand-written
+CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc`` into
+``build/kernels/`` at first use (``ops/_build.py``).
 
 A training script reads as the JAX one does::
 
@@ -43,6 +45,7 @@ from rocket_tpu_torch.core import (
     Metric,
     Module,
     Optimizer,
+    Profiler,
     Scheduler,
     Tracker,
     register_tracker_backend,
@@ -52,4 +55,5 @@ from rocket_tpu_torch.runtime import Runtime
 __version__ = "0.4.0"
 
 __all__ = ["Capsule", "Checkpointer", "Dataset", "Launcher", "Looper", "Loss", "Meter", "Metric",
-           "Module", "Optimizer", "Runtime", "Scheduler", "Tracker", "register_tracker_backend"]
+           "Module", "Optimizer", "Profiler", "Runtime", "Scheduler", "Tracker",
+           "register_tracker_backend"]

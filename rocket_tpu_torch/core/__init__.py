@@ -1,7 +1,7 @@
 """The capsule core (counterpart of ``rocket_tpu.core``): the five-event
 lifecycle and the capsules of a training tree, with checkpointing,
-tracking and evaluation metrics (``Meter``/``Metric``). The Profiler waits
-for a later slice (ROADMAP Queue A 2)."""
+tracking, evaluation metrics (``Meter``/``Metric``) and step timing with
+trace windows (``Profiler``)."""
 
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import Capsule, Events
@@ -14,11 +14,12 @@ from rocket_tpu_torch.core.loss import Loss
 from rocket_tpu_torch.core.meter import Meter, Metric
 from rocket_tpu_torch.core.module import Module
 from rocket_tpu_torch.core.optimizer import Optimizer
+from rocket_tpu_torch.core.profiler import Profiler
 from rocket_tpu_torch.core.scheduler import Scheduler
 from rocket_tpu_torch.core.tracker import Tracker, register_tracker_backend
 
 __all__ = [
     "Attributes", "Capsule", "Checkpointer", "Dataset", "Dispatcher", "Events", "Launcher",
-    "Looper", "Loss", "Meter", "Metric", "Module", "Optimizer", "Scheduler", "Tracker",
+    "Looper", "Loss", "Meter", "Metric", "Module", "Optimizer", "Profiler", "Scheduler", "Tracker",
     "register_tracker_backend",
 ]

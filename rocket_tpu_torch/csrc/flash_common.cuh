@@ -112,14 +112,20 @@ struct Geometry {
 
 }  // namespace rkt_flash
 
-// Instantiate RUN<T, D> for the compiled head dim (D = 64, that of every
-// model preset) and dtypes (dtype 0 = float32, 1 = bfloat16); any other D
-// is refused as cudaErrorInvalidValue.
+// Instantiate RUN<T, D> for the compiled head dims (D = 64, that of every
+// model preset, and D = 32, that of the MoE char-LM example's 128-wide,
+// 4-head model) and dtypes (dtype 0 = float32, 1 = bfloat16); any other D
+// is refused as cudaErrorInvalidValue. The 16 x 8 thread map holds for
+// both: a 64 x D output tile gives each thread D / 8 columns (8 or 4).
 #define RKT_FLASH_DISPATCH(RUN, dtype, d, ...)                                      \
   do {                                                                              \
     if ((d) == 64) {                                                                \
       if ((dtype) == 1) return RUN<__nv_bfloat16, 64>(__VA_ARGS__);                 \
       return RUN<float, 64>(__VA_ARGS__);                                           \
+    }                                                                               \
+    if ((d) == 32) {                                                                \
+      if ((dtype) == 1) return RUN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
+      return RUN<float, 32>(__VA_ARGS__);                                           \
     }                                                                               \
     return static_cast<int>(cudaErrorInvalidValue);                                 \
   } while (0)

@@ -1,3 +1,5 @@
 """The port's counterparts of ``examples/``: ``char_lm`` (train and
-checkpoint the char-transformer) and ``generate`` (sample from its newest
-checkpoint). Run them as ``python -m rocket_tpu_torch.examples.<name>``."""
+checkpoint the char-transformer), ``generate`` (sample from its newest
+checkpoint), ``cifar_resnet`` (ResNet-18 on CIFAR-10) and ``moe_lm`` (the
+Mixture-of-Experts char-LM). Run them as
+``python -m rocket_tpu_torch.examples.<name>``."""

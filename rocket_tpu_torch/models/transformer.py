@@ -7,11 +7,15 @@ entry points (``init_cache`` / ``decode_step`` / ``decode_step_paged``),
 
 Parameters are nested dicts laid out as the JAX param tree with the
 per-layer ``blocks`` subtree (a scanned JAX tree's ``blocks_stacked`` is
-unstacked by ``rocket_tpu_torch.bridge``). Not ported yet, and raising
-``NotImplementedError`` where a config asks for them: MoE (ROADMAP
-Queue A 5), pipeline and tensor parallelism and ring attention (Queue A
-6); ``scan_layers`` and its knobs are layout-only (the blocks run as a
-Python loop).
+unstacked by ``rocket_tpu_torch.bridge``). With ``num_experts > 0`` each
+block's FFN is the routed MoE (``nn/moe.py``, params under ``moe``): the
+training forward surfaces the layers' summed, pre-weighted load-balancing
+loss as ``batch["moe_aux_loss"]`` (which :func:`next_token_loss` adds) and
+their mean dropped fraction as ``batch["moe_frac_dropped"]``; the decode
+paths route each position as the reference does. Not ported yet, and
+raising ``NotImplementedError`` where a config asks for them: pipeline and
+tensor parallelism and ring attention (ROADMAP Queue A 6); ``scan_layers``
+and its knobs are layout-only (the blocks run as a Python loop).
 
 ``Block``'s attention half takes the fused whole-block kernel
 (``ops/fused_block.py``) where the reference's gate would: the
@@ -36,6 +40,7 @@ from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.attention import IMPLS, MultiHeadAttention
 from rocket_tpu_torch.nn.layers import Dense, Dropout, Embedding, LayerNorm, RMSNorm, gelu, silu
 from rocket_tpu_torch.nn.module import Layer, map_params
+from rocket_tpu_torch.nn.moe import MoE
 from rocket_tpu_torch.ops import fused_block
 from rocket_tpu_torch.runtime import resolve_device
 
@@ -50,8 +55,6 @@ __all__ = [
 _UNPORTED = (
     (("seq_axis",), "sequence parallelism", 6),
     (("pipeline_axis", "pipeline_microbatches", "pipeline_schedule"), "pipeline parallelism", 6),
-    (("num_experts", "expert_top_k", "expert_capacity_factor", "expert_dispatch",
-      "moe_aux_weight"), "the MoE FFN", 5),
 )
 
 
@@ -88,11 +91,15 @@ class TransformerConfig:
     pipeline_axis: Optional[str] = None
     pipeline_microbatches: Optional[int] = None
     pipeline_schedule: str = "gpipe"
-    #: Mixture-of-Experts FFN: not ported yet (must stay at the defaults).
+    #: ``num_experts`` routed experts per block FFN (``nn/moe.py``); 0 =
+    #: dense. ``expert_dispatch``: "einsum" (default), "scatter" or
+    #: "dropless" (grouped matmuls over exactly the routed rows).
     num_experts: int = 0
     expert_top_k: int = 2
     expert_capacity_factor: float = 1.25
     expert_dispatch: str = "einsum"
+    #: Weight of the router load-balancing loss, surfaced pre-weighted as
+    #: ``batch["moe_aux_loss"]``.
     moe_aux_weight: float = 0.01
     #: Activation dtype of the trunk (e.g. "bfloat16"); params stay f32
     #: masters and are cast once before decoding (:func:`decode_params`).
@@ -134,6 +141,9 @@ class TransformerConfig:
         if self.scan_remat_policy not in (None, "dots", "block_io"):
             raise ValueError(f"TransformerConfig: unknown scan_remat_policy "
                              f"{self.scan_remat_policy!r} (None | 'dots' | 'block_io')")
+        if self.num_experts > 0 and self.mlp != "gelu":
+            raise ValueError(f"TransformerConfig: mlp={self.mlp!r} has no effect with "
+                             "num_experts > 0 (the MoE brings its own FFN)")
         if self.pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"TransformerConfig: unknown pipeline_schedule "
                              f"{self.pipeline_schedule!r} ('gpipe' | '1f1b')")
@@ -207,9 +217,15 @@ class Block(Layer):
         )
         self.ln2 = norm_cls(c.dim)
         hidden = c.mlp_ratio * c.dim
-        self.fc_in = Dense(c.dim, hidden)        # the "up" projection under swiglu
-        self.fc_gate = Dense(c.dim, hidden) if c.mlp == "swiglu" else None
-        self.fc_out = Dense(hidden, c.dim)
+        if c.num_experts > 0:
+            self.moe = MoE(c.dim, hidden, c.num_experts, top_k=c.expert_top_k,
+                           capacity_factor=c.expert_capacity_factor, dispatch=c.expert_dispatch)
+            self.fc_in = self.fc_gate = self.fc_out = None
+        else:
+            self.moe = None
+            self.fc_in = Dense(c.dim, hidden)        # the "up" projection under swiglu
+            self.fc_gate = Dense(c.dim, hidden) if c.mlp == "swiglu" else None
+            self.fc_out = Dense(hidden, c.dim)
         self.dropout = Dropout(c.dropout) if c.dropout else None
         # GPT-2: residual projections scaled by 1/sqrt(2 * num_layers).
         self._resid_scale = (2 * c.num_layers) ** -0.5
@@ -233,36 +249,51 @@ class Block(Layer):
             "ln1": self.ln1.init_params(gen),
             "attn": self.attn.init_params(gen),
             "ln2": self.ln2.init_params(gen),
-            "mlp": {"fc_in": self.fc_in.init_params(gen), "fc_out": self.fc_out.init_params(gen)},
         }
+        params["attn"]["proj"]["w"] *= self._resid_scale
+        if self.moe is not None:
+            params["moe"] = self.moe.init_params(gen)
+            params["moe"]["experts"]["w_out"] *= self._resid_scale
+            return params
+        params["mlp"] = {"fc_in": self.fc_in.init_params(gen),
+                         "fc_out": self.fc_out.init_params(gen)}
         if self.fc_gate is not None:
             params["mlp"]["fc_gate"] = self.fc_gate.init_params(gen)
-        params["attn"]["proj"]["w"] *= self._resid_scale
         params["mlp"]["fc_out"]["w"] *= self._resid_scale
         return params
 
-    def _mlp(self, p, h):
+    def _ffn(self, params, h):
+        """The FFN half on ``ln2(x)``: ``(out, aux)``, with ``aux`` the MoE's
+        ``{"aux_loss", "frac_dropped"}`` or None for the dense MLP."""
+        if self.moe is not None:
+            return self.moe.apply(params["moe"], h)
+        p = params["mlp"]
         up = self.fc_in(p["fc_in"], h)
         if self.fc_gate is not None:
             h = silu(self.fc_gate(p["fc_gate"], h)) * up
         else:
             h = gelu(up)
-        return self.fc_out(p["fc_out"], h)
+        return self.fc_out(p["fc_out"], h), None
 
     def apply(self, params, x, *, mode="train", rng=None):
-        """``(B, T, D)`` through the block. Its keys are the reference's:
-        ``split(fold_in(rng, layer_idx), 3)`` for attention and the two
-        residual dropouts."""
+        """``(B, T, D)`` through the block (:meth:`apply_aux` without the
+        MoE's aux outputs)."""
+        return self.apply_aux(params, x, mode=mode, rng=rng)[0]
+
+    def apply_aux(self, params, x, *, mode="train", rng=None):
+        """``(B, T, D)`` through the block -> ``(x, aux)``, ``aux`` as in
+        :meth:`_ffn`. Its keys are the reference's: ``split(fold_in(rng,
+        layer_idx), 3)`` for attention and the two residual dropouts."""
         rngs = (keys.split(keys.fold_in(rng, self.layer_idx), 3) if rng is not None
                 else (None, None, None))
         h = self._attn_half(params, x, mode, rngs[0])
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[1])
         x = x + h
-        h = self._mlp(params["mlp"], self.ln2(params["ln2"], x))
+        h, aux = self._ffn(params, self.ln2(params["ln2"], x))
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[2])
-        return x + h
+        return x + h, aux
 
     def _block_attn_config(self, x):
         """The ``block_attn`` config when the fused kernel serves this call,
@@ -319,7 +350,7 @@ class Block(Layer):
         """``(B, S, D)`` through the block with the dense KV cache."""
         h, cache = self.attn.apply_cached(params["attn"], self.ln1(params["ln1"], x), cache, pos)
         x = x + h
-        return x + self._mlp(params["mlp"], self.ln2(params["ln2"], x)), cache
+        return x + self._ffn(params, self.ln2(params["ln2"], x))[0], cache
 
     def apply_paged(self, params, x, k_pages, v_pages, block_table, positions, valid):
         """``(S, C, D)`` through the block against a paged KV pool."""
@@ -328,7 +359,7 @@ class Block(Layer):
             block_table, positions, valid,
         )
         x = x + h
-        return x + self._mlp(params["mlp"], self.ln2(params["ln2"], x)), k_pages, v_pages
+        return x + self._ffn(params, self.ln2(params["ln2"], x))[0], k_pages, v_pages
 
 
 class TransformerLM:
@@ -401,10 +432,21 @@ class TransformerLM:
         if self.drop is not None:
             x = self.drop.apply({}, x, mode=mode,
                                 rng=None if rng is None else keys.fold_in(rng, 0x0E0BED))
+        aux_total = dropped_total = None
         for i, block in enumerate(self.blocks):
-            x = block.apply(params["blocks"][str(i)], x, mode=mode, rng=rng)
+            x, aux = block.apply_aux(params["blocks"][str(i)], x, mode=mode, rng=rng)
+            if aux is not None:
+                aux_total = aux["aux_loss"] if aux_total is None else aux_total + aux["aux_loss"]
+                dropped_total = (aux["frac_dropped"] if dropped_total is None
+                                 else dropped_total + aux["frac_dropped"])
         x = self.ln_f(params["ln_f"], x)
         out = dict(batch)
+        if aux_total is not None:
+            # The pre-weighted router load-balancing loss (next_token_loss
+            # adds it) and the layer-mean fraction of routed pairs that
+            # overflowed expert capacity.
+            out["moe_aux_loss"] = aux_total * c.moe_aux_weight
+            out["moe_frac_dropped"] = dropped_total / c.num_layers
         if c.label_smoothing and mode == "train":
             out["label_smoothing"] = c.label_smoothing
         if c.loss_chunk > 0 and mode == "train" and t > 1 and t % c.loss_chunk == 0:
@@ -514,21 +556,25 @@ def _chunked_next_token_nll(x, tokens, chunk: int, proj, label_smoothing: float 
 
 def next_token_loss(logits_key: str = "logits", tokens_key: str = "tokens"):
     """Objective: mean cross-entropy of logits[:, :-1] vs tokens[:, 1:]
-    (f32 softmax). A batch from the fused path carries the ready ``nll``
-    scalar instead of logits."""
+    (f32 softmax), plus the model's pre-weighted MoE load-balancing loss
+    when the batch carries one. A batch from the fused path carries the
+    ready ``nll`` scalar instead of logits."""
 
     def objective(batch):
         if "nll" in batch:
-            return batch["nll"]  # the fused path applied any label smoothing
-        logits = batch[logits_key][:, :-1].float()
-        targets = batch[tokens_key][:, 1:].long()
-        loss = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
-        eps = batch.get("label_smoothing")
-        if eps is not None:
-            # CE_smooth = (1-eps)*CE + eps*(lse - mean(logits)).
-            lse = torch.logsumexp(logits, dim=-1).flatten()
-            loss = (1.0 - eps) * loss + eps * (lse - logits.mean(-1).flatten())
-        return loss.mean()
+            loss = batch["nll"]  # the fused path applied any label smoothing
+        else:
+            logits = batch[logits_key][:, :-1].float()
+            targets = batch[tokens_key][:, 1:].long()
+            loss = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
+            eps = batch.get("label_smoothing")
+            if eps is not None:
+                # CE_smooth = (1-eps)*CE + eps*(lse - mean(logits)).
+                lse = torch.logsumexp(logits, dim=-1).flatten()
+                loss = (1.0 - eps) * loss + eps * (lse - logits.mean(-1).flatten())
+            loss = loss.mean()
+        aux = batch.get("moe_aux_loss")
+        return loss if aux is None else loss + aux
 
     return objective
 
@@ -536,7 +582,9 @@ def next_token_loss(logits_key: str = "logits", tokens_key: str = "tokens"):
 def decode_params(params: dict, activation_dtype: Optional[str]) -> dict:
     """Cast float params ONCE to the compute dtype before decoding: decode
     streams every weight each step, and reading f32 masters to make bf16
-    operands would double the bytes on the binding resource."""
+    operands would double the bytes on the binding resource. Every float
+    leaf is cast, the MoE router and experts included, as in the
+    reference; the router still computes its logits in f32."""
     if activation_dtype is None:
         return params
     dt = getattr(torch, activation_dtype)

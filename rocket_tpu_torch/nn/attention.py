@@ -37,8 +37,8 @@ def resolve_impl(impl: str, d: int, device) -> str:
 
     CPU tensors take the plain path (as the reference does on the CPU).
     CUDA tensors take the flash kernels, which support head dims D in
-    ``ops.flash_native.HEAD_DIMS`` (64, every preset's) and any sequence length
-    T; another D raises rather than falling back silently (pass
+    ``ops.flash_native.HEAD_DIMS`` (64, every preset's, and 32) and any
+    sequence length T; another D raises rather than falling back silently (pass
     ``impl="plain"`` to choose the plain path on the card). The
     reference's 128-multiple block rule for T is a TPU rule and does not
     apply. Explicit impls pass through; "ring" is not ported yet."""

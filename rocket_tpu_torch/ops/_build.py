@@ -35,6 +35,8 @@ KERNELS = {
     "flash_dq": "flash_dq.cu",
     "fused_block": "fused_block.cu",
     "fused_conv": "fused_conv.cu",
+    "grouped_gemm": "grouped_gemm.cu",
+    "gather_gmm": "gather_gmm.cu",
 }
 
 _FLAGS = [

@@ -57,9 +57,9 @@ __all__ = [
 
 #: Query and key rows per tile of the CUDA kernels (block_q == block_k).
 TILE = 64
-#: Head dims the CUDA kernels are compiled for (that of every model
-#: preset); any T.
-HEAD_DIMS = (64,)
+#: Head dims the CUDA kernels are compiled for: 64 (every model preset)
+#: and 32 (the MoE char-LM example's 128-wide, 4-head model); any T.
+HEAD_DIMS = (32, 64)
 #: f32 dq-partial buffer bound past which the backward switches to the
 #: accumulating dq kernel (``flash_native.py:415`` of the reference).
 DQ_PARTIALS_MAX_BYTES = 1 << 30

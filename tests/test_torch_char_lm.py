@@ -226,8 +226,8 @@ def test_config_json_is_the_same_in_both_packages(tmp_path):
     loaded = tt.TransformerConfig(**json.loads((tmp_path / "config.json").read_text()))
     assert loaded == tt.TransformerConfig.char_lm(vocab_size=65, max_seq_len=256)
     tt.TransformerLM(loaded)  # validates
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        tt.TransformerLM(dataclasses.replace(loaded, num_experts=4))
+    moe = tt.TransformerLM(dataclasses.replace(loaded, num_experts=4))  # MoE is ported
+    assert moe.blocks[0].moe.num_experts == 4
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         tt.TransformerLM(dataclasses.replace(loaded, pipeline_axis="pipe"))
     tt.TransformerLM(dataclasses.replace(loaded, scan_layers=True, attention_impl="xla"))

@@ -16,7 +16,10 @@ where its plain version does, from sums in another order). The flash and
 fused-block checks hold every element to ``tol * (1 + |want|)``. The
 fused BatchNorm kernels are held to the reference's own bound for them,
 f32 ``5e-5 + 5e-5 * |want|`` (the moments are reassociated f32 sums), and
-bf16 y to ``2e-2 * (1 + |want|)`` (one bf16 rounding).
+bf16 y to ``2e-2 * (1 + |want|)`` (one bf16 rounding). The MoE grouped
+products (``gmm``, ``tgmm``, ``gather_gmm``) hold every element to
+``tol * (1 + |want|)``: f32 sums in another order, and in bf16 one
+rounding of the f32 accumulator that may flip by one step.
 """
 
 import pytest
@@ -26,6 +29,8 @@ from rocket_tpu_torch.ops import decode_attention as tda
 from rocket_tpu_torch.ops import flash_native as tfn
 from rocket_tpu_torch.ops import fused_block as tfb
 from rocket_tpu_torch.ops import fused_conv as tfc
+from rocket_tpu_torch.ops import gather_gmm as tgg
+from rocket_tpu_torch.ops import grouped_matmul as tgm
 from rocket_tpu_torch.ops import paged_attention as tpa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -105,6 +110,8 @@ FLASH_CASES = [  # (B, T, Hq, Hkv, D, causal)
     (1, 130, 4, 1, 64, False),
     (2, 96, 2, 2, 64, True),
     (1, 64, 4, 4, 64, False),
+    (4, 128, 4, 4, 32, True),   # the MoE char-LM example's head dim
+    (2, 100, 4, 2, 32, False),
 ]
 
 
@@ -156,7 +163,7 @@ def test_flash_rejects_bad_operands(cuda):
     q = torch.zeros(1, 64, 4 * 64, device=cuda)
     with pytest.raises(ValueError):
         tfn.flash_fwd(q.half(), q.half(), q.half(), 4, 4, 64, (0, 0, 0), True)
-    for h, d in ((8, 32), (2, 128), (8, 32 + 8)):  # head dims not compiled
+    for h, d in ((16, 16), (2, 128), (8, 32 + 8)):  # head dims not compiled
         with pytest.raises(ValueError):
             tfn.flash_fwd(q[..., :h * d], q[..., :h * d], q[..., :h * d], h, h, d, (0, 0, 0),
                           True)
@@ -325,3 +332,168 @@ def test_forced_seam_raises_on_what_the_kernel_does_not_take(cuda, case, monkeyp
         tl.bn_act_train(x, torch.ones(c, device=cuda), torch.zeros(c, device=cuda), 1e-5,
                         act=True)
     assert tfc.bn_twopass.launches == before
+
+
+# -- the MoE grouped products: gmm (both modes), tgmm, gather_gmm -------------
+
+GROUP_CASES = {  # (M, K, N, group sizes)
+    "ragged": (300, 128, 256, [0, 131, 0, 169]),  # empty groups, tiles straddling groups
+    "past_the_groups": (40, 64, 136, [3, 1, 0, 17]),  # rows past the groups, N % 128 != 0
+    "decode": (16, 768, 3072, [5, 0, 11, 0]),  # NK = 16 at the main widths
+    "k_tail": (64, 40, 72, [30, 0, 34, 0]),  # K and N past whole tiles and mma slices
+    "in_proj": (2048, 768, 3072, [700, 301, 0, 1047]),
+}
+
+
+def _held(got, want, dtype):
+    """Every element within ``TOL * (1 + |want|)``."""
+    got, want = got.float(), want.float()
+    excess = ((got - want).abs() - TOL[dtype] * (1.0 + want.abs())).max().item()
+    assert excess <= 0.0, excess
+
+
+def _group_operands(gen, dtype, m, k, n, sizes, transpose=False):
+    lhs = (torch.randn(m, k, generator=gen) * 0.5).to(dtype).cuda()
+    shape = (len(sizes), n, k) if transpose else (len(sizes), k, n)
+    rhs = (torch.randn(*shape, generator=gen) * k ** -0.5).to(dtype).cuda()
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_gmm_matches_plain_and_repeats_bitwise(cuda, case, transpose, dtype):
+    m, k, n, sizes = GROUP_CASES[case]
+    lhs, rhs, gs = _group_operands(torch.Generator().manual_seed(m + n), dtype, m, k, n, sizes,
+                                   transpose)
+    before = tgm.gmm.launches
+    got = tgm.gmm(lhs, rhs, gs, transpose_rhs=transpose)
+    assert tgm.gmm.launches == before + 1
+    _held(got, tgm.gmm_reference(lhs, rhs, gs, transpose_rhs=transpose), dtype)
+    assert torch.equal(got, tgm.gmm(lhs, rhs, gs, transpose_rhs=transpose))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_tgmm_matches_plain_and_repeats_bitwise(cuda, case, dtype):
+    m, k, n, sizes = GROUP_CASES[case]
+    gen = torch.Generator().manual_seed(m + k)
+    lhs, _, gs = _group_operands(gen, dtype, m, k, n, sizes)
+    dy = (torch.randn(m, n, generator=gen) * 0.5).to(dtype).cuda()
+    before = tgm.tgmm.launches
+    got = tgm.tgmm(lhs, dy, gs)
+    assert tgm.tgmm.launches == before + 1
+    want = tgm.tgmm_reference(lhs, dy, gs)
+    _held(got, want, dtype)
+    for g, size in enumerate(sizes):
+        if size == 0:  # an empty group writes zeros
+            assert not got[g].any()
+    assert torch.equal(got, tgm.tgmm(lhs, dy, gs))
+
+
+def _routed(gen, n_tok, k_top, e, tile_m, empty=None):
+    """A seeded routing of n_tok tokens x k_top choices over e experts (none
+    to expert ``empty``) -> the padded layout."""
+    pair_expert = torch.randint(0, e, (n_tok * k_top,), generator=gen)
+    if empty is not None:
+        pair_expert[pair_expert == empty] = (empty + 1) % e
+    order = torch.argsort(pair_expert, stable=True)
+    sorted_token = (torch.arange(n_tok).repeat_interleave(k_top))[order]
+    counts = torch.bincount(pair_expert, minlength=e).to(torch.int32)
+    layout = tgg.padded_group_layout(counts.cuda(), sorted_token.cuda(), tile_m, n_tok * k_top,
+                                     sorted_expert=pair_expert[order].cuda())
+    return layout
+
+
+GATHER_CASES = {  # (tokens, K, N, E, tile_m, expert with no rows)
+    "decode": (8, 768, 3072, 4, 16, 1),
+    "tile_8": (50, 64, 256, 3, 8, None),
+    "main_bf16_only": (8192, 768, 3072, 4, 512, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_gather_gmm_matches_plain_and_repeats_bitwise(cuda, case, dtype):
+    n_tok, k, n, e, tile_m, empty = GATHER_CASES[case]
+    if case.endswith("bf16_only") and dtype != torch.bfloat16:
+        pytest.skip("the main shape is held in the path's dtype, bf16")
+    gen = torch.Generator().manual_seed(n_tok + k)
+    row_ids, gsz, _, m = _routed(gen, n_tok, 2, e, tile_m, empty)
+    x = (torch.randn(n_tok, k, generator=gen) * 0.5).to(dtype).cuda()
+    rhs = (torch.randn(e, k, n, generator=gen) * k ** -0.5).to(dtype).cuda()
+    before = tgg.gather_gmm_fwd.launches
+    got = tgg.gather_gmm_fwd(x, rhs, row_ids, gsz, tile_m)
+    assert tgg.gather_gmm_fwd.launches == before + 1
+    assert got.shape == (m, n)
+    _held(got, tgg.gather_gmm_reference(x, rhs, row_ids, gsz, tile_m), dtype)
+    assert torch.equal(got, tgg.gather_gmm_fwd(x, rhs, row_ids, gsz, tile_m))
+
+
+@pytest.mark.cuda
+def test_grouped_products_gradients_match_the_plain_composition(cuda):
+    """The kernels' autograd Functions against autograd through the plain
+    versions: ``grouped_matmul`` (gmm forward; gmm transposed + tgmm
+    backward) and ``gather_gmm`` (dx through gmm + index_add, drhs through
+    tgmm), f32."""
+    gen = torch.Generator().manual_seed(11)
+    lhs, rhs, gs = _group_operands(gen, torch.float32, 256, 128, 256, [0, 100, 56, 100])
+    dy = torch.randn(256, 256, generator=gen).cuda()
+    leaves = [lhs.clone().requires_grad_(), rhs.clone().requires_grad_()]
+    before = (tgm.gmm.launches, tgm.tgmm.launches)
+    out = tgm.grouped_matmul(*leaves, gs)
+    grads = torch.autograd.grad(out, leaves, dy)
+    assert (tgm.gmm.launches, tgm.tgmm.launches) == (before[0] + 2, before[1] + 1)
+    plain = [lhs.clone().requires_grad_(), rhs.clone().requires_grad_()]
+    want = tgm.grouped_matmul_plain(*plain, gs)
+    want_grads = torch.autograd.grad(want, plain, dy)
+    for g, w in zip([out, *grads], [want, *want_grads]):
+        _held(g, w, torch.float32)
+
+    row_ids, gsz, pos, m = _routed(gen, 64, 2, 4, 16, empty=2)
+    x = torch.randn(64, 128, generator=gen).cuda()
+    w = (torch.randn(4, 128, 256, generator=gen) * 0.1).cuda()
+    dh = torch.randn(m, 256, generator=gen).cuda()
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    h = tgg.gather_gmm(*leaves, row_ids, gsz, tile_m=16, tile_n=256)
+    grads = torch.autograd.grad(h, leaves, dh)
+    plain = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    want = tgm.grouped_matmul_plain(plain[0][row_ids.long()], plain[1], gsz)
+    want_grads = torch.autograd.grad(want, plain, dh)
+    for g, w_ in zip([h, *grads], [want, *want_grads]):
+        _held(g, w_, torch.float32)
+
+
+@pytest.mark.cuda
+def test_grouped_products_follow_the_gate_and_raise_past_the_kernels(cuda):
+    """A CUDA shape past the reference's gate takes its non-kernel branch;
+    one that passes it reaches the kernel, which raises on what it does not
+    take: no plain fallback on the card."""
+    gen = torch.Generator().manual_seed(12)
+    lhs, rhs, gs = _group_operands(gen, torch.float32, 12, 128, 128, [5, 7])
+    before = tgm.gmm.launches
+    tgm.grouped_matmul(lhs, rhs, gs)  # m % 8 != 0: the reference's ragged_dot branch
+    assert tgm.gmm.launches == before
+    tgm.grouped_matmul(lhs[:8], rhs, torch.tensor([3, 5], dtype=torch.int32, device=cuda))
+    assert tgm.gmm.launches == before + 1
+    with pytest.raises(ValueError):  # float16
+        tgm.grouped_matmul(lhs[:8].half(), rhs.half(), gs)
+    with pytest.raises(ValueError):  # operands of two dtypes
+        tgm.gmm(lhs, rhs.bfloat16(), gs)
+    with pytest.raises(ValueError):  # group sizes of the wrong length or type
+        tgm.gmm(lhs, rhs, gs.long())
+    with pytest.raises(ValueError):  # lhs and dy of other row counts
+        tgm.tgmm(lhs, lhs[:4], gs)
+    with pytest.raises(ValueError):  # K not a multiple of 8
+        tgm.gmm(lhs[:, :12].contiguous(), rhs[:, :12].contiguous(), gs)
+    x = torch.randn(8, 64, generator=gen).cuda()
+    w = torch.randn(2, 64, 128, generator=gen).cuda()
+    ids, sizes = torch.zeros(16, dtype=torch.int32, device=cuda), gs.new_tensor([8, 8])
+    with pytest.raises(ValueError):  # row ids not int32
+        tgg.gather_gmm_fwd(x, w, ids.long(), sizes, 8)
+    with pytest.raises(ValueError):  # row ids on the host
+        tgg.gather_gmm_fwd(x, w, ids.cpu(), sizes, 8)
+    assert tgm.gmm.launches == before + 1

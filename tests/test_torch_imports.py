@@ -42,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
         "ops.fused_block", "runtime.checkpoint_io", "resilience.supervisor", "core.checkpoint",
         "core.tracker", "examples.char_lm", "examples.generate", "ops.fused_conv", "nn.layers",
         "models.resnet", "core.meter", "utils.metrics", "data.augment", "data.datasets",
-        "examples.cifar_resnet",
+        "examples.cifar_resnet", "ops.grouped_matmul", "ops.gather_gmm", "nn.moe",
+        "core.profiler", "obs.prof", "utils.perf", "examples.moe_lm",
     )]
     code = (
         "import sys\n"

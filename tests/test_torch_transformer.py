@@ -135,8 +135,9 @@ def test_sampling_generate_deterministic_and_unported_paths_raise(pair):
         tt.generate(tmodel, tparams, prompt, 4, temperature=1.0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], attention_impl="ring")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], num_experts=4)))
+    # The MoE FFN is ported: a config with experts builds, its blocks route.
+    moe = tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], num_experts=4)))
+    assert moe.blocks[0].moe is not None and moe.blocks[0].fc_in is None
 
 
 def test_presets_match_jax():
