@@ -7,7 +7,13 @@ Builds the port's CUDA kernels from ``rocket_tpu_torch/csrc`` with
 ``nvcc`` (into ``build/kernels/``, first use, all in parallel) and holds
 each against its plain PyTorch version at its path's shapes, and times the
 flash backward under both dq strategies (f32 partials, or the separate
-accumulating dq kernel) at T=1024 and 2048. Then the
+accumulating dq kernel) at T=1024 and 2048; the first-generation flash
+kernels on the stacked (3, B, H, T, D) operand at GPT-2's attention width,
+every tile they compile. Then the tuner (``python -m rocket_tpu_torch.
+tune``) sweeps five cases into a temporary table directory, must reject a
+seeded wrong-but-fast variant, and the first-generation flash kernels run
+through the tables it wrote (their launches counted there: no model path
+reaches them). Then the
 main paths, each with the kernel launch counts zeroed just before it and
 read just after: serving GPT-2 124M (random weights from a fixed seed,
 bf16) through ``ServeEngine``; ``generate()`` with the KV cache; training
@@ -25,7 +31,7 @@ from the checkpoint. Then the CIFAR-10 ResNet-18 slice with
 cifar_resnet.main`` trains three epochs at B=512 with eval and a
 checkpoint at step 200 (the fused BatchNorm two-pass kernel), a fresh tree
 resumed from that checkpoint against the uninterrupted run (bitwise, under
-``torch.profiler``), ten steps with a table entry pinning the
+``torch.profiler``), ten steps with tune table entries pinning the
 ``stats_xla`` schedule (the normalise kernel), and one train step of the
 card against the CPU. Then the MoE LM slice (GPT-2 widths, 4 experts,
 top-2, dropless; ``ROCKET_TPU_MOE_GMM=fused`` where it says so): the
@@ -64,7 +70,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 import rocket_tpu_torch as rt
-from rocket_tpu_torch import optim
+from rocket_tpu_torch import optim, tune
 from rocket_tpu_torch.core.capsule import Capsule
 from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
 from rocket_tpu_torch.examples import char_lm, cifar_resnet, moe_lm
@@ -77,11 +83,11 @@ from rocket_tpu_torch.models.transformer import (
 )
 from rocket_tpu_torch.data.datasets import ArrayDataset
 from rocket_tpu_torch.models.resnet import resnet18
-from rocket_tpu_torch.nn import layers as nn_layers
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.nn.moe import MoE
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import decode_attention as da
+from rocket_tpu_torch.ops import flash_attention as fqa
 from rocket_tpu_torch.ops import flash_native as fa
 from rocket_tpu_torch.ops import fused_block as fb
 from rocket_tpu_torch.ops import fused_conv as fc
@@ -92,6 +98,8 @@ from rocket_tpu_torch.resilience.supervisor import newest_complete_step
 from rocket_tpu_torch.runtime import checkpoint_io
 from rocket_tpu_torch.serve import ServeConfig, ServeEngine
 from rocket_tpu_torch.serve import __main__ as serve_cli
+from rocket_tpu_torch.tune.space import TUNE_SPACES, TuneSpace
+from rocket_tpu_torch.tune.tuner import TuneCase, sweep_case
 
 ROOT = Path(__file__).resolve().parent
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -118,7 +126,8 @@ TRAIN_STEPS, PROFILE_STEPS, WARM_STEPS = 20, 3, 3
 RECORD: dict = {}
 #: Every kernel wrapper, whose launch count is zeroed before each main path.
 COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq,
-           fb.fused_block, fc.bn_twopass, fc.bn_normalize, gg.gather_gmm_fwd, gm.gmm, gm.tgmm)
+           fb.fused_block, fc.bn_twopass, fc.bn_normalize, gg.gather_gmm_fwd, gm.gmm, gm.tgmm,
+           fqa.flash_qkv_fwd, fqa.flash_qkv_bwd)
 #: char-LM resume: a resumed run against an uninterrupted one on the card,
 #: losses and each final param leaf relative to its largest element.
 RESUME_TOL = 1e-5
@@ -460,6 +469,248 @@ def check_flash_long(timer, gen):
 
 
 # -- phase 3c: the fused attention half against its plain version ----------
+
+#: Rows 6-7 (``ops/flash_attention.py``, the stacked (3, B, H, T, D) operand)
+#: against their plain versions: (B, H, T, D, dtype, causal, block_q,
+#: block_k). GPT-2 124M's attention width in both dtypes and both compiled
+#: tiles, a non-causal asymmetric pair, T=2048, and D=32 once.
+QKV_CASES = [
+    (8, 12, 1024, 64, torch.bfloat16, True, 128, 128),
+    (8, 12, 1024, 64, torch.bfloat16, True, 64, 64),
+    (8, 12, 1024, 64, torch.float32, True, 128, 128),
+    (8, 12, 1024, 64, torch.float32, True, 64, 64),
+    (8, 12, 1024, 64, torch.bfloat16, False, 128, 64),
+    (8, 12, 1024, 64, torch.float32, False, 128, 64),
+    (8, 12, 2048, 64, torch.bfloat16, True, 128, 128),
+    (8, 12, 1024, 32, torch.bfloat16, True, 128, 128),
+]
+
+
+def qkv_bounds(b, h, t, d, dtype, causal, block_k):
+    """Least times of rows 6-7 as the kernels define them: the forward reads
+    the stacked qkv and writes out and lse, 2 products per visible pair; the
+    backward reads qkv, dout, lse and delta and writes its dq partials (one
+    (B, H, T, D) copy per block_k key rows in the operand dtype, the
+    reference's output), dk and dv, 5 products per visible pair. Returns
+    (fwd, bwd, bwd with dq written once instead of the partials, the
+    partials' bytes)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    act = b * h * t * d * item
+    stats = b * h * t * 4
+    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
+    partials = (t // block_k) * act
+    bwd_in = 3 * act + act + 2 * stats
+    return (bound_ms(4 * act + stats, 4 * d * pairs, dtype),
+            bound_ms(bwd_in + partials + 2 * act, 10 * d * pairs, dtype),
+            bound_ms(bwd_in + 3 * act, 10 * d * pairs, dtype), partials)
+
+
+def check_flash_qkv(timer, gen):
+    """Rows 6-7 against their plain versions on the same CUDA tensors at
+    :data:`QKV_CASES`: the forward (out, lse) and the whole backward (dq
+    through its partials' f32 sum, dk, dv), every element within ``TOL *
+    (1 + |want|)``, two launches bitwise. At the GPT-2 bf16 causal shape
+    both compiled tiles are timed with the L2 flushed, beside the plain
+    versions and SDPA's forward and autograd backward (yardsticks only)."""
+    timed = {}
+    for b, h, t, d, dtype, causal, bq, bk in QKV_CASES:
+        name = str(dtype).removeprefix("torch.")
+        what = f"flash_qkv B={b} H={h} T={t} D={d} {name} causal={causal} tiles {bq}/{bk}"
+        qkv = torch.randn(3, b, h, t, d, generator=gen).to(dtype).cuda()
+        dout = torch.randn(b, h, t, d, generator=gen).to(dtype).cuda()
+        out, lse = fqa.flash_qkv_fwd(qkv, causal, bq, bk)
+        out2, lse2 = fqa.flash_qkv_fwd(qkv, causal, bq, bk)
+        delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
+        args = (qkv, out, lse, dout, delta, causal, bq, bk)
+        dqp, dk, dv = fqa.flash_qkv_bwd(*args)
+        again = fqa.flash_qkv_bwd(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip((dqp, dk, dv), again)),
+                f"{what}: two launches differ")
+        del out2, lse2, again
+        out_p, lse_p = fqa._fwd_plain(qkv, causal, bq, bk)
+        err = {"fwd": max(_flash_err(out, out_p, dtype, what + " out"),
+                          _flash_err(lse, lse_p, dtype, what + " lse"))}
+        del out_p, lse_p
+        dqp_p, dk_p, dv_p = fqa._bwd_plain(*args)
+        err["bwd"] = max(_flash_err(dqp.float().sum(0), dqp_p.float().sum(0), dtype, what + " dq"),
+                         _flash_err(dk, dk_p, dtype, what + " dk"),
+                         _flash_err(dv, dv_p, dtype, what + " dv"))
+        del dqp, dk, dv, dqp_p, dk_p, dv_p
+        row = {"b": b, "h": h, "t": t, "d": d, "dtype": name, "causal": causal,
+               "block_q": bq, "block_k": bk, "max_abs_err": err, "tol": TOL[dtype],
+               "deterministic": True}
+        if (t, d, dtype, causal) == (1024, 64, torch.bfloat16, True):
+            q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(0))
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa
+            lib_out = sdpa()
+            lib_bwd = lambda: torch.autograd.grad(lib_out, (q, k, v), dout,  # noqa: E731
+                                                  retain_graph=True)
+            ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
+            fwd_b, bwd_b, bwd_dq_once, partials = qkv_bounds(b, h, t, d, dtype, causal, bk)
+            row["flash_qkv_fwd"] = {
+                "ms": ms(lambda: fqa.flash_qkv_fwd(qkv, causal, bq, bk)),
+                "plain_ms": ms(lambda: fqa._fwd_plain(qkv, causal, bq, bk)),
+                "library_ms": ms(sdpa), "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
+                "max_abs_err": err["fwd"]}
+            row["flash_qkv_bwd"] = {
+                "ms": ms(lambda: fqa.flash_qkv_bwd(*args)),
+                "plain_ms": ms(lambda: fqa._bwd_plain(*args)),
+                "library_ms": ms(lib_bwd), "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
+                "max_abs_err": err["bwd"], "dq_partial_bytes": partials,
+                "dq_partial_write_ms": partials / HBM_BYTES_PER_S * 1e3,
+                "bound_dq_once_ms": bwd_dq_once[0], "bound_dq_once_by": bwd_dq_once[1]}
+            row["occupancy"] = {kind: fqa.occupancy(kind, d, bq, bk, dtype)
+                                for kind in ("fwd", "bwd")}
+            timed[(bq, bk)] = row
+            del q, k, v, lib_out
+        emit("parity_flash_qkv", **row)
+        del qkv, dout, out, lse, delta
+    return timed
+
+
+#: The tuner's cases driven on the card by ``tune_phase``.
+TUNE_CASES = ["flash_fwd/gpt2", "flash_bwd/gpt2", "gmm/moe_bench", "block_attn/charlm",
+              "fused_conv/resnet18"]
+
+
+def _seeded_bad_sweep():
+    """A wrong-but-fast variant in a test-only TuneSpace (the reference's
+    ``scripts/tune_structural_smoke.py`` leg 3) on CUDA tensors: the parity
+    gate must discard it before timing."""
+    space = TuneSpace(kernel="smoke_fake", axes={"impl": ("reference", "wrongfast")},
+                      shape_keys=("n",), default=lambda shape: {"impl": "reference"},
+                      structural=("impl",),
+                      doc="test-only: 'wrongfast' returns a scaled (wrong) output instantly")
+    TUNE_SPACES[space.kernel] = space
+    try:
+        qkv = torch.randn(3, 8, 12, 1024, 64, device="cuda").to(torch.bfloat16)
+
+        def build():
+            def run(config):
+                if config["impl"] == "wrongfast":
+                    return qkv[0] * 1.5  # fast AND wrong
+                return fqa.flash_attention_qkv(qkv)
+            return run
+
+        report = sweep_case(TuneCase(name="fake/seeded_bad", kernel="smoke_fake",
+                                     shape={"n": 1024}, dtype="bfloat16", build=build),
+                            iters=3, min_speedup=1.0)
+    finally:
+        del TUNE_SPACES[space.kernel]
+    (bad,) = report.results
+    require(not bad.parity_ok and bad.mean_us is None and report.winner is None,
+            f"tune: the seeded-bad variant was not rejected before timing: {bad}")
+    return {"config": bad.config, "parity_ok": bad.parity_ok, "max_err": bad.max_err,
+            "timed": bad.mean_us is not None}
+
+
+@contextlib.contextmanager
+def _tune_dir(path):
+    """Point the tune lookup at ``path`` for the block."""
+    prev = os.environ.get("ROCKET_TPU_TUNE_DIR")
+    os.environ["ROCKET_TPU_TUNE_DIR"] = str(path)
+    tune.reset_table_cache()
+    tune.reset_lookup_log()
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("ROCKET_TPU_TUNE_DIR", None)
+        else:
+            os.environ["ROCKET_TPU_TUNE_DIR"] = prev
+        tune.reset_table_cache()
+
+
+def tune_phase(card):
+    """``python -m rocket_tpu_torch.tune`` on the card over :data:`TUNE_CASES`
+    into a copy of the shipped (empty) tables: every timed candidate passed
+    parity, the written tables validate, a seeded-bad variant is rejected.
+    Then rows 6-7 read the written flash tables through
+    ``ROCKET_TPU_TUNE_DIR`` on the main path of this slice, GPT-2's
+    attention (B=8, H=12, T=1024, D=64, bf16, causal) forward and backward
+    three times: each lookup a table hit, each call one launch of each
+    kernel. Where the sweep found no flash winner (the default kept), the
+    fastest candidate is written in as a stand-in so that the read path is
+    still driven; the record says so. Returns the launches of that drive."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tables = Path(tmp) / "tables"
+        shutil.copytree(tune.CONFIGS_DIR, tables)
+        cmd = [sys.executable, "-m", "rocket_tpu_torch.tune", *sum((["--case", c]
+               for c in TUNE_CASES), []), "--update-table", "--table-dir", str(tables), "--json"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        wall = time.perf_counter() - t0
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "tune_log.txt").write_text(proc.stderr)
+        require(proc.returncode == 0, f"tune CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        require(sorted(summary["cases"]) == sorted(TUNE_CASES),
+                f"tune: cases {sorted(summary['cases'])}")
+        cases = {}
+        for name, rec in summary["cases"].items():
+            require(rec["default_us"] and rec["candidates"], f"tune {name}: nothing timed")
+            for cand in rec["candidates"]:
+                # A candidate outside the parity bound is rejected and never
+                # timed; every timed one passed it.
+                require(cand["error"] is None and (cand["us"] is None) == (not cand["parity_ok"]),
+                        f"tune {name}: candidate {cand}")
+            win = rec["winner"]
+            cases[name] = {"default": rec["default_config"], "default_us": rec["default_us"],
+                           "candidates": {json.dumps(c["config"], sort_keys=True): c["us"]
+                                          for c in rec["candidates"] if c["parity_ok"]},
+                           "rejected_parity": [{"config": c["config"], "max_err": c["max_err"]}
+                                               for c in rec["candidates"] if not c["parity_ok"]],
+                           "winner": None if win is None else win["config"],
+                           "speedup": None if win is None else win["speedup"]}
+        problems = tune.validate_tables(str(tables))
+        require(not problems, f"tune: the written tables fail the gate: {problems}")
+        bad = _seeded_bad_sweep()
+
+        b, h, t, d, dtype = 8, 12, 1024, 64, torch.bfloat16
+        shape = {"t": t, "d": d, "h": h, "h_kv": h, "causal": True}
+        stand_in = []
+        for kernel in ("flash_fwd", "flash_bwd"):
+            table = tune.load_table(kernel, str(tables), use_cache=False)
+            if not table["entries"]:
+                rec = cases[f"{kernel}/gpt2"]
+                best = min(rec["candidates"], key=rec["candidates"].get)
+                tune.write_table(kernel, [{
+                    "device_kind": summary["device_kind"], "dtype": "bfloat16",
+                    "shape": shape, "shape_bucket": TUNE_SPACES[kernel].bucket(shape),
+                    "config": json.loads(best), "stand_in": True}], str(tables))
+                stand_in.append(kernel)
+        written = {k: tune.load_table(k, str(tables), use_cache=False)["entries"][0]["config"]
+                   for k in ("flash_fwd", "flash_bwd")}
+        with _tune_dir(tables):
+            blocks = fqa.resolve_tuned_blocks(t, d, h, h, dtype, True, None, None, None, None)
+            qkv = torch.randn(3, b, h, t, d, device="cuda").to(dtype).requires_grad_()
+            zero_launches()
+            for _ in range(3):
+                out = fqa.flash_attention_qkv(qkv)
+                out.float().square().sum().backward()
+            torch.cuda.synchronize()
+            launches = {"flash_qkv_fwd": fqa.flash_qkv_fwd.launches,
+                        "flash_qkv_bwd": fqa.flash_qkv_bwd.launches}
+            log = tune.lookup_log_summary()
+        want = (written["flash_fwd"]["block_q"], written["flash_fwd"]["block_k"],
+                written["flash_bwd"]["block_q"], written["flash_bwd"]["block_k"])
+        require(blocks == want, f"tune: resolved blocks {blocks}, the tables hold {want}")
+        require(sorted(r["kernel"] for r in log if r["source"] == "table")
+                == ["flash_bwd", "flash_fwd"] and all(r["source"] == "table" for r in log),
+                f"tune: lookups {log}")
+        require(launches == {"flash_qkv_fwd": 3, "flash_qkv_bwd": 3}, f"tune: launches {launches}")
+        require(bool(torch.isfinite(qkv.grad.float()).all()), "tune: non-finite gradient")
+    for name, rec in cases.items():
+        print(f"tune {name}: default {rec['default_us']:.1f} us, winner {rec['winner']}, "
+              f"speedup {rec['speedup']}", flush=True)
+    emit("tune", cases=cases, seeded_bad=bad, validate_problems=problems,
+         written_flash=written, stand_in=stand_in, resolved_blocks=list(blocks),
+         lookups=log, launches=launches, cli_wall_s=wall, card=card)
+    return launches
+
 
 def block_bounds(b, t, d, h, dtype, epilogue):
     """Least time of the fused block function: x read and the output
@@ -1402,42 +1653,54 @@ def cifar_resume_phase(root, train, val, run, card):
 
 def cifar_stats_xla_phase(root, train, val, card):
     """The seam's other schedule on the main path: 10 train steps of the
-    same tree with a ``fused_conv`` table entry pinning ``{"impl":
-    "pallas", "schedule": "stats_xla"}`` (the reference's table is empty,
-    so the entry is stood in for the run, and the force override is off):
-    every train-mode BatchNorm runs the plain moments and the normalise
-    kernel, 20 ``bn_normalize`` launches per step."""
+    same tree with ``fused_conv`` table entries pinning ``{"impl":
+    "pallas", "schedule": "stats_xla"}`` for this card at each of
+    ResNet-18's four train-mode BatchNorm shapes, written into a copy of
+    the shipped tables and read through ``ROCKET_TPU_TUNE_DIR`` (the force
+    override off): every train-mode BatchNorm runs the plain moments and the
+    normalise kernel, 20 ``bn_normalize`` launches per step, each lookup a
+    table hit."""
     entry = {"impl": "pallas", "schedule": "stats_xla", "block_rows": 512}
-    table, forced = nn_layers._fused_conv_config, os.environ.pop("ROCKET_TPU_FUSED_CONV", None)
-    nn_layers._fused_conv_config = lambda n, c, dtype: entry
-    root.mkdir(parents=True, exist_ok=True)
+    shapes = [(CIFAR_BATCH * hw * hw, c) for hw, c in ((32, 64), (16, 128), (8, 256), (4, 512))]
+    tables = root / "tables"
+    shutil.copytree(tune.CONFIGS_DIR, tables)
+    tune.write_table("fused_conv", [{
+        "device_kind": torch.cuda.get_device_name(0), "dtype": "float32", "shape": shape,
+        "shape_bucket": TUNE_SPACES["fused_conv"].bucket(shape), "config": entry}
+        for shape in ({"n": n, "c": c} for n, c in shapes)], str(tables))
+    require(not tune.validate_tables(str(tables)),
+            f"cifar_stats_xla: {tune.validate_tables(str(tables))}")
+    forced = os.environ.pop("ROCKET_TPU_FUSED_CONV", None)
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        steps = 10
-        sub_train = train.get_batch(np.arange(steps * CIFAR_BATCH))
-        sub_val = val.get_batch(np.arange(CIFAR_BATCH))
-        run = cifar_resnet.build(ArrayDataset(sub_train["image"], sub_train["label"]),
-                                 ArrayDataset(sub_val["image"], sub_val["label"]),
-                                 batch_size=CIFAR_BATCH, num_epochs=1, out_dir="ck",
-                                 runtime=rt.Runtime(seed=0))
-        zero_launches()
-        with contextlib.redirect_stdout(io.StringIO()):
-            run["launcher"].launch()
-        torch.cuda.synchronize()
-        launches = _bn_launches()
-        losses, _, _ = _cifar_lines()
+        with _tune_dir(tables):
+            steps = 10
+            sub_train = train.get_batch(np.arange(steps * CIFAR_BATCH))
+            sub_val = val.get_batch(np.arange(CIFAR_BATCH))
+            run = cifar_resnet.build(ArrayDataset(sub_train["image"], sub_train["label"]),
+                                     ArrayDataset(sub_val["image"], sub_val["label"]),
+                                     batch_size=CIFAR_BATCH, num_epochs=1, out_dir="ck",
+                                     runtime=rt.Runtime(seed=0))
+            zero_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run["launcher"].launch()
+            torch.cuda.synchronize()
+            launches = _bn_launches()
+            losses, _, _ = _cifar_lines()
+            lookups = [r for r in tune.lookup_log_summary() if r["kernel"] == "fused_conv"]
     finally:
         os.chdir(cwd)
-        nn_layers._fused_conv_config = table
         if forced is not None:
             os.environ["ROCKET_TPU_FUSED_CONV"] = forced
+    require(len(lookups) == len(shapes) and all(r["source"] == "table" for r in lookups),
+            f"cifar_stats_xla: fused_conv lookups {lookups}")
     require(launches == {"bn_twopass": 0, "bn_normalize": CIFAR_BN_LAYERS * steps},
             f"cifar_stats_xla: launches {launches}")
     require(len(losses) == steps and all(math.isfinite(x) for x in losses),
             f"cifar_stats_xla: losses {losses}")
-    emit("cifar_stats_xla", table_entry=entry, steps=steps, losses=losses, launches=launches,
-         card=card)
+    emit("cifar_stats_xla", table_entry=entry, table_shapes=shapes, lookups=lookups,
+         steps=steps, losses=losses, launches=launches, card=card)
     return launches["bn_normalize"]
 
 
@@ -2119,7 +2382,13 @@ def main() -> int:
         name: {"seconds": info["seconds"],
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
-        for name, info in built.items()})
+        for name, info in built.items()},
+         # Rows 6-7: resident CTAs per SM of each D=64 instantiation.
+         flash_qkv_occupancy={
+             f"{kind} {str(dt).removeprefix('torch.')} {bq}x{bk}": fqa.occupancy(kind, 64, bq, bk,
+                                                                                dt)
+             for kind in ("fwd", "bwd") for dt in (torch.float32, torch.bfloat16)
+             for bq in fqa.TILES for bk in fqa.TILES})
 
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
@@ -2128,10 +2397,16 @@ def main() -> int:
     flash = check_flash(timer, gen)
     flash_long = check_flash_long(timer, gen)
     time_dq_strategies(timer, gen)
+    qkv = check_flash_qkv(timer, gen)[(fqa.DEFAULT_BLOCK, fqa.DEFAULT_BLOCK)]
     block = check_fused_block(timer, gen)
     conv = check_fused_conv(timer, gen)[(524288, 64, "float32")]
     moe = check_moe_kernels(timer, gen)
     del timer
+    torch.cuda.empty_cache()
+    # Rows 6-7: no model path reaches them (in either package); their path
+    # is the tuner's, and their launches are those of the table-read drive.
+    for name, count in tune_phase(card).items():
+        qkv[name]["launches"] = count
     torch.cuda.empty_cache()
 
     model = TransformerLM(TransformerConfig.gpt2_124m())
@@ -2184,6 +2459,10 @@ def main() -> int:
         # path reaches them at this call.
         ("gmm", moe["gmm"], "rocket_tpu_torch/csrc/grouped_gemm.cu", "rocket_tpu/nn/moe.py:85"),
         ("tgmm", moe["tgmm"], "rocket_tpu_torch/csrc/grouped_gemm.cu", "rocket_tpu/nn/moe.py:85"),
+        ("flash_qkv_fwd", qkv["flash_qkv_fwd"], "rocket_tpu_torch/csrc/flash_attention.cu",
+         "rocket_tpu/ops/flash_attention.py:102"),
+        ("flash_qkv_bwd", qkv["flash_qkv_bwd"], "rocket_tpu_torch/csrc/flash_attention.cu",
+         "rocket_tpu/ops/flash_attention.py:232"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",

@@ -3,7 +3,13 @@
 
 * wraps an indexable source (``__len__`` and ``__getitem__``, or a
   vectorized ``get_batch(indices)``) in batches of ``batch_size``, in
-  order or shuffled by a permutation drawn from ``(runtime seed, epoch)``;
+  order or shuffled, with the reference ``DataLoader``'s index math
+  (``rocket_tpu/data/loader.py``): the shuffle is numpy's
+  ``default_rng(SeedSequence([seed, epoch, 0x90C3E7])).shuffle``, and a
+  short trailing batch (``drop_last=False``) is wrap-padded up to
+  ``batch_size`` with the first rows of the epoch's order, its
+  ``batch_info.size`` the real count — so both packages yield the same
+  batches at the same seed;
 * ``set()`` makes the epoch's iterator (fast-forwarding a mid-epoch
   resume when training) and exposes the batch total for the Looper;
 * ``launch()`` fills ``attrs.batch`` only when it is ``None``; on
@@ -11,9 +17,9 @@
   the samples into a dict of tensors on the runtime's device.
 
 The device-resident cache, the prefetch thread and worker processes of
-the reference wait for later slices (ROADMAP Queue A 2). The shuffle
-order cannot match JAX's permutation; an unshuffled epoch is the same
-batches in the same order.
+the reference wait for later slices (ROADMAP Queue A 2). The Module
+trains on the padded rows, as the reference does; the Meter trims them
+by ``batch_info.size``.
 """
 
 from __future__ import annotations
@@ -71,20 +77,26 @@ class Dataset(Capsule):
         self._iterator = self._batches(epoch, skip)
 
     def _order(self, epoch: int) -> np.ndarray:
-        n = len(self._dataset)
-        if not self._shuffle:
-            return np.arange(n)
-        return np.random.default_rng([self._runtime.seed, epoch]).permutation(n)
+        order = np.arange(len(self._dataset))
+        if self._shuffle:
+            np.random.default_rng(
+                np.random.SeedSequence([self._runtime.seed, epoch, 0x90C3E7])).shuffle(order)
+        return order
 
     def _batches(self, epoch: int, skip: int):
         order = self._order(epoch)
         for i in range(skip, self.total):
             idx = order[i * self._batch_size:(i + 1) * self._batch_size]
+            real = len(idx)
+            if real < self._batch_size:
+                # Wrap padding (the reference's even batches); np.resize
+                # tiles the order when the dataset is shorter than the pad.
+                idx = np.concatenate([idx, np.resize(order, self._batch_size - real)])
             if hasattr(self._dataset, "get_batch"):
                 data = self._dataset.get_batch(idx)
             else:
                 data = self._collate([self._dataset[int(j)] for j in idx])
-            yield data, len(idx), i
+            yield data, real, i
 
     def launch(self, attrs: Attributes | None = None) -> None:
         if attrs is None or attrs.batch is not None:

@@ -1,0 +1,522 @@
+// First-generation flash attention on one stacked (3, B, H, T, D) q/k/v
+// operand: forward (rkt_flash_qkv_fwd) and fused one-pass backward
+// (rkt_flash_qkv_bwd).
+//
+// Replaces: rocket_tpu/ops/flash_attention.py, _fwd_kernel (:102) launched
+// by _fwd (pallas_call at :202), and _bwd_kernel (:232) launched by _bwd
+// (pallas_call at :326).
+//
+// Forward. One CTA per (q-tile, head, batch row). It stages its BQ query
+// rows once and walks the BK-row key tiles in order (up to the diagonal
+// tile when causal: tiles above it are skipped, the diagonal tile is masked
+// to -1e30), keeping an online base-2 softmax: s2 = q.k * log2(e)/sqrt(D)
+// in f32, a running max m and sum l per row, exp2, and the f32 output
+// accumulator, all in registers; p enters the PV product rounded to v's
+// dtype. It writes O (B, H, T, D) in the operand dtype and lse = m +
+// log2(l) (base 2; a row with l == 0 reads l as 1) into (B, H, 1, T) f32.
+//
+// Backward. One CTA per (k-tile, head, batch row). It stages its key and
+// value rows once, keeps dk and dv for them in f32 registers and walks the
+// query tiles (from the diagonal on when causal):
+//   p  = exp2(s2 - lse)            recomputed, transposed (k rows, q cols)
+//   dp = v . dO
+//   ds = p * (dp - delta) / sqrt(D)
+//   dv += round(p)^T dO,  dk += round(ds)^T q      (round: to the dtype)
+// and writes this k-tile's dq contribution round(ds) k for the q-tile,
+// summed in f32 and rounded to the operand dtype, into dq_partials[ik]
+// (nk, B, H, T, D); q-tiles a causal k-tile cannot see are written as
+// zeros. delta = rowsum(O * dO) (B, H, 1, T) f32 comes from outside, and
+// the partials are summed in f32 outside, as the reference does (:310,
+// :357). No atomics: two launches give the same bits.
+//
+// The TPU grid's last axis (the kv sweep forward, the q sweep backward)
+// runs in order and carries its state in VMEM scratch; Hopper blocks run
+// in no order, so that axis is the loop inside the CTA.
+//
+// Tiles: BQ x BK in {64, 128}^2, a template parameter each (causal needs
+// BQ == BK; the entry points refuse anything else), head dim D in {32, 64},
+// f32 or bf16 operands: 32 instantiations. 256 threads form a 16 x 16
+// grid (ty, tx): in a score tile thread (ty, tx) owns rows ty + 16 i and
+// columns tx + 16 j; in an output tile the same rows and columns tx + 16 c
+// (c < D / 16). The 16 threads of a row are 16 neighbouring lanes, so a
+// row's max and sum reduce with four xor-shuffles. Tiles are staged in
+// shared memory as f32 with a padded row stride D + 1. At BQ = BK = 128,
+// D = 64, f32 the backward takes 200 KB of dynamic shared memory (q, k, v
+// and dO tiles of 33 KB each, one 66 KB score tile shared by round(p) and
+// then round(ds)); each instantiation raises its own cap.
+//
+// Bound on the H100 at GPT-2 shapes (bf16, B = 8, H = 12, T = 1024,
+// D = 64, causal): forward bytes (qkv read once, O and lse written once,
+// ~51 MB, ~0.015 ms) against 2 products per visible pair (~12.9 GFLOP,
+// ~0.013 ms): bytes. Backward: 5 products per visible pair (~32 GFLOP,
+// ~0.033 ms) against its bytes, which with the bf16 dq partials (nk copies
+// of dq) are ~190 MB at block_k = 128 (~0.057 ms). Design response of this
+// first kernel: register-tiled f32 FMA over shared-memory tiles, causal
+// tiles skipped; tensor cores (mma.sync, wgmma) and TMA are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTy = 16, kTx = 16;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// The value a JAX kernel sees after `x.astype(operand dtype)`, back in f32.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Reductions over the 16 lanes of one row (lanes 16k .. 16k+15).
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Stage rows [row0, row0 + R) of a contiguous (T, D) plane as f32 with row
+// stride D + 1 (T is a multiple of every tile, so no row is ragged).
+template <typename T, int R, int D>
+__device__ __forceinline__ void load_rows(float* dst, const T* plane, int row0) {
+  const T* src = plane + static_cast<long long>(row0) * D;
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D, c = i - r * D;
+    dst[r * (D + 1) + c] = to_f32(src[i]);
+  }
+}
+
+template <int BQ, int BK, int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
+}
+
+template <int BQ, int BK, int D>
+constexpr size_t bwd_smem() {
+  return sizeof(float) * (2 * (BQ + BK) * (D + 1) + BK * (BQ + 1) + 2 * BQ);
+}
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+qkv_fwd_kernel(const T* qkv, T* out, float* lse, int batch, int heads, int t, float scale2,
+               int causal) {
+  constexpr int LD = D + 1, LP = BK + 1;
+  constexpr int RI = BQ / kTy, CJ = BK / kTx, DC = D / kTx;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + BQ * LD;
+  float* v_s = k_s + BK * LD;
+  float* p_s = v_s + BK * LD;
+
+  const int nq = t / BQ;
+  const int iq = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int q0 = iq * BQ;
+  const long long plane = static_cast<long long>(t) * D;
+  const long long bh = static_cast<long long>(b) * heads + h;
+  const long long stack = static_cast<long long>(batch) * heads * plane;
+  const T* qp = qkv + bh * plane;
+  const T* kp = qp + stack;
+  const T* vp = kp + stack;
+
+  load_rows<T, BQ, D>(q_s, qp, q0);
+
+  float m[RI], l[RI], acc[RI][DC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nk = causal ? iq + 1 : t / BK;  // causal: BQ == BK
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    __syncthreads();  // the previous tile's k_s / v_s / p_s reads are done
+    load_rows<T, BK, D>(k_s, kp, k0);
+    load_rows<T, BK, D>(v_s, vp, k0);
+    __syncthreads();
+
+    float s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int dd = 0; dd < D; ++dd) {
+      float qr[RI], kc[CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) qr[i] = q_s[(ty + kTy * i) * LD + dd];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) kc[j] = k_s[(tx + kTx * j) * LD + dd];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+    }
+
+    const bool diag = causal && ik == iq;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty + kTy * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        float x = s[i][j] * scale2;
+        if (diag && k0 + tx + kTx * j > qi) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = row_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        sum += p;
+        p_s[(ty + kTy * i) * LP + tx + kTx * j] = round_to<T>(p);
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float vr[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vr[c] = v_s[kk * LD + tx + kTx * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float p = p_s[(ty + kTy * i) * LP + kk];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vr[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + kTy * i;
+    const float safe_l = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / safe_l;
+    T* row = out + bh * plane + static_cast<long long>(qi) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) row[tx + kTx * c] = from_f32<T>(acc[i][c] * inv);
+    if (tx == 0) lse[bh * t + qi] = m[i] + log2f(safe_l);
+  }
+}
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+qkv_bwd_kernel(const T* qkv, const T* dout, const float* lse, const float* delta,
+               T* dq_partials, T* dk, T* dv, int batch, int heads, int t, float scale,
+               float scale2, int causal) {
+  constexpr int LD = D + 1, LS = BQ + 1;
+  constexpr int RI = BK / kTy, CJ = BQ / kTx, DC = D / kTx, QI = BQ / kTy;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + BK * LD;
+  float* q_s = v_s + BK * LD;
+  float* do_s = q_s + BQ * LD;
+  float* sc_s = do_s + BQ * LD;  // BK (k) x LS (q): round(p), then round(ds)
+  float* lse_s = sc_s + BK * LS;
+  float* dl_s = lse_s + BQ;
+
+  const int nq = t / BQ;
+  const int ik = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int k0 = ik * BK;
+  const long long plane = static_cast<long long>(t) * D;
+  const long long bh = static_cast<long long>(b) * heads + h;
+  const long long stack = static_cast<long long>(batch) * heads * plane;
+  const T* qp = qkv + bh * plane;
+  const T* kp = qp + stack;
+  const T* vp = kp + stack;
+  const T* dop = dout + bh * plane;
+  const float* lse_row = lse + bh * t;
+  const float* dl_row = delta + bh * t;
+  T* dqp = dq_partials + static_cast<long long>(ik) * stack + bh * plane;
+
+  load_rows<T, BK, D>(k_s, kp, k0);
+  load_rows<T, BK, D>(v_s, vp, k0);
+
+  float dk_acc[RI][DC], dv_acc[RI][DC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  const int iq0 = causal ? ik : 0;  // causal: BQ == BK
+  // The partials of the q-tiles this k-tile cannot see are zero.
+  for (long long i = tid; i < static_cast<long long>(iq0) * BQ * D; i += kThreads)
+    dqp[i] = from_f32<T>(0.f);
+
+  for (int iq = iq0; iq < nq; ++iq) {
+    const int q0 = iq * BQ;
+    __syncthreads();  // the previous q-tile's shared reads are done
+    load_rows<T, BQ, D>(q_s, qp, q0);
+    load_rows<T, BQ, D>(do_s, dop, q0);
+    for (int r = tid; r < BQ; r += kThreads) {
+      lse_s[r] = lse_row[q0 + r];
+      dl_s[r] = dl_row[q0 + r];
+    }
+    __syncthreads();
+
+    // Transposed tiles: thread rows are key rows, columns query rows.
+    float s[RI][CJ], dp[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int dd = 0; dd < D; ++dd) {
+      float kr[RI], vr[RI], qc[CJ], dc[CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        kr[i] = k_s[(ty + kTy * i) * LD + dd];
+        vr[i] = v_s[(ty + kTy * i) * LD + dd];
+      }
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        qc[j] = q_s[(tx + kTx * j) * LD + dd];
+        dc[j] = do_s[(tx + kTx * j) * LD + dd];
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
+          dp[i][j] = fmaf(vr[i], dc[j], dp[i][j]);
+        }
+    }
+
+    const bool diag = causal && iq == ik;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int kj = k0 + ty + kTy * i;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int col = tx + kTx * j;
+        const float p = (diag && kj > q0 + col) ? 0.f : exp2f(s[i][j] * scale2 - lse_s[col]);
+        dp[i][j] = p * (dp[i][j] - dl_s[col]) * scale;  // ds, unrounded
+        sc_s[(ty + kTy * i) * LS + col] = round_to<T>(p);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int qq = 0; qq < BQ; ++qq) {
+      float dor[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dor[c] = do_s[qq * LD + tx + kTx * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float p = sc_s[(ty + kTy * i) * LS + qq];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dv_acc[i][c] = fmaf(p, dor[c], dv_acc[i][c]);
+      }
+    }
+    __syncthreads();  // round(p) is read; the tile takes round(ds)
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) sc_s[(ty + kTy * i) * LS + tx + kTx * j] = round_to<T>(dp[i][j]);
+    __syncthreads();
+
+#pragma unroll 2
+    for (int qq = 0; qq < BQ; ++qq) {
+      float qr[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) qr[c] = q_s[qq * LD + tx + kTx * c];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float ds = sc_s[(ty + kTy * i) * LS + qq];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dk_acc[i][c] = fmaf(ds, qr[c], dk_acc[i][c]);
+      }
+    }
+
+    // This k-tile's dq partial for the q-tile: rows are query rows.
+    float dq[QI][DC];
+#pragma unroll
+    for (int i = 0; i < QI; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dq[i][c] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      float kr[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kr[c] = k_s[kk * LD + tx + kTx * c];
+#pragma unroll
+      for (int i = 0; i < QI; ++i) {
+        const float ds = sc_s[kk * LS + ty + kTy * i];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) dq[i][c] = fmaf(ds, kr[c], dq[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QI; ++i) {
+      T* row = dqp + static_cast<long long>(q0 + ty + kTy * i) * D;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) row[tx + kTx * c] = from_f32<T>(dq[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const long long off = bh * plane + static_cast<long long>(k0 + ty + kTy * i) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk[off + tx + kTx * c] = from_f32<T>(dk_acc[i][c]);
+      dv[off + tx + kTx * c] = from_f32<T>(dv_acc[i][c]);
+    }
+  }
+}
+
+// Raise the dynamic shared-memory cap past the default 48 KB (once per
+// instantiation is enough, but the call is cheap), launch on the caller's
+// stream and return the launch status: a refused launch never runs.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+struct FwdArgs {
+  const void* qkv;
+  void *out, *lse;
+  int batch, heads, t;
+  float scale2;
+  int causal;
+  void* stream;
+};
+
+struct BwdArgs {
+  const void *qkv, *dout, *lse, *delta;
+  void *dq_partials, *dk, *dv;
+  int batch, heads, t;
+  float scale, scale2;
+  int causal;
+  void* stream;
+};
+
+template <typename T, int D, int BQ, int BK>
+int run_fwd(const FwdArgs& a) {
+  const dim3 grid(a.t / BQ, a.heads, a.batch);
+  return launch(qkv_fwd_kernel<T, D, BQ, BK>, grid, fwd_smem<BQ, BK, D>(), a.stream,
+                static_cast<const T*>(a.qkv), static_cast<T*>(a.out),
+                static_cast<float*>(a.lse), a.batch, a.heads, a.t, a.scale2, a.causal);
+}
+
+template <typename T, int D, int BQ, int BK>
+int run_bwd(const BwdArgs& a) {
+  const dim3 grid(a.t / BK, a.heads, a.batch);
+  return launch(qkv_bwd_kernel<T, D, BQ, BK>, grid, bwd_smem<BQ, BK, D>(), a.stream,
+                static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
+                static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+                static_cast<T*>(a.dq_partials), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+                a.batch, a.heads, a.t, a.scale, a.scale2, a.causal);
+}
+
+// which 0: forward, 1: backward. Resident blocks per SM, or -1.
+template <typename T, int D, int BQ, int BK>
+int run_occupancy(int which) {
+  return which == 0 ? occupancy(qkv_fwd_kernel<T, D, BQ, BK>, fwd_smem<BQ, BK, D>())
+                    : occupancy(qkv_bwd_kernel<T, D, BQ, BK>, bwd_smem<BQ, BK, D>());
+}
+
+// Instantiate RUN<T, D, BQ, BK> for the compiled dtypes (0 = float32,
+// 1 = bfloat16), head dims (32, 64) and tiles (64, 128)^2; anything else
+// is refused as cudaErrorInvalidValue.
+#define RKT_QKV_TILES(RUN, T, D, bq, bk, arg)                                    \
+  do {                                                                           \
+    if ((bq) == 64 && (bk) == 64) return RUN<T, D, 64, 64>(arg);                 \
+    if ((bq) == 64 && (bk) == 128) return RUN<T, D, 64, 128>(arg);               \
+    if ((bq) == 128 && (bk) == 64) return RUN<T, D, 128, 64>(arg);               \
+    if ((bq) == 128 && (bk) == 128) return RUN<T, D, 128, 128>(arg);             \
+    return static_cast<int>(cudaErrorInvalidValue);                              \
+  } while (0)
+
+#define RKT_QKV_DISPATCH(RUN, dtype, d, bq, bk, arg)                             \
+  do {                                                                           \
+    if ((d) == 64) {                                                             \
+      if ((dtype) == 1) RKT_QKV_TILES(RUN, __nv_bfloat16, 64, bq, bk, arg);      \
+      RKT_QKV_TILES(RUN, float, 64, bq, bk, arg);                                \
+    }                                                                            \
+    if ((d) == 32) {                                                             \
+      if ((dtype) == 1) RKT_QKV_TILES(RUN, __nv_bfloat16, 32, bq, bk, arg);      \
+      RKT_QKV_TILES(RUN, float, 32, bq, bk, arg);                                \
+    }                                                                            \
+    return static_cast<int>(cudaErrorInvalidValue);                              \
+  } while (0)
+
+bool legal(int t, int block_q, int block_k, int causal) {
+  return t > 0 && t % block_q == 0 && t % block_k == 0 && (!causal || block_q == block_k);
+}
+
+}  // namespace
+
+// out (B, H, T, D) in the operand dtype, lse (B, H, 1, T) f32. Returns the
+// cudaError_t of the launch.
+extern "C" int rkt_flash_qkv_fwd(const void* qkv, void* out, void* lse, int batch, int heads,
+                                 int t, int d, int block_q, int block_k, float scale2, int causal,
+                                 int dtype, void* stream) {
+  if (!legal(t, block_q, block_k, causal)) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{qkv, out, lse, batch, heads, t, scale2, causal, stream};
+  RKT_QKV_DISPATCH(run_fwd, dtype, d, block_q, block_k, a);
+}
+
+// dq_partials (T / block_k, B, H, T, D), dk and dv (B, H, T, D), all in
+// the operand dtype; dout (B, H, T, D); lse and delta (B, H, 1, T) f32.
+// Returns the cudaError_t of the launch.
+extern "C" int rkt_flash_qkv_bwd(const void* qkv, const void* dout, const void* lse,
+                                 const void* delta, void* dq_partials, void* dk, void* dv,
+                                 int batch, int heads, int t, int d, int block_q, int block_k,
+                                 float scale, float scale2, int causal, int dtype, void* stream) {
+  if (!legal(t, block_q, block_k, causal)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{qkv, dout, lse, delta, dq_partials, dk, dv, batch, heads, t, scale, scale2,
+                  causal, stream};
+  RKT_QKV_DISPATCH(run_bwd, dtype, d, block_q, block_k, a);
+}
+
+// Resident CTAs per SM of one instantiation (which 0: forward, 1:
+// backward) at its dynamic shared memory, or -1 when the card refuses it.
+extern "C" int rkt_flash_qkv_occupancy(int which, int d, int block_q, int block_k, int dtype) {
+  RKT_QKV_DISPATCH(run_occupancy, dtype, d, block_q, block_k, which);
+}

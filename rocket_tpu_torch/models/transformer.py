@@ -19,9 +19,9 @@ and its knobs are layout-only (the blocks run as a Python loop).
 
 ``Block``'s attention half takes the fused whole-block kernel
 (``ops/fused_block.py``) where the reference's gate would: the
-``block_attn`` tune table pins it (not ported yet, so it reads as the
-reference's shipped table, which is empty) or ``ROCKET_TPU_BLOCK_ATTN=fused``
-forces it. By default the chain is the per-op one, as before.
+``block_attn`` tune table pins it (``rocket_tpu_torch.tune``; shipped
+empty, as the reference's) or ``ROCKET_TPU_BLOCK_ATTN=fused`` forces it.
+By default the chain is the per-op one, as before.
 """
 
 from __future__ import annotations
@@ -307,9 +307,10 @@ class Block(Layer):
             return None
         b, t, d = x.shape
         h = self.attn.num_heads
-        # The block_attn tune table: not ported yet (ROADMAP Queue A 8), so
-        # it reads as the reference's shipped table, which has no entries.
-        config: dict = {}
+        from rocket_tpu_torch.tune import get_config
+
+        config = get_config("block_attn", shape={"b": b, "t": t, "d": d, "h": h},
+                            dtype=x.dtype) or {}
         forced = os.environ.get("ROCKET_TPU_BLOCK_ATTN")
         if (forced or config.get("impl", "reference")) != "fused":
             return None

@@ -216,10 +216,11 @@ def _bn_train(x, scale, bias, eps: float):
 
 
 def _fused_conv_config(n: int, c: int, dtype: torch.dtype) -> dict:
-    """The ``fused_conv`` tune table's entry for an (N, C) activation. The
-    tables are not ported yet (ROADMAP Queue A 8), so this reads as the
-    reference's shipped table, which has no entries."""
-    return {}
+    """The ``fused_conv`` tune table's entry for an (N, C) activation on
+    this card, or ``{}`` (the shipped table is empty)."""
+    from rocket_tpu_torch.tune import get_config
+
+    return get_config("fused_conv", shape={"n": n, "c": c}, dtype=dtype) or {}
 
 
 def bn_act_train(x, scale, bias, eps: float, act: bool = False):
@@ -227,7 +228,7 @@ def bn_act_train(x, scale, bias, eps: float, act: bool = False):
     (the reference's gate, ``rocket_tpu/nn/layers.py:294-348``).
 
     The impl comes from the ``fused_conv`` tune table
-    (:func:`_fused_conv_config`, empty as the reference ships it), so it is
+    (:func:`_fused_conv_config`, shipped empty, as the reference's), so it is
     ``"reference"`` — bitwise :func:`_bn_train` followed by relu — unless
     ``ROCKET_TPU_FUSED_CONV=pallas`` forces the fused kernel
     (``ops/fused_conv.py``) at the table's schedule and ``block_rows``

@@ -57,14 +57,17 @@ def _expert_rows(table, expert):
 
 
 def gmm_config(m: int, k: int, n: int, dtype) -> dict:
-    """The ``moe_gmm`` tuned config for (m, k, n, dtype). The tune tables
-    are not ported yet (ROADMAP Queue A 8), so this reads as the
-    reference's shipped table, which is empty: ``impl="gmm"`` and the
-    hand-picked 512 tiles. The tiles are the TPU's layout parameter; the
-    port keeps them for the padded layout's shapes, and its CUDA kernels
-    choose their own tiles."""
-    del m, k, n, dtype
-    return {"impl": "gmm", "tile_m": 512, "tile_k": 512, "tile_n": 512}
+    """The ``moe_gmm`` tuned config for (m, k, n, dtype) on this card, over
+    the defaults ``impl="gmm"`` and the hand-picked 512 tiles (the shipped
+    table is empty). The tiles are the TPU's layout parameter; the port
+    keeps ``tile_m`` for the padded layout and ``tile_n`` for the
+    gather-GMM gate, and its CUDA kernels choose their own tiles."""
+    from rocket_tpu_torch.tune import get_config
+
+    config = dict(get_config("moe_gmm", shape={"m": m, "k": k, "n": n}, dtype=dtype) or {})
+    for key, value in (("impl", "gmm"), ("tile_m", 512), ("tile_k", 512), ("tile_n", 512)):
+        config.setdefault(key, value)
+    return config
 
 
 class MoE(Layer):

@@ -37,6 +37,7 @@ KERNELS = {
     "fused_conv": "fused_conv.cu",
     "grouped_gemm": "grouped_gemm.cu",
     "gather_gmm": "gather_gmm.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 _FLAGS = [

@@ -1,0 +1,361 @@
+"""First-generation flash attention on one stacked ``(3, B, H, T, D)`` q/k/v
+operand (counterpart of ``rocket_tpu/ops/flash_attention.py``).
+
+Two kernels, each hand-written CUDA (``csrc/flash_attention.cu``) with a
+plain PyTorch version of the same signature beside it:
+
+* :func:`flash_qkv_fwd` / :func:`_fwd_plain` -> ``(out (B, H, T, D), lse
+  (B, H, 1, T) f32)``: f32 scores times ``log2(e)/sqrt(D)``, ``exp2``, lse
+  in base 2, causal masking to -1e30, ``l = 0`` rows read as ``l = 1``,
+  probabilities rounded to the operand dtype before the PV product;
+* :func:`flash_qkv_bwd` / :func:`_bwd_plain` -> ``(dq partials (nk, B, H,
+  T, D), dk, dv)`` in the operand dtype: dk/dv summed in f32, ``ds``
+  rounded to the operand dtype before the dK and dQ products, one dq
+  partial per ``block_k`` key rows, summed in f32 and rounded — the
+  reference's rounding (the native-layout row 4 of ``flash_native`` keeps
+  its partials in f32 instead).
+
+:func:`flash_attention_qkv` wraps both in one ``torch.autograd.Function``
+(the reference's ``custom_vjp``); ``delta = rowsum(O * dO)`` is computed
+in f32 outside the kernel and the partials are summed in f32 outside it,
+``dq_part[0]`` taken as is when there is one k-tile, as the reference does.
+:func:`flash_attention` stacks separate q, k, v.
+
+Blocks are the kernel's compiled tiles, 64 and 128 (:data:`TILES`); causal
+needs equal blocks, non-causal runs any pair. :func:`resolve_tuned_blocks`
+reads the ``flash_fwd`` / ``flash_bwd`` tune tables
+(``rocket_tpu_torch.tune``) with the reference's precedence: explicit
+arguments win, pinned forward blocks suppress the backward table, and
+:data:`DEFAULT_BLOCK` is the fallback. T must be a multiple of 128, the
+reference's entry contract. Head dims: :data:`HEAD_DIMS`.
+
+The reference's mesh seam (``flash_attention_qkv_sharded``,
+``in_manual_axes``, ``shardable_axes``) waits for multi-device parallelism
+(ROADMAP Queue A 6).
+
+On CPU tensors every kernel wrapper takes its plain version; on CUDA
+tensors it launches its kernel (counted in ``<wrapper>.launches``) or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from rocket_tpu_torch.ops import _build
+from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+
+__all__ = [
+    "DEFAULT_BLOCK", "HEAD_DIMS", "TILES", "flash_attention", "flash_attention_qkv",
+    "flash_qkv_bwd", "flash_qkv_fwd", "pick_block", "resolve_tuned_blocks", "smem_bytes",
+]
+
+#: Tile sizes the CUDA kernels are compiled for (block_q and block_k each).
+TILES = (128, 64)
+#: Head dims the CUDA kernels are compiled for (those of the port's other
+#: flash kernels).
+HEAD_DIMS = (32, 64)
+#: The fallback block when no tune table entry matches: the larger compiled
+#: tile. The reference's 512 was a TPU measurement and does not carry over.
+DEFAULT_BLOCK = 128
+#: The reference's entry contract: T a multiple of its smallest block.
+_T_MULTIPLE = 128
+
+_NEG_INF = -1e30
+_LOG2E = math.log2(math.e)
+
+
+def pick_block(t: int, preferred: int = DEFAULT_BLOCK) -> Optional[int]:
+    """Largest compiled tile (<= ``preferred``) that divides ``t``, or None.
+    A caller pinning a TPU size (256, 512) gets 128."""
+    for block in TILES:
+        if block <= preferred and t % block == 0 and block <= t:
+            return block
+    return None
+
+
+def smem_bytes(kind: str, block_q: int, block_k: int, d: int) -> int:
+    """Dynamic shared memory of one CTA of the ``"fwd"`` or ``"bwd"`` kernel
+    (``fwd_smem`` / ``bwd_smem`` in ``csrc/flash_attention.cu``): f32 tiles
+    with a padded row stride D + 1 and one padded score tile."""
+    if kind == "fwd":
+        return 4 * ((block_q + 2 * block_k) * (d + 1) + block_q * (block_k + 1))
+    return 4 * (2 * (block_q + block_k) * (d + 1) + block_k * (block_q + 1) + 2 * block_q)
+
+
+def _check_causal_blocks(block_q: int, block_k: int, causal: bool, where: str) -> None:
+    """Causal masking runs only on diagonal tiles, which is right only for
+    aligned square tiles (``block_q == block_k``); raise on anything else
+    (the reference's ``_check_causal_blocks``, ``:168``)."""
+    if causal and block_q != block_k:
+        raise ValueError(
+            f"{where}: causal diagonal-block masking requires block_q == block_k "
+            f"(got block_q={block_q}, block_k={block_k}). Use equal blocks, or "
+            "causal=False for asymmetric blocking."
+        )
+
+
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round f32 ``x`` to ``dtype`` and back: the kernels' cast of p and ds."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+# -- plain versions ---------------------------------------------------------
+
+
+def _probs(q, k, causal):
+    """Base-2 scores (B, H, Tq, Tk) of f32 q, k, masked to -1e30 above the
+    diagonal when causal."""
+    t, d = q.shape[-2:]
+    s2 = torch.einsum("bhqd,bhkd->bhqk", q, k) * (_LOG2E / math.sqrt(d))
+    if causal:
+        above = torch.ones(t, t, dtype=torch.bool, device=s2.device).triu(1)
+        s2 = s2.masked_fill(above, _NEG_INF)
+    return s2
+
+
+def _fwd_plain(qkv, causal: bool, block_q: int, block_k: int):
+    """Plain forward, the kernel's signature -> (out (B, H, T, D), lse (B,
+    H, 1, T) f32)."""
+    _check_causal_blocks(block_q, block_k, causal, "flash_qkv_fwd")
+    q, k, v = qkv.float().unbind(0)
+    s2 = _probs(q, k, causal)
+    m = s2.amax(-1, keepdim=True)
+    p = torch.exp2(s2 - m)
+    l = p.sum(-1, keepdim=True)
+    safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bhkd->bhqd", _round(p, qkv.dtype), v) / safe_l
+    lse = (m + torch.log2(safe_l)).transpose(-1, -2)
+    return out.to(qkv.dtype), lse.contiguous()
+
+
+def _bwd_plain(qkv, out, lse, dout, delta, causal: bool, block_q: int, block_k: int):
+    """Plain fused backward, the kernel's signature -> (dq partials (nk, B,
+    H, T, D), dk, dv (B, H, T, D)), all in the operand dtype. Partial ``ik``
+    is the dq contribution of key rows ``[ik*block_k, (ik+1)*block_k)``,
+    summed in f32 and rounded; ``block_q`` does not change the result."""
+    _check_causal_blocks(block_q, block_k, causal, "flash_qkv_bwd")
+    del out
+    dtype = qkv.dtype
+    b, h, t, d = qkv.shape[1:]
+    q, k, v = qkv.float().unbind(0)
+    do = dout.float()
+    p = torch.exp2(_probs(q, k, causal) - lse.transpose(-1, -2))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = _round(p * (dp - delta.transpose(-1, -2)) * (1.0 / math.sqrt(d)), dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", _round(p, dtype), do)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
+    nk = t // block_k
+    dqp = torch.einsum("bhqnc,bhncd->nbhqd", ds.reshape(b, h, t, nk, block_k),
+                       k.reshape(b, h, nk, block_k, d))
+    return dqp.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if lib.rkt_flash_qkv_fwd.argtypes is None:
+        lib.rkt_flash_qkv_fwd.restype = _I
+        lib.rkt_flash_qkv_fwd.argtypes = [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P]
+        lib.rkt_flash_qkv_bwd.restype = _I
+        lib.rkt_flash_qkv_bwd.argtypes = [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P]
+        lib.rkt_flash_qkv_occupancy.restype = _I
+        lib.rkt_flash_qkv_occupancy.argtypes = [_I] * 5
+    return lib
+
+
+def occupancy(kind: str, d: int, block_q: int, block_k: int, dtype: torch.dtype) -> int:
+    """Resident CTAs per SM of one instantiation of the ``"fwd"`` or
+    ``"bwd"`` kernel at its shared memory, as the card reports it (-1 when
+    it refuses the instantiation). Needs the card."""
+    return _lib().rkt_flash_qkv_occupancy(0 if kind == "fwd" else 1, d, block_q, block_k,
+                                          DTYPE_CODES[dtype])
+
+
+def _check(where, qkv, block_q, block_k, **extra):
+    check_cuda_operands(where, qkv=qkv, **extra)
+    if qkv.dtype not in DTYPE_CODES:
+        raise ValueError(f"{where}: dtype {qkv.dtype} not in {list(DTYPE_CODES)}")
+    _, b, h, t, d = qkv.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{where}: head dim {d} not in {HEAD_DIMS}")
+    if block_q not in TILES or block_k not in TILES or t % block_q or t % block_k:
+        raise ValueError(f"{where}: blocks ({block_q}, {block_k}) must be compiled tiles "
+                         f"{TILES} dividing T={t}")
+    for name, x in extra.items():
+        want = (b, h, 1, t) if name in ("lse", "delta") else (b, h, t, d)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{where}: {name} is {tuple(x.shape)}, expected {want}")
+        if x.dtype != (torch.float32 if name in ("lse", "delta") else qkv.dtype):
+            raise ValueError(f"{where}: {name} has dtype {x.dtype}")
+
+
+def _raise_on(err: int, where: str) -> None:
+    if err:
+        raise RuntimeError(f"{where}: kernel launch failed with cudaError {err}")
+
+
+def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
+    """Flash forward of the stacked ``(3, B, H, T, D)`` operand -> ``(out
+    (B, H, T, D), lse (B, H, 1, T) f32)``. CPU tensors: :func:`_fwd_plain`;
+    CUDA tensors: ``rkt_flash_qkv_fwd`` or raise."""
+    _check_causal_blocks(block_q, block_k, causal, "flash_qkv_fwd")
+    if qkv.device.type == "cpu":
+        return _fwd_plain(qkv, causal, block_q, block_k)
+    _check("flash_qkv_fwd", qkv, block_q, block_k)
+    _, b, h, t, d = qkv.shape
+    out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=qkv.device)
+    err = _lib().rkt_flash_qkv_fwd(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t, d, block_q, block_k,
+        _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
+    )
+    _raise_on(err, "flash_qkv_fwd")
+    flash_qkv_fwd.launches += 1
+    return out, lse
+
+
+def flash_qkv_bwd(qkv, out, lse, dout, delta, causal: bool, block_q: int, block_k: int):
+    """Fused backward -> ``(dq partials (T / block_k, B, H, T, D), dk, dv
+    (B, H, T, D))`` in the operand dtype. CPU tensors: :func:`_bwd_plain`;
+    CUDA tensors: ``rkt_flash_qkv_bwd`` or raise."""
+    _check_causal_blocks(block_q, block_k, causal, "flash_qkv_bwd")
+    if qkv.device.type == "cpu":
+        return _bwd_plain(qkv, out, lse, dout, delta, causal, block_q, block_k)
+    _check("flash_qkv_bwd", qkv, block_q, block_k, dout=dout, lse=lse, delta=delta)
+    _, b, h, t, d = qkv.shape
+    # Every partial is written by the kernel (zeros where causal skips a
+    # tile), so the buffer needs no clearing.
+    dqp = torch.empty((t // block_k, b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    dk = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
+    dv = torch.empty_like(dk)
+    err = _lib().rkt_flash_qkv_bwd(
+        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqp.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, t, d, block_q, block_k, 1.0 / math.sqrt(d),
+        _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
+    )
+    _raise_on(err, "flash_qkv_bwd")
+    flash_qkv_bwd.launches += 1
+    return dqp, dk, dv
+
+
+flash_qkv_fwd.launches = 0
+flash_qkv_bwd.launches = 0
+
+
+# -- autograd ---------------------------------------------------------------
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the backward is delta in f32, the
+    backward kernel, and its dq partials summed in f32 (``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, causal, blocks):
+        out, lse = flash_qkv_fwd(qkv, causal, blocks[0], blocks[1])
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.cfg = (causal, blocks[2], blocks[3])
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        causal, bq, bk = ctx.cfg
+        dout = dout.contiguous()
+        delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
+        dqp, dk, dv = flash_qkv_bwd(qkv, out, lse, dout, delta, causal, bq, bk)
+        dq = dqp[0] if dqp.shape[0] == 1 else dqp.float().sum(0).to(qkv.dtype)
+        return torch.stack([dq, dk, dv]), None, None
+
+
+def _resolve_blocks(t: int, causal: bool, block_q: int, block_k: int):
+    bq = pick_block(t, min(block_q, t))
+    bk = pick_block(t, min(block_k, t))
+    if t % _T_MULTIPLE or bq is None or bk is None:
+        raise ValueError(
+            f"flash_attention: seq len {t} must be a multiple of a supported block size "
+            f"({_T_MULTIPLE}); use the plain attention path for ragged shapes."
+        )
+    if causal:
+        # Diagonal-tile masking needs aligned square tiles.
+        bq = bk = min(bq, bk)
+    return bq, bk
+
+
+def resolve_tuned_blocks(t: int, d: int, h: int, h_kv: int, dtype, causal: bool,
+                         block_q, block_k, bwd_block_q, bwd_block_k) -> tuple:
+    """(block_q, block_k, bwd_block_q, bwd_block_k) with ``None`` arguments
+    resolved through the ``flash_fwd`` / ``flash_bwd`` tune tables and
+    :data:`DEFAULT_BLOCK` as the fallback: the backward falls back to the
+    resolved forward blocks. Explicit arguments win, and a caller that
+    pinned both forward blocks gets those blocks in the backward too, with
+    no table read (pinned A/Bs run exactly the blocks they name). All four
+    are then clamped to compiled tiles dividing T."""
+    from rocket_tpu_torch.tune import get_config
+
+    shape = {"t": t, "d": d, "h": h, "h_kv": h_kv, "causal": causal}
+    fwd_pinned = block_q is not None and block_k is not None
+    if not fwd_pinned:
+        config = get_config("flash_fwd", shape=shape, dtype=dtype) or {}
+        if block_q is None:
+            block_q = config.get("block_q", DEFAULT_BLOCK)
+        if block_k is None:
+            block_k = config.get("block_k", DEFAULT_BLOCK)
+    bq, bk = _resolve_blocks(t, causal, block_q, block_k)
+    if bwd_block_q is None or bwd_block_k is None:
+        config = {} if fwd_pinned else (get_config("flash_bwd", shape=shape, dtype=dtype) or {})
+        if bwd_block_q is None:
+            bwd_block_q = config.get("block_q", bq)
+        if bwd_block_k is None:
+            bwd_block_k = config.get("block_k", bk)
+    bbq, bbk = _resolve_blocks(t, causal, bwd_block_q, bwd_block_k)
+    return bq, bk, bbq, bbk
+
+
+def flash_attention_qkv(qkv: torch.Tensor, causal: bool = True,
+                        block_q: Optional[int] = None, block_k: Optional[int] = None,
+                        bwd_block_q: Optional[int] = None,
+                        bwd_block_k: Optional[int] = None) -> torch.Tensor:
+    """Flash attention on a stacked ``(3, B, H, T, D)`` q/k/v tensor ->
+    ``(B, H, T, D)``. Differentiable: the gradient is the stacked ``(3, B,
+    H, T, D)`` cotangent, from the fused one-pass backward kernel. Blocks
+    come from the tune tables for this card / shape / dtype unless given
+    (:func:`resolve_tuned_blocks`)."""
+    if qkv.dim() != 5 or qkv.shape[0] != 3:
+        raise ValueError(
+            f"flash_attention_qkv: expected stacked (3, B, H, T, D), got {tuple(qkv.shape)}; "
+            "for separate q/k/v use flash_attention()."
+        )
+    _, _, h, t, d = qkv.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_qkv: head dim {d} is not compiled ({HEAD_DIMS})")
+    blocks = resolve_tuned_blocks(t, d, h, h, qkv.dtype, causal, block_q, block_k,
+                                  bwd_block_q, bwd_block_k)
+    return _Flash.apply(qkv.contiguous(), causal, blocks)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """Blockwise (flash) attention for ``(B, H, T, D)`` operands, through
+    :func:`flash_attention_qkv` on their stack. T must be a multiple of 128;
+    causal requires ``t_q == t_kv``. Softmax statistics and accumulators are
+    f32 whatever the input dtype."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError("flash_attention: causal requires t_q == t_kv.")
+    if q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(
+            "flash_attention: q, k, v must share one shape (cross-attention with "
+            "t_q != t_kv goes through the plain attention path)."
+        )
+    return flash_attention_qkv(torch.stack([q, k, v]), causal=causal, block_q=block_q,
+                               block_k=block_k)

@@ -12,7 +12,9 @@ point at it and are masked off by position).
   a new pool and donates the old one; here the update is the donation.
 * C = 1 decode waves run :func:`paged_decode`, the hand-written CUDA
   kernel ``csrc/paged_decode.cu`` on CUDA tensors (its plain version on
-  CPU tensors). It walks only the slot's live pages.
+  CPU tensors). It walks only the slot's live pages. The ``paged_decode``
+  tune table (or ``ROCKET_TPU_PAGED_DECODE``) may pin ``impl="xla"``, the
+  gather path, instead; an empty table keeps the kernel.
 * Prefill chunks (C > 1) run :func:`attend_plain`, the gather + masked
   einsum attention, as the JAX package runs plain XLA there.
 
@@ -23,6 +25,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
+from typing import Optional
 
 import torch
 
@@ -161,7 +165,8 @@ def paged_decode(q, k_pages, v_pages, block_table, positions):
 paged_decode.launches = 0
 
 
-def paged_attention(q, k_new, v_new, k_pages, v_pages, block_table, positions, valid):
+def paged_attention(q, k_new, v_new, k_pages, v_pages, block_table, positions, valid,
+                    impl: Optional[str] = None):
     """One chunk of causal GQA attention against the paged pool.
 
     ``q`` ``(S, C, Hq, D)``; ``k_new``/``v_new`` ``(S, C, Hkv, D)`` (RoPE
@@ -169,12 +174,31 @@ def paged_attention(q, k_new, v_new, k_pages, v_pages, block_table, positions, v
     then query row ``i`` attends over key positions ``<= positions[s] +
     i``. Returns ``(out (S, C, Hq*D), k_pages, v_pages)`` — the pools are
     the same tensors, updated in place. Padded query rows produce
-    well-defined garbage that callers ignore."""
+    well-defined garbage that callers ignore.
+
+    ``impl`` (C = 1 only): ``"pallas"`` runs :func:`paged_decode` (the
+    CUDA kernel), ``"xla"`` the gather path :func:`attend_plain`. None
+    reads ``ROCKET_TPU_PAGED_DECODE``, then the ``paged_decode`` tune
+    table, then ``"pallas"`` (the reference's order, ``:304-325``).
+    Prefill chunks (C > 1) always take the gather path and read no
+    table."""
     s, c, hq, d = q.shape
-    if hq % k_pages.shape[2]:
-        raise ValueError(f"paged_attention: Hq {hq} not a multiple of Hkv {k_pages.shape[2]}")
+    _, bl, h_kv, _ = k_pages.shape
+    if hq % h_kv:
+        raise ValueError(f"paged_attention: Hq {hq} not a multiple of Hkv {h_kv}")
     write_kv_pages(k_pages, v_pages, block_table, positions, valid, k_new, v_new)
     if c == 1:
-        out = paged_decode(q[:, 0].contiguous(), k_pages, v_pages, block_table, positions)
-        return out.reshape(s, 1, hq * d), k_pages, v_pages
+        if impl is None:
+            from rocket_tpu_torch.tune import get_config
+
+            config = get_config("paged_decode", shape={
+                "s": s, "mb": block_table.shape[1], "bl": bl, "hkv": h_kv, "hq": hq, "d": d,
+            }, dtype=k_pages.dtype) or {}
+            impl = os.environ.get("ROCKET_TPU_PAGED_DECODE") or config.get("impl", "pallas")
+        if impl not in ("pallas", "xla"):
+            raise ValueError(f"paged_attention: unknown impl {impl!r} — the table is ahead of "
+                             "the implementation (expected 'pallas' or 'xla')")
+        if impl == "pallas":
+            out = paged_decode(q[:, 0].contiguous(), k_pages, v_pages, block_table, positions)
+            return out.reshape(s, 1, hq * d), k_pages, v_pages
     return attend_plain(q, k_pages, v_pages, block_table, positions), k_pages, v_pages

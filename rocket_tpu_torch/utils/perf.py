@@ -1,36 +1,75 @@
-"""Device peak table — the MFU denominator of the Profiler capsule
-(counterpart of ``rocket_tpu/utils/perf.py``'s ``PEAK_FLOPS`` and
-``peak_flops``, keyed by the CUDA device name instead of the TPU kind).
-The roofline ``DeviceSpec`` table waits for the analysis tooling."""
+"""Device peak tables (counterpart of ``rocket_tpu/utils/perf.py``), keyed
+by ``torch.cuda.get_device_name()`` instead of the TPU kind: the MFU
+denominator of the Profiler capsule (``PEAK_FLOPS``, ``peak_flops``) and
+the per-card constants the tuner's legality rules read (``DeviceSpec``,
+``device_spec``). Matching is longest prefix in both."""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-__all__ = ["PEAK_FLOPS", "peak_flops"]
+__all__ = ["PEAK_FLOPS", "peak_flops", "DeviceSpec", "DEVICE_SPECS", "device_spec"]
 
-#: Dense bf16 tensor-core peak by ``torch.cuda.get_device_name()`` prefix
-#: (NVIDIA's data sheets, SXM parts at their full power limit). Matching is
-#: longest prefix.
-PEAK_FLOPS = {
-    "NVIDIA H100": 989e12,
-    "NVIDIA H200": 989e12,
+@dataclass(frozen=True)
+class DeviceSpec:
+    """Per-card constants: ``flops_bf16`` and ``flops_f32`` (dense, FLOP/s),
+    ``hbm_bw`` (bytes/s) and ``smem_bytes``, the dynamic shared memory one
+    block may opt into — the budget the tuner's legality rules hold a
+    kernel's tiles to (the reference's ``vmem_bytes``)."""
+
+    kind: str
+    flops_bf16: float
+    flops_f32: float
+    hbm_bw: float
+    smem_bytes: int
+
+
+#: Constants by ``torch.cuda.get_device_name()`` prefix: NVIDIA's data
+#: sheets (SXM parts, dense, at their full power limit) and the Hopper
+#: tuning guide's 227 KB (232,448 bytes) shared-memory opt-in per block.
+DEVICE_SPECS = {
+    spec.kind: spec
+    for spec in (
+        DeviceSpec("NVIDIA H100", 989e12, 67e12, 3.35e12, 232448),
+        DeviceSpec("NVIDIA H200", 989e12, 67e12, 4.8e12, 232448),
+    )
 }
+
+#: Dense bf16 tensor-core peak by device-name prefix — the MFU denominator.
+PEAK_FLOPS = {kind: spec.flops_bf16 for kind, spec in DEVICE_SPECS.items()}
+
+
+def _longest_prefix(table: dict, kind: str):
+    best = None
+    for prefix, value in table.items():
+        if kind.startswith(prefix) and (best is None or len(prefix) > best[0]):
+            best = (len(prefix), value)
+    return None if best is None else best[1]
+
+
+def device_name(device=None) -> str:
+    """``torch.cuda.get_device_name`` of ``device`` (default: the current
+    CUDA device), or ``"cpu"`` off the card."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_available():
+        return torch.cuda.get_device_name(device)
+    return "cpu"
 
 
 def peak_flops(device=None) -> Optional[float]:
     """The bf16 peak of ``device`` (default: the current CUDA device), or
     None on the CPU or an unknown card — callers then omit MFU rather than
     compute it against the wrong peak."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    if device.type == "cuda" and torch.cuda.is_available():
-        name = torch.cuda.get_device_name(device)
-    else:
-        name = device.type
-    best = None
-    for prefix, value in PEAK_FLOPS.items():
-        if name.startswith(prefix) and (best is None or len(prefix) > len(best[0])):
-            best = (prefix, value)
-    return None if best is None else best[1]
+    return _longest_prefix(PEAK_FLOPS, device_name(device))
+
+
+def device_spec(device=None) -> Optional[DeviceSpec]:
+    """The constants of a device or a device-name string, or None when the
+    card is unknown (callers skip the check rather than price against the
+    wrong card). A string prices a card that is not present."""
+    named = isinstance(device, str) and not device.startswith(("cpu", "cuda"))
+    kind = device if named else device_name(device)
+    return _longest_prefix(DEVICE_SPECS, kind)

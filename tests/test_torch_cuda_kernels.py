@@ -19,13 +19,17 @@ f32 ``5e-5 + 5e-5 * |want|`` (the moments are reassociated f32 sums), and
 bf16 y to ``2e-2 * (1 + |want|)`` (one bf16 rounding). The MoE grouped
 products (``gmm``, ``tgmm``, ``gather_gmm``) hold every element to
 ``tol * (1 + |want|)``: f32 sums in another order, and in bf16 one
-rounding of the f32 accumulator that may flip by one step.
+rounding of the f32 accumulator that may flip by one step. Rows 6-7 (the
+stacked-qkv flash kernels) hold every element to ``tol * (1 + |want|)``
+as the other flash kernels do; their dq partials are compared through
+their f32 sum.
 """
 
 import pytest
 import torch
 
 from rocket_tpu_torch.ops import decode_attention as tda
+from rocket_tpu_torch.ops import flash_attention as tfa
 from rocket_tpu_torch.ops import flash_native as tfn
 from rocket_tpu_torch.ops import fused_block as tfb
 from rocket_tpu_torch.ops import fused_conv as tfc
@@ -497,3 +501,109 @@ def test_grouped_products_follow_the_gate_and_raise_past_the_kernels(cuda):
     with pytest.raises(ValueError):  # row ids on the host
         tgg.gather_gmm_fwd(x, w, ids.cpu(), sizes, 8)
     assert tgm.gmm.launches == before + 1
+
+
+# -- rows 6-7: flash attention on the stacked (3, B, H, T, D) operand ---------
+
+QKV_CASES = [(2, 4, 256, 64), (2, 4, 256, 32), (8, 12, 1024, 64)]  # (B, H, T, D); GPT-2 last
+QKV_TILES = [(64, 64), (128, 128), (64, 128), (128, 64)]
+
+
+def _close_per_element(got, want, tol, what):
+    excess = ((got.float() - want.float()).abs() - tol * (1.0 + want.float().abs())).max().item()
+    assert excess <= 0.0, f"{what}: off by {excess} more than {tol} * (1 + |want|)"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tiles", QKV_TILES, ids=lambda c: "q{}k{}".format(*c))
+@pytest.mark.parametrize("case", QKV_CASES, ids=lambda c: "b{}h{}t{}d{}".format(*c))
+def test_flash_qkv_kernels_match_plain_and_repeat_bitwise(cuda, case, tiles, dtype):
+    """Every compiled tile pair (causal only on square tiles), forward and
+    the whole backward against the plain versions, two launches bitwise."""
+    b, h, t, d = case
+    bq, bk = tiles
+    gen = torch.Generator().manual_seed(b * t + d + bq + bk)
+    qkv = _randn(gen, dtype, 3, b, h, t, d)
+    dout = _randn(gen, dtype, b, h, t, d)
+    for causal in ((True, False) if bq == bk else (False,)):
+        what = f"{case} {tiles} {dtype} causal={causal}"
+        before = (tfa.flash_qkv_fwd.launches, tfa.flash_qkv_bwd.launches)
+        out, lse = tfa.flash_qkv_fwd(qkv, causal, bq, bk)
+        out2, lse2 = tfa.flash_qkv_fwd(qkv, causal, bq, bk)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        out_p, lse_p = tfa._fwd_plain(qkv, causal, bq, bk)
+        _close_per_element(out, out_p, TOL[dtype], what + " out")
+        _close_per_element(lse, lse_p, TOL[dtype], what + " lse")
+        delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
+        args = (qkv, out, lse, dout, delta, causal, bq, bk)
+        dqp, dk, dv = tfa.flash_qkv_bwd(*args)
+        again = tfa.flash_qkv_bwd(*args)
+        assert all(torch.equal(x, y) for x, y in zip((dqp, dk, dv), again))
+        assert tfa.flash_qkv_fwd.launches == before[0] + 2
+        assert tfa.flash_qkv_bwd.launches == before[1] + 2
+        dqp_p, dk_p, dv_p = tfa._bwd_plain(*args)
+        assert dqp.shape == dqp_p.shape == (t // bk, b, h, t, d)
+        _close_per_element(dqp.float().sum(0), dqp_p.float().sum(0), TOL[dtype], what + " dq")
+        _close_per_element(dk, dk_p, TOL[dtype], what + " dk")
+        _close_per_element(dv, dv_p, TOL[dtype], what + " dv")
+        if causal:  # the partials a k-tile cannot see are written as zeros
+            assert torch.count_nonzero(dqp[-1, :, :, :t - bk]) == 0
+
+
+@pytest.mark.cuda
+def test_flash_qkv_autograd_runs_the_kernels_and_raises_past_them(cuda):
+    gen = torch.Generator().manual_seed(7)
+    qkv = _randn(gen, torch.bfloat16, 3, 2, 4, 256, 64).requires_grad_()
+    before = (tfa.flash_qkv_fwd.launches, tfa.flash_qkv_bwd.launches)
+    out = tfa.flash_attention_qkv(qkv)
+    out.float().square().sum().backward()
+    assert (tfa.flash_qkv_fwd.launches, tfa.flash_qkv_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert qkv.grad.shape == qkv.shape and torch.isfinite(qkv.grad.float()).all()
+    x = torch.zeros(3, 1, 2, 256, 64, device=cuda)
+    with pytest.raises(ValueError):  # not a compiled tile
+        tfa.flash_qkv_fwd(x, False, 256, 128)
+    with pytest.raises(ValueError):  # float16 is not compiled
+        tfa.flash_qkv_fwd(x.half(), True, 128, 128)
+    with pytest.raises(ValueError):
+        tfa.flash_qkv_fwd(x[:, :, :, ::2], True, 128, 128)
+    for kind in ("fwd", "bwd"):
+        for bq, bk in QKV_TILES:
+            assert tfa.occupancy(kind, 64, bq, bk, torch.float32) >= 1
+
+
+@pytest.mark.cuda
+def test_tuner_sweeps_on_the_card_and_rejects_a_seeded_bad_variant(cuda):
+    """A real flash sweep: every candidate parity-clean and timed; then a
+    wrong-but-fast variant in a test-only TuneSpace is rejected before
+    timing."""
+    from rocket_tpu_torch.tune.space import TUNE_SPACES, TuneSpace
+    from rocket_tpu_torch.tune.tuner import TuneCase, load_cases, sweep_case
+
+    report = sweep_case(load_cases()["flash_bwd/charlm"], iters=3, min_speedup=1.0)
+    assert report.default_us > 0 and report.results
+    for result in report.results:
+        assert result.error is None and result.parity_ok and result.mean_us > 0, result
+
+    space = TuneSpace(kernel="card_fake_variant", axes={"impl": ("reference", "wrongfast")},
+                      shape_keys=("n",), default=lambda shape: {"impl": "reference"},
+                      structural=("impl",))
+    TUNE_SPACES[space.kernel] = space
+    try:
+        qkv = torch.randn(3, 2, 4, 256, 64, device=cuda).to(torch.bfloat16)
+
+        def build():
+            def run(config):
+                if config["impl"] == "wrongfast":
+                    return qkv[0] * 1.5
+                return tfa.flash_attention_qkv(qkv)
+            return run
+
+        case = TuneCase(name="fake/wrongfast", kernel=space.kernel, shape={"n": 256},
+                        dtype="bfloat16", build=build)
+        report = sweep_case(case, iters=2, min_speedup=1.0)
+        (bad,) = report.results
+        assert not bad.parity_ok and bad.mean_us is None and report.winner is None
+    finally:
+        del TUNE_SPACES[space.kernel]

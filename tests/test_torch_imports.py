@@ -44,6 +44,7 @@ def test_importing_the_port_loads_no_jax():
         "models.resnet", "core.meter", "utils.metrics", "data.augment", "data.datasets",
         "examples.cifar_resnet", "ops.grouped_matmul", "ops.gather_gmm", "nn.moe",
         "core.profiler", "obs.prof", "utils.perf", "examples.moe_lm",
+        "ops.flash_attention", "tune", "tune.space", "tune.table", "tune.tuner", "tune.__main__",
     )]
     code = (
         "import sys\n"
