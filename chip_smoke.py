@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``rocket_tpu_torch/csrc`` with
-``nvcc`` (into ``build/kernels/``, first use, all in parallel) and holds
+``nvcc`` (into ``build/kernels/``, first use, all in parallel), audits
+their launches (every non-demo target of ``python -m rocket_tpu_torch.
+analysis sched`` clean on this card, and every kernel's declared grid,
+threads and shared memory equal to its library's query), holds
 each against its plain PyTorch version at its path's shapes, and times the
 flash backward under both dq strategies (f32 partials, or the separate
 accumulating dq kernel) at T=1024 and 2048; the first-generation flash
@@ -36,7 +39,10 @@ resumed from that checkpoint against the uninterrupted run (bitwise, under
 card against the CPU. Then the MoE LM slice (GPT-2 widths, 4 experts,
 top-2, dropless; ``ROCKET_TPU_MOE_GMM=fused`` where it says so): the
 gather_gmm, gmm and tgmm kernels against their plain versions at the main
-path's shapes and ragged ones; 12 train steps through the ``Launcher``
+path's shapes and ragged ones (then row 12, the schedule audit's seeded-bad
+demo: exactly its two RKT504 findings, its step on the card launching once
+and refused at the 64 MiB block, bitwise parity, 2 * x timed in (7, 100)
+and (8, 128) blocks); 12 train steps through the ``Launcher``
 with the ``Profiler`` capsule (forced fused), 3 unforced (``impl="gmm"``);
 ``ServeEngine`` and ``generate()`` (greedy tokens equal in f32); and
 ``examples.moe_lm`` (einsum dispatch, head dim 32). Last, the whole GPT-2
@@ -85,7 +91,9 @@ from rocket_tpu_torch.data.datasets import ArrayDataset
 from rocket_tpu_torch.models.resnet import resnet18
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.nn.moe import MoE
+from rocket_tpu_torch.analysis.sched_audit import SCHED_TARGETS, run_sched_target
 from rocket_tpu_torch.ops import _build
+from rocket_tpu_torch.ops import badpallas as bp
 from rocket_tpu_torch.ops import decode_attention as da
 from rocket_tpu_torch.ops import flash_attention as fqa
 from rocket_tpu_torch.ops import flash_native as fa
@@ -100,6 +108,7 @@ from rocket_tpu_torch.serve import ServeConfig, ServeEngine
 from rocket_tpu_torch.serve import __main__ as serve_cli
 from rocket_tpu_torch.tune.space import TUNE_SPACES, TuneSpace
 from rocket_tpu_torch.tune.tuner import TuneCase, sweep_case
+from rocket_tpu_torch.utils.perf import device_spec
 
 ROOT = Path(__file__).resolve().parent
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
@@ -127,7 +136,7 @@ RECORD: dict = {}
 #: Every kernel wrapper, whose launch count is zeroed before each main path.
 COUNTED = (pa.paged_decode, da.decode_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_dq,
            fb.fused_block, fc.bn_twopass, fc.bn_normalize, gg.gather_gmm_fwd, gm.gmm, gm.tgmm,
-           fqa.flash_qkv_fwd, fqa.flash_qkv_bwd)
+           fqa.flash_qkv_fwd, fqa.flash_qkv_bwd, bp.bad_scale)
 #: char-LM resume: a resumed run against an uninterrupted one on the card,
 #: losses and each final param leaf relative to its largest element.
 RESUME_TOL = 1e-5
@@ -191,6 +200,98 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# -- phase 2b: every kernel's declared launch against its library ------------
+
+def _declared_launches() -> list:
+    """(kernel, shapes, declared LaunchFact, the built library's query) for
+    every kernel at its main path's shapes: the serve wave and generate()
+    (rows 1-2), GPT-2 train at T=1024 and 2048 (rows 3-5), rows 6-7 at both
+    tiles, the char-LM fused block under both epilogues (row 8), the three
+    BN passes at ResNet-18 CIFAR's four shapes (rows 9-10), the MoE
+    in-projection's gather-GMM and both grouped products of the in- and
+    out-projection in bf16 and f32 (row 11, gmm, tgmm), and row 12's two
+    launches. The BN grids are sized by a meta tensor priced as this card,
+    as the audit sizes them."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = [
+        ("paged_decode", "S=8 MB=64 BL=16 Hq=Hkv=12 D=64 bf16",
+         pa.paged_decode_launch(8, 12, 12, 64, 513, 16, 64, bf16),
+         pa.launch_info(8, 12, 12, 64, bf16)),
+        ("decode_attention", "B=4 T=192 Hq=Hkv=12 D=64 bf16",
+         da.decode_attention_launch(4, 12, 12, 192, 64, bf16), da.launch_info(4, 12, 12, 64, bf16)),
+    ]
+    for kind, t in (("flash_fwd", 1024), ("flash_bwd", 1024), ("flash_dq", 2048)):
+        rows.append((kind, f"B=8 T={t} H=12 D=64 bf16 fused qkv",
+                     fa.flash_launch(kind, 8, t, 12, 12, 64, bf16, 2304, 2304),
+                     fa.launch_info(kind, 8, t, 12, 12, 64, bf16)))
+    for kind in ("fwd", "bwd"):
+        for blk in fqa.TILES:
+            rows.append((f"flash_qkv_{kind}", f"(3, 8, 12, 1024, 64) bf16 {blk}x{blk}",
+                         fqa.qkv_launch(kind, 8, 12, 1024, 64, bf16, blk, blk),
+                         fqa.launch_info(kind, 8, 12, 1024, 64, bf16, blk, blk)))
+    for epilogue in ("separate", "fused"):
+        rows.append(("fused_block", f"B=128 T=256 D=256 H=4 bf16 {epilogue}",
+                     fb.fused_block_launch(128, 256, 256, 4, bf16, epilogue),
+                     fb.launch_info(128, 256, 4, epilogue, bf16)))
+    with tune.priced_device_kind(torch.cuda.get_device_name(0)):
+        for n, c, dtype in BN_SHAPES[:4]:
+            grid, norm_grid = fc._grids(torch.empty((n, c), dtype=dtype, device="meta"))
+            for fact in fc.bn_launches("twopass", n, c, dtype, grid, norm_grid):
+                ctas = grid if fact.name == "bn_moments" else norm_grid
+                rows.append((fact.name, f"N={n} C={c} f32", fact,
+                             fc.launch_info(fact.name, c, ctas, True, dtype)))
+    for dtype in (bf16, f32):
+        name = str(dtype).removeprefix("torch.")
+        rows.append(("gather_gmm", f"M=18432 K=768 N=3072 E=4 src=8192 {name}",
+                     gm.gmm_launch(18432, 768, 3072, 4, dtype, name="gather_gmm", src_rows=8192),
+                     gg.launch_info(18432, 3072, 4, dtype)))
+        for k, n, trans in ((768, 3072, False), (3072, 768, False), (3072, 768, True)):
+            rows.append(("gmm", f"M=18432 K={k} N={n} E=4 {name}{' transposed' if trans else ''}",
+                         gm.gmm_launch(18432, k, n, 4, dtype, trans),
+                         gm.launch_info("gmm", 18432, k, n, 4, dtype, trans)))
+        for k, n in ((768, 3072), (3072, 768)):
+            rows.append(("tgmm", f"M=18432 K={k} N={n} E=4 {name}",
+                         gm.tgmm_launch(18432, k, n, 4, dtype),
+                         gm.launch_info("tgmm", 18432, k, n, 4, dtype)))
+    for block, grid in (((7, 100), (4,)), ((4096, 4096), ())):
+        rows.append(("bad_scale", f"(4096, 4096) f32 block {block} grid {grid}",
+                     bp.bad_scale_launch((4096, 4096), block, grid), bp.launch_info(block, grid)))
+    return rows
+
+
+def launch_audit_phase(card):
+    """The kernel-launch audit on this card: every non-demo schedule target
+    traced on meta tensors and priced as this card must report nothing, the
+    SM count the meta launches size grids with must be this card's, and
+    every kernel's declared (grid, threads, dynamic, static shared memory)
+    must equal its library's query, with each launch's headroom under the
+    card's shared-memory opt-in printed."""
+    kind = torch.cuda.get_device_name(0)
+    spec = device_spec(kind)
+    require(spec is not None, f"launch_audit: no DeviceSpec for {kind!r}")
+    require(spec.sms == torch.cuda.get_device_properties(0).multi_processor_count,
+            f"launch_audit: DeviceSpec.sms {spec.sms} is not this card's")
+    targets = {}
+    for name, target in SCHED_TARGETS.items():
+        if target.demo:
+            continue
+        report = run_sched_target(target, kind)
+        require(report.clean, f"launch_audit: {name}: " + "; ".join(
+            f.message for f in report.findings))
+        targets[name] = {"launches": len(report.launches),
+                         "kernels": sorted({f.name for f in report.launches})}
+    kernels = []
+    for name, shapes, fact, built in _declared_launches():
+        grid, threads, dynamic, static = built
+        require(fact.geometry == built, f"launch_audit: {name} {shapes}: declared "
+                f"{fact.geometry}, library {built}")
+        kernels.append({"kernel": name, "shapes": shapes, "grid": list(grid), "threads": threads,
+                        "dynamic_smem": dynamic, "static_smem": static,
+                        "headroom_bytes": spec.smem_bytes - dynamic - static})
+    emit("launch_audit", device_kind=kind, smem_opt_in=spec.smem_bytes, targets=targets,
+         kernels=kernels, card=card)
 
 
 # -- phase 3: kernels against their plain versions -------------------------
@@ -587,7 +688,7 @@ def _seeded_bad_sweep():
     try:
         qkv = torch.randn(3, 8, 12, 1024, 64, device="cuda").to(torch.bfloat16)
 
-        def build():
+        def build(device):
             def run(config):
                 if config["impl"] == "wrongfast":
                     return qkv[0] * 1.5  # fast AND wrong
@@ -596,7 +697,7 @@ def _seeded_bad_sweep():
 
         report = sweep_case(TuneCase(name="fake/seeded_bad", kernel="smoke_fake",
                                      shape={"n": 1024}, dtype="bfloat16", build=build),
-                            iters=3, min_speedup=1.0)
+                            device="cuda", iters=3, min_speedup=1.0)
     finally:
         del TUNE_SPACES[space.kernel]
     (bad,) = report.results
@@ -2028,6 +2129,69 @@ def check_moe_kernels(timer, gen):
     return rows
 
 
+# -- row 12: the seeded-bad demo of the schedule audit ------------------------
+
+#: Row 12's whole-array timings: 2 * x over all of a (4096, 4096) f32 array
+#: in the fixture's misaligned (7, 100) blocks and in aligned (8, 128) ones.
+BAD_BLOCKS = ((7, 100), (8, 128))
+
+
+def badpallas_phase(timer, gen, card):
+    """Row 12 (``ops/badpallas.py``): the demo target reports exactly RKT504,
+    once as a tile misfit and once over budget; its step on the card
+    (the main path: launch counts zeroed just before) launches the (7, 100)
+    kernel once and raises at the whole-array launch, which the card
+    refuses; the kernel equals its plain version bitwise on the written
+    blocks; after the refusal the next launch runs clean; and 2 * x over the
+    whole array is timed in both block shapes, against ``x.mul(2)`` and the
+    bytes bound."""
+    report = run_sched_target(SCHED_TARGETS["badpallas"], torch.cuda.get_device_name(0))
+    budget = [f for f in report.findings if "shared memory per CTA" in f.message]
+    misfit = [f for f in report.findings if "misaligns" in f.message]
+    require({f.rule for f in report.findings} == {"RKT504"} and len(budget) == 1
+            and len(misfit) == 1 and len(report.findings) == 2,
+            f"badpallas: the demo reported {[f.render() for f in report.findings]}")
+    step, _ = SCHED_TARGETS["badpallas"].build()
+    x = torch.randn(4096, 4096, generator=gen).cuda()
+    zero_launches()
+    try:
+        step(x)
+        refused = None
+    except RuntimeError as err:
+        refused = str(err)
+    torch.cuda.synchronize()
+    launches = bp.bad_scale.launches
+    require(refused is not None and "cudaError" in refused,
+            "badpallas: the whole-array launch (64 MiB of shared memory) was not refused")
+    require(launches == 1, f"badpallas: the demo step launched {launches} times, want 1")
+    block, grid = (7, 100), (4,)
+    got, want = bp.bad_scale(x, block, grid), bp.bad_scale_plain(x, block, grid)
+    rows, cols = bp.written_blocks(x.shape, block, grid)
+    torch.cuda.synchronize()
+    require(torch.equal(got[rows, cols], want[rows, cols]),
+            "badpallas: (7, 100) blocks differ from the plain version")
+    timings = {}
+    for block in BAD_BLOCKS:
+        grid = (-(-4096 // block[0]), -(-4096 // block[1]))
+        y = bp.bad_scale(x, block, grid)
+        torch.cuda.synchronize()
+        require(torch.equal(y, x * 2.0), f"badpallas: {block} blocks over the whole array")
+        timings[block] = (grid, timer.ms(lambda: bp.bad_scale(x, block, grid)))
+    grid7 = timings[BAD_BLOCKS[0]][0]
+    row = {
+        "launches": launches, "max_abs_err": 0.0, "refused": refused,
+        "findings": [f.message for f in report.findings],
+        "ms": timings[BAD_BLOCKS[0]][1], "ms_8x128": timings[BAD_BLOCKS[1]][1],
+        "grids": {f"{b[0]}x{b[1]}": list(g) for b, (g, _) in timings.items()},
+        "plain_ms": timer.ms(lambda: bp.bad_scale_plain(x, BAD_BLOCKS[0], grid7)),
+        "library_ms": timer.ms(lambda: x.mul(2)),
+    }
+    # x read once and y written once, f32; one multiply per element.
+    row["bound_ms"], row["bound_by"] = bound_ms(2 * 4096 * 4096 * 4, 4096 * 4096, torch.float32)
+    emit("badpallas", **row, card=card)
+    return row
+
+
 class _RouteLog:
     """Records each MoE layer's routing (top-k ids and the gap between the
     k-th and the (k+1)-th gate) while installed over ``MoE.route``."""
@@ -2378,7 +2542,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build()
-    emit("build", seconds=time.perf_counter() - t0, kernels={
+    build_s = time.perf_counter() - t0
+    emit("build", seconds=build_s, kernels={
         name: {"seconds": info["seconds"],
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
@@ -2389,6 +2554,8 @@ def main() -> int:
                                                                                 dt)
              for kind in ("fwd", "bwd") for dt in (torch.float32, torch.bfloat16)
              for bq in fqa.TILES for bk in fqa.TILES})
+
+    launch_audit_phase(card)
 
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
@@ -2401,6 +2568,7 @@ def main() -> int:
     block = check_fused_block(timer, gen)
     conv = check_fused_conv(timer, gen)[(524288, 64, "float32")]
     moe = check_moe_kernels(timer, gen)
+    bad = badpallas_phase(timer, gen, card)
     del timer
     torch.cuda.empty_cache()
     # Rows 6-7: no model path reaches them (in either package); their path
@@ -2463,6 +2631,8 @@ def main() -> int:
          "rocket_tpu/ops/flash_attention.py:102"),
         ("flash_qkv_bwd", qkv["flash_qkv_bwd"], "rocket_tpu_torch/csrc/flash_attention.cu",
          "rocket_tpu/ops/flash_attention.py:232"),
+        ("bad_scale", bad, "rocket_tpu_torch/csrc/badpallas.cu",
+         "rocket_tpu/analysis/sched_audit.py:1369"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",

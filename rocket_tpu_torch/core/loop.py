@@ -115,8 +115,11 @@ class Looper(Dispatcher):
                     bar.update(1)
                     if (self._batch_idx % self._postfix_every == 0 and attrs.looper is not None
                             and attrs.looper.state):
-                        bar.set_postfix({k: f"{float(v):.4g}"
-                                         for k, v in attrs.looper.state.items()}, refresh=False)
+                        # A host read for the bar's display: only with progress on, and
+                        # once every postfix_every steps.
+                        postfix = {k: f"{float(v):.4g}"  # rocketlint: disable=RKT106
+                                   for k, v in attrs.looper.state.items()}
+                        bar.set_postfix(postfix, refresh=False)
         finally:
             if bar is not None:
                 bar.close()

@@ -21,6 +21,7 @@
 // The TPU gate (T % 128, VMEM budget) does not apply: any T, D % 8 == 0,
 // D <= 256.
 #include "decode_common.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -48,16 +49,25 @@ decode_attention_kernel(const T* q, const T* k_new, const T* v_new, T* k_cache, 
                       out + q_off, smem);
 }
 
+// One CTA per (batch row, kv head).
+inline dim3 launch_grid(int batch, int h_kv) { return dim3(batch, h_kv); }
+
 template <typename T>
 int run(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
         void* out, int batch, int hq, int h_kv, int t_max, int d, int pos, float scale,
         void* stream) {
   const size_t smem = rkt::attend_smem_bytes(hq / h_kv, d);
-  return rkt::launch(decode_attention_kernel<T>, dim3(batch, h_kv), smem, stream,
+  return rkt::launch(decode_attention_kernel<T>, launch_grid(batch, h_kv), smem, stream,
                      static_cast<const T*>(q), static_cast<const T*>(k_new),
                      static_cast<const T*>(v_new), static_cast<T*>(k_cache),
                      static_cast<T*>(v_cache), static_cast<T*>(out), hq, h_kv, t_max, d, pos,
                      scale);
+}
+
+template <typename T>
+int query(int batch, int hq, int h_kv, int d, long long* info) {
+  return rkt_info::write(decode_attention_kernel<T>, launch_grid(batch, h_kv), rkt::kThreads,
+                         rkt::attend_smem_bytes(hq / h_kv, d), info);
 }
 
 }  // namespace
@@ -72,4 +82,11 @@ extern "C" int rkt_decode_attention(const void* q, const void* k_new, const void
                               pos, scale, stream);
   return run<float>(q, k_new, v_new, k_cache, v_cache, out, batch, hq, h_kv, t_max, d, pos,
                     scale, stream);
+}
+
+// The launch geometry of rkt_decode_attention at these shapes (launch_info.cuh).
+extern "C" int rkt_decode_attention_launch_info(int batch, int hq, int h_kv, int d, int dtype,
+                                                long long* info) {
+  if (dtype == 1) return query<__nv_bfloat16>(batch, hq, h_kv, d, info);
+  return query<float>(batch, hq, h_kv, d, info);
 }

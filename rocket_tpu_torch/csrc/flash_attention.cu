@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch_info.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -436,18 +438,24 @@ struct BwdArgs {
   void* stream;
 };
 
+// One CTA per (tile of `block` rows: q tiles forward, k tiles backward, head,
+// batch row).
+inline dim3 tile_grid(int t, int block, int heads, int batch) {
+  return dim3(t / block, heads, batch);
+}
+
 template <typename T, int D, int BQ, int BK>
 int run_fwd(const FwdArgs& a) {
-  const dim3 grid(a.t / BQ, a.heads, a.batch);
-  return launch(qkv_fwd_kernel<T, D, BQ, BK>, grid, fwd_smem<BQ, BK, D>(), a.stream,
+  return launch(qkv_fwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BQ, a.heads, a.batch),
+                fwd_smem<BQ, BK, D>(), a.stream,
                 static_cast<const T*>(a.qkv), static_cast<T*>(a.out),
                 static_cast<float*>(a.lse), a.batch, a.heads, a.t, a.scale2, a.causal);
 }
 
 template <typename T, int D, int BQ, int BK>
 int run_bwd(const BwdArgs& a) {
-  const dim3 grid(a.t / BK, a.heads, a.batch);
-  return launch(qkv_bwd_kernel<T, D, BQ, BK>, grid, bwd_smem<BQ, BK, D>(), a.stream,
+  return launch(qkv_bwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BK, a.heads, a.batch),
+                bwd_smem<BQ, BK, D>(), a.stream,
                 static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
                 static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
                 static_cast<T*>(a.dq_partials), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
@@ -459,6 +467,20 @@ template <typename T, int D, int BQ, int BK>
 int run_occupancy(int which) {
   return which == 0 ? occupancy(qkv_fwd_kernel<T, D, BQ, BK>, fwd_smem<BQ, BK, D>())
                     : occupancy(qkv_bwd_kernel<T, D, BQ, BK>, bwd_smem<BQ, BK, D>());
+}
+
+struct QueryArgs {
+  int which, batch, heads, t;  // which 0: forward, 1: backward
+  long long* info;
+};
+
+template <typename T, int D, int BQ, int BK>
+int run_query(const QueryArgs& a) {
+  if (a.which == 0)
+    return rkt_info::write(qkv_fwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BQ, a.heads, a.batch),
+                           kThreads, fwd_smem<BQ, BK, D>(), a.info);
+  return rkt_info::write(qkv_bwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BK, a.heads, a.batch),
+                         kThreads, bwd_smem<BQ, BK, D>(), a.info);
 }
 
 // Instantiate RUN<T, D, BQ, BK> for the compiled dtypes (0 = float32,
@@ -519,4 +541,13 @@ extern "C" int rkt_flash_qkv_bwd(const void* qkv, const void* dout, const void* 
 // backward) at its dynamic shared memory, or -1 when the card refuses it.
 extern "C" int rkt_flash_qkv_occupancy(int which, int d, int block_q, int block_k, int dtype) {
   RKT_QKV_DISPATCH(run_occupancy, dtype, d, block_q, block_k, which);
+}
+
+// The launch geometry of rkt_flash_qkv_fwd (which 0) or rkt_flash_qkv_bwd
+// (which 1) at these shapes (launch_info.cuh).
+extern "C" int rkt_flash_qkv_launch_info(int which, int batch, int heads, int t, int d,
+                                         int block_q, int block_k, int dtype, long long* info) {
+  if (!legal(t, block_q, block_k, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const QueryArgs a{which, batch, heads, t, info};
+  RKT_QKV_DISPATCH(run_query, dtype, d, block_q, block_k, a);
 }

@@ -31,6 +31,7 @@
 // response: the same register-tiled f32 FMA over shared-memory tiles as
 // flash_fwd; tensor cores and TMA are later work.
 #include "flash_common.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -203,16 +204,27 @@ flash_bwd_kernel(const T* q, const T* k, const T* v, const T* dout, const float*
   }
 }
 
+// One CTA per (k tile, kv head, batch row), and its dynamic shared memory.
+inline dim3 launch_grid(const Geometry& geo) {
+  return dim3((geo.t + kTile - 1) / kTile, geo.h_kv, geo.batch);
+}
+inline size_t launch_smem(int d) { return smem_bytes(d, 4, 2, 2); }
+
 template <typename T, int D>
 int run(const void* q, const void* k, const void* v, const void* dout, const void* lse,
         const void* delta, void* dq_partials, void* dk, void* dv, Geometry geo, float scale,
         float scale2, int causal, int with_dq, void* stream) {
-  const dim3 grid((geo.t + kTile - 1) / kTile, geo.h_kv, geo.batch);
-  return launch(flash_bwd_kernel<T, D>, grid, smem_bytes(D, 4, 2, 2), stream,
+  return launch(flash_bwd_kernel<T, D>, launch_grid(geo), launch_smem(D), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<float*>(dq_partials),
                 static_cast<T*>(dk), static_cast<T*>(dv), geo, scale, scale2, causal, with_dq);
+}
+
+template <typename T, int D>
+int query(Geometry geo, long long* info) {
+  return rkt_info::write(flash_bwd_kernel<T, D>, launch_grid(geo), kThreads, launch_smem(D),
+                         info);
 }
 
 }  // namespace
@@ -229,4 +241,11 @@ extern "C" int rkt_flash_bwd(const void* q, const void* k, const void* v, const 
   if (with_dq && dq_partials == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   RKT_FLASH_DISPATCH(run, dtype, d, q, k, v, dout, lse, delta, dq_partials, dk, dv, geo, scale,
                      scale2, causal, with_dq, stream);
+}
+
+// The launch geometry of rkt_flash_bwd at these shapes (launch_info.cuh).
+extern "C" int rkt_flash_bwd_launch_info(int batch, int t, int hq, int h_kv, int d, int dtype,
+                                         long long* info) {
+  const rkt_flash::Geometry geo{batch, t, hq, h_kv, d, 0, 0, 0, 0, 0};
+  RKT_FLASH_DISPATCH(query, dtype, d, geo, info);
 }

@@ -20,6 +20,7 @@
 // causal at GPT-2 shapes). Design response: the register-tiled f32 FMA of
 // flash_fwd; tensor cores and TMA are later work.
 #include "flash_common.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -136,16 +137,27 @@ flash_dq_kernel(const T* q, const T* k, const T* v, const T* dout, const float* 
   }
 }
 
+// One CTA per (q tile, query head, batch row), and its dynamic shared memory.
+inline dim3 launch_grid(const Geometry& geo) {
+  return dim3((geo.t + kTile - 1) / kTile, geo.hq, geo.batch);
+}
+inline size_t launch_smem(int d) { return smem_bytes(d, 4, 1, 2); }
+
 template <typename T, int D>
 int run(const void* q, const void* k, const void* v, const void* dout, const void* lse,
         const void* delta, void* dq, Geometry geo, float scale, float scale2, int causal,
         void* stream) {
-  const dim3 grid((geo.t + kTile - 1) / kTile, geo.hq, geo.batch);
-  return launch(flash_dq_kernel<T, D>, grid, smem_bytes(D, 4, 1, 2), stream,
+  return launch(flash_dq_kernel<T, D>, launch_grid(geo), launch_smem(D), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<T*>(dq), geo, scale, scale2,
                 causal);
+}
+
+template <typename T, int D>
+int query(Geometry geo, long long* info) {
+  return rkt_info::write(flash_dq_kernel<T, D>, launch_grid(geo), kThreads, launch_smem(D),
+                         info);
 }
 
 }  // namespace
@@ -160,4 +172,11 @@ extern "C" int rkt_flash_dq(const void* q, const void* k, const void* v, const v
   const rkt_flash::Geometry geo{batch, t, hq, h_kv, d, fq, fk, q_off, k_off, v_off};
   RKT_FLASH_DISPATCH(run, dtype, d, q, k, v, dout, lse, delta, dq, geo, scale, scale2, causal,
                      stream);
+}
+
+// The launch geometry of rkt_flash_dq at these shapes (launch_info.cuh).
+extern "C" int rkt_flash_dq_launch_info(int batch, int t, int hq, int h_kv, int d, int dtype,
+                                        long long* info) {
+  const rkt_flash::Geometry geo{batch, t, hq, h_kv, d, 0, 0, 0, 0, 0};
+  RKT_FLASH_DISPATCH(query, dtype, d, geo, info);
 }

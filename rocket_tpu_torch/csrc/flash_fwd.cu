@@ -25,6 +25,7 @@
 // skipping the tiles above the diagonal; tensor cores (mma.sync / wgmma),
 // TMA and warp specialisation are later work (PERF.md has its time).
 #include "flash_common.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -148,13 +149,24 @@ flash_fwd_kernel(const T* q, const T* k, const T* v, T* out, float* lse, Geometr
   }
 }
 
+// One CTA per (q tile, query head, batch row), and its dynamic shared memory.
+inline dim3 launch_grid(const Geometry& geo) {
+  return dim3((geo.t + kTile - 1) / kTile, geo.hq, geo.batch);
+}
+inline size_t launch_smem(int d) { return smem_bytes(d, 3, 1, 0); }
+
 template <typename T, int D>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, Geometry geo,
         float scale2, int causal, void* stream) {
-  const dim3 grid((geo.t + kTile - 1) / kTile, geo.hq, geo.batch);
-  return launch(flash_fwd_kernel<T, D>, grid, smem_bytes(D, 3, 1, 0), stream,
+  return launch(flash_fwd_kernel<T, D>, launch_grid(geo), launch_smem(D), stream,
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<T*>(out), static_cast<float*>(lse), geo, scale2, causal);
+}
+
+template <typename T, int D>
+int query(Geometry geo, long long* info) {
+  return rkt_info::write(flash_fwd_kernel<T, D>, launch_grid(geo), kThreads, launch_smem(D),
+                         info);
 }
 
 }  // namespace
@@ -167,4 +179,11 @@ extern "C" int rkt_flash_fwd(const void* q, const void* k, const void* v, void* 
                              void* stream) {
   const rkt_flash::Geometry geo{batch, t, hq, h_kv, d, fq, fk, q_off, k_off, v_off};
   RKT_FLASH_DISPATCH(run, dtype, d, q, k, v, out, lse, geo, scale2, causal, stream);
+}
+
+// The launch geometry of rkt_flash_fwd at these shapes (launch_info.cuh).
+extern "C" int rkt_flash_fwd_launch_info(int batch, int t, int hq, int h_kv, int d, int dtype,
+                                         long long* info) {
+  const rkt_flash::Geometry geo{batch, t, hq, h_kv, d, 0, 0, 0, 0, 0};
+  RKT_FLASH_DISPATCH(query, dtype, d, geo, info);
 }

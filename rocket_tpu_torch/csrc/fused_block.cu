@@ -47,6 +47,7 @@
 #include <cooperative_groups.h>
 
 #include "flash_common.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -348,6 +349,10 @@ __global__ void __launch_bounds__(kThreads) fused_block_kernel(Args a) {
   }
 }
 
+// One CTA per (head, batch row); the fused epilogue's H CTAs of a row form
+// one cluster.
+inline dim3 launch_grid(int nh, int batch) { return dim3(nh, batch, 1); }
+
 template <typename T, bool kFused>
 int run(const Args& a, void* stream) {
   auto kernel = fused_block_kernel<T, kFused>;
@@ -361,7 +366,7 @@ int run(const Args& a, void* stream) {
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.nh, a.batch, 1);
+  cfg.gridDim = launch_grid(a.nh, a.batch);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -370,6 +375,12 @@ int run(const Args& a, void* stream) {
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kFused>
+int query(int batch, int t, int nh, long long* info) {
+  return rkt_info::write(fused_block_kernel<T, kFused>, launch_grid(nh, batch), kThreads,
+                         block_smem_bytes(t), info);
 }
 
 }  // namespace
@@ -398,4 +409,15 @@ extern "C" int rkt_fused_block(const void* x, const void* ln, const void* wqkv,
     return fused ? run<__nv_bfloat16, true>(a, stream) : run<__nv_bfloat16, false>(a, stream);
   }
   return fused ? run<float, true>(a, stream) : run<float, false>(a, stream);
+}
+
+// The launch geometry of rkt_fused_block at these shapes (launch_info.cuh).
+extern "C" int rkt_fused_block_launch_info(int batch, int t, int num_heads, int fused, int dtype,
+                                           long long* info) {
+  if (dtype == 1) {
+    return fused ? query<__nv_bfloat16, true>(batch, t, num_heads, info)
+                 : query<__nv_bfloat16, false>(batch, t, num_heads, info);
+  }
+  return fused ? query<float, true>(batch, t, num_heads, info)
+               : query<float, false>(batch, t, num_heads, info);
 }

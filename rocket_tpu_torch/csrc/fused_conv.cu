@@ -47,6 +47,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_info.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -216,6 +218,9 @@ int launch_normalize(const void* x, const float* mi, void* y, long long n, int c
   return static_cast<int>(cudaGetLastError());
 }
 
+// Pass 2's CTAs: one thread per channel.
+inline int finalize_ctas(int c) { return (c + kThreads - 1) / kThreads; }
+
 template <typename T>
 int run_twopass(const void* x, const float* sc, void* y, float* stats, float* mi, float* partial,
                 long long n, int c, int grid, int norm_grid, float eps, int act,
@@ -225,11 +230,22 @@ int run_twopass(const void* x, const float* sc, void* y, float* stats, float* mi
                                                    rows_per_cta);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  finalize_kernel<<<(c + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  finalize_kernel<<<finalize_ctas(c), kThreads, 0, stream>>>(
       partial, grid, sc, stats, mi, c, static_cast<float>(n), eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_normalize<T>(x, mi, y, n, c, norm_grid, act, stream);
+}
+
+// which 0: the moments pass, 1: finalize, 2: normalize; grid is the CTAs
+// the caller passes for passes 0 and 2.
+template <typename T>
+int query(int which, int c, int grid, int act, long long* info) {
+  if (which == 0) return rkt_info::write(moments_kernel<T>, dim3(grid), kThreads, 0, info);
+  if (which == 1)
+    return rkt_info::write(finalize_kernel, dim3(finalize_ctas(c)), kThreads, 0, info);
+  if (act) return rkt_info::write(normalize_kernel<T, true>, dim3(grid), kThreads, 0, info);
+  return rkt_info::write(normalize_kernel<T, false>, dim3(grid), kThreads, 0, info);
 }
 
 bool shape_ok(long long n, int c) { return n >= 1 && c >= 8 && c <= kMaxC && c % 8 == 0; }
@@ -265,4 +281,14 @@ extern "C" int rkt_bn_normalize(const void* x, const void* mi, void* y, long lon
   const float* m = static_cast<const float*>(mi);
   if (dtype == 1) return launch_normalize<__nv_bfloat16>(x, m, y, n, c, grid, act, s);
   return launch_normalize<float>(x, m, y, n, c, grid, act, s);
+}
+
+// The launch geometry of one pass of rkt_bn_twopass / rkt_bn_normalize
+// (which as in query above) at these shapes (launch_info.cuh).
+extern "C" int rkt_bn_launch_info(int which, int c, int grid, int act, int dtype,
+                                  long long* info) {
+  if (c < 8 || c > kMaxC || c % 8 || grid < 1 || which < 0 || which > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return query<__nv_bfloat16>(which, c, grid, act, info);
+  return query<float>(which, c, grid, act, info);
 }

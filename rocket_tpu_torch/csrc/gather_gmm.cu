@@ -41,11 +41,15 @@ auto kernel_for() {
 template <typename T>
 int run(const void* x, int src_rows, const void* row_ids, const void* rhs,
         const void* group_sizes, void* out, int m, int k, int n, int num_groups, void* stream) {
-  const dim3 grid(work_tiles(m, num_groups), (n + kBN - 1) / kBN);
-  return launch(kernel_for<T>(), grid, stream, static_cast<const T*>(x),
+  return launch(kernel_for<T>(), gmm_grid(m, n, num_groups), stream, static_cast<const T*>(x),
                 static_cast<const int*>(row_ids), src_rows, static_cast<const T*>(rhs),
                 static_cast<const int*>(group_sizes), static_cast<T*>(out), m, k, n,
                 num_groups);
+}
+
+template <typename T>
+int query(int m, int n, int num_groups, long long* info) {
+  return rkt_info::write(kernel_for<T>(), gmm_grid(m, n, num_groups), kThreads, 0, info);
 }
 
 }  // namespace
@@ -65,4 +69,12 @@ extern "C" int rkt_gather_gmm(const void* x, int src_rows, const void* row_ids, 
   if (dtype == 0)
     return run<float>(x, src_rows, row_ids, rhs, group_sizes, out, m, k, n, num_groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch geometry of rkt_gather_gmm at these shapes (launch_info.cuh).
+extern "C" int rkt_gather_gmm_launch_info(int m, int n, int num_groups, int dtype,
+                                          long long* info) {
+  if (m <= 0 || n <= 0 || num_groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return query<__nv_bfloat16>(m, n, num_groups, info);
+  return query<float>(m, n, num_groups, info);
 }

@@ -50,7 +50,7 @@ auto tgmm_for() {
 template <typename T>
 int run_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out, int m, int k,
             int n, int num_groups, int transpose_rhs, void* stream) {
-  const dim3 grid(work_tiles(m, num_groups), (n + kBN - 1) / kBN);
+  const dim3 grid = gmm_grid(m, n, num_groups);
   const T* a = static_cast<const T*>(lhs);
   const T* b = static_cast<const T*>(rhs);
   const int* gs = static_cast<const int*>(group_sizes);
@@ -65,10 +65,22 @@ int run_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out
 template <typename T>
 int run_tgmm(const void* lhs, const void* dy, const void* group_sizes, void* out, int m, int k,
              int n, int num_groups, void* stream) {
-  const dim3 grid((k + kBM - 1) / kBM, (n + kBN - 1) / kBN, num_groups);
-  return launch(tgmm_for<T>(), grid, stream, static_cast<const T*>(lhs),
+  return launch(tgmm_for<T>(), tgmm_grid(k, n, num_groups), stream, static_cast<const T*>(lhs),
                 static_cast<const T*>(dy), static_cast<const int*>(group_sizes),
                 static_cast<T*>(out), m, k, n, num_groups);
+}
+
+// The grouped kernels take no dynamic shared memory: their tiles are static.
+template <typename T>
+int query_gmm(int m, int n, int num_groups, int transpose_rhs, long long* info) {
+  const dim3 grid = gmm_grid(m, n, num_groups);
+  if (transpose_rhs) return rkt_info::write(gmm_for<T, true>(), grid, kThreads, 0, info);
+  return rkt_info::write(gmm_for<T, false>(), grid, kThreads, 0, info);
+}
+
+template <typename T>
+int query_tgmm(int k, int n, int num_groups, long long* info) {
+  return rkt_info::write(tgmm_for<T>(), tgmm_grid(k, n, num_groups), kThreads, 0, info);
 }
 
 }  // namespace
@@ -98,4 +110,19 @@ extern "C" int rkt_tgmm(const void* lhs, const void* dy, const void* group_sizes
     return run_tgmm<__nv_bfloat16>(lhs, dy, group_sizes, out, m, k, n, num_groups, stream);
   if (dtype == 0) return run_tgmm<float>(lhs, dy, group_sizes, out, m, k, n, num_groups, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The launch geometry of rkt_gmm and rkt_tgmm at these shapes
+// (launch_info.cuh).
+extern "C" int rkt_gmm_launch_info(int m, int n, int num_groups, int transpose_rhs, int dtype,
+                                   long long* info) {
+  if (m <= 0 || n <= 0 || num_groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return query_gmm<__nv_bfloat16>(m, n, num_groups, transpose_rhs, info);
+  return query_gmm<float>(m, n, num_groups, transpose_rhs, info);
+}
+
+extern "C" int rkt_tgmm_launch_info(int k, int n, int num_groups, int dtype, long long* info) {
+  if (k <= 0 || n <= 0 || num_groups <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return query_tgmm<__nv_bfloat16>(k, n, num_groups, info);
+  return query_tgmm<float>(k, n, num_groups, info);
 }

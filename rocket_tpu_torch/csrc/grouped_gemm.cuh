@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_info.cuh"
+
 namespace rkt_gg {
 
 constexpr int kThreads = 256;
@@ -95,6 +97,16 @@ __device__ __forceinline__ bool find_work(const int* __restrict__ group_sizes, i
 
 // Static number of work tiles for m rows in num_groups groups.
 inline int work_tiles(int m, int num_groups) { return m / kBM + num_groups + 1; }
+
+// Grid of a gmm or gather-GMM launch: (work tiles, N tiles).
+inline dim3 gmm_grid(int m, int n, int num_groups) {
+  return dim3(work_tiles(m, num_groups), (n + kBN - 1) / kBN);
+}
+
+// Grid of a tgmm launch: one CTA per (K tile, N tile, group).
+inline dim3 tgmm_grid(int k, int n, int num_groups) {
+  return dim3((k + kBM - 1) / kBM, (n + kBN - 1) / kBN, num_groups);
+}
 
 // A ROWS x COLS f32 tile of a row-major matrix whose rows are
 // COLS-contiguous, held in registers as float4 vectors. row_ptr[r] (in

@@ -23,6 +23,7 @@
 // Later work (split-K over long contexts, TMA page loads, wgmma for large
 // g) is left out on purpose: this is the simple, correct first kernel.
 #include "decode_common.cuh"
+#include "launch_info.cuh"
 
 namespace {
 
@@ -50,16 +51,25 @@ paged_decode_kernel(const T* q, const T* k_pages, const T* v_pages, const int* b
   rkt::attend_rows<T>(q + q_off, k_pages, v_pages, rows, n, g, d, scale, out + q_off, smem);
 }
 
+// One CTA per (slot, kv head).
+inline dim3 launch_grid(int num_slots, int h_kv) { return dim3(num_slots, h_kv); }
+
 template <typename T>
 int run(const void* q, const void* k_pages, const void* v_pages, const int* block_table,
         const int* positions, void* out, int num_slots, int hq, int h_kv, int d,
         int num_blocks, int block_len, int max_blocks, float scale, void* stream) {
   const size_t smem = rkt::attend_smem_bytes(hq / h_kv, d);
-  return rkt::launch(paged_decode_kernel<T>, dim3(num_slots, h_kv), smem, stream,
+  return rkt::launch(paged_decode_kernel<T>, launch_grid(num_slots, h_kv), smem, stream,
                      static_cast<const T*>(q), static_cast<const T*>(k_pages),
                      static_cast<const T*>(v_pages), block_table, positions,
                      static_cast<T*>(out), hq, h_kv, d, num_blocks, block_len, max_blocks,
                      scale);
+}
+
+template <typename T>
+int query(int num_slots, int hq, int h_kv, int d, long long* info) {
+  return rkt_info::write(paged_decode_kernel<T>, launch_grid(num_slots, h_kv), rkt::kThreads,
+                         rkt::attend_smem_bytes(hq / h_kv, d), info);
 }
 
 }  // namespace
@@ -75,4 +85,11 @@ extern "C" int rkt_paged_decode(const void* q, const void* k_pages, const void* 
                               h_kv, d, num_blocks, block_len, max_blocks, scale, stream);
   return run<float>(q, k_pages, v_pages, block_table, positions, out, num_slots, hq, h_kv, d,
                     num_blocks, block_len, max_blocks, scale, stream);
+}
+
+// The launch geometry of rkt_paged_decode at these shapes (launch_info.cuh).
+extern "C" int rkt_paged_decode_launch_info(int num_slots, int hq, int h_kv, int d, int dtype,
+                                            long long* info) {
+  if (dtype == 1) return query<__nv_bfloat16>(num_slots, hq, h_kv, d, info);
+  return query<float>(num_slots, hq, h_kv, d, info);
 }

@@ -38,6 +38,7 @@ KERNELS = {
     "grouped_gemm": "grouped_gemm.cu",
     "gather_gmm": "gather_gmm.cu",
     "flash_attention": "flash_attention.cu",
+    "badpallas": "badpallas.cu",
 }
 
 _FLAGS = [

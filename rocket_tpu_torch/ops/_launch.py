@@ -1,20 +1,111 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the launch facts they
+declare.
+
+Every wrapper takes three routes by the device of its tensors: the CPU
+runs the plain version, CUDA launches the kernel (or raises), and
+``meta`` — torch's abstract tensors, shapes and dtypes with no storage —
+launches nothing: the wrapper records the :class:`LaunchFact` of each
+launch it would make and returns its outputs, empty meta tensors of the
+kernel's shapes. ``meta`` needs no card and no memory, so a whole train
+or serve step traces at full model width on the CPU; the schedule audit
+(``rocket_tpu_torch.analysis.sched_audit``) reads the facts under
+:func:`record_launches`. A meta launch is not a launch: it leaves every
+wrapper's ``launches`` count alone.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import threading
+from dataclasses import dataclass
+from typing import Iterable, Iterator
+
 import torch
 
-__all__ = ["DTYPE_CODES", "check_cuda_operands", "stream_of"]
+__all__ = [
+    "DTYPE_CODES", "LaunchFact", "check_cuda_operands", "dtype_name", "query_launch",
+    "record", "record_launches", "stream_of", "tile",
+]
 
 #: Operand dtypes the kernels are compiled for, and their code in the C ABI.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``."""
+    return str(dtype).removeprefix("torch.")
+
+
+def tile(rows: int, cols: int, dtype: torch.dtype, full_rows: int, full_cols: int) -> tuple:
+    """One operand tile of a launch: ``rows`` x ``cols`` elements of
+    ``dtype`` cut from a ``full_rows`` x ``full_cols`` plane of its operand
+    (the extent the full-dimension waiver of RKT504 compares against)."""
+    return ((int(rows), int(cols)), dtype_name(dtype), (int(full_rows), int(full_cols)))
+
+
+@dataclass(frozen=True)
+class LaunchFact:
+    """What one kernel launch asks of the card: its grid (3 ints), threads
+    per CTA, dynamic and static shared memory per CTA in bytes, and
+    ``tiles``, a tuple of :func:`tile` entries for every operand tile a CTA
+    stages in shared memory or streams through its loops."""
+
+    name: str
+    grid: tuple
+    threads: int
+    dynamic_smem: int
+    static_smem: int
+    tiles: tuple = ()
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.dynamic_smem + self.static_smem
+
+    @property
+    def geometry(self) -> tuple:
+        """``(grid, threads, dynamic_smem, static_smem)``: what a library's
+        launch-info query reports for the same launch."""
+        return (tuple(self.grid), self.threads, self.dynamic_smem, self.static_smem)
+
+
+_recorders = threading.local()
+
+
+def _stack() -> list:
+    stack = getattr(_recorders, "stack", None)
+    if stack is None:
+        stack = _recorders.stack = []
+    return stack
+
+
+@contextlib.contextmanager
+def record_launches() -> Iterator[list]:
+    """Collect the :class:`LaunchFact` of every meta launch made inside the
+    block (on this thread) into the yielded list, in launch order."""
+    facts: list = []
+    stack = _stack()
+    stack.append(facts)
+    try:
+        yield facts
+    finally:
+        stack.pop()
+
+
+def record(facts: Iterable[LaunchFact]) -> None:
+    """A wrapper's meta route: hand the facts of the launches it would make
+    to every open :func:`record_launches` block."""
+    facts = tuple(facts)
+    for sink in _stack():
+        sink.extend(facts)
+
+
 def check_cuda_operands(what: str, **tensors: torch.Tensor) -> None:
-    """Every operand on one CUDA device and contiguous; raise otherwise."""
+    """Every operand on one CUDA device (or every one on ``meta``) and
+    contiguous; raise otherwise."""
     device = None
     for name, t in tensors.items():
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{what}: {name} is on {t.device}, expected a CUDA device")
         if device is None:
             device = t.device
@@ -27,3 +118,15 @@ def check_cuda_operands(what: str, **tensors: torch.Tensor) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of the current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def query_launch(fn, *args: int) -> tuple:
+    """Call a library's ``rkt_<lib>_launch_info(*args, long long info[6])``
+    and return ``(grid, threads, dynamic_smem, static_smem)``; the static
+    part is ``cudaFuncGetAttributes().sharedSizeBytes`` of the kernel, so
+    this needs the card. Raises on a CUDA error."""
+    info = (ctypes.c_longlong * 6)()
+    err = fn(*args, info)
+    if err:
+        raise RuntimeError(f"{fn.__name__}: launch-info query failed with cudaError {err}")
+    return (tuple(info[:3]), info[3], info[4], info[5])

@@ -6,7 +6,8 @@ at row ``pos`` of the ``(B, Hkv, T, D)`` caches, then each query head
 attends over cache rows ``< pos`` plus the token's own K/V (the self
 term), grouped-query native, softmax in f32. On CUDA tensors this is the
 hand-written kernel ``csrc/decode_attention.cu``; on CPU tensors its plain
-version. Inference only.
+version; on ``meta`` tensors it records its launch (:func:`attend_launch`)
+and launches nothing. Inference only.
 """
 
 from __future__ import annotations
@@ -17,11 +18,62 @@ import math
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
 
-__all__ = ["decode_attention", "decode_attention_plain", "decode_attention_supported"]
+__all__ = ["decode_attention", "decode_attention_plain", "decode_attention_supported",
+           "attend_launch", "attend_smem_bytes", "decode_attention_launch", "launch_info"]
 
 _NEG_INF = -1e30
+#: Threads per CTA and key rows per online-softmax step of both decode
+#: kernels (``kThreads`` and ``kTile`` in ``csrc/decode_common.cuh``).
+THREADS, KEY_TILE = 128, 64
+
+
+def attend_smem_bytes(g: int, d: int) -> int:
+    """Dynamic shared memory of one decode CTA serving g query rows of
+    width d (``attend_smem_bytes`` in ``csrc/decode_common.cuh``): a tile's
+    row offsets, q and the accumulator in f32, a tile of scores per query
+    row and three statistics per query row."""
+    return 8 * KEY_TILE + 4 * (2 * g * d + g * KEY_TILE + 3 * g)
+
+
+def attend_launch(name: str, grid: tuple, g: int, d: int, dtype, kv_rows: int,
+                  extra_tiles: tuple = ()) -> LaunchFact:
+    """The launch of a decode kernel (both share ``attend_rows``): one CTA
+    per (row, kv head) stages the g query rows of its kv head (the whole
+    (g, D) group) and streams K and V in :data:`KEY_TILE`-row tiles out of
+    a ``kv_rows``-row plane, writing g output rows."""
+    group = tile(g, d, dtype, g, d)
+    kv = tile(KEY_TILE, d, dtype, kv_rows, d)
+    return LaunchFact(name, (*grid, 1), THREADS, attend_smem_bytes(g, d), 0,
+                      (group, kv, kv, group) + tuple(extra_tiles))
+
+
+def decode_attention_launch(b: int, hq: int, h_kv: int, t_max: int, d: int, dtype) -> LaunchFact:
+    """The launch of :func:`decode_attention`: CTA (b, h) also copies the
+    token's new K and V rows into row ``pos`` of its (T, D) cache planes."""
+    new = tile(1, d, dtype, b * h_kv, d)
+    written = tile(1, d, dtype, t_max, d)
+    return attend_launch("decode_attention", (b, h_kv), hq // h_kv, d, dtype, t_max,
+                         (new, new, written, written))
+
+
+def launch_info(b: int, hq: int, h_kv: int, d: int, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
+    built library reports it (needs the card)."""
+    lib = _build.load("decode_attention")
+    fn = lib.rkt_decode_attention_launch_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    return query_launch(fn, b, hq, h_kv, d, DTYPE_CODES[dtype])
 
 
 def decode_attention_supported(head_dim: int) -> bool:
@@ -85,7 +137,7 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch
     ``csrc/decode_attention.cu`` (counted in ``decode_attention.launches``)
-    or raise — there is no fallback."""
+    or raise — there is no fallback; meta tensors record the launch."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos)
     check_cuda_operands(
@@ -109,6 +161,9 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
     if not decode_attention_supported(d):
         raise ValueError(f"decode_attention: head dim {d} must be a multiple of 8 and <= 256")
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        record([decode_attention_launch(b, hq, h_kv, t_max, d, q.dtype)])
+        return out, k_cache, v_cache
     err = _lib()(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), out.data_ptr(), b, hq, h_kv, t_max, d, pos,

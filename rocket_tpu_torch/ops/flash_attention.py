@@ -35,7 +35,8 @@ The reference's mesh seam (``flash_attention_qkv_sharded``,
 
 On CPU tensors every kernel wrapper takes its plain version; on CUDA
 tensors it launches its kernel (counted in ``<wrapper>.launches``) or
-raises.
+raises; on ``meta`` tensors it records its launch (:func:`qkv_launch`) and
+launches nothing.
 """
 
 from __future__ import annotations
@@ -47,11 +48,20 @@ from typing import Optional
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
 
 __all__ = [
     "DEFAULT_BLOCK", "HEAD_DIMS", "TILES", "flash_attention", "flash_attention_qkv",
     "flash_qkv_bwd", "flash_qkv_fwd", "pick_block", "resolve_tuned_blocks", "smem_bytes",
+    "qkv_launch", "launch_info",
 ]
 
 #: Tile sizes the CUDA kernels are compiled for (block_q and block_k each).
@@ -64,6 +74,8 @@ HEAD_DIMS = (32, 64)
 DEFAULT_BLOCK = 128
 #: The reference's entry contract: T a multiple of its smallest block.
 _T_MULTIPLE = 128
+#: Threads per CTA of both kernels (``kThreads`` in ``csrc/flash_attention.cu``).
+THREADS = 256
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
@@ -85,6 +97,23 @@ def smem_bytes(kind: str, block_q: int, block_k: int, d: int) -> int:
     if kind == "fwd":
         return 4 * ((block_q + 2 * block_k) * (d + 1) + block_q * (block_k + 1))
     return 4 * (2 * (block_q + block_k) * (d + 1) + block_k * (block_q + 1) + 2 * block_q)
+
+
+def qkv_launch(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
+               block_k: int) -> LaunchFact:
+    """The launch of the ``"fwd"`` or ``"bwd"`` kernel on the stacked (3, B,
+    H, T, D) operand: one CTA per (q tile forward, k tile backward; head;
+    batch row), every tile a run of rows of one (T, D) head plane, lse and
+    delta ``block_q``-long rows of the (B*H, T) f32 plane; the dynamic
+    shared memory is :func:`smem_bytes`."""
+    q_t, k_t = tile(block_q, d, dtype, t, d), tile(block_k, d, dtype, t, d)
+    stat = tile(1, block_q, torch.float32, b * h, t)
+    if kind == "fwd":
+        grid, tiles = t // block_q, (q_t, k_t, k_t, q_t, stat)
+    else:                      # k, v staged; q, dout streamed; dq partial, dk, dv
+        grid, tiles = t // block_k, (k_t, k_t, q_t, q_t, stat, stat, q_t, k_t, k_t)
+    return LaunchFact(f"flash_qkv_{kind}", (grid, h, b), THREADS,
+                      smem_bytes(kind, block_q, block_k, d), 0, tiles)
 
 
 def _check_causal_blocks(block_q: int, block_k: int, causal: bool, where: str) -> None:
@@ -170,7 +199,17 @@ def _lib():
         lib.rkt_flash_qkv_bwd.argtypes = [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P]
         lib.rkt_flash_qkv_occupancy.restype = _I
         lib.rkt_flash_qkv_occupancy.argtypes = [_I] * 5
+        lib.rkt_flash_qkv_launch_info.restype = _I
+        lib.rkt_flash_qkv_launch_info.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     return lib
+
+
+def launch_info(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
+                block_k: int) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the ``"fwd"`` or
+    ``"bwd"`` launch as the built library reports it (needs the card)."""
+    return query_launch(_lib().rkt_flash_qkv_launch_info, 0 if kind == "fwd" else 1, b, h, t,
+                        d, block_q, block_k, DTYPE_CODES[dtype])
 
 
 def occupancy(kind: str, d: int, block_q: int, block_k: int, dtype: torch.dtype) -> int:
@@ -215,6 +254,9 @@ def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
     _, b, h, t, d = qkv.shape
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=qkv.device)
+    if qkv.device.type == "meta":
+        record([qkv_launch("fwd", b, h, t, d, qkv.dtype, block_q, block_k)])
+        return out, lse
     err = _lib().rkt_flash_qkv_fwd(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t, d, block_q, block_k,
         _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
@@ -238,6 +280,9 @@ def flash_qkv_bwd(qkv, out, lse, dout, delta, causal: bool, block_q: int, block_
     dqp = torch.empty((t // block_k, b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     dk = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     dv = torch.empty_like(dk)
+    if qkv.device.type == "meta":
+        record([qkv_launch("bwd", b, h, t, d, qkv.dtype, block_q, block_k)])
+        return dqp, dk, dv
     err = _lib().rkt_flash_qkv_bwd(
         qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqp.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, t, d, block_q, block_k, 1.0 / math.sqrt(d),

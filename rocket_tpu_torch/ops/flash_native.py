@@ -36,7 +36,9 @@ lookup is not ported either; the kernels use fixed ``TILE`` x ``TILE``
 tiles.
 
 On CPU tensors every wrapper takes its plain version; on CUDA tensors it
-launches its kernel (counted in ``<wrapper>.launches``) or raises.
+launches its kernel (counted in ``<wrapper>.launches``) or raises; on
+``meta`` tensors it records its launch (:func:`flash_launch`) and launches
+nothing.
 """
 
 from __future__ import annotations
@@ -48,15 +50,25 @@ from typing import Optional
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
 
 __all__ = [
     "TILE", "flash_supported", "flash_fused", "flash_bthd",
-    "flash_fwd", "flash_bwd", "flash_dq",
+    "flash_fwd", "flash_bwd", "flash_dq", "flash_launch", "launch_info",
 ]
 
 #: Query and key rows per tile of the CUDA kernels (block_q == block_k).
 TILE = 64
+#: Threads per CTA of the three kernels (``kThreads`` in ``csrc/flash_common.cuh``).
+THREADS = 128
 #: Head dims the CUDA kernels are compiled for: 64 (every model preset)
 #: and 32 (the MoE char-LM example's 128-wide, 4-head model); any T.
 HEAD_DIMS = (32, 64)
@@ -222,6 +234,53 @@ def _fn(name: str):
     return fn
 
 
+#: kernel -> (D-wide row tiles, score tiles, statistic rows) in its dynamic
+#: shared memory (``launch_smem`` of each ``csrc/flash_*.cu``).
+_SMEM_PARTS = {"flash_fwd": (3, 1, 0), "flash_bwd": (4, 2, 2), "flash_dq": (4, 1, 2)}
+
+
+def _smem_bytes(kind: str, d: int) -> int:
+    """``smem_bytes`` of ``csrc/flash_common.cuh``: f32 tiles with a padded
+    row stride D + 1, padded score tiles and statistic rows."""
+    tiles, scores, stats = _SMEM_PARTS[kind]
+    return 4 * (tiles * TILE * (d + 1) + scores * TILE * (TILE + 1) + stats * TILE)
+
+
+def flash_launch(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype, fq: int,
+                 fk: int, with_dq: bool = True) -> LaunchFact:
+    """The launch of ``kind`` ("flash_fwd", "flash_bwd" or "flash_dq") on
+    (B, T, F) operands of feature widths ``fq`` (q) and ``fk`` (k, v). A CTA
+    owns one TILE-row tile (query rows; key rows for the backward) of one
+    head of one batch row: it stages its own tile of each operand it owns
+    and streams TILE-row tiles of the others, every tile the D-wide head
+    slice of a (T, F) plane; lse and delta are TILE-long rows of a (B*H, T)
+    f32 plane."""
+    f32 = torch.float32
+    heads = h_kv if kind == "flash_bwd" else h
+    q_t, kv_t = tile(TILE, d, dtype, t, fq), tile(TILE, d, dtype, t, fk)
+    o_t = tile(TILE, d, dtype, t, h * d)                      # out, dout, dq
+    stat = tile(1, TILE, f32, b * h, t)
+    if kind == "flash_fwd":
+        tiles = (q_t, kv_t, kv_t, o_t, stat)
+    elif kind == "flash_bwd":
+        dkv = tile(TILE, d, dtype, t, h_kv * d)
+        tiles = (kv_t, kv_t, q_t, o_t, stat, stat, dkv, dkv)
+        if with_dq:
+            tiles += (tile(TILE, d, f32, t, h * d),)
+    else:
+        tiles = (q_t, o_t, kv_t, kv_t, stat, stat, o_t)
+    return LaunchFact(kind, (_num_tiles(t), heads, b), THREADS, _smem_bytes(kind, d), 0, tiles)
+
+
+def launch_info(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of ``kind``'s launch
+    as the built library reports it (needs the card)."""
+    fn = getattr(_build.load(kind), f"rkt_{kind}_launch_info")
+    fn.restype = _I
+    fn.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    return query_launch(fn, b, t, h, h_kv, d, DTYPE_CODES[dtype])
+
+
 def _raise_on(err: int, where: str) -> None:
     if err:
         raise RuntimeError(f"{where}: kernel launch failed with cudaError {err}")
@@ -241,9 +300,12 @@ def flash_fwd(q_arr, k_arr, v_arr, h: int, h_kv: int, d: int, offsets, causal: b
     if q_arr.device.type == "cpu":
         return _fwd_plain(q_arr, k_arr, v_arr, h, h_kv, d, offsets, causal)
     _check("flash_fwd", q_arr, k_arr, v_arr, h, h_kv, d, offsets)
-    b, t, _ = q_arr.shape
+    b, t, fq = q_arr.shape
     out = torch.empty((b, t, h * d), dtype=q_arr.dtype, device=q_arr.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_arr.device)
+    if q_arr.device.type == "meta":
+        record([flash_launch("flash_fwd", b, t, h, h_kv, d, q_arr.dtype, fq, k_arr.shape[2])])
+        return out, lse
     err = _fn("flash_fwd")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), out.data_ptr(), lse.data_ptr(),
         *_geometry_args(q_arr, k_arr, h, h_kv, d, offsets),
@@ -276,6 +338,10 @@ def flash_bwd(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, 
            if with_dq else None)
     dk = torch.empty((b, t, h_kv * d), dtype=q_arr.dtype, device=dev)
     dv = torch.empty_like(dk)
+    if dev.type == "meta":
+        record([flash_launch("flash_bwd", b, t, h, h_kv, d, q_arr.dtype, q_arr.shape[2],
+                             k_arr.shape[2], with_dq)])
+        return dqp, dk, dv
     err = _fn("flash_bwd")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dqp.data_ptr() if with_dq else None, dk.data_ptr(), dv.data_ptr(),
@@ -302,6 +368,10 @@ def flash_dq(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, o
         raise ValueError(f"flash_dq: dout {tuple(dout.shape)}, lse {tuple(lse.shape)}, "
                          f"delta {tuple(delta.shape)} for (B, T, H, D) = ({b}, {t}, {h}, {d})")
     dq = torch.empty((b, t, h * d), dtype=q_arr.dtype, device=q_arr.device)
+    if q_arr.device.type == "meta":
+        record([flash_launch("flash_dq", b, t, h, h_kv, d, q_arr.dtype, q_arr.shape[2],
+                             k_arr.shape[2])])
+        return dq
     err = _fn("flash_dq")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), *_geometry_args(q_arr, k_arr, h, h_kv, d, offsets),

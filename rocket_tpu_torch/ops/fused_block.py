@@ -14,8 +14,9 @@ there).
   the reference's (``LayerNorm`` + fused-QKV attention on the plain path).
 * :func:`fused_block` is the kernel wrapper: CPU tensors take
   :func:`fused_block_plain`; CUDA tensors launch ``csrc/fused_block.cu``
-  (counted in ``fused_block.launches``) or raise. Its operands are already
-  in the compute dtype: ``ln`` (2, D) f32, weights and biases in x's dtype.
+  (counted in ``fused_block.launches``) or raise; meta tensors record the
+  launch (:func:`fused_block_launch`). Its operands are already in the
+  compute dtype: ``ln`` (2, D) f32, weights and biases in x's dtype.
 * :func:`block_attn_half` is the differentiable entry point, a
   ``torch.autograd.Function``: its forward casts the layer's f32 masters
   and runs :func:`fused_block`; its backward recomputes through
@@ -43,11 +44,20 @@ import math
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
 
 __all__ = [
     "EPILOGUES", "MAX_T", "MAX_FUSED_HEADS", "block_attn_half", "block_attn_supported",
     "kernel_supported", "fused_block", "fused_block_plain", "reference_block_attn",
+    "fused_block_launch", "launch_info",
 ]
 
 EPILOGUES = ("fused", "separate")
@@ -59,6 +69,9 @@ MAX_T = 320
 #: Most heads of the fused epilogue: one portable thread-block cluster
 #: per batch row (``kMaxClusterHeads``).
 MAX_FUSED_HEADS = 8
+#: Threads per CTA, rows per tile and the reduction depth of one projection
+#: step (``kThreads``, ``kTile`` and ``kChunk`` of the kernel).
+THREADS, ROW_TILE, CHUNK = 128, 64, 32
 
 
 def block_attn_supported(b: int, t: int, d: int, num_heads: int, block_b: int) -> bool:
@@ -120,6 +133,44 @@ def fused_block_plain(x, ln, wqkv, bqkv, wproj, bproj, *, num_heads: int, eps: f
                                 eps=eps, causal=causal, epilogue=epilogue)
 
 
+def _smem_bytes(t: int) -> int:
+    """``block_smem_bytes`` of the kernel: K and V of every row (rounded up
+    to whole tiles), the q tile and the work tile, f32 with row stride 65,
+    and two per-row statistics."""
+    rows = -(-t // ROW_TILE) * ROW_TILE
+    ld = HEAD_DIM + 1
+    return 4 * (2 * rows * ld + 2 * ROW_TILE * ld + 2 * ROW_TILE)
+
+
+def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
+                       epilogue: str = "fused") -> LaunchFact:
+    """The launch of :func:`fused_block`: one CTA per (head, batch row). It
+    reads whole (64, D) row tiles of x for the LayerNorm statistics and
+    (64, 32) chunks of them beside (32, 64) chunks of its head's Wqkv
+    columns for the projections, and writes (64, 64) tiles of its head's
+    output; the fused epilogue then reads (64, 32) chunks of all heads and
+    (32, 64) chunks of Wproj and writes (64, 64) tiles of the output."""
+    hw = num_heads * HEAD_DIM
+    tiles = (
+        tile(ROW_TILE, d, dtype, t, d), tile(ROW_TILE, CHUNK, dtype, t, d),
+        tile(2, CHUNK, torch.float32, 2, d), tile(CHUNK, HEAD_DIM, dtype, d, 3 * hw),
+        tile(1, HEAD_DIM, dtype, 1, 3 * hw), tile(ROW_TILE, HEAD_DIM, dtype, t, hw),
+    )
+    if epilogue == "fused":
+        tiles += (tile(ROW_TILE, CHUNK, dtype, t, hw), tile(CHUNK, HEAD_DIM, dtype, hw, d),
+                  tile(1, HEAD_DIM, dtype, 1, d), tile(ROW_TILE, HEAD_DIM, dtype, t, d))
+    return LaunchFact("fused_block", (num_heads, b, 1), THREADS, _smem_bytes(t), 0, tiles)
+
+
+def launch_info(b: int, t: int, num_heads: int, epilogue: str, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
+    built library reports it (needs the card)."""
+    fn = _build.load("fused_block").rkt_fused_block_launch_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    return query_launch(fn, b, t, num_heads, int(epilogue == "fused"), DTYPE_CODES[dtype])
+
+
 def _lib():
     lib = _build.load("fused_block")
     fn = lib.rkt_fused_block
@@ -144,7 +195,7 @@ def fused_block(x, ln, wqkv, bqkv, wproj, bproj, *, num_heads: int, eps: float =
     ``wqkv`` (D, 3*H*64), ``bqkv`` (3*H*64,), ``wproj`` (H*64, D), ``bproj``
     (D,), all but ``ln`` in x's dtype -> (B, T, D) fused or (B, T, H*64)
     separate. CPU tensors: :func:`fused_block_plain`; CUDA tensors:
-    ``csrc/fused_block.cu`` or raise."""
+    ``csrc/fused_block.cu`` or raise; meta tensors record the launch."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"fused_block: unknown epilogue {epilogue!r}")
     if x.device.type == "cpu":
@@ -171,6 +222,9 @@ def fused_block(x, ln, wqkv, bqkv, wproj, bproj, *, num_heads: int, eps: float =
     fused = epilogue == "fused"
     heads = torch.empty((b, t, hw), dtype=x.dtype, device=x.device)
     out = torch.empty((b, t, d), dtype=x.dtype, device=x.device) if fused else heads
+    if x.device.type == "meta":
+        record([fused_block_launch(b, t, d, num_heads, x.dtype, epilogue)])
+        return out
     err = _lib()(
         x.data_ptr(), ln.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
         bproj.data_ptr(), heads.data_ptr(), out.data_ptr(), b, t, d, num_heads, eps,

@@ -15,7 +15,8 @@ schedules, the reference's:
 Each kernel wrapper takes its plain version for CPU tensors (the
 counterpart of the reference's interpret mode) and, for CUDA tensors,
 launches the kernel or raises; each counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. On ``meta`` tensors a wrapper records its launches
+(:func:`bn_launches`) and launches nothing.
 
 :func:`fused_bn_act` is the differentiable entry point, a
 ``torch.autograd.Function``: the forward is the kernel, the backward the
@@ -42,12 +43,21 @@ import ctypes
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
 
 __all__ = [
     "SCHEDULES", "MAX_C", "BnAct", "fused_bn_act", "fused_bn_act_supported",
     "kernel_supported", "reference_bn_act", "moments", "epilogue_rows", "bn_backward",
-    "bn_twopass", "bn_twopass_plain", "bn_normalize", "bn_normalize_plain",
+    "bn_twopass", "bn_twopass_plain", "bn_normalize", "bn_normalize_plain", "bn_launches",
+    "launch_info",
 ]
 
 #: Sublane minimum per itemsize — the reference's ``_SUBLANE``.
@@ -147,13 +157,76 @@ def _lib():
     return lib
 
 
+def _sms(x2: torch.Tensor) -> int:
+    """The SMs of ``x2``'s card; for a meta tensor, of the card being priced
+    (``tune.priced_device_kind``), else of the local one."""
+    if x2.device.type != "meta":
+        return torch.cuda.get_device_properties(x2.device).multi_processor_count
+    from rocket_tpu_torch.tune import device_kind
+    from rocket_tpu_torch.utils.perf import device_spec
+
+    spec = device_spec(device_kind())
+    if spec is None:
+        raise ValueError(f"fused_conv: no SM count for device {device_kind()!r} to size the "
+                         "normalise grid of a meta launch; trace under "
+                         "tune.priced_device_kind(<card name>)")
+    return spec.sms
+
+
 def _grids(x2: torch.Tensor) -> tuple:
     """(moments CTAs, normalise CTAs) for ``x2`` (N, C) on its card."""
     n, c = x2.shape
     moments_ctas = max(1, min(MOMENT_CTAS, -(-n // MOMENT_MIN_ROWS)))
     vectors = n * c * x2.element_size() // 16
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    return moments_ctas, max(1, min(sms * NORM_CTAS_PER_SM, -(-vectors // THREADS)))
+    return moments_ctas, max(1, min(_sms(x2) * NORM_CTAS_PER_SM, -(-vectors // THREADS)))
+
+
+#: Static shared memory of the moments and normalise passes: f32 rows of
+#: MAX_C channels (``red[2][kMaxC]``, ``row[3][kMaxC]``).
+_STATIC_SMEM = {"bn_moments": 2 * 4 * MAX_C, "bn_finalize": 0, "bn_normalize": 3 * 4 * MAX_C}
+
+
+def bn_launches(kind: str, n: int, c: int, dtype, grid: int, norm_grid: int) -> list:
+    """The launches of ``kind`` (``"twopass"``: moments, finalize and
+    normalise; ``"normalize"``: the last alone) on ``x2`` (N, C) with
+    ``grid`` moments CTAs and ``norm_grid`` normalise CTAs. A moments CTA
+    splits each row of x among up to THREADS lanes, 16 bytes a lane, and
+    streams as many rows per step as its THREADS threads cover, then writes
+    a (2, C) partial; the finalize pass reads each channel's column of the
+    partials; the normalise pass stages mi and streams x and y 16 bytes a
+    thread."""
+    f32 = torch.float32
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    lanes = min(c // vec, THREADS)
+    step = THREADS * vec
+    x_norm = tile(max(1, step // c), min(c, step), dtype, n, c)
+    normalize = LaunchFact("bn_normalize", (norm_grid, 1, 1), THREADS, 0,
+                           _STATIC_SMEM["bn_normalize"], (tile(4, c, f32, 4, c), x_norm, x_norm))
+    if kind == "normalize":
+        return [normalize]
+    x_mom = tile(THREADS // lanes, c, dtype, n, c)
+    cols = min(c, THREADS)
+    return [
+        LaunchFact("bn_moments", (grid, 1, 1), THREADS, 0, _STATIC_SMEM["bn_moments"],
+                   (x_mom, tile(2, c, f32, 2, c))),
+        LaunchFact("bn_finalize", (-(-c // THREADS), 1, 1), THREADS, 0, 0,
+                   (tile(2 * grid, cols, f32, 2 * grid, c), tile(2, cols, f32, 2, c),
+                    tile(cols, 2, f32, c, 2), tile(4, cols, f32, 4, c))),
+        normalize,
+    ]
+
+
+_WHICH = {"bn_moments": 0, "bn_finalize": 1, "bn_normalize": 2}
+
+
+def launch_info(name: str, c: int, grid: int, act: bool, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of one pass (``name``
+    a :func:`bn_launches` fact name; ``grid`` its CTAs for the moments and
+    normalise passes) as the built library reports it (needs the card)."""
+    fn = _lib().rkt_bn_launch_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    return query_launch(fn, _WHICH[name], c, grid, int(act), DTYPE_CODES[dtype])
 
 
 def _check(what: str, x2: torch.Tensor, **f32) -> None:
@@ -165,7 +238,7 @@ def _check(what: str, x2: torch.Tensor, **f32) -> None:
     for name, t in f32.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
-    if x2.data_ptr() % 16:
+    if x2.device.type == "cuda" and x2.data_ptr() % 16:
         raise ValueError(f"{what}: x2 must start on a 16-byte boundary (the kernels load 16 "
                          "bytes at a time)")
 
@@ -173,7 +246,8 @@ def _check(what: str, x2: torch.Tensor, **f32) -> None:
 def bn_twopass(x2, sc, *, eps: float, act: bool):
     """Row 9: ``x2`` (N, C), ``sc`` (2, C) f32 [scale, bias] -> (y (N, C) in
     x's dtype, stats (C, 2) f32). CPU tensors: :func:`bn_twopass_plain`;
-    CUDA tensors: ``rkt_bn_twopass`` or raise."""
+    CUDA tensors: ``rkt_bn_twopass`` or raise; meta tensors record the
+    three launches."""
     if x2.device.type == "cpu":
         return bn_twopass_plain(x2, sc, eps=eps, act=act)
     _check("bn_twopass", x2, sc=sc)
@@ -185,6 +259,9 @@ def bn_twopass(x2, sc, *, eps: float, act: bool):
     stats = torch.empty((c, 2), dtype=torch.float32, device=x2.device)
     mi = torch.empty((4, c), dtype=torch.float32, device=x2.device)
     partial = torch.empty((grid, 2, c), dtype=torch.float32, device=x2.device)
+    if x2.device.type == "meta":
+        record(bn_launches("twopass", n, c, x2.dtype, grid, norm_grid))
+        return y, stats
     err = _lib().rkt_bn_twopass(x2.data_ptr(), sc.data_ptr(), y.data_ptr(), stats.data_ptr(),
                                 mi.data_ptr(), partial.data_ptr(), n, c, grid, norm_grid,
                                 float(eps), int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
@@ -200,7 +277,8 @@ bn_twopass.launches = 0
 def bn_normalize(x2, mi, *, act: bool):
     """Row 10: ``x2`` (N, C), ``mi`` (4, C) f32 [mean, inv, inv*scale,
     bias] -> y (N, C) in x's dtype. CPU tensors: :func:`bn_normalize_plain`;
-    CUDA tensors: ``rkt_bn_normalize`` or raise."""
+    CUDA tensors: ``rkt_bn_normalize`` or raise; meta tensors record the
+    launch."""
     if x2.device.type == "cpu":
         return bn_normalize_plain(x2, mi, act=act)
     _check("bn_normalize", x2, mi=mi)
@@ -208,8 +286,12 @@ def bn_normalize(x2, mi, *, act: bool):
     if mi.shape != (4, c):
         raise ValueError(f"bn_normalize: mi must be (4, {c}), got {tuple(mi.shape)}")
     y = torch.empty_like(x2)
+    grid, norm_grid = _grids(x2)
+    if x2.device.type == "meta":
+        record(bn_launches("normalize", n, c, x2.dtype, grid, norm_grid))
+        return y
     err = _lib().rkt_bn_normalize(x2.data_ptr(), mi.data_ptr(), y.data_ptr(), n, c,
-                                  _grids(x2)[1], int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
+                                  norm_grid, int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
     if err:
         raise RuntimeError(f"bn_normalize: kernel launch failed with cudaError {err}")
     bn_normalize.launches += 1

@@ -38,12 +38,12 @@ import ctypes
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, stream_of
-from rocket_tpu_torch.ops.grouped_matmul import check_grouped, gmm, tgmm
+from rocket_tpu_torch.ops._launch import DTYPE_CODES, query_launch, record, stream_of
+from rocket_tpu_torch.ops.grouped_matmul import check_grouped, gmm, gmm_launch, tgmm
 
 __all__ = [
     "gather_gmm", "gather_gmm_supported", "padded_group_layout", "expert_per_tile",
-    "gather_gmm_fwd", "gather_gmm_reference", "GatherGmm",
+    "gather_gmm_fwd", "gather_gmm_reference", "GatherGmm", "launch_info",
 ]
 
 
@@ -120,7 +120,17 @@ def _lib():
         lib.rkt_gather_gmm.restype = ctypes.c_int
         lib.rkt_gather_gmm.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.rkt_gather_gmm_launch_info.restype = ctypes.c_int
+        lib.rkt_gather_gmm_launch_info.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong)]
     return lib
+
+
+def launch_info(m: int, n: int, e: int, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
+    built library reports it (needs the card); the declaration is
+    ``grouped_matmul.gmm_launch(..., name="gather_gmm")``."""
+    return query_launch(_lib().rkt_gather_gmm_launch_info, m, n, e, DTYPE_CODES[dtype])
 
 
 def gather_gmm_fwd(x, rhs, row_ids, group_sizes, tile_m: int):
@@ -128,7 +138,7 @@ def gather_gmm_fwd(x, rhs, row_ids, group_sizes, tile_m: int):
     (M,) int32, ``group_sizes`` (E,) int32 -> (M, N_out) in x's dtype.
     CPU tensors: :func:`gather_gmm_reference`; CUDA tensors:
     ``rkt_gather_gmm`` or raise (a row id outside ``[0, N)`` reads as a zero
-    row there)."""
+    row there); meta tensors record the launch."""
     if x.device.type == "cpu":
         return gather_gmm_reference(x, rhs, row_ids, group_sizes, tile_m)
     e, k, n_out = rhs.shape
@@ -143,6 +153,9 @@ def gather_gmm_fwd(x, rhs, row_ids, group_sizes, tile_m: int):
         raise ValueError(f"gather_gmm: the kernel takes K and N multiples of 8, got K={k} "
                          f"N={n_out}")
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        record([gmm_launch(m, k, n_out, e, x.dtype, name="gather_gmm", src_rows=x.shape[0])])
+        return out
     err = _lib().rkt_gather_gmm(x.data_ptr(), x.shape[0], row_ids.data_ptr(), rhs.data_ptr(),
                                 group_sizes.data_ptr(), out.data_ptr(), m, k, n_out, e,
                                 DTYPE_CODES[x.dtype], stream_of(x))

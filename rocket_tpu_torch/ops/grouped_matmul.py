@@ -17,7 +17,8 @@ semantics) — and each group multiplies its own ``rhs[g]``.
 * :func:`gmm` and :func:`tgmm` are the kernel wrappers
   (``csrc/grouped_gemm.cu``): CPU tensors take their plain versions
   :func:`gmm_reference` / :func:`tgmm_reference`, CUDA tensors launch the
-  kernel or raise; each counts its launches in ``<wrapper>.launches``.
+  kernel or raise; each counts its launches in ``<wrapper>.launches``;
+  meta tensors record the launch (:func:`gmm_launch`, :func:`tgmm_launch`).
 
 All accumulate in f32 and return the operand dtype. The group sizes stay
 on the device: the kernels read them there, so the hot path never
@@ -32,12 +33,87 @@ import ctypes
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
 
 __all__ = [
     "grouped_matmul", "grouped_matmul_supported", "grouped_matmul_plain", "GroupedMatmul",
-    "gmm", "tgmm", "gmm_reference", "tgmm_reference", "group_bounds",
+    "gmm", "tgmm", "gmm_reference", "tgmm_reference", "group_bounds", "gmm_launch",
+    "tgmm_launch", "launch_info",
 ]
+
+#: Threads per CTA and the output tile of the grouped kernels (``kThreads``,
+#: ``kBM`` x ``kBN`` in ``csrc/grouped_gemm.cuh``), and the reduction slice
+#: each stage loads: ``kTcBK`` on the bf16 tensor-core path, ``kBK`` on the
+#: f32 path.
+THREADS, BLOCK_M, BLOCK_N = 256, 128, 128
+SLICE = {torch.bfloat16: 32, torch.float32: 16}
+#: Padding of a bf16 shared-memory row (``kTcPad``).
+_TC_PAD = 8
+
+
+def _static_smem(kind: str, dtype, transpose: bool = False) -> int:
+    """The kernels' static shared memory: their operand tiles (two stages of
+    bf16 rows padded by ``kTcPad``, or one f32 slice) and the row-pointer
+    arrays of gmm (A rows; B rows on the f32 path) and tgmm (two stages of
+    A and B rows on the f32 path)."""
+    bk = SLICE[dtype]
+    if dtype == torch.bfloat16:
+        a = 2 * BLOCK_M * (bk + _TC_PAD) * 2
+        if kind == "tgmm":
+            return 2 * (2 * bk * (BLOCK_M + _TC_PAD) * 2)
+        b = 2 * (BLOCK_N * (bk + _TC_PAD) if transpose else bk * (BLOCK_N + _TC_PAD)) * 2
+        return a + b + 8 * BLOCK_M
+    tiles = 4 * bk * (BLOCK_M + BLOCK_N)
+    if kind == "tgmm":
+        return tiles + 8 * 4 * bk
+    return tiles + 8 * (BLOCK_M + (BLOCK_N if transpose else bk))
+
+
+def gmm_launch(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = False,
+               name: str = "gmm", src_rows: int = 0) -> LaunchFact:
+    """The launch of :func:`gmm` (or, with ``name="gather_gmm"`` and the
+    source's ``src_rows``, of the gather-GMM): one CTA per (work tile of at
+    most BLOCK_M rows of one group, BLOCK_N columns), over the static
+    ``work_tiles`` grid. It reads the E group sizes and loads SLICE-deep
+    slices of its A rows and of the group's B block, and writes its output
+    tile."""
+    bk = SLICE[dtype]
+    a = tile(BLOCK_M, bk, dtype, src_rows or m, k)
+    b = tile(BLOCK_N, bk, dtype, n, k) if transpose_rhs else tile(bk, BLOCK_N, dtype, k, n)
+    tiles = (tile(1, e, torch.int32, 1, e), a, b, tile(BLOCK_M, BLOCK_N, dtype, m, n))
+    if name == "gather_gmm":
+        tiles += (tile(1, BLOCK_M, torch.int32, 1, m),)
+    grid = (m // BLOCK_M + e + 1, -(-n // BLOCK_N), 1)
+    return LaunchFact(name, grid, THREADS, 0, _static_smem("gmm", dtype, transpose_rhs), tiles)
+
+
+def tgmm_launch(m: int, k: int, n: int, e: int, dtype) -> LaunchFact:
+    """The launch of :func:`tgmm`: one CTA per (BLOCK_M of K, BLOCK_N of N,
+    group); it walks its group's rows in SLICE-row slices of lhs and dy and
+    writes its (BLOCK_M, BLOCK_N) tile of the group's output."""
+    bk = SLICE[dtype]
+    tiles = (tile(1, e, torch.int32, 1, e), tile(bk, BLOCK_M, dtype, m, k),
+             tile(bk, BLOCK_N, dtype, m, n), tile(BLOCK_M, BLOCK_N, dtype, k, n))
+    grid = (-(-k // BLOCK_M), -(-n // BLOCK_N), e)
+    return LaunchFact("tgmm", grid, THREADS, 0, _static_smem("tgmm", dtype), tiles)
+
+
+def launch_info(kind: str, m: int, k: int, n: int, e: int, dtype,
+                transpose_rhs: bool = False) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the ``"gmm"`` or
+    ``"tgmm"`` launch as the built library reports it (needs the card)."""
+    lib = _lib()
+    if kind == "tgmm":
+        return query_launch(lib.rkt_tgmm_launch_info, k, n, e, DTYPE_CODES[dtype])
+    return query_launch(lib.rkt_gmm_launch_info, m, n, e, int(transpose_rhs), DTYPE_CODES[dtype])
 
 
 def grouped_matmul_supported(m: int, k: int, n: int) -> bool:
@@ -114,6 +190,11 @@ def _lib():
         lib.rkt_gmm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.rkt_tgmm.restype = ctypes.c_int
         lib.rkt_tgmm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        info = ctypes.POINTER(ctypes.c_longlong)
+        lib.rkt_gmm_launch_info.restype = ctypes.c_int
+        lib.rkt_gmm_launch_info.argtypes = [ctypes.c_int] * 5 + [info]
+        lib.rkt_tgmm_launch_info.restype = ctypes.c_int
+        lib.rkt_tgmm_launch_info.argtypes = [ctypes.c_int] * 4 + [info]
     return lib
 
 
@@ -130,7 +211,7 @@ def check_grouped(what: str, group_sizes: torch.Tensor, num_groups: int, **tenso
         raise ValueError(f"{what}: group_sizes must be int32 of shape ({num_groups},), got "
                          f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
     for name, t in tensors.items():
-        if t.data_ptr() % 16:
+        if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
 
 
@@ -142,7 +223,8 @@ def _check_widths(what: str, k: int, n: int) -> None:
 def gmm(lhs, rhs, group_sizes, transpose_rhs: bool = False):
     """``lhs`` (M, K) grouped by ``group_sizes`` times ``rhs`` (E, K, N) —
     or (E, N, K) read transposed — -> (M, N) in ``lhs.dtype``. CPU tensors:
-    :func:`gmm_reference`; CUDA tensors: ``rkt_gmm`` or raise."""
+    :func:`gmm_reference`; CUDA tensors: ``rkt_gmm`` or raise; meta tensors
+    record the launch."""
     if lhs.device.type == "cpu":
         return gmm_reference(lhs, rhs, group_sizes, transpose_rhs)
     if lhs.dim() != 2 or rhs.dim() != 3:
@@ -159,6 +241,9 @@ def gmm(lhs, rhs, group_sizes, transpose_rhs: bool = False):
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0:
         return out
+    if lhs.device.type == "meta":
+        record([gmm_launch(m, k, n, e, lhs.dtype, transpose_rhs)])
+        return out
     err = _lib().rkt_gmm(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
                          m, k, n, e, int(transpose_rhs), DTYPE_CODES[lhs.dtype], stream_of(lhs))
     if err:
@@ -173,7 +258,8 @@ gmm.launches = 0
 def tgmm(lhs, dy, group_sizes):
     """``out[g] = lhs_g.T @ dy_g`` for ``lhs`` (M, K), ``dy`` (M, N) ->
     (E, K, N) in ``lhs.dtype``, zeros for an empty group. CPU tensors:
-    :func:`tgmm_reference`; CUDA tensors: ``rkt_tgmm`` or raise."""
+    :func:`tgmm_reference`; CUDA tensors: ``rkt_tgmm`` or raise; meta
+    tensors record the launch."""
     if lhs.device.type == "cpu":
         return tgmm_reference(lhs, dy, group_sizes)
     if lhs.dim() != 2 or dy.dim() != 2 or lhs.shape[0] != dy.shape[0]:
@@ -185,6 +271,9 @@ def tgmm(lhs, dy, group_sizes):
     check_grouped("tgmm", group_sizes, e, lhs=lhs, dy=dy)
     _check_widths("tgmm", k, n)
     out = torch.empty((e, k, n), dtype=lhs.dtype, device=lhs.device)
+    if lhs.device.type == "meta":
+        record([tgmm_launch(m, k, n, e, lhs.dtype)])
+        return out
     err = _lib().rkt_tgmm(lhs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
                           m, k, n, e, DTYPE_CODES[lhs.dtype], stream_of(lhs))
     if err:
@@ -223,10 +312,11 @@ def grouped_matmul(lhs, rhs, group_sizes):
     per-group ``rhs[g]`` (E, K, N) -> (M, N) in ``lhs.dtype`` with f32
     accumulation. A CUDA tensor that passes the reference's gate
     (:func:`grouped_matmul_supported`) goes through the kernels (or
-    raises); everything else takes the reference's non-kernel branch."""
+    raises; meta tensors record the launches); everything else takes the
+    reference's non-kernel branch."""
     m, k = lhs.shape
     n = rhs.shape[2]
-    if lhs.is_cuda and grouped_matmul_supported(m, k, n):
+    if lhs.device.type in ("cuda", "meta") and grouped_matmul_supported(m, k, n):
         return GroupedMatmul.apply(lhs.contiguous(), rhs.contiguous(),
                                    group_sizes.to(torch.int32).contiguous())
     return grouped_matmul_plain(lhs, rhs, group_sizes)

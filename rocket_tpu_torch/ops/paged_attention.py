@@ -31,7 +31,16 @@ from typing import Optional
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, check_cuda_operands, stream_of
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    check_cuda_operands,
+    query_launch,
+    record,
+    stream_of,
+    tile,
+)
+from rocket_tpu_torch.ops.decode_attention import attend_launch
 
 __all__ = [
     "write_kv_pages",
@@ -39,6 +48,8 @@ __all__ = [
     "attend_plain",
     "paged_decode",
     "paged_decode_plain",
+    "paged_decode_launch",
+    "launch_info",
     "paged_attention",
 ]
 
@@ -114,6 +125,25 @@ def _lib():
     return fn
 
 
+def paged_decode_launch(s: int, hq: int, h_kv: int, d: int, nb: int, bl: int, mb: int,
+                        dtype) -> LaunchFact:
+    """The launch of :func:`paged_decode`: CTA (slot, kv head) reads its
+    slot's block-table row and streams the key rows it maps, a row of the
+    (NB*BL*Hkv, D) pool each."""
+    table_row = tile(1, mb, torch.int32, s, mb)
+    return attend_launch("paged_decode", (s, h_kv), hq // h_kv, d, dtype, nb * bl * h_kv,
+                         (table_row,))
+
+
+def launch_info(s: int, hq: int, h_kv: int, d: int, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
+    built library reports it (needs the card)."""
+    fn = _build.load("paged_decode").rkt_paged_decode_launch_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    return query_launch(fn, s, hq, h_kv, d, DTYPE_CODES[dtype])
+
+
 def paged_decode(q, k_pages, v_pages, block_table, positions):
     """C = 1 paged decode attention: ``q`` ``(S, Hq, D)`` for slot ``s`` at
     position ``positions[s]`` over its pool pages (new rows already
@@ -121,7 +151,7 @@ def paged_decode(q, k_pages, v_pages, block_table, positions):
 
     CPU tensors take :func:`paged_decode_plain`; CUDA tensors launch
     ``csrc/paged_decode.cu`` (counted in ``paged_decode.launches``) or
-    raise — there is no fallback."""
+    raise — there is no fallback; meta tensors record the launch."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_table, positions)
     check_cuda_operands(
@@ -151,6 +181,9 @@ def paged_decode(q, k_pages, v_pages, block_table, positions):
     if d % 8 or d > 256:
         raise ValueError(f"paged_decode: head dim {d} must be a multiple of 8 and <= 256")
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        record([paged_decode_launch(s, hq, h_kv, d, nb, bl, mb, q.dtype)])
+        return out
     err = _lib()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
         positions.data_ptr(), out.data_ptr(), s, hq, h_kv, d, nb, bl, mb,

@@ -17,6 +17,7 @@ of ``rocket_tpu/tune``).
 from rocket_tpu_torch.tune.space import TUNE_SPACES, TuneSpace, canonical_dtype
 from rocket_tpu_torch.tune.table import (
     CONFIGS_DIR,
+    device_kind,
     get_config,
     load_table,
     load_tables,
@@ -32,7 +33,8 @@ from rocket_tpu_torch.tune.table import (
 )
 
 __all__ = [
-    "TUNE_SPACES", "TuneSpace", "canonical_dtype", "CONFIGS_DIR", "get_config", "load_table",
-    "load_tables", "lookup_log", "lookup_log_summary", "priced_device_kind", "reset_lookup_log",
-    "reset_table_cache", "tables_summary", "tuning_disabled", "validate_tables", "write_table",
+    "TUNE_SPACES", "TuneSpace", "canonical_dtype", "CONFIGS_DIR", "device_kind", "get_config",
+    "load_table", "load_tables", "lookup_log", "lookup_log_summary", "priced_device_kind",
+    "reset_lookup_log", "reset_table_cache", "tables_summary", "tuning_disabled",
+    "validate_tables", "write_table",
 ]

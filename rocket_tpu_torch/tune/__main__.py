@@ -92,7 +92,7 @@ def main(argv=None) -> int:
         print("tune: --update-table refused on the CPU (no real timings)", file=sys.stderr)
         return 2
 
-    reports = run_cases(names=args.case, kernels=args.kernel,
+    reports = run_cases(names=args.case, kernels=args.kernel, device="cpu" if on_cpu else "cuda",
                         iters=1 if on_cpu else max(1, args.iters),
                         min_speedup=args.min_speedup, smoke_only=on_cpu,
                         log=lambda s: print(f"tune: {s}", file=sys.stderr))

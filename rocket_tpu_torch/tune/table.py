@@ -171,6 +171,13 @@ def _resolve_kind(device_kind: Optional[str]) -> str:
     return _local_kind()
 
 
+def device_kind() -> str:
+    """The device name lookups resolve against: the kind being priced inside
+    :func:`priced_device_kind`, else the local card's (``"cpu"`` without
+    one)."""
+    return _resolve_kind(None)
+
+
 def _log(record: dict) -> None:
     with _lock:
         if len(_lookup_log) < _LOOKUP_LOG_MAX:

@@ -66,8 +66,8 @@ _PARITY_TOL = {
 
 @dataclass(frozen=True)
 class TuneCase:
-    """One kernel at one representative shape. ``build()`` makes the
-    operands (numpy-seeded, on the card, or on the CPU without one) and
+    """One kernel at one representative shape. ``build(device)`` makes the
+    operands (numpy-seeded) on ``device`` (``"cuda"`` or ``"cpu"``) and
     returns ``run(config) -> outputs``, which runs the kernel under the
     explicit ``config``; the outputs (a tensor or nested tuples of them)
     are both the parity surface and the timing payload."""
@@ -76,7 +76,7 @@ class TuneCase:
     kernel: str
     shape: Mapping
     dtype: str
-    build: Callable[[], Callable[[Optional[dict]], object]]
+    build: Callable[[str], Callable[[Optional[dict]], object]]
     #: small enough to run through the plain versions on the CPU
     smoke: bool = False
 
@@ -112,17 +112,17 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _sync() -> None:
-    if torch.cuda.is_available():
+def _sync(device: str) -> None:
+    if device == "cuda":
         torch.cuda.synchronize()
 
 
-def _time_run(fn, iters: int) -> float:
+def _time_run(fn, iters: int, device: str) -> float:
     """Mean microseconds per call after two warm-up calls: CUDA events
     around ``iters`` calls on the card, the host clock on the CPU."""
     fn()
     fn()
-    if not torch.cuda.is_available():
+    if device != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -163,26 +163,40 @@ def check_parity(reference, candidate, dtype: str,
     return worst <= 1.0, worst
 
 
-def sweep_case(case: TuneCase, *, iters: int = 20, min_speedup: float = 1.02,
+def _check_device(device: str, where: str) -> str:
+    """``device`` as given, when it is ``"cuda"`` with a card present or an
+    explicit ``"cpu"``; raise otherwise (no silent fall back to the CPU,
+    whose timings are no card's)."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"{where}: device must be 'cuda' or 'cpu', got {device!r}")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{where}: device='cuda' but no CUDA device is present; pass "
+                           "device='cpu' to run the plain versions explicitly")
+    return device
+
+
+def sweep_case(case: TuneCase, *, device: str, iters: int = 20, min_speedup: float = 1.02,
                device_kind: Optional[str] = None,
                log: Callable[[str], None] = lambda s: None) -> CaseReport:
-    """The whole search for one case on the local device, table-blind
-    (:func:`tuning_disabled`): the baseline is the TuneSpace default passed
-    explicitly, and no run resolves anything through an existing entry."""
+    """The whole search for one case on ``device`` (``"cuda"``, or ``"cpu"``
+    named explicitly), table-blind (:func:`tuning_disabled`): the baseline is
+    the TuneSpace default passed explicitly, and no run resolves anything
+    through an existing entry."""
+    _check_device(device, "sweep_case")
     kind = device_kind or _local_kind()
     report = CaseReport(case=case, device_kind=kind)
     with tuning_disabled():
         return _sweep_blind(case, TUNE_SPACES[case.kernel], device_spec(kind), report,
-                            iters=iters, min_speedup=min_speedup, log=log)
+                            device=device, iters=iters, min_speedup=min_speedup, log=log)
 
 
-def _sweep_blind(case, space, spec, report, *, iters, min_speedup, log):
-    run = case.build()
+def _sweep_blind(case, space, spec, report, *, device, iters, min_speedup, log):
+    run = case.build(device)
     default = space.default(case.shape)
     report.default_config = default
     reference = run(default)
-    _sync()
-    report.default_us = _time_run(lambda: run(default), iters)
+    _sync(device)
+    report.default_us = _time_run(lambda: run(default), iters, device)
     log(f"{case.name}: default {default} -> {report.default_us:.1f} us")
 
     best: Optional[CandidateResult] = None
@@ -193,14 +207,14 @@ def _sweep_blind(case, space, spec, report, *, iters, min_speedup, log):
         report.results.append(result)
         try:
             out = run(config)
-            _sync()
+            _sync(device)
             result.parity_ok, result.max_err = check_parity(
                 reference, out, case.dtype, tol=space.parity_tol.get(case.dtype))
             del out
             if not result.parity_ok:
                 log(f"{case.name}: {config} REJECTED (parity err={result.max_err:.3g})")
                 continue
-            result.mean_us = _time_run(lambda: run(config), iters)
+            result.mean_us = _time_run(lambda: run(config), iters, device)
             log(f"{case.name}: {config} -> {result.mean_us:.1f} us")
         except Exception as exc:  # noqa: BLE001 — a candidate that fails to run
             # is not a winner; the sweep goes on.
@@ -271,13 +285,9 @@ def update_tables(reports, configs_dir: Optional[str] = None) -> list:
 # from numpy seeds: parity is candidate vs default on the SAME operands.
 
 
-def _device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
-def _normal(rng, shape, scale, dtype):
+def _normal(rng, shape, scale, dtype, device):
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
-    return x.to(device=_device(), dtype=getattr(torch, dtype))
+    return x.to(device=device, dtype=getattr(torch, dtype))
 
 
 def _flash_case(name, kernel, b, t, h, d, dtype, smoke=False):
@@ -286,11 +296,11 @@ def _flash_case(name, kernel, b, t, h, d, dtype, smoke=False):
     forward at the default's), as the reference's cases."""
     shape = {"t": t, "d": d, "h": h, "h_kv": h, "causal": True}
 
-    def build():
+    def build(device):
         from rocket_tpu_torch.ops.flash_attention import flash_attention_qkv
 
         qkv = _normal(np.random.default_rng(0 if kernel == "flash_fwd" else 1),
-                      (3, b, h, t, d), 0.2, dtype)
+                      (3, b, h, t, d), 0.2, dtype, device)
 
         def run(config):
             if kernel == "flash_fwd":
@@ -312,20 +322,20 @@ def _paged_case(name, s, mb, bl, hkv, hq, d, dtype, smoke=False):
     'pallas' (the CUDA kernel) vs 'xla' (the gather path)."""
     shape = {"s": s, "mb": mb, "bl": bl, "hkv": hkv, "hq": hq, "d": d}
 
-    def build():
+    def build(device):
         from rocket_tpu_torch.ops.paged_attention import paged_attention
 
         rng = np.random.default_rng(5)
         nb = 1 + s * mb
-        q = _normal(rng, (s, 1, hq, d), 0.2, dtype)
-        k_new = _normal(rng, (s, 1, hkv, d), 0.2, dtype)
-        k_pages = _normal(rng, (nb, bl, hkv, d), 0.2, dtype)
+        q = _normal(rng, (s, 1, hq, d), 0.2, dtype, device)
+        k_new = _normal(rng, (s, 1, hkv, d), 0.2, dtype, device)
+        k_pages = _normal(rng, (nb, bl, hkv, d), 0.2, dtype, device)
         v_new, v_pages = k_new * 0.5, k_pages * 0.5
         table = torch.from_numpy(1 + np.arange(s * mb, dtype=np.int32).reshape(s, mb))
         positions = torch.tensor([(mb * bl) // 2 + i * (bl // 2) for i in range(s)],
                                  dtype=torch.int32)
         valid = torch.ones((s,), dtype=torch.int32)
-        table, positions, valid = (x.to(_device()) for x in (table, positions, valid))
+        table, positions, valid = (x.to(device) for x in (table, positions, valid))
 
         def run(config):
             # Writing the same rows at the same positions again leaves the
@@ -348,16 +358,16 @@ def _gmm_case(name, m, k, n, e, dtype, routed=True):
     tile multiple for every candidate."""
     shape = {"m": m, "k": k, "n": n}
 
-    def build():
+    def build(device):
         from rocket_tpu_torch.ops.gather_gmm import gather_gmm
         from rocket_tpu_torch.ops.grouped_matmul import grouped_matmul
 
         rng = np.random.default_rng(3)
-        x = _normal(rng, (m, k), 0.1, dtype)
-        rhs = _normal(rng, (e, k, n), 0.1, dtype)
-        sizes = torch.full((e,), m // e, dtype=torch.int32, device=_device())
+        x = _normal(rng, (m, k), 0.1, dtype, device)
+        rhs = _normal(rng, (e, k, n), 0.1, dtype, device)
+        sizes = torch.full((e,), m // e, dtype=torch.int32, device=device)
         ids = torch.from_numpy((rng.permutation(m) if routed else np.arange(m))
-                               .astype(np.int32)).to(_device())
+                               .astype(np.int32)).to(device)
 
         def run(config):
             if config["impl"] == "fused":
@@ -376,12 +386,12 @@ def _fused_conv_case(name, b, hw, c, dtype, smoke=False):
     baseline and the speedup denominator."""
     shape = {"n": b * hw * hw, "c": c}
 
-    def build():
+    def build(device):
         from rocket_tpu_torch.ops.fused_conv import fused_bn_act, reference_bn_act
 
-        x0 = _normal(np.random.default_rng(6), (b, hw, hw, c), 1.0, dtype) + 0.5
-        scale0 = torch.full((c,), 1.5, device=_device())
-        bias0 = torch.zeros((c,), device=_device())
+        x0 = _normal(np.random.default_rng(6), (b, hw, hw, c), 1.0, dtype, device) + 0.5
+        scale0 = torch.full((c,), 1.5, device=device)
+        bias0 = torch.zeros((c,), device=device)
 
         def run(config):
             x, scale, bias = (t.detach().requires_grad_() for t in (x0, scale0, bias0))
@@ -407,18 +417,18 @@ def _block_attn_case(name, b, t, d, h, dtype, smoke=False):
     candidate has the same output."""
     shape = {"b": b, "t": t, "d": d, "h": h}
 
-    def build():
+    def build(device):
         from rocket_tpu_torch.ops.fused_block import block_attn_half, reference_block_attn
 
         rng = np.random.default_rng(7)
         f32 = "float32"
-        x0 = _normal(rng, (b, t, d), 0.5, dtype)
-        ln_s = 1.0 + _normal(rng, (d,), 0.1, f32)
-        ln_b = _normal(rng, (d,), 0.1, f32)
-        wqkv0 = _normal(rng, (d, 3 * d), d ** -0.5, f32)
-        bqkv = torch.zeros((3 * d,), device=_device())
-        wproj0 = _normal(rng, (d, d), d ** -0.5, f32)
-        bproj = torch.zeros((d,), device=_device())
+        x0 = _normal(rng, (b, t, d), 0.5, dtype, device)
+        ln_s = 1.0 + _normal(rng, (d,), 0.1, f32, device)
+        ln_b = _normal(rng, (d,), 0.1, f32, device)
+        wqkv0 = _normal(rng, (d, 3 * d), d ** -0.5, f32, device)
+        bqkv = torch.zeros((3 * d,), device=device)
+        wproj0 = _normal(rng, (d, d), d ** -0.5, f32, device)
+        bproj = torch.zeros((d,), device=device)
 
         def run(config):
             x, wqkv, wproj = (w.detach().requires_grad_() for w in (x0, wqkv0, wproj0))
@@ -475,23 +485,28 @@ def load_cases() -> dict[str, TuneCase]:
     return TUNE_CASES
 
 
-def run_cases(names=None, kernels=None, *, iters: int = 20, min_speedup: float = 1.02,
-              smoke_only: bool = False, log: Callable[[str], None] = lambda s: None) -> list:
-    """Sweep the selected builtin cases on the local device. On the card
-    every kernel is built first, so no case times ``nvcc``."""
+def run_cases(names=None, kernels=None, *, device: str, iters: int = 20,
+              min_speedup: float = 1.02, smoke_only: bool = False,
+              log: Callable[[str], None] = lambda s: None) -> list:
+    """Sweep the selected builtin cases on ``device``: ``"cuda"``, which
+    raises without a card, or ``"cpu"``, named explicitly (the plain
+    versions; their timings are the CPU's). On the card every kernel is
+    built first, so no case times ``nvcc``."""
+    _check_device(device, "run_cases")
     selected = [case for name, case in load_cases().items()
                 if (not names or name in names) and (not kernels or case.kernel in kernels)
                 and case.smoke == smoke_only]
-    if selected and torch.cuda.is_available():
+    if selected and device == "cuda":
         from rocket_tpu_torch.ops import _build
 
         _build.build()
     reports = []
     for case in selected:
         try:
-            reports.append(sweep_case(case, iters=iters, min_speedup=min_speedup, log=log))
+            reports.append(sweep_case(case, device=device, iters=iters, min_speedup=min_speedup,
+                                      log=log))
         except Exception as exc:  # noqa: BLE001 — one broken case must not stop the rest
             log(f"{case.name}: case failed entirely — {type(exc).__name__}: {exc}")
-        if torch.cuda.is_available():
+        if device == "cuda":
             torch.cuda.empty_cache()
     return reports

@@ -16,15 +16,18 @@ __all__ = ["PEAK_FLOPS", "peak_flops", "DeviceSpec", "DEVICE_SPECS", "device_spe
 @dataclass(frozen=True)
 class DeviceSpec:
     """Per-card constants: ``flops_bf16`` and ``flops_f32`` (dense, FLOP/s),
-    ``hbm_bw`` (bytes/s) and ``smem_bytes``, the dynamic shared memory one
-    block may opt into — the budget the tuner's legality rules hold a
-    kernel's tiles to (the reference's ``vmem_bytes``)."""
+    ``hbm_bw`` (bytes/s), ``smem_bytes``, the shared memory one block may
+    opt into — the budget the tuner's legality rules and the schedule
+    audit's RKT504 hold a kernel's tiles to (the reference's
+    ``vmem_bytes``) — and ``sms``, the streaming multiprocessors, which
+    size the grids that fill the card."""
 
     kind: str
     flops_bf16: float
     flops_f32: float
     hbm_bw: float
     smem_bytes: int
+    sms: int
 
 
 #: Constants by ``torch.cuda.get_device_name()`` prefix: NVIDIA's data
@@ -33,8 +36,8 @@ class DeviceSpec:
 DEVICE_SPECS = {
     spec.kind: spec
     for spec in (
-        DeviceSpec("NVIDIA H100", 989e12, 67e12, 3.35e12, 232448),
-        DeviceSpec("NVIDIA H200", 989e12, 67e12, 4.8e12, 232448),
+        DeviceSpec("NVIDIA H100", 989e12, 67e12, 3.35e12, 232448, 132),
+        DeviceSpec("NVIDIA H200", 989e12, 67e12, 4.8e12, 232448, 132),
     )
 }
 

@@ -581,7 +581,8 @@ def test_tuner_sweeps_on_the_card_and_rejects_a_seeded_bad_variant(cuda):
     from rocket_tpu_torch.tune.space import TUNE_SPACES, TuneSpace
     from rocket_tpu_torch.tune.tuner import TuneCase, load_cases, sweep_case
 
-    report = sweep_case(load_cases()["flash_bwd/charlm"], iters=3, min_speedup=1.0)
+    report = sweep_case(load_cases()["flash_bwd/charlm"], device="cuda", iters=3,
+                        min_speedup=1.0)
     assert report.default_us > 0 and report.results
     for result in report.results:
         assert result.error is None and result.parity_ok and result.mean_us > 0, result
@@ -593,7 +594,7 @@ def test_tuner_sweeps_on_the_card_and_rejects_a_seeded_bad_variant(cuda):
     try:
         qkv = torch.randn(3, 2, 4, 256, 64, device=cuda).to(torch.bfloat16)
 
-        def build():
+        def build(device):
             def run(config):
                 if config["impl"] == "wrongfast":
                     return qkv[0] * 1.5
@@ -602,8 +603,111 @@ def test_tuner_sweeps_on_the_card_and_rejects_a_seeded_bad_variant(cuda):
 
         case = TuneCase(name="fake/wrongfast", kernel=space.kernel, shape={"n": 256},
                         dtype="bfloat16", build=build)
-        report = sweep_case(case, iters=2, min_speedup=1.0)
+        report = sweep_case(case, device="cuda", iters=2, min_speedup=1.0)
         (bad,) = report.results
         assert not bad.parity_ok and bad.mean_us is None and report.winner is None
     finally:
         del TUNE_SPACES[space.kernel]
+
+
+# -- launch declarations and row 12 ------------------------------------------
+
+
+def _declared_and_built(kernel, dtype):
+    """Pairs of (declared LaunchFact, library query) of ``kernel`` at a few
+    shapes, both dtypes where the kernel takes them."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.ops import badpallas as tbp
+
+    if kernel == "paged_decode":
+        return [(tpa.paged_decode_launch(s, hq, hkv, d, 9, 16, 4, dtype),
+                 tpa.launch_info(s, hq, hkv, d, dtype))
+                for s, hq, hkv, d in ((8, 12, 12, 64), (3, 12, 4, 128))]
+    if kernel == "decode_attention":
+        return [(tda.decode_attention_launch(b, hq, hkv, 100, d, dtype),
+                 tda.launch_info(b, hq, hkv, d, dtype))
+                for b, hq, hkv, d in ((4, 12, 12, 64), (2, 6, 2, 128))]
+    if kernel == "flash_native":
+        return [(tfn.flash_launch(kind, 2, t, 4, hkv, d, dtype, 4 * d, hkv * d),
+                 tfn.launch_info(kind, 2, t, 4, hkv, d, dtype))
+                for kind in ("flash_fwd", "flash_bwd", "flash_dq")
+                for t, hkv, d in ((1024, 4, 64), (100, 2, 32))]
+    if kernel == "flash_qkv":
+        return [(tfa.qkv_launch(kind, 2, 4, 256, d, dtype, bq, bk),
+                 tfa.launch_info(kind, 2, 4, 256, d, dtype, bq, bk))
+                for kind in ("fwd", "bwd") for d in (32, 64)
+                for bq in tfa.TILES for bk in tfa.TILES]
+    if kernel == "fused_block":
+        return [(tfb.fused_block_launch(b, t, 64 * h, h, dtype, ep),
+                 tfb.launch_info(b, t, h, ep, dtype))
+                for b, t, h in ((128, 256, 4), (3, 100, 2)) for ep in tfb.EPILOGUES]
+    if kernel == "fused_conv":
+        pairs = []
+        with tune.priced_device_kind(torch.cuda.get_device_name(0)):
+            for n, c in ((4096, 64), (1000, 2048)):
+                grid, norm = tfc._grids(torch.empty((n, c), dtype=dtype, device="meta"))
+                for fact in tfc.bn_launches("twopass", n, c, dtype, grid, norm):
+                    ctas = grid if fact.name == "bn_moments" else norm
+                    for act in (True, False):
+                        pairs.append((fact, tfc.launch_info(fact.name, c, ctas, act, dtype)))
+        return pairs
+    if kernel == "grouped":
+        pairs = [(tgm.gmm_launch(m, k, n, e, dtype, trans), tgm.launch_info(
+                     "gmm", m, k, n, e, dtype, trans))
+                 for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2))
+                 for trans in (False, True)]
+        pairs += [(tgm.tgmm_launch(m, k, n, e, dtype), tgm.launch_info("tgmm", m, k, n, e, dtype))
+                  for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2))]
+        pairs += [(tgm.gmm_launch(m, 768, 3072, 4, dtype, name="gather_gmm", src_rows=500),
+                   tgg.launch_info(m, 3072, 4, dtype)) for m in (1024, 16)]
+        return pairs
+    assert kernel == "bad_scale" and dtype == torch.float32
+    return [(tbp.bad_scale_launch((4096, 4096), block, grid), tbp.launch_info(block, grid))
+            for block, grid in (((7, 100), (4,)), ((8, 128), (512, 32)), ((4096, 4096), ()))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    (kernel, dtype) for kernel in ("paged_decode", "decode_attention", "flash_native",
+                                   "flash_qkv", "fused_block", "fused_conv", "grouped")
+    for dtype in DTYPES] + [("bad_scale", torch.float32)])
+def test_declared_launch_geometry_equals_the_library_query(cuda, kernel, dtype):
+    """Every wrapper's declared (grid, threads, dynamic, static shared
+    memory) equals what its library reports for the same launch: the grid
+    and dynamic part from the helpers its launch calls, the static part
+    from ``cudaFuncGetAttributes``."""
+    for fact, built in _declared_and_built(kernel, dtype):
+        assert fact.geometry == built, (fact.name, fact.geometry, built)
+
+
+@pytest.mark.cuda
+def test_bad_scale_matches_plain_on_the_written_blocks(cuda):
+    from rocket_tpu_torch.ops import badpallas as tbp
+
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(4096, 4096, generator=gen).cuda()
+    before = tbp.bad_scale.launches
+    for block, grid in (((7, 100), (4,)), ((7, 100), (586, 41)), ((8, 128), (3, 2))):
+        rows, cols = tbp.written_blocks(x.shape, block, grid)
+        got = tbp.bad_scale(x, block, grid)
+        want = tbp.bad_scale_plain(x, block, grid)
+        torch.cuda.synchronize()
+        assert torch.equal(got[rows, cols], want[rows, cols]), (block, grid)
+    assert tbp.bad_scale.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_bad_scale_whole_array_launch_is_refused(cuda):
+    """The fixture's one (4096, 4096) f32 block asks for 64 MiB of shared
+    memory: the card refuses it, the wrapper raises with CUDA's message and
+    counts no launch, and the next launch runs clean."""
+    from rocket_tpu_torch.ops import badpallas as tbp
+
+    x = torch.ones(4096, 4096, device=cuda)
+    before = tbp.bad_scale.launches
+    with pytest.raises(RuntimeError, match="67108864 bytes.*cudaError"):
+        tbp.bad_scale(x, x.shape, ())
+    assert tbp.bad_scale.launches == before
+    y = tbp.bad_scale(x, (8, 128), (512, 32))
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2.0)

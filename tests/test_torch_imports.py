@@ -45,6 +45,9 @@ def test_importing_the_port_loads_no_jax():
         "examples.cifar_resnet", "ops.grouped_matmul", "ops.gather_gmm", "nn.moe",
         "core.profiler", "obs.prof", "utils.perf", "examples.moe_lm",
         "ops.flash_attention", "tune", "tune.space", "tune.table", "tune.tuner", "tune.__main__",
+        "ops._launch", "ops.badpallas", "analysis", "analysis.__main__", "analysis.findings",
+        "analysis.rocketlint", "analysis.sched_audit", "analysis.rules",
+        "analysis.rules.sched_rules", "analysis.rules.host_rules", "analysis.rules.capsule_rules",
     )]
     code = (
         "import sys\n"

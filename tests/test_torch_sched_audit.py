@@ -1,0 +1,249 @@
+"""The port's kernel-launch audit (``rocket_tpu_torch/analysis/sched_audit``,
+rule RKT504 for Hopper) and row 12 (``ops/badpallas``) against the JAX
+package's schedule audit.
+
+* RKT504 parity: the reference's ``check_pallas`` on ``PallasFact``s built
+  by hand from the seeded-bad fixture's two BlockSpecs (its collector does
+  not run under this JAX), and the port's ``check_launches`` on the facts
+  of the matching ``bad_scale`` launches, report the same rule and the same
+  kinds: one block misaligned on both dims, one over the budget.
+* Every non-demo target traces at full width on ``meta`` tensors and is
+  clean; each launches the kernels it names.
+* Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``.
+* The CLI's exit codes: ``sched`` 0, ``sched --target badpallas`` 1.
+* Row 12's plain version against the fixture's two ``pallas_call``s, taken
+  from ``jax.make_jaxpr`` of the fixture's own step and rebound with
+  ``interpret=True`` (JAX 0.9 rebinds them), on the same numpy input,
+  compared exactly over the blocks the fixture writes (it is ``2 * x``; the
+  rest of its output is uninitialised).
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rocket_tpu.analysis.rules.sched_rules import check_pallas
+from rocket_tpu.analysis.sched_audit import PallasFact, _badpallas_parts
+from rocket_tpu.utils.perf import device_spec as tpu_spec
+from rocket_tpu_torch.analysis import __main__ as cli
+from rocket_tpu_torch.analysis.rules.sched_rules import check_launches
+from rocket_tpu_torch.analysis.sched_audit import (
+    DEFAULT_DEVICE_KIND,
+    SCHED_TARGETS,
+    audit_schedule,
+    collect_launch_facts,
+    run_sched_target,
+)
+from rocket_tpu_torch.ops import _launch
+from rocket_tpu_torch.ops import badpallas as tbp
+from rocket_tpu_torch.ops import flash_attention as tfa
+from rocket_tpu_torch.utils.perf import device_spec
+
+ROOT = Path(__file__).resolve().parents[1]
+SHAPE = (4096, 4096)
+#: The fixture's two launches: (block, grid).
+LAUNCHES = (((7, 100), (4,)), (SHAPE, ()))
+
+
+def _kind(message: str):
+    """A finding's kind, in either package's words: ("budget",) or
+    ("misaligned", dims) with dims the misaligned block dims."""
+    if "misaligns" not in message:
+        return ("budget",)
+    dims = []
+    if "last dim" in message:
+        dims.append("last")
+    if "sublane dim" in message or re.search(r"rows \d+ %", message):
+        dims.append("rows")
+    return ("misaligned", tuple(dims))
+
+
+def _pallas_fact(block, grid):
+    key = (tuple(block), "float32")
+    vmem = 2 * 2 * block[0] * block[1] * 4  # in and out, double-buffered
+    return PallasFact(name="kernel", grid=tuple(grid), blocks=(key, key),
+                      full_shapes={key: SHAPE}, vmem_bytes_est=vmem)
+
+
+def test_rkt504_matches_the_reference_on_the_fixture():
+    ref = check_pallas([_pallas_fact(*launch) for launch in LAUNCHES],
+                       tpu_spec("TPU v5 lite").vmem_bytes, label="badpallas")
+    port = check_launches([tbp.bad_scale_launch(SHAPE, *launch) for launch in LAUNCHES],
+                          device_spec(DEFAULT_DEVICE_KIND), label="badpallas")
+    assert {f.rule for f in ref} == {f.rule for f in port} == {"RKT504"}
+    assert sorted(_kind(f.message) for f in ref) == sorted(_kind(f.message) for f in port) == [
+        ("budget",), ("misaligned", ("last", "rows"))]
+    assert [f.path for f in port] == ["<sched:badpallas>"] * 2
+
+
+def test_rkt504_waives_full_dims_and_one_row_vectors_and_keeps_sector_rows():
+    spec = device_spec(DEFAULT_DEVICE_KIND)
+    fact = _launch.LaunchFact("k", (1, 1, 1), 128, 0, 0, (
+        _launch.tile(7, 100, torch.float32, 7, 100),       # the full plane
+        _launch.tile(1, 24, torch.float32, 96, 1024),      # one-row vector, 96 B
+        _launch.tile(64, 32, torch.bfloat16, 256, 256),    # 64-byte rows: whole sectors
+        _launch.tile(12, 64, torch.bfloat16, 12, 4096),    # rows equal the plane's
+    ))
+    assert check_launches([fact], spec) == []
+    bad = _launch.LaunchFact("k", (1, 1, 1), 128, 0, 0, (
+        _launch.tile(8, 12, torch.float32, 64, 64),        # 48-byte rows
+        _launch.tile(24, 64, torch.bfloat16, 256, 64),     # 24 rows of a 2-byte type
+    ))
+    kinds = sorted(_kind(f.message) for f in check_launches([bad], spec))
+    assert kinds == [("misaligned", ("last",)), ("misaligned", ("rows",))]
+    over = _launch.LaunchFact("k", (1, 1, 1), 128, spec.smem_bytes - 1000, 1001)
+    assert [_kind(f.message) for f in check_launches([over], spec)] == [("budget",)]
+
+
+#: target -> the kernels its step launches.
+TARGET_KERNELS = {
+    "train_flash": {"flash_fwd", "flash_bwd"},
+    "train_flash_long": {"flash_fwd", "flash_bwd", "flash_dq"},
+    "qkv_flash": {"flash_qkv_fwd", "flash_qkv_bwd"},
+    "fused_kernels": {"bn_moments", "bn_finalize", "bn_normalize", "fused_block", "gather_gmm",
+                      "gmm", "tgmm"},
+    "serve": {"paged_decode", "decode_attention"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(TARGET_KERNELS))
+def test_every_real_target_is_clean_at_full_width_on_meta(name):
+    assert not SCHED_TARGETS[name].demo
+    report = run_sched_target(SCHED_TARGETS[name])
+    assert report.clean, [f.render() for f in report.findings]
+    assert {f.name for f in report.launches} == TARGET_KERNELS[name]
+    spec = device_spec(DEFAULT_DEVICE_KIND)
+    assert all(0 < f.smem_bytes <= spec.smem_bytes for f in report.launches
+               if f.name != "bn_finalize")
+
+
+def _launch_counts() -> dict:
+    counts = {}
+    for module in ("paged_attention", "decode_attention", "flash_native", "flash_attention",
+                   "fused_block", "fused_conv", "gather_gmm", "grouped_matmul", "badpallas"):
+        mod = __import__(f"rocket_tpu_torch.ops.{module}", fromlist=["_"])
+        counts.update({fn.__qualname__: fn.launches for fn in vars(mod).values()
+                       if callable(fn) and hasattr(fn, "launches")})
+    return counts
+
+
+def test_meta_launches_leave_every_launch_count_alone():
+    before = _launch_counts()
+    assert len(before) == 14
+    for name in ("serve", "fused_kernels", "qkv_flash", "badpallas"):
+        assert run_sched_target(SCHED_TARGETS[name]).launches
+    assert _launch_counts() == before
+    assert SCHED_TARGETS.keys() == set(TARGET_KERNELS) | {"badpallas"}
+
+
+def test_train_step_launches_one_forward_and_backward_per_layer():
+    facts = run_sched_target(SCHED_TARGETS["train_flash"]).launches
+    assert [f.name for f in facts].count("flash_fwd") == 12
+    assert [f.name for f in facts].count("flash_bwd") == 12
+    fwd = next(f for f in facts if f.name == "flash_fwd")
+    assert fwd.grid == (16, 12, 8) and fwd.threads == 128
+    long = run_sched_target(SCHED_TARGETS["train_flash_long"]).launches
+    assert [f.name for f in long].count("flash_dq") == 12
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_flash_qkv_declarations_equal_smem_bytes(d):
+    for kind in ("fwd", "bwd"):
+        for bq in tfa.TILES:
+            for bk in tfa.TILES:
+                fact = tfa.qkv_launch(kind, 2, 3, 256, d, torch.bfloat16, bq, bk)
+                assert fact.dynamic_smem == tfa.smem_bytes(kind, bq, bk, d)
+                assert fact.static_smem == 0
+    qkv = torch.empty((3, 2, 3, 256, d), dtype=torch.bfloat16, device="meta")
+    with _launch.record_launches() as facts:
+        tfa.flash_qkv_fwd(qkv, True, 64, 64)
+    assert [f.dynamic_smem for f in facts] == [tfa.smem_bytes("fwd", 64, 64, d)]
+
+
+def test_audit_schedule_prices_any_step_and_rejects_an_unknown_card():
+    x = torch.empty(SHAPE, device="meta")
+    report = audit_schedule(lambda x: tbp.bad_scale(x, (8, 128), (512, 32)), x, label="ok")
+    assert report.clean and [f.name for f in report.launches] == ["bad_scale"]
+    with pytest.raises(ValueError, match="unknown device kind"):
+        collect_launch_facts(lambda: None, device_kind="TPU v5 lite")
+
+
+def test_cli_exit_codes(capsys):
+    assert cli.main(["sched"]) == 0
+    assert cli.main(["sched", "--target", "badpallas", "--format", "json"]) == 1
+    findings = json.loads(capsys.readouterr().out)
+    assert [f["rule"] for f in findings] == ["RKT504", "RKT504"]
+    messages = " | ".join(f["message"] for f in findings)
+    assert "[7, 100] float32" in messages and "last dim" in messages and "rows 7" in messages
+    assert "67,108,864 B" in messages and "232,448 B" in messages
+    assert cli.main(["sched", "--list-targets"]) == 0
+    assert "[demo]" in capsys.readouterr().out
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(["sched", "--target", "nope"])
+    assert exit_info.value.code == 2
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(["sched", "--device-kind", "TPU v5 lite"])
+    assert exit_info.value.code == 2
+
+
+def test_cli_runs_as_a_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-m", "rocket_tpu_torch.analysis", "sched",
+                           "--target", "badpallas"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 1, proc.stderr
+    assert proc.stdout.count("RKT504") == 2
+
+
+# -- row 12 against the fixture ------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fixture_outputs():
+    """x and the fixture's two pallas_call outputs on it, evaluated once: the
+    calls are taken from the jaxpr of the fixture's own step and rebound
+    with interpret=True."""
+    step, variables, batch, _, _ = _badpallas_parts()
+    concrete = lambda tree: jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), tree)  # noqa: E731
+    closed = jax.make_jaxpr(step)(concrete(variables), concrete(batch))
+    calls = [e for e in closed.jaxpr.eqns if e.primitive.name == "pallas_call"]
+    assert len(calls) == 2
+    x = np.random.default_rng(12).standard_normal(SHAPE).astype(np.float32)
+    outs = [np.asarray(e.primitive.bind(jnp.asarray(x), **dict(e.params, interpret=True))[0])
+            for e in calls]
+    return x, outs
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["blocks_7x100_grid4", "whole_array"])
+def test_bad_scale_plain_matches_the_fixture_on_written_blocks(fixture_outputs, which):
+    x, outs = fixture_outputs
+    block, grid = LAUNCHES[which]
+    rows, cols = tbp.written_blocks(SHAPE, block, grid)
+    got = tbp.bad_scale(torch.from_numpy(x), block, grid).numpy()
+    np.testing.assert_array_equal(got[rows, cols], outs[which][rows, cols])
+    assert got[rows, cols].size == (28 * 100 if which == 0 else x.size)
+
+
+def test_bad_scale_meta_records_both_launches_and_counts_none():
+    x = torch.empty(SHAPE, device="meta")
+    before = tbp.bad_scale.launches
+    with _launch.record_launches() as facts:
+        y = tbp.bad_scale(x, (7, 100), (4,))
+        tbp.bad_scale(x, SHAPE, ())
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert [(f.grid, f.dynamic_smem) for f in facts] == [((4, 1, 1), 2800),
+                                                         ((1, 1, 1), 67108864)]
+    assert tbp.bad_scale.launches == before
+    with pytest.raises(ValueError, match="block"):
+        tbp.bad_scale(x, (7,), (4,))
+    with pytest.raises(ValueError, match="float32"):
+        tbp.bad_scale(x.to(torch.bfloat16), (8, 128), (1,))

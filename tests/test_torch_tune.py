@@ -32,6 +32,7 @@ from rocket_tpu_torch.tune.tuner import (
     CaseReport,
     TuneCase,
     check_parity,
+    run_cases,
     sweep_case,
     update_tables,
 )
@@ -313,7 +314,7 @@ def _fake_paged_case(wrong_scale):
     times ``wrong_scale``: instant, and wrong unless the scale is 1."""
     x = torch.linspace(0.0, 1.0, 64)
 
-    def build():
+    def build(device):
         def run(config):
             return x if config["impl"] == "pallas" else x * wrong_scale
         return run
@@ -323,7 +324,7 @@ def _fake_paged_case(wrong_scale):
 
 
 def test_sweep_rejects_wrong_candidate():
-    report = sweep_case(_fake_paged_case(1.5), iters=1, min_speedup=1.0)
+    report = sweep_case(_fake_paged_case(1.5), device="cpu", iters=1, min_speedup=1.0)
     (result,) = report.results
     assert result.config == {"impl": "xla"}
     assert not result.parity_ok and result.max_err > 1.0
@@ -332,7 +333,7 @@ def test_sweep_rejects_wrong_candidate():
 
 
 def test_sweep_accepts_parity_equal_candidate():
-    report = sweep_case(_fake_paged_case(1.0), iters=1, min_speedup=1.0)
+    report = sweep_case(_fake_paged_case(1.0), device="cpu", iters=1, min_speedup=1.0)
     (result,) = report.results
     assert result.parity_ok and result.mean_us is not None
 
@@ -345,12 +346,12 @@ def test_sweep_rejects_wrong_fast_structural_variant():
     try:
         x = torch.linspace(0.0, 1.0, 128)
 
-        def build():
+        def build(device):
             return lambda config: x * 1.5 if config["impl"] == "wrongfast" else x
 
         report = sweep_case(TuneCase(name="fake/wrongfast", kernel=space.kernel,
                                      shape={"n": 128}, dtype="float32", build=build),
-                            iters=1, min_speedup=1.0)
+                            device="cpu", iters=1, min_speedup=1.0)
         (bad,) = report.results
         assert not bad.parity_ok and bad.mean_us is None and report.winner is None
     finally:
@@ -360,7 +361,7 @@ def test_sweep_rejects_wrong_fast_structural_variant():
 def test_sweep_baseline_is_explicit_default_and_table_blind(table_dir):
     seen = []
 
-    def build():
+    def build(device):
         def run(config):
             assert tune.get_config("paged_decode", shape=PAGED_SHAPE, dtype=torch.float32,
                                    device_kind=H100) is None
@@ -371,8 +372,25 @@ def test_sweep_baseline_is_explicit_default_and_table_blind(table_dir):
     tune.write_table("paged_decode", [_entry("paged_decode", H100, {"impl": "xla"},
                                              shape=PAGED_SHAPE)], configs_dir=table_dir)
     sweep_case(TuneCase(name="paged/blind", kernel="paged_decode", shape=PAGED_SHAPE,
-                        dtype="float32", build=build), iters=1)
+                        dtype="float32", build=build), device="cpu", iters=1)
     assert seen[0] == {"impl": "pallas"}
+
+
+def test_run_cases_needs_an_explicit_device():
+    """The library entry never falls back to the CPU: without a card,
+    ``device="cuda"`` raises, and only an explicit ``device="cpu"`` runs the
+    plain versions (the CLI passes it only under ``--allow-cpu``)."""
+    with pytest.raises(TypeError):
+        run_cases(names=["flash_fwd/smoke"], smoke_only=True)  # no device given
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        run_cases(names=["flash_fwd/smoke"], device="gpu", smoke_only=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_cases(names=["flash_fwd/smoke"], device="cuda", smoke_only=True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            sweep_case(_fake_paged_case(1.0), device="cuda", iters=1)
+    (report,) = run_cases(names=["paged/smoke"], device="cpu", iters=1, smoke_only=True)
+    assert report.default_us > 0
 
 
 def test_check_parity_tolerances():
@@ -440,7 +458,7 @@ def test_flash_spaces_enumerate_compiled_tiles_within_the_budget():
     assert space.candidates(shape, spec, "bfloat16") == [
         {"block_k": 64, "block_q": 64}, {"block_k": 128, "block_q": 128}]
     assert len(space.candidates(dict(shape, causal=False), spec, "float32")) == 4
-    small = DeviceSpec("small card", 1e12, 1e12, 1e12, 100 * 1024)
+    small = DeviceSpec("small card", 1e12, 1e12, 1e12, 100 * 1024, 132)
     assert space.candidates(shape, small, "float32") == [{"block_k": 64, "block_q": 64}]
     assert space.violations({"block_q": 256, "block_k": 256}, shape, spec, "bfloat16")
     assert space.violations({"block_q": 64, "block_k": 64}, dict(shape, d=128), spec,
