@@ -207,8 +207,9 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 def _declared_launches() -> list:
     """(kernel, shapes, declared LaunchFact, the built library's query) for
     every kernel at its main path's shapes: the serve wave and generate()
-    (rows 1-2), GPT-2 train at T=1024 and 2048 (rows 3-5), rows 6-7 at both
-    tiles, the char-LM fused block under both epilogues (row 8), the three
+    (rows 1-2), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
+    the D=32 bf16 forward), rows 6-7 at both tiles, the char-LM fused block
+    under both epilogues, bf16 and f32 (row 8), the three
     BN passes at ResNet-18 CIFAR's four shapes (rows 9-10), the MoE
     in-projection's gather-GMM and both grouped products of the in- and
     out-projection in bf16 and f32 (row 11, gmm, tgmm), and row 12's two
@@ -223,18 +224,25 @@ def _declared_launches() -> list:
          da.decode_attention_launch(4, 12, 12, 192, 64, bf16), da.launch_info(4, 12, 12, 64, bf16)),
     ]
     for kind, t in (("flash_fwd", 1024), ("flash_bwd", 1024), ("flash_dq", 2048)):
-        rows.append((kind, f"B=8 T={t} H=12 D=64 bf16 fused qkv",
-                     fa.flash_launch(kind, 8, t, 12, 12, 64, bf16, 2304, 2304),
-                     fa.launch_info(kind, 8, t, 12, 12, 64, bf16)))
+        for dtype in (bf16, f32):
+            name = str(dtype).removeprefix("torch.")
+            rows.append((kind, f"B=8 T={t} H=12 D=64 {name} fused qkv",
+                         fa.flash_launch(kind, 8, t, 12, 12, 64, dtype, 2304, 2304),
+                         fa.launch_info(kind, 8, t, 12, 12, 64, dtype)))
+    rows.append(("flash_fwd", "B=64 T=128 H=4 D=32 bf16 fused qkv",
+                 fa.flash_launch("flash_fwd", 64, 128, 4, 4, 32, bf16, 384, 384),
+                 fa.launch_info("flash_fwd", 64, 128, 4, 4, 32, bf16)))
     for kind in ("fwd", "bwd"):
         for blk in fqa.TILES:
             rows.append((f"flash_qkv_{kind}", f"(3, 8, 12, 1024, 64) bf16 {blk}x{blk}",
                          fqa.qkv_launch(kind, 8, 12, 1024, 64, bf16, blk, blk),
                          fqa.launch_info(kind, 8, 12, 1024, 64, bf16, blk, blk)))
     for epilogue in ("separate", "fused"):
-        rows.append(("fused_block", f"B=128 T=256 D=256 H=4 bf16 {epilogue}",
-                     fb.fused_block_launch(128, 256, 256, 4, bf16, epilogue),
-                     fb.launch_info(128, 256, 4, epilogue, bf16)))
+        for dtype in (bf16, f32):
+            name = str(dtype).removeprefix("torch.")
+            rows.append(("fused_block", f"B=128 T=256 D=256 H=4 {name} {epilogue}",
+                         fb.fused_block_launch(128, 256, 256, 4, dtype, epilogue),
+                         fb.launch_info(128, 256, 4, epilogue, dtype)))
     with tune.priced_device_kind(torch.cuda.get_device_name(0)):
         for n, c, dtype in BN_SHAPES[:4]:
             grid, norm_grid = fc._grids(torch.empty((n, c), dtype=dtype, device="meta"))
@@ -451,13 +459,16 @@ def dq_partial_bytes(b, t, hq, d):
 
 def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=False):
     """flash_fwd / flash_bwd / flash_dq against _fwd_plain / _bwd_plain /
-    _dq_plain on the same CUDA tensors; with ``time_it`` also the kernel,
-    plain and SDPA times and the bounds."""
+    _dq_plain on the same CUDA tensors, and two forward launches bitwise;
+    with ``time_it`` also the kernel, plain and SDPA times and the bounds."""
     (q, k, v), offs = _flash_operands(gen, dtype, b, t, hq, h_kv, d, fused)
     geo = (hq, h_kv, d, offs, causal)
     what = (f"flash {'fused' if fused else 'bthd'} B={b} T={t} Hq={hq} Hkv={h_kv} {dtype} "
             f"causal={causal}")
     out, lse = fa.flash_fwd(q, k, v, *geo)
+    out2, lse2 = fa.flash_fwd(q, k, v, *geo)
+    require(torch.equal(out, out2) and torch.equal(lse, lse2), f"{what}: two launches differ")
+    del out2, lse2
     out_p, lse_p = fa._fwd_plain(q, k, v, *geo)
     err = {"fwd": max(_flash_err(out, out_p, dtype, what + " out"),
                       _flash_err(lse, lse_p, dtype, what + " lse"))}
@@ -475,7 +486,8 @@ def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=Fals
     torch.cuda.synchronize()
     row = {"layout": "fused" if fused else "bthd", "dtype": str(dtype).removeprefix("torch."),
            "b": b, "t": t, "hq": hq, "hkv": h_kv, "d": d, "causal": causal,
-           "max_abs_err": err, "tol": TOL[dtype]}
+           "max_abs_err": err, "tol": TOL[dtype], "fwd_deterministic": True,
+           "fwd_tensor_cores": fa.tensor_cores("flash_fwd", dtype)}
     if not time_it:
         return row
     heads = lambda a, off, n: a[..., off:off + n * d].reshape(b, t, n, d).transpose(1, 2)  # noqa
@@ -807,7 +819,17 @@ def tune_phase(card):
     for name, rec in cases.items():
         print(f"tune {name}: default {rec['default_us']:.1f} us, winner {rec['winner']}, "
               f"speedup {rec['speedup']}", flush=True)
+    # Row 8's kernel variants (impl "fused") in the block_attn case: which
+    # passed the bf16 parity gate and were timed, and which it rejected.
+    block = cases["block_attn/charlm"]
+    block_kernel = {"timed": {c: us for c, us in block["candidates"].items()
+                              if json.loads(c)["impl"] == "fused"},
+                    "rejected_parity": [r for r in block["rejected_parity"]
+                                        if r["config"]["impl"] == "fused"]}
+    print(f"tune block_attn/charlm kernel variants: {len(block_kernel['timed'])} timed, "
+          f"{len(block_kernel['rejected_parity'])} rejected by the parity gate", flush=True)
     emit("tune", cases=cases, seeded_bad=bad, validate_problems=problems,
+         block_attn_kernel_variants=block_kernel,
          written_flash=written, stand_in=stand_in, resolved_blocks=list(blocks),
          lookups=log, launches=launches, cli_wall_s=wall, card=card)
     return launches
@@ -840,7 +862,8 @@ def check_fused_block(timer, gen):
     """``block_attn_half``'s forward (the kernel) against
     ``reference_block_attn`` on the same CUDA tensors: the char-LM shape
     (B=128, T=256, D=256, H=4) and a ragged one (B=3, T=100), bf16 and
-    f32, both epilogues, ``block_b`` 1 and 2 where B tiles. At the char-LM
+    f32, both epilogues, ``block_b`` 1 and 2 where B tiles, two launches
+    bitwise (bf16 runs on the tensor cores, f32 on the CUDA cores). At the char-LM
     shape in bf16 also the kernel, its plain version and the library
     chain (``F.layer_norm`` -> ``F.linear`` -> SDPA -> ``F.linear``, four
     calls: no single PyTorch call computes this function), timed."""
@@ -859,10 +882,15 @@ def check_fused_block(timer, gen):
                 got = fb.block_attn_half(*ops, num_heads=h, epilogue=epilogue, block_b=block_b)
                 errs[block_b] = _flash_err(got, want, dtype, f"fused_block {epilogue} B={b} "
                                            f"T={t} {dtype} block_b={block_b}")
+            again = fb.block_attn_half(*ops, num_heads=h, epilogue=epilogue)
+            require(torch.equal(got, again), f"fused_block {epilogue} B={b} T={t} {dtype}: "
+                    "two launches differ")
         torch.cuda.synchronize()
         row = {"dtype": str(dtype).removeprefix("torch."), "epilogue": epilogue, "b": b, "t": t,
                "d": 64 * h, "h": h, "max_abs_err": max(errs.values()),
-               "max_abs_err_by_block_b": errs, "tol": TOL[dtype]}
+               "max_abs_err_by_block_b": errs, "tol": TOL[dtype], "deterministic": True,
+               "tensor_cores": dtype == torch.bfloat16,
+               "occupancy": fb.occupancy(t, epilogue, dtype)}
         if (b, t, dtype) == (128, 256, torch.bfloat16):
             x, ln_s, ln_b, wqkv, bqkv, wproj, bproj = ops
             ln = torch.stack([ln_s, ln_b])
@@ -2553,7 +2581,14 @@ def main() -> int:
              f"{kind} {str(dt).removeprefix('torch.')} {bq}x{bk}": fqa.occupancy(kind, 64, bq, bk,
                                                                                 dt)
              for kind in ("fwd", "bwd") for dt in (torch.float32, torch.bfloat16)
-             for bq in fqa.TILES for bk in fqa.TILES})
+             for bq in fqa.TILES for bk in fqa.TILES},
+         # Rows 3 and 8: resident CTAs per SM (bf16 on the tensor cores).
+         flash_fwd_occupancy={f"D={d} {str(dt).removeprefix('torch.')}": fa.occupancy(d, dt)
+                              for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)},
+         fused_block_occupancy={
+             f"T={t} {ep} {str(dt).removeprefix('torch.')}": fb.occupancy(t, ep, dt)
+             for t in (256, fb.MAX_T) for ep in fb.EPILOGUES
+             for dt in (torch.float32, torch.bfloat16)})
 
     launch_audit_phase(card)
 

@@ -23,6 +23,11 @@ PyTorch version of the same signature beside it:
 * :func:`flash_dq` / :func:`_dq_plain` -> ``dq``: the accumulating dq
   pass, the strategy past the partial buffer's byte bound.
 
+The bf16 forward runs on the tensor cores (``mma.sync``, bf16 tiles filled
+by ``cp.async``; its operands must be 16-byte aligned with feature widths
+and head offsets in multiples of 8, which the wrapper checks); the f32
+forward and both backward kernels run f32 FMA on the CUDA cores.
+
 Numerics follow the JAX kernels: probabilities are rounded to the operand
 dtype before the PV and dV products, ``ds`` before the dK and dQ
 products; every accumulator is f32. ``delta = rowsum(dout * out)`` is
@@ -62,7 +67,8 @@ from rocket_tpu_torch.ops._launch import (
 
 __all__ = [
     "TILE", "flash_supported", "flash_fused", "flash_bthd",
-    "flash_fwd", "flash_bwd", "flash_dq", "flash_launch", "launch_info",
+    "flash_fwd", "flash_bwd", "flash_dq", "flash_launch", "launch_info", "occupancy",
+    "tensor_cores",
 ]
 
 #: Query and key rows per tile of the CUDA kernels (block_q == block_k).
@@ -234,14 +240,30 @@ def _fn(name: str):
     return fn
 
 
-#: kernel -> (D-wide row tiles, score tiles, statistic rows) in its dynamic
-#: shared memory (``launch_smem`` of each ``csrc/flash_*.cu``).
+#: kernel -> (D-wide row tiles, score tiles, statistic rows) in the dynamic
+#: shared memory of its f32 (CUDA-core) instantiation (``launch_smem`` of
+#: each ``csrc/flash_*.cu``).
 _SMEM_PARTS = {"flash_fwd": (3, 1, 0), "flash_bwd": (4, 2, 2), "flash_dq": (4, 1, 2)}
+#: Row padding, in elements, of the bf16 tiles of the tensor-core forward
+#: (``kPad`` in ``csrc/mma_common.cuh``).
+TC_PAD = 8
 
 
-def _smem_bytes(kind: str, d: int) -> int:
-    """``smem_bytes`` of ``csrc/flash_common.cuh``: f32 tiles with a padded
-    row stride D + 1, padded score tiles and statistic rows."""
+def tensor_cores(kind: str, dtype) -> bool:
+    """Whether ``kind``'s ``dtype`` instantiation runs on the tensor cores:
+    the bf16 forward (redesigned); the backward kernels and every f32
+    instantiation run f32 FMA on the CUDA cores."""
+    return kind == "flash_fwd" and dtype == torch.bfloat16
+
+
+def _smem_bytes(kind: str, d: int, dtype) -> int:
+    """Dynamic shared memory of ``kind``'s ``dtype`` launch: the bf16
+    forward's Q tile and two stages of K and V (bf16 64 x D tiles at row
+    stride D + 8); else ``smem_bytes`` of ``csrc/flash_common.cuh``, f32
+    tiles with a padded row stride D + 1, padded score tiles and statistic
+    rows."""
+    if tensor_cores(kind, dtype):
+        return 2 * 5 * TILE * (d + TC_PAD)
     tiles, scores, stats = _SMEM_PARTS[kind]
     return 4 * (tiles * TILE * (d + 1) + scores * TILE * (TILE + 1) + stats * TILE)
 
@@ -269,7 +291,8 @@ def flash_launch(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype, fq
             tiles += (tile(TILE, d, f32, t, h * d),)
     else:
         tiles = (q_t, o_t, kv_t, kv_t, stat, stat, o_t)
-    return LaunchFact(kind, (_num_tiles(t), heads, b), THREADS, _smem_bytes(kind, d), 0, tiles)
+    return LaunchFact(kind, (_num_tiles(t), heads, b), THREADS, _smem_bytes(kind, d, dtype), 0,
+                      tiles)
 
 
 def launch_info(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype) -> tuple:
@@ -279,6 +302,28 @@ def launch_info(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype) -> 
     fn.restype = _I
     fn.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
     return query_launch(fn, b, t, h, h_kv, d, DTYPE_CODES[dtype])
+
+
+def occupancy(d: int, dtype) -> int:
+    """Resident CTAs per SM of the forward's (D, dtype) kernel at its shared
+    memory, as the card reports it (-1 when it refuses). Needs the card."""
+    fn = _build.load("flash_fwd").rkt_flash_fwd_occupancy
+    fn.restype = _I
+    fn.argtypes = [_I, _I]
+    return fn(d, DTYPE_CODES[dtype])
+
+
+def _check_aligned(where, arrays, offsets) -> None:
+    """The tensor-core forward copies each head's D-wide slice in 16-byte
+    pieces: every operand 16-byte aligned, its feature width and the head
+    offsets whole multiples of 8 elements. Raise otherwise."""
+    for name, arr in arrays.items():
+        if arr.data_ptr() % 16 or arr.shape[2] % 8:
+            raise ValueError(f"{where}: bf16 {name} must start 16-byte aligned with a feature "
+                             f"width that is a multiple of 8 (address {arr.data_ptr():#x}, "
+                             f"width {arr.shape[2]})")
+    if any(off % 8 for off in offsets):
+        raise ValueError(f"{where}: bf16 head offsets {offsets} must be multiples of 8")
 
 
 def _raise_on(err: int, where: str) -> None:
@@ -300,6 +345,8 @@ def flash_fwd(q_arr, k_arr, v_arr, h: int, h_kv: int, d: int, offsets, causal: b
     if q_arr.device.type == "cpu":
         return _fwd_plain(q_arr, k_arr, v_arr, h, h_kv, d, offsets, causal)
     _check("flash_fwd", q_arr, k_arr, v_arr, h, h_kv, d, offsets)
+    if tensor_cores("flash_fwd", q_arr.dtype):
+        _check_aligned("flash_fwd", {"q_arr": q_arr, "k_arr": k_arr, "v_arr": v_arr}, offsets)
     b, t, fq = q_arr.shape
     out = torch.empty((b, t, h * d), dtype=q_arr.dtype, device=q_arr.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_arr.device)

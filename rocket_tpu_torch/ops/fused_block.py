@@ -26,7 +26,9 @@ there).
   kernel for this function, so gradients are the plain path's by
   construction and the fusion buys the forward its single launch.
 
-The CUDA kernel takes head dim 64 only (every preset's) and T up to
+bf16 operands run on the tensor cores (``mma.sync``; every operand must
+start 16-byte aligned, which the wrapper checks), f32 operands on the CUDA
+cores. The CUDA kernel takes head dim 64 only (every preset's) and T up to
 :data:`MAX_T` (its K and V stay in shared memory); the fused epilogue
 runs the heads of one batch row as a thread-block cluster, so it takes at
 most :data:`MAX_FUSED_HEADS` heads. :func:`kernel_supported` states these
@@ -57,7 +59,7 @@ from rocket_tpu_torch.ops._launch import (
 __all__ = [
     "EPILOGUES", "MAX_T", "MAX_FUSED_HEADS", "block_attn_half", "block_attn_supported",
     "kernel_supported", "fused_block", "fused_block_plain", "reference_block_attn",
-    "fused_block_launch", "launch_info",
+    "fused_block_launch", "launch_info", "occupancy",
 ]
 
 EPILOGUES = ("fused", "separate")
@@ -133,13 +135,33 @@ def fused_block_plain(x, ln, wqkv, bqkv, wproj, bproj, *, num_heads: int, eps: f
                                 eps=eps, causal=causal, epilogue=epilogue)
 
 
-def _smem_bytes(t: int) -> int:
-    """``block_smem_bytes`` of the kernel: K and V of every row (rounded up
-    to whole tiles), the q tile and the work tile, f32 with row stride 65,
-    and two per-row statistics."""
+#: The bf16 (tensor-core) kernel's row padding of its bf16 tiles, the
+#: widest product's columns (q | k | v of one head) and the output columns
+#: of one fused-epilogue product (``kPad``, ``kMaxCols`` and ``kOutCols``).
+TC_PAD, TC_COLS, TC_OUT_COLS = 8, 3 * HEAD_DIM, 128
+
+
+def _smem_bytes(t: int, dtype) -> int:
+    """Dynamic shared memory of the ``dtype`` kernel at sequence length t.
+    bf16 (``tc::smem_bytes``): K and V of every row (rounded up to whole
+    tiles) as bf16 at row stride 72, two (64, 32) A stages and two (32,
+    192) weight stages (the q tile reuses them) at padded strides, and two
+    f32 per-row statistics. f32 (``block_smem_bytes``): K, V, the q tile
+    and the work tile as f32 with row stride 65, and the statistics."""
     rows = -(-t // ROW_TILE) * ROW_TILE
+    if dtype == torch.bfloat16:
+        return 2 * (2 * rows * (HEAD_DIM + TC_PAD) + 2 * ROW_TILE * (CHUNK + TC_PAD)
+                    + 2 * CHUNK * (TC_COLS + TC_PAD)) + 4 * 2 * ROW_TILE
     ld = HEAD_DIM + 1
     return 4 * (2 * rows * ld + 2 * ROW_TILE * ld + 2 * ROW_TILE)
+
+
+def _out_cols(d: int, dtype) -> tuple:
+    """Column widths of the fused epilogue's products: (64,) for f32; for
+    bf16 128-column blocks and a 64-column rest."""
+    if dtype != torch.bfloat16:
+        return (HEAD_DIM,)
+    return (TC_OUT_COLS,) * (d // TC_OUT_COLS) + (HEAD_DIM,) * (d % TC_OUT_COLS // HEAD_DIM)
 
 
 def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
@@ -148,8 +170,9 @@ def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
     reads whole (64, D) row tiles of x for the LayerNorm statistics and
     (64, 32) chunks of them beside (32, 64) chunks of its head's Wqkv
     columns for the projections, and writes (64, 64) tiles of its head's
-    output; the fused epilogue then reads (64, 32) chunks of all heads and
-    (32, 64) chunks of Wproj and writes (64, 64) tiles of the output."""
+    output; the fused epilogue then reads (64, 32) chunks of all heads
+    beside (32, n) chunks of Wproj and writes (64, n) tiles of the output,
+    n as :func:`_out_cols`."""
     hw = num_heads * HEAD_DIM
     tiles = (
         tile(ROW_TILE, d, dtype, t, d), tile(ROW_TILE, CHUNK, dtype, t, d),
@@ -157,9 +180,12 @@ def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
         tile(1, HEAD_DIM, dtype, 1, 3 * hw), tile(ROW_TILE, HEAD_DIM, dtype, t, hw),
     )
     if epilogue == "fused":
-        tiles += (tile(ROW_TILE, CHUNK, dtype, t, hw), tile(CHUNK, HEAD_DIM, dtype, hw, d),
-                  tile(1, HEAD_DIM, dtype, 1, d), tile(ROW_TILE, HEAD_DIM, dtype, t, d))
-    return LaunchFact("fused_block", (num_heads, b, 1), THREADS, _smem_bytes(t), 0, tiles)
+        tiles += (tile(ROW_TILE, CHUNK, dtype, t, hw),)
+        for n in sorted(set(_out_cols(d, dtype)), reverse=True):
+            tiles += (tile(CHUNK, n, dtype, hw, d), tile(1, n, dtype, 1, d),
+                      tile(ROW_TILE, n, dtype, t, d))
+    return LaunchFact("fused_block", (num_heads, b, 1), THREADS, _smem_bytes(t, dtype), 0,
+                      tiles)
 
 
 def launch_info(b: int, t: int, num_heads: int, epilogue: str, dtype) -> tuple:
@@ -181,6 +207,15 @@ def _lib():
             ctypes.c_void_p,
         ]
     return fn
+
+
+def occupancy(t: int, epilogue: str, dtype) -> int:
+    """Resident CTAs per SM of the (dtype, epilogue) kernel at sequence
+    length t, as the card reports it (-1 when it refuses). Needs the card."""
+    fn = _build.load("fused_block").rkt_fused_block_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(t, int(epilogue == "fused"), DTYPE_CODES[dtype])
 
 
 def kernel_limits() -> tuple:
@@ -219,6 +254,10 @@ def fused_block(x, ln, wqkv, bqkv, wproj, bproj, *, num_heads: int, eps: float =
         raise ValueError(f"fused_block: the kernel takes head dim {HEAD_DIM}, T <= {MAX_T} and, "
                          f"fused, at most {MAX_FUSED_HEADS} heads; got T={t} D={d} "
                          f"H={num_heads} {epilogue}")
+    if x.dtype == torch.bfloat16 and any(
+            op.data_ptr() % 16 for op in (x, ln, wqkv, bqkv, wproj, bproj)):
+        raise ValueError("fused_block: the bf16 kernel copies 16-byte pieces; every operand "
+                         "must start 16-byte aligned")
     fused = epilogue == "fused"
     heads = torch.empty((b, t, hw), dtype=x.dtype, device=x.device)
     out = torch.empty((b, t, d), dtype=x.dtype, device=x.device) if fused else heads

@@ -22,7 +22,8 @@ products (``gmm``, ``tgmm``, ``gather_gmm``) hold every element to
 rounding of the f32 accumulator that may flip by one step. Rows 6-7 (the
 stacked-qkv flash kernels) hold every element to ``tol * (1 + |want|)``
 as the other flash kernels do; their dq partials are compared through
-their f32 sum.
+their f32 sum. Rows 3 and 8 in bf16 run on the tensor cores and are held
+to the same bounds, plus two launches bitwise.
 """
 
 import pytest
@@ -175,6 +176,119 @@ def test_flash_rejects_bad_operands(cuda):
         tfn.flash_fwd(q, q, q, 4, 4, 64, (0, 64, 0), True)
     with pytest.raises(ValueError):
         tfn.flash_fwd(q[:, ::2], q[:, ::2], q[:, ::2], 4, 4, 64, (0, 0, 0), True)
+
+
+# -- rows 3 and 8 in bf16: the tensor-core kernels -----------------------------
+
+TC_FLASH_CASES = [  # (B, T, Hq, Hkv, D, causal): ragged T, GQA, D=32, causal and not
+    (2, 1, 4, 4, 64, True), (2, 63, 4, 4, 64, True), (2, 65, 4, 2, 64, False),
+    (2, 100, 4, 4, 64, True), (1, 1000, 8, 2, 64, True), (2, 100, 4, 2, 32, False),
+    (2, 256, 4, 4, 32, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 8.0])
+@pytest.mark.parametrize("case", TC_FLASH_CASES, ids=lambda c: "b{}t{}h{}kv{}d{}{}".format(
+    *c[:5], "c" if c[5] else "n"))
+def test_flash_fwd_bf16_matches_plain_and_repeats_bitwise(cuda, case, scale):
+    """The bf16 forward on the tensor cores against its plain version, with
+    q and k scaled so that the scores reach the masking and max paths, and
+    two launches giving the same bits."""
+    b, t, hq, h_kv, d, causal = case
+    gen = torch.Generator().manual_seed(t + hq + d)
+    for fused in ([True, False] if hq == h_kv else [False]):
+        q, k, v, offs = _flash_operands(gen, torch.bfloat16, b, t, hq, h_kv, d, fused)
+        if fused:
+            q = k = v = q * scale
+        else:
+            q, k = q * scale, k * scale
+        geo = (hq, h_kv, d, offs, causal)
+        before = tfn.flash_fwd.launches
+        out, lse = tfn.flash_fwd(q, k, v, *geo)
+        out2, lse2 = tfn.flash_fwd(q, k, v, *geo)
+        assert tfn.flash_fwd.launches == before + 2
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        out_p, lse_p = tfn._fwd_plain(q, k, v, *geo)
+        _held(out, out_p, torch.bfloat16)
+        _held(lse, lse_p, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [2, 4])
+def test_flash_bthd_gqa_runs_the_bf16_forward(cuda, g):
+    gen = torch.Generator().manual_seed(g)
+    b, t, hq, d = 2, 200, 8, 64
+    q, k, v, offs = _flash_operands(gen, torch.bfloat16, b, t, hq, hq // g, d, False)
+    before = tfn.flash_fwd.launches
+    out = tfn.flash_bthd(q, k, v, hq, hq // g, causal=True)
+    assert tfn.flash_fwd.launches == before + 1
+    _held(out, tfn._fwd_plain(q, k, v, hq, hq // g, d, offs, True)[0], torch.bfloat16)
+
+
+TC_BLOCK_CASES = [  # (B, T, H): ragged T, the longest T, one to four heads, the char-LM width
+    (3, 100, 4), (2, 320, 2), (2, 1, 4), (2, 63, 3), (2, 65, 1), (8, 256, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 8.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("epilogue", ["fused", "separate"])
+@pytest.mark.parametrize("case", TC_BLOCK_CASES, ids=lambda c: "b{}t{}h{}".format(*c))
+def test_fused_block_bf16_matches_plain_and_repeats_bitwise(cuda, case, epilogue, causal,
+                                                            scale):
+    """The bf16 block on the tensor cores against its plain version, two
+    launches bitwise. ``scale`` multiplies x, whose LayerNorm statistics it
+    moves; the weights stay at the layer's scale: weights eight times larger
+    make the scores 64 times larger, where the plain version on the card and
+    on the CPU already disagree past the bound (one bf16 rounding of q or k
+    moves a score past the next)."""
+    b, t, h = case
+    x, ln, weights = _block_operands(torch.Generator().manual_seed(t + h), torch.bfloat16, b, t,
+                                     h)
+    x = x * scale
+    kw = dict(num_heads=h, epilogue=epilogue, causal=causal)
+    before = tfb.fused_block.launches
+    got = tfb.fused_block(x, ln, *weights, **kw)
+    again = tfb.fused_block(x, ln, *weights, **kw)
+    assert tfb.fused_block.launches == before + 2
+    assert torch.equal(got, again)
+    want = tfb.fused_block_plain(x, ln, *weights, **kw)
+    assert got.shape == want.shape == (b, t, 64 * h)
+    _held(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_reject_misaligned_bf16_operands(cuda):
+    """Both kernels copy 16-byte pieces: a bf16 view at an odd element
+    offset, or head offsets off the 8-element grid, raise."""
+    b, t, h, d = 2, 64, 4, 64
+    buf = torch.zeros(b * t * 3 * h * d + 1, dtype=torch.bfloat16, device=cuda)
+    odd = buf[1:].view(b, t, 3 * h * d)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError):
+        tfn.flash_fwd(odd, odd, odd, h, h, d, (0, h * d, 2 * h * d), True)
+    even = buf[:-1].view(b, t, 3 * h * d)
+    with pytest.raises(ValueError):
+        tfn.flash_fwd(even, even, even, h, h, d, (4, h * d + 4, 2 * h * d - 4), True)
+    tfn.flash_fwd(even, even, even, h, h, d, (0, h * d, 2 * h * d), True)  # aligned: runs
+    x, ln, weights = _block_operands(torch.Generator().manual_seed(1), torch.bfloat16, b, t, h)
+    xbuf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    xbuf[1:] = x.reshape(-1)
+    with pytest.raises(ValueError):
+        tfb.fused_block(xbuf[1:].view(b, t, h * d), ln, *weights, num_heads=h)
+
+
+@pytest.mark.cuda
+def test_tensor_core_occupancy_is_what_the_declarations_leave_room_for(cuda):
+    """Resident CTAs per SM as the card reports them: at least 2 for row 8
+    at T=256 and 3 for row 3 at D=64 (bf16)."""
+    assert tfn.occupancy(64, torch.bfloat16) >= 3
+    assert tfn.occupancy(32, torch.bfloat16) >= 3
+    for epilogue in tfb.EPILOGUES:
+        assert tfb.occupancy(256, epilogue, torch.bfloat16) >= 2
+        assert tfb.occupancy(tfb.MAX_T, epilogue, torch.bfloat16) >= 1
 
 
 # -- the fused attention half of a block -------------------------------------

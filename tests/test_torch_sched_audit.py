@@ -10,6 +10,9 @@ package's schedule audit.
 * Every non-demo target traces at full width on ``meta`` tensors and is
   clean; each launches the kernels it names.
 * Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``.
+* Rows 3 and 8's bf16 (tensor-core) declarations leave room for 3 and 2
+  resident CTAs per SM, the f32 (CUDA-core) ones are unchanged, and the
+  targets that trace them stay clean.
 * The CLI's exit codes: ``sched`` 0, ``sched --target badpallas`` 1.
 * Row 12's plain version against the fixture's two ``pallas_call``s, taken
   from ``jax.make_jaxpr`` of the fixture's own step and rebound with
@@ -46,6 +49,8 @@ from rocket_tpu_torch.analysis.sched_audit import (
 from rocket_tpu_torch.ops import _launch
 from rocket_tpu_torch.ops import badpallas as tbp
 from rocket_tpu_torch.ops import flash_attention as tfa
+from rocket_tpu_torch.ops import flash_native as tfn
+from rocket_tpu_torch.ops import fused_block as tfb
 from rocket_tpu_torch.utils.perf import device_spec
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -167,6 +172,76 @@ def test_flash_qkv_declarations_equal_smem_bytes(d):
     with _launch.record_launches() as facts:
         tfa.flash_qkv_fwd(qkv, True, 64, 64)
     assert [f.dynamic_smem for f in facts] == [tfa.smem_bytes("fwd", 64, 64, d)]
+
+
+#: Shared memory an SM holds for resident CTAs (228 KB), each CTA also
+#: taking 1 KB the card reserves for it.
+SM_SMEM, CTA_RESERVED = 233_472, 1024
+
+
+@pytest.mark.parametrize("kernel,fact,ctas", [
+    ("flash_fwd D=64", tfn.flash_launch("flash_fwd", 8, 1024, 12, 12, 64, torch.bfloat16, 2304,
+                                        2304), 3),
+    ("flash_fwd D=32", tfn.flash_launch("flash_fwd", 64, 128, 4, 4, 32, torch.bfloat16, 384,
+                                        384), 3),
+    ("fused_block separate", tfb.fused_block_launch(128, 256, 256, 4, torch.bfloat16,
+                                                    "separate"), 2),
+    ("fused_block fused", tfb.fused_block_launch(128, 256, 256, 4, torch.bfloat16, "fused"), 2),
+])
+def test_bf16_declarations_leave_room_for_resident_ctas(kernel, fact, ctas):
+    """The tensor-core kernels at their main shapes (rows 3 and 8): bf16
+    tiles leave room for ``ctas`` resident CTAs per SM by shared memory."""
+    assert ctas * (fact.dynamic_smem + fact.static_smem + CTA_RESERVED) <= SM_SMEM, kernel
+    assert fact.threads == 128
+
+
+#: (kind, D) -> dynamic shared memory of the f32 flash kernels, and T ->
+#: that of the f32 fused block: the CUDA-core kernels, not redesigned.
+F32_FLASH_SMEM = {("flash_fwd", 64): 66_560, ("flash_fwd", 32): 41_984,
+                  ("flash_bwd", 64): 100_352, ("flash_dq", 64): 83_712}
+F32_BLOCK_SMEM = {256: 166_912, 320: 200_192, 100: 100_352}
+
+
+def test_f32_declarations_are_unchanged():
+    for (kind, d), smem in F32_FLASH_SMEM.items():
+        fact = tfn.flash_launch(kind, 8, 1024, 12, 12, d, torch.float32, 36 * d, 36 * d)
+        assert (fact.dynamic_smem, fact.static_smem, fact.threads) == (smem, 0, 128), kind
+        assert fact.grid == (16, 12, 8)
+    for dtype in (torch.float32, torch.bfloat16):  # the backward kernels run f32 FMA in both
+        for kind, smem in (("flash_bwd", 100_352), ("flash_dq", 83_712)):
+            assert tfn.flash_launch(kind, 8, 1024, 12, 12, 64, dtype, 2304,
+                                    2304).dynamic_smem == smem
+    for t, smem in F32_BLOCK_SMEM.items():
+        for epilogue in tfb.EPILOGUES:
+            fact = tfb.fused_block_launch(128, t, 256, 4, torch.float32, epilogue)
+            assert (fact.dynamic_smem, fact.threads, fact.grid) == (smem, 128, (4, 128, 1))
+    fused = tfb.fused_block_launch(128, 256, 256, 4, torch.float32, "fused")
+    assert {rc for rc, _, _ in fused.tiles} >= {(32, 64), (64, 64)}
+    assert (32, 128) not in {rc for rc, _, _ in fused.tiles}
+
+
+@pytest.mark.parametrize("name", ["train_flash", "train_flash_long", "fused_kernels"])
+def test_targets_trace_the_tensor_core_declarations_and_stay_clean(name):
+    """The bf16 targets of rows 3 and 8 declare the tensor-core kernels'
+    shared memory (bf16 tiles at padded strides) and RKT504 finds nothing."""
+    report = run_sched_target(SCHED_TARGETS[name])
+    assert report.clean, [f.render() for f in report.findings]
+    smem = {f.name: f.dynamic_smem for f in report.launches}
+    if name.startswith("train_flash"):
+        assert smem["flash_fwd"] == 2 * 5 * 64 * (64 + 8) == 46_080
+    else:
+        assert smem["fused_block"] == 110_080
+        fused = [f for f in report.launches if f.name == "fused_block"]
+        assert {(32, 128) in {rc for rc, _, _ in f.tiles} for f in fused} == {True, False}
+
+
+def test_bf16_block_smem_follows_t_and_the_out_columns_follow_d():
+    assert [tfb._smem_bytes(t, torch.bfloat16) for t in (1, 64, 65, 256, 320)] == [
+        54_784, 54_784, 73_216, 110_080, 128_512]
+    assert tfb._out_cols(256, torch.bfloat16) == (128, 128)
+    assert tfb._out_cols(192, torch.bfloat16) == (128, 64)
+    assert tfb._out_cols(64, torch.bfloat16) == (64,)
+    assert tfb._out_cols(256, torch.float32) == (64,)
 
 
 def test_audit_schedule_prices_any_step_and_rejects_an_unknown_card():
