@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``rocket_tpu_torch/csrc`` with
 their launches (every non-demo target of ``python -m rocket_tpu_torch.
 analysis sched`` clean on this card, and every kernel's declared grid,
 threads and shared memory equal to its library's query), holds
-each against its plain PyTorch version at its path's shapes, and times the
+each against its plain PyTorch version at its path's shapes (the paged
+decode kernel also at a 4096-row context, two calls bitwise), and times the
 flash backward under both dq strategies (f32 partials, or the separate
 accumulating dq kernel) at T=1024 and 2048; the first-generation flash
 kernels on the stacked (3, B, H, T, D) operand at GPT-2's attention width,
@@ -206,8 +207,8 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 
 def _declared_launches() -> list:
     """(kernel, shapes, declared LaunchFact, the built library's query) for
-    every kernel at its main path's shapes: the serve wave and generate()
-    (rows 1-2), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
+    every kernel at its main path's shapes: the serve wave (row 1's split and
+    combine, also at the long-context table) and generate() (rows 1-2), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
     the D=32 bf16 forward), rows 6-7 at both tiles, the char-LM fused block
     under both epilogues, bf16 and f32 (row 8), the three
     BN passes at ResNet-18 CIFAR's four shapes (rows 9-10), the MoE
@@ -216,10 +217,12 @@ def _declared_launches() -> list:
     launches. The BN grids are sized by a meta tensor priced as this card,
     as the audit sizes them."""
     bf16, f32 = torch.bfloat16, torch.float32
-    rows = [
-        ("paged_decode", "S=8 MB=64 BL=16 Hq=Hkv=12 D=64 bf16",
-         pa.paged_decode_launch(8, 12, 12, 64, 513, 16, 64, bf16),
-         pa.launch_info(8, 12, 12, 64, bf16)),
+    rows = []
+    for mb in (64, 256):
+        for fact, built in zip(pa.paged_decode_launches(8, 12, 12, 64, 1 + 8 * mb, 16, mb, bf16),
+                               pa.launch_info(8, 12, 12, 64, mb, 16, bf16)):
+            rows.append((fact.name, f"S=8 MB={mb} BL=16 Hq=Hkv=12 D=64 bf16", fact, built))
+    rows += [
         ("decode_attention", "B=4 T=192 Hq=Hkv=12 D=64 bf16",
          da.decode_attention_launch(4, 12, 12, 192, 64, bf16), da.launch_info(4, 12, 12, 64, bf16)),
     ]
@@ -304,13 +307,21 @@ def launch_audit_phase(card):
 
 # -- phase 3: kernels against their plain versions -------------------------
 
-def paged_case(dtype, h_kv, gen):
-    """The serve path's decode wave: S=8 slots, MB=64 pages of BL=16, D=64,
-    Hq=12; positions at 0, block boundaries and 1023; pages past each
-    slot's live length point at the trash block 0."""
-    s, mb, bl, d, hq = 8, 64, 16, 64, 12
+#: Row 1's cases: the serve path's decode wave (MB=64 pages of BL=16, slot
+#: positions at 0, page boundaries and 1023) and a long context (MB=256,
+#: positions spread to 4095), S=8, D=64, Hq=12.
+PAGED_POSITIONS = {64: [0, 15, 16, 17, 255, 511, 700, 1023],
+                   256: [0, 63, 64, 700, 1500, 2600, 3500, 4095]}
+
+
+def paged_case(dtype, h_kv, gen, mb=64):
+    """Operands of one decode wave over ``mb`` pages of 16 rows per slot
+    (pages past each slot's live length point at the trash block 0), and
+    its bytes and flops: the live K and V rows read once, q read and out
+    written once, the live table entries and the positions."""
+    s, bl, d, hq = 8, 16, 64, 12
     nb = 1 + s * mb
-    positions = torch.tensor([0, 15, 16, 17, 255, 511, 700, 1023], dtype=torch.int32)
+    positions = torch.tensor(PAGED_POSITIONS[mb], dtype=torch.int32)
     table = torch.zeros((s, mb), dtype=torch.int32)
     for i, p in enumerate(positions.tolist()):
         live = p // bl + 1
@@ -327,37 +338,52 @@ def paged_case(dtype, h_kv, gen):
 
 
 def check_paged(timer, gen):
-    entry = None
-    for dtype in (torch.bfloat16, torch.float32):
-        for h_kv in (12, 4):
-            ops, nbytes, flops = paged_case(dtype, h_kv, gen)
-            got = pa.paged_decode(**ops)
-            want = pa.paged_decode_plain(**ops)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            require(math.isfinite(err) and err <= TOL[dtype],
-                    f"paged_decode {dtype} Hkv={h_kv}: max abs err {err} > {TOL[dtype]}")
-            # Library yardstick: SDPA over the gathered context (gather untimed).
-            s, hq, d = ops["q"].shape
-            k = pa.paged_gather(ops["k_pages"], ops["block_table"]).transpose(1, 2)
-            v = pa.paged_gather(ops["v_pages"], ops["block_table"]).transpose(1, 2)
-            k = k.repeat_interleave(hq // h_kv, 1).contiguous()
-            v = v.repeat_interleave(hq // h_kv, 1).contiguous()
-            mask = (torch.arange(k.shape[2], device="cuda")[None, :]
-                    <= ops["positions"][:, None].long())[:, None, None, :]
-            q4 = ops["q"][:, :, None, :]
-            row = {
-                "dtype": str(dtype).removeprefix("torch."), "s": s, "hq": hq, "hkv": h_kv,
-                "d": d, "max_abs_err": err, "tol": TOL[dtype],
-                "ms": timer.ms(lambda: pa.paged_decode(**ops)),
-                "plain_ms": timer.ms(lambda: pa.paged_decode_plain(**ops)),
-                "library_ms": timer.ms(
-                    lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask)),
-            }
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
-            emit("parity_paged_decode", **row)
-            if dtype == torch.bfloat16 and h_kv == 12:  # GPT-2's serving shape
-                entry = row
+    """Row 1 against its plain version (max abs error) at the serve wave in
+    both dtypes, MHA and GQA, and at the long context in bf16; two calls
+    bitwise; each timed beside the plain version, SDPA over the gathered
+    context (the gather untimed) and its bound. Returns the serve wave's
+    bf16 MHA row, with the long context's under ``"long_context"``."""
+    entry = long_row = None
+    for mb, dtype, h_kv in ((64, torch.bfloat16, 12), (64, torch.bfloat16, 4),
+                            (64, torch.float32, 12), (64, torch.float32, 4),
+                            (256, torch.bfloat16, 12)):
+        ops, nbytes, flops = paged_case(dtype, h_kv, gen, mb)
+        got = pa.paged_decode(**ops)
+        again = pa.paged_decode(**ops)
+        want = pa.paged_decode_plain(**ops)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        require(math.isfinite(err) and err <= TOL[dtype],
+                f"paged_decode {dtype} Hkv={h_kv} MB={mb}: max abs err {err} > {TOL[dtype]}")
+        require(torch.equal(got, again), f"paged_decode {dtype} Hkv={h_kv} MB={mb}: "
+                "two calls differ")
+        s, hq, d = ops["q"].shape
+        k = pa.paged_gather(ops["k_pages"], ops["block_table"]).transpose(1, 2)
+        v = pa.paged_gather(ops["v_pages"], ops["block_table"]).transpose(1, 2)
+        k = k.repeat_interleave(hq // h_kv, 1).contiguous()
+        v = v.repeat_interleave(hq // h_kv, 1).contiguous()
+        mask = (torch.arange(k.shape[2], device="cuda")[None, :]
+                <= ops["positions"][:, None].long())[:, None, None, :]
+        q4 = ops["q"][:, :, None, :]
+        row = {
+            "dtype": str(dtype).removeprefix("torch."), "s": s, "mb": mb, "bl": 16, "hq": hq,
+            "hkv": h_kv, "d": d, "n_split": pa.num_splits(mb, 16),
+            "positions": PAGED_POSITIONS[mb], "max_abs_err": err, "tol": TOL[dtype],
+            "deterministic": True,
+            "ms": timer.ms(lambda: pa.paged_decode(**ops)),
+            "plain_ms": timer.ms(lambda: pa.paged_decode_plain(**ops)),
+            "library_ms": timer.ms(
+                lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask)),
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+        emit("parity_paged_decode", **row)
+        if (mb, dtype, h_kv) == (64, torch.bfloat16, 12):  # GPT-2's serving shape
+            entry = row
+        elif mb == 256:
+            long_row = row
+        del ops, k, v, got, again, want
+    entry["long_context"] = {key: long_row[key] for key in (
+        "mb", "n_split", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     return entry
 
 
@@ -2576,6 +2602,17 @@ def main() -> int:
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
         for name, info in built.items()},
+         # Rows 1 and 6 (bf16, redesigned): registers per thread and
+         # resident CTAs per SM at the serve wave and at GPT-2's D=64.
+         redesigned={
+             **{f"paged_decode {which} bf16 g=1 D=64": {
+                 "registers": pa.attribute(which, "registers", 1, 64, torch.bfloat16),
+                 "ctas_per_sm": pa.attribute(which, "ctas", 1, 64, torch.bfloat16)}
+                for which in ("split", "combine")},
+             **{f"flash_qkv_fwd bf16 D=64 {bq}x{bk}": {
+                 "registers": fqa.registers("fwd", 64, bq, bk, torch.bfloat16),
+                 "ctas_per_sm": fqa.occupancy("fwd", 64, bq, bk, torch.bfloat16)}
+                for bq in fqa.TILES for bk in fqa.TILES}},
          # Rows 6-7: resident CTAs per SM of each D=64 instantiation.
          flash_qkv_occupancy={
              f"{kind} {str(dt).removeprefix('torch.')} {bq}x{bk}": fqa.occupancy(kind, 64, bq, bk,

@@ -1,12 +1,12 @@
-// Shared core of the two decode kernels: single-query-position GQA
-// attention over n key rows, with an online (flash-style) softmax in f32.
+// Core of the cached decode kernel (decode_attention.cu): single-query-
+// position GQA attention over n key rows, with an online (flash-style)
+// softmax in f32.
 //
 // One CTA serves one (batch row or slot, kv head): the g = Hq / Hkv query
 // rows of that kv head are answered from ONE pass over its key/value rows,
 // so K/V are read from device memory once per kv head (native GQA, no
 // head repeat). Rows are walked in tiles of kTile; a RowAddr functor maps
-// a key row to its element offset, which is the only thing the paged and
-// the contiguous layouts disagree on.
+// a key row to its element offset.
 //
 // Per tile:
 //   1. row offsets into shared memory (one block-table lookup per row);

@@ -1,6 +1,5 @@
-// First-generation flash attention on one stacked (3, B, H, T, D) q/k/v
-// operand: forward (rkt_flash_qkv_fwd) and fused one-pass backward
-// (rkt_flash_qkv_bwd).
+// Flash attention on one stacked (3, B, H, T, D) q/k/v operand: forward
+// (rkt_flash_qkv_fwd) and fused one-pass backward (rkt_flash_qkv_bwd).
 //
 // Replaces: rocket_tpu/ops/flash_attention.py, _fwd_kernel (:102) launched
 // by _fwd (pallas_call at :202), and _bwd_kernel (:232) launched by _bwd
@@ -35,29 +34,51 @@
 //
 // Tiles: BQ x BK in {64, 128}^2, a template parameter each (causal needs
 // BQ == BK; the entry points refuse anything else), head dim D in {32, 64},
-// f32 or bf16 operands: 32 instantiations. 256 threads form a 16 x 16
-// grid (ty, tx): in a score tile thread (ty, tx) owns rows ty + 16 i and
-// columns tx + 16 j; in an output tile the same rows and columns tx + 16 c
-// (c < D / 16). The 16 threads of a row are 16 neighbouring lanes, so a
-// row's max and sum reduce with four xor-shuffles. Tiles are staged in
-// shared memory as f32 with a padded row stride D + 1. At BQ = BK = 128,
-// D = 64, f32 the backward takes 200 KB of dynamic shared memory (q, k, v
-// and dO tiles of 33 KB each, one 66 KB score tile shared by round(p) and
-// then round(ds)); each instantiation raises its own cap.
+// f32 or bf16 operands: 32 instantiations of each direction.
+//
+// The bf16 forward (the tuner's flash_fwd path) runs on the tensor cores:
+// each warp owns 16 query rows, so BQ = 64 is 4 warps and BQ = 128 is 8.
+// The Q tile is copied once by cp.async and held as mma A fragments; K and
+// V stream through a two-stage cp.async ring of bf16 BK x D tiles at row
+// stride D + 8 (ldmatrix free of bank conflicts), tile ik + 1 in flight
+// while ik is computed. Each stage is BK / 64 steps of 64 keys: S = Q.K^T
+// and O += P.V on mma.sync m16n8k16 with f32 accumulators (mma_common.cuh's
+// qk_tile / pv_tile), the online softmax stepping once per 64 keys (the
+// same sum as one step per BK tile, regrouped), P rounded to bf16 and
+// re-packed from the score accumulators into A fragments, never touching
+// shared memory. On a causal diagonal tile a warp skips the 64-key steps
+// that lie wholly above its rows (their p is 0: skipping them changes no
+// bit). Shared memory is (BQ + 4 BK) (D + 8) bf16: 46,080 B at 64 x 64 and
+// 92,160 B at 128 x 128 (D = 64), so four and two CTAs fit an SM by
+// shared memory.
+//
+// The f32 forward and the backward in both dtypes keep the first kernel:
+// 256 threads form a 16 x 16 grid (ty, tx); in a score tile thread (ty,
+// tx) owns rows ty + 16 i and columns tx + 16 j; in an output tile the
+// same rows and columns tx + 16 c (c < D / 16). The 16 threads of a row are
+// 16 neighbouring lanes, so a row's max and sum reduce with four
+// xor-shuffles. Tiles are staged in shared memory as f32 with a padded row
+// stride D + 1, register-tiled f32 FMA over them. At BQ = BK = 128, D = 64,
+// f32 the backward takes 200 KB of dynamic shared memory (q, k, v and dO
+// tiles of 33 KB each, one 66 KB score tile shared by round(p) and then
+// round(ds)); each instantiation raises its own cap. TF32 mma would miss
+// the f32 parity bound of 1e-4.
 //
 // Bound on the H100 at GPT-2 shapes (bf16, B = 8, H = 12, T = 1024,
 // D = 64, causal): forward bytes (qkv read once, O and lse written once,
 // ~51 MB, ~0.015 ms) against 2 products per visible pair (~12.9 GFLOP,
 // ~0.013 ms): bytes. Backward: 5 products per visible pair (~32 GFLOP,
 // ~0.033 ms) against its bytes, which with the bf16 dq partials (nk copies
-// of dq) are ~190 MB at block_k = 128 (~0.057 ms). Design response of this
-// first kernel: register-tiled f32 FMA over shared-memory tiles, causal
-// tiles skipped; tensor cores (mma.sync, wgmma) and TMA are later work.
+// of dq) are ~190 MB at block_k = 128 (~0.057 ms). Left for later: wgmma
+// with TMA loads, and the backward on the tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "launch_info.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -229,6 +250,137 @@ qkv_fwd_kernel(const T* qkv, T* out, float* lse, int batch, int heads, int t, fl
   }
 }
 
+// The bf16 forward on the tensor cores (see the note at the head): 2 * BQ
+// threads, one warp per 16 query rows.
+template <int D, int BQ, int BK>
+constexpr size_t fwd_tc_smem() {
+  return sizeof(__nv_bfloat16) * (BQ + 4 * BK) * (D + rkt_mma::kPad);
+}
+
+// cp.async rows [row0, row0 + R) of a contiguous (T, D) bf16 plane into
+// dst at row stride D + 8, 64 rows a call.
+template <int R, int D, int THREADS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* plane,
+                                           int row0, int t) {
+  constexpr int LD = D + rkt_mma::kPad;
+#pragma unroll
+  for (int r = 0; r < R; r += rkt_mma::kKeys)
+    rkt_mma::cp_async_rows<D, LD, THREADS>(dst + r * LD, plane, row0 + r, t, D, 0);
+}
+
+// Four CTAs of 4 warps or two of 8 per SM: at most 128 registers a thread.
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ, 256 / BQ)
+qkv_fwd_tc_kernel(const __nv_bfloat16* qkv, __nv_bfloat16* out, float* lse, int batch, int heads,
+                  int t, float scale2, int causal) {
+  using namespace rkt_mma;
+  constexpr int kThr = 2 * BQ;
+  constexpr int LD = D + kPad;
+  constexpr int kStage = BK * LD;  // elements of one K (or V) stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + BQ * LD;     // two stages
+  __nv_bfloat16* v_s = k_s + 2 * kStage;  // two stages
+
+  const int nq = t / BQ;
+  const int iq = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = iq * BQ;
+  const long long plane = static_cast<long long>(t) * D;
+  const long long bh = static_cast<long long>(b) * heads + h;
+  const long long stack = static_cast<long long>(batch) * heads * plane;
+  const __nv_bfloat16* qp = qkv + bh * plane;
+  const __nv_bfloat16* kp = qp + stack;
+  const __nv_bfloat16* vp = kp + stack;
+
+  stage_rows<BQ, D, kThr>(q_s, qp, q0, t);
+  stage_rows<BK, D, kThr>(k_s, kp, 0, t);
+  stage_rows<BK, D, kThr>(v_s, vp, 0, t);
+  cp_async_commit();
+
+  // Rows g and g + 8 of the warp's 16: running max, this thread's share
+  // of the running sum (quad-reduced at the end) and the output.
+  const int warp_row0 = q0 + warp * 16;
+  const int row_a = warp_row0 + lane / 4;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  unsigned qa[D / 16][4];
+
+  const int nk = causal ? iq + 1 : t / BK;  // causal: BQ == BK
+  for (int ik = 0; ik < nk; ++ik) {
+    const int k0 = ik * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile ik has landed; every warp is done with tile ik - 1
+    if (ik + 1 < nk) {
+      const int st = (ik + 1) & 1;
+      stage_rows<BK, D, kThr>(k_s + st * kStage, kp, k0 + BK, t);
+      stage_rows<BK, D, kThr>(v_s + st * kStage, vp, k0 + BK, t);
+      cp_async_commit();
+    }
+    if (ik == 0) load_a_rows<D, LD>(qa, q_s + warp * 16 * LD);
+    const __nv_bfloat16* k_tile = k_s + (ik & 1) * kStage;
+    const __nv_bfloat16* v_tile = v_s + (ik & 1) * kStage;
+    const bool diag = causal && ik == iq;
+#pragma unroll
+    for (int sub = 0; sub < BK / kKeys; ++sub) {
+      const int c0 = k0 + sub * kKeys;
+      if (diag && c0 > warp_row0 + 15) continue;  // wholly above this warp's rows
+      float s[kKeys / 8][4];
+      qk_tile<D, LD>(s, qa, k_tile + sub * kKeys * LD);
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + n * 8 + 2 * (lane % 4) + (e & 1);
+          const int row = row_a + (e >> 1) * 8;
+          const float x = s[n][e] * scale2;
+          s[n][e] = (diag && col > row) ? kNegInf : x;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        const float alpha = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+          s[n][2 * r] = exp2f(s[n][2 * r] - m_new);
+          s[n][2 * r + 1] = exp2f(s[n][2 * r + 1] - m_new);
+          sum += s[n][2 * r] + s[n][2 * r + 1];
+        }
+        l[r] = l[r] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+      pv_tile<D, LD>(o, s, v_tile + sub * kKeys * LD);  // p rounded to bf16 in the packing
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_row = quad_sum(l[r]);
+    const int row = row_a + 8 * r;
+    const float safe_l = l_row == 0.f ? 1.f : l_row;
+    const float inv = 1.f / safe_l;
+    __nv_bfloat16* dst = out + bh * plane + static_cast<long long>(row) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    if (lane % 4 == 0) lse[bh * t + row] = m[r] + log2f(safe_l);
+  }
+}
+
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 qkv_bwd_kernel(const T* qkv, const T* dout, const float* lse, const float* delta,
@@ -397,27 +549,17 @@ qkv_bwd_kernel(const T* qkv, const T* dout, const float* lse, const float* delta
 }
 
 // Raise the dynamic shared-memory cap past the default 48 KB (once per
-// instantiation is enough, but the call is cheap), launch on the caller's
-// stream and return the launch status: a refused launch never runs.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+// instantiation is enough, but the call is cheap) and, for the
+// tensor-core forward, ask for the whole carveout as shared memory, so
+// its CTAs fit an SM side by side. Returns the cudaError_t.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, bool carveout) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Kernel>
-int occupancy(Kernel kernel, size_t smem) {
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess)
-    return -1;
-  int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
-      cudaSuccess)
-    return -1;
-  return blocks;
+  if (err == cudaSuccess && carveout)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 struct FwdArgs {
@@ -444,29 +586,88 @@ inline dim3 tile_grid(int t, int block, int heads, int batch) {
   return dim3(t / block, heads, batch);
 }
 
+// The kernel, threads and dynamic shared memory of one instantiation
+// (which 0: forward, 1: backward): the bf16 forward on the tensor cores,
+// everything else on the CUDA cores.
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T, int D, int BQ, int BK>
+struct Fwd {
+  static constexpr bool tc = kTensorCores<T>;
+  static constexpr int threads = tc ? 2 * BQ : kThreads;
+  static constexpr size_t smem = tc ? fwd_tc_smem<D, BQ, BK>() : fwd_smem<BQ, BK, D>();
+  static auto kernel() {
+    if constexpr (tc) return qkv_fwd_tc_kernel<D, BQ, BK>;
+    else return qkv_fwd_kernel<T, D, BQ, BK>;
+  }
+  static dim3 grid(int batch, int heads, int t) { return tile_grid(t, BQ, heads, batch); }
+};
+
+template <typename T, int D, int BQ, int BK>
+struct Bwd {
+  static constexpr bool tc = false;
+  static constexpr int threads = kThreads;
+  static constexpr size_t smem = bwd_smem<BQ, BK, D>();
+  static auto kernel() { return qkv_bwd_kernel<T, D, BQ, BK>; }
+  static dim3 grid(int batch, int heads, int t) { return tile_grid(t, BK, heads, batch); }
+};
+
+// Launch on the caller's stream and return the launch status: a refused
+// launch never runs.
+template <typename K, typename... Args>
+int launch(dim3 grid, void* stream, Args... args) {
+  auto kernel = K::kernel();
+  const cudaError_t err = prepare(kernel, K::smem, K::tc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, K::threads, K::smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, int BQ, int BK>
 int run_fwd(const FwdArgs& a) {
-  return launch(qkv_fwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BQ, a.heads, a.batch),
-                fwd_smem<BQ, BK, D>(), a.stream,
-                static_cast<const T*>(a.qkv), static_cast<T*>(a.out),
-                static_cast<float*>(a.lse), a.batch, a.heads, a.t, a.scale2, a.causal);
+  using K = Fwd<T, D, BQ, BK>;
+  return launch<K>(K::grid(a.batch, a.heads, a.t), a.stream, static_cast<const T*>(a.qkv),
+                   static_cast<T*>(a.out), static_cast<float*>(a.lse), a.batch, a.heads, a.t,
+                   a.scale2, a.causal);
 }
 
 template <typename T, int D, int BQ, int BK>
 int run_bwd(const BwdArgs& a) {
-  return launch(qkv_bwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BK, a.heads, a.batch),
-                bwd_smem<BQ, BK, D>(), a.stream,
-                static_cast<const T*>(a.qkv), static_cast<const T*>(a.dout),
-                static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-                static_cast<T*>(a.dq_partials), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-                a.batch, a.heads, a.t, a.scale, a.scale2, a.causal);
+  using K = Bwd<T, D, BQ, BK>;
+  return launch<K>(K::grid(a.batch, a.heads, a.t), a.stream, static_cast<const T*>(a.qkv),
+                   static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+                   static_cast<const float*>(a.delta), static_cast<T*>(a.dq_partials),
+                   static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.batch, a.heads, a.t,
+                   a.scale, a.scale2, a.causal);
 }
 
-// which 0: forward, 1: backward. Resident blocks per SM, or -1.
+// Resident CTAs per SM (what 0) or registers per thread (what 1) of one
+// kernel at its threads, shared memory and carveout; -1 when the card
+// refuses it.
+template <typename K>
+int attribute(int what) {
+  auto kernel = K::kernel();
+  if (prepare(kernel, K::smem, K::tc) != cudaSuccess) return -1;
+  if (what == 1) {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
+  }
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, K::threads, K::smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+struct AttrArgs {
+  int which, what;  // which 0: forward, 1: backward; what 0: CTAs per SM, 1: registers
+};
+
 template <typename T, int D, int BQ, int BK>
-int run_occupancy(int which) {
-  return which == 0 ? occupancy(qkv_fwd_kernel<T, D, BQ, BK>, fwd_smem<BQ, BK, D>())
-                    : occupancy(qkv_bwd_kernel<T, D, BQ, BK>, bwd_smem<BQ, BK, D>());
+int run_attribute(const AttrArgs& a) {
+  return a.which == 0 ? attribute<Fwd<T, D, BQ, BK>>(a.what)
+                      : attribute<Bwd<T, D, BQ, BK>>(a.what);
 }
 
 struct QueryArgs {
@@ -474,13 +675,15 @@ struct QueryArgs {
   long long* info;
 };
 
+template <typename K>
+int query(const QueryArgs& a) {
+  return rkt_info::write(K::kernel(), K::grid(a.batch, a.heads, a.t), K::threads, K::smem,
+                         a.info);
+}
+
 template <typename T, int D, int BQ, int BK>
 int run_query(const QueryArgs& a) {
-  if (a.which == 0)
-    return rkt_info::write(qkv_fwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BQ, a.heads, a.batch),
-                           kThreads, fwd_smem<BQ, BK, D>(), a.info);
-  return rkt_info::write(qkv_bwd_kernel<T, D, BQ, BK>, tile_grid(a.t, BK, a.heads, a.batch),
-                         kThreads, bwd_smem<BQ, BK, D>(), a.info);
+  return a.which == 0 ? query<Fwd<T, D, BQ, BK>>(a) : query<Bwd<T, D, BQ, BK>>(a);
 }
 
 // Instantiate RUN<T, D, BQ, BK> for the compiled dtypes (0 = float32,
@@ -540,7 +743,14 @@ extern "C" int rkt_flash_qkv_bwd(const void* qkv, const void* dout, const void* 
 // Resident CTAs per SM of one instantiation (which 0: forward, 1:
 // backward) at its dynamic shared memory, or -1 when the card refuses it.
 extern "C" int rkt_flash_qkv_occupancy(int which, int d, int block_q, int block_k, int dtype) {
-  RKT_QKV_DISPATCH(run_occupancy, dtype, d, block_q, block_k, which);
+  const AttrArgs a{which, 0};
+  RKT_QKV_DISPATCH(run_attribute, dtype, d, block_q, block_k, a);
+}
+
+// Registers per thread of one instantiation, or -1.
+extern "C" int rkt_flash_qkv_registers(int which, int d, int block_q, int block_k, int dtype) {
+  const AttrArgs a{which, 1};
+  RKT_QKV_DISPATCH(run_attribute, dtype, d, block_q, block_k, a);
 }
 
 // The launch geometry of rkt_flash_qkv_fwd (which 0) or rkt_flash_qkv_bwd

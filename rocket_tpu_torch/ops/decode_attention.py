@@ -32,8 +32,8 @@ __all__ = ["decode_attention", "decode_attention_plain", "decode_attention_suppo
            "attend_launch", "attend_smem_bytes", "decode_attention_launch", "launch_info"]
 
 _NEG_INF = -1e30
-#: Threads per CTA and key rows per online-softmax step of both decode
-#: kernels (``kThreads`` and ``kTile`` in ``csrc/decode_common.cuh``).
+#: Threads per CTA and key rows per online-softmax step of the kernel
+#: (``kThreads`` and ``kTile`` in ``csrc/decode_common.cuh``).
 THREADS, KEY_TILE = 128, 64
 
 
@@ -47,10 +47,10 @@ def attend_smem_bytes(g: int, d: int) -> int:
 
 def attend_launch(name: str, grid: tuple, g: int, d: int, dtype, kv_rows: int,
                   extra_tiles: tuple = ()) -> LaunchFact:
-    """The launch of a decode kernel (both share ``attend_rows``): one CTA
-    per (row, kv head) stages the g query rows of its kv head (the whole
-    (g, D) group) and streams K and V in :data:`KEY_TILE`-row tiles out of
-    a ``kv_rows``-row plane, writing g output rows."""
+    """The launch of a kernel built on ``attend_rows``: one CTA per (row,
+    kv head) stages the g query rows of its kv head (the whole (g, D)
+    group) and streams K and V in :data:`KEY_TILE`-row tiles out of a
+    ``kv_rows``-row plane, writing g output rows."""
     group = tile(g, d, dtype, g, d)
     kv = tile(KEY_TILE, d, dtype, kv_rows, d)
     return LaunchFact(name, (*grid, 1), THREADS, attend_smem_bytes(g, d), 0,

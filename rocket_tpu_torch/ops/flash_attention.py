@@ -1,8 +1,10 @@
-"""First-generation flash attention on one stacked ``(3, B, H, T, D)`` q/k/v
-operand (counterpart of ``rocket_tpu/ops/flash_attention.py``).
+"""Flash attention on one stacked ``(3, B, H, T, D)`` q/k/v operand
+(counterpart of ``rocket_tpu/ops/flash_attention.py``).
 
 Two kernels, each hand-written CUDA (``csrc/flash_attention.cu``) with a
-plain PyTorch version of the same signature beside it:
+plain PyTorch version of the same signature beside it (the bf16 forward
+runs on the tensor cores, one warp per 16 query rows; the f32 forward and
+the backward are register-tiled f32 FMA):
 
 * :func:`flash_qkv_fwd` / :func:`_fwd_plain` -> ``(out (B, H, T, D), lse
   (B, H, 1, T) f32)``: f32 scores times ``log2(e)/sqrt(D)``, ``exp2``, lse
@@ -61,7 +63,7 @@ from rocket_tpu_torch.ops._launch import (
 __all__ = [
     "DEFAULT_BLOCK", "HEAD_DIMS", "TILES", "flash_attention", "flash_attention_qkv",
     "flash_qkv_bwd", "flash_qkv_fwd", "pick_block", "resolve_tuned_blocks", "smem_bytes",
-    "qkv_launch", "launch_info",
+    "threads", "qkv_launch", "launch_info", "occupancy", "registers",
 ]
 
 #: Tile sizes the CUDA kernels are compiled for (block_q and block_k each).
@@ -74,8 +76,12 @@ HEAD_DIMS = (32, 64)
 DEFAULT_BLOCK = 128
 #: The reference's entry contract: T a multiple of its smallest block.
 _T_MULTIPLE = 128
-#: Threads per CTA of both kernels (``kThreads`` in ``csrc/flash_attention.cu``).
+#: Threads per CTA of the CUDA-core kernels (``kThreads`` in
+#: ``csrc/flash_attention.cu``); the bf16 forward takes :func:`threads`.
 THREADS = 256
+#: Row padding of the bf16 forward's shared-memory tiles, in elements
+#: (``rkt_mma::kPad``).
+_PAD = 8
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
@@ -90,10 +96,26 @@ def pick_block(t: int, preferred: int = DEFAULT_BLOCK) -> Optional[int]:
     return None
 
 
-def smem_bytes(kind: str, block_q: int, block_k: int, d: int) -> int:
+def _tensor_cores(kind: str, dtype) -> bool:
+    """The bf16 forward runs on the tensor cores; everything else on the
+    CUDA cores. ``dtype`` is a torch dtype or its name."""
+    return kind == "fwd" and str(dtype).removeprefix("torch.") == "bfloat16"
+
+
+def threads(kind: str, block_q: int, dtype) -> int:
+    """Threads per CTA of the ``"fwd"`` or ``"bwd"`` kernel: one warp per 16
+    query rows in the bf16 forward (``2 * block_q``), else :data:`THREADS`."""
+    return 2 * block_q if _tensor_cores(kind, dtype) else THREADS
+
+
+def smem_bytes(kind: str, block_q: int, block_k: int, d: int, dtype) -> int:
     """Dynamic shared memory of one CTA of the ``"fwd"`` or ``"bwd"`` kernel
-    (``fwd_smem`` / ``bwd_smem`` in ``csrc/flash_attention.cu``): f32 tiles
-    with a padded row stride D + 1 and one padded score tile."""
+    (``fwd_tc_smem`` / ``fwd_smem`` / ``bwd_smem`` in
+    ``csrc/flash_attention.cu``). The bf16 forward: the Q tile and two
+    stages of K and V, bf16 at row stride D + 8. Otherwise f32 tiles with a
+    padded row stride D + 1 and one padded score tile."""
+    if _tensor_cores(kind, dtype):
+        return 2 * (block_q + 4 * block_k) * (d + _PAD)
     if kind == "fwd":
         return 4 * ((block_q + 2 * block_k) * (d + 1) + block_q * (block_k + 1))
     return 4 * (2 * (block_q + block_k) * (d + 1) + block_k * (block_q + 1) + 2 * block_q)
@@ -103,17 +125,17 @@ def qkv_launch(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
                block_k: int) -> LaunchFact:
     """The launch of the ``"fwd"`` or ``"bwd"`` kernel on the stacked (3, B,
     H, T, D) operand: one CTA per (q tile forward, k tile backward; head;
-    batch row), every tile a run of rows of one (T, D) head plane, lse and
-    delta ``block_q``-long rows of the (B*H, T) f32 plane; the dynamic
-    shared memory is :func:`smem_bytes`."""
+    batch row) of :func:`threads` threads, every tile a run of rows of one
+    (T, D) head plane, lse and delta ``block_q``-long rows of the (B*H, T)
+    f32 plane; the dynamic shared memory is :func:`smem_bytes`."""
     q_t, k_t = tile(block_q, d, dtype, t, d), tile(block_k, d, dtype, t, d)
     stat = tile(1, block_q, torch.float32, b * h, t)
     if kind == "fwd":
         grid, tiles = t // block_q, (q_t, k_t, k_t, q_t, stat)
     else:                      # k, v staged; q, dout streamed; dq partial, dk, dv
         grid, tiles = t // block_k, (k_t, k_t, q_t, q_t, stat, stat, q_t, k_t, k_t)
-    return LaunchFact(f"flash_qkv_{kind}", (grid, h, b), THREADS,
-                      smem_bytes(kind, block_q, block_k, d), 0, tiles)
+    return LaunchFact(f"flash_qkv_{kind}", (grid, h, b), threads(kind, block_q, dtype),
+                      smem_bytes(kind, block_q, block_k, d, dtype), 0, tiles)
 
 
 def _check_causal_blocks(block_q: int, block_k: int, causal: bool, where: str) -> None:
@@ -199,6 +221,8 @@ def _lib():
         lib.rkt_flash_qkv_bwd.argtypes = [_P] * 7 + [_I] * 6 + [_F, _F, _I, _I, _P]
         lib.rkt_flash_qkv_occupancy.restype = _I
         lib.rkt_flash_qkv_occupancy.argtypes = [_I] * 5
+        lib.rkt_flash_qkv_registers.restype = _I
+        lib.rkt_flash_qkv_registers.argtypes = [_I] * 5
         lib.rkt_flash_qkv_launch_info.restype = _I
         lib.rkt_flash_qkv_launch_info.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     return lib
@@ -217,6 +241,13 @@ def occupancy(kind: str, d: int, block_q: int, block_k: int, dtype: torch.dtype)
     ``"bwd"`` kernel at its shared memory, as the card reports it (-1 when
     it refuses the instantiation). Needs the card."""
     return _lib().rkt_flash_qkv_occupancy(0 if kind == "fwd" else 1, d, block_q, block_k,
+                                          DTYPE_CODES[dtype])
+
+
+def registers(kind: str, d: int, block_q: int, block_k: int, dtype: torch.dtype) -> int:
+    """Registers per thread of one instantiation of the ``"fwd"`` or
+    ``"bwd"`` kernel, as the built library reports them. Needs the card."""
+    return _lib().rkt_flash_qkv_registers(0 if kind == "fwd" else 1, d, block_q, block_k,
                                           DTYPE_CODES[dtype])
 
 
@@ -251,6 +282,9 @@ def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
     if qkv.device.type == "cpu":
         return _fwd_plain(qkv, causal, block_q, block_k)
     _check("flash_qkv_fwd", qkv, block_q, block_k)
+    if qkv.dtype == torch.bfloat16 and qkv.device.type == "cuda" and qkv.data_ptr() % 16:
+        raise ValueError("flash_qkv_fwd: the bf16 kernel copies 16-byte pieces; qkv must be "
+                         "16-byte aligned")
     _, b, h, t, d = qkv.shape
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=qkv.device)

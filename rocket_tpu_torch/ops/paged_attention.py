@@ -11,10 +11,14 @@ point at it and are masked off by position).
   PLACE (``index_copy_`` on the flattened pool) — the JAX package returns
   a new pool and donates the old one; here the update is the donation.
 * C = 1 decode waves run :func:`paged_decode`, the hand-written CUDA
-  kernel ``csrc/paged_decode.cu`` on CUDA tensors (its plain version on
-  CPU tensors). It walks only the slot's live pages. The ``paged_decode``
-  tune table (or ``ROCKET_TPU_PAGED_DECODE``) may pin ``impl="xla"``, the
-  gather path, instead; an empty table keeps the kernel.
+  kernels ``csrc/paged_decode.cu`` on CUDA tensors (its plain version on
+  CPU tensors): a split launch, one CTA per (slot, kv head, chunk of
+  :data:`CHUNK` key rows) that stages the chunk's live pages in shared
+  memory and writes partial softmax statistics into an f32 workspace, then
+  a combine launch that folds the live chunks in a fixed order. The
+  ``paged_decode`` tune table (or ``ROCKET_TPU_PAGED_DECODE``) may pin
+  ``impl="xla"``, the gather path, instead; an empty table keeps the
+  kernel.
 * Prefill chunks (C > 1) run :func:`attend_plain`, the gather + masked
   einsum attention, as the JAX package runs plain XLA there.
 
@@ -40,7 +44,6 @@ from rocket_tpu_torch.ops._launch import (
     stream_of,
     tile,
 )
-from rocket_tpu_torch.ops.decode_attention import attend_launch
 
 __all__ = [
     "write_kv_pages",
@@ -48,10 +51,20 @@ __all__ = [
     "attend_plain",
     "paged_decode",
     "paged_decode_plain",
-    "paged_decode_launch",
+    "paged_decode_launches",
+    "num_splits",
+    "workspace_floats",
     "launch_info",
+    "attribute",
     "paged_attention",
 ]
+
+#: Threads per CTA of both launches, and key rows per split (``kThreads``
+#: and ``kChunk`` in ``csrc/paged_decode.cu``).
+THREADS, CHUNK = 128, 64
+#: Bytes of padding per staged K/V row in shared memory (``kRowPad``).
+_ROW_PAD = 16
+_LOG2E = math.log2(math.e)
 
 
 def write_kv_pages(k_pages, v_pages, block_table, positions, valid, k_new, v_new):
@@ -119,29 +132,78 @@ def _lib():
     fn = lib.rkt_paged_decode
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
-    return fn
+        lib.rkt_paged_decode_workspace.restype = ctypes.c_longlong
+        lib.rkt_paged_decode_workspace.argtypes = [ctypes.c_int] * 6
+        lib.rkt_paged_decode_launch_info.restype = ctypes.c_int
+        lib.rkt_paged_decode_launch_info.argtypes = [ctypes.c_int] * 8 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.rkt_paged_decode_attribute.restype = ctypes.c_int
+        lib.rkt_paged_decode_attribute.argtypes = [ctypes.c_int] * 5
+    return lib
 
 
-def paged_decode_launch(s: int, hq: int, h_kv: int, d: int, nb: int, bl: int, mb: int,
-                        dtype) -> LaunchFact:
-    """The launch of :func:`paged_decode`: CTA (slot, kv head) reads its
-    slot's block-table row and streams the key rows it maps, a row of the
-    (NB*BL*Hkv, D) pool each."""
+def num_splits(mb: int, bl: int) -> int:
+    """Splits per (slot, kv head): ``ceil(MB * BL / CHUNK)``, from the
+    table's static shape alone (no read of the positions)."""
+    return -(-mb * bl // CHUNK)
+
+
+def workspace_floats(s: int, hq: int, h_kv: int, d: int, mb: int, bl: int) -> int:
+    """f32 workspace of one call: per (slot, kv head, split) the g
+    unnormalised accumulator rows of D, then g maxima and g sums."""
+    return s * h_kv * num_splits(mb, bl) * (hq // h_kv) * (d + 2)
+
+
+def _split_smem_bytes(g: int, d: int, dtype) -> int:
+    """Dynamic shared memory of one split CTA (``split_smem`` in
+    ``csrc/paged_decode.cu``): the chunk's K and V rows at a row stride of
+    ``D * itemsize + 16`` bytes, q in f32, a score per (query head, row),
+    the P.V row-group partials, m and l per query head, and the chunk's
+    page ids."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return 2 * CHUNK * (d * item + _ROW_PAD) + 4 * (g * d + g * CHUNK + THREADS + 2 * g) \
+        + 4 * (CHUNK + 4)
+
+
+def paged_decode_launches(s: int, hq: int, h_kv: int, d: int, nb: int, bl: int, mb: int,
+                          dtype) -> tuple:
+    """The two launches of :func:`paged_decode`. Split: CTA (slot, kv head,
+    split) reads its slot's block-table row, stages the g query rows of its
+    kv head (the whole (g, D) group) and the chunk's :data:`CHUNK` K and V
+    rows out of the (NB*BL*Hkv, D) pool, and writes one workspace record.
+    Combine: CTA (slot, kv head) streams the records of its live splits and
+    writes the g output rows."""
+    g, n_split = hq // h_kv, num_splits(mb, bl)
+    group = tile(g, d, dtype, g, d)
+    kv = tile(CHUNK, d, dtype, nb * bl * h_kv, d)
+    record_f = g * (d + 2)
+    rec = tile(1, record_f, torch.float32, s * h_kv * n_split, record_f)
     table_row = tile(1, mb, torch.int32, s, mb)
-    return attend_launch("paged_decode", (s, h_kv), hq // h_kv, d, dtype, nb * bl * h_kv,
-                         (table_row,))
+    return (
+        LaunchFact("paged_decode", (s, h_kv, n_split), THREADS, _split_smem_bytes(g, d, dtype),
+                   0, (group, kv, kv, table_row, rec)),
+        LaunchFact("paged_decode_combine", (s, h_kv, 1), THREADS, 0, 0, (rec, group)),
+    )
 
 
-def launch_info(s: int, hq: int, h_kv: int, d: int, dtype) -> tuple:
-    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
-    built library reports it (needs the card)."""
-    fn = _build.load("paged_decode").rkt_paged_decode_launch_info
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-    return query_launch(fn, s, hq, h_kv, d, DTYPE_CODES[dtype])
+def launch_info(s: int, hq: int, h_kv: int, d: int, mb: int, bl: int, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the split and the
+    combine launch, as the built library reports them (needs the card)."""
+    fn = _lib().rkt_paged_decode_launch_info
+    return tuple(query_launch(fn, which, s, hq, h_kv, d, mb, bl, DTYPE_CODES[dtype])
+                 for which in (0, 1))
+
+
+def attribute(which: str, what: str, g: int, d: int, dtype) -> int:
+    """``"ctas"`` (resident CTAs per SM) or ``"registers"`` (per thread) of
+    the ``"split"`` or ``"combine"`` kernel for g query heads per kv head at
+    head dim d, as the card reports it; -1 when it refuses. Needs the card."""
+    return _lib().rkt_paged_decode_attribute(("split", "combine").index(which),
+                                             ("ctas", "registers").index(what), g, d,
+                                             DTYPE_CODES[dtype])
 
 
 def paged_decode(q, k_pages, v_pages, block_table, positions):
@@ -150,8 +212,9 @@ def paged_decode(q, k_pages, v_pages, block_table, positions):
     written). Returns ``(S, Hq, D)``.
 
     CPU tensors take :func:`paged_decode_plain`; CUDA tensors launch
-    ``csrc/paged_decode.cu`` (counted in ``paged_decode.launches``) or
-    raise — there is no fallback; meta tensors record the launch."""
+    ``csrc/paged_decode.cu``'s split and combine kernels (one call counted
+    in ``paged_decode.launches``) or raise — there is no fallback; meta
+    tensors record both launches."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_table, positions)
     check_cuda_operands(
@@ -182,12 +245,17 @@ def paged_decode(q, k_pages, v_pages, block_table, positions):
         raise ValueError(f"paged_decode: head dim {d} must be a multiple of 8 and <= 256")
     out = torch.empty_like(q)
     if q.device.type == "meta":
-        record([paged_decode_launch(s, hq, h_kv, d, nb, bl, mb, q.dtype)])
+        record(paged_decode_launches(s, hq, h_kv, d, nb, bl, mb, q.dtype))
         return out
-    err = _lib()(
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_decode: k_pages and v_pages must be 16-byte aligned (the "
+                         "kernel stages them in 16-byte copies)")
+    work = torch.empty(workspace_floats(s, hq, h_kv, d, mb, bl), dtype=torch.float32,
+                       device=q.device)
+    err = _lib().rkt_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), s, hq, h_kv, d, nb, bl, mb,
-        1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream_of(q),
+        positions.data_ptr(), out.data_ptr(), work.data_ptr(), s, hq, h_kv, d, nb, bl, mb,
+        _LOG2E / math.sqrt(d), DTYPE_CODES[q.dtype], stream_of(q),
     )
     if err:
         raise RuntimeError(f"paged_decode: kernel launch failed with cudaError {err}")

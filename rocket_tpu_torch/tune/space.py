@@ -155,7 +155,7 @@ def _flash_legal(kind: str):
         if shape.get("h_kv", shape["h"]) != shape["h"]:
             problems.append("the stacked-qkv kernels take h_kv == h only")
         if spec is not None:
-            need = fa.smem_bytes(kind, bq, bk, d)
+            need = fa.smem_bytes(kind, bq, bk, d, dtype)
             if need > spec.smem_bytes:
                 problems.append(f"shared memory {need} B over the {spec.kind} budget "
                                 f"{spec.smem_bytes} B")

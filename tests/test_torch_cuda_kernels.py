@@ -12,7 +12,9 @@ PV product where the decode kernels keep them in float32; the flash
 kernels and their plain versions both round p and ds to bf16, but from
 scores summed in another order, so a rounding can flip by one bf16 step;
 the fused-block kernel rounds xn, qkv, the weights and the heads to bf16
-where its plain version does, from sums in another order). The flash and
+where its plain version does, from sums in another order). The paged
+decode kernel is also held to two calls bitwise: its splits combine in a
+fixed order. The flash and
 fused-block checks hold every element to ``tol * (1 + |want|)``. The
 fused BatchNorm kernels are held to the reference's own bound for them,
 f32 ``5e-5 + 5e-5 * |want|`` (the moments are reassociated f32 sums), and
@@ -54,14 +56,24 @@ def _randn(gen, dtype, *shape):
     return torch.randn(*shape, generator=gen).to(dtype).cuda()
 
 
+#: Slot positions per context: a short table (MB * BL = 144, three splits)
+#: and a long one (MB * BL = 4096, 64 splits): 0, one row before, at and
+#: after a split boundary (64 rows), and the table's last row. Every slot's
+#: table points past its live pages at block 0.
+PAGED_POSITIONS = {9: [0, 15, 16, 100, 143], 256: [0, 63, 64, 65, 1000, 4095]}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("mb", sorted(PAGED_POSITIONS), ids=lambda mb: f"mb{mb}")
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hq,h_kv,d", [(12, 12, 64), (12, 4, 64), (6, 2, 128), (4, 4, 40)])
-def test_paged_decode_matches_plain(cuda, hq, h_kv, d, dtype):
-    gen = torch.Generator().manual_seed(hq * 100 + h_kv + d)
-    s, mb, bl = 5, 9, 16
+@pytest.mark.parametrize("hq,h_kv,d", [(12, 12, 64), (12, 4, 64), (6, 2, 128), (4, 4, 40),
+                                       (12, 4, 256)])
+def test_paged_decode_matches_plain(cuda, hq, h_kv, d, dtype, mb):
+    gen = torch.Generator().manual_seed(hq * 100 + h_kv + d + mb)
+    bl = 16
+    positions = torch.tensor(PAGED_POSITIONS[mb], dtype=torch.int32)
+    s = len(positions)
     nb = 1 + s * mb
-    positions = torch.tensor([0, 15, 16, 100, mb * bl - 1], dtype=torch.int32)
     table = torch.zeros((s, mb), dtype=torch.int32)
     for i, p in enumerate(positions.tolist()):
         live = p // bl + 1
@@ -71,7 +83,9 @@ def test_paged_decode_matches_plain(cuda, hq, h_kv, d, dtype):
     args = (q, kp, vp, table.cuda(), positions.cuda())
     before = tpa.paged_decode.launches
     got = tpa.paged_decode(*args)
-    assert tpa.paged_decode.launches == before + 1
+    again = tpa.paged_decode(*args)
+    assert tpa.paged_decode.launches == before + 2
+    assert torch.equal(got, again)  # the splits combine in a fixed order
     torch.testing.assert_close(got.float(), tpa.paged_decode_plain(*args).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
 
@@ -283,9 +297,14 @@ def test_tensor_core_kernels_reject_misaligned_bf16_operands(cuda):
 @pytest.mark.cuda
 def test_tensor_core_occupancy_is_what_the_declarations_leave_room_for(cuda):
     """Resident CTAs per SM as the card reports them: at least 2 for row 8
-    at T=256 and 3 for row 3 at D=64 (bf16)."""
+    at T=256, 3 for row 3 at D=64, 4 and 2 for row 6 at 64 x 64 and
+    128 x 128 (bf16), and 8 for row 1's split at the serve shape."""
     assert tfn.occupancy(64, torch.bfloat16) >= 3
     assert tfn.occupancy(32, torch.bfloat16) >= 3
+    for d in tfa.HEAD_DIMS:
+        assert tfa.occupancy("fwd", d, 64, 64, torch.bfloat16) >= 4
+        assert tfa.occupancy("fwd", d, 128, 128, torch.bfloat16) >= 2
+    assert tpa.attribute("split", "ctas", 1, 64, torch.bfloat16) >= 8
     for epilogue in tfb.EPILOGUES:
         assert tfb.occupancy(256, epilogue, torch.bfloat16) >= 2
         assert tfb.occupancy(tfb.MAX_T, epilogue, torch.bfloat16) >= 1
@@ -734,9 +753,15 @@ def _declared_and_built(kernel, dtype):
     from rocket_tpu_torch.ops import badpallas as tbp
 
     if kernel == "paged_decode":
-        return [(tpa.paged_decode_launch(s, hq, hkv, d, 9, 16, 4, dtype),
-                 tpa.launch_info(s, hq, hkv, d, dtype))
-                for s, hq, hkv, d in ((8, 12, 12, 64), (3, 12, 4, 128))]
+        lib = tpa._lib()
+        pairs = []
+        for s, hq, hkv, d, mb, bl in ((8, 12, 12, 64, 64, 16), (3, 12, 4, 128, 9, 16),
+                                      (2, 4, 4, 40, 7, 10)):
+            assert lib.rkt_paged_decode_workspace(s, hq, hkv, d, mb, bl) == \
+                tpa.workspace_floats(s, hq, hkv, d, mb, bl)
+            pairs += zip(tpa.paged_decode_launches(s, hq, hkv, d, 1 + s * mb, bl, mb, dtype),
+                         tpa.launch_info(s, hq, hkv, d, mb, bl, dtype))
+        return pairs
     if kernel == "decode_attention":
         return [(tda.decode_attention_launch(b, hq, hkv, 100, d, dtype),
                  tda.launch_info(b, hq, hkv, d, dtype))

@@ -9,7 +9,10 @@ package's schedule audit.
   kinds: one block misaligned on both dims, one over the budget.
 * Every non-demo target traces at full width on ``meta`` tensors and is
   clean; each launches the kernels it names.
-* Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``.
+* Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``;
+  row 6's bf16 forward (tensor cores) and row 1's split and combine
+  launches equal a mirror of the sizes in their ``.cu`` sources, and row
+  1's split count follows the table's shape alone.
 * Rows 3 and 8's bf16 (tensor-core) declarations leave room for 3 and 2
   resident CTAs per SM, the f32 (CUDA-core) ones are unchanged, and the
   targets that trace them stay clean.
@@ -116,8 +119,10 @@ TARGET_KERNELS = {
     "qkv_flash": {"flash_qkv_fwd", "flash_qkv_bwd"},
     "fused_kernels": {"bn_moments", "bn_finalize", "bn_normalize", "fused_block", "gather_gmm",
                       "gmm", "tgmm"},
-    "serve": {"paged_decode", "decode_attention"},
+    "serve": {"paged_decode", "paged_decode_combine", "decode_attention"},
 }
+#: Launches that stage nothing in shared memory.
+NO_SMEM = {"bn_finalize", "paged_decode_combine"}
 
 
 @pytest.mark.parametrize("name", sorted(TARGET_KERNELS))
@@ -128,7 +133,7 @@ def test_every_real_target_is_clean_at_full_width_on_meta(name):
     assert {f.name for f in report.launches} == TARGET_KERNELS[name]
     spec = device_spec(DEFAULT_DEVICE_KIND)
     assert all(0 < f.smem_bytes <= spec.smem_bytes for f in report.launches
-               if f.name != "bn_finalize")
+               if f.name not in NO_SMEM)
 
 
 def _launch_counts() -> dict:
@@ -166,12 +171,101 @@ def test_flash_qkv_declarations_equal_smem_bytes(d):
         for bq in tfa.TILES:
             for bk in tfa.TILES:
                 fact = tfa.qkv_launch(kind, 2, 3, 256, d, torch.bfloat16, bq, bk)
-                assert fact.dynamic_smem == tfa.smem_bytes(kind, bq, bk, d)
+                assert fact.dynamic_smem == tfa.smem_bytes(kind, bq, bk, d, torch.bfloat16)
                 assert fact.static_smem == 0
     qkv = torch.empty((3, 2, 3, 256, d), dtype=torch.bfloat16, device="meta")
     with _launch.record_launches() as facts:
         tfa.flash_qkv_fwd(qkv, True, 64, 64)
-    assert [f.dynamic_smem for f in facts] == [tfa.smem_bytes("fwd", 64, 64, d)]
+    assert [f.dynamic_smem for f in facts] == [tfa.smem_bytes("fwd", 64, 64, d, torch.bfloat16)]
+
+
+def _qkv_fwd_mirror(dtype, d, bq, bk):
+    """(threads, dynamic smem) of row 6's forward as ``csrc/flash_attention.cu``
+    sizes it: bf16 ``Fwd<...>`` on the tensor cores is 2 * BQ threads and
+    ``fwd_tc_smem`` = (BQ + 4 BK) (D + 8) bf16; f32 keeps ``fwd_smem``."""
+    if dtype == torch.bfloat16:
+        return 2 * bq, 2 * (bq + 4 * bk) * (d + 8)
+    return 256, 4 * ((bq + 2 * bk) * (d + 1) + bq * (bk + 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("tiles", [(64, 64), (64, 128), (128, 64), (128, 128)],
+                         ids=lambda c: "q{}k{}".format(*c))
+def test_flash_qkv_fwd_declaration_equals_the_cu_sizes(tiles, d, dtype):
+    bq, bk = tiles
+    fact = tfa.qkv_launch("fwd", 8, 12, 1024, d, dtype, bq, bk)
+    assert (fact.threads, fact.dynamic_smem) == _qkv_fwd_mirror(dtype, d, bq, bk)
+    assert fact.grid == (1024 // bq, 12, 8) and fact.static_smem == 0
+    assert tfa.threads("fwd", bq, "bfloat16" if dtype == torch.bfloat16 else "float32") == \
+        fact.threads
+    # The backward is not redesigned: 256 threads and f32 tiles in both dtypes.
+    bwd = tfa.qkv_launch("bwd", 8, 12, 1024, d, dtype, bq, bk)
+    assert bwd.threads == 256
+    assert bwd.dynamic_smem == 4 * (2 * (bq + bk) * (d + 1) + bk * (bq + 1) + 2 * bq)
+
+
+def test_flash_qkv_bf16_forward_leaves_room_for_resident_ctas():
+    """By shared memory: four CTAs of 64 x 64 and two of 128 x 128 per SM."""
+    for block, ctas in ((64, 4), (128, 2)):
+        fact = tfa.qkv_launch("fwd", 8, 12, 1024, 64, torch.bfloat16, block, block)
+        assert ctas * (fact.dynamic_smem + CTA_RESERVED) <= SM_SMEM
+        assert (ctas + 1) * (fact.dynamic_smem + CTA_RESERVED) > SM_SMEM
+
+
+def _paged_mirror(s, hq, h_kv, d, mb, bl, itemsize):
+    """Row 1's two launches as ``csrc/paged_decode.cu`` sizes them: split
+    grid (S, Hkv, ceil(MB * BL / 64)), 128 threads, ``split_smem``; combine
+    grid (S, Hkv, 1), no shared memory; the workspace record g * (D + 2)
+    floats per (slot, kv head, split)."""
+    g, n_split = hq // h_kv, -(-mb * bl // 64)
+    smem = 2 * 64 * (d * itemsize + 16) + 4 * (g * d + g * 64 + 128 + 2 * g) + 4 * 68
+    return (((s, h_kv, n_split), 128, smem, 0), ((s, h_kv, 1), 128, 0, 0),
+            s * h_kv * n_split * g * (d + 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hq,h_kv,d,mb,bl", [
+    (8, 12, 12, 64, 64, 16),    # the serve wave
+    (8, 12, 12, 64, 256, 16),   # the long-context case
+    (5, 12, 4, 256, 9, 16),     # GQA g = 3, the widest head
+    (3, 4, 4, 40, 7, 10),       # a chunk that straddles pages
+])
+def test_paged_decode_declarations_equal_the_cu_sizes(s, hq, h_kv, d, mb, bl, dtype):
+    from rocket_tpu_torch.ops import paged_attention as tpa
+
+    split, combine = tpa.paged_decode_launches(s, hq, h_kv, d, 1 + s * mb, bl, mb, dtype)
+    want_split, want_combine, work = _paged_mirror(s, hq, h_kv, d, mb, bl,
+                                                   2 if dtype == torch.bfloat16 else 4)
+    assert (split.name, combine.name) == ("paged_decode", "paged_decode_combine")
+    assert split.geometry == want_split and combine.geometry == want_combine
+    assert tpa.workspace_floats(s, hq, h_kv, d, mb, bl) == work
+    spec = device_spec(DEFAULT_DEVICE_KIND)
+    assert check_launches([split, combine], spec) == []
+
+
+def test_paged_decode_split_count_follows_the_table_shape_alone():
+    from rocket_tpu_torch.ops import paged_attention as tpa
+
+    assert [tpa.num_splits(mb, bl) for mb, bl in (
+        (64, 16), (256, 16), (1, 16), (4, 16), (5, 16), (3, 100), (64, 1), (1, 1))] == [
+        16, 64, 1, 1, 2, 5, 1, 1]
+    for mb, bl in ((64, 16), (7, 10), (256, 16)):
+        # positions never enter: a meta call records the same grid for any.
+        args = [torch.empty(shape, dtype=dt, device="meta") for shape, dt in (
+            ((8, 12, 64), torch.bfloat16), ((1 + 8 * mb, bl, 12, 64), torch.bfloat16),
+            ((1 + 8 * mb, bl, 12, 64), torch.bfloat16), ((8, mb), torch.int32),
+            ((8,), torch.int32))]
+        with _launch.record_launches() as facts:
+            tpa.paged_decode(*args)
+        assert [f.grid for f in facts] == [(8, 12, tpa.num_splits(mb, bl)), (8, 12, 1)]
+
+
+def test_serve_target_declares_the_split_and_the_combine():
+    facts = run_sched_target(SCHED_TARGETS["serve"]).launches
+    names = [f.name for f in facts]
+    assert names == ["paged_decode", "paged_decode_combine", "decode_attention"]
+    assert facts[0].grid == (8, 12, 16) and facts[0].dynamic_smem == 19_736
 
 
 #: Shared memory an SM holds for resident CTAs (228 KB), each CTA also
