@@ -9,9 +9,11 @@ their launches (every non-demo target of ``python -m rocket_tpu_torch.
 analysis sched`` clean on this card, and every kernel's declared grid,
 threads and shared memory equal to its library's query), holds
 each against its plain PyTorch version at its path's shapes (the paged
-decode kernel also at a 4096-row context, two calls bitwise), and times the
-flash backward under both dq strategies (f32 partials, or the separate
-accumulating dq kernel) at T=1024 and 2048; the first-generation flash
+decode kernel also at a 4096-row context, two calls bitwise; every flash
+kernel two launches bitwise), times the fused flash backward also without
+dq at T=1024 and 2048, and the whole backward under both dq strategies
+(f32 partials, or the separate accumulating dq kernel) at T=1024 and
+2048; the first-generation flash
 kernels on the stacked (3, B, H, T, D) operand at GPT-2's attention width,
 every tile they compile. Then the tuner (``python -m rocket_tpu_torch.
 tune``) sweeps five cases into a temporary table directory, must reject a
@@ -459,22 +461,24 @@ def _flash_err(got, want, dtype, what):
 
 
 def flash_bounds(b, t, hq, h_kv, d, dtype, causal):
-    """(fwd, bwd, dq) least times of the functions: each input read once,
-    each output written once — fwd reads q/k/v and writes out and lse; bwd
-    reads q/k/v, dout, lse and delta and writes dq, dk and dv; dq reads the
-    same and writes dq — and 2*D flops per visible (query, key) pair and
-    product: 2 products forward, 5 in the fused backward (s, dp, dv, dk,
-    dq), 3 in the dq pass. The f32 dq partials are the kernel's design, not
-    the function's, so they are left out (:func:`dq_partial_bytes`)."""
+    """(fwd, bwd, dq, bwd without dq) least times of the functions: each
+    input read once, each output written once — fwd reads q/k/v and writes
+    out and lse; bwd reads q/k/v, dout, lse and delta and writes dq, dk and
+    dv (without dq: dk and dv); dq reads the same and writes dq — and 2*D
+    flops per visible (query, key) pair and product: 2 products forward, 5
+    in the fused backward (s, dp, dv, dk, dq), 4 without dq, 3 in the dq
+    pass. The f32 dq partials are the kernel's design, not the function's,
+    so they are left out (:func:`dq_partial_bytes`)."""
     item = torch.empty((), dtype=dtype).element_size()
     qkv = b * t * (hq + 2 * h_kv) * d * item
     act = b * t * hq * d * item                  # out, dout or dq
     stats = b * hq * t * 4                       # lse or delta (f32)
     pairs = b * hq * (t * (t + 1) / 2 if causal else t * t)
+    dkv = 2 * b * t * h_kv * d * item
     return (bound_ms(qkv + act + stats, 4 * d * pairs, dtype),
-            bound_ms(qkv + 2 * act + 2 * stats + 2 * b * t * h_kv * d * item,
-                     10 * d * pairs, dtype),
-            bound_ms(qkv + 2 * act + 2 * stats, 6 * d * pairs, dtype))
+            bound_ms(qkv + 2 * act + 2 * stats + dkv, 10 * d * pairs, dtype),
+            bound_ms(qkv + 2 * act + 2 * stats, 6 * d * pairs, dtype),
+            bound_ms(qkv + act + 2 * stats + dkv, 8 * d * pairs, dtype))
 
 
 def dq_partial_bytes(b, t, hq, d):
@@ -485,8 +489,10 @@ def dq_partial_bytes(b, t, hq, d):
 
 def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=False):
     """flash_fwd / flash_bwd / flash_dq against _fwd_plain / _bwd_plain /
-    _dq_plain on the same CUDA tensors, and two forward launches bitwise;
-    with ``time_it`` also the kernel, plain and SDPA times and the bounds."""
+    _dq_plain on the same CUDA tensors, and two launches of each bitwise
+    (the backward also without dq, its dk and dv equal to those with it);
+    with ``time_it`` also the kernel, plain and SDPA times and the bounds,
+    and the backward without dq beside its own bound."""
     (q, k, v), offs = _flash_operands(gen, dtype, b, t, hq, h_kv, d, fused)
     geo = (hq, h_kv, d, offs, causal)
     what = (f"flash {'fused' if fused else 'bthd'} B={b} T={t} Hq={hq} Hkv={h_kv} {dtype} "
@@ -503,17 +509,29 @@ def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=Fals
     delta = (dout.float() * out.float()).reshape(b, t, hq, d).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, dout, lse, delta, *geo)
     dqp, dk, dv = fa.flash_bwd(*args)
+    dqp2, dk2, dv2 = fa.flash_bwd(*args)
+    require(torch.equal(dqp, dqp2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+            f"{what}: two backward launches differ")
+    none, dk2, dv2 = fa.flash_bwd(*args, with_dq=False)
+    require(none is None and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+            f"{what}: dk/dv differ without dq")
+    del dqp2, dk2, dv2
     dqp_p, dk_p, dv_p = fa._bwd_plain(*args)
-    err["bwd"] = max(_flash_err(dqp.sum(0), dqp_p.sum(0), dtype, what + " bwd dq"),
-                     _flash_err(dk, dk_p, dtype, what + " dk"),
-                     _flash_err(dv, dv_p, dtype, what + " dv"))
+    err["bwd_nodq"] = max(_flash_err(dk, dk_p, dtype, what + " dk"),
+                          _flash_err(dv, dv_p, dtype, what + " dv"))
+    err["bwd"] = max(err["bwd_nodq"],
+                     _flash_err(dqp.sum(0), dqp_p.sum(0), dtype, what + " bwd dq"))
     del dqp, dqp_p, dk_p, dv_p
-    err["dq"] = _flash_err(fa.flash_dq(*args), fa._dq_plain(*args), dtype, what + " dq")
+    dq = fa.flash_dq(*args)
+    require(torch.equal(dq, fa.flash_dq(*args)), f"{what}: two dq launches differ")
+    err["dq"] = _flash_err(dq, fa._dq_plain(*args), dtype, what + " dq")
+    del dq
     torch.cuda.synchronize()
     row = {"layout": "fused" if fused else "bthd", "dtype": str(dtype).removeprefix("torch."),
            "b": b, "t": t, "hq": hq, "hkv": h_kv, "d": d, "causal": causal,
-           "max_abs_err": err, "tol": TOL[dtype], "fwd_deterministic": True,
-           "fwd_tensor_cores": fa.tensor_cores("flash_fwd", dtype)}
+           "max_abs_err": err, "tol": TOL[dtype], "deterministic": True,
+           "tensor_cores": {kind: fa.tensor_cores(kind, dtype)
+                            for kind in ("flash_fwd", "flash_bwd", "flash_dq")}}
     if not time_it:
         return row
     heads = lambda a, off, n: a[..., off:off + n * d].reshape(b, t, n, d).transpose(1, 2)  # noqa
@@ -534,6 +552,8 @@ def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=Fals
          bounds[1]),
         ("flash_dq", lambda: fa.flash_dq(*args), lambda: fa._dq_plain(*args), lib_bwd,
          bounds[2]),
+        ("flash_bwd_nodq", lambda: fa.flash_bwd(*args, with_dq=False),
+         lambda: fa._bwd_plain(*args, with_dq=False), lib_bwd, bounds[3]),
     ):
         row[name] = {"ms": ms(kernel), "plain_ms": ms(plain), "library_ms": ms(library),
                      "bound_ms": bound[0], "bound_by": bound[1],
@@ -2602,9 +2622,13 @@ def main() -> int:
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
         for name, info in built.items()},
-         # Rows 1 and 6 (bf16, redesigned): registers per thread and
+         # Rows 1, 4, 5 and 6 (bf16, redesigned): registers per thread and
          # resident CTAs per SM at the serve wave and at GPT-2's D=64.
          redesigned={
+             **{f"{kind} bf16 D=64": {
+                 "registers": fa.registers(64, torch.bfloat16, kind),
+                 "ctas_per_sm": fa.occupancy(64, torch.bfloat16, kind)}
+                for kind in ("flash_bwd", "flash_dq")},
              **{f"paged_decode {which} bf16 g=1 D=64": {
                  "registers": pa.attribute(which, "registers", 1, 64, torch.bfloat16),
                  "ctas_per_sm": pa.attribute(which, "ctas", 1, 64, torch.bfloat16)}
@@ -2619,9 +2643,11 @@ def main() -> int:
                                                                                 dt)
              for kind in ("fwd", "bwd") for dt in (torch.float32, torch.bfloat16)
              for bq in fqa.TILES for bk in fqa.TILES},
-         # Rows 3 and 8: resident CTAs per SM (bf16 on the tensor cores).
-         flash_fwd_occupancy={f"D={d} {str(dt).removeprefix('torch.')}": fa.occupancy(d, dt)
-                              for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)},
+         # Rows 3-5 and 8: resident CTAs per SM (bf16 on the tensor cores).
+         flash_occupancy={f"{kind} D={d} {str(dt).removeprefix('torch.')}":
+                          fa.occupancy(d, dt, kind)
+                          for kind in ("flash_fwd", "flash_bwd", "flash_dq")
+                          for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)},
          fused_block_occupancy={
              f"T={t} {ep} {str(dt).removeprefix('torch.')}": fb.occupancy(t, ep, dt)
              for t in (256, fb.MAX_T) for ep in fb.EPILOGUES

@@ -7,22 +7,26 @@
 // at offsets 0 / H*D / 2*H*D and a GQA operand (B, T, Hkv*D) at offset 0.
 //
 // Tiles are kTile x kTile (block_q == block_k, so causal masking is needed
-// only on the diagonal tile). A tile of rows is staged in shared memory
-// as f32 with a padded row stride D + 1, so the column walks of the
-// products below hit 32 different banks. The 128 threads of a CTA form a
-// 16 x 8 grid (ty, tx): in a 64 x 64 score tile thread (ty, tx) owns rows
-// ty + 16 i (i < 4) and columns tx + 8 j (j < 8); in a 64 x D output tile
-// it owns the same rows and columns tx + 8 c (c < D / 8). The eight
-// threads of a row group are eight neighbouring lanes of one warp, so a
-// row's max and sum reduce with three xor-shuffles. All products are f32
-// FMA; the operand dtype (f32 or bf16) is converted on the load into
-// shared memory, and probabilities / ds are rounded to it where the JAX
-// kernels cast them (round_to).
+// only on the diagonal tile). The bf16 instantiations of all three kernels
+// run on the tensor cores (mma.sync over bf16 tiles filled by cp.async;
+// their pieces are in mma_common.cuh). The f32 instantiations keep the
+// first design, which the rest of this note describes: a tile of rows is
+// staged in shared memory as f32 with a padded row stride D + 1, so the
+// column walks of the products below hit 32 different banks. The 128
+// threads of a CTA form a 16 x 8 grid (ty, tx): in a 64 x 64 score tile
+// thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 8 j
+// (j < 8); in a 64 x D output tile it owns the same rows and columns
+// tx + 8 c (c < D / 8). The eight threads of a row group are eight
+// neighbouring lanes of one warp, so a row's max and sum reduce with three
+// xor-shuffles. All products are f32 FMA; probabilities / ds are rounded
+// to the operand dtype where the JAX kernels cast them (round_to).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace rkt_flash {
 
@@ -33,6 +37,11 @@ constexpr int kRows = kTile / kTy;      // 4 tile rows per thread
 constexpr int kCols = kTile / kTx;      // 8 score columns per thread
 constexpr int kLdS = kTile + 1;         // padded row stride of a score tile
 constexpr float kNegInf = -1e30f;       // the reference's _NEG_INF
+
+// The bf16 instantiations run on the tensor cores, the f32 ones on the
+// CUDA cores.
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -89,18 +98,46 @@ inline size_t smem_bytes(int d, int tiles, int scores, int stats) {
                           + static_cast<size_t>(stats) * kTile);
 }
 
-// Raise the dynamic shared-memory cap past the default 48 KB, launch on the
-// caller's stream and return the launch status (a refused launch never
-// runs, and a later synchronise would not report it).
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+// Let `kernel` take `smem` bytes of dynamic shared memory (past the default
+// 48 KB only by opting in) and, with `max_shared`, the SM's whole carveout
+// as shared memory: several 40-65 KB tensor-core CTAs per SM need it.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, bool max_shared) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
+  if (!max_shared) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Prepare the kernel, launch it on the caller's stream and return the
+// launch status (a refused launch never runs, and a later synchronise
+// would not report it).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, bool max_shared, void* stream, Args... args) {
+  const cudaError_t err = prepare(kernel, smem, max_shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident CTAs per SM (what 0) or registers per thread (what 1) of a
+// prepared kernel, as the card reports them; -1 when it refuses.
+template <typename Kernel>
+int attribute(Kernel kernel, size_t smem, bool max_shared, int what) {
+  if (prepare(kernel, smem, max_shared) != cudaSuccess) return -1;
+  if (what == 1) {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
+  }
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 // Problem geometry shared by the three C entry points.

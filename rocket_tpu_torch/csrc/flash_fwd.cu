@@ -39,8 +39,6 @@
 // FMA over f32 shared-memory tiles (4 x 8 scores and 4 x D/8 outputs per
 // thread). TF32 mma would miss the f32 parity bound of 1e-4, and no main
 // path trains in f32.
-#include <type_traits>
-
 #include "flash_common.cuh"
 #include "launch_info.cuh"
 #include "mma_common.cuh"
@@ -284,8 +282,6 @@ inline dim3 launch_grid(const Geometry& geo) {
   return dim3((geo.t + kTile - 1) / kTile, geo.hq, geo.batch);
 }
 template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-template <typename T>
 size_t launch_smem(int d) {
   if constexpr (kTensorCores<T>)
     return sizeof(__nv_bfloat16) * 5 * kTile * static_cast<size_t>(d + rkt_mma::kPad);
@@ -300,19 +296,13 @@ auto kernel_for() {
   else return flash_fwd_kernel<T, D>;
 }
 
+// Four 46 KB bf16 CTAs per SM need the whole carveout as shared memory.
 template <typename T, int D>
 int run(const void* q, const void* k, const void* v, void* out, void* lse, Geometry geo,
         float scale2, int causal, void* stream) {
-  auto kernel = kernel_for<T, D>();
-  if constexpr (kTensorCores<T>) {
-    // Four 46 KB CTAs per SM need the whole carveout as shared memory.
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return launch(kernel, launch_grid(geo), launch_smem<T>(D), stream, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-                static_cast<float*>(lse), geo, scale2, causal);
+  return launch(kernel_for<T, D>(), launch_grid(geo), launch_smem<T>(D), kTensorCores<T>, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<T*>(out), static_cast<float*>(lse), geo, scale2, causal);
 }
 
 template <typename T, int D>
@@ -320,24 +310,9 @@ int query(Geometry geo, long long* info) {
   return rkt_info::write(kernel_for<T, D>(), launch_grid(geo), kThreads, launch_smem<T>(D), info);
 }
 
-// Resident CTAs per SM of the (dtype, D) kernel at its shared memory and
-// carveout, as the card reports it; -1 when it refuses.
 template <typename T, int D>
-int occupancy() {
-  auto kernel = kernel_for<T, D>();
-  const size_t smem = launch_smem<T>(D);
-  if (smem > 48 * 1024 && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem)) != cudaSuccess)
-    return -1;
-  if (kTensorCores<T> &&
-      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared) != cudaSuccess)
-    return -1;
-  int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
-      cudaSuccess)
-    return -1;
-  return blocks;
+int attr(int what) {
+  return attribute(kernel_for<T, D>(), launch_smem<T>(D), kTensorCores<T>, what);
 }
 
 }  // namespace
@@ -359,10 +334,9 @@ extern "C" int rkt_flash_fwd_launch_info(int batch, int t, int hq, int h_kv, int
   RKT_FLASH_DISPATCH(query, dtype, d, geo, info);
 }
 
-// Resident CTAs per SM of rkt_flash_fwd's (d, dtype) kernel; -1 when the
-// card refuses it or d is not compiled.
+// Resident CTAs per SM of rkt_flash_fwd's (d, dtype) kernel at its shared
+// memory; -1 when the card refuses it or d is not compiled.
 extern "C" int rkt_flash_fwd_occupancy(int d, int dtype) {
-  if (d == 64) return dtype == 1 ? occupancy<__nv_bfloat16, 64>() : occupancy<float, 64>();
-  if (d == 32) return dtype == 1 ? occupancy<__nv_bfloat16, 32>() : occupancy<float, 32>();
-  return -1;
+  if (d != 32 && d != 64) return -1;
+  RKT_FLASH_DISPATCH(attr, dtype, d, 0);
 }

@@ -68,8 +68,6 @@
 // bound, and no main path trains in f32.
 #include <cooperative_groups.h>
 
-#include <type_traits>
-
 #include "flash_common.cuh"
 #include "launch_info.cuh"
 #include "mma_common.cuh"
@@ -795,9 +793,6 @@ __global__ void __launch_bounds__(kThreads) fused_block_tc_kernel(Args a) {
 // One CTA per (head, batch row); the fused epilogue's H CTAs of a row form
 // one cluster. bf16 runs on the tensor cores, f32 on the CUDA cores.
 inline dim3 launch_grid(int nh, int batch) { return dim3(nh, batch, 1); }
-
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
 template <typename T, bool kFused>
 auto kernel_for() {

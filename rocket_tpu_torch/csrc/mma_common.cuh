@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the port's bf16 kernels: cp.async copies
 // into shared memory, ldmatrix fragment loads and the mma.sync m16n8k16
 // product with f32 accumulators (grouped_gemm.cuh, flash_fwd.cu,
-// fused_block.cu), and the pieces the two attention kernels share.
+// flash_bwd.cu, flash_dq.cu, fused_block.cu, flash_attention.cu,
+// paged_decode.cu), and the pieces the attention kernels share.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (bf16 in, f32 out), with
 // g = lane / 4 and q = lane % 4:
@@ -27,6 +28,11 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared, zero-filled when !valid (src still mapped).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -112,28 +118,52 @@ __device__ __forceinline__ void qk_tile(float (&s)[kKeys / 8][4], const unsigned
   }
 }
 
+// o (16 x D, D / 8 n8 tiles) += A . rows [16 j, 16 j + 16) of a row tile
+// (stride LD) read transposed by ldmatrix, for the A fragment of one k16
+// slice j.
+template <int D, int LD>
+__device__ __forceinline__ void av_slice(float (&o)[D / 8][4], const unsigned (&a)[4],
+                                         const __nv_bfloat16* tile, int j) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nd = 0; nd < D / 16; ++nd) {
+    unsigned r[4];
+    ldsm_x4_t(r, tile + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + nd * 16 +
+                     ((lane >> 4) << 3));
+    mma_bf16(o[2 * nd], a, r[0], r[1]);
+    mma_bf16(o[2 * nd + 1], a, r[2], r[3]);
+  }
+}
+
 // o (16 x D, D / 8 n8 tiles) += P . V for probabilities p (the score
 // layout, already rounded where the caller rounds) and a 64-row value tile
 // (stride LD), read transposed by ldmatrix.
 template <int D, int LD>
 __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[kKeys / 8][4],
                                         const __nv_bfloat16* v_tile) {
-  const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < kKeys / 16; ++j) {
     const unsigned pa[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
                             pack_bf16(p[2 * j][2], p[2 * j][3]),
                             pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
                             pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
-      unsigned r[4];
-      ldsm_x4_t(r, v_tile + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + nd * 16 +
-                       ((lane >> 4) << 3));
-      mma_bf16(o[2 * nd], pa, r[0], r[1]);
-      mma_bf16(o[2 * nd + 1], pa, r[2], r[3]);
-    }
+    av_slice<D, LD>(o, pa, v_tile, j);
   }
+}
+
+// The A fragments, one per k16 slice, of the 16 x kKeys block whose
+// transpose is stored: column c0 .. c0 + 15 of a kKeys-row tile (stride LD)
+// becomes row 0 .. 15 of A. ldmatrix.trans reads each 8 x 8 piece
+// transposed, so a score block a warp held as keys x queries is read back
+// as queries x keys without a pass through registers.
+template <int LD>
+__device__ __forceinline__ void load_a_rows_t(unsigned (&a)[kKeys / 16][4],
+                                              const __nv_bfloat16* tile, int c0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kKeys / 16; ++j)
+    ldsm_x4_t(a[j], tile + (j * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
+                        ((lane >> 3) & 1) * 8);
 }
 
 // cp.async a 64-row x D bf16 tile: rows [row0, row0 + 64) of the D-wide
@@ -152,6 +182,18 @@ __device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst, const __nv_bfl
     const __nv_bfloat16* src =
         valid ? plane + static_cast<long long>(row) * f + col0 + c : plane;
     cp_async16(dst + r * LD + c, src, valid);
+  }
+}
+
+// cp.async kKeys f32 statistics (lse or delta) starting at row0 of one
+// (T,) row into dst; rows at or past t are zero-filled, so they read as a
+// finite 0.
+template <int THREADS>
+__device__ __forceinline__ void cp_async_stats(float* dst, const float* row_stats, int row0,
+                                               int t) {
+  for (int r = threadIdx.x; r < kKeys; r += THREADS) {
+    const bool valid = row0 + r < t;
+    cp_async4(dst + r, valid ? row_stats + row0 + r : row_stats, valid);
   }
 }
 

@@ -23,10 +23,11 @@ PyTorch version of the same signature beside it:
 * :func:`flash_dq` / :func:`_dq_plain` -> ``dq``: the accumulating dq
   pass, the strategy past the partial buffer's byte bound.
 
-The bf16 forward runs on the tensor cores (``mma.sync``, bf16 tiles filled
-by ``cp.async``; its operands must be 16-byte aligned with feature widths
-and head offsets in multiples of 8, which the wrapper checks); the f32
-forward and both backward kernels run f32 FMA on the CUDA cores.
+The bf16 instantiations of all three kernels run on the tensor cores
+(``mma.sync``, bf16 tiles filled by ``cp.async``; their operands, dout
+included, must be 16-byte aligned with feature widths and head offsets in
+multiples of 8, which the wrappers check); the f32 instantiations run f32
+FMA on the CUDA cores.
 
 Numerics follow the JAX kernels: probabilities are rounded to the operand
 dtype before the PV and dV products, ``ds`` before the dK and dQ
@@ -68,7 +69,7 @@ from rocket_tpu_torch.ops._launch import (
 __all__ = [
     "TILE", "flash_supported", "flash_fused", "flash_bthd",
     "flash_fwd", "flash_bwd", "flash_dq", "flash_launch", "launch_info", "occupancy",
-    "tensor_cores",
+    "registers", "tensor_cores",
 ]
 
 #: Query and key rows per tile of the CUDA kernels (block_q == block_k).
@@ -244,26 +245,34 @@ def _fn(name: str):
 #: shared memory of its f32 (CUDA-core) instantiation (``launch_smem`` of
 #: each ``csrc/flash_*.cu``).
 _SMEM_PARTS = {"flash_fwd": (3, 1, 0), "flash_bwd": (4, 2, 2), "flash_dq": (4, 1, 2)}
-#: Row padding, in elements, of the bf16 tiles of the tensor-core forward
+#: Row padding, in elements, of the bf16 tiles of the tensor-core kernels
 #: (``kPad`` in ``csrc/mma_common.cuh``).
 TC_PAD = 8
+#: kernel -> bf16 D-wide row tiles of its tensor-core instantiation: the
+#: forward's Q and two stages of K and V; the backward's K, V and two
+#: stages of Q and dout; the dq pass's Q, dout and two stages of K and V.
+_TC_TILES = {"flash_fwd": 5, "flash_bwd": 6, "flash_dq": 6}
 
 
 def tensor_cores(kind: str, dtype) -> bool:
     """Whether ``kind``'s ``dtype`` instantiation runs on the tensor cores:
-    the bf16 forward (redesigned); the backward kernels and every f32
-    instantiation run f32 FMA on the CUDA cores."""
-    return kind == "flash_fwd" and dtype == torch.bfloat16
+    every bf16 one (the three kernels redesigned); the f32 instantiations
+    run f32 FMA on the CUDA cores."""
+    return kind in _TC_TILES and dtype == torch.bfloat16
 
 
 def _smem_bytes(kind: str, d: int, dtype) -> int:
-    """Dynamic shared memory of ``kind``'s ``dtype`` launch: the bf16
-    forward's Q tile and two stages of K and V (bf16 64 x D tiles at row
-    stride D + 8); else ``smem_bytes`` of ``csrc/flash_common.cuh``, f32
-    tiles with a padded row stride D + 1, padded score tiles and statistic
-    rows."""
+    """Dynamic shared memory of ``kind``'s ``dtype`` launch. bf16: its
+    64 x D row tiles at row stride D + 8 (:data:`_TC_TILES`), and for the
+    backward also the bf16 64 x 64 dS^T tile at stride 72 and two stages of
+    the tile's lse and delta (f32). f32: ``smem_bytes`` of
+    ``csrc/flash_common.cuh``, f32 tiles with a padded row stride D + 1,
+    padded score tiles and statistic rows."""
     if tensor_cores(kind, dtype):
-        return 2 * 5 * TILE * (d + TC_PAD)
+        smem = 2 * _TC_TILES[kind] * TILE * (d + TC_PAD)
+        if kind == "flash_bwd":
+            smem += 2 * TILE * (TILE + TC_PAD) + 4 * 4 * TILE
+        return smem
     tiles, scores, stats = _SMEM_PARTS[kind]
     return 4 * (tiles * TILE * (d + 1) + scores * TILE * (TILE + 1) + stats * TILE)
 
@@ -304,17 +313,28 @@ def launch_info(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype) -> 
     return query_launch(fn, b, t, h, h_kv, d, DTYPE_CODES[dtype])
 
 
-def occupancy(d: int, dtype) -> int:
-    """Resident CTAs per SM of the forward's (D, dtype) kernel at its shared
-    memory, as the card reports it (-1 when it refuses). Needs the card."""
-    fn = _build.load("flash_fwd").rkt_flash_fwd_occupancy
+def _attribute(kind: str, what: str, d: int, dtype) -> int:
+    fn = getattr(_build.load(kind), f"rkt_{kind}_{what}")
     fn.restype = _I
     fn.argtypes = [_I, _I]
     return fn(d, DTYPE_CODES[dtype])
 
 
+def occupancy(d: int, dtype, kind: str = "flash_fwd") -> int:
+    """Resident CTAs per SM of ``kind``'s (D, dtype) kernel at its shared
+    memory, as the card reports it (-1 when it refuses). Needs the card."""
+    return _attribute(kind, "occupancy", d, dtype)
+
+
+def registers(d: int, dtype, kind: str) -> int:
+    """Registers per thread of the backward's (``"flash_bwd"``) or the dq
+    pass's (``"flash_dq"``) (D, dtype) kernel, as the built library reports
+    them (-1 when the card refuses it). Needs the card."""
+    return _attribute(kind, "registers", d, dtype)
+
+
 def _check_aligned(where, arrays, offsets) -> None:
-    """The tensor-core forward copies each head's D-wide slice in 16-byte
+    """The tensor-core kernels copy each head's D-wide slice in 16-byte
     pieces: every operand 16-byte aligned, its feature width and the head
     offsets whole multiples of 8 elements. Raise otherwise."""
     for name, arr in arrays.items():
@@ -374,6 +394,9 @@ def flash_bwd(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, 
                           with_dq)
     _check("flash_bwd", q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout=dout, lse=lse,
            delta=delta)
+    if tensor_cores("flash_bwd", q_arr.dtype):
+        _check_aligned("flash_bwd", {"q_arr": q_arr, "k_arr": k_arr, "v_arr": v_arr,
+                                     "dout": dout}, offsets)
     b, t, _ = q_arr.shape
     if dout.shape != (b, t, h * d) or lse.shape != (b, h, t) or delta.shape != (b, h, t):
         raise ValueError(f"flash_bwd: dout {tuple(dout.shape)}, lse {tuple(lse.shape)}, "
@@ -410,6 +433,9 @@ def flash_dq(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, o
         return _dq_plain(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal)
     _check("flash_dq", q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout=dout, lse=lse,
            delta=delta)
+    if tensor_cores("flash_dq", q_arr.dtype):
+        _check_aligned("flash_dq", {"q_arr": q_arr, "k_arr": k_arr, "v_arr": v_arr,
+                                    "dout": dout}, offsets)
     b, t, _ = q_arr.shape
     if dout.shape != (b, t, h * d) or lse.shape != (b, h, t) or delta.shape != (b, h, t):
         raise ValueError(f"flash_dq: dout {tuple(dout.shape)}, lse {tuple(lse.shape)}, "

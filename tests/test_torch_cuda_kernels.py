@@ -15,7 +15,8 @@ the fused-block kernel rounds xn, qkv, the weights and the heads to bf16
 where its plain version does, from sums in another order). The paged
 decode kernel is also held to two calls bitwise: its splits combine in a
 fixed order. The flash and
-fused-block checks hold every element to ``tol * (1 + |want|)``. The
+fused-block checks hold every element to ``tol * (1 + |want|)``, and
+every flash kernel to two launches bitwise (no atomics anywhere). The
 fused BatchNorm kernels are held to the reference's own bound for them,
 f32 ``5e-5 + 5e-5 * |want|`` (the moments are reassociated f32 sums), and
 bf16 y to ``2e-2 * (1 + |want|)`` (one bf16 rounding). The MoE grouped
@@ -24,8 +25,8 @@ products (``gmm``, ``tgmm``, ``gather_gmm``) hold every element to
 rounding of the f32 accumulator that may flip by one step. Rows 6-7 (the
 stacked-qkv flash kernels) hold every element to ``tol * (1 + |want|)``
 as the other flash kernels do; their dq partials are compared through
-their f32 sum. Rows 3 and 8 in bf16 run on the tensor cores and are held
-to the same bounds, plus two launches bitwise.
+their f32 sum. Rows 3-5 and 8 in bf16 run on the tensor cores and are
+held to the same bounds, plus two launches bitwise.
 """
 
 import pytest
@@ -169,9 +170,15 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         torch.testing.assert_close(dqp, dqp_p, atol=TOL[dtype], rtol=TOL[dtype])
         torch.testing.assert_close(dk.float(), dk_p.float(), atol=TOL[dtype], rtol=TOL[dtype])
         torch.testing.assert_close(dv.float(), dv_p.float(), atol=TOL[dtype], rtol=TOL[dtype])
+        dqp2, dk2, dv2 = tfn.flash_bwd(*args, with_dq=True)
+        assert torch.equal(dqp2, dqp) and torch.equal(dk2, dk) and torch.equal(dv2, dv)
         none, dk2, dv2 = tfn.flash_bwd(*args, with_dq=False)
-        assert none is None and torch.equal(dk2, dk) and torch.equal(dv2, dv)
+        none2, dk3, dv3 = tfn.flash_bwd(*args, with_dq=False)
+        assert none is None and none2 is None
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+        assert torch.equal(dk3, dk) and torch.equal(dv3, dv)
         dq = tfn.flash_dq(*args)
+        assert torch.equal(tfn.flash_dq(*args), dq)
         torch.testing.assert_close(dq.float(), tfn._dq_plain(*args).float(), atol=TOL[dtype],
                                    rtol=TOL[dtype])
         torch.testing.assert_close(dq.float(), dqp.sum(0), atol=TOL[dtype], rtol=TOL[dtype])
@@ -229,6 +236,56 @@ def test_flash_fwd_bf16_matches_plain_and_repeats_bitwise(cuda, case, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1.0, 8.0])
+@pytest.mark.parametrize("case", TC_FLASH_CASES, ids=lambda c: "b{}t{}h{}kv{}d{}{}".format(
+    *c[:5], "c" if c[5] else "n"))
+def test_flash_bwd_bf16_matches_plain_and_repeats_bitwise(cuda, case, scale):
+    """Rows 4 and 5 in bf16 on the tensor cores against their plain
+    versions (every dq partial, dk, dv and the dq pass), with q and k scaled
+    as in the forward's test; dk and dv equal bitwise with and without the
+    partials, and two launches of each kernel giving the same bits.
+
+    dout is divided by ``scale`` (exactly, a power of two). With q and k
+    eight times larger the scores are 64 times larger and the gradients
+    eight times: then one bf16 rounding of ds that another summation order
+    of the scores flips (a ds within 1e-5 of a rounding midpoint) moves a
+    dq element by |ds| * |k| / 256, past the bound's absolute part. A probe
+    on the card found such a case at T=1000 (dq off by 0.026, exactly that
+    flip at one key). Scaling dout back keeps the scores' regime and the
+    gradients' scale of the x1 case."""
+    b, t, hq, h_kv, d, causal = case
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(t + hq + d)
+    for fused in ([True, False] if hq == h_kv else [False]):
+        q, k, v, offs = _flash_operands(gen, bf16, b, t, hq, h_kv, d, fused)
+        if fused:
+            q = k = v = q * scale
+        else:
+            q, k = q * scale, k * scale
+        geo = (hq, h_kv, d, offs, causal)
+        out, lse = tfn.flash_fwd(q, k, v, *geo)
+        dout = _randn(gen, bf16, b, t, hq * d) / scale
+        delta = (dout.float() * out.float()).reshape(b, t, hq, d).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta.contiguous(), *geo)
+        before = (tfn.flash_bwd.launches, tfn.flash_dq.launches)
+        dqp, dk, dv = tfn.flash_bwd(*args, with_dq=True)
+        dqp2, dk2, dv2 = tfn.flash_bwd(*args, with_dq=True)
+        none, dk3, dv3 = tfn.flash_bwd(*args, with_dq=False)
+        dq, dq2 = tfn.flash_dq(*args), tfn.flash_dq(*args)
+        assert (tfn.flash_bwd.launches, tfn.flash_dq.launches) == (before[0] + 3, before[1] + 2)
+        assert none is None and torch.equal(dqp, dqp2) and torch.equal(dq, dq2)
+        for got in (dk2, dk3):
+            assert torch.equal(got, dk)
+        for got in (dv2, dv3):
+            assert torch.equal(got, dv)
+        dqp_p, dk_p, dv_p = tfn._bwd_plain(*args)
+        _held(dqp, dqp_p, bf16)
+        _held(dk, dk_p, bf16)
+        _held(dv, dv_p, bf16)
+        _held(dq, tfn._dq_plain(*args), bf16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g", [2, 4])
 def test_flash_bthd_gqa_runs_the_bf16_forward(cuda, g):
     gen = torch.Generator().manual_seed(g)
@@ -275,8 +332,9 @@ def test_fused_block_bf16_matches_plain_and_repeats_bitwise(cuda, case, epilogue
 
 @pytest.mark.cuda
 def test_tensor_core_kernels_reject_misaligned_bf16_operands(cuda):
-    """Both kernels copy 16-byte pieces: a bf16 view at an odd element
-    offset, or head offsets off the 8-element grid, raise."""
+    """The flash kernels (rows 3-5) and the fused block copy 16-byte
+    pieces: a bf16 view at an odd element offset (an operand or dout), or
+    head offsets off the 8-element grid, raise."""
     b, t, h, d = 2, 64, 4, 64
     buf = torch.zeros(b * t * 3 * h * d + 1, dtype=torch.bfloat16, device=cuda)
     odd = buf[1:].view(b, t, 3 * h * d)
@@ -286,7 +344,20 @@ def test_tensor_core_kernels_reject_misaligned_bf16_operands(cuda):
     even = buf[:-1].view(b, t, 3 * h * d)
     with pytest.raises(ValueError):
         tfn.flash_fwd(even, even, even, h, h, d, (4, h * d + 4, 2 * h * d - 4), True)
-    tfn.flash_fwd(even, even, even, h, h, d, (0, h * d, 2 * h * d), True)  # aligned: runs
+    offs = (0, h * d, 2 * h * d)
+    out, lse = tfn.flash_fwd(even, even, even, h, h, d, offs, True)  # aligned: runs
+    dbuf = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16, device=cuda)
+    dout, odd_dout = dbuf[:-1].view(b, t, h * d), dbuf[1:].view(b, t, h * d)
+    delta = torch.zeros_like(lse)
+    for backward in (tfn.flash_bwd, tfn.flash_dq):
+        with pytest.raises(ValueError):
+            backward(odd, odd, odd, dout, lse, delta, h, h, d, offs, True)
+        with pytest.raises(ValueError):
+            backward(even, even, even, odd_dout, lse, delta, h, h, d, offs, True)
+        with pytest.raises(ValueError):
+            backward(even, even, even, dout, lse, delta, h, h, d,
+                     (4, h * d + 4, 2 * h * d - 4), True)
+        backward(even, even, even, dout, lse, delta, h, h, d, offs, True)  # aligned: runs
     x, ln, weights = _block_operands(torch.Generator().manual_seed(1), torch.bfloat16, b, t, h)
     xbuf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
     xbuf[1:] = x.reshape(-1)
@@ -297,10 +368,15 @@ def test_tensor_core_kernels_reject_misaligned_bf16_operands(cuda):
 @pytest.mark.cuda
 def test_tensor_core_occupancy_is_what_the_declarations_leave_room_for(cuda):
     """Resident CTAs per SM as the card reports them: at least 2 for row 8
-    at T=256, 3 for row 3 at D=64, 4 and 2 for row 6 at 64 x 64 and
-    128 x 128 (bf16), and 8 for row 1's split at the serve shape."""
+    at T=256, 3 for row 3 at D=64, 3 and 4 for rows 4 and 5 (what their
+    shared memory leaves room for at D=64, and their launch bounds' floor
+    at D=32), 4 and 2 for row 6 at 64 x 64 and 128 x 128 (bf16), and 8 for
+    row 1's split at the serve shape."""
     assert tfn.occupancy(64, torch.bfloat16) >= 3
     assert tfn.occupancy(32, torch.bfloat16) >= 3
+    for d in tfn.HEAD_DIMS:
+        assert tfn.occupancy(d, torch.bfloat16, "flash_bwd") >= 3
+        assert tfn.occupancy(d, torch.bfloat16, "flash_dq") >= 4
     for d in tfa.HEAD_DIMS:
         assert tfa.occupancy("fwd", d, 64, 64, torch.bfloat16) >= 4
         assert tfa.occupancy("fwd", d, 128, 128, torch.bfloat16) >= 2

@@ -278,12 +278,16 @@ SM_SMEM, CTA_RESERVED = 233_472, 1024
                                         2304), 3),
     ("flash_fwd D=32", tfn.flash_launch("flash_fwd", 64, 128, 4, 4, 32, torch.bfloat16, 384,
                                         384), 3),
+    ("flash_bwd D=64", tfn.flash_launch("flash_bwd", 8, 1024, 12, 12, 64, torch.bfloat16, 2304,
+                                        2304), 3),
+    ("flash_dq D=64", tfn.flash_launch("flash_dq", 8, 2048, 12, 12, 64, torch.bfloat16, 2304,
+                                       2304), 4),
     ("fused_block separate", tfb.fused_block_launch(128, 256, 256, 4, torch.bfloat16,
                                                     "separate"), 2),
     ("fused_block fused", tfb.fused_block_launch(128, 256, 256, 4, torch.bfloat16, "fused"), 2),
 ])
 def test_bf16_declarations_leave_room_for_resident_ctas(kernel, fact, ctas):
-    """The tensor-core kernels at their main shapes (rows 3 and 8): bf16
+    """The tensor-core kernels at their main shapes (rows 3-5 and 8): bf16
     tiles leave room for ``ctas`` resident CTAs per SM by shared memory."""
     assert ctas * (fact.dynamic_smem + fact.static_smem + CTA_RESERVED) <= SM_SMEM, kernel
     assert fact.threads == 128
@@ -301,10 +305,7 @@ def test_f32_declarations_are_unchanged():
         fact = tfn.flash_launch(kind, 8, 1024, 12, 12, d, torch.float32, 36 * d, 36 * d)
         assert (fact.dynamic_smem, fact.static_smem, fact.threads) == (smem, 0, 128), kind
         assert fact.grid == (16, 12, 8)
-    for dtype in (torch.float32, torch.bfloat16):  # the backward kernels run f32 FMA in both
-        for kind, smem in (("flash_bwd", 100_352), ("flash_dq", 83_712)):
-            assert tfn.flash_launch(kind, 8, 1024, 12, 12, 64, dtype, 2304,
-                                    2304).dynamic_smem == smem
+        assert not tfn.tensor_cores(kind, torch.float32)
     for t, smem in F32_BLOCK_SMEM.items():
         for epilogue in tfb.EPILOGUES:
             fact = tfb.fused_block_launch(128, t, 256, 4, torch.float32, epilogue)
@@ -314,15 +315,46 @@ def test_f32_declarations_are_unchanged():
     assert (32, 128) not in {rc for rc, _, _ in fused.tiles}
 
 
+def _tc_backward_smem(kind, d):
+    """``launch_smem`` of the bf16 ``csrc/flash_bwd.cu`` and
+    ``csrc/flash_dq.cu``: six bf16 64 x (D + 8) row tiles (K, V and two
+    stages of Q and dout; Q, dout and two stages of K and V), and for the
+    backward the bf16 64 x 72 dS^T tile and two stages of lse and delta
+    (64 f32 each)."""
+    tiles = 2 * 6 * 64 * (d + 8)
+    return tiles + 2 * 64 * 72 + 4 * 2 * 2 * 64 if kind == "flash_bwd" else tiles
+
+
+@pytest.mark.parametrize("d,bwd,dq", [(64, 65_536, 55_296), (32, 40_960, 30_720)])
+@pytest.mark.parametrize("with_dq", [True, False])
+def test_bf16_backward_declarations_mirror_the_cu_sizes(d, bwd, dq, with_dq):
+    """Rows 4 and 5 in bf16 run on the tensor cores: their declarations
+    are the .cu files' bf16 sizes, with or without the dq partials (one
+    kernel either way), and not the f32 kernels'."""
+    for kind, smem in (("flash_bwd", bwd), ("flash_dq", dq)):
+        fact = tfn.flash_launch(kind, 8, 1024, 12, 12, d, torch.bfloat16, 36 * d, 36 * d,
+                                with_dq)
+        assert tfn.tensor_cores(kind, torch.bfloat16)
+        assert (fact.dynamic_smem, fact.static_smem, fact.threads) == (
+            _tc_backward_smem(kind, d), 0, 128) == (smem, 0, 128), kind
+        assert fact.grid == (16, 12, 8)
+        f32 = tfn.flash_launch(kind, 8, 1024, 12, 12, d, torch.float32, 36 * d, 36 * d, with_dq)
+        assert f32.dynamic_smem > smem
+
+
 @pytest.mark.parametrize("name", ["train_flash", "train_flash_long", "fused_kernels"])
 def test_targets_trace_the_tensor_core_declarations_and_stay_clean(name):
-    """The bf16 targets of rows 3 and 8 declare the tensor-core kernels'
+    """The bf16 targets of rows 3-5 and 8 declare the tensor-core kernels'
     shared memory (bf16 tiles at padded strides) and RKT504 finds nothing."""
     report = run_sched_target(SCHED_TARGETS[name])
     assert report.clean, [f.render() for f in report.findings]
     smem = {f.name: f.dynamic_smem for f in report.launches}
     if name.startswith("train_flash"):
         assert smem["flash_fwd"] == 2 * 5 * 64 * (64 + 8) == 46_080
+        assert smem["flash_bwd"] == _tc_backward_smem("flash_bwd", 64) == 65_536
+        assert ("flash_dq" in smem) == (name == "train_flash_long")
+        if name == "train_flash_long":
+            assert smem["flash_dq"] == _tc_backward_smem("flash_dq", 64) == 55_296
     else:
         assert smem["fused_block"] == 110_080
         fused = [f for f in report.launches if f.name == "fused_block"]
