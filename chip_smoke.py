@@ -9,7 +9,9 @@ their launches (every non-demo target of ``python -m rocket_tpu_torch.
 analysis sched`` clean on this card, and every kernel's declared grid,
 threads and shared memory equal to its library's query), holds
 each against its plain PyTorch version at its path's shapes (the paged
-decode kernel also at a 4096-row context, two calls bitwise; every flash
+decode kernel also at a 4096-row context, the dense-cache decode kernel
+over three cache lengths, two head counts and three head dims at positions
+around its 64-row splits, both two calls bitwise; every flash
 kernel two launches bitwise), times the fused flash backward also without
 dq at T=1024 and 2048, and the whole backward under both dq strategies
 (f32 partials, or the separate accumulating dq kernel) at T=1024 and
@@ -180,10 +182,19 @@ def require(cond: bool, msg: str) -> None:
 
 class Timer:
     """Per-launch CUDA-event timing with the 50 MB L2 flushed before each
-    launch (the serving path finds its pages cold)."""
+    launch (the serving path finds its pages cold). The card is first kept
+    busy for a second: from idle, the first phase's short kernels timed up
+    to 2.5x slower than the same kernels a phase later (row 1's first
+    case)."""
 
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+        end = time.perf_counter() + 1.0
+        while time.perf_counter() < end:
+            for _ in range(8):
+                a @ a
+            torch.cuda.synchronize()
 
     def ms(self, fn, iters: int = 30, warmup: int = 3) -> float:
         for _ in range(warmup):
@@ -210,24 +221,26 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 def _declared_launches() -> list:
     """(kernel, shapes, declared LaunchFact, the built library's query) for
     every kernel at its main path's shapes: the serve wave (row 1's split and
-    combine, also at the long-context table) and generate() (rows 1-2), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
+    combine, also at the long-context table) and generate() (row 2's split
+    and combine), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
     the D=32 bf16 forward), rows 6-7 at both tiles, the char-LM fused block
     under both epilogues, bf16 and f32 (row 8), the three
     BN passes at ResNet-18 CIFAR's four shapes (rows 9-10), the MoE
-    in-projection's gather-GMM and both grouped products of the in- and
+    in-projection's gather-GMM (bf16: the persistent wgmma grid, one CTA per
+    SM of this card) and both grouped products of the in- and
     out-projection in bf16 and f32 (row 11, gmm, tgmm), and row 12's two
-    launches. The BN grids are sized by a meta tensor priced as this card,
+    launches: 47 in all. The BN grids are sized by a meta tensor priced as this card,
     as the audit sizes them."""
     bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for mb in (64, 256):
         for fact, built in zip(pa.paged_decode_launches(8, 12, 12, 64, 1 + 8 * mb, 16, mb, bf16),
                                pa.launch_info(8, 12, 12, 64, mb, 16, bf16)):
             rows.append((fact.name, f"S=8 MB={mb} BL=16 Hq=Hkv=12 D=64 bf16", fact, built))
-    rows += [
-        ("decode_attention", "B=4 T=192 Hq=Hkv=12 D=64 bf16",
-         da.decode_attention_launch(4, 12, 12, 192, 64, bf16), da.launch_info(4, 12, 12, 64, bf16)),
-    ]
+    for fact, built in zip(da.decode_attention_launches(4, 12, 12, 192, 64, bf16),
+                           da.launch_info(4, 12, 12, 192, 64, bf16)):
+        rows.append((fact.name, "B=4 T=192 Hq=Hkv=12 D=64 bf16", fact, built))
     for kind, t in (("flash_fwd", 1024), ("flash_bwd", 1024), ("flash_dq", 2048)):
         for dtype in (bf16, f32):
             name = str(dtype).removeprefix("torch.")
@@ -258,7 +271,7 @@ def _declared_launches() -> list:
     for dtype in (bf16, f32):
         name = str(dtype).removeprefix("torch.")
         rows.append(("gather_gmm", f"M=18432 K=768 N=3072 E=4 src=8192 {name}",
-                     gm.gmm_launch(18432, 768, 3072, 4, dtype, name="gather_gmm", src_rows=8192),
+                     gg.gather_gmm_launch(18432, 768, 3072, 4, dtype, 8192, sms),
                      gg.launch_info(18432, 3072, 4, dtype)))
         for k, n, trans in ((768, 3072, False), (3072, 768, False), (3072, 768, True)):
             rows.append(("gmm", f"M=18432 K={k} N={n} E=4 {name}{' transposed' if trans else ''}",
@@ -389,51 +402,81 @@ def check_paged(timer, gen):
     return entry
 
 
+#: Row 2's parity grid: cache lengths (one not a multiple of 64), kv heads
+#: (MHA and GQA g = 3), head dims, and positions at the first row, around
+#: the first 64-row split boundary, at generate()'s last row and at the
+#: cache's last row (those inside the cache).
+DECODE_T, DECODE_HKV, DECODE_D, DECODE_POS = (100, 192, 1024), (12, 4), (32, 64, 128), \
+    (0, 63, 64, 191, -1)
+#: Row 2's timed shapes: generate()'s (B=4, a 192-row cache, its last
+#: position) and a long prompt's (B=8, T=1024).
+DECODE_TIMED = ((4, 192, 191), (8, 1024, 1023))
+
+
 def check_decode_attention(timer, gen):
-    def case(b, t_max, h_kv, dtype, pos):
-        hq, d = 12, 64
+    """Row 2 against its plain version (max abs error) over the parity grid
+    in bf16 and f32, B=8, Hq=12: the written cache rows bitwise, two calls
+    bitwise. Then timed at both DECODE_TIMED shapes in bf16 beside the plain
+    version, SDPA over the visible rows and its bound. Returns generate()'s
+    row, with the long prompt's under ``"long_context"``."""
+    def case(b, t_max, h_kv, d, dtype, pos):
         mk = lambda *shape: torch.randn(*shape, generator=gen).to(dtype).cuda()  # noqa: E731
-        ops = dict(q=mk(b, hq, d), k_new=mk(b, h_kv, d), v_new=mk(b, h_kv, d),
+        ops = dict(q=mk(b, 12, d), k_new=mk(b, h_kv, d), v_new=mk(b, h_kv, d),
                    k_cache=mk(b, h_kv, t_max, d), v_cache=mk(b, h_kv, t_max, d), pos=pos)
         twin = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ops.items()}
         return ops, twin
 
     for dtype in (torch.bfloat16, torch.float32):
-        for h_kv in (12, 4):
-            for pos in (0, 500, 1023):
-                ops, twin = case(8, 1024, h_kv, dtype, pos)
-                got = da.decode_attention(**ops)
-                want = da.decode_attention_plain(**twin)
-                torch.cuda.synchronize()
-                err = (got[0].float() - want[0].float()).abs().max().item()
-                require(math.isfinite(err) and err <= TOL[dtype],
-                        f"decode_attention {dtype} Hkv={h_kv} pos={pos}: err {err}")
-                require(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-                        f"decode_attention {dtype} Hkv={h_kv} pos={pos}: cache row differs")
-                emit("parity_decode_attention", dtype=str(dtype).removeprefix("torch."),
-                     b=8, t=1024, hkv=h_kv, pos=pos, max_abs_err=err, tol=TOL[dtype])
-    # Timed at generate()'s shape in the generate phase: B=4, T=192, the
-    # last position, bf16, MHA.
-    b, t_max, pos, dtype = 4, 192, 191, torch.bfloat16
-    ops, twin = case(b, t_max, 12, dtype, pos)
-    err = (da.decode_attention(**ops)[0].float()
-           - da.decode_attention_plain(**twin)[0].float()).abs().max().item()
-    require(err <= TOL[dtype], f"decode_attention timing case: err {err}")
-    q4 = ops["q"][:, :, None, :]
-    kc, vc = ops["k_cache"][:, :, :pos + 1], ops["v_cache"][:, :, :pos + 1]
-    # Cache rows [0, pos) of K and V read; q, out, k_new, v_new and the
-    # written K/V row moved once each (bf16, 2 bytes).
-    nbytes = 2 * b * 12 * pos * 64 * 2 + 6 * b * 12 * 64 * 2
-    row = {
-        "dtype": "bfloat16", "b": b, "t": t_max, "pos": pos, "hq": 12, "hkv": 12, "d": 64,
-        "max_abs_err": err, "tol": TOL[dtype],
-        "ms": timer.ms(lambda: da.decode_attention(**ops)),
-        "plain_ms": timer.ms(lambda: da.decode_attention_plain(**twin)),
-        "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q4, kc, vc)),
-    }
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * 12 * 64 * (pos + 1), dtype)
-    emit("timing_decode_attention", **row)
-    return row
+        worst, checked = 0.0, 0
+        for t_max in DECODE_T:
+            for h_kv in DECODE_HKV:
+                for d in DECODE_D:
+                    positions = sorted({p % t_max for p in DECODE_POS if p < t_max})
+                    ops, twin = case(8, t_max, h_kv, d, dtype, 0)
+                    for pos in positions:
+                        ops["pos"] = twin["pos"] = pos
+                        got = da.decode_attention(**ops)[0]
+                        again = da.decode_attention(**ops)[0]
+                        want = da.decode_attention_plain(**twin)[0]
+                        torch.cuda.synchronize()
+                        what = f"decode_attention {dtype} T={t_max} Hkv={h_kv} D={d} pos={pos}"
+                        err = (got.float() - want.float()).abs().max().item()
+                        require(math.isfinite(err) and err <= TOL[dtype], f"{what}: err {err}")
+                        require(torch.equal(got, again), f"{what}: two calls differ")
+                        require(torch.equal(ops["k_cache"], twin["k_cache"])
+                                and torch.equal(ops["v_cache"], twin["v_cache"]),
+                                f"{what}: cache rows differ")
+                        worst, checked = max(worst, err), checked + 1
+        emit("parity_decode_attention", dtype=str(dtype).removeprefix("torch."), b=8, hq=12,
+             t=list(DECODE_T), hkv=list(DECODE_HKV), d=list(DECODE_D), cases=checked,
+             max_abs_err=worst, tol=TOL[dtype], deterministic=True)
+    rows = []
+    for b, t_max, pos in DECODE_TIMED:
+        dtype = torch.bfloat16
+        ops, twin = case(b, t_max, 12, 64, dtype, pos)
+        err = (da.decode_attention(**ops)[0].float()
+               - da.decode_attention_plain(**twin)[0].float()).abs().max().item()
+        require(err <= TOL[dtype], f"decode_attention timing case B={b} T={t_max}: err {err}")
+        q4 = ops["q"][:, :, None, :]
+        kc, vc = ops["k_cache"][:, :, :pos + 1], ops["v_cache"][:, :, :pos + 1]
+        # Cache rows [0, pos) of K and V read; q, out, k_new, v_new and the
+        # written K/V row moved once each (bf16, 2 bytes).
+        nbytes = 2 * b * 12 * pos * 64 * 2 + 6 * b * 12 * 64 * 2
+        row = {
+            "dtype": "bfloat16", "b": b, "t": t_max, "pos": pos, "hq": 12, "hkv": 12, "d": 64,
+            "n_split": da.num_splits(t_max), "max_abs_err": err, "tol": TOL[dtype],
+            "ms": timer.ms(lambda: da.decode_attention(**ops)),
+            "plain_ms": timer.ms(lambda: da.decode_attention_plain(**twin)),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q4, kc, vc)),
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * 12 * 64 * (pos + 1), dtype)
+        emit("timing_decode_attention", **row)
+        rows.append(row)
+    entry, long_row = rows
+    entry["long_context"] = {key: long_row[key] for key in (
+        "b", "t", "n_split", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "max_abs_err")}
+    return entry
 
 
 # -- phase 3b: the flash kernels against their plain versions ---------------
@@ -2108,8 +2151,9 @@ def check_moe_kernels(timer, gen):
     seeded router's 8192 tokens, the out-projection (18432, 3072) -> 768,
     the unpadded ``impl="gmm"`` layout with the raw counts, the backward's
     transposed gmm and both tgmm — and ragged ones: an empty group, groups
-    straddling the kernels' 128-row tiles, and NK = 16 at tile_m = 16 (the
-    decode size). At the main shapes in bf16 each kernel, its plain version
+    straddling the kernels' 128-row tiles, NK = 16 at tile_m = 16 (the
+    decode size), and row 11 at K = N = 200 with rows past the groups and
+    row ids outside the source. At the main shapes in bf16 each kernel, its plain version
     and the library yardstick are timed with the L2 flushed."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -2164,6 +2208,22 @@ def check_moe_kernels(timer, gen):
              lambda: gm.gmm(hd, exd["w_out"].to(dtype), gsz_d),
              lambda: gm.gmm_reference(hd, exd["w_out"].to(dtype), gsz_d)),
         ]
+        # Row 11 off its tiles: K = N = 200, two empty groups, sizes that
+        # stop at row 231 of 300 (the rest come out as zeros) and row ids
+        # outside the 70 source rows (zero rows), against the grouped
+        # product of the explicit gather.
+        ids_e = torch.randint(0, 70, (300,), generator=gen, dtype=torch.int32)
+        ids_e[::17], ids_e[5::23] = -1, 70
+        ids_e = ids_e.cuda()
+        sizes_e = torch.tensor([0, 131, 0, 100], dtype=torch.int32, device="cuda")
+        x_e = (torch.randn(70, 200, generator=gen) * 0.5).to(dtype).cuda()
+        w_e = (torch.randn(4, 200, 200, generator=gen) * 200 ** -0.5).to(dtype).cuda()
+        valid_e = ((ids_e >= 0) & (ids_e < 70))[:, None]
+        xg_e = torch.where(valid_e, x_e[ids_e.long().clamp(0, 69)], torch.zeros_like(x_e[:1]))
+        cases.append(("gather_gmm", "K=N=200, empty groups, rows past the groups, bad ids",
+                      (300, 200, 200, 70, sizes_e),
+                      lambda: gg.gather_gmm_fwd(x_e, w_e, ids_e, sizes_e, 8),
+                      lambda: gm.gmm_reference(xg_e, w_e, sizes_e)))
         errs = []
         for kind, label, shape, kernel, plain in cases:
             what = f"{kind} {label} {name}"
@@ -2173,6 +2233,8 @@ def check_moe_kernels(timer, gen):
             rows.setdefault(kind, {"max_abs_err": 0.0})
             rows[kind]["max_abs_err"] = max(rows[kind]["max_abs_err"], err)
         require(not gm.tgmm(lhs_r, dy_r, rag)[0].any(), "tgmm: an empty group is not zeros")
+        require(not gg.gather_gmm_fwd(x_e, w_e, ids_e, sizes_e, 8)[231:].any(),
+                "gather_gmm: rows past the groups are not zeros")
         emit("parity_moe_kernels", dtype=name, tol=TOL[dtype], cases=errs,
              counts=counts.tolist(), padded_group_sizes=gsz.tolist(), m_pad=m_pad)
         if dtype != torch.bfloat16:
@@ -2622,8 +2684,10 @@ def main() -> int:
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
         for name, info in built.items()},
-         # Rows 1, 4, 5 and 6 (bf16, redesigned): registers per thread and
-         # resident CTAs per SM at the serve wave and at GPT-2's D=64.
+         # Rows 1, 2, 4, 5, 6 and 11 (bf16, redesigned): registers per
+         # thread and resident CTAs per SM at the serve wave, at GPT-2's D=64
+         # and for row 11's persistent wgmma kernel (registers at launch,
+         # before its warpgroups trade them with setmaxnreg).
          redesigned={
              **{f"{kind} bf16 D=64": {
                  "registers": fa.registers(64, torch.bfloat16, kind),
@@ -2633,6 +2697,12 @@ def main() -> int:
                  "registers": pa.attribute(which, "registers", 1, 64, torch.bfloat16),
                  "ctas_per_sm": pa.attribute(which, "ctas", 1, 64, torch.bfloat16)}
                 for which in ("split", "combine")},
+             **{f"decode_attention {which} bf16 g=1 D=64": {
+                 "registers": da.attribute(which, "registers", 1, 64, torch.bfloat16),
+                 "ctas_per_sm": da.attribute(which, "ctas", 1, 64, torch.bfloat16)}
+                for which in ("split", "combine")},
+             "gather_gmm bf16 wgmma": {"registers": gg.attribute("registers"),
+                                       "ctas_per_sm": gg.attribute("ctas")},
              **{f"flash_qkv_fwd bf16 D=64 {bq}x{bk}": {
                  "registers": fqa.registers("fwd", 64, bq, bk, torch.bfloat16),
                  "ctas_per_sm": fqa.occupancy("fwd", 64, bq, bk, torch.bfloat16)}

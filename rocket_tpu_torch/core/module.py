@@ -165,7 +165,9 @@ class Module(Dispatcher):
     forward. ``remat``: run the train forward under
     ``torch.utils.checkpoint(use_reentrant=False)`` — activations are
     recomputed in the backward (the dropout keys are counter hashes, so
-    the recompute draws the same masks). ``return_outputs``: ``"eval"``
+    the recompute draws the same masks); ignored, with the reference's log
+    line, for a model whose config sets ``scan_layers`` and ``scan_remat``,
+    whose blocks checkpoint themselves. ``return_outputs``: ``"eval"``
     (default) replaces ``attrs.batch`` with the forward's output in eval
     only; ``"always"`` in train too. ``batch_transform``: ``fn(batch,
     key) -> batch`` run on the raw train batch before the forward
@@ -233,6 +235,14 @@ class Module(Dispatcher):
         if "base_key" not in state:
             state["base_key"] = keys.key(runtime.next_seed())
         self._prepared = prepared
+        cfg = getattr(self._model, "config", None)
+        if (self._remat and getattr(cfg, "scan_layers", False)
+                and getattr(cfg, "scan_remat", False)):
+            # The blocks already checkpoint themselves (the scan + remat
+            # recipe); an outer checkpoint would recompute the whole forward
+            # and each block again inside it.
+            self.log_info("remat=True ignored: scan_layers already remats per block")
+            self._remat = False
 
         loss, opt, sched = self._find_contrib()
         if opt is not None:

@@ -19,96 +19,39 @@
 // bandwidth: one CTA per (slot, kv head) walked its whole context alone,
 // reading K and V through chains of dependent 2-byte loads. Design:
 //
-//   * Split the context. Launch 1 (split) has one CTA per (slot, kv head,
-//     chunk of kChunk = 64 key rows): n_split = ceil(MB * BL / 64) comes
-//     from the static shapes alone, so nothing reads positions on the host.
-//     A CTA whose chunk starts past pos[s] exits at once.
+//   * Split the context (decode_common.cuh, shared with row 2): one split
+//     CTA per (slot, kv head, chunk of kChunk = 64 key rows), n_split =
+//     ceil(MB * BL / 64) from the static shapes alone, so nothing reads
+//     positions on the host. A CTA whose chunk starts past pos[s] exits at
+//     once.
 //   * Stage the chunk. One block-table lookup per page the chunk spans
 //     (issued beside the read of pos[s]), then every live K and V row of
 //     the chunk is in flight at once as 16-byte cp.async copies into
 //     shared memory (a pool row of D elements is contiguous and 16-byte
 //     aligned: D % 8 == 0). The q rows of the kv head are staged in f32
 //     meanwhile, scaled by log2(e) / sqrt(D).
-//   * Compute from shared memory with every thread busy: two threads per
-//     key row for the scores (16-byte reads, one shuffle), one warp per
-//     query head for the chunk's max and sum (base-2), and for P.V one
-//     thread per (query head, feature) and row group, the groups summed in
-//     a fixed order. GQA is native: the CTA serves the g = Hq / Hkv query
-//     heads of its kv head from one pass over the chunk.
-//   * Combine in a fixed order. Each live split writes its unnormalised
-//     f32 accumulator, its max m and its sum l into a workspace; launch 2
-//     (combine), one CTA per (slot, kv head), folds the live splits in
-//     split order (running max, rescaled sums) and writes the output once,
-//     in the operand dtype. No atomics: two calls give the same bits.
+//   * Compute from shared memory and combine in a fixed order as
+//     decode_common.cuh describes (split_partial, combine_splits): no
+//     atomics, so two calls give the same bits.
 //
 // Left for later: TMA page loads, wgmma for large g, a persistent grid.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
+#include "decode_common.cuh"
 #include "launch_info.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;    // key rows per split
-constexpr int kRowPad = 16;   // bytes of padding per staged row
-static_assert(kChunk == 2 * 32 && kThreads == 2 * kChunk, "two rows a lane, two threads a row");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 16 bytes of shared memory as f32: four floats or eight bf16.
-__device__ __forceinline__ void load16(float (&x)[4], const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-}
-__device__ __forceinline__ void load16(float (&x)[8], const __nv_bfloat16* p) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    x[2 * i] = f.x, x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using namespace rkt_decode;
 
 // Splits per (slot, kv head): from the static shapes alone.
 inline int num_splits(int max_blocks, int block_len) {
   return (max_blocks * block_len + kChunk - 1) / kChunk;
 }
 
-// Floats of one split's workspace record: g accumulator rows of d, then
-// g maxima, then g sums.
-__host__ __device__ inline int record_floats(int g, int d) { return g * (d + 2); }
-
-// Dynamic shared memory of one split CTA: K and V of the chunk (row stride
-// d * itemsize + 16 bytes), q in f32, a score per (query head, row), the
-// P.V row-group partials, m and l per query head, and the chunk's page ids.
-inline size_t split_smem(int g, int d, int itemsize) {
-  const size_t row = static_cast<size_t>(d) * itemsize + kRowPad;
-  return 2 * kChunk * row + sizeof(float) * (g * d + g * kChunk + kThreads + 2 * g) +
-         sizeof(int) * (kChunk + 4);
+// Dynamic shared memory of one split CTA: split_partial's operands, then
+// the chunk's page ids.
+inline size_t paged_smem(int g, int d, int itemsize) {
+  return split_smem(g, d, itemsize) + sizeof(int) * (kChunk + 4);
 }
 
 // The visible rows of slot s: [0, pos + 1), at least one, at most the
@@ -125,15 +68,10 @@ paged_split_kernel(const T* q, const T* k_pages, const T* v_pages, const int* bl
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte piece
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, h = blockIdx.y, c = blockIdx.z;
-  const int g = hq / h_kv, ld = d + kRowPad / static_cast<int>(sizeof(T));
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + kChunk * ld;
-  float* q_s = reinterpret_cast<float*>(v_s + kChunk * ld);
-  float* s_s = q_s + g * d;     // g x kChunk scores, then probabilities
-  float* red = s_s + g * kChunk;
-  float* ml = red + kThreads;   // m of each query head, then l
-  int* page_s = reinterpret_cast<int*>(ml + 2 * g);
+  const int g = hq / h_kv, ld = row_ld<T>(d);
+  const int tid = threadIdx.x;
+  const SplitSmem<T> sm(smem, g, d);
+  int* page_s = reinterpret_cast<int*>(sm.tail);
 
   // The chunk's page ids and the slot's position are independent reads:
   // both are in flight before either is waited on.
@@ -157,84 +95,17 @@ paged_split_kernel(const T* q, const T* k_pages, const T* v_pages, const int* bl
     const long long off =
         (static_cast<long long>(page_s[row / block_len - page0]) * block_len + row % block_len) *
             h_kv * d + head + e;
-    rkt_mma::cp_async16(k_s + r * ld + e, k_pages + off, true);
-    rkt_mma::cp_async16(v_s + r * ld + e, v_pages + off, true);
+    rkt_mma::cp_async16(sm.k + r * ld + e, k_pages + off, true);
+    rkt_mma::cp_async16(sm.v + r * ld + e, v_pages + off, true);
   }
   rkt_mma::cp_async_commit();
-  const T* qg = q + (static_cast<long long>(s) * hq + static_cast<long long>(h) * g) * d;
-  for (int i = tid; i < g * d; i += kThreads) q_s[i] = to_f32(qg[i]) * scale2;
+  stage_q(sm.q, q + (static_cast<long long>(s) * hq + static_cast<long long>(h) * g) * d, g, d,
+          scale2);
   rkt_mma::cp_async_wait<0>();
   __syncthreads();
-
-  // Scores: threads 2r and 2r + 1 take the even and odd 16-byte pieces of
-  // key row r; rows past the position score -inf.
-  {
-    const int r = tid / 2, half = tid % 2;
-    for (int j = 0; j < g; ++j) {
-      float acc = 0.f;
-      if (r < rows) {
-        const T* krow = k_s + r * ld;
-        const float* qj = q_s + j * d;
-        for (int e = half * kVec; e < d; e += 2 * kVec) {
-          float kf[kVec];
-          load16(kf, krow + e);
-#pragma unroll
-          for (int x = 0; x < kVec; ++x) acc = fmaf(qj[e + x], kf[x], acc);
-        }
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      if (half == 0) s_s[j * kChunk + r] = r < rows ? acc : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // Softmax statistics of the chunk, one warp per query head (base 2; row
-  // 0 of a live chunk is visible, so the max is finite).
-  for (int j = warp; j < g; j += kWarps) {
-    float* sj = s_s + j * kChunk;
-    const float a = sj[lane], b = sj[lane + 32];
-    const float mx = warp_max(fmaxf(a, b));
-    const float pa = exp2f(a - mx), pb = exp2f(b - mx);
-    sj[lane] = pa;
-    sj[lane + 32] = pb;
-    const float sum = warp_sum(pa + pb);
-    if (lane == 0) {
-      ml[j] = mx;
-      ml[g + j] = sum;
-    }
-  }
-  __syncthreads();
-
-  // P.V: element e = (query head j, feature dd); when g * d < kThreads the
-  // rows are dealt to `groups` row groups per element, summed in order.
-  const int elems = g * d;
-  const int groups = max(1, kThreads / elems);
-  float* rec = part + ((static_cast<long long>(s) * h_kv + h) * gridDim.z + c) *
-                          record_floats(g, d);
-  if (groups > 1) {
-    float a = 0.f;
-    if (tid < groups * elems) {
-      const int e = tid % elems, rg = tid / elems, j = e / d, dd = e - j * d;
-      const float* pj = s_s + j * kChunk;
-      for (int r = rg; r < rows; r += groups) a = fmaf(pj[r], to_f32(v_s[r * ld + dd]), a);
-    }
-    red[tid] = a;
-    __syncthreads();
-    for (int e = tid; e < elems; e += kThreads) {
-      float sum = 0.f;
-      for (int rg = 0; rg < groups; ++rg) sum += red[rg * elems + e];
-      rec[e] = sum;
-    }
-  } else {
-    for (int e = tid; e < elems; e += kThreads) {
-      const int j = e / d, dd = e - j * d;
-      const float* pj = s_s + j * kChunk;
-      float a = 0.f;
-      for (int r = 0; r < rows; ++r) a = fmaf(pj[r], to_f32(v_s[r * ld + dd]), a);
-      rec[e] = a;
-    }
-  }
-  for (int i = tid; i < 2 * g; i += kThreads) rec[elems + i] = ml[i];
+  split_partial(sm, rows, g, d,
+                part + ((static_cast<long long>(s) * h_kv + h) * gridDim.z + c) *
+                           record_floats(g, d));
 }
 
 // Fold the live splits of each (slot, kv head) in split order and write
@@ -245,25 +116,9 @@ paged_combine_kernel(const float* part, const int* positions, T* out, int hq, in
                      int block_len, int max_blocks, int n_split) {
   const int s = blockIdx.x, h = blockIdx.y, g = hq / h_kv;
   const int n = visible_rows(positions, s, max_blocks * block_len);
-  const int live = (n + kChunk - 1) / kChunk;
-  const int elems = g * d, stride = record_floats(g, d);
-  const float* base = part + (static_cast<long long>(s) * h_kv + h) * n_split * stride;
-  T* og = out + (static_cast<long long>(s) * hq + static_cast<long long>(h) * g) * d;
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
-    const int j = e / d;
-    float m = -INFINITY, l = 0.f, acc = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < live; ++c) {
-      const float* rec = base + static_cast<long long>(c) * stride;
-      const float mc = rec[elems + j], lc = rec[elems + g + j], ac = rec[e];
-      const float m_new = fmaxf(m, mc);
-      const float a_old = exp2f(m - m_new), a_c = exp2f(mc - m_new);
-      l = l * a_old + lc * a_c;
-      acc = acc * a_old + ac * a_c;
-      m = m_new;
-    }
-    og[e] = from_f32<T>(acc / l);
-  }
+  combine_splits(part + (static_cast<long long>(s) * h_kv + h) * n_split * record_floats(g, d),
+                 (n + kChunk - 1) / kChunk, g, d,
+                 out + (static_cast<long long>(s) * hq + static_cast<long long>(h) * g) * d);
 }
 
 // Launch 1: one CTA per (slot, kv head, split); launch 2: one per (slot,
@@ -273,19 +128,12 @@ inline dim3 split_grid(int num_slots, int h_kv, int max_blocks, int block_len) {
 }
 inline dim3 combine_grid(int num_slots, int h_kv) { return dim3(num_slots, h_kv); }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <typename T>
 int run(const void* q, const void* k_pages, const void* v_pages, const int* block_table,
         const int* positions, void* out, float* workspace, int num_slots, int hq, int h_kv,
         int d, int num_blocks, int block_len, int max_blocks, float scale2, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = split_smem(hq / h_kv, d, sizeof(T));
+  const size_t smem = paged_smem(hq / h_kv, d, sizeof(T));
   cudaError_t err = prepare(paged_split_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_split_kernel<T><<<split_grid(num_slots, h_kv, max_blocks, block_len), kThreads, smem,
@@ -307,29 +155,15 @@ int query(int which, int num_slots, int hq, int h_kv, int d, int max_blocks, int
   if (which == 0)
     return rkt_info::write(paged_split_kernel<T>,
                            split_grid(num_slots, h_kv, max_blocks, block_len), kThreads,
-                           split_smem(hq / h_kv, d, sizeof(T)), info);
+                           paged_smem(hq / h_kv, d, sizeof(T)), info);
   return rkt_info::write(paged_combine_kernel<T>, combine_grid(num_slots, h_kv), kThreads, 0,
                          info);
 }
 
-// Resident CTAs per SM (what 0) or registers per thread (what 1) of the
-// split (which 0) or combine (which 1) kernel; -1 when the card refuses it.
 template <typename T>
-int attribute(int which, int what, int g, int d) {
-  const size_t smem = which == 0 ? split_smem(g, d, sizeof(T)) : 0;
-  auto get = [&](auto kernel) {
-    if (prepare(kernel, smem) != cudaSuccess) return -1;
-    if (what == 1) {
-      cudaFuncAttributes attr;
-      return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? attr.numRegs : -1;
-    }
-    int blocks = -1;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) !=
-        cudaSuccess)
-      return -1;
-    return blocks;
-  };
-  return which == 0 ? get(paged_split_kernel<T>) : get(paged_combine_kernel<T>);
+int kernel_attribute(int which, int what, int g, int d) {
+  return which == 0 ? attribute(paged_split_kernel<T>, what, paged_smem(g, d, sizeof(T)))
+                    : attribute(paged_combine_kernel<T>, what, 0);
 }
 
 }  // namespace
@@ -372,6 +206,6 @@ extern "C" int rkt_paged_decode_launch_info(int which, int num_slots, int hq, in
 // split (which 0) or combine (which 1) kernel for g query heads per kv
 // head at head dim d; -1 when the card refuses it.
 extern "C" int rkt_paged_decode_attribute(int which, int what, int g, int d, int dtype) {
-  if (dtype == 1) return attribute<__nv_bfloat16>(which, what, g, d);
-  return attribute<float>(which, what, g, d);
+  if (dtype == 1) return kernel_attribute<__nv_bfloat16>(which, what, g, d);
+  return kernel_attribute<float>(which, what, g, d);
 }

@@ -14,8 +14,11 @@ loss as ``batch["moe_aux_loss"]`` (which :func:`next_token_loss` adds) and
 their mean dropped fraction as ``batch["moe_frac_dropped"]``; the decode
 paths route each position as the reference does. Not ported yet, and
 raising ``NotImplementedError`` where a config asks for them: pipeline and
-tensor parallelism and ring attention (ROADMAP Queue A 6); ``scan_layers``
-and its knobs are layout-only (the blocks run as a Python loop).
+tensor parallelism and ring attention (ROADMAP Queue A 6). ``scan_layers``
+keeps the blocks a Python loop (a scanned JAX tree's ``blocks_stacked``
+is unstacked on load); with ``scan_remat`` the train forward checkpoints
+each block under ``scan_remat_policy``, as the reference's scanned body
+does (:meth:`Block.apply_remat`).
 
 ``Block``'s attention half takes the fused whole-block kernel
 (``ops/fused_block.py``) where the reference's gate would: the
@@ -26,6 +29,7 @@ By default the chain is the per-op one, as before.
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass, fields
 from typing import Optional
@@ -33,7 +37,12 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from rocket_tpu_torch.models.sampling import freeze_after_eos, sample_tokens, seed_from
 from rocket_tpu_torch.nn import keys
@@ -58,6 +67,17 @@ _UNPORTED = (
 )
 
 
+#: The non-batched matrix products a ``"dots"`` remat saves.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_dots_context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+
 @dataclass
 class TransformerConfig:
     vocab_size: int
@@ -79,10 +99,13 @@ class TransformerConfig:
     attention_impl: str = "auto"
     #: Mesh axis of impl="ring": not ported yet (must stay "seq").
     seq_axis: str = "seq"
-    #: Layout-only in the port: the blocks run as a Python loop and a
-    #: scanned JAX tree's ``blocks_stacked`` is unstacked on load
-    #: (``bridge.py``). Carried so that a config of either package loads
-    #: into the other; ``scan_remat_policy`` is still validated.
+    #: The blocks run as a Python loop either way and a scanned JAX tree's
+    #: ``blocks_stacked`` is unstacked on load (``bridge.py``). With
+    #: ``scan_layers`` and ``scan_remat`` the train forward recomputes each
+    #: block in the backward: ``scan_remat_policy`` None saves only the
+    #: block's input, ``"dots"`` also the outputs of its non-batched matrix
+    #: products, ``"block_io"`` also its attention half's output (one
+    #: checkpoint per half). ``scan_unroll`` has no effect in the port.
     scan_layers: bool = False
     scan_remat: bool = True
     scan_remat_policy: Optional[str] = None
@@ -280,20 +303,50 @@ class Block(Layer):
         MoE's aux outputs)."""
         return self.apply_aux(params, x, mode=mode, rng=rng)[0]
 
-    def apply_aux(self, params, x, *, mode="train", rng=None):
-        """``(B, T, D)`` through the block -> ``(x, aux)``, ``aux`` as in
-        :meth:`_ffn`. Its keys are the reference's: ``split(fold_in(rng,
-        layer_idx), 3)`` for attention and the two residual dropouts."""
-        rngs = (keys.split(keys.fold_in(rng, self.layer_idx), 3) if rng is not None
-                else (None, None, None))
+    def _keys(self, rng):
+        """The reference's keys: ``split(fold_in(rng, layer_idx), 3)`` for
+        attention and the two residual dropouts."""
+        if rng is None:
+            return (None, None, None)
+        return keys.split(keys.fold_in(rng, self.layer_idx), 3)
+
+    def _attn_residual(self, params, x, mode, rngs):
+        """``x + dropout(attn(ln1(x)))``: the attention half and its residual."""
         h = self._attn_half(params, x, mode, rngs[0])
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[1])
-        x = x + h
+        return x + h
+
+    def _ffn_residual(self, params, x, mode, rngs):
+        """``(x + dropout(ffn(ln2(x))), aux)``: the FFN half and its residual."""
         h, aux = self._ffn(params, self.ln2(params["ln2"], x))
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[2])
         return x + h, aux
+
+    def apply_aux(self, params, x, *, mode="train", rng=None):
+        """``(B, T, D)`` through the block -> ``(x, aux)``, ``aux`` as in
+        :meth:`_ffn`."""
+        rngs = self._keys(rng)
+        return self._ffn_residual(params, self._attn_residual(params, x, mode, rngs), mode, rngs)
+
+    def apply_remat(self, params, x, *, rng=None, policy=None):
+        """:meth:`apply_aux` in train mode, recomputed in the backward (the
+        reference's scanned body under ``jax.checkpoint(policy=...)``):
+        ``policy`` None keeps only the block's input; ``"dots"`` also the
+        outputs of the non-batched matrix products (``aten.mm``/``addmm``,
+        as ``dots_with_no_batch_dims_saveable``); ``"block_io"`` checkpoints
+        each half apart, so it also keeps the attention half's output, with
+        its residual added, which the FFN half starts from (the projections
+        and the attention are recomputed). The dropout keys are counter
+        hashes, so a recompute draws the same masks."""
+        if policy == "block_io":
+            rngs = self._keys(rng)
+            x = checkpoint(self._attn_residual, params, x, "train", rngs, use_reentrant=False)
+            return checkpoint(self._ffn_residual, params, x, "train", rngs, use_reentrant=False)
+        context_fn = _save_dots_context if policy == "dots" else noop_context_fn
+        return checkpoint(self.apply_aux, params, x, mode="train", rng=rng, use_reentrant=False,
+                          context_fn=context_fn)
 
     def _block_attn_config(self, x):
         """The ``block_attn`` config when the fused kernel serves this call,
@@ -434,8 +487,14 @@ class TransformerLM:
             x = self.drop.apply({}, x, mode=mode,
                                 rng=None if rng is None else keys.fold_in(rng, 0x0E0BED))
         aux_total = dropped_total = None
+        remat = (c.scan_layers and c.scan_remat and mode == "train"
+                 and torch.is_grad_enabled())
         for i, block in enumerate(self.blocks):
-            x, aux = block.apply_aux(params["blocks"][str(i)], x, mode=mode, rng=rng)
+            if remat:
+                x, aux = block.apply_remat(params["blocks"][str(i)], x, rng=rng,
+                                           policy=c.scan_remat_policy)
+            else:
+                x, aux = block.apply_aux(params["blocks"][str(i)], x, mode=mode, rng=rng)
             if aux is not None:
                 aux_total = aux["aux_loss"] if aux_total is None else aux_total + aux["aux_loss"]
                 dropped_total = (aux["frac_dropped"] if dropped_total is None

@@ -25,7 +25,7 @@ import torch
 
 __all__ = [
     "DTYPE_CODES", "LaunchFact", "check_cuda_operands", "dtype_name", "query_launch",
-    "record", "record_launches", "stream_of", "tile",
+    "record", "record_launches", "sm_count", "stream_of", "tile",
 ]
 
 #: Operand dtypes the kernels are compiled for, and their code in the C ABI.
@@ -113,6 +113,22 @@ def check_cuda_operands(what: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: {name} is on {t.device}, other operands on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def sm_count(t: torch.Tensor, what: str) -> int:
+    """The SMs of ``t``'s card, which size a grid that fills it; for a meta
+    tensor, of the card being priced (``tune.priced_device_kind``), else of
+    the local one. ``what`` names the kernel in the error."""
+    if t.device.type != "meta":
+        return torch.cuda.get_device_properties(t.device).multi_processor_count
+    from rocket_tpu_torch.tune import device_kind
+    from rocket_tpu_torch.utils.perf import device_spec
+
+    spec = device_spec(device_kind())
+    if spec is None:
+        raise ValueError(f"{what}: no SM count for device {device_kind()!r} to size the grid "
+                         "of a meta launch; trace under tune.priced_device_kind(<card name>)")
+    return spec.sms
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -5,9 +5,10 @@ One call per layer per decoded token: the new K/V row is written IN PLACE
 at row ``pos`` of the ``(B, Hkv, T, D)`` caches, then each query head
 attends over cache rows ``< pos`` plus the token's own K/V (the self
 term), grouped-query native, softmax in f32. On CUDA tensors this is the
-hand-written kernel ``csrc/decode_attention.cu``; on CPU tensors its plain
-version; on ``meta`` tensors it records its launch (:func:`attend_launch`)
-and launches nothing. Inference only.
+hand-written kernel ``csrc/decode_attention.cu``, split over 64-row chunks
+of the context and folded in a second, fixed-order launch; on CPU tensors
+its plain version; on ``meta`` tensors it records both launches
+(:func:`decode_attention_launches`) and launches nothing. Inference only.
 """
 
 from __future__ import annotations
@@ -29,56 +30,97 @@ from rocket_tpu_torch.ops._launch import (
 )
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_attention_supported",
-           "attend_launch", "attend_smem_bytes", "decode_attention_launch", "launch_info"]
+           "decode_attention_launches", "num_splits", "workspace_floats", "launch_info",
+           "attribute"]
 
 _NEG_INF = -1e30
-#: Threads per CTA and key rows per online-softmax step of the kernel
-#: (``kThreads`` and ``kTile`` in ``csrc/decode_common.cuh``).
-THREADS, KEY_TILE = 128, 64
+_LOG2E = 1.4426950408889634
+#: Threads per CTA, key rows per split and bytes of padding per staged row
+#: (``kThreads``, ``kChunk`` and ``kRowPad`` in ``csrc/decode_common.cuh``).
+THREADS, CHUNK, _ROW_PAD = 128, 64, 16
 
 
-def attend_smem_bytes(g: int, d: int) -> int:
-    """Dynamic shared memory of one decode CTA serving g query rows of
-    width d (``attend_smem_bytes`` in ``csrc/decode_common.cuh``): a tile's
-    row offsets, q and the accumulator in f32, a tile of scores per query
-    row and three statistics per query row."""
-    return 8 * KEY_TILE + 4 * (2 * g * d + g * KEY_TILE + 3 * g)
+def num_splits(t_max: int) -> int:
+    """Splits per (row, kv head): ``ceil(T / CHUNK)``, from the cache's
+    static length alone (never from ``pos``)."""
+    return -(-t_max // CHUNK)
 
 
-def attend_launch(name: str, grid: tuple, g: int, d: int, dtype, kv_rows: int,
-                  extra_tiles: tuple = ()) -> LaunchFact:
-    """The launch of a kernel built on ``attend_rows``: one CTA per (row,
-    kv head) stages the g query rows of its kv head (the whole (g, D)
-    group) and streams K and V in :data:`KEY_TILE`-row tiles out of a
-    ``kv_rows``-row plane, writing g output rows."""
+def workspace_floats(b: int, hq: int, h_kv: int, t_max: int, d: int) -> int:
+    """f32 workspace of one call: per (row, kv head, split) the g
+    unnormalised accumulator rows of D, then g maxima and g sums."""
+    return b * h_kv * num_splits(t_max) * (hq // h_kv) * (d + 2)
+
+
+def _split_smem_bytes(g: int, d: int, dtype) -> int:
+    """Dynamic shared memory of one split CTA (``split_smem`` in
+    ``csrc/decode_common.cuh``): the chunk's K and V rows at a row stride of
+    ``D * itemsize + 16`` bytes, q in f32, a score per (query head, row),
+    the P.V row-group partials, and m and l per query head."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return 2 * CHUNK * (d * item + _ROW_PAD) + 4 * (g * d + g * CHUNK + THREADS + 2 * g)
+
+
+def decode_attention_launches(b: int, hq: int, h_kv: int, t_max: int, d: int, dtype) -> tuple:
+    """The two launches of :func:`decode_attention`. Split: CTA (row, kv
+    head, split) stages the g query rows of its kv head (the whole (g, D)
+    group) and the chunk's :data:`CHUNK` K and V rows out of its (T, D)
+    cache plane; the split holding row ``pos`` also reads the token's new
+    K and V rows and writes them into the caches; each writes one workspace
+    record. Combine: CTA (row, kv head) streams the records of its live
+    splits and writes the g output rows."""
+    g, n_split = hq // h_kv, num_splits(t_max)
     group = tile(g, d, dtype, g, d)
-    kv = tile(KEY_TILE, d, dtype, kv_rows, d)
-    return LaunchFact(name, (*grid, 1), THREADS, attend_smem_bytes(g, d), 0,
-                      (group, kv, kv, group) + tuple(extra_tiles))
-
-
-def decode_attention_launch(b: int, hq: int, h_kv: int, t_max: int, d: int, dtype) -> LaunchFact:
-    """The launch of :func:`decode_attention`: CTA (b, h) also copies the
-    token's new K and V rows into row ``pos`` of its (T, D) cache planes."""
+    kv = tile(CHUNK, d, dtype, t_max, d)
     new = tile(1, d, dtype, b * h_kv, d)
     written = tile(1, d, dtype, t_max, d)
-    return attend_launch("decode_attention", (b, h_kv), hq // h_kv, d, dtype, t_max,
-                         (new, new, written, written))
+    record_f = g * (d + 2)
+    rec = tile(1, record_f, torch.float32, b * h_kv * n_split, record_f)
+    return (
+        LaunchFact("decode_attention", (b, h_kv, n_split), THREADS,
+                   _split_smem_bytes(g, d, dtype), 0,
+                   (group, kv, kv, new, new, written, written, rec)),
+        LaunchFact("decode_attention_combine", (b, h_kv, 1), THREADS, 0, 0, (rec, group)),
+    )
 
 
-def launch_info(b: int, hq: int, h_kv: int, d: int, dtype) -> tuple:
-    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
-    built library reports it (needs the card)."""
+def _lib():
     lib = _build.load("decode_attention")
-    fn = lib.rkt_decode_attention_launch_info
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-    return query_launch(fn, b, hq, h_kv, d, DTYPE_CODES[dtype])
+    if lib.rkt_decode_attention.argtypes is None:
+        lib.rkt_decode_attention.restype = ctypes.c_int
+        lib.rkt_decode_attention.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.rkt_decode_attention_workspace.restype = ctypes.c_longlong
+        lib.rkt_decode_attention_workspace.argtypes = [ctypes.c_int] * 5
+        lib.rkt_decode_attention_launch_info.restype = ctypes.c_int
+        lib.rkt_decode_attention_launch_info.argtypes = [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.rkt_decode_attention_attribute.restype = ctypes.c_int
+        lib.rkt_decode_attention_attribute.argtypes = [ctypes.c_int] * 5
+    return lib
+
+
+def launch_info(b: int, hq: int, h_kv: int, t_max: int, d: int, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of the split and the
+    combine launch, as the built library reports them (needs the card)."""
+    fn = _lib().rkt_decode_attention_launch_info
+    return tuple(query_launch(fn, which, b, hq, h_kv, t_max, d, DTYPE_CODES[dtype])
+                 for which in (0, 1))
+
+
+def attribute(which: str, what: str, g: int, d: int, dtype) -> int:
+    """``"ctas"`` (resident CTAs per SM) or ``"registers"`` (per thread) of
+    the ``"split"`` or ``"combine"`` kernel for g query heads per kv head at
+    head dim d, as the card reports it; -1 when it refuses. Needs the card."""
+    return _lib().rkt_decode_attention_attribute(("split", "combine").index(which),
+                                                 ("ctas", "registers").index(what), g, d,
+                                                 DTYPE_CODES[dtype])
 
 
 def decode_attention_supported(head_dim: int) -> bool:
-    """What the CUDA kernel needs: D a multiple of 8 and at most 256 (a
-    warp holds a key row in registers, 8 features per lane). Any T."""
+    """What the CUDA kernel needs: D a multiple of 8 (rows copied in 16-byte
+    pieces) and at most 256 (the split CTA's shared memory). Any T."""
     return head_dim % 8 == 0 and 8 <= head_dim <= 256
 
 
@@ -115,17 +157,6 @@ def decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos: int):
     return (out / denom).reshape(b, hq, d).to(q.dtype), k_cache, v_cache
 
 
-def _lib():
-    lib = _build.load("decode_attention")
-    fn = lib.rkt_decode_attention
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-    return fn
-
-
 def decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
     """One fused decode-attention step.
 
@@ -136,8 +167,9 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
     written in place (the JAX kernel aliases its caches the same way).
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch
-    ``csrc/decode_attention.cu`` (counted in ``decode_attention.launches``)
-    or raise — there is no fallback; meta tensors record the launch."""
+    ``csrc/decode_attention.cu``'s split and combine kernels (one call
+    counted in ``decode_attention.launches``) or raise — there is no
+    fallback; meta tensors record both launches."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, k_cache, v_cache, pos)
     check_cuda_operands(
@@ -162,12 +194,17 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
         raise ValueError(f"decode_attention: head dim {d} must be a multiple of 8 and <= 256")
     out = torch.empty_like(q)
     if q.device.type == "meta":
-        record([decode_attention_launch(b, hq, h_kv, t_max, d, q.dtype)])
+        record(decode_attention_launches(b, hq, h_kv, t_max, d, q.dtype))
         return out, k_cache, v_cache
-    err = _lib()(
+    if any(t.data_ptr() % 16 for t in (k_new, v_new, k_cache, v_cache)):
+        raise ValueError("decode_attention: k_new, v_new and the caches must be 16-byte "
+                         "aligned (the kernel copies their rows in 16-byte pieces)")
+    work = torch.empty(workspace_floats(b, hq, h_kv, t_max, d), dtype=torch.float32,
+                       device=q.device)
+    err = _lib().rkt_decode_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), b, hq, h_kv, t_max, d, pos,
-        1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream_of(q),
+        v_cache.data_ptr(), out.data_ptr(), work.data_ptr(), b, hq, h_kv, t_max, d, pos,
+        _LOG2E / math.sqrt(d), DTYPE_CODES[q.dtype], stream_of(q),
     )
     if err:
         raise RuntimeError(f"decode_attention: kernel launch failed with cudaError {err}")

@@ -49,6 +49,7 @@ from rocket_tpu_torch.ops._launch import (
     check_cuda_operands,
     query_launch,
     record,
+    sm_count,
     stream_of,
     tile,
 )
@@ -157,28 +158,13 @@ def _lib():
     return lib
 
 
-def _sms(x2: torch.Tensor) -> int:
-    """The SMs of ``x2``'s card; for a meta tensor, of the card being priced
-    (``tune.priced_device_kind``), else of the local one."""
-    if x2.device.type != "meta":
-        return torch.cuda.get_device_properties(x2.device).multi_processor_count
-    from rocket_tpu_torch.tune import device_kind
-    from rocket_tpu_torch.utils.perf import device_spec
-
-    spec = device_spec(device_kind())
-    if spec is None:
-        raise ValueError(f"fused_conv: no SM count for device {device_kind()!r} to size the "
-                         "normalise grid of a meta launch; trace under "
-                         "tune.priced_device_kind(<card name>)")
-    return spec.sms
-
-
 def _grids(x2: torch.Tensor) -> tuple:
     """(moments CTAs, normalise CTAs) for ``x2`` (N, C) on its card."""
     n, c = x2.shape
     moments_ctas = max(1, min(MOMENT_CTAS, -(-n // MOMENT_MIN_ROWS)))
     vectors = n * c * x2.element_size() // 16
-    return moments_ctas, max(1, min(_sms(x2) * NORM_CTAS_PER_SM, -(-vectors // THREADS)))
+    norm_ctas = sm_count(x2, "fused_conv") * NORM_CTAS_PER_SM
+    return moments_ctas, max(1, min(norm_ctas, -(-vectors // THREADS)))
 
 
 #: Static shared memory of the moments and normalise passes: f32 rows of

@@ -28,7 +28,9 @@ device values, so nothing synchronises with the host.
 ``tile_m``/``tile_n`` are the TPU grid's tiles: they are checked as the
 reference checks them and set the layout; the CUDA kernel chooses its own
 tiles, and a ``tile_m`` smaller than its 128 rows is fine (it finds each
-row's group from the group sizes).
+row's group from the group sizes). In bf16 the kernel is a persistent
+wgmma + TMA kernel (one CTA per SM, three warpgroups); in f32 it keeps the
+grouped products' CUDA-core tiles (:func:`gather_gmm_launch`).
 """
 
 from __future__ import annotations
@@ -38,13 +40,31 @@ import ctypes
 import torch
 
 from rocket_tpu_torch.ops import _build
-from rocket_tpu_torch.ops._launch import DTYPE_CODES, query_launch, record, stream_of
-from rocket_tpu_torch.ops.grouped_matmul import check_grouped, gmm, gmm_launch, tgmm
+from rocket_tpu_torch.ops._launch import (
+    DTYPE_CODES,
+    LaunchFact,
+    query_launch,
+    record,
+    sm_count,
+    stream_of,
+    tile,
+)
+from rocket_tpu_torch.ops.grouped_matmul import BLOCK_M, check_grouped, gmm, gmm_launch, tgmm
 
 __all__ = [
     "gather_gmm", "gather_gmm_supported", "padded_group_layout", "expert_per_tile",
-    "gather_gmm_fwd", "gather_gmm_reference", "GatherGmm", "launch_info",
+    "gather_gmm_fwd", "gather_gmm_reference", "GatherGmm", "gather_gmm_launch", "launch_info",
+    "attribute",
 ]
+
+#: The bf16 kernel (``csrc/gather_gmm.cu``): threads per CTA (two consumer
+#: warpgroups and a producer), output columns per tile, K per slice, slices
+#: in the ring, and its dynamic shared memory: 1 KB of alignment slack, per
+#: slice a 128 x 64 tile of gathered rows and four 64 x 64 TMA boxes of
+#: rhs, then a full and an empty mbarrier per slice.
+WG_THREADS, WG_BLOCK_N, WG_SLICE, WG_STAGES = 384, 256, 64, 4
+WG_SMEM = (1024 + WG_STAGES * (BLOCK_M * WG_SLICE * 2 + (WG_BLOCK_N // 64) * WG_SLICE * 64 * 2)
+           + 2 * WG_STAGES * 8)
 
 
 def gather_gmm_supported(k: int, n: int, tile_n: int) -> bool:
@@ -114,6 +134,25 @@ def gather_gmm_reference(x, rhs, row_ids, group_sizes, tile_m: int):
     return out.to(x.dtype)
 
 
+def gather_gmm_launch(m: int, k: int, n: int, e: int, dtype, src_rows: int,
+                      sms: int) -> LaunchFact:
+    """The launch of :func:`gather_gmm_fwd` on a card of ``sms`` SMs. bf16:
+    a persistent grid of ``min(sms, work tiles x N tiles)`` CTAs, each
+    walking (work tile of at most BLOCK_M rows of one group, WG_BLOCK_N
+    columns) pairs; per WG_SLICE-deep slice the producer gathers a
+    (BLOCK_M, WG_SLICE) tile of source rows through its row ids and TMA
+    loads two (WG_SLICE, 64) boxes of the group's rhs; it reads the E group
+    sizes and writes (BLOCK_M, WG_BLOCK_N) output tiles. f32: the grouped
+    products' CUDA-core launch (``grouped_matmul.gmm_launch``)."""
+    if dtype != torch.bfloat16:
+        return gmm_launch(m, k, n, e, dtype, name="gather_gmm", src_rows=src_rows)
+    slots = (m // BLOCK_M + e + 1) * -(-n // WG_BLOCK_N)
+    tiles = (tile(1, e, torch.int32, 1, e), tile(1, BLOCK_M, torch.int32, 1, m),
+             tile(BLOCK_M, WG_SLICE, dtype, src_rows, k), tile(WG_SLICE, 64, dtype, k, n),
+             tile(BLOCK_M, WG_BLOCK_N, dtype, m, n))
+    return LaunchFact("gather_gmm", (min(sms, slots), 1, 1), WG_THREADS, WG_SMEM, 0, tiles)
+
+
 def _lib():
     lib = _build.load("gather_gmm")
     if lib.rkt_gather_gmm.argtypes is None:
@@ -123,14 +162,23 @@ def _lib():
         lib.rkt_gather_gmm_launch_info.restype = ctypes.c_int
         lib.rkt_gather_gmm_launch_info.argtypes = [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_longlong)]
+        lib.rkt_gather_gmm_attribute.restype = ctypes.c_int
+        lib.rkt_gather_gmm_attribute.argtypes = [ctypes.c_int]
     return lib
 
 
 def launch_info(m: int, n: int, e: int, dtype) -> tuple:
-    """``(grid, threads, dynamic_smem, static_smem)`` of the launch as the
-    built library reports it (needs the card); the declaration is
-    ``grouped_matmul.gmm_launch(..., name="gather_gmm")``."""
+    """``(grid, threads, dynamic_smem, static_smem)`` of the launch on the
+    current card as the built library reports it (needs the card); the
+    declaration is :func:`gather_gmm_launch`."""
     return query_launch(_lib().rkt_gather_gmm_launch_info, m, n, e, DTYPE_CODES[dtype])
+
+
+def attribute(what: str) -> int:
+    """``"ctas"`` (resident CTAs per SM) or ``"registers"`` (per thread) of
+    the bf16 kernel, as the card reports them; -1 when it refuses. Needs the
+    card."""
+    return _lib().rkt_gather_gmm_attribute(("ctas", "registers").index(what))
 
 
 def gather_gmm_fwd(x, rhs, row_ids, group_sizes, tile_m: int):
@@ -154,8 +202,12 @@ def gather_gmm_fwd(x, rhs, row_ids, group_sizes, tile_m: int):
                          f"N={n_out}")
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if x.device.type == "meta":
-        record([gmm_launch(m, k, n_out, e, x.dtype, name="gather_gmm", src_rows=x.shape[0])])
+        record([gather_gmm_launch(m, k, n_out, e, x.dtype, x.shape[0],
+                                  sm_count(x, "gather_gmm"))])
         return out
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or rhs.data_ptr() % 16):
+        raise ValueError("gather_gmm: bf16 x and rhs must be 16-byte aligned (the kernel copies "
+                         "rows in 16-byte pieces and TMA reads rhs)")
     err = _lib().rkt_gather_gmm(x.data_ptr(), x.shape[0], row_ids.data_ptr(), rhs.data_ptr(),
                                 group_sizes.data_ptr(), out.data_ptr(), m, k, n_out, e,
                                 DTYPE_CODES[x.dtype], stream_of(x))

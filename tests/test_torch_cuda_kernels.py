@@ -105,21 +105,50 @@ def test_paged_decode_rejects_bad_operands(cuda):
         tpa.paged_decode(q.transpose(0, 1).contiguous().transpose(0, 1), pages, pages, table, pos)
 
 
+#: Row 2's positions: the first row, the rows around the first 64-row split
+#: boundary, generate()'s last row at T = 192, and the cache's last row.
+DECODE_POSITIONS = (0, 63, 64, 191, -1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hq,h_kv,d", [(12, 12, 64), (12, 4, 64), (8, 2, 256)])
-def test_decode_attention_matches_plain(cuda, hq, h_kv, d, dtype):
-    gen = torch.Generator().manual_seed(hq + h_kv + d)
-    b, t_max = 3, 200
+@pytest.mark.parametrize("t_max", [100, 192, 1024])
+@pytest.mark.parametrize("hq,h_kv,d", [(12, 12, 64), (12, 4, 64), (12, 12, 32), (12, 4, 128),
+                                       (8, 2, 256)])
+def test_decode_attention_matches_plain(cuda, hq, h_kv, d, t_max, dtype):
+    """Row 2 (split over 64-row chunks, then a fixed-order combine) against
+    its plain version at positions on both sides of a split boundary and at
+    the cache's last row, with T not a multiple of 64; the written cache
+    rows bitwise, one count per call, and two calls giving the same bits."""
+    gen = torch.Generator().manual_seed(hq + h_kv + d + t_max)
+    b = 3
     ops = [_randn(gen, dtype, *shape) for shape in
            [(b, hq, d), (b, h_kv, d), (b, h_kv, d), (b, h_kv, t_max, d), (b, h_kv, t_max, d)]]
     twin = [t.clone() for t in ops]
-    for pos in (0, 63, t_max - 1):
+    for pos in sorted({p % t_max for p in DECODE_POSITIONS if p < t_max}):
+        before = tda.decode_attention.launches
         got = tda.decode_attention(*ops, pos)
+        again = tda.decode_attention(*ops, pos)
+        assert tda.decode_attention.launches == before + 2
+        assert torch.equal(got[0], again[0])  # the splits combine in a fixed order
         want = tda.decode_attention_plain(*twin, pos)
         torch.testing.assert_close(got[0].float(), want[0].float(), atol=TOL[dtype],
                                    rtol=TOL[dtype])
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_decode_attention_rejects_misaligned_operands(cuda):
+    """The split CTAs copy cache rows and the new rows in 16-byte pieces: a
+    cache at an odd element offset raises; an aligned one runs."""
+    b, h, t, d = 2, 4, 100, 64
+    q, new = torch.zeros(b, h, d, device=cuda), torch.zeros(b, h, d, device=cuda)
+    buf = torch.zeros(b * h * t * d + 1, device=cuda)
+    odd = buf[1:].view(b, h, t, d)
+    with pytest.raises(ValueError):
+        tda.decode_attention(q, new, new, odd, odd.clone(), 5)
+    cache = buf[:-1].view(b, h, t, d)
+    tda.decode_attention(q, new, new, cache, cache.clone(), 5)
 
 
 # -- flash attention: forward, fused backward, accumulating dq ---------------
@@ -285,6 +314,54 @@ def test_flash_bwd_bf16_matches_plain_and_repeats_bitwise(cuda, case, scale):
         _held(dq, tfn._dq_plain(*args), bf16)
 
 
+def _held_by_norm(got, want, dtype):
+    """The element bound ``TOL * (1 + |want|)`` taken over the whole tensor:
+    the error's L2 norm within the bound's L2 norm. One element whose bf16
+    rounding flipped cannot fail it; an error spread over the tensor
+    would."""
+    got, want = got.float(), want.float()
+    err = (got - want).norm().item()
+    bound = (TOL[dtype] * (1.0 + want.abs())).norm().item()
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_FLASH_CASES, ids=lambda c: "b{}t{}h{}kv{}d{}{}".format(
+    *c[:5], "c" if c[5] else "n"))
+def test_flash_bwd_bf16_x8_unscaled_dout_held_by_norm(cuda, case):
+    """Rows 4 and 5 in bf16 with q and k eight times larger and dout as
+    drawn (not divided by 8, unlike the test above). Scores 64 times larger
+    and gradients eight times: one bf16 rounding of ds that another
+    summation order of the scores flips moves a dq element by |ds| * |k| /
+    256, which can pass the element bound's absolute part (a card probe
+    found 0.026 against 0.0204 at T=1000), and dk, built from the same ds
+    times q, moves alike. So dq, the dq partials it is summed from, dk and
+    dv are held by norm (:func:`_held_by_norm`); every kernel repeats
+    bitwise."""
+    b, t, hq, h_kv, d, causal = case
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(t + hq + d)
+    for fused in ([True, False] if hq == h_kv else [False]):
+        q, k, v, offs = _flash_operands(gen, bf16, b, t, hq, h_kv, d, fused)
+        if fused:
+            q = k = v = q * 8.0
+        else:
+            q, k = q * 8.0, k * 8.0
+        geo = (hq, h_kv, d, offs, causal)
+        out, lse = tfn.flash_fwd(q, k, v, *geo)
+        dout = _randn(gen, bf16, b, t, hq * d)
+        delta = (dout.float() * out.float()).reshape(b, t, hq, d).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta.contiguous(), *geo)
+        dqp, dk, dv = tfn.flash_bwd(*args, with_dq=True)
+        dqp2, dk2, dv2 = tfn.flash_bwd(*args, with_dq=True)
+        dq, dq2 = tfn.flash_dq(*args), tfn.flash_dq(*args)
+        assert torch.equal(dqp, dqp2) and torch.equal(dq, dq2)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        dqp_p, dk_p, dv_p = tfn._bwd_plain(*args)
+        for got, want in ((dqp, dqp_p), (dk, dk_p), (dv, dv_p), (dq, tfn._dq_plain(*args))):
+            _held_by_norm(got, want, bf16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [2, 4])
 def test_flash_bthd_gqa_runs_the_bf16_forward(cuda, g):
@@ -370,8 +447,10 @@ def test_tensor_core_occupancy_is_what_the_declarations_leave_room_for(cuda):
     """Resident CTAs per SM as the card reports them: at least 2 for row 8
     at T=256, 3 for row 3 at D=64, 3 and 4 for rows 4 and 5 (what their
     shared memory leaves room for at D=64, and their launch bounds' floor
-    at D=32), 4 and 2 for row 6 at 64 x 64 and 128 x 128 (bf16), and 8 for
-    row 1's split at the serve shape."""
+    at D=32), 4 and 2 for row 6 at 64 x 64 and 128 x 128 (bf16), 8 for
+    rows 1 and 2's splits at the serve shape, and for row 11's persistent
+    wgmma kernel one CTA per SM in at most 168 registers a thread (its
+    launch bounds')."""
     assert tfn.occupancy(64, torch.bfloat16) >= 3
     assert tfn.occupancy(32, torch.bfloat16) >= 3
     for d in tfn.HEAD_DIMS:
@@ -381,6 +460,8 @@ def test_tensor_core_occupancy_is_what_the_declarations_leave_room_for(cuda):
         assert tfa.occupancy("fwd", d, 64, 64, torch.bfloat16) >= 4
         assert tfa.occupancy("fwd", d, 128, 128, torch.bfloat16) >= 2
     assert tpa.attribute("split", "ctas", 1, 64, torch.bfloat16) >= 8
+    assert tda.attribute("split", "ctas", 1, 64, torch.bfloat16) >= 8
+    assert tgg.attribute("ctas") == 1 and 0 < tgg.attribute("registers") <= 168
     for epilogue in tfb.EPILOGUES:
         assert tfb.occupancy(256, epilogue, torch.bfloat16) >= 2
         assert tfb.occupancy(tfb.MAX_T, epilogue, torch.bfloat16) >= 1
@@ -623,6 +704,8 @@ def _routed(gen, n_tok, k_top, e, tile_m, empty=None):
 GATHER_CASES = {  # (tokens, K, N, E, tile_m, expert with no rows)
     "decode": (8, 768, 3072, 4, 16, 1),
     "tile_8": (50, 64, 256, 3, 8, None),
+    "k_edge": (300, 200, 256, 4, 64, 2),     # K past whole 64-deep slices, an empty group
+    "n_edge": (300, 768, 200, 4, 64, None),  # N past whole 128-column tiles
     "main_bf16_only": (8192, 768, 3072, 4, 512, None),
 }
 
@@ -644,6 +727,29 @@ def test_gather_gmm_matches_plain_and_repeats_bitwise(cuda, case, dtype):
     assert got.shape == (m, n)
     _held(got, tgg.gather_gmm_reference(x, rhs, row_ids, gsz, tile_m), dtype)
     assert torch.equal(got, tgg.gather_gmm_fwd(x, rhs, row_ids, gsz, tile_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_gmm_zeros_rows_past_the_groups_and_bad_ids(cuda, dtype):
+    """Group sizes that stop short of M (rows past the groups come out as
+    zeros) and an empty group, with row ids outside [0, N) (zero rows),
+    against the grouped product of the explicit gather; K and N off the
+    kernels' tiles."""
+    gen = torch.Generator().manual_seed(21)
+    n_tok, m, k, n = 70, 300, 200, 200
+    x = (torch.randn(n_tok, k, generator=gen) * 0.5).to(dtype).cuda()
+    rhs = (torch.randn(4, k, n, generator=gen) * k ** -0.5).to(dtype).cuda()
+    ids = torch.randint(0, n_tok, (m,), generator=gen, dtype=torch.int32)
+    ids[::17], ids[5::23] = -1, n_tok  # outside the source rows
+    sizes = torch.tensor([0, 131, 0, 100], dtype=torch.int32, device=cuda)
+    ids = ids.cuda()
+    got = tgg.gather_gmm_fwd(x, rhs, ids, sizes, 8)
+    assert not got[231:].any()  # rows past the groups
+    valid = ((ids >= 0) & (ids < n_tok))[:, None]
+    gathered = torch.where(valid, x[ids.long().clamp(0, n_tok - 1)], torch.zeros_like(x[:1]))
+    _held(got, tgm.gmm_reference(gathered, rhs, sizes), dtype)
+    assert torch.equal(got, tgg.gather_gmm_fwd(x, rhs, ids, sizes, 8))
 
 
 @pytest.mark.cuda
@@ -839,9 +945,13 @@ def _declared_and_built(kernel, dtype):
                          tpa.launch_info(s, hq, hkv, d, mb, bl, dtype))
         return pairs
     if kernel == "decode_attention":
-        return [(tda.decode_attention_launch(b, hq, hkv, 100, d, dtype),
-                 tda.launch_info(b, hq, hkv, d, dtype))
-                for b, hq, hkv, d in ((4, 12, 12, 64), (2, 6, 2, 128))]
+        pairs = []
+        for b, hq, hkv, t, d in ((4, 12, 12, 192, 64), (2, 6, 2, 100, 128), (8, 12, 4, 1024, 32)):
+            assert tda._lib().rkt_decode_attention_workspace(b, hq, hkv, t, d) == \
+                tda.workspace_floats(b, hq, hkv, t, d)
+            pairs += zip(tda.decode_attention_launches(b, hq, hkv, t, d, dtype),
+                         tda.launch_info(b, hq, hkv, t, d, dtype))
+        return pairs
     if kernel == "flash_native":
         return [(tfn.flash_launch(kind, 2, t, 4, hkv, d, dtype, 4 * d, hkv * d),
                  tfn.launch_info(kind, 2, t, 4, hkv, d, dtype))
@@ -873,8 +983,10 @@ def _declared_and_built(kernel, dtype):
                  for trans in (False, True)]
         pairs += [(tgm.tgmm_launch(m, k, n, e, dtype), tgm.launch_info("tgmm", m, k, n, e, dtype))
                   for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2))]
-        pairs += [(tgm.gmm_launch(m, 768, 3072, 4, dtype, name="gather_gmm", src_rows=500),
-                   tgg.launch_info(m, 3072, 4, dtype)) for m in (1024, 16)]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        pairs += [(tgg.gather_gmm_launch(m, 768, n, 4, dtype, 500, sms),
+                   tgg.launch_info(m, n, 4, dtype)) for m, n in ((18432, 3072), (1024, 3072),
+                                                                 (16, 3072), (300, 200))]
         return pairs
     assert kernel == "bad_scale" and dtype == torch.float32
     return [(tbp.bad_scale_launch((4096, 4096), block, grid), tbp.launch_info(block, grid))

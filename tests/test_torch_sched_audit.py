@@ -10,9 +10,10 @@ package's schedule audit.
 * Every non-demo target traces at full width on ``meta`` tensors and is
   clean; each launches the kernels it names.
 * Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``;
-  row 6's bf16 forward (tensor cores) and row 1's split and combine
-  launches equal a mirror of the sizes in their ``.cu`` sources, and row
-  1's split count follows the table's shape alone.
+  row 6's bf16 forward (tensor cores), rows 1 and 2's split and combine
+  launches and row 11's persistent wgmma launch equal a mirror of the sizes
+  in their ``.cu`` sources; rows 1 and 2's split counts follow the static
+  shapes alone, and row 11's grid the card's SMs.
 * Rows 3 and 8's bf16 (tensor-core) declarations leave room for 3 and 2
   resident CTAs per SM, the f32 (CUDA-core) ones are unchanged, and the
   targets that trace them stay clean.
@@ -119,10 +120,11 @@ TARGET_KERNELS = {
     "qkv_flash": {"flash_qkv_fwd", "flash_qkv_bwd"},
     "fused_kernels": {"bn_moments", "bn_finalize", "bn_normalize", "fused_block", "gather_gmm",
                       "gmm", "tgmm"},
-    "serve": {"paged_decode", "paged_decode_combine", "decode_attention"},
+    "serve": {"paged_decode", "paged_decode_combine", "decode_attention",
+              "decode_attention_combine"},
 }
 #: Launches that stage nothing in shared memory.
-NO_SMEM = {"bn_finalize", "paged_decode_combine"}
+NO_SMEM = {"bn_finalize", "paged_decode_combine", "decode_attention_combine"}
 
 
 @pytest.mark.parametrize("name", sorted(TARGET_KERNELS))
@@ -264,8 +266,106 @@ def test_paged_decode_split_count_follows_the_table_shape_alone():
 def test_serve_target_declares_the_split_and_the_combine():
     facts = run_sched_target(SCHED_TARGETS["serve"]).launches
     names = [f.name for f in facts]
-    assert names == ["paged_decode", "paged_decode_combine", "decode_attention"]
+    assert names == ["paged_decode", "paged_decode_combine", "decode_attention",
+                     "decode_attention_combine"]
     assert facts[0].grid == (8, 12, 16) and facts[0].dynamic_smem == 19_736
+    # generate()'s step: B=4 against a 192-row cache, three splits.
+    assert facts[2].grid == (4, 12, 3) and facts[2].dynamic_smem == 19_736 - 4 * 68
+    assert facts[3].grid == (4, 12, 1) and facts[3].smem_bytes == 0
+
+
+def _decode_mirror(b, hq, h_kv, t_max, d, itemsize):
+    """Row 2's two launches as ``csrc/decode_attention.cu`` sizes them:
+    split grid (B, Hkv, ceil(T / 64)), 128 threads, ``split_smem`` of
+    ``decode_common.cuh`` (row 1's without its page ids); combine grid (B,
+    Hkv, 1), no shared memory; the workspace record g * (D + 2) floats per
+    (row, kv head, split)."""
+    g, n_split = hq // h_kv, -(-t_max // 64)
+    smem = 2 * 64 * (d * itemsize + 16) + 4 * (g * d + g * 64 + 128 + 2 * g)
+    return (((b, h_kv, n_split), 128, smem, 0), ((b, h_kv, 1), 128, 0, 0),
+            b * h_kv * n_split * g * (d + 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,h_kv,t_max,d", [
+    (4, 12, 12, 192, 64),     # generate()'s step
+    (8, 12, 12, 1024, 64),    # a long prompt
+    (3, 12, 4, 100, 128),     # GQA g = 3, T not a multiple of 64
+    (2, 8, 2, 64, 256),       # the widest head, one split
+    (1, 4, 4, 1, 32),         # a one-row cache
+])
+def test_decode_attention_declarations_equal_the_cu_sizes(b, hq, h_kv, t_max, d, dtype):
+    from rocket_tpu_torch.ops import decode_attention as tda
+
+    split, combine = tda.decode_attention_launches(b, hq, h_kv, t_max, d, dtype)
+    want_split, want_combine, work = _decode_mirror(b, hq, h_kv, t_max, d,
+                                                    2 if dtype == torch.bfloat16 else 4)
+    assert (split.name, combine.name) == ("decode_attention", "decode_attention_combine")
+    assert split.geometry == want_split and combine.geometry == want_combine
+    assert tda.workspace_floats(b, hq, h_kv, t_max, d) == work
+    assert tda.num_splits(t_max) == -(-t_max // 64)
+    assert check_launches([split, combine], device_spec(DEFAULT_DEVICE_KIND)) == []
+
+
+def test_decode_attention_grid_follows_the_cache_length_not_pos():
+    """The split grid is (B, Hkv, ceil(T / 64)) whatever the position, so
+    it does not change from token to token."""
+    from rocket_tpu_torch.ops import decode_attention as tda
+
+    ops = [torch.empty(shape, dtype=torch.bfloat16, device="meta") for shape in (
+        (4, 12, 64), (4, 12, 64), (4, 12, 64), (4, 12, 192, 64), (4, 12, 192, 64))]
+    grids = set()
+    for pos in (0, 63, 64, 128, 191):
+        with _launch.record_launches() as facts:
+            tda.decode_attention(*ops, pos)
+        grids.add(tuple(f.grid for f in facts))
+    assert grids == {((4, 12, 3), (4, 12, 1))}
+
+
+def _gather_gmm_mirror(m, n, e, sms):
+    """Row 11's bf16 launch as ``csrc/gather_gmm.cu`` sizes it: a persistent
+    grid of min(SMs, (M / 128 + E + 1) * ceil(N / 256)) CTAs of 384 threads
+    (two consumer warpgroups and a producer), and ``kWgSmem``: 1 KB of
+    alignment slack, four slices of a 128 x 64 bf16 A tile and four 64 x 64
+    bf16 TMA boxes, and eight 8-byte mbarriers."""
+    slots = (m // 128 + e + 1) * -(-n // 256)
+    return ((min(sms, slots), 1, 1), 384, 1024 + 4 * (16_384 + 32_768) + 64, 0)
+
+
+@pytest.mark.parametrize("m,k,n,e,sms", [
+    (18432, 768, 3072, 4, 132),   # the MoE in-projection on an H100
+    (18432, 768, 3072, 4, 114),   # a card of fewer SMs
+    (80, 768, 3072, 4, 132),      # the decode layout: fewer tiles than SMs
+    (300, 200, 200, 4, 132),      # K and N past whole tiles
+])
+def test_gather_gmm_bf16_declaration_equals_the_cu_sizes(m, k, n, e, sms):
+    from rocket_tpu_torch.ops import gather_gmm as tgg
+    from rocket_tpu_torch.ops import grouped_matmul as tgm
+
+    fact = tgg.gather_gmm_launch(m, k, n, e, torch.bfloat16, 8192, sms)
+    assert fact.name == "gather_gmm"
+    assert fact.geometry == _gather_gmm_mirror(m, n, e, sms)
+    assert check_launches([fact], device_spec(DEFAULT_DEVICE_KIND)) == []
+    # f32 keeps the grouped products' CUDA-core launch.
+    f32 = tgg.gather_gmm_launch(m, k, n, e, torch.float32, 8192, sms)
+    assert f32 == tgm.gmm_launch(m, k, n, e, torch.float32, name="gather_gmm", src_rows=8192)
+
+
+def test_gather_gmm_meta_grid_is_the_priced_cards():
+    """The meta route sizes the persistent grid by the SMs of the card being
+    priced, and refuses to guess without one."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.ops import gather_gmm as tgg
+
+    x = torch.empty((8192, 768), dtype=torch.bfloat16, device="meta")
+    rhs = torch.empty((4, 768, 3072), dtype=torch.bfloat16, device="meta")
+    ids = torch.empty((18432,), dtype=torch.int32, device="meta")
+    sizes = torch.empty((4,), dtype=torch.int32, device="meta")
+    with tune.priced_device_kind(DEFAULT_DEVICE_KIND), _launch.record_launches() as facts:
+        tgg.gather_gmm_fwd(x, rhs, ids, sizes, 512)
+    assert [f.grid for f in facts] == [(device_spec(DEFAULT_DEVICE_KIND).sms, 1, 1)]
+    with tune.priced_device_kind("TPU v5 lite"), pytest.raises(ValueError, match="SM count"):
+        tgg.gather_gmm_fwd(x, rhs, ids, sizes, 512)
 
 
 #: Shared memory an SM holds for resident CTAs (228 KB), each CTA also

@@ -197,3 +197,175 @@ def test_eval_mode_ignores_dropout_and_needs_no_rng(jax_ref):
     np.testing.assert_allclose(out["logits"].numpy(), jax_ref["logits"], atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="rng"):
         model.apply(params, {"tokens": torch.from_numpy(jax_ref["tokens"])}, mode="train")
+
+
+# -- per-block remat under scan_layers -----------------------------------------
+#
+# With ``scan_layers`` and ``scan_remat`` the reference checkpoints each
+# block of its scanned body under ``scan_remat_policy``; the port
+# checkpoints each block of its loop (``Block.apply_remat``).
+
+SCAN = dict(vocab_size=96, max_seq_len=64, dim=64, num_layers=2, num_heads=2, dropout=0.0,
+            loss_chunk=16, attention_impl="xla", scan_layers=True)
+POLICIES = [None, "dots", "block_io"]
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=str)
+def test_scan_remat_loss_and_grads_match_the_jax_scanned_tree(policy):
+    """Loss and every gradient of the port's per-block remat against the
+    reference's scanned, rematerialised body (its ``blocks_stacked`` tree
+    bridged), f32, within 1e-5 of their norm."""
+    kw = {**SCAN, "scan_remat_policy": policy}
+    jmodel = jt.TransformerLM(jt.TransformerConfig(**kw))
+    jparams = jax.jit(jmodel.init)(jax.random.key(3))["params"]
+    assert "blocks_stacked" in jparams
+    tokens = np.random.default_rng(5).integers(0, kw["vocab_size"], (B, T)).astype(np.int32)
+
+    def loss_fn(p):
+        out, _ = jmodel.apply({"params": p, "state": {}}, {"tokens": jnp.asarray(tokens)},
+                              mode="train")
+        return jt.next_token_loss()(out)
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jparams)
+    model, params = _port(kw, jax.tree.map(np.asarray, jparams))
+    _, loss = _loss_and_grads(model, params, tokens)
+    assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads))
+    got = jax.tree.map(lambda t: t.grad, params)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert _rel(g.numpy(), w.numpy()) <= 1e-5
+
+
+class _ForwardStorages(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every storage an op made while the mode was on, with its bytes, held
+    by weak reference: after the forward, the live ones are what the
+    autograd graph and the checkpoints keep for the backward."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.multiprocessing.reductions import StorageWeakRef
+
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                self.made.setdefault(st._cdata, (StorageWeakRef(st), st.nbytes()))
+        return out
+
+    def live_bytes(self):
+        import gc
+
+        gc.collect()
+        return sum(n for ref, n in self.made.values() if not ref.expired())
+
+
+def _kept_bytes(num_layers, scan_remat, policy):
+    """Bytes of the storages the train forward made that it leaves alive,
+    and the bytes that ``saved_tensors_hooks`` packed outside any
+    checkpoint (the tensors autograd itself saves, the checkpoints' inputs
+    among them)."""
+    kw = {**SCAN, "num_layers": num_layers, "scan_remat": scan_remat,
+          "scan_remat_policy": policy}
+    model = tt.TransformerLM(tt.TransformerConfig(**kw))
+    params = map_params(lambda t: t.requires_grad_(),
+                        model.init(torch.Generator().manual_seed(0), device="cpu"))
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 96, (B, T)))
+    packed = []
+
+    def pack(t):
+        packed.append(t.untyped_storage().nbytes() if t.numel() else 0)
+        return t
+
+    mode = _ForwardStorages()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), mode:
+        loss = tt.next_token_loss()(model.apply(params, {"tokens": tokens}, mode="train"))
+    kept = mode.live_bytes()
+    loss.backward()  # the kept graph runs
+    return kept, sum(packed)
+
+
+def test_scan_remat_policies_keep_what_they_name():
+    """What each policy keeps for the backward, per block (the difference
+    between 2 and 1 layers), in units of one (B, T, D) f32 activation:
+    None keeps the block's input (1); ``"block_io"`` also the attention
+    half's output with its residual (2); ``"dots"`` also the outputs of the
+    block's four non-batched products, qkv (3), the attention projection
+    (1), the MLP's up (4) and down (1) projections (10); no remat keeps
+    more than any. So none < block_io <= dots < no remat.
+    ``saved_tensors_hooks`` alone cannot count this: a checkpoint's own
+    hooks shadow any outer ones inside its region, and the selective
+    checkpoint keeps its saved products in a cache of its own; so the
+    forward's storages are followed by weak reference, and the hooks are
+    held to what they can see, a checkpoint's inputs."""
+    unit = B * T * SCAN["dim"] * 4
+    kept, hooked = {}, {}
+    for name, remat, policy in [("none", True, None), ("block_io", True, "block_io"),
+                                ("dots", True, "dots"), ("no remat", False, None)]:
+        for layers in (1, 2):
+            kept[name, layers], hooked[name, layers] = _kept_bytes(layers, remat, policy)
+    per_block = {name: kept[name, 2] - kept[name, 1] for name, _ in kept}
+    assert per_block["none"] == unit
+    assert per_block["block_io"] == 2 * unit
+    assert per_block["dots"] == 10 * unit
+    assert per_block["no remat"] > per_block["dots"]
+    assert kept["none", 2] < kept["block_io", 2] <= kept["dots", 2] < kept["no remat", 2]
+    # The hooks see a remat block only through its checkpoints' inputs (its
+    # params are packed too, but they are not the forward's storages).
+    assert hooked["none", 2] - hooked["none", 1] == unit
+    assert hooked["block_io", 2] - hooked["block_io", 1] == 2 * unit
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=str)
+def test_scan_remat_with_dropout_is_bitwise_the_unrematerialised_run(policy):
+    """Dropout 0.1: the recompute draws the same counter-hash masks, so the
+    gradients under ``scan_remat`` equal those without it bit for bit."""
+    grads = []
+    for scan_remat in (True, False):
+        kw = {**SCAN, "dropout": 0.1, "scan_remat": scan_remat, "scan_remat_policy": policy}
+        model = tt.TransformerLM(tt.TransformerConfig(**kw))
+        params = map_params(lambda t: t.requires_grad_(),
+                            model.init(torch.Generator().manual_seed(2), device="cpu"))
+        tokens = torch.from_numpy(np.random.default_rng(6).integers(0, 96, (B, T)))
+        out = model.apply(params, {"tokens": tokens}, mode="train", rng=keys.key(9))
+        tt.next_token_loss()(out).backward()
+        grads.append([t.grad for t in jax.tree.leaves(params)])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_module_remat_under_scan_layers_logs_and_keeps_the_block_checkpoints(caplog,
+                                                                            monkeypatch):
+    """``Module(remat=True)`` with ``scan_layers``: the reference's log line,
+    and a train step that checkpoints each block (two per step at two
+    layers) and not the whole forward."""
+    import rocket_tpu_torch as rt
+    from rocket_tpu_torch import optim as toptim
+    from rocket_tpu_torch.core import module as tmodule
+    from rocket_tpu_torch.data.text import TokenDataset
+
+    calls = {"forward": 0, "blocks": 0}
+
+    def counting(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(tmodule, "checkpoint", counting("forward", tmodule.checkpoint))
+    monkeypatch.setattr(tt, "checkpoint", counting("blocks", tt.checkpoint))
+    model = tt.TransformerLM(tt.TransformerConfig(**{**SCAN, "loss_chunk": 0}))
+    tokens = np.random.default_rng(7).integers(0, 96, B * T)
+    module = rt.Module(model, [rt.Loss(tt.next_token_loss()), rt.Optimizer(toptim.sgd())],
+                       remat=True)
+    with caplog.at_level("INFO"):
+        rt.Launcher([rt.Looper([rt.Dataset(TokenDataset(tokens, T), batch_size=B), module],
+                               progress=False)], runtime=rt.Runtime(device="cpu", seed=0)).launch()
+    assert "remat=True ignored: scan_layers already remats per block" in caplog.text
+    assert calls == {"forward": 0, "blocks": SCAN["num_layers"]}
