@@ -182,10 +182,19 @@ def require(cond: bool, msg: str) -> None:
 
 class Timer:
     """Per-launch CUDA-event timing with the 50 MB L2 flushed before each
-    launch (the serving path finds its pages cold). The card is first kept
-    busy for a second: from idle, the first phase's short kernels timed up
-    to 2.5x slower than the same kernels a phase later (row 1's first
-    case)."""
+    launch (the serving path finds its pages cold). Between the flush and
+    the start event the card spins for PREROLL_CYCLES, so the host has
+    queued the timed launch before the card reaches it: a launch whose host
+    side outlasts the flush (SDPA's autograd backward) otherwise timed the
+    host, and moved between phases and runs by up to 4x. The card
+    is first kept busy for a second: from idle, the first phase's short
+    kernels timed up to 2.5x slower than the same kernels a phase later
+    (row 1's first case). Then one timing of nothing is thrown away: a
+    run's first timing read row 1's kernel slower than its next ones."""
+
+    #: ~0.5 ms at the H100's boost clock: longer than any timed launch's
+    #: host side.
+    PREROLL_CYCLES = 1_000_000
 
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -195,19 +204,26 @@ class Timer:
             for _ in range(8):
                 a @ a
             torch.cuda.synchronize()
+        self.ms(lambda: None)
 
-    def ms(self, fn, iters: int = 30, warmup: int = 3) -> float:
+    def launches_ms(self, fn, iters: int = 30, warmup: int = 3) -> list:
+        """The time of each of ``iters`` launches of ``fn``, after
+        ``warmup`` untimed ones."""
         for _ in range(warmup):
             fn()
         events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                   for _ in range(iters)]
         for start, end in events:
             self.flush.zero_()
+            torch.cuda._sleep(self.PREROLL_CYCLES)
             start.record()
             fn()
             end.record()
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in events) / iters
+        return [s.elapsed_time(e) for s, e in events]
+
+    def ms(self, fn, iters: int = 30, warmup: int = 3) -> float:
+        return sum(self.launches_ms(fn, iters, warmup)) / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -223,13 +239,14 @@ def _declared_launches() -> list:
     every kernel at its main path's shapes: the serve wave (row 1's split and
     combine, also at the long-context table) and generate() (row 2's split
     and combine), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
-    the D=32 bf16 forward), rows 6-7 at both tiles, the char-LM fused block
-    under both epilogues, bf16 and f32 (row 8), the three
-    BN passes at ResNet-18 CIFAR's four shapes (rows 9-10), the MoE
-    in-projection's gather-GMM (bf16: the persistent wgmma grid, one CTA per
-    SM of this card) and both grouped products of the in- and
-    out-projection in bf16 and f32 (row 11, gmm, tgmm), and row 12's two
-    launches: 47 in all. The BN grids are sized by a meta tensor priced as this card,
+    the D=32 bf16 forward), row 6 at both square tiles and row 7 at all
+    four tile pairs (bf16), the char-LM fused block under both epilogues,
+    bf16 and f32 (row 8), the three BN passes at ResNet-18 CIFAR's four
+    shapes (rows 9-10), the MoE in-projection's gather-GMM and both grouped
+    products of the in- and out-projection in bf16 and f32 (row 11, gmm,
+    tgmm; bf16 row 11 and gmm on the persistent wgmma grid, one CTA per SM
+    of this card), bf16 gmm at moe_serve's decode rows in both modes, and
+    row 12's two launches: 51 in all. The BN grids are sized by a meta tensor priced as this card,
     as the audit sizes them."""
     bf16, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -250,11 +267,12 @@ def _declared_launches() -> list:
     rows.append(("flash_fwd", "B=64 T=128 H=4 D=32 bf16 fused qkv",
                  fa.flash_launch("flash_fwd", 64, 128, 4, 4, 32, bf16, 384, 384),
                  fa.launch_info("flash_fwd", 64, 128, 4, 4, 32, bf16)))
-    for kind in ("fwd", "bwd"):
-        for blk in fqa.TILES:
-            rows.append((f"flash_qkv_{kind}", f"(3, 8, 12, 1024, 64) bf16 {blk}x{blk}",
-                         fqa.qkv_launch(kind, 8, 12, 1024, 64, bf16, blk, blk),
-                         fqa.launch_info(kind, 8, 12, 1024, 64, bf16, blk, blk)))
+    for kind, pairs in (("fwd", [(blk, blk) for blk in fqa.TILES]),
+                        ("bwd", [(bq, bk) for bq in fqa.TILES for bk in fqa.TILES])):
+        for bq, bk in pairs:
+            rows.append((f"flash_qkv_{kind}", f"(3, 8, 12, 1024, 64) bf16 {bq}x{bk}",
+                         fqa.qkv_launch(kind, 8, 12, 1024, 64, bf16, bq, bk),
+                         fqa.launch_info(kind, 8, 12, 1024, 64, bf16, bq, bk)))
     for epilogue in ("separate", "fused"):
         for dtype in (bf16, f32):
             name = str(dtype).removeprefix("torch.")
@@ -273,10 +291,13 @@ def _declared_launches() -> list:
         rows.append(("gather_gmm", f"M=18432 K=768 N=3072 E=4 src=8192 {name}",
                      gg.gather_gmm_launch(18432, 768, 3072, 4, dtype, 8192, sms),
                      gg.launch_info(18432, 3072, 4, dtype)))
-        for k, n, trans in ((768, 3072, False), (3072, 768, False), (3072, 768, True)):
-            rows.append(("gmm", f"M=18432 K={k} N={n} E=4 {name}{' transposed' if trans else ''}",
-                         gm.gmm_launch(18432, k, n, 4, dtype, trans),
-                         gm.launch_info("gmm", 18432, k, n, 4, dtype, trans)))
+        shapes = [(18432, 768, 3072, False), (18432, 3072, 768, False), (18432, 3072, 768, True)]
+        if dtype == bf16:  # moe_serve's decode rows, both modes
+            shapes += [(16, 3072, 768, False), (16, 3072, 768, True)]
+        for m, k, n, trans in shapes:
+            rows.append(("gmm", f"M={m} K={k} N={n} E=4 {name}{' transposed' if trans else ''}",
+                         gm.gmm_launch(m, k, n, 4, dtype, trans, sms=sms),
+                         gm.launch_info("gmm", m, k, n, 4, dtype, trans)))
         for k, n in ((768, 3072), (3072, 768)):
             rows.append(("tgmm", f"M=18432 K={k} N={n} E=4 {name}",
                          gm.tgmm_launch(18432, k, n, 4, dtype),
@@ -524,6 +545,23 @@ def flash_bounds(b, t, hq, h_kv, d, dtype, causal):
             bound_ms(qkv + act + 2 * stats + dkv, 8 * d * pairs, dtype))
 
 
+def sdpa_backward_ms(timer, q, k, v, dout, causal):
+    """The yardstick of the flash backward kernels (rows 4, 5 and 7): one
+    PyTorch call's autograd backward of SDPA on (B, H, T, D) leaves, the
+    flash backend pinned so the yardstick does not move between backends;
+    timed only, never used by the port. Three timings, each the median of
+    10 launches (a launch that waits on the allocator or the host then
+    moves no timing): returns (their median, [min, max])."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        fn = lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)  # noqa: E731
+        times = sorted(float(np.median(timer.launches_ms(fn, iters=10, warmup=2)))
+                       for _ in range(3))
+    return times[1], [times[0], times[2]]
+
+
 def dq_partial_bytes(b, t, hq, d):
     """The f32 dq partial buffer of ``flash_bwd``: one (B, T, Hq*D) copy per
     TILE-row k-tile."""
@@ -582,15 +620,14 @@ def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=Fals
                   for a, o, n in ((q, offs[0], hq), (k, offs[1], h_kv), (v, offs[2], h_kv)))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qh, kh, vh, is_causal=causal, enable_gqa=h_kv != hq)
-    lib_out = sdpa()
     dout_h = dout.reshape(b, t, hq, d).transpose(1, 2)
-    lib_bwd = lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout_h,  # noqa: E731
-                                          retain_graph=True)
     ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
     bounds = flash_bounds(b, t, hq, h_kv, d, dtype, causal)
+    # The timed case is MHA (Hkv == Hq): SDPA's flash backend takes it.
+    lib_bwd = sdpa_backward_ms(timer, qh, kh, vh, dout_h, causal)
     for name, kernel, plain, library, bound in (
         ("flash_fwd", lambda: fa.flash_fwd(q, k, v, *geo),
-         lambda: fa._fwd_plain(q, k, v, *geo), sdpa, bounds[0]),
+         lambda: fa._fwd_plain(q, k, v, *geo), (ms(sdpa), None), bounds[0]),
         ("flash_bwd", lambda: fa.flash_bwd(*args), lambda: fa._bwd_plain(*args), lib_bwd,
          bounds[1]),
         ("flash_dq", lambda: fa.flash_dq(*args), lambda: fa._dq_plain(*args), lib_bwd,
@@ -598,9 +635,11 @@ def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=Fals
         ("flash_bwd_nodq", lambda: fa.flash_bwd(*args, with_dq=False),
          lambda: fa._bwd_plain(*args, with_dq=False), lib_bwd, bounds[3]),
     ):
-        row[name] = {"ms": ms(kernel), "plain_ms": ms(plain), "library_ms": ms(library),
+        row[name] = {"ms": ms(kernel), "plain_ms": ms(plain), "library_ms": library[0],
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "max_abs_err": err[name.removeprefix("flash_")]}
+        if library[1] is not None:
+            row[name]["library_spread_ms"] = library[1]
     # The design cost of the partials: writing them once at the HBM rate.
     partials = dq_partial_bytes(b, t, hq, d)
     row["flash_bwd"].update(dq_partial_bytes=partials,
@@ -746,9 +785,7 @@ def check_flash_qkv(timer, gen):
         if (t, d, dtype, causal) == (1024, 64, torch.bfloat16, True):
             q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(0))
             sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa
-            lib_out = sdpa()
-            lib_bwd = lambda: torch.autograd.grad(lib_out, (q, k, v), dout,  # noqa: E731
-                                                  retain_graph=True)
+            lib_bwd = sdpa_backward_ms(timer, q, k, v, dout, True)
             ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
             fwd_b, bwd_b, bwd_dq_once, partials = qkv_bounds(b, h, t, d, dtype, causal, bk)
             row["flash_qkv_fwd"] = {
@@ -759,14 +796,15 @@ def check_flash_qkv(timer, gen):
             row["flash_qkv_bwd"] = {
                 "ms": ms(lambda: fqa.flash_qkv_bwd(*args)),
                 "plain_ms": ms(lambda: fqa._bwd_plain(*args)),
-                "library_ms": ms(lib_bwd), "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
+                "library_ms": lib_bwd[0], "library_spread_ms": lib_bwd[1],
+                "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
                 "max_abs_err": err["bwd"], "dq_partial_bytes": partials,
                 "dq_partial_write_ms": partials / HBM_BYTES_PER_S * 1e3,
                 "bound_dq_once_ms": bwd_dq_once[0], "bound_dq_once_by": bwd_dq_once[1]}
             row["occupancy"] = {kind: fqa.occupancy(kind, d, bq, bk, dtype)
                                 for kind in ("fwd", "bwd")}
             timed[(bq, bk)] = row
-            del q, k, v, lib_out
+            del q, k, v
         emit("parity_flash_qkv", **row)
         del qkv, dout, out, lse, delta
     return timed
@@ -2241,25 +2279,31 @@ def check_moe_kernels(timer, gen):
             continue
         # Timed at the main path's shapes (forced fused): the in-projection,
         # the out-projection forward, and the in-projection's drhs.
+        # Half of gmm's launches per step are the backward's transpose_rhs
+        # mode (the in-projection's dlhs), timed beside the forward.
         timed = {
             "gather_gmm": cases[0], "gmm": cases[1], "tgmm": cases[5],
+            "gmm_transpose_rhs": cases[4],
         }
         library = {
             "gather_gmm": _library_grouped("gmm", xg, w_in, gsz),
             "gmm": _library_grouped("gmm", h, w_out, gsz),
             "tgmm": _library_grouped("tgmm", xg, dy_h, gsz),
+            "gmm_transpose_rhs": _library_grouped("gmm", dy_h, w_in, gsz, transpose=True),
         }
+        rows["gmm_transpose_rhs"] = {"max_abs_err": errs[4]["max_abs_err"]}
         # gather_gmm's yardstick is the explicit gather, then the grouped
         # product (timed on xg, the same rows the gather gives).
         lib_name, product = library["gather_gmm"]
         library["gather_gmm"] = (lib_name + " after x[row_ids]",
                                  lambda: (x[row_ids.long()], product()))
-        for kind, (_, label, (m, k, n, src, sizes), kernel, plain) in timed.items():
+        for key, (kind, label, (m, k, n, src, sizes), kernel, plain) in timed.items():
             bound = gmm_bounds(kind, m, k, n, 4, _rows_in_groups(sizes, m), dtype, src)
-            rows[kind].update(case=label, m=m, k=k, n=n, ms=timer.ms(kernel, iters=10),
-                              plain_ms=timer.ms(plain, iters=5), library=library[kind][0],
-                              library_ms=timer.ms(library[kind][1], iters=10),
-                              bound_ms=bound[0], bound_by=bound[1])
+            rows[key].update(case=label, m=m, k=k, n=n, ms=timer.ms(kernel, iters=10),
+                             plain_ms=timer.ms(plain, iters=5), library=library[key][0],
+                             library_ms=timer.ms(library[key][1], iters=10),
+                             bound_ms=bound[0], bound_by=bound[1])
+        rows["gmm"]["transpose_rhs"] = rows.pop("gmm_transpose_rhs")
         emit("parity_moe_kernels_timed", dtype=name, **rows)
         del x, h, dy_h, dy_o, xs, xg, hs, lhs_r, dy_r, cases, timed, library
     return rows
@@ -2356,7 +2400,7 @@ class _RouteLog:
 def _moe_group(kernel: str) -> str:
     """The MoE train profile's device-time group of a kernel name."""
     low = kernel.lower()
-    if "rkt_gg::" in kernel:
+    if "rkt_gg::" in kernel or "rkt_wg::" in kernel:  # mma.sync tgmm; wgmma gather_gmm, gmm
         return "MoE kernels (gather_gmm, gmm, tgmm)"
     if "flash_" in kernel and "_kernel<" in kernel:
         return "flash kernels"
@@ -2684,10 +2728,11 @@ def main() -> int:
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
         for name, info in built.items()},
-         # Rows 1, 2, 4, 5, 6 and 11 (bf16, redesigned): registers per
-         # thread and resident CTAs per SM at the serve wave, at GPT-2's D=64
-         # and for row 11's persistent wgmma kernel (registers at launch,
-         # before its warpgroups trade them with setmaxnreg).
+         # Rows 1, 2, 4, 5, 6, 7, 11 and gmm (bf16, redesigned): registers
+         # per thread and resident CTAs per SM at the serve wave, at GPT-2's
+         # D=64 (rows 6 and 7 at every tile pair) and for the persistent
+         # wgmma kernel of row 11 and gmm (registers at launch, before its
+         # warpgroups trade them with setmaxnreg).
          redesigned={
              **{f"{kind} bf16 D=64": {
                  "registers": fa.registers(64, torch.bfloat16, kind),
@@ -2703,6 +2748,14 @@ def main() -> int:
                 for which in ("split", "combine")},
              "gather_gmm bf16 wgmma": {"registers": gg.attribute("registers"),
                                        "ctas_per_sm": gg.attribute("ctas")},
+             **{f"gmm bf16 wgmma {bn}{' transpose_rhs' if trans else ''}": {
+                 "registers": gm.attribute("registers", trans, bn),
+                 "ctas_per_sm": gm.attribute("ctas", trans, bn)}
+                for trans in (False, True) for bn in gm.GMM_BLOCK_NS},
+             **{f"flash_qkv_bwd bf16 D=64 {bq}x{bk}": {
+                 "registers": fqa.registers("bwd", 64, bq, bk, torch.bfloat16),
+                 "ctas_per_sm": fqa.occupancy("bwd", 64, bq, bk, torch.bfloat16)}
+                for bq in fqa.TILES for bk in fqa.TILES},
              **{f"flash_qkv_fwd bf16 D=64 {bq}x{bk}": {
                  "registers": fqa.registers("fwd", 64, bq, bk, torch.bfloat16),
                  "ctas_per_sm": fqa.occupancy("fwd", 64, bq, bk, torch.bfloat16)}

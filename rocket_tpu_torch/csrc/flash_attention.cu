@@ -52,7 +52,29 @@
 // 92,160 B at 128 x 128 (D = 64), so four and two CTAs fit an SM by
 // shared memory.
 //
-// The f32 forward and the backward in both dtypes keep the first kernel:
+// The bf16 backward runs on the tensor cores too, row 4's core
+// (flash_bwd.cu) with the roles of its operands moved onto the planes:
+// each warp owns 16 of the CTA's BK key rows (BK = 64: 4 warps, 128: 8).
+// K and V are copied once and read as mma A fragments; Q, dO, lse and
+// delta stream through a two-stage cp.async ring in 64-query steps
+// whatever BQ is (BQ only sets where the causal zero partials end), so the
+// ring is row 4's size. Per step S^T = K.Q^T and dP^T = V.dO^T run on
+// mma.sync (16 keys x 64 queries a warp), p and ds are formed in that
+// layout, and dv += P^T.dO and dk += dS^T.Q take them re-packed as A
+// fragments. A warp whose 16 keys all follow the step's 64 queries on the
+// causal diagonal (at BK = 128) skips the products (p is 0 there: no bit
+// changes). For
+// dq the warps write round(dS^T) to one bf16 BK x 64 tile (stride 72);
+// after a barrier the 64 x D partial, a sum over all BK keys, is split so
+// that no two warps sum into one element (4 groups of 16 query rows, times
+// BK / 64 column slices of D), read back by ldmatrix.trans and multiplied
+// by the K tile, summed in f32 and written once in bf16. Shared memory is
+// (2 BK + 256) (D + 8) + 72 BK bf16 and 1 KB of statistics: 65,536 B at
+// BK = 64 and 93,184 B at BK = 128 (D = 64). Registers, not shared
+// memory, set the residency: two CTAs of 4 warps per SM at BK = 64, one
+// of 8 at BK = 128.
+//
+// The f32 forward and backward keep the first kernel:
 // 256 threads form a 16 x 16 grid (ty, tx); in a score tile thread (ty,
 // tx) owns rows ty + 16 i and columns tx + 16 j; in an output tile the
 // same rows and columns tx + 16 c (c < D / 16). The 16 threads of a row are
@@ -62,7 +84,7 @@
 // f32 the backward takes 200 KB of dynamic shared memory (q, k, v and dO
 // tiles of 33 KB each, one 66 KB score tile shared by round(p) and then
 // round(ds)); each instantiation raises its own cap. TF32 mma would miss
-// the f32 parity bound of 1e-4.
+// the f32 parity bound of 1e-4; no main path runs f32.
 //
 // Bound on the H100 at GPT-2 shapes (bf16, B = 8, H = 12, T = 1024,
 // D = 64, causal): forward bytes (qkv read once, O and lse written once,
@@ -70,7 +92,7 @@
 // ~0.013 ms): bytes. Backward: 5 products per visible pair (~32 GFLOP,
 // ~0.033 ms) against its bytes, which with the bf16 dq partials (nk copies
 // of dq) are ~190 MB at block_k = 128 (~0.057 ms). Left for later: wgmma
-// with TMA loads, and the backward on the tensor cores.
+// with TMA loads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -548,10 +570,179 @@ qkv_bwd_kernel(const T* qkv, const T* dout, const float* lse, const float* delta
   }
 }
 
+// The bf16 backward on the tensor cores (see the note at the head): 2 * BK
+// threads, one warp per 16 key rows. Shared memory: K and V (BK rows each),
+// two stages of 64 rows of Q and dO, all bf16 at row stride D + 8; the
+// bf16 BK x 64 dS^T tile at stride 72; two stages of 64 lse and delta.
+template <int D, int BK>
+constexpr size_t bwd_tc_smem() {
+  return sizeof(__nv_bfloat16) * ((2 * BK + 4 * rkt_mma::kKeys) * (D + rkt_mma::kPad) +
+                                  BK * (rkt_mma::kKeys + rkt_mma::kPad)) +
+         sizeof(float) * 4 * rkt_mma::kKeys;
+}
+
+// No floor on resident CTAs: at row 4's three per SM (168 registers a
+// thread) the BK = 64 kernel spills. Unbounded it takes 190 registers at
+// BK = 64 (two CTAs of 4 warps per SM) and 240 at BK = 128 (one of 8), at
+// D = 64, and spills nowhere.
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BK)
+qkv_bwd_tc_kernel(const __nv_bfloat16* qkv, const __nv_bfloat16* dout, const float* lse,
+                  const float* delta, __nv_bfloat16* dq_partials, __nv_bfloat16* dk,
+                  __nv_bfloat16* dv, int batch, int heads, int t, float scale, float scale2,
+                  int causal) {
+  using namespace rkt_mma;
+  constexpr int kThr = 2 * BK;
+  constexpr int LD = D + kPad;
+  constexpr int LDS = kKeys + kPad;  // row stride of the dS^T tile
+  constexpr int kStep = kKeys * LD;  // elements of one Q (or dO) stage
+  // dq of a step: 4 groups of 16 query rows, each split over BK / 64
+  // warps by columns, so no two warps sum into one element.
+  constexpr int kSplit = BK / kKeys, DW = D / kSplit;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + BK * LD;
+  __nv_bfloat16* q_s = v_s + BK * LD;      // two stages
+  __nv_bfloat16* do_s = q_s + 2 * kStep;   // two stages
+  __nv_bfloat16* ds_s = do_s + 2 * kStep;  // BK keys x LDS
+  float* lse_s = reinterpret_cast<float*>(ds_s + BK * LDS);  // two stages
+  float* dl_s = lse_s + 2 * kKeys;                           // two stages
+
+  const int ik = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = ik * BK;
+  const long long plane = static_cast<long long>(t) * D;
+  const long long bh = static_cast<long long>(b) * heads + h;
+  const long long stack = static_cast<long long>(batch) * heads * plane;
+  const __nv_bfloat16* qp = qkv + bh * plane;
+  const __nv_bfloat16* dop = dout + bh * plane;
+  const float* lse_row = lse + bh * t;
+  const float* dl_row = delta + bh * t;
+  __nv_bfloat16* dqp = dq_partials + static_cast<long long>(ik) * stack + bh * plane;
+
+  // The sweep: 64-query steps from the diagonal on when causal (BQ == BK),
+  // from row 0 otherwise.
+  const int first = causal ? k0 / kKeys : 0, steps = t / kKeys - first;
+  auto stage = [&](int i, int st) {
+    const int q0 = (first + i) * kKeys;
+    cp_async_rows<D, LD, kThr>(q_s + st * kStep, qp, q0, t, D, 0);
+    cp_async_rows<D, LD, kThr>(do_s + st * kStep, dop, q0, t, D, 0);
+    cp_async_stats<kThr>(lse_s + st * kKeys, lse_row, q0, t);
+    cp_async_stats<kThr>(dl_s + st * kKeys, dl_row, q0, t);
+  };
+  stage_rows<BK, D, kThr>(k_s, qp + stack, k0, t);
+  stage_rows<BK, D, kThr>(v_s, qp + 2 * stack, k0, t);
+  stage(0, 0);
+  cp_async_commit();
+
+  if (causal) {
+    // The partial rows of the queries this k-tile cannot see are zero.
+    for (int i = threadIdx.x; i < k0 * (D / 8); i += kThr)
+      reinterpret_cast<uint4*>(dqp)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // Rows g and g + 8 of the warp's 16 keys: dk and dv.
+  const int key_a = k0 + warp * 16 + lane / 4;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  // This warp's share of each step's dq: its query group and column slice.
+  const int qg = kSplit == 1 ? warp : warp % 4, dh = kSplit == 1 ? 0 : warp / 4;
+
+  for (int i = 0; i < steps; ++i) {
+    const int st = i & 1, q0 = (first + i) * kKeys;
+    cp_async_wait<0>();
+    __syncthreads();  // step i has landed; every warp is done with step i - 1
+    if (i + 1 < steps) {
+      stage(i + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* q_tile = q_s + st * kStep;
+    const __nv_bfloat16* do_tile = do_s + st * kStep;
+    const float* lse_t = lse_s + st * kKeys;
+    const float* dl_t = dl_s + st * kKeys;
+    __nv_bfloat16* ds_rows = ds_s + warp * 16 * LDS;
+    const bool diag = causal && q0 < k0 + BK;
+    if (BK > kKeys && diag && k0 + warp * 16 > q0 + kKeys - 1) {
+      // Every key of the warp follows every query of the step (only at
+      // BK = 128): p and ds are 0, so the products are skipped and dS^T is
+      // zero.
+      for (int idx = lane; idx < 16 * (kKeys / 8); idx += 32)
+        *reinterpret_cast<uint4*>(ds_rows + (idx / (kKeys / 8)) * LDS + (idx % (kKeys / 8)) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      // Transposed blocks: rows are the warp's keys, columns the step's queries.
+      unsigned a[D / 16][4];
+      float s[kKeys / 8][4], dp[kKeys / 8][4];
+      load_a_rows<D, LD>(a, k_s + warp * 16 * LD);
+      qk_tile<D, LD>(s, a, q_tile);
+      load_a_rows<D, LD>(a, v_s + warp * 16 * LD);
+      qk_tile<D, LD>(dp, a, do_tile);
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * (lane % 4) + (e & 1);
+          const int kj = key_a + (e >> 1) * 8;
+          const float p = (diag && kj > q0 + col) ? 0.f : exp2f(s[n][e] * scale2 - lse_t[col]);
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - dl_t[col]) * scale;
+        }
+      pv_tile<D, LD>(dv_acc, s, do_tile);  // p rounded to bf16 in the packing
+      pv_tile<D, LD>(dk_acc, dp, q_tile);  // ds likewise
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<unsigned*>(ds_rows + (lane / 4 + 8 * r) * LDS + n * 8 +
+                                       2 * (lane % 4)) = pack_bf16(dp[n][2 * r], dp[n][2 * r + 1]);
+    }
+    __syncthreads();  // dS^T of every key of the tile is in place
+
+    // This k-tile's dq partial for the step: query rows 16 qg .. 16 qg + 15
+    // of round(dS).K over all BK keys, columns DW dh .. DW dh + DW - 1,
+    // summed in f32 and rounded once.
+    float dq[DW / 8][4];
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+    for (int kh = 0; kh < BK / kKeys; ++kh) {
+      unsigned dsa[kKeys / 16][4];
+      load_a_rows_t<LDS>(dsa, ds_s + kh * kKeys * LDS, qg * 16);
+#pragma unroll
+      for (int j = 0; j < kKeys / 16; ++j)
+        av_slice<DW, LD>(dq, dsa[j], k_s + kh * kKeys * LD + dh * DW, j);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      __nv_bfloat16* row = dqp + static_cast<long long>(q0 + qg * 16 + lane / 4 + 8 * r) * D +
+                           dh * DW + 2 * (lane % 4);
+#pragma unroll
+      for (int n = 0; n < DW / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+            __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long off = bh * plane + static_cast<long long>(key_a + 8 * r) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
+          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
+          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
 // Raise the dynamic shared-memory cap past the default 48 KB (once per
 // instantiation is enough, but the call is cheap) and, for the
-// tensor-core forward, ask for the whole carveout as shared memory, so
-// its CTAs fit an SM side by side. Returns the cudaError_t.
+// tensor-core kernels, ask for the whole carveout as shared memory, so
+// their CTAs fit an SM side by side. Returns the cudaError_t.
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem, bool carveout) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -587,8 +778,8 @@ inline dim3 tile_grid(int t, int block, int heads, int batch) {
 }
 
 // The kernel, threads and dynamic shared memory of one instantiation
-// (which 0: forward, 1: backward): the bf16 forward on the tensor cores,
-// everything else on the CUDA cores.
+// (which 0: forward, 1: backward): bf16 on the tensor cores, f32 on the
+// CUDA cores.
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
@@ -606,10 +797,13 @@ struct Fwd {
 
 template <typename T, int D, int BQ, int BK>
 struct Bwd {
-  static constexpr bool tc = false;
-  static constexpr int threads = kThreads;
-  static constexpr size_t smem = bwd_smem<BQ, BK, D>();
-  static auto kernel() { return qkv_bwd_kernel<T, D, BQ, BK>; }
+  static constexpr bool tc = kTensorCores<T>;
+  static constexpr int threads = tc ? 2 * BK : kThreads;
+  static constexpr size_t smem = tc ? bwd_tc_smem<D, BK>() : bwd_smem<BQ, BK, D>();
+  static auto kernel() {
+    if constexpr (tc) return qkv_bwd_tc_kernel<D, BQ, BK>;
+    else return qkv_bwd_kernel<T, D, BQ, BK>;
+  }
   static dim3 grid(int batch, int heads, int t) { return tile_grid(t, BK, heads, batch); }
 };
 

@@ -1,5 +1,6 @@
 // Shared tile code of the grouped matrix products (grouped_gemm.cu's gmm
-// and tgmm, gather_gmm.cu's gather_gmm).
+// and tgmm, gather_gmm.cu's gather_gmm; the bf16 gmm and gather_gmm run
+// the wgmma kernel of wgmma_gemm.cuh over the work tiles below).
 //
 // Groups: `group_sizes` (E,) int32 lives on the device and is read by every
 // block, so the host never learns the counts (no synchronisation). Group g
@@ -16,16 +17,17 @@
 // block past the list exits. This is megablox's group metadata, computed
 // by each block instead of by a scalar prefetch.
 //
-// The f32 product engine (the bf16 operands take the tensor-core kernels
-// at the end of this file): a 256-thread block computes a kBM x kBN f32
-// tile from two shared-memory operand tiles As[kBK][kBM] and Bs[kBK][kBN]
-// (the reduction index first), each thread an 8 x 8 register block: rows
+// The f32 product engine (bf16 tgmm takes the mma.sync kernel at the end
+// of this file, bf16 gmm and gather_gmm wgmma_gemm.cuh): a 256-thread
+// block computes a kBM x kBN f32 tile from two shared-memory operand tiles
+// As[kBK][kBM] and Bs[kBK][kBN] (the reduction index first), each thread
+// an 8 x 8 register block: rows
 // ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns tx*4 + {0..3} and
 // 64 + tx*4 + {0..3}, read as float4 (a warp's B reads are 256 contiguous
 // bytes; its A reads broadcast). Operands arrive as 16-byte vectors from
 // row-major global matrices, and the next kBK slice is loaded into
 // registers while the current one is multiplied with f32 FMA. No float
-// atomics anywhere, in either engine, so two launches give the same bits.
+// atomics anywhere, in any engine, so two launches give the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -199,7 +201,7 @@ __device__ __forceinline__ void store_tile(T* out, long long ld, int row0, int r
 // src(r) = row_ids[r] when GATHER (rows of an unsorted source matrix of
 // src_rows rows; an id out of range reads as a zero row), else r. rhs is
 // (E, K, N), or (E, N, K) read transposed when TRANS_B. Grid: (work tiles,
-// ceil(N / kBN)). f32 operands; gmm_tc_kernel below is the bf16 form.
+// ceil(N / kBN)). f32 operands; the bf16 form is wgmma_gemm.cuh's.
 template <bool TRANS_B, bool GATHER>
 __global__ void __launch_bounds__(kThreads)
 gmm_kernel(const float* __restrict__ lhs, const int* __restrict__ row_ids, int src_rows,
@@ -334,17 +336,17 @@ tgmm_kernel(const float* __restrict__ lhs, const float* __restrict__ dy,
   store_tile(out + static_cast<long long>(g) * k * n, n, k0, k, n0, n, total);
 }
 
-// ---- bf16: tensor-core tiles (mma.sync m16n8k16, f32 accumulators) --------
+// ---- bf16 tgmm: tensor-core tiles (mma.sync m16n8k16, f32 accumulators) ---
 //
-// The bf16 operands, the main path's, go through the tensor cores. The same
-// 256-thread block and 128 x 128 output tile, 8 warps of 64 x 32 each (two
+// tgmm's bf16 operands, the main path's, go through the tensor cores. The
+// same 256-thread block and 128 x 128 output tile, 8 warps of 64 x 32 each (two
 // along the rows, four along the columns), each warp 4 x 4 mma tiles of
 // 16 x 8 with f32 accumulators. Operand slices of kTcBK reduction steps
 // are copied into shared memory with cp.async (16 bytes per copy, zero
 // filled for rows past the group or columns past the matrix) two stages
 // deep, so the next slice lands while the current one is multiplied, and
-// are read with ldmatrix (.trans where the reduction index is the slice's
-// row, not its contiguous axis). Rows are padded by kTcPad elements so the
+// are read with ldmatrix.trans (the reduction index is the slice's row,
+// not its contiguous axis). Rows are padded by kTcPad elements so the
 // eight 16-byte rows of each ldmatrix fall in distinct banks. Accumulation
 // is f32 in the tensor cores' own order; the output is rounded to bf16
 // once.
@@ -355,43 +357,29 @@ using bf16 = __nv_bfloat16;
 // smem_addr, cp_async16/commit/wait, ldsm_x4(_t) and mma_bf16.
 using namespace rkt_mma;
 
-// Shared-memory operand layouts of one stage:
-//   RED_MINOR: [rows][kTcBK + kTcPad], the reduction index contiguous (an A
-//     tile of lhs rows, or a B tile read transposed, rhs[g] as (N, K));
-//   RED_MAJOR: [kTcBK][cols + kTcPad], the reduction index the row (a B
-//     tile of rhs[g] (K, N) rows, and both tgmm operands).
+// Both operands of a stage are [kTcBK][128 + kTcPad] tiles, the reduction
+// index the row (kTcBK rows of the group's lhs and dy).
 struct TcAcc {
   float c[4][4][4];  // [m16 tile][n8 tile][fragment]
 };
 
-// acc += A B over one kTcBK slice. A is (128 x kTcBK) as RED_MINOR
-// (A_RED_MAJOR false) or (kTcBK x 128) as RED_MAJOR; B is (kTcBK x 128) as
-// RED_MAJOR (B_RED_MAJOR) or (128 x kTcBK) as RED_MINOR.
-template <bool A_RED_MAJOR, bool B_RED_MAJOR>
+// acc += As^T Bs over one kTcBK slice, both read by ldmatrix.trans.
 __device__ __forceinline__ void tc_slice(const bf16* As, const bf16* Bs, TcAcc& acc) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
-  constexpr int kMinorLd = kTcBK + kTcPad, kMajorLd = kBM + kTcPad;
+  constexpr int kLd = kBM + kTcPad;
 #pragma unroll
   for (int kk = 0; kk < kTcBK; kk += 16) {
     unsigned a[4][4], b[4][2];
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      if (A_RED_MAJOR)
-        ldsm_x4_t(a[mi], As + (kk + (lane & 7) + ((lane >> 4) << 3)) * kMajorLd + wm + mi * 16 +
-                             ((lane >> 3) & 1) * 8);
-      else
-        ldsm_x4(a[mi], As + (wm + mi * 16 + (lane & 15)) * kMinorLd + kk + (lane >> 4) * 8);
-    }
+    for (int mi = 0; mi < 4; ++mi)
+      ldsm_x4_t(a[mi], As + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLd + wm + mi * 16 +
+                           ((lane >> 3) & 1) * 8);
 #pragma unroll
     for (int nj = 0; nj < 2; ++nj) {
       unsigned r[4];
-      if (B_RED_MAJOR)
-        ldsm_x4_t(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kMajorLd + wn + nj * 16 +
-                         ((lane >> 4) << 3));
-      else
-        ldsm_x4(r, Bs + (wn + nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kMinorLd + kk +
-                       ((lane >> 3) & 1) * 8);
+      ldsm_x4_t(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + wn + nj * 16 +
+                       ((lane >> 4) << 3));
       b[2 * nj][0] = r[0];
       b[2 * nj][1] = r[1];
       b[2 * nj + 1][0] = r[2];
@@ -444,68 +432,8 @@ __device__ __forceinline__ void tc_load(bf16* s, RowPtr row_ptr, int col0, int n
   }
 }
 
-// gmm_kernel's bf16 form (same contract and grid) on the tensor cores.
-template <bool TRANS_B, bool GATHER>
-__global__ void __launch_bounds__(kThreads)
-gmm_tc_kernel(const bf16* __restrict__ lhs, const int* __restrict__ row_ids, int src_rows,
-              const bf16* __restrict__ rhs, const int* __restrict__ group_sizes,
-              bf16* __restrict__ out, int m, int k, int n, int num_groups) {
-  Work work;
-  if (!find_work(group_sizes, num_groups, m, blockIdx.x, &work)) return;
-  const int n0 = blockIdx.y * kBN;
-  if (work.group == num_groups) {  // rows past the groups
-    float zero[8][8] = {};
-    store_tile(out, n, work.row0, work.row1, n0, n, zero);
-    return;
-  }
-  constexpr int kAElems = kBM * (kTcBK + kTcPad);
-  constexpr int kBElems = TRANS_B ? kBN * (kTcBK + kTcPad) : kTcBK * (kBN + kTcPad);
-  __shared__ __align__(16) bf16 As[2][kAElems];
-  __shared__ __align__(16) bf16 Bs[2][kBElems];
-  __shared__ const bf16* a_rows[kBM];
-  const bf16* b_mat = rhs + static_cast<long long>(work.group) * k * n;
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    const int row = work.row0 + r;
-    const bf16* p = nullptr;
-    if (row < work.row1) {
-      const int src = GATHER ? __ldg(row_ids + row) : row;
-      if (src >= 0 && src < src_rows) p = lhs + static_cast<long long>(src) * k;
-    }
-    a_rows[r] = p;
-  }
-  __syncthreads();
-  auto load_stage = [&](int stage, int k0) {
-    tc_load<kBM, kTcBK>(As[stage], [&](int r) { return a_rows[r] ? a_rows[r] + k0 : nullptr; },
-                        k0, k, lhs);
-    if (TRANS_B)
-      tc_load<kBN, kTcBK>(Bs[stage], [&](int r) {
-        return n0 + r < n ? b_mat + static_cast<long long>(n0 + r) * k + k0 : nullptr;
-      }, k0, k, rhs);
-    else
-      tc_load<kTcBK, kBN>(Bs[stage], [&](int r) {
-        return k0 + r < k ? b_mat + static_cast<long long>(k0 + r) * n + n0 : nullptr;
-      }, n0, n, rhs);
-    cp_async_commit();
-  };
-  TcAcc acc = {};
-  const int slices = (k + kTcBK - 1) / kTcBK;
-  load_stage(0, 0);
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices) {
-      load_stage((s + 1) & 1, (s + 1) * kTcBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tc_slice<false, !TRANS_B>(As[s & 1], Bs[s & 1], acc);
-    __syncthreads();  // the stage is free for the load two slices on
-  }
-  tc_store(out, n, work.row0, work.row1, n0, n, acc);
-}
-
 // tgmm_kernel's bf16 form (same contract and grid) on the tensor cores:
-// both operands are slices of kTcBK rows of the group, RED_MAJOR.
+// both operands are slices of kTcBK rows of the group.
 __global__ void __launch_bounds__(kThreads)
 tgmm_tc_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dy,
                const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int k, int n,
@@ -536,7 +464,7 @@ tgmm_tc_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dy,
       cp_async_wait<0>();
     }
     __syncthreads();
-    tc_slice<true, true>(As[s & 1], Bs[s & 1], acc);
+    tc_slice(As[s & 1], Bs[s & 1], acc);
     __syncthreads();
   }
   tc_store(out + static_cast<long long>(g) * k * n, n, k0, k, n0, n, acc);

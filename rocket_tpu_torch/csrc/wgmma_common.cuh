@@ -1,4 +1,5 @@
-// Hopper building blocks of the port's warpgroup kernels (gather_gmm.cu):
+// Hopper building blocks of the port's warpgroup kernels (wgmma_gemm.cuh,
+// which gather_gmm.cu and grouped_gemm.cu instantiate):
 // mbarriers, TMA tensor maps and loads, the wgmma matrix descriptor, the
 // wgmma m64n256k16 bf16 product with f32 accumulators, the fences
 // between them, and setmaxnreg. sm_90a only (wgmma and setmaxnreg exist
@@ -88,8 +89,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA --------------------------------------------------------------------
 
-// A box of `map` at coordinates (c0, c1, c2), innermost first, into shared
-// memory at dst; completion counts `box bytes` of transactions on bar.
+// A box of `map` at coordinates (c0, c1[, c2]), innermost first, into
+// shared memory at dst; completion counts `box bytes` of transactions on
+// bar (elements past the map's dims arrive as zeros and count too).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -119,18 +129,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map over `base` with dims (innermost first) and byte
-// strides of dims 1 and 2, boxes of `box` elements, 128-byte swizzle, and
-// zeros for elements past the dims. False when the encode fails.
-inline bool encode_bf16_3d(CUtensorMap* map, const void* base, const uint64_t (&dims)[3],
-                           const uint64_t (&strides)[2], const uint32_t (&box)[3]) {
+// An R-dimensional bf16 tensor map over `base` with dims (innermost first)
+// and the byte strides of dims 1 .. R - 1, boxes of `box` elements,
+// 128-byte swizzle, and zeros for elements past the dims. False when the
+// encode fails.
+template <int R>
+bool encode_bf16(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
+                 const uint64_t (&strides)[R - 1], const uint32_t (&box)[R]) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t gdim[3] = {dims[0], dims[1], dims[2]};
-  const cuuint64_t gstride[2] = {strides[0], strides[1]};
-  const cuuint32_t gbox[3] = {box[0], box[1], box[2]};
-  const cuuint32_t estride[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), gdim, gstride,
+  cuuint64_t gdim[R], gstride[R - 1];
+  cuuint32_t gbox[R], estride[R];
+  for (int i = 0; i < R; ++i) {
+    gdim[i] = dims[i];
+    gbox[i] = box[i];
+    estride[i] = 1;
+    if (i + 1 < R) gstride[i] = strides[i];
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base), gdim, gstride,
             gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
@@ -172,10 +188,12 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// d (64 x 256, f32) += A (64 x 16, K-major) B (16 x 256, N-major), bf16,
-// issued by one warpgroup. Thread t of the warpgroup holds, for i in
-// 0..31, d[4i], d[4i+1] at row 16 (t / 32) + (t % 32) / 4, columns 8i +
-// 2 (t % 4) and + 1, and d[4i+2], d[4i+3] eight rows below.
+// d (64 x 256, f32) += A (64 x 16, K-major) B (16 x 256: N-major with
+// TRANS_B = 1, K-major with 0), bf16, issued by one warpgroup. Thread t of
+// the warpgroup holds, for i in 0..31, d[4i], d[4i+1] at row 16 (t / 32) +
+// (t % 32) / 4, columns 8i + 2 (t % 4) and + 1, and d[4i+2], d[4i+3] eight
+// rows below.
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t desc_a,
                                                       uint64_t desc_b) {
   asm volatile(
@@ -191,7 +209,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n"
+      "%128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -215,7 +233,52 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 192, f32) += A (64 x 16, K-major) B (16 x 192), bf16: the
+// m64n256k16 product on a 192-column tile (96 accumulators a thread, laid
+// out as there for i in 0..23).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n192k16_bf16(float (&d)[96], uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, %99;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// The product on a tile of BN columns (256 or 192).
+template <int BN, int TRANS_B>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (BN == 256) wgmma_m64n256k16_bf16<TRANS_B>(d, desc_a, desc_b);
+  else wgmma_m64n192k16_bf16<TRANS_B>(d, desc_a, desc_b);
 }
 
 // Hand registers between warpgroups of a warp-specialised CTA: the

@@ -2,9 +2,9 @@
 (counterpart of ``rocket_tpu/ops/flash_attention.py``).
 
 Two kernels, each hand-written CUDA (``csrc/flash_attention.cu``) with a
-plain PyTorch version of the same signature beside it (the bf16 forward
-runs on the tensor cores, one warp per 16 query rows; the f32 forward and
-the backward are register-tiled f32 FMA):
+plain PyTorch version of the same signature beside it (in bf16 both run on
+the tensor cores, the forward one warp per 16 query rows, the backward
+one warp per 16 key rows; in f32 both are register-tiled f32 FMA):
 
 * :func:`flash_qkv_fwd` / :func:`_fwd_plain` -> ``(out (B, H, T, D), lse
   (B, H, 1, T) f32)``: f32 scores times ``log2(e)/sqrt(D)``, ``exp2``, lse
@@ -77,11 +77,12 @@ DEFAULT_BLOCK = 128
 #: The reference's entry contract: T a multiple of its smallest block.
 _T_MULTIPLE = 128
 #: Threads per CTA of the CUDA-core kernels (``kThreads`` in
-#: ``csrc/flash_attention.cu``); the bf16 forward takes :func:`threads`.
+#: ``csrc/flash_attention.cu``); the bf16 kernels take :func:`threads`.
 THREADS = 256
-#: Row padding of the bf16 forward's shared-memory tiles, in elements
-#: (``rkt_mma::kPad``).
-_PAD = 8
+#: Row padding of the bf16 kernels' shared-memory tiles, in elements
+#: (``rkt_mma::kPad``), and the queries of one step of the bf16 backward's
+#: sweep (``rkt_mma::kKeys``).
+_PAD, _STEP = 8, 64
 
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
@@ -97,23 +98,33 @@ def pick_block(t: int, preferred: int = DEFAULT_BLOCK) -> Optional[int]:
 
 
 def _tensor_cores(kind: str, dtype) -> bool:
-    """The bf16 forward runs on the tensor cores; everything else on the
-    CUDA cores. ``dtype`` is a torch dtype or its name."""
-    return kind == "fwd" and str(dtype).removeprefix("torch.") == "bfloat16"
+    """Both bf16 kernels (``kind`` ``"fwd"`` or ``"bwd"``) run on the tensor
+    cores, the f32 ones on the CUDA cores. ``dtype`` is a torch dtype or its
+    name."""
+    return kind in ("fwd", "bwd") and str(dtype).removeprefix("torch.") == "bfloat16"
 
 
-def threads(kind: str, block_q: int, dtype) -> int:
-    """Threads per CTA of the ``"fwd"`` or ``"bwd"`` kernel: one warp per 16
-    query rows in the bf16 forward (``2 * block_q``), else :data:`THREADS`."""
-    return 2 * block_q if _tensor_cores(kind, dtype) else THREADS
+def threads(kind: str, block_q: int, dtype, block_k: Optional[int] = None) -> int:
+    """Threads per CTA of the ``"fwd"`` or ``"bwd"`` kernel: in bf16 one warp
+    per 16 query rows forward (``2 * block_q``) and per 16 key rows backward
+    (``2 * block_k``), else :data:`THREADS`."""
+    if not _tensor_cores(kind, dtype):
+        return THREADS
+    return 2 * (block_q if kind == "fwd" else block_k)
 
 
 def smem_bytes(kind: str, block_q: int, block_k: int, d: int, dtype) -> int:
     """Dynamic shared memory of one CTA of the ``"fwd"`` or ``"bwd"`` kernel
-    (``fwd_tc_smem`` / ``fwd_smem`` / ``bwd_smem`` in
+    (``fwd_tc_smem`` / ``bwd_tc_smem`` / ``fwd_smem`` / ``bwd_smem`` in
     ``csrc/flash_attention.cu``). The bf16 forward: the Q tile and two
-    stages of K and V, bf16 at row stride D + 8. Otherwise f32 tiles with a
-    padded row stride D + 1 and one padded score tile."""
+    stages of K and V, bf16 at row stride D + 8. The bf16 backward: K and
+    V, two stages of a 64-query step of Q and dO at the same stride, the
+    bf16 (block_k, 64) dS^T tile at stride 72 and two stages of the step's
+    lse and delta (f32). f32: tiles with a padded row stride D + 1 and one
+    padded score tile."""
+    if _tensor_cores(kind, dtype) and kind == "bwd":
+        return (2 * ((2 * block_k + 4 * _STEP) * (d + _PAD) + block_k * (_STEP + _PAD))
+                + 4 * 4 * _STEP)
     if _tensor_cores(kind, dtype):
         return 2 * (block_q + 4 * block_k) * (d + _PAD)
     if kind == "fwd":
@@ -126,15 +137,18 @@ def qkv_launch(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
     """The launch of the ``"fwd"`` or ``"bwd"`` kernel on the stacked (3, B,
     H, T, D) operand: one CTA per (q tile forward, k tile backward; head;
     batch row) of :func:`threads` threads, every tile a run of rows of one
-    (T, D) head plane, lse and delta ``block_q``-long rows of the (B*H, T)
-    f32 plane; the dynamic shared memory is :func:`smem_bytes`."""
+    (T, D) head plane, lse and delta runs of a (B*H, T) f32 plane (the bf16
+    backward streams queries, lse and delta in 64-row steps whatever
+    ``block_q`` is); the dynamic shared memory is :func:`smem_bytes`."""
     q_t, k_t = tile(block_q, d, dtype, t, d), tile(block_k, d, dtype, t, d)
     stat = tile(1, block_q, torch.float32, b * h, t)
     if kind == "fwd":
         grid, tiles = t // block_q, (q_t, k_t, k_t, q_t, stat)
     else:                      # k, v staged; q, dout streamed; dq partial, dk, dv
+        if _tensor_cores(kind, dtype):
+            q_t, stat = tile(_STEP, d, dtype, t, d), tile(1, _STEP, torch.float32, b * h, t)
         grid, tiles = t // block_k, (k_t, k_t, q_t, q_t, stat, stat, q_t, k_t, k_t)
-    return LaunchFact(f"flash_qkv_{kind}", (grid, h, b), threads(kind, block_q, dtype),
+    return LaunchFact(f"flash_qkv_{kind}", (grid, h, b), threads(kind, block_q, dtype, block_k),
                       smem_bytes(kind, block_q, block_k, d, dtype), 0, tiles)
 
 
@@ -269,6 +283,15 @@ def _check(where, qkv, block_q, block_k, **extra):
             raise ValueError(f"{where}: {name} has dtype {x.dtype}")
 
 
+def _check_aligned(where, **tensors):
+    """The bf16 kernels copy 16-byte pieces: raise on a bf16 CUDA operand
+    that does not start on a 16-byte boundary."""
+    for name, x in tensors.items():
+        if x.dtype == torch.bfloat16 and x.device.type == "cuda" and x.data_ptr() % 16:
+            raise ValueError(f"{where}: the bf16 kernel copies 16-byte pieces; {name} must be "
+                             "16-byte aligned")
+
+
 def _raise_on(err: int, where: str) -> None:
     if err:
         raise RuntimeError(f"{where}: kernel launch failed with cudaError {err}")
@@ -282,9 +305,7 @@ def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
     if qkv.device.type == "cpu":
         return _fwd_plain(qkv, causal, block_q, block_k)
     _check("flash_qkv_fwd", qkv, block_q, block_k)
-    if qkv.dtype == torch.bfloat16 and qkv.device.type == "cuda" and qkv.data_ptr() % 16:
-        raise ValueError("flash_qkv_fwd: the bf16 kernel copies 16-byte pieces; qkv must be "
-                         "16-byte aligned")
+    _check_aligned("flash_qkv_fwd", qkv=qkv)
     _, b, h, t, d = qkv.shape
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=qkv.device)
@@ -308,6 +329,7 @@ def flash_qkv_bwd(qkv, out, lse, dout, delta, causal: bool, block_q: int, block_
     if qkv.device.type == "cpu":
         return _bwd_plain(qkv, out, lse, dout, delta, causal, block_q, block_k)
     _check("flash_qkv_bwd", qkv, block_q, block_k, dout=dout, lse=lse, delta=delta)
+    _check_aligned("flash_qkv_bwd", qkv=qkv, dout=dout)
     _, b, h, t, d = qkv.shape
     # Every partial is written by the kernel (zeros where causal skips a
     # tile), so the buffer needs no clearing.

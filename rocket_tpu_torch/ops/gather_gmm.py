@@ -49,23 +49,21 @@ from rocket_tpu_torch.ops._launch import (
     stream_of,
     tile,
 )
-from rocket_tpu_torch.ops.grouped_matmul import BLOCK_M, check_grouped, gmm, gmm_launch, tgmm
+from rocket_tpu_torch.ops.grouped_matmul import (
+    BLOCK_M,
+    WG_SLICE,
+    check_grouped,
+    gmm,
+    gmm_launch,
+    tgmm,
+    wgmma_launch,
+)
 
 __all__ = [
     "gather_gmm", "gather_gmm_supported", "padded_group_layout", "expert_per_tile",
     "gather_gmm_fwd", "gather_gmm_reference", "GatherGmm", "gather_gmm_launch", "launch_info",
     "attribute",
 ]
-
-#: The bf16 kernel (``csrc/gather_gmm.cu``): threads per CTA (two consumer
-#: warpgroups and a producer), output columns per tile, K per slice, slices
-#: in the ring, and its dynamic shared memory: 1 KB of alignment slack, per
-#: slice a 128 x 64 tile of gathered rows and four 64 x 64 TMA boxes of
-#: rhs, then a full and an empty mbarrier per slice.
-WG_THREADS, WG_BLOCK_N, WG_SLICE, WG_STAGES = 384, 256, 64, 4
-WG_SMEM = (1024 + WG_STAGES * (BLOCK_M * WG_SLICE * 2 + (WG_BLOCK_N // 64) * WG_SLICE * 64 * 2)
-           + 2 * WG_STAGES * 8)
-
 
 def gather_gmm_supported(k: int, n: int, tile_n: int) -> bool:
     """The reference's shape gate: K a sublane multiple, the output tiled
@@ -137,20 +135,17 @@ def gather_gmm_reference(x, rhs, row_ids, group_sizes, tile_m: int):
 def gather_gmm_launch(m: int, k: int, n: int, e: int, dtype, src_rows: int,
                       sms: int) -> LaunchFact:
     """The launch of :func:`gather_gmm_fwd` on a card of ``sms`` SMs. bf16:
-    a persistent grid of ``min(sms, work tiles x N tiles)`` CTAs, each
-    walking (work tile of at most BLOCK_M rows of one group, WG_BLOCK_N
-    columns) pairs; per WG_SLICE-deep slice the producer gathers a
-    (BLOCK_M, WG_SLICE) tile of source rows through its row ids and TMA
-    loads two (WG_SLICE, 64) boxes of the group's rhs; it reads the E group
-    sizes and writes (BLOCK_M, WG_BLOCK_N) output tiles. f32: the grouped
+    the persistent wgmma grid it shares with gmm
+    (``grouped_matmul.wgmma_launch``), the producer gathering a (BLOCK_M,
+    WG_SLICE) tile of source rows through its row ids per slice and TMA
+    loading four (WG_SLICE, 64) boxes of the group's rhs, and reading a
+    (1, BLOCK_M) tile of row ids per work tile. f32: the grouped
     products' CUDA-core launch (``grouped_matmul.gmm_launch``)."""
     if dtype != torch.bfloat16:
         return gmm_launch(m, k, n, e, dtype, name="gather_gmm", src_rows=src_rows)
-    slots = (m // BLOCK_M + e + 1) * -(-n // WG_BLOCK_N)
-    tiles = (tile(1, e, torch.int32, 1, e), tile(1, BLOCK_M, torch.int32, 1, m),
-             tile(BLOCK_M, WG_SLICE, dtype, src_rows, k), tile(WG_SLICE, 64, dtype, k, n),
-             tile(BLOCK_M, WG_BLOCK_N, dtype, m, n))
-    return LaunchFact("gather_gmm", (min(sms, slots), 1, 1), WG_THREADS, WG_SMEM, 0, tiles)
+    return wgmma_launch("gather_gmm", m, k, n, e, sms, tile(BLOCK_M, WG_SLICE, dtype, src_rows, k),
+                        tile(WG_SLICE, 64, dtype, k, n),
+                        extra_tiles=(tile(1, BLOCK_M, torch.int32, 1, m),))
 
 
 def _lib():

@@ -19,6 +19,10 @@ semantics) — and each group multiplies its own ``rhs[g]``.
   :func:`gmm_reference` / :func:`tgmm_reference`, CUDA tensors launch the
   kernel or raise; each counts its launches in ``<wrapper>.launches``;
   meta tensors record the launch (:func:`gmm_launch`, :func:`tgmm_launch`).
+  In bf16, ``gmm`` is the persistent wgmma + TMA kernel it shares with
+  the gather-GMM (``csrc/wgmma_gemm.cuh``: one CTA per SM, three
+  warpgroups) and ``tgmm`` an mma.sync kernel; in f32 both keep CUDA-core
+  tiles.
 
 All accumulate in f32 and return the operand dtype. The group sizes stay
 on the device: the kernels read them there, so the hot path never
@@ -39,6 +43,7 @@ from rocket_tpu_torch.ops._launch import (
     check_cuda_operands,
     query_launch,
     record,
+    sm_count,
     stream_of,
     tile,
 )
@@ -46,7 +51,7 @@ from rocket_tpu_torch.ops._launch import (
 __all__ = [
     "grouped_matmul", "grouped_matmul_supported", "grouped_matmul_plain", "GroupedMatmul",
     "gmm", "tgmm", "gmm_reference", "tgmm_reference", "group_bounds", "gmm_launch",
-    "tgmm_launch", "launch_info",
+    "tgmm_launch", "wgmma_launch", "gmm_block_n", "launch_info", "attribute",
 ]
 
 #: Threads per CTA and the output tile of the grouped kernels (``kThreads``,
@@ -57,34 +62,82 @@ THREADS, BLOCK_M, BLOCK_N = 256, 128, 128
 SLICE = {torch.bfloat16: 32, torch.float32: 16}
 #: Padding of a bf16 shared-memory row (``kTcPad``).
 _TC_PAD = 8
+#: The bf16 wgmma kernel of gmm and the gather-GMM (``csrc/wgmma_gemm.cuh``):
+#: threads per CTA (two consumer warpgroups and a producer), output columns
+#: per tile (the gather-GMM's; gmm's are one of GMM_BLOCK_NS, see
+#: :func:`gmm_block_n`), K per slice and slices in the ring.
+WG_THREADS, WG_BLOCK_N, WG_SLICE, WG_STAGES = 384, 256, 64, 4
+GMM_BLOCK_NS = (256, 192)
+
+
+def wg_smem(block_n: int) -> int:
+    """Dynamic shared memory of the wgmma kernel at ``block_n`` columns: 1
+    KB of alignment slack, per slice a (BLOCK_M, WG_SLICE) tile of A rows
+    and a (WG_SLICE, block_n) block of rhs, then a full and an empty
+    mbarrier per slice."""
+    return 1024 + WG_STAGES * (BLOCK_M + block_n) * WG_SLICE * 2 + 2 * WG_STAGES * 8
+
+
+def gmm_block_n(m: int, n: int, sms: int) -> int:
+    """The output tile width ``rkt_gmm`` picks for bf16 on a card of
+    ``sms`` SMs (``gmm_block_n`` in ``csrc/grouped_gemm.cu``): the one of
+    GMM_BLOCK_NS whose waves, ``ceil(ceil(m / BLOCK_M) * N tiles / sms) *
+    width``, cost least, 256 on a tie."""
+    def cost(width):
+        tiles = -(-m // BLOCK_M) * -(-n // width)
+        return -(-tiles // sms) * width
+    return min(GMM_BLOCK_NS, key=cost)
 
 
 def _static_smem(kind: str, dtype, transpose: bool = False) -> int:
-    """The kernels' static shared memory: their operand tiles (two stages of
-    bf16 rows padded by ``kTcPad``, or one f32 slice) and the row-pointer
-    arrays of gmm (A rows; B rows on the f32 path) and tgmm (two stages of
-    A and B rows on the f32 path)."""
+    """The static shared memory of the f32 kernels and of bf16 tgmm: their
+    operand tiles (one f32 slice, or two stages of bf16 rows padded by
+    ``kTcPad``) and the row-pointer arrays of f32 gmm (A rows, B rows) and
+    tgmm (two stages of A and B rows)."""
     bk = SLICE[dtype]
-    if dtype == torch.bfloat16:
-        a = 2 * BLOCK_M * (bk + _TC_PAD) * 2
-        if kind == "tgmm":
-            return 2 * (2 * bk * (BLOCK_M + _TC_PAD) * 2)
-        b = 2 * (BLOCK_N * (bk + _TC_PAD) if transpose else bk * (BLOCK_N + _TC_PAD)) * 2
-        return a + b + 8 * BLOCK_M
+    if dtype == torch.bfloat16:  # tgmm's (bf16 gmm is the wgmma kernel)
+        return 2 * (2 * bk * (BLOCK_M + _TC_PAD) * 2)
     tiles = 4 * bk * (BLOCK_M + BLOCK_N)
     if kind == "tgmm":
         return tiles + 8 * 4 * bk
     return tiles + 8 * (BLOCK_M + (BLOCK_N if transpose else bk))
 
 
+def wgmma_launch(name: str, m: int, k: int, n: int, e: int, sms: int, a_tile, b_tile,
+                 block_n: int = WG_BLOCK_N, extra_tiles: tuple = ()) -> LaunchFact:
+    """The bf16 wgmma launch of gmm or the gather-GMM on a card of ``sms``
+    SMs: a persistent grid of ``min(sms, work tiles x N tiles)`` CTAs of
+    WG_THREADS, each walking (work tile of at most BLOCK_M rows of one
+    group, ``block_n`` columns) pairs; per WG_SLICE-deep slice it loads
+    ``a_tile`` of A and ``b_tile`` boxes of the group's rhs, and it reads
+    the E group sizes and ``extra_tiles`` and writes (BLOCK_M,
+    ``block_n``) output tiles."""
+    slots = (m // BLOCK_M + e + 1) * -(-n // block_n)
+    tiles = (tile(1, e, torch.int32, 1, e), a_tile, b_tile,
+             tile(BLOCK_M, block_n, torch.bfloat16, m, n), *extra_tiles)
+    return LaunchFact(name, (min(sms, slots), 1, 1), WG_THREADS, wg_smem(block_n), 0, tiles)
+
+
 def gmm_launch(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = False,
-               name: str = "gmm", src_rows: int = 0) -> LaunchFact:
-    """The launch of :func:`gmm` (or, with ``name="gather_gmm"`` and the
-    source's ``src_rows``, of the gather-GMM): one CTA per (work tile of at
-    most BLOCK_M rows of one group, BLOCK_N columns), over the static
-    ``work_tiles`` grid. It reads the E group sizes and loads SLICE-deep
-    slices of its A rows and of the group's B block, and writes its output
+               name: str = "gmm", src_rows: int = 0, sms: int = 0) -> LaunchFact:
+    """The launch of :func:`gmm` (or, in f32 with ``name="gather_gmm"`` and
+    the source's ``src_rows``, of the gather-GMM). bf16: the persistent
+    wgmma grid (:func:`wgmma_launch`) on a card of ``sms`` SMs, the
+    :func:`gmm_block_n` columns a tile, A by TMA in (BLOCK_M, WG_SLICE)
+    boxes, rhs as (WG_SLICE, 64) boxes, or one (block_n, WG_SLICE) box
+    read transposed. f32: one CTA per (work tile of at most
+    BLOCK_M rows of one group, BLOCK_N columns), over the static
+    ``work_tiles`` grid; it reads the E group sizes, loads SLICE-deep slices
+    of its A rows and of the group's B block, and writes its output
     tile."""
+    if dtype == torch.bfloat16 and name == "gmm":
+        if sms <= 0:
+            raise ValueError("gmm_launch: the bf16 kernel's grid needs the card's SM count")
+        block_n = gmm_block_n(m, n, sms)
+        a = tile(BLOCK_M, WG_SLICE, dtype, m, k)
+        b = (tile(block_n, WG_SLICE, dtype, n, k) if transpose_rhs
+             else tile(WG_SLICE, 64, dtype, k, n))
+        return wgmma_launch("gmm", m, k, n, e, sms, a, b, block_n)
     bk = SLICE[dtype]
     a = tile(BLOCK_M, bk, dtype, src_rows or m, k)
     b = tile(BLOCK_N, bk, dtype, n, k) if transpose_rhs else tile(bk, BLOCK_N, dtype, k, n)
@@ -109,11 +162,21 @@ def tgmm_launch(m: int, k: int, n: int, e: int, dtype) -> LaunchFact:
 def launch_info(kind: str, m: int, k: int, n: int, e: int, dtype,
                 transpose_rhs: bool = False) -> tuple:
     """``(grid, threads, dynamic_smem, static_smem)`` of the ``"gmm"`` or
-    ``"tgmm"`` launch as the built library reports it (needs the card)."""
+    ``"tgmm"`` launch as the built library reports it on this card (needs
+    the card)."""
     lib = _lib()
     if kind == "tgmm":
         return query_launch(lib.rkt_tgmm_launch_info, k, n, e, DTYPE_CODES[dtype])
     return query_launch(lib.rkt_gmm_launch_info, m, n, e, int(transpose_rhs), DTYPE_CODES[dtype])
+
+
+def attribute(what: str, transpose_rhs: bool = False, block_n: int = WG_BLOCK_N) -> int:
+    """``"ctas"`` (resident CTAs per SM) or ``"registers"`` (per thread, at
+    launch) of the bf16 gmm kernel of one mode and compiled tile width
+    (GMM_BLOCK_NS), as the card reports them; -1 when it refuses. Needs
+    the card."""
+    return _lib().rkt_gmm_attribute(("ctas", "registers").index(what), int(transpose_rhs),
+                                    block_n)
 
 
 def grouped_matmul_supported(m: int, k: int, n: int) -> bool:
@@ -195,6 +258,8 @@ def _lib():
         lib.rkt_gmm_launch_info.argtypes = [ctypes.c_int] * 5 + [info]
         lib.rkt_tgmm_launch_info.restype = ctypes.c_int
         lib.rkt_tgmm_launch_info.argtypes = [ctypes.c_int] * 4 + [info]
+        lib.rkt_gmm_attribute.restype = ctypes.c_int
+        lib.rkt_gmm_attribute.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -242,7 +307,8 @@ def gmm(lhs, rhs, group_sizes, transpose_rhs: bool = False):
     if m == 0:
         return out
     if lhs.device.type == "meta":
-        record([gmm_launch(m, k, n, e, lhs.dtype, transpose_rhs)])
+        sms = sm_count(lhs, "gmm") if lhs.dtype == torch.bfloat16 else 0
+        record([gmm_launch(m, k, n, e, lhs.dtype, transpose_rhs, sms=sms)])
         return out
     err = _lib().rkt_gmm(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
                          m, k, n, e, int(transpose_rhs), DTYPE_CODES[lhs.dtype], stream_of(lhs))

@@ -25,8 +25,9 @@ products (``gmm``, ``tgmm``, ``gather_gmm``) hold every element to
 rounding of the f32 accumulator that may flip by one step. Rows 6-7 (the
 stacked-qkv flash kernels) hold every element to ``tol * (1 + |want|)``
 as the other flash kernels do; their dq partials are compared through
-their f32 sum. Rows 3-5 and 8 in bf16 run on the tensor cores and are
-held to the same bounds, plus two launches bitwise.
+their f32 sum. Rows 3-8 in bf16 run on the tensor cores and are held to
+the same bounds, plus two launches bitwise; so do bf16 ``gmm`` and row
+11, on wgmma.
 """
 
 import pytest
@@ -636,6 +637,7 @@ GROUP_CASES = {  # (M, K, N, group sizes)
     "decode": (16, 768, 3072, [5, 0, 11, 0]),  # NK = 16 at the main widths
     "k_tail": (64, 40, 72, [30, 0, 34, 0]),  # K and N past whole tiles and mma slices
     "in_proj": (2048, 768, 3072, [700, 301, 0, 1047]),
+    "k_n_200": (300, 200, 200, [0, 131, 0, 100]),  # row 11's edge: K, N off the tiles, rows past
 }
 
 
@@ -753,6 +755,39 @@ def test_gather_gmm_zeros_rows_past_the_groups_and_bad_ids(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_gmm_bf16_runs_the_wgmma_kernel_and_zeros_rows_past_the_groups(cuda, transpose):
+    """bf16 gmm in both modes and both tile widths on the persistent wgmma
+    + TMA kernel: one CTA per SM in at most 168 registers a thread at
+    launch; work tiles that start off the 128-row grid (raw counts), an
+    empty group and rows past the groups (zeros) at K = N = 200, then the
+    decode size, then N = 768 at 16384 and 18432 rows, where the width
+    rule takes 256 and 192 columns on a 132-SM H100; two launches
+    bitwise."""
+    for bn in tgm.GMM_BLOCK_NS:
+        assert tgm.attribute("ctas", transpose, bn) == 1
+        assert 0 < tgm.attribute("registers", transpose, bn) <= 168
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator().manual_seed(31 + transpose)
+    widths = set()
+    for m, k, n, sizes in ((300, 200, 200, [0, 131, 0, 100]), (16, 3072, 768, [5, 0, 11, 0]),
+                           (1000, 3072, 768, [77, 0, 402, 300]),
+                           (16384, 768, 768, [4100, 0, 6000, 6184]),
+                           (18432, 768, 768, [4608, 4608, 4608, 4480])):
+        lhs, rhs, gs = _group_operands(gen, torch.bfloat16, m, k, n, sizes, transpose)
+        got = tgm.gmm(lhs, rhs, gs, transpose_rhs=transpose)
+        rows = sum(sizes)
+        assert not got[rows:].any()
+        _held(got, tgm.gmm_reference(lhs, rhs, gs, transpose_rhs=transpose), torch.bfloat16)
+        assert torch.equal(got, tgm.gmm(lhs, rhs, gs, transpose_rhs=transpose))
+        bn = tgm.gmm_block_n(m, n, sms)
+        assert tgm.launch_info("gmm", m, k, n, 4, torch.bfloat16, transpose)[2] == tgm.wg_smem(bn)
+        widths.add(bn)
+    if sms == 132:
+        assert widths == set(tgm.GMM_BLOCK_NS)
+
+
+@pytest.mark.cuda
 def test_grouped_products_gradients_match_the_plain_composition(cuda):
     """The kernels' autograd Functions against autograd through the plain
     versions: ``grouped_matmul`` (gmm forward; gmm transposed + tgmm
@@ -867,6 +902,54 @@ def test_flash_qkv_kernels_match_plain_and_repeat_bitwise(cuda, case, tiles, dty
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 256, 1024])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("tiles", QKV_TILES, ids=lambda c: "q{}k{}".format(*c))
+def test_flash_qkv_bwd_bf16_tensor_cores_match_plain_and_repeat_bitwise(cuda, tiles, d, t):
+    """Row 7's bf16 backward on the tensor cores at every tile pair, both
+    head dims and three lengths, causal on square tiles and not: dq through
+    its partials' f32 sum, dk and dv per element within ``TOL * (1 +
+    |want|)``, the partials a causal k-tile cannot see exactly zero, and two
+    launches bitwise."""
+    bq, bk = tiles
+    dtype = torch.bfloat16
+    b, h = 2, 3
+    gen = torch.Generator().manual_seed(t + d + 3 * bq + bk)
+    qkv = _randn(gen, dtype, 3, b, h, t, d)
+    dout = _randn(gen, dtype, b, h, t, d)
+    for causal in ((True, False) if bq == bk else (False,)):
+        what = f"T={t} D={d} {tiles} causal={causal}"
+        out, lse = tfa._fwd_plain(qkv, causal, bq, bk)
+        delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
+        args = (qkv, out, lse, dout, delta, causal, bq, bk)
+        before = tfa.flash_qkv_bwd.launches
+        dqp, dk, dv = tfa.flash_qkv_bwd(*args)
+        again = tfa.flash_qkv_bwd(*args)
+        assert tfa.flash_qkv_bwd.launches == before + 2
+        assert all(torch.equal(x, y) for x, y in zip((dqp, dk, dv), again)), what
+        dqp_p, dk_p, dv_p = tfa._bwd_plain(*args)
+        _close_per_element(dqp.float().sum(0), dqp_p.float().sum(0), TOL[dtype], what + " dq")
+        _close_per_element(dk, dk_p, TOL[dtype], what + " dk")
+        _close_per_element(dv, dv_p, TOL[dtype], what + " dv")
+        if causal:
+            for ik in range(t // bk):
+                assert torch.count_nonzero(dqp[ik, :, :, :ik * bk]) == 0, (what, ik)
+
+
+@pytest.mark.cuda
+def test_flash_qkv_bwd_bf16_occupancy_and_registers(cuda):
+    """Row 7's bf16 backward: at least two resident CTAs of 64 keys per SM
+    and one of 128 keys, at every tile pair and head dim, in at most 255
+    registers a thread (no spills: the build line prints them)."""
+    for d in tfa.HEAD_DIMS:
+        for bq, bk in QKV_TILES:
+            ctas = tfa.occupancy("bwd", d, bq, bk, torch.bfloat16)
+            regs = tfa.registers("bwd", d, bq, bk, torch.bfloat16)
+            assert ctas >= (2 if bk == 64 else 1), (d, bq, bk, ctas)
+            assert 0 < regs <= 255, (d, bq, bk, regs)
+
+
+@pytest.mark.cuda
 def test_flash_qkv_autograd_runs_the_kernels_and_raises_past_them(cuda):
     gen = torch.Generator().manual_seed(7)
     qkv = _randn(gen, torch.bfloat16, 3, 2, 4, 256, 64).requires_grad_()
@@ -977,13 +1060,14 @@ def _declared_and_built(kernel, dtype):
                         pairs.append((fact, tfc.launch_info(fact.name, c, ctas, act, dtype)))
         return pairs
     if kernel == "grouped":
-        pairs = [(tgm.gmm_launch(m, k, n, e, dtype, trans), tgm.launch_info(
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        pairs = [(tgm.gmm_launch(m, k, n, e, dtype, trans, sms=sms), tgm.launch_info(
                      "gmm", m, k, n, e, dtype, trans))
-                 for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2))
+                 for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2),
+                                    (18432, 3072, 768, 4))
                  for trans in (False, True)]
         pairs += [(tgm.tgmm_launch(m, k, n, e, dtype), tgm.launch_info("tgmm", m, k, n, e, dtype))
                   for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2))]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         pairs += [(tgg.gather_gmm_launch(m, 768, n, 4, dtype, 500, sms),
                    tgg.launch_info(m, n, 4, dtype)) for m, n in ((18432, 3072), (1024, 3072),
                                                                  (16, 3072), (300, 200))]

@@ -201,3 +201,22 @@ def test_profiler_in_a_launcher_tree_publishes_its_clock(tmp_path):
     ], progress=False)], runtime=rt.Runtime(device="cpu")).launch()
     assert seen.get("steps_per_sec", 0) > 0
     assert os.listdir(tmp_path / "traces") == ["window_0.json"]
+
+
+def test_ab_runs_each_checkout_with_this_checkouts_timer(tmp_path, capfd):
+    """``obs.ab`` loads each checkout's chip_smoke.py with this checkout's
+    Timer in place of its own: a stand-in checkout (an older commit's
+    Timer, a main that reports which Timer it sees) runs once per time it
+    is named, and its exit code comes back."""
+    from rocket_tpu_torch.obs import ab
+
+    source = ab.timer_source()
+    assert source.startswith("class Timer") and "def launches_ms" in source
+    (tmp_path / "chip_smoke.py").write_text(
+        "class Timer:\n"
+        "    OLD = True\n"
+        "def main():\n"
+        "    print('old' if hasattr(Timer, 'OLD') else 'new', hasattr(Timer, 'launches_ms'))\n"
+        "    return 3\n")
+    assert ab.main([str(tmp_path), str(tmp_path)]) == 3
+    assert capfd.readouterr().out.splitlines() == ["new True", "new True"]

@@ -10,10 +10,11 @@ package's schedule audit.
 * Every non-demo target traces at full width on ``meta`` tensors and is
   clean; each launches the kernels it names.
 * Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``;
-  row 6's bf16 forward (tensor cores), rows 1 and 2's split and combine
-  launches and row 11's persistent wgmma launch equal a mirror of the sizes
-  in their ``.cu`` sources; rows 1 and 2's split counts follow the static
-  shapes alone, and row 11's grid the card's SMs.
+  rows 6 and 7's bf16 kernels (tensor cores), rows 1 and 2's split and
+  combine launches and the persistent wgmma launch of row 11 and of bf16
+  ``gmm`` (both modes) equal a mirror of the sizes in their ``.cu``
+  sources; rows 1 and 2's split counts follow the static shapes alone, and
+  the wgmma grid the card's SMs.
 * Rows 3 and 8's bf16 (tensor-core) declarations leave room for 3 and 2
   resident CTAs per SM, the f32 (CUDA-core) ones are unchanged, and the
   targets that trace them stay clean.
@@ -201,10 +202,43 @@ def test_flash_qkv_fwd_declaration_equals_the_cu_sizes(tiles, d, dtype):
     assert fact.grid == (1024 // bq, 12, 8) and fact.static_smem == 0
     assert tfa.threads("fwd", bq, "bfloat16" if dtype == torch.bfloat16 else "float32") == \
         fact.threads
-    # The backward is not redesigned: 256 threads and f32 tiles in both dtypes.
+    # The backward: bf16 on the tensor cores, f32 on the CUDA cores.
     bwd = tfa.qkv_launch("bwd", 8, 12, 1024, d, dtype, bq, bk)
-    assert bwd.threads == 256
-    assert bwd.dynamic_smem == 4 * (2 * (bq + bk) * (d + 1) + bk * (bq + 1) + 2 * bq)
+    assert (bwd.threads, bwd.dynamic_smem) == _qkv_bwd_mirror(dtype, d, bq, bk)
+
+
+def _qkv_bwd_mirror(dtype, d, bq, bk):
+    """(threads, dynamic smem) of row 7's backward as ``csrc/flash_attention.cu``
+    sizes it: bf16 ``Bwd<...>`` on the tensor cores is 2 * BK threads and
+    ``bwd_tc_smem`` = K and V (BK rows each) and two stages of 64 rows of Q
+    and dO, bf16 at stride D + 8, the bf16 BK x 64 dS^T tile at stride 72,
+    and two stages of 64 lse and delta; f32 keeps ``bwd_smem``."""
+    if dtype == torch.bfloat16:
+        return 2 * bk, 2 * ((2 * bk + 4 * 64) * (d + 8) + bk * 72) + 4 * 4 * 64
+    return 256, 4 * (2 * (bq + bk) * (d + 1) + bk * (bq + 1) + 2 * bq)
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+@pytest.mark.parametrize("tiles", [(64, 64), (64, 128), (128, 64), (128, 128)],
+                         ids=lambda c: "q{}k{}".format(*c))
+def test_flash_qkv_bf16_backward_declaration_equals_threads_and_smem_bytes(tiles, d):
+    """Row 7's bf16 backward declares one warp per 16 key rows and the .cu
+    file's shared memory at every tile pair: block_q sets neither (the
+    sweep streams 64-query steps), and every tile it names is clean."""
+    bq, bk = tiles
+    bf16 = torch.bfloat16
+    fact = tfa.qkv_launch("bwd", 8, 12, 1024, d, bf16, bq, bk)
+    assert fact.threads == tfa.threads("bwd", bq, bf16, bk) == 2 * bk
+    assert fact.dynamic_smem == tfa.smem_bytes("bwd", bq, bk, d, bf16)
+    assert (fact.threads, fact.dynamic_smem) == _qkv_bwd_mirror(bf16, d, bq, bk)
+    assert fact.grid == (1024 // bk, 12, 8) and fact.static_smem == 0
+    assert fact.dynamic_smem == tfa.qkv_launch("bwd", 8, 12, 1024, d, bf16, bk, bk).dynamic_smem
+    assert {rc for rc, _, _ in fact.tiles} == {(bk, d), (64, d), (1, 64)}
+    assert check_launches([fact], device_spec(DEFAULT_DEVICE_KIND)) == []
+    # At D = 64: three CTAs of 64 keys fit an SM by shared memory, two of 128.
+    if d == 64:
+        ctas = 3 if bk == 64 else 2
+        assert ctas * (fact.dynamic_smem + CTA_RESERVED) <= SM_SMEM
 
 
 def test_flash_qkv_bf16_forward_leaves_room_for_resident_ctas():
@@ -366,6 +400,76 @@ def test_gather_gmm_meta_grid_is_the_priced_cards():
     assert [f.grid for f in facts] == [(device_spec(DEFAULT_DEVICE_KIND).sms, 1, 1)]
     with tune.priced_device_kind("TPU v5 lite"), pytest.raises(ValueError, match="SM count"):
         tgg.gather_gmm_fwd(x, rhs, ids, sizes, 512)
+
+
+def _gmm_wgmma_mirror(m, n, e, sms, bn):
+    """The bf16 gmm launch as ``csrc/grouped_gemm.cu`` sizes it on
+    ``csrc/wgmma_gemm.cuh``'s kernel (row 11's) at ``bn`` output columns: a
+    persistent grid of min(SMs, (M / 128 + E + 1) * ceil(N / bn)) CTAs of
+    384 threads, and ``kWgSmem<bn>``: 1 KB of alignment slack, four slices
+    of a 128 x 64 bf16 A tile and a 64 x bn bf16 B block, and eight 8-byte
+    mbarriers."""
+    slots = (m // 128 + e + 1) * -(-n // bn)
+    return ((min(sms, slots), 1, 1), 384, 1024 + 4 * (16_384 + 128 * bn) + 64, 0)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("m,k,n,e,sms,bn", [
+    (18432, 3072, 768, 4, 132, 192),   # the out-projection and the in-projection's dlhs
+    (18432, 768, 3072, 4, 132, 192),   # the out-projection's dlhs, the padded in-projection
+    (16384, 768, 3072, 4, 132, 256),   # the in-projection at raw counts (impl="gmm")
+    (16384, 3072, 768, 4, 132, 256),   # the out-projection at raw counts
+    (18432, 3072, 768, 4, 114, 256),   # a card of fewer SMs
+    (80, 3072, 768, 4, 132, 192),      # decode: fewer tiles than SMs
+    (300, 200, 200, 4, 132, 192),      # K and N past whole tiles
+])
+def test_gmm_bf16_declaration_is_the_persistent_wgmma_grid(m, k, n, e, sms, bn, transpose):
+    """bf16 gmm declares the persistent wgmma grid at the tile width its
+    rule picks for the card (both modes): the width whose waves, ceil(ceil(M
+    / 128) * ceil(N / width) / SMs) * width, cost least, 256 on a tie."""
+    from rocket_tpu_torch.ops import grouped_matmul as tgm
+
+    assert tgm.gmm_block_n(m, n, sms) == bn
+    fact = tgm.gmm_launch(m, k, n, e, torch.bfloat16, transpose, sms=sms)
+    assert fact.name == "gmm"
+    assert fact.geometry == _gmm_wgmma_mirror(m, n, e, sms, bn)
+    assert check_launches([fact], device_spec(DEFAULT_DEVICE_KIND)) == []
+    b_box = (bn, 64) if transpose else (64, 64)
+    assert {rc for rc, _, _ in fact.tiles} == {(1, e), (128, 64), b_box, (128, bn)}
+    with pytest.raises(ValueError, match="SM count"):
+        tgm.gmm_launch(m, k, n, e, torch.bfloat16, transpose)
+    # f32 keeps the CUDA-core tiles: one CTA per (work tile, 128 columns).
+    f32 = tgm.gmm_launch(m, k, n, e, torch.float32, transpose, sms=sms)
+    assert f32.geometry[:2] == ((m // 128 + e + 1, -(-n // 128), 1), 256)
+    assert f32.dynamic_smem == 0
+
+
+def test_gmm_meta_route_records_the_priced_cards_grid_in_both_modes():
+    """The autograd seam on meta tensors priced as an H100: the forward gmm
+    and the backward's transposed gmm declare the persistent grid of the
+    card's SMs at the width the rule picks (192 columns at 18432 rows, 256
+    at the raw counts' 16384), tgmm its mma.sync grid; a meta trace needs
+    a card to price."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.ops import grouped_matmul as tgm
+
+    lhs = torch.empty((18432, 3072), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    rhs = torch.empty((4, 3072, 768), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    sizes = torch.empty((4,), dtype=torch.int32, device="meta")
+    sms = device_spec(DEFAULT_DEVICE_KIND).sms
+    with tune.priced_device_kind(DEFAULT_DEVICE_KIND), _launch.record_launches() as facts:
+        out = tgm.grouped_matmul(lhs, rhs, sizes)
+        out.backward(torch.empty_like(out))
+    assert [f.name for f in facts] == ["gmm", "gmm", "tgmm"]
+    assert [f.geometry for f in facts[:2]] == [_gmm_wgmma_mirror(18432, 768, 4, sms, 192),
+                                              _gmm_wgmma_mirror(18432, 3072, 4, sms, 192)]
+    assert facts[2].grid == (24, 6, 4) and facts[2].threads == 256
+    with tune.priced_device_kind("TPU v5 lite"), pytest.raises(ValueError, match="SM count"):
+        tgm.gmm(lhs.detach(), rhs.detach(), sizes)
+    raw = torch.empty((16384, 3072), dtype=torch.bfloat16, device="meta")
+    with tune.priced_device_kind(DEFAULT_DEVICE_KIND), _launch.record_launches() as wide:
+        tgm.gmm(raw, rhs.detach(), sizes)
+    assert [f.geometry for f in wide] == [_gmm_wgmma_mirror(16384, 768, 4, sms, 256)]
 
 
 #: Shared memory an SM holds for resident CTAs (228 KB), each CTA also
