@@ -241,13 +241,14 @@ def _declared_launches() -> list:
     and combine), GPT-2 train at T=1024 and 2048 (rows 3-5, bf16 and f32, and
     the D=32 bf16 forward), row 6 at both square tiles and row 7 at all
     four tile pairs (bf16), the char-LM fused block under both epilogues,
-    bf16 and f32 (row 8), the three BN passes at ResNet-18 CIFAR's four
-    shapes (rows 9-10), the MoE in-projection's gather-GMM and both grouped
-    products of the in- and out-projection in bf16 and f32 (row 11, gmm,
-    tgmm; bf16 row 11 and gmm on the persistent wgmma grid, one CTA per SM
-    of this card), bf16 gmm at moe_serve's decode rows in both modes, and
-    row 12's two launches: 51 in all. The BN grids are sized by a meta tensor priced as this card,
-    as the audit sizes them."""
+    bf16 and f32 (row 8), row 9's one launch and row 10's at ResNet-18
+    CIFAR's four f32 shapes and the tuner's two bf16 ones, the MoE
+    in-projection's gather-GMM and both grouped products of the in- and
+    out-projection in bf16 and f32 (row 11, gmm, tgmm; in bf16 all three on
+    the persistent wgmma grid, one CTA per SM of this card), bf16 gmm at
+    moe_serve's decode rows in both modes, and row 12's two launches: 51 in
+    all. The BN grids are sized by a meta tensor priced as this card, as the
+    audit sizes them."""
     bf16, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
@@ -280,12 +281,13 @@ def _declared_launches() -> list:
                          fb.fused_block_launch(128, 256, 256, 4, dtype, epilogue),
                          fb.launch_info(128, 256, 4, epilogue, dtype)))
     with tune.priced_device_kind(torch.cuda.get_device_name(0)):
-        for n, c, dtype in BN_SHAPES[:4]:
+        for n, c, dtype in BN_SHAPES:
             grid, norm_grid = fc._grids(torch.empty((n, c), dtype=dtype, device="meta"))
-            for fact in fc.bn_launches("twopass", n, c, dtype, grid, norm_grid):
-                ctas = grid if fact.name == "bn_moments" else norm_grid
-                rows.append((fact.name, f"N={n} C={c} f32", fact,
-                             fc.launch_info(fact.name, c, ctas, True, dtype)))
+            for kind, ctas in (("twopass", grid), ("normalize", norm_grid)):
+                for fact in fc.bn_launches(kind, n, c, dtype, grid, norm_grid, sms):
+                    name = str(dtype).removeprefix("torch.")
+                    rows.append((fact.name, f"N={n} C={c} {name}", fact,
+                                 fc.launch_info(fact.name, n, c, ctas, True, dtype)))
     for dtype in (bf16, f32):
         name = str(dtype).removeprefix("torch.")
         rows.append(("gather_gmm", f"M=18432 K=768 N=3072 E=4 src=8192 {name}",
@@ -300,7 +302,7 @@ def _declared_launches() -> list:
                          gm.launch_info("gmm", m, k, n, 4, dtype, trans)))
         for k, n in ((768, 3072), (3072, 768)):
             rows.append(("tgmm", f"M=18432 K={k} N={n} E=4 {name}",
-                         gm.tgmm_launch(18432, k, n, 4, dtype),
+                         gm.tgmm_launch(18432, k, n, 4, dtype, sms),
                          gm.launch_info("tgmm", 18432, k, n, 4, dtype)))
     for block, grid in (((7, 100), (4,)), ((4096, 4096), ())):
         rows.append(("bad_scale", f"(4096, 4096) f32 block {block} grid {grid}",
@@ -1797,7 +1799,7 @@ def cifar_train_phase(val, card):
 def _cifar_group(kernel: str) -> str:
     """The CIFAR profile's device-time group of a kernel name."""
     low = kernel.lower()
-    if any(k in kernel for k in ("moments_kernel", "finalize_kernel", "normalize_kernel")):
+    if any(k in kernel for k in ("twopass_kernel", "normalize_kernel")):
         return "fused_conv kernels"
     if "multi_tensor_apply" in low or "sgd" in low:
         return "SGD (multi-tensor apply)"
@@ -2278,20 +2280,22 @@ def check_moe_kernels(timer, gen):
         if dtype != torch.bfloat16:
             continue
         # Timed at the main path's shapes (forced fused): the in-projection,
-        # the out-projection forward, and the in-projection's drhs.
+        # the out-projection forward, and both weight gradients (drhs).
         # Half of gmm's launches per step are the backward's transpose_rhs
         # mode (the in-projection's dlhs), timed beside the forward.
         timed = {
             "gather_gmm": cases[0], "gmm": cases[1], "tgmm": cases[5],
-            "gmm_transpose_rhs": cases[4],
+            "gmm_transpose_rhs": cases[4], "tgmm_out_proj": cases[6],
         }
         library = {
             "gather_gmm": _library_grouped("gmm", xg, w_in, gsz),
             "gmm": _library_grouped("gmm", h, w_out, gsz),
             "tgmm": _library_grouped("tgmm", xg, dy_h, gsz),
             "gmm_transpose_rhs": _library_grouped("gmm", dy_h, w_in, gsz, transpose=True),
+            "tgmm_out_proj": _library_grouped("tgmm", h, dy_o, gsz),
         }
         rows["gmm_transpose_rhs"] = {"max_abs_err": errs[4]["max_abs_err"]}
+        rows["tgmm_out_proj"] = {"max_abs_err": errs[6]["max_abs_err"]}
         # gather_gmm's yardstick is the explicit gather, then the grouped
         # product (timed on xg, the same rows the gather gives).
         lib_name, product = library["gather_gmm"]
@@ -2400,7 +2404,7 @@ class _RouteLog:
 def _moe_group(kernel: str) -> str:
     """The MoE train profile's device-time group of a kernel name."""
     low = kernel.lower()
-    if "rkt_gg::" in kernel or "rkt_wg::" in kernel:  # mma.sync tgmm; wgmma gather_gmm, gmm
+    if "rkt_gg::" in kernel or "rkt_wg::" in kernel:  # the wgmma template; f32 tiles
         return "MoE kernels (gather_gmm, gmm, tgmm)"
     if "flash_" in kernel and "_kernel<" in kernel:
         return "flash kernels"
@@ -2728,11 +2732,12 @@ def main() -> int:
                "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
                          if "Used" in ln or "spill" in ln]}
         for name, info in built.items()},
-         # Rows 1, 2, 4, 5, 6, 7, 11 and gmm (bf16, redesigned): registers
-         # per thread and resident CTAs per SM at the serve wave, at GPT-2's
-         # D=64 (rows 6 and 7 at every tile pair) and for the persistent
-         # wgmma kernel of row 11 and gmm (registers at launch, before its
-         # warpgroups trade them with setmaxnreg).
+         # Rows 1, 2, 4, 5, 6, 7, 9, 11, gmm and tgmm (redesigned):
+         # registers per thread and resident CTAs per SM at the serve wave,
+         # at GPT-2's D=64 (rows 6 and 7 at every tile pair), for the
+         # persistent wgmma kernel of row 11, gmm and tgmm (registers at
+         # launch, before its warpgroups trade them with setmaxnreg), and
+         # row 9's CTAs per SM at its BN shapes.
          redesigned={
              **{f"{kind} bf16 D=64": {
                  "registers": fa.registers(64, torch.bfloat16, kind),
@@ -2752,6 +2757,15 @@ def main() -> int:
                  "registers": gm.attribute("registers", trans, bn),
                  "ctas_per_sm": gm.attribute("ctas", trans, bn)}
                 for trans in (False, True) for bn in gm.GMM_BLOCK_NS},
+             **{f"tgmm bf16 wgmma {bn}": {
+                 "registers": gm.attribute("registers", block_n=bn, kind="tgmm"),
+                 "ctas_per_sm": gm.attribute("ctas", block_n=bn, kind="tgmm")}
+                for bn in gm.GMM_BLOCK_NS},
+             # Row 9's one cooperative launch: its CTAs per SM, which must
+             # hold its whole grid (two per SM at 264 CTAs on 132 SMs).
+             **{f"bn_twopass N={n} C={c} {str(dt).removeprefix('torch.')}": {
+                 "ctas_per_sm": fc.resident(n, c, dt)}
+                for n, c, dt in BN_SHAPES},
              **{f"flash_qkv_bwd bf16 D=64 {bq}x{bk}": {
                  "registers": fqa.registers("bwd", 64, bq, bk, torch.bfloat16),
                  "ctas_per_sm": fqa.occupancy("bwd", 64, bq, bk, torch.bfloat16)}
@@ -2816,10 +2830,12 @@ def main() -> int:
     # Row 9 on the main path (cifar_train); row 10 on the stats_xla drive.
     conv["twopass"]["launches"], conv["normalize"]["launches"] = cifar_phases(card)
     torch.cuda.empty_cache()
-    # Rows 11, gmm and tgmm: launches of the moe_train main path.
+    # Rows 11, gmm and tgmm: launches of the moe_train main path (tgmm's
+    # count covers both of its shapes, each half of it).
     for name, count in moe_phases(card).items():
         if name in moe:
             moe[name]["launches"] = count
+    moe["tgmm_out_proj"]["launches"] = moe["tgmm"]["launches"]
     model_check_phase()
     train_model_check()
     moe_model_check()
@@ -2848,6 +2864,8 @@ def main() -> int:
         # path reaches them at this call.
         ("gmm", moe["gmm"], "rocket_tpu_torch/csrc/grouped_gemm.cu", "rocket_tpu/nn/moe.py:85"),
         ("tgmm", moe["tgmm"], "rocket_tpu_torch/csrc/grouped_gemm.cu", "rocket_tpu/nn/moe.py:85"),
+        ("tgmm_out_proj", moe["tgmm_out_proj"], "rocket_tpu_torch/csrc/grouped_gemm.cu",
+         "rocket_tpu/nn/moe.py:85"),
         ("flash_qkv_fwd", qkv["flash_qkv_fwd"], "rocket_tpu_torch/csrc/flash_attention.cu",
          "rocket_tpu/ops/flash_attention.py:102"),
         ("flash_qkv_bwd", qkv["flash_qkv_bwd"], "rocket_tpu_torch/csrc/flash_attention.cu",

@@ -174,12 +174,12 @@ def _fused_kernels_parts():
     """Rows 8-11 and the grouped products at the reference's
     ``fused_kernels`` shapes (``sched_audit.py:1181-1183``), bf16: the BN
     epilogue over (262144, 64) under both schedules (``"twopass"``: moments,
-    finalize and normalise; ``"stats_xla"``: normalise alone), the fused
-    block at (64, 256, 256) with 4 heads under both epilogues, gather-GMM
-    of 2048 x 768 rows into (4, 768, 3072), and the dropless MoE FFN's
-    grouped products at GPT-2 widths (16384 routed rows, 4 experts): the
-    in- and out-projection forward, gmm with the transposed rhs and tgmm
-    in their backward."""
+    finalize and normalise in one launch; ``"stats_xla"``: normalise
+    alone), the fused block at (64, 256, 256) with 4 heads under both
+    epilogues, gather-GMM of 2048 x 768 rows into (4, 768, 3072), and the
+    dropless MoE FFN's grouped products at GPT-2 widths (16384 routed rows,
+    4 experts): the in- and out-projection forward, gmm with the transposed
+    rhs and tgmm in their backward."""
     from rocket_tpu_torch.ops.fused_block import block_attn_half
     from rocket_tpu_torch.ops.fused_conv import fused_bn_act
     from rocket_tpu_torch.ops.gather_gmm import gather_gmm

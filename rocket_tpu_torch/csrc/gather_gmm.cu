@@ -14,7 +14,7 @@
 // is 0.088 ms at 989 TFLOP/s against ~150 MB, 0.045 ms at 3.35 TB/s. Only
 // wgmma reaches the tensor cores' full rate, so the bf16 kernel is the
 // persistent wgmma + TMA grouped product of wgmma_gemm.cuh (shared with
-// grouped_gemm.cu's gmm), instantiated with its gathering A loader: TMA
+// grouped_gemm.cu's gmm and tgmm), instantiated with its gathering A loader: TMA
 // cannot gather rows, so the producer's 128 threads copy the rows their
 // row ids name by cp.async into the swizzled layout wgmma reads, while TMA
 // brings rhs as N-major boxes through a 3-D map. Output tiles are 128 x
@@ -85,7 +85,7 @@ extern "C" int rkt_gather_gmm_launch_info(int m, int n, int num_groups, int dtyp
   int sms = 0;
   const int err = rkt_wg::device_sms(&sms);
   if (err != 0) return err;
-  return rkt_wg::wgmma_launch_info<Wgmma, false>(m, n, num_groups, sms, info);
+  return rkt_wg::wgmma_launch_info<Wgmma, false>(m, 0, n, num_groups, sms, info);
 }
 
 // Registers per thread (what 1) or resident CTAs per SM (what 0) of the

@@ -1,6 +1,6 @@
 // Shared tile code of the grouped matrix products (grouped_gemm.cu's gmm
-// and tgmm, gather_gmm.cu's gather_gmm; the bf16 gmm and gather_gmm run
-// the wgmma kernel of wgmma_gemm.cuh over the work tiles below).
+// and tgmm, gather_gmm.cu's gather_gmm; in bf16 all three run the wgmma
+// kernel of wgmma_gemm.cuh, gmm and gather_gmm over the work tiles below).
 //
 // Groups: `group_sizes` (E,) int32 lives on the device and is read by every
 // block, so the host never learns the counts (no synchronisation). Group g
@@ -17,8 +17,7 @@
 // block past the list exits. This is megablox's group metadata, computed
 // by each block instead of by a scalar prefetch.
 //
-// The f32 product engine (bf16 tgmm takes the mma.sync kernel at the end
-// of this file, bf16 gmm and gather_gmm wgmma_gemm.cuh): a 256-thread
+// The f32 product engine (bf16 takes wgmma_gemm.cuh): a 256-thread
 // block computes a kBM x kBN f32 tile from two shared-memory operand tiles
 // As[kBK][kBM] and Bs[kBK][kBN] (the reduction index first), each thread
 // an 8 x 8 register block: rows
@@ -38,6 +37,8 @@
 #include "mma_common.cuh"
 
 namespace rkt_gg {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kBM = 128, kBN = 128, kBK = 16;
@@ -275,8 +276,8 @@ constexpr int kFoldRows = 256;
 // g: lhs (M, K), dy (M, N), out (E, K, N). The block walks its group's rows
 // in kBK slices, in order, adding each kFoldRows rows into a partial that
 // is then folded into the total; an empty group writes zeros. Grid:
-// (ceil(K / kBM), ceil(N / kBN), E). f32 operands; tgmm_tc_kernel below is
-// the bf16 form.
+// (ceil(K / kBM), ceil(N / kBN), E). f32 operands; the bf16 form is
+// wgmma_gemm.cuh's.
 __global__ void __launch_bounds__(kThreads)
 tgmm_kernel(const float* __restrict__ lhs, const float* __restrict__ dy,
             const int* __restrict__ group_sizes, float* __restrict__ out, int m, int k, int n,
@@ -334,140 +335,6 @@ tgmm_kernel(const float* __restrict__ lhs, const float* __restrict__ dy,
     fold();
   }
   store_tile(out + static_cast<long long>(g) * k * n, n, k0, k, n0, n, total);
-}
-
-// ---- bf16 tgmm: tensor-core tiles (mma.sync m16n8k16, f32 accumulators) ---
-//
-// tgmm's bf16 operands, the main path's, go through the tensor cores. The
-// same 256-thread block and 128 x 128 output tile, 8 warps of 64 x 32 each (two
-// along the rows, four along the columns), each warp 4 x 4 mma tiles of
-// 16 x 8 with f32 accumulators. Operand slices of kTcBK reduction steps
-// are copied into shared memory with cp.async (16 bytes per copy, zero
-// filled for rows past the group or columns past the matrix) two stages
-// deep, so the next slice lands while the current one is multiplied, and
-// are read with ldmatrix.trans (the reduction index is the slice's row,
-// not its contiguous axis). Rows are padded by kTcPad elements so the
-// eight 16-byte rows of each ldmatrix fall in distinct banks. Accumulation
-// is f32 in the tensor cores' own order; the output is rounded to bf16
-// once.
-constexpr int kTcBK = 32;
-constexpr int kTcPad = 8;
-using bf16 = __nv_bfloat16;
-
-// smem_addr, cp_async16/commit/wait, ldsm_x4(_t) and mma_bf16.
-using namespace rkt_mma;
-
-// Both operands of a stage are [kTcBK][128 + kTcPad] tiles, the reduction
-// index the row (kTcBK rows of the group's lhs and dy).
-struct TcAcc {
-  float c[4][4][4];  // [m16 tile][n8 tile][fragment]
-};
-
-// acc += As^T Bs over one kTcBK slice, both read by ldmatrix.trans.
-__device__ __forceinline__ void tc_slice(const bf16* As, const bf16* Bs, TcAcc& acc) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
-  constexpr int kLd = kBM + kTcPad;
-#pragma unroll
-  for (int kk = 0; kk < kTcBK; kk += 16) {
-    unsigned a[4][4], b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-      ldsm_x4_t(a[mi], As + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLd + wm + mi * 16 +
-                           ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      unsigned r[4];
-      ldsm_x4_t(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd + wn + nj * 16 +
-                       ((lane >> 4) << 3));
-      b[2 * nj][0] = r[0];
-      b[2 * nj][1] = r[1];
-      b[2 * nj + 1][0] = r[2];
-      b[2 * nj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc.c[mi][ni], a[mi], b[ni][0], b[ni][1]);
-  }
-}
-
-// Write the warp tiles of a 128 x 128 output tile at (row0, col0) of a
-// row-major bf16 output with leading dimension ld, rounding once; rows at
-// or past row_end and columns at or past ncols (even) are skipped.
-__device__ __forceinline__ void tc_store(bf16* out, long long ld, int row0, int row_end,
-                                         int col0, int ncols, const TcAcc& acc) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + wm + mi * 16 + lane / 4 + half * 8;
-      if (r >= row_end) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = col0 + wn + ni * 8 + 2 * (lane % 4);
-        if (c < ncols)
-          *reinterpret_cast<__nv_bfloat162*>(out + r * ld + c) = __floats2bfloat162_rn(
-              acc.c[mi][ni][2 * half], acc.c[mi][ni][2 * half + 1]);
-      }
-    }
-}
-
-// cp.async one ROWS x COLS bf16 tile, COLS contiguous in global memory, to
-// shared memory with row stride COLS + kTcPad. row_ptr(r) is the global
-// address of the tile's row r at its first column, or null for a zero
-// row; columns at or past ncols - col0 read as zeros.
-template <int ROWS, int COLS, typename RowPtr>
-__device__ __forceinline__ void tc_load(bf16* s, RowPtr row_ptr, int col0, int ncols,
-                                        const bf16* any) {
-  constexpr int kVpr = COLS / 8;
-#pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * kVpr; idx += kThreads) {
-    const int r = idx / kVpr, c = (idx % kVpr) * 8;
-    const bf16* p = row_ptr(r);
-    const bool valid = p != nullptr && col0 + c < ncols;
-    cp_async16(s + r * (COLS + kTcPad) + c, valid ? p + c : any, valid);
-  }
-}
-
-// tgmm_kernel's bf16 form (same contract and grid) on the tensor cores:
-// both operands are slices of kTcBK rows of the group.
-__global__ void __launch_bounds__(kThreads)
-tgmm_tc_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dy,
-               const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int k, int n,
-               int num_groups) {
-  const int g = blockIdx.z, k0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  int start, end;
-  group_rows(group_sizes, num_groups, m, g, &start, &end);
-  constexpr int kElems = kTcBK * (kBM + kTcPad);
-  __shared__ __align__(16) bf16 As[2][kElems];
-  __shared__ __align__(16) bf16 Bs[2][kElems];
-  auto load_stage = [&](int stage, int r0) {
-    tc_load<kTcBK, kBM>(As[stage], [&](int r) {
-      return r0 + r < end ? lhs + static_cast<long long>(r0 + r) * k + k0 : nullptr;
-    }, k0, k, lhs);
-    tc_load<kTcBK, kBN>(Bs[stage], [&](int r) {
-      return r0 + r < end ? dy + static_cast<long long>(r0 + r) * n + n0 : nullptr;
-    }, n0, n, dy);
-    cp_async_commit();
-  };
-  TcAcc acc = {};
-  const int slices = (end - start + kTcBK - 1) / kTcBK;
-  if (slices > 0) load_stage(0, start);
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices) {
-      load_stage((s + 1) & 1, start + (s + 1) * kTcBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    tc_slice(As[s & 1], Bs[s & 1], acc);
-    __syncthreads();
-  }
-  tc_store(out + static_cast<long long>(g) * k * n, n, k0, k, n0, n, acc);
 }
 
 // Launch on the caller's stream and return the launch status (a refused

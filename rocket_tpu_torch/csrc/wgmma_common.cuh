@@ -1,8 +1,8 @@
 // Hopper building blocks of the port's warpgroup kernels (wgmma_gemm.cuh,
 // which gather_gmm.cu and grouped_gemm.cu instantiate):
 // mbarriers, TMA tensor maps and loads, the wgmma matrix descriptor, the
-// wgmma m64n256k16 bf16 product with f32 accumulators, the fences
-// between them, and setmaxnreg. sm_90a only (wgmma and setmaxnreg exist
+// wgmma m64n256k16 and m64n192k16 bf16 products with f32 accumulators, the
+// fences and named barriers between them, and setmaxnreg. sm_90a only (wgmma and setmaxnreg exist
 // only for that target).
 //
 // Shared-memory operand layout: 128-byte swizzle throughout. A tile row of
@@ -160,6 +160,11 @@ bool encode_bf16(CUtensorMap* map, const void* base, const uint64_t (&dims)[R],
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// `count` threads (whole warps) of the CTA meet at named barrier `id`
+// (1-15: 0 is __syncthreads's).
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -188,12 +193,13 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// d (64 x 256, f32) += A (64 x 16, K-major) B (16 x 256: N-major with
-// TRANS_B = 1, K-major with 0), bf16, issued by one warpgroup. Thread t of
+// d (64 x 256, f32) += A (64 x 16: M-major with TRANS_A = 1, K-major with
+// 0) B (16 x 256: N-major with TRANS_B = 1, K-major with 0), bf16, issued
+// by one warpgroup. Thread t of
 // the warpgroup holds, for i in 0..31, d[4i], d[4i+1] at row 16 (t / 32) +
 // (t % 32) / 4, columns 8i + 2 (t % 4) and + 1, and d[4i+2], d[4i+3] eight
 // rows below.
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t desc_a,
                                                       uint64_t desc_b) {
   asm volatile(
@@ -209,7 +215,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -233,13 +239,13 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-// d (64 x 192, f32) += A (64 x 16, K-major) B (16 x 192), bf16: the
+// d (64 x 192, f32) += A (64 x 16) B (16 x 192), bf16: the
 // m64n256k16 product on a 192-column tile (96 accumulators a thread, laid
 // out as there for i in 0..23).
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n192k16_bf16(float (&d)[96], uint64_t desc_a,
                                                       uint64_t desc_b) {
   asm volatile(
@@ -253,7 +259,7 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16(float (&d)[96], uint64_t d
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, 0, %99;\n"
+      "%96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -271,14 +277,14 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16(float (&d)[96], uint64_t d
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // The product on a tile of BN columns (256 or 192).
-template <int BN, int TRANS_B>
+template <int BN, int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
-  if constexpr (BN == 256) wgmma_m64n256k16_bf16<TRANS_B>(d, desc_a, desc_b);
-  else wgmma_m64n192k16_bf16<TRANS_B>(d, desc_a, desc_b);
+  if constexpr (BN == 256) wgmma_m64n256k16_bf16<TRANS_A, TRANS_B>(d, desc_a, desc_b);
+  else wgmma_m64n192k16_bf16<TRANS_A, TRANS_B>(d, desc_a, desc_b);
 }
 
 // Hand registers between warpgroups of a warp-specialised CTA: the

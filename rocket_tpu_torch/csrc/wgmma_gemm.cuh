@@ -1,30 +1,33 @@
 // The persistent warp-specialised grouped product on wgmma + TMA that the
 // bf16 grouped kernels instantiate: gather_gmm.cu (row 11, lhs rows
-// gathered by index) and grouped_gemm.cu's gmm (lhs rows contiguous, rhs
-// read as stored or transposed):
+// gathered by index), grouped_gemm.cu's gmm (lhs rows contiguous, rhs read
+// as stored or transposed) and grouped_gemm.cu's tgmm (the rhs cotangent):
 //
-//   out[r] = A[r] @ B[g(r)],  bf16 in, f32 accumulation, bf16 out,
+//   gmm:   out[r] = A[r] @ B[g(r)]            over the work tiles of
+//          grouped_gemm.cuh (find_work: at most kBM rows of one group, so a
+//          tile never straddles a group; rows past the groups written as
+//          zeros; an empty group has no tile), K the reduction;
+//   tgmm:  out[g] = lhs_g^T @ dy_g            over (K tile, N tile, group)
+//          slots, the group's rows the reduction (an empty group: zeros);
 //
-// over the work tiles of grouped_gemm.cuh (find_work: at most kBM rows of
-// one group, so a tile never straddles a group; rows past the groups
-// written as zeros; an empty group has no tile).
+// bf16 in, f32 accumulation, bf16 out.
 //
 //   * Output tiles of 128 rows x BN columns, a template parameter: 256
-//     (row 11), or 256 or 192 for gmm, whichever fills the card's waves
-//     best (grouped_gemm.cu's gmm_block_n); K walked in 64-deep slices (128
-//     bytes of bf16, the swizzle width).
+//     (row 11), or 256 or 192 for gmm and tgmm, whichever fills the card's
+//     waves best (grouped_gemm.cu's gmm_block_n); the reduction walked in
+//     64-deep slices (128 bytes of bf16, the swizzle width).
 //   * Three warpgroups: two consumers, each a 64 x BN half of the tile on
 //     wgmma m64nBNk16 with BN / 2 f32 accumulators a thread (setmaxnreg
 //     gives them 224 registers and the producer 56), and one producer
 //     feeding a ring of kStages slices in shared memory, full and empty
 //     mbarriers per slot. A consumer keeps one slice of products in flight
 //     behind the next one's issue, and one whose 64 rows all lie past its
-//     tile's end (a 16-row decode tile) waits and releases each slot
-//     without multiplying.
-//   * Persistent grid: min(SMs, work tiles x N tiles) CTAs, one per SM,
-//     each walking the (work tile, N tile) list with a stride of the grid;
-//     the ring runs on across tiles, so the producer fills the next tile's
-//     slices while the consumers store the last one's.
+//     tile's end (a 16-row decode tile, K's last 64 rows) waits and
+//     releases each slot without multiplying.
+//   * Persistent grid: min(SMs, slots) CTAs, one per SM, each walking the
+//     slot list with a stride of the grid; the ring runs on across tiles,
+//     so the producer fills the next tile's slices while the consumers
+//     store the last one's.
 //   * The A loader is a template parameter. GatherA (row 11): TMA cannot
 //     gather rows, so the producer's 128 threads copy 16-byte pieces of the
 //     rows their row ids name by cp.async straight into the swizzled
@@ -36,19 +39,31 @@
 //     map over (K, M), one 64 K x 128 row box from the tile's first row
 //     (any row: TMA takes element coordinates); rows past M and a slice
 //     past K arrive as zeros, and rows past the tile's end (the next
-//     group's) are multiplied but never stored.
+//     group's) are multiplied but never stored. TmaLhsT (tgmm): A is
+//     lhs_g^T, M-major: per slice two boxes of 64 K x 64 rows, one per
+//     consumer half, through a 2-D map over lhs (K, M) from the slice's
+//     first row, read by wgmma with its A transpose bit.
 //   * The B map is the other parameter. N-major (B_KMAJOR false): rhs
 //     (E, K, N) through a 3-D map (N, K, E), BN / 64 boxes of 64 K x 64 N
 //     a slice, read by wgmma with its transpose bit. K-major (true): rhs
 //     (E, N, K) read transposed, through a 3-D map (K, N, E), one 64 K x
 //     BN box a slice, read without it. Either way a slice past K reads
-//     zeros, not the next group's rows.
+//     zeros, not the next group's rows. tgmm's B is dy (M, N), N-major,
+//     through a 2-D map (N, M): BN / 64 boxes of 64 rows x 64 N a slice.
+//   * tgmm's last slice of a group runs past the group's end into rows
+//     that hold data (the next group's, or rows past the groups), which
+//     the maps do not zero. The consumers zero those rows of the slice in
+//     both operands (each its own A box and half the B boxes), fence the
+//     async proxy and meet at a named barrier before multiplying; a group
+//     of whole 64-row slices (the padded layout) never takes this path.
 //   * The consumers store straight from registers, 16 bytes a lane after a
-//     transpose within each quad, rounded once; no atomics and no split-K
-//     across CTAs: two launches give the same bits.
+//     transpose within each quad, rounded once; no atomics and no split of
+//     the reduction across CTAs: two launches give the same bits.
 //
 // sm_90a only; the f32 operands stay on grouped_gemm.cuh's CUDA-core tiles.
 #pragma once
+
+#include <string.h>
 
 #include "grouped_gemm.cuh"
 #include "wgmma_common.cuh"
@@ -78,19 +93,59 @@ constexpr int kWgSmem = 1024 + kStages * kStageBytes<BN> + 2 * kStages * 8;
 constexpr int kProducerRegs = 56, kConsumerRegs = 224;
 static_assert(kBM == kConsumers * 64, "two 64-row halves of a work tile");
 
-// The A loaders.
+// The A loaders (kTgmm: the tgmm schedule, with dy as B).
 struct GatherA {  // A[r] = x[row_ids[r]], a zero row for an id outside [0, src_rows)
-  static constexpr bool kTma = false;
+  static constexpr bool kTma = false, kTgmm = false;
   const bf16* x;
   const int* row_ids;
   int src_rows;
 };
 struct TmaA {  // A = the (M, K) lhs, through a 2-D map (K, M) of kWgBK x kBM boxes
-  static constexpr bool kTma = true;
+  static constexpr bool kTma = true, kTgmm = false;
+  CUtensorMap map;
+};
+struct TmaLhsT {  // A = lhs_g^T, through a 2-D map (K, M) of 64 x kWgBK boxes
+  static constexpr bool kTma = true, kTgmm = true;
   CUtensorMap map;
 };
 
-// slots = work tiles x N tiles, from the host.
+// One slot's output tile, rows [row0, row1) by columns [n0, n0 + BN) of
+// group `group`'s output, and its reduction: `slices` 64-deep slices from
+// red0 up to red1 (gmm: K; tgmm: the group's rows). No slices: a tile of
+// zeros (gmm's rows past the groups, tgmm's empty group).
+struct Slot {
+  int group, row0, row1, n0, red0, red1, slices;
+};
+
+// Slot `slot` of the schedule; false when it is past gmm's work-tile list.
+template <typename ALoad, int BN>
+__device__ __forceinline__ bool find_slot(const int* __restrict__ group_sizes, int num_groups,
+                                          int m, int k, int n, int slot, Slot* s) {
+  const int n_tiles = (n + BN - 1) / BN;
+  s->n0 = (slot % n_tiles) * BN;
+  if constexpr (ALoad::kTgmm) {  // (K tile, N tile, group), N fastest, then K
+    const int k_tiles = (k + kBM - 1) / kBM, tile = slot / n_tiles;
+    s->group = tile / k_tiles;
+    s->row0 = (tile % k_tiles) * kBM;
+    s->row1 = min(s->row0 + kBM, k);
+    rkt_gg::group_rows(group_sizes, num_groups, m, s->group, &s->red0, &s->red1);
+    s->slices = (s->red1 - s->red0 + kWgBK - 1) / kWgBK;
+    return true;
+  } else {
+    Work work;
+    if (!rkt_gg::find_work(group_sizes, num_groups, m, slot / n_tiles, &work)) return false;
+    s->group = work.group;
+    s->row0 = work.row0;
+    s->row1 = work.row1;
+    s->red0 = 0;
+    s->red1 = k;
+    // Rows past the groups: no operands.
+    s->slices = work.group == num_groups ? 0 : (k + kWgBK - 1) / kWgBK;
+    return true;
+  }
+}
+
+// slots from the host (wgmma_slots).
 template <typename ALoad, bool B_KMAJOR, int BN = kWgBN>
 __global__ void __launch_bounds__(kWgThreads, 1)
 grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
@@ -111,8 +166,6 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
     mbar_fence_init();
   }
   __syncthreads();
-  const int n_tiles = (n + BN - 1) / BN;
-  const int slices = (k + kWgBK - 1) / kWgBK;
 
   if (wg == kConsumers) {
     // Producer: B by TMA (thread 0); A by TMA (thread 0) or by cp.async
@@ -122,35 +175,45 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
     const int piece = t % 8, row_base = t / 8;  // gather: rows row_base + 16 i, i < 8
     int it = 0;
     for (int slot = blockIdx.x; slot < slots; slot += gridDim.x) {
-      Work work;
-      if (!rkt_gg::find_work(group_sizes, num_groups, m, slot / n_tiles, &work)) break;
-      if (work.group == num_groups) continue;  // rows past the groups: no operands
-      const int n0 = (slot % n_tiles) * BN;
+      Slot tile;
+      if (!find_slot<ALoad, BN>(group_sizes, num_groups, m, k, n, slot, &tile)) break;
+      if (tile.slices == 0) continue;  // a tile of zeros: no operands
       int src[8];  // gather: the source row of each of this thread's rows, -1 for a zero row
       if constexpr (!ALoad::kTma) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const int row = work.row0 + row_base + 16 * i;
-          const int id = row < work.row1 ? __ldg(a_load.row_ids + row) : -1;
+          const int row = tile.row0 + row_base + 16 * i;
+          const int id = row < tile.row1 ? __ldg(a_load.row_ids + row) : -1;
           src[i] = id >= 0 && id < a_load.src_rows ? id : -1;
         }
       }
-      for (int s = 0; s < slices; ++s, ++it) {
+      for (int s = 0; s < tile.slices; ++s, ++it) {
         const int stage = it % kStages;
         mbar_wait(&empty[stage], ((it / kStages) & 1) ^ 1);
         unsigned char* a_s = ring + stage * kStage;
         unsigned char* b_s = a_s + kATile;
-        const int k0 = s * kWgBK;
+        const int k0 = tile.red0 + s * kWgBK;
         if (t == 0) {
           mbar_arrive_expect_tx(&full[stage], kBTile + (ALoad::kTma ? kATile : 0));
-          if constexpr (B_KMAJOR) {
-            tma_load_3d(b_s, &rhs_map, &full[stage], k0, n0, work.group);
-          } else {
+          if constexpr (ALoad::kTgmm) {  // dy rows k0.., lhs rows k0.. of each K half
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j)
-              tma_load_3d(b_s + j * kBBox, &rhs_map, &full[stage], n0 + 64 * j, k0, work.group);
+              tma_load_2d(b_s + j * kBBox, &rhs_map, &full[stage], tile.n0 + 64 * j, k0);
+#pragma unroll
+            for (int h = 0; h < kConsumers; ++h)
+              tma_load_2d(a_s + h * kBBox, &a_load.map, &full[stage], tile.row0 + 64 * h, k0);
+          } else {
+            if constexpr (B_KMAJOR) {
+              tma_load_3d(b_s, &rhs_map, &full[stage], k0, tile.n0, tile.group);
+            } else {
+#pragma unroll
+              for (int j = 0; j < BN / 64; ++j)
+                tma_load_3d(b_s + j * kBBox, &rhs_map, &full[stage], tile.n0 + 64 * j, k0,
+                            tile.group);
+            }
+            if constexpr (ALoad::kTma)
+              tma_load_2d(a_s, &a_load.map, &full[stage], k0, tile.row0);
           }
-          if constexpr (ALoad::kTma) tma_load_2d(a_s, &a_load.map, &full[stage], k0, work.row0);
         }
         if constexpr (!ALoad::kTma) {
           const int col = k0 + piece * 8;
@@ -176,19 +239,35 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
     const int frag_row = 16 * warp + lane / 4, q = lane % 4;
     int it = 0;
     for (int slot = blockIdx.x; slot < slots; slot += gridDim.x) {
-      Work work;
-      if (!rkt_gg::find_work(group_sizes, num_groups, m, slot / n_tiles, &work)) break;
-      const int n0 = (slot % n_tiles) * BN;
-      const int row0 = work.row0 + 64 * wg;
+      Slot tile;
+      if (!find_slot<ALoad, BN>(group_sizes, num_groups, m, k, n, slot, &tile)) break;
+      const int row0 = tile.row0 + 64 * wg;
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-      if (work.group != num_groups) {
-        const bool live = row0 < work.row1;
-        for (int s = 0; s < slices; ++s, ++it) {
+      if (tile.slices > 0) {
+        const bool live = row0 < tile.row1;
+        for (int s = 0; s < tile.slices; ++s, ++it) {
           const int stage = it % kStages;
           mbar_wait(&full[stage], (it / kStages) & 1);
           if constexpr (!ALoad::kTma) fence_proxy_async();  // the cp.async rows, seen by wgmma
+          if constexpr (ALoad::kTgmm) {
+            // Rows of the slice past the group's end: zeros in A (this
+            // half's box) and B (every other box from this half), seen by
+            // both halves' wgmma.
+            const int tail = (tile.red0 + (s + 1) * kWgBK - tile.red1) * 128;
+            if (tail > 0) {
+              unsigned char* slab = ring + stage * kStage;
+              const uint4 zero = make_uint4(0, 0, 0, 0);
+              for (int off = kBBox - tail + 16 * t; off < kBBox; off += 16 * 128) {
+                *reinterpret_cast<uint4*>(slab + wg * kBBox + off) = zero;
+                for (int j = wg; j < BN / 64; j += kConsumers)
+                  *reinterpret_cast<uint4*>(slab + kATile + j * kBBox + off) = zero;
+              }
+              fence_proxy_async();
+              named_barrier_sync(1, kConsumers * 128);
+            }
+          }
           if (live) {
             const unsigned char* a_s = ring + stage * kStage + wg * 64 * 128;
             const unsigned char* b_s = ring + stage * kStage + kATile;
@@ -196,12 +275,15 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < kWgBK / 16; ++kk) {
-              if constexpr (B_KMAJOR)
-                wgmma_bf16<BN, 0>(acc, smem_desc(a_s + 32 * kk, 16, 1024),
-                                  smem_desc(b_s + 32 * kk, 16, 1024));
+              if constexpr (ALoad::kTgmm)
+                wgmma_bf16<BN, 1, 1>(acc, smem_desc(a_s + 2048 * kk, kBBox, 1024),
+                                     smem_desc(b_s + 2048 * kk, kBBox, 1024));
+              else if constexpr (B_KMAJOR)
+                wgmma_bf16<BN, 0, 0>(acc, smem_desc(a_s + 32 * kk, 16, 1024),
+                                     smem_desc(b_s + 32 * kk, 16, 1024));
               else
-                wgmma_bf16<BN, 1>(acc, smem_desc(a_s + 32 * kk, 16, 1024),
-                                  smem_desc(b_s + 2048 * kk, kBBox, 1024));
+                wgmma_bf16<BN, 0, 1>(acc, smem_desc(a_s + 32 * kk, 16, 1024),
+                                     smem_desc(b_s + 2048 * kk, kBBox, 1024));
             }
             wgmma_commit();
             wgmma_wait<1>();
@@ -213,10 +295,12 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
         fence_operands(acc);
         if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
       }
-      // Store the half tile (zeros for rows past the groups), rounded once,
-      // 16 bytes a lane: a quad holds 32 columns of a row as four 8-column
-      // pieces, two columns of each per lane; transposed within the quad,
-      // lane q holds piece q whole.
+      // Store the half tile (zeros for a tile without slices), rounded
+      // once, 16 bytes a lane: a quad holds 32 columns of a row as four
+      // 8-column pieces, two columns of each per lane; transposed within
+      // the quad, lane q holds piece q whole.
+      bf16* const base =
+          ALoad::kTgmm ? out + static_cast<long long>(tile.group) * k * n : out;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = row0 + frag_row + 8 * half;
@@ -240,9 +324,9 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
             mine[2] = di == 2 ? got : mine[2];
             mine[3] = di == 3 ? got : mine[3];
           }
-          const int c = n0 + 8 * (4 * jj + q);
-          if (r < work.row1 && c < n)
-            *reinterpret_cast<uint4*>(out + static_cast<long long>(r) * n + c) =
+          const int c = tile.n0 + 8 * (4 * jj + q);
+          if (r < tile.row1 && c < n)
+            *reinterpret_cast<uint4*>(base + static_cast<long long>(r) * n + c) =
                 make_uint4(mine[0], mine[1], mine[2], mine[3]);
         }
       }
@@ -252,12 +336,17 @@ grouped_wgmma_kernel(const __grid_constant__ CUtensorMap rhs_map,
 
 // ---- host side --------------------------------------------------------------
 
-// Work tiles x N tiles, and the grid: one CTA per SM, at most one per slot.
-inline int wgmma_slots(int m, int n, int num_groups, int bn) {
-  return rkt_gg::work_tiles(m, num_groups) * ((n + bn - 1) / bn);
+// The schedule's slots (gmm: work tiles x N tiles; tgmm: K tiles x groups
+// x N tiles), and the grid: one CTA per SM, at most one per slot.
+template <typename ALoad>
+inline int wgmma_slots(int m, int k, int n, int num_groups, int bn) {
+  const int n_tiles = (n + bn - 1) / bn;
+  if constexpr (ALoad::kTgmm) return (k + kBM - 1) / kBM * num_groups * n_tiles;
+  else return rkt_gg::work_tiles(m, num_groups) * n_tiles;
 }
-inline dim3 wgmma_grid(int m, int n, int num_groups, int bn, int sms) {
-  const int slots = wgmma_slots(m, n, num_groups, bn);
+template <typename ALoad>
+inline dim3 wgmma_grid(int m, int k, int n, int num_groups, int bn, int sms) {
+  const int slots = wgmma_slots<ALoad>(m, k, n, num_groups, bn);
   return dim3(sms < slots ? sms : slots);
 }
 
@@ -292,6 +381,17 @@ int prepare_wgmma() {
   return static_cast<int>(err);
 }
 
+// A 2-D bf16 map over a row-major (rows, cols) matrix in boxes of
+// box_cols x box_rows (tgmm's lhs and dy; gmm's lhs). False when the encode
+// fails.
+inline bool encode_rows(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+                        int box_rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
+  const uint32_t box[2] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows)};
+  return encode_bf16<2>(map, base, dims, strides, box);
+}
+
 // The map of the group's B block: rhs (E, K, N) read N-major, or (E, N, K)
 // read K-major (B_KMAJOR). False when the encode fails.
 template <bool B_KMAJOR, int BN>
@@ -304,29 +404,38 @@ bool encode_rhs(CUtensorMap* map, const void* rhs, int k, int n, int num_groups)
 }
 
 // Launch on the caller's stream over a card of `sms` SMs (device_sms);
-// returns the cudaError_t.
+// `rhs` is gmm's rhs, or tgmm's dy (M, N). Returns the cudaError_t.
 template <typename ALoad, bool B_KMAJOR, int BN = kWgBN>
 int launch_wgmma(const ALoad& a_load, const void* rhs, const void* group_sizes, void* out, int m,
                  int k, int n, int num_groups, int sms, void* stream) {
   const int err = prepare_wgmma<ALoad, B_KMAJOR, BN>();
   if (err != 0) return err;
   CUtensorMap map;
-  if (!encode_rhs<B_KMAJOR, BN>(&map, rhs, k, n, num_groups))
+  if constexpr (ALoad::kTgmm) {
+    // No rows (every group empty): no slice is loaded, and a map of no
+    // rows does not encode.
+    if (m == 0)
+      memset(&map, 0, sizeof(map));
+    else if (!encode_rows(&map, rhs, m, n, 64, kWgBK))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else if (!encode_rhs<B_KMAJOR, BN>(&map, rhs, k, n, num_groups)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   grouped_wgmma_kernel<ALoad, B_KMAJOR, BN>
-      <<<wgmma_grid(m, n, num_groups, BN, sms), kWgThreads, kWgSmem<BN>,
+      <<<wgmma_grid<ALoad>(m, k, n, num_groups, BN, sms), kWgThreads, kWgSmem<BN>,
          static_cast<cudaStream_t>(stream)>>>(map, a_load, static_cast<const int*>(group_sizes),
                                               static_cast<bf16*>(out), m, k, n, num_groups,
-                                              wgmma_slots(m, n, num_groups, BN));
+                                              wgmma_slots<ALoad>(m, k, n, num_groups, BN));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch geometry at these shapes on a card of `sms` SMs
 // (launch_info.cuh).
 template <typename ALoad, bool B_KMAJOR, int BN = kWgBN>
-int wgmma_launch_info(int m, int n, int num_groups, int sms, long long* info) {
+int wgmma_launch_info(int m, int k, int n, int num_groups, int sms, long long* info) {
   return rkt_info::write(grouped_wgmma_kernel<ALoad, B_KMAJOR, BN>,
-                         wgmma_grid(m, n, num_groups, BN, sms), kWgThreads, kWgSmem<BN>, info);
+                         wgmma_grid<ALoad>(m, k, n, num_groups, BN, sms), kWgThreads,
+                         kWgSmem<BN>, info);
 }
 
 // Registers per thread at launch (what 1) or resident CTAs per SM (what

@@ -12,7 +12,8 @@ drifts between them), each in its own process with its own
 own, so commits whose ``Timer`` differs are timed with one. With
 ``--phase``, only that phase function of it runs, called as ``phase(Timer(),
 torch.Generator().manual_seed(0))`` with TF32 off, and its result is
-printed as one JSON line ``{"root": ..., "phase": ..., "result": ...}``;
+printed as one JSON line ``{"root": ..., "phase": ..., "result": ...}``
+(a tuple key of the result joined by spaces);
 without, its whole ``main`` runs. Needs a card; exits with the first
 nonzero exit code of its runs.
 """
@@ -44,7 +45,17 @@ if not phase:
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 result = getattr(smoke, phase)(smoke.Timer(), torch.Generator().manual_seed(0))
-print(json.dumps({"root": root, "phase": phase, "result": result}, default=str), flush=True)
+
+
+def keyed(v):  # JSON keys are strings: a phase may key its result by shape tuples
+    if isinstance(v, dict):
+        return {k if isinstance(k, str) else " ".join(map(str, k)) if isinstance(k, tuple)
+                else str(k): keyed(x) for k, x in v.items()}
+    return v
+
+
+print(json.dumps({"root": root, "phase": phase, "result": keyed(result)}, default=str),
+      flush=True)
 """
 
 

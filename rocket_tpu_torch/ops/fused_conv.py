@@ -7,7 +7,8 @@ One program computes the per-channel moments of the flattened activation
 schedules, the reference's:
 
 * ``"twopass"``: the moments and the epilogue both in the kernel
-  (:func:`bn_twopass`, ``csrc/fused_conv.cu``'s ``rkt_bn_twopass``);
+  (:func:`bn_twopass`, ``csrc/fused_conv.cu``'s ``rkt_bn_twopass``: one
+  cooperative launch, its phases split by grid barriers);
 * ``"stats_xla"``: the moments are the plain stacked reduction outside the
   kernel (:func:`moments`) and the kernel only normalises
   (:func:`bn_normalize`, ``rkt_bn_normalize``).
@@ -58,7 +59,7 @@ __all__ = [
     "SCHEDULES", "MAX_C", "BnAct", "fused_bn_act", "fused_bn_act_supported",
     "kernel_supported", "reference_bn_act", "moments", "epilogue_rows", "bn_backward",
     "bn_twopass", "bn_twopass_plain", "bn_normalize", "bn_normalize_plain", "bn_launches",
-    "launch_info",
+    "slab_smem", "launch_info", "resident",
 ]
 
 #: Sublane minimum per itemsize — the reference's ``_SUBLANE``.
@@ -67,14 +68,23 @@ _SUBLANE = {4: 8, 2: 16, 1: 32}
 SCHEDULES = ("twopass", "stats_xla")
 #: Widest channel count of the kernels (``kMaxC`` in ``csrc/fused_conv.cu``).
 MAX_C = 2048
-#: Launch geometry of both passes, all chosen here (:func:`_grids`). The
-#: moments pass runs at most MOMENT_CTAS CTAs (two per SM of an H100) of at
-#: least MOMENT_MIN_ROWS rows each. It is a constant, not read from the card:
-#: the grid fixes the order in which the partial sums add, so the same input
-#: gives the same bits on any card. The normalise pass is a grid-stride loop
-#: of THREADS-thread CTAs (``kThreads``), up to NORM_CTAS_PER_SM per SM.
+#: Launch geometry of both kernels, all chosen here (:func:`_grids`). Row 9
+#: runs at most MOMENT_CTAS CTAs (two per SM of an H100, all resident at
+#: once) of at least MOMENT_MIN_ROWS rows each. It is a constant, not read
+#: from the card: the grid fixes the slabs and so the order in which the
+#: partial sums add, so the same input gives the same bits on any card.
+#: Row 10 is a grid-stride loop of THREADS-thread CTAs (``kThreads``), up to
+#: NORM_CTAS_PER_SM per SM.
 MOMENT_CTAS, MOMENT_MIN_ROWS = 264, 64
 THREADS, NORM_CTAS_PER_SM = 256, 8
+#: The loads each thread of row 9 keeps in flight: vectors of its moments
+#: pass, whose last step stays in registers, and of its normalise pass
+#: (``kInFlight``, ``kNormUnroll``).
+IN_FLIGHT, NORM_UNROLL = 16, 4
+#: Hopper's shared memory (``kSmemPerSm``, ``kSmemReserved``,
+#: ``kSmemOptIn``): what an SM holds for its resident CTAs, what the card
+#: reserves of it per CTA, and the most one CTA may opt into.
+SM_SMEM, CTA_RESERVED, SMEM_OPT_IN = 233_472, 1024, 232_448
 
 
 def fused_bn_act_supported(n: int, block_rows: int, itemsize: int) -> bool:
@@ -147,72 +157,114 @@ def _lib():
     if lib.rkt_bn_twopass.argtypes is None:
         lib.rkt_bn_twopass.restype = ctypes.c_int
         lib.rkt_bn_twopass.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rkt_bn_normalize.restype = ctypes.c_int
         lib.rkt_bn_normalize.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
+        lib.rkt_bn_launch_info.restype = ctypes.c_int
+        lib.rkt_bn_launch_info.argtypes = [ctypes.c_int, ctypes.c_longlong] + [
+            ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.rkt_bn_twopass_resident.restype = ctypes.c_int
+        lib.rkt_bn_twopass_resident.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
     return lib
 
 
 def _grids(x2: torch.Tensor) -> tuple:
-    """(moments CTAs, normalise CTAs) for ``x2`` (N, C) on its card."""
+    """(row 9's CTAs, row 10's CTAs) for ``x2`` (N, C) on its card."""
     n, c = x2.shape
-    moments_ctas = max(1, min(MOMENT_CTAS, -(-n // MOMENT_MIN_ROWS)))
     vectors = n * c * x2.element_size() // 16
     norm_ctas = sm_count(x2, "fused_conv") * NORM_CTAS_PER_SM
-    return moments_ctas, max(1, min(norm_ctas, -(-vectors // THREADS)))
+    return _twopass_ctas(n), max(1, min(norm_ctas, -(-vectors // THREADS)))
 
 
-#: Static shared memory of the moments and normalise passes: f32 rows of
-#: MAX_C channels (``red[2][kMaxC]``, ``row[3][kMaxC]``).
-_STATIC_SMEM = {"bn_moments": 2 * 4 * MAX_C, "bn_finalize": 0, "bn_normalize": 3 * 4 * MAX_C}
+def _twopass_ctas(n: int) -> int:
+    """Row 9's CTAs over N rows: at most MOMENT_CTAS, of at least
+    MOMENT_MIN_ROWS rows each."""
+    return max(1, min(MOMENT_CTAS, -(-n // MOMENT_MIN_ROWS)))
 
 
-def bn_launches(kind: str, n: int, c: int, dtype, grid: int, norm_grid: int) -> list:
-    """The launches of ``kind`` (``"twopass"``: moments, finalize and
-    normalise; ``"normalize"``: the last alone) on ``x2`` (N, C) with
-    ``grid`` moments CTAs and ``norm_grid`` normalise CTAs. A moments CTA
-    splits each row of x among up to THREADS lanes, 16 bytes a lane, and
-    streams as many rows per step as its THREADS threads cover, then writes
-    a (2, C) partial; the finalize pass reads each channel's column of the
-    partials; the normalise pass stages mi and streams x and y 16 bytes a
-    thread."""
+#: Static shared memory of both kernels: f32 rows of MAX_C channels (row
+#: 9's ``buf[3 * kMaxC]``, row 10's ``row[3][kMaxC]``).
+_STATIC_SMEM = 3 * 4 * MAX_C
+
+
+def _step_rows(c: int, dtype) -> int:
+    """Rows a row 9 CTA loads per step: IN_FLIGHT vectors a thread over its
+    row groups (one vector a thread a row, two for f32 past 1024
+    channels)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    lanes = min(c // vec, THREADS)
+    return IN_FLIGHT // -(-(c // vec) // THREADS) * (THREADS // lanes)
+
+
+def slab_smem(n: int, c: int, dtype, grid: int, sms: int) -> int:
+    """Row 9's dynamic shared memory over ``grid`` CTAs on a card of
+    ``sms`` SMs: of a CTA's ``ceil(n / grid)``-row slab before its last
+    step (kept in registers), the whole rows that fit in its share of an
+    SM beside its static rows, once ``ceil(grid / sms)`` CTAs are resident
+    on each."""
+    row = c * torch.empty((), dtype=dtype).element_size()
+    rows = -(-n // grid)
+    share = min(SM_SMEM // -(-grid // sms) - CTA_RESERVED, SMEM_OPT_IN) - _STATIC_SMEM
+    return min(max(rows - _step_rows(c, dtype), 0), max(share, 0) // row) * row
+
+
+def bn_launches(kind: str, n: int, c: int, dtype, grid: int, norm_grid: int,
+                sms: int = 0) -> list:
+    """The launches of ``kind`` on ``x2`` (N, C): ``"twopass"`` is row 9's
+    one launch of ``grid`` CTAs on a card of ``sms`` SMs, ``"normalize"``
+    row 10's of ``norm_grid``.
+    A row 9 CTA splits each row of its slab among up to THREADS lanes, 16
+    bytes a lane, loads it in steps of IN_FLIGHT vectors a thread
+    (:func:`_step_rows`) and writes a (2, C) partial; after a grid barrier it
+    reads the partials of up to 32 channels and writes their stats and
+    (4, C) rows; after another it stages mean, inv*scale and bias and
+    streams its slab of x and y in chunks of NORM_UNROLL vectors of 16
+    bytes a thread, the slab's first rows from shared memory
+    (:func:`slab_smem`). Row 10 stages those rows and streams x and y one
+    vector a thread a step."""
     f32 = torch.float32
     vec = 16 // torch.empty((), dtype=dtype).element_size()
     lanes = min(c // vec, THREADS)
     step = THREADS * vec
-    x_norm = tile(max(1, step // c), min(c, step), dtype, n, c)
-    normalize = LaunchFact("bn_normalize", (norm_grid, 1, 1), THREADS, 0,
-                           _STATIC_SMEM["bn_normalize"], (tile(4, c, f32, 4, c), x_norm, x_norm))
+    mi_rows = tile(4, c, f32, 4, c)
     if kind == "normalize":
-        return [normalize]
-    x_mom = tile(THREADS // lanes, c, dtype, n, c)
-    cols = min(c, THREADS)
-    return [
-        LaunchFact("bn_moments", (grid, 1, 1), THREADS, 0, _STATIC_SMEM["bn_moments"],
-                   (x_mom, tile(2, c, f32, 2, c))),
-        LaunchFact("bn_finalize", (-(-c // THREADS), 1, 1), THREADS, 0, 0,
-                   (tile(2 * grid, cols, f32, 2 * grid, c), tile(2, cols, f32, 2, c),
-                    tile(cols, 2, f32, c, 2), tile(4, cols, f32, 4, c))),
-        normalize,
-    ]
+        x_norm = tile(max(1, step // c), min(c, step), dtype, n, c)
+        return [LaunchFact("bn_normalize", (norm_grid, 1, 1), THREADS, 0, _STATIC_SMEM,
+                           (mi_rows, x_norm, x_norm))]
+    if sms <= 0:
+        raise ValueError("bn_launches: row 9's shared memory needs the card's SM count")
+    chunk = NORM_UNROLL * step
+    x_out = tile(max(1, min(n, chunk // c)), min(c, chunk), dtype, n, c)
+    cols = min(c, 32)
+    return [LaunchFact("bn_twopass", (grid, 1, 1), THREADS, slab_smem(n, c, dtype, grid, sms),
+                       _STATIC_SMEM,
+                       (tile(min(n, _step_rows(c, dtype)), c, dtype, n, c),
+                        tile(2, c, f32, 2, c), tile(2 * grid, cols, f32, 2 * grid, c),
+                        tile(cols, 2, f32, c, 2), tile(4, cols, f32, 4, c), mi_rows, x_out,
+                        x_out))]
 
 
-_WHICH = {"bn_moments": 0, "bn_finalize": 1, "bn_normalize": 2}
+_WHICH = {"bn_twopass": 0, "bn_normalize": 1}
 
 
-def launch_info(name: str, c: int, grid: int, act: bool, dtype) -> tuple:
-    """``(grid, threads, dynamic_smem, static_smem)`` of one pass (``name``
-    a :func:`bn_launches` fact name; ``grid`` its CTAs for the moments and
-    normalise passes) as the built library reports it (needs the card)."""
-    fn = _lib().rkt_bn_launch_info
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-    return query_launch(fn, _WHICH[name], c, grid, int(act), DTYPE_CODES[dtype])
+def launch_info(name: str, n: int, c: int, grid: int, act: bool, dtype) -> tuple:
+    """``(grid, threads, dynamic_smem, static_smem)`` of one kernel
+    (``name`` a :func:`bn_launches` fact name) over ``grid`` CTAs on ``x2``
+    (N, C) as the built library reports it (needs the card)."""
+    return query_launch(_lib().rkt_bn_launch_info, _WHICH[name], n, c, grid, int(act),
+                        DTYPE_CODES[dtype])
+
+
+def resident(n: int, c: int, dtype) -> int:
+    """Row 9's resident CTAs per SM on ``x2`` (N, C) over its grid, as the
+    card reports them (its cooperative launch needs all of the grid
+    resident at once); -1 when the card refuses it. Needs the card."""
+    return _lib().rkt_bn_twopass_resident(n, c, _twopass_ctas(n), DTYPE_CODES[dtype])
 
 
 def _check(what: str, x2: torch.Tensor, **f32) -> None:
@@ -232,8 +284,9 @@ def _check(what: str, x2: torch.Tensor, **f32) -> None:
 def bn_twopass(x2, sc, *, eps: float, act: bool):
     """Row 9: ``x2`` (N, C), ``sc`` (2, C) f32 [scale, bias] -> (y (N, C) in
     x's dtype, stats (C, 2) f32). CPU tensors: :func:`bn_twopass_plain`;
-    CUDA tensors: ``rkt_bn_twopass`` or raise; meta tensors record the
-    three launches."""
+    CUDA tensors: ``rkt_bn_twopass`` (one cooperative launch, refused by a
+    card that cannot hold all its CTAs at once) or raise; meta tensors
+    record the launch."""
     if x2.device.type == "cpu":
         return bn_twopass_plain(x2, sc, eps=eps, act=act)
     _check("bn_twopass", x2, sc=sc)
@@ -246,11 +299,12 @@ def bn_twopass(x2, sc, *, eps: float, act: bool):
     mi = torch.empty((4, c), dtype=torch.float32, device=x2.device)
     partial = torch.empty((grid, 2, c), dtype=torch.float32, device=x2.device)
     if x2.device.type == "meta":
-        record(bn_launches("twopass", n, c, x2.dtype, grid, norm_grid))
+        record(bn_launches("twopass", n, c, x2.dtype, grid, norm_grid,
+                           sm_count(x2, "fused_conv")))
         return y, stats
     err = _lib().rkt_bn_twopass(x2.data_ptr(), sc.data_ptr(), y.data_ptr(), stats.data_ptr(),
-                                mi.data_ptr(), partial.data_ptr(), n, c, grid, norm_grid,
-                                float(eps), int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
+                                mi.data_ptr(), partial.data_ptr(), n, c, grid, float(eps),
+                                int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
     if err:
         raise RuntimeError(f"bn_twopass: kernel launch failed with cudaError {err}")
     bn_twopass.launches += 1

@@ -19,10 +19,10 @@ semantics) — and each group multiplies its own ``rhs[g]``.
   :func:`gmm_reference` / :func:`tgmm_reference`, CUDA tensors launch the
   kernel or raise; each counts its launches in ``<wrapper>.launches``;
   meta tensors record the launch (:func:`gmm_launch`, :func:`tgmm_launch`).
-  In bf16, ``gmm`` is the persistent wgmma + TMA kernel it shares with
-  the gather-GMM (``csrc/wgmma_gemm.cuh``: one CTA per SM, three
-  warpgroups) and ``tgmm`` an mma.sync kernel; in f32 both keep CUDA-core
-  tiles.
+  In bf16, ``gmm`` and ``tgmm`` are the persistent wgmma + TMA kernel
+  they share with the gather-GMM (``csrc/wgmma_gemm.cuh``: one CTA per
+  SM, three warpgroups; ``tgmm`` over (K tile, N tile, group) slots with
+  lhs^T as an M-major operand); in f32 both keep CUDA-core tiles.
 
 All accumulate in f32 and return the operand dtype. The group sizes stay
 on the device: the kernels read them there, so the hot path never
@@ -51,21 +51,19 @@ from rocket_tpu_torch.ops._launch import (
 __all__ = [
     "grouped_matmul", "grouped_matmul_supported", "grouped_matmul_plain", "GroupedMatmul",
     "gmm", "tgmm", "gmm_reference", "tgmm_reference", "group_bounds", "gmm_launch",
-    "tgmm_launch", "wgmma_launch", "gmm_block_n", "launch_info", "attribute",
+    "tgmm_launch", "wgmma_launch", "wave_block_n", "gmm_block_n", "tgmm_block_n",
+    "launch_info", "attribute",
 ]
 
-#: Threads per CTA and the output tile of the grouped kernels (``kThreads``,
-#: ``kBM`` x ``kBN`` in ``csrc/grouped_gemm.cuh``), and the reduction slice
-#: each stage loads: ``kTcBK`` on the bf16 tensor-core path, ``kBK`` on the
-#: f32 path.
-THREADS, BLOCK_M, BLOCK_N = 256, 128, 128
-SLICE = {torch.bfloat16: 32, torch.float32: 16}
-#: Padding of a bf16 shared-memory row (``kTcPad``).
-_TC_PAD = 8
-#: The bf16 wgmma kernel of gmm and the gather-GMM (``csrc/wgmma_gemm.cuh``):
-#: threads per CTA (two consumer warpgroups and a producer), output columns
-#: per tile (the gather-GMM's; gmm's are one of GMM_BLOCK_NS, see
-#: :func:`gmm_block_n`), K per slice and slices in the ring.
+#: Threads per CTA and the output tile of the f32 grouped kernels
+#: (``kThreads``, ``kBM`` x ``kBN`` in ``csrc/grouped_gemm.cuh``), and the
+#: reduction slice each stage loads (``kBK``).
+THREADS, BLOCK_M, BLOCK_N, SLICE = 256, 128, 128, 16
+#: The bf16 wgmma kernel of gmm, tgmm and the gather-GMM
+#: (``csrc/wgmma_gemm.cuh``): threads per CTA (two consumer warpgroups and a
+#: producer), output columns per tile (the gather-GMM's; gmm's and tgmm's
+#: are one of GMM_BLOCK_NS, see :func:`wave_block_n`), reduction rows per
+#: slice and slices in the ring.
 WG_THREADS, WG_BLOCK_N, WG_SLICE, WG_STAGES = 384, 256, 64, 4
 GMM_BLOCK_NS = (256, 192)
 
@@ -78,43 +76,57 @@ def wg_smem(block_n: int) -> int:
     return 1024 + WG_STAGES * (BLOCK_M + block_n) * WG_SLICE * 2 + 2 * WG_STAGES * 8
 
 
-def gmm_block_n(m: int, n: int, sms: int) -> int:
-    """The output tile width ``rkt_gmm`` picks for bf16 on a card of
-    ``sms`` SMs (``gmm_block_n`` in ``csrc/grouped_gemm.cu``): the one of
-    GMM_BLOCK_NS whose waves, ``ceil(ceil(m / BLOCK_M) * N tiles / sms) *
-    width``, cost least, 256 on a tie."""
+def wave_block_n(row_tiles: int, n: int, sms: int) -> int:
+    """The output tile width the bf16 wgmma products pick on a card of
+    ``sms`` SMs over ``row_tiles`` tiles of BLOCK_M output rows
+    (``gmm_block_n`` in ``csrc/grouped_gemm.cu``): the one of GMM_BLOCK_NS
+    whose waves, ``ceil(row_tiles * N tiles / sms) * width``, cost least,
+    256 on a tie."""
     def cost(width):
-        tiles = -(-m // BLOCK_M) * -(-n // width)
-        return -(-tiles // sms) * width
+        slots = row_tiles * -(-n // width)
+        return -(-slots // sms) * width
     return min(GMM_BLOCK_NS, key=cost)
 
 
-def _static_smem(kind: str, dtype, transpose: bool = False) -> int:
-    """The static shared memory of the f32 kernels and of bf16 tgmm: their
-    operand tiles (one f32 slice, or two stages of bf16 rows padded by
-    ``kTcPad``) and the row-pointer arrays of f32 gmm (A rows, B rows) and
+def gmm_block_n(m: int, n: int, sms: int) -> int:
+    """``rkt_gmm``'s bf16 tile width: :func:`wave_block_n` over
+    ``ceil(m / BLOCK_M)`` work tiles (the count when every group fills whole
+    tiles)."""
+    return wave_block_n(-(-m // BLOCK_M), n, sms)
+
+
+def tgmm_block_n(k: int, n: int, e: int, sms: int) -> int:
+    """``rkt_tgmm``'s bf16 tile width: :func:`wave_block_n` over
+    ``ceil(k / BLOCK_M)`` K tiles of each of the ``e`` groups."""
+    return wave_block_n(-(-k // BLOCK_M) * e, n, sms)
+
+
+def _static_smem(kind: str, transpose: bool = False) -> int:
+    """The static shared memory of the f32 kernels: one slice of their
+    operand tiles and the row-pointer arrays of gmm (A rows, B rows) and
     tgmm (two stages of A and B rows)."""
-    bk = SLICE[dtype]
-    if dtype == torch.bfloat16:  # tgmm's (bf16 gmm is the wgmma kernel)
-        return 2 * (2 * bk * (BLOCK_M + _TC_PAD) * 2)
-    tiles = 4 * bk * (BLOCK_M + BLOCK_N)
+    tiles = 4 * SLICE * (BLOCK_M + BLOCK_N)
     if kind == "tgmm":
-        return tiles + 8 * 4 * bk
-    return tiles + 8 * (BLOCK_M + (BLOCK_N if transpose else bk))
+        return tiles + 8 * 4 * SLICE
+    return tiles + 8 * (BLOCK_M + (BLOCK_N if transpose else SLICE))
 
 
 def wgmma_launch(name: str, m: int, k: int, n: int, e: int, sms: int, a_tile, b_tile,
-                 block_n: int = WG_BLOCK_N, extra_tiles: tuple = ()) -> LaunchFact:
-    """The bf16 wgmma launch of gmm or the gather-GMM on a card of ``sms``
-    SMs: a persistent grid of ``min(sms, work tiles x N tiles)`` CTAs of
-    WG_THREADS, each walking (work tile of at most BLOCK_M rows of one
-    group, ``block_n`` columns) pairs; per WG_SLICE-deep slice it loads
-    ``a_tile`` of A and ``b_tile`` boxes of the group's rhs, and it reads
-    the E group sizes and ``extra_tiles`` and writes (BLOCK_M,
-    ``block_n``) output tiles."""
-    slots = (m // BLOCK_M + e + 1) * -(-n // block_n)
+                 block_n: int = WG_BLOCK_N, extra_tiles: tuple = (),
+                 tgmm: bool = False) -> LaunchFact:
+    """The bf16 wgmma launch of gmm, the gather-GMM or (``tgmm``) tgmm on a
+    card of ``sms`` SMs: a persistent grid of ``min(sms, slots)`` CTAs of
+    WG_THREADS, each walking slots of (BLOCK_M output rows, ``block_n``
+    columns): for gmm and the gather-GMM (work tile of at most BLOCK_M rows
+    of one group, N tile) over the M rows, for tgmm (K tile, N tile,
+    group), its output (E, K, N). Per WG_SLICE-deep slice of the reduction
+    a CTA loads ``a_tile`` of A and ``b_tile`` boxes of B; it reads the E
+    group sizes and ``extra_tiles`` and writes (BLOCK_M, ``block_n``)
+    output tiles."""
+    row_tiles, out_rows = (-(-k // BLOCK_M) * e, k) if tgmm else (m // BLOCK_M + e + 1, m)
+    slots = row_tiles * -(-n // block_n)
     tiles = (tile(1, e, torch.int32, 1, e), a_tile, b_tile,
-             tile(BLOCK_M, block_n, torch.bfloat16, m, n), *extra_tiles)
+             tile(BLOCK_M, block_n, torch.bfloat16, out_rows, n), *extra_tiles)
     return LaunchFact(name, (min(sms, slots), 1, 1), WG_THREADS, wg_smem(block_n), 0, tiles)
 
 
@@ -138,25 +150,34 @@ def gmm_launch(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = Fals
         b = (tile(block_n, WG_SLICE, dtype, n, k) if transpose_rhs
              else tile(WG_SLICE, 64, dtype, k, n))
         return wgmma_launch("gmm", m, k, n, e, sms, a, b, block_n)
-    bk = SLICE[dtype]
-    a = tile(BLOCK_M, bk, dtype, src_rows or m, k)
-    b = tile(BLOCK_N, bk, dtype, n, k) if transpose_rhs else tile(bk, BLOCK_N, dtype, k, n)
+    a = tile(BLOCK_M, SLICE, dtype, src_rows or m, k)
+    b = tile(BLOCK_N, SLICE, dtype, n, k) if transpose_rhs else tile(SLICE, BLOCK_N, dtype, k, n)
     tiles = (tile(1, e, torch.int32, 1, e), a, b, tile(BLOCK_M, BLOCK_N, dtype, m, n))
     if name == "gather_gmm":
         tiles += (tile(1, BLOCK_M, torch.int32, 1, m),)
     grid = (m // BLOCK_M + e + 1, -(-n // BLOCK_N), 1)
-    return LaunchFact(name, grid, THREADS, 0, _static_smem("gmm", dtype, transpose_rhs), tiles)
+    return LaunchFact(name, grid, THREADS, 0, _static_smem("gmm", transpose_rhs), tiles)
 
 
-def tgmm_launch(m: int, k: int, n: int, e: int, dtype) -> LaunchFact:
-    """The launch of :func:`tgmm`: one CTA per (BLOCK_M of K, BLOCK_N of N,
-    group); it walks its group's rows in SLICE-row slices of lhs and dy and
-    writes its (BLOCK_M, BLOCK_N) tile of the group's output."""
-    bk = SLICE[dtype]
-    tiles = (tile(1, e, torch.int32, 1, e), tile(bk, BLOCK_M, dtype, m, k),
-             tile(bk, BLOCK_N, dtype, m, n), tile(BLOCK_M, BLOCK_N, dtype, k, n))
+def tgmm_launch(m: int, k: int, n: int, e: int, dtype, sms: int = 0) -> LaunchFact:
+    """The launch of :func:`tgmm`. bf16: the persistent wgmma grid
+    (:func:`wgmma_launch`) on a card of ``sms`` SMs over (BLOCK_M rows of K,
+    :func:`tgmm_block_n` columns, group) slots; per WG_SLICE-row slice of
+    its group it loads two (WG_SLICE, 64) boxes of lhs by TMA, one per
+    consumer half of the K rows, and ``block_n / 64`` (WG_SLICE, 64) boxes
+    of dy. f32: one CTA per (BLOCK_M of K, BLOCK_N of N, group); it walks
+    its group's rows in SLICE-row slices of lhs and dy. Either writes
+    (BLOCK_M, width) tiles of the group's output."""
+    if dtype == torch.bfloat16:
+        if sms <= 0:
+            raise ValueError("tgmm_launch: the bf16 kernel's grid needs the card's SM count")
+        return wgmma_launch("tgmm", m, k, n, e, sms, tile(WG_SLICE, BLOCK_M, dtype, m, k),
+                            tile(WG_SLICE, 64, dtype, m, n), tgmm_block_n(k, n, e, sms),
+                            tgmm=True)
+    tiles = (tile(1, e, torch.int32, 1, e), tile(SLICE, BLOCK_M, dtype, m, k),
+             tile(SLICE, BLOCK_N, dtype, m, n), tile(BLOCK_M, BLOCK_N, dtype, k, n))
     grid = (-(-k // BLOCK_M), -(-n // BLOCK_N), e)
-    return LaunchFact("tgmm", grid, THREADS, 0, _static_smem("tgmm", dtype), tiles)
+    return LaunchFact("tgmm", grid, THREADS, 0, _static_smem("tgmm"), tiles)
 
 
 def launch_info(kind: str, m: int, k: int, n: int, e: int, dtype,
@@ -170,13 +191,16 @@ def launch_info(kind: str, m: int, k: int, n: int, e: int, dtype,
     return query_launch(lib.rkt_gmm_launch_info, m, n, e, int(transpose_rhs), DTYPE_CODES[dtype])
 
 
-def attribute(what: str, transpose_rhs: bool = False, block_n: int = WG_BLOCK_N) -> int:
+def attribute(what: str, transpose_rhs: bool = False, block_n: int = WG_BLOCK_N,
+              kind: str = "gmm") -> int:
     """``"ctas"`` (resident CTAs per SM) or ``"registers"`` (per thread, at
-    launch) of the bf16 gmm kernel of one mode and compiled tile width
-    (GMM_BLOCK_NS), as the card reports them; -1 when it refuses. Needs
-    the card."""
-    return _lib().rkt_gmm_attribute(("ctas", "registers").index(what), int(transpose_rhs),
-                                    block_n)
+    launch) of the bf16 ``kind`` kernel (``"gmm"`` of one mode, or
+    ``"tgmm"``) at a compiled tile width (GMM_BLOCK_NS), as the card
+    reports them; -1 when it refuses. Needs the card."""
+    which = ("ctas", "registers").index(what)
+    if kind == "tgmm":
+        return _lib().rkt_tgmm_attribute(which, block_n)
+    return _lib().rkt_gmm_attribute(which, int(transpose_rhs), block_n)
 
 
 def grouped_matmul_supported(m: int, k: int, n: int) -> bool:
@@ -260,6 +284,8 @@ def _lib():
         lib.rkt_tgmm_launch_info.argtypes = [ctypes.c_int] * 4 + [info]
         lib.rkt_gmm_attribute.restype = ctypes.c_int
         lib.rkt_gmm_attribute.argtypes = [ctypes.c_int] * 3
+        lib.rkt_tgmm_attribute.restype = ctypes.c_int
+        lib.rkt_tgmm_attribute.argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -338,7 +364,8 @@ def tgmm(lhs, dy, group_sizes):
     _check_widths("tgmm", k, n)
     out = torch.empty((e, k, n), dtype=lhs.dtype, device=lhs.device)
     if lhs.device.type == "meta":
-        record([tgmm_launch(m, k, n, e, lhs.dtype)])
+        sms = sm_count(lhs, "tgmm") if lhs.dtype == torch.bfloat16 else 0
+        record([tgmm_launch(m, k, n, e, lhs.dtype, sms)])
         return out
     err = _lib().rkt_tgmm(lhs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
                           m, k, n, e, DTYPE_CODES[lhs.dtype], stream_of(lhs))

@@ -530,8 +530,10 @@ def test_block_attn_half_gradients_recompute_through_the_plain_path(cuda):
 
 # -- the fused BatchNorm(+relu) epilogue ---------------------------------------
 
-BN_CASES = [  # (N, C): a ResNet-18 CIFAR train shape, the widest C, small and ragged ones
-    (131072, 128), (1024, 2048), (512, 24), (64, 8),
+BN_CASES = [  # (N, C): ResNet-18's four CIFAR train shapes, the widest C, small and ragged ones
+    (524288, 64), (131072, 128), (32768, 256), (8192, 512), (1024, 2048), (512, 24), (64, 8),
+    (70000, 64),  # 264 slabs of 266 rows, the last 42
+    (16900, 64),  # 264 slabs of 65 rows: the last four hold none
 ]
 BN_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
 
@@ -566,11 +568,32 @@ def test_fused_bn_kernels_match_plain(cuda, case, act, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_fused_bn_twopass_is_deterministic(cuda, dtype):
-    x, sc = _bn_operands(torch.Generator().manual_seed(1), dtype, 524288, 64)
+@pytest.mark.parametrize("case", BN_CASES, ids=lambda c: "n{}c{}".format(*c))
+def test_fused_bn_twopass_is_deterministic(cuda, case, dtype):
+    x, sc = _bn_operands(torch.Generator().manual_seed(1), dtype, *case)
     first = tfc.bn_twopass(x, sc, eps=1e-5, act=True)
     second = tfc.bn_twopass(x, sc, eps=1e-5, act=True)
     assert torch.equal(first[1], second[1]) and torch.equal(first[0], second[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_bn_twopass_grid_is_resident_and_one_launch(cuda, dtype):
+    """Row 9's cooperative grid fits the card at once at every ResNet-18
+    shape (two CTAs per SM at 264 CTAs on an H100), and a call is one
+    launch of the library."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, c in BN_CASES[:4]:
+        grid = min(tfc.MOMENT_CTAS, -(-n // tfc.MOMENT_MIN_ROWS))
+        assert tfc.resident(n, c, dtype) * sms >= grid, (n, c)
+    x, sc = _bn_operands(torch.Generator().manual_seed(6), dtype, 8192, 512)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tfc.bn_twopass(x, sc, eps=1e-5, act=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "twopass_kernel" in e.name
+             or "normalize_kernel" in e.name]
+    assert len(names) == 1 and "twopass_kernel" in names[0], names
 
 
 @pytest.mark.cuda
@@ -687,6 +710,51 @@ def test_tgmm_matches_plain_and_repeats_bitwise(cuda, case, dtype):
         if size == 0:  # an empty group writes zeros
             assert not got[g].any()
     assert torch.equal(got, tgm.tgmm(lhs, dy, gs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(768, 3072), (3072, 768)])
+def test_tgmm_at_the_moe_shapes_with_groups_off_the_slices(cuda, k, n, dtype):
+    """tgmm at both weight-gradient shapes of the MoE LM (18432 rows, 4
+    groups) with group starts and ends off the 64-row slices, so every
+    group's last slice runs into the next group's rows (or the rows past
+    the groups, which hold data); two launches bitwise."""
+    sizes = [4000, 4673, 0, 9701]  # ends at 4000, 8673, 8673, 18374 of 18432
+    gen = torch.Generator().manual_seed(k + 7)
+    lhs = (torch.randn(18432, k, generator=gen) * 0.5).to(dtype).cuda()
+    dy = (torch.randn(18432, n, generator=gen) * 0.5).to(dtype).cuda()
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    got = tgm.tgmm(lhs, dy, gs)
+    _held(got, tgm.tgmm_reference(lhs, dy, gs), dtype)
+    assert not got[2].any()
+    assert torch.equal(got, tgm.tgmm(lhs, dy, gs))
+
+
+@pytest.mark.cuda
+def test_tgmm_bf16_runs_the_wgmma_kernel(cuda):
+    """bf16 tgmm on the persistent wgmma + TMA kernel at both compiled
+    widths: one CTA per SM in at most 168 registers a thread at launch, the
+    declared grid and shared memory; the width rule takes 192 columns at the
+    MoE shapes and 256 where 256-wide slots fill one wave (K = N = 1024, 4
+    groups) on a 132-SM H100, and both hold against the plain version."""
+    for bn in tgm.GMM_BLOCK_NS:
+        assert tgm.attribute("ctas", block_n=bn, kind="tgmm") == 1
+        assert 0 < tgm.attribute("registers", block_n=bn, kind="tgmm") <= 168
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator().manual_seed(41)
+    widths = set()
+    for m, k, n, sizes in ((18432, 768, 3072, [4608] * 4), (4096, 1024, 1024, [1000, 77, 0, 3000])):
+        lhs, _, gs = _group_operands(gen, torch.bfloat16, m, k, n, sizes)
+        dy = (torch.randn(m, n, generator=gen) * 0.5).to(torch.bfloat16).cuda()
+        _held(tgm.tgmm(lhs, dy, gs), tgm.tgmm_reference(lhs, dy, gs), torch.bfloat16)
+        bn = tgm.tgmm_block_n(k, n, 4, sms)
+        assert tgm.launch_info("tgmm", m, k, n, 4, torch.bfloat16) == \
+            tgm.tgmm_launch(m, k, n, 4, torch.bfloat16, sms).geometry
+        assert tgm.launch_info("tgmm", m, k, n, 4, torch.bfloat16)[2] == tgm.wg_smem(bn)
+        widths.add(bn)
+    if sms == 132:
+        assert widths == set(tgm.GMM_BLOCK_NS)
 
 
 def _routed(gen, n_tok, k_top, e, tile_m, empty=None):
@@ -1052,12 +1120,14 @@ def _declared_and_built(kernel, dtype):
     if kernel == "fused_conv":
         pairs = []
         with tune.priced_device_kind(torch.cuda.get_device_name(0)):
-            for n, c in ((4096, 64), (1000, 2048)):
+            for n, c in ((4096, 64), (1000, 2048), (524288, 64), (8192, 512)):
                 grid, norm = tfc._grids(torch.empty((n, c), dtype=dtype, device="meta"))
-                for fact in tfc.bn_launches("twopass", n, c, dtype, grid, norm):
-                    ctas = grid if fact.name == "bn_moments" else norm
-                    for act in (True, False):
-                        pairs.append((fact, tfc.launch_info(fact.name, c, ctas, act, dtype)))
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                for kind, ctas in (("twopass", grid), ("normalize", norm)):
+                    for fact in tfc.bn_launches(kind, n, c, dtype, grid, norm, sms):
+                        for act in (True, False):
+                            pairs.append((fact, tfc.launch_info(fact.name, n, c, ctas, act,
+                                                                dtype)))
         return pairs
     if kernel == "grouped":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1066,8 +1136,10 @@ def _declared_and_built(kernel, dtype):
                  for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2),
                                     (18432, 3072, 768, 4))
                  for trans in (False, True)]
-        pairs += [(tgm.tgmm_launch(m, k, n, e, dtype), tgm.launch_info("tgmm", m, k, n, e, dtype))
-                  for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2))]
+        pairs += [(tgm.tgmm_launch(m, k, n, e, dtype, sms),
+                   tgm.launch_info("tgmm", m, k, n, e, dtype))
+                  for m, k, n, e in ((1000, 768, 3072, 4), (16, 128, 256, 2),
+                                     (18432, 3072, 768, 4), (4096, 1024, 1024, 4))]
         pairs += [(tgg.gather_gmm_launch(m, 768, n, 4, dtype, 500, sms),
                    tgg.launch_info(m, n, 4, dtype)) for m, n in ((18432, 3072), (1024, 3072),
                                                                  (16, 3072), (300, 200))]

@@ -11,10 +11,10 @@ package's schedule audit.
   clean; each launches the kernels it names.
 * Rows 6-7's declared shared memory equals ``ops/flash_attention.smem_bytes``;
   rows 6 and 7's bf16 kernels (tensor cores), rows 1 and 2's split and
-  combine launches and the persistent wgmma launch of row 11 and of bf16
-  ``gmm`` (both modes) equal a mirror of the sizes in their ``.cu``
-  sources; rows 1 and 2's split counts follow the static shapes alone, and
-  the wgmma grid the card's SMs.
+  combine launches, the persistent wgmma launch of row 11 and of bf16
+  ``gmm`` (both modes) and ``tgmm``, and row 9's one launch equal a mirror
+  of the sizes in their ``.cu`` sources; rows 1 and 2's split counts
+  follow the static shapes alone, and the wgmma grid the card's SMs.
 * Rows 3 and 8's bf16 (tensor-core) declarations leave room for 3 and 2
   resident CTAs per SM, the f32 (CUDA-core) ones are unchanged, and the
   targets that trace them stay clean.
@@ -119,13 +119,12 @@ TARGET_KERNELS = {
     "train_flash": {"flash_fwd", "flash_bwd"},
     "train_flash_long": {"flash_fwd", "flash_bwd", "flash_dq"},
     "qkv_flash": {"flash_qkv_fwd", "flash_qkv_bwd"},
-    "fused_kernels": {"bn_moments", "bn_finalize", "bn_normalize", "fused_block", "gather_gmm",
-                      "gmm", "tgmm"},
+    "fused_kernels": {"bn_twopass", "bn_normalize", "fused_block", "gather_gmm", "gmm", "tgmm"},
     "serve": {"paged_decode", "paged_decode_combine", "decode_attention",
               "decode_attention_combine"},
 }
 #: Launches that stage nothing in shared memory.
-NO_SMEM = {"bn_finalize", "paged_decode_combine", "decode_attention_combine"}
+NO_SMEM = {"paged_decode_combine", "decode_attention_combine"}
 
 
 @pytest.mark.parametrize("name", sorted(TARGET_KERNELS))
@@ -445,11 +444,11 @@ def test_gmm_bf16_declaration_is_the_persistent_wgmma_grid(m, k, n, e, sms, bn, 
 
 
 def test_gmm_meta_route_records_the_priced_cards_grid_in_both_modes():
-    """The autograd seam on meta tensors priced as an H100: the forward gmm
-    and the backward's transposed gmm declare the persistent grid of the
-    card's SMs at the width the rule picks (192 columns at 18432 rows, 256
-    at the raw counts' 16384), tgmm its mma.sync grid; a meta trace needs
-    a card to price."""
+    """The autograd seam on meta tensors priced as an H100: the forward gmm,
+    the backward's transposed gmm and tgmm declare the persistent grid of
+    the card's SMs at the width the rule picks (192 columns at 18432 rows,
+    256 at the raw counts' 16384; tgmm's 192 over its K tiles); a meta
+    trace needs a card to price."""
     from rocket_tpu_torch import tune
     from rocket_tpu_torch.ops import grouped_matmul as tgm
 
@@ -463,13 +462,122 @@ def test_gmm_meta_route_records_the_priced_cards_grid_in_both_modes():
     assert [f.name for f in facts] == ["gmm", "gmm", "tgmm"]
     assert [f.geometry for f in facts[:2]] == [_gmm_wgmma_mirror(18432, 768, 4, sms, 192),
                                               _gmm_wgmma_mirror(18432, 3072, 4, sms, 192)]
-    assert facts[2].grid == (24, 6, 4) and facts[2].threads == 256
+    assert facts[2].geometry == _tgmm_wgmma_mirror(3072, 768, 4, sms, 192)
     with tune.priced_device_kind("TPU v5 lite"), pytest.raises(ValueError, match="SM count"):
         tgm.gmm(lhs.detach(), rhs.detach(), sizes)
     raw = torch.empty((16384, 3072), dtype=torch.bfloat16, device="meta")
     with tune.priced_device_kind(DEFAULT_DEVICE_KIND), _launch.record_launches() as wide:
         tgm.gmm(raw, rhs.detach(), sizes)
     assert [f.geometry for f in wide] == [_gmm_wgmma_mirror(16384, 768, 4, sms, 256)]
+
+
+def _tgmm_wgmma_mirror(k, n, e, sms, bn):
+    """The bf16 tgmm launch as ``csrc/grouped_gemm.cu`` sizes it on
+    ``csrc/wgmma_gemm.cuh``'s kernel at ``bn`` output columns: a persistent
+    grid of min(SMs, ceil(K / 128) * E * ceil(N / bn)) CTAs of 384 threads
+    over (K tile, N tile, group) slots, and ``kWgSmem<bn>`` as gmm's: per
+    slice two 64 x 64 bf16 boxes of lhs (16 KB, gmm's A tile) and bn / 64
+    boxes of dy."""
+    slots = -(-k // 128) * e * -(-n // bn)
+    return ((min(sms, slots), 1, 1), 384, 1024 + 4 * (16_384 + 128 * bn) + 64, 0)
+
+
+@pytest.mark.parametrize("m,k,n,e,sms,bn", [
+    (18432, 768, 3072, 4, 132, 192),   # the in-projection's drhs: 384 slots, 3 waves at 97%
+    (18432, 3072, 768, 4, 132, 192),   # the out-projection's drhs
+    (4096, 1024, 1024, 4, 132, 256),   # 128 slots of 256 fill one wave, 192's need two
+    (18432, 3072, 768, 4, 114, 256),   # a card of fewer SMs: four waves either way, a tie
+    (300, 200, 200, 2, 132, 192),      # K and N past whole tiles, fewer slots than SMs
+])
+def test_tgmm_bf16_declaration_is_the_persistent_wgmma_grid(m, k, n, e, sms, bn):
+    """bf16 tgmm declares the persistent wgmma grid at the width gmm's one
+    rule picks over its row tiles, ceil(K / 128) per group, with the
+    ``.cu``'s shared memory; the grid does not depend on M; f32 keeps its
+    CUDA-core grid of one CTA per (K tile, 128 columns, group)."""
+    from rocket_tpu_torch.ops import grouped_matmul as tgm
+
+    assert tgm.tgmm_block_n(k, n, e, sms) == bn
+    assert tgm.tgmm_block_n(k, n, e, sms) == tgm.wave_block_n(-(-k // 128) * e, n, sms)
+    fact = tgm.tgmm_launch(m, k, n, e, torch.bfloat16, sms)
+    assert fact.name == "tgmm"
+    assert fact.geometry == _tgmm_wgmma_mirror(k, n, e, sms, bn)
+    assert tgm.tgmm_launch(2 * m, k, n, e, torch.bfloat16, sms).geometry == fact.geometry
+    assert check_launches([fact], device_spec(DEFAULT_DEVICE_KIND)) == []
+    assert {rc for rc, _, _ in fact.tiles} == {(1, e), (64, 128), (64, 64), (128, bn)}
+    with pytest.raises(ValueError, match="SM count"):
+        tgm.tgmm_launch(m, k, n, e, torch.bfloat16)
+    f32 = tgm.tgmm_launch(m, k, n, e, torch.float32, sms)
+    assert f32.geometry == ((-(-k // 128), -(-n // 128), e), 256, 0,
+                            4 * 16 * (128 + 128) + 8 * 4 * 16)
+
+
+#: ResNet-18's four CIFAR train shapes at B=512 (f32) and the tuner's two
+#: bf16 ones, and an N whose last slab is short (264 CTAs of 266 rows: the
+#: last holds 42) at the stem's width.
+BN_DECL_SHAPES = [(524288, 64, torch.float32), (131072, 128, torch.float32),
+                  (32768, 256, torch.float32), (8192, 512, torch.float32),
+                  (262144, 64, torch.bfloat16), (401408, 64, torch.bfloat16),
+                  (70000, 64, torch.float32)]
+
+
+def _bn_twopass_mirror(n, c, item, sms):
+    """Row 9's launch as ``csrc/fused_conv.cu`` sizes it: one cooperative
+    launch of G = min(264, ceil(N / 64)) CTAs of 256 threads; static
+    ``buf[3 * kMaxC]`` f32 (24 KB) and dynamic shared memory for the whole
+    rows of a CTA's ceil(N / G)-row slab before its last step of 16
+    vectors a thread (kept in registers) that fit in its share of the SM's
+    228 KB with ceil(G / SMs) CTAs resident (1 KB reserved for each, at most
+    the 227 KB a CTA may opt into)."""
+    grid = min(264, -(-n // 64))
+    share = min(SM_SMEM // -(-grid // sms) - CTA_RESERVED, 232_448) - 3 * 4 * 2048
+    vecs = c * item // 16  # 16-byte vectors a row, at most 256 a step (one a thread)
+    step = 16 // -(-vecs // 256) * (256 // min(vecs, 256))  # a step's rows, kept in registers
+    rows = min(max(-(-n // grid) - step, 0), share // (c * item))
+    return ((grid, 1, 1), 256, rows * c * item, 3 * 4 * 2048)
+
+
+@pytest.mark.parametrize("n,c,dtype", BN_DECL_SHAPES, ids=lambda v: str(v))
+def test_bn_twopass_declaration_is_one_launch(n, c, dtype):
+    """Row 9 declares one launch whose grid, threads and shared memory are
+    the ``.cu``'s; the CTAs that must share an SM of an H100 (two at 264
+    CTAs, one at 128) fit by shared memory; row 10 keeps its own launch.
+    At (8192, 512) f32 (128 CTAs of 64 rows) the slab stays on the SM
+    whole: its last 32 rows in registers, the first 32 in shared memory."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.ops import fused_conv as tfc
+
+    item = torch.empty((), dtype=dtype).element_size()
+    sms = device_spec(DEFAULT_DEVICE_KIND).sms
+    with tune.priced_device_kind(DEFAULT_DEVICE_KIND):
+        grid, norm = tfc._grids(torch.empty((n, c), dtype=dtype, device="meta"))
+    facts = tfc.bn_launches("twopass", n, c, dtype, grid, norm, sms)
+    assert [f.name for f in facts] == ["bn_twopass"]
+    assert facts[0].geometry == _bn_twopass_mirror(n, c, item, sms)
+    assert -(-grid // sms) * (facts[0].smem_bytes + CTA_RESERVED) <= SM_SMEM
+    assert check_launches(facts, device_spec(DEFAULT_DEVICE_KIND)) == []
+    normalize = tfc.bn_launches("normalize", n, c, dtype, grid, norm)
+    assert [f.geometry for f in normalize] == [((norm, 1, 1), 256, 0, 3 * 4 * 2048)]
+    with pytest.raises(ValueError, match="SM count"):
+        tfc.bn_launches("twopass", n, c, dtype, grid, norm)
+    if (n, c, dtype) == (8192, 512, torch.float32):
+        assert (grid, facts[0].dynamic_smem) == (128, 32 * c * item)
+
+
+def test_bn_twopass_meta_route_records_one_launch():
+    """Under ``fused_bn_act`` on meta tensors priced as an H100, the
+    twopass schedule records one launch of row 9 and the stats_xla one one
+    of row 10; neither counts a launch."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.ops import fused_conv as tfc
+
+    x = torch.empty((512, 16, 16, 64), device="meta")
+    scale = torch.empty((64,), device="meta")
+    before = (tfc.bn_twopass.launches, tfc.bn_normalize.launches)
+    for schedule, name in (("twopass", "bn_twopass"), ("stats_xla", "bn_normalize")):
+        with tune.priced_device_kind(DEFAULT_DEVICE_KIND), _launch.record_launches() as facts:
+            tfc.fused_bn_act(x, scale, scale, schedule=schedule)
+        assert [f.name for f in facts] == [name]
+    assert (tfc.bn_twopass.launches, tfc.bn_normalize.launches) == before
 
 
 #: Shared memory an SM holds for resident CTAs (228 KB), each CTA also
