@@ -25,8 +25,9 @@ reaches them). Then the
 main paths, each with the kernel launch counts zeroed just before it and
 read just after: serving GPT-2 124M (random weights from a fixed seed,
 bf16) through ``ServeEngine``; ``generate()`` with the KV cache; training
-GPT-2 124M through the capsule ``Launcher`` (the flash forward and fused
-backward), with a ``torch.profiler`` window over its last steps; a
+GPT-2 124M through ``examples.gpt2``'s capsule tree (the flash forward and
+fused backward; every train path below reads its batches from the
+device-resident cache), with a ``torch.profiler`` window over its last steps; a
 longer-context run whose dq partial buffer passes the byte bound (the
 accumulating dq kernel); saving and restoring that GPT-2 train state.
 Then the char-LM slice with ``ROCKET_TPU_BLOCK_ATTN=fused``, in a temporary
@@ -41,7 +42,14 @@ checkpoint at step 200 (the fused BatchNorm two-pass kernel), a fresh tree
 resumed from that checkpoint against the uninterrupted run (bitwise, under
 ``torch.profiler``), ten steps with tune table entries pinning the
 ``stats_xla`` schedule (the normalise kernel), and one train step of the
-card against the CPU. Then the MoE LM slice (GPT-2 widths, 4 experts,
+card against the CPU (no host-to-device copy inside the profiled steps).
+Then the examples of the data-stack slice: ``examples.vit_cifar`` (ViT-Ti,
+non-causal flash attention at 65 tokens) for two epochs, a profiled
+window and a card-against-CPU train step; ``examples.mnist`` (LeNet) for
+one epoch; ``examples.llama_lm`` (GQA 8/4 at head dim 32) for one epoch
+with its nucleus sample through the decode kernel, and a profiled window
+of its tree (rows 2-4 are held to their plain versions at these shapes
+among the parity phases). Then the MoE LM slice (GPT-2 widths, 4 experts,
 top-2, dropless; ``ROCKET_TPU_MOE_GMM=fused`` where it says so): the
 gather_gmm, gmm and tgmm kernels against their plain versions at the main
 path's shapes and ragged ones (then row 12, the schedule audit's seeded-bad
@@ -83,8 +91,21 @@ from torch.autograd import DeviceType
 import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim, tune
 from rocket_tpu_torch.core.capsule import Capsule
-from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
-from rocket_tpu_torch.examples import char_lm, cifar_resnet, moe_lm
+from rocket_tpu_torch.data.text import (
+    CharTokenizer,
+    TokenDataset,
+    synthetic_corpus,
+    tiny_shakespeare,
+)
+from rocket_tpu_torch.examples import (
+    char_lm,
+    cifar_resnet,
+    gpt2,
+    llama_lm,
+    mnist,
+    moe_lm,
+    vit_cifar,
+)
 from rocket_tpu_torch.examples import generate as char_generate
 from rocket_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -94,6 +115,7 @@ from rocket_tpu_torch.models.transformer import (
 )
 from rocket_tpu_torch.data.datasets import ArrayDataset
 from rocket_tpu_torch.models.resnet import resnet18
+from rocket_tpu_torch.models.vit import ViT
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.nn.moe import MoE
 from rocket_tpu_torch.analysis.sched_audit import SCHED_TARGETS, run_sched_target
@@ -246,9 +268,10 @@ def _declared_launches() -> list:
     in-projection's gather-GMM and both grouped products of the in- and
     out-projection in bf16 and f32 (row 11, gmm, tgmm; in bf16 all three on
     the persistent wgmma grid, one CTA per SM of this card), bf16 gmm at
-    moe_serve's decode rows in both modes, and row 12's two launches: 51 in
-    all. The BN grids are sized by a meta tensor priced as this card, as the
-    audit sizes them."""
+    moe_serve's decode rows in both modes, row 12's two launches, and rows 3-4
+    at the ViT and Llama examples' shapes with row 2's split and combine at
+    the Llama example's decode: 57 in all. The BN grids are sized by a meta
+    tensor priced as this card, as the audit sizes them."""
     bf16, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
@@ -268,6 +291,17 @@ def _declared_launches() -> list:
     rows.append(("flash_fwd", "B=64 T=128 H=4 D=32 bf16 fused qkv",
                  fa.flash_launch("flash_fwd", 64, 128, 4, 4, 32, bf16, 384, 384),
                  fa.launch_info("flash_fwd", 64, 128, 4, 4, 32, bf16)))
+    for name, (b, t, hq, h_kv, d, causal, fused) in EXAMPLE_FLASH.items():
+        fq, fk = (3 * hq * d,) * 2 if fused else (hq * d, h_kv * d)
+        for kind in ("flash_fwd", "flash_bwd"):
+            rows.append((kind, f"{name}: B={b} T={t} Hq={hq} Hkv={h_kv} D={d} bf16",
+                         fa.flash_launch(kind, b, t, hq, h_kv, d, bf16, fq, fk),
+                         fa.launch_info(kind, b, t, hq, h_kv, d, bf16)))
+    c = LLAMA_DECODE
+    for fact, built in zip(da.decode_attention_launches(c["b"], c["hq"], c["hkv"], c["t"], c["d"],
+                                                        bf16),
+                           da.launch_info(c["b"], c["hq"], c["hkv"], c["t"], c["d"], bf16)):
+        rows.append((fact.name, "llama: B=1 T=68 Hq=8 Hkv=4 D=32 bf16", fact, built))
     for kind, pairs in (("fwd", [(blk, blk) for blk in fqa.TILES]),
                         ("bwd", [(bq, bk) for bq in fqa.TILES for bk in fqa.TILES])):
         for bq, bk in pairs:
@@ -617,15 +651,15 @@ def flash_case(timer, gen, b, t, hq, h_kv, d, dtype, causal, fused, time_it=Fals
                             for kind in ("flash_fwd", "flash_bwd", "flash_dq")}}
     if not time_it:
         return row
+    # The yardsticks take (B, H, T, D) leaves; GQA's K/V heads are repeated
+    # to the query heads first (untimed), which SDPA's flash backward needs.
     heads = lambda a, off, n: a[..., off:off + n * d].reshape(b, t, n, d).transpose(1, 2)  # noqa
-    qh, kh, vh = (heads(a, o, n).contiguous().requires_grad_()
+    qh, kh, vh = (heads(a, o, n).repeat_interleave(hq // n, 1).contiguous().requires_grad_()
                   for a, o, n in ((q, offs[0], hq), (k, offs[1], h_kv), (v, offs[2], h_kv)))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qh, kh, vh, is_causal=causal, enable_gqa=h_kv != hq)
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)  # noqa: E731
     dout_h = dout.reshape(b, t, hq, d).transpose(1, 2)
     ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
     bounds = flash_bounds(b, t, hq, h_kv, d, dtype, causal)
-    # The timed case is MHA (Hkv == Hq): SDPA's flash backend takes it.
     lib_bwd = sdpa_backward_ms(timer, qh, kh, vh, dout_h, causal)
     for name, kernel, plain, library, bound in (
         ("flash_fwd", lambda: fa.flash_fwd(q, k, v, *geo),
@@ -700,6 +734,71 @@ def check_flash(timer, gen):
     for dtype in (torch.float32, torch.bfloat16):
         emit("parity_flash", **flash_case(timer, gen, 64, 128, 4, 4, 32, dtype, True, True))
     return timed
+
+
+#: Rows 3-4 at the examples' main-path shapes: vit_cifar's vit_tiny (B=512,
+#: T=65, 3 heads of 64, non-causal, the fused (512, 65, 576) qkv operand)
+#: and llama_lm's (B=128, T=256, 8 query heads over 4 K/V heads of 32,
+#: causal, bthd). Row 2 at llama_lm's nucleus sample: B=1, 8 query heads
+#: over 4 K/V heads of 32, a 68-row cache, positions around the first
+#: 64-row split and its last row (timed there).
+EXAMPLE_FLASH = {"vit": (512, 65, 3, 3, 64, False, True),
+                 "llama": (128, 256, 8, 4, 32, True, False)}
+LLAMA_DECODE = {"b": 1, "hq": 8, "hkv": 4, "d": 32, "t": 68, "positions": (0, 63, 64, 67)}
+
+
+def check_flash_examples(timer, gen):
+    """Rows 3-4 at the ViT and Llama examples' shapes in bf16 (and row 5,
+    which flash_case also holds), each against its plain version, two
+    launches bitwise, timed beside its bound and SDPA (non-causal for ViT;
+    the backward's yardstick SDPA's autograd backward with the flash backend
+    pinned); then row 2 at the Llama example's decode shape against its
+    plain version, two calls bitwise, the written cache rows bitwise, timed
+    at the last row beside SDPA over the visible rows. Returns
+    ``{"vit": row, "llama": row, "llama_decode": row}``."""
+    rows = {}
+    for name, (b, t, hq, h_kv, d, causal, fused) in EXAMPLE_FLASH.items():
+        row = flash_case(timer, gen, b, t, hq, h_kv, d, torch.bfloat16, causal, fused,
+                         time_it=True)
+        emit("parity_flash_vit", example=name, **row)
+        rows[name] = row
+    c = LLAMA_DECODE
+    b, hq, h_kv, d, t_max = c["b"], c["hq"], c["hkv"], c["d"], c["t"]
+    dtype = torch.bfloat16
+    mk = lambda *shape: torch.randn(*shape, generator=gen).to(dtype).cuda()  # noqa: E731
+    ops = dict(q=mk(b, hq, d), k_new=mk(b, h_kv, d), v_new=mk(b, h_kv, d),
+               k_cache=mk(b, h_kv, t_max, d), v_cache=mk(b, h_kv, t_max, d), pos=0)
+    twin = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in ops.items()}
+    worst = 0.0
+    for pos in c["positions"]:
+        ops["pos"] = twin["pos"] = pos
+        got = da.decode_attention(**ops)[0]
+        again = da.decode_attention(**ops)[0]
+        want = da.decode_attention_plain(**twin)[0]
+        torch.cuda.synchronize()
+        what = f"decode_attention llama B={b} Hq={hq} Hkv={h_kv} D={d} pos={pos}"
+        err = (got.float() - want.float()).abs().max().item()
+        require(math.isfinite(err) and err <= TOL[dtype], f"{what}: err {err}")
+        require(torch.equal(got, again), f"{what}: two calls differ")
+        require(torch.equal(ops["k_cache"], twin["k_cache"])
+                and torch.equal(ops["v_cache"], twin["v_cache"]), f"{what}: cache rows differ")
+        worst = max(worst, err)
+    pos = c["positions"][-1]
+    q4 = ops["q"][:, :, None, :]
+    kc, vc = ops["k_cache"][:, :, :pos + 1], ops["v_cache"][:, :, :pos + 1]
+    # Cache rows [0, pos) of K and V read; q and out, k_new and v_new, and
+    # the written K/V row moved once each (bf16, 2 bytes).
+    nbytes = 2 * b * h_kv * pos * d * 2 + 2 * b * hq * d * 2 + 4 * b * h_kv * d * 2
+    row = {"example": "llama", "dtype": "bfloat16", **c, "n_split": da.num_splits(t_max),
+           "max_abs_err": worst, "tol": TOL[dtype], "deterministic": True,
+           "ms": timer.ms(lambda: da.decode_attention(**ops)),
+           "plain_ms": timer.ms(lambda: da.decode_attention_plain(**twin)),
+           "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q4, kc, vc,
+                                                                         enable_gqa=True))}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * hq * d * (pos + 1), dtype)
+    emit("parity_flash_vit", **row)
+    rows["llama_decode"] = row
+    return rows
 
 
 def check_flash_long(timer, gen):
@@ -1312,37 +1411,24 @@ class StepClock(Capsule):
             self.prof_wall = self.stamps[-1] - self.prof_t0
 
 
-def train_data(seq_len: int, vocab: int) -> TokenDataset:
-    """``examples/gpt2.py``'s corpus: CharTokenizer over the synthetic text."""
-    text = synthetic_corpus(num_chars=1_000_000)
-    return TokenDataset(CharTokenizer(text).encode(text) % vocab, seq_len=seq_len)
-
-
 def run_train(cfg, batch: int, steps: int, profile_last: int = 0, capsules=()):
-    """``steps`` steps of ``examples/gpt2.py``'s capsule tree (no
-    Checkpointer or Tracker; ``capsules`` join the Looper, e.g. a Profiler)
-    on a fresh Runtime on the card, with the kernel launch counts zeroed
-    just before and read just after (the MoE kernels' too for an MoE
-    config, whose train forward also hands the clock its outputs)."""
-    model = TransformerLM(cfg)
-    module = rt.Module(model, [
-        rt.Loss(next_token_loss()),
-        rt.Optimizer(optim.adamw(weight_decay=0.1)),
-        rt.Scheduler(optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, steps // 50),
-                                            decay_steps=steps)),
-    ], compute_dtype=torch.bfloat16, remat=True,
-        return_outputs="always" if cfg.num_experts else "eval")
-    clock = StepClock(profile_last, module)
-    launcher = rt.Launcher([rt.Looper([
-        rt.Dataset(train_data(cfg.max_seq_len, cfg.vocab_size), batch_size=batch, shuffle=True,
-                   drop_last=True),
-        module,
-        *capsules,
-        clock,
-    ], repeats=steps, progress=False)], runtime=rt.Runtime(seed=0))
+    """``steps`` steps of ``examples.gpt2``'s capsule tree (``gpt2.build``
+    over its corpus, remat on, without its Checkpointer, Profiler, Tracker
+    and progress bar; ``capsules`` join the Looper, e.g. a Profiler) on a
+    fresh Runtime on the card, the batches device-resident, with the kernel
+    launch counts zeroed just before and read just after (the MoE kernels'
+    too for an MoE config, whose train forward also hands the clock its
+    outputs)."""
+    clock = StepClock(profile_last)
+    run = gpt2.build(cfg, gpt2.corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=batch,
+                     runtime=rt.Runtime(seed=0), steps=steps, record=False,
+                     capsules=(*capsules, clock),
+                     return_outputs="always" if cfg.num_experts else "eval")
+    clock.module = run["module"]
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    launcher.launch()
+    run["launcher"].launch()
+    require(run["dataset"].device_resident, "train: the batches were not device-resident")
     counts = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
               "flash_dq": fa.flash_dq.launches}
     if cfg.num_experts:
@@ -1721,7 +1807,7 @@ def char_lm_phases(card):
 
 def _cifar_lines(path="runs/cifar_resnet18.jsonl"):
     """(train losses, their host times, val accuracies) from the Tracker's
-    jsonl: one train line per step, one val line per epoch."""
+    jsonl: one train line per optimizer step, one val line per epoch."""
     with open(path) as f:
         rows = [json.loads(line) for line in f]
     train = [r for r in rows if "train/loss" in r]
@@ -1750,6 +1836,8 @@ def cifar_train_phase(val, card):
     launches = _bn_launches()
     steps = run["total_steps"]
     spe = steps // CIFAR_EPOCHS
+    require(all(d.device_resident for d in run["datasets"]),
+            "cifar: the train and val batches were not device-resident")
     losses, stamps, accuracy = _cifar_lines()
     require(len(losses) == steps, f"cifar: {len(losses)} tracker lines for {steps} steps")
     require(all(math.isfinite(x) for x in losses), f"cifar: non-finite loss {losses}")
@@ -1776,8 +1864,7 @@ def cifar_train_phase(val, card):
     torch.cuda.synchronize()
     require(_bn_launches() == {"bn_twopass": 0, "bn_normalize": 0},
             f"cifar: eval launched {_bn_launches()}")
-    step_s = np.concatenate([np.diff(stamps[e * spe:(e + 1) * spe])[2 if e == 0 else 0:]
-                             for e in range(CIFAR_EPOCHS)])
+    step_s = _epoch_step_s(stamps, spe, CIFAR_EPOCHS)
     median = float(np.median(step_s))
     save = run["checkpointer"].save_times[0]
     RECORD["cifar_losses"] = losses
@@ -1787,7 +1874,8 @@ def cifar_train_phase(val, card):
          bn_twopass_per_step=launches["bn_twopass"] / steps, eval_launches=0,
          step_ms_median=median * 1e3, step_ms_p10_p90=[float(np.percentile(step_s, q)) * 1e3
                                                        for q in (10, 90)],
-         images_per_s=CIFAR_BATCH / median, wall_s=wall, checkpoint_step=save["step"],
+         images_per_s=CIFAR_BATCH / median, wall_s=wall, device_resident=True,
+         checkpoint_step=save["step"],
          checkpoint_snapshot_s=save["snapshot_s"], checkpoint_write_s=save["write_s"],
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          cudnn={"deterministic": torch.backends.cudnn.deterministic,
@@ -1804,7 +1892,7 @@ def _cifar_group(kernel: str) -> str:
     if "multi_tensor_apply" in low or "sgd" in low:
         return "SGD (multi-tensor apply)"
     if "memcpy" in low:
-        return "copies (the batch to the device)"
+        return "copies"
     if any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
                               "cutlass", "winograd", "gemm", "nvjet", "nhwc", "nchw")):
         return "convolutions and GEMMs"
@@ -1813,9 +1901,17 @@ def _cifar_group(kernel: str) -> str:
     return "elementwise (BN backward, relu, residual, masks, casts)"
 
 
-def _range_kernels(prof, name: str, before: float) -> dict:
+def _epoch_step_s(stamps, per_epoch: int, epochs: int) -> np.ndarray:
+    """Step seconds from the Tracker's per-step host stamps: the gaps within
+    each epoch (each flush after the loss's device sync), the first epoch's
+    first two dropped (warm-up)."""
+    return np.concatenate([np.diff(stamps[e * per_epoch:(e + 1) * per_epoch])[2 if e == 0 else 0:]
+                           for e in range(epochs)])
+
+
+def _range_kernels(prof, name: str, start: float, end: float) -> dict:
     """{kernel name: device seconds} of the kernels launched inside the
-    ``record_function`` ranges ``name`` that start before ``before`` (the
+    ``record_function`` ranges ``name`` that start in [start, end) (the
     profiler's µs), found through each range's tree of host events."""
     by_name: dict = {}
 
@@ -1827,25 +1923,60 @@ def _range_kernels(prof, name: str, before: float) -> dict:
             walk(child)
 
     for ev in prof.events():
-        if ev.name == name and ev.device_type == DeviceType.CPU and ev.time_range.start < before:
+        if (ev.name == name and ev.device_type == DeviceType.CPU
+                and start <= ev.time_range.start < end):
             walk(ev)
     return by_name
+
+
+def _step_window(prof, group_of, first: int = 0, last: int = -1) -> dict:
+    """Where the time of whole train steps goes, from a trace of a tree
+    whose Module has a ``batch_transform``: the window runs from the start
+    of step ``first``'s ``Module.batch_transform`` range to the start of
+    step ``last``'s, so it holds whole steps (each ends on the loss's device
+    sync). The idle share is the window's device time over its wall time
+    (profiler overhead included); augmentation is every kernel launched
+    inside the ranges; ``h2d_copies`` counts the host-to-device copies that
+    ran in the window (none, when the batches come from the device)."""
+    starts = sorted(ev.time_range.start for ev in prof.events()
+                    if ev.name == "Module.batch_transform" and ev.device_type == DeviceType.CPU)
+    w0, w1 = starts[first], starts[last]
+    steps = starts.index(w1) - starts.index(w0)
+    window = (w1 - w0) * 1e-6
+    events = [ev for ev in _device_events(prof) if w0 <= ev.time_range.start < w1]
+    by_name = _device_s_by_name(events)
+    busy = sum(by_name.values())
+    augment = _range_kernels(prof, "Module.batch_transform", w0, w1)
+    groups: dict = {"augmentation (the batch_transform range)": sum(augment.values())}
+    for name, t in by_name.items():
+        rest = t - augment.get(name, 0.0)
+        groups[group_of(name)] = groups.get(group_of(name), 0.0) + rest
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "window_s": window, "step_ms": window / steps * 1e3,
+            "device_busy_s": busy, "device_idle_share": (1.0 - busy / window) if busy else None,
+            "device_busy_ms_per_step": busy / steps * 1e3, "device_time_measured": busy > 0,
+            "device_s_by_group": groups,
+            "share_by_group": {k: v / busy for k, v in groups.items()} if busy else None,
+            "augment_kernels": len(augment),
+            "h2d_copies": sum("HtoD" in ev.name for ev in events),
+            "top_kernels": [{"name": k[:120], "s": t, "share_of_device": t / busy}
+                            for k, t in top]}
 
 
 def cifar_resume_phase(root, train, val, run, card):
     """A fresh tree (``cifar_resnet.build``) resumed with ``resume_from=
     "latest"`` from a copy of the train phase's step-200 checkpoint runs to
-    the end of epoch 3 under ``torch.profiler``. Its losses, val accuracy,
-    params and BatchNorm state must equal the uninterrupted run's bitwise
-    (cuDNN deterministic, no autotuning, as for the train phase).
+    the end of epoch 3 under ``torch.profiler``, its batches
+    device-resident. Its losses, val accuracy, params and BatchNorm state
+    must equal the uninterrupted run's bitwise (cuDNN deterministic, no
+    autotuning, as for the train phase).
 
-    Where the time goes is read from one window of the trace: from the
-    start of the first train step's ``Module.batch_transform`` range to the
-    start of the last one's, so whole train steps (each ends on the loss's
-    device sync) and nothing of the resume or the eval epoch. The idle share
-    is that window's device time over its own wall time (profiler overhead
-    included); augmentation is every kernel launched inside the range. The
-    augmentation of one batch is also timed alone with CUDA events."""
+    Where the time goes is read from one window of the trace
+    (:func:`_step_window`): from the first train step's ``Module.
+    batch_transform`` range to the last one's, so whole train steps and
+    nothing of the resume or the eval epoch; no host-to-device copy may run
+    in it. The augmentation of one batch is also timed alone with CUDA
+    events."""
     whole, _, whole_acc = _cifar_lines()
     want = run["trained"]["state"]
     src = Path("checkpoints/cifar") / str(CIFAR_SAVE_STEP)
@@ -1879,34 +2010,22 @@ def cifar_resume_phase(root, train, val, run, card):
             require(torch.equal(a, b), f"cifar_resume: {tree} differs from the uninterrupted run")
     launches = _bn_launches()
     require(launches["bn_twopass"] == CIFAR_BN_LAYERS * n, f"cifar_resume: launches {launches}")
+    require(all(d.device_resident for d in resumed["datasets"]),
+            "cifar_resume: the batches were not device-resident")
     emit("cifar_resume", resumed_from_step=CIFAR_SAVE_STEP, steps=n, bitwise=True,
-         cudnn={"deterministic": torch.backends.cudnn.deterministic,
-                "benchmark": torch.backends.cudnn.benchmark}, wall_s=wall, card=card)
+         device_resident=True, cudnn={"deterministic": torch.backends.cudnn.deterministic,
+                                      "benchmark": torch.backends.cudnn.benchmark},
+         wall_s=wall, card=card)
 
-    starts = sorted(ev.time_range.start for ev in prof.events()
-                    if ev.name == "Module.batch_transform" and ev.device_type == DeviceType.CPU)
-    require(len(starts) == n, f"cifar_profile: {len(starts)} batch_transform ranges, {n} steps")
-    w0, w1 = starts[0], starts[-1]
-    steps, window = n - 1, (w1 - w0) * 1e-6
-    by_name = _device_s_by_name(ev for ev in _device_events(prof)
-                                if w0 <= ev.time_range.start < w1)
-    busy = sum(by_name.values())
-    augment = _range_kernels(prof, "Module.batch_transform", w1)
-    groups: dict = {"augmentation (the batch_transform range)": sum(augment.values())}
-    for name, t in by_name.items():
-        rest = t - augment.get(name, 0.0)
-        groups[_cifar_group(name)] = groups.get(_cifar_group(name), 0.0) + rest
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    window = _step_window(prof, _cifar_group)
+    require(window["steps"] == n - 1, f"cifar_profile: {window['steps'] + 1} batch_transform "
+            f"ranges, {n} steps")
+    require(window["h2d_copies"] == 0,
+            f"cifar_profile: {window['h2d_copies']} host-to-device copies in the step window")
     images = torch.from_numpy(train.get_batch(np.arange(CIFAR_BATCH))["image"]).cuda()
     transform = cifar_resnet.image_augment(crop_padding=4, flip=True)
     aug = Timer().ms(lambda: transform({"image": images}, 12345), iters=20)
-    emit("cifar_profile", steps=steps, window_s=window, step_ms=window / steps * 1e3,
-         device_busy_s=busy, device_idle_share=(1.0 - busy / window) if busy else None,
-         device_busy_ms_per_step=busy / steps * 1e3, device_time_measured=busy > 0,
-         device_s_by_group=groups, share_by_group={k: v / busy for k, v in groups.items()}
-         if busy else None, augment_kernels=len(augment),
-         top_kernels=[{"name": k[:120], "s": t, "share_of_device": t / busy} for k, t in top],
-         augment_alone_ms=aug, launch_wall_s=wall, card=card)
+    emit("cifar_profile", **window, augment_alone_ms=aug, launch_wall_s=wall, card=card)
 
 
 def cifar_stats_xla_phase(root, train, val, card):
@@ -2054,7 +2173,247 @@ def cifar_phases(card):
     return twopass, normalize
 
 
-# -- phases 19-24: the MoE LM slice -------------------------------------------
+# -- the ViT, MNIST and Llama examples ----------------------------------------
+
+#: vit_train: examples.vit_cifar at its full width (vit_tiny: D=192, 9 blocks,
+#: 3 heads, dropout 0.1, 65 tokens), bf16, B=512, on the synthetic CIFAR-10,
+#: 2 epochs (cut from the example's 5); vit_profile: a torch.profiler window
+#: of VIT_PROFILE_STEPS whole steps of the same tree over its first batches.
+VIT_EPOCHS, VIT_BATCH, VIT_LAYERS, VIT_TOKENS, VIT_PROFILE_STEPS = 2, 512, 9, 65, 3
+#: vit_model_check: ViT at full width (D=192, 3 heads, 32x32 in 4x4
+#: patches), depth 2, f32, dropout 0, B=32: the card (flash kernels, TF32
+#: off) against the CPU (plain attention), the logits absolutely and every
+#: gradient relative to its largest element.
+VIT_CHECK_TOL = {"logits": 1e-3, "grad": 1e-3}
+#: llama_train: examples.llama_lm at its width (dim 256, 6 layers, 8 heads
+#: over 4 K/V heads of 32), B=128, T=256, one epoch of the synthetic corpus
+#: (cut from the example's 2), then its nucleus sample of 64 tokens;
+#: llama_profile: LLAMA_PROFILE_STEPS steps of the same tree under a step
+#: clock, the last 3 under torch.profiler.
+LLAMA_LAYERS, LLAMA_NEW_TOKENS, LLAMA_PROFILE_STEPS = 6, 64, 12
+
+
+def _flash_counts() -> dict:
+    return {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
+            "flash_dq": fa.flash_dq.launches}
+
+
+def vit_train_phase(card):
+    """``examples.vit_cifar.main(num_epochs=2, batch_size=512)``: both
+    Loopers device-resident, one ``flash_fwd`` and one ``flash_bwd`` launch
+    per block per train step (no remat) and one ``flash_fwd`` per block per
+    val batch, a finite falling loss and val accuracy above 0.2 (chance
+    0.1). Step times as in cifar_train."""
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = vit_cifar.main(num_epochs=VIT_EPOCHS, batch_size=VIT_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_counts()
+    steps = run["total_steps"]
+    train, val = run["datasets"]
+    require(train.device_resident and val.device_resident,
+            "vit_train: the train and val batches were not device-resident")
+    losses, stamps, accuracy = _cifar_lines("runs/vit_cifar.jsonl")
+    require(len(losses) == steps, f"vit_train: {len(losses)} tracker lines for {steps} steps")
+    require(all(math.isfinite(x) for x in losses), f"vit_train: non-finite loss {losses}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    require(last < first, f"vit_train: loss did not fall, first ten {first}, last ten {last}")
+    want = {"flash_fwd": VIT_LAYERS * (steps + VIT_EPOCHS * val.total),
+            "flash_bwd": VIT_LAYERS * steps, "flash_dq": 0}
+    require(launches == want, f"vit_train: launches {launches}, want {want}")
+    require(len(accuracy) == VIT_EPOCHS and accuracy[-1] > 0.2, f"vit_train: accuracy {accuracy}")
+    step_s = _epoch_step_s(stamps, steps // VIT_EPOCHS, VIT_EPOCHS)
+    median = float(np.median(step_s))
+    emit("vit_train", model="vit_tiny", dtype="bfloat16", batch=VIT_BATCH, tokens=VIT_TOKENS,
+         steps=steps, epochs=VIT_EPOCHS, loss_first10_mean=first, loss_last10_mean=last,
+         val_accuracy=accuracy, launches=launches,
+         flash_fwd_per_train_step=(launches["flash_fwd"] - VIT_LAYERS * VIT_EPOCHS * val.total)
+         / steps, flash_bwd_per_train_step=launches["flash_bwd"] / steps,
+         val_batches_per_epoch=val.total, device_resident=True, step_ms_median=median * 1e3,
+         step_ms_p10_p90=[float(np.percentile(step_s, q)) * 1e3 for q in (10, 90)],
+         images_per_s=VIT_BATCH / median, tokens_per_s=VIT_BATCH * VIT_TOKENS / median,
+         wall_s=wall, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    return launches
+
+
+def vit_profile_phase(train, val, card):
+    """A torch.profiler trace of ``vit_cifar.build``'s tree over the first
+    2 + VIT_PROFILE_STEPS + 1 batches of the train set (one epoch, one val
+    batch): the window holds train steps 2 to 2 + VIT_PROFILE_STEPS
+    (:func:`_step_window`), and no host-to-device copy may run in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = (VIT_PROFILE_STEPS + 3) * VIT_BATCH
+    sub = train.get_batch(np.arange(n))
+    sub_val = val.get_batch(np.arange(VIT_BATCH))
+    run = vit_cifar.build(ArrayDataset(sub["image"], sub["label"]),
+                          ArrayDataset(sub_val["image"], sub_val["label"]), batch_size=VIT_BATCH,
+                          num_epochs=1, out_dir="ck_profile", runtime=rt.Runtime(seed=0))
+    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(io.StringIO()), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run["launcher"].launch()
+        torch.cuda.synchronize()
+    window = _step_window(prof, _train_group, first=2, last=2 + VIT_PROFILE_STEPS)
+    require(window["steps"] == VIT_PROFILE_STEPS, f"vit_profile: window {window['steps']} steps")
+    require(window["h2d_copies"] == 0,
+            f"vit_profile: {window['h2d_copies']} host-to-device copies in the step window")
+    emit("vit_profile", **window, images_per_s=VIT_BATCH / window["step_ms"] * 1e3,
+         tokens_per_s=VIT_BATCH * VIT_TOKENS / window["step_ms"] * 1e3, card=card)
+
+
+def vit_model_check(card):
+    """One train forward + backward of ViT at full width, depth 2, f32,
+    dropout 0, B=32: the card (the f32 flash kernels, TF32 off) against the
+    same params on the CPU (plain attention)."""
+    model = ViT(32, 4, dim=192, depth=2, num_heads=3)
+    init = model.init(torch.Generator().manual_seed(6), device="cpu")
+    rng = np.random.default_rng(11)
+    images = torch.from_numpy(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, 32).astype(np.int32))
+    result = {}
+    for dev in ("cpu", "cuda"):
+        params = map_params(lambda t: t.to(dev).requires_grad_(), init)
+        zero_launches()
+        out = model.apply(params, {"image": images.to(dev)}, mode="train", rng=0)
+        loss = cifar_resnet.cross_entropy({"logits": out["logits"], "label": labels.to(dev)})
+        grads = torch.autograd.grad(loss, optim.param_leaves(params))
+        result[dev] = (out["logits"].detach().cpu(), [g.cpu() for g in grads])
+    require(fa.flash_fwd.launches == 2 and fa.flash_bwd.launches == 2,
+            "vit_model_check: the card pass did not run the flash kernels")
+    logit_err = (result["cuda"][0] - result["cpu"][0]).abs().max().item()
+    grad_err = max(((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+                   for g, w in zip(result["cuda"][1], result["cpu"][1]))
+    require(logit_err <= VIT_CHECK_TOL["logits"], f"vit_model_check: logits {logit_err}")
+    require(grad_err <= VIT_CHECK_TOL["grad"], f"vit_model_check: grads relative {grad_err}")
+    emit("vit_model_check", depth=2, dim=192, heads=3, tokens=VIT_TOKENS, dtype="float32",
+         batch=32, logit_max_abs_err=logit_err, grad_rel_err=grad_err, tol=VIT_CHECK_TOL,
+         n_grads=len(result["cuda"][1]), card=card)
+
+
+def vit_phases(card):
+    """The ViT phases in a temporary directory (checkpoints, runs/)."""
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            launches = vit_train_phase(card)
+            torch.cuda.empty_cache()
+            vit_profile_phase(cifar_resnet.cifar10(train=True), cifar_resnet.cifar10(train=False),
+                              card)
+            os.chdir(cwd)
+    finally:
+        os.chdir(cwd)
+    vit_model_check(card)
+    return launches
+
+
+def mnist_phase(card):
+    """``examples.mnist.main(num_epochs=1)`` in a temporary directory:
+    LeNet on the device-resident SyntheticMNIST (60,000 train, 10,000 val),
+    B=1024, gradient accumulation 2; val accuracy above 0.2 (chance 0.1).
+    A Tracker line is one optimizer step (two batches): the step time is
+    half its gap. No hand kernel is on this path."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run = mnist.main(num_epochs=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses, stamps, accuracy = _cifar_lines("runs/mnist.jsonl")
+        finally:
+            os.chdir(cwd)
+    train, val = run["datasets"]
+    require(train.device_resident and val.device_resident,
+            "mnist: the train and val batches were not device-resident")
+    require(losses and all(math.isfinite(x) for x in losses), f"mnist: losses {losses}")
+    require(len(accuracy) == 1 and accuracy[0] > 0.2, f"mnist: accuracy {accuracy}")
+    step_s = np.diff(stamps)[2:] / 2
+    emit("mnist_train", model="lenet", dtype="float32", batch=1024, accumulation=2,
+         batches=train.total, optimizer_steps=len(losses), loss_first=losses[0],
+         loss_last=losses[-1], val_accuracy=accuracy, device_resident=True,
+         step_ms_median=float(np.median(step_s)) * 1e3,
+         images_per_s=1024 / float(np.median(step_s)), wall_s=wall, card=card)
+
+
+def llama_phase(card):
+    """``examples.llama_lm.main(num_epochs=1)`` in a temporary directory:
+    one ``flash_fwd`` and one ``flash_bwd`` launch per layer per step on the
+    bthd GQA operands (head dim 32), a falling loss, then the nucleus sample:
+    one row 2 call (its split and combine) per layer per generated token."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run = llama_lm.main(num_epochs=1, out_dir="ck")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    counts = {**_flash_counts(), "decode_attention": da.decode_attention.launches}
+    losses = [float(v) for v in run["trained"]["losses"]]
+    steps, cfg = len(losses), run["model"].config
+    require(run["dataset"].device_resident, "llama: the batches were not device-resident")
+    require(steps == run["total_steps"] and all(math.isfinite(x) for x in losses),
+            f"llama: {steps} losses for {run['total_steps']} steps")
+    require(float(np.mean(losses[-5:])) < float(np.mean(losses[:5])),
+            f"llama: loss did not fall {losses}")
+    want = {"flash_fwd": LLAMA_LAYERS * steps, "flash_bwd": LLAMA_LAYERS * steps, "flash_dq": 0,
+            "decode_attention": LLAMA_LAYERS * LLAMA_NEW_TOKENS}
+    require(counts == want, f"llama: launches {counts}, want {want}")
+    require(len(run["sample"]) == 4 + LLAMA_NEW_TOKENS, f"llama: sample {run['sample']!r}")
+    emit("llama_train", model="llama_lm", dtype="bfloat16", batch=128, seq_len=cfg.max_seq_len,
+         layers=LLAMA_LAYERS, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, steps=steps,
+         losses=losses, launches=counts, flash_fwd_per_step=counts["flash_fwd"] / steps,
+         decode_calls_per_token_per_layer=counts["decode_attention"]
+         / (LLAMA_NEW_TOKENS * LLAMA_LAYERS), sample=run["sample"], wall_s=wall, card=card)
+    llama_profile_phase(card)
+    return counts
+
+
+def llama_profile_phase(card):
+    """LLAMA_PROFILE_STEPS steps of ``llama_lm.build``'s tree (the first
+    windows of its corpus) with a step clock, the last PROFILE_STEPS under
+    torch.profiler: step ms, tokens/s, device ms a step, the idle share,
+    the groups, and no host-to-device copy in the window."""
+    text = tiny_shakespeare()
+    tok = CharTokenizer(text)
+    seq_len, batch = 256, 128
+    tokens = tok.encode(text)[:LLAMA_PROFILE_STEPS * batch * seq_len + 1]
+    clock = StepClock(profile_last=PROFILE_STEPS)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            run = llama_lm.build(TokenDataset(tokens, seq_len=seq_len),
+                                 llama_lm.config_for(tok.vocab_size, seq_len), batch_size=batch,
+                                 num_epochs=1, out_dir="ck", runtime=rt.Runtime(seed=0),
+                                 capsules=(clock,))
+            with contextlib.redirect_stderr(io.StringIO()):
+                run["launcher"].launch()
+        finally:
+            os.chdir(cwd)
+    require(len(clock.losses) == LLAMA_PROFILE_STEPS, f"llama_profile: {len(clock.losses)} steps")
+    step_s = np.diff(clock.stamps)[WARM_STEPS:LLAMA_PROFILE_STEPS - PROFILE_STEPS]
+    median = float(np.median(step_s))
+    busy, idle, top, groups = _device_profile(clock.prof, clock.prof_wall)
+    h2d = sum("HtoD" in ev.name for ev in _device_events(clock.prof))
+    require(h2d == 0, f"llama_profile: {h2d} host-to-device copies in the profiled steps")
+    emit("llama_profile", steps=PROFILE_STEPS, step_ms_median=median * 1e3,
+         tokens_per_s=batch * seq_len / median, wall_s=clock.prof_wall, device_busy_s=busy,
+         device_busy_ms_per_step=busy / PROFILE_STEPS * 1e3, device_idle_share=idle,
+         device_time_measured=busy > 0, h2d_copies=h2d, top_kernels=top,
+         device_s_by_group=groups, card=card)
 
 #: moe_train: bench.py's moe_gpt2_e4 (GPT-2 124M widths, 4 experts, top-2,
 #: capacity factor 1.25, dropout 0) with the dropless dispatch, B=8,
@@ -2800,6 +3159,7 @@ def main() -> int:
     flash_long = check_flash_long(timer, gen)
     time_dq_strategies(timer, gen)
     qkv = check_flash_qkv(timer, gen)[(fqa.DEFAULT_BLOCK, fqa.DEFAULT_BLOCK)]
+    check_flash_examples(timer, gen)
     block = check_fused_block(timer, gen)
     conv = check_fused_conv(timer, gen)[(524288, 64, "float32")]
     moe = check_moe_kernels(timer, gen)
@@ -2829,6 +3189,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Row 9 on the main path (cifar_train); row 10 on the stats_xla drive.
     conv["twopass"]["launches"], conv["normalize"]["launches"] = cifar_phases(card)
+    torch.cuda.empty_cache()
+    vit_phases(card)
+    torch.cuda.empty_cache()
+    mnist_phase(card)
+    llama_phase(card)
     torch.cuda.empty_cache()
     # Rows 11, gmm and tgmm: launches of the moe_train main path (tgmm's
     # count covers both of its shapes, each half of it).

@@ -5,10 +5,13 @@ its module paths (``core/``, ``nn/``, ``ops/``, ``models/``, ``serve/``,
 ``data/``, ``optim``, ``runtime``) so each counterpart is easy to find,
 and never imports it (nor ``jax``).
 
-Ported so far: training decoder LMs (GPT-2 124M, Llama-style GQA/RoPE,
-the char-LM, the MoE LM with routed expert FFNs) and the ResNets
-(CIFAR-10 ResNet-18, ``examples/cifar_resnet.py``: BatchNorm state,
-on-device augmentation, eval through ``Meter``) through the capsule tree
+Ported so far: training decoder LMs (GPT-2 124M, the Llama-style
+char-LM with GQA/RoPE, the char-LM, the MoE LM with routed expert FFNs)
+and image classifiers (CIFAR-10 ResNet-18 with BatchNorm state, ViT-Ti,
+LeNet and the MLP on MNIST; on-device augmentation, eval through
+``Meter``) over the data stack of ``data/`` (datasets kept on the device
+when they fit, or streamed with read-ahead and worker processes) through
+the capsule tree
 ``Launcher -> Looper -> Dataset, Module(Loss, Optimizer, Scheduler),
 Checkpointer, Tracker, Meter, Profiler`` with checkpoints and resume
 (``runtime/checkpoint_io.py``, the JAX package's format), and serving the

@@ -236,6 +236,59 @@ def _serve_parts():
     return step, (paged, dense)
 
 
+def _vit_flash_parts():
+    """Rows 3-4 at ViT's shape: the ``vit_cifar`` example's train step
+    (``vit_tiny``: D=192, 9 blocks, 3 heads of 64, dropout 0.1) at B=512 on
+    32x32 images in 4x4 patches, bf16: T = 65 tokens (a second 64-row tile
+    holding one row), non-causal, the fused qkv operand (``chip_smoke.py``
+    vit_train phase)."""
+    from rocket_tpu_torch.models.vit import vit_tiny
+    from rocket_tpu_torch.nn import keys
+    from rocket_tpu_torch.nn.module import map_params
+
+    model = vit_tiny(dropout=0.1)
+    meta = torch.device("meta")
+    with meta:
+        params = model.init(torch.Generator().manual_seed(0), device=meta)
+    leaves = []
+    map_params(lambda t: leaves.append(t.requires_grad_()), params)
+
+    def step(params, images, labels):
+        out = model.apply(params, {"image": images}, mode="train", rng=keys.key(0))
+        loss = torch.nn.functional.cross_entropy(out["logits"].float(), labels.long())
+        return torch.autograd.grad(loss, leaves)
+
+    return step, (params, _meta(512, 32, 32, 3), _meta(512, dtype=torch.int32))
+
+
+def _llama_flash_parts():
+    """Rows 3-4 and 2 at the ``llama_lm`` example's shapes, bf16: its train
+    step (dim 256, 6 layers, 8 query heads over 4 K/V heads of 32, RoPE) at
+    B=128, T=256 on the bthd GQA operands, and one decode step of its
+    nucleus sample (B=1, a 68-row cache, the last position), a group of 2
+    (``chip_smoke.py`` llama_train phase)."""
+    from rocket_tpu_torch.examples.llama_lm import config_for
+    from rocket_tpu_torch.models.transformer import TransformerLM, next_token_loss
+    from rocket_tpu_torch.nn import keys
+    from rocket_tpu_torch.nn.module import map_params
+    from rocket_tpu_torch.ops.decode_attention import decode_attention
+
+    model = TransformerLM(config_for(vocab_size=64, seq_len=256))
+    meta = torch.device("meta")
+    with meta:
+        params = model.init(torch.Generator().manual_seed(0), device=meta)
+    leaves = []
+    map_params(lambda t: leaves.append(t.requires_grad_()), params)
+    cache = _meta(1, 4, 68, 32)
+    dense = (_meta(1, 8, 32), _meta(1, 4, 32), _meta(1, 4, 32), cache, cache, 67)
+
+    def step(params, tokens, dense):
+        out = model.apply(params, {"tokens": tokens}, mode="train", rng=keys.key(0))
+        return torch.autograd.grad(next_token_loss()(out), leaves), decode_attention(*dense)
+
+    return step, (params, _meta(128, 256, dtype=torch.int32), dense)
+
+
 def _badpallas_parts():
     """Row 12, the seeded-bad demo: the fixture's two launches on a
     (4096, 4096) f32 array, 2 * x in (7, 100) blocks over grid (4,) — a tile
@@ -261,6 +314,10 @@ SCHED_TARGETS = {target.name: target for target in (
     SchedTarget("fused_kernels", _fused_kernels_parts, "BN epilogue, fused block, gather-GMM, "
                 "gmm/tgmm (rows 8-11)"),
     SchedTarget("serve", _serve_parts, "paged decode wave and cached decode step (rows 1-2)"),
+    SchedTarget("vit_flash", _vit_flash_parts, "ViT-Ti train step, B=512 T=65 non-causal "
+                "(rows 3-4)"),
+    SchedTarget("llama_flash", _llama_flash_parts, "Llama char-LM train step, B=128 T=256 GQA "
+                "D=32, and its decode step (rows 2-4)"),
     SchedTarget("badpallas", _badpallas_parts, "seeded-bad 2*x: misaligned and over-budget "
                 "blocks (row 12)", demo=True),
 )}

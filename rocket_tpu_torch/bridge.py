@@ -2,7 +2,11 @@
 a JAX model's ``variables`` (params and state) -> the port's.
 
 The port's param dicts use the JAX package's names, so the copy is
-rename-free. A scanned JAX tree (``blocks_stacked``, every leaf with a
+rename-free: the transformer's, the ResNets', ViT's bare ``cls`` and
+``pos`` arrays beside its ``blocks``, and the ``Sequential`` trunks of
+LeNet and the MLP under ``"0"``, ``"1"``, ... (their activations, pools
+and ``Flatten`` as empty dicts, which the port's trunks also draw). A
+scanned JAX tree (``blocks_stacked``, every leaf with a
 leading layer dim) is unstacked into the per-layer ``blocks`` subtree the
 port uses. Dtypes are kept, bfloat16 included (numpy holds it as the
 ``ml_dtypes`` type, which torch cannot read directly, so its bits are
@@ -41,9 +45,9 @@ def _unstack(tree, i):
 
 
 def params_from_jax(tree: dict, device="cpu") -> dict:
-    """Convert a JAX ``TransformerLM`` param tree of numpy arrays (e.g.
-    ``jax.tree.map(np.asarray, variables["params"])``) to port params on
-    ``device``."""
+    """Convert a JAX param tree of numpy arrays (e.g. ``jax.tree.map(
+    np.asarray, variables["params"])`` of a ``TransformerLM``, ``ViT``,
+    ``LeNet`` or ``MLP``) to port params on ``device``."""
     tree = dict(tree)
     stacked = tree.pop("blocks_stacked", None)
     if stacked is not None:

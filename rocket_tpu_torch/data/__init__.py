@@ -1,2 +1,4 @@
-"""Data of the port (counterpart of ``rocket_tpu.data``): text, array
-datasets and on-device image augmentation."""
+"""Data of the port (counterpart of ``rocket_tpu.data``): collate,
+loader, prefetch, workers and the device-resident cache behind the
+``Dataset`` capsule; text, array and MNIST datasets; on-device image
+augmentation."""

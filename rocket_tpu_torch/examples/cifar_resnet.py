@@ -57,7 +57,8 @@ def cross_entropy(batch):
 def build(train_data, val_data, *, batch_size: int, num_epochs: int, out_dir: str, runtime,
           resume_from=None) -> dict:
     """The example's capsule tree. Returns ``{"launcher", "model",
-    "module", "checkpointer", "accuracy", "trained", "total_steps"}``;
+    "module", "datasets", "checkpointer", "accuracy", "trained",
+    "total_steps"}``;
     ``trained["state"]`` is the live train state (``params``,
     ``model_state``, ...) once a step ran, and stays past the launch."""
     model = resnet18(num_classes=10, stem="cifar")
@@ -86,11 +87,13 @@ def build(train_data, val_data, *, batch_size: int, num_epochs: int, out_dir: st
 
     checkpointer = rt.Checkpointer(output_dir=out_dir, save_every=200, keep_last=2,
                                    resume_from=resume_from)
+    datasets = (rt.Dataset(train_data, batch_size=batch_size, shuffle=True, drop_last=True),
+                rt.Dataset(val_data, batch_size=batch_size))
     launcher = rt.Launcher(
         [
             rt.Looper(
                 [
-                    rt.Dataset(train_data, batch_size=batch_size, shuffle=True, drop_last=True),
+                    datasets[0],
                     module,
                     Keep(),
                     checkpointer,
@@ -100,7 +103,7 @@ def build(train_data, val_data, *, batch_size: int, num_epochs: int, out_dir: st
             ),
             rt.Looper(
                 [
-                    rt.Dataset(val_data, batch_size=batch_size),
+                    datasets[1],
                     rt.Module(model),
                     rt.Meter(["logits", "label"], [accuracy]),
                     rt.Tracker(backend="jsonl", project="cifar_resnet18"),
@@ -113,7 +116,7 @@ def build(train_data, val_data, *, batch_size: int, num_epochs: int, out_dir: st
         statefull=True,
         runtime=runtime,
     )
-    return {"launcher": launcher, "model": model, "module": module,
+    return {"launcher": launcher, "model": model, "module": module, "datasets": datasets,
             "checkpointer": checkpointer, "accuracy": accuracy, "trained": trained,
             "total_steps": steps}
 

@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from rocket_tpu_torch.nn.layers import BatchNorm, Conv2D, Dense, MaxPool2D, relu
+from rocket_tpu_torch.nn.layers import BatchNorm, Conv2D, Dense, MaxPool2D, relu_fn
 from rocket_tpu_torch.nn.module import Layer, map_params
 from rocket_tpu_torch.runtime import resolve_device
 
@@ -72,7 +72,7 @@ class _Block(Layer):
         if self.downsample is not None:
             x, new_state["down"] = self.downsample.apply(params["down"], x,
                                                          state=state["down"], mode=mode)
-        return relu(x + h), new_state
+        return relu_fn(x + h), new_state
 
 
 class _BasicBlock(_Block):

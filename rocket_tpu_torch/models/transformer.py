@@ -47,7 +47,15 @@ from torch.utils.checkpoint import (
 from rocket_tpu_torch.models.sampling import freeze_after_eos, sample_tokens, seed_from
 from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.attention import IMPLS, MultiHeadAttention
-from rocket_tpu_torch.nn.layers import Dense, Dropout, Embedding, LayerNorm, RMSNorm, gelu, silu
+from rocket_tpu_torch.nn.layers import (
+    Dense,
+    Dropout,
+    Embedding,
+    LayerNorm,
+    RMSNorm,
+    gelu_fn,
+    silu_fn,
+)
 from rocket_tpu_torch.nn.module import Layer, map_params
 from rocket_tpu_torch.nn.moe import MoE
 from rocket_tpu_torch.ops import fused_block
@@ -293,9 +301,9 @@ class Block(Layer):
         p = params["mlp"]
         up = self.fc_in(p["fc_in"], h)
         if self.fc_gate is not None:
-            h = silu(self.fc_gate(p["fc_gate"], h)) * up
+            h = silu_fn(self.fc_gate(p["fc_gate"], h)) * up
         else:
-            h = gelu(up)
+            h = gelu_fn(up)
         return self.fc_out(p["fc_out"], h), None
 
     def apply(self, params, x, *, mode="train", rng=None):

@@ -88,9 +88,11 @@ def grouped_dot_product_attention(q, k, v, causal: bool = True) -> torch.Tensor:
 
 
 def _rope_freqs(half: int, base: float, device) -> torch.Tensor:
-    """``base ** (-i / half)`` for ``i < half``, in f32."""
+    """``base ** (-i / half)`` for ``i < half``, in f32. The base stays a
+    Python number (an f32 kernel argument): a tensor made of it would be a
+    host-to-device copy in every training step."""
     exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(base, dtype=torch.float32, device=device), exponent)
+    return float(base) ** exponent
 
 
 def _rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,8 @@
 """Core layers: Dense, the NHWC convolution and pools, BatchNorm,
-LayerNorm, RMSNorm, Embedding, Dropout and the activations.
+LayerNorm, RMSNorm, Embedding, Dropout, Flatten and the activations
+(``relu()``, ``gelu()``, ``tanh()``, ``silu()`` and ``softmax()`` are
+:class:`~rocket_tpu_torch.nn.module.Lambda` layers, as in the reference;
+``relu_fn``, ``gelu_fn`` and ``silu_fn`` are their tensor functions).
 
 Numerics follow ``rocket_tpu/nn/layers.py``: parameters are float32
 masters cast to the activation dtype at use; the norms compute their
@@ -26,12 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from rocket_tpu_torch.nn import keys
-from rocket_tpu_torch.nn.module import Layer
+from rocket_tpu_torch.nn.module import Lambda, Layer
 from rocket_tpu_torch.ops import fused_conv
 
 __all__ = [
     "Dense", "Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D", "BatchNorm", "bn_act_train",
-    "LayerNorm", "RMSNorm", "Embedding", "Dropout", "Flatten", "relu", "gelu", "silu",
+    "LayerNorm", "RMSNorm", "Embedding", "Dropout", "Flatten", "relu", "gelu", "tanh", "silu",
+    "softmax", "relu_fn", "gelu_fn", "silu_fn",
 ]
 
 #: Standard deviation of a unit normal truncated to [-2, 2]; dividing by it
@@ -39,16 +43,41 @@ __all__ = [
 _TRUNC_STD = 0.87962566103423978
 
 
-def relu(x: torch.Tensor) -> torch.Tensor:
+def relu_fn(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
+def gelu_fn(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
+def silu_fn(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+def _softmax_fn(x: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(x, dim=-1)
+
+
+# The activation layers (the reference's ``nn.relu()`` ... factories).
+def relu() -> Lambda:
+    return Lambda(relu_fn, "relu")
+
+
+def gelu() -> Lambda:
+    return Lambda(gelu_fn, "gelu")
+
+
+def tanh() -> Lambda:
+    return Lambda(torch.tanh, "tanh")
+
+
+def silu() -> Lambda:
+    return Lambda(silu_fn, "silu")
+
+
+def softmax() -> Lambda:
+    return Lambda(_softmax_fn, "softmax")
 
 
 class Dense(Layer):
@@ -291,7 +320,7 @@ class BatchNorm(Layer):
         inv = torch.rsqrt(state["var"] + self.eps) * params["scale"]
         y = ((x.float() - state["mean"]) * inv + params["bias"]).to(x.dtype)
         if act:
-            y = relu(y)
+            y = relu_fn(y)
         return y, state
 
     def __repr__(self):

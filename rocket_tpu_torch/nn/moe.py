@@ -37,7 +37,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from rocket_tpu_torch.nn.layers import Dense, gelu
+from rocket_tpu_torch.nn.layers import Dense, gelu_fn
 from rocket_tpu_torch.nn.module import Layer
 from rocket_tpu_torch.ops.gather_gmm import gather_gmm, gather_gmm_supported, padded_group_layout
 from rocket_tpu_torch.ops.grouped_matmul import grouped_matmul
@@ -160,7 +160,7 @@ class MoE(Layer):
         # product is exact in f32) and cast back; the dispatch/combine
         # contractions touch at most k nonzeros per output.
         h = torch.einsum("ebcd,edh->ebch", expert_in.float(), ex["w_in"].to(dt).float()).to(dt)
-        h = gelu(h + ex["b_in"].to(dt)[:, None, None, :])
+        h = gelu_fn(h + ex["b_in"].to(dt)[:, None, None, :])
         out = torch.einsum("ebch,ehd->ebcd", h.float(), ex["w_out"].to(dt).float()).to(dt)
         out = out + ex["b_out"].to(dt)[:, None, None, :]
 
@@ -235,7 +235,7 @@ class MoE(Layer):
                 pexpert = torch.zeros((m_pad,), dtype=torch.long, device=x_flat.device)
                 pexpert[pos] = sorted_expert
                 h = gather_gmm(x_flat, ex["w_in"].to(dtype), row_ids, gsz, tile_m=tm, tile_n=tn)
-                h = gelu(h + _expert_rows(ex["b_in"].to(dtype), pexpert))
+                h = gelu_fn(h + _expert_rows(ex["b_in"].to(dtype), pexpert))
                 # The hidden rows are already in padded-group order: the
                 # out-projection needs no gather.
                 out = grouped_matmul(h, ex["w_out"].to(dtype), gsz)
@@ -243,7 +243,7 @@ class MoE(Layer):
                 return out[pos]  # (NK, D)
         xs = x_flat[sorted_token]  # (NK, D)
         h = grouped_matmul(xs, ex["w_in"].to(dtype), counts)  # (NK, H)
-        h = gelu(h + _expert_rows(ex["b_in"].to(dtype), sorted_expert))
+        h = gelu_fn(h + _expert_rows(ex["b_in"].to(dtype), sorted_expert))
         out = grouped_matmul(h, ex["w_out"].to(dtype), counts)
         return out + _expert_rows(ex["b_out"].to(dtype), sorted_expert)  # (NK, D)
 

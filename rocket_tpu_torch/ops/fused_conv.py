@@ -104,11 +104,11 @@ def reference_bn_act(x, scale, bias, eps: float, act: bool):
     """The composition the fused kernel is measured against:
     ``nn/layers._bn_train`` followed by relu. Bitwise the seam's default
     path."""
-    from rocket_tpu_torch.nn.layers import _bn_train, relu
+    from rocket_tpu_torch.nn.layers import _bn_train, relu_fn
 
     y, stats = _bn_train(x, scale, bias, eps)
     if act:
-        y = relu(y)
+        y = relu_fn(y)
     return y, stats
 
 

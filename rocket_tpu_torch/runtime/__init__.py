@@ -38,27 +38,54 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 class IdentityRegistry:
-    """Prepare-once registry keyed by object identity: two capsules
-    wrapping the same raw object (a model shared by a train and an eval
-    Module) share one prepared record, and preparing it twice is an error."""
+    """Prepare-once registry keyed by object identity and an optional
+    ``extra_key`` (a loader's settings): two capsules wrapping the same raw
+    object (a model shared by a train and an eval Module, a dataset read
+    twice with one batching) share one prepared record, and preparing it
+    twice is an error. :meth:`retain` and :meth:`release` count the holders
+    of a record, so that only the last of them tears it down."""
 
     def __init__(self, kind: str) -> None:
         self._kind = kind
-        self._entries: dict = {}  # id(raw) -> (raw, prepared)
+        self._entries: dict = {}  # (id(raw), extra_key) -> (raw, prepared)
+        self._holders: dict = {}  # (id(raw), extra_key) -> count
 
-    def lookup(self, raw: Any) -> Optional[Any]:
-        entry = self._entries.get(id(raw))
+    def lookup(self, raw: Any, extra_key: Any = None) -> Optional[Any]:
+        entry = self._entries.get((id(raw), extra_key))
         return None if entry is None else entry[1]
 
-    def add(self, raw: Any, prepared: Any) -> Any:
-        if id(raw) in self._entries:
+    def add(self, raw: Any, prepared: Any, extra_key: Any = None) -> Any:
+        key = (id(raw), extra_key)
+        if key in self._entries:
             raise RuntimeError(f"Registry[{self._kind}]: object {type(raw).__name__} is already "
                                "prepared; share the prepared handle instead.")
-        self._entries[id(raw)] = (raw, prepared)
+        self._entries[key] = (raw, prepared)
         return prepared
 
-    def remove(self, raw: Any) -> None:
-        self._entries.pop(id(raw), None)
+    def remove(self, raw: Any, extra_key: Any = None) -> None:
+        key = (id(raw), extra_key)
+        self._entries.pop(key, None)
+        self._holders.pop(key, None)
+
+    def retain(self, raw: Any, extra_key: Any = None) -> None:
+        """Count one more holder of the record."""
+        key = (id(raw), extra_key)
+        self._holders[key] = self._holders.get(key, 0) + 1
+
+    def release(self, raw: Any, extra_key: Any = None) -> bool:
+        """Drop one holder. True when it was the last one (a record never
+        retained counts as one holder): the record is then removed, and the
+        caller tears the prepared object down."""
+        key = (id(raw), extra_key)
+        left = self._holders.get(key, 1) - 1
+        if left > 0:
+            self._holders[key] = left
+            return False
+        self.remove(raw, extra_key)
+        return True
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
     def values(self) -> list:
         """The prepared records in registration order."""
@@ -67,14 +94,20 @@ class IdentityRegistry:
 
 class Runtime:
     """Execution context shared by every capsule of a tree: the device,
-    the seeds, gradient accumulation, the models registry, the checkpoint
-    stack of stateful capsules and the tracker backends. One process: it
-    is always the main process and its barrier is a no-op (the process
-    group is ROADMAP Queue A 3).
+    the seeds, gradient accumulation, the models and dataloaders
+    registries, the device-resident datasets, the checkpoint stack of
+    stateful capsules and the tracker backends. One process: it is always
+    the main process and its barrier is a no-op (the process group is
+    ROADMAP Queue A 3).
 
     ``device`` resolves through :func:`resolve_device` (CUDA unless
     ``"cpu"`` is asked for). Every seed a capsule takes derives from
-    ``seed`` and the number of earlier draws (:meth:`next_seed`)."""
+    ``seed`` and the number of earlier draws (:meth:`next_seed`).
+    ``device_placement``: the default of ``Dataset(device_placement=)``,
+    whether streamed batches are copied to ``device``.
+    ``device_cache_bytes``: the size up to which ``Dataset(device_cache=
+    "auto")`` keeps a dataset on the device (the reference's default, 1
+    GiB, not a measurement of this card)."""
 
     #: Most recently constructed Runtime (the ambient context).
     _current: Optional["Runtime"] = None
@@ -83,14 +116,24 @@ class Runtime:
     def current(cls) -> Optional["Runtime"]:
         return cls._current
 
-    def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1) -> None:
+    def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
+                 device_placement: bool = True, device_cache_bytes: int = 1 << 30) -> None:
         if gradient_accumulation_steps < 1:
             raise RuntimeError("gradient_accumulation_steps must be >= 1")
         self.device = resolve_device(device)
         self._seed = int(seed)
         self._seed_counter = 0
         self.gradient_accumulation_steps = int(gradient_accumulation_steps)
+        self.device_placement = bool(device_placement)
+        self.device_cache_bytes = int(device_cache_bytes)
         self.models = IdentityRegistry("models")
+        # One loader per (raw dataset, loader settings), shared by the
+        # Dataset capsules that ask for it and closed by the last of them.
+        self.dataloaders = IdentityRegistry("dataloaders")
+        # The device-resident copy of a dataset per (id(raw dataset), cache
+        # dtype), shared by every loader over it (a train and a val loader
+        # upload once).
+        self.device_cache_store: dict = {}
         self.trackers: dict = {}
         self._checkpoint_stack: list = []
         Runtime._current = self

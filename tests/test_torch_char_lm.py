@@ -164,7 +164,10 @@ def _char_lm_run(root, num_epochs, resume_from=None):
     try:
         config = tt.TransformerConfig(**CFG)
         data = _Recorded(_tokens(), seq_len=T)
-        runtime = rt.Runtime(device="cpu", seed=0)
+        # device_cache_bytes=0: the streaming loader, whose host reads this
+        # test records. Its first read is the whole dataset, by which
+        # Dataset(device_cache="auto") sizes it (the reference's rule).
+        runtime = rt.Runtime(device="cpu", seed=0, device_cache_bytes=0)
         run = char_lm.build(data, config, batch_size=B, num_epochs=num_epochs, out_dir="ckpt",
                             runtime=runtime, resume_from=resume_from)
         model = run["model"]
@@ -188,7 +191,9 @@ def test_resume_from_latest_ends_bitwise_equal_to_an_uninterrupted_run(tmp_path)
     resumed, state, drawn_resumed = _char_lm_run(tmp_path / "a", 2, resume_from="latest")
     assert len(whole) == 2 * STEPS_PER_EPOCH
     assert resumed == whole[STEPS_PER_EPOCH:]                       # each loss, bitwise
-    assert drawn_resumed == drawn_whole[STEPS_PER_EPOCH:]           # the same batches
+    everything = list(range(20))                                    # _tokens()'s windows
+    assert drawn_whole[0] == drawn_resumed[0] == everything         # the sizing read
+    assert drawn_resumed[1:] == drawn_whole[1 + STEPS_PER_EPOCH:]   # the same batches
     assert state["step"] == want["step"] == 2 * STEPS_PER_EPOCH
     assert state["base_key"] == want["base_key"]
     for p, q in zip(param_leaves(state["params"]), param_leaves(want["params"])):

@@ -115,7 +115,7 @@ DECODE_POSITIONS = (0, 63, 64, 191, -1)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t_max", [100, 192, 1024])
 @pytest.mark.parametrize("hq,h_kv,d", [(12, 12, 64), (12, 4, 64), (12, 12, 32), (12, 4, 128),
-                                       (8, 2, 256)])
+                                       (8, 2, 256), (8, 4, 32)])
 def test_decode_attention_matches_plain(cuda, hq, h_kv, d, t_max, dtype):
     """Row 2 (split over 64-row chunks, then a fixed-order combine) against
     its plain version at positions on both sides of a split boundary and at
@@ -313,6 +313,42 @@ def test_flash_bwd_bf16_matches_plain_and_repeats_bitwise(cuda, case, scale):
         _held(dk, dk_p, bf16)
         _held(dv, dv_p, bf16)
         _held(dq, tfn._dq_plain(*args), bf16)
+
+
+#: Rows 3-4 at the main paths' shapes of the examples: ViT-Ti (B=512, T=65,
+#: 3 heads of 64, non-causal, the fused qkv operand) and the Llama char-LM
+#: (B=128, T=256, 8 query heads over 4 K/V heads of 32, causal, bthd).
+EXAMPLE_FLASH_CASES = {"vit": (512, 65, 3, 3, 64, False, True),
+                       "llama": (128, 256, 8, 4, 32, True, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EXAMPLE_FLASH_CASES))
+def test_flash_bf16_at_the_example_shapes_matches_plain_and_repeats_bitwise(cuda, name):
+    """The forward and the backward with dq partials (T <= 512) in bf16 on
+    the tensor cores against their plain versions, two launches of each
+    giving the same bits."""
+    b, t, hq, h_kv, d, causal, fused = EXAMPLE_FLASH_CASES[name]
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(b + t)
+    q, k, v, offs = _flash_operands(gen, bf16, b, t, hq, h_kv, d, fused)
+    geo = (hq, h_kv, d, offs, causal)
+    out, lse = tfn.flash_fwd(q, k, v, *geo)
+    out2, lse2 = tfn.flash_fwd(q, k, v, *geo)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    out_p, lse_p = tfn._fwd_plain(q, k, v, *geo)
+    _held(out, out_p, bf16)
+    _held(lse, lse_p, bf16)
+    dout = _randn(gen, bf16, b, t, hq * d)
+    delta = (dout.float() * out.float()).reshape(b, t, hq, d).sum(-1).transpose(1, 2)
+    args = (q, k, v, dout, lse, delta.contiguous(), *geo)
+    dqp, dk, dv = tfn.flash_bwd(*args)
+    dqp2, dk2, dv2 = tfn.flash_bwd(*args)
+    assert torch.equal(dqp, dqp2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    dqp_p, dk_p, dv_p = tfn._bwd_plain(*args)
+    _held(dqp, dqp_p, bf16)
+    _held(dk, dk_p, bf16)
+    _held(dv, dv_p, bf16)
 
 
 def _held_by_norm(got, want, dtype):

@@ -10,6 +10,10 @@
 * One cross-package ``Launcher`` tree with ``shuffle=True`` and
   ``drop_last=False`` (a padded trailing batch every epoch): per-step
   losses equal within 1e-5 (float32, the same math in another order).
+* The device-resident path: its batches bitwise equal to streaming ones,
+  the shared loader closed by its last holder, the ``cache_dtype`` warning
+  on the streaming path, the ``"auto"`` size rule and a mid-epoch resume
+  on the cache.
 """
 
 import jax
@@ -31,6 +35,7 @@ from rocket_tpu_torch.bridge import params_from_jax
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import Capsule
 from rocket_tpu_torch.core.module import PreparedModule
+from rocket_tpu_torch.data.datasets import ArrayDataset
 from rocket_tpu_torch.data.text import TokenDataset
 from rocket_tpu_torch.models import transformer as tt
 
@@ -155,3 +160,110 @@ def test_shuffled_padded_launcher_tree_matches_the_jax_tree(tmp_path):
 
     assert len(rec.rows) == len(jrec.rows) == EPOCHS * 3
     np.testing.assert_allclose(rec.rows, jrec.rows, atol=1e-5, rtol=1e-5)
+
+
+# -- the device-resident path behind the capsule ---------------------------------
+
+
+def _launcher_batches(data, epochs=2, **kw):
+    """Every (batch, size, index) a Dataset capsule hands a Launcher tree,
+    as numpy, over ``epochs`` epochs (the runtime's seed 3)."""
+    seen = []
+
+    class Grab(Capsule):
+        def launch(self, attrs=None):
+            seen.append(({k: v.numpy() for k, v in attrs.batch.items()},
+                         attrs.batch_info.size, attrs.batch_info.index))
+
+    ds = rt.Dataset(data, **kw)
+    rt.Launcher([rt.Looper([ds, Grab()], progress=False)], num_epochs=epochs,
+                runtime=rt.Runtime(device="cpu", seed=3)).launch()
+    return ds, seen
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_device_cache_batches_equal_the_streaming_ones_bitwise(shuffle):
+    rng = np.random.default_rng(0)
+    data = ArrayDataset(rng.normal(size=(10, 4, 4, 3)).astype(np.float32),
+                        rng.integers(0, 10, 10).astype(np.int32))
+    cached, got = _launcher_batches(data, batch_size=4, shuffle=shuffle)
+    streamed, want = _launcher_batches(data, batch_size=4, shuffle=shuffle, device_cache=False)
+    assert cached.device_resident and not streamed.device_resident
+    assert len(got) == len(want) == 6
+    for (g, gs, gi), (w, ws, wi) in zip(got, want):
+        assert (gs, gi) == (ws, wi) and g.keys() == w.keys()
+        for key in w:
+            assert g[key].dtype == w[key].dtype
+            np.testing.assert_array_equal(g[key], w[key])
+
+
+def test_the_last_destroy_closes_a_shared_loader(monkeypatch):
+    """Two capsules with one dataset and one batching share one streaming
+    loader; the first destroy leaves it open, the second closes it."""
+    data = ArrayDataset(np.zeros((8, 2), np.float32), np.arange(8, dtype=np.int32))
+    runtime = rt.Runtime(device="cpu")
+    a, b = (rt.Dataset(data, batch_size=4, device_cache=False, statefull=False,
+                       runtime=runtime) for _ in range(2))
+    a.setup()
+    a.setup()  # set up twice: still one holder
+    b.setup()
+    assert a._dataloader is b._dataloader and len(runtime.dataloaders) == 1
+    closed = []
+    monkeypatch.setattr(a._dataloader, "close", lambda: closed.append(True))
+    a.destroy()
+    assert closed == [] and len(runtime.dataloaders) == 1
+    b.destroy()
+    assert closed == [True] and len(runtime.dataloaders) == 0
+
+
+def test_cache_dtype_warns_on_the_streaming_path(caplog):
+    data = ArrayDataset(np.zeros((8, 2), np.float32), np.arange(8, dtype=np.int32))
+    ds = rt.Dataset(data, batch_size=4, device_cache=False, cache_dtype="bfloat16",
+                    statefull=False, runtime=rt.Runtime(device="cpu"))
+    with caplog.at_level("WARNING", logger="rocket_tpu_torch.dataset"):
+        ds.setup()
+    assert not ds.device_resident
+    assert any("cache_dtype" in r.getMessage() for r in caplog.records)
+    caplog.clear()
+    cached = rt.Dataset(data, batch_size=4, cache_dtype="bfloat16", statefull=False,
+                        runtime=rt.Runtime(device="cpu"))
+    with caplog.at_level("WARNING", logger="rocket_tpu_torch.dataset"):
+        cached.setup()
+    assert cached.device_resident and not caplog.records
+
+
+def test_auto_streams_past_the_size_rule():
+    data = ArrayDataset(np.zeros((8, 2), np.float32), np.arange(8, dtype=np.int32))
+    # The images fit, the labels beside them do not.
+    small = {"device": "cpu", "device_cache_bytes": 8 * 2 * 4}
+    ds = rt.Dataset(data, batch_size=4, statefull=False, runtime=rt.Runtime(**small))
+    ds.setup()
+    assert not ds.device_resident
+    forced = rt.Dataset(data, batch_size=4, device_cache=True, statefull=False,
+                        runtime=rt.Runtime(**small))
+    forced.setup()
+    assert forced.device_resident
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_mid_epoch_resume_on_the_device_cache(shuffle):
+    """A resumed capsule (``batch_idx`` restored) on the cache yields the
+    rest of the epoch in train mode, and the whole epoch in eval."""
+    def batches(batch_idx, mode):
+        ds = rt.Dataset(_Indices(10), batch_size=4, shuffle=shuffle, device_cache=True)
+        ds.bind(rt.Runtime(device="cpu", seed=1))
+        ds.load_state_dict({"batch_idx": batch_idx})
+        ds.set(Attributes(mode=mode, launcher=Attributes(epoch_idx=1)))
+        assert ds.device_resident
+        out = []
+        while True:
+            attrs = Attributes(looper=Attributes())
+            ds.launch(attrs)
+            if attrs.looper.terminate:
+                return out
+            out.append((attrs.batch.tolist(), attrs.batch_info.size, attrs.batch_info.index))
+
+    whole = batches(0, "train")
+    assert batches(2, "train") == whole[2:]
+    assert batches(2, "eval") == whole
+    assert whole == _reference(10, shuffle, False, 1, 1)[1]

@@ -150,7 +150,7 @@ def test_seam_unforced_is_bitwise_bn_train_then_relu(monkeypatch):
 
     def manual(x, scale, bias):
         y, stats = tl._bn_train(x, scale, bias, 1e-5)
-        return tl.relu(y), stats
+        return tl.relu().fn(y), stats
 
     for got, want in zip(seam, _torch_run(manual, x, scale, bias)):
         np.testing.assert_array_equal(got, want)

@@ -48,6 +48,9 @@ def test_importing_the_port_loads_no_jax():
         "ops._launch", "ops.badpallas", "analysis", "analysis.__main__", "analysis.findings",
         "analysis.rocketlint", "analysis.sched_audit", "analysis.rules",
         "analysis.rules.sched_rules", "analysis.rules.host_rules", "analysis.rules.capsule_rules",
+        "data.collate", "data.loader", "data.prefetch", "data.workers", "data.device_cache",
+        "nn.module", "models.mlp", "models.lenet", "models.vit", "examples.vit_cifar",
+        "examples.mnist", "examples.llama_lm", "examples.gpt2",
     )]
     code = (
         "import sys\n"

@@ -80,8 +80,8 @@ def test_activations_embedding_dropout(dtype):
     rng = np.random.default_rng(2)
     jx, tx = _pair(rng.normal(scale=3.0, size=(6, 33)).astype(np.float32), dtype)
     # jax.nn.gelu is the tanh approximation; the exact erf form differs by ~1e-3.
-    _close(tl.gelu(tx), jl.gelu().fn(jx), dtype)
-    _close(tl.silu(tx), jl.silu().fn(jx), dtype)
+    _close(tl.gelu().fn(tx), jl.gelu().fn(jx), dtype)
+    _close(tl.silu().fn(tx), jl.silu().fn(jx), dtype)
     table = rng.normal(size=(50, 16)).astype(np.float32)
     ids = rng.integers(0, 50, size=(3, 9)).astype(np.int32)
     ref, _ = jl.Embedding(50, 16).apply({"params": {"table": table}, "state": {}},

@@ -136,7 +136,7 @@ def test_batchnorm_outputs_and_state_match_jax(mode):
     # apply_act(act=True) is relu(apply(...)) bitwise on the default path.
     y, _ = tbn.apply(tp, torch.from_numpy(x), state=ts, mode=mode)
     y_act, _ = tbn.apply_act(tp, torch.from_numpy(x), state=ts, mode=mode, act=True)
-    assert torch.equal(tl.relu(y), y_act)
+    assert torch.equal(tl.relu().fn(y), y_act)
     assert jax.tree.map(np.shape, tbn.init_state()) == jax.tree.map(np.shape, jbn.init_state())
 
 

@@ -122,6 +122,8 @@ TARGET_KERNELS = {
     "fused_kernels": {"bn_twopass", "bn_normalize", "fused_block", "gather_gmm", "gmm", "tgmm"},
     "serve": {"paged_decode", "paged_decode_combine", "decode_attention",
               "decode_attention_combine"},
+    "vit_flash": {"flash_fwd", "flash_bwd"},
+    "llama_flash": {"flash_fwd", "flash_bwd", "decode_attention", "decode_attention_combine"},
 }
 #: Launches that stage nothing in shared memory.
 NO_SMEM = {"paged_decode_combine", "decode_attention_combine"}
