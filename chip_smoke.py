@@ -58,9 +58,19 @@ and refused at the 64 MiB block, bitwise parity, 2 * x timed in (7, 100)
 and (8, 128) blocks); 12 train steps through the ``Launcher``
 with the ``Profiler`` capsule (forced fused), 3 unforced (``impl="gmm"``);
 ``ServeEngine`` and ``generate()`` (greedy tokens equal in f32); and
-``examples.moe_lm`` (einsum dispatch, head dim 32). Last, the whole GPT-2
+``examples.moe_lm`` (einsum dispatch, head dim 32). Head dim 128: rows
+3-7 at the attention widths of Llama-3-8B, Llama-2-7B, Phi-3-mini and
+Phi-2 (the last two on heads zero-padded to 128) against their plain
+versions and timed beside SDPA (among the parity phases); the Llama-style
+recipe at Llama-3-8B's attention widths, depth 2, trained 8 steps with Lion
+and an EMA shadow and serving 4 requests through ``Scheduler.
+run_until_idle``; ViT-Ti with mixup, soft cross-entropy, Lion and an EMA
+eval (a bitwise mid-epoch resume, a pre-EMA checkpoint seeding the shadow);
+a byte-level BPE language model with its val perplexity, serving text.
+Last, the whole GPT-2
 model on the card against the CPU, for decoding and for one training
-forward and backward, and the same for a 2-layer MoE LM with its routing.
+forward and backward, the same for a 2-layer MoE LM with its routing, and
+the head-dim-128 Llama-style model's forward (depth 1).
 
 Each phase prints one JSON line; the last three lines are the per-kernel
 summary, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -76,6 +86,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -91,7 +102,9 @@ from torch.autograd import DeviceType
 import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim, tune
 from rocket_tpu_torch.core.capsule import Capsule
+from rocket_tpu_torch.data.augment import mixup, soft_cross_entropy
 from rocket_tpu_torch.data.text import (
+    BPETokenizer,
     CharTokenizer,
     TokenDataset,
     synthetic_corpus,
@@ -135,6 +148,7 @@ from rocket_tpu_torch.serve import ServeConfig, ServeEngine
 from rocket_tpu_torch.serve import __main__ as serve_cli
 from rocket_tpu_torch.tune.space import TUNE_SPACES, TuneSpace
 from rocket_tpu_torch.tune.tuner import TuneCase, sweep_case
+from rocket_tpu_torch.utils.metrics import Perplexity
 from rocket_tpu_torch.utils.perf import device_spec
 
 ROOT = Path(__file__).resolve().parent
@@ -190,6 +204,49 @@ CIFAR_BN_LAYERS, CIFAR_EPOCHS, CIFAR_SAVE_STEP, CIFAR_BATCH = 20, 3, 200, 512
 def emit(phase: str, **fields) -> None:
     RECORD.setdefault(phase, []).append(fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _kernel_name(sym: str) -> str:
+    """``kernel<args>`` of a mangled kernel symbol: the length-prefixed name
+    ending in ``kernel`` followed by its template arguments."""
+    for i in range(len(sym)):
+        digits = re.match(r"\d+", sym[i:])
+        if not digits:
+            continue
+        start = i + digits.end()
+        name = sym[start:start + int(digits.group())]
+        if name.endswith("kernel") and sym[start + len(name):].startswith("I"):
+            tail = sym[start + len(name) + 1:].split("EEv")[0] + "E"
+            kind = "bf16" if tail.startswith("13__nv_bfloat16") else (
+                "f32" if tail.startswith("f") else "")
+            return f"{name}<{','.join(([kind] if kind else []) + re.findall(r'Li(\d+)E', tail))}>"
+    return sym[:60]
+
+
+def ptxas_entries(log: str) -> dict:
+    """``nvcc -Xptxas -v``'s report, one entry per kernel instantiation:
+    ``{"flash_bwd_tc_kernel<128>": "255 registers, 0/0 bytes spill
+    stores/loads"}``. The name is the kernel's and its template arguments
+    read from the mangled symbol (``f`` float, ``13__nv_bfloat16`` bf16,
+    ``Li<n>E`` an int)."""
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = _kernel_name(entry.group(1))
+            continue
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if stores:
+            spill = f"{stores.group(1)}/{stores.group(2)} bytes spill stores/loads"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            key, n = name, 1
+            while key in out:   # instantiations whose arguments are not ints
+                n += 1
+                key = f"{name}#{n}"
+            out[key] = f"{used.group(1)} registers, {spill}"
+            name, spill = None, ""
+    return out
 
 
 def zero_launches() -> None:
@@ -270,7 +327,10 @@ def _declared_launches() -> list:
     the persistent wgmma grid, one CTA per SM of this card), bf16 gmm at
     moe_serve's decode rows in both modes, row 12's two launches, and rows 3-4
     at the ViT and Llama examples' shapes with row 2's split and combine at
-    the Llama example's decode: 57 in all. The BN grids are sized by a meta
+    the Llama example's decode: 57; then rows 3-5 at head dim 128 (the
+    Llama-3-8B shape, bf16 and f32), rows 3-4 at Phi-3-mini's D=96 padded to
+    128, and rows 6-7 at D=128's 64 x 64 pair in both dtypes: 69 in all. The
+    BN grids are sized by a meta
     tensor priced as this card, as the audit sizes them."""
     bf16, f32 = torch.bfloat16, torch.float32
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -308,6 +368,25 @@ def _declared_launches() -> list:
             rows.append((f"flash_qkv_{kind}", f"(3, 8, 12, 1024, 64) bf16 {bq}x{bk}",
                          fqa.qkv_launch(kind, 8, 12, 1024, 64, bf16, bq, bk),
                          fqa.launch_info(kind, 8, 12, 1024, 64, bf16, bq, bk)))
+    # Head dim 128: rows 3-5 at the Llama-3-8B bthd shape in both dtypes,
+    # rows 3-4 as Phi-3-mini's D=96 fused operand declares them (padded to
+    # 128, the padded feature widths), rows 6-7 at their one D=128 pair.
+    for kind in ("flash_fwd", "flash_bwd", "flash_dq"):
+        for dtype in (bf16, f32):
+            name = str(dtype).removeprefix("torch.")
+            rows.append((kind, f"llama3_8b: B=2 T=2048 Hq=32 Hkv=8 D=128 {name}",
+                         fa.flash_launch(kind, 2, 2048, 32, 8, 128, dtype, 4096, 1024),
+                         fa.launch_info(kind, 2, 2048, 32, 8, 128, dtype)))
+    for kind in ("flash_fwd", "flash_bwd"):
+        rows.append((kind, "phi3_mini: B=1 T=2048 H=32 D=96 padded to 128 bf16",
+                     fa.flash_launch(kind, 1, 2048, 32, 32, 128, bf16, 4096, 4096),
+                     fa.launch_info(kind, 1, 2048, 32, 32, 128, bf16)))
+    for kind in ("fwd", "bwd"):
+        for dtype in (bf16, f32):
+            name = str(dtype).removeprefix("torch.")
+            rows.append((f"flash_qkv_{kind}", f"(3, 2, 32, 2048, 128) {name} 64x64",
+                         fqa.qkv_launch(kind, 2, 32, 2048, 128, dtype, 64, 64),
+                         fqa.launch_info(kind, 2, 32, 2048, 128, dtype, 64, 64)))
     for epilogue in ("separate", "fused"):
         for dtype in (bf16, f32):
             name = str(dtype).removeprefix("torch.")
@@ -847,67 +926,74 @@ def qkv_bounds(b, h, t, d, dtype, causal, block_k):
             bound_ms(bwd_in + 3 * act, 10 * d * pairs, dtype), partials)
 
 
+def qkv_case(timer, gen, b, h, t, d, dtype, causal, bq, bk, time_it=False):
+    """Rows 6-7 against their plain versions on the same CUDA tensors: the
+    forward (out, lse) and the whole backward (dq through its partials' f32
+    sum, dk, dv), every element within ``TOL * (1 + |want|)``, two launches
+    bitwise; with ``time_it`` also timed with the L2 flushed, beside the
+    plain versions and SDPA's forward and autograd backward (yardsticks
+    only) and the bounds."""
+    name = str(dtype).removeprefix("torch.")
+    what = f"flash_qkv B={b} H={h} T={t} D={d} {name} causal={causal} tiles {bq}/{bk}"
+    qkv = torch.randn(3, b, h, t, d, generator=gen).to(dtype).cuda()
+    dout = torch.randn(b, h, t, d, generator=gen).to(dtype).cuda()
+    out, lse = fqa.flash_qkv_fwd(qkv, causal, bq, bk)
+    out2, lse2 = fqa.flash_qkv_fwd(qkv, causal, bq, bk)
+    delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
+    args = (qkv, out, lse, dout, delta, causal, bq, bk)
+    dqp, dk, dv = fqa.flash_qkv_bwd(*args)
+    again = fqa.flash_qkv_bwd(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(x, y) for x, y in zip((dqp, dk, dv), again)),
+            f"{what}: two launches differ")
+    del out2, lse2, again
+    out_p, lse_p = fqa._fwd_plain(qkv, causal, bq, bk)
+    err = {"fwd": max(_flash_err(out, out_p, dtype, what + " out"),
+                      _flash_err(lse, lse_p, dtype, what + " lse"))}
+    del out_p, lse_p
+    dqp_p, dk_p, dv_p = fqa._bwd_plain(*args)
+    err["bwd"] = max(_flash_err(dqp.float().sum(0), dqp_p.float().sum(0), dtype, what + " dq"),
+                     _flash_err(dk, dk_p, dtype, what + " dk"),
+                     _flash_err(dv, dv_p, dtype, what + " dv"))
+    del dqp, dk, dv, dqp_p, dk_p, dv_p
+    row = {"b": b, "h": h, "t": t, "d": d, "dtype": name, "causal": causal,
+           "block_q": bq, "block_k": bk, "max_abs_err": err, "tol": TOL[dtype],
+           "deterministic": True}
+    if time_it:
+        q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(0))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa
+        lib_bwd = sdpa_backward_ms(timer, q, k, v, dout, causal)
+        ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
+        fwd_b, bwd_b, bwd_dq_once, partials = qkv_bounds(b, h, t, d, dtype, causal, bk)
+        row["flash_qkv_fwd"] = {
+            "ms": ms(lambda: fqa.flash_qkv_fwd(qkv, causal, bq, bk)),
+            "plain_ms": ms(lambda: fqa._fwd_plain(qkv, causal, bq, bk)),
+            "library_ms": ms(sdpa), "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
+            "max_abs_err": err["fwd"]}
+        row["flash_qkv_bwd"] = {
+            "ms": ms(lambda: fqa.flash_qkv_bwd(*args)),
+            "plain_ms": ms(lambda: fqa._bwd_plain(*args)),
+            "library_ms": lib_bwd[0], "library_spread_ms": lib_bwd[1],
+            "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
+            "max_abs_err": err["bwd"], "dq_partial_bytes": partials,
+            "dq_partial_write_ms": partials / HBM_BYTES_PER_S * 1e3,
+            "bound_dq_once_ms": bwd_dq_once[0], "bound_dq_once_by": bwd_dq_once[1]}
+        row["occupancy"] = {kind: fqa.occupancy(kind, fqa.kernel_dim(d), bq, bk, dtype)
+                            for kind in ("fwd", "bwd")}
+    return row
+
+
 def check_flash_qkv(timer, gen):
-    """Rows 6-7 against their plain versions on the same CUDA tensors at
-    :data:`QKV_CASES`: the forward (out, lse) and the whole backward (dq
-    through its partials' f32 sum, dk, dv), every element within ``TOL *
-    (1 + |want|)``, two launches bitwise. At the GPT-2 bf16 causal shape
-    both compiled tiles are timed with the L2 flushed, beside the plain
-    versions and SDPA's forward and autograd backward (yardsticks only)."""
+    """Rows 6-7 at :data:`QKV_CASES` (:func:`qkv_case`); at the GPT-2 bf16
+    causal shape both compiled tiles are timed."""
     timed = {}
     for b, h, t, d, dtype, causal, bq, bk in QKV_CASES:
-        name = str(dtype).removeprefix("torch.")
-        what = f"flash_qkv B={b} H={h} T={t} D={d} {name} causal={causal} tiles {bq}/{bk}"
-        qkv = torch.randn(3, b, h, t, d, generator=gen).to(dtype).cuda()
-        dout = torch.randn(b, h, t, d, generator=gen).to(dtype).cuda()
-        out, lse = fqa.flash_qkv_fwd(qkv, causal, bq, bk)
-        out2, lse2 = fqa.flash_qkv_fwd(qkv, causal, bq, bk)
-        delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
-        args = (qkv, out, lse, dout, delta, causal, bq, bk)
-        dqp, dk, dv = fqa.flash_qkv_bwd(*args)
-        again = fqa.flash_qkv_bwd(*args)
-        torch.cuda.synchronize()
-        require(torch.equal(out, out2) and torch.equal(lse, lse2)
-                and all(torch.equal(x, y) for x, y in zip((dqp, dk, dv), again)),
-                f"{what}: two launches differ")
-        del out2, lse2, again
-        out_p, lse_p = fqa._fwd_plain(qkv, causal, bq, bk)
-        err = {"fwd": max(_flash_err(out, out_p, dtype, what + " out"),
-                          _flash_err(lse, lse_p, dtype, what + " lse"))}
-        del out_p, lse_p
-        dqp_p, dk_p, dv_p = fqa._bwd_plain(*args)
-        err["bwd"] = max(_flash_err(dqp.float().sum(0), dqp_p.float().sum(0), dtype, what + " dq"),
-                         _flash_err(dk, dk_p, dtype, what + " dk"),
-                         _flash_err(dv, dv_p, dtype, what + " dv"))
-        del dqp, dk, dv, dqp_p, dk_p, dv_p
-        row = {"b": b, "h": h, "t": t, "d": d, "dtype": name, "causal": causal,
-               "block_q": bq, "block_k": bk, "max_abs_err": err, "tol": TOL[dtype],
-               "deterministic": True}
-        if (t, d, dtype, causal) == (1024, 64, torch.bfloat16, True):
-            q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(0))
-            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa
-            lib_bwd = sdpa_backward_ms(timer, q, k, v, dout, True)
-            ms = lambda fn: timer.ms(fn, iters=10, warmup=2)  # noqa: E731
-            fwd_b, bwd_b, bwd_dq_once, partials = qkv_bounds(b, h, t, d, dtype, causal, bk)
-            row["flash_qkv_fwd"] = {
-                "ms": ms(lambda: fqa.flash_qkv_fwd(qkv, causal, bq, bk)),
-                "plain_ms": ms(lambda: fqa._fwd_plain(qkv, causal, bq, bk)),
-                "library_ms": ms(sdpa), "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
-                "max_abs_err": err["fwd"]}
-            row["flash_qkv_bwd"] = {
-                "ms": ms(lambda: fqa.flash_qkv_bwd(*args)),
-                "plain_ms": ms(lambda: fqa._bwd_plain(*args)),
-                "library_ms": lib_bwd[0], "library_spread_ms": lib_bwd[1],
-                "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
-                "max_abs_err": err["bwd"], "dq_partial_bytes": partials,
-                "dq_partial_write_ms": partials / HBM_BYTES_PER_S * 1e3,
-                "bound_dq_once_ms": bwd_dq_once[0], "bound_dq_once_by": bwd_dq_once[1]}
-            row["occupancy"] = {kind: fqa.occupancy(kind, d, bq, bk, dtype)
-                                for kind in ("fwd", "bwd")}
+        time_it = (t, d, dtype, causal) == (1024, 64, torch.bfloat16, True)
+        row = qkv_case(timer, gen, b, h, t, d, dtype, causal, bq, bk, time_it)
+        if time_it:
             timed[(bq, bk)] = row
-            del q, k, v
         emit("parity_flash_qkv", **row)
-        del qkv, dout, out, lse, delta
     return timed
 
 
@@ -2415,6 +2501,382 @@ def llama_profile_phase(card):
          device_time_measured=busy > 0, h2d_copies=h2d, top_kernels=top,
          device_s_by_group=groups, card=card)
 
+# -- head dim 128 and the recipe modules --------------------------------------
+
+#: parity_flash_d128: rows 3-5 at the attention widths of public models with
+#: head dim 128 (B, T, Hq, Hkv, D, fused operand), bf16, causal, T=2048, each
+#: also in f32 at T=256: Llama-3-8B (32 query heads over 8 K/V heads, bthd
+#: GQA), Llama-2-7B (32 heads, the fused MHA operand), and Phi-3-mini (32
+#: heads of 96) and Phi-2 (32 of 80), which run on heads zero-padded to 128.
+D128_FLASH = {"llama3_8b": (2, 2048, 32, 8, 128, False),
+              "llama2_7b": (2, 2048, 32, 32, 128, True),
+              "phi3_mini": (1, 2048, 32, 32, 96, True),
+              "phi2": (1, 2048, 32, 32, 80, True)}
+#: Rows 6-7 at Llama-2-7B's stacked (3, B, H, T, D) operand, at the one tile
+#: pair compiled at D=128 (64 x 64).
+D128_QKV = (2, 32, 2048, 128)
+#: llama_d128_*: TransformerConfig.llama_style at Llama-3-8B's attention
+#: widths (dim 4096, 32 query heads over 8 K/V heads of 128), depth cut to
+#: 2, with the recipe's own vocabulary (50257, not Llama-3's 128256) and
+#: SwiGLU hidden (4 * dim = 16384, not 14336); B=4, T=2048, bf16 compute,
+#: remat, Lion, EMA 0.999.
+LLAMA_D128 = dict(dim=4096, num_layers=2, num_heads=32, num_kv_heads=8, max_seq_len=2048)
+LLAMA_D128_BATCH, LLAMA_D128_STEPS, LLAMA_D128_EMA = 4, 8, 0.999
+#: vit_recipe: examples.vit_cifar at its full width with mixup (alpha 0.2)
+#: and soft cross-entropy, Lion (peak lr 1e-3, decay 0.1), EMA 0.999 read
+#: by the eval Module, one epoch; a checkpoint at step VIT_RECIPE_SAVE.
+VIT_RECIPE_SAVE, VIT_RECIPE_EMA, VIT_RECIPE_PLAIN_STEPS = 50, 0.999, 12
+#: bpe_lm: the synthetic corpus under a byte-level BPE of 512 ids, the
+#: char-LM recipe's widths (dim 256, 6 layers, 4 heads of 64) over them.
+BPE_VOCAB, BPE_STEPS, BPE_BATCH, BPE_SEQ = 512, 30, 32, 256
+
+
+def check_flash_d128(timer, gen):
+    """Rows 3-5 at :data:`D128_FLASH` and rows 6-7 at :data:`D128_QKV`:
+    each kernel against its plain version at the true D (the padded D's
+    through the wrappers' zero padding), two launches bitwise, dk and dv
+    equal with and without dq, bf16 timed with the L2 flushed beside SDPA
+    and the bound; every case must launch the kernels (no plain path on
+    the card)."""
+    rows = {}
+    for name, (b, t, hq, h_kv, d, fused) in D128_FLASH.items():
+        kd = fa.kernel_dim(d)
+        pad = {"model": name, "kernel_d": kd, "padded_work_share": (kd - d) / kd}
+        for dtype, tt, time_it in ((torch.bfloat16, t, True), (torch.float32, 256, False)):
+            before = _flash_counts()
+            row = flash_case(timer, gen, b, tt, hq, h_kv, d, dtype, True, fused, time_it)
+            after = _flash_counts()
+            require(all(after[k] > before[k] for k in after),
+                    f"parity_flash_d128 {name}: a kernel did not launch ({before} -> {after})")
+            emit("parity_flash_d128", **pad, **row)
+            if time_it:
+                rows[name] = row
+    b, h, t, d = D128_QKV
+    before = (fqa.flash_qkv_fwd.launches, fqa.flash_qkv_bwd.launches)
+    rows["llama2_7b_stacked"] = qkv_case(timer, gen, b, h, t, d, torch.bfloat16, True, 64, 64,
+                                         time_it=True)
+    emit("parity_flash_d128", model="llama2_7b_stacked", **rows["llama2_7b_stacked"])
+    for dtype, tt, dd, causal in ((torch.bfloat16, t, d, False), (torch.float32, 256, d, True),
+                                  (torch.bfloat16, 256, 96, True)):
+        emit("parity_flash_d128", model="llama2_7b_stacked" if dd == d else "phi3_stacked",
+             **qkv_case(timer, gen, b, h, tt, dd, dtype, causal, 64, 64))
+    require(fqa.flash_qkv_fwd.launches > before[0] and fqa.flash_qkv_bwd.launches > before[1],
+            "parity_flash_d128: rows 6-7 did not launch")
+    return rows
+
+
+def llama_d128_config(**over) -> TransformerConfig:
+    return TransformerConfig.llama_style(**{**LLAMA_D128, **over})
+
+
+def _param_count(params) -> int:
+    return sum(t.numel() for t in optim.param_leaves(params))
+
+
+def llama_d128_train_phase(card):
+    """LLAMA_D128_STEPS steps of the Llama-style model at head dim 128
+    through the Launcher (the train Module with Lion and ema_decay, remat,
+    bf16 compute, the batches device-resident): a finite falling loss, an
+    EMA shadow that moved, and per step two flash forwards (forward and
+    remat recompute), one backward without dq and one accumulating dq per
+    layer (the dq partials would pass DQ_PARTIALS_MAX_BYTES)."""
+    cfg = llama_d128_config()
+    b, t, layers, steps = LLAMA_D128_BATCH, cfg.max_seq_len, cfg.num_layers, LLAMA_D128_STEPS
+    partials = -(-t // fa.TILE) * b * t * cfg.dim * 4
+    require(partials > fa.DQ_PARTIALS_MAX_BYTES, "llama_d128: the dq switch does not apply")
+    model = TransformerLM(cfg)
+    module = rt.Module(model, [
+        rt.Loss(next_token_loss()),
+        rt.Optimizer(optim.lion(weight_decay=0.1)),
+        rt.Scheduler(optim.warmup_cosine_lr(3e-4, warmup_steps=1, decay_steps=steps)),
+    ], compute_dtype=torch.bfloat16, remat=True, ema_decay=LLAMA_D128_EMA)
+    clock = StepClock(module=module)
+    dataset = rt.Dataset(gpt2.corpus(t, cfg.vocab_size), batch_size=b, shuffle=True,
+                         drop_last=True)
+    launcher = rt.Launcher([rt.Looper([dataset, module, clock], tag="train", repeats=steps,
+                                      progress=False)], statefull=True, runtime=rt.Runtime(seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    launcher.launch()
+    counts = _flash_counts()
+    losses = clock.losses
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"llama_d128_train: losses {losses}")
+    require(float(np.mean(losses[-3:])) < losses[0],
+            f"llama_d128_train: loss did not fall, first {losses[0]}, last three {losses[-3:]}")
+    want = {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps,
+            "flash_dq": layers * steps}
+    require(counts == want, f"llama_d128_train: launches {counts}, want {want}")
+    require(dataset.device_resident, "llama_d128_train: the batches were not device-resident")
+    state = clock.prepared.state
+    ema, params = optim.param_leaves(state["ema_params"]), optim.param_leaves(state["params"])
+    require(all(bool(torch.isfinite(e).all()) for e in ema), "llama_d128_train: EMA not finite")
+    require(not torch.equal(ema[0], params[0]), "llama_d128_train: the EMA shadow did not lag")
+    step_s = np.diff(clock.stamps)[1:]
+    median = float(np.median(step_s))
+    emit("llama_d128_train", config={**LLAMA_D128, "vocab_size": cfg.vocab_size,
+                                     "ffn_hidden": cfg.mlp_ratio * cfg.dim, "head_dim": 128},
+         params=_param_count(state["params"]), dtype="bfloat16", batch=b, seq_len=t,
+         steps=steps, optimizer="lion", ema_decay=LLAMA_D128_EMA, losses=losses,
+         step_ms=[x * 1e3 for x in step_s], step_ms_median=median * 1e3,
+         tokens_per_s=b * t / median, launches=counts,
+         flash_per_step={k: v / steps for k, v in counts.items()},
+         dq_partial_bytes=partials, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=card)
+    return counts
+
+
+def llama_d128_model_check(card):
+    """The Llama-style model at head dim 128, depth 1, f32, T=256, B=1: the
+    card's forward (the f32 flash kernel at D=128, TF32 off) against the
+    CPU's (plain attention), logits within MODEL_TOL."""
+    cfg = dataclasses.replace(llama_d128_config(num_layers=1, max_seq_len=256),
+                              activation_dtype=None)
+    model = TransformerLM(cfg)
+    cpu = model.init(torch.Generator().manual_seed(8), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, 256)).astype(np.int32))
+    logits = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            params = cpu if dev == "cpu" else map_params(lambda x: x.cuda(), cpu)
+            zero_launches()
+            logits[dev] = model.apply(params, {"tokens": tokens.to(dev)},
+                                      mode="eval")["logits"].float().cpu()
+            if dev == "cuda":
+                require(fa.flash_fwd.launches == 1, "llama_d128_model_check: no flash launch")
+            del params
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    require(err <= MODEL_TOL, f"llama_d128_model_check: logits max abs err {err}")
+    emit("llama_d128_model_check", layers=1, dim=cfg.dim, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=128, seq_len=256, dtype="float32",
+         max_abs_err=err, tol=MODEL_TOL, card=card)
+
+
+def llama_d128_serve_phase(card):
+    """The Llama-style model at head dim 128 (random weights from a seed,
+    bf16) serving 4 greedy requests (prompts 128 to 1024 tokens, 32 new
+    each) through ``Scheduler.run_until_idle``: row 1 at D=128 and a group
+    of 4; one ``SlotEngine.decode`` equal to the harvested dispatch it
+    replaces; then ``generate()`` (row 2 at D=128, g=4)."""
+    cfg = llama_d128_config()
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    engine = ServeEngine(model, params, ServeConfig(max_slots=4, block_len=16, prefill_chunk=256,
+                                                    max_model_len=2048),
+                         generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    lens = [128, 384, 700, 1024]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    waves0 = engine.engine.decode_waves
+    zero_launches()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, max_new_tokens=32, temperature=0.0) for p in prompts]
+    events = engine.scheduler.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    waves = engine.engine.decode_waves - waves0
+    launches = pa.paged_decode.launches
+    require(engine.scheduler.idle and events, "llama_d128_serve: not idle")
+    for r in rids:
+        toks = engine.result(r).tokens
+        require(engine.result(r).finished and len(toks) == 32
+                and all(0 <= x < cfg.vocab_size for x in toks),
+                f"llama_d128_serve: request {r} gave {len(toks)} tokens")
+    require(launches == cfg.num_layers * waves,
+            f"llama_d128_serve: paged_decode launched {launches} times over {waves} waves")
+    # One SlotEngine.decode against the dispatch it stands for: one slot
+    # prefilled by hand (its blocks are free again), the same arguments.
+    slot = engine.engine
+    table = np.zeros_like(engine.scheduler.block_table)
+    table[0, :16] = np.arange(1, 17)
+    slot.prefill(table[:1], prompts[1][None, :256], np.zeros((1,), np.int32),
+                 np.asarray([256], np.int32))
+    s = table.shape[0]
+    z_i, z_f = np.zeros((s,), np.int32), np.zeros((s,), np.float32)
+    run = np.zeros((s,), bool)
+    run[0] = True
+    args = (table, np.where(run, 256, 0).astype(np.int32),
+            np.where(run, int(prompts[1][255]), 0).astype(np.int32), run,
+            np.where(run, 8, 0).astype(np.int32), z_f, z_i, np.ones((s,), np.float32),
+            np.full((s,), -1, np.int32), z_i)
+    got = slot.decode(*args)
+    want = slot.harvest(slot.decode_dispatch(*args))
+    require(all(np.array_equal(g, w) for g, w in zip(got, want)),
+            "llama_d128_serve: SlotEngine.decode differs from its dispatch")
+    # Row 2 at D=128: the dense-cache decode of generate().
+    prompt = prompts[0][None, :]
+    zero_launches()
+    out = generate(model, params, prompt, 16, temperature=0)
+    torch.cuda.synchronize()
+    decode_calls = da.decode_attention.launches
+    require(tuple(out.shape) == (1, 128 + 16), f"llama_d128_serve: generate {tuple(out.shape)}")
+    require(decode_calls == cfg.num_layers * 16,
+            f"llama_d128_serve: decode_attention launched {decode_calls} times")
+    emit("llama_d128_serve", requests=4, prompt_lens=lens, new_tokens=32, decode_waves=waves,
+         paged_decode_launches=launches, decode_attention_launches=decode_calls,
+         slot_decode_equals_dispatch=True, tokens_per_s=4 * 32 / wall, wall_s=wall,
+         head_dim=128, group=4, card=card)
+
+
+class _FirstState(Capsule):
+    """The train state as the first step finds it (ahead of the Module)."""
+
+    def __init__(self, module_of):
+        super().__init__(priority=2000)
+        self.module_of = module_of
+        self.state = None
+
+    def launch(self, attrs=None):
+        if self.state is None:
+            state = self.module_of().state
+            self.state = {k: [x.detach().clone() for x in optim.param_leaves(state[k])]
+                          for k in ("params", "ema_params") if k in state}
+
+
+def _vit_recipe(train, val, out_dir, *, ema=True, resume_from=None, save_every=None,
+                capsules=()):
+    save_every = save_every or VIT_RECIPE_SAVE
+    return vit_cifar.build(train, val, batch_size=VIT_BATCH, num_epochs=1, out_dir=out_dir,
+                           runtime=rt.Runtime(seed=0), optimizer=optim.lion(weight_decay=0.1),
+                           lr=1e-3, objective=soft_cross_entropy(),
+                           batch_transform=mixup(alpha=0.2, num_classes=10),
+                           ema_decay=VIT_RECIPE_EMA if ema else None, save_every=save_every,
+                           resume_from=resume_from, capsules=capsules)
+
+
+def _lion_moments(state) -> list:
+    opt = state["optimizer"]
+    return [opt.state[p]["exp_avg"] for p in optim.param_leaves(state["params"])]
+
+
+def vit_recipe_phase(card):
+    """examples.vit_cifar's tree at its full width with mixup, soft
+    cross-entropy, Lion and EMA (the eval Module reading the shadow): one
+    epoch of the synthetic CIFAR-10 with EMA eval accuracy above 0.2; a
+    fresh tree resumed from the step-VIT_RECIPE_SAVE checkpoint ends with
+    params, EMA shadow and Lion moments equal to the uninterrupted run's
+    bitwise; a run that saved without EMA, resumed with ema_decay, starts
+    its shadow at the restored params."""
+    train, val = cifar_resnet.cifar10(train=True), cifar_resnet.cifar10(train=False)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run = _vit_recipe(train, val, "ck")
+                run["launcher"].launch()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _flash_counts()
+            accuracy = run["accuracy"].value
+            whole = run["trained"]["state"]
+            steps = run["total_steps"]
+            require(accuracy is not None and accuracy > 0.2,
+                    f"vit_recipe: EMA eval accuracy {accuracy}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                resumed = _vit_recipe(train, val, "ck_resumed",
+                                      resume_from=f"ck/{VIT_RECIPE_SAVE}")
+                resumed["launcher"].launch()
+            got = resumed["trained"]["state"]
+            for what, a, b in (("params", optim.param_leaves(got["params"]),
+                                optim.param_leaves(whole["params"])),
+                               ("ema_params", optim.param_leaves(got["ema_params"]),
+                                optim.param_leaves(whole["ema_params"])),
+                               ("Lion moments", _lion_moments(got), _lion_moments(whole))):
+                require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                        f"vit_recipe: resumed {what} differ from the uninterrupted run")
+            require(resumed["accuracy"].value == accuracy,
+                    f"vit_recipe: resumed accuracy {resumed['accuracy'].value} vs {accuracy}")
+            # A pre-EMA checkpoint: a short run without EMA, then an EMA run
+            # resumed from it; the first step finds the shadow at the params.
+            n = (VIT_RECIPE_PLAIN_STEPS + 2) * VIT_BATCH
+            sub = train.get_batch(np.arange(n))
+            sub_val = val.get_batch(np.arange(VIT_BATCH))
+            data = (ArrayDataset(sub["image"], sub["label"]),
+                    ArrayDataset(sub_val["image"], sub_val["label"]))
+            with contextlib.redirect_stdout(io.StringIO()):
+                _vit_recipe(*data, "ck_plain", ema=False,
+                            save_every=VIT_RECIPE_PLAIN_STEPS)["launcher"].launch()
+                holder = {}
+                first = _FirstState(lambda: holder["module"])
+                seeded = _vit_recipe(*data, "ck_seeded",
+                                     resume_from=f"ck_plain/{VIT_RECIPE_PLAIN_STEPS}",
+                                     capsules=(first,))
+                holder["module"] = seeded["module"]
+                seeded["launcher"].launch()
+            require(first.state is not None and "ema_params" in first.state,
+                    "vit_recipe: the resumed EMA run took no step")
+            require(all(torch.equal(e, p) for e, p in zip(first.state["ema_params"],
+                                                           first.state["params"])),
+                    "vit_recipe: a pre-EMA checkpoint did not seed the shadow from its params")
+        finally:
+            os.chdir(cwd)
+    emit("vit_recipe", model="vit_tiny", dtype="bfloat16", batch=VIT_BATCH, steps=steps,
+         optimizer="lion", lr=1e-3, mixup_alpha=0.2, ema_decay=VIT_RECIPE_EMA,
+         ema_eval_accuracy=accuracy, resumed_from_step=VIT_RECIPE_SAVE, resume_bitwise=True,
+         pre_ema_seeded=True, launches=launches, wall_s=wall, card=card)
+
+
+def bpe_lm_phase(card):
+    """A byte-level BPE of BPE_VOCAB ids trained on the synthetic corpus,
+    the char-LM recipe's widths over its ids for BPE_STEPS steps with a val
+    Looper reading ``Perplexity`` (the eval Module through the flash
+    kernels at D=64), then 8 text requests served through
+    ``Scheduler.run_until_idle`` and decoded by the tokenizer."""
+    text = synthetic_corpus()
+    t0 = time.perf_counter()
+    tok = BPETokenizer.train(text, BPE_VOCAB)
+    train_s = time.perf_counter() - t0
+    ids = tok.encode(text)
+    require(tok.decode(ids) == text, "bpe_lm: the corpus does not round-trip")
+    split = int(len(ids) * 0.9)
+    cfg = TransformerConfig.char_lm(vocab_size=BPE_VOCAB, max_seq_len=BPE_SEQ)
+    model = TransformerLM(cfg)
+    ppl = Perplexity()
+    module = rt.Module(model, [
+        rt.Loss(next_token_loss()), rt.Optimizer(optim.adamw(weight_decay=0.1)),
+        rt.Scheduler(optim.warmup_cosine_lr(3e-3, warmup_steps=3, decay_steps=BPE_STEPS)),
+    ], compute_dtype=torch.bfloat16)
+    clock = StepClock(module=module)
+    launcher = rt.Launcher([
+        rt.Looper([rt.Dataset(TokenDataset(ids[:split], BPE_SEQ), batch_size=BPE_BATCH,
+                              shuffle=True, drop_last=True), module, clock],
+                  tag="train", repeats=BPE_STEPS, progress=False),
+        rt.Looper([rt.Dataset(TokenDataset(ids[split:], BPE_SEQ), batch_size=BPE_BATCH),
+                   rt.Module(model, compute_dtype=torch.bfloat16),
+                   rt.Meter(["logits", "tokens"], [ppl])],
+                  tag="val", grad_enabled=False, progress=False),
+    ], statefull=True, runtime=rt.Runtime(seed=0))
+    zero_launches()
+    launcher.launch()
+    losses = clock.losses
+    require(len(losses) == BPE_STEPS and all(math.isfinite(x) for x in losses),
+            f"bpe_lm: losses {losses}")
+    require(float(np.mean(losses[-5:])) < losses[0], f"bpe_lm: loss did not fall {losses}")
+    require(ppl.value is not None and math.isfinite(ppl.value) and ppl.value > 1.0,
+            f"bpe_lm: val perplexity {ppl.value}")
+    launches = _flash_counts()
+    params = clock.prepared.state["params"]
+    engine = ServeEngine(model, params, ServeConfig(max_slots=4, block_len=16, prefill_chunk=64,
+                                                    max_model_len=BPE_SEQ),
+                         tokenizer=tok, generator=torch.Generator().manual_seed(0))
+    starts = [text[i * 997:i * 997 + 120] for i in range(8)]
+    rids = [engine.submit(s, max_new_tokens=24, temperature=0.0) for s in starts]
+    engine.scheduler.run_until_idle()
+    texts = [engine.text(r) for r in rids]
+    require(all(engine.result(r).finished for r in rids) and all(isinstance(x, str) and x
+                                                                 for x in texts),
+            f"bpe_lm: served texts {texts}")
+    emit("bpe_lm", vocab=BPE_VOCAB, merges=len(tok.merges), tokenizer_train_s=train_s,
+         corpus_chars=len(text), corpus_ids=len(ids), chars_per_id=len(text) / len(ids),
+         dim=cfg.dim, layers=cfg.num_layers, heads=cfg.num_heads, steps=BPE_STEPS,
+         batch=BPE_BATCH, seq_len=BPE_SEQ, losses=losses, val_perplexity=ppl.value,
+         launches=launches, served=len(texts), served_texts=texts[:2], card=card)
+
+
 #: moe_train: bench.py's moe_gpt2_e4 (GPT-2 124M widths, 4 experts, top-2,
 #: capacity factor 1.25, dropout 0) with the dropless dispatch, B=8,
 #: T=1024, bf16, remat: MOE_STEPS steps, the last MOE_PROFILE_STEPS under
@@ -3087,9 +3549,7 @@ def main() -> int:
     built = _build.build()
     build_s = time.perf_counter() - t0
     emit("build", seconds=build_s, kernels={
-        name: {"seconds": info["seconds"],
-               "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
-                         if "Used" in ln or "spill" in ln]}
+        name: {"seconds": info["seconds"], "ptxas": ptxas_entries(info["ptxas"])}
         for name, info in built.items()},
          # Rows 1, 2, 4, 5, 6, 7, 9, 11, gmm and tgmm (redesigned):
          # registers per thread and resident CTAs per SM at the serve wave,
@@ -3132,7 +3592,17 @@ def main() -> int:
              **{f"flash_qkv_fwd bf16 D=64 {bq}x{bk}": {
                  "registers": fqa.registers("fwd", 64, bq, bk, torch.bfloat16),
                  "ctas_per_sm": fqa.occupancy("fwd", 64, bq, bk, torch.bfloat16)}
-                for bq in fqa.TILES for bk in fqa.TILES}},
+                for bq in fqa.TILES for bk in fqa.TILES},
+             # Head dim 128: rows 4-5 and rows 6-7 at their one tile pair,
+             # bf16 (the build's ptxas lines give their spills).
+             **{f"{kind} bf16 D=128": {
+                 "registers": fa.registers(128, torch.bfloat16, kind),
+                 "ctas_per_sm": fa.occupancy(128, torch.bfloat16, kind)}
+                for kind in ("flash_bwd", "flash_dq")},
+             **{f"flash_qkv_{kind} bf16 D=128 64x64": {
+                 "registers": fqa.registers(kind, 128, 64, 64, torch.bfloat16),
+                 "ctas_per_sm": fqa.occupancy(kind, 128, 64, 64, torch.bfloat16)}
+                for kind in ("fwd", "bwd")}},
          # Rows 6-7: resident CTAs per SM of each D=64 instantiation.
          flash_qkv_occupancy={
              f"{kind} {str(dt).removeprefix('torch.')} {bq}x{bk}": fqa.occupancy(kind, 64, bq, bk,
@@ -3160,6 +3630,8 @@ def main() -> int:
     time_dq_strategies(timer, gen)
     qkv = check_flash_qkv(timer, gen)[(fqa.DEFAULT_BLOCK, fqa.DEFAULT_BLOCK)]
     check_flash_examples(timer, gen)
+    check_flash_d128(timer, gen)
+    torch.cuda.empty_cache()
     block = check_fused_block(timer, gen)
     conv = check_fused_conv(timer, gen)[(524288, 64, "float32")]
     moe = check_moe_kernels(timer, gen)
@@ -3195,6 +3667,13 @@ def main() -> int:
     mnist_phase(card)
     llama_phase(card)
     torch.cuda.empty_cache()
+    llama_d128_train_phase(card)
+    torch.cuda.empty_cache()
+    llama_d128_serve_phase(card)
+    torch.cuda.empty_cache()
+    vit_recipe_phase(card)
+    bpe_lm_phase(card)
+    torch.cuda.empty_cache()
     # Rows 11, gmm and tgmm: launches of the moe_train main path (tgmm's
     # count covers both of its shapes, each half of it).
     for name, count in moe_phases(card).items():
@@ -3204,6 +3683,7 @@ def main() -> int:
     model_check_phase()
     train_model_check()
     moe_model_check()
+    llama_d128_model_check(card)
 
     kernels = []
     for name, row, src, replaces in (

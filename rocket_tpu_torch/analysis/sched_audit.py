@@ -289,6 +289,30 @@ def _llama_flash_parts():
     return step, (params, _meta(128, 256, dtype=torch.int32), dense)
 
 
+def _flash_d128_parts():
+    """Rows 3-7 at head dim 128, bf16, causal: the Llama-3-8B attention
+    width (B=2, T=2048, 32 query heads over 8 K/V heads of 128, bthd GQA;
+    its dq partials would pass ``DQ_PARTIALS_MAX_BYTES``, so the backward
+    is row 4 without dq and row 5), Phi-3-mini's 32 heads of 96 on the fused
+    operand (B=1, padded to 128: row 4 with dq partials), and the stacked
+    (3, 2, 32, 2048, 128) operand at its one compiled tile pair, 64 x 64
+    (``chip_smoke.py``'s parity_flash_d128 phase)."""
+    from rocket_tpu_torch.ops.flash_attention import flash_attention_qkv
+    from rocket_tpu_torch.ops.flash_native import flash_bthd, flash_fused
+
+    q, k, v = (_meta(2, 2048, w).requires_grad_() for w in (32 * 128, 8 * 128, 8 * 128))
+    fused = _meta(1, 2048, 3 * 32 * 96).requires_grad_()
+    qkv = _meta(3, 2, 32, 2048, 128).requires_grad_()
+
+    def step(q, k, v, fused, qkv):
+        grads = torch.autograd.grad(flash_bthd(q, k, v, 32, 8).float().sum(), (q, k, v))
+        grads += torch.autograd.grad(flash_fused(fused, 32).float().sum(), (fused,))
+        return grads + torch.autograd.grad(
+            flash_attention_qkv(qkv, True, 64, 64).float().sum(), (qkv,))
+
+    return step, (q, k, v, fused, qkv)
+
+
 def _badpallas_parts():
     """Row 12, the seeded-bad demo: the fixture's two launches on a
     (4096, 4096) f32 array, 2 * x in (7, 100) blocks over grid (4,) — a tile
@@ -318,6 +342,9 @@ SCHED_TARGETS = {target.name: target for target in (
                 "(rows 3-4)"),
     SchedTarget("llama_flash", _llama_flash_parts, "Llama char-LM train step, B=128 T=256 GQA "
                 "D=32, and its decode step (rows 2-4)"),
+    SchedTarget("train_flash_d128", _flash_d128_parts, "head dim 128: Llama-3-8B GQA "
+                "B=2 T=2048 (rows 3-5), Phi-3-mini D=96 padded (rows 3-4), stacked 64x64 "
+                "(rows 6-7)"),
     SchedTarget("badpallas", _badpallas_parts, "seeded-bad 2*x: misaligned and over-budget "
                 "blocks (row 12)", demo=True),
 )}

@@ -9,6 +9,8 @@ they are tensors or dicts of tensors.
 
 from __future__ import annotations
 
+import copy
+from collections.abc import Iterator, Mapping
 from typing import Any
 
 
@@ -58,6 +60,21 @@ class Attributes(dict):
 
     def copy(self) -> "Attributes":
         return Attributes(self)
+
+    def deepcopy(self) -> "Attributes":
+        """A copy that shares nothing mutable with this bag (tensors copied
+        too)."""
+        return copy.deepcopy(self)
+
+    def flat_items(self, prefix: str = "") -> Iterator[tuple[str, Any]]:
+        """``("a.b.c", value)`` for every leaf of the nested mappings, in
+        insertion order; an empty mapping is a leaf (a logging aid)."""
+        for key, value in self.items():
+            path = f"{prefix}{key}"
+            if isinstance(value, Mapping) and value:
+                yield from Attributes(value).flat_items(path + ".")
+            else:
+                yield path, value
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         inner = ", ".join(f"{k}={v!r}" for k, v in self.items())

@@ -162,6 +162,8 @@ class Checkpointer(Capsule):
             model_path = os.path.join(path, f"model_{k}")
             if os.path.isdir(model_path):
                 flat = checkpoint_io.load_pytree(model_path)
+                if "ema_params" in prepared.state:
+                    flat = checkpoint_io.seed_optional(flat, model_path)
                 prepared.load_checkpoint_state(checkpoint_io.unflatten(flat))
             else:
                 self.log_warning(f"checkpoint {path} has no model_{k} — model state NOT "

@@ -26,8 +26,14 @@ forward reads, and the checkpoint carries under ``model_state/...`` as the
 JAX Checkpointer does. Models without it (the transformer) run exactly as
 before.
 
+EMA params (``ema_decay``): the train Module keeps ``state["ema_params"]``,
+a real copy of the params at setup, and moves it as ``e += (1 - d) (p -
+e)`` after every optimizer update (once per accumulation window); the
+checkpoint carries it under ``ema_params/...``; an eval Module with
+``use_ema=True`` forwards with it.
+
 Not ported yet, and raising ``NotImplementedError``: ``param_sharding``
-(ROADMAP Queue A 6) and EMA params (Queue A 2).
+(ROADMAP Queue A 6).
 Bucketed gradient sync and the pipelined value-and-grad belong to Queue A
 6 as well (``Optimizer(grad_sync=...)`` and ``TransformerConfig.
 pipeline_axis`` raise there).
@@ -83,8 +89,9 @@ def _host(value) -> torch.Tensor:
 class PreparedModule:
     """The shared prepared record of one raw model: its live state —
     ``params`` (nested dict of f32 tensors), ``model_state`` (for a model
-    with ``init_state``), ``step`` (host int),
-    ``base_key`` (the counter-hash key the step keys fold from) and, once
+    with ``init_state``), ``ema_params`` (under a train Module's
+    ``ema_decay``), ``step`` (host int), ``base_key`` (the counter-hash
+    key the step keys fold from) and, once
     a train Module set up, ``optimizer`` and the accumulation buffers.
     Mutable on purpose: train and eval capsules wrapping one model see the
     same state."""
@@ -108,6 +115,8 @@ class PreparedModule:
                 "step": int(state["step"]), "base_key": int(state["base_key"])}
         if state.get("model_state"):
             view["model_state"] = map_params(lambda t: t.detach(), state["model_state"])
+        if "ema_params" in state:
+            view["ema_params"] = state["ema_params"]
         opt = state.get("optimizer")
         if opt is not None:
             per_key: dict = {}
@@ -136,6 +145,11 @@ class PreparedModule:
                 mstate = state["model_state"]
                 for t, path in zip(optim_lib.param_leaves(mstate), _paths(mstate)):
                     t.copy_(_host(_at(view["model_state"], path)))
+            if "ema_params" in state:
+                # A pre-EMA checkpoint arrives with the shadow seeded from
+                # its params (checkpoint_io.seed_optional).
+                for e, path in zip(optim_lib.param_leaves(state["ema_params"]), paths):
+                    e.copy_(_host(_at(view["ema_params"], path)))
         state["step"] = int(view["step"])
         state["base_key"] = int(view["base_key"])
         opt = state.get("optimizer")
@@ -167,7 +181,13 @@ class Module(Dispatcher):
     recomputed in the backward (the dropout keys are counter hashes, so
     the recompute draws the same masks); ignored, with the reference's log
     line, for a model whose config sets ``scan_layers`` and ``scan_remat``,
-    whose blocks checkpoint themselves. ``return_outputs``: ``"eval"``
+    whose blocks checkpoint themselves. ``ema_decay`` (in (0, 1), a train
+    Module with an Optimizer child): keep an exponential moving average of
+    the params, ``state["ema_params"]``, updated after each optimizer
+    update and checkpointed with the model. ``use_ema``: this (eval)
+    Module forwards with that shadow instead of the params; it raises
+    when no train Module sharing the model set ``ema_decay``.
+    ``return_outputs``: ``"eval"``
     (default) replaces ``attrs.batch`` with the forward's output in eval
     only; ``"always"`` in train too. ``batch_transform``: ``fn(batch,
     key) -> batch`` run on the raw train batch before the forward
@@ -182,14 +202,16 @@ class Module(Dispatcher):
         if param_sharding is not None:
             raise NotImplementedError("Module(param_sharding=...) needs multi-device "
                                       "parallelism, not ported yet (ROADMAP Queue A 6)")
-        if ema_decay is not None or use_ema:
-            raise NotImplementedError("Module EMA params are not ported yet (ROADMAP Queue A 2)")
+        if ema_decay is not None and not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"Module: ema_decay must be in (0, 1), got {ema_decay}")
         if return_outputs not in ("eval", "always", "never"):
             raise ValueError(f"Module: unknown return_outputs {return_outputs!r}")
         super().__init__(capsules, statefull=statefull, priority=priority, runtime=runtime)
         self._model = model
         self._compute_dtype = compute_dtype
         self._remat = remat
+        self._ema_decay = ema_decay
+        self._use_ema = use_ema
         self._batch_transform = batch_transform
         self._return_outputs = return_outputs
         self._prepared: Optional[PreparedModule] = None
@@ -264,8 +286,16 @@ class Module(Dispatcher):
                 self._lr_fn = optim_lib.constant_lr(lr)
             self._objective = loss.objective
             self._clip_norm = opt.clip_norm
+            if self._ema_decay is not None and "ema_params" not in state:
+                # A real copy: the shadow must not alias the params.
+                state["ema_params"] = map_params(lambda t: t.detach().clone(), state["params"])
         elif loss is not None:
             raise RuntimeError("Module: a Loss child requires an Optimizer child.")
+        elif self._ema_decay is not None:
+            # Without an update rule the shadow would never move (likely a
+            # confusion with use_ema).
+            raise RuntimeError("Module: ema_decay requires an Optimizer child (use "
+                               "use_ema=True on the eval module to READ the shadow).")
         elif self._batch_transform is not None:
             raise RuntimeError("Module: batch_transform runs in the TRAIN step and requires "
                                "Loss + Optimizer children (eval is never transformed).")
@@ -310,6 +340,13 @@ class Module(Dispatcher):
         opt.step()
         for p in leaves:
             p.grad = None
+        if self._ema_decay is not None:
+            # e += (1 - d) * (p - e), one foreach pass over the leaves.
+            with torch.no_grad():
+                ema = optim_lib.param_leaves(self._prepared.state["ema_params"])
+                diff = torch._foreach_sub(leaves, ema)
+                torch._foreach_mul_(diff, 1.0 - self._ema_decay)
+                torch._foreach_add_(ema, diff)
         return norm
 
     def _train_step(self, batch):
@@ -375,8 +412,14 @@ class Module(Dispatcher):
             if self._return_outputs == "always":
                 attrs.batch = out
         else:
+            if self._use_ema and "ema_params" not in state:
+                # Checked here, not at setup: the train Module may set up
+                # after this one.
+                raise RuntimeError("Module(use_ema=True): no EMA shadow in the model state — "
+                                   "the train Module wrapping this model must set ema_decay.")
+            params = state["ema_params"] if self._use_ema else state["params"]
             with torch.no_grad():
-                out = self._forward(state["params"], batch, "eval", None)
+                out = self._forward(params, batch, "eval", None)
             attrs.batch = out[0] if "model_state" in state else out
             attrs.step_metrics = None
             attrs.sync_gradients = None

@@ -34,7 +34,11 @@
 //
 // Tiles: BQ x BK in {64, 128}^2, a template parameter each (causal needs
 // BQ == BK; the entry points refuse anything else), head dim D in {32, 64},
-// f32 or bf16 operands: 32 instantiations of each direction.
+// f32 or bf16 operands, and 64 x 64 at D = 128: 18 instantiations of each
+// direction. At D = 128 the bf16 forward takes two CTAs' registers (255
+// a thread) and the bf16 backward reads its K and V rows one k16 slice at
+// a time (qk_tile_rows) and makes dq in 64-column passes, so that dk, dv
+// and dq fit the registers together.
 //
 // The bf16 forward (the tuner's flash_fwd path) runs on the tensor cores:
 // each warp owns 16 query rows, so BQ = 64 is 4 warps and BQ = 128 is 8.
@@ -291,8 +295,9 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
 }
 
 // Four CTAs of 4 warps or two of 8 per SM: at most 128 registers a thread.
+// At D = 128 (64 x 64 only) the output accumulator alone takes 64: two CTAs.
 template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(2 * BQ, 256 / BQ)
+__global__ void __launch_bounds__(2 * BQ, (D > 64 ? 128 : 256) / BQ)
 qkv_fwd_tc_kernel(const __nv_bfloat16* qkv, __nv_bfloat16* out, float* lse, int batch, int heads,
                   int t, float scale2, int causal) {
   using namespace rkt_mma;
@@ -598,7 +603,7 @@ qkv_bwd_tc_kernel(const __nv_bfloat16* qkv, const __nv_bfloat16* dout, const flo
   constexpr int kStep = kKeys * LD;  // elements of one Q (or dO) stage
   // dq of a step: 4 groups of 16 query rows, each split over BK / 64
   // warps by columns, so no two warps sum into one element.
-  constexpr int kSplit = BK / kKeys, DW = D / kSplit;
+  constexpr int kSplit = BK / kKeys, DW = D / kSplit, DQW = DW > 64 ? 64 : DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* v_s = k_s + BK * LD;
@@ -674,12 +679,17 @@ qkv_bwd_tc_kernel(const __nv_bfloat16* qkv, const __nv_bfloat16* dout, const flo
             make_uint4(0u, 0u, 0u, 0u);
     } else {
       // Transposed blocks: rows are the warp's keys, columns the step's queries.
-      unsigned a[D / 16][4];
       float s[kKeys / 8][4], dp[kKeys / 8][4];
-      load_a_rows<D, LD>(a, k_s + warp * 16 * LD);
-      qk_tile<D, LD>(s, a, q_tile);
-      load_a_rows<D, LD>(a, v_s + warp * 16 * LD);
-      qk_tile<D, LD>(dp, a, do_tile);
+      if constexpr (D > 64) {  // dk and dv leave no room for the A fragments
+        qk_tile_rows<D, LD>(s, k_s + warp * 16 * LD, q_tile);
+        qk_tile_rows<D, LD>(dp, v_s + warp * 16 * LD, do_tile);
+      } else {
+        unsigned a[D / 16][4];
+        load_a_rows<D, LD>(a, k_s + warp * 16 * LD);
+        qk_tile<D, LD>(s, a, q_tile);
+        load_a_rows<D, LD>(a, v_s + warp * 16 * LD);
+        qk_tile<D, LD>(dp, a, do_tile);
+      }
 #pragma unroll
       for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
@@ -704,25 +714,30 @@ qkv_bwd_tc_kernel(const __nv_bfloat16* qkv, const __nv_bfloat16* dout, const flo
     // This k-tile's dq partial for the step: query rows 16 qg .. 16 qg + 15
     // of round(dS).K over all BK keys, columns DW dh .. DW dh + DW - 1,
     // summed in f32 and rounded once.
-    float dq[DW / 8][4];
+    // At most 64 columns a pass, so that dq, dk and dv fit the registers
+    // together at D = 128.
 #pragma unroll
-    for (int n = 0; n < DW / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+    for (int c0 = dh * DW; c0 < (dh + 1) * DW; c0 += DQW) {
+      float dq[DQW / 8][4];
 #pragma unroll
-    for (int kh = 0; kh < BK / kKeys; ++kh) {
-      unsigned dsa[kKeys / 16][4];
-      load_a_rows_t<LDS>(dsa, ds_s + kh * kKeys * LDS, qg * 16);
+      for (int n = 0; n < DQW / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kKeys / 16; ++j)
-        av_slice<DW, LD>(dq, dsa[j], k_s + kh * kKeys * LD + dh * DW, j);
-    }
+      for (int kh = 0; kh < BK / kKeys; ++kh) {
+        unsigned dsa[kKeys / 16][4];
+        load_a_rows_t<LDS>(dsa, ds_s + kh * kKeys * LDS, qg * 16);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      __nv_bfloat16* row = dqp + static_cast<long long>(q0 + qg * 16 + lane / 4 + 8 * r) * D +
-                           dh * DW + 2 * (lane % 4);
+        for (int j = 0; j < kKeys / 16; ++j)
+          av_slice<DQW, LD>(dq, dsa[j], k_s + kh * kKeys * LD + c0, j);
+      }
 #pragma unroll
-      for (int n = 0; n < DW / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
-            __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
+      for (int r = 0; r < 2; ++r) {
+        __nv_bfloat16* row = dqp + static_cast<long long>(q0 + qg * 16 + lane / 4 + 8 * r) * D +
+                             c0 + 2 * (lane % 4);
+#pragma unroll
+        for (int n = 0; n < DQW / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
+              __floats2bfloat162_rn(dq[n][2 * r], dq[n][2 * r + 1]);
+      }
     }
   }
 
@@ -881,8 +896,11 @@ int run_query(const QueryArgs& a) {
 }
 
 // Instantiate RUN<T, D, BQ, BK> for the compiled dtypes (0 = float32,
-// 1 = bfloat16), head dims (32, 64) and tiles (64, 128)^2; anything else
-// is refused as cudaErrorInvalidValue.
+// 1 = bfloat16), head dims (32, 64: tiles (64, 128)^2; 128: 64 x 64 only)
+// and tiles; anything else is refused as cudaErrorInvalidValue. At
+// D = 128 a 128-row tile does not fit: the f32 forward's 128 x 128 tiles
+// take 264,192 B of shared memory, and the bf16 backward's 128 keys would
+// hold 128 f32 accumulator registers a thread in each of 8 warps.
 #define RKT_QKV_TILES(RUN, T, D, bq, bk, arg)                                    \
   do {                                                                           \
     if ((bq) == 64 && (bk) == 64) return RUN<T, D, 64, 64>(arg);                 \
@@ -901,6 +919,10 @@ int run_query(const QueryArgs& a) {
     if ((d) == 32) {                                                             \
       if ((dtype) == 1) RKT_QKV_TILES(RUN, __nv_bfloat16, 32, bq, bk, arg);      \
       RKT_QKV_TILES(RUN, float, 32, bq, bk, arg);                                \
+    }                                                                            \
+    if ((d) == 128 && (bq) == 64 && (bk) == 64) {                                \
+      if ((dtype) == 1) return RUN<__nv_bfloat16, 128, 64, 64>(arg);             \
+      return RUN<float, 128, 64, 64>(arg);                                       \
     }                                                                            \
     return static_cast<int>(cudaErrorInvalidValue);                              \
   } while (0)

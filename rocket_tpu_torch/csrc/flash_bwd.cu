@@ -48,7 +48,12 @@
 // whole 32-byte pieces; the causal-skipped partials are written as zeros
 // by 16-byte stores. Shared memory is 6 x 64 x (D + 8) bf16, the dS tile
 // and two stages of the statistics (65,536 B at D = 64), three CTAs per
-// SM. Left for later: wgmma with TMA.
+// SM. At D = 128 (114,688 B, two CTAs per SM by shared memory) dk and dv
+// take 128 f32 registers a thread, so the warp reads its K and V rows from
+// shared memory one k16 slice at a time (qk_tile_rows) instead of holding
+// them as fragments, and makes its dq partial in two 64-column passes;
+// the launch bounds ask for two CTAs (255 registers). Left for later:
+// wgmma with TMA.
 //
 // f32 operands keep the first kernel, register-tiled f32 FMA over f32
 // shared-memory tiles (TF32 would miss the 1e-4 bound; no main path
@@ -229,8 +234,10 @@ flash_bwd_kernel(const T* q, const T* k, const T* v, const T* dout, const float*
 }
 
 // The bf16 kernel on the tensor cores (see the note at the head).
+// Three resident CTAs at D <= 64 (168 registers a thread); two at D = 128,
+// where dk and dv alone take 128 f32 registers a thread (255 at most).
 template <int D>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, D > 64 ? 2 : 3)
 flash_bwd_tc_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                     const __nv_bfloat16* dout, const float* lse, const float* delta,
                     float* dq_partials, __nv_bfloat16* dk, __nv_bfloat16* dv, Geometry geo,
@@ -311,12 +318,17 @@ flash_bwd_tc_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_b
     const float* dl_t = dl_s + st * kTile;
 
     // Transposed blocks: rows are the warp's keys, columns the tile's queries.
-    unsigned a[D / 16][4];
     float s[kKeys / 8][4], dp[kKeys / 8][4];
-    load_a_rows<D, LD>(a, k_s + warp * 16 * LD);
-    qk_tile<D, LD>(s, a, q_tile);
-    load_a_rows<D, LD>(a, v_s + warp * 16 * LD);
-    qk_tile<D, LD>(dp, a, do_tile);
+    if constexpr (D > 64) {
+      qk_tile_rows<D, LD>(s, k_s + warp * 16 * LD, q_tile);
+      qk_tile_rows<D, LD>(dp, v_s + warp * 16 * LD, do_tile);
+    } else {
+      unsigned a[D / 16][4];
+      load_a_rows<D, LD>(a, k_s + warp * 16 * LD);
+      qk_tile<D, LD>(s, a, q_tile);
+      load_a_rows<D, LD>(a, v_s + warp * 16 * LD);
+      qk_tile<D, LD>(dp, a, do_tile);
+    }
     const bool diag = causal && iq == ik;
 #pragma unroll
     for (int n = 0; n < kKeys / 8; ++n)
@@ -344,19 +356,25 @@ flash_bwd_tc_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_b
       __syncthreads();
       unsigned dsa[kKeys / 16][4];
       load_a_rows_t<LDS>(dsa, ds_s, warp * 16);
-      float dq[D / 8][4];
+      // At most 64 columns of dq a pass, so that dq, dk and dv fit the
+      // registers together at D = 128.
+      constexpr int DW = D > 64 ? 64 : D;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+      for (int c0 = 0; c0 < D; c0 += DW) {
+        float dq[DW / 8][4];
 #pragma unroll
-      for (int j = 0; j < kKeys / 16; ++j) av_slice<D, LD>(dq, dsa[j], k_s, j);
+        for (int n = 0; n < DW / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
-        if (qi >= t) continue;
-        float* row = dqp + static_cast<long long>(qi) * f_do + h * D + 2 * (lane % 4);
+        for (int j = 0; j < kKeys / 16; ++j) av_slice<DW, LD>(dq, dsa[j], k_s + c0, j);
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(row + n * 8) = make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
+        for (int r = 0; r < 2; ++r) {
+          const int qi = q0 + warp * 16 + lane / 4 + 8 * r;
+          if (qi >= t) continue;
+          float* row = dqp + static_cast<long long>(qi) * f_do + h * D + c0 + 2 * (lane % 4);
+#pragma unroll
+          for (int n = 0; n < DW / 8; ++n)
+            *reinterpret_cast<float2*>(row + n * 8) = make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
+        }
       }
     }
   }
@@ -449,10 +467,10 @@ extern "C" int rkt_flash_bwd_launch_info(int batch, int t, int hq, int h_kv, int
 // memory, and its registers per thread; -1 when the card refuses it or d
 // is not compiled.
 extern "C" int rkt_flash_bwd_occupancy(int d, int dtype) {
-  if (d != 32 && d != 64) return -1;
+  if (!RKT_FLASH_COMPILED(d)) return -1;
   RKT_FLASH_DISPATCH(attr, dtype, d, 0);
 }
 extern "C" int rkt_flash_bwd_registers(int d, int dtype) {
-  if (d != 32 && d != 64) return -1;
+  if (!RKT_FLASH_COMPILED(d)) return -1;
   RKT_FLASH_DISPATCH(attr, dtype, d, 1);
 }

@@ -149,11 +149,14 @@ struct Geometry {
 
 }  // namespace rkt_flash
 
-// Instantiate RUN<T, D> for the compiled head dims (D = 64, that of every
-// model preset, and D = 32, that of the MoE char-LM example's 128-wide,
-// 4-head model) and dtypes (dtype 0 = float32, 1 = bfloat16); any other D
-// is refused as cudaErrorInvalidValue. The 16 x 8 thread map holds for
-// both: a 64 x D output tile gives each thread D / 8 columns (8 or 4).
+// Instantiate RUN<T, D> for the compiled head dims (D = 64, that of the
+// GPT-2 and ViT presets; D = 32, that of the MoE char-LM example's
+// 128-wide, 4-head model; D = 128, that of the Llama-2/3 and Mistral
+// attention widths) and dtypes (dtype 0 = float32, 1 = bfloat16); any other
+// D is refused as cudaErrorInvalidValue (the Python wrappers zero-pad every
+// other D <= 128 to the next compiled one). The 16 x 8 thread map of the
+// f32 kernels holds for all three: a 64 x D output tile gives each thread
+// D / 8 columns (4, 8 or 16).
 #define RKT_FLASH_DISPATCH(RUN, dtype, d, ...)                                      \
   do {                                                                              \
     if ((d) == 64) {                                                                \
@@ -164,5 +167,13 @@ struct Geometry {
       if ((dtype) == 1) return RUN<__nv_bfloat16, 32>(__VA_ARGS__);                 \
       return RUN<float, 32>(__VA_ARGS__);                                           \
     }                                                                               \
+    if ((d) == 128) {                                                               \
+      if ((dtype) == 1) return RUN<__nv_bfloat16, 128>(__VA_ARGS__);                \
+      return RUN<float, 128>(__VA_ARGS__);                                          \
+    }                                                                               \
     return static_cast<int>(cudaErrorInvalidValue);                                 \
   } while (0)
+
+// Whether d is a compiled head dim (the occupancy and register queries
+// answer -1 otherwise).
+#define RKT_FLASH_COMPILED(d) ((d) == 32 || (d) == 64 || (d) == 128)

@@ -34,7 +34,9 @@
 // accumulators, ds is formed in the accumulator layout and re-packed,
 // rounded to bf16, as the A fragments of dq += dS.K, K read by
 // ldmatrix.trans: dS never touches shared memory. Shared memory is
-// 6 x 64 x (D + 8) bf16 (55,296 B at D = 64), four CTAs per SM. Left for
+// 6 x 64 x (D + 8) bf16 (55,296 B at D = 64), four CTAs per SM; at
+// D = 128 (104,448 B, two CTAs) Q and dout are read one k16 slice at a
+// time (qk_tile_rows) and the launch bounds ask for two CTAs. Left for
 // later: wgmma with TMA.
 //
 // f32 operands keep the first kernel, register-tiled f32 FMA over f32
@@ -160,8 +162,10 @@ flash_dq_kernel(const T* q, const T* k, const T* v, const T* dout, const float* 
 }
 
 // The bf16 kernel on the tensor cores (see the note at the head).
+// Four resident CTAs at D <= 64 (128 registers a thread); two at D = 128,
+// where the dq accumulator alone takes 64.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, D > 64 ? 2 : 4)
 flash_dq_tc_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                    const __nv_bfloat16* dout, const float* lse, const float* delta,
                    __nv_bfloat16* dq, Geometry geo, float scale, float scale2, int causal) {
@@ -222,12 +226,17 @@ flash_dq_tc_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
       cp_async_commit();
     }
     const __nv_bfloat16* k_tile = k_s + (ik & 1) * kTileElems;
-    unsigned a[D / 16][4];
     float s[kKeys / 8][4], dp[kKeys / 8][4];
-    load_a_rows<D, LD>(a, q_s + warp * 16 * LD);
-    qk_tile<D, LD>(s, a, k_tile);
-    load_a_rows<D, LD>(a, do_s + warp * 16 * LD);
-    qk_tile<D, LD>(dp, a, v_s + (ik & 1) * kTileElems);
+    if constexpr (D > 64) {
+      qk_tile_rows<D, LD>(s, q_s + warp * 16 * LD, k_tile);
+      qk_tile_rows<D, LD>(dp, do_s + warp * 16 * LD, v_s + (ik & 1) * kTileElems);
+    } else {
+      unsigned a[D / 16][4];
+      load_a_rows<D, LD>(a, q_s + warp * 16 * LD);
+      qk_tile<D, LD>(s, a, k_tile);
+      load_a_rows<D, LD>(a, do_s + warp * 16 * LD);
+      qk_tile<D, LD>(dp, a, v_s + (ik & 1) * kTileElems);
+    }
     const bool diag = causal && ik == iq;
 #pragma unroll
     for (int n = 0; n < kKeys / 8; ++n)
@@ -323,10 +332,10 @@ extern "C" int rkt_flash_dq_launch_info(int batch, int t, int hq, int h_kv, int 
 // memory, and its registers per thread; -1 when the card refuses it or d
 // is not compiled.
 extern "C" int rkt_flash_dq_occupancy(int d, int dtype) {
-  if (d != 32 && d != 64) return -1;
+  if (!RKT_FLASH_COMPILED(d)) return -1;
   RKT_FLASH_DISPATCH(attr, dtype, d, 0);
 }
 extern "C" int rkt_flash_dq_registers(int d, int dtype) {
-  if (d != 32 && d != 64) return -1;
+  if (!RKT_FLASH_COMPILED(d)) return -1;
   RKT_FLASH_DISPATCH(attr, dtype, d, 1);
 }

@@ -32,7 +32,7 @@
 // and re-packed from the score accumulators into A fragments (it never
 // touches shared memory), V is read by ldmatrix.trans. Shared memory is
 // 5 x 64 x (D + 8) bf16 (46,080 B at D = 64), so four CTAs fit an SM by
-// shared memory. Left for later: wgmma with TMA, 128-row q tiles, and
+// shared memory; 87,040 B at D = 128, two. Left for later: wgmma with TMA, 128-row q tiles, and
 // splitting K and V into separate copy groups.
 //
 // f32 operands keep the first kernel, not redesigned: register-tiled f32
@@ -337,6 +337,6 @@ extern "C" int rkt_flash_fwd_launch_info(int batch, int t, int hq, int h_kv, int
 // Resident CTAs per SM of rkt_flash_fwd's (d, dtype) kernel at its shared
 // memory; -1 when the card refuses it or d is not compiled.
 extern "C" int rkt_flash_fwd_occupancy(int d, int dtype) {
-  if (d != 32 && d != 64) return -1;
+  if (!RKT_FLASH_COMPILED(d)) return -1;
   RKT_FLASH_DISPATCH(attr, dtype, d, 0);
 }

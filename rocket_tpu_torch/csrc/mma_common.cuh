@@ -118,6 +118,30 @@ __device__ __forceinline__ void qk_tile(float (&s)[kKeys / 8][4], const unsigned
   }
 }
 
+// qk_tile with the A rows (16 x D, stride LD) read from shared memory one
+// k16 slice at a time instead of held in registers: the D = 128 kernels
+// whose accumulators leave no room for the D / 16 A fragments.
+template <int D, int LD>
+__device__ __forceinline__ void qk_tile_rows(float (&s)[kKeys / 8][4], const __nv_bfloat16* rows,
+                                             const __nv_bfloat16* k_tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned a[4];
+    ldsm_x4(a, rows + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nj = 0; nj < kKeys / 16; ++nj) {
+      unsigned r[4];
+      ldsm_x4(r, k_tile + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(s[2 * nj], a, r[0], r[1]);
+      mma_bf16(s[2 * nj + 1], a, r[2], r[3]);
+    }
+  }
+}
+
 // o (16 x D, D / 8 n8 tiles) += A . rows [16 j, 16 j + 16) of a row tile
 // (stride LD) read transposed by ldmatrix, for the A fragment of one k16
 // slice j.

@@ -8,15 +8,23 @@ one vectorised pass over all B samples (a crop is one gather). A randint
 is the floor of a uniform. The bits cannot match ``jax.random``'s: the
 tests check the ops' properties (crop windows, exact mirrors, the flip
 share, the same key giving the same output).
+
+:func:`mixup` splits into :func:`mixup_draw` (the per-sample lambda and
+the partner permutation, from the step's key) and :func:`mixup_mix` (a
+pure function of the batch and those draws), so the tests feed the
+reference's own draws into the port's mixing.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from rocket_tpu_torch.nn import keys
 
-__all__ = ["random_flip", "random_crop", "cutout", "image_augment"]
+__all__ = ["random_flip", "random_crop", "cutout", "image_augment", "mixup", "mixup_draw",
+           "mixup_mix", "beta", "soft_cross_entropy"]
 
 
 def _randint(key: int, n: int, high: int, device) -> torch.Tensor:
@@ -106,3 +114,100 @@ def image_augment(*, crop_padding: int = 4, crop_pad_mode: str = "constant", fli
         return out
 
     return transform
+
+
+#: Marsaglia-Tsang proposals drawn per gamma sample. Each is accepted with
+#: probability above 0.95 at shape >= 1, so all 16 fail with probability
+#: below 1e-20; a fixed count keeps the draw free of host syncs and
+#: bitwise repeatable from its key.
+_GAMMA_CANDIDATES = 16
+
+
+def _log_gamma(key: int, shape: float, n: int, device) -> torch.Tensor:
+    """log of ``n`` Gamma(shape, 1) samples, f32, on the device. Shape >= 1
+    by Marsaglia-Tsang over a fixed number of proposals (the first accepted
+    one is taken); shape < 1 as Gamma(shape + 1) * U^(1 / shape), in logs
+    so that a small shape cannot underflow."""
+    k_norm, k_acc, k_boost = keys.split(key, 3)
+    a = shape + 1.0 if shape < 1.0 else shape
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    u = keys.uniform(k_norm, (2, _GAMMA_CANDIDATES, n), device)
+    x = torch.sqrt(-2.0 * torch.log(u[0])) * torch.cos(2.0 * math.pi * u[1])   # N(0, 1)
+    v = (1.0 + c * x) ** 3
+    log_v = torch.log(v.clamp_min(1e-30))
+    accept = (v > 0) & (torch.log(keys.uniform(k_acc, (_GAMMA_CANDIDATES, n), device))
+                        < 0.5 * x * x + d - d * v + d * log_v)
+    first = accept.float().argmax(0)                      # the first accepted proposal
+    out = math.log(d) + log_v.gather(0, first[None]).squeeze(0)
+    if shape < 1.0:
+        out = out + torch.log(keys.uniform(k_boost, (n,), device)) / shape
+    return out
+
+
+def beta(key: int, alpha: float, n: int, device) -> torch.Tensor:
+    """``n`` samples of Beta(alpha, alpha), f32 in [0, 1], on the device:
+    X / (X + Y) for independent X, Y ~ Gamma(alpha), as ``jax.random.beta``
+    forms them (the bits differ)."""
+    kx, ky = keys.split(key)
+    return torch.sigmoid(_log_gamma(kx, alpha, n, device) - _log_gamma(ky, alpha, n, device))
+
+
+def mixup_draw(key: int, batch: int, alpha: float, device) -> tuple:
+    """The draws of one mixup step: per-sample ``lam`` (B,) ~ Beta(alpha,
+    alpha) and the partner permutation ``perm`` (B,), both on the device."""
+    k_lam, k_perm = keys.split(key)
+    lam = beta(k_lam, alpha, batch, device)
+    perm = keys.uniform(k_perm, (batch,), device).argsort(stable=True)
+    return lam, perm
+
+
+def mixup_mix(images: torch.Tensor, labels: torch.Tensor, lam: torch.Tensor,
+              perm: torch.Tensor, num_classes: int) -> tuple:
+    """Mix each sample with its partner ``perm[i]`` at weight ``lam[i]`` ->
+    ``(images in their dtype, soft labels (B, num_classes) f32)``. A label
+    outside ``[0, num_classes)`` one-hots to a NaN row (the reference's
+    rule: the loss turns NaN instead of silently under-weighting it)."""
+    b = images.shape[0]
+    lam = lam.float()
+    lam_img = lam.reshape((b,) + (1,) * (images.ndim - 1))
+    x = images.float()
+    mixed = lam_img * x + (1.0 - lam_img) * x[perm]
+    in_range = (labels >= 0) & (labels < num_classes)
+    one_hot = torch.nn.functional.one_hot(labels.long().clamp(0, num_classes - 1),
+                                          num_classes).float()
+    one_hot = torch.where(in_range[:, None], one_hot,
+                          torch.full((), float("nan"), device=one_hot.device))
+    soft = lam[:, None] * one_hot + (1.0 - lam[:, None]) * one_hot[perm]
+    return mixed.to(images.dtype), soft
+
+
+def mixup(alpha: float = 0.2, num_classes: int = 10, image_key: str = "image",
+          label_key: str = "label"):
+    """Mixup as a ``batch_transform``: each sample convex-combined with a
+    shuffled partner (per-sample lambda ~ Beta(alpha, alpha)) and its
+    integer label replaced by the matching soft distribution. Train with
+    :func:`soft_cross_entropy`."""
+
+    def transform(batch, key):
+        images, labels = batch[image_key], batch[label_key]
+        lam, perm = mixup_draw(key, images.shape[0], alpha, images.device)
+        out = dict(batch)
+        out[image_key], out[label_key] = mixup_mix(images, labels, lam, perm, num_classes)
+        return out
+
+    return transform
+
+
+def soft_cross_entropy(logits_key: str = "logits", label_key: str = "label"):
+    """Objective for soft (mixup) labels, ``-sum(labels * log_softmax)``
+    averaged over the batch, in f32. Integer labels are accepted too (the
+    same objective with mixup off)."""
+
+    def objective(batch):
+        logits, labels = batch[logits_key].float(), batch[label_key]
+        if labels.ndim == logits.ndim:
+            return -(labels.float() * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+        return torch.nn.functional.cross_entropy(logits, labels.long())
+
+    return objective

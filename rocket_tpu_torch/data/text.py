@@ -1,17 +1,20 @@
 """Text data (counterparts in ``rocket_tpu/data/text.py``): the
 TinyShakespeare loader with its deterministic synthetic fallback, the
-character tokenizer and :class:`TokenDataset`, fixed-length windows over a
-token stream. The BPE tokenizer waits for a later slice (ROADMAP Queue A
-2)."""
+character tokenizer, the byte-level :class:`BPETokenizer` and
+:class:`TokenDataset`, fixed-length windows over a token stream."""
 
 from __future__ import annotations
 
+import json
 import os
+import re
+from collections import Counter, defaultdict
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["CharTokenizer", "TokenDataset", "synthetic_corpus", "tiny_shakespeare"]
+__all__ = ["BPETokenizer", "CharTokenizer", "TokenDataset", "synthetic_corpus",
+           "tiny_shakespeare"]
 
 
 def synthetic_corpus(num_chars: int = 1_000_000, seed: int = 0) -> str:
@@ -64,6 +67,125 @@ class CharTokenizer:
 
     def decode(self, tokens) -> str:
         return "".join(self.vocab[int(t)] for t in tokens)
+
+
+#: Word and whitespace runs: the units BPE merges within (never across), so
+#: concatenating their bytes gives back the text.
+_CHUNK = re.compile(r"\S+|\s+")
+
+
+def _replace_pair(seq: tuple, pair: tuple, new_id: int) -> tuple:
+    """``seq`` with every occurrence of ``pair``, scanned left to right
+    without overlap, replaced by ``new_id``."""
+    out = []
+    i, n = 0, len(seq)
+    while i < n:
+        if i + 1 < n and seq[i] == pair[0] and seq[i + 1] == pair[1]:
+            out.append(new_id)
+            i += 2
+        else:
+            out.append(seq[i])
+            i += 1
+    return tuple(out)
+
+
+class BPETokenizer:
+    """Byte-level BPE trained from a corpus, with no vocabulary files.
+
+    Ids 0-255 are the raw bytes; merge ``i`` (a pair of ids) makes id
+    ``256 + i``. Training splits the text into word and whitespace runs,
+    counts each distinct run once with its frequency, and repeatedly merges
+    the adjacent pair with the highest count (the smallest pair on a tie)
+    until ``vocab_size`` ids exist or no pair is left: the JAX package's
+    merges and ids exactly. Encoding applies, within each run, the earliest
+    trained merge present until none is; any text round-trips (a byte no
+    merge covers stays its byte id). ``save``/``load`` keep the merges as a
+    JSON list, the JAX package's file."""
+
+    def __init__(self, merges) -> None:
+        self.merges = [tuple(int(x) for x in m) for m in merges]
+        self._rank = {pair: r for r, pair in enumerate(self.merges)}
+        self.vocab = [bytes([b]) for b in range(256)]
+        for left, right in self.merges:
+            self.vocab.append(self.vocab[left] + self.vocab[right])
+        self.vocab_size = len(self.vocab)
+        self._memo: dict = {}
+
+    @classmethod
+    def train(cls, text: str, vocab_size: int) -> "BPETokenizer":
+        """Learn ``vocab_size - 256`` merges (fewer when the text runs out of
+        pairs). Pair counts are kept up to date incrementally: a merge
+        recounts only the runs that hold its pair."""
+        if vocab_size < 256:
+            raise ValueError("BPETokenizer: vocab_size must be >= 256")
+        runs = Counter(_CHUNK.findall(text))
+        words = [tuple(run.encode("utf-8")) for run in runs]
+        weight = list(runs.values())
+        counts: Counter = Counter()
+        holders = defaultdict(set)   # pair -> runs that may hold it
+        for w, word in enumerate(words):
+            for pair in zip(word, word[1:]):
+                counts[pair] += weight[w]
+                holders[pair].add(w)
+        merges = []
+        while 256 + len(merges) < vocab_size:
+            live = [(c, pair) for pair, c in counts.items() if c > 0]
+            if not live:
+                break
+            top = max(c for c, _ in live)
+            best = min(pair for c, pair in live if c == top)
+            new_id = 256 + len(merges)
+            merges.append(best)
+            for w in holders.pop(best, ()):
+                word = words[w]
+                merged = _replace_pair(word, best, new_id)
+                if merged == word:
+                    continue
+                for pair in zip(word, word[1:]):
+                    counts[pair] -= weight[w]
+                for pair in zip(merged, merged[1:]):
+                    counts[pair] += weight[w]
+                    holders[pair].add(w)
+                words[w] = merged
+            del counts[best]
+        return cls(merges)
+
+    def _encode_run(self, run: str) -> tuple:
+        ids = self._memo.get(run)
+        if ids is None:
+            ids = tuple(run.encode("utf-8"))
+            while len(ids) > 1:
+                ranked = [self._rank[p] for p in zip(ids, ids[1:]) if p in self._rank]
+                if not ranked:
+                    break
+                first = min(ranked)
+                ids = _replace_pair(ids, self.merges[first], 256 + first)
+            if len(self._memo) >= 1 << 16:   # bound the memo on high-cardinality text
+                self._memo.clear()
+            self._memo[run] = ids
+        return ids
+
+    def encode(self, text: str) -> np.ndarray:
+        out = []
+        for run in _CHUNK.findall(text):
+            out.extend(self._encode_run(run))
+        return np.asarray(out, np.int32)
+
+    def decode(self, tokens) -> str:
+        return b"".join(self.vocab[int(t)] for t in tokens).decode("utf-8", errors="replace")
+
+    def save(self, path: str) -> None:
+        """Write the merges as JSON through a temp file and a rename, so an
+        interrupted save never leaves a truncated vocabulary."""
+        tmp = f"{path}.tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"merges": [list(m) for m in self.merges]}, f)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "BPETokenizer":
+        with open(path, encoding="utf-8") as f:
+            return cls(json.load(f)["merges"])
 
 
 class TokenDataset:

@@ -25,25 +25,33 @@ from rocket_tpu_torch.utils.metrics import Accuracy
 
 
 def build(train_data, val_data, *, batch_size: int, num_epochs: int, out_dir: str, runtime,
-          model=None, compute_dtype=torch.bfloat16) -> dict:
+          model=None, compute_dtype=torch.bfloat16, optimizer=None, lr: float = 3e-3,
+          objective=None, batch_transform=None, ema_decay=None, save_every: int = 200,
+          resume_from=None, capsules=()) -> dict:
     """The example's capsule tree (``model`` defaults to the example's
-    ``vit_tiny``; ``compute_dtype=None`` computes in float32). Returns
-    ``{"launcher", "model", "module", "datasets", "checkpointer",
-    "accuracy", "trained", "total_steps"}``; ``trained["state"]`` is the
-    live train state once a step ran."""
+    ``vit_tiny``; ``compute_dtype=None`` computes in float32). The recipe's
+    parts default to the example's — ``optimizer`` AdamW, peak ``lr``,
+    ``objective`` cross-entropy, ``batch_transform`` crop and flip — and
+    ``ema_decay`` keeps an EMA shadow of the params that the eval Module
+    then forwards with (``use_ema``); ``capsules`` join the train Looper.
+    Returns ``{"launcher", "model",
+    "module", "datasets", "checkpointer", "accuracy", "trained",
+    "total_steps"}``; ``trained["state"]`` is the live train state once a
+    step ran."""
     model = model or vit_tiny(image_size=32, patch_size=4, num_classes=10, dropout=0.1)
     accuracy = Accuracy()
     steps = max(1, len(train_data) // batch_size * num_epochs)
     module = rt.Module(
         model,
         capsules=[
-            rt.Loss(cross_entropy),
-            rt.Optimizer(optim.adamw(), clip_norm=1.0),
-            rt.Scheduler(optim.warmup_cosine_lr(3e-3, warmup_steps=max(1, steps // 20),
+            rt.Loss(objective or cross_entropy),
+            rt.Optimizer(optimizer or optim.adamw(), clip_norm=1.0),
+            rt.Scheduler(optim.warmup_cosine_lr(lr, warmup_steps=max(1, steps // 20),
                                                 decay_steps=steps)),
         ],
         compute_dtype=compute_dtype,
-        batch_transform=image_augment(crop_padding=4, flip=True),
+        batch_transform=batch_transform or image_augment(crop_padding=4, flip=True),
+        ema_decay=ema_decay,
     )
     trained: dict = {}
 
@@ -56,12 +64,14 @@ def build(train_data, val_data, *, batch_size: int, num_epochs: int, out_dir: st
 
     datasets = (rt.Dataset(train_data, batch_size=batch_size, shuffle=True, drop_last=True),
                 rt.Dataset(val_data, batch_size=batch_size))
-    checkpointer = rt.Checkpointer(output_dir=out_dir, save_every=200, keep_last=2)
+    checkpointer = rt.Checkpointer(output_dir=out_dir, save_every=save_every, keep_last=2,
+                                   resume_from=resume_from)
     launcher = rt.Launcher(
         [
-            rt.Looper([datasets[0], module, Keep(), checkpointer,
+            rt.Looper([datasets[0], module, Keep(), *capsules, checkpointer,
                        rt.Tracker(backend="jsonl", project="vit_cifar")], tag="train"),
-            rt.Looper([datasets[1], rt.Module(model, compute_dtype=compute_dtype),
+            rt.Looper([datasets[1], rt.Module(model, compute_dtype=compute_dtype,
+                                              use_ema=ema_decay is not None),
                        rt.Meter(["logits", "label"], [accuracy]),
                        rt.Tracker(backend="jsonl", project="vit_cifar")],
                       tag="val", grad_enabled=False),

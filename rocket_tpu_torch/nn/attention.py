@@ -20,7 +20,7 @@ from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.layers import Dense
 from rocket_tpu_torch.nn.module import Layer
 from rocket_tpu_torch.ops.decode_attention import decode_attention, decode_attention_supported
-from rocket_tpu_torch.ops.flash_native import HEAD_DIMS, flash_bthd, flash_fused, flash_supported
+from rocket_tpu_torch.ops.flash_native import flash_bthd, flash_fused, flash_supported
 from rocket_tpu_torch.ops.paged_attention import paged_attention
 
 __all__ = [
@@ -33,28 +33,25 @@ IMPLS = ("auto", "plain", "xla", "flash", "ring")
 
 
 def resolve_impl(impl: str, d: int, device) -> str:
-    """Resolve an ``attention_impl`` of "auto" to "plain" or "flash".
+    """Resolve an ``attention_impl`` of "auto" to "plain" or "flash", by
+    the reference's rule (``rocket_tpu/nn/attention.py:97``).
 
-    CPU tensors take the plain path (as the reference does on the CPU).
-    CUDA tensors take the flash kernels, which support head dims D in
-    ``ops.flash_native.HEAD_DIMS`` (64, every preset's, and 32) and any
-    sequence length T; another D raises rather than falling back silently (pass
-    ``impl="plain"`` to choose the plain path on the card). The
-    reference's 128-multiple block rule for T is a TPU rule and does not
-    apply. Explicit impls pass through; "ring" is not ported yet."""
+    CPU tensors take the plain path (the reference's "xla" on the CPU).
+    CUDA tensors take the flash kernels for every head dim D <= 128 (D in
+    ``ops.flash_native.HEAD_DIMS`` runs its own kernel, any other D the
+    next compiled one on zero-padded heads) and the plain path above 128,
+    where no kernel exists. T needs no rule: the kernels take any T (the
+    reference's 128-multiple block rule is a TPU rule). Explicit impls pass
+    through (an explicit "flash" past D = 128 raises in the kernel
+    wrapper); "ring" is not ported yet."""
     if impl == "ring":
         raise NotImplementedError(
             "attention impl='ring' (sequence parallelism) is not ported yet (ROADMAP Queue A 6)"
         )
     if impl != "auto":
         return impl
-    if torch.device(device).type == "cpu":
+    if torch.device(device).type == "cpu" or not flash_supported(d):
         return "plain"
-    if not flash_supported(d):
-        raise ValueError(
-            f"attention: head dim {d} has no flash kernel on CUDA (supported: {HEAD_DIMS}); "
-            "pass attention_impl='plain' to run the plain path"
-        )
     return "flash"
 
 

@@ -23,8 +23,11 @@ in f32 outside the kernel and the partials are summed in f32 outside it,
 ``dq_part[0]`` taken as is when there is one k-tile, as the reference does.
 :func:`flash_attention` stacks separate q, k, v.
 
-Blocks are the kernel's compiled tiles, 64 and 128 (:data:`TILES`); causal
-needs equal blocks, non-causal runs any pair. :func:`resolve_tuned_blocks`
+Blocks are the kernel's compiled tiles: 64 and 128 at D <= 64
+(:data:`TILES`), 64 at D = 128 (:data:`TILES_BY_D`); causal needs equal
+blocks, non-causal runs any compiled pair. A D <= 128 that is not compiled
+runs the kernel of the next compiled D on zero-padded heads, with the scale
+of the true D. :func:`resolve_tuned_blocks`
 reads the ``flash_fwd`` / ``flash_bwd`` tune tables
 (``rocket_tpu_torch.tune``) with the reference's precedence: explicit
 arguments win, pinned forward blocks suppress the backward table, and
@@ -59,18 +62,27 @@ from rocket_tpu_torch.ops._launch import (
     stream_of,
     tile,
 )
+from rocket_tpu_torch.ops.flash_native import flash_supported, kernel_dim
 
 __all__ = [
-    "DEFAULT_BLOCK", "HEAD_DIMS", "TILES", "flash_attention", "flash_attention_qkv",
+    "DEFAULT_BLOCK", "HEAD_DIMS", "TILES", "TILES_BY_D", "default_block", "flash_supported",
+    "kernel_dim", "tiles_for",
+    "flash_attention", "flash_attention_qkv",
     "flash_qkv_bwd", "flash_qkv_fwd", "pick_block", "resolve_tuned_blocks", "smem_bytes",
     "threads", "qkv_launch", "launch_info", "occupancy", "registers",
 ]
 
-#: Tile sizes the CUDA kernels are compiled for (block_q and block_k each).
+#: Tile sizes the CUDA kernels are compiled for at D <= 64 (block_q and
+#: block_k each).
 TILES = (128, 64)
 #: Head dims the CUDA kernels are compiled for (those of the port's other
-#: flash kernels).
-HEAD_DIMS = (32, 64)
+#: flash kernels); every other D <= 128 runs on heads zero-padded to the
+#: next one (``flash_native.kernel_dim``).
+HEAD_DIMS = (32, 64, 128)
+#: Compiled head dim -> the tiles compiled at it: at D = 128 only 64 x 64
+#: (the f32 forward's 128-row tiles outgrow shared memory, the bf16
+#: backward's 128 keys the registers).
+TILES_BY_D = {32: TILES, 64: TILES, 128: (64,)}
 #: The fallback block when no tune table entry matches: the larger compiled
 #: tile. The reference's 512 was a TPU measurement and does not carry over.
 DEFAULT_BLOCK = 128
@@ -88,10 +100,23 @@ _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
 
 
-def pick_block(t: int, preferred: int = DEFAULT_BLOCK) -> Optional[int]:
-    """Largest compiled tile (<= ``preferred``) that divides ``t``, or None.
-    A caller pinning a TPU size (256, 512) gets 128."""
-    for block in TILES:
+def tiles_for(d: int) -> tuple:
+    """The tiles compiled for the kernel that runs head dim ``d`` (raises
+    past 128)."""
+    return TILES_BY_D[kernel_dim(d)]
+
+
+def default_block(d: int) -> int:
+    """The fallback block at head dim ``d``: the largest tile compiled
+    there (:data:`DEFAULT_BLOCK` at D <= 64)."""
+    return tiles_for(d)[0]
+
+
+def pick_block(t: int, preferred: int = DEFAULT_BLOCK, d: int = 64) -> Optional[int]:
+    """Largest tile compiled at head dim ``d`` (<= ``preferred``) that
+    divides ``t``, or None. A caller pinning a TPU size (256, 512) gets the
+    largest compiled tile."""
+    for block in tiles_for(d):
         if block <= preferred and t % block == 0 and block <= t:
             return block
     return None
@@ -272,9 +297,10 @@ def _check(where, qkv, block_q, block_k, **extra):
     _, b, h, t, d = qkv.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{where}: head dim {d} not in {HEAD_DIMS}")
-    if block_q not in TILES or block_k not in TILES or t % block_q or t % block_k:
-        raise ValueError(f"{where}: blocks ({block_q}, {block_k}) must be compiled tiles "
-                         f"{TILES} dividing T={t}")
+    tiles = TILES_BY_D[d]
+    if block_q not in tiles or block_k not in tiles or t % block_q or t % block_k:
+        raise ValueError(f"{where}: blocks ({block_q}, {block_k}) must be tiles {tiles} "
+                         f"compiled at head dim {d}, dividing T={t}")
     for name, x in extra.items():
         want = (b, h, 1, t) if name in ("lse", "delta") else (b, h, t, d)
         if tuple(x.shape) != want:
@@ -297,13 +323,29 @@ def _raise_on(err: int, where: str) -> None:
         raise RuntimeError(f"{where}: kernel launch failed with cudaError {err}")
 
 
+def _pad_d(x: torch.Tensor, kd: int) -> torch.Tensor:
+    """Zero-pad the trailing head dim of ``x`` to ``kd``."""
+    return torch.nn.functional.pad(x, (0, kd - x.shape[-1]))
+
+
 def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
     """Flash forward of the stacked ``(3, B, H, T, D)`` operand -> ``(out
     (B, H, T, D), lse (B, H, 1, T) f32)``. CPU tensors: :func:`_fwd_plain`;
-    CUDA tensors: ``rkt_flash_qkv_fwd`` or raise."""
+    CUDA tensors: ``rkt_flash_qkv_fwd`` or raise, at a D that is not
+    compiled on heads zero-padded to ``kernel_dim(D)`` (out sliced back)."""
     _check_causal_blocks(block_q, block_k, causal, "flash_qkv_fwd")
     if qkv.device.type == "cpu":
         return _fwd_plain(qkv, causal, block_q, block_k)
+    d = qkv.shape[-1]
+    if flash_supported(d) and d not in HEAD_DIMS:
+        out, lse = _fwd_launch(_pad_d(qkv, kernel_dim(d)), causal, block_q, block_k, d)
+        return out[..., :d].contiguous(), lse
+    return _fwd_launch(qkv, causal, block_q, block_k, d)
+
+
+def _fwd_launch(qkv, causal, block_q, block_k, true_d):
+    """Launch (or, on meta tensors, record) ``rkt_flash_qkv_fwd`` at the
+    compiled head dim of ``qkv`` with the scale of ``true_d``."""
     _check("flash_qkv_fwd", qkv, block_q, block_k)
     _check_aligned("flash_qkv_fwd", qkv=qkv)
     _, b, h, t, d = qkv.shape
@@ -314,7 +356,7 @@ def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
         return out, lse
     err = _lib().rkt_flash_qkv_fwd(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t, d, block_q, block_k,
-        _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
+        _LOG2E / math.sqrt(true_d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
     )
     _raise_on(err, "flash_qkv_fwd")
     flash_qkv_fwd.launches += 1
@@ -324,10 +366,23 @@ def flash_qkv_fwd(qkv, causal: bool, block_q: int, block_k: int):
 def flash_qkv_bwd(qkv, out, lse, dout, delta, causal: bool, block_q: int, block_k: int):
     """Fused backward -> ``(dq partials (T / block_k, B, H, T, D), dk, dv
     (B, H, T, D))`` in the operand dtype. CPU tensors: :func:`_bwd_plain`;
-    CUDA tensors: ``rkt_flash_qkv_bwd`` or raise."""
+    CUDA tensors: ``rkt_flash_qkv_bwd`` or raise, at a D that is not
+    compiled on zero-padded heads (the results sliced back)."""
     _check_causal_blocks(block_q, block_k, causal, "flash_qkv_bwd")
     if qkv.device.type == "cpu":
         return _bwd_plain(qkv, out, lse, dout, delta, causal, block_q, block_k)
+    d = qkv.shape[-1]
+    if flash_supported(d) and d not in HEAD_DIMS:
+        kd = kernel_dim(d)
+        grads = _bwd_launch(_pad_d(qkv, kd), _pad_d(dout, kd), lse, delta, causal, block_q,
+                            block_k, d)
+        return tuple(g[..., :d].contiguous() for g in grads)
+    return _bwd_launch(qkv, dout, lse, delta, causal, block_q, block_k, d)
+
+
+def _bwd_launch(qkv, dout, lse, delta, causal, block_q, block_k, true_d):
+    """Launch (or record) ``rkt_flash_qkv_bwd`` at the compiled head dim of
+    ``qkv`` with the scales of ``true_d``."""
     _check("flash_qkv_bwd", qkv, block_q, block_k, dout=dout, lse=lse, delta=delta)
     _check_aligned("flash_qkv_bwd", qkv=qkv, dout=dout)
     _, b, h, t, d = qkv.shape
@@ -341,8 +396,8 @@ def flash_qkv_bwd(qkv, out, lse, dout, delta, causal: bool, block_q: int, block_
         return dqp, dk, dv
     err = _lib().rkt_flash_qkv_bwd(
         qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqp.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, t, d, block_q, block_k, 1.0 / math.sqrt(d),
-        _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
+        dk.data_ptr(), dv.data_ptr(), b, h, t, d, block_q, block_k, 1.0 / math.sqrt(true_d),
+        _LOG2E / math.sqrt(true_d), int(causal), DTYPE_CODES[qkv.dtype], stream_of(qkv),
     )
     _raise_on(err, "flash_qkv_bwd")
     flash_qkv_bwd.launches += 1
@@ -378,9 +433,16 @@ class _Flash(torch.autograd.Function):
         return torch.stack([dq, dk, dv]), None, None
 
 
-def _resolve_blocks(t: int, causal: bool, block_q: int, block_k: int):
-    bq = pick_block(t, min(block_q, t))
-    bk = pick_block(t, min(block_k, t))
+def _resolve_blocks(t: int, d: int, causal: bool, block_q: int, block_k: int):
+    tiles = tiles_for(d)
+    for block in (block_q, block_k):
+        if block in TILES and block not in tiles:
+            raise ValueError(
+                f"flash_attention: tile {block} is not compiled at head dim {kernel_dim(d)} "
+                f"(compiled there: {tiles})"
+            )
+    bq = pick_block(t, min(block_q, t), d)
+    bk = pick_block(t, min(block_k, t), d)
     if t % _T_MULTIPLE or bq is None or bk is None:
         raise ValueError(
             f"flash_attention: seq len {t} must be a multiple of a supported block size "
@@ -396,29 +458,31 @@ def resolve_tuned_blocks(t: int, d: int, h: int, h_kv: int, dtype, causal: bool,
                          block_q, block_k, bwd_block_q, bwd_block_k) -> tuple:
     """(block_q, block_k, bwd_block_q, bwd_block_k) with ``None`` arguments
     resolved through the ``flash_fwd`` / ``flash_bwd`` tune tables and
-    :data:`DEFAULT_BLOCK` as the fallback: the backward falls back to the
+    :func:`default_block` as the fallback: the backward falls back to the
     resolved forward blocks. Explicit arguments win, and a caller that
     pinned both forward blocks gets those blocks in the backward too, with
     no table read (pinned A/Bs run exactly the blocks they name). All four
-    are then clamped to compiled tiles dividing T."""
+    are then clamped to tiles compiled at D dividing T; a pinned or tuned
+    tile that the library compiles at another D only raises."""
     from rocket_tpu_torch.tune import get_config
 
     shape = {"t": t, "d": d, "h": h, "h_kv": h_kv, "causal": causal}
+    fallback = default_block(d)
     fwd_pinned = block_q is not None and block_k is not None
     if not fwd_pinned:
         config = get_config("flash_fwd", shape=shape, dtype=dtype) or {}
         if block_q is None:
-            block_q = config.get("block_q", DEFAULT_BLOCK)
+            block_q = config.get("block_q", fallback)
         if block_k is None:
-            block_k = config.get("block_k", DEFAULT_BLOCK)
-    bq, bk = _resolve_blocks(t, causal, block_q, block_k)
+            block_k = config.get("block_k", fallback)
+    bq, bk = _resolve_blocks(t, d, causal, block_q, block_k)
     if bwd_block_q is None or bwd_block_k is None:
         config = {} if fwd_pinned else (get_config("flash_bwd", shape=shape, dtype=dtype) or {})
         if bwd_block_q is None:
             bwd_block_q = config.get("block_q", bq)
         if bwd_block_k is None:
             bwd_block_k = config.get("block_k", bk)
-    bbq, bbk = _resolve_blocks(t, causal, bwd_block_q, bwd_block_k)
+    bbq, bbk = _resolve_blocks(t, d, causal, bwd_block_q, bwd_block_k)
     return bq, bk, bbq, bbk
 
 
@@ -437,8 +501,9 @@ def flash_attention_qkv(qkv: torch.Tensor, causal: bool = True,
             "for separate q/k/v use flash_attention()."
         )
     _, _, h, t, d = qkv.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_qkv: head dim {d} is not compiled ({HEAD_DIMS})")
+    if not flash_supported(d):
+        raise ValueError(f"flash_attention_qkv: head dim {d} has no kernel (D <= "
+                         f"{HEAD_DIMS[-1]}; compiled: {HEAD_DIMS})")
     blocks = resolve_tuned_blocks(t, d, h, h, qkv.dtype, causal, block_q, block_k,
                                   bwd_block_q, bwd_block_k)
     return _Flash.apply(qkv.contiguous(), causal, blocks)

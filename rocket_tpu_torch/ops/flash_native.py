@@ -41,6 +41,14 @@ kernels read the fused operand at its offsets for any H. The tuned block
 lookup is not ported either; the kernels use fixed ``TILE`` x ``TILE``
 tiles.
 
+Head dims: the kernels compile D = 32, 64 and 128 (:data:`HEAD_DIMS`).
+Every other D <= 128 — the reference's flash rule — runs the kernel of the
+next compiled D on heads the wrapper zero-pads along D (q, k, v, and dout
+in the backward), with the scale of the true D; out, dq, dk and dv are
+sliced back. Zero features add nothing to q.k and the padded output
+columns are p.0 = 0, so the result is the D-wide one. Past 128 there is
+no kernel, and the wrappers raise.
+
 On CPU tensors every wrapper takes its plain version; on CUDA tensors it
 launches its kernel (counted in ``<wrapper>.launches``) or raises; on
 ``meta`` tensors it records its launch (:func:`flash_launch`) and launches
@@ -67,7 +75,8 @@ from rocket_tpu_torch.ops._launch import (
 )
 
 __all__ = [
-    "TILE", "flash_supported", "flash_fused", "flash_bthd",
+    "TILE", "flash_supported", "kernel_dim", "pad_heads", "unpad_heads", "flash_fused",
+    "flash_bthd",
     "flash_fwd", "flash_bwd", "flash_dq", "flash_launch", "launch_info", "occupancy",
     "registers", "tensor_cores",
 ]
@@ -76,9 +85,11 @@ __all__ = [
 TILE = 64
 #: Threads per CTA of the three kernels (``kThreads`` in ``csrc/flash_common.cuh``).
 THREADS = 128
-#: Head dims the CUDA kernels are compiled for: 64 (every model preset)
-#: and 32 (the MoE char-LM example's 128-wide, 4-head model); any T.
-HEAD_DIMS = (32, 64)
+#: Head dims the CUDA kernels are compiled for: 64 (GPT-2, ViT), 32 (the
+#: MoE char-LM example's 128-wide, 4-head model) and 128 (Llama-2/3,
+#: Mistral); any T. Every other D <= 128 runs the kernel of the next
+#: compiled D on zero-padded heads (:func:`kernel_dim`).
+HEAD_DIMS = (32, 64, 128)
 #: f32 dq-partial buffer bound past which the backward switches to the
 #: accumulating dq kernel (``flash_native.py:415`` of the reference).
 DQ_PARTIALS_MAX_BYTES = 1 << 30
@@ -88,8 +99,46 @@ _LOG2E = math.log2(math.e)
 
 
 def flash_supported(head_dim: int) -> bool:
-    """What the CUDA kernels take: D in :data:`HEAD_DIMS`, any T."""
-    return head_dim in HEAD_DIMS
+    """What the flash path takes: any D <= 128 (the reference's rule,
+    ``rocket_tpu/nn/attention.py:97``), any T."""
+    return 0 < head_dim <= HEAD_DIMS[-1]
+
+
+def kernel_dim(head_dim: int) -> int:
+    """The compiled head dim whose kernel runs D: the smallest in
+    :data:`HEAD_DIMS` that is at least D. A D between two compiled ones runs
+    on heads zero-padded to it (zero features add nothing to q.k, and the
+    padded output columns are P.0 = 0), with the scale of the true D.
+    Raises past 128."""
+    for kd in HEAD_DIMS:
+        if head_dim <= kd:
+            return kd
+    raise ValueError(f"flash: head dim {head_dim} has no kernel (D <= {HEAD_DIMS[-1]})")
+
+
+def pad_heads(arr: torch.Tensor, off: int, n: int, d: int, kd: int) -> torch.Tensor:
+    """The ``n`` D-wide heads at feature offset ``off`` of a (..., F)
+    array -> (..., n * kd), each head zero-padded to ``kd`` features."""
+    heads = arr[..., off:off + n * d].reshape(*arr.shape[:-1], n, d)
+    return torch.nn.functional.pad(heads, (0, kd - d)).reshape(*arr.shape[:-1], n * kd)
+
+
+def unpad_heads(arr: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n * kd) padded heads -> (..., n * d): the first D features of
+    each head."""
+    kd = arr.shape[-1] // n
+    return arr.reshape(*arr.shape[:-1], n, kd)[..., :d].reshape(*arr.shape[:-1], n * d)
+
+
+def _padded(q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout=None):
+    """The operands of a head dim that is not compiled, each head
+    zero-padded to :func:`kernel_dim` -> (q, k, v, dout or None, kd,
+    offsets (0, 0, 0))."""
+    kd = kernel_dim(d)
+    q_off, k_off, v_off = offsets
+    return (pad_heads(q_arr, q_off, h, d, kd), pad_heads(k_arr, k_off, h_kv, d, kd),
+            pad_heads(v_arr, v_off, h_kv, d, kd),
+            None if dout is None else pad_heads(dout, 0, h, d, kd), kd, (0, 0, 0))
 
 
 def _check_causal_blocks(block_q: int, block_k: int, causal: bool, where: str) -> None:
@@ -211,7 +260,7 @@ def _check(where, q_arr, k_arr, v_arr, h, h_kv, d, offsets, **extra):
                          "differ in (B, T)")
     if h_kv < 1 or h % h_kv:
         raise ValueError(f"{where}: num_kv_heads {h_kv} must divide num_heads {h}")
-    if not flash_supported(d):
+    if d not in HEAD_DIMS:
         raise ValueError(f"{where}: head dim {d} not in {HEAD_DIMS}")
     q_off, k_off, v_off = offsets
     if (min(offsets) < 0 or q_off + h * d > q_arr.shape[2] or k_off + h_kv * d > k_arr.shape[2]
@@ -360,10 +409,21 @@ def flash_fwd(q_arr, k_arr, v_arr, h: int, h_kv: int, d: int, offsets, causal: b
     """Flash forward over the head slices at ``offsets = (q_off, k_off,
     v_off)`` of (B, T, F) operands -> ``(out (B, T, h*d), lse (B, h, T)
     f32)``. CPU tensors: :func:`_fwd_plain`; CUDA tensors:
-    ``csrc/flash_fwd.cu`` or raise."""
+    ``csrc/flash_fwd.cu`` or raise, at a D that is not compiled on heads
+    zero-padded to :func:`kernel_dim` (out sliced back to D)."""
     _check_causal_blocks(TILE, TILE, causal, "flash_fwd")
     if q_arr.device.type == "cpu":
         return _fwd_plain(q_arr, k_arr, v_arr, h, h_kv, d, offsets, causal)
+    if flash_supported(d) and d not in HEAD_DIMS:
+        q_p, k_p, v_p, _, kd, offs = _padded(q_arr, k_arr, v_arr, h, h_kv, d, offsets)
+        out, lse = _fwd_launch(q_p, k_p, v_p, h, h_kv, kd, offs, causal, d)
+        return unpad_heads(out, h, d), lse
+    return _fwd_launch(q_arr, k_arr, v_arr, h, h_kv, d, offsets, causal, d)
+
+
+def _fwd_launch(q_arr, k_arr, v_arr, h, h_kv, d, offsets, causal, true_d):
+    """Launch (or, on meta tensors, record) ``csrc/flash_fwd.cu`` at the
+    compiled head dim ``d`` with the scale of ``true_d``."""
     _check("flash_fwd", q_arr, k_arr, v_arr, h, h_kv, d, offsets)
     if tensor_cores("flash_fwd", q_arr.dtype):
         _check_aligned("flash_fwd", {"q_arr": q_arr, "k_arr": k_arr, "v_arr": v_arr}, offsets)
@@ -376,7 +436,7 @@ def flash_fwd(q_arr, k_arr, v_arr, h: int, h_kv: int, d: int, offsets, causal: b
     err = _fn("flash_fwd")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), out.data_ptr(), lse.data_ptr(),
         *_geometry_args(q_arr, k_arr, h, h_kv, d, offsets),
-        _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[q_arr.dtype], stream_of(q_arr),
+        _LOG2E / math.sqrt(true_d), int(causal), DTYPE_CODES[q_arr.dtype], stream_of(q_arr),
     )
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
@@ -387,11 +447,26 @@ def flash_bwd(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, 
               causal: bool, with_dq: bool = True):
     """Fused backward -> ``(dq partials (nk, B, T, h*d) f32 or None, dk,
     dv (B, T, h_kv*d))`` with ``nk = ceil(T / TILE)``. CPU tensors:
-    :func:`_bwd_plain`; CUDA tensors: ``csrc/flash_bwd.cu`` or raise."""
+    :func:`_bwd_plain`; CUDA tensors: ``csrc/flash_bwd.cu`` or raise, at a D
+    that is not compiled on zero-padded heads (the results sliced back)."""
     _check_causal_blocks(TILE, TILE, causal, "flash_bwd")
     if q_arr.device.type == "cpu":
         return _bwd_plain(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal,
                           with_dq)
+    if flash_supported(d) and d not in HEAD_DIMS:
+        q_p, k_p, v_p, do_p, kd, offs = _padded(q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout)
+        dqp, dk, dv = _bwd_launch(q_p, k_p, v_p, do_p, lse, delta, h, h_kv, kd, offs, causal,
+                                  with_dq, d)
+        return (None if dqp is None else unpad_heads(dqp, h, d), unpad_heads(dk, h_kv, d),
+                unpad_heads(dv, h_kv, d))
+    return _bwd_launch(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal,
+                       with_dq, d)
+
+
+def _bwd_launch(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal, with_dq,
+                true_d):
+    """Launch (or record) ``csrc/flash_bwd.cu`` at the compiled head dim
+    ``d`` with the scales of ``true_d``."""
     _check("flash_bwd", q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout=dout, lse=lse,
            delta=delta)
     if tensor_cores("flash_bwd", q_arr.dtype):
@@ -416,7 +491,7 @@ def flash_bwd(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, 
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dqp.data_ptr() if with_dq else None, dk.data_ptr(), dv.data_ptr(),
         *_geometry_args(q_arr, k_arr, h, h_kv, d, offsets),
-        1.0 / math.sqrt(d), _LOG2E / math.sqrt(d), int(causal), int(with_dq),
+        1.0 / math.sqrt(true_d), _LOG2E / math.sqrt(true_d), int(causal), int(with_dq),
         DTYPE_CODES[q_arr.dtype], stream_of(q_arr),
     )
     _raise_on(err, "flash_bwd")
@@ -427,10 +502,21 @@ def flash_bwd(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, 
 def flash_dq(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, offsets,
              causal: bool):
     """Accumulating dq -> ``dq (B, T, h*d)`` in the operands' dtype. CPU
-    tensors: :func:`_dq_plain`; CUDA tensors: ``csrc/flash_dq.cu`` or raise."""
+    tensors: :func:`_dq_plain`; CUDA tensors: ``csrc/flash_dq.cu`` or raise,
+    at a D that is not compiled on zero-padded heads (dq sliced back)."""
     _check_causal_blocks(TILE, TILE, causal, "flash_dq")
     if q_arr.device.type == "cpu":
         return _dq_plain(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal)
+    if flash_supported(d) and d not in HEAD_DIMS:
+        q_p, k_p, v_p, do_p, kd, offs = _padded(q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout)
+        return unpad_heads(_dq_launch(q_p, k_p, v_p, do_p, lse, delta, h, h_kv, kd, offs,
+                                      causal, d), h, d)
+    return _dq_launch(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal, d)
+
+
+def _dq_launch(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causal, true_d):
+    """Launch (or record) ``csrc/flash_dq.cu`` at the compiled head dim
+    ``d`` with the scales of ``true_d``."""
     _check("flash_dq", q_arr, k_arr, v_arr, h, h_kv, d, offsets, dout=dout, lse=lse,
            delta=delta)
     if tensor_cores("flash_dq", q_arr.dtype):
@@ -448,8 +534,8 @@ def flash_dq(q_arr, k_arr, v_arr, dout, lse, delta, h: int, h_kv: int, d: int, o
     err = _fn("flash_dq")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), *_geometry_args(q_arr, k_arr, h, h_kv, d, offsets),
-        1.0 / math.sqrt(d), _LOG2E / math.sqrt(d), int(causal), DTYPE_CODES[q_arr.dtype],
-        stream_of(q_arr),
+        1.0 / math.sqrt(true_d), _LOG2E / math.sqrt(true_d), int(causal),
+        DTYPE_CODES[q_arr.dtype], stream_of(q_arr),
     )
     _raise_on(err, "flash_dq")
     flash_dq.launches += 1

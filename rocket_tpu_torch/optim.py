@@ -8,7 +8,7 @@ schedule (or the ``Optimizer`` capsule's constant), so the factories
 construct with ``lr=0``. A schedule is a plain ``step -> lr`` function,
 read at the count of updates made BEFORE the update it drives, as optax
 reads its schedule: under :func:`warmup_cosine_lr` the first update has
-lr 0. Lion waits for a later slice.
+lr 0.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from rocket_tpu_torch.nn.module import map_params
 
 __all__ = [
-    "sgd", "momentum", "adam", "adamw",
+    "sgd", "momentum", "adam", "adamw", "lion", "Lion",
     "constant_lr", "step_lr", "cosine_lr", "linear_lr", "warmup_stable_decay_lr",
     "warmup_cosine_lr", "resolve", "param_leaves",
 ]
@@ -81,14 +81,77 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: f
     the bias-corrected second moment, and both start the bias correction
     at step 1."""
     def make(params):
-        leaves = param_leaves(params)
-        if mask_1d and weight_decay:
-            groups = [{"params": [p for p in leaves if p.ndim >= 2], "weight_decay": weight_decay},
-                      {"params": [p for p in leaves if p.ndim < 2], "weight_decay": 0.0}]
-            groups = [g for g in groups if g["params"]]
-        else:
-            groups = [{"params": leaves, "weight_decay": weight_decay}]
-        return torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
+        return torch.optim.AdamW(_decay_groups(param_leaves(params), weight_decay, mask_1d),
+                                 lr=0.0, betas=(b1, b2), eps=eps)
+
+    return make
+
+
+def _decay_groups(leaves: list, weight_decay: float, mask_1d: bool) -> list:
+    """Parameter groups under the GPT-2/nanoGPT decay convention: with
+    ``mask_1d`` (and a decay) only params with ndim >= 2 decay."""
+    if mask_1d and weight_decay:
+        groups = [{"params": [p for p in leaves if p.ndim >= 2], "weight_decay": weight_decay},
+                  {"params": [p for p in leaves if p.ndim < 2], "weight_decay": 0.0}]
+        return [g for g in groups if g["params"]]
+    return [{"params": leaves, "weight_decay": weight_decay}]
+
+
+class Lion(torch.optim.Optimizer):
+    """Lion (sign momentum) with optax's semantics (``optax.lion``): per
+    step, for gradient g and moment m (state ``exp_avg``, zeros at first),
+
+        u = sign((1 - b1) g + b1 m) + wd p,   p <- p - lr u,
+        m <- (1 - b2) g + b2 m,
+
+    the decoupled decay wd p added to the sign update as optax's
+    ``add_decayed_weights`` does. One moment, so half AdamW's optimizer
+    memory. Each stage is one foreach pass over the group's params, in
+    optax's order of roundings."""
+
+    def __init__(self, params, lr: float = 0.0, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 0.0) -> None:
+        super().__init__(params, {"lr": lr, "b1": b1, "b2": b2, "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            moments = []
+            for p in params:
+                state = self.state[p]
+                if "exp_avg" not in state:
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                moments.append(state["exp_avg"])
+            b1, b2, wd = group["b1"], group["b2"], group["weight_decay"]
+            update = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(update, torch._foreach_mul(moments, b1))
+            torch._foreach_sign_(update)
+            if wd:
+                torch._foreach_add_(update, torch._foreach_mul(params, wd))
+            torch._foreach_mul_(update, -group["lr"])
+            torch._foreach_add_(params, update)
+            new_m = torch._foreach_mul(grads, 1.0 - b2)
+            torch._foreach_add_(new_m, torch._foreach_mul(moments, b2))
+            torch._foreach_copy_(moments, new_m)
+        return loss
+
+
+def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.0,
+         mask_1d: bool = True) -> Factory:
+    """:class:`Lion` — typically run at a 3-10x smaller lr and a 3-10x
+    larger weight decay than AdamW. Decay masking follows :func:`adamw`'s
+    ndim >= 2 convention."""
+    def make(params):
+        return Lion(_decay_groups(param_leaves(params), weight_decay, mask_1d), lr=0.0, b1=b1,
+                    b2=b2)
 
     return make
 

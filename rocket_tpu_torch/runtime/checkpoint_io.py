@@ -18,6 +18,12 @@ file is committed by :func:`atomic_write` (write a temp file, fsync it,
 replace), through the filesystem seam :class:`HostFS` that :func:`use_fs`
 swaps. A leaf whose dtype numpy lacks (``bfloat16``) raises: params and
 AdamW moments are f32.
+
+The EMA shadow (``ema_params/...``, a Module's ``ema_decay``) is the one
+optional leaf, as in the reference: a checkpoint written before EMA was
+enabled seeds the shadow from its ``params/...`` twin with one warning
+(:func:`seed_optional`, and the same rule under a ``template``); any other
+missing leaf fails.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import os
 import tempfile
 import threading
@@ -35,8 +42,10 @@ import torch
 
 __all__ = [
     "HostFS", "use_fs", "atomic_write", "snapshot", "write_snapshot", "save_pytree",
-    "load_leaf", "load_pytree", "unflatten", "AsyncWriter",
+    "load_leaf", "load_pytree", "unflatten", "AsyncWriter", "seed_optional",
 ]
+
+logger = logging.getLogger(__name__)
 
 _INDEX = "index.json"
 _SHARD = "shard_p0.npz"
@@ -224,18 +233,45 @@ def load_leaf(path: str, name: str) -> Any:
     return _value(_read_index(path)[name], _ChunkReader(path))
 
 
+def _is_optional_leaf(name: str) -> bool:
+    """The EMA shadow's leaves, matched exactly (``ema_params`` or under
+    ``ema_params/``): a leaf merely starting with the string is not one."""
+    return name == "ema_params" or name.startswith("ema_params/")
+
+
+def seed_optional(flat: dict, path: str) -> dict:
+    """A ``{leaf path: value}`` mapping of a checkpoint (its values or its
+    index entries) with the EMA shadow filled in from its ``params/...``
+    twins where the checkpoint has none (a run that enabled ``ema_decay``
+    after the save), with one warning. Called for a model that keeps an
+    EMA shadow; a checkpoint that has one is returned as it is."""
+    if any(_is_optional_leaf(name) for name in flat):
+        return flat
+    seeded = {"ema_" + name: value for name, value in flat.items()
+              if name.startswith("params/")}
+    if seeded:
+        logger.warning("checkpoint at %s predates the 'ema_params' leaves — seeding the EMA "
+                       "shadow from the checkpoint's params", path)
+    return {**flat, **seeded}
+
+
 def load_pytree(path: str, template: Any | None = None) -> Any:
     """Restore a checkpoint directory.
 
     With ``template`` (a nested dict / list of tensors and scalars): a
     tree of the template's structure, each tensor leaf rebuilt with the
     template leaf's dtype and device (its shape must match), each other
-    leaf the stored value. Without: a flat ``{leaf path: value}`` dict of
+    leaf the stored value; a template with ``ema_params`` reads them from
+    the params of a checkpoint that has none (:func:`seed_optional`).
+    Without: a flat ``{leaf path: value}`` dict of
     numpy arrays and scalars (:func:`unflatten` nests it)."""
     index = _read_index(path)
     reader = _ChunkReader(path)
     if template is None:
         return {name: _value(meta, reader) for name, meta in index.items()}
+
+    if isinstance(template, dict) and "ema_params" in template:
+        index = seed_optional(index, path)
 
     def rebuild(tree, prefix):
         if isinstance(tree, dict):

@@ -200,6 +200,14 @@ class SlotEngine:
         self.harvest_wait_s += time.perf_counter() - t0
         return packed[0], packed[1].astype(bool), packed[2].astype(bool)
 
+    def decode(self, block_table, lengths, last_tok, run_mask, limits, temp, top_k, top_p,
+               eos, seeds):
+        """Dispatch-and-wait convenience (tests, simple drivers): one k-wave
+        :meth:`decode_dispatch` harvested at once -> ``(tokens, done,
+        emitted)`` as ``(k, S)`` numpy arrays."""
+        return self.harvest(self.decode_dispatch(block_table, lengths, last_tok, run_mask,
+                                                 limits, temp, top_k, top_p, eos, seeds))
+
     def prefill(self, block_table_row, tokens, position, valid) -> None:
         """One prefill chunk for ONE slot: ``block_table_row`` ``(1, MB)``,
         ``tokens`` ``(1, prefill_chunk)`` (tail-padded), ``position`` /

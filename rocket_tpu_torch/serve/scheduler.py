@@ -177,6 +177,17 @@ class Scheduler:
     def idle(self) -> bool:
         return not self.queue and all(s is None for s in self.slots) and self.pending is None
 
+    def run_until_idle(self, max_ticks: int = 100_000) -> list:
+        """Tick until nothing is queued, running or in flight -> every tick's
+        events in order. Raises after ``max_ticks`` ticks without reaching
+        idle."""
+        events = []
+        for _ in range(max_ticks):
+            if self.idle:
+                return events
+            events.extend(self.tick())
+        raise RuntimeError(f"Scheduler.run_until_idle: not idle after {max_ticks} ticks")
+
     # -- phases ------------------------------------------------------------
 
     def _admit(self) -> None:

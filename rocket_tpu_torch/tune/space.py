@@ -24,7 +24,8 @@ an axis the CUDA kernel does not take is not invented. Where the
 reference's TPU tile (``block_rows``, ``block_b``) survives only as the
 call site's shape gate, the axis stays with its default as the one legal
 value, and the gate is its legality. The flash tiles are the compiled
-tiles of ``csrc/flash_attention.cu`` (64 and 128), checked against the
+tiles of ``csrc/flash_attention.cu`` at the shape's head dim (64 and 128 at
+D <= 64, 64 at D = 128), checked against the
 card's shared-memory budget (:class:`~rocket_tpu_torch.utils.perf.
 DeviceSpec.smem_bytes`).
 
@@ -150,12 +151,17 @@ def _flash_legal(kind: str):
                 problems.append(f"{what}={block} does not divide T={t}")
         if shape.get("causal", True) and bq != bk:
             problems.append(f"causal requires block_q == block_k (got {bq} != {bk})")
-        if d not in fa.HEAD_DIMS:
-            problems.append(f"head dim {d} is not compiled ({fa.HEAD_DIMS})")
+        if not fa.flash_supported(d):
+            problems.append(f"head dim {d} has no kernel (D <= {fa.HEAD_DIMS[-1]})")
+            return problems
+        for what, block in (("block_q", bq), ("block_k", bk)):
+            if block not in fa.tiles_for(d):
+                problems.append(f"{what}={block} is not compiled at head dim "
+                                f"{fa.kernel_dim(d)} (tiles {fa.tiles_for(d)})")
         if shape.get("h_kv", shape["h"]) != shape["h"]:
             problems.append("the stacked-qkv kernels take h_kv == h only")
         if spec is not None:
-            need = fa.smem_bytes(kind, bq, bk, d, dtype)
+            need = fa.smem_bytes(kind, bq, bk, fa.kernel_dim(d), dtype)
             if need > spec.smem_bytes:
                 problems.append(f"shared memory {need} B over the {spec.kind} budget "
                                 f"{spec.smem_bytes} B")
@@ -165,9 +171,10 @@ def _flash_legal(kind: str):
 
 
 def _flash_default(shape) -> dict:
-    from rocket_tpu_torch.ops.flash_attention import DEFAULT_BLOCK, pick_block
+    from rocket_tpu_torch.ops.flash_attention import default_block, pick_block
 
-    block = pick_block(shape["t"], min(DEFAULT_BLOCK, shape["t"])) or DEFAULT_BLOCK
+    fallback = default_block(shape["d"])
+    block = pick_block(shape["t"], min(fallback, shape["t"]), shape["d"]) or fallback
     return {"block_q": block, "block_k": block}
 
 

@@ -193,8 +193,8 @@ def test_capsule_tree_guards():
         ds.bind(rt.Runtime(device="cpu"))
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         rt.Module(model, param_sharding=lambda path, leaf: None)
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        rt.Module(model, ema_decay=0.99)
+    with pytest.raises(ValueError, match="ema_decay"):  # EMA is ported; its decay is checked
+        rt.Module(model, ema_decay=1.5)
 
 
 def test_dataset_totals_order_and_run_every():

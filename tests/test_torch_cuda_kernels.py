@@ -27,7 +27,9 @@ stacked-qkv flash kernels) hold every element to ``tol * (1 + |want|)``
 as the other flash kernels do; their dq partials are compared through
 their f32 sum. Rows 3-8 in bf16 run on the tensor cores and are held to
 the same bounds, plus two launches bitwise; so do bf16 ``gmm`` and row
-11, on wgmma.
+11, on wgmma. Rows 3-7 also run at head dim 128 and at D's the wrappers
+zero-pad to 128 (96, 80; 40 to 64), against their plain versions at the
+true D.
 """
 
 import pytest
@@ -162,6 +164,11 @@ FLASH_CASES = [  # (B, T, Hq, Hkv, D, causal)
     (1, 64, 4, 4, 64, False),
     (4, 128, 4, 4, 32, True),   # the MoE char-LM example's head dim
     (2, 100, 4, 2, 32, False),
+    (2, 200, 4, 2, 128, True),  # Llama-2/3's head dim
+    (1, 130, 4, 4, 128, False),
+    (2, 256, 4, 4, 96, True),   # Phi-3-mini's, on heads zero-padded to 128
+    (2, 100, 4, 2, 80, False),  # Phi-2's, padded to 128
+    (1, 64, 2, 2, 40, True),    # padded to 64
 ]
 
 
@@ -219,10 +226,11 @@ def test_flash_rejects_bad_operands(cuda):
     q = torch.zeros(1, 64, 4 * 64, device=cuda)
     with pytest.raises(ValueError):
         tfn.flash_fwd(q.half(), q.half(), q.half(), 4, 4, 64, (0, 0, 0), True)
-    for h, d in ((16, 16), (2, 128), (8, 32 + 8)):  # head dims not compiled
+    wide = torch.zeros(1, 64, 2 * 256, device=cuda)
+    for h, d in ((2, 192), (2, 256)):  # past 128: no kernel
         with pytest.raises(ValueError):
-            tfn.flash_fwd(q[..., :h * d], q[..., :h * d], q[..., :h * d], h, h, d, (0, 0, 0),
-                          True)
+            tfn.flash_fwd(wide[..., :h * d], wide[..., :h * d], wide[..., :h * d], h, h, d,
+                          (0, 0, 0), True)
     with pytest.raises(ValueError):  # head slices past the operand
         tfn.flash_fwd(q, q, q, 4, 4, 64, (0, 64, 0), True)
     with pytest.raises(ValueError):
@@ -234,7 +242,8 @@ def test_flash_rejects_bad_operands(cuda):
 TC_FLASH_CASES = [  # (B, T, Hq, Hkv, D, causal): ragged T, GQA, D=32, causal and not
     (2, 1, 4, 4, 64, True), (2, 63, 4, 4, 64, True), (2, 65, 4, 2, 64, False),
     (2, 100, 4, 4, 64, True), (1, 1000, 8, 2, 64, True), (2, 100, 4, 2, 32, False),
-    (2, 256, 4, 4, 32, True),
+    (2, 256, 4, 4, 32, True), (2, 300, 4, 2, 128, True), (1, 257, 4, 4, 128, False),
+    (2, 200, 4, 4, 96, True), (1, 100, 4, 2, 80, False),
 ]
 
 
@@ -490,12 +499,16 @@ def test_tensor_core_occupancy_is_what_the_declarations_leave_room_for(cuda):
     launch bounds')."""
     assert tfn.occupancy(64, torch.bfloat16) >= 3
     assert tfn.occupancy(32, torch.bfloat16) >= 3
-    for d in tfn.HEAD_DIMS:
+    for d in (32, 64):
         assert tfn.occupancy(d, torch.bfloat16, "flash_bwd") >= 3
         assert tfn.occupancy(d, torch.bfloat16, "flash_dq") >= 4
-    for d in tfa.HEAD_DIMS:
         assert tfa.occupancy("fwd", d, 64, 64, torch.bfloat16) >= 4
         assert tfa.occupancy("fwd", d, 128, 128, torch.bfloat16) >= 2
+    # D = 128: two CTAs of rows 3-6 per SM, by shared memory and the
+    # launch bounds' registers.
+    for kind in ("flash_fwd", "flash_bwd", "flash_dq"):
+        assert tfn.occupancy(128, torch.bfloat16, kind) >= 2, kind
+    assert tfa.occupancy("fwd", 128, 64, 64, torch.bfloat16) >= 2
     assert tpa.attribute("split", "ctas", 1, 64, torch.bfloat16) >= 8
     assert tda.attribute("split", "ctas", 1, 64, torch.bfloat16) >= 8
     assert tgg.attribute("ctas") == 1 and 0 < tgg.attribute("registers") <= 168
@@ -960,6 +973,8 @@ def test_grouped_products_follow_the_gate_and_raise_past_the_kernels(cuda):
 # -- rows 6-7: flash attention on the stacked (3, B, H, T, D) operand ---------
 
 QKV_CASES = [(2, 4, 256, 64), (2, 4, 256, 32), (8, 12, 1024, 64)]  # (B, H, T, D); GPT-2 last
+#: Head dim 128 (64 x 64 only) and two padded to it.
+QKV_D128_CASES = [(2, 4, 256, 128), (1, 2, 384, 96), (1, 3, 128, 80)]
 QKV_TILES = [(64, 64), (128, 128), (64, 128), (128, 64)]
 
 
@@ -1041,12 +1056,47 @@ def test_flash_qkv_bwd_bf16_tensor_cores_match_plain_and_repeat_bitwise(cuda, ti
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", QKV_D128_CASES, ids=lambda c: "b{}h{}t{}d{}".format(*c))
+def test_flash_qkv_d128_and_padded_match_plain_and_repeat_bitwise(cuda, case, dtype):
+    """Rows 6-7 at D = 128 (the one compiled tile pair, 64 x 64) and at
+    D = 96 and 80 on heads zero-padded to 128: forward and backward against
+    the plain versions at the true D, causal and not, two launches bitwise;
+    a 128-row tile at these head dims raises."""
+    b, h, t, d = case
+    gen = torch.Generator().manual_seed(b * t + d)
+    qkv = _randn(gen, dtype, 3, b, h, t, d)
+    dout = _randn(gen, dtype, b, h, t, d)
+    for causal in (True, False):
+        what = f"{case} {dtype} causal={causal}"
+        out, lse = tfa.flash_qkv_fwd(qkv, causal, 64, 64)
+        out2, lse2 = tfa.flash_qkv_fwd(qkv, causal, 64, 64)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        out_p, lse_p = tfa._fwd_plain(qkv, causal, 64, 64)
+        assert out.shape == out_p.shape == (b, h, t, d)
+        _close_per_element(out, out_p, TOL[dtype], what + " out")
+        _close_per_element(lse, lse_p, TOL[dtype], what + " lse")
+        delta = (out.float() * dout.float()).sum(-1).unsqueeze(2)
+        args = (qkv, out, lse, dout, delta, causal, 64, 64)
+        dqp, dk, dv = tfa.flash_qkv_bwd(*args)
+        again = tfa.flash_qkv_bwd(*args)
+        assert all(torch.equal(x, y) for x, y in zip((dqp, dk, dv), again)), what
+        dqp_p, dk_p, dv_p = tfa._bwd_plain(*args)
+        assert dqp.shape == dqp_p.shape == (t // 64, b, h, t, d)
+        _close_per_element(dqp.float().sum(0), dqp_p.float().sum(0), TOL[dtype], what + " dq")
+        _close_per_element(dk, dk_p, TOL[dtype], what + " dk")
+        _close_per_element(dv, dv_p, TOL[dtype], what + " dv")
+    with pytest.raises(ValueError):
+        tfa.flash_qkv_fwd(qkv, True, 128, 128)
+
+
+@pytest.mark.cuda
 def test_flash_qkv_bwd_bf16_occupancy_and_registers(cuda):
     """Row 7's bf16 backward: at least two resident CTAs of 64 keys per SM
     and one of 128 keys, at every tile pair and head dim, in at most 255
     registers a thread (no spills: the build line prints them)."""
     for d in tfa.HEAD_DIMS:
-        for bq, bk in QKV_TILES:
+        for bq, bk in [(bq, bk) for bq, bk in QKV_TILES if {bq, bk} <= set(tfa.tiles_for(d))]:
             ctas = tfa.occupancy("bwd", d, bq, bk, torch.bfloat16)
             regs = tfa.registers("bwd", d, bq, bk, torch.bfloat16)
             assert ctas >= (2 if bk == 64 else 1), (d, bq, bk, ctas)

@@ -6,7 +6,10 @@ The port's CPU path is the kernels' plain versions (``_fwd_plain``,
 come from a numpy seed (B <= 2, H = 2, T = 256); both packages run
 ``block_q = block_k = 128`` (two k-blocks, so the dq partials are summed),
 plus one non-causal f32 call where the reference pins 256/128 and the port
-resolves 128/128 (its largest compiled tile). Gradients: ``jax.grad``
+resolves 128/128 (its largest compiled tile). Head dims 32, 64, 128, 96
+and 80; at D = 128 (and the D's the card pads to it) the port runs its one
+compiled tile pair, 64 x 64, against the reference at 128 x 128 in f32
+and at 64 x 64 in bf16 (where the dq partials round per block). Gradients: ``jax.grad``
 against torch autograd of ``sum(out * w)`` for one random ``w``.
 
 Tolerances: float32 1e-5 on the forward (the same f32 math, blockwise vs
@@ -73,15 +76,22 @@ def _compare(b, d, dtype_name, causal, jblocks, tblocks, seed=0):
             _assert_close(g, x, tol, name)
 
 
+def _port_blocks(d):
+    """The port's tiles at head dim d: 128 x 128 up to D = 64, the one
+    compiled 64 x 64 pair at D = 128 (and the D's padded to it)."""
+    return (128, 128) if d <= 64 else (64, 64)
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128, 96, 80])
 def test_f32_matches_the_jax_kernel(causal, d):
-    _compare(2, d, "float32", causal, (128, 128), (128, 128))
+    _compare(2, d, "float32", causal, (128, 128), _port_blocks(d))
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_bf16_matches_the_jax_kernel(causal):
-    _compare(1, 64, "bfloat16", causal, (128, 128), (128, 128), seed=1)
+def test_bf16_matches_the_jax_kernel(causal, d):
+    _compare(1, d, "bfloat16", causal, _port_blocks(d), _port_blocks(d), seed=1)
 
 
 def test_pinned_tpu_blocks_resolve_to_compiled_tiles():
@@ -133,5 +143,5 @@ def test_entry_errors():
         tfa.flash_attention(*(torch.zeros(1, H, 192, 64),) * 3)  # 64 divides, 128 does not
     with pytest.raises(ValueError, match="block_q == block_k"):
         tfa.flash_qkv_fwd(torch.stack([x, x, x]), True, 64, 128)
-    with pytest.raises(ValueError, match="head dim 16"):
-        tfa.flash_attention(*(torch.zeros(1, H, T, 16),) * 3)
+    with pytest.raises(ValueError, match="head dim 192"):  # past 128: no kernel
+        tfa.flash_attention(*(torch.zeros(1, H, T, 192),) * 3)

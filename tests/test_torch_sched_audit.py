@@ -124,6 +124,7 @@ TARGET_KERNELS = {
               "decode_attention_combine"},
     "vit_flash": {"flash_fwd", "flash_bwd"},
     "llama_flash": {"flash_fwd", "flash_bwd", "decode_attention", "decode_attention_combine"},
+    "train_flash_d128": {"flash_fwd", "flash_bwd", "flash_dq", "flash_qkv_fwd", "flash_qkv_bwd"},
 }
 #: Launches that stage nothing in shared memory.
 NO_SMEM = {"paged_decode_combine", "decode_attention_combine"}
@@ -240,6 +241,40 @@ def test_flash_qkv_bf16_backward_declaration_equals_threads_and_smem_bytes(tiles
     if d == 64:
         ctas = 3 if bk == 64 else 2
         assert ctas * (fact.dynamic_smem + CTA_RESERVED) <= SM_SMEM
+
+
+def test_d128_target_declares_the_compiled_head_dim_for_every_launch():
+    """Head dim 128: the Llama-3-8B GQA step (rows 3, 4 without dq, 5), the
+    Phi-3-mini D = 96 step on heads padded to 128 (rows 3, 4 with dq) and
+    the stacked operand at 64 x 64 (rows 6-7), every launch declared at
+    D = 128 with the .cu files' shared memory, two CTAs of rows 3-6 by
+    shared memory, clean on an H100."""
+    facts = run_sched_target(SCHED_TARGETS["train_flash_d128"]).launches
+    names = [f.name for f in facts]
+    assert names.count("flash_fwd") == 2 and names.count("flash_bwd") == 2
+    assert names.count("flash_dq") == 1
+    assert names.count("flash_qkv_fwd") == names.count("flash_qkv_bwd") == 1
+    bf16 = torch.bfloat16
+    llama = [f for f in facts if f.name.startswith("flash_") and f.grid[-1] == 2
+             and not f.name.startswith("flash_qkv")]
+    assert {f.name for f in llama} == {"flash_fwd", "flash_bwd", "flash_dq"}
+    for f in llama:
+        want = tfn.flash_launch(f.name, 2, 2048, 32, 8, 128, bf16, 32 * 128, 8 * 128,
+                                with_dq=False)
+        assert f == want, f.name
+    phi3 = [f for f in facts if f.grid[-1] == 1]
+    assert [f.name for f in phi3] == ["flash_fwd", "flash_bwd"]
+    for f in phi3:   # padded: the kernel's D and the padded feature widths
+        assert f == tfn.flash_launch(f.name, 1, 2048, 32, 32, 128, bf16, 32 * 128, 32 * 128)
+    assert tfn._smem_bytes("flash_fwd", 128, bf16) == 2 * 5 * 64 * 136 == 87_040
+    assert tfn._smem_bytes("flash_bwd", 128, bf16) == 114_688
+    assert tfn._smem_bytes("flash_dq", 128, bf16) == 2 * 6 * 64 * 136 == 104_448
+    for kind in ("flash_fwd", "flash_bwd", "flash_dq"):
+        assert 2 * (tfn._smem_bytes(kind, 128, bf16) + CTA_RESERVED) <= SM_SMEM
+    qkv = {f.name: f for f in facts if f.name.startswith("flash_qkv")}
+    for kind in ("fwd", "bwd"):
+        assert qkv[f"flash_qkv_{kind}"] == tfa.qkv_launch(kind, 2, 32, 2048, 128, bf16, 64, 64)
+    assert check_launches(facts, device_spec(DEFAULT_DEVICE_KIND)) == []
 
 
 def test_flash_qkv_bf16_forward_leaves_room_for_resident_ctas():

@@ -193,3 +193,67 @@ def test_submit_validation_and_retention():
     eng.drain()
     eng.reset_metrics()
     assert eng.report()["tokens_generated"] == 0
+
+
+def _engine_pair(name, **sizing):
+    kw = CONFIGS[name]
+    jmodel = jt.TransformerLM(jt.TransformerConfig(**kw))
+    jparams = jax.jit(jmodel.init)(jax.random.key(0))["params"]
+    tmodel = tt.TransformerLM(tt.TransformerConfig(**kw))
+    jeng = JServeEngine(jmodel, jparams, JServeConfig(reqtrace=False, **sizing))
+    teng = ServeEngine(tmodel, params_from_jax(jax.tree.map(np.asarray, jparams)),
+                       ServeConfig(**sizing), device="cpu")
+    return jeng, teng
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_run_until_idle_matches_the_jax_greedy_run(name):
+    """``Scheduler.run_until_idle`` drives a starved pool (evictions) to
+    the same greedy tokens as the JAX scheduler's; past ``max_ticks`` both
+    raise."""
+    sizing = dict(max_slots=4, block_len=4, prefill_chunk=4, max_model_len=32, num_blocks=9)
+    jeng, teng = _engine_pair(name, **sizing)
+    work = _workload(seed=5)
+    jids = [jeng.submit(p, max_new_tokens=m, temperature=0.0) for p, m in work]
+    tids = [teng.submit(p, max_new_tokens=m, temperature=0.0) for p, m in work]
+    jeng.scheduler.run_until_idle()
+    events = teng.scheduler.run_until_idle()
+    assert teng.scheduler.idle and events
+    for jid, tid in zip(jids, tids):
+        assert teng.result(tid).finished and teng.result(tid).tokens == jeng.result(jid).tokens
+    assert teng.scheduler.run_until_idle() == []          # idle: no tick
+    for eng in (jeng, teng):
+        eng.submit(np.asarray([1, 2, 3], np.int32), max_new_tokens=8)
+        with pytest.raises(RuntimeError, match="not idle after 2 ticks"):
+            eng.scheduler.run_until_idle(max_ticks=2)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_slot_engine_decode_equals_the_reference_and_its_dispatch(name):
+    """``SlotEngine.decode`` after the same prefills: the JAX engine's
+    tokens, done and emitted flags exactly, and the same as one
+    ``decode_dispatch`` harvested (one host transfer each)."""
+    sizing = dict(max_slots=4, block_len=4, prefill_chunk=4, max_model_len=32, num_blocks=9,
+                  decode_waves_per_dispatch=2)
+    jeng, teng = _engine_pair(name, **sizing)
+    table = np.zeros((4, 8), np.int32)
+    table[0, :2], table[1, :2] = [1, 2], [3, 4]
+    prompts = (np.asarray([[5, 9, 2, 7]], np.int32), np.asarray([[11, 3, 0, 0]], np.int32))
+    for eng in (jeng, teng):
+        for slot, (prompt, valid) in enumerate(zip(prompts, (4, 2))):
+            eng.engine.prefill(table[slot:slot + 1], prompt, np.zeros((1,), np.int32),
+                               np.asarray([valid], np.int32))
+    z_i, z_f = np.zeros((4,), np.int32), np.zeros((4,), np.float32)
+    args = (table, np.asarray([4, 2, 0, 0], np.int32), np.asarray([7, 3, 0, 0], np.int32),
+            np.asarray([True, True, False, False]), np.asarray([6, 1, 0, 0], np.int32), z_f, z_i,
+            np.ones((4,), np.float32), np.full((4,), -1, np.int32), z_i)
+    want = jeng.engine.decode(*args)
+    gets = teng.engine.device_gets
+    got = teng.engine.decode(*args)
+    assert teng.engine.device_gets == gets + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got[0].shape == (2, 4) and not got[2][:, 2:].any()
+    again = teng.engine.harvest(teng.engine.decode_dispatch(*args))
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g, a)

@@ -461,8 +461,33 @@ def test_flash_spaces_enumerate_compiled_tiles_within_the_budget():
     small = DeviceSpec("small card", 1e12, 1e12, 1e12, 100 * 1024, 132)
     assert space.candidates(shape, small, "float32") == [{"block_k": 64, "block_q": 64}]
     assert space.violations({"block_q": 256, "block_k": 256}, shape, spec, "bfloat16")
-    assert space.violations({"block_q": 64, "block_k": 64}, dict(shape, d=128), spec,
+    # D = 128 compiles 64 x 64 only; past 128 there is no kernel.
+    assert not space.violations({"block_q": 64, "block_k": 64}, dict(shape, d=128), spec,
+                                "bfloat16")
+    assert space.violations({"block_q": 128, "block_k": 128}, dict(shape, d=128), spec,
                             "bfloat16")
+    assert space.violations({"block_q": 64, "block_k": 64}, dict(shape, d=192), spec,
+                            "bfloat16")
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("d", [128, 96])
+def test_flash_candidates_at_head_dim_128_are_the_compiled_tiles(kernel, d):
+    """At D = 128 (and a D padded to it) the spaces offer only the one tile
+    pair compiled there, 64 x 64, causal and not, in both dtypes; every
+    candidate is legal and the default is a candidate."""
+    from rocket_tpu_torch.ops import flash_attention as fa
+
+    spec = device_spec(H100)
+    space = TUNE_SPACES[kernel]
+    for causal in (True, False):
+        shape = {"t": 2048, "d": d, "h": 32, "h_kv": 32, "causal": causal}
+        for dtype in ("bfloat16", "float32"):
+            cands = space.candidates(shape, spec, dtype)
+            assert cands == [{"block_k": 64, "block_q": 64}], (causal, dtype, cands)
+            assert all(not space.violations(c, shape, spec, dtype) for c in cands)
+            assert all({c["block_q"], c["block_k"]} <= set(fa.tiles_for(d)) for c in cands)
+        assert space.default(shape) == {"block_q": 64, "block_k": 64}
 
 
 def test_structural_spaces_pin_inert_axes():
