@@ -70,7 +70,18 @@ a byte-level BPE language model with its val perplexity, serving text.
 Last, the whole GPT-2
 model on the card against the CPU, for decoding and for one training
 forward and backward, the same for a 2-layer MoE LM with its routing, and
-the head-dim-128 Llama-style model's forward (depth 1).
+the head-dim-128 Llama-style model's forward (depth 1). Then the ops
+plane's training half: GPT-2 124M through ``examples.gpt2.build`` under
+``Runtime(strict=True, telemetry=True, health=True,
+anomaly_action="skip_step", watchdog_secs=60)`` with a NaN loss at one
+step (the held step bitwise, the next lr at the applied count, the
+telemetry files read back, the step time beside ``train``'s and a
+profiled window's idle share); the char-LM under ``dump_and_halt`` (the
+black-box bundle's checkpoint restores the last good state bitwise); a
+host read inside the wave raising under strict mode only; a stalled loop
+reported by the watchdog with the CUDA allocator's line; and rows 9-10
+against their plain versions at f16, C = 3, C = 12 and C = 4096 (two
+channel chunks).
 
 Each phase prints one JSON line; the last three lines are the per-kernel
 summary, the card's name and power limit as ``nvidia-smi`` reports them,
@@ -3533,6 +3544,424 @@ def train_model_check():
          n_grads=len(result["cuda"][1]))
 
 
+# -- the ops plane's training half (telemetry, health gate, strict guard) ------
+
+#: Rows 9-10's coverage shapes (N, C, dtype): f16 in the vec form, C = 3
+#: and bf16 C = 12 in the any form, C = 4096 as two channel chunks.
+BN_COVERAGE = [(262144, 64, torch.float16), (262144, 3, torch.float32),
+               (262144, 12, torch.bfloat16), (16384, 4096, torch.float32)]
+#: ops_train: GPT-2 124M steps, the step (0-based) whose loss is made NaN
+#: (past the schedule's one-step warmup) and the profiled last steps.
+OPS_STEPS, OPS_NAN_STEP, OPS_PROFILE = 16, 5, 3
+
+
+def check_fused_conv_coverage(timer, gen, card):
+    """Rows 9 and 10 against their plain versions at :data:`BN_COVERAGE`
+    (act on), both tolerances of ``BN_TOL`` (f16 as bf16: one 16-bit
+    rounding), two launches of row 9 bitwise, each chunk's launch counted;
+    kernel, plain and ``F.batch_norm`` [+ relu] timed."""
+    for n, c, dtype in BN_COVERAGE:
+        x = (torch.randn(n, c, generator=gen) * 2 + 0.5).to(dtype).cuda()
+        sc = torch.stack([1 + 0.1 * torch.randn(c, generator=gen),
+                          0.1 * torch.randn(c, generator=gen)]).cuda()
+        name = str(dtype).removeprefix("torch.")
+        tol = BN_TOL[torch.float32 if dtype == torch.float32 else torch.bfloat16]
+        zero_launches()
+        y, stats = fc.bn_twopass(x, sc, eps=1e-5, act=True)
+        y2, stats2 = fc.bn_twopass(x, sc, eps=1e-5, act=True)
+        want_y, want_stats = fc.bn_twopass_plain(x, sc, eps=1e-5, act=True)
+        mi = fc.epilogue_rows(want_stats, sc[0], sc[1], 1e-5).contiguous()
+        yn = fc.bn_normalize(x, mi, act=True)
+        want_yn = fc.bn_normalize_plain(x, mi, act=True)
+        torch.cuda.synchronize()
+        launches = {"bn_twopass": fc.bn_twopass.launches, "bn_normalize": fc.bn_normalize.launches}
+        chunks = len(fc.chunks(c))
+        require(launches == {"bn_twopass": 2 * chunks, "bn_normalize": chunks},
+                f"fused_conv coverage N={n} C={c} {name}: launches {launches}")
+        require(torch.equal(y, y2) and torch.equal(stats, stats2),
+                f"fused_conv coverage N={n} C={c} {name}: two launches differ")
+        excess = {}
+        for key, got, want, bound in (("y", y, want_y, tol), ("stats", stats, want_stats,
+                                                                BN_TOL[torch.float32]),
+                                      ("normalize", yn, want_yn, tol)):
+            diff = (got.float() - want.float()).abs()
+            excess[key] = ((diff - bound[0] - bound[1] * want.float().abs()).max().item(),
+                           diff.max().item())
+        require(all(e <= 0 and math.isfinite(e) for e, _ in excess.values()),
+                f"fused_conv coverage N={n} C={c} {name}: past the bound {excess}")
+        w, b = sc[0], sc[1]
+        mean = want_stats[:, 0].contiguous()
+        var = torch.clamp(want_stats[:, 1] - mean.square(), min=0.0)
+        bounds = bn_bounds(n, c, dtype)
+        row = {"n": n, "c": c, "dtype": name, "tol": tol, "chunks": chunks,
+               "form": "vec" if fc.vec_form(min(c, fc.MAX_C), c, 0, dtype) else "any",
+               "launches": launches, "card": card}
+        for key, kernel, plain, library, bound, err in (
+            ("twopass", lambda: fc.bn_twopass(x, sc, eps=1e-5, act=True),
+             lambda: fc.bn_twopass_plain(x, sc, eps=1e-5, act=True),
+             lambda: F.relu(F.batch_norm(x, None, None, w.to(dtype), b.to(dtype),
+                                         training=True, eps=1e-5)), bounds[0],
+             max(excess["y"][1], excess["stats"][1])),
+            ("normalize", lambda: fc.bn_normalize(x, mi, act=True),
+             lambda: fc.bn_normalize_plain(x, mi, act=True),
+             lambda: F.relu(F.batch_norm(x, mean.to(dtype), var.to(dtype), w.to(dtype),
+                                         b.to(dtype), training=False, eps=1e-5)), bounds[1],
+             excess["normalize"][1]),
+        ):
+            row[key] = {"max_abs_err": err, "ms": timer.ms(kernel), "plain_ms": timer.ms(plain),
+                        "library_ms": timer.ms(library), "bound_ms": bound[0],
+                        "bound_by": bound[1]}
+        emit("parity_fused_conv_coverage", **row)
+        del x, y, y2, want_y, yn, want_yn
+
+
+def _poisoned(objective, nan_at: int, device):
+    """``objective`` plus NaN on its ``nan_at``-th call (0-based), from a
+    call counter kept on the card: no host read, no branch on a device
+    value. The NaN is a constant of the loss, so the gradients stay finite
+    and the loss flag alone fires."""
+    calls = torch.full((), -1, dtype=torch.int64, device=device)
+
+    def poisoned(batch):
+        calls.add_(1)
+        return objective(batch) + torch.where(calls == nan_at, float("nan"), 0.0)
+
+    return poisoned
+
+
+def _train_snapshot(module):
+    """Device clones of the train state a held step must keep: params, both
+    AdamW moments, the optimizer's count and the EMA, if any."""
+    state = module.prepared.state
+    opt = state["optimizer"]
+    leaves = optim.param_leaves(state["params"])
+    snap = {"params": [p.detach().clone() for p in leaves],
+            "exp_avg": [opt.state[p]["exp_avg"].clone() for p in leaves],
+            "exp_avg_sq": [opt.state[p]["exp_avg_sq"].clone() for p in leaves],
+            "count": torch.stack([opt.state[p]["step"] for p in leaves]).clone()}
+    if "ema_params" in state:
+        snap["ema"] = [e.clone() for e in optim.param_leaves(state["ema_params"])]
+    return snap
+
+
+class OpsClock(Capsule):
+    """The ops_train instrument, after the Module (priority 5): a CUDA event
+    at each step's end (no sync), device snapshots of the train state
+    around :data:`OPS_NAN_STEP`, the applied lr and the optimizer's count of
+    every step, and a ``torch.profiler`` window over the last
+    :data:`OPS_PROFILE` steps, started and stopped through the
+    explicit-transfer helper (the profiler synchronises)."""
+
+    def __init__(self, module, repeats):
+        super().__init__(priority=5)
+        self.module, self.repeats = module, repeats
+        self.events, self.lrs, self.counts, self.snaps = [], [], [], {}
+        self.prof = None
+
+    def launch(self, attrs=None):
+        from torch.profiler import ProfilerActivity, profile
+
+        from rocket_tpu_torch.runtime import explicit_transfer
+
+        step = len(self.events)
+        state = self.module.prepared.state
+        first = optim.param_leaves(state["params"])[0]
+        self.lrs.append(self.module.last_lr.clone())
+        self.counts.append(state["optimizer"].state[first]["step"].clone())
+        if step in (OPS_NAN_STEP - 1, OPS_NAN_STEP):
+            self.snaps[step] = _train_snapshot(self.module)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+        if step + 1 == self.repeats - OPS_PROFILE:
+            with explicit_transfer():
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.start()
+        elif self.prof is not None and step + 1 == self.repeats:
+            with explicit_transfer():
+                torch.cuda.synchronize()
+                self.prof.stop()
+
+
+def ops_train_phase(card, train_median_ms):
+    """GPT-2 124M through ``examples.gpt2.build`` (B=8, T=1024, bf16, remat,
+    AdamW under warmup-cosine, dropout 0.1) on ``Runtime(strict=True,
+    telemetry=True, health=True, anomaly_action="skip_step",
+    watchdog_secs=60)``, a NaN loss at :data:`OPS_NAN_STEP`. Holds: no sync
+    error under the guard (the run completes), the held step leaves params,
+    both moments and the optimizer's count bitwise as they were, the next
+    step's lr is the schedule at the applied count, one anomaly and one skip
+    with the loss flag, the telemetry files load through the port's readers
+    with goodput's phases summing to the wall clock within 1%, and rows 3-4
+    launch as often a step as in ``train``."""
+    from rocket_tpu_torch.obs.spans import load_chrome_trace
+
+    cfg = TransformerConfig.gpt2_124m()
+    layers, b = cfg.num_layers, 8
+    root = Path(tempfile.mkdtemp(prefix="ops_train_"))
+    try:
+        wall0 = time.perf_counter()
+        runtime = rt.Runtime(seed=0, strict=True, telemetry=True, health=True,
+                             anomaly_action="skip_step", watchdog_secs=60,
+                             project_dir=str(root), telemetry_dir=str(root / "tel"))
+        run = gpt2.build(cfg, gpt2.corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=b,
+                         runtime=runtime, steps=OPS_STEPS, record=False)
+        module = run["module"]
+        loss = module.find(rt.Loss)[0]
+        loss._objective = _poisoned(loss.objective, OPS_NAN_STEP, runtime.device)
+        clock = OpsClock(module, OPS_STEPS)
+        looper = run["launcher"].find(rt.Looper)[0]
+        looper._capsules = sorted([*looper._capsules, clock], key=lambda c: -c.priority)
+        clock.bind(runtime)
+        zero_launches()
+        run["launcher"].launch()
+        wall = time.perf_counter() - wall0
+        require(not runtime.strict.enabled, "ops_train: end_training left the guard on")
+        counts = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches}
+        require(counts == {"flash_fwd": 2 * layers * OPS_STEPS, "flash_bwd": layers * OPS_STEPS},
+                f"ops_train launches {counts} over {OPS_STEPS} steps")
+        torch.cuda.synchronize()
+        before, after = clock.snaps[OPS_NAN_STEP - 1], clock.snaps[OPS_NAN_STEP]
+        held = {key: all(torch.equal(a, c) for a, c in zip(before[key], after[key]))
+                if isinstance(before[key], list) else torch.equal(before[key], after[key])
+                for key in before}
+        require(all(held.values()), f"ops_train: the held step changed {held}")
+        counts_by_step = [int(c) for c in clock.counts]
+        want_counts = [i + 1 if i < OPS_NAN_STEP else i for i in range(OPS_STEPS)]
+        require(counts_by_step == want_counts, f"ops_train: optimizer counts {counts_by_step}")
+        schedule = optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, OPS_STEPS // 50),
+                                          decay_steps=OPS_STEPS)
+        nxt = OPS_NAN_STEP + 1
+        lr_next = float(clock.lrs[nxt])
+        lr_want = float(schedule(torch.tensor(float(OPS_NAN_STEP), device="cuda")))
+        require(lr_next == lr_want and abs(lr_next - schedule(OPS_NAN_STEP)) <= 1e-7 * lr_want,
+                f"ops_train: step {nxt} lr {lr_next}, schedule at the applied count {lr_want}")
+        summary = runtime.health.summary()
+        flags = [r["flag_names"] for r in runtime.health.anomaly_records]
+        require(summary["anomalies"] == 1 and summary["skipped_steps"] == 1
+                and flags == [["loss_nonfinite"]],
+                f"ops_train: health {summary}, flags {flags}")
+        with open(root / "tel" / "telemetry.json") as f:
+            doc = json.load(f)
+        events = load_chrome_trace(str(root / "tel" / "spans.trace.json"))
+        good = doc["goodput"]
+        phase_sum = sum(good["categories"].values())
+        require(abs(phase_sum - good["total_wall_s"]) <= 0.01 * good["total_wall_s"]
+                and abs(good["total_wall_s"] - wall) <= 0.01 * wall,
+                f"ops_train: goodput phases {phase_sum} s, total {good['total_wall_s']} s, "
+                f"wall {wall} s")
+        step_ms = [a.elapsed_time(c) for a, c in zip(clock.events, clock.events[1:])]
+        timed = [ms for i, ms in enumerate(step_ms, start=1)
+                 if i >= WARM_STEPS and i not in (OPS_NAN_STEP - 1, OPS_NAN_STEP)
+                 and i < OPS_STEPS - OPS_PROFILE]
+        window = sum(step_ms[-OPS_PROFILE:]) / 1e3
+        busy, idle, top, groups = _device_profile(clock.prof, window)
+        emit("ops_train", model="gpt2_124m", steps=OPS_STEPS, nan_step=OPS_NAN_STEP,
+             held_bitwise=held, optimizer_counts=counts_by_step, lr_after_skip=lr_next,
+             health=summary, goodput=good, span_events=len(events),
+             spans_by_cat={c: sum(1 for e in events if e.get("cat") == c)
+                           for c in ("compile", "step", "data_wait", "flush", "checkpoint")},
+             step_ms_median=float(np.median(timed)), step_ms=step_ms,
+             train_step_ms_median=train_median_ms, launches=counts,
+             profile={"steps": OPS_PROFILE, "wall_s": window, "device_busy_s": busy,
+                      "device_idle_share": idle, "top_kernels": top,
+                      "device_s_by_group": groups},
+             registry_gauges=sorted(doc["metrics"]["gauges"]), card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ops_halt_phase(card):
+    """The char-LM at its widths (``examples.char_lm.build``, B=128, T=256)
+    under ``anomaly_action="dump_and_halt"``, a NaN loss at step k: a
+    ``HealthAnomalyError``, a bundle with its manifest and an emergency
+    checkpoint whose ``resume_from=`` restores params and both moments
+    bitwise to the state after step k-1 (the gate's latch held every step
+    after the anomaly until the lagged word halted the run)."""
+    from rocket_tpu_torch.obs.health import HealthAnomalyError
+
+    k = 4
+    root = Path(tempfile.mkdtemp(prefix="ops_halt_"))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        text = synthetic_corpus(num_chars=400_000)
+        tok = CharTokenizer(text)
+        data = TokenDataset(tok.encode(text), seq_len=256)
+        config = TransformerConfig.char_lm(vocab_size=tok.vocab_size, max_seq_len=256)
+        runtime = rt.Runtime(seed=0, health=True, anomaly_action="dump_and_halt",
+                             project_dir=str(root))
+        run = char_lm.build(data, config, batch_size=128, num_epochs=1,
+                            out_dir=str(root / "ck"), runtime=runtime)
+        module = run["module"]
+        loss = module.find(rt.Loss)[0]
+        loss._objective = _poisoned(loss.objective, k, runtime.device)
+        snaps = {}
+
+        class Snap(Capsule):
+            def __init__(self):
+                super().__init__(priority=6)
+                self.step = 0
+
+            def launch(self, attrs=None):
+                if self.step == k - 1:
+                    snaps["good"] = _train_snapshot(module)
+                self.step += 1
+
+        looper = run["launcher"].find(rt.Looper)[0]
+        snap = Snap()
+        snap.bind(runtime)
+        looper._capsules = sorted([*looper._capsules, snap], key=lambda c: -c.priority)
+        try:
+            run["launcher"].launch()
+            raise RuntimeError("chip_smoke: ops_halt: no HealthAnomalyError")
+        except HealthAnomalyError as exc:
+            bundle = exc.bundle
+        require(bundle is not None and (Path(bundle) / "blackbox.json").is_file(),
+                f"ops_halt: no bundle ({bundle})")
+        with open(Path(bundle) / "blackbox.json") as f:
+            manifest = json.load(f)
+        require(manifest["checkpoint"] == "checkpoint" and manifest["reason"] == f"anomaly_step{k}",
+                f"ops_halt: manifest {manifest.get('reason')} {manifest.get('checkpoint')}")
+        again = rt.Runtime(seed=0, project_dir=str(root))
+        back = char_lm.build(data, config, batch_size=128, num_epochs=1,
+                             out_dir=str(root / "ck2"), runtime=again,
+                             resume_from=str(Path(bundle) / "checkpoint"))
+        back["launcher"].setup()
+        try:
+            restored = _train_snapshot(back["module"])
+            same = {key: all(torch.equal(a, b.to(a.device))
+                             for a, b in zip(snaps["good"][key], restored[key]))
+                    if isinstance(restored[key], list)
+                    else torch.equal(snaps["good"][key], restored[key].to(snaps["good"][key].device))
+                    for key in restored}
+        finally:
+            back["launcher"].destroy()
+            again.end_training()
+        require(all(same.values()), f"ops_halt: the bundle's checkpoint is not step {k - 1}'s "
+                f"state: {same}")
+        emit("ops_halt", nan_step=k, bundle=os.path.relpath(bundle, root),
+             last_good_step=manifest["last_good_step"], restored_bitwise=same,
+             health=manifest.get("health"), card=card)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class _EventClock(Capsule):
+    """A CUDA event after every step (after the Module; no sync)."""
+
+    def __init__(self):
+        super().__init__(priority=5)
+        self.events = []
+
+    def launch(self, attrs=None):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append(event)
+
+
+def _gpt2_step_ms(ops: bool, steps: int = 12) -> float:
+    """The median step ms (CUDA events, after WARM_STEPS) of ``train``'s
+    GPT-2 124M tree, with the ops plane of ``ops_train`` on or all off."""
+    cfg = TransformerConfig.gpt2_124m()
+    root = Path(tempfile.mkdtemp(prefix="ops_cost_"))
+    try:
+        plane = dict(strict=True, telemetry=True, health=True, anomaly_action="skip_step",
+                     watchdog_secs=60, telemetry_dir=str(root / "tel")) if ops else {}
+        runtime = rt.Runtime(seed=0, project_dir=str(root), **plane)
+        clock = _EventClock()
+        run = gpt2.build(cfg, gpt2.corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=8,
+                         runtime=runtime, steps=steps, record=False, capsules=(clock,))
+        run["launcher"].launch()
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(clock.events, clock.events[1:])]
+        return float(np.median(step_ms[WARM_STEPS - 1:]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ops_cost(timer=None, gen=None) -> dict:
+    """The ops plane's cost on GPT-2 124M's train step: the median step with
+    it off and on, in turns (off, on, on, off, twice) in one process, so the
+    host's drift falls on both sides. Not part of ``main``: run it with
+    ``python -m rocket_tpu_torch.obs.ab --phase ops_cost .``."""
+    medians = {"off": [], "on": []}
+    for ops in (False, True, True, False, False, True, True, False):
+        medians["on" if ops else "off"].append(_gpt2_step_ms(ops))
+        torch.cuda.empty_cache()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    emit("ops_cost", step_ms_median=medians, card=card)
+    return medians
+
+
+class _HostRead(Capsule):
+    """Reads a CUDA scalar on the host (``.item()``) in every wave."""
+
+    def __init__(self):
+        super().__init__()
+        self.values = []
+
+    def launch(self, attrs=None):
+        self.values.append((torch.ones((), device="cuda") * 2).item())
+
+
+def strict_guard_phase(card):
+    """A capsule calling ``.item()`` on a CUDA tensor inside the wave raises
+    under ``strict=True`` (from the second wave: the first runs unguarded)
+    and runs with strict off."""
+    outcome = {}
+    for strict in (False, True):
+        reader = _HostRead()
+        runtime = rt.Runtime(strict=strict)
+        try:
+            rt.Launcher([rt.Looper([reader], repeats=3, progress=False)],
+                        runtime=runtime).launch()
+            outcome[strict] = ("ran", len(reader.values))
+        except RuntimeError as exc:
+            outcome[strict] = ("raised", len(reader.values), str(exc)[:160])
+        require(torch.cuda.get_sync_debug_mode() == 0, "strict_guard: the guard outlived the run")
+    require(outcome[False] == ("ran", 3), f"strict_guard: strict off {outcome[False]}")
+    require(outcome[True][0] == "raised" and outcome[True][1] == 1,
+            f"strict_guard: strict on {outcome[True]}")
+    emit("strict_guard", off=list(outcome[False]), on=list(outcome[True]), card=card)
+
+
+class _Sleep(Capsule):
+    def __init__(self, seconds):
+        super().__init__()
+        self.seconds, self.calls = seconds, 0
+
+    def launch(self, attrs=None):
+        self.calls += 1
+        if self.calls == 2:
+            time.sleep(self.seconds)
+
+
+def watchdog_phase(card):
+    """A capsule that sleeps 3.5 s past a 2 s ``watchdog_secs`` makes the
+    watchdog report, with the CUDA allocator's line."""
+    hold = torch.ones(1 << 20, device="cuda")  # something allocated to report
+    root = Path(tempfile.mkdtemp(prefix="watchdog_"))
+    try:
+        runtime = rt.Runtime(watchdog_secs=2.0, project_dir=str(root),
+                             telemetry_dir=str(root / "tel"))
+        rt.Launcher([rt.Looper([_Sleep(3.5)], repeats=3, progress=False)],
+                    runtime=runtime).launch()
+        dog = runtime.telemetry.watchdog
+        report = dog.last_report or ""
+        line = next((ln for ln in report.splitlines() if ln.startswith("cuda allocator:")), "")
+        require(dog.stall_count >= 1 and "MiB allocated" in line,
+                f"watchdog: {dog.stall_count} stalls, allocator line {line!r}")
+        require((root / "tel" / "watchdog_stalls.txt").is_file(), "watchdog: no stall file")
+        emit("watchdog", stalls=dog.stall_count, allocator_line=line, card=card)
+    finally:
+        del hold
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3684,6 +4113,16 @@ def main() -> int:
     train_model_check()
     moe_model_check()
     llama_d128_model_check(card)
+    torch.cuda.empty_cache()
+    # The ops plane's training half, and rows 9-10's coverage.
+    ops_train_phase(card, RECORD["train"][0]["step_ms_median"])
+    torch.cuda.empty_cache()
+    ops_halt_phase(card)
+    strict_guard_phase(card)
+    watchdog_phase(card)
+    timer = Timer()
+    check_fused_conv_coverage(timer, torch.Generator().manual_seed(16), card)
+    del timer
 
     kernels = []
     for name, row, src, replaces in (

@@ -32,15 +32,23 @@ A training script reads as the JAX one does::
                             rt.Module(model, [rt.Loss(...), rt.Optimizer(...)])])],
                 runtime=rt.Runtime()).launch()
 
+The ops plane's training half (``obs``: telemetry, spans, goodput, the
+health sentinels with their update gate, the flight recorder, the
+watchdog; ``runtime.StrictMode``) turns on through the ``Runtime``'s
+arguments (``telemetry=``, ``health=``, ``strict=``, ...).
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``runtime.resolve_device``); on CPU tensors every kernel wrapper takes
 its plain PyTorch version.
 """
 
 from rocket_tpu_torch.core import (
+    Attributes,
     Capsule,
     Checkpointer,
     Dataset,
+    Dispatcher,
+    Events,
     Launcher,
     Looper,
     Loss,
@@ -53,10 +61,11 @@ from rocket_tpu_torch.core import (
     Tracker,
     register_tracker_backend,
 )
+from rocket_tpu_torch import obs
 from rocket_tpu_torch.runtime import Runtime
 
 __version__ = "0.4.0"
 
-__all__ = ["Capsule", "Checkpointer", "Dataset", "Launcher", "Looper", "Loss", "Meter", "Metric",
-           "Module", "Optimizer", "Profiler", "Runtime", "Scheduler", "Tracker",
-           "register_tracker_backend"]
+__all__ = ["Attributes", "Capsule", "Checkpointer", "Dataset", "Dispatcher", "Events", "Launcher",
+           "Looper", "Loss", "Meter", "Metric", "Module", "Optimizer", "Profiler", "Runtime",
+           "Scheduler", "Tracker", "obs", "register_tracker_backend"]

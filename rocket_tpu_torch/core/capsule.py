@@ -10,8 +10,9 @@
   stack at ``setup`` and pop at ``destroy`` (LIFO-checked); the
   Checkpointer saves and restores their ``state_dict`` in that order.
 
-The run telemetry span around every dispatched event waits for the ops
-plane (ROADMAP Queue A 7).
+With run telemetry on (``Runtime(telemetry=True)``), ``dispatch`` wraps
+every event in one span named ``<Class>.<event>``: the five-event protocol
+makes it the one choke point of the whole tree.
 """
 
 from __future__ import annotations
@@ -106,7 +107,12 @@ class Capsule:
             raise RuntimeError(
                 f"{type(self).__name__}: dispatch expects an Events member, got {event!r}"
             )
-        getattr(self, event.value)(attrs)
+        telemetry = getattr(self._runtime, "telemetry", None)
+        if telemetry is not None and telemetry.enabled:
+            with telemetry.span(f"{type(self).__name__}.{event.value}"):
+                getattr(self, event.value)(attrs)
+        else:
+            getattr(self, event.value)(attrs)
 
     # -- runtime binding ---------------------------------------------------
 

@@ -24,8 +24,14 @@ file writes run on a background thread, drained by the next save and by
 ``destroy``. Each save's times are kept in :attr:`Checkpointer.save_times`.
 ``capsules.pkl`` is pickle: resume only from checkpoints you wrote.
 
-The emergency and drain saves and the flight-recorder and telemetry hooks
-wait for the ops plane (ROADMAP Queue A 7).
+With the health sentinels on, the Checkpointer attaches itself to the
+flight recorder at ``setup`` (and detaches at ``destroy``): a black-box
+bundle then carries an emergency checkpoint (:meth:`Checkpointer.
+save_emergency`) that ``resume_from=<bundle>/checkpoint`` restores. With
+telemetry on, saves, the async writer's drain and loads are ``checkpoint``
+spans. A snapshot reads the card on the host by design, so it runs through
+the explicit-transfer helper (legal under strict mode). The drain save is
+ROADMAP Queue A 7b.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Optional
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import PRIORITY_CHECKPOINT, Capsule
 from rocket_tpu_torch.resilience.supervisor import newest_complete_step
-from rocket_tpu_torch.runtime import checkpoint_io
+from rocket_tpu_torch.runtime import checkpoint_io, explicit_transfer
 
 __all__ = ["Checkpointer"]
 
@@ -69,10 +75,14 @@ class Checkpointer(Capsule):
 
     def setup(self, attrs: Attributes | None = None) -> None:
         super().setup(attrs)
+        flight = getattr(self._runtime, "flight", None)
+        if flight is not None:
+            flight.attach_checkpointer(self)  # the black box's emergency writer
         if self._resume_from:
             path = self._resolve_resume_path(self._resume_from)
             if path is not None:
-                self._load(path)
+                with self._runtime.telemetry.span("checkpoint/load", cat="checkpoint"):
+                    self._load(path)
 
     def _resolve_resume_path(self, path: str) -> Optional[str]:
         """``"latest"``: the newest complete step under ``output_dir``, or
@@ -105,8 +115,12 @@ class Checkpointer(Capsule):
 
     def save(self, step: Optional[int] = None) -> str:
         """Write one checkpoint directory (asynchronously); returns its path."""
-        runtime = self._runtime
         step = self._iter_idx if step is None else step
+        with self._runtime.telemetry.span(f"checkpoint/save[{step}]", cat="checkpoint"):
+            return self._save(step)
+
+    def _save(self, step: int) -> str:
+        runtime = self._runtime
         path = os.path.join(self._output_dir, str(step))
         if not self._overwrite and os.path.exists(path):
             raise RuntimeError(f"Checkpointer: overwrite is set to False. {path}")
@@ -118,9 +132,10 @@ class Checkpointer(Capsule):
         self._saved_steps.append(step)
         runtime.wait_for_everyone()
         t0 = time.perf_counter()
-        plans = [checkpoint_io.snapshot(prepared.checkpoint_state())
-                 for prepared in runtime.models.values()]
-        capsule_states = [obj.state_dict() for obj in runtime.checkpoint_stack]
+        with explicit_transfer():
+            plans = [checkpoint_io.snapshot(prepared.checkpoint_state())
+                     for prepared in runtime.models.values()]
+            capsule_states = [obj.state_dict() for obj in runtime.checkpoint_stack]
         rng_state = runtime.rng_state_dict()
         timing = {"step": step, "snapshot_s": time.perf_counter() - t0}
         self.save_times.append(timing)
@@ -146,11 +161,37 @@ class Checkpointer(Capsule):
         return path
 
     def destroy(self, attrs: Attributes | None = None) -> None:
-        """Drain the async writer, then the usual teardown."""
-        self._writer.wait()
-        if self._runtime is not None:
-            self._runtime.wait_for_everyone()
+        """Drain the async writer, detach from the flight recorder, then the
+        usual teardown."""
+        runtime = self._runtime
+        if runtime is not None:
+            flight = getattr(runtime, "flight", None)
+            if flight is not None:
+                flight.detach_checkpointer(self)
+            with runtime.telemetry.span("checkpoint/drain", cat="checkpoint"):
+                self._writer.wait()
+            runtime.wait_for_everyone()
+        else:
+            self._writer.wait()
         super().destroy(attrs)
+
+    def save_emergency(self, path: str) -> str:
+        """A synchronous dump of every prepared model's state into ``path``
+        (the flight recorder's bundle), in the step layout ``resume_from``
+        reads: ``model_{k}/`` then ``rng.json``, its completeness marker. Not
+        :meth:`save`: no barrier, no background writer (the process may be
+        about to die), no pruning, no capsule states. Under a gated anomaly
+        action the state is the last finite one: the anomalous update was
+        held."""
+        runtime = self._runtime
+        with explicit_transfer():
+            plans = [checkpoint_io.snapshot(prepared.checkpoint_state())
+                     for prepared in runtime.models.values()]
+        for k, plan in enumerate(plans):
+            checkpoint_io.write_snapshot(os.path.join(path, f"model_{k}"), plan)
+        checkpoint_io.atomic_write(os.path.join(path, "rng.json"),
+                                   json.dumps(runtime.rng_state_dict()).encode("utf-8"))
+        return path
 
     # -- restore -----------------------------------------------------------
 

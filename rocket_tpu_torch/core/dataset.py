@@ -180,15 +180,23 @@ class Dataset(Capsule):
     def launch(self, attrs: Attributes | None = None) -> None:
         if attrs is None or attrs.batch is not None:
             return  # produce-if-absent
+        telemetry = self._runtime.telemetry
         try:
-            batch = next(self._iterator)
+            # The loop's wait on the input pipeline is goodput's data_wait.
+            with telemetry.span("data/next", cat="data_wait"):
+                batch = next(self._iterator)
         except StopIteration:
             if attrs.looper is not None:
                 attrs.looper.terminate = True
             return
         data = batch.data
         if self._device_placement and not self._device_resident:
-            data = default_move(data, self._runtime.device)
+            # The framework's own upload of a streamed batch: an explicit
+            # transfer, legal under strict mode.
+            from rocket_tpu_torch.runtime import explicit_transfer
+
+            with telemetry.span("data/h2d", cat="data_wait"), explicit_transfer():
+                data = default_move(data, self._runtime.device)
         attrs.batch = data
         attrs.batch_info = Attributes(size=batch.size, index=batch.index)
         if attrs.looper is not None:

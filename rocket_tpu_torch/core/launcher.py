@@ -18,6 +18,7 @@ epoch body (``launcher.py:46``), so resume repeats the last epoch. Here
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterable, Optional
 
 from rocket_tpu_torch.core.attributes import Attributes
@@ -68,20 +69,30 @@ class Launcher(Dispatcher):
         self.log_debug("launch")
         attrs = Attributes() if attrs is None else attrs
 
-        self.setup(attrs)
+        # Strict mode: setup, each phase's set and reset and the teardown
+        # move data by design (uploads, the epoch's order, the last flush),
+        # so they run with the guard lifted; the phases' waves run guarded
+        # (core/loop.py).
+        strict = getattr(self._runtime, "strict", None)
+        lifted = strict.lifted if strict is not None else contextlib.nullcontext
+        with lifted():
+            self.setup(attrs)
         try:
             while self._epoch_idx < self._num_epochs:
                 attrs.launcher = Attributes(
                     epoch_idx=self._epoch_idx, num_epochs=self._num_epochs
                 )
                 for capsule in self._capsules:
-                    capsule.dispatch(Events.SET, attrs)
+                    with lifted():
+                        capsule.dispatch(Events.SET, attrs)
                     capsule.dispatch(Events.LAUNCH, attrs)
-                    capsule.dispatch(Events.RESET, attrs)
+                    with lifted():
+                        capsule.dispatch(Events.RESET, attrs)
                 # Advance past the finished epoch (fixes launcher.py:46).
                 self._epoch_idx += 1
         finally:
-            self.destroy(attrs)
+            with lifted():
+                self.destroy(attrs)
             self._runtime.end_training()
         return attrs
 

@@ -14,12 +14,20 @@
   epochs; nested Loopers are forbidden; ``epoch_idx`` / ``batch_idx`` are
   the stateful position.
 
-The telemetry spans, drain, fault injection, health and strict-mode hooks
-of the reference loop wait for the ops plane (ROADMAP Queue A 7).
+The ops hooks of the reference loop: with telemetry on, each wave is a
+step span (``compile`` for the first wave this Looper drives, which builds
+the kernels) with a ``torch.profiler.record_function`` range, and the
+hang watchdog is armed for the loop and beaten after every wave; under
+strict mode every wave but the first of a launch runs under the CUDA sync
+guard (``runtime.StrictMode``); at the loop's end the health words still in
+their fetch lag are decoded (under ``dump_and_halt`` that raises here);
+an exception escaping the loop writes a black-box bundle first. The drain
+and fault-injection hooks are ROADMAP Queue A 7b.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterable, Optional
 
 from rocket_tpu_torch.core.attributes import Attributes
@@ -58,6 +66,7 @@ class Looper(Dispatcher):
         self._epoch_idx = 0
         self._batch_idx = 0
         self._active = True
+        self._warmed = False
 
     @property
     def tag(self) -> str:
@@ -103,11 +112,30 @@ class Looper(Dispatcher):
         attrs = Attributes() if attrs is None else attrs
         self.log_debug(f"launch: {self._repeats} iterations [{self._tag}]")
         bar = self._progress_bar()
+        runtime = self._runtime
+        telemetry = getattr(runtime, "telemetry", None)
+        obs_on = telemetry is not None and telemetry.enabled
+        strict = getattr(runtime, "strict", None)
+        if obs_on:
+            telemetry.watchdog_arm()
+        start = self._batch_idx
         try:
-            for _ in range(self._batch_idx, self._repeats):
+            for it in range(start, self._repeats):
                 attrs.batch = None
                 attrs.mode = self.mode
-                Dispatcher.launch(self, attrs)
+                # The first wave of a launch runs unguarded (it builds the
+                # kernels and uploads the epoch's order); from the second on
+                # an implicit host read or blocking copy raises.
+                guard = (strict.lifted() if strict is not None and it == start
+                         else contextlib.nullcontext())
+                span = (telemetry.step_span(self._tag, self._batch_idx,
+                                            cat="step" if self._warmed else "compile")
+                        if obs_on else contextlib.nullcontext())
+                with guard, span:
+                    Dispatcher.launch(self, attrs)
+                self._warmed = True
+                if obs_on:
+                    telemetry.beat()
                 if attrs.looper is not None and attrs.looper.terminate:
                     break
                 self._batch_idx += 1
@@ -115,12 +143,29 @@ class Looper(Dispatcher):
                     bar.update(1)
                     if (self._batch_idx % self._postfix_every == 0 and attrs.looper is not None
                             and attrs.looper.state):
-                        # A host read for the bar's display: only with progress on, and
-                        # once every postfix_every steps.
-                        postfix = {k: f"{float(v):.4g}"  # rocketlint: disable=RKT106
-                                   for k, v in attrs.looper.state.items()}
+                        # A host read for the bar's display: only with progress on, once
+                        # every postfix_every steps, through the explicit-transfer helper.
+                        from rocket_tpu_torch.runtime import explicit_transfer
+
+                        with explicit_transfer():
+                            postfix = {k: f"{float(v):.4g}"  # rocketlint: disable=RKT106
+                                       for k, v in attrs.looper.state.items()}
                         bar.set_postfix(postfix, refresh=False)
+            health = getattr(runtime, "health", None)
+            if health is not None and health.enabled:
+                # The loop's end: decode the words still in their fetch lag,
+                # so an anomaly in the last steps acts in this epoch.
+                health.drain()
+        except Exception as exc:
+            # A black box before the stack unwinds (a HealthAnomalyError has
+            # already written its own); re-raised unchanged.
+            if telemetry is not None:
+                telemetry.exception_dump(exc, tag=self._tag, epoch_idx=self._epoch_idx,
+                                         batch_idx=self._batch_idx)
+            raise
         finally:
+            if obs_on:
+                telemetry.watchdog_disarm()
             if bar is not None:
                 bar.close()
 

@@ -13,10 +13,16 @@
 * Errors inside metric children propagate — the reference's deliberate fix
   of ``rocket/core/meter.py:91-93``, whose bare ``except:`` masked them as
   "keys not found".
+* The host metrics' pass over the gathered batch reads device tensors on
+  the host by design, so it runs through the explicit-transfer helper
+  (legal under strict mode). With health on, a published host scalar that
+  is not finite is noted to the health monitor (``health/nonfinite_metrics``).
 """
 
 from __future__ import annotations
 
+import math
+import numbers
 from collections.abc import Mapping
 from typing import Iterable, Optional, Sequence
 
@@ -70,11 +76,14 @@ class Meter(Dispatcher):
         if not host_kids:
             return
         gathered = {k: self.gather_for_metrics(v, real_size) for k, v in subset.items()}
+        from rocket_tpu_torch.runtime import explicit_transfer
+
         original = attrs.batch
         attrs.batch = {**batch, **gathered}
         try:
-            for child in host_kids:  # already priority-sorted
-                child.launch(attrs)
+            with explicit_transfer():
+                for child in host_kids:  # already priority-sorted
+                    child.launch(attrs)
         finally:
             attrs.batch = original
 
@@ -110,3 +119,8 @@ class Metric(Capsule):
                 attrs.tracker.scalars[tag] = value
             if attrs.looper is not None:
                 attrs.looper.state[tag] = value
+        health = getattr(self._runtime, "health", None)
+        if (health is not None and health.enabled and isinstance(value, numbers.Real)
+                and not math.isfinite(value)):
+            # A host scalar only: checking a device one would read it back.
+            health.note_nonfinite_metric(tag)

@@ -32,6 +32,21 @@ e)`` after every optimizer update (once per accumulation window); the
 checkpoint carries it under ``ema_params/...``; an eval Module with
 ``use_ema=True`` forwards with it.
 
+Health sentinels (``Runtime(health=True)``, ``obs/health.py``): the train
+state gains ``state["health"]`` (``init_state``, checkpointed under
+``health/...``), the step computes ``step_flags`` on the raw loss and
+gradients, folds the step into the sentinels with ``update_sentinels`` and
+hands the word to the monitor (``observe``), which reads it ``fetch_lag``
+steps later. Under ``warn`` the update is the plain one above. Under a
+gating action (``skip_step``, ``dump_and_halt``) it goes through
+``optim.gated_step`` (the optimizer's count on the card, the lr read from
+it), and a step with a non-finite loss or gradient changes no param,
+moment, optimizer count or EMA (the gate is arithmetic on a device
+predicate, never a branch on it); under accumulation its gradients and loss
+are dropped from the window, whose boundary update applies the finite
+rest — the reference's ``lax.cond`` structure (``rocket_tpu/core/
+module.py:672-790``).
+
 Not ported yet, and raising ``NotImplementedError``: ``param_sharding``
 (ROADMAP Queue A 6).
 Bucketed gradient sync and the pipelined value-and-grad belong to Queue A
@@ -117,6 +132,8 @@ class PreparedModule:
             view["model_state"] = map_params(lambda t: t.detach(), state["model_state"])
         if "ema_params" in state:
             view["ema_params"] = state["ema_params"]
+        if "health" in state:
+            view["health"] = dict(state["health"])
         opt = state.get("optimizer")
         if opt is not None:
             per_key: dict = {}
@@ -150,6 +167,11 @@ class PreparedModule:
                 # its params (checkpoint_io.seed_optional).
                 for e, path in zip(optim_lib.param_leaves(state["ema_params"]), paths):
                     e.copy_(_host(_at(view["ema_params"], path)))
+            if "health" in state and view.get("health"):
+                # A pre-health checkpoint keeps the fresh sentinels.
+                for key, t in state["health"].items():
+                    if key in view["health"]:
+                        t.copy_(_host(view["health"][key]).reshape(t.shape))
         state["step"] = int(view["step"])
         state["base_key"] = int(view["base_key"])
         opt = state.get("optimizer")
@@ -216,6 +238,10 @@ class Module(Dispatcher):
         self._return_outputs = return_outputs
         self._prepared: Optional[PreparedModule] = None
         self._objective = None
+        self._health = None
+        #: Under the health gate: the lr (a 0-dim tensor on the card) of
+        #: the last update step, read from the optimizer's count.
+        self.last_lr = None
 
     @property
     def prepared(self) -> Optional[PreparedModule]:
@@ -286,6 +312,7 @@ class Module(Dispatcher):
                 self._lr_fn = optim_lib.constant_lr(lr)
             self._objective = loss.objective
             self._clip_norm = opt.clip_norm
+            self._setup_health(state)
             if self._ema_decay is not None and "ema_params" not in state:
                 # A real copy: the shadow must not alias the params.
                 state["ema_params"] = map_params(lambda t: t.detach().clone(), state["params"])
@@ -301,6 +328,41 @@ class Module(Dispatcher):
                                "Loss + Optimizer children (eval is never transformed).")
         else:
             state["params"] = map_params(lambda t: t.to(runtime.device), state["params"])
+
+    def _setup_health(self, state: dict) -> None:
+        """With the health monitor on: the sentinel state, the step's label
+        and branch layout, the leaves' branches, and, under a gating action,
+        the gate's optimizer (its rule checked, its count kept on the card:
+        ``capturable`` for Adam(W) on CUDA)."""
+        monitor = getattr(self._runtime, "health", None)
+        self._health = None
+        if monitor is None or not monitor.enabled:
+            return
+        from rocket_tpu_torch.obs import health as health_lib
+
+        device = self._runtime.device
+        if "health" not in state:
+            state["health"] = health_lib.init_state(device)
+        opt = state["optimizer"]
+        if monitor.config.gated:
+            refusal = optim_lib.gate_refusal(opt)
+            if refusal is not None:
+                raise NotImplementedError(f"Module: anomaly_action={monitor.config.action!r} "
+                                          f"updates through optim.gated_step, which has no "
+                                          f"rule for {refusal}")
+            if device.type == "cuda" and isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+                for group in opt.param_groups:
+                    group["capturable"] = True
+        params = state["params"]
+        names = health_lib.branch_names(params)
+        tops = [path[0] if isinstance(params, dict) and path else "params"
+                for path in _paths(params)]
+        self._health = {
+            "lib": health_lib, "config": monitor.config,
+            "label": monitor.register_step(f"train_step[{type(self._model).__name__}]", names),
+            "branches": {name: [i for i, top in enumerate(tops) if str(top) == name]
+                         for name in names},
+        }
 
     # -- steps -------------------------------------------------------------
 
@@ -321,17 +383,31 @@ class Module(Dispatcher):
             return checkpoint(fn, batch, use_reentrant=False)
         return fn(batch)
 
-    def _update(self, leaves, grads, opt_step):
-        """Clip (optax's ``clip_by_global_norm``), set the schedule's lr for
-        ``opt_step`` and take one optimizer step. Returns the pre-clip
-        global norm when clipping, else None."""
+    def _update(self, leaves, grads, opt_step, ok=None):
+        """One optimizer update. Off the gate (``ok`` None): clip (optax's
+        ``clip_by_global_norm``), set the schedule's lr for ``opt_step`` and
+        take ``torch.optim``'s step. Under it (``ok`` a 0-dim bool):
+        ``optim.gated_step``, held where ``ok`` is false. Returns
+        ``(grad_norm, update_norm)``: the pre-clip global norm when
+        clipping, else None; ||update|| under the health monitor, else
+        None."""
+        opt = self._prepared.state["optimizer"]
+        decay = None if self._ema_decay is None else 1.0 - self._ema_decay
+        if ok is not None:
+            update_norm, self.last_lr, norm = optim_lib.gated_step(
+                opt, dict(zip(leaves, grads)), ok, self._lr_fn, self._clip_norm)
+            if decay is not None:
+                self._ema_step(leaves, torch.where(ok, decay, 0.0))
+            return norm, update_norm
         norm = None
         if self._clip_norm is not None:
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
             factor = self._clip_norm / torch.clamp(norm, min=self._clip_norm)
             grads = [g * factor for g in grads]
-        opt = self._prepared.state["optimizer"]
+        # The sentinels' ||update|| is the params' move: torch.optim's step
+        # does not hand its update out.
+        before = ([p.detach().clone() for p in leaves] if self._health is not None else None)
         for p, g in zip(leaves, grads):
             p.grad = g
         lr = float(self._lr_fn(opt_step))
@@ -340,14 +416,23 @@ class Module(Dispatcher):
         opt.step()
         for p in leaves:
             p.grad = None
-        if self._ema_decay is not None:
-            # e += (1 - d) * (p - e), one foreach pass over the leaves.
+        update_norm = None
+        if before is not None:
             with torch.no_grad():
-                ema = optim_lib.param_leaves(self._prepared.state["ema_params"])
-                diff = torch._foreach_sub(leaves, ema)
-                torch._foreach_mul_(diff, 1.0 - self._ema_decay)
-                torch._foreach_add_(ema, diff)
-        return norm
+                torch._foreach_sub_(before, leaves)
+                update_norm = torch.stack(torch._foreach_norm(before)).float().square().sum().sqrt()
+        if decay is not None:
+            self._ema_step(leaves, decay)
+        return norm, update_norm
+
+    def _ema_step(self, leaves, weight) -> None:
+        """e += w (p - e) over the shadow, one foreach pass; ``weight`` a
+        float or a 0-dim device tensor (0 on a held step: e keeps its bits)."""
+        with torch.no_grad():
+            ema = optim_lib.param_leaves(self._prepared.state["ema_params"])
+            diff = torch._foreach_sub(leaves, ema)
+            torch._foreach_mul_(diff, weight)
+            torch._foreach_add_(ema, diff)
 
     def _train_step(self, batch):
         state = self._prepared.state
@@ -368,20 +453,42 @@ class Module(Dispatcher):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         loss = loss.detach()
+        h = self._health
+        keep = None  # the gate's predicate: None off the gate
+        if h is not None:
+            tree = {name: [grads[i] for i in idx] for name, idx in h["branches"].items()}
+            flags = h["lib"].step_flags(loss, tree)
+            if h["config"].gated:
+                keep = flags[0]
+                if h["config"].action == "dump_and_halt":
+                    # The gate latches: once a step was held, every later
+                    # one is held too until the lagged word halts the run,
+                    # so the black box's emergency checkpoint is the state
+                    # before the anomaly (the reference's lagged halt would
+                    # save the steps after it).
+                    keep = keep & (state["health"]["skipped"] == 0)
         metrics = {"loss": loss}
+        grad_norm = update_norm = None
         if accum == 1:
             opt_step = step
-            grad_norm = self._update(leaves, grads, opt_step)
+            grad_norm, update_norm = self._update(leaves, grads, opt_step, keep)
             metrics["loss_window"] = loss
         else:
             opt_step = step // accum
-            for a, g in zip(state["grad_accum"], grads):
-                a.add_(g)
-            state["loss_acc"] = state["loss_acc"] + loss / accum
-            grad_norm = None
+            contrib = loss / accum
+            if keep is not None:
+                # A non-finite microbatch leaves the window: its gradients
+                # and its loss are dropped, the boundary applies the rest.
+                grads = [torch.where(keep, g, 0.0) for g in grads]
+                contrib = torch.where(keep, contrib, 0.0)
+            torch._foreach_add_(state["grad_accum"], grads)
+            state["loss_acc"] = state["loss_acc"] + contrib
             if (step + 1) % accum == 0:
-                grad_norm = self._update(leaves, [a / accum for a in state["grad_accum"]],
-                                         opt_step)
+                apply = keep
+                if keep is not None and h["config"].action != "dump_and_halt":
+                    apply = torch.ones_like(keep)
+                grad_norm, update_norm = self._update(
+                    leaves, [a / accum for a in state["grad_accum"]], opt_step, apply)
                 for a in state["grad_accum"]:
                     a.zero_()
                 metrics["loss_window"] = state["loss_acc"]
@@ -391,6 +498,20 @@ class Module(Dispatcher):
         metrics["lr"] = float(self._lr_fn(opt_step))
         if self._clip_norm is not None:
             metrics["grad_norm"] = grad_norm if grad_norm is not None else torch.zeros_like(loss)
+        if h is not None:
+            step_ok, loss_ok, grad_branch_ok, health_grad_norm = flags
+            with torch.no_grad():
+                state["health"], word, extras = h["lib"].update_sentinels(
+                    state["health"], loss=loss, step=step, step_ok=step_ok, loss_ok=loss_ok,
+                    grad_branch_ok=grad_branch_ok, grad_norm=health_grad_norm,
+                    update_norm=(update_norm if update_norm is not None
+                                 else torch.zeros_like(loss)),
+                    new_params=state["params"], gated=h["config"].gated,
+                    ema_decay=h["config"].ema_decay, zscore_max=h["config"].zscore_max,
+                    zscore_warmup=h["config"].zscore_warmup)
+            metrics["health/update_ratio"] = extras["update_ratio"]
+            metrics["health/param_norm"] = extras["param_norm"]
+            metrics["health_word"] = word
         state["step"] = step + 1
         return out, metrics
 
@@ -408,7 +529,21 @@ class Module(Dispatcher):
                                    "Looper.")
             out, metrics = self._train_step(batch)
             attrs.sync_gradients = state["step"] % self._runtime.gradient_accumulation_steps == 0
+            word = metrics.pop("health_word", None)
             attrs.step_metrics = Attributes(metrics)
+            if word is not None:
+                # The monitor starts the word's copy to the host now and
+                # decodes it fetch_lag steps later (under dump_and_halt the
+                # decode raises).
+                context = {}
+                if attrs.looper is not None:
+                    context["tag"] = attrs.looper.tag
+                if attrs.launcher is not None:
+                    context["epoch"] = attrs.launcher.epoch_idx
+                if attrs.batch_info is not None and attrs.batch_info.index is not None:
+                    context["batch_index"] = attrs.batch_info.index
+                self._runtime.health.observe(self._health["label"], state["step"], word,
+                                             context)
             if self._return_outputs == "always":
                 attrs.batch = out
         else:

@@ -8,7 +8,9 @@ gradients to that global L2 norm first, by optax's formula
 ``g * c / max(||g||, c)`` (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
 to the norm and would differ). At launch the capsule keeps its host-side
 roles: on the sync boundary it publishes lr (and the pre-clip grad norm)
-and counts updates.
+and counts updates; with the health sentinels on it also publishes the
+update ratio and the param norm (device scalars, read at the tracker's
+flush).
 """
 
 from __future__ import annotations
@@ -68,6 +70,14 @@ class Optimizer(Capsule):
                     attrs.tracker.scalars[key] = metrics[key]
                 if attrs.looper is not None:
                     attrs.looper.state[key] = metrics[key]
+        ratio, pnorm = metrics["health/update_ratio"], metrics["health/param_norm"]
+        if ratio is not None:
+            if attrs.tracker is not None:
+                attrs.tracker.scalars["health/update_ratio"] = ratio
+            if attrs.looper is not None:
+                attrs.looper.state.update_ratio = ratio
+        if pnorm is not None and attrs.tracker is not None:
+            attrs.tracker.scalars["health/param_norm"] = pnorm
 
     def state_dict(self) -> dict:
         return {"iter_idx": self._iter_idx}

@@ -22,8 +22,9 @@ The host clock measures the launch loop. Eager PyTorch queues kernels
 ahead of the card, and once the queue is full each step waits for the
 card, so after a few steps the clock reads the device's step time. The
 reference's per-window trace parse into ``obs/prof/*`` gauges
-(``_publish_window``) needs the telemetry registry (ROADMAP Queue A 7);
-without telemetry it is a no-op in the reference too, and so it is here.
+(``_publish_window``) needs the trace parser (ROADMAP Queue A 7b); with
+telemetry on, the capsule sets the registry's ``perf/steps_per_sec`` and
+``perf/mfu`` gauges as the reference does.
 """
 
 from __future__ import annotations
@@ -113,6 +114,12 @@ class Profiler(Capsule):
                 flops = self._flops_per_sample * info.size
         # One process drives one card, so the step's FLOPs are one card's.
         mfu = flops * steps_per_sec / self._peak if flops is not None and self._peak else None
+        telemetry = getattr(self._runtime, "telemetry", None)
+        if telemetry is not None and telemetry.enabled:
+            # The numbers the bar shows, in the registry (telemetry.json).
+            telemetry.registry.gauge("perf/steps_per_sec").set(steps_per_sec)
+            if mfu is not None:
+                telemetry.registry.gauge("perf/mfu").set(mfu)
         if attrs is None:
             return
         if attrs.looper is not None and attrs.looper.state is not None:
@@ -167,5 +174,6 @@ class Profiler(Capsule):
 
     def _publish_window(self) -> None:
         """The reference parses the closed window into ``obs/prof/*``
-        gauges of the telemetry registry; the port has no registry yet
-        (ROADMAP Queue A 7), which makes this the reference's no-op."""
+        gauges of the telemetry registry. The registry exists now, but the
+        trace parser (the rest of ``obs/prof.py``) is ROADMAP Queue A 7b, so
+        this stays the reference's no-op without a parser."""

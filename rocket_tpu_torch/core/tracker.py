@@ -15,12 +15,15 @@
   ``wandb`` not installed) falls back to ``jsonl`` with a warning, as in
   the reference.
 
-The run-telemetry snapshot that rides every flush in the reference waits
-for the ops plane (ROADMAP Queue A 7).
+With run telemetry on, each flush is a ``flush`` span, its host reads go
+through the explicit-transfer helper (legal under strict mode), and the
+registry's snapshot rides along under ``obs/*`` (``health/*`` kept as it
+is); the tracker's run directory becomes the telemetry files' default.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -152,6 +155,11 @@ class Tracker(Capsule):
                                      "back to jsonl")
                     backend = JsonlBackend(self._project, self._directory)
             runtime.init_tracker(self._backend_name, backend)
+            telemetry = getattr(runtime, "telemetry", None)
+            if telemetry is not None:
+                # telemetry.json lands beside the run's log unless the
+                # Runtime was given a telemetry_dir.
+                telemetry.suggest_out_dir(os.path.join(self._directory, self._project))
             if self._config:
                 backend.log_scalars({f"config/{k}": v for k, v in self._config.items()
                                      if isinstance(v, (int, float))}, step=0)
@@ -197,15 +205,35 @@ class Tracker(Capsule):
         images = attrs.tracker.images or {}
         if not scalars and not images:
             return
+        telemetry = getattr(self._runtime, "telemetry", None)
+        obs_on = telemetry is not None and telemetry.enabled
+        span = telemetry.span("tracker/flush", cat="flush") if obs_on else contextlib.nullcontext()
+        with span:
+            self._flush_to_backend(attrs, scalars, images, telemetry if obs_on else None)
+
+    def _flush_to_backend(self, attrs: Attributes, scalars, images, telemetry) -> None:
+        from rocket_tpu_torch.runtime import explicit_transfer
+
         tag = attrs.looper.tag if attrs.looper is not None else None
         name = (lambda k: f"{tag}/{k}" if tag else k)  # noqa: E731
         if self._backend is not None:
-            if scalars:
-                self._backend.log_scalars({name(k): float(_host(v)) for k, v in scalars.items()},
-                                          self._iter_idx)
-            if images:
-                self._backend.log_images({name(k): _host(v) for k, v in images.items()},
-                                         self._iter_idx)
+            # The flush is the deliberate host read of the buffered device
+            # scalars: an explicit transfer, legal under strict mode.
+            with explicit_transfer():
+                host_scalars = {name(k): float(_host(v)) for k, v in scalars.items()}
+                host_images = {name(k): _host(v) for k, v in images.items()}
+            if host_scalars:
+                self._backend.log_scalars(host_scalars, self._iter_idx)
+            if host_images:
+                self._backend.log_images(host_images, self._iter_idx)
+            if telemetry is not None:
+                # The registry's snapshot (host floats) under obs/*; health/*
+                # and keys already under obs/ keep their names.
+                snap = telemetry.scalars_snapshot()
+                if snap:
+                    self._backend.log_scalars(
+                        {(k if k.startswith(("health/", "obs/")) else f"obs/{k}"): v
+                         for k, v in snap.items()}, self._iter_idx)
         attrs.tracker.scalars = Attributes()
         attrs.tracker.images = Attributes()
         self._iter_idx += 1

@@ -44,7 +44,22 @@
 //      evict-first (a last use), and y is stored as streaming (evict-first)
 //      so neither pushes the L2's rows of x out.
 // rkt_bn_normalize is the normalise pass alone, its own launch.
-// Accumulation is in f32 for both operand types; y is written in x's type.
+// Accumulation is in f32 for every operand type (f32, bf16, f16); y is
+// written in x's type.
+//
+// Any C and any row stride. The kernels above move 16-byte vectors of
+// whole channels, so they take a row only when C, the row stride ld and
+// both pointers are whole vectors (the "vec" form, by far the common one:
+// every conv width is a multiple of 8). Anything else runs the "any" form:
+//   * row 9: twopass_any_kernel, the same three phases, barriers and
+//     fixed-order sums, no slab kept on the SM, one element a load: rows
+//     split over row groups of min(C, 256) lanes, a lane owning channels;
+//   * row 10: normalize_any_kernel, one element a step, rows ld apart.
+// C above kMaxC is not the kernels' concern: a launch covers at most
+// kMaxC channels of rows ld apart, and the caller (ops/fused_conv.py)
+// launches the channel chunks of a wider activation one after another on
+// its stream. BatchNorm's channels are independent, so a chunk's result is
+// the same as the whole's.
 // Both grids come from the caller (ops/fused_conv.py chooses them): G fixes
 // the slabs, and so the order the partials add in, so it is a constant
 // there and does not follow the card.
@@ -61,6 +76,7 @@
 // the end of every launch, so two launches of rkt_bn_twopass must not run
 // at once on one device (the port issues them on one stream).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -108,6 +124,13 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
 }
 
+__device__ __forceinline__ void load16(const __half* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half* h = reinterpret_cast<const __half*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = __half2float(h[i]);
+}
+
 __device__ __forceinline__ void store16(float* p, const float* in) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
@@ -118,6 +141,29 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* in) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16(in[i]);
   *reinterpret_cast<uint4*>(p) = v;
+}
+
+__device__ __forceinline__ void store16(__half* p, const float* in) {
+  uint4 v;
+  __half* h = reinterpret_cast<__half*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = __float2half_rn(in[i]);
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// One element to and from f32 (the "any" kernels).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return v;
+  else if constexpr (std::is_same<T, __half>::value)
+    return __float2half_rn(v);
+  else
+    return __float2bfloat16(v);
 }
 
 // Row 9 moves vectors as raw 16 bytes (kept so in its shared-memory slab
@@ -149,6 +195,10 @@ __device__ __forceinline__ void unpack(const uint4& v, float* out) {
     out[1] = __uint_as_float(v.y);
     out[2] = __uint_as_float(v.z);
     out[3] = __uint_as_float(v.w);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    const __half* h = reinterpret_cast<const __half*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = __half2float(h[i]);
   } else {
     const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
@@ -161,6 +211,12 @@ __device__ __forceinline__ uint4 pack(const float* in) {
   if constexpr (std::is_same<T, float>::value) {
     return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]), __float_as_uint(in[2]),
                       __float_as_uint(in[3]));
+  } else if constexpr (std::is_same<T, __half>::value) {
+    uint4 v;
+    __half* h = reinterpret_cast<__half*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = __float2half_rn(in[i]);
+    return v;
   } else {
     uint4 v;
     __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
@@ -184,6 +240,14 @@ __device__ __forceinline__ uint4 normalize16(const uint4& v, const float* row, i
     f[i] = o;
   }
   return pack<T>(f);
+}
+
+// Element offset of vector v of a slab whose rows hold nv vectors of C
+// channels, ld elements apart (packed rows: ld == C).
+template <int V>
+__device__ __forceinline__ long long vec_offset(long long v, int nv, int c, long long ld) {
+  if (ld == c) return v * V;
+  return (v / nv) * ld + (v % nv) * V;
 }
 
 // The grid barrier's arrival counter: zero between launches (the last CTA
@@ -214,6 +278,53 @@ __device__ __forceinline__ void grid_barrier(unsigned int target) {
   __syncthreads();
 }
 
+// Phase 2 of row 9 (both forms): the channels split over the CTAs, kRedCh
+// a CTA; group grp adds partials [grp * chunk, (grp + 1) * chunk) in order,
+// then the groups add in order, and one thread per channel writes stats and
+// the (4, C) rows. buf holds 2 * kThreads floats.
+__device__ __forceinline__ void finalize_channels(const float* partial, const float* sc,
+                                                  float* stats, float* mi, long long n, int c,
+                                                  float eps, float* buf) {
+  const int t = threadIdx.x;
+  const unsigned int grid = gridDim.x;
+  const int lc = t % kRedCh, grp = t / kRedCh;
+  const int chunk = (static_cast<int>(grid) + kRedGroups - 1) / kRedGroups;
+  const int g0 = grp * chunk, g1 = min(g0 + chunk, static_cast<int>(grid));
+  const float nf = static_cast<float>(n);
+  for (int b = blockIdx.x; b * kRedCh < c; b += grid) {
+    const int ch = b * kRedCh + lc;
+    float a = 0.f, qq = 0.f;
+    if (ch < c) {
+#pragma unroll 8
+      for (int g = g0; g < g1; ++g) {
+        a += __ldcg(partial + static_cast<long long>(2 * g) * c + ch);
+        qq += __ldcg(partial + static_cast<long long>(2 * g + 1) * c + ch);
+      }
+    }
+    buf[grp * kRedCh + lc] = a;
+    buf[kThreads + grp * kRedCh + lc] = qq;
+    __syncthreads();
+    if (grp == 0 && ch < c) {
+      float sa = 0.f, sq = 0.f;
+      for (int g = 0; g < kRedGroups; ++g) {
+        sa += buf[g * kRedCh + lc];
+        sq += buf[kThreads + g * kRedCh + lc];
+      }
+      const float mean = sa / nf;
+      const float ex2 = sq / nf;
+      const float var = fmaxf(ex2 - __fmul_rn(mean, mean), 0.f);
+      const float inv = 1.f / sqrtf(var + eps);
+      stats[2 * ch] = mean;
+      stats[2 * ch + 1] = ex2;
+      mi[ch] = mean;
+      mi[c + ch] = inv;
+      mi[2 * c + ch] = __fmul_rn(inv, sc[ch]);
+      mi[3 * c + ch] = sc[c + ch];
+    }
+    __syncthreads();
+  }
+}
+
 // Row 9, one cooperative launch: moments, grid barrier, finalize, grid
 // barrier, normalise (see the top of file). CTA g owns rows [g *
 // rows_per_cta, ...) of x. It loads them in steps of kInFlight / kVecs
@@ -224,7 +335,7 @@ template <typename T, bool kAct, int kVecs>
 __global__ void __launch_bounds__(kThreads, 2)
 twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restrict__ y,
                float* __restrict__ stats, float* mi, float* partial, long long n, int c,
-               long long rows_per_cta, int cached_rows, float eps) {
+               long long ld, long long rows_per_cta, int cached_rows, float eps) {
   constexpr int V = Vec<T>::kN, kRows = kInFlight / kVecs;
   __shared__ __align__(16) float buf[3 * kMaxC];
   extern __shared__ uint4 slab[];
@@ -233,7 +344,7 @@ twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restr
   const long long begin = static_cast<long long>(blockIdx.x) * rows_per_cta;
   const long long stop = begin + rows_per_cta < n ? begin + rows_per_cta : n;
   const int rows = stop > begin ? static_cast<int>(stop - begin) : 0;
-  const T* xs = x + begin * c;
+  const T* xs = x + begin * ld;
   // Threads split as rp row groups of `lanes` threads; lane l owns vectors
   // l, l + lanes, ... of a row (rp * C <= kMaxC for both types). A step is
   // kRows rows of each group: `step` rows, the last starting at row `last`.
@@ -261,7 +372,7 @@ twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restr
           for (int j = 0; j < kVecs; ++j) {
             const int rr = base + u * rp, v = l + j * lanes;
             if (rr >= 0 && v < nv)
-              raw[u][j] = load_raw(xs + static_cast<long long>(rr) * c + v * V,
+              raw[u][j] = load_raw(xs + static_cast<long long>(rr) * ld + v * V,
                                    rr < cached_rows || rr >= last ? pass_l2 : keep_l2);
           }
 #pragma unroll
@@ -307,46 +418,8 @@ twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restr
   }
   grid_barrier(grid);
 
-  // 2. Finalize kRedCh channels a CTA: group grp adds partials [grp *
-  // chunk, (grp + 1) * chunk) in order, then the groups add in order.
-  {
-    const int lc = t % kRedCh, grp = t / kRedCh;
-    const int chunk = (static_cast<int>(grid) + kRedGroups - 1) / kRedGroups;
-    const int g0 = grp * chunk, g1 = min(g0 + chunk, static_cast<int>(grid));
-    const float nf = static_cast<float>(n);
-    for (int b = blockIdx.x; b * kRedCh < c; b += grid) {
-      const int ch = b * kRedCh + lc;
-      float a = 0.f, qq = 0.f;
-      if (ch < c) {
-#pragma unroll 8
-        for (int g = g0; g < g1; ++g) {
-          a += __ldcg(partial + static_cast<long long>(2 * g) * c + ch);
-          qq += __ldcg(partial + static_cast<long long>(2 * g + 1) * c + ch);
-        }
-      }
-      buf[grp * kRedCh + lc] = a;
-      buf[kThreads + grp * kRedCh + lc] = qq;
-      __syncthreads();
-      if (grp == 0 && ch < c) {
-        float sa = 0.f, sq = 0.f;
-        for (int g = 0; g < kRedGroups; ++g) {
-          sa += buf[g * kRedCh + lc];
-          sq += buf[kThreads + g * kRedCh + lc];
-        }
-        const float mean = sa / nf;
-        const float ex2 = sq / nf;
-        const float var = fmaxf(ex2 - __fmul_rn(mean, mean), 0.f);
-        const float inv = 1.f / sqrtf(var + eps);
-        stats[2 * ch] = mean;
-        stats[2 * ch + 1] = ex2;
-        mi[ch] = mean;
-        mi[c + ch] = inv;
-        mi[2 * c + ch] = __fmul_rn(inv, sc[ch]);
-        mi[3 * c + ch] = sc[c + ch];
-      }
-      __syncthreads();
-    }
-  }
+  // 2. Finalize (finalize_channels).
+  finalize_channels(partial, sc, stats, mi, n, c, eps, buf);
   grid_barrier(2 * grid);
   // Out of the barriers: the last CTA out resets the counter for the next
   // launch (every CTA has passed both by then).
@@ -362,7 +435,7 @@ twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restr
     buf[2 * kMaxC + ch] = __ldcg(mi + 3 * c + ch);
   }
   __syncthreads();
-  T* ys = y + begin * c;
+  T* ys = y + begin * ld;
   if (r0 < rp) {
 #pragma unroll
     for (int u = 0; u < kRows; ++u)
@@ -370,7 +443,7 @@ twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restr
       for (int j = 0; j < kVecs; ++j) {
         const int rr = last + r0 + u * rp, v = l + j * lanes;
         if (rr >= 0 && v < nv)
-          __stcs(reinterpret_cast<uint4*>(ys + static_cast<long long>(rr) * c + v * V),
+          __stcs(reinterpret_cast<uint4*>(ys + static_cast<long long>(rr) * ld + v * V),
                  normalize16<T, kAct>(raw[u][j], buf, v * V));
       }
   }
@@ -382,24 +455,119 @@ twopass_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restr
     for (int u = 0; u < kNormUnroll; ++u) {
       const int v = hi - kThreads * kNormUnroll + u * kThreads + t;
       if (v >= 0)
-        in[u] = v < cached ? slab[v] : load_raw(xs + static_cast<long long>(v) * V, pass_l2);
+        in[u] = v < cached ? slab[v] : load_raw(xs + vec_offset<V>(v, nv, c, ld), pass_l2);
     }
 #pragma unroll
     for (int u = 0; u < kNormUnroll; ++u) {
       const int v = hi - kThreads * kNormUnroll + u * kThreads + t;
       if (v >= 0)
-        __stcs(reinterpret_cast<uint4*>(ys + static_cast<long long>(v) * V),
+        __stcs(reinterpret_cast<uint4*>(ys + vec_offset<V>(v, nv, c, ld)),
                normalize16<T, kAct>(in[u], buf, (v % nv) * V));
     }
   }
 }
 
-// Row 10 (the whole of rkt_bn_normalize): y = (x - mean) * (inv*scale) +
-// bias [relu], mi rows 0, 2 and 3 staged in shared memory.
+
+// Channels a lane of row 9's "any" form owns: C <= kMaxC over kThreads lanes.
+constexpr int kAnyCh = kMaxC / kThreads;
+
+// y = (x - mean) * (inv*scale) + bias [relu] for one element of channel ch;
+// row holds mean, inv*scale and bias kMaxC apart.
+template <typename T, bool kAct>
+__device__ __forceinline__ T normalize1(float f, const float* row, int ch) {
+  float o = (f - row[ch]) * row[kMaxC + ch] + row[2 * kMaxC + ch];
+  if (kAct) o = o < 0.f ? 0.f : o;  // max(o, 0), NaN kept as jnp.maximum keeps it
+  return from_f32<T>(o);
+}
+
+// Row 9's "any" form (any C up to kMaxC, any row stride, any alignment):
+// twopass_kernel's three phases, barriers and fixed-order sums, one
+// element a load: rp row groups of min(C, kThreads) lanes, lane l owning
+// channels l, l + lanes, ... of its rows.
+template <typename T, bool kAct>
+__global__ void __launch_bounds__(kThreads, 2)
+twopass_any_kernel(const T* __restrict__ x, const float* __restrict__ sc, T* __restrict__ y,
+                   float* __restrict__ stats, float* mi, float* partial, long long n, int c,
+                   long long ld, long long rows_per_cta, float eps) {
+  __shared__ __align__(16) float buf[3 * kMaxC];
+  const int t = threadIdx.x;
+  const unsigned int grid = gridDim.x;
+  const long long begin = static_cast<long long>(blockIdx.x) * rows_per_cta;
+  const long long stop = begin + rows_per_cta < n ? begin + rows_per_cta : n;
+  const long long rows = stop > begin ? stop - begin : 0;
+  const T* xs = x + begin * ld;
+
+  // 1. Moments of this CTA's rows.
+  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * c;
+  {
+    const int lanes = c < kThreads ? c : kThreads;
+    const int rp = kThreads / lanes;
+    const int r0 = t / lanes, l = t % lanes;
+    float s[kAnyCh], q[kAnyCh];
+#pragma unroll
+    for (int j = 0; j < kAnyCh; ++j) s[j] = q[j] = 0.f;
+    if (r0 < rp) {
+      for (long long r = r0; r < rows; r += rp) {
+        const T* row = xs + r * ld;
+#pragma unroll
+        for (int j = 0; j < kAnyCh; ++j) {
+          const int ch = l + j * lanes;
+          if (ch < c) {
+            const float f = to_f32(row[ch]);
+            s[j] += f;
+            q[j] += f * f;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kAnyCh; ++j) {
+        const int ch = l + j * lanes;
+        if (ch < c) {
+          buf[r0 * c + ch] = s[j];
+          buf[kMaxC + r0 * c + ch] = q[j];
+        }
+      }
+    }
+    __syncthreads();
+    for (int ch = t; ch < c; ch += kThreads) {
+      float a = 0.f, b = 0.f;
+      for (int g = 0; g < rp; ++g) {  // the row groups, in order
+        a += buf[g * c + ch];
+        b += buf[kMaxC + g * c + ch];
+      }
+      out[ch] = a;
+      out[c + ch] = b;
+    }
+  }
+  grid_barrier(grid);
+  // 2. Finalize.
+  finalize_channels(partial, sc, stats, mi, n, c, eps, buf);
+  grid_barrier(2 * grid);
+  if (t == 0 && atomicAdd(&g_arrivals, 1u) == 3 * grid - 1) atomicExch(&g_arrivals, 0u);
+
+  // 3. Normalise this CTA's rows, one element at a time.
+  for (int ch = t; ch < c; ch += kThreads) {
+    buf[ch] = __ldcg(mi + ch);
+    buf[kMaxC + ch] = __ldcg(mi + 2 * c + ch);
+    buf[2 * kMaxC + ch] = __ldcg(mi + 3 * c + ch);
+  }
+  __syncthreads();
+  T* ys = y + begin * ld;
+  const long long total = rows * c;
+  for (long long e = t; e < total; e += kThreads) {
+    const long long r = e / c;
+    const int ch = static_cast<int>(e - r * c);
+    ys[r * ld + ch] = normalize1<T, kAct>(to_f32(xs[r * ld + ch]), buf, ch);
+  }
+}
+
+// Row 10, vec form (the whole of rkt_bn_normalize for whole-vector rows):
+// y = (x - mean) * (inv*scale) + bias [relu], mi rows 0, 2 and 3 staged in
+// shared memory; rows ld elements apart.
 template <typename T, bool kAct>
 __global__ void __launch_bounds__(kThreads)
 normalize_kernel(const T* __restrict__ x, const float* __restrict__ mi, T* __restrict__ y,
-                 long long total_vecs, int c) {
+                 long long total_vecs, int c, long long ld) {
   constexpr int V = Vec<T>::kN;
   __shared__ float row[3][kMaxC];
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
@@ -413,28 +581,70 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ mi, T* __res
   for (long long v = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; v < total_vecs;
        v += stride) {
     const int c0 = static_cast<int>(v % nv) * V;
+    const long long off = vec_offset<V>(v, nv, c, ld);
     float f[V];
-    load16(x + v * V, f);
+    load16(x + off, f);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       float o = (f[i] - row[0][c0 + i]) * row[1][c0 + i] + row[2][c0 + i];
       if (kAct) o = o < 0.f ? 0.f : o;  // max(o, 0), NaN kept as jnp.maximum keeps it
       f[i] = o;
     }
-    store16(y + v * V, f);
+    store16(y + off, f);
   }
 }
 
+// Row 10, any form: every element one at a time, rows ld apart.
+template <typename T, bool kAct>
+__global__ void __launch_bounds__(kThreads)
+normalize_any_kernel(const T* __restrict__ x, const float* __restrict__ mi, T* __restrict__ y,
+                     long long n, int c, long long ld) {
+  __shared__ float row[3][kMaxC];
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    row[0][ch] = mi[ch];
+    row[1][ch] = mi[2 * c + ch];
+    row[2][ch] = mi[3 * c + ch];
+  }
+  __syncthreads();
+  const long long total = n * c;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < total;
+       e += stride) {
+    const long long r = e / c;
+    const int ch = static_cast<int>(e - r * c);
+    float o = (to_f32(x[r * ld + ch]) - row[0][ch]) * row[1][ch] + row[2][ch];
+    if (kAct) o = o < 0.f ? 0.f : o;
+    y[r * ld + ch] = from_f32<T>(o);
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Whether rows of C channels ld apart at x and y take the vec form.
 template <typename T>
-int launch_normalize(const void* x, const float* mi, void* y, long long n, int c, int blocks,
-                     int act, cudaStream_t stream) {
-  const long long total = n * c / Vec<T>::kN;
+bool vec_ok(const void* x, const void* y, int c, long long ld) {
+  constexpr int V = Vec<T>::kN;
+  return c % V == 0 && ld % V == 0 && aligned16(x) && aligned16(y);
+}
+
+template <typename T>
+int launch_normalize(const void* x, const float* mi, void* y, long long n, int c, long long ld,
+                     int blocks, int act, int vec, cudaStream_t stream) {
   const T* xs = static_cast<const T*>(x);
   T* ys = static_cast<T*>(y);
-  if (act)
-    normalize_kernel<T, true><<<blocks, kThreads, 0, stream>>>(xs, mi, ys, total, c);
-  else
-    normalize_kernel<T, false><<<blocks, kThreads, 0, stream>>>(xs, mi, ys, total, c);
+  if (vec) {
+    if (!vec_ok<T>(x, y, c, ld)) return static_cast<int>(cudaErrorInvalidValue);
+    const long long total = n * (c / Vec<T>::kN);
+    if (act)
+      normalize_kernel<T, true><<<blocks, kThreads, 0, stream>>>(xs, mi, ys, total, c, ld);
+    else
+      normalize_kernel<T, false><<<blocks, kThreads, 0, stream>>>(xs, mi, ys, total, c, ld);
+  } else {
+    if (act)
+      normalize_any_kernel<T, true><<<blocks, kThreads, 0, stream>>>(xs, mi, ys, n, c, ld);
+    else
+      normalize_any_kernel<T, false><<<blocks, kThreads, 0, stream>>>(xs, mi, ys, n, c, ld);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,7 +681,10 @@ int device_sms(int* sms) {
 
 template <typename T>
 using Twopass = void (*)(const T*, const float*, T*, float*, float*, float*, long long, int,
-                         long long, int, float);
+                         long long, long long, int, float);
+template <typename T>
+using TwopassAny = void (*)(const T*, const float*, T*, float*, float*, float*, long long, int,
+                            long long, long long, float);
 
 // Raise an instantiation's dynamic shared-memory cap to all a CTA may opt
 // into beside its static buf, and ask for the largest carveout (the slabs
@@ -494,7 +707,7 @@ int prepare_twopass() {
   return static_cast<int>(err);
 }
 
-// The instantiation for C channels (kVecs 2 only for f32 past 1024),
+// The vec instantiation for C channels (kVecs 2 only for f32 past 1024),
 // prepared; returns the cudaError_t.
 template <typename T>
 int twopass_for(int c, int act, Twopass<T>* kernel) {
@@ -508,27 +721,43 @@ int twopass_for(int c, int act, Twopass<T>* kernel) {
   return act ? prepare_twopass<T, true, 1>() : prepare_twopass<T, false, 1>();
 }
 
+template <typename T>
+TwopassAny<T> twopass_any_for(int act) {
+  return act ? twopass_any_kernel<T, true> : twopass_any_kernel<T, false>;
+}
+
 // One cooperative launch: the card refuses it (and nothing runs) unless
 // all `grid` CTAs can be resident at once, which the grid barriers need.
 template <typename T>
 int run_twopass(const void* x, const float* sc, void* y, float* stats, float* mi, float* partial,
-                long long n, int c, int grid, float eps, int act, cudaStream_t stream) {
-  Twopass<T> kernel = nullptr;
-  int sms = 0;
-  int err = twopass_for<T>(c, act, &kernel);
-  if (err == 0) err = device_sms(&sms);
-  if (err != 0) return err;
-  const Slabs sl = slabs(n, c, grid, sizeof(T), sms);
-  if (sl.rows_per_cta * (c / Vec<T>::kN) > 0x7fffffffll)
-    return static_cast<int>(cudaErrorInvalidValue);  // the slab's vector index is an int
+                long long n, int c, long long ld, int grid, float eps, int act, int vec,
+                cudaStream_t stream) {
   const T* xs = static_cast<const T*>(x);
   T* ys = static_cast<T*>(y);
-  long long rows_per_cta = sl.rows_per_cta;
-  int cached_rows = sl.cached_rows;
-  void* args[] = {&xs, &sc, &ys, &stats, &mi, &partial, &n, &c, &rows_per_cta, &cached_rows,
-                  &eps};
-  const cudaError_t launched = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads), args, sl.smem, stream);
+  cudaError_t launched;
+  if (vec) {
+    if (!vec_ok<T>(x, y, c, ld)) return static_cast<int>(cudaErrorInvalidValue);
+    Twopass<T> kernel = nullptr;
+    int sms = 0;
+    int err = twopass_for<T>(c, act, &kernel);
+    if (err == 0) err = device_sms(&sms);
+    if (err != 0) return err;
+    const Slabs sl = slabs(n, c, grid, sizeof(T), sms);
+    if (sl.rows_per_cta * (c / Vec<T>::kN) > 0x7fffffffll)
+      return static_cast<int>(cudaErrorInvalidValue);  // the slab's vector index is an int
+    long long rows_per_cta = sl.rows_per_cta;
+    int cached_rows = sl.cached_rows;
+    void* args[] = {&xs, &sc, &ys, &stats, &mi, &partial, &n, &c, &ld, &rows_per_cta,
+                    &cached_rows, &eps};
+    launched = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                           dim3(kThreads), args, sl.smem, stream);
+  } else {
+    TwopassAny<T> kernel = twopass_any_for<T>(act);
+    long long rows_per_cta = (n + grid - 1) / grid;
+    void* args[] = {&xs, &sc, &ys, &stats, &mi, &partial, &n, &c, &ld, &rows_per_cta, &eps};
+    launched = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                           dim3(kThreads), args, 0, stream);
+  }
   if (launched != cudaSuccess) {
     cudaGetLastError();  // clear it: the launch never ran
     return static_cast<int>(launched);
@@ -536,14 +765,19 @@ int run_twopass(const void* x, const float* sc, void* y, float* stats, float* mi
   return static_cast<int>(cudaGetLastError());
 }
 
-// which 0: row 9's launch over `grid` CTAs; 1: row 10's normalise over
-// `grid` CTAs.
+// which 0: row 9's vec launch over `grid` CTAs; 1: row 10's vec normalise;
+// 2: row 9's any form; 3: row 10's any form.
 template <typename T>
 int query(int which, long long n, int c, int grid, int act, long long* info) {
   if (which == 1) {
     if (act) return rkt_info::write(normalize_kernel<T, true>, dim3(grid), kThreads, 0, info);
     return rkt_info::write(normalize_kernel<T, false>, dim3(grid), kThreads, 0, info);
   }
+  if (which == 3) {
+    if (act) return rkt_info::write(normalize_any_kernel<T, true>, dim3(grid), kThreads, 0, info);
+    return rkt_info::write(normalize_any_kernel<T, false>, dim3(grid), kThreads, 0, info);
+  }
+  if (which == 2) return rkt_info::write(twopass_any_for<T>(act), dim3(grid), kThreads, 0, info);
   Twopass<T> kernel = nullptr;
   int sms = 0;
   int err = twopass_for<T>(c, act, &kernel);
@@ -553,8 +787,9 @@ int query(int which, long long n, int c, int grid, int act, long long* info) {
                          info);
 }
 
-// Resident CTAs per SM of row 9's launch at these shapes (the cooperative
-// launch needs grid <= this times the SMs); -1 when the card refuses.
+// Resident CTAs per SM of row 9's vec launch at these shapes (the
+// cooperative launch needs grid <= this times the SMs); -1 when the card
+// refuses.
 template <typename T>
 int resident(long long n, int c, int grid, int act) {
   Twopass<T> kernel = nullptr;
@@ -567,54 +802,65 @@ int resident(long long n, int c, int grid, int act) {
   return blocks;
 }
 
-bool shape_ok(long long n, int c) { return n >= 1 && c >= 8 && c <= kMaxC && c % 8 == 0; }
+bool shape_ok(long long n, int c, long long ld) {
+  return n >= 1 && c >= 1 && c <= kMaxC && ld >= c;
+}
 
 }  // namespace
 
-// Row 9: x (N, C) in the operand type (dtype 0 f32, 1 bf16), sc (2, C) f32
-// = [scale, bias] -> y (N, C) in x's type, stats (C, 2) f32; mi (4, C) f32
-// and partial (grid, 2, C) f32 are scratch the caller allocates; grid is
-// the CTAs of the launch, all resident at once. Returns the cudaError_t of
-// the launch (cudaErrorCooperativeLaunchTooLarge when the card cannot hold
-// the grid).
+// Row 9: x (N, C) rows ld elements apart, in the operand type (dtype 0
+// f32, 1 bf16, 2 f16), sc (2, C) f32 = [scale, bias] -> y (N, C) rows ld
+// apart in x's type, stats (C, 2) f32; mi (4, C) f32 and partial (grid, 2,
+// C) f32 are scratch the caller allocates; grid is the CTAs of the launch,
+// all resident at once; vec 1 asks for the vec form (whole 16-byte vectors,
+// refused otherwise), 0 for the any form. Returns the cudaError_t of the
+// launch (cudaErrorCooperativeLaunchTooLarge when the card cannot hold the
+// grid).
 extern "C" int rkt_bn_twopass(const void* x, const void* sc, void* y, void* stats, void* mi,
-                              void* partial, long long n, int c, int grid, float eps, int act,
-                              int dtype, void* stream) {
-  if (!shape_ok(n, c) || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+                              void* partial, long long n, int c, long long ld, int grid, float eps,
+                              int act, int dtype, int vec, void* stream) {
+  if (!shape_ok(n, c, ld) || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* scf = static_cast<const float*>(sc);
   float* st = static_cast<float*>(stats);
   float* m = static_cast<float*>(mi);
   float* p = static_cast<float*>(partial);
-  if (dtype == 1) return run_twopass<__nv_bfloat16>(x, scf, y, st, m, p, n, c, grid, eps, act, s);
-  return run_twopass<float>(x, scf, y, st, m, p, n, c, grid, eps, act, s);
+  if (dtype == 1)
+    return run_twopass<__nv_bfloat16>(x, scf, y, st, m, p, n, c, ld, grid, eps, act, vec, s);
+  if (dtype == 2) return run_twopass<__half>(x, scf, y, st, m, p, n, c, ld, grid, eps, act, vec, s);
+  return run_twopass<float>(x, scf, y, st, m, p, n, c, ld, grid, eps, act, vec, s);
 }
 
-// Row 10: x (N, C), mi (4, C) f32 = [mean, inv, inv*scale, bias] -> y, in
-// grid CTAs.
+// Row 10: x (N, C) rows ld apart, mi (4, C) f32 = [mean, inv, inv*scale,
+// bias] -> y, in grid CTAs; vec as for rkt_bn_twopass.
 extern "C" int rkt_bn_normalize(const void* x, const void* mi, void* y, long long n, int c,
-                                int grid, int act, int dtype, void* stream) {
-  if (!shape_ok(n, c) || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                long long ld, int grid, int act, int dtype, int vec,
+                                void* stream) {
+  if (!shape_ok(n, c, ld) || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mi);
-  if (dtype == 1) return launch_normalize<__nv_bfloat16>(x, m, y, n, c, grid, act, s);
-  return launch_normalize<float>(x, m, y, n, c, grid, act, s);
+  if (dtype == 1) return launch_normalize<__nv_bfloat16>(x, m, y, n, c, ld, grid, act, vec, s);
+  if (dtype == 2) return launch_normalize<__half>(x, m, y, n, c, ld, grid, act, vec, s);
+  return launch_normalize<float>(x, m, y, n, c, ld, grid, act, vec, s);
 }
 
-// The launch geometry of rkt_bn_twopass (which 0) or rkt_bn_normalize
-// (which 1) at these shapes over `grid` CTAs (launch_info.cuh).
+// The launch geometry of rkt_bn_twopass (which 0 vec, 2 any) or
+// rkt_bn_normalize (1 vec, 3 any) at these shapes over `grid` CTAs
+// (launch_info.cuh).
 extern "C" int rkt_bn_launch_info(int which, long long n, int c, int grid, int act, int dtype,
                                   long long* info) {
-  if (!shape_ok(n, c) || grid < 1 || which < 0 || which > 1)
+  if (!shape_ok(n, c, c) || grid < 1 || which < 0 || which > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) return query<__nv_bfloat16>(which, n, c, grid, act, info);
+  if (dtype == 2) return query<__half>(which, n, c, grid, act, info);
   return query<float>(which, n, c, grid, act, info);
 }
 
-// Resident CTAs per SM of rkt_bn_twopass at these shapes (the relu form);
-// -1 when the card refuses it.
+// Resident CTAs per SM of rkt_bn_twopass's vec form at these shapes (the
+// relu form); -1 when the card refuses it.
 extern "C" int rkt_bn_twopass_resident(long long n, int c, int grid, int dtype) {
-  if (!shape_ok(n, c) || grid < 1) return -1;
+  if (!shape_ok(n, c, c) || grid < 1) return -1;
   if (dtype == 1) return resident<__nv_bfloat16>(n, c, grid, 1);
+  if (dtype == 2) return resident<__half>(n, c, grid, 1);
   return resident<float>(n, c, grid, 1);
 }

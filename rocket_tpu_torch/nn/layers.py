@@ -264,10 +264,10 @@ def bn_act_train(x, scale, bias, eps: float, act: bool = False):
     (defaults ``"twopass"`` and 512, the reference's). A table entry
     engages the kernel on CUDA tensors only; forced, CPU tensors run its
     plain version (the reference's interpret mode) and CUDA tensors the
-    kernel. Shapes past the reference's gate stay on the reference path; a
-    CUDA tensor the kernel does not take (not f32 or bf16, or C not a
-    multiple of 8 up to 2048) raises. Returns ``(y, stats)`` like
-    :func:`_bn_train`."""
+    kernel, whatever C and whichever of f32, bf16 and f16 (a float64 CUDA
+    tensor raises: the TPU kernel never ran it). Shapes past the
+    reference's gate stay on the reference path. Returns ``(y, stats)``
+    like :func:`_bn_train`."""
     c = x.shape[-1]
     n = x.numel() // c
     config = _fused_conv_config(n, c, x.dtype)

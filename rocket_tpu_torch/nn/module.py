@@ -30,7 +30,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["Layer", "Lambda", "Sequential", "Model", "map_params", "merge_state"]
+__all__ = ["Layer", "Lambda", "Sequential", "Model", "Variables", "map_params", "merge_state"]
+
+#: A layer's variables: the nested dict of its params (and state).
+Variables = dict
 
 
 class Layer:

@@ -1,3 +1,39 @@
-"""Observability of the port (counterpart of ``rocket_tpu.obs``): so far
-the trace-window policy (``obs/prof.py``). The trace parser and the
-telemetry registry wait for the ops plane (ROADMAP Queue A 7)."""
+"""The port's ops plane, training half (counterpart of ``rocket_tpu.obs``):
+spans, goodput, the metrics registry, the hang watchdog, the health
+sentinels and the flight recorder, owned per run by one
+:class:`Telemetry`; and the trace-window policy (``obs/prof.py``).
+
+``Runtime(telemetry=True)`` (or ``ROCKET_TPU_TELEMETRY=1``) turns it on;
+at the end of the run ``telemetry.json`` and the Chrome trace
+``spans.trace.json`` land in the run directory. ``Runtime(health=True)``
+(or ``ROCKET_TPU_HEALTH``) adds the health word to the train step and arms
+the flight recorder, whose bundles land under ``blackbox/``. Render either
+with ``python -m rocket_tpu_torch.obs report|blackbox <path>``.
+
+Not ported yet (ROADMAP Queue A 7b): the live export plane
+(``ExportConfig``, ``PrometheusServer``, ``ShardWriter``,
+``TelemetryExporter``, ``merge_rank_records``, ``read_telemetry_dir``,
+``render_prometheus``) and the SLO evaluator (``SLOEvaluator``,
+``SLOSpec``, ``SLOStatus``, ``load_slo_specs``).
+"""
+
+from rocket_tpu_torch.obs.export import host_identity
+from rocket_tpu_torch.obs.flight import FlightRecorder
+from rocket_tpu_torch.obs.goodput import CATEGORIES, Goodput, render_report
+from rocket_tpu_torch.obs.health import HealthAnomalyError, HealthConfig, HealthMonitor
+from rocket_tpu_torch.obs.registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    estimate_quantiles,
+)
+from rocket_tpu_torch.obs.spans import SpanRecorder, load_chrome_trace
+from rocket_tpu_torch.obs.telemetry import Telemetry
+from rocket_tpu_torch.obs.watchdog import Watchdog
+
+__all__ = [
+    "CATEGORIES", "Counter", "FlightRecorder", "Gauge", "Goodput", "HealthAnomalyError",
+    "HealthConfig", "HealthMonitor", "Histogram", "MetricsRegistry", "SpanRecorder", "Telemetry",
+    "Watchdog", "estimate_quantiles", "host_identity", "load_chrome_trace", "render_report",
+]

@@ -1,7 +1,8 @@
 """The bounded-overhead trace-window policy (counterpart of the
 ``ProfPolicy`` and ``parse_step_window`` of ``rocket_tpu/obs/prof.py``).
-The trace parser and its ``obs/prof/*`` gauges wait for the telemetry
-registry (ROADMAP Queue A 7)."""
+The trace parser and its ``obs/prof/*`` gauges are ROADMAP Queue A 7b
+(the registry they publish into exists since the ops plane's training
+half)."""
 
 from __future__ import annotations
 

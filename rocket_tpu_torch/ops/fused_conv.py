@@ -28,10 +28,15 @@ design, not a fallback: the JAX package has no backward kernel for this
 function. The stats output carries no gradient (callers detach it for the
 running averages, as the reference stops its gradient).
 
-The CUDA kernels take C a multiple of 8 up to :data:`MAX_C` in f32 or
-bf16 (:func:`kernel_supported`); a CUDA tensor past that raises, whatever
-the call-site gate (``nn/layers.bn_act_train``, the reference's shape gate
-:func:`fused_bn_act_supported`) let through. ``block_rows`` is the TPU
+The CUDA kernels take what the reference's kernel takes: any C and f32,
+bf16 or f16 (:func:`kernel_supported`). Rows of whole 16-byte vectors (C,
+and the chunk's offset, a multiple of 16 bytes' elements) run the vec form,
+anything else the any form (``csrc/fused_conv.cu``); an activation wider
+than :data:`MAX_C` runs as channel chunks of at most ``MAX_C``, one launch
+each, rows ``C`` apart (:func:`chunks`). Only float64 raises on a CUDA
+tensor: the TPU kernel never ran it. The call-site gate
+(``nn/layers.bn_act_train``) is the reference's shape gate
+:func:`fused_bn_act_supported` alone. ``block_rows`` is the TPU
 grid's row tile: it is checked as the reference checks it, and the CUDA
 kernels' result does not depend on it. The same :class:`BnAct` Function
 with ``schedule="plain"`` is ``nn/layers._bn_train``, the seam's default.
@@ -45,7 +50,6 @@ import torch
 
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops._launch import (
-    DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
     query_launch,
@@ -59,15 +63,20 @@ __all__ = [
     "SCHEDULES", "MAX_C", "BnAct", "fused_bn_act", "fused_bn_act_supported",
     "kernel_supported", "reference_bn_act", "moments", "epilogue_rows", "bn_backward",
     "bn_twopass", "bn_twopass_plain", "bn_normalize", "bn_normalize_plain", "bn_launches",
-    "slab_smem", "launch_info", "resident",
+    "slab_smem", "launch_info", "resident", "chunks", "vec_form", "BN_DTYPE_CODES",
+    "bn_chunk_launches",
 ]
 
 #: Sublane minimum per itemsize — the reference's ``_SUBLANE``.
 _SUBLANE = {4: 8, 2: 16, 1: 32}
 
 SCHEDULES = ("twopass", "stats_xla")
-#: Widest channel count of the kernels (``kMaxC`` in ``csrc/fused_conv.cu``).
+#: Widest channel count of one launch (``kMaxC`` in ``csrc/fused_conv.cu``);
+#: a wider activation runs as chunks of at most this many channels.
 MAX_C = 2048
+#: Operand types of these kernels and their code in their C ABI (f16 beside
+#: the shared f32 and bf16 codes).
+BN_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: Launch geometry of both kernels, all chosen here (:func:`_grids`). Row 9
 #: runs at most MOMENT_CTAS CTAs (two per SM of an H100, all resident at
 #: once) of at least MOMENT_MIN_ROWS rows each. It is a constant, not read
@@ -95,9 +104,25 @@ def fused_bn_act_supported(n: int, block_rows: int, itemsize: int) -> bool:
 
 
 def kernel_supported(c: int, dtype: torch.dtype) -> bool:
-    """What the CUDA kernels take: f32 or bf16, C a multiple of 8 up to
-    :data:`MAX_C`."""
-    return dtype in DTYPE_CODES and c % 8 == 0 and 8 <= c <= MAX_C
+    """What the CUDA kernels take: f32, bf16 or f16, any C >= 1 (past
+    :data:`MAX_C` in chunks)."""
+    return dtype in BN_DTYPE_CODES and c >= 1
+
+
+def chunks(c: int) -> list:
+    """``(first channel, width)`` of each launch over C channels: one for C
+    <= :data:`MAX_C`, else runs of ``MAX_C`` and the rest."""
+    return [(k, min(MAX_C, c - k)) for k in range(0, c, MAX_C)]
+
+
+def vec_form(width: int, ld: int, offset: int, dtype, ptr: int = 0) -> bool:
+    """Whether a launch over ``width`` channels of rows ``ld`` apart,
+    starting ``offset`` channels in, takes the vec form (whole 16-byte
+    vectors: ``width``, ``ld`` and the start a multiple of 16 bytes'
+    elements; ``ptr`` the operand's address on the card, 0 on meta)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    item = 16 // vec
+    return width % vec == 0 and ld % vec == 0 and (ptr + offset * item) % 16 == 0
 
 
 def reference_bn_act(x, scale, bias, eps: float, act: bool):
@@ -157,13 +182,13 @@ def _lib():
     if lib.rkt_bn_twopass.argtypes is None:
         lib.rkt_bn_twopass.restype = ctypes.c_int
         lib.rkt_bn_twopass.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rkt_bn_normalize.restype = ctypes.c_int
         lib.rkt_bn_normalize.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.rkt_bn_launch_info.restype = ctypes.c_int
         lib.rkt_bn_launch_info.argtypes = [ctypes.c_int, ctypes.c_longlong] + [
@@ -173,10 +198,11 @@ def _lib():
     return lib
 
 
-def _grids(x2: torch.Tensor) -> tuple:
-    """(row 9's CTAs, row 10's CTAs) for ``x2`` (N, C) on its card."""
+def _grids(x2: torch.Tensor, width: int = 0) -> tuple:
+    """(row 9's CTAs, row 10's CTAs) for ``width`` channels (default all)
+    of ``x2`` (N, C) on its card."""
     n, c = x2.shape
-    vectors = n * c * x2.element_size() // 16
+    vectors = n * (width or c) * x2.element_size() // 16
     norm_ctas = sm_count(x2, "fused_conv") * NORM_CTAS_PER_SM
     return _twopass_ctas(n), max(1, min(norm_ctas, -(-vectors // THREADS)))
 
@@ -187,7 +213,7 @@ def _twopass_ctas(n: int) -> int:
     return max(1, min(MOMENT_CTAS, -(-n // MOMENT_MIN_ROWS)))
 
 
-#: Static shared memory of both kernels: f32 rows of MAX_C channels (row
+#: Static shared memory of every kernel: f32 rows of MAX_C channels (row
 #: 9's ``buf[3 * kMaxC]``, row 10's ``row[3][kMaxC]``).
 _STATIC_SMEM = 3 * 4 * MAX_C
 
@@ -213,101 +239,165 @@ def slab_smem(n: int, c: int, dtype, grid: int, sms: int) -> int:
     return min(max(rows - _step_rows(c, dtype), 0), max(share, 0) // row) * row
 
 
+def _stream(rows: int, cols: int, dtype, n: int, c: int) -> tuple:
+    """A tile a CTA streams through 16-byte vectors or single elements
+    (these kernels fill no tensor-core fragment): fewer rows than a
+    fragment's are declared as the one-row vector read they are."""
+    item = torch.empty((), dtype=dtype).element_size()
+    if rows < {4: 8, 2: 16}.get(item, 8) and rows != n:
+        rows = 1
+    return tile(rows, cols, dtype, n, c)
+
+
+def _launch_fact(kind: str, n: int, c: int, width: int, vec: bool, dtype, grid: int,
+                 norm_grid: int, sms: int) -> LaunchFact:
+    """One launch over ``width`` channels of an (N, C) activation."""
+    f32 = torch.float32
+    mi_rows = tile(4, width, f32, 4, width)
+    if not vec:  # the any form: one element a load, a row's elements across the lanes
+        x_row = _stream(1, width, dtype, n, c)
+        if kind == "normalize":
+            return LaunchFact("bn_normalize_any", (norm_grid, 1, 1), THREADS, 0, _STATIC_SMEM,
+                              (mi_rows, x_row, x_row))
+        cols = min(width, 32)
+        return LaunchFact("bn_twopass_any", (grid, 1, 1), THREADS, 0, _STATIC_SMEM,
+                          (x_row, tile(2 * grid, cols, f32, 2 * grid, width),
+                           tile(cols, 2, f32, width, 2), tile(4, cols, f32, 4, width), mi_rows,
+                           x_row, x_row))
+    vec_elems = 16 // torch.empty((), dtype=dtype).element_size()
+    step = THREADS * vec_elems
+    if kind == "normalize":
+        x_norm = _stream(max(1, step // width), min(width, step), dtype, n, c)
+        return LaunchFact("bn_normalize", (norm_grid, 1, 1), THREADS, 0, _STATIC_SMEM,
+                          (mi_rows, x_norm, x_norm))
+    if sms <= 0:
+        raise ValueError("bn_launches: row 9's shared memory needs the card's SM count")
+    chunk = NORM_UNROLL * step
+    x_out = _stream(max(1, min(n, chunk // width)), min(width, chunk), dtype, n, c)
+    cols = min(width, 32)
+    return LaunchFact("bn_twopass", (grid, 1, 1), THREADS,
+                      slab_smem(n, width, dtype, grid, sms), _STATIC_SMEM,
+                      (_stream(min(n, _step_rows(width, dtype)), width, dtype, n, c),
+                       tile(2, width, f32, 2, width), tile(2 * grid, cols, f32, 2 * grid, width),
+                       tile(cols, 2, f32, width, 2), tile(4, cols, f32, 4, width), mi_rows,
+                       x_out, x_out))
+
+
+def bn_chunk_launches(kind: str, n: int, c: int, dtype, sms: int, ptr: int = 0) -> list:
+    """``(width, LaunchFact)`` of every launch of ``kind`` on an (N, C)
+    activation at address ``ptr``, chunk by chunk (:func:`chunks`), on a
+    card of ``sms`` SMs. The vec or any form follows ``ptr`` as the launch
+    does: the meta route passes the view's byte offset into its storage
+    (:func:`_address`), the caching allocator's blocks being 16-byte
+    aligned."""
+    item = torch.empty((), dtype=dtype).element_size()
+    out = []
+    for first, width in chunks(c):
+        vectors = n * width * item // 16
+        norm_grid = max(1, min(sms * NORM_CTAS_PER_SM, -(-vectors // THREADS)))
+        vec = vec_form(width, c, first, dtype, ptr)
+        out.append((width, _launch_fact(kind, n, c, width, vec, dtype, _twopass_ctas(n),
+                                        norm_grid, sms)))
+    return out
+
+
 def bn_launches(kind: str, n: int, c: int, dtype, grid: int, norm_grid: int,
                 sms: int = 0) -> list:
-    """The launches of ``kind`` on ``x2`` (N, C): ``"twopass"`` is row 9's
-    one launch of ``grid`` CTAs on a card of ``sms`` SMs, ``"normalize"``
-    row 10's of ``norm_grid``.
-    A row 9 CTA splits each row of its slab among up to THREADS lanes, 16
-    bytes a lane, loads it in steps of IN_FLIGHT vectors a thread
+    """The launches of ``kind`` on ``x2`` (N, C) (packed, 16-byte aligned):
+    ``"twopass"`` is row 9's one launch of ``grid`` CTAs a chunk on a card
+    of ``sms`` SMs, ``"normalize"`` row 10's of ``norm_grid`` (over the
+    whole C; a chunk of a wider C takes its own share).
+    A row 9 CTA (vec form) splits each row of its slab among up to THREADS
+    lanes, 16 bytes a lane, loads it in steps of IN_FLIGHT vectors a thread
     (:func:`_step_rows`) and writes a (2, C) partial; after a grid barrier it
     reads the partials of up to 32 channels and writes their stats and
     (4, C) rows; after another it stages mean, inv*scale and bias and
     streams its slab of x and y in chunks of NORM_UNROLL vectors of 16
     bytes a thread, the slab's first rows from shared memory
     (:func:`slab_smem`). Row 10 stages those rows and streams x and y one
-    vector a thread a step."""
-    f32 = torch.float32
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    lanes = min(c // vec, THREADS)
-    step = THREADS * vec
-    mi_rows = tile(4, c, f32, 4, c)
-    if kind == "normalize":
-        x_norm = tile(max(1, step // c), min(c, step), dtype, n, c)
-        return [LaunchFact("bn_normalize", (norm_grid, 1, 1), THREADS, 0, _STATIC_SMEM,
-                           (mi_rows, x_norm, x_norm))]
-    if sms <= 0:
-        raise ValueError("bn_launches: row 9's shared memory needs the card's SM count")
-    chunk = NORM_UNROLL * step
-    x_out = tile(max(1, min(n, chunk // c)), min(c, chunk), dtype, n, c)
-    cols = min(c, 32)
-    return [LaunchFact("bn_twopass", (grid, 1, 1), THREADS, slab_smem(n, c, dtype, grid, sms),
-                       _STATIC_SMEM,
-                       (tile(min(n, _step_rows(c, dtype)), c, dtype, n, c),
-                        tile(2, c, f32, 2, c), tile(2 * grid, cols, f32, 2 * grid, c),
-                        tile(cols, 2, f32, c, 2), tile(4, cols, f32, 4, c), mi_rows, x_out,
-                        x_out))]
+    vector a thread a step. The any form (:func:`vec_form` false) does the
+    same one element at a time, with no slab in shared memory."""
+    if len(chunks(c)) > 1:
+        if kind == "twopass" and sms <= 0:
+            raise ValueError("bn_launches: row 9's shared memory needs the card's SM count")
+        return [fact for _, fact in bn_chunk_launches(kind, n, c, dtype, sms)]
+    return [_launch_fact(kind, n, c, c, vec_form(c, c, 0, dtype), dtype, grid, norm_grid, sms)]
 
 
-_WHICH = {"bn_twopass": 0, "bn_normalize": 1}
+_WHICH = {"bn_twopass": 0, "bn_normalize": 1, "bn_twopass_any": 2, "bn_normalize_any": 3}
 
 
 def launch_info(name: str, n: int, c: int, grid: int, act: bool, dtype) -> tuple:
     """``(grid, threads, dynamic_smem, static_smem)`` of one kernel
     (``name`` a :func:`bn_launches` fact name) over ``grid`` CTAs on ``x2``
-    (N, C) as the built library reports it (needs the card)."""
+    (N, C) — for a chunk, C is its width — as the built library reports
+    it (needs the card)."""
     return query_launch(_lib().rkt_bn_launch_info, _WHICH[name], n, c, grid, int(act),
-                        DTYPE_CODES[dtype])
+                        BN_DTYPE_CODES[dtype])
 
 
 def resident(n: int, c: int, dtype) -> int:
-    """Row 9's resident CTAs per SM on ``x2`` (N, C) over its grid, as the
-    card reports them (its cooperative launch needs all of the grid
-    resident at once); -1 when the card refuses it. Needs the card."""
-    return _lib().rkt_bn_twopass_resident(n, c, _twopass_ctas(n), DTYPE_CODES[dtype])
+    """Row 9's resident CTAs per SM (vec form) on ``x2`` (N, C) over its
+    grid, as the card reports them (its cooperative launch needs all of the
+    grid resident at once); -1 when the card refuses it. Needs the card."""
+    return _lib().rkt_bn_twopass_resident(n, c, _twopass_ctas(n), BN_DTYPE_CODES[dtype])
+
+
+def _address(x2: torch.Tensor) -> int:
+    """Where ``x2``'s first element lies for :func:`vec_form`: its address
+    on the card, or on meta its byte offset into its storage."""
+    if x2.device.type == "meta":
+        return x2.storage_offset() * x2.element_size()
+    return x2.data_ptr()
 
 
 def _check(what: str, x2: torch.Tensor, **f32) -> None:
     check_cuda_operands(what, x2=x2, **f32)
     n, c = x2.shape
+    if x2.dtype == torch.float64:
+        raise ValueError(f"{what}: float64 x is not taken: the TPU kernel this ports never ran "
+                         "f64 (f32, bf16 and f16 are)")
     if not kernel_supported(c, x2.dtype):
-        raise ValueError(f"{what}: the kernel takes f32 or bf16 x with C a multiple of 8 up to "
-                         f"{MAX_C}, got {x2.dtype} C={c}")
+        raise ValueError(f"{what}: the kernel takes f32, bf16 or f16 x with C >= 1, got "
+                         f"{x2.dtype} C={c}")
     for name, t in f32.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
-    if x2.device.type == "cuda" and x2.data_ptr() % 16:
-        raise ValueError(f"{what}: x2 must start on a 16-byte boundary (the kernels load 16 "
-                         "bytes at a time)")
 
 
 def bn_twopass(x2, sc, *, eps: float, act: bool):
     """Row 9: ``x2`` (N, C), ``sc`` (2, C) f32 [scale, bias] -> (y (N, C) in
     x's dtype, stats (C, 2) f32). CPU tensors: :func:`bn_twopass_plain`;
-    CUDA tensors: ``rkt_bn_twopass`` (one cooperative launch, refused by a
-    card that cannot hold all its CTAs at once) or raise; meta tensors
-    record the launch."""
+    CUDA tensors: ``rkt_bn_twopass``, one cooperative launch a channel
+    chunk (refused by a card that cannot hold all its CTAs at once), or
+    raise; meta tensors record the launches."""
     if x2.device.type == "cpu":
         return bn_twopass_plain(x2, sc, eps=eps, act=act)
     _check("bn_twopass", x2, sc=sc)
     n, c = x2.shape
     if sc.shape != (2, c):
         raise ValueError(f"bn_twopass: sc must be (2, {c}), got {tuple(sc.shape)}")
-    grid, norm_grid = _grids(x2)
     y = torch.empty_like(x2)
     stats = torch.empty((c, 2), dtype=torch.float32, device=x2.device)
-    mi = torch.empty((4, c), dtype=torch.float32, device=x2.device)
-    partial = torch.empty((grid, 2, c), dtype=torch.float32, device=x2.device)
+    sms = sm_count(x2, "fused_conv")
     if x2.device.type == "meta":
-        record(bn_launches("twopass", n, c, x2.dtype, grid, norm_grid,
-                           sm_count(x2, "fused_conv")))
+        record(fact for _, fact in bn_chunk_launches("twopass", n, c, x2.dtype, sms,
+                                                     _address(x2)))
         return y, stats
-    err = _lib().rkt_bn_twopass(x2.data_ptr(), sc.data_ptr(), y.data_ptr(), stats.data_ptr(),
-                                mi.data_ptr(), partial.data_ptr(), n, c, grid, float(eps),
-                                int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
-    if err:
-        raise RuntimeError(f"bn_twopass: kernel launch failed with cudaError {err}")
-    bn_twopass.launches += 1
+    item, grid = x2.element_size(), _twopass_ctas(n)
+    width0 = min(c, MAX_C)
+    mi = torch.empty((4, width0), dtype=torch.float32, device=x2.device)
+    partial = torch.empty((grid, 2, width0), dtype=torch.float32, device=x2.device)
+    for first, width in chunks(c):
+        part = sc if width == c else sc[:, first:first + width].contiguous()
+        vec = vec_form(width, c, first, x2.dtype, _address(x2)) and y.data_ptr() % 16 == 0
+        err = _lib().rkt_bn_twopass(
+            x2.data_ptr() + first * item, part.data_ptr(), y.data_ptr() + first * item,
+            stats.data_ptr() + first * 8, mi.data_ptr(), partial.data_ptr(), n, width, c, grid,
+            float(eps), int(act), BN_DTYPE_CODES[x2.dtype], int(vec), stream_of(x2))
+        if err:
+            raise RuntimeError(f"bn_twopass: kernel launch failed with cudaError {err}")
+        bn_twopass.launches += 1
     return y, stats
 
 
@@ -317,8 +407,8 @@ bn_twopass.launches = 0
 def bn_normalize(x2, mi, *, act: bool):
     """Row 10: ``x2`` (N, C), ``mi`` (4, C) f32 [mean, inv, inv*scale,
     bias] -> y (N, C) in x's dtype. CPU tensors: :func:`bn_normalize_plain`;
-    CUDA tensors: ``rkt_bn_normalize`` or raise; meta tensors record the
-    launch."""
+    CUDA tensors: ``rkt_bn_normalize``, one launch a channel chunk, or
+    raise; meta tensors record the launches."""
     if x2.device.type == "cpu":
         return bn_normalize_plain(x2, mi, act=act)
     _check("bn_normalize", x2, mi=mi)
@@ -326,15 +416,21 @@ def bn_normalize(x2, mi, *, act: bool):
     if mi.shape != (4, c):
         raise ValueError(f"bn_normalize: mi must be (4, {c}), got {tuple(mi.shape)}")
     y = torch.empty_like(x2)
-    grid, norm_grid = _grids(x2)
     if x2.device.type == "meta":
-        record(bn_launches("normalize", n, c, x2.dtype, grid, norm_grid))
+        record(fact for _, fact in bn_chunk_launches("normalize", n, c, x2.dtype,
+                                                     sm_count(x2, "fused_conv"), _address(x2)))
         return y
-    err = _lib().rkt_bn_normalize(x2.data_ptr(), mi.data_ptr(), y.data_ptr(), n, c,
-                                  norm_grid, int(act), DTYPE_CODES[x2.dtype], stream_of(x2))
-    if err:
-        raise RuntimeError(f"bn_normalize: kernel launch failed with cudaError {err}")
-    bn_normalize.launches += 1
+    item = x2.element_size()
+    for first, width in chunks(c):
+        rows = mi if width == c else mi[:, first:first + width].contiguous()
+        vec = vec_form(width, c, first, x2.dtype, _address(x2)) and y.data_ptr() % 16 == 0
+        _, norm_grid = _grids(x2, width)
+        err = _lib().rkt_bn_normalize(x2.data_ptr() + first * item, rows.data_ptr(),
+                                      y.data_ptr() + first * item, n, width, c, norm_grid,
+                                      int(act), BN_DTYPE_CODES[x2.dtype], int(vec), stream_of(x2))
+        if err:
+            raise RuntimeError(f"bn_normalize: kernel launch failed with cudaError {err}")
+        bn_normalize.launches += 1
     return y
 
 

@@ -46,6 +46,7 @@ from rocket_tpu_torch.ops._launch import (
 )
 
 __all__ = [
+    "paged_decode_supported",
     "write_kv_pages",
     "paged_gather",
     "attend_plain",
@@ -204,6 +205,15 @@ def attribute(which: str, what: str, g: int, d: int, dtype) -> int:
     return _lib().rkt_paged_decode_attribute(("split", "combine").index(which),
                                              ("ctas", "registers").index(what), g, d,
                                              DTYPE_CODES[dtype])
+
+
+def paged_decode_supported(block_len: int, head_dim: int, itemsize: int = 4) -> bool:
+    """Whether :func:`paged_decode`'s CUDA kernels take pages of
+    ``block_len`` rows of head dim ``head_dim`` at ``itemsize`` bytes (the
+    reference's signature). The kernels stage whole pages in 16-byte copies
+    of any length, so the answer is theirs, not the TPU's (8, 128) tiling:
+    D a multiple of 8 up to 256, f32 or a 2-byte type (bf16)."""
+    return block_len >= 1 and head_dim % 8 == 0 and 8 <= head_dim <= 256 and itemsize in (2, 4)
 
 
 def paged_decode(q, k_pages, v_pages, block_table, positions):

@@ -8,7 +8,23 @@ schedule (or the ``Optimizer`` capsule's constant), so the factories
 construct with ``lr=0``. A schedule is a plain ``step -> lr`` function,
 read at the count of updates made BEFORE the update it drives, as optax
 reads its schedule: under :func:`warmup_cosine_lr` the first update has
-lr 0.
+lr 0. Every schedule here also takes that count as a 0-dim tensor on the
+card and returns the lr as one, in f32 (optax's arithmetic).
+
+Under the health sentinels' gate (``Runtime(health=True,
+anomaly_action="skip_step"|"dump_and_halt")``) the Module updates through
+:func:`gated_step` instead of ``torch.optim``'s ``step``: one foreach pass
+per stage over the group's params for AdamW/Adam, Lion and SGD (with or
+without momentum; :func:`gate_refusal` names what it does not take), each optimizer's count kept on the card in its
+per-param state ``"step"`` (``capturable=True`` for Adam and AdamW on
+CUDA, so a load keeps it there), the lr read from the schedule at that
+count as a device tensor, and a step whose predicate is false leaving
+every param, moment and count bitwise as it was — with no branch on a
+device value: the gradients are zeroed where the step is not ok, each
+moment's decay becomes 1 and its gradient weight 0, and the lr 0. The
+next update's lr and bias correction then use the count of APPLIED
+updates, as optax's count inside the reference's ``lax.cond`` does. Off
+the gate nothing changes.
 """
 
 from __future__ import annotations
@@ -23,7 +39,7 @@ from rocket_tpu_torch.nn.module import map_params
 __all__ = [
     "sgd", "momentum", "adam", "adamw", "lion", "Lion",
     "constant_lr", "step_lr", "cosine_lr", "linear_lr", "warmup_stable_decay_lr",
-    "warmup_cosine_lr", "resolve", "param_leaves",
+    "warmup_cosine_lr", "resolve", "param_leaves", "gated_step", "gate_refusal",
 ]
 
 Schedule = Callable[[int], float]
@@ -156,7 +172,16 @@ def lion(b1: float = 0.9, b2: float = 0.99, weight_decay: float = 0.0,
     return make
 
 
-# -- schedules (step -> lr), the optax formulas in float arithmetic ----------
+# -- schedules (step -> lr), the optax formulas ---------------------------------
+# A host int gives a float (Python arithmetic); a 0-dim tensor count gives a
+# tensor in its dtype (f32 on the card, as optax evaluates its schedules).
+
+
+def _clamp(x, lo=None, hi=None):
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(x, min=lo, max=hi)
+    x = x if lo is None else max(x, lo)
+    return x if hi is None else min(x, hi)
 
 
 def constant_lr(value: float) -> Schedule:
@@ -169,7 +194,7 @@ def _linear(init_value: float, end_value: float, transition_steps: int) -> Sched
         return lambda step: init_value
 
     def schedule(step):
-        count = min(max(step, 0), transition_steps)
+        count = _clamp(step, 0, transition_steps)
         return (init_value - end_value) * (1 - count / transition_steps) + end_value
 
     return schedule
@@ -181,8 +206,10 @@ def _cosine(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule
         raise ValueError(f"cosine schedule requires positive decay_steps, got {decay_steps}")
 
     def schedule(step):
-        count = min(step, decay_steps)
-        cosine = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        count = _clamp(step, hi=decay_steps)
+        angle = math.pi * count / decay_steps
+        cosine = 0.5 * (1 + (torch.cos(angle) if isinstance(angle, torch.Tensor)
+                             else math.cos(angle)))
         return init_value * ((1 - alpha) * cosine + alpha)
 
     return schedule
@@ -194,7 +221,9 @@ def _join(schedules, boundaries) -> Schedule:
     def schedule(step):
         out = schedules[0](step)
         for boundary, nxt in zip(boundaries, schedules[1:]):
-            if step >= boundary:
+            if isinstance(step, torch.Tensor):
+                out = torch.where(step >= boundary, nxt(step - boundary), out)
+            elif step >= boundary:
                 out = nxt(step - boundary)
         return out
 
@@ -206,7 +235,14 @@ def step_lr(base_lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
     ``staircase=True``): decay by ``gamma`` every ``step_size`` steps."""
     if step_size <= 0 or gamma == 0:
         return lambda step: base_lr
-    return lambda step: base_lr if step <= 0 else base_lr * gamma ** math.floor(step / step_size)
+
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            return torch.where(step <= 0, base_lr,
+                               base_lr * gamma ** torch.floor(step / step_size))
+        return base_lr if step <= 0 else base_lr * gamma ** math.floor(step / step_size)
+
+    return schedule
 
 
 def cosine_lr(base_lr: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
@@ -236,6 +272,152 @@ def warmup_cosine_lr(base_lr: float, warmup_steps: int, decay_steps: int,
     alpha = 0.0 if base_lr == 0.0 else end_lr / base_lr
     return _join([_linear(0.0, base_lr, warmup_steps),
                   _cosine(base_lr, decay_steps - warmup_steps, alpha)], [warmup_steps])
+
+
+# -- the health gate's update ---------------------------------------------------
+
+
+def _decoupled(opt, group) -> bool:
+    """Whether an Adam-family group's decay is AdamW's (added to the update),
+    not Adam's L2 term (added to the gradient)."""
+    return isinstance(opt, torch.optim.AdamW) or bool(group.get("decoupled_weight_decay"))
+
+
+def gate_refusal(opt: torch.optim.Optimizer):
+    """Why :func:`gated_step` cannot take ``opt``'s update rule, or None:
+    it implements AdamW, Adam without an L2 term, Lion, and SGD with or
+    without (undampened) momentum, none of them ``maximize`` or
+    ``amsgrad``. A rule it would compute otherwise is refused, not run."""
+    if not isinstance(opt, (torch.optim.AdamW, torch.optim.Adam, torch.optim.SGD, Lion)):
+        return f"{type(opt).__name__} (AdamW, Adam, Lion, SGD have a rule)"
+    name = type(opt).__name__
+    for i, group in enumerate(opt.param_groups):
+        if group.get("maximize"):
+            return f"{name} with maximize=True (param group {i})"
+        if isinstance(opt, torch.optim.Adam):
+            if group.get("amsgrad"):
+                return f"{name} with amsgrad=True (param group {i})"
+            if group.get("weight_decay") and not _decoupled(opt, group):
+                return (f"{name} with weight_decay={group['weight_decay']}, an L2 term on the "
+                        f"gradient (param group {i}; AdamW's decoupled decay is taken)")
+        if isinstance(opt, torch.optim.SGD) and group.get("dampening"):
+            return f"{name} with dampening={group['dampening']} (param group {i})"
+    return None
+
+
+def _count(opt, params, device) -> torch.Tensor:
+    """The optimizer's count of applied updates on ``device`` (the first
+    param's ``"step"``), every param's state made where missing."""
+    adam = isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+    for p in params:
+        state = opt.state[p]
+        if "step" not in state:
+            state["step"] = torch.zeros((), dtype=torch.float32, device=device)
+        elif state["step"].device != device:  # a load onto a non-capturable group
+            state["step"] = state["step"].to(device)
+        if adam and "exp_avg" not in state:
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        if isinstance(opt, Lion) and "exp_avg" not in state:
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        if (isinstance(opt, torch.optim.SGD) and opt.defaults.get("momentum")
+                and state.get("momentum_buffer") is None):
+            state["momentum_buffer"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return opt.state[params[0]]["step"]
+
+
+@torch.no_grad()
+def gated_step(opt: torch.optim.Optimizer, grads: dict, ok: torch.Tensor, schedule,
+               clip_norm=None) -> tuple:
+    """One update of ``opt`` with the gradients ``grads`` (param -> tensor)
+    if the 0-dim bool ``ok`` is true, and none at all if it is false, with
+    no host read. ``clip_norm``: clip to that global norm first (optax's
+    ``clip_by_global_norm``, as the Module's plain path). Returns
+    ``(update_norm, lr, grad_norm)`` as 0-dim f32 tensors: ||update|| of the
+    applied update (0 when held), the lr it used, and the pre-clip norm of
+    the gradients it took (those of a held step are zeros).
+
+    The lr is ``schedule(count)``, count being the optimizer's applied
+    updates (a device tensor, :func:`_count`). On a held step the gradients
+    are zeroed (``torch.where``; they may hold NaN), each moment's decay is
+    1 and its gradient weight 0, the lr 0 and the count's increment 0, so
+    every param, moment and count keeps its bits. Bias corrections use the
+    count after this update, as torch and optax do."""
+    okf = ok.float()
+    order = [p for group in opt.param_groups for p in group["params"] if p in grads]
+    if not order:
+        raise ValueError("gated_step: no gradient for any of the optimizer's params")
+    device = order[0].device
+    safe = dict(zip(order, (torch.where(ok, grads[p], 0.0) for p in order)))
+    grad_norm = torch.stack(torch._foreach_norm(list(safe.values()))).float().square().sum().sqrt()
+    if clip_norm is not None:
+        torch._foreach_mul_(list(safe.values()),
+                            clip_norm / torch.clamp(grad_norm, min=clip_norm))
+    count = _count(opt, order, device)
+    value = schedule(count)
+    lr = (value.float() if isinstance(value, torch.Tensor)
+          else torch.full((), float(value), device=device))
+    lr_eff = lr * okf
+
+    def decayed(beta):  # (decay, gradient weight): (1, 0) on a held step
+        return torch.where(ok, beta, 1.0), torch.where(ok, 1.0 - beta, 0.0)
+
+    norms = []
+    for group in opt.param_groups:
+        params = [p for p in group["params"] if p in safe]
+        if not params:
+            continue
+        _count(opt, params, device)
+        g = [safe[p] for p in params]
+        states = [opt.state[p] for p in params]
+        wd = group.get("weight_decay", 0.0)
+        if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+            b1, b2 = group["betas"]
+            m = [s["exp_avg"] for s in states]
+            v = [s["exp_avg_sq"] for s in states]
+            d1, w1 = decayed(b1)
+            d2, w2 = decayed(b2)
+            torch._foreach_mul_(m, d1)
+            torch._foreach_add_(m, torch._foreach_mul(g, w1))
+            sq = torch._foreach_mul(g, g)
+            torch._foreach_mul_(sq, w2)
+            torch._foreach_mul_(v, d2)
+            torch._foreach_add_(v, sq)
+            t = states[0]["step"] + 1.0
+            # optax: m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps) [+ wd p].
+            upd = torch._foreach_div(m, 1.0 - torch.pow(b1, t))
+            denom = torch._foreach_sqrt(torch._foreach_div(v, 1.0 - torch.pow(b2, t)))
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(upd, denom)
+            if wd and _decoupled(opt, group):
+                torch._foreach_add_(upd, torch._foreach_mul(params, wd))
+        elif isinstance(opt, Lion):
+            m = [s["exp_avg"] for s in states]
+            upd = torch._foreach_mul(g, 1.0 - group["b1"])
+            torch._foreach_add_(upd, torch._foreach_mul(m, group["b1"]))
+            torch._foreach_sign_(upd)
+            if wd:
+                torch._foreach_add_(upd, torch._foreach_mul(params, wd))
+            d2, w2 = decayed(group["b2"])
+            torch._foreach_mul_(m, d2)
+            torch._foreach_add_(m, torch._foreach_mul(g, w2))
+        else:  # SGD: torch's trace m = beta m + g is optax's (from zeros)
+            upd = torch._foreach_add(g, torch._foreach_mul(params, wd)) if wd else g
+            beta = group.get("momentum", 0.0)
+            if beta:
+                bufs = [s["momentum_buffer"] for s in states]
+                torch._foreach_mul_(bufs, torch.where(ok, beta, 1.0))
+                torch._foreach_add_(bufs, torch._foreach_mul(upd, okf))
+                upd = (torch._foreach_add(upd, torch._foreach_mul(bufs, beta))
+                       if group.get("nesterov") else bufs)
+        step = torch._foreach_mul(upd, lr_eff)
+        norms += torch._foreach_norm(step)
+        torch._foreach_sub_(params, step)
+        # A list of the 0-dim increment: foreach add with one tensor
+        # operand reads it on the host (a sync); tensor lists do not.
+        steps = [s["step"] for s in states]
+        torch._foreach_add_(steps, [okf] * len(steps))
+    return torch.stack(norms).float().square().sum().sqrt(), lr, grad_norm
 
 
 def resolve(opt: Factory, params: dict) -> torch.optim.Optimizer:

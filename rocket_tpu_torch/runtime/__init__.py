@@ -1,19 +1,152 @@
-"""The port's runtime: device resolution for the entry points, and the
-single-process :class:`Runtime` shared by a capsule tree (counterpart of
-``rocket_tpu/runtime/context.py``, without the mesh, the process group
-and the ops plane — ROADMAP Queue A 3, 6 and 7). ``checkpoint_io`` holds
-the checkpoint file format."""
+"""The port's runtime: device resolution for the entry points, the
+single-process :class:`Runtime` shared by a capsule tree with its ops
+plane (telemetry, health, flight recorder, :class:`StrictMode`), and the
+one helper every deliberate host transfer goes through
+(:func:`explicit_transfer`) — the counterpart of
+``rocket_tpu/runtime/context.py`` without the mesh and the process group
+(ROADMAP Queue A 3 and 6) and the live export plane (Queue A 7b).
+``checkpoint_io`` holds the checkpoint file format."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 from typing import Any, Optional, Sequence, Union
 
 import torch
 
 from rocket_tpu_torch.nn import keys
 
-__all__ = ["resolve_device", "Runtime", "IdentityRegistry"]
+__all__ = ["resolve_device", "Runtime", "IdentityRegistry", "StrictMode", "explicit_transfer"]
+
+_TRUE = ("1", "true", "yes", "on")
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in _TRUE
+
+
+def _guard_available() -> bool:
+    """Whether torch's CUDA sync guard exists here (a CUDA build with a
+    card); without one, strict mode is inert, as the reference's guard is
+    on a CPU backend."""
+    return torch.cuda.is_available()
+
+
+@contextlib.contextmanager
+def explicit_transfer():
+    """The port's one explicit-transfer helper: the block runs with the
+    strict guard lifted (``torch.cuda.set_sync_debug_mode(0)``) and puts
+    back whatever mode was set. Every deliberate host read or upload of the
+    framework goes through it — the Tracker's flush, the health monitor's
+    fetch, the Meter's gather, the progress bar's postfix, a checkpoint's
+    snapshot — as the reference's ``jax.device_get``/``device_put`` stay
+    legal under its transfer guard."""
+    if not _guard_available():
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+class StrictMode:
+    """Opt-in enforcement of the step path's contract: no host read or
+    synchronising copy the framework did not ask for (counterpart of the
+    reference's ``StrictMode``, ``context.py:33-151``).
+
+    The guard is ``torch.cuda.set_sync_debug_mode``: ``"error"`` for the
+    reference's ``"disallow"`` (a ``.item()``, a ``float(t)``, a blocking
+    copy either way or a ``synchronize`` raises at the line that did it),
+    ``"warn"`` for its ``"log"``. Run-wide, it is on from :meth:`activate`
+    (the Runtime's construction) to :meth:`deactivate` (``end_training``).
+    torch's guard cannot tell the directions apart: it flags a blocking
+    host-to-device copy as it flags a read. So the Launcher's SETUP, each
+    phase's SET and RESET and the DESTROY run under :meth:`lifted`, as the
+    reference leaves uploads unguarded at setup, and so does the first wave
+    of each Looper launch, as in the reference (it builds the kernels and
+    uploads the epoch's order). Every wave after it runs guarded. The
+    framework's own transfers go through :func:`explicit_transfer`. On the
+    CPU (no card) the guard is inert, as the reference's D2H guard is on a
+    CPU backend (its caveat, ``context.py:50-53``).
+
+    ``note_retraces`` exists for the reference's API and returns None:
+    eager torch has no compile cache whose size could be counted. So
+    ``max_retraces`` (``Runtime(strict_max_retraces=...)``) is accepted for
+    the reference's signature and ignored: nothing reads it.
+    ``note_collectives`` records an audited per-step collective count.
+
+    On with ``Runtime(strict=True)`` or ``ROCKET_TPU_STRICT=1``."""
+
+    _MODES = {"disallow": "error", "error": "error", "log": "warn", "warn": "warn"}
+
+    def __init__(self, transfer_guard: str = "disallow", max_retraces: int = 8) -> None:
+        if transfer_guard not in self._MODES:
+            raise ValueError(f"StrictMode: transfer_guard must be one of {sorted(self._MODES)}, "
+                             f"got {transfer_guard!r}")
+        self._transfer_guard = transfer_guard
+        self._active = False
+        self._previous = 0
+        self.collective_counts: dict = {}
+        #: The run's Telemetry (set by the Runtime): audited counts mirror
+        #: into its registry.
+        self.telemetry = None
+
+    @property
+    def enabled(self) -> bool:
+        return self._active
+
+    @property
+    def transfer_guard(self) -> str:
+        return self._transfer_guard
+
+    @property
+    def sync_debug_mode(self) -> str:
+        """The ``torch.cuda.set_sync_debug_mode`` level of the guard."""
+        return self._MODES[self._transfer_guard]
+
+    def activate(self) -> None:
+        if self._active:
+            return
+        self._active = True
+        if _guard_available():
+            self._previous = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(self.sync_debug_mode)
+
+    def deactivate(self) -> None:
+        if not self._active:
+            return
+        self._active = False
+        if _guard_available():
+            torch.cuda.set_sync_debug_mode(self._previous)
+
+    @contextlib.contextmanager
+    def lifted(self):
+        """The block runs unguarded (a no-op when strict mode is off)."""
+        if not self._active:
+            yield
+            return
+        with explicit_transfer():
+            yield
+
+    def note_retraces(self, label: str, step_fn=None) -> None:
+        """The reference counts a jitted step's compiles here; an eager
+        torch step compiles nothing, so there is nothing to count."""
+        return None
+
+    def note_collectives(self, label: str, count: int) -> int:
+        """Record an audited per-step collective-op count for ``label``."""
+        count = int(count)
+        self.collective_counts[label] = count
+        if self.telemetry is not None and self.telemetry.enabled:
+            self.telemetry.registry.gauge(f"strict/audited_collectives/{label}").set(count)
+        return count
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -107,7 +240,23 @@ class Runtime:
     whether streamed batches are copied to ``device``.
     ``device_cache_bytes``: the size up to which ``Dataset(device_cache=
     "auto")`` keeps a dataset on the device (the reference's default, 1
-    GiB, not a measurement of this card)."""
+    GiB, not a measurement of this card).
+
+    The ops arguments are the reference's (``context.py:367-391``), with its
+    environment variables and precedence (an argument wins over the
+    variable): ``project_dir`` (where ``runs/`` goes); ``strict``
+    (``ROCKET_TPU_STRICT``), ``strict_transfer_guard`` and
+    ``strict_max_retraces`` (:class:`StrictMode`; accepted and ignored,
+    eager torch counting no compiles); ``telemetry``
+    (``ROCKET_TPU_TELEMETRY``), ``telemetry_dir`` and ``watchdog_secs``
+    (``ROCKET_TPU_WATCHDOG``); ``health`` and ``anomaly_action``
+    (``ROCKET_TPU_HEALTH=1|warn|skip_step|dump_and_halt``),
+    ``blackbox_steps`` and ``health_fetch_lag``. ``health=True`` or a
+    ``watchdog_secs`` implies telemetry. The health monitor always exists,
+    inert when off. The live export plane's arguments (``export``,
+    ``export_interval_s``, ``metrics_port``, ``slo``, and
+    ``ROCKET_TPU_EXPORT`` / ``ROCKET_TPU_METRICS_PORT``) raise
+    NotImplementedError when set (ROADMAP Queue A 7b)."""
 
     #: Most recently constructed Runtime (the ambient context).
     _current: Optional["Runtime"] = None
@@ -117,7 +266,24 @@ class Runtime:
         return cls._current
 
     def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
-                 device_placement: bool = True, device_cache_bytes: int = 1 << 30) -> None:
+                 device_placement: bool = True, device_cache_bytes: int = 1 << 30,
+                 project_dir: str = ".", strict: Optional[bool] = None,
+                 strict_transfer_guard: str = "disallow", strict_max_retraces: int = 8,
+                 telemetry: Optional[bool] = None, telemetry_dir: Optional[str] = None,
+                 watchdog_secs: Optional[float] = None, health: Optional[bool] = None,
+                 anomaly_action: Optional[str] = None, blackbox_steps: int = 256,
+                 health_fetch_lag: int = 2, export: Optional[bool] = None,
+                 export_interval_s: Optional[float] = None, metrics_port: Optional[int] = None,
+                 slo: Optional[str] = None) -> None:
+        live = {"export": export, "export_interval_s": export_interval_s,
+                "metrics_port": metrics_port, "slo": slo,
+                "ROCKET_TPU_EXPORT": os.environ.get("ROCKET_TPU_EXPORT") or None,
+                "ROCKET_TPU_METRICS_PORT": os.environ.get("ROCKET_TPU_METRICS_PORT") or None}
+        asked = [name for name, value in live.items() if value not in (None, False)]
+        if asked:
+            raise NotImplementedError(f"Runtime: {', '.join(asked)}: the live export plane "
+                                      "(metric shards, /metrics, SLOs) is not ported yet "
+                                      "(ROADMAP Queue A 7b)")
         if gradient_accumulation_steps < 1:
             raise RuntimeError("gradient_accumulation_steps must be >= 1")
         self.device = resolve_device(device)
@@ -136,13 +302,73 @@ class Runtime:
         self.device_cache_store: dict = {}
         self.trackers: dict = {}
         self._checkpoint_stack: list = []
+        self.project_dir = project_dir
+        self._init_ops(strict, strict_transfer_guard, strict_max_retraces, telemetry,
+                       telemetry_dir, watchdog_secs, health, anomaly_action, blackbox_steps,
+                       health_fetch_lag)
         Runtime._current = self
+
+    def _init_ops(self, strict, transfer_guard, max_retraces, telemetry, telemetry_dir,
+                  watchdog_secs, health, anomaly_action, blackbox_steps, fetch_lag) -> None:
+        """The ops plane, resolved as the reference resolves it
+        (``context.py:454-560``): arguments over environment variables."""
+        from rocket_tpu_torch.obs import FlightRecorder, HealthConfig, HealthMonitor, Telemetry
+        from rocket_tpu_torch.obs.export import host_identity
+        from rocket_tpu_torch.obs.health import ANOMALY_ACTIONS
+
+        logger = self.get_logger("obs")
+        env_health = os.environ.get("ROCKET_TPU_HEALTH", "").strip().lower()
+        if health is None:
+            health = env_health in _TRUE or env_health in ANOMALY_ACTIONS
+        if anomaly_action is None:
+            anomaly_action = env_health if env_health in ANOMALY_ACTIONS else "warn"
+        if telemetry is None:
+            # A watchdog or health is an explicit ask for what lives inside
+            # telemetry, so it implies it.
+            telemetry = watchdog_secs is not None or bool(health) or _env_flag(
+                "ROCKET_TPU_TELEMETRY")
+        elif not telemetry and watchdog_secs is not None:
+            self.get_logger("runtime").warning(
+                "watchdog_secs=%s ignored: telemetry=False turns the whole ops plane off, "
+                "watchdog included.", watchdog_secs)
+        if watchdog_secs is None and os.environ.get("ROCKET_TPU_WATCHDOG", "").strip():
+            raw = os.environ["ROCKET_TPU_WATCHDOG"].strip()
+            try:
+                watchdog_secs = float(raw)
+            except ValueError:
+                self.get_logger("runtime").warning(
+                    "ROCKET_TPU_WATCHDOG=%r is not a number — watchdog disabled", raw)
+        self.telemetry = Telemetry(enabled=telemetry, out_dir=telemetry_dir,
+                                   watchdog_secs=watchdog_secs, logger=logger)
+        config = HealthConfig(enabled=bool(health), action=anomaly_action, fetch_lag=fetch_lag)
+        self.flight = (FlightRecorder(max_steps=blackbox_steps, telemetry=self.telemetry,
+                                      runtime=self, logger=logger)
+                       if config.enabled else None)
+        self.health = HealthMonitor(config, registry=self.telemetry.registry,
+                                    flight=self.flight, logger=logger)
+        self.telemetry.flight, self.telemetry.health = self.flight, self.health
+        self.telemetry.identity = host_identity(self.process_index)
+        self.telemetry.start()
+        self.strict = StrictMode(transfer_guard=transfer_guard, max_retraces=max_retraces)
+        self.strict.telemetry = self.telemetry
+        if strict is None:
+            strict = _env_flag("ROCKET_TPU_STRICT")
+        if strict:
+            self.strict.activate()
 
     # -- processes ------------------------------------------------------------
 
     @property
     def is_main_process(self) -> bool:
         return True
+
+    @property
+    def process_index(self) -> int:
+        return 0
+
+    @property
+    def process_count(self) -> int:
+        return 1
 
     def wait_for_everyone(self) -> None:
         """The cross-process barrier; one process has nothing to wait for."""
@@ -210,8 +436,10 @@ class Runtime:
 
     def end_training(self) -> None:
         """End of a launch: close every registered tracker backend, each
-        on its own (one failing ``close`` must not leak the others). Run
-        telemetry waits for the ops plane (ROADMAP Queue A 7)."""
+        on its own (one failing ``close`` must not leak the others), lift
+        strict mode's process-wide guard, decode the health words still in
+        their fetch lag (never raising: the run is over), then write the
+        telemetry files, last, so the span file records the closes."""
         logger = self.get_logger("runtime")
         for name, tracker in list(self.trackers.items()):
             close = getattr(tracker, "close", None)
@@ -222,3 +450,10 @@ class Runtime:
             except Exception as exc:  # noqa: BLE001 — isolate per backend
                 logger.warning("tracker backend %r failed to close: %r", name, exc)
         self.trackers.clear()
+        self.strict.deactivate()
+        try:
+            self.health.drain(raise_on_anomaly=False)
+        except Exception as exc:  # noqa: BLE001 — teardown must complete
+            logger.warning("health drain failed at teardown: %r", exc)
+        self.telemetry.close(default_dir=os.path.join(self.project_dir, "runs", "telemetry"),
+                             write=self.is_main_process)

@@ -19,11 +19,14 @@ replace), through the filesystem seam :class:`HostFS` that :func:`use_fs`
 swaps. A leaf whose dtype numpy lacks (``bfloat16``) raises: params and
 AdamW moments are f32.
 
-The EMA shadow (``ema_params/...``, a Module's ``ema_decay``) is the one
-optional leaf, as in the reference: a checkpoint written before EMA was
-enabled seeds the shadow from its ``params/...`` twin with one warning
-(:func:`seed_optional`, and the same rule under a ``template``); any other
-missing leaf fails.
+Two optional leaves, as in the reference (``rocket_tpu/runtime/
+checkpoint_io.py:350-362``), each matched exactly (the name itself or under
+``name/``): the EMA shadow (``ema_params/...``, a Module's ``ema_decay``),
+which a checkpoint written before EMA was enabled seeds from its
+``params/...`` twin with one warning (:func:`seed_optional`, and the same
+rule under a ``template``); and the health sentinels' state
+(``health/...``), which a pre-health checkpoint leaves fresh (the live
+values are kept). Any other missing leaf fails.
 """
 
 from __future__ import annotations
@@ -234,9 +237,14 @@ def load_leaf(path: str, name: str) -> Any:
 
 
 def _is_optional_leaf(name: str) -> bool:
-    """The EMA shadow's leaves, matched exactly (``ema_params`` or under
-    ``ema_params/``): a leaf merely starting with the string is not one."""
-    return name == "ema_params" or name.startswith("ema_params/")
+    """The EMA shadow's or the health sentinels' leaves, matched exactly
+    (``ema_params`` or under ``ema_params/``, ``health`` or under
+    ``health/``): a leaf merely starting with the string is not one."""
+    return any(name == root or name.startswith(root + "/") for root in ("ema_params", "health"))
+
+
+def _is_health_leaf(name: str) -> bool:
+    return name == "health" or name.startswith("health/")
 
 
 def seed_optional(flat: dict, path: str) -> dict:
@@ -245,7 +253,7 @@ def seed_optional(flat: dict, path: str) -> dict:
     twins where the checkpoint has none (a run that enabled ``ema_decay``
     after the save), with one warning. Called for a model that keeps an
     EMA shadow; a checkpoint that has one is returned as it is."""
-    if any(_is_optional_leaf(name) for name in flat):
+    if any(name == "ema_params" or name.startswith("ema_params/") for name in flat):
         return flat
     seeded = {"ema_" + name: value for name, value in flat.items()
               if name.startswith("params/")}
@@ -272,6 +280,7 @@ def load_pytree(path: str, template: Any | None = None) -> Any:
 
     if isinstance(template, dict) and "ema_params" in template:
         index = seed_optional(index, path)
+    warned: list = []
 
     def rebuild(tree, prefix):
         if isinstance(tree, dict):
@@ -280,6 +289,12 @@ def load_pytree(path: str, template: Any | None = None) -> Any:
             return type(tree)(rebuild(v, prefix + (str(i),)) for i, v in enumerate(tree))
         name = "/".join(prefix)
         meta = index.get(name)
+        if meta is None and _is_health_leaf(name):
+            if not warned:
+                warned.append(name)
+                logger.warning("checkpoint at %s predates the 'health' leaves — keeping the "
+                               "live sentinel state", path)
+            return tree
         if meta is None:
             raise KeyError(f"checkpoint at {path} has no leaf {name!r} "
                            f"(has: {sorted(index)[:8]}...)")

@@ -16,7 +16,7 @@ Examples::
     python -m rocket_tpu_torch.serve run --config charlm --checkpoint checkpoints/char_lm --stdin
 
 The telemetry/SLO/trace flags and the ``report`` subcommand of the JAX
-CLI come with the observability slice (ROADMAP Queue A 7).
+CLI come with the live export plane (ROADMAP Queue A 7b).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Sizing defaults: the pool holds ``max_slots`` full-length sequences plus
 the reserved trash block, so the engine never preempts unless
 ``num_blocks`` is set smaller. The JAX engine's telemetry, per-request
 tracing and device-trace capture belong to the observability slice and
-are not ported yet (ROADMAP Queue A 7).
+are not ported yet (ROADMAP Queue A 7b).
 """
 
 from __future__ import annotations

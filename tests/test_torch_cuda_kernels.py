@@ -647,21 +647,81 @@ def test_fused_bn_twopass_grid_is_resident_and_one_launch(cuda, dtype):
 
 @pytest.mark.cuda
 def test_fused_bn_limits_match_the_build_and_bad_operands_raise(cuda):
+    """Since the coverage repair the kernels take any C and f16; what still
+    raises: float64 (the TPU kernel never ran it), scale/bias not f32, a
+    non-contiguous x and rows of the wrong shape."""
     x, sc = _bn_operands(torch.Generator().manual_seed(2), torch.float32, 64, 16)
-    wide, wide_sc = _bn_operands(torch.Generator().manual_seed(4), torch.float32, 8,
-                                 tfc.MAX_C + 8)
-    with pytest.raises(ValueError):  # C past the build's widest
-        tfc.bn_twopass(wide, wide_sc, eps=1e-5, act=True)
-    with pytest.raises(ValueError):  # C not a multiple of 8
-        tfc.bn_twopass(x[:, :12].contiguous(), sc[:, :12].contiguous(), eps=1e-5, act=True)
-    with pytest.raises(ValueError):  # float16
-        tfc.bn_twopass(x.half(), sc, eps=1e-5, act=True)
+    with pytest.raises(ValueError, match="float64"):
+        tfc.bn_twopass(x.double(), sc, eps=1e-5, act=True)
     with pytest.raises(ValueError):  # scale/bias not f32
         tfc.bn_twopass(x, sc.double(), eps=1e-5, act=True)
     with pytest.raises(ValueError):  # not contiguous
         tfc.bn_normalize(x.t(), torch.zeros(4, 64, device=cuda), act=True)
     with pytest.raises(ValueError):  # mi of the wrong shape
         tfc.bn_normalize(x, torch.zeros(4, 8, device=cuda), act=True)
+
+
+#: The coverage repair's shapes: (N, C, dtype) — f16 in the vec form, C = 3
+#: and bf16 C = 12 in the any form (one element a load, slabs not starting
+#: on a vector), C = 4096 in two chunks of the vec form, a C past MAX_C that
+#: is no whole vector (chunks ld apart), and an odd C past 256 lanes.
+BN_COVERAGE = [(4096, 64, torch.float16), (4096, 3, torch.float32), (4096, 12, torch.bfloat16),
+               (2048, 4096, torch.float32), (1024, 2050, torch.float32),
+               (70000, 64, torch.float16), (16900, 5, torch.float16),
+               (2048, 1001, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("case", BN_COVERAGE,
+                         ids=lambda c: "n{}c{}{}".format(c[0], c[1], str(c[2])[6:]))
+def test_fused_bn_coverage_matches_plain(cuda, case, act):
+    n, c, dtype = case
+    x, sc = _bn_operands(torch.Generator().manual_seed(n + c), dtype, n, c)
+    before = (tfc.bn_twopass.launches, tfc.bn_normalize.launches)
+    y, stats = tfc.bn_twopass(x, sc, eps=1e-5, act=act)
+    want_y, want_stats = tfc.bn_twopass_plain(x, sc, eps=1e-5, act=act)
+    atol, rtol = (5e-5, 5e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(stats, want_stats, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=rtol)
+    mi = tfc.epilogue_rows(want_stats, sc[0], sc[1], 1e-5).contiguous()
+    torch.testing.assert_close(tfc.bn_normalize(x, mi, act=act).float(),
+                               tfc.bn_normalize_plain(x, mi, act=act).float(),
+                               atol=atol, rtol=rtol)
+    launches = len(tfc.chunks(c))
+    assert (tfc.bn_twopass.launches, tfc.bn_normalize.launches) == (before[0] + launches,
+                                                                    before[1] + launches)
+    again = tfc.bn_twopass(x, sc, eps=1e-5, act=act)
+    assert torch.equal(again[0], y) and torch.equal(again[1], stats)
+
+
+@pytest.mark.cuda
+def test_fused_bn_misaligned_view_runs_the_any_form(cuda):
+    """A view one element into its storage is no 16-byte vector stream: the
+    wrappers send it to the any form, which matches plain."""
+    base, sc = _bn_operands(torch.Generator().manual_seed(9), torch.bfloat16, 4097, 64)
+    x = base.view(-1)[1:1 + 4096 * 64].view(4096, 64)
+    assert x.data_ptr() % 16
+    y, stats = tfc.bn_twopass(x, sc, eps=1e-5, act=True)
+    want_y, want_stats = tfc.bn_twopass_plain(x, sc, eps=1e-5, act=True)
+    torch.testing.assert_close(stats, want_stats, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BN_COVERAGE[:4],
+                         ids=lambda c: "n{}c{}{}".format(c[0], c[1], str(c[2])[6:]))
+def test_fused_bn_coverage_launches_match_the_build(cuda, case):
+    """Each chunk's declared launch (the meta route) equals the built
+    library's own query: grid, threads, dynamic and static shared memory."""
+    n, c, dtype = case
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kind in ("twopass", "normalize"):
+        declared = tfc.bn_chunk_launches(kind, n, c, dtype, sms)
+        assert len(declared) == len(tfc.chunks(c))
+        for width, fact in declared:
+            built = tfc.launch_info(fact.name, n, width, fact.grid[0], True, dtype)
+            assert fact.geometry == built, (kind, width, fact.name)
 
 
 @pytest.mark.cuda
@@ -682,23 +742,42 @@ def test_fused_bn_act_gradients_are_the_plain_backward(cuda, schedule):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["float16", "c12"])
+@pytest.mark.parametrize("case", ["float64"])
 def test_forced_seam_raises_on_what_the_kernel_does_not_take(cuda, case, monkeypatch):
     """Forced, a CUDA tensor that passes the reference's shape gate goes to
-    the kernel, which raises: no plain fallback on the card."""
+    the kernel; the one operand type it does not take (float64) raises: no
+    plain fallback on the card."""
     import os
 
     from rocket_tpu_torch.nn import layers as tl
 
     monkeypatch.setitem(os.environ, "ROCKET_TPU_FUSED_CONV", "pallas")
-    c = 12 if case == "c12" else 16
+    x = torch.randn(2, 16, 16, 16, generator=torch.Generator().manual_seed(5)).double().cuda()
+    before = tfc.bn_twopass.launches
+    with pytest.raises(ValueError, match="float64"):
+        tl.bn_act_train(x, torch.ones(16, device=cuda), torch.zeros(16, device=cuda), 1e-5,
+                        act=True)
+    assert tfc.bn_twopass.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float16", "c3", "c12", "c4096"])
+def test_forced_seam_runs_the_kernel_on_the_coverage_shapes(cuda, case, monkeypatch):
+    """Forced, f16, C = 3, 12 and 4096 run the hand kernel on the card (its
+    count moves) and never the reference path."""
+    import os
+
+    from rocket_tpu_torch.nn import layers as tl
+
+    monkeypatch.setitem(os.environ, "ROCKET_TPU_FUSED_CONV", "pallas")
+    monkeypatch.setattr(tfc, "reference_bn_act", lambda *a, **k: pytest.fail("plain path"))
+    c = {"float16": 64, "c3": 3, "c12": 12, "c4096": 4096}[case]
     dtype = torch.float16 if case == "float16" else torch.float32
     x = torch.randn(2, 16, 16, c, generator=torch.Generator().manual_seed(5)).to(dtype).cuda()
     before = tfc.bn_twopass.launches
-    with pytest.raises(ValueError, match="the kernel takes f32 or bf16"):
-        tl.bn_act_train(x, torch.ones(c, device=cuda), torch.zeros(c, device=cuda), 1e-5,
-                        act=True)
-    assert tfc.bn_twopass.launches == before
+    y, _ = tl.bn_act_train(x, torch.ones(c, device=cuda), torch.zeros(c, device=cuda), 1e-5,
+                           act=True)
+    assert tfc.bn_twopass.launches == before + len(tfc.chunks(c)) and y.dtype == dtype
 
 
 # -- the MoE grouped products: gmm (both modes), tgmm, gather_gmm -------------

@@ -247,9 +247,10 @@ def test_pre_ema_checkpoint_seeds_the_shadow_from_params(tmp_path, caplog):
     jback = jio.load_pytree(str(tmp_path), template=_jax_view(params, params))
     for g, w in zip(jax.tree.leaves(jback["ema_params"]), jax.tree.leaves(params)):
         np.testing.assert_array_equal(np.asarray(g), w)
-    # Any other missing leaf still fails.
+    # Any other missing leaf still fails ("health" is the other optional
+    # leaf, matched exactly: a name merely starting with it is not).
     with pytest.raises(KeyError):
-        tio.load_pytree(str(tmp_path), template={**template, "health": torch.zeros(2)})
+        tio.load_pytree(str(tmp_path), template={**template, "healthy": torch.zeros(2)})
 
 
 def test_checkpointer_resumes_the_shadow_and_seeds_a_pre_ema_run(tmp_path):

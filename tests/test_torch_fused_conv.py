@@ -125,9 +125,12 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     assert torch.equal(tfc.bn_normalize(x, mi, act=False), tfc.bn_normalize_plain(x, mi, act=False))
     assert (tfc.bn_twopass.launches, tfc.bn_normalize.launches) == before
     assert tfc.kernel_supported(64, torch.float32) and tfc.kernel_supported(2048, torch.bfloat16)
-    assert not tfc.kernel_supported(12, torch.float32)
-    assert not tfc.kernel_supported(4096, torch.float32)
-    assert not tfc.kernel_supported(64, torch.float16)
+    # The kernels take what the reference's kernel takes: any C (past
+    # MAX_C in chunks) and f16 too; only f64 stays out.
+    assert tfc.kernel_supported(12, torch.float32) and tfc.kernel_supported(3, torch.float32)
+    assert tfc.kernel_supported(4096, torch.float32)
+    assert tfc.kernel_supported(64, torch.float16)
+    assert not tfc.kernel_supported(64, torch.float64)
 
 
 def _count_fused(monkeypatch):
@@ -174,11 +177,10 @@ def test_seam_forced_runs_the_plain_kernel_as_jax_runs_it_interpreted(monkeypatc
 
 @pytest.mark.parametrize("case", ["float16", "c12", "c4096"])
 def test_seam_forced_sends_what_the_kernel_does_not_take_to_fused_bn_act(case, monkeypatch):
-    """The gate is the reference's shape gate alone: forced, an operand past
-    the CUDA kernel's limits (float16, C not a multiple of 8, C past 2048)
-    still reaches ``fused_bn_act`` (on a CUDA tensor the kernel then
-    raises); on the CPU it runs the plain version, equal to the reference
-    path."""
+    """The gate is the reference's shape gate alone: forced, float16, C not
+    a multiple of 8 and C past 2048 reach ``fused_bn_act`` (on a CUDA tensor
+    the kernel runs them: f16, the any form, channel chunks); on the CPU it
+    runs the plain version, equal to the reference path."""
     monkeypatch.setenv("ROCKET_TPU_FUSED_CONV", "pallas")
     calls = _count_fused(monkeypatch)
     c = {"float16": 16, "c12": 12, "c4096": 4096}[case]
@@ -204,3 +206,82 @@ def test_seam_reads_the_table_entry_it_is_given(monkeypatch):
     monkeypatch.setenv("ROCKET_TPU_FUSED_CONV", "pallas")
     tl.bn_act_train(x, scale, bias, 1e-5, act=True)
     assert calls == [dict(eps=1e-5, act=True, schedule="stats_xla", block_rows=256)]
+
+
+# -- what the CUDA kernels take since the coverage repair: f16, any C, C past
+# MAX_C in chunks (the shapes the card holds to plain in chip_smoke).
+
+COVERAGE = {  # case -> (torch dtype, jax dtype, C)
+    "f16_c64": (torch.float16, jnp.float16, 64),
+    "f32_c3": (torch.float32, jnp.float32, 3),
+    "bf16_c12": (torch.bfloat16, jnp.bfloat16, 12),
+    "f32_c4096": (torch.float32, jnp.float32, 4096),
+}
+
+
+@pytest.mark.parametrize("case", list(COVERAGE))
+def test_coverage_shapes_take_the_kernel_route_and_pass_rkt504(case, monkeypatch):
+    """On meta tensors the forced seam sends each shape to the kernel route:
+    one row 9 launch a channel chunk (the vec form where the rows are whole
+    16-byte vectors, the any form otherwise), and the declared launches
+    are RKT504-clean priced as an H100."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.analysis.rules.sched_rules import check_launches
+    from rocket_tpu_torch.ops._launch import record_launches
+    from rocket_tpu_torch.utils.perf import device_spec
+
+    dtype, _, c = COVERAGE[case]
+    monkeypatch.setenv("ROCKET_TPU_FUSED_CONV", "pallas")
+    card = "NVIDIA H100 80GB HBM3"
+    x = torch.empty(2, 16, 16, c, dtype=dtype, device="meta")
+    scale, bias = torch.empty(c, device="meta"), torch.empty(c, device="meta")
+    with tune.priced_device_kind(card), record_launches() as facts:
+        y, stats = tl.bn_act_train(x, scale, bias, 1e-5, act=True)
+        tfc.bn_normalize(x.reshape(-1, c), torch.empty(4, c, device="meta"), act=True)
+    assert y.shape == x.shape and y.dtype == dtype and stats.shape == (c, 2)
+    names = [f.name for f in facts]
+    form = "" if c % (16 // x.element_size()) == 0 else "_any"
+    chunks = len(tfc.chunks(c))
+    assert names == [f"bn_twopass{form}"] * chunks + [f"bn_normalize{form}"] * chunks
+    assert chunks == (2 if c == 4096 else 1)
+    assert check_launches(facts, device_spec(card)) == []
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_meta_route_declares_the_form_a_view_launches(offset):
+    """A view whose first element is off a 16-byte boundary launches the any
+    form on the card; the meta route declares that same form from the
+    view's offset into its storage."""
+    from rocket_tpu_torch import tune
+    from rocket_tpu_torch.ops._launch import record_launches
+
+    base = torch.empty(4096 * 64 + 1, dtype=torch.bfloat16, device="meta")
+    x = base[offset:offset + 4096 * 64].view(4096, 64)
+    sc, mi = torch.empty(2, 64, device="meta"), torch.empty(4, 64, device="meta")
+    with tune.priced_device_kind("NVIDIA H100 80GB HBM3"), record_launches() as facts:
+        tfc.bn_twopass(x, sc, eps=1e-5, act=True)
+        tfc.bn_normalize(x, mi, act=True)
+    form = "_any" if offset else ""
+    assert [f.name for f in facts] == [f"bn_twopass{form}", f"bn_normalize{form}"]
+
+
+@pytest.mark.parametrize("schedule", ["twopass", "stats_xla"])
+@pytest.mark.parametrize("case", list(COVERAGE))
+def test_coverage_shapes_plain_matches_the_interpreted_kernel(case, schedule):
+    """The plain versions (what the kernels are held to on the card) against
+    the JAX package's kernel in interpret mode at the coverage shapes."""
+    tdtype, jdtype, c = COVERAGE[case]
+    x, scale, bias = _operands(11, b=2, hw=16, c=c)
+    got = _torch_run(lambda *a: tfc.fused_bn_act(*a, eps=1e-5, act=True, schedule=schedule,
+                                                 block_rows=512), x, scale, bias, tdtype)
+    want = _jax_run(lambda *a: jfc.fused_bn_act(*a, eps=1e-5, act=True, schedule=schedule,
+                                                block_rows=512, interpret=True),
+                    x, scale, bias, jdtype)
+    if tdtype == torch.float32:
+        _assert_f32(got, want)
+        return
+    y, w = got[0], want[0]
+    assert (np.abs(y - w) - BF16_TOL * (1 + np.abs(w))).max() <= 0
+    np.testing.assert_allclose(got[1], want[1], atol=F32_TOL[0], rtol=F32_TOL[1])
+    for name, g, w in zip(("dx", "dscale", "dbias"), got[2:], want[2:]):
+        assert np.linalg.norm(g - w) <= BF16_TOL * np.linalg.norm(w), name
