@@ -79,7 +79,14 @@ telemetry files read back, the step time beside ``train``'s and a
 profiled window's idle share); the char-LM under ``dump_and_halt`` (the
 black-box bundle's checkpoint restores the last good state bitwise); a
 host read inside the wave raising under strict mode only; a stalled loop
-reported by the watchdog with the CUDA allocator's line; and rows 9-10
+reported by the watchdog with the CUDA allocator's line. Then resilience
+and the live export plane: GPT-2 124M trained through ``python -m
+rocket_tpu_torch.launch --supervise`` while a fault plan kills, wedges and
+preempts its generations (each resuming from the last complete checkpoint,
+the last draining on SIGTERM), exporting metric shards and ``/metrics``
+judged by ``default:train``, then resumed to its last step: params and
+both moments bitwise those of an uninterrupted run; and LeNet under strict
+mode and ``skip_step`` with one batch poisoned on the card. Last, rows 9-10
 against their plain versions at f16, C = 3, C = 12 and C = 4096 (two
 channel chunks).
 
@@ -99,6 +106,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -142,6 +150,9 @@ from rocket_tpu_torch.models.resnet import resnet18
 from rocket_tpu_torch.models.vit import ViT
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.nn.moe import MoE
+from rocket_tpu_torch.obs.__main__ import main as obs_main
+from rocket_tpu_torch.obs.export import read_telemetry_dir
+from rocket_tpu_torch.obs.spans import load_chrome_trace
 from rocket_tpu_torch.analysis.sched_audit import SCHED_TARGETS, run_sched_target
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import badpallas as bp
@@ -212,9 +223,31 @@ CIFAR_TOL, CIFAR_GRAD_FLOOR = 1e-3, 3.0
 CIFAR_BN_LAYERS, CIFAR_EPOCHS, CIFAR_SAVE_STEP, CIFAR_BATCH = 20, 3, 200, 512
 
 
+#: The run's clock: each phase line carries the seconds since the start.
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
+    fields["elapsed_s"] = time.perf_counter() - T_START
     RECORD.setdefault(phase, []).append(fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+#: The synthetic texts the phases read, made once a run: a million
+#: characters is seconds of host work, and eight phases read them.
+_TEXTS: dict = {}
+
+
+def _text(num_chars: int = 1_000_000) -> str:
+    if num_chars not in _TEXTS:
+        _TEXTS[num_chars] = synthetic_corpus(num_chars=num_chars)
+    return _TEXTS[num_chars]
+
+
+def _gpt2_corpus(seq_len: int, vocab_size: int) -> TokenDataset:
+    """``examples.gpt2.corpus`` over the run's one copy of its text."""
+    text = _text(2_000_000)
+    return TokenDataset(CharTokenizer(text).encode(text) % vocab_size, seq_len=seq_len)
 
 
 def _kernel_name(sym: str) -> str:
@@ -1517,7 +1550,7 @@ def run_train(cfg, batch: int, steps: int, profile_last: int = 0, capsules=()):
     too for an MoE config, whose train forward also hands the clock its
     outputs)."""
     clock = StepClock(profile_last)
-    run = gpt2.build(cfg, gpt2.corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=batch,
+    run = gpt2.build(cfg, _gpt2_corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=batch,
                      runtime=rt.Runtime(seed=0), steps=steps, record=False,
                      capsules=(*capsules, clock),
                      return_outputs="always" if cfg.num_experts else "eval")
@@ -1733,7 +1766,7 @@ def _resume_run(root, num_epochs, resume_from=None, profile=False):
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        text = synthetic_corpus()
+        text = _text()
         tok = CharTokenizer(text)
         tokens = tok.encode(text)
         data = TokenDataset(tokens[:int(len(tokens) * 0.95)], seq_len=256)
@@ -1798,7 +1831,7 @@ def char_lm_eval_phase(run, card):
     taken at different places (the flash kernel rounds exp(s - m), the
     fused one p / l) spread the elements apart by a few bf16 steps."""
     model, params = run["model"], run["trained"]["params"]
-    text = synthetic_corpus()
+    text = _text()
     tokens = CharTokenizer(text).encode(text)[:128 * 256].reshape(128, 256)
     batch = {"tokens": torch.from_numpy(tokens).cuda()}
     row = {"batch": 128, "seq_len": 256}
@@ -1853,7 +1886,7 @@ def char_lm_generate_phase(card):
         model = TransformerLM(TransformerConfig(**json.load(f)))
     with contextlib.redirect_stdout(io.StringIO()):
         params = char_generate.load_params(model, ckpt)
-    prompt = CharTokenizer(synthetic_corpus()).encode("the ")[None, :]
+    prompt = CharTokenizer(_text()).encode("the ")[None, :]
     generate(model, params, prompt, 8, temperature=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2602,7 +2635,7 @@ def llama_d128_train_phase(card):
         rt.Scheduler(optim.warmup_cosine_lr(3e-4, warmup_steps=1, decay_steps=steps)),
     ], compute_dtype=torch.bfloat16, remat=True, ema_decay=LLAMA_D128_EMA)
     clock = StepClock(module=module)
-    dataset = rt.Dataset(gpt2.corpus(t, cfg.vocab_size), batch_size=b, shuffle=True,
+    dataset = rt.Dataset(_gpt2_corpus(t, cfg.vocab_size), batch_size=b, shuffle=True,
                          drop_last=True)
     launcher = rt.Launcher([rt.Looper([dataset, module, clock], tag="train", repeats=steps,
                                       progress=False)], statefull=True, runtime=rt.Runtime(seed=0))
@@ -2837,7 +2870,7 @@ def bpe_lm_phase(card):
     Looper reading ``Perplexity`` (the eval Module through the flash
     kernels at D=64), then 8 text requests served through
     ``Scheduler.run_until_idle`` and decoded by the tokenizer."""
-    text = synthetic_corpus()
+    text = _text()
     t0 = time.perf_counter()
     tok = BPETokenizer.train(text, BPE_VOCAB)
     train_s = time.perf_counter() - t0
@@ -3694,8 +3727,6 @@ def ops_train_phase(card, train_median_ms):
     with the loss flag, the telemetry files load through the port's readers
     with goodput's phases summing to the wall clock within 1%, and rows 3-4
     launch as often a step as in ``train``."""
-    from rocket_tpu_torch.obs.spans import load_chrome_trace
-
     cfg = TransformerConfig.gpt2_124m()
     layers, b = cfg.num_layers, 8
     root = Path(tempfile.mkdtemp(prefix="ops_train_"))
@@ -3704,7 +3735,7 @@ def ops_train_phase(card, train_median_ms):
         runtime = rt.Runtime(seed=0, strict=True, telemetry=True, health=True,
                              anomaly_action="skip_step", watchdog_secs=60,
                              project_dir=str(root), telemetry_dir=str(root / "tel"))
-        run = gpt2.build(cfg, gpt2.corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=b,
+        run = gpt2.build(cfg, _gpt2_corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=b,
                          runtime=runtime, steps=OPS_STEPS, record=False)
         module = run["module"]
         loss = module.find(rt.Loss)[0]
@@ -3871,7 +3902,7 @@ def _gpt2_step_ms(ops: bool, steps: int = 12) -> float:
                      watchdog_secs=60, telemetry_dir=str(root / "tel")) if ops else {}
         runtime = rt.Runtime(seed=0, project_dir=str(root), **plane)
         clock = _EventClock()
-        run = gpt2.build(cfg, gpt2.corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=8,
+        run = gpt2.build(cfg, _gpt2_corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=8,
                          runtime=runtime, steps=steps, record=False, capsules=(clock,))
         run["launcher"].launch()
         torch.cuda.synchronize()
@@ -3960,6 +3991,433 @@ def watchdog_phase(card):
     finally:
         del hold
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -- PR 17: GPT-2 training under the supervising launcher; the poison gate ------
+
+#: The supervised run: GPT-2 124M at full width, SUPERVISED_STEPS steps in
+#: all, a checkpoint every 5 (keep 3); generation 0 killed at the top of its
+#: 11th wave, generation 1 wedged at its 4th (the watchdog's 2 s deadline
+#: escalates to exit 85), generation 2 sent SIGTERM at its 4th (it drains at
+#: the next boundary); a plain resume then takes the tree to the end. The
+#: kill lands at wave 11, not 8: the step-5 save writes its 1.49 GB on a
+#: background thread for ~5 s on the card's host, so a kill three waves
+#: later tears it (the first chip run of this phase saw generations 1 and 2
+#: skip the torn step and start over). Wave 10's save waits for step 5's
+#: files first (one write in flight), so at wave 11 step 5 is complete and
+#: step 10 is torn: the kill exercises both the skip and the resume.
+SUPERVISED_STEPS = 16
+SUPERVISED_FAULTS = "kill:step=11,gen=0;wedge:step=4,gen=1,secs=600;sigterm:step=4,gen=2"
+
+#: The worker of ``supervised_train``: examples.gpt2's tree with a
+#: Checkpointer, a Profiler (perf/steps_per_sec for the SLO) and a step log
+#: (the step's wall time and the flash launch counts so far, on a line of its
+#: own after every wave, so a killed generation leaves them too; a step
+#: counter and the generation in the registry, so /metrics shows them); at
+#: the end the SHA-256 of the params, both AdamW moments and the counts.
+SUPERVISED_WORKER = r"""
+import time
+
+T0 = time.time()
+import hashlib, json, logging, os, sys
+
+import numpy as np
+import torch
+
+import rocket_tpu_torch as rt
+from rocket_tpu_torch import optim
+from rocket_tpu_torch.data.text import TokenDataset
+from rocket_tpu_torch.examples import gpt2
+from rocket_tpu_torch.models.transformer import TransformerConfig
+from rocket_tpu_torch.ops import flash_native as fa
+
+T_IMPORTED = time.time()
+root, run_dir, steps, port = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                    format="%(created).3f %(name)s %(message)s")
+torch.backends.cuda.matmul.allow_tf32 = False
+gen = int(os.environ.get("ROCKET_TPU_GENERATION", "-1"))
+cfg = TransformerConfig.gpt2_124m()
+data = TokenDataset(np.load(os.path.join(root, "tokens.npy")) % cfg.vocab_size,
+                    seq_len=cfg.max_seq_len)
+# The supervised generations' shards in <run_dir>/telemetry, a plain run's
+# (the uninterrupted one, the resume after the drain) under <run_dir>/plain.
+tel_dir = run_dir if os.environ.get("ROCKET_TPU_SUPERVISED") else os.path.join(run_dir, "plain")
+runtime = rt.Runtime(seed=0, telemetry=True, watchdog_secs=2, export=True,
+                     export_interval_s=0.5, metrics_port=port, project_dir=run_dir,
+                     telemetry_dir=tel_dir)
+
+
+class StepLog(rt.Capsule):
+    def __init__(self):
+        super().__init__(priority=1)
+        self.module = self.prepared = None
+
+    def launch(self, attrs=None):
+        self.prepared = self.module.prepared
+        registry = self._runtime.telemetry.registry
+        registry.counter("train/steps").inc()
+        registry.gauge("train/generation").set(gen)
+        print("STEP " + json.dumps({
+            "gen": gen, "step": int(self.prepared.state["step"]), "t": time.time(),
+            "flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
+            "flash_dq": fa.flash_dq.launches}), flush=True)
+
+
+ckpt = rt.Checkpointer(output_dir=os.path.join(run_dir, "ck"), save_every=5, keep_last=3,
+                       resume_from="latest")
+log = StepLog()
+run = gpt2.build(cfg, data, batch_size=8, runtime=runtime, steps=steps, record=False,
+                 capsules=(rt.Profiler(flops_per_sample=gpt2.flops_per_sample(
+                     cfg, cfg.max_seq_len)), ckpt, log))
+log.module = run["module"]
+print("START " + json.dumps({"gen": gen, "t": time.time(), "pid": os.getpid(), "t0": T0,
+                             "t_imported": T_IMPORTED}), flush=True)
+try:
+    run["launcher"].launch()
+except SystemExit as exc:
+    print("EXIT " + json.dumps({"gen": gen, "t": time.time(), "code": exc.code,
+                                "saves": ckpt.save_times}), flush=True)
+    raise
+state = log.prepared.state
+opt = state["optimizer"]
+leaves = optim.param_leaves(state["params"])
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+print("DIGEST " + json.dumps({
+    "gen": gen, "t": time.time(), "step": int(state["step"]), "params": digest(leaves),
+    "exp_avg": digest([opt.state[p]["exp_avg"] for p in leaves]),
+    "exp_avg_sq": digest([opt.state[p]["exp_avg_sq"] for p in leaves]),
+    "count": digest([opt.state[p]["step"] for p in leaves]),
+    "counts": sorted({float(opt.state[p]["step"]) for p in leaves})}), flush=True)
+"""
+
+
+def _tagged(text: str, tag: str) -> list:
+    """The JSON payloads of the lines holding ``TAG {...}``."""
+    return [json.loads(line.split(f"{tag} ", 1)[1]) for line in text.splitlines()
+            if f"{tag} {{" in line]
+
+
+def _logged_at(text: str, needle: str) -> list:
+    """The unix times of the worker's log lines (``%(created)`` first) that
+    hold ``needle``."""
+    out = []
+    for line in text.splitlines():
+        if needle in line:
+            head = line.split("] ", 1)[-1].split(" ", 1)[0]
+            try:
+                out.append(float(head))
+            except ValueError:
+                pass
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Scraper:
+    """Polls a worker's ``/metrics`` every 0.1 s on a thread while the
+    supervised run goes on; keeps (time, generation, step count) of each
+    answer."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.url, self.seen = f"http://127.0.0.1:{port}/metrics", []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import urllib.request
+
+        while not self._stop.wait(0.1):
+            try:
+                body = urllib.request.urlopen(self.url, timeout=1).read().decode()
+            except OSError:
+                continue
+            values = {}
+            for line in body.splitlines():
+                for name in ("rocket_tpu_train_generation", "rocket_tpu_train_steps"):
+                    if line.startswith(name + "{"):
+                        values[name] = float(line.rsplit(" ", 1)[1])
+            self.seen.append((time.time(), values.get("rocket_tpu_train_generation"),
+                              values.get("rocket_tpu_train_steps")))
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+
+
+def _step_ms(steps: list) -> list:
+    """Gaps between consecutive step lines of one process, its first wave
+    left out (it builds the allocator's pools and cuBLAS's handles)."""
+    times = [s["t"] for s in steps]
+    return [1e3 * (b - a) for a, b in zip(times[1:], times[2:])]
+
+
+def supervised_train_phase(card, train_median_ms):
+    """GPT-2 124M (B=8, T=1024, bf16, remat, dropout 0.1) trained through
+    ``python -m rocket_tpu_torch.launch --supervise -n 1`` under
+    :data:`SUPERVISED_FAULTS`, exporting shards every 0.5 s and serving
+    ``/metrics``, judged by ``ROCKET_TPU_SLO=default:train``; then a plain
+    resume to :data:`SUPERVISED_STEPS`. Holds: generations crashed (a
+    SIGKILL), wedged (85, the watchdog's escalation) and drained (84, with
+    ``drain.json``), the supervisor's exit 0; the resumed run's params, both
+    AdamW moments and the counts bitwise those of an uninterrupted run of
+    the same script (SHA-256 of their bytes); the flash kernels launched in
+    every process; a scrape of ``/metrics`` during generation 2 holding the
+    step counter; the supervised generations' shards parse; ``obs watch
+    --slo default:train`` over them exits 0 and ``obs top --once`` renders
+    (the plain runs keep their shards under ``plain/``: the resume's
+    verdict is recorded beside)."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="supervised_"))
+    try:
+        text = _text(2_000_000)  # examples.gpt2.corpus's text
+        np.save(root / "tokens.npy", CharTokenizer(text).encode(text))
+        (root / "worker.py").write_text(SUPERVISED_WORKER)
+        env = {k: v for k, v in os.environ.items() if not k.startswith("ROCKET_TPU_")}
+        env.update(ROCKET_TPU_SLO="default:train",
+                   PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+        port = _free_port()
+        worker = [str(root / "worker.py"), str(root)]
+
+        def plain(run_dir):
+            t0 = time.time()
+            done = subprocess.run([sys.executable, *worker, str(run_dir), str(SUPERVISED_STEPS),
+                                   str(port)], env=env, cwd=str(root), capture_output=True,
+                                  text=True, timeout=300)
+            (out / f"supervised_{run_dir.name}.log").write_text(done.stdout + done.stderr)
+            require(done.returncode == 0, f"supervised_train: the {run_dir.name} run exited "
+                    f"{done.returncode}: {(done.stdout + done.stderr)[-1500:]}")
+            return done.stdout, time.time() - t0
+
+        torch.cuda.empty_cache()
+        uninterrupted, plain_wall = plain(root / "plain")
+        scraper = _Scraper(port)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rocket_tpu_torch.launch", "--supervise", "-n", "1",
+             "--backoff", "0.1", "--ckpt-dir", str(root / "sup" / "ck"), "--state-dir",
+             str(root / "sup"), *worker, str(root / "sup"), str(SUPERVISED_STEPS), str(port)],
+            env=dict(env, ROCKET_TPU_FAULTS=SUPERVISED_FAULTS), cwd=str(root),
+            capture_output=True, text=True, timeout=600)
+        sup_wall = time.time() - t0
+        scraper.stop()
+        log = proc.stdout + proc.stderr
+        (out / "supervised_train.log").write_text(log)
+        require(proc.returncode == 0, f"supervised_train: the supervisor exited "
+                f"{proc.returncode}: {log[-2000:]}")
+        with open(root / "sup" / "supervisor.json") as f:
+            sup = json.load(f)
+        gens = sup["generations"]
+        require([g["outcome"] for g in gens] == ["crashed", "wedged", "drained"]
+                and [g["exit_codes"] for g in gens] == [[-signal.SIGKILL], [85], [84]],
+                f"supervised_train: generations {[(g['outcome'], g['exit_codes']) for g in gens]}")
+        require(gens[0]["ckpt_step"] == 5 and sup["outcome"] == "drained",
+                f"supervised_train: {sup['outcome']}, checkpoint steps "
+                f"{[g['ckpt_step'] for g in gens]}")
+        drain_dir = root / "sup" / "ck" / str(gens[2]["ckpt_step"])
+        require((drain_dir / "drain.json").is_file(), f"supervised_train: no drain.json in "
+                f"{sorted(os.listdir(root / 'sup' / 'ck'))}")
+        drain_bytes = sum(f.stat().st_size for f in drain_dir.rglob("*") if f.is_file())
+        resumed, resume_wall = plain(root / "sup")
+
+        digests = {name: _tagged(text, "DIGEST") for name, text in
+                   (("uninterrupted", uninterrupted), ("resumed", resumed))}
+        require(all(len(d) == 1 for d in digests.values()), f"supervised_train: {digests}")
+        want, got = digests["uninterrupted"][0], digests["resumed"][0]
+        keys = ("step", "params", "exp_avg", "exp_avg_sq", "count")
+        bitwise = {k: got[k] == want[k] for k in keys}
+        require(all(bitwise.values()) and got["step"] == SUPERVISED_STEPS,
+                f"supervised_train: resumed vs uninterrupted {bitwise} (steps {got['step']}, "
+                f"{want['step']}; counts {got['counts']} vs {want['counts']})")
+
+        steps = {g: [s for s in _tagged(log, "STEP") if s["gen"] == g] for g in (0, 1, 2)}
+        steps["resume"] = _tagged(resumed, "STEP")
+        steps["uninterrupted"] = _tagged(uninterrupted, "STEP")
+        launches = {str(g): {k: s[-1][k] for k in ("flash_fwd", "flash_bwd", "flash_dq")}
+                    if s else {} for g, s in steps.items()}
+        layers = TransformerConfig.gpt2_124m().num_layers
+        for g, s in steps.items():
+            n = len(s)
+            require(n > 0 and launches[str(g)]["flash_fwd"] == 2 * layers * n
+                    and launches[str(g)]["flash_bwd"] == layers * n,
+                    f"supervised_train: process {g}: {n} steps, launches {launches[str(g)]}")
+        require([s["step"] for s in steps["resume"]] == list(range(10, SUPERVISED_STEPS + 1)),
+                f"supervised_train: resumed steps {[s['step'] for s in steps['resume']]}")
+
+        live = [(t, g, n) for t, g, n in scraper.seen if g == 2 and n]
+        require(live, f"supervised_train: no /metrics scrape in generation 2 with the step "
+                f"counter ({len(scraper.seen)} scrapes, generations "
+                f"{sorted({g for _, g, _ in scraper.seen if g is not None})})")
+        shards = read_telemetry_dir(str(root / "sup"))
+        records = shards.get(0, [])
+        require(records and {r.get("pid") for r in records} and all(
+            r.get("version") == 1 for r in records), f"supervised_train: shards {sorted(shards)}")
+        watch = subprocess.run([sys.executable, "-m", "rocket_tpu_torch.obs", "watch", "--slo",
+                                "default:train", str(root / "sup")], env=env, cwd=str(root),
+                               capture_output=True, text=True, timeout=120)
+        with contextlib.redirect_stdout(io.StringIO()) as top:
+            top_rc = obs_main(["top", "--once", str(root / "sup")])
+        # The plain resume's own shards, judged alike (recorded, not held:
+        # it is not the supervised run).
+        with contextlib.redirect_stdout(io.StringIO()) as watch_resume:
+            resume_rc = obs_main(["watch", "--slo", "default:train", str(root / "sup" / "plain")])
+        (out / "supervised_obs.log").write_text(watch.stdout + watch.stderr + top.getvalue()
+                                               + watch_resume.getvalue())
+        require(watch.returncode == 0, f"supervised_train: obs watch exited {watch.returncode}: "
+                f"{(watch.stdout + watch.stderr)[-800:]}")
+        require(top_rc == 0 and "obs top — 1 rank(s)" in top.getvalue(),
+                f"supervised_train: obs top returned {top_rc}")
+
+        killed = _logged_at(log, "fault injection: firing kill")
+        escalated = _logged_at(log, "watchdog escalation under supervision")
+        sigterm = _logged_at(log, "fault injection: firing sigterm")
+        exits = [e for e in _tagged(log, "EXIT") if e["gen"] == 2]
+        require(killed and escalated and sigterm and exits,
+                f"supervised_train: fault times {killed} {escalated} {sigterm} {exits}")
+        gen_end = [g["started_unix"] + g["duration_s"] for g in gens]
+        drain_saves = [s for s in exits[0]["saves"] if "drain_s" in s]
+        starts = _tagged(log, "START")
+        restart = {}
+        for name, died, start, first in (("kill", killed[0], starts[1], steps[1][0]["t"]),
+                                         ("wedge", escalated[0], starts[2], steps[2][0]["t"])):
+            restart[name] = {"total_s": first - died, "to_process_start_s": start["t0"] - died,
+                             "imports_s": start["t_imported"] - start["t0"],
+                             "runtime_and_tree_s": start["t"] - start["t_imported"],
+                             "setup_and_first_wave_s": first - start["t"]}
+        # The last process (the plain resume) wrote the span file: its setup
+        # by capsule and its first wave, a resume's costs one by one.
+        events = [e for e in load_chrome_trace(str(root / "sup" / "plain" / "spans.trace.json"))
+                  if e.get("ph") == "X"]
+
+        def span_s(name):
+            return next((e["dur"] / 1e6 for e in events if e.get("name") == name), None)
+
+        resume_setup = {n: span_s(n) for n in ("Dataset.setup", "Module.setup",
+                                                "Checkpointer.setup", "checkpoint/load",
+                                                "Launcher.setup")}
+        resume_setup["first_wave"] = next((e["dur"] / 1e6 for e in events
+                                           if e.get("cat") == "compile"), None)
+        last_slo = records[-1].get("slo") or []
+        emit("supervised_train", model="gpt2_124m", dtype="bfloat16", batch=8, seq_len=1024,
+             steps=SUPERVISED_STEPS, faults=SUPERVISED_FAULTS,
+             outcomes=[g["outcome"] for g in gens], exit_codes=[g["exit_codes"] for g in gens],
+             supervisor_rc=proc.returncode, restarts=sup["restarts"],
+             goodput_fraction=sup["goodput_fraction"], total_wall_s=sup["total_wall_s"],
+             productive_wall_s=sup["productive_wall_s"],
+             generation_wall_s=[g["duration_s"] for g in gens],
+             generation_ckpt_step=[g["ckpt_step"] for g in gens],
+             step_ms_median={str(g): float(np.median(_step_ms(s))) if len(s) > 2 else None
+                             for g, s in steps.items()},
+             train_step_ms_median=train_median_ms,
+             steps_per_generation={str(g): [x["step"] for x in s] for g, s in steps.items()},
+             restart_latency_s=restart, resume_setup_s=resume_setup,
+             torn_steps_skipped=sorted({int(x.rsplit("/", 1)[1]) for x in re.findall(
+                 r"skipping incomplete checkpoint (\S+)", log)}),
+             wedge_to_escalation_s=escalated[0] - steps[1][-1]["t"],
+             drain_latency_s={"sigterm_to_exit_line": exits[0]["t"] - sigterm[0],
+                              "sigterm_to_generation_end": gen_end[2] - sigterm[0]},
+             drain_save_s=drain_saves[0]["drain_s"] if drain_saves else None,
+             drain_bytes=drain_bytes, drain_step=gens[2]["ckpt_step"],
+             bitwise=bitwise, launches=launches,
+             scrapes={"total": len(scraper.seen), "generation_2": len(live),
+                      "last_generation_2_steps": live[-1][2] if live else None},
+             shard_records=len(records), shard_processes=len({r.get("pid") for r in records}),
+             last_slo=[{k: s.get(k) for k in ("name", "value", "burn_rate", "violated")}
+                       for s in last_slo],
+             obs_watch=watch.stdout.strip().splitlines()[-1:],
+             obs_watch_resume={"rc": resume_rc,
+                               "lines": watch_resume.getvalue().strip().splitlines()[-3:]},
+             wall_s={"uninterrupted": plain_wall, "supervised": sup_wall,
+                     "resume": resume_wall}, card=card)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class _KeepBatch(Capsule):
+    """After the Module: keeps the ``nth`` wave's input image tensor (a
+    reference, no read)."""
+
+    def __init__(self, nth: int):
+        super().__init__(priority=5)
+        self.nth, self.calls, self.image = nth, 0, None
+
+    def launch(self, attrs=None):
+        self.calls += 1
+        if self.calls == self.nth:
+            self.image = attrs.batch["image"]
+
+
+def poison_gate_phase(card):
+    """``examples.mnist.build`` (LeNet, B=1024, accumulation 2, one epoch)
+    on device-resident batches under ``Runtime(strict=True, health=True,
+    anomaly_action="skip_step")`` with ``ROCKET_TPU_FAULTS="poison:step=3"``:
+    the third batch is NaN-filled on the card (no upload, so the sync guard
+    stays quiet: the run completes under it), the optimizer step holding it
+    is the one held step."""
+    from rocket_tpu_torch.data.datasets import mnist as mnist_data
+
+    saved = os.environ.get("ROCKET_TPU_FAULTS")
+    os.environ["ROCKET_TPU_FAULTS"] = "poison:step=3"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            runtime = rt.Runtime(seed=0, gradient_accumulation_steps=2, strict=True,
+                                 health=True, anomaly_action="skip_step", project_dir=tmp)
+            run = mnist.build(mnist_data(train=True), mnist_data(train=False), batch_size=1024,
+                              num_epochs=1, out_dir=os.path.join(tmp, "ck"), runtime=runtime)
+            keep = _KeepBatch(3)
+            looper = run["launcher"].find(rt.Looper)[0]
+            looper._capsules = sorted([*looper._capsules, keep], key=lambda c: -c.priority)
+            keep.bind(runtime)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run["launcher"].launch()
+            wall = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            if saved is None:
+                os.environ.pop("ROCKET_TPU_FAULTS", None)
+            else:
+                os.environ["ROCKET_TPU_FAULTS"] = saved
+    train, val = run["datasets"]
+    summary = runtime.health.summary()
+    flags = [r["flag_names"] for r in runtime.health.anomaly_records]
+    image = keep.image
+    require(train.device_resident and val.device_resident,
+            "poison_gate: the batches were not device-resident")
+    require(runtime.faults.fired == ("poison@batch[3]",),
+            f"poison_gate: fired {runtime.faults.fired}")
+    require(image is not None and image.is_cuda and bool(torch.isnan(image).all()),
+            "poison_gate: the third batch is not an all-NaN CUDA tensor")
+    require(summary["skipped_steps"] == 1 and summary["anomalies"] == 1,
+            f"poison_gate: health {summary}, flags {flags}")
+    require(not runtime.strict.enabled and torch.cuda.get_sync_debug_mode() == 0,
+            "poison_gate: the guard outlived the run")
+    emit("poison_gate", model="lenet", batch=1024, accumulation=2, faults="poison:step=3",
+         fired=list(runtime.faults.fired), health=summary, flags=flags,
+         nan_batch={"device": str(image.device), "dtype": str(image.dtype),
+                    "shape": list(image.shape)},
+         strict=True, device_resident=True, wall_s=wall, card=card)
 
 
 def main() -> int:
@@ -4120,6 +4578,12 @@ def main() -> int:
     ops_halt_phase(card)
     strict_guard_phase(card)
     watchdog_phase(card)
+    # Resilience and the live export plane (PR 17): the flash kernels' rows
+    # 3-4 run in every process of the supervised run.
+    torch.cuda.empty_cache()
+    supervised_train_phase(card, RECORD["train"][0]["step_ms_median"])
+    torch.cuda.empty_cache()
+    poison_gate_phase(card)
     timer = Timer()
     check_fused_conv_coverage(timer, torch.Generator().manual_seed(16), card)
     del timer

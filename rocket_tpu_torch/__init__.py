@@ -35,7 +35,12 @@ A training script reads as the JAX one does::
 The ops plane's training half (``obs``: telemetry, spans, goodput, the
 health sentinels with their update gate, the flight recorder, the
 watchdog; ``runtime.StrictMode``) turns on through the ``Runtime``'s
-arguments (``telemetry=``, ``health=``, ``strict=``, ...).
+arguments (``telemetry=``, ``health=``, ``strict=``, ...); its live export
+plane (metric shards, ``/metrics``, SLOs) through ``export=``,
+``metrics_port=`` and ``slo=``. ``python -m rocket_tpu_torch.launch
+--supervise`` restarts crashed or wedged workers from their last complete
+checkpoint and drains them on SIGTERM (``resilience``), and
+``ROCKET_TPU_FAULTS`` injects faults into the real loop.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``runtime.resolve_device``); on CPU tensors every kernel wrapper takes

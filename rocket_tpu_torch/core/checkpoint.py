@@ -30,8 +30,14 @@ bundle then carries an emergency checkpoint (:meth:`Checkpointer.
 save_emergency`) that ``resume_from=<bundle>/checkpoint`` restores. With
 telemetry on, saves, the async writer's drain and loads are ``checkpoint``
 spans. A snapshot reads the card on the host by design, so it runs through
-the explicit-transfer helper (legal under strict mode). The drain save is
-ROADMAP Queue A 7b.
+the explicit-transfer helper (legal under strict mode).
+
+The drain save (:meth:`Checkpointer.save_drain`) is what a Looper writes
+when it honours a SIGTERM: synchronous and barrier-free, capsule states
+included, into the numbered step layout (so ``resume_from="latest"``
+finds it) with a ``drain.json`` marker. Every live Checkpointer is in the
+runtime's ``checkpointers`` registry from ``setup`` to ``destroy``, so a
+drain in a phase without one saves through another phase's.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from typing import Optional
 
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import PRIORITY_CHECKPOINT, Capsule
-from rocket_tpu_torch.resilience.supervisor import newest_complete_step
+from rocket_tpu_torch.resilience.supervisor import is_complete_checkpoint, newest_complete_step
 from rocket_tpu_torch.runtime import checkpoint_io, explicit_transfer
 
 __all__ = ["Checkpointer"]
@@ -75,6 +81,9 @@ class Checkpointer(Capsule):
 
     def setup(self, attrs: Attributes | None = None) -> None:
         super().setup(attrs)
+        registry = getattr(self._runtime, "checkpointers", None)
+        if registry is not None and not any(c is self for c in registry):
+            registry.append(self)  # the drain path's Runtime-wide view
         flight = getattr(self._runtime, "flight", None)
         if flight is not None:
             flight.attach_checkpointer(self)  # the black box's emergency writer
@@ -165,6 +174,9 @@ class Checkpointer(Capsule):
         usual teardown."""
         runtime = self._runtime
         if runtime is not None:
+            registry = getattr(runtime, "checkpointers", None)
+            if registry is not None and any(c is self for c in registry):
+                registry.remove(self)
             flight = getattr(runtime, "flight", None)
             if flight is not None:
                 flight.detach_checkpointer(self)
@@ -175,22 +187,54 @@ class Checkpointer(Capsule):
             self._writer.wait()
         super().destroy(attrs)
 
-    def save_emergency(self, path: str) -> str:
+    def save_emergency(self, path: str, include_capsules: bool = False) -> str:
         """A synchronous dump of every prepared model's state into ``path``
         (the flight recorder's bundle), in the step layout ``resume_from``
         reads: ``model_{k}/`` then ``rng.json``, its completeness marker. Not
         :meth:`save`: no barrier, no background writer (the process may be
-        about to die), no pruning, no capsule states. Under a gated anomaly
-        action the state is the last finite one: the anomalous update was
-        held."""
+        about to die), no pruning. ``include_capsules`` (the drain, between
+        waves, where the host state is consistent) also writes
+        ``capsules.pkl``, so the loop's position resumes exactly; a crash
+        dump leaves it out. Under a gated anomaly action the state is the
+        last finite one: the anomalous update was held."""
         runtime = self._runtime
         with explicit_transfer():
             plans = [checkpoint_io.snapshot(prepared.checkpoint_state())
                      for prepared in runtime.models.values()]
+            capsule_states = ([obj.state_dict() for obj in runtime.checkpoint_stack]
+                              if include_capsules else None)
         for k, plan in enumerate(plans):
             checkpoint_io.write_snapshot(os.path.join(path, f"model_{k}"), plan)
+        if capsule_states is not None:
+            checkpoint_io.atomic_write(os.path.join(path, "capsules.pkl"),
+                                       pickle.dumps(capsule_states))
         checkpoint_io.atomic_write(os.path.join(path, "rng.json"),
                                    json.dumps(runtime.rng_state_dict()).encode("utf-8"))
+        return path
+
+    def save_drain(self) -> str:
+        """The drain checkpoint (reference ``checkpoint.py:301-340``): the
+        Looper's call at a wave boundary after a drain request. Synchronous
+        and barrier-free, capsule states included, into the numbered step
+        directory of this iteration, so ``resume_from="latest"`` finds it.
+        The step joins ``saved_steps`` before the capsule states are taken,
+        so a resumed run's ``keep_last`` rotation prunes it like a periodic
+        save. A step a complete periodic save already holds is not written
+        again, but ``drain.json`` is written either way: it is the record
+        that a drain happened there. Returns the step directory."""
+        step = self._iter_idx
+        path = os.path.join(self._output_dir, str(step))
+        self._writer.wait()  # no interleaving with a periodic save's writes
+        if step not in self._saved_steps:
+            self._saved_steps.append(step)
+        t0 = time.perf_counter()
+        if not is_complete_checkpoint(path):
+            with self._runtime.telemetry.span(f"checkpoint/drain[{step}]", cat="checkpoint"):
+                self.save_emergency(path, include_capsules=True)
+            self.log_info(f"drain checkpoint written at {path}")
+        self.save_times.append({"step": step, "drain_s": time.perf_counter() - t0})
+        checkpoint_io.atomic_write(os.path.join(path, "drain.json"), json.dumps(
+            {"reason": "drain", "step": step, "unix": time.time()}).encode("utf-8"))
         return path
 
     # -- restore -----------------------------------------------------------

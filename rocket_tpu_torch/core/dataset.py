@@ -20,7 +20,8 @@
   epoch, 0x90C3E7])`` shuffle; a short last batch wrap-filled with
   ``batch_info.size`` its real rows), fast-forwards a mid-epoch resume
   when training, and exposes the batch total for the Looper;
-* ``launch()`` fills ``attrs.batch`` only when it is ``None``; on
+* ``launch()`` fills ``attrs.batch`` only when it is ``None`` (each batch
+  through the runtime's fault injector first, when a plan is set); on
   exhaustion it sets ``attrs.looper.terminate``.
 
 ``fuse_gather`` is accepted, with the reference's default, and keys the
@@ -190,6 +191,11 @@ class Dataset(Capsule):
                 attrs.looper.terminate = True
             return
         data = batch.data
+        # A scheduled poison fault (ROCKET_TPU_FAULTS) NaN-fills this batch
+        # before placement; a device-resident batch is filled on its card.
+        faults = getattr(self._runtime, "faults", None)
+        if faults is not None:
+            data = faults.poison_hook(data)
         if self._device_placement and not self._device_resident:
             # The framework's own upload of a streamed batch: an explicit
             # transfer, legal under strict mode.

@@ -21,8 +21,13 @@ hang watchdog is armed for the loop and beaten after every wave; under
 strict mode every wave but the first of a launch runs under the CUDA sync
 guard (``runtime.StrictMode``); at the loop's end the health words still in
 their fetch lag are decoded (under ``dump_and_halt`` that raises here);
-an exception escaping the loop writes a black-box bundle first. The drain
-and fault-injection hooks are ROADMAP Queue A 7b.
+an exception escaping the loop writes a black-box bundle first.
+
+Resilience: at every wave boundary the Looper polls the runtime's drain
+flag (a SIGTERM lands mid-wave, the wave finishes, and the next boundary
+writes ``Checkpointer.save_drain`` and raises ``GracefulDrain``, exit code
+84) and calls the fault injector's ``step_hook`` (``ROCKET_TPU_FAULTS``),
+so a scheduled kill or wedge strikes the real loop.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ class Looper(Dispatcher):
         self._batch_idx = 0
         self._active = True
         self._warmed = False
+        self._in_wave = False
 
     @property
     def tag(self) -> str:
@@ -116,11 +122,17 @@ class Looper(Dispatcher):
         telemetry = getattr(runtime, "telemetry", None)
         obs_on = telemetry is not None and telemetry.enabled
         strict = getattr(runtime, "strict", None)
+        drain = getattr(runtime, "drain", None)
+        faults = getattr(runtime, "faults", None)
         if obs_on:
             telemetry.watchdog_arm()
         start = self._batch_idx
         try:
             for it in range(start, self._repeats):
+                if drain is not None and drain.requested:
+                    self._drain_exit()
+                if faults is not None:
+                    faults.step_hook(self._tag, self._batch_idx)
                 attrs.batch = None
                 attrs.mode = self.mode
                 # The first wave of a launch runs unguarded (it builds the
@@ -131,8 +143,12 @@ class Looper(Dispatcher):
                 span = (telemetry.step_span(self._tag, self._batch_idx,
                                             cat="step" if self._warmed else "compile")
                         if obs_on else contextlib.nullcontext())
-                with guard, span:
-                    Dispatcher.launch(self, attrs)
+                self._in_wave = True
+                try:
+                    with guard, span:
+                        Dispatcher.launch(self, attrs)
+                finally:
+                    self._in_wave = False
                 self._warmed = True
                 if obs_on:
                     telemetry.beat()
@@ -181,6 +197,42 @@ class Looper(Dispatcher):
 
     # -- helpers -----------------------------------------------------------
 
+    def _drain_exit(self) -> None:
+        """Honour a drain request at a wave boundary: a drain checkpoint
+        through this phase's first Checkpointer (else the first live one of
+        the run, so a drain in an eval phase still saves), the
+        ``resilience/drains`` count, then :class:`~rocket_tpu_torch.
+        resilience.faults.GracefulDrain`, a ``SystemExit``: the process
+        unwinds through every ``finally`` and exits 84, which the
+        supervisor reads as a clean stop. The black-box handler (``except
+        Exception``) does not catch it."""
+        from rocket_tpu_torch.core.checkpoint import Checkpointer
+        from rocket_tpu_torch.resilience.faults import GracefulDrain
+
+        runtime = self._runtime
+        reason = runtime.drain.reason or "drain"
+        self.log_info(f"drain requested ({reason}) — checkpointing and exiting "
+                      f"[{self._tag}, batch {self._batch_idx}]")
+        telemetry = getattr(runtime, "telemetry", None)
+        if telemetry is not None:
+            # The loop ends here: its watchdog is disarmed before the drain
+            # save (a synchronous write of the whole train state, longer than
+            # a short deadline's escalation; the reference keeps it armed),
+            # as the loop's own finally would. A hung drain is bounded by the
+            # sender's grace: the supervisor's --drain-grace, a scheduler's
+            # SIGKILL.
+            telemetry.watchdog_disarm()
+        checkpointers = self.find(Checkpointer) or list(getattr(runtime, "checkpointers", ()))
+        path = None
+        if checkpointers:
+            path = checkpointers[0].save_drain()
+        else:
+            self.log_warning("drain: no Checkpointer in this run — exiting without a drain "
+                             "checkpoint")
+        if telemetry is not None and telemetry.enabled:
+            telemetry.registry.counter("resilience/drains").inc()
+        raise GracefulDrain(checkpoint=path, reason=reason)
+
     def _infer_repeats(self) -> Optional[int]:
         from rocket_tpu_torch.core.dataset import Dataset
 
@@ -201,7 +253,14 @@ class Looper(Dispatcher):
     # -- checkpoint state --------------------------------------------------
 
     def state_dict(self) -> dict:
-        return {"epoch_idx": self._epoch_idx, "batch_idx": self._batch_idx}
+        """The loop's position. Taken inside a wave (a periodic checkpoint:
+        the Checkpointer runs after the Module), it is the position after
+        that wave, whose update the checkpoint holds, as the Dataset's and
+        the Checkpointer's counts are. The reference records the wave's own
+        index there, so its resume from a mid-epoch save under an explicit
+        ``repeats`` runs one wave more than the uninterrupted run."""
+        return {"epoch_idx": self._epoch_idx,
+                "batch_idx": self._batch_idx + (1 if self._in_wave else 0)}
 
     def load_state_dict(self, state: dict) -> None:
         self._epoch_idx = int(state["epoch_idx"])

@@ -119,7 +119,13 @@ class DeviceCachedLoader:
     # -- iteration ----------------------------------------------------------
 
     def __iter__(self):
+        # The pending skip belongs to this pass, taken now: a pass that is
+        # never advanced (a resumed epoch with no waves left) must not hand
+        # it on to the next epoch's.
         skip, self._skip = self._skip, 0
+        return self._batches(skip)
+
+    def _batches(self, skip: int):
         count, bs = len(self), self.batch_size
         last_real = self._n - (count - 1) * bs
         contiguous = not self.shuffle and (self.drop_last or self._n % bs == 0)

@@ -10,14 +10,24 @@ at the end of the run ``telemetry.json`` and the Chrome trace
 the flight recorder, whose bundles land under ``blackbox/``. Render either
 with ``python -m rocket_tpu_torch.obs report|blackbox <path>``.
 
-Not ported yet (ROADMAP Queue A 7b): the live export plane
-(``ExportConfig``, ``PrometheusServer``, ``ShardWriter``,
-``TelemetryExporter``, ``merge_rank_records``, ``read_telemetry_dir``,
-``render_prometheus``) and the SLO evaluator (``SLOEvaluator``,
-``SLOSpec``, ``SLOStatus``, ``load_slo_specs``).
+The live export plane (``export.py``: ``Runtime(export=True,
+metrics_port=..., slo=...)`` or ``ROCKET_TPU_EXPORT``,
+``ROCKET_TPU_METRICS_PORT``, ``ROCKET_TPU_SLO``) streams the registry to
+``<run dir>/telemetry/rank<k>.jsonl`` and ``/metrics`` while the run goes
+on, and evaluates the SLO specs of ``slo.py`` at every tick; ``python -m
+rocket_tpu_torch.obs top|watch <run dir>`` reads the shards.
 """
 
-from rocket_tpu_torch.obs.export import host_identity
+from rocket_tpu_torch.obs.export import (
+    ExportConfig,
+    PrometheusServer,
+    ShardWriter,
+    TelemetryExporter,
+    host_identity,
+    merge_rank_records,
+    read_telemetry_dir,
+    render_prometheus,
+)
 from rocket_tpu_torch.obs.flight import FlightRecorder
 from rocket_tpu_torch.obs.goodput import CATEGORIES, Goodput, render_report
 from rocket_tpu_torch.obs.health import HealthAnomalyError, HealthConfig, HealthMonitor
@@ -28,12 +38,16 @@ from rocket_tpu_torch.obs.registry import (
     MetricsRegistry,
     estimate_quantiles,
 )
+from rocket_tpu_torch.obs.slo import SLOEvaluator, SLOSpec, SLOStatus, load_slo_specs
 from rocket_tpu_torch.obs.spans import SpanRecorder, load_chrome_trace
 from rocket_tpu_torch.obs.telemetry import Telemetry
 from rocket_tpu_torch.obs.watchdog import Watchdog
 
 __all__ = [
-    "CATEGORIES", "Counter", "FlightRecorder", "Gauge", "Goodput", "HealthAnomalyError",
-    "HealthConfig", "HealthMonitor", "Histogram", "MetricsRegistry", "SpanRecorder", "Telemetry",
-    "Watchdog", "estimate_quantiles", "host_identity", "load_chrome_trace", "render_report",
+    "CATEGORIES", "Counter", "ExportConfig", "FlightRecorder", "Gauge", "Goodput",
+    "HealthAnomalyError", "HealthConfig", "HealthMonitor", "Histogram", "MetricsRegistry",
+    "PrometheusServer", "SLOEvaluator", "SLOSpec", "SLOStatus", "ShardWriter", "SpanRecorder",
+    "Telemetry", "TelemetryExporter", "Watchdog", "estimate_quantiles", "host_identity",
+    "load_chrome_trace", "load_slo_specs", "merge_rank_records", "read_telemetry_dir",
+    "render_prometheus", "render_report",
 ]

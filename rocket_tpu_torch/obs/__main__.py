@@ -1,19 +1,28 @@
-"""``python -m rocket_tpu_torch.obs <report|blackbox> <path>`` (counterpart
-of the ``report`` and ``blackbox`` subcommands of ``rocket_tpu/obs/
-__main__.py``; the files of either package render with either CLI).
+"""``python -m rocket_tpu_torch.obs <report|top|watch|blackbox> <path>``
+(counterpart of those subcommands of ``rocket_tpu/obs/__main__.py``; the
+files of either package render with either CLI).
 
 * ``report``: a ``telemetry.json`` (or the run directory holding it) as the
   goodput table, the health line, the registry's counters and gauges, each
   histogram's count, mean and estimated p50/p90/p99, the allocator
-  watermarks, the watchdog and the span count; a Chrome-trace span file as
-  its per-category span totals (inclusive). A record with no steps says so.
+  watermarks, the watchdog and the span count, with the run's
+  ``supervisor.json`` beside it when there is one; a ``supervisor.json``
+  alone as its generations; a Chrome-trace span file as its per-category
+  span totals (inclusive). A run directory with no ``telemetry.json`` (a
+  worker killed before its teardown) falls back to its streaming shards.
+* ``top``: the cross-rank live view over a run's shards (``--once`` for one
+  frame): each rank's liveness, counters summed, gauges' spread with the
+  slowest rank, SLO burn rates, merged histogram percentiles.
+* ``watch --slo SPEC``: the SLO specs replayed over the shards; exit 1 when
+  any objective ends violated. Each process's records (one ``pid`` of a
+  rank's shard, a supervised generation) replay through a fresh evaluator,
+  as that process's live exporter evaluated them.
 * ``blackbox``: a flight-recorder bundle (its directory or its
   ``blackbox.json``): reason, last good step, the anomaly timeline, the
   tail of the health history, and the emergency checkpoint.
 
-Exit codes: 0 rendered, 2 a usage or parse error. The live views of the
-reference (``top``, ``watch``, ``timeline``, ``prof``) wait for the export
-plane (ROADMAP Queue A 7b).
+Exit codes: 0 rendered (``watch``: no violation), 1 a violation, 2 a usage
+or parse error. ``timeline`` and ``prof`` are ROADMAP Queue A 7b item 5.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import math
 import os
 import sys
 
+from rocket_tpu_torch.obs.export import merge_rank_records, read_telemetry_dir
 from rocket_tpu_torch.obs.flight import BLACKBOX_FILE
 from rocket_tpu_torch.obs.goodput import CATEGORIES, render_report
 from rocket_tpu_torch.obs.registry import estimate_quantiles
@@ -160,6 +170,178 @@ def render_blackbox(manifest: dict, bundle_dir: str) -> str:
     return "\n".join(out)
 
 
+def render_supervisor(doc: dict) -> str:
+    """A ``supervisor.json`` (``launch --supervise``): the headline goodput
+    under failures and one line per generation."""
+    out = [f"supervisor: outcome={doc.get('outcome')} restarts={doc.get('restarts', 0)} "
+           f"drain_events={doc.get('drain_events', 0)} "
+           f"goodput_fraction={_num(doc.get('goodput_fraction'))} "
+           f"(productive {_num(doc.get('productive_wall_s'))}s of "
+           f"{_num(doc.get('total_wall_s'))}s)",
+           f"  {'gen':>4} {'nproc':>5} {'outcome':<10} {'duration_s':>10} {'productive_s':>12} "
+           f"{'rc':>5} {'ckpt_step':>9}"]
+    for gen in doc.get("generations", []):
+        out.append(f"  {gen.get('gen', '?'):>4} {gen.get('nproc', '?'):>5} "
+                   f"{gen.get('outcome', '?'):<10} {_num(gen.get('duration_s')):>10} "
+                   f"{_num(gen.get('productive_s')):>12} {str(gen.get('rc')):>5} "
+                   f"{str(gen.get('ckpt_step')):>9}")
+    return "\n".join(out)
+
+
+def _latest_per_rank(path: str) -> dict:
+    """Each rank's newest shard record under a run or telemetry dir."""
+    return {rank: records[-1] for rank, records in read_telemetry_dir(path).items() if records}
+
+
+def _slo_rows(latest: dict) -> list:
+    """``(slo, rank, burn_rate, violated)`` from the ``obs/slo/<name>/*``
+    gauges the live exporter writes into each shard record."""
+    rows = []
+    for rank in sorted(latest):
+        gauges = (latest[rank].get("metrics") or {}).get("gauges") or {}
+        for name, value in sorted(gauges.items()):
+            if name.startswith("obs/slo/") and name.endswith("/burn_rate"):
+                slo = name[len("obs/slo/"):-len("/burn_rate")]
+                rows.append((slo, rank, value, bool(gauges.get(f"obs/slo/{slo}/violated", 0.0))))
+    return sorted(rows, key=lambda r: (r[0], r[1]))
+
+
+def render_top(latest: dict) -> str:
+    """One frame of the cross-rank view over each rank's newest record."""
+    import time
+
+    merged = merge_rank_records(latest)
+    now = time.time()
+    out = [f"obs top — {len(latest)} rank(s)",
+           f"  {'rank':>4} {'hostname':<20} {'pid':>7} {'seq':>6} {'uptime_s':>9} {'age_s':>6} "
+           f"{'goodput':>8}"]
+    for rank in sorted(latest):
+        rec = latest[rank]
+        goodput = (rec.get("goodput") or {}).get("goodput_fraction")
+        out.append(f"  {rank:>4} {str(rec.get('hostname', '?'))[:20]:<20} {rec.get('pid', '?'):>7} "
+                   f"{rec.get('seq', '?'):>6} {_num(rec.get('uptime_s')):>9} "
+                   f"{now - rec.get('t_unix', now):>6.1f} {_num(goodput):>8}")
+    if merged["counters"]:
+        out += ["", "counters (summed across ranks):"]
+        out += [f"  {n:<40} {merged['counters'][n]:g}" for n in sorted(merged["counters"])]
+    if merged["gauges"]:
+        out += ["", "gauges (spread across ranks):",
+                f"  {'name':<40} {'mean':>10} {'min':>10} {'max':>10} {'skew':>6}  slowest"]
+        for name in sorted(merged["gauges"]):
+            stat = merged["gauges"][name]
+            # The arg-max rank: for a duration or depth the biggest value is
+            # the rank holding the fleet back.
+            out.append(f"  {name:<40} {_num(stat['mean']):>10} {_num(stat['min']):>10} "
+                       f"{_num(stat['max']):>10} {_num(stat['skew'], 3):>6}  "
+                       f"rank {stat['max_rank']}")
+    rows = _slo_rows(latest)
+    if rows:
+        out += ["", "slo (per rank, from obs/slo/* gauges):",
+                f"  {'name':<32} {'rank':>4} {'burn_rate':>10}  status"]
+        out += [f"  {name:<32} {rank:>4} {_num(burn):>10}  {'VIOLATED' if bad else 'ok'}"
+                for name, rank, burn, bad in rows]
+    if merged["histograms"]:
+        out += ["", "histograms (merged):"]
+        for name in sorted(merged["histograms"]):
+            hist = merged["histograms"][name]
+            q = estimate_quantiles(hist)
+            mean = hist.get("mean")
+            out.append(f"  {name:<40} count={hist.get('count', 0)}"
+                       + (f" mean={mean:.4g}" if mean is not None else "")
+                       + "".join(f" {k}={q[k]:.4g}" for k in ("p50", "p90", "p99") if k in q))
+    return "\n".join(out)
+
+
+def _top(args) -> int:
+    latest = _latest_per_rank(args.path)
+    if not latest:
+        print(f"error: no telemetry shards (rank*.jsonl) under {args.path} — is the run "
+              "exporting? (ROCKET_TPU_EXPORT=1 / Runtime(export=True))", file=sys.stderr)
+        return 2
+    if args.once:
+        print(render_top(latest))
+        return 0
+    import time
+
+    try:
+        while True:
+            sys.stdout.write("\x1b[2J\x1b[H" + render_top(_latest_per_rank(args.path)) + "\n")
+            sys.stdout.flush()
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def _processes(records: list) -> list:
+    """A rank's shard split into its processes' runs of records (a
+    supervised rank appends one run per generation to the same shard)."""
+    runs: list = []
+    for record in records:
+        if not runs or record.get("pid") != runs[-1][-1].get("pid"):
+            runs.append([])
+        runs[-1].append(record)
+    return runs
+
+
+def _watch(args) -> int:
+    from rocket_tpu_torch.obs.slo import SLOEvaluator, load_slo_specs
+
+    try:
+        specs = load_slo_specs(args.slo)
+    except (OSError, ValueError, NotImplementedError) as exc:
+        print(f"error: cannot load SLO specs from {args.slo!r}: {exc}", file=sys.stderr)
+        return 2
+    shards = read_telemetry_dir(args.path)
+    if not shards:
+        print(f"error: no telemetry shards (rank*.jsonl) under {args.path}", file=sys.stderr)
+        return 2
+    violated: dict = {}
+    evaluated = 0
+    for rank in sorted(shards):
+        for records in _processes(shards[rank]):
+            # One evaluator a process: its burn-rate windows and warmup are
+            # that process's, as its live exporter computed them.
+            evaluator = SLOEvaluator(specs)
+            for record in records:
+                evaluated += 1
+                for status in evaluator.observe(record.get("t_unix", 0.0),
+                                                record.get("metrics") or {},
+                                                record.get("goodput") or {}):
+                    if status.violated:
+                        violated[f"{status.name}@rank{rank}"] = {
+                            "rank": rank, "name": status.name, "burn_rate": status.burn_rate,
+                            "value": status.value, "objective": status.objective}
+    print(f"obs watch — {len(specs)} SLO(s) [{', '.join(s.name for s in specs)}] over "
+          f"{len(shards)} rank shard(s), {evaluated} record(s)")
+    if not violated:
+        print("all SLOs within objective")
+        return 0
+    for key in sorted(violated):
+        v = violated[key]
+        print(f"VIOLATION {v['name']} (rank {v['rank']}): burn_rate={_num(v['burn_rate'])} "
+              f"value={_num(v['value'])} objective={_num(v['objective'])}")
+    return 1
+
+
+def _report_from_shards(path: str) -> int:
+    """``report`` of a run dir with no ``telemetry.json``: a worker killed
+    before its teardown still left its streaming shards."""
+    latest = _latest_per_rank(path)
+    if not latest:
+        print(f"error: no telemetry.json and no streaming shards under {path}", file=sys.stderr)
+        return 2
+    if len(latest) == 1:
+        (rank, record), = latest.items()
+        print(f"(reconstructed from streaming shards: rank {rank} seq {record.get('seq')}, no "
+              "telemetry.json — worker died before DESTROY?)")
+        print(render_telemetry({"goodput": record.get("goodput") or {},
+                                "metrics": record.get("metrics") or {}}))
+        return 0
+    print("(reconstructed from streaming shards — no telemetry.json)")
+    print(render_top(latest))
+    return 0
+
+
 def _load(path: str):
     try:
         with open(path, "r", encoding="utf-8") as f:
@@ -174,11 +356,24 @@ def main(argv=None) -> int:
                                      description="render telemetry records and black-box "
                                                  "bundles")
     sub = parser.add_subparsers(dest="command")
-    sub.add_parser("report", help="render telemetry.json, its run dir or a span file") \
-        .add_argument("path")
+    sub.add_parser("report", help="render telemetry.json, supervisor.json, a run dir (falling "
+                   "back to its streaming shards) or a span file").add_argument("path")
+    top = sub.add_parser("top", help="cross-rank live view over a run's streaming shards")
+    top.add_argument("path", help="run dir (or its telemetry/ dir) holding rank*.jsonl")
+    top.add_argument("--once", action="store_true", help="render one frame and exit")
+    top.add_argument("--interval", type=float, default=2.0, help="refresh seconds (default: 2)")
+    watch = sub.add_parser("watch", help="evaluate SLO specs over a run's streaming shards; "
+                           "exit 1 on a violation")
+    watch.add_argument("path", help="run dir (or its telemetry/ dir) holding rank*.jsonl")
+    watch.add_argument("--slo", required=True, metavar="SPEC",
+                       help="SLO spec file (rocket_tpu_torch.obs.slo grammar) or default:train")
     sub.add_parser("blackbox", help="render a flight-recorder bundle") \
         .add_argument("path", help=f"bundle directory or its {BLACKBOX_FILE}")
     args = parser.parse_args(argv)
+    if args.command == "top":
+        return _top(args)
+    if args.command == "watch":
+        return _watch(args)
     if args.command not in ("report", "blackbox"):
         parser.print_help()
         return 2
@@ -195,12 +390,31 @@ def main(argv=None) -> int:
         print(render_blackbox(manifest, bundle_dir))
         return 0
     if os.path.isdir(path):
-        path = os.path.join(path, "telemetry.json")
+        # A run dir: the teardown's record, else the supervisor's, else the
+        # live exporter's shards (all a worker killed early leaves).
+        names = [n for n in ("telemetry.json", "supervisor.json")
+                 if os.path.exists(os.path.join(path, n))]
+        if not names:
+            return _report_from_shards(path)
+        path = os.path.join(path, names[0])
     doc = _load(path)
     if doc is None:
         return 2
+    if isinstance(doc, dict) and "generations" in doc and "goodput" not in doc:
+        print(render_supervisor(doc))
+        return 0
     if isinstance(doc, dict) and "goodput" in doc:
-        print(render_telemetry(doc))
+        out = render_telemetry(doc)
+        # A supervised run keeps supervisor.json beside (or above) its record.
+        here = os.path.dirname(os.path.abspath(path))
+        for candidate in (os.path.join(here, "supervisor.json"),
+                          os.path.join(os.path.dirname(here), "supervisor.json")):
+            if os.path.exists(candidate):
+                sup = _load(candidate)
+                if isinstance(sup, dict):
+                    out += "\n\n" + render_supervisor(sup)
+                break
+        print(out)
         return 0
     try:
         events = load_chrome_trace(path)

@@ -11,7 +11,11 @@ Checkpointer its saves to ``checkpoint`` and the Tracker its flushes to
 ``flush``. Off (the default) it is inert: :meth:`Telemetry.span` hands back
 one shared no-op context. On, it is host arithmetic only; the files
 (``telemetry.json`` and the Chrome trace ``spans.trace.json``) are written
-once, at the end of the run (``Runtime.end_training``).
+once, at the end of the run (``Runtime.end_training``), and the live export
+plane (:meth:`Telemetry.start_export`, ``obs/export.py``) streams the
+registry to shards and ``/metrics`` while it runs. Under a supervisor
+(``escalation_exit_code``) a wedged step's escalation exits the process
+after the black box is written, so the supervisor restarts it.
 
 No compile listener: the reference counts XLA compile events through
 ``jax.monitoring``; eager PyTorch has no compile step to count, and
@@ -102,6 +106,13 @@ class Telemetry:
         #: health monitor (None otherwise; every use checks).
         self.flight = None
         self.health = None
+        #: The live export plane (``obs/export.TelemetryExporter``), attached
+        #: by :meth:`start_export`; None keeps the run post-hoc only.
+        self.exporter = None
+        #: Set by the Runtime under a supervisor (``EXIT_WEDGED``): the
+        #: watchdog's escalation then exits with this code after the black
+        #: box is written. None keeps escalation diagnostic only.
+        self.escalation_exit_code: Optional[int] = None
         self.watchdog: Optional[Watchdog] = None
         if self.enabled and watchdog_secs is not None:
             self.watchdog = Watchdog(watchdog_secs, on_stall=self._on_stall,
@@ -122,11 +133,17 @@ class Telemetry:
             self.watchdog.identity = self.identity
             self.watchdog.start()
 
-    def start_export(self, config=None, default_dir: Optional[str] = None) -> None:
-        """The live export plane (metric shards, ``/metrics``, SLO burn
-        rates) is not ported yet."""
-        raise NotImplementedError("Telemetry.start_export: the live export plane is not ported "
-                                  "yet (ROADMAP Queue A 7b)")
+    def start_export(self, config, default_dir: Optional[str] = None) -> None:
+        """Attach and start the live export plane (shards, ``/metrics``, SLO
+        burn rates) as ``config`` (an ``obs/export.ExportConfig``) asks. A
+        no-op when the config is inactive or telemetry is off; once only."""
+        if not self.enabled or self.exporter is not None or not getattr(config, "active", False):
+            return
+        from rocket_tpu_torch.obs.export import TelemetryExporter
+
+        self.exporter = TelemetryExporter(self, config, identity=self.identity,
+                                          default_dir=default_dir, logger=self._logger)
+        self.exporter.start()
 
     # -- spans -------------------------------------------------------------------
 
@@ -169,9 +186,18 @@ class Telemetry:
     def _on_escalation(self, report: str) -> None:
         """Several deadline windows in a row without a wave: the run is
         wedged, not slow, so the black box is written now (it survives a
-        later kill)."""
+        later kill). Under a supervisor the process then exits with
+        ``escalation_exit_code``: the wedged main thread cannot be unwound
+        from the watchdog's thread, so ``os._exit`` skips every ``finally``
+        on purpose and the supervisor restarts the worker."""
         if self.flight is not None:
             self.flight.dump("watchdog_stall", extra={"report": report})
+        if self.escalation_exit_code is not None:
+            if self._logger is not None:
+                self._logger.error("watchdog escalation under supervision: exiting with code %d "
+                                   "so the supervisor restarts this worker",
+                                   self.escalation_exit_code)
+            os._exit(self.escalation_exit_code)
 
     def exception_dump(self, exc: BaseException, **context) -> None:
         """A bundle for an exception escaping a Looper. A
@@ -211,6 +237,16 @@ class Telemetry:
         self.registry.record_device_memory()
         self._publish_goodput()
         return self.registry.scalars()
+
+    def live_snapshot(self) -> dict:
+        """The registry's snapshot with the goodput fractions (and the
+        headline ``goodput/goodput_fraction``) published first: what
+        ``/metrics`` and the shards serve. No allocator query: a scrape
+        stays host arithmetic."""
+        if self.enabled:
+            report = self._publish_goodput()
+            self.registry.gauge("goodput/goodput_fraction").set(report["goodput_fraction"])
+        return self.registry.snapshot()
 
     def summary(self) -> dict:
         """What ``telemetry.json`` holds."""
@@ -265,6 +301,10 @@ class Telemetry:
         if self._closed:
             return
         self._closed = True
+        if self.exporter is not None:
+            # The last shard record and the endpoint's teardown come first:
+            # the last snapshot a reader sees is the one telemetry.json keeps.
+            self.exporter.stop()
         if self.enabled and self.spans.dropped and self._logger is not None:
             self._logger.warning("telemetry: %d span(s) dropped (max_span_events=%d) — the "
                                  "trace file is incomplete", self.spans.dropped,

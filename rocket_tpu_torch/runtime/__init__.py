@@ -4,8 +4,10 @@ plane (telemetry, health, flight recorder, :class:`StrictMode`), and the
 one helper every deliberate host transfer goes through
 (:func:`explicit_transfer`) — the counterpart of
 ``rocket_tpu/runtime/context.py`` without the mesh and the process group
-(ROADMAP Queue A 3 and 6) and the live export plane (Queue A 7b).
-``checkpoint_io`` holds the checkpoint file format."""
+(ROADMAP Queue A 3 and 6). The Runtime also holds the resilience plumbing
+(the drain flag, the fault injector, the live Checkpointers) and starts
+the live export plane. ``checkpoint_io`` holds the checkpoint file
+format."""
 
 from __future__ import annotations
 
@@ -251,12 +253,26 @@ class Runtime:
     (``ROCKET_TPU_TELEMETRY``), ``telemetry_dir`` and ``watchdog_secs``
     (``ROCKET_TPU_WATCHDOG``); ``health`` and ``anomaly_action``
     (``ROCKET_TPU_HEALTH=1|warn|skip_step|dump_and_halt``),
-    ``blackbox_steps`` and ``health_fetch_lag``. ``health=True`` or a
-    ``watchdog_secs`` implies telemetry. The health monitor always exists,
-    inert when off. The live export plane's arguments (``export``,
-    ``export_interval_s``, ``metrics_port``, ``slo``, and
-    ``ROCKET_TPU_EXPORT`` / ``ROCKET_TPU_METRICS_PORT``) raise
-    NotImplementedError when set (ROADMAP Queue A 7b)."""
+    ``blackbox_steps`` and ``health_fetch_lag``; the live export plane's
+    ``export`` (``ROCKET_TPU_EXPORT``: truthy, or a number that also sets
+    the interval), ``export_interval_s``, ``metrics_port``
+    (``ROCKET_TPU_METRICS_PORT``; ``/metrics`` on that port plus the rank,
+    0 for an ephemeral one) and ``slo`` (``ROCKET_TPU_SLO``: a spec file or
+    ``default:train``). ``health=True``, a ``watchdog_secs`` or an active
+    export implies telemetry. The health monitor always exists, inert when
+    off.
+
+    Resilience (the reference's ``context.py:575-610``): ``drain`` is the
+    :class:`~rocket_tpu_torch.resilience.faults.DrainState` every Looper
+    polls at wave boundaries; ``checkpointers`` the live Checkpointers
+    (their setup and destroy keep it), which a drain in a phase without
+    one saves through; ``faults`` the injector of ``ROCKET_TPU_FAULTS``
+    (None without a plan); ``supervised`` whether
+    ``ROCKET_TPU_SUPERVISED`` is set, which arms the watchdog's
+    ``EXIT_WEDGED`` escalation. The SIGTERM (and first SIGINT) drain
+    handler is installed only when supervised or under
+    ``ROCKET_TPU_DRAIN=1``: a library does not take an application's
+    signals unasked."""
 
     #: Most recently constructed Runtime (the ambient context).
     _current: Optional["Runtime"] = None
@@ -275,15 +291,6 @@ class Runtime:
                  health_fetch_lag: int = 2, export: Optional[bool] = None,
                  export_interval_s: Optional[float] = None, metrics_port: Optional[int] = None,
                  slo: Optional[str] = None) -> None:
-        live = {"export": export, "export_interval_s": export_interval_s,
-                "metrics_port": metrics_port, "slo": slo,
-                "ROCKET_TPU_EXPORT": os.environ.get("ROCKET_TPU_EXPORT") or None,
-                "ROCKET_TPU_METRICS_PORT": os.environ.get("ROCKET_TPU_METRICS_PORT") or None}
-        asked = [name for name, value in live.items() if value not in (None, False)]
-        if asked:
-            raise NotImplementedError(f"Runtime: {', '.join(asked)}: the live export plane "
-                                      "(metric shards, /metrics, SLOs) is not ported yet "
-                                      "(ROADMAP Queue A 7b)")
         if gradient_accumulation_steps < 1:
             raise RuntimeError("gradient_accumulation_steps must be >= 1")
         self.device = resolve_device(device)
@@ -303,15 +310,21 @@ class Runtime:
         self.trackers: dict = {}
         self._checkpoint_stack: list = []
         self.project_dir = project_dir
+        from rocket_tpu_torch.obs.export import ExportConfig
+
+        export_config = ExportConfig.from_env(enabled=export, interval_s=export_interval_s,
+                                              metrics_port=metrics_port, slo_path=slo)
         self._init_ops(strict, strict_transfer_guard, strict_max_retraces, telemetry,
                        telemetry_dir, watchdog_secs, health, anomaly_action, blackbox_steps,
-                       health_fetch_lag)
+                       health_fetch_lag, export_config)
+        self._init_resilience()
         Runtime._current = self
 
     def _init_ops(self, strict, transfer_guard, max_retraces, telemetry, telemetry_dir,
-                  watchdog_secs, health, anomaly_action, blackbox_steps, fetch_lag) -> None:
+                  watchdog_secs, health, anomaly_action, blackbox_steps, fetch_lag,
+                  export_config) -> None:
         """The ops plane, resolved as the reference resolves it
-        (``context.py:454-560``): arguments over environment variables."""
+        (``context.py:454-573``): arguments over environment variables."""
         from rocket_tpu_torch.obs import FlightRecorder, HealthConfig, HealthMonitor, Telemetry
         from rocket_tpu_torch.obs.export import host_identity
         from rocket_tpu_torch.obs.health import ANOMALY_ACTIONS
@@ -323,10 +336,10 @@ class Runtime:
         if anomaly_action is None:
             anomaly_action = env_health if env_health in ANOMALY_ACTIONS else "warn"
         if telemetry is None:
-            # A watchdog or health is an explicit ask for what lives inside
-            # telemetry, so it implies it.
-            telemetry = watchdog_secs is not None or bool(health) or _env_flag(
-                "ROCKET_TPU_TELEMETRY")
+            # A watchdog, health or live export is an explicit ask for what
+            # lives inside telemetry, so it implies it.
+            telemetry = (watchdog_secs is not None or bool(health) or export_config.active
+                         or _env_flag("ROCKET_TPU_TELEMETRY"))
         elif not telemetry and watchdog_secs is not None:
             self.get_logger("runtime").warning(
                 "watchdog_secs=%s ignored: telemetry=False turns the whole ops plane off, "
@@ -349,12 +362,40 @@ class Runtime:
         self.telemetry.flight, self.telemetry.health = self.flight, self.health
         self.telemetry.identity = host_identity(self.process_index)
         self.telemetry.start()
+        self.telemetry.start_export(export_config,
+                                    default_dir=os.path.join(self.project_dir, "runs", "telemetry"))
         self.strict = StrictMode(transfer_guard=transfer_guard, max_retraces=max_retraces)
         self.strict.telemetry = self.telemetry
         if strict is None:
             strict = _env_flag("ROCKET_TPU_STRICT")
         if strict:
             self.strict.activate()
+
+    def _init_resilience(self) -> None:
+        """The drain flag, the live Checkpointers, the fault injector and,
+        under a supervisor, the escalation exit and the signal drain (the
+        reference's ``context.py:575-610``)."""
+        from rocket_tpu_torch.resilience.faults import (
+            DRAIN_ENV,
+            EXIT_WEDGED,
+            SUPERVISED_ENV,
+            DrainState,
+            FaultInjector,
+            env_truthy,
+            install_signal_drain,
+        )
+
+        logger = self.get_logger("resilience")
+        self.drain = DrainState()
+        self.checkpointers: list = []
+        self.faults = FaultInjector.from_env(process_index=self.process_index, logger=logger)
+        if self.faults is not None:
+            self.faults.install()
+        self.supervised = env_truthy(SUPERVISED_ENV)
+        if self.supervised:
+            self.telemetry.escalation_exit_code = EXIT_WEDGED
+        if self.supervised or env_truthy(DRAIN_ENV):
+            install_signal_drain(self.drain, logger=logger)
 
     # -- processes ------------------------------------------------------------
 

@@ -15,8 +15,11 @@ Examples::
     python -m rocket_tpu_torch.serve run --requests 20 --max-new-tokens 24
     python -m rocket_tpu_torch.serve run --config charlm --checkpoint checkpoints/char_lm --stdin
 
-The telemetry/SLO/trace flags and the ``report`` subcommand of the JAX
-CLI come with the live export plane (ROADMAP Queue A 7b).
+The reference's export, SLO and trace flags (``--export``,
+``--export-interval``, ``--metrics-port``, ``--slo``, ``--no-reqtrace``,
+``--trace-steps``, ``--trace-dir``) are accepted and raise: they come with
+the serve engine's telemetry and request tracing (ROADMAP Queue A 7b item
+4), as does the ``report`` subcommand.
 """
 
 from __future__ import annotations
@@ -141,7 +144,23 @@ def main(argv=None) -> int:
         p.add_argument("--show", type=int, default=2, help="stream the first N requests")
         p.add_argument("--stdin", action="store_true",
                        help="read prompts from stdin (one per line)")
-    return _run(parser.parse_args(argv))
+        for flag, kw in _QUEUED_FLAGS.items():
+            p.add_argument(flag, **kw, help="not ported yet (ROADMAP Queue A 7b item 4)")
+    args = parser.parse_args(argv)
+    asked = [flag for flag in _QUEUED_FLAGS
+             if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
+    if asked:
+        raise NotImplementedError(f"serve: {', '.join(asked)}: the serve engine's export, SLO "
+                                  "and request-trace plane is not ported yet (ROADMAP Queue A 7b "
+                                  "item 4)")
+    return _run(args)
+
+
+#: The reference CLI's export, SLO and trace flags, accepted to raise.
+_QUEUED_FLAGS = {"--export": {"action": "store_true"}, "--export-interval": {"type": float},
+                 "--metrics-port": {"type": int}, "--slo": {"default": None},
+                 "--no-reqtrace": {"action": "store_true"}, "--trace-steps": {"default": None},
+                 "--trace-dir": {"default": None}}
 
 
 if __name__ == "__main__":

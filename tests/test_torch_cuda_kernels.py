@@ -1359,3 +1359,26 @@ def test_bad_scale_whole_array_launch_is_refused(cuda):
     y = tbp.bad_scale(x, (8, 128), (512, 32))
     torch.cuda.synchronize()
     assert torch.equal(y, x * 2.0)
+
+
+@pytest.mark.cuda
+def test_a_poisoned_cuda_batch_stays_on_the_card_and_is_all_nan(cuda):
+    """The fault injector's poison of a device-resident batch: each floating
+    leaf becomes a NaN tensor made on its own card (no upload, so the sync
+    guard stays quiet), its integer leaves untouched."""
+    from rocket_tpu_torch.resilience.faults import FaultInjector, FaultPlan
+
+    batch = {"image": torch.ones(8, 1, 28, 28, device=cuda),
+             "half": torch.ones(4, device=cuda, dtype=torch.bfloat16),
+             "label": torch.arange(8, device=cuda)}
+    inj = FaultInjector(FaultPlan.parse("poison:step=1"))
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = inj.poison_hook(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    for key in ("image", "half"):
+        assert out[key].device == batch[key].device and out[key].dtype == batch[key].dtype
+        assert out[key].shape == batch[key].shape and bool(torch.isnan(out[key]).all())
+    assert out["label"] is batch["label"] and inj.fired == ("poison@batch[1]",)

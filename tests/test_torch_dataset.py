@@ -267,3 +267,28 @@ def test_mid_epoch_resume_on_the_device_cache(shuffle):
     assert batches(2, "train") == whole[2:]
     assert batches(2, "eval") == whole
     assert whole == _reference(10, shuffle, False, 1, 1)[1]
+
+
+@pytest.mark.parametrize("device_cache", [True, False])
+def test_a_resume_at_the_epochs_end_leaves_the_next_epoch_whole(device_cache):
+    """A checkpoint saved in an epoch's last wave resumes with the Dataset's
+    position at the epoch's end: that epoch's pass is set up but never
+    advanced (no wave is left), and the next epoch's pass is whole. The
+    pending skip belongs to the pass it was set for."""
+    def epochs(batch_idx):
+        ds = rt.Dataset(_Indices(10), batch_size=4, shuffle=True, device_cache=device_cache)
+        ds.bind(rt.Runtime(device="cpu", seed=1))
+        ds.load_state_dict({"batch_idx": batch_idx})
+        ds.set(Attributes(mode="train", launcher=Attributes(epoch_idx=1)))
+        ds.reset(Attributes())
+        ds.set(Attributes(mode="train", launcher=Attributes(epoch_idx=2)))
+        assert ds.device_resident is device_cache
+        out = []
+        while True:
+            attrs = Attributes(looper=Attributes())
+            ds.launch(attrs)
+            if attrs.looper.terminate:
+                return out
+            out.append(attrs.batch_info.index)
+
+    assert epochs(3) == epochs(0) == [0, 1, 2]
