@@ -24,12 +24,20 @@ through the tables it wrote (their launches counted there: no model path
 reaches them). Then the
 main paths, each with the kernel launch counts zeroed just before it and
 read just after: serving GPT-2 124M (random weights from a fixed seed,
-bf16) through ``ServeEngine``; ``generate()`` with the KV cache; training
+bf16) through ``ServeEngine``; the same requests again under the serve
+half of the ops plane (telemetry, the request tracer, the exporter with
+``/metrics`` and ``default:serve``, a ``torch.profiler`` window over ten
+ticks parsed by correlation id; the tokens bitwise the first run's, strict
+mode on every tick outside the window) and the serve CLI with its export,
+SLO and trace flags, ``serve report``, ``obs timeline`` and ``obs prof``;
+``generate()`` with the KV cache; training
 GPT-2 124M through ``examples.gpt2``'s capsule tree (the flash forward and
 fused backward; every train path below reads its batches from the
 device-resident cache), with a ``torch.profiler`` window over its last steps; a
 longer-context run whose dq partial buffer passes the byte bound (the
-accumulating dq kernel); saving and restoring that GPT-2 train state.
+accumulating dq kernel); saving and restoring that GPT-2 train state
+(in the JAX package's layout: optax's ``opt_state``, int32 step, uint32[2]
+key data).
 Then the char-LM slice with ``ROCKET_TPU_BLOCK_ATTN=fused``, in a temporary
 directory: ``examples.char_lm`` trains one epoch and checkpoints (the
 fused-block kernel, separate epilogue), a resumed run against an
@@ -85,7 +93,8 @@ rocket_tpu_torch.launch --supervise`` while a fault plan kills, wedges and
 preempts its generations (each resuming from the last complete checkpoint,
 the last draining on SIGTERM), exporting metric shards and ``/metrics``
 judged by ``default:train``, then resumed to its last step: params and
-both moments bitwise those of an uninterrupted run; and LeNet under strict
+both moments bitwise those of an uninterrupted run, which traces a window
+of three steps into its telemetry's ``obs/prof/*`` gauges; and LeNet under strict
 mode and ``skip_step`` with one batch poisoned on the card. Last, rows 9-10
 against their plain versions at f16, C = 3, C = 12 and C = 4096 (two
 channel chunks).
@@ -1399,8 +1408,293 @@ def serve_phase(model, params, card):
          tokens_per_s=rep["tokens_per_sec"], wall_s=wall,
          ttft_p50_s=ttft["p50"], ttft_p99_s=ttft["p99"],
          itl_p50_s=itl["p50"], itl_p99_s=itl["p99"], card=card)
+    SERVE_RUN.update(tokens=[list(engine.result(r).tokens) for r in rids], report=rep)
     profile_serve(engine, model.config.vocab_size, card)
     return launches
+
+
+#: The ``serve`` phase's greedy tokens and report, which ``serve_obs`` holds
+#: its run against.
+SERVE_RUN: dict = {}
+#: ``serve_obs``'s trace window over engine ticks (after the warmup's reset).
+SERVE_OBS_WINDOW = (40, 50)
+
+
+def serve_obs_phase(model, params, card):
+    """GPT-2 124M at ``serve``'s shapes (8 slots, the same 16 greedy
+    requests, 64 new tokens, the same warmup) under the serve half of the
+    ops plane: an enabled Telemetry, the request tracer, the exporter
+    ticking every 0.5 s with ``/metrics`` on an ephemeral port and
+    ``default:serve`` evaluated, and a ``capture_trace`` window over ticks
+    :data:`SERVE_OBS_WINDOW`. Every tick outside the window runs under
+    strict mode. Holds: the tokens bitwise ``serve``'s; 16 timelines in
+    ``reqtrace.jsonl`` whose phases sum to their end-to-end time within 1%,
+    exemplars written; a live scrape's ``rocket_tpu_serve_itl_s`` count
+    equal to the tokens after each request's first; ``obs watch --slo
+    default:serve`` exits 0; the window's ``paged_decode`` launches as
+    parsed from its trace equal to the launch counter's change over it (12
+    a wave), and its device total within 1% of the profiler's own."""
+    import urllib.request
+
+    from rocket_tpu_torch.obs import prof as prof_lib
+    from rocket_tpu_torch.obs.export import ExportConfig
+    from rocket_tpu_torch.obs.telemetry import Telemetry
+    from rocket_tpu_torch.runtime import StrictMode
+
+    root = Path(tempfile.mkdtemp(prefix="serve_obs_"))
+    tel = Telemetry(enabled=True, out_dir=str(root))
+    tel.start()
+    tel.start_export(ExportConfig(enabled=True, interval_s=0.5, metrics_port=0,
+                                  slo_path="default:serve"), default_dir=str(root))
+    try:
+        engine = ServeEngine(model, params, ServeConfig(max_slots=8, block_len=16,
+                                                        prefill_chunk=64),
+                             telemetry=tel, generator=torch.Generator().manual_seed(0))
+        warm = [engine.submit(np.arange(40, dtype=np.int32), max_new_tokens=4) for _ in range(2)]
+        engine.drain()
+        require(all(engine.result(r).finished for r in warm), "serve_obs warmup did not finish")
+        engine.reset_metrics()
+        start, stop = SERVE_OBS_WINDOW
+        engine.capture_trace((start, stop), str(root / "traces"))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, model.config.vocab_size, size=int(n)).astype(np.int32)
+                   for n in rng.integers(32, 513, size=16)]
+        zero_launches()
+        strict = StrictMode()
+        rids = [engine.submit(p, max_new_tokens=64, temperature=0.0) for p in prompts]
+        tick_ms = {"outside": [], "window": []}
+        marks = {}
+        t0 = time.perf_counter()
+        while not engine.scheduler.idle:
+            tick = engine._ticks
+            if tick in (start, stop):
+                marks[tick] = (pa.paged_decode.launches, engine.engine.decode_waves)
+            inside = start <= tick <= stop  # the ticks that open and close the window too
+            if not inside:
+                strict.activate()
+            t1 = time.perf_counter()
+            try:
+                engine.step()
+            finally:
+                strict.deactivate()
+            tick_ms["window" if inside else "outside"].append((time.perf_counter() - t1) * 1e3)
+        engine.finish_trace()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(engine.trace_file is not None and set(marks) == {start, stop},
+                f"serve_obs: the trace window did not open and close ({marks})")
+        tokens = [list(engine.result(r).tokens) for r in rids]
+        require(tokens == SERVE_RUN["tokens"], "serve_obs: the ops plane changed the tokens: "
+                f"{sum(a != b for a, b in zip(tokens, SERVE_RUN['tokens']))} requests differ")
+        rep = engine.report()
+        after_first = sum(len(t) - 1 for t in tokens)
+        port = tel.exporter.server.port
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10).read()
+        count = [line for line in body.decode().splitlines()
+                 if line.startswith("rocket_tpu_serve_itl_s_count")]
+        require(count and float(count[0].split()[-1]) == after_first,
+                f"serve_obs: scraped {count}, want {after_first} ITL samples")
+        launches = pa.paged_decode.launches
+    finally:
+        tel.close()
+    session = engine.trace_session
+    summary = prof_lib.parse_trace(prof_lib.load_trace_events(engine.trace_file))
+    window_launches = marks[stop][0] - marks[start][0]
+    window_waves = marks[stop][1] - marks[start][1]
+    parsed = summary.step_launches("paged_decode")
+    layers = model.config.num_layers
+    require(parsed == window_launches == layers * window_waves and window_waves > 0,
+            f"serve_obs: parsed {parsed} paged_decode launches, counter {window_launches}, "
+            f"{window_waves} waves in the window")
+    own_s = sum(_device_s_by_name(_device_events(session.last_profile)).values())
+    parsed_s = summary.device_total_us * 1e-6
+    require(own_s > 0 and abs(parsed_s - own_s) <= 0.01 * own_s,
+            f"serve_obs: parsed device time {parsed_s} s vs the profiler's {own_s} s")
+    lines = [json.loads(x) for x in (root / "telemetry" / "reqtrace.jsonl").read_text()
+             .splitlines()]
+    mine = [r for r in lines if r["rid"] in set(rids)]
+    require(sorted(r["rid"] for r in mine) == sorted(rids),
+            f"serve_obs: reqtrace.jsonl holds {sorted(r['rid'] for r in mine)}")
+    worst = max(abs(sum(r["phases"].values()) - r["total_s"]) / r["total_s"] for r in mine)
+    require(worst <= 0.01, f"serve_obs: phases miss the end-to-end time by {worst:.2%}")
+    exemplars = (root / "telemetry" / "exemplars.jsonl").read_text().splitlines()
+    require(exemplars, "serve_obs: no exemplars")
+    with contextlib.redirect_stdout(io.StringIO()) as watch:
+        watch_rc = obs_main(["watch", "--slo", "default:serve", str(root)])
+    record = prof_lib.prof_record(summary, top=8)
+    base, ttft, itl = SERVE_RUN["report"], rep["time_to_first_token_s"], \
+        rep["inter_token_latency_s"]
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    emit("serve_obs", model="gpt2_124m", dtype="bfloat16", requests=16, new_tokens=64,
+         tokens_bitwise=True, tokens_per_s=rep["tokens_per_sec"], wall_s=wall,
+         ttft_p50_s=ttft["p50"], ttft_p99_s=ttft["p99"], itl_p50_s=itl["p50"],
+         itl_p99_s=itl["p99"], serve_tokens_per_s=base["tokens_per_sec"],
+         serve_ttft_p50_s=base["time_to_first_token_s"]["p50"],
+         serve_ttft_p99_s=base["time_to_first_token_s"]["p99"],
+         serve_itl_p50_s=base["inter_token_latency_s"]["p50"],
+         serve_itl_p99_s=base["inter_token_latency_s"]["p99"],
+         ticks_outside=len(tick_ms["outside"]), tick_ms_outside_median=med(tick_ms["outside"]),
+         ticks_window=len(tick_ms["window"]), tick_ms_window_median=med(tick_ms["window"]),
+         tick_ms_window=tick_ms["window"], tick_ms_outside_top=sorted(tick_ms["outside"])[-5:],
+         cupti_start_s=session.start_s, trace_stop_s=session.stop_s,
+         window=list(SERVE_OBS_WINDOW), window_waves=window_waves,
+         paged_decode_launches=launches, window_paged_decode_launches=window_launches,
+         parsed_paged_decode_launches=parsed, parsed_device_s=parsed_s, profiler_device_s=own_s,
+         prof=record, phases=rep["phases"], itl_samples=after_first,
+         reqtrace_lines=len(lines), exemplar_lines=len(exemplars), strict_ticks=True,
+         obs_watch_rc=watch_rc, obs_watch=watch.getvalue(), card=card)
+    shutil.rmtree(root, ignore_errors=True)
+    require(watch_rc == 0, f"serve_obs: obs watch exited {watch_rc}: {watch.getvalue()[-600:]}")
+    return launches
+
+
+#: ``serve_obs_cost``'s configurations, in the order they run: the plain
+#: engine, then each layer of the serve plane added on top, the plain
+#: engine again (the host's drift over the run), the whole plane with a
+#: trace window over ticks 40-50 (the process's first ``torch.profiler``
+#: session), and the plain engine after it.
+SERVE_PLANE_STEPS = ("plain", "tracer", "telemetry", "export", "strict", "plain_again",
+                     "window", "plain_after_window")
+
+
+def _serve_ticks(engine, prompts, strict=None, window=None) -> dict:
+    """Serve ``prompts`` (64 greedy tokens each) on a warm engine, each tick
+    timed on the host clock (under ``strict`` when given, but for the ticks
+    from ``window``'s start to its stop)."""
+    rids = [engine.submit(p, max_new_tokens=64, temperature=0.0) for p in prompts]
+    ticks, inside = [], []
+    t0 = time.perf_counter()
+    while not engine.scheduler.idle:
+        traced = window is not None and window[0] <= engine._ticks <= window[1]
+        t1 = time.perf_counter()
+        if strict is not None and not traced:
+            strict.activate()
+        try:
+            engine.step()
+        finally:
+            if strict is not None:
+                strict.deactivate()
+        (inside if traced else ticks).append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    rep = engine.report()
+    out = {"wall_s": time.perf_counter() - t0, "tick_ms_median": float(np.median(ticks)) * 1e3,
+           "tokens_per_s": rep["tokens_per_sec"],
+           "itl_p50_s": rep["inter_token_latency_s"]["p50"],
+           "itl_p99_s": rep["inter_token_latency_s"]["p99"],
+           "ttft_p50_s": rep["time_to_first_token_s"]["p50"],
+           "ttft_p99_s": rep["time_to_first_token_s"]["p99"],
+           "tokens": [list(engine.result(r).tokens) for r in rids]}
+    if window is not None:
+        out["tick_ms_window"] = [t * 1e3 for t in inside]
+    return out
+
+
+def serve_obs_cost(timer=None, gen=None):
+    """The serve plane's cost on GPT-2 124M at ``serve``'s shapes, layer by
+    layer in one process (:data:`SERVE_PLANE_STEPS`): the plain engine
+    (``reqtrace=False``), the request tracer, an enabled Telemetry, its
+    exporter (0.5 s ticks, ``/metrics``, ``default:serve``), strict mode on
+    every tick, the plain engine again, all of it with a trace window
+    (:data:`SERVE_OBS_WINDOW`; its ticks apart, CUPTI's cold start and the
+    window's close), and the plain engine after it. Not part of ``main``: run it
+    with ``python -m rocket_tpu_torch.obs.ab --phase serve_obs_cost .``.
+    Returns each step's median tick, tokens/s, ITL and TTFT, and whether
+    its tokens equal the plain run's."""
+    from rocket_tpu_torch.obs.export import ExportConfig
+    from rocket_tpu_torch.obs.telemetry import Telemetry
+    from rocket_tpu_torch.runtime import StrictMode
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    model = TransformerLM(TransformerConfig.gpt2_124m())
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.config.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(32, 513, size=16)]
+    out = {}
+    for step in SERVE_PLANE_STEPS:
+        tel = None
+        if step in ("telemetry", "export", "strict", "window"):
+            tel = Telemetry(enabled=True, out_dir=tempfile.mkdtemp(prefix="serve_cost_"))
+            if step != "telemetry":
+                tel.start_export(ExportConfig(enabled=True, interval_s=0.5, metrics_port=0,
+                                              slo_path="default:serve"))
+        engine = ServeEngine(model, params, ServeConfig(
+            max_slots=8, block_len=16, prefill_chunk=64, reqtrace=not step.startswith("plain")),
+            telemetry=tel, generator=torch.Generator().manual_seed(0))
+        for _ in range(2):
+            engine.submit(np.arange(40, dtype=np.int32), max_new_tokens=4)
+        engine.drain()
+        engine.reset_metrics()
+        window = SERVE_OBS_WINDOW if step == "window" else None
+        if window is not None:
+            engine.capture_trace(window, os.path.join(tel.out_dir, "traces"))
+        out[step] = _serve_ticks(engine, prompts,
+                                 StrictMode() if step in ("strict", "window") else None, window)
+        if window is not None:
+            engine.finish_trace()
+            session = engine.trace_session
+            out[step].update(cupti_start_s=session.start_s, trace_stop_s=session.stop_s)
+        if tel is not None:
+            tel.close(write=False)
+            shutil.rmtree(tel.out_dir, ignore_errors=True)
+        del engine
+        torch.cuda.empty_cache()
+    want = out["plain"].pop("tokens")
+    for step in SERVE_PLANE_STEPS[1:]:
+        out[step]["tokens_equal"] = out[step].pop("tokens") == want
+    emit("serve_obs_cost", model="gpt2_124m", steps=out, card=card)
+    return out
+
+
+def serve_cli_phase(card):
+    """``python -m rocket_tpu_torch.serve run --config charlm --requests 16
+    --export --metrics-port 0 --slo default:serve --trace-steps 4:8
+    --out-dir <tmp>`` as a subprocess on the card, then ``serve report``,
+    ``obs timeline --slowest 3`` and ``obs prof --format json`` over its
+    outputs: all exit 0, and ``prof`` names the ``paged_decode`` kernels
+    among its compute ops."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="serve_cli_"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ROCKET_TPU_")}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    runs = {}
+    try:
+        for name, argv in (
+                ("run", ["-m", "rocket_tpu_torch.serve", "run", "--config", "charlm",
+                         "--requests", "16", "--export", "--metrics-port", "0", "--slo",
+                         "default:serve", "--trace-steps", "4:8", "--out-dir", str(root / "run")]),
+                ("report", ["-m", "rocket_tpu_torch.serve", "report", str(root / "run")]),
+                ("timeline", ["-m", "rocket_tpu_torch.obs", "timeline", str(root / "run"),
+                              "--slowest", "3"]),
+                ("prof", ["-m", "rocket_tpu_torch.obs", "prof", str(root / "run" / "traces"),
+                          "--format", "json", "--top", "200"])):
+            t0 = time.perf_counter()
+            done = subprocess.run([sys.executable, *argv], env=env, cwd=str(root),
+                                  capture_output=True, text=True, timeout=300)
+            runs[name] = {"rc": done.returncode, "s": time.perf_counter() - t0}
+            (out / f"serve_cli_{name}.log").write_text(done.stdout + done.stderr)
+            require(done.returncode == 0, f"serve_cli: {name} exited {done.returncode}: "
+                    f"{(done.stdout + done.stderr)[-1500:]}")
+            runs[name]["stdout"] = done.stdout
+        prof = json.loads(runs["prof"].pop("stdout"))
+        compute = {op["name"] for op in prof["top_ops"] if op["category"] == "compute"}
+        require({"paged_split_kernel", "paged_combine_kernel"} <= compute,
+                f"serve_cli: obs prof's compute ops {sorted(compute)[:12]}")
+        require("serve/itl_s" in runs["report"].pop("stdout"), "serve_cli: report lacks ITL")
+        require(runs["timeline"].pop("stdout").count("request ") >= 3,
+                "serve_cli: obs timeline rendered fewer than 3 requests")
+        text = runs["run"].pop("stdout")
+        served = json.loads(text[text.index('{\n "serve_report"'):])["serve_report"]
+        require(served["requests"]["completed"] == 16, f"serve_cli: {served['requests']}")
+        emit("serve_cli", runs=runs, n_steps=prof["n_steps"], n_slices=prof["n_slices"],
+             categories_us=prof["categories_us"], paged_ops=sorted(
+                 op["name"] for op in prof["top_ops"] if op["module"] == "paged_decode"),
+             tokens_per_s=served["tokens_per_sec"], phases=served["phases"], card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def profile_serve(engine, vocab, card, phase="serve_profile"):
@@ -1698,8 +1992,20 @@ def checkpoint_gpt2_phase(prepared, card):
     require(again.keys() == plan["local"].keys(), "checkpoint_gpt2: leaves differ")
     require(all(np.array_equal(again[k], v) and np.array_equal(flat[k[:-2]], v)
                 for k, v in plan["local"].items()), "checkpoint_gpt2: restore is not bitwise")
+    # The reference's layout (ROADMAP Queue C3): optax's opt_state, an int32
+    # step, uint32[2] key data, and no torch-layout leaf.
+    counts = sorted(k for k in flat if k.startswith("opt_state/") and k.endswith("/count"))
+    require(any(k.startswith("opt_state/0/mu/") for k in flat)
+            and any(k.startswith("opt_state/0/nu/") for k in flat) and counts
+            and not any(k.startswith("optimizer/") for k in flat)
+            and flat["step"].dtype == np.int32 and flat["base_key"].dtype == np.uint32
+            and flat["base_key"].shape == (2,),
+            f"checkpoint_gpt2: not the reference's layout ({sorted(flat)[:6]}...)")
     nbytes = sum(v.nbytes for v in plan["local"].values())
     emit("checkpoint_gpt2", model="gpt2_124m", leaves=len(plan["local"]), bytes=nbytes,
+         layout="reference", count_leaves=counts,
+         count=int(flat[counts[0]]), step=int(flat["step"]),
+         file_bytes_pr17_layout=1_493_578_119,
          file_bytes=file_bytes, snapshot_s=t1 - t0, write_s=t2 - t1, load_s=t3 - t2,
          restore_s=t5 - t4, snapshot_gb_per_s=nbytes / (t1 - t0) / 1e9,
          write_gb_per_s=nbytes / (t2 - t1) / 1e9, bitwise=True, card=card)
@@ -4169,6 +4475,37 @@ def _step_ms(steps: list) -> list:
     return [1e3 * (b - a) for a, b in zip(times[1:], times[2:])]
 
 
+#: The uninterrupted supervised run's trace window (ROCKET_TPU_PROF): the
+#: Profiler capsule traces 3 steps and parses them into obs/prof/*.
+SUPERVISED_PROF = "6:9"
+
+
+def _supervised_prof_window(root):
+    """The uninterrupted supervised run's trace window: its telemetry
+    carries the ``obs/prof/*`` gauges of the parsed window, and the
+    window's trace holds 72 ``flash_fwd`` and 36 ``flash_bwd`` launches (3
+    steps of 12 layers; the forward twice under remat) launched inside its
+    ``ProfilerStep`` ranges."""
+    from rocket_tpu_torch.obs import prof as prof_lib
+
+    traces = sorted((root / "traces").glob("window_*.json"))
+    require(len(traces) == 1, f"supervised_train: trace windows {traces}")
+    summary = prof_lib.parse_trace(prof_lib.load_trace_events(str(traces[0])))
+    layers = TransformerConfig.gpt2_124m().num_layers
+    got = {"flash_fwd": summary.step_launches("flash_fwd"),
+           "flash_bwd": summary.step_launches("flash_bwd")}
+    require(len(summary.steps) == 3 and got == {"flash_fwd": 3 * 2 * layers,
+                                                "flash_bwd": 3 * layers},
+            f"supervised_train: the trace window holds {len(summary.steps)} steps, {got}")
+    docs = [json.loads(p.read_text()) for p in (root / "plain").rglob("telemetry.json")]
+    gauges = {k: v for d in docs for k, v in d["metrics"]["gauges"].items()
+              if k.startswith("obs/prof/")}
+    require(gauges.get("obs/prof/n_steps") == 3.0 and "obs/prof/measured_step_us" in gauges,
+            f"supervised_train: telemetry's obs/prof gauges {gauges}")
+    return {"launches": got, "gauges": gauges, "device_s": summary.device_total_us * 1e-6,
+            "record": prof_lib.prof_record(summary, top=5)}
+
+
 def supervised_train_phase(card, train_median_ms):
     """GPT-2 124M (B=8, T=1024, bf16, remat, dropout 0.1) trained through
     ``python -m rocket_tpu_torch.launch --supervise -n 1`` under
@@ -4197,18 +4534,20 @@ def supervised_train_phase(card, train_median_ms):
         port = _free_port()
         worker = [str(root / "worker.py"), str(root)]
 
-        def plain(run_dir):
+        def plain(run_dir, extra_env=None):
             t0 = time.time()
             done = subprocess.run([sys.executable, *worker, str(run_dir), str(SUPERVISED_STEPS),
-                                   str(port)], env=env, cwd=str(root), capture_output=True,
-                                  text=True, timeout=300)
+                                   str(port)], env=dict(env, **(extra_env or {})),
+                                  cwd=str(root), capture_output=True, text=True, timeout=300)
             (out / f"supervised_{run_dir.name}.log").write_text(done.stdout + done.stderr)
             require(done.returncode == 0, f"supervised_train: the {run_dir.name} run exited "
                     f"{done.returncode}: {(done.stdout + done.stderr)[-1500:]}")
             return done.stdout, time.time() - t0
 
         torch.cuda.empty_cache()
-        uninterrupted, plain_wall = plain(root / "plain")
+        # The uninterrupted run traces a window of 3 steps (ROCKET_TPU_PROF).
+        uninterrupted, plain_wall = plain(root / "plain", {"ROCKET_TPU_PROF": SUPERVISED_PROF})
+        prof_window = _supervised_prof_window(root)
         scraper = _Scraper(port)
         t0 = time.time()
         proc = subprocess.run(
@@ -4317,7 +4656,7 @@ def supervised_train_phase(card, train_median_ms):
                                            if e.get("cat") == "compile"), None)
         last_slo = records[-1].get("slo") or []
         emit("supervised_train", model="gpt2_124m", dtype="bfloat16", batch=8, seq_len=1024,
-             steps=SUPERVISED_STEPS, faults=SUPERVISED_FAULTS,
+             steps=SUPERVISED_STEPS, faults=SUPERVISED_FAULTS, prof_window=prof_window,
              outcomes=[g["outcome"] for g in gens], exit_codes=[g["exit_codes"] for g in gens],
              supervisor_rc=proc.returncode, restarts=sup["restarts"],
              goodput_fraction=sup["goodput_fraction"], total_wall_s=sup["total_wall_s"],
@@ -4534,6 +4873,10 @@ def main() -> int:
     model = TransformerLM(TransformerConfig.gpt2_124m())
     params = model.init(torch.Generator().manual_seed(0))
     paged["launches"] = serve_phase(model, params, card)
+    # The serve half of the ops plane (PR 18): the same requests under
+    # telemetry, the tracer, the exporter and a trace window; the CLI.
+    serve_obs_phase(model, params, card)
+    serve_cli_phase(card)
     decode["launches"] = generate_phase(model, params, card)
     del params
     train, prepared = train_phase(card)

@@ -56,12 +56,14 @@ pipeline_axis`` raise there).
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from rocket_tpu_torch import bridge
 from rocket_tpu_torch import optim as optim_lib
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.dispatcher import Dispatcher
@@ -69,6 +71,8 @@ from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.module import map_params
 
 __all__ = ["Module", "PreparedModule"]
+
+logger = logging.getLogger(__name__)
 
 
 def _paths(tree, prefix=()):
@@ -106,28 +110,50 @@ class PreparedModule:
     ``params`` (nested dict of f32 tensors), ``model_state`` (for a model
     with ``init_state``), ``ema_params`` (under a train Module's
     ``ema_decay``), ``step`` (host int), ``base_key`` (the counter-hash
-    key the step keys fold from) and, once
+    key the step keys fold from; ``base_key_data``, the two words it was
+    loaded from, when a checkpoint gave it) and, once
     a train Module set up, ``optimizer`` and the accumulation buffers.
     Mutable on purpose: train and eval capsules wrapping one model see the
-    same state."""
+    same state. A train Module also records how optax would lay out its
+    optimizer (``opt_chain``, ``bridge.OptChain`` or None), its
+    accumulation and whether its updates go through the health gate."""
 
     def __init__(self, model, state: dict) -> None:
         self.model = model
         self.state = state
+        self.opt_chain = None
+        self.accum = 1
+        self.gated = False
+
+    def _count(self):
+        """The optimizer's count of applied updates: torch's per-param
+        ``step`` where it keeps one (Adam(W) always, every rule under the
+        gate; a tensor, not read here), else the update count the step
+        implies."""
+        opt = self.state["optimizer"]
+        leaves = optim_lib.param_leaves(self.state["params"])
+        first = opt.state.get(leaves[0], {}) if leaves else {}
+        if "step" in first:
+            return first["step"]
+        return int(self.state["step"]) // self.accum
 
     def checkpoint_state(self) -> dict:
-        """The train state as the tree ``checkpoint_io`` saves: ``params``;
-        ``model_state`` when the model has one; ``optimizer``, one tree per
-        key of the optimizer's per-param state (AdamW: ``exp_avg``,
-        ``exp_avg_sq``, ``step``; momentum SGD: ``momentum_buffer``) laid
-        out as the params; ``step`` and ``base_key`` (ints); ``grad_accum``
-        (as the params) and ``loss_acc`` under gradient accumulation."""
+        """The train state as the tree ``checkpoint_io`` saves, in the
+        reference's layout (``bridge.train_state_to_jax``): ``params``;
+        ``model_state`` when the model has one; ``opt_state`` under optax's
+        chain indices and field names (an optimizer the reference has no
+        chain for keeps torch's per-param layout, ``optimizer/<key>/...``);
+        ``step`` (int32) and ``base_key`` (uint32[2] key data);
+        ``ema_params``, ``health``, and ``grad_accum`` (as the params) and
+        ``loss_acc`` under gradient accumulation."""
         state = self.state
         params = state["params"]
         paths = list(_paths(params))
         leaves = optim_lib.param_leaves(params)
-        view = {"params": map_params(lambda t: t.detach(), params),
-                "step": int(state["step"]), "base_key": int(state["base_key"])}
+        key = state["base_key"]
+        data = state.get("base_key_data")
+        view = {"params": map_params(lambda t: t.detach(), params), "step": int(state["step"]),
+                "base_key": data if data is not None and keys.from_data(data) == key else key}
         if state.get("model_state"):
             view["model_state"] = map_params(lambda t: t.detach(), state["model_state"])
         if "ema_params" in state:
@@ -135,23 +161,36 @@ class PreparedModule:
         if "health" in state:
             view["health"] = dict(state["health"])
         opt = state.get("optimizer")
+        count = 0
         if opt is not None:
             per_key: dict = {}
             for p, path in zip(leaves, paths):
-                for key, value in opt.state.get(p, {}).items():
-                    per_key.setdefault(key, []).append((path, value))
-            view["optimizer"] = {key: _nest(items) for key, items in per_key.items()}
+                for k, value in opt.state.get(p, {}).items():
+                    if value is not None and not (k == "step" and self.opt_chain is not None):
+                        per_key.setdefault(k, []).append((path, value))
+            view["optimizer"] = {k: _nest(items) for k, items in per_key.items()}
+            count = self._count()
         if "grad_accum" in state:
             view["grad_accum"] = _nest(zip(paths, state["grad_accum"]))
             view["loss_acc"] = state["loss_acc"]
-        return view
+        return bridge.train_state_to_jax(view, self.opt_chain, count)
 
     def load_checkpoint_state(self, view: dict) -> None:
         """The inverse of :meth:`checkpoint_state` (tensors or numpy
-        leaves): params are copied into the live tensors in place, so the
-        optimizer keeps its references; the optimizer state goes through
-        ``torch.optim``'s own ``load_state_dict``."""
+        leaves), from the reference's layout or the port's old one
+        (``optimizer/<key>/<path>`` and an int ``base_key``, written before
+        the layouts were unified): params are copied into the live tensors
+        in place, so the optimizer keeps its references; the optimizer
+        state goes through ``torch.optim``'s own ``load_state_dict``, the
+        count into every param's ``step`` for Adam(W) and, under the gate,
+        for every rule. A count that differs from the one the step implies
+        (a run whose gate held updates, resumed off the gate) is logged:
+        off the gate the lr follows the step."""
         state = self.state
+        opt = state.get("optimizer")
+        view = bridge.train_state_from_jax(
+            {k: v for k, v in view.items() if opt is not None or k != "opt_state"},
+            self.opt_chain)
         params = state["params"]
         paths = list(_paths(params))
         leaves = optim_lib.param_leaves(params)
@@ -169,19 +208,37 @@ class PreparedModule:
                     e.copy_(_host(_at(view["ema_params"], path)))
             if "health" in state and view.get("health"):
                 # A pre-health checkpoint keeps the fresh sentinels.
-                for key, t in state["health"].items():
-                    if key in view["health"]:
-                        t.copy_(_host(view["health"][key]).reshape(t.shape))
+                for k, t in state["health"].items():
+                    if k in view["health"]:
+                        t.copy_(_host(view["health"][k]).reshape(t.shape))
         state["step"] = int(view["step"])
-        state["base_key"] = int(view["base_key"])
-        opt = state.get("optimizer")
+        key = view["base_key"]
+        if isinstance(key, (int, np.integer)):
+            state["base_key"], state["base_key_data"] = int(key), None
+        else:
+            state["base_key"], state["base_key_data"] = keys.from_data(key), key
         if opt is not None and view.get("optimizer"):
+            saved_opt = dict(view["optimizer"])
+            adam = isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+            if "step" in saved_opt and self.opt_chain is not None:
+                count = int(np.asarray(_host(_at(saved_opt["step"], paths[0]))))
+                implied = state["step"] // self.accum
+                if count != implied and not self.gated:
+                    logger.warning("checkpoint: the optimizer's count %d is not the %d updates "
+                                   "its step %d implies; off the gate the lr follows the step",
+                                   count, implied, state["step"])
+                if not (adam or self.gated):
+                    del saved_opt["step"]
+            elif self.gated and not adam and paths:
+                # A chain without a count (momentum at a constant lr): the
+                # gate's count starts from the updates the step implies.
+                saved_opt["step"] = _nest((path, torch.tensor(
+                    float(state["step"] // self.accum))) for path in paths)
             path_of = {id(p): path for p, path in zip(leaves, paths)}
             order = [p for group in opt.param_groups for p in group["params"]]
             saved = opt.state_dict()
             saved["state"] = {
-                i: {key: _host(_at(tree, path_of[id(p)]))
-                    for key, tree in view["optimizer"].items()}
+                i: {k: _host(_at(tree, path_of[id(p)])) for k, tree in saved_opt.items()}
                 for i, p in enumerate(order)
             }
             opt.load_state_dict(saved)
@@ -313,6 +370,10 @@ class Module(Dispatcher):
             self._objective = loss.objective
             self._clip_norm = opt.clip_norm
             self._setup_health(state)
+            prepared.opt_chain = bridge.opt_chain(state["optimizer"], schedule=sched is not None,
+                                                  clip=opt.clip_norm is not None)
+            prepared.accum = runtime.gradient_accumulation_steps
+            prepared.gated = self._health is not None and self._health["config"].gated
             if self._ema_decay is not None and "ema_params" not in state:
                 # A real copy: the shadow must not alias the params.
                 state["ema_params"] = map_params(lambda t: t.detach().clone(), state["params"])

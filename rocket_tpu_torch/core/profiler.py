@@ -16,13 +16,15 @@ Two jobs:
   (default ``traces``); ``destroy`` closes a still-open window. With no
   explicit ``trace_start``, ``ROCKET_TPU_PROF`` installs the
   bounded-overhead policy (:class:`rocket_tpu_torch.obs.prof.ProfPolicy`:
-  ``N@M`` traces N steps every M, off by default).
+  ``N@M`` traces N steps every M, off by default). Inside a window each
+  step runs under a ``ProfilerStep#N`` ``record_function`` range (from
+  one launch of the capsule to the next), and each closed window is
+  parsed (``obs/prof.parse_trace``) into the ``obs/prof/*`` gauges of
+  the telemetry registry when telemetry is on.
 
 The host clock measures the launch loop. Eager PyTorch queues kernels
 ahead of the card, and once the queue is full each step waits for the
-card, so after a few steps the clock reads the device's step time. The
-reference's per-window trace parse into ``obs/prof/*`` gauges
-(``_publish_window``) needs the trace parser (ROADMAP Queue A 7b); with
+card, so after a few steps the clock reads the device's step time. With
 telemetry on, the capsule sets the registry's ``perf/steps_per_sec`` and
 ``perf/mfu`` gauges as the reference does.
 """
@@ -73,6 +75,7 @@ class Profiler(Capsule):
         self._warmup = int(warmup)
         self._iter_idx = 0
         self._prof = None
+        self._step_range = None
         self._window_open_at = 0
         self._windows = 0
         self._t_last: Optional[float] = None
@@ -158,10 +161,21 @@ class Profiler(Capsule):
             self._prof.start()
             self._window_open_at = self._iter_idx
             self.log_info(f"profiler: tracing to {self._trace_dir}")
+        if self._prof is not None:
+            # The next step's host range: its launches file its kernels.
+            self._close_step_range()
+            self._step_range = torch.profiler.record_function(f"ProfilerStep#{self._iter_idx}")
+            self._step_range.__enter__()
+
+    def _close_step_range(self) -> None:
+        if self._step_range is not None:
+            self._step_range.__exit__(None, None, None)
+            self._step_range = None
 
     def _stop_trace(self) -> None:
         if self._prof is None:
             return
+        self._close_step_range()
         if self._runtime is not None and self._runtime.device.type == "cuda":
             torch.cuda.synchronize(self._runtime.device)  # the window's kernels end in it
         self._prof.stop()
@@ -173,7 +187,23 @@ class Profiler(Capsule):
         self._publish_window()
 
     def _publish_window(self) -> None:
-        """The reference parses the closed window into ``obs/prof/*``
-        gauges of the telemetry registry. The registry exists now, but the
-        trace parser (the rest of ``obs/prof.py``) is ROADMAP Queue A 7b, so
-        this stays the reference's no-op without a parser."""
+        """Parse the just-closed window into measured step attribution and
+        publish it as ``obs/prof/*`` gauges: host work once per window,
+        and, as in the reference, never fatal to training (a failed parse
+        is logged as a warning and publishes nothing)."""
+        telemetry = getattr(self._runtime, "telemetry", None)
+        if telemetry is None or not telemetry.enabled:
+            return
+        from rocket_tpu_torch.obs.prof import (
+            load_trace_events,
+            parse_trace,
+            prof_record,
+            publish_prof,
+        )
+
+        try:
+            summary = parse_trace(load_trace_events(self.trace_files[-1]))
+        except ValueError as exc:
+            self.log_warning(f"profiler: trace parse failed: {exc}")
+            return
+        publish_prof(telemetry.registry, prof_record(summary))

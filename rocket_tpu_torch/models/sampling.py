@@ -60,7 +60,7 @@ def _top_p(scaled, top_p):
     probs = torch.softmax(ranked, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     if _scalar(top_p):
-        p = torch.tensor(float(top_p), device=scaled.device)
+        p = float(top_p)  # a Python scalar: no host-to-device copy
     else:
         p = torch.as_tensor(top_p, device=scaled.device).float()[..., None]
     keep = cum - probs < p
@@ -86,6 +86,16 @@ def filter_logits(logits, temperature, top_k=None, top_p=None):
     return _top_p(scaled, top_p), greedy
 
 
+def _mix_int(x: int) -> int:
+    """The host twin of :func:`_mix` on a Python int (its low 32 bits)."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _M32
+    x ^= x >> 15
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
 def _mix(x):
     """A 32-bit integer hash (xor-shift-multiply) on int64 tensors holding
     values below 2**32; multipliers below 2**31 keep products in int64."""
@@ -107,11 +117,13 @@ def draw(scaled, seed: int, salt):
     rows, vocab = scaled.shape
     device = scaled.device
     idx = torch.arange(vocab, device=device, dtype=torch.int64)[None, :]
-    base = _mix(torch.tensor(int(seed) & _M32, device=device, dtype=torch.int64))
+    # The seed's and a shared salt's hashes on the host: a scalar made on
+    # the device would be a synchronising copy every wave.
+    base = _mix_int(int(seed) & _M32)
     if isinstance(salt, torch.Tensor) and salt.dim() > 0:
         key = _mix(salt.to(device=device, dtype=torch.int64).reshape(rows, 1) & _M32 ^ base)
     else:
-        key = _mix(torch.tensor(int(salt) & _M32, device=device, dtype=torch.int64) ^ base)
+        key = _mix_int((int(salt) & _M32) ^ base)
         idx = idx + vocab * torch.arange(rows, device=device, dtype=torch.int64)[:, None]
     bits = _mix((key * 0x5BD1E995 + idx) & _M32)
     bits = _mix(bits ^ key)

@@ -14,37 +14,47 @@ gives the recompute the same mask by construction.
 
 The bits cannot match JAX's; the tests compare distributions and the
 forward/recompute identity, and run the JAX comparisons with dropout 0.
+
+A checkpoint carries the key as the reference's key data, two uint32
+words (``jax.random.key_data``): :func:`to_data` writes a key as ``(0,
+k)``, and :func:`from_data` derives the int from two words as ``w1 ^
+mix(w0)``, which gives ``k`` back for ``(0, k)`` (``mix(0) == 0``). A
+train state that keeps the words it was loaded with writes them back
+unchanged, so a key crosses the packages both ways with the same bits.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from rocket_tpu_torch.models.sampling import _mix
+from rocket_tpu_torch.models.sampling import _mix, _mix_int
 
-__all__ = ["key", "fold_in", "split", "uniform", "bernoulli"]
+__all__ = ["key", "fold_in", "split", "uniform", "bernoulli", "to_data", "from_data"]
 
 _M32 = 0xFFFFFFFF
 
 
-def _mix32(x: int) -> int:
-    """The host twin of ``sampling._mix`` on a Python int."""
-    x &= _M32
-    x ^= x >> 16
-    x = (x * 0x7FEB352D) & _M32
-    x ^= x >> 15
-    x = (x * 0x2C1B3C6D) & _M32
-    return x ^ (x >> 16)
-
-
 def key(seed: int) -> int:
     """The root key of a seed."""
-    return _mix32(int(seed) ^ 0x5EED0001)
+    return _mix_int(int(seed) ^ 0x5EED0001)
+
+
+def to_data(k: int) -> np.ndarray:
+    """A key as the reference's key data: uint32 ``[0, k]``."""
+    return np.array([0, int(k) & _M32], dtype=np.uint32)
+
+
+def from_data(words) -> int:
+    """The key of two uint32 words of key data (``to_data``'s inverse on
+    its image; any other pair hashes both words)."""
+    w0, w1 = (int(w) & _M32 for w in np.asarray(words).reshape(2))
+    return w1 ^ _mix_int(w0)
 
 
 def fold_in(k: int, data: int) -> int:
     """A child key of ``k`` for the integer ``data`` (``jax.random.fold_in``)."""
-    return _mix32(k ^ _mix32((int(data) * 0x61C88647 + 0x7F4A7C15) & _M32))
+    return _mix_int(k ^ _mix_int((int(data) * 0x61C88647 + 0x7F4A7C15) & _M32))
 
 
 def split(k: int, num: int = 2) -> list:
@@ -60,7 +70,7 @@ def uniform(k: int, shape, device) -> torch.Tensor:
     for s in shape:
         n *= int(s)
     idx = torch.arange(n, device=device, dtype=torch.int64)
-    bits = _mix((idx * 0x61C88647 + _mix32(k)) & _M32)
+    bits = _mix((idx * 0x61C88647 + _mix_int(k)) & _M32)
     return (((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))).reshape(shape)
 
 

@@ -1,7 +1,8 @@
-"""The port's ops plane, training half (counterpart of ``rocket_tpu.obs``):
-spans, goodput, the metrics registry, the hang watchdog, the health
-sentinels and the flight recorder, owned per run by one
-:class:`Telemetry`; and the trace-window policy (``obs/prof.py``).
+"""The port's ops plane (counterpart of ``rocket_tpu.obs``): spans,
+goodput, the metrics registry, the hang watchdog, the health sentinels
+and the flight recorder, owned per run by one :class:`Telemetry`; the
+serve engine's per-request timelines (``obs/reqtrace.py``); and device
+traces, their capture and their parse (``obs/prof.py``).
 
 ``Runtime(telemetry=True)`` (or ``ROCKET_TPU_TELEMETRY=1``) turns it on;
 at the end of the run ``telemetry.json`` and the Chrome trace
@@ -15,7 +16,10 @@ metrics_port=..., slo=...)`` or ``ROCKET_TPU_EXPORT``,
 ``ROCKET_TPU_METRICS_PORT``, ``ROCKET_TPU_SLO``) streams the registry to
 ``<run dir>/telemetry/rank<k>.jsonl`` and ``/metrics`` while the run goes
 on, and evaluates the SLO specs of ``slo.py`` at every tick; ``python -m
-rocket_tpu_torch.obs top|watch <run dir>`` reads the shards.
+rocket_tpu_torch.obs top|watch <run dir>`` reads the shards; ``python -m
+rocket_tpu_torch.obs timeline <run dir>`` renders a serve run's request
+waterfalls and ``python -m rocket_tpu_torch.obs prof <trace>`` a
+``torch.profiler`` window's per-kernel device time.
 """
 
 from rocket_tpu_torch.obs.export import (

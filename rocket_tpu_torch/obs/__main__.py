@@ -1,11 +1,13 @@
-"""``python -m rocket_tpu_torch.obs <report|top|watch|blackbox> <path>``
-(counterpart of those subcommands of ``rocket_tpu/obs/__main__.py``; the
-files of either package render with either CLI).
+"""``python -m rocket_tpu_torch.obs <report|top|watch|timeline|blackbox|prof> <path>``
+(counterpart of ``rocket_tpu/obs/__main__.py``; the files of either
+package render with either CLI).
 
 * ``report``: a ``telemetry.json`` (or the run directory holding it) as the
   goodput table, the health line, the registry's counters and gauges, each
   histogram's count, mean and estimated p50/p90/p99, the allocator
-  watermarks, the watchdog and the span count, with the run's
+  watermarks, the measured step attribution of the last parsed trace
+  window (the ``obs/prof/*`` gauges), the watchdog and the span count,
+  with the run's
   ``supervisor.json`` beside it when there is one; a ``supervisor.json``
   alone as its generations; a Chrome-trace span file as its per-category
   span totals (inclusive). A run directory with no ``telemetry.json`` (a
@@ -17,12 +19,21 @@ files of either package render with either CLI).
   any objective ends violated. Each process's records (one ``pid`` of a
   rank's shard, a supervised generation) replay through a fresh evaluator,
   as that process's live exporter evaluated them.
+* ``timeline``: a serve run's request timelines (``reqtrace.jsonl`` and
+  ``exemplars.jsonl``, ``obs/reqtrace.py``) as per-request waterfalls
+  (``--request ID``, or the ``--slowest N``) and the aggregate phase
+  breakdown; ``--format json`` for the records.
 * ``blackbox``: a flight-recorder bundle (its directory or its
   ``blackbox.json``): reason, last good step, the anomaly timeline, the
   tail of the health history, and the emergency checkpoint.
+* ``prof``: a captured ``torch.profiler`` trace (a file, or the directory
+  a capture wrote into) as the measured per-kernel attribution table
+  (``obs/prof.py``); ``--format json`` for the record. ``--target`` (the
+  join against the analysis' predictions) is ROADMAP Queue A 9 and
+  raises.
 
 Exit codes: 0 rendered (``watch``: no violation), 1 a violation, 2 a usage
-or parse error. ``timeline`` and ``prof`` are ROADMAP Queue A 7b item 5.
+or parse error.
 """
 
 from __future__ import annotations
@@ -78,6 +89,9 @@ def render_telemetry(doc: dict) -> str:
         out.append(f"  {name:<36} count={hist.get('count', 0)}"
                    + (f" mean={mean:.4g}s" if mean is not None else "")
                    + "".join(f" {k}={q[k]:.4g}s" for k in ("p50", "p90", "p99") if k in q))
+    prof = render_prof_gauges(metrics)
+    if prof:
+        out += ["", prof]
     gauges = metrics.get("gauges", {})
     marks = [(n, gauges[n]) for n in ("hbm/bytes_in_use_max", "hbm/peak_bytes_in_use_max")
              if isinstance(gauges.get(n), (int, float))]
@@ -92,6 +106,30 @@ def render_telemetry(doc: dict) -> str:
     if spans:
         out.append(f"spans: {spans.get('events', 0)} events ({spans.get('dropped', 0)} "
                    f"dropped) in {spans.get('file')}")
+    return "\n".join(out)
+
+
+def render_prof_gauges(metrics: dict) -> str:
+    """The measured step attribution of the last parsed trace window (the
+    ``obs/prof/*`` gauges the Profiler capsule publishes), or ``""`` when
+    the run never traced."""
+    gauges, counters = metrics.get("gauges", {}), metrics.get("counters", {})
+    prof = {k: v for k, v in gauges.items() if k.startswith("obs/prof/")}
+    if not prof:
+        return ""
+    step = prof.get("obs/prof/measured_step_us")
+    out = ["measured step attribution (last trace window, obs.prof):",
+           f"  windows parsed: {counters.get('obs/prof/windows_parsed', 0):g}  steps in "
+           f"window: {prof.get('obs/prof/n_steps', 0):g}"]
+    if step is not None:
+        out.append(f"  per step: device span {step:g} us (busy "
+                   f"{prof.get('obs/prof/device_busy_us', 0):g} us, wall "
+                   f"{prof.get('obs/prof/wall_step_us', 0):g} us), exposed comm "
+                   f"{prof.get('obs/prof/exposed_comm_us', 0):g} us")
+    fracs = {k.rsplit("frac_", 1)[-1]: v for k, v in prof.items() if "/frac_" in k}
+    if fracs:
+        out.append("  device time: " + "  ".join(f"{cat}={value:.1%}"
+                                                 for cat, value in sorted(fracs.items())))
     return "\n".join(out)
 
 
@@ -342,6 +380,84 @@ def _report_from_shards(path: str) -> int:
     return 0
 
 
+def _timeline(args) -> int:
+    """Waterfalls and the aggregate phase breakdown of a serve run's
+    request timelines."""
+    from rocket_tpu_torch.obs.reqtrace import (
+        aggregate_phases,
+        read_timeline_dir,
+        render_aggregate,
+        render_waterfall,
+    )
+
+    records = read_timeline_dir(args.path)
+    if not records:
+        print(f"error: no request timelines (reqtrace.jsonl / exemplars.jsonl) under "
+              f"{args.path} — was the run served with reqtrace on and exporting?",
+              file=sys.stderr)
+        return 2
+    if args.request is not None:
+        selection = [r for r in records if r["rid"] == args.request]
+        if not selection:
+            known = ", ".join(str(r["rid"]) for r in records[:16])
+            print(f"error: request {args.request} has no retained timeline (known: "
+                  f"{known}{'...' if len(records) > 16 else ''})", file=sys.stderr)
+            return 2
+    else:
+        selection = sorted(records, key=lambda r: -(r.get("total_s") or 0.0))[
+            :max(args.slowest, 1)]
+    if args.format == "json":
+        print(json.dumps({"requests": selection, "aggregate": aggregate_phases(records)},
+                         indent=2, sort_keys=True))
+        return 0
+    print(f"obs timeline — {len(records)} retained request(s), showing {len(selection)}")
+    for record in selection:
+        print()
+        print(render_waterfall(record))
+    print()
+    print(render_aggregate(records))
+    print("legend: . queue   # prefill   = decode   x preempted")
+    return 0
+
+
+def _prof(args) -> int:
+    """Parse a captured device trace into the per-kernel table."""
+    from rocket_tpu_torch.obs.prof import (
+        find_trace_file,
+        load_trace_events,
+        parse_trace,
+        prof_record,
+        render_prof,
+    )
+
+    if args.target:
+        raise NotImplementedError(
+            "obs prof --target: the join against the analysis' predicted per-op costs "
+            "(the reference's analysis calib) is not ported yet (ROADMAP Queue A 9)")
+    trace_file = find_trace_file(args.path)
+    if trace_file is None:
+        print(f"error: no trace-event file under {args.path}", file=sys.stderr)
+        return 2
+    try:
+        events = load_trace_events(trace_file)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    summary = parse_trace(events, step_name=args.step_name)
+    if summary.n_slices == 0:
+        print(f"error: {trace_file} holds no device slices (kernel / gpu_memcpy / gpu_memset "
+              "events)", file=sys.stderr)
+        return 2
+    record = prof_record(summary, top=args.top)
+    record["trace_file"] = trace_file
+    if args.format == "json":
+        print(json.dumps(record, indent=1, sort_keys=True))
+        return 0
+    print(f"trace: {trace_file}")
+    print(render_prof(summary, record, top=args.top))
+    return 0
+
+
 def _load(path: str):
     try:
         with open(path, "r", encoding="utf-8") as f:
@@ -353,8 +469,8 @@ def _load(path: str):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m rocket_tpu_torch.obs",
-                                     description="render telemetry records and black-box "
-                                                 "bundles")
+                                     description="render telemetry records, black-box "
+                                                 "bundles and device traces")
     sub = parser.add_subparsers(dest="command")
     sub.add_parser("report", help="render telemetry.json, supervisor.json, a run dir (falling "
                    "back to its streaming shards) or a span file").add_argument("path")
@@ -366,10 +482,35 @@ def main(argv=None) -> int:
                            "exit 1 on a violation")
     watch.add_argument("path", help="run dir (or its telemetry/ dir) holding rank*.jsonl")
     watch.add_argument("--slo", required=True, metavar="SPEC",
-                       help="SLO spec file (rocket_tpu_torch.obs.slo grammar) or default:train")
+                       help="SLO spec file (rocket_tpu_torch.obs.slo grammar), or "
+                            "default:serve / default:train")
+    timeline = sub.add_parser("timeline", help="per-request waterfalls and the phase breakdown "
+                              "of a serve run's request timelines (obs.reqtrace)")
+    timeline.add_argument("path", help="run dir (or its telemetry/ dir, or a reqtrace/"
+                                       "exemplars jsonl file)")
+    timeline.add_argument("--request", type=int, default=None, metavar="ID",
+                          help="render this request id's waterfall only")
+    timeline.add_argument("--slowest", type=int, default=3, metavar="N",
+                          help="render the N slowest requests by total latency (default: 3; "
+                               "ignored with --request)")
+    timeline.add_argument("--format", choices=("text", "json"), default="text")
     sub.add_parser("blackbox", help="render a flight-recorder bundle") \
         .add_argument("path", help=f"bundle directory or its {BLACKBOX_FILE}")
+    prof = sub.add_parser("prof", help="render a captured torch.profiler trace as measured "
+                                       "per-kernel attribution")
+    prof.add_argument("path", help="trace file (*.trace.json[.gz]) or a capture directory")
+    prof.add_argument("--target", default=None,
+                      help="join against an analysis target's predictions (ROADMAP Queue A 9; "
+                           "raises)")
+    prof.add_argument("--step-name", default=None, choices=("serve_tick", "ProfilerStep"),
+                      help="only count steps of this annotation (default: all)")
+    prof.add_argument("--top", type=int, default=15, help="rows in the per-kernel table")
+    prof.add_argument("--format", choices=("text", "json"), default="text")
     args = parser.parse_args(argv)
+    if args.command == "prof":
+        return _prof(args)
+    if args.command == "timeline":
+        return _timeline(args)
     if args.command == "top":
         return _top(args)
     if args.command == "watch":

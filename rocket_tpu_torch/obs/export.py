@@ -626,6 +626,13 @@ class TelemetryExporter:
             "metrics": snapshot,
         }
         self._seq += 1
+        tracer = getattr(tel, "reqtrace", None)
+        if tracer is not None:
+            # Close the request-timeline window first: finished
+            # waterfalls and slowest-k exemplars land in the shard dir,
+            # and an SLO violation this tick names the window's exemplar
+            # request ids in its anomaly.
+            record["reqtrace"] = tracer.flush(tel.resolve_out_dir(self._default_dir))
         if self.slos is not None:
             self._evaluate_slos(record)
             # Re-snapshot so the shard carries its own obs/slo/* gauges.
@@ -653,6 +660,13 @@ class TelemetryExporter:
         statuses = self.slos.observe(
             record["t_unix"], record["metrics"], record["goodput"]
         )
+        tracer = getattr(self.telemetry, "reqtrace", None)
+        if tracer is not None:
+            # A violated serve SLO carries the offending window's exemplar
+            # request ids (`obs timeline <run> --request <id>`).
+            for status in statuses:
+                if status.violated:
+                    status.exemplars = dict(tracer.last_window)
         record["slo"] = [dataclasses.asdict(s) for s in statuses]
         for status in statuses:
             prefix = f"obs/slo/{status.name}"
@@ -677,4 +691,6 @@ class TelemetryExporter:
                         "objective": status.objective,
                         "t_unix": record["t_unix"],
                     }
+                    if status.exemplars is not None:
+                        anomaly["exemplars"] = status.exemplars
                     flight.note_anomaly(anomaly)

@@ -1,15 +1,132 @@
-"""The bounded-overhead trace-window policy (counterpart of the
-``ProfPolicy`` and ``parse_step_window`` of ``rocket_tpu/obs/prof.py``).
-The trace parser and its ``obs/prof/*`` gauges are ROADMAP Queue A 7b
-(the registry they publish into exists since the ops plane's training
-half)."""
+"""Device-trace capture and the measured half of the roofline loop
+(counterpart of ``rocket_tpu/obs/prof.py``, over ``torch.profiler``'s
+Chrome trace where the reference reads XLA's).
+
+* **capture**: :class:`TraceSession` opens a ``torch.profiler`` window
+  (CPU and, on a card, CUDA activity) and writes it with
+  ``export_chrome_trace`` into its directory, with a
+  :data:`CAPTURE_META_FILE` sidecar naming the machine that measured it
+  (the card's name and power limit, the torch and CUDA versions). The
+  bounded-overhead policy is :class:`ProfPolicy` (``ROCKET_TPU_PROF``:
+  off by default; ``N@M`` traces N steps every M); the Profiler capsule
+  drives it for training, the serve engine's ``capture_trace`` window
+  (``--trace-steps A:B``) for serving.
+* **parse**: :func:`parse_trace` reads the device slices of a torch
+  trace (events of category ``kernel``, ``gpu_memcpy`` and
+  ``gpu_memset``), names each by its kernel (template arguments and the
+  parameter list canonicalised away, :func:`canonical_op_name`), sorts
+  it into a category (:func:`categorize`), and files it under the step
+  whose host range LAUNCHED it: the slice's ``correlation`` id joins it
+  to its runtime launch event (``cudaLaunchKernel``, ``cuLaunchKernel``,
+  ``cudaMemcpyAsync``, ...), and the launch's host timestamp falls in
+  one step annotation. A timestamp join would misfile: the serve engine
+  enqueues wave N+1 while wave N runs, so a kernel often runs after the
+  next step's host range opened. Step annotations are the serve
+  engine's ``serve_tick#N`` ranges and the Profiler capsule's
+  ``ProfilerStep#N``. Per step it measures the device span (first to
+  last slice), the busy union, and exposed communication: collective
+  time no compute slice covers (0 on one card).
+* **surface**: ``python -m rocket_tpu_torch.obs prof <trace>`` renders
+  the attribution table; :func:`publish_prof` lands the headline numbers
+  as ``obs/prof/*`` gauges. The join against the analysis' predictions
+  (``--target``, the reference's ``analysis calib``) is ROADMAP Queue A
+  9 and raises.
+
+Categories (:func:`categorize`), first match wins:
+
+==============  ===========================================================
+``memory``      ``gpu_memcpy`` / ``gpu_memset`` slices
+``collective``  kernels named ``nccl*``
+``compute``     the port's own ``csrc`` kernels (:data:`PORT_KERNELS`, by
+                entry name); GEMM and convolution kernels of cuBLAS,
+                CUTLASS and cuDNN (names holding ``gemm``, ``cublas``,
+                ``cutlass``, ``xmma``, cuBLAS's ``nvjet``, ``cudnn``,
+                ``conv`` ...)
+``memory``      elementwise, reduce, copy, fill, index, gather, scatter and
+                concatenation kernels (ATen's ``elementwise_kernel``,
+                ``reduce_kernel``, ``CatArrayBatchedCopy``, ``foreach``
+                kernels, ...)
+``other``       the rest
+==============  ===========================================================
+
+Everything but :class:`TraceSession` is stdlib-only, so the CLI and the
+tests parse traces with no device.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import glob
+import gzip
+import json
+import os
+import re
+import subprocess
+import time
+from dataclasses import dataclass, field
+from typing import Iterable, Mapping, Optional, Tuple
 
-__all__ = ["ProfPolicy", "parse_step_window"]
+__all__ = [
+    "ProfPolicy",
+    "TraceSession",
+    "capture_metadata",
+    "OpSlice",
+    "MeasuredOp",
+    "StepRecord",
+    "TraceSummary",
+    "find_trace_file",
+    "load_trace_events",
+    "parse_trace",
+    "prof_record",
+    "publish_prof",
+    "render_prof",
+    "parse_step_window",
+    "canonical_op_name",
+    "opcode_of",
+    "categorize",
+    "PORT_KERNELS",
+    "CAPTURE_META_FILE",
+]
+
+#: The port's ``csrc`` kernel entry names -> the wrapper (``ops/``) that
+#: launches them. A wrapper call launches each of its entries at most once.
+PORT_KERNELS = {
+    "paged_split_kernel": "paged_decode",
+    "paged_combine_kernel": "paged_decode",
+    "decode_split_kernel": "decode_attention",
+    "decode_combine_kernel": "decode_attention",
+    "flash_fwd_kernel": "flash_fwd",
+    "flash_fwd_tc_kernel": "flash_fwd",
+    "flash_bwd_kernel": "flash_bwd",
+    "flash_bwd_tc_kernel": "flash_bwd",
+    "flash_dq_kernel": "flash_dq",
+    "flash_dq_tc_kernel": "flash_dq",
+    "qkv_fwd_kernel": "flash_qkv_fwd",
+    "qkv_fwd_tc_kernel": "flash_qkv_fwd",
+    "qkv_bwd_kernel": "flash_qkv_bwd",
+    "qkv_bwd_tc_kernel": "flash_qkv_bwd",
+    "fused_block_kernel": "fused_block",
+    "fused_block_tc_kernel": "fused_block",
+    "twopass_kernel": "bn_twopass",
+    "twopass_any_kernel": "bn_twopass",
+    "normalize_kernel": "bn_normalize",
+    "normalize_any_kernel": "bn_normalize",
+    "gmm_kernel": "gather_gmm",
+    "grouped_wgmma_kernel": "grouped_gemm",
+    "tgmm_kernel": "tgmm",
+    "bad_scale_kernel": "badpallas",
+}
+
+#: Device-slice categories of torch's Chrome trace.
+DEVICE_CATS = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
+
+_STEP_RE = re.compile(r"^(ProfilerStep|serve_tick)#(\d+)$")
+_COMPUTE_WORDS = ("gemm", "cublas", "cutlass", "xmma", "nvjet", "cudnn", "conv", "wgmma",
+                  "matmul", "sm90_", "sm80_")
+_MEMORY_WORDS = ("elementwise", "reduce", "copy", "fill", "index", "gather", "scatter", "cat",
+                 "foreach", "memcpy", "memset")
+
+
+# -- capture policy --------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -67,7 +184,8 @@ class ProfPolicy:
 
 
 def parse_step_window(text: str) -> Tuple[int, int]:
-    """``"A:B"`` -> (A, B) with 0 <= A < B."""
+    """``"A:B"`` -> (A, B) with 0 <= A < B (the serve CLI's
+    ``--trace-steps`` grammar)."""
     start_s, sep, stop_s = text.partition(":")
     if not sep:
         raise ValueError(f"trace window {text!r}: expected 'A:B'")
@@ -75,3 +193,508 @@ def parse_step_window(text: str) -> Tuple[int, int]:
     if start < 0 or stop <= start:
         raise ValueError(f"trace window {text!r}: needs 0 <= A < B")
     return start, stop
+
+
+# -- capture ---------------------------------------------------------------------
+
+#: Sidecar written next to every capture: which machine MEASURED the
+#: trace, so a re-render elsewhere does not claim its own card.
+CAPTURE_META_FILE = "capture.json"
+
+
+def _card_power_limit() -> Optional[str]:
+    """``name, power.limit`` as ``nvidia-smi`` reports them, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=10, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else None
+
+
+class TraceSession:
+    """One ``torch.profiler`` capture window written as a Chrome trace.
+
+    ``start()`` is a no-op while a window is open, ``stop()`` when none
+    is. ``stop()`` first synchronises the card (so the window's kernels
+    end inside it; through the explicit-transfer helper, legal under
+    strict mode), then writes ``window_<n>.trace.json`` and the
+    :data:`CAPTURE_META_FILE` sidecar, and returns the trace file. A
+    failure to write either raises."""
+
+    def __init__(self, trace_dir: str) -> None:
+        self.trace_dir = trace_dir
+        self.active = False
+        self.windows = 0
+        self._prof = None
+        #: The last closed window's ``torch.profiler.profile`` (its own
+        #: ``key_averages()`` stay readable).
+        self.last_profile = None
+        #: Seconds the last ``start()`` took (CUPTI's start-up), and the
+        #: last ``stop()``'s synchronise, collection and export.
+        self.start_s = None
+        self.stop_s: dict = {}
+
+    def start(self) -> bool:
+        if self.active:
+            return False
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(self.trace_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            activities.append(ProfilerActivity.CUDA)
+        t0 = time.perf_counter()
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self.start_s = time.perf_counter() - t0
+        self.active = True
+        return True
+
+    def stop(self) -> Optional[str]:
+        """Close the window; returns its trace file (None when no window
+        was open)."""
+        if not self.active:
+            return None
+        import torch
+
+        from rocket_tpu_torch.runtime import explicit_transfer
+
+        t0 = time.perf_counter()
+        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+        if cuda:
+            with explicit_transfer():
+                torch.cuda.synchronize()
+        prof, self._prof = self._prof, None
+        self.active = False
+        t1 = time.perf_counter()
+        prof.stop()
+        self.last_profile = prof
+        t2 = time.perf_counter()
+        path = os.path.join(self.trace_dir, f"window_{self.windows}.trace.json")
+        prof.export_chrome_trace(path)
+        self.stop_s = {"sync": t1 - t0, "collect": t2 - t1, "export": time.perf_counter() - t2}
+        self.windows += 1
+        meta = {"platform": "gpu" if cuda else "cpu", "torch": torch.__version__,
+                "cuda": torch.version.cuda}
+        if cuda:
+            meta.update(device_kind=torch.cuda.get_device_name(0),
+                        n_devices=torch.cuda.device_count(), card=_card_power_limit())
+        target = os.path.join(self.trace_dir, CAPTURE_META_FILE)
+        tmp = target + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(meta, f)
+        os.replace(tmp, target)
+        return path
+
+
+def capture_metadata(path: str) -> dict:
+    """The :data:`CAPTURE_META_FILE` sidecar of a trace file or capture
+    directory (searched upward a few levels), or ``{}`` when absent or
+    corrupt."""
+    directory = path if os.path.isdir(path) else os.path.dirname(path)
+    for _ in range(4):
+        candidate = os.path.join(directory, CAPTURE_META_FILE)
+        if os.path.isfile(candidate):
+            try:
+                with open(candidate, "r", encoding="utf-8") as f:
+                    meta = json.load(f)
+                return meta if isinstance(meta, dict) else {}
+            except (OSError, ValueError):
+                return {}
+        parent = os.path.dirname(directory)
+        if parent == directory:
+            break
+        directory = parent
+    return {}
+
+
+# -- trace loading ---------------------------------------------------------------
+
+
+def find_trace_file(path: str) -> Optional[str]:
+    """``path`` as a trace-event file: a file as it is; a directory
+    searched recursively for ``*.trace.json(.gz)``, then the Profiler
+    capsule's ``window_*.json`` — the newest wins, so repeated windows
+    into one directory resolve to the last capture."""
+    if os.path.isfile(path):
+        return path
+    candidates: list = []
+    for pattern in ("**/*.trace.json.gz", "**/*.trace.json", "**/window_*.json"):
+        candidates = glob.glob(os.path.join(path, pattern), recursive=True)
+        if candidates:
+            break
+    if not candidates:
+        return None
+    return max(candidates, key=os.path.getmtime)
+
+
+def load_trace_events(path: str) -> list:
+    """Chrome trace-event JSON (plain or gzipped; object or bare array
+    form) -> its event list. Raises ``ValueError`` on anything else."""
+    opener = gzip.open if path.endswith(".gz") else open
+    try:
+        with opener(path, "rt", encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError, EOFError) as exc:
+        raise ValueError(f"{path}: cannot read trace events: {exc}") from exc
+    events = doc.get("traceEvents") if isinstance(doc, dict) else doc
+    if not isinstance(events, list):
+        raise ValueError(f"{path}: not a trace-event file (no event list)")
+    return events
+
+
+# -- parsing ---------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OpSlice:
+    """One device slice: a kernel, copy or set."""
+
+    name: str            # raw event name
+    canon: str           # canonical kernel name (join key)
+    opcode: str          # the kernel's entry name
+    category: str        # "compute" | "memory" | "collective" | "other"
+    module: str          # the port wrapper of a csrc kernel, else ""
+    ts_us: float
+    dur_us: float
+    step: Optional[int] = None
+
+
+@dataclass
+class MeasuredOp:
+    """All slices of one kernel, aggregated."""
+
+    name: str
+    opcode: str
+    category: str
+    module: str
+    total_us: float = 0.0
+    count: int = 0
+
+    @property
+    def mean_us(self) -> float:
+        return self.total_us / self.count if self.count else 0.0
+
+
+@dataclass
+class StepRecord:
+    """One annotated step's device-side accounting."""
+
+    name: str
+    step: int
+    start_us: float
+    end_us: float
+    #: host wall time of the annotation range
+    wall_us: float = 0.0
+    #: first-to-last device activity launched inside the range
+    device_span_us: float = 0.0
+    #: union of device busy intervals (parallel streams counted once)
+    device_busy_us: float = 0.0
+    #: collective time not overlapped by any non-collective device slice
+    exposed_comm_us: float = 0.0
+    categories: dict = field(default_factory=dict)
+    #: slices per kernel entry name launched inside the range
+    kernels: dict = field(default_factory=dict)
+
+
+@dataclass
+class TraceSummary:
+    """Everything the CLI table and the gauges need."""
+
+    ops: list            # list[MeasuredOp]
+    steps: list          # list[StepRecord], annotated steps only
+    modules: dict        # module -> total device us
+    n_slices: int = 0
+    unattributed_us: float = 0.0  # device time launched outside any step
+
+    def module_ops(self, module: Optional[str]) -> list:
+        if module is None:
+            return list(self.ops)
+        return [op for op in self.ops if op.module == module]
+
+    @property
+    def device_total_us(self) -> float:
+        return sum(op.total_us for op in self.ops)
+
+    def mean(self, attr: str) -> float:
+        """Mean of a StepRecord field over the attributed steps."""
+        if not self.steps:
+            return 0.0
+        return sum(getattr(s, attr) for s in self.steps) / len(self.steps)
+
+    def category_totals(self, module: Optional[str] = None) -> dict:
+        totals: dict = {}
+        for op in self.module_ops(module):
+            totals[op.category] = totals.get(op.category, 0.0) + op.total_us
+        return totals
+
+    def step_launches(self, wrapper: str) -> int:
+        """Calls of a port wrapper (:data:`PORT_KERNELS`) launched inside the
+        steps' host ranges: per step the most slices of any one of its
+        kernels (a kernel launched before the window opened, still running
+        in it, is not one)."""
+        entries = [e for e, w in PORT_KERNELS.items() if w == wrapper]
+        return sum(max((s.kernels.get(e, 0) for e in entries), default=0) for s in self.steps)
+
+
+def _strip_balanced(text: str, open_ch: str, close_ch: str) -> str:
+    """``text`` with every top-level ``open_ch ... close_ch`` group removed."""
+    out, depth = [], 0
+    for ch in text:
+        if ch == open_ch:
+            depth += 1
+        elif ch == close_ch and depth:
+            depth -= 1
+        elif not depth:
+            out.append(ch)
+    return "".join(out)
+
+
+def canonical_op_name(name: str) -> str:
+    """A kernel's event name as its canonical op name: the return type,
+    the parameter list and template arguments dropped (``void
+    paged_split_kernel<__nv_bfloat16, 64>(...)`` -> ``paged_split_kernel``;
+    ``void at::native::vectorized_elementwise_kernel<4, ...>(int, ...)``
+    -> ``at::native::vectorized_elementwise_kernel``). A generic launcher
+    (``cutlass::Kernel2<...>``, ``device_kernel<...>``) keeps the name of
+    its template argument, which is what names the kernel."""
+    text = name.strip()
+    if text.startswith("void "):
+        text = text[len("void "):]
+    text = text.replace("(anonymous namespace)::", "")
+    if text.endswith(")"):
+        depth = 0
+        for i in range(len(text) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(text[i], 0)
+            if depth == 0:
+                text = text[:i]
+                break
+    head = _strip_balanced(text, "<", ">").strip()
+    last = head.rsplit("::", 1)[-1]
+    if re.fullmatch(r"(Kernel\d*|device_kernel|kernel)", last) and "<" in text:
+        inner = text[text.index("<") + 1:]
+        inner = _strip_balanced(inner.split(",")[0].rstrip(">"), "<", ">").strip()
+        return f"{head}<{inner}>"
+    return head
+
+
+def opcode_of(name: str) -> str:
+    """The entry name of a canonical kernel name (its last ``::``
+    component, a launcher's template argument kept)."""
+    return name.rsplit("::", 1)[-1] if "<" not in name else name
+
+
+def categorize(name: str, cat: Optional[str] = None) -> str:
+    """compute / memory / collective / other for a device slice (the
+    table in the module docstring): ``name`` the raw or canonical kernel
+    name, ``cat`` its trace category."""
+    if cat in ("gpu_memcpy", "gpu_memset"):
+        return "memory"
+    lower = name.lower()
+    if "nccl" in lower:
+        return "collective"
+    entry = canonical_op_name(name).rsplit("::", 1)[-1]
+    if entry in PORT_KERNELS or any(w in lower for w in _COMPUTE_WORDS):
+        return "compute"
+    if any(w in lower for w in _MEMORY_WORDS):
+        return "memory"
+    return "other"
+
+
+def _union_length(intervals: list) -> float:
+    """Total covered length of (start, end) intervals."""
+    return sum(hi - lo for lo, hi in _merge(intervals))
+
+
+def _merge(intervals: list) -> list:
+    """Sorted, non-overlapping union of (start, end) intervals."""
+    merged: list = []
+    for lo, hi in sorted(intervals):
+        if merged and lo <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], hi))
+        else:
+            merged.append((lo, hi))
+    return merged
+
+
+def _uncovered(intervals: list, cover: list) -> float:
+    """Length of ``intervals``' union not overlapped by ``cover``'s union
+    (measured exposed communication)."""
+    merged_cover = _merge(cover)
+    exposed = 0.0
+    for lo, hi in _merge(intervals):
+        covered = 0.0
+        for clo, chi in merged_cover:
+            if chi <= lo:
+                continue
+            if clo >= hi:
+                break
+            covered += min(hi, chi) - max(lo, clo)
+        exposed += (hi - lo) - covered
+    return exposed
+
+
+def parse_trace(events: Iterable[Mapping], step_name: Optional[str] = None) -> TraceSummary:
+    """Bucket a torch trace's device slices by kernel and by the step that
+    launched them.
+
+    Device slices are the complete (``ph == "X"``) events of category
+    ``kernel``, ``gpu_memcpy`` or ``gpu_memset``. Steps are host ranges
+    named ``serve_tick#N`` or ``ProfilerStep#N`` (``step_name`` keeps one
+    of the two); a range entered more than once under one step merges.
+    Each slice's ``args.correlation`` finds the host event that launched
+    it (any other event carrying the same correlation id), and the slice
+    belongs to the step whose range holds that launch; a slice with no
+    launch event, or launched outside every step, is unattributed."""
+    slices: list = []
+    correlations: list = []  # (correlation id, slice index)
+    launches: dict = {}      # correlation id -> host launch ts
+    windows: dict = {}       # (name, step) -> [start, end]
+    for event in events:
+        if event.get("ph") != "X":
+            continue
+        args = event.get("args") or {}
+        cat = str(event.get("cat", ""))
+        ts = float(event.get("ts", 0.0))
+        dur = float(event.get("dur", 0.0))
+        name = str(event.get("name", ""))
+        if cat in DEVICE_CATS:
+            if dur <= 0:
+                continue
+            canon = canonical_op_name(name)
+            opcode = opcode_of(canon)
+            slices.append(OpSlice(name=name, canon=canon, opcode=opcode,
+                                  category=categorize(name, cat),
+                                  module=PORT_KERNELS.get(opcode, ""), ts_us=ts, dur_us=dur))
+            if "correlation" in args:
+                correlations.append((args["correlation"], len(slices) - 1))
+            continue
+        if cat.startswith("gpu_"):
+            continue  # device-side projections of host annotations
+        if "correlation" in args:
+            launches.setdefault(args["correlation"], ts)
+        match = _STEP_RE.match(name)
+        if match is not None and (step_name is None or match.group(1) == step_name):
+            window = windows.setdefault((match.group(1), int(match.group(2))), [ts, ts + dur])
+            window[0] = min(window[0], ts)
+            window[1] = max(window[1], ts + dur)
+
+    steps = [StepRecord(name=name, step=step, start_us=lo, end_us=hi, wall_us=hi - lo)
+             for (name, step), (lo, hi) in sorted(windows.items(), key=lambda kv: kv[0][1])]
+
+    per_step: dict = {i: [] for i in range(len(steps))}
+    attributed: set = set()
+    for corr, index in correlations:
+        t = launches.get(corr)
+        if t is None:
+            continue
+        for i, rec in enumerate(steps):
+            if rec.start_us <= t < rec.end_us:
+                per_step[i].append(slices[index])
+                attributed.add(index)
+                break
+    unattributed_us = sum(s.dur_us for i, s in enumerate(slices) if i not in attributed)
+
+    for i, rec in enumerate(steps):
+        group = per_step[i]
+        if not group:
+            continue
+        intervals = [(s.ts_us, s.ts_us + s.dur_us) for s in group]
+        rec.device_span_us = max(hi for _, hi in intervals) - min(lo for lo, _ in intervals)
+        rec.device_busy_us = _union_length(intervals)
+        comm = [(s.ts_us, s.ts_us + s.dur_us) for s in group if s.category == "collective"]
+        cover = [(s.ts_us, s.ts_us + s.dur_us) for s in group if s.category != "collective"]
+        rec.exposed_comm_us = _uncovered(comm, cover) if comm else 0.0
+        for s in group:
+            rec.categories[s.category] = rec.categories.get(s.category, 0.0) + s.dur_us
+            rec.kernels[s.opcode] = rec.kernels.get(s.opcode, 0) + 1
+
+    ops: dict = {}
+    modules: dict = {}
+    for s in slices:
+        key = (s.module, s.canon)
+        op = ops.get(key)
+        if op is None:
+            op = ops[key] = MeasuredOp(name=s.canon, opcode=s.opcode, category=s.category,
+                                       module=s.module)
+        op.total_us += s.dur_us
+        op.count += 1
+        modules[s.module] = modules.get(s.module, 0.0) + s.dur_us
+
+    return TraceSummary(ops=sorted(ops.values(), key=lambda o: -o.total_us), steps=steps,
+                        modules=modules, n_slices=len(slices), unattributed_us=unattributed_us)
+
+
+# -- records / gauges / rendering --------------------------------------------------
+
+
+def prof_record(summary: TraceSummary, top: int = 10) -> dict:
+    """The flat record the gauges and the CLI's JSON read: per-step means
+    over the attributed steps and the whole trace's category split."""
+    n_steps = len(summary.steps)
+    totals = summary.category_totals()
+    device_total = sum(totals.values()) or 1.0
+    record = {
+        "n_steps": n_steps,
+        "n_slices": summary.n_slices,
+        "measured_step_us": round(summary.mean("device_span_us"), 3),
+        "wall_step_us": round(summary.mean("wall_us"), 3),
+        "device_busy_us": round(summary.mean("device_busy_us"), 3),
+        "exposed_comm_us": round(summary.mean("exposed_comm_us"), 3),
+        "categories_us": {k: round(v, 3) for k, v in sorted(totals.items())},
+        "category_fractions": {k: round(v / device_total, 4) for k, v in sorted(totals.items())},
+        "top_ops": [
+            {"name": op.name, "category": op.category, "module": op.module,
+             "total_us": round(op.total_us, 3), "count": op.count}
+            for op in summary.ops[:top]
+        ],
+    }
+    if n_steps:
+        busy = summary.mean("device_busy_us")
+        span = summary.mean("device_span_us")
+        record["device_busy_frac"] = round(busy / span, 4) if span else 0.0
+    return record
+
+
+def publish_prof(registry, record: Mapping, prefix: str = "obs/prof") -> None:
+    """Land a :func:`prof_record`'s scalars as registry gauges, and count
+    the window in ``<prefix>/windows_parsed``."""
+    for key in ("n_steps", "measured_step_us", "wall_step_us", "device_busy_us",
+                "exposed_comm_us", "device_busy_frac"):
+        value = record.get(key)
+        if isinstance(value, (int, float)):
+            registry.gauge(f"{prefix}/{key}").set(float(value))
+    for cat, frac in (record.get("category_fractions") or {}).items():
+        registry.gauge(f"{prefix}/frac_{cat}").set(float(frac))
+    registry.counter(f"{prefix}/windows_parsed").inc()
+
+
+def render_prof(summary: TraceSummary, record: Optional[Mapping] = None, top: int = 15) -> str:
+    """Human table: the per-step headline and the top ops."""
+    record = record or prof_record(summary, top=top)
+    lines = [
+        f"device trace: {summary.n_slices} slices, {record['n_steps']} annotated step(s), "
+        f"{len(summary.modules)} module(s)",
+    ]
+    if record["n_steps"]:
+        lines.append(
+            f"per step: wall {record['wall_step_us']:.1f} us, device span "
+            f"{record['measured_step_us']:.1f} us (busy {record['device_busy_us']:.1f} us), "
+            f"exposed comm {record['exposed_comm_us']:.1f} us"
+        )
+    cats = record["categories_us"]
+    if cats:
+        fracs = record["category_fractions"]
+        lines.append("category totals:")
+        for cat in sorted(cats, key=lambda c: -cats[c]):
+            lines.append(f"  {cat:<12} {cats[cat]:>12.1f} us  {fracs[cat]:>7.1%}")
+    ops = summary.ops[:top]
+    if ops:
+        lines.append(f"{'op':<44} {'category':<11} {'count':>6} {'total_us':>11} {'mean_us':>9}")
+        for op in ops:
+            lines.append(f"{op.name[:44]:<44} {op.category:<11} {op.count:>6} "
+                         f"{op.total_us:>11.1f} {op.mean_us:>9.2f}")
+    return "\n".join(lines)

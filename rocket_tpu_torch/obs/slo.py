@@ -28,11 +28,14 @@ violation ratio, ``value / objective`` for a ceiling and ``objective /
 value`` for a floor (1.0 at the objective). A spec violates when
 ``burn_rate >= burn_threshold``.
 
-``default:train`` is the port's own spec (``slo_specs/train.json``): the
-goodput floor of the reference and a steps/s floor measured for GPT-2
-124M on the H100. ``default:serve`` raises until the serve engine's
-telemetry is ported (ROADMAP Queue A 7b item 4). Standard library only,
-host arithmetic over registry snapshots.
+``default:train`` and ``default:serve`` are the port's own specs
+(``slo_specs/train.json``, ``slo_specs/serve.json``): the goodput floor of
+the reference and a steps/s floor measured for GPT-2 124M on the H100;
+ITL and TTFT p99 ceilings set from GPT-2 124M's serve run on the H100
+with slack for host drift, and the reference's queue-depth bound of 64
+(the reference derives its latency ceilings from a TPU roofline, which
+does not apply to the card). Standard library only, host arithmetic over
+registry snapshots.
 """
 
 from __future__ import annotations
@@ -54,19 +57,13 @@ __all__ = [
 
 _KINDS = ("quantile", "gauge_max", "gauge_min")
 
-#: Directory of the committed default spec files (train.json).
+#: Directory of the committed default spec files (serve.json, train.json).
 _SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "slo_specs")
 
 
 def default_slo_path(kind: str) -> str:
-    """Path of a committed default spec file (``"train"``). ``"serve"``
-    raises: its ceilings come from the serve audit's budgets, which the
-    port's serve path has not been measured against (ROADMAP Queue A 7b
-    item 4)."""
-    if kind == "serve":
-        raise NotImplementedError("default:serve: the serve SLO spec comes with the serve "
-                                  "engine's telemetry (ROADMAP Queue A 7b item 4)")
+    """Path of a committed default spec file (``"serve"`` / ``"train"``)."""
     path = os.path.join(_SPEC_DIR, f"{kind}.json")
     if not os.path.exists(path):
         raise ValueError(

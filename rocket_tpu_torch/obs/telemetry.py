@@ -106,6 +106,11 @@ class Telemetry:
         #: health monitor (None otherwise; every use checks).
         self.flight = None
         self.health = None
+        #: Set by a ServeEngine: its per-request timeline tracer
+        #: (``obs/reqtrace.RequestTracer``), which the exporter flushes each
+        #: window (finished timelines and tail exemplars into the shard
+        #: dir). None outside serving; every use checks.
+        self.reqtrace = None
         #: The live export plane (``obs/export.TelemetryExporter``), attached
         #: by :meth:`start_export`; None keeps the run post-hoc only.
         self.exporter = None

@@ -1,31 +1,39 @@
-"""``python -m rocket_tpu_torch.serve run`` — serve a checkpoint or
-random weights.
+"""``python -m rocket_tpu_torch.serve`` — serve a checkpoint or random
+weights, and render what a serve run wrote (counterpart of
+``rocket_tpu/serve/__main__.py``).
 
-Builds a model (``--config tiny`` or ``charlm``) with the params of the
+``run`` (the default) builds a model (``--config tiny`` or ``charlm``) with the params of the
 newest complete checkpoint under ``--checkpoint`` (the loader of
 ``examples/generate.py``), or random params from ``--seed`` when no
 checkpoint is given or none is complete (with a warning), serves
 ``--requests`` random prompts (or prompts from stdin with ``--stdin``,
 charlm only) through :class:`ServeEngine`, streams the first ``--show``
-requests and prints the report as JSON. Runs on the GPU unless
-``--device cpu`` is given.
+requests and prints the report as JSON, with an enabled Telemetry
+whose ``telemetry.json`` (the serve gauges, histograms and request spans)
+lands under ``--out-dir`` at the end, and the request timelines under
+``<out-dir>/telemetry/``. ``--export`` streams registry shards,
+``--metrics-port`` mounts ``/metrics``, ``--slo`` evaluates a spec
+(``default:serve``) every export window, ``--trace-steps A:B`` captures a
+``torch.profiler`` window over engine ticks [A, B) into ``--trace-dir``
+(default ``<out-dir>/traces``; a malformed window exits 2 at parse time),
+``--no-reqtrace`` turns the request tracer off. Runs on the GPU unless
+``--device cpu`` is given. ``report <telemetry.json | run dir>`` renders
+the serve section of a written ``telemetry.json``.
 
 Examples::
 
     python -m rocket_tpu_torch.serve run --requests 20 --max-new-tokens 24
     python -m rocket_tpu_torch.serve run --config charlm --checkpoint checkpoints/char_lm --stdin
-
-The reference's export, SLO and trace flags (``--export``,
-``--export-interval``, ``--metrics-port``, ``--slo``, ``--no-reqtrace``,
-``--trace-steps``, ``--trace-dir``) are accepted and raise: they come with
-the serve engine's telemetry and request tracing (ROADMAP Queue A 7b item
-4), as does the ``report`` subcommand.
+    python -m rocket_tpu_torch.serve run --export --metrics-port 0 --slo default:serve \
+        --trace-steps 4:8 --out-dir runs/serve
+    python -m rocket_tpu_torch.serve report runs/serve
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -79,9 +87,22 @@ def _workload(args, model, tokenizer):
 
 
 def _run(args) -> int:
+    from rocket_tpu_torch.obs.export import ExportConfig
+    from rocket_tpu_torch.obs.telemetry import Telemetry
     from rocket_tpu_torch.serve.api import ServeConfig, ServeEngine
 
     model, params, tokenizer = _build_model(args)
+    telemetry = Telemetry(enabled=True, out_dir=args.out_dir)
+    telemetry.start()
+    telemetry.start_export(
+        ExportConfig.from_env(enabled=args.export or None, interval_s=args.export_interval,
+                              metrics_port=args.metrics_port, slo_path=args.slo),
+        default_dir=args.out_dir,
+    )
+    exporter = telemetry.exporter
+    if exporter is not None and exporter.server is not None:
+        print(f"serve: /metrics on http://{exporter.server.host}:{exporter.server.port}",
+              file=sys.stderr)
     engine = ServeEngine(
         model, params,
         ServeConfig(
@@ -91,11 +112,16 @@ def _run(args) -> int:
             max_model_len=args.max_model_len,
             prefill_chunk=args.prefill_chunk,
             decode_waves_per_dispatch=args.waves_per_dispatch,
+            reqtrace=not args.no_reqtrace,
         ),
         tokenizer=tokenizer,
+        telemetry=telemetry,
         generator=torch.Generator().manual_seed(args.seed),
         device=args.device,
     )
+    if args.trace_steps:
+        engine.capture_trace(args.trace_steps,
+                             args.trace_dir or os.path.join(args.out_dir, "traces"))
     rids = [
         engine.submit(prompt, max_new_tokens=mnt, temperature=args.temperature,
                       top_k=args.top_k, top_p=args.top_p, eos_token_id=args.eos_token_id)
@@ -109,12 +135,76 @@ def _run(args) -> int:
             print(piece if isinstance(piece, str) else f" {piece}", end="", flush=True)
         print()
     engine.drain()
+    trace_file = engine.finish_trace()
+    if args.trace_steps:
+        if trace_file:
+            print(f"serve: device trace written to {trace_file}; render with "
+                  "`python -m rocket_tpu_torch.obs prof`", file=sys.stderr)
+        else:
+            print("serve: --trace-steps window captured no trace (window past the last tick?)",
+                  file=sys.stderr)
+    if engine.tracer is not None:
+        # The last request-timeline window, flushed even without a live
+        # exporter, so the run dir always renders with `obs timeline`.
+        engine.tracer.flush(telemetry.resolve_out_dir(args.out_dir))
+        print(f"serve: request timelines under {os.path.join(args.out_dir, 'telemetry')}; "
+              f"render with `python -m rocket_tpu_torch.obs timeline {args.out_dir} "
+              "--slowest 3`", file=sys.stderr)
     report = engine.report()
     print(json.dumps({"serve_report": report}, indent=1, sort_keys=True))
+    out_dir = telemetry.flush()
+    print(f"serve: telemetry written to {out_dir}", file=sys.stderr)
+    telemetry.close(write=False)
+    compiled = report["compiled"]
+    if compiled["decode_traces"] != 1 or compiled["prefill_traces"] != 1:
+        print(f"serve: step functions rebuilt: {compiled}", file=sys.stderr)
+        return 1
     if report["requests"]["completed"] != len(rids):
         print("serve: not all requests completed", file=sys.stderr)
         return 1
     return 0
+
+
+def _report(args) -> int:
+    """The serve section of a ``telemetry.json``: every ``serve/*`` gauge
+    and each ``serve/*`` histogram's count, mean and max (the reference's
+    rendering)."""
+    path = args.path
+    if os.path.isdir(path):
+        path = os.path.join(path, "telemetry.json")
+    try:
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError) as exc:
+        print(f"error: cannot read {path}: {exc}", file=sys.stderr)
+        return 2
+    gauges = doc.get("metrics", {}).get("gauges", {})
+    histograms = doc.get("metrics", {}).get("histograms", {})
+    serve_gauges = {k: v for k, v in gauges.items() if k.startswith("serve/")}
+    if not serve_gauges:
+        print(f"{path}: no serve/* gauges — not a serve run?")
+        return 1
+    print(f"serve report — {path}")
+    for name in sorted(serve_gauges):
+        print(f"  {name:32s} {serve_gauges[name]:g}")
+    for name in sorted(h for h in histograms if h.startswith("serve/")):
+        h = histograms[name]
+        mean = h.get("mean")
+        print(f"  {name:32s} count={h.get('count')} "
+              f"mean={mean if mean is None else round(mean, 6)} max={h.get('max')}")
+    return 0
+
+
+def _trace_window_arg(text: str) -> str:
+    """``--trace-steps`` checked at parse time (exit 2 before the model
+    builds)."""
+    from rocket_tpu_torch.obs.prof import parse_step_window
+
+    try:
+        parse_step_window(text)
+    except ValueError as exc:
+        raise argparse.ArgumentTypeError(str(exc)) from exc
+    return text
 
 
 def main(argv=None) -> int:
@@ -144,23 +234,30 @@ def main(argv=None) -> int:
         p.add_argument("--show", type=int, default=2, help="stream the first N requests")
         p.add_argument("--stdin", action="store_true",
                        help="read prompts from stdin (one per line)")
-        for flag, kw in _QUEUED_FLAGS.items():
-            p.add_argument(flag, **kw, help="not ported yet (ROADMAP Queue A 7b item 4)")
+        p.add_argument("--trace-steps", default=None, metavar="A:B", type=_trace_window_arg,
+                       help="capture a torch.profiler window over engine ticks [A, B) "
+                            "(render with `python -m rocket_tpu_torch.obs prof`)")
+        p.add_argument("--trace-dir", default=None,
+                       help="trace output dir (default <out-dir>/traces)")
+        p.add_argument("--out-dir", default=os.path.join("runs", "serve"))
+        p.add_argument("--metrics-port", type=int, default=None,
+                       help="mount a Prometheus /metrics endpoint on this port (0 = ephemeral; "
+                            "env ROCKET_TPU_METRICS_PORT)")
+        p.add_argument("--export", action="store_true",
+                       help="stream registry snapshots as JSONL shards to "
+                            "<out-dir>/telemetry/rank<k>.jsonl (env ROCKET_TPU_EXPORT)")
+        p.add_argument("--export-interval", type=float, default=None, metavar="SECS",
+                       help="exporter tick cadence (default 10)")
+        p.add_argument("--slo", default=None, metavar="SPEC",
+                       help="SLO spec file, or default:serve (env ROCKET_TPU_SLO)")
+        p.add_argument("--no-reqtrace", action="store_true",
+                       help="disable per-request timeline tracing (obs/reqtrace.py)")
+    rep = sub.add_parser("report", help="render a serve telemetry.json")
+    rep.add_argument("path", help="telemetry.json or the run dir holding it")
     args = parser.parse_args(argv)
-    asked = [flag for flag in _QUEUED_FLAGS
-             if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
-    if asked:
-        raise NotImplementedError(f"serve: {', '.join(asked)}: the serve engine's export, SLO "
-                                  "and request-trace plane is not ported yet (ROADMAP Queue A 7b "
-                                  "item 4)")
+    if args.cmd == "report":
+        return _report(args)
     return _run(args)
-
-
-#: The reference CLI's export, SLO and trace flags, accepted to raise.
-_QUEUED_FLAGS = {"--export": {"action": "store_true"}, "--export-interval": {"type": float},
-                 "--metrics-port": {"type": int}, "--slo": {"default": None},
-                 "--no-reqtrace": {"action": "store_true"}, "--trace-steps": {"default": None},
-                 "--trace-dir": {"default": None}}
 
 
 if __name__ == "__main__":

@@ -6,11 +6,22 @@
 request's output incrementally (detokenized when possible) and
 ``report()`` summarises latency and throughput.
 
+The serve half of the ops plane: an attached
+:class:`~rocket_tpu_torch.obs.telemetry.Telemetry` gets the ``serve/*``
+gauges (slots, pool, queue depth, the step functions built once) and
+histograms (``serve/ttft_s``, ``serve/itl_s``, the per-request phases)
+in its registry and one span per finished request (category ``serve``);
+the per-request :class:`~rocket_tpu_torch.obs.reqtrace.RequestTracer`
+(``ServeConfig.reqtrace``, on by default) records every request's
+timeline, exposed as ``telemetry.reqtrace`` for the exporter to flush;
+:meth:`ServeEngine.capture_trace` opens a windowed ``torch.profiler``
+trace over engine ticks, each traced tick under a ``serve_tick#N``
+``record_function`` range (``obs/prof.py`` parses it). None of it adds a
+host sync to a tick.
+
 Sizing defaults: the pool holds ``max_slots`` full-length sequences plus
 the reserved trash block, so the engine never preempts unless
-``num_blocks`` is set smaller. The JAX engine's telemetry, per-request
-tracing and device-trace capture belong to the observability slice and
-are not ported yet (ROADMAP Queue A 7b).
+``num_blocks`` is set smaller.
 """
 
 from __future__ import annotations
@@ -52,6 +63,9 @@ class ServeConfig:
     #: Finished Request records kept for ``result()``/``stream()``; the
     #: oldest beyond this are dropped (``release()`` drops one eagerly).
     max_completed_requests: int = 4096
+    #: Per-request timeline tracing (``obs/reqtrace.py``): on by default;
+    #: host dict work at existing tick boundaries, no device sync.
+    reqtrace: bool = True
 
     def resolve(self, model_config) -> tuple:
         """``(pool_spec, max_blocks_per_seq, num_blocks, waves_per_dispatch)``."""
@@ -111,10 +125,12 @@ class ServeEngine:
 
     ``device`` defaults to the GPU (``runtime.resolve_device``);
     ``generator`` (a ``torch.Generator``) seeds the sampling draws (seed 0
-    when None)."""
+    when None). ``telemetry``: an enabled Telemetry gets the serve gauges,
+    histograms and request spans; None keeps the engine obs-free. The
+    engine never writes the telemetry's files: its caller decides when."""
 
     def __init__(self, model, params, config: Optional[ServeConfig] = None, *,
-                 tokenizer=None, generator: Optional[torch.Generator] = None,
+                 tokenizer=None, telemetry=None, generator: Optional[torch.Generator] = None,
                  device=None) -> None:
         cfg = config or ServeConfig()
         spec, mb, num_blocks, waves = cfg.resolve(model.config)
@@ -130,6 +146,17 @@ class ServeEngine:
         )
         self.scheduler = Scheduler(self.engine, BlockAllocator(num_blocks))
         self.tokenizer = tokenizer
+        self.telemetry = telemetry
+        #: The per-request timeline recorder (None with ``reqtrace`` off),
+        #: also ``telemetry.reqtrace`` so the exporter flushes it.
+        self.tracer = None
+        if cfg.reqtrace:
+            from rocket_tpu_torch.obs.reqtrace import RequestTracer
+
+            self.tracer = RequestTracer(max_records=max(cfg.max_completed_requests, 1))
+            self.scheduler.tracer = self.tracer
+            if telemetry is not None and telemetry.enabled:
+                telemetry.reqtrace = self.tracer
         #: Serialises submit/step/release/report: concurrent ``stream()``
         #: readers each drive ``step()``, and the host mirrors must never
         #: interleave with a dispatch in flight.
@@ -150,6 +177,13 @@ class ServeEngine:
         self._base_harvest_wait_s = 0.0
         self._base_device_gets = 0
         self._base_dispatches = 0
+        # The windowed device trace (obs/prof.TraceSession), armed by
+        # capture_trace() and driven tick by tick inside step().
+        self._trace_window: Optional[tuple] = None
+        self._trace_session = None
+        #: The last closed window's Chrome trace (``python -m
+        #: rocket_tpu_torch.obs prof`` renders it).
+        self.trace_file: Optional[str] = None
 
     # -- intake ------------------------------------------------------------
 
@@ -161,7 +195,7 @@ class ServeEngine:
         if isinstance(prompt, str):
             if self.tokenizer is None:
                 with self._lock:
-                    self.scheduler.rejected += 1
+                    self._reject_locked()
                 raise ValueError("ServeEngine.submit: text prompt needs a tokenizer")
             prompt = self.tokenizer.encode(prompt)
         req = Request(
@@ -176,10 +210,25 @@ class ServeEngine:
             try:
                 rid = self.scheduler.submit(req)
             except ValueError:
-                self.scheduler.rejected += 1
+                self._reject_locked()
                 raise
             self.requests[rid] = req
+            # Queue depth at submit granularity: a burst between ticks is
+            # visible to a scrape.
+            self._publish_queue_locked()
         return rid
+
+    def _reject_locked(self) -> None:
+        self.scheduler.rejected += 1
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.registry.counter("serve/rejected_requests").inc()
+            self._publish_queue_locked()
+
+    def _publish_queue_locked(self) -> None:
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.registry.gauge("serve/queue_depth").set(self.scheduler.queue_depth)
 
     # -- stepping ----------------------------------------------------------
 
@@ -192,9 +241,19 @@ class ServeEngine:
         ``(now - previous emit) / n``; a request's first batch contributes
         only its TTFT."""
         with self._lock:
+            self._trace_poll_locked()
             t0 = time.perf_counter()
             gets_before = self.engine.device_gets
-            events = self.scheduler.tick()
+            traced = self._trace_session is not None and self._trace_session.active
+            if self.tracer is not None:
+                # While a window is open the tick's wave record carries its
+                # annotation's step id (the join to its device slices).
+                self.tracer.trace_step = self._ticks if traced else None
+            if traced:
+                with torch.profiler.record_function(f"serve_tick#{self._ticks}"):
+                    events = self.scheduler.tick()
+            else:
+                events = self.scheduler.tick()
             self._ticks += 1
             self._occupancy_sum += self.scheduler.active_slots
             now = time.perf_counter()
@@ -217,14 +276,20 @@ class ServeEngine:
                     if first_of_batch:
                         self._ttft.append(req.first_token_at - req.submitted_at)
                 else:
-                    self._itl.append((now - prev) / batch[req.id])
+                    itl = (now - prev) / batch[req.id]
+                    self._itl.append(itl)
+                    if self.telemetry is not None and self.telemetry.enabled:
+                        # What /metrics and the ITL p99 SLO watch live.
+                        self.telemetry.registry.histogram("serve/itl_s", base=1e-6).observe(itl)
                 if ev.finished:
                     self._last_emit.pop(req.id, None)
+                    self._finish_span(req)
                     self._retire_locked(req.id)
                 elif seen[req.id] == batch[req.id]:
                     self._last_emit[req.id] = now
             del self._ttft[:-self._latency_cap]
             del self._itl[:-self._latency_cap]
+            self._publish()
             return events
 
     def _retire_locked(self, rid: int) -> None:
@@ -232,7 +297,12 @@ class ServeEngine:
         self._finished_order.append(rid)
         cap = max(self.config.max_completed_requests, 0)
         while len(self._finished_order) > cap:
-            self.requests.pop(self._finished_order.pop(0), None)
+            old = self._finished_order.pop(0)
+            self.requests.pop(old, None)
+            if self.tracer is not None:
+                # The finished record was queued for persistence at finish;
+                # only the in-memory copy goes.
+                self.tracer.release(old)
 
     def release(self, rid: int) -> None:
         """Drop a finished request's record eagerly."""
@@ -243,12 +313,58 @@ class ServeEngine:
             self.requests.pop(rid, None)
             if rid in self._finished_order:
                 self._finished_order.remove(rid)
+            if self.tracer is not None:
+                self.tracer.release(rid)
+
+    # -- windowed device-trace capture -------------------------------------
+
+    def capture_trace(self, window, trace_dir: str) -> None:
+        """Arm a windowed device trace over engine ticks: ``window`` is
+        ``(start, stop)`` tick indices (or ``"A:B"``); the ``torch.profiler``
+        window opens before tick ``start`` and closes before tick
+        ``stop`` (or at :meth:`finish_trace`), each traced tick inside a
+        ``serve_tick#N`` range."""
+        from rocket_tpu_torch.obs.prof import TraceSession, parse_step_window
+
+        if isinstance(window, str):
+            window = parse_step_window(window)
+        start, stop = int(window[0]), int(window[1])
+        if start < 0 or stop <= start:
+            raise ValueError(f"capture_trace: window {window!r} needs 0 <= start < stop")
+        with self._lock:
+            self._trace_window = (start, stop)
+            self._trace_session = TraceSession(trace_dir)
+
+    @property
+    def trace_session(self):
+        """The armed :class:`~rocket_tpu_torch.obs.prof.TraceSession`, or None."""
+        return self._trace_session
+
+    def _trace_poll_locked(self) -> None:
+        """Open or close the armed window for the tick about to run."""
+        if self._trace_session is None:
+            return
+        start, stop = self._trace_window
+        if self._trace_session.active:
+            if self._ticks >= stop:
+                self.trace_file = self._trace_session.stop()
+        elif start <= self._ticks < stop:
+            self._trace_session.start()
+
+    def finish_trace(self) -> Optional[str]:
+        """Close a still-open window (the engine drained before its stop
+        tick); returns the trace file."""
+        with self._lock:
+            if self._trace_session is not None and self._trace_session.active:
+                self.trace_file = self._trace_session.stop()
+            return self.trace_file
 
     def drain(self, max_ticks: int = 100_000) -> list:
         """Step until every submitted request completed."""
         events = []
         for _ in range(max_ticks):
             if self.scheduler.idle:
+                self.finish_trace()
                 return events
             events.extend(self.step())
         raise RuntimeError(f"ServeEngine.drain: not idle after {max_ticks} ticks")
@@ -265,6 +381,8 @@ class ServeEngine:
                 emitted += 1
                 yield detok.push(tok) if detok is not None else tok
             if req.finished:
+                if self.tracer is not None:
+                    self.tracer.on_detokenize(rid, time.perf_counter())
                 return
             if self.scheduler.idle:
                 raise RuntimeError(f"ServeEngine.stream: engine idle but request {rid} unfinished")
@@ -279,15 +397,56 @@ class ServeEngine:
             raise ValueError("ServeEngine.text: no tokenizer attached")
         return self.tokenizer.decode(self.requests[rid].tokens)
 
+    # -- observability -----------------------------------------------------
+
+    def _finish_span(self, req: Request) -> None:
+        tel = self.telemetry
+        if tel is None or not tel.enabled:
+            return
+        tel.spans.add(f"serve/request[{req.id}]", "serve", req.submitted_at,
+                      req.finished_at - req.submitted_at)
+        reg = tel.registry
+        reg.histogram("serve/ttft_s", base=1e-4).observe(req.first_token_at - req.submitted_at)
+        if self.tracer is not None:
+            phases = self.tracer.phases(req.id)
+            if phases is not None:
+                # Where request wall time went, fleet-wide.
+                reg.histogram("serve/queue_wait_s", base=1e-6).observe(phases["queue_s"])
+                reg.histogram("serve/prefill_s", base=1e-6).observe(phases["prefill_s"])
+                reg.histogram("serve/decode_s", base=1e-6).observe(phases["decode_s"])
+                if phases["preempted_s"] > 0:
+                    reg.histogram("serve/preempted_s", base=1e-6).observe(phases["preempted_s"])
+
+    def _publish(self) -> None:
+        tel = self.telemetry
+        if tel is None or not tel.enabled:
+            return
+        reg, sched, eng = tel.registry, self.scheduler, self.engine
+        reg.gauge("serve/slots_active").set(sched.active_slots)
+        reg.gauge("serve/queue_depth").set(sched.queue_depth)
+        reg.gauge("serve/blocks_free_fraction").set(sched.allocator.free_fraction)
+        reg.gauge("serve/kv_pool_bytes").set(eng.spec.pool_bytes)
+        reg.gauge("serve/tokens_generated").set(sched.tokens_generated)
+        reg.gauge("serve/requests_completed").set(sched.completed)
+        reg.gauge("serve/preemptions").set(sched.preemptions)
+        # The step functions built once for the engine's lifetime.
+        reg.gauge("serve/decode_traces").set(eng.decode_traces)
+        reg.gauge("serve/prefill_traces").set(eng.prefill_traces)
+        reg.gauge("serve/decode_dispatches").set(eng.decode_dispatches)
+        reg.gauge("serve/device_gets").set(eng.device_gets)
+
     # -- metrics -----------------------------------------------------------
 
     def reset_metrics(self) -> None:
         """Zero the latency/throughput aggregates (e.g. after a warmup
-        ``drain()``) so the report describes the steady state. Call while
+        ``drain()``) so the report describes the steady state; the
+        registry's ``serve/*`` metrics are windowed alike. Call while
         idle."""
         with self._lock:
             self._ttft.clear()
             self._itl.clear()
+            if self.telemetry is not None and self.telemetry.enabled:
+                self.telemetry.registry.reset("serve/")
             self._first_wave_at = None
             self._last_event_at = None
             self._occupancy_sum = 0
@@ -344,6 +503,9 @@ class ServeEngine:
                         if self._step_wall_s > 0 else None
                     ),
                 },
+                # The retained requests' phase breakdown and ITL-gap
+                # attribution (None with reqtrace off or nothing finished).
+                "phases": self.tracer.aggregate() if self.tracer is not None else None,
                 "pool": {
                     "num_blocks": eng.spec.num_blocks,
                     "block_len": eng.spec.block_len,

@@ -21,7 +21,9 @@ buffers; here the in-place update is the donation.
 tensors WITHOUT synchronising (no ``.item()``, no ``.cpu()``);
 :meth:`SlotEngine.harvest` makes the one ``.cpu()`` transfer per
 dispatch, so the scheduler admits, prefills and detokenizes wave N-1's
-results while wave N runs on the device.
+results while wave N runs on the device. Both deliberate transfers (the
+uploads of the host mirrors and the harvest) go through
+``runtime.explicit_transfer``, so a tick is silent under strict mode.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 from rocket_tpu_torch.models.sampling import freeze_after_eos, sample_tokens
 from rocket_tpu_torch.models.transformer import decode_params
 from rocket_tpu_torch.nn.module import map_params
-from rocket_tpu_torch.runtime import resolve_device
+from rocket_tpu_torch.runtime import explicit_transfer, resolve_device
 from rocket_tpu_torch.serve.kv_pool import KVPoolSpec
 
 __all__ = ["SlotEngine", "WaveHandle", "build_decode_wave", "build_prefill_step"]
@@ -155,20 +157,25 @@ class SlotEngine:
         self.prefill_chunks = 0
         #: Seconds :meth:`harvest` spent blocked on the device.
         self.harvest_wait_s = 0.0
+        #: ``time.perf_counter()`` at the last dispatch's enqueue (the
+        #: request tracer's wave record).
+        self.last_dispatch_at = None
 
     def _upload(self, ints: list, floats: list) -> tuple:
         """Host mirrors -> device in two copies (one int32, one float32).
         The mirrors are copied at call time, so the scheduler may mutate
         them while the dispatch runs."""
         flat_i = np.concatenate([np.asarray(a).astype(np.int32).reshape(-1) for a in ints])
-        dev_i = torch.from_numpy(flat_i).to(self.device)
+        with explicit_transfer():
+            dev_i = torch.from_numpy(flat_i).to(self.device)
+            dev_f = (torch.from_numpy(np.stack(floats).astype(np.float32)).to(self.device)
+                     if floats else None)
         out, at = [], 0
         for a in ints:
             n = int(np.size(a))
             out.append(dev_i[at:at + n].reshape(np.shape(a)))
             at += n
-        if floats:
-            dev_f = torch.from_numpy(np.stack(floats).astype(np.float32)).to(self.device)
+        if dev_f is not None:
             out.extend(dev_f.unbind(0))
         return tuple(out)
 
@@ -179,6 +186,7 @@ class SlotEngine:
         without synchronising — :meth:`harvest` fetches them."""
         self.decode_dispatches += 1
         self.decode_waves += self.waves_per_dispatch
+        self.last_dispatch_at = time.perf_counter()
         table, lengths, last_tok, run, limits, top_k, eos, seeds, temp, top_p = self._upload(
             [block_table, lengths, last_tok, run_mask, limits, top_k, eos, seeds],
             [temp, top_p],
@@ -195,8 +203,9 @@ class SlotEngine:
         self.device_gets += 1
         t0 = time.perf_counter()
         packed = torch.stack(
-            [handle.tokens, handle.done.to(torch.int32), handle.emitted.to(torch.int32)]
-        ).cpu().numpy()
+            [handle.tokens, handle.done.to(torch.int32), handle.emitted.to(torch.int32)])
+        with explicit_transfer():
+            packed = packed.cpu().numpy()
         self.harvest_wait_s += time.perf_counter() - t0
         return packed[0], packed[1].astype(bool), packed[2].astype(bool)
 

@@ -22,6 +22,14 @@ device dispatch:
 The scheduler owns fixed-shape numpy mirrors of every per-slot input of
 the decode step; between a dispatch and its harvest it only touches slots
 the dispatch did not run.
+
+An attached :class:`~rocket_tpu_torch.obs.reqtrace.RequestTracer`
+(``tracer``) is fed at the reference's points: submit, admit, each
+prefill chunk, one shared wave record per dispatch (its seq rides the
+pending dispatch, so wave N-1's harvest is charged to its own record
+while wave N runs), the harvest, one participation event per request per
+dispatch, eviction and finish. Every hook is a ``time.perf_counter()``
+stamp and host dict work, guarded, so a bare scheduler pays nothing.
 """
 
 from __future__ import annotations
@@ -112,6 +120,10 @@ class Scheduler:
         self.queue: deque = deque()
         #: The in-flight decode dispatch, harvested at the next tick.
         self.pending = None
+        #: Optional request tracer (``obs/reqtrace.RequestTracer``).
+        self.tracer = None
+        #: The tracer's wave-record seq paired with ``pending``.
+        self._pending_seq = None
         self._next_id = 0
         self._admit_seq = 0
         self.submitted = 0
@@ -154,6 +166,9 @@ class Scheduler:
         req.submitted_at = time.perf_counter()
         self.queue.append(req)
         self.submitted += 1
+        if self.tracer is not None:
+            self.tracer.on_submit(req.id, req.submitted_at, prompt_len=prompt.size,
+                                  max_new_tokens=req.max_new_tokens)
         return req.id
 
     # -- the serving step --------------------------------------------------
@@ -171,6 +186,12 @@ class Scheduler:
                 self.block_table, self.lengths, self.last_tok, run, self.limits,
                 self.temp, self.top_k, self.top_p, self.eos, self.seeds,
             )
+            if self.tracer is not None:
+                # One shared wave record per dispatch, harvested with
+                # `pending` next tick.
+                self._pending_seq = self.tracer.on_dispatch(
+                    occupancy=int(run.sum()), t=self.engine.last_dispatch_at,
+                    waves=self.engine.waves_per_dispatch)
         return events
 
     @property
@@ -216,6 +237,9 @@ class Scheduler:
             self.top_p[slot] = 1.0 if req.top_p is None else req.top_p
             self.eos[slot] = -1 if req.eos_token_id is None else req.eos_token_id
             self.seeds[slot] = req.id % (2**31 - 1)
+            if self.tracer is not None:
+                self.tracer.on_admit(req.id, time.perf_counter(), slot, ctx_len=len(ctx),
+                                     resumed=req.preemptions > 0)
 
     def _prefill_one(self) -> None:
         """One chunk of the OLDEST still-prefilling slot (FIFO keeps TTFT fair)."""
@@ -241,6 +265,8 @@ class Scheduler:
         )
         st.prefill_pos = start + valid
         self.lengths[slot] = st.prefill_pos
+        if self.tracer is not None:
+            self.tracer.on_prefill(st.req.id, time.perf_counter(), start, valid)
 
     def _grow_tables(self) -> np.ndarray:
         """Cover every position the next dispatch may write (up to k tokens
@@ -284,6 +310,8 @@ class Scheduler:
         st.req.preemptions += 1
         self.preemptions += 1
         self.queue.appendleft(st.req)
+        if self.tracer is not None:
+            self.tracer.on_evict(st.req.id, time.perf_counter())
         self._clear(slot)
 
     def _harvest_pending(self) -> list:
@@ -293,8 +321,13 @@ class Scheduler:
         if self.pending is None:
             return []
         handle, self.pending = self.pending, None
+        seq, self._pending_seq = self._pending_seq, None
         toks, done, emitted = self.engine.harvest(handle)
         now = time.perf_counter()
+        if self.tracer is not None and seq is not None:
+            self.tracer.on_harvest(seq, now)
+        emitted_by: dict = {}
+        finished_ids: list = []
         events = []
         for wave in range(toks.shape[0]):
             for slot in np.nonzero(emitted[wave])[0]:
@@ -309,12 +342,21 @@ class Scheduler:
                 self.lengths[slot] += 1
                 self.last_tok[slot] = tok
                 finished = bool(done[wave, slot])
+                emitted_by[st.req.id] = emitted_by.get(st.req.id, 0) + 1
                 if finished:
                     st.req.finished_at = now
                     self.completed += 1
                     self.allocator.free(st.blocks)
                     self._clear(slot)
+                    finished_ids.append(st.req.id)
                 events.append(TickEvent(st.req, tok, finished))
+        if self.tracer is not None and emitted_by:
+            # One participation event per request per dispatch: its k
+            # waves share one harvest instant.
+            for rid, n in emitted_by.items():
+                self.tracer.on_tokens(rid, seq, n, now)
+            for rid in finished_ids:
+                self.tracer.on_finish(rid, now)
         return events
 
     def _clear(self, slot: int) -> None:

@@ -108,6 +108,41 @@ def test_paged_decode_rejects_bad_operands(cuda):
         tpa.paged_decode(q.transpose(0, 1).contiguous().transpose(0, 1), pages, pages, table, pos)
 
 
+@pytest.mark.cuda
+def test_a_traced_serve_window_parses_to_the_paged_decode_counter(cuda, tmp_path):
+    """A ``capture_trace`` window over a small engine's ticks: the
+    ``paged_decode`` calls that ``obs/prof.parse_trace`` files under the
+    window's ``serve_tick`` steps (joined by correlation id) equal the
+    launch counter's change over the window, one per layer per wave."""
+    import numpy as np
+
+    from rocket_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from rocket_tpu_torch.obs import prof
+    from rocket_tpu_torch.serve import ServeConfig, ServeEngine
+
+    model = TransformerLM(TransformerConfig(vocab_size=128, max_seq_len=128, dim=64,
+                                            num_layers=2, num_heads=4))
+    params = model.init(torch.Generator().manual_seed(0), device=cuda)
+    engine = ServeEngine(model, params, ServeConfig(max_slots=4, block_len=16, prefill_chunk=16),
+                         device=cuda)
+    engine.capture_trace((6, 12), str(tmp_path))
+    for n in (5, 17, 30, 9):
+        engine.submit(np.arange(n, dtype=np.int32) % 128, max_new_tokens=24)
+    marks = {}
+    while not engine.scheduler.idle:
+        if engine._ticks in (6, 12):
+            marks[engine._ticks] = (tpa.paged_decode.launches, engine.engine.decode_waves)
+        engine.step()
+    engine.finish_trace()
+    summary = prof.parse_trace(prof.load_trace_events(engine.trace_file))
+    launches, waves = (marks[12][i] - marks[6][i] for i in (0, 1))
+    assert [s.step for s in summary.steps] == list(range(6, 12))
+    assert summary.step_launches("paged_decode") == launches == 2 * waves > 0
+    paged = {op.name for op in summary.ops if op.module == "paged_decode"}
+    assert paged == {"paged_split_kernel", "paged_combine_kernel"}
+    assert all(op.category == "compute" for op in summary.ops if op.module)
+
+
 #: Row 2's positions: the first row, the rows around the first 64-row split
 #: boundary, generate()'s last row at T = 192, and the cache's last row.
 DECODE_POSITIONS = (0, 63, 64, 191, -1)

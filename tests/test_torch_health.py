@@ -214,13 +214,10 @@ class _Keep(Capsule):
         prepared = self.module.prepared
         view = prepared.checkpoint_state()
         grab = lambda tree: jax.tree.map(lambda t: t.detach().numpy().copy(), tree)  # noqa: E731
-        first = toptim.param_leaves(prepared.state["params"])[0]
         params = grab(view["params"])
-        opt = view.get("optimizer") or {}  # empty until the first update
-        zeros = jax.tree.map(np.zeros_like, params)
-        row = {"params": params, "mu": grab(opt["exp_avg"]) if opt else zeros,
-               "nu": grab(opt["exp_avg_sq"]) if opt else zeros,
-               "count": int(prepared.state["optimizer"].state[first]["step"]) if opt else 0,
+        opt = view["opt_state"]["0"]  # optax's ScaleByAdamState, zeros before an update
+        row = {"params": params, "mu": grab(opt["mu"]), "nu": grab(opt["nu"]),
+               "count": int(opt["count"]),
                "skipped": int(prepared.state["health"]["skipped"])
                if "health" in prepared.state else 0}
         if "ema_params" in view:
@@ -504,8 +501,8 @@ def test_dump_and_halt_writes_a_resumable_bundle(tmp_path):
     launcher.setup()
     try:
         view = resumed.prepared.checkpoint_state()
-        for key, tree in (("params", view["params"]), ("mu", view["optimizer"]["exp_avg"]),
-                          ("nu", view["optimizer"]["exp_avg_sq"])):
+        for key, tree in (("params", view["params"]), ("mu", view["opt_state"]["0"]["mu"]),
+                          ("nu", view["opt_state"]["0"]["nu"])):
             for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(
                     jax.tree.map(lambda t: t.detach().numpy(), tree)),
                     jax.tree.leaves(last_good[key])):

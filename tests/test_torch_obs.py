@@ -237,32 +237,38 @@ def test_port_run_writes_files_the_reference_cli_renders(tmp_path, capsys):
 
 @pytest.mark.parametrize("kw", [{"export": True}, {"metrics_port": 9100},
                                 {"slo": "default:train"}, {"export_interval_s": 5.0}])
-def test_live_export_arguments_raise_naming_queue_a_7b(kw):
-    """The Runtime takes the live export plane's arguments since it was
-    ported; the serve CLI's export, SLO and trace flags (the same four
-    knobs) still raise, naming Queue A 7b item 4."""
+def test_live_export_arguments_raise_naming_queue_a_7b(kw, tmp_path, capsys):
+    """The Runtime takes the live export plane's arguments, and since the
+    serve half of the plane was ported (Queue A 7b item 4) so does the serve
+    CLI: each of the four knobs serves on the CPU and writes its run dir."""
     from rocket_tpu_torch.serve import __main__ as serve_cli
 
     (key, value), = kw.items()
-    flag = {"export": ["--export"], "metrics_port": ["--metrics-port", str(value)],
+    flag = {"export": ["--export"], "metrics_port": ["--metrics-port", "0"],
             "slo": ["--slo", "default:serve"], "export_interval_s": ["--export-interval",
                                                                      str(value)]}[key]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 7b item 4"):
-        serve_cli.main(["run", "--device", "cpu", *flag])
+    assert serve_cli.main(["run", "--device", "cpu", "--requests", "2", "--max-new-tokens", "3",
+                           "--out-dir", str(tmp_path), *flag]) == 0
+    assert '"serve_report"' in capsys.readouterr().out
+    assert (tmp_path / "telemetry.json").exists()
+    assert (tmp_path / "telemetry" / "reqtrace.jsonl").exists()
 
 
-def test_live_export_environment_raises(monkeypatch):
-    """``ROCKET_TPU_EXPORT`` turns the port's export on; the serve SLO spec
-    it may name still raises (Queue A 7b item 4), from the environment as
-    from the loader."""
+def test_live_export_environment_raises(monkeypatch, tmp_path):
+    """``ROCKET_TPU_EXPORT`` turns the port's export on, and the serve SLO
+    spec it may name loads (Queue A 7b item 4 is ported), from the
+    environment as from the loader."""
     from rocket_tpu_torch.obs.slo import load_slo_specs
 
     monkeypatch.setenv("ROCKET_TPU_EXPORT", "1")
     monkeypatch.setenv("ROCKET_TPU_SLO", "default:serve")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 7b item 4"):
-        rt.Runtime(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 7b item 4"):
-        load_slo_specs("default:serve")
+    runtime = rt.Runtime(device="cpu", project_dir=str(tmp_path))
+    try:
+        exporter = runtime.telemetry.exporter
+        assert exporter is not None and [s.name for s in exporter.slos.specs] == [
+            s.name for s in load_slo_specs("default:serve")]
+    finally:
+        runtime.telemetry.close(write=False)
 
 
 def test_ops_arguments_and_environment_follow_the_reference(monkeypatch, tmp_path):

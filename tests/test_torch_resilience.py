@@ -18,12 +18,12 @@ Parity with the reference:
   AdamW tolerance of ``tests/test_torch_core.py`` (2e-5 absolute and
   relative).
 
-A train-state checkpoint does not resume across the packages (ROADMAP
-Queue C): the port's ``base_key`` is its counter-hash int where the
-reference keeps ``uint32[2]`` key data, and the port's optimizer state is
-torch's per-param layout (``optimizer/exp_avg/...``) where the reference
-keeps optax's ``opt_state``. What crosses is checked: params, the step
-layout, the capsule states and ``drain.json``.
+A train-state checkpoint resumes across the packages: the port writes
+and reads the reference's leaf names (optax's ``opt_state``, an int32
+``step``, ``uint32[2]`` key data; ``tests/test_torch_train_state_layout.py``
+holds the layout). Besides params, the step layout, the capsule states and
+``drain.json``, each package resumes the other's drain and ends where its
+own resume ends.
 
 The slice: a two-layer, width-64 GPT-2 in ``examples.gpt2.build``'s tree
 on the CPU (f32 activations), killed in generation 0 by ``ROCKET_TPU_FAULTS``, restarted
@@ -40,6 +40,7 @@ import itertools
 import json
 import os
 import pickle
+import shutil
 import signal
 import subprocess
 import sys
@@ -499,6 +500,28 @@ def test_a_drain_matches_the_references_and_each_resume_ends_alike(tmp_path):
     got_params = jax.tree.map(lambda t: t.detach().numpy(), prepared.state["params"])
     assert prepared.state["step"] == grab.step == 8
     for g, w in zip(jax.tree.leaves(got_params), jax.tree.leaves(grab.params)):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
+    # Across: the port resumes the JAX package's drain, the JAX package the
+    # port's; each ends within the tolerance of the other package's resume.
+    assert sorted(port_by_jax) == sorted(tio.load_pytree(os.path.join(jax_ck, "3", "model_0")))
+    cross_port, cross_jax = str(tmp_path / "cross_port"), str(tmp_path / "cross_jax")
+    shutil.copytree(os.path.join(jax_ck, "3"), os.path.join(cross_port, "3"))
+    shutil.copytree(os.path.join(port_ck, "3"), os.path.join(cross_jax, "3"))
+    launcher3, prepared3 = _tree(rt.Runtime(device="cpu", seed=0,
+                                            project_dir=str(tmp_path / "p3")), cross_port, jparams)
+    launcher3.launch()
+    jlauncher3, jprepared3 = _jtree(tmp_path / "j3", cross_jax, jmodel, jparams)
+    grab3 = _JGrab(jprepared3)
+    looper = jlauncher3._capsules[0]
+    looper._capsules = sorted([*looper._capsules, grab3], key=lambda c: -c.priority)
+    grab3.bind(looper._runtime)
+    jlauncher3.launch()
+    assert prepared3.state["step"] == grab3.step == 8
+    for g, w in zip(jax.tree.leaves(jax.tree.map(lambda t: t.detach().numpy(),
+                                                 prepared3.state["params"])),
+                    jax.tree.leaves(grab.params)):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
+    for g, w in zip(jax.tree.leaves(grab3.params), jax.tree.leaves(got_params)):
         np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
 
 
