@@ -95,7 +95,17 @@ the last draining on SIGTERM), exporting metric shards and ``/metrics``
 judged by ``default:train``, then resumed to its last step: params and
 both moments bitwise those of an uninterrupted run, which traces a window
 of three steps into its telemetry's ``obs/prof/*`` gauges; and LeNet under strict
-mode and ``skip_step`` with one batch poisoned on the card. Last, rows 9-10
+mode and ``skip_step`` with one batch poisoned on the card. Then the
+data-parallel slice: GPT-2 124M trained by two ranks sharing the card over
+a gloo group their worker opens (global B=8, the bucketed reduction on its
+bf16 wire), against one rank at B=8 in a process of its own: per-step
+losses, the step-1 gradients at the f32 wire, the ranks' end params
+bitwise, rows 3-4 on every rank (``dp_train``); a one-rank run resumed
+from the two ranks' per-rank checkpoint shards (``dp_checkpoint``); the
+same tree under ``fsdp_rules`` (``dp_fsdp``: two ranks where gloo takes
+the FSDP collectives on CUDA, else NCCL at world size 1); and ``python -m
+rocket_tpu_torch.launch -n 1`` on ``examples/gpt2.py`` over NCCL under
+strict mode (``dp_launch``). Last, rows 9-10
 against their plain versions at f16, C = 3, C = 12 and C = 4096 (two
 channel chunks).
 
@@ -4759,6 +4769,388 @@ def poison_gate_phase(card):
          strict=True, device_resident=True, wall_s=wall, card=card)
 
 
+
+# -- the data-parallel slice: process group, bucketed sync, FSDP layout -------
+
+#: dp_train: two ranks against one, per-step losses (bf16 compute, the
+#: batch split differently over the GEMMs) and the step-1 gradients (f32
+#: compute and wire: the batch split and the reduction alone), relative to
+#: the largest one-rank gradient.
+DP_LOSS_TOL, DP_GRAD_TOL = 2e-2, 1e-3
+#: dp_train's bf16 wire against its f32 wire, step 1, f32 compute (the
+#: CPU tests' bounds): each bucket's sum relative to its mass (the f32
+#: bucket-sum correction: f32 precision), each element relative to its
+#: bucket's largest (two bf16 roundings of 2^-9 and the correction's shift).
+DP_WIRE_SUM_TOL, DP_WIRE_TOL = 1e-6, 2.0 ** -7
+#: dp_checkpoint: a one-rank run resumed from the two ranks' step-4
+#: checkpoint against the uninterrupted two-rank run's step 8: AdamW moves
+#: a param at most ~lr (6e-4) a step, so a gradient whose sign the batch
+#: split flips moves it 2 lr apart: 4 steps, 5e-3.
+DP_PARAM_TOL = 5e-3
+DP_STEPS, DP_SAVE_AT = 8, 4
+
+DP_WORKER = r"""
+import dataclasses, hashlib, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, root, job_file = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+cfg = json.load(open(job_file))
+torch.backends.cuda.matmul.allow_tf32 = False
+if cfg["backend"] == "gloo":
+    # The caller opens the group; the Runtime adopts it.
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=cfg["world"])
+import rocket_tpu_torch as rt
+from rocket_tpu_torch import optim
+from rocket_tpu_torch.data.text import TokenDataset
+from rocket_tpu_torch.examples import gpt2
+from rocket_tpu_torch.core.module import PreparedModule
+from rocket_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from rocket_tpu_torch.nn.module import map_params
+from rocket_tpu_torch.ops import flash_native as fa
+from rocket_tpu_torch.parallel.sharding import fsdp_rules
+
+model_cfg = TransformerConfig.gpt2_124m()
+data = TokenDataset(np.load(os.path.join(root, "tokens.npy")) % model_cfg.vocab_size,
+                    seq_len=model_cfg.max_seq_len)
+# Every job of every rank starts from these params (drawn once a process:
+# GPT-2's CPU-side init takes ~10 s).
+init_params = TransformerLM(model_cfg).init(torch.Generator().manual_seed(0), device="cuda")
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class Clock(rt.Capsule):
+    def __init__(self):
+        super().__init__(priority=10)
+        self.module, self.prepared = None, None
+        self.losses, self.stamps, self.waits = [], [], []
+
+    def set(self, attrs=None):
+        super().set(attrs)
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def launch(self, attrs=None):
+        self.prepared = self.module.prepared  # the train state, past destroy
+        self.losses.append(float(attrs.step_metrics["loss"]))
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        if self.module.grad_sync is not None:
+            self.waits.append(self.module.grad_sync.stats["wait_s"])
+
+
+class GradTap(rt.Capsule):
+    # Before the Module: its first update's (reduced) gradients, saved flat.
+    def __init__(self, path):
+        super().__init__(priority=2000)
+        self.module, self.path, self.done = None, path, False
+
+    def launch(self, attrs=None):
+        if self.done:
+            return
+        self.done, module, update = True, self.module, self.module._update
+
+        def tap(leaves, grads, *args, **kw):
+            if rank == 0:
+                np.save(self.path, torch.cat([g.float().reshape(-1) for g in grads]).cpu().numpy())
+            module._update = update
+            return update(leaves, grads, *args, **kw)
+
+        module._update = tap
+
+
+results = {"rank": rank, "jobs": {}}
+if cfg.get("probe"):
+    # Does this backend take FSDP's collectives on CUDA tensors?
+    try:
+        x = torch.ones(4 * cfg["world"], device="cuda")
+        dist.all_to_all_single(torch.empty_like(x), x)
+        dist.all_gather_into_tensor(torch.empty(4 * cfg["world"], device="cuda"),
+                                    torch.ones(4, device="cuda"))
+        torch.cuda.synchronize()
+        results["probe"] = "ok"
+    except (RuntimeError, NotImplementedError) as exc:
+        results["probe"] = repr(exc)[:300]
+for job in cfg["jobs"]:
+    if job.get("needs_probe") and results.get("probe") != "ok":
+        continue
+    runtime = rt.Runtime(seed=0, strict=job.get("strict", False))
+    clock, caps = Clock(), []
+    tap = GradTap(os.path.join(root, job["name"] + "_grads.npy")) if job.get("tap") else None
+    caps += [tap] if tap is not None else []
+    caps.append(clock)
+    ckpt = None
+    if job.get("save_every") or job.get("resume_from"):
+        ckpt = rt.Checkpointer(output_dir=os.path.join(root, job["name"] + "_ck"),
+                               save_every=job.get("save_every") or 1000,
+                               resume_from=job.get("resume_from"))
+        caps.append(ckpt)
+    job_cfg = model_cfg
+    if job.get("activation_dtype"):
+        job_cfg = dataclasses.replace(model_cfg, activation_dtype=job["activation_dtype"])
+    run = gpt2.build(job_cfg, data, batch_size=8, runtime=runtime, steps=job["steps"],
+                     record=False, capsules=tuple(caps), grad_sync=job.get("grad_sync", "auto"),
+                     grad_wire_dtype=job.get("wire", "bfloat16"),
+                     param_sharding=fsdp_rules() if job.get("fsdp") else None)
+    module = clock.module = run["module"]
+    runtime.models.add(run["model"], PreparedModule(
+        run["model"], {"params": map_params(lambda t: t.clone(), init_params)}))
+    if tap is not None:
+        tap.module = module
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd.launches = fa.flash_bwd.launches = fa.flash_dq.launches = 0
+    t0 = time.perf_counter()
+    run["launcher"].launch()
+    wall = time.perf_counter() - t0
+    leaves = optim.param_leaves(clock.prepared.state["params"])
+    out = {"losses": clock.losses, "step_ms": [1e3 * d for d in np.diff(clock.stamps)],
+           "wall_s": wall, "launches": {"flash_fwd": fa.flash_fwd.launches,
+                                        "flash_bwd": fa.flash_bwd.launches,
+                                        "flash_dq": fa.flash_dq.launches},
+           "wait_ms": [1e3 * w for w in clock.waits], "backend": runtime.backend,
+           "world": runtime.process_count, "device_mesh": str(runtime.device_mesh),
+           "params_sha256": digest(leaves), "sharded": clock.prepared.sharded(),
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "moment_bytes": sum(v.numel() * v.element_size()
+                               for st in clock.prepared.state["optimizer"].state.values()
+                               for v in st.values() if v.dim() > 0),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if module.grad_sync is not None:
+        out["buckets"] = module.grad_sync.stats["buckets"]
+        out["wire_bytes_per_step"] = module.grad_sync.stats["wire_bytes"]
+        if tap is not None:  # the leaves of each bucket, in the tapped order
+            out["plan"] = module.grad_sync.units
+            out["sizes"] = [t.numel() for t in leaves]
+    if ckpt is not None:
+        out["saves"] = ckpt.save_times
+    if job.get("keep_params") and rank == 0:
+        np.save(os.path.join(root, job["name"] + "_params.npy"),
+                torch.cat([t.detach().reshape(-1) for t in leaves]).cpu().numpy())
+    results["jobs"][job["name"]] = out
+    del run, leaves
+    clock.prepared = None
+    torch.cuda.empty_cache()
+json.dump(results, open(os.path.join(root, f"rank{rank}.json"), "w"))
+if dist.is_initialized():
+    dist.barrier()
+    dist.destroy_process_group()
+"""
+
+
+def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
+              probe: bool = False, timeout: float = 600.0) -> list:
+    """Run :data:`DP_WORKER`'s ``jobs`` as ``world`` processes on the card:
+    ``backend`` "gloo" (the caller opens the group, the Runtimes adopt it),
+    "env" (the launcher's environment, the Runtime opens NCCL) or "none"
+    (one process, no group). Returns each rank's results; each rank's
+    output goes to ``chiprun_out/dp_<tag>_rank<r>.log``."""
+    worker = root / "dp_worker.py"
+    worker.write_text(DP_WORKER)
+    job_file = root / f"{tag}.json"
+    job_file.write_text(json.dumps({"world": world, "backend": backend, "probe": probe,
+                                    "jobs": jobs}))
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("ROCKET_TPU_STRICT", None)
+    procs = []
+    for r in range(world):
+        renv = dict(env)
+        if backend == "env":
+            renv.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                        RANK=str(r), LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen([sys.executable, str(worker), str(r), str(port), str(root),
+                                       str(job_file)], env=renv, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    for r, text in enumerate(outs):
+        (out_dir / f"dp_{tag}_rank{r}.log").write_text(text)
+    for r, (proc, text) in enumerate(zip(procs, outs)):
+        require(proc.returncode == 0, f"dp {tag}: rank {r} exited {proc.returncode}: "
+                f"{text[-2000:]}")
+    results = [json.loads((root / f"rank{r}.json").read_text()) for r in range(world)]
+    for r, result in enumerate(results):
+        (out_dir / f"dp_{tag}_rank{r}.json").write_text(json.dumps(result))
+    return results
+
+
+def _dp_launches_ok(job, layers: int, steps: int) -> bool:
+    return job["launches"] == {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps,
+                               "flash_dq": 0}
+
+
+def dp_phases(card):
+    """The data-parallel slice on the card (module docstring): ``dp_train``,
+    ``dp_checkpoint``, ``dp_fsdp`` and ``dp_launch``. GPT-2 124M at full
+    width (B=8 global, T=1024, bf16, remat, dropout 0.1, AdamW): two ranks
+    sharing the card over a gloo group the caller opens, against one rank
+    at B=8 in a process of its own."""
+    cfg = TransformerConfig.gpt2_124m()
+    layers, steps = cfg.num_layers, DP_STEPS
+    root = Path(tempfile.mkdtemp(prefix="dp_"))
+    try:
+        text = _text(2_000_000)  # examples.gpt2.corpus's text
+        np.save(root / "tokens.npy", CharTokenizer(text).encode(text))
+        dp_job = {"name": "dp", "steps": steps, "grad_sync": "bucketed",
+                  "save_every": DP_SAVE_AT, "keep_params": True}
+        # The step-1 gradients: f32 compute and wire, so the two sides
+        # differ only in the batch split and the reduction; then the same
+        # step on the bf16 wire, held to the f32 wire's bucket by bucket.
+        f32_job = {"name": "dp_f32", "steps": 2, "tap": True, "activation_dtype": "float32",
+                   "grad_sync": "bucketed", "wire": None}
+        wire_job = {"name": "dp_wire", "steps": 2, "tap": True, "activation_dtype": "float32",
+                    "grad_sync": "bucketed"}
+        fsdp_job = {"name": "fsdp", "steps": steps, "fsdp": True, "needs_probe": True}
+        ranks = _dp_ranks(root, "gloo2", [dp_job, f32_job, wire_job, fsdp_job], 2, "gloo",
+                          probe=True)
+        one = _dp_ranks(root, "one", [
+            {"name": "one", "steps": steps},
+            {"name": "one_f32", "steps": 2, "tap": True, "activation_dtype": "float32"},
+            {"name": "one_resumed", "steps": steps, "keep_params": True,
+             "resume_from": str(root / "dp_ck" / str(DP_SAVE_AT))}], 1, "none")[0]["jobs"]
+        ref = one["one"]
+        # -- dp_train: the record first, then its checks.
+        dp = [r["jobs"]["dp"] for r in ranks]
+        two_g = np.load(root / "dp_f32_grads.npy")
+        one_g = np.load(root / "one_f32_grads.npy")
+        grad_err = float(np.abs(two_g - one_g).max() / np.abs(one_g).max())
+        wire_g = np.load(root / "dp_wire_grads.npy").astype(np.float64)
+        wire = ranks[0]["jobs"]["dp_wire"]
+        ends = np.cumsum([0] + wire["sizes"])
+        wire_sum_err, wire_err = [], []
+        for unit in wire["plan"]:
+            idx = np.concatenate([np.arange(ends[i], ends[i + 1]) for i in unit])
+            got, want = wire_g[idx], two_g[idx].astype(np.float64)
+            wire_sum_err.append(float(abs(got.sum() - want.sum()) / np.abs(want).sum()))
+            wire_err.append(float(np.abs(got - want).max() / np.abs(want).max()))
+        gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in dp]
+        emit("dp_train", model="gpt2_124m", dtype="bfloat16", batch=8, batch_per_rank=4,
+             seq_len=cfg.max_seq_len, steps=steps, ranks=2, backend=dp[0]["backend"],
+             device_mesh=dp[0]["device_mesh"], grad_sync="bucketed", wire="bfloat16",
+             losses=dp[0]["losses"], one_rank_losses=ref["losses"], loss_gap_per_rank=gaps,
+             step_ms_median_per_rank=[float(np.median(j["step_ms"][1:])) for j in dp],
+             step_ms_per_rank=[j["step_ms"] for j in dp],
+             one_rank_step_ms_median=float(np.median(ref["step_ms"][1:])),
+             train_step_ms_median=RECORD["train"][0]["step_ms_median"] if "train" in RECORD
+             else None, buckets=dp[0].get("buckets"),
+             wire_bytes_per_step=dp[0].get("wire_bytes_per_step"),
+             wait_ms_median_per_rank=[float(np.median(j["wait_ms"][1:])) for j in dp],
+             step1_grad_err_f32=grad_err, step1_wire_buckets=len(wire["plan"]),
+             step1_wire_bucket_sum_err_max=max(wire_sum_err),
+             step1_wire_grad_err_max=max(wire_err),
+             params_sha256=[j["params_sha256"] for j in dp],
+             launches_per_rank=[j["launches"] for j in dp], one_rank_launches=ref["launches"],
+             peak_memory_gb_per_rank=[j["peak_memory_gb"] for j in dp], card=card)
+        for r, job in enumerate(dp):
+            require(job["backend"] == "gloo" and job["world"] == 2,
+                    f"dp_train: rank {r} ran on {job['backend']} x {job['world']}")
+            require(_dp_launches_ok(job, layers, steps),
+                    f"dp_train: rank {r} launches {job['launches']} over {steps} steps")
+            require(len(job["losses"]) == steps and gaps[r] <= DP_LOSS_TOL,
+                    f"dp_train: rank {r} losses {job['losses']} vs one rank {ref['losses']}")
+        require(dp[0]["params_sha256"] == dp[1]["params_sha256"],
+                "dp_train: the ranks' end params differ")
+        require(_dp_launches_ok(ref, layers, steps), f"dp_train: one rank launches {ref['launches']}")
+        require(grad_err <= DP_GRAD_TOL, f"dp_train: step-1 gradients {grad_err} of the largest")
+        require(len(wire["plan"]) == dp[0]["buckets"] and max(wire_sum_err) <= DP_WIRE_SUM_TOL,
+                f"dp_train: bf16-wire bucket sums {max(wire_sum_err)} of their mass apart "
+                f"from the f32 wire's over {len(wire['plan'])} buckets")
+        require(max(wire_err) <= DP_WIRE_TOL and not np.array_equal(wire_g, two_g),
+                f"dp_train: bf16-wire gradients {max(wire_err)} of their bucket's largest "
+                "from the f32 wire's (or not rounded)")
+        # -- dp_checkpoint
+        resumed = one["one_resumed"]
+        tail = dp[0]["losses"][DP_SAVE_AT:]
+        param_gap = float(np.abs(np.load(root / "one_resumed_params.npy")
+                                 - np.load(root / "dp_params.npy")).max())
+        files = sorted(os.listdir(root / "dp_ck" / str(DP_SAVE_AT) / "model_0"))
+        emit("dp_checkpoint", saved_at=DP_SAVE_AT, ranks_saving=2, ranks_resuming=1,
+             files=files, write_s_per_rank=[[s.get("write_s") for s in j["saves"]] for j in dp],
+             snapshot_s_per_rank=[[s["snapshot_s"] for s in j["saves"]] for j in dp],
+             bytes_per_rank=[[s["shard_bytes"] for s in j["saves"]] for j in dp],
+             resumed_losses=resumed["losses"], uninterrupted_losses=tail,
+             end_param_max_abs_gap=param_gap, card=card)
+        require(files == ["index.json", "shard_p0.npz", "shard_p1.npz"],
+                f"dp_checkpoint: {files}")
+        require(len(resumed["losses"]) == steps - DP_SAVE_AT
+                and max(abs(a - b) for a, b in zip(resumed["losses"], tail)) <= DP_LOSS_TOL,
+                f"dp_checkpoint: resumed losses {resumed['losses']} vs {tail}")
+        require(param_gap <= DP_PARAM_TOL, f"dp_checkpoint: end params {param_gap} apart")
+        # -- dp_fsdp
+        probe = ranks[0].get("probe")
+        if probe == "ok":
+            fsdp = [r["jobs"]["fsdp"] for r in ranks]
+        else:
+            fsdp = [r["jobs"]["fsdp"] for r in _dp_ranks(
+                root, "nccl1", [{**fsdp_job, "needs_probe": False}], 1, "env")]
+        whole = ref["param_bytes"]
+        gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in fsdp]
+        emit("dp_fsdp", ranks=len(fsdp), backend=fsdp[0]["backend"], gloo_cuda_probe=probe,
+             loss_gap_per_rank=gaps,
+             losses=fsdp[0]["losses"], one_rank_losses=ref["losses"],
+             param_bytes_per_rank=[j["param_bytes"] for j in fsdp],
+             moment_bytes_per_rank=[j["moment_bytes"] for j in fsdp], whole_param_bytes=whole,
+             step_ms_median_per_rank=[float(np.median(j["step_ms"][1:])) for j in fsdp],
+             wire_bytes_per_step=fsdp[0].get("wire_bytes_per_step"),
+             wait_ms_median_per_rank=[float(np.median(j["wait_ms"][1:])) if j["wait_ms"]
+                                      else None for j in fsdp],
+             launches_per_rank=[j["launches"] for j in fsdp], card=card)
+        for job, gap in zip(fsdp, gaps):
+            require(_dp_launches_ok(job, layers, steps), f"dp_fsdp: launches {job['launches']}")
+            require(gap <= DP_LOSS_TOL, f"dp_fsdp: losses {job['losses']} vs {ref['losses']}")
+        require(all(j["param_bytes"] < whole for j in fsdp) if len(fsdp) > 1
+                else fsdp[0]["param_bytes"] == whole, f"dp_fsdp: shard bytes "
+                f"{[j['param_bytes'] for j in fsdp]} of {whole}")
+        # -- dp_launch
+        dp_launch_phase(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dp_launch_phase(root: Path, card):
+    """``python -m rocket_tpu_torch.launch -n 1`` on ``examples/gpt2.py``
+    (``--small``, T=1024, B=256: the corpus's 7 steps) under
+    ``ROCKET_TPU_STRICT=1``: the worker's Runtime opens an NCCL group of
+    one from the launcher's environment (NCCL's own log says so), and every
+    wave after the first runs strict-clean (a violation raises)."""
+    work = root / "launch"
+    work.mkdir()
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "ROCKET_TPU_STRICT": "1", "NCCL_DEBUG": "INFO"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rocket_tpu_torch.launch", "-n", "1",
+                           str(ROOT / "rocket_tpu_torch" / "examples" / "gpt2.py"), "--small",
+                           "--seq-len", "1024", "--batch", "256", "--data-axis", "1"],
+                          cwd=work, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    (ROOT / "chiprun_out" / "dp_launch.log").write_text(text)
+    require(proc.returncode == 0, f"dp_launch: exit {proc.returncode}: {text[-2000:]}")
+    require("NCCL INFO" in text, "dp_launch: no NCCL group was opened")
+    lines = [json.loads(x) for x in (work / "runs" / "gpt2.jsonl").read_text().splitlines()]
+    losses = [x["train/loss"] for x in lines if "train/loss" in x]
+    require(losses and all(math.isfinite(x) for x in losses), f"dp_launch: losses {losses}")
+    emit("dp_launch", nproc=1, backend="nccl", strict=True, steps=len(losses), losses=losses,
+         wall_s=wall, card=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4927,6 +5319,10 @@ def main() -> int:
     supervised_train_phase(card, RECORD["train"][0]["step_ms_median"])
     torch.cuda.empty_cache()
     poison_gate_phase(card)
+    # The data-parallel slice (PR 19): two ranks on the card over gloo, the
+    # FSDP layout, the launcher's NCCL group; rows 3-4 on every rank.
+    torch.cuda.empty_cache()
+    dp_phases(card)
     timer = Timer()
     check_fused_conv_coverage(timer, torch.Generator().manual_seed(16), card)
     del timer

@@ -42,6 +42,12 @@ plane (metric shards, ``/metrics``, SLOs) through ``export=``,
 checkpoint and drains them on SIGTERM (``resilience``), and
 ``ROCKET_TPU_FAULTS`` injects faults into the real loop.
 
+Data parallelism: a ``Runtime`` adopts its caller's ``torch.distributed``
+group or opens one from the launcher's environment; each rank trains on
+its stripe of the global batch, with the bucketed gradient reduction and
+the FSDP layout of ``rocket_tpu_torch.parallel`` and one checkpoint shard
+file a rank.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``runtime.resolve_device``); on CPU tensors every kernel wrapper takes
 its plain PyTorch version.

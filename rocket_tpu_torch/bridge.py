@@ -20,7 +20,9 @@ per-param optimizer state under ``optimizer/<key>/<path>``, the step a
 host int, the key a counter-hash int) to the reference's (optax's
 ``opt_state`` under its chain indices and field names, ``step`` an int32
 scalar, ``base_key`` uint32[2] key data) and back. They move leaves and
-do not compute on them: numpy arrays and torch tensors pass through.
+do not compute on them: numpy arrays, torch tensors and a sharded
+layout's ``checkpoint_io.ShardedLeaf`` shards (params and optimizer state
+alike; a param without state gets zero shards) pass through.
 :class:`OptChain` says where optax keeps each piece of one optimizer's
 state; :func:`opt_chain` names it for a ``torch.optim`` optimizer.
 """
@@ -185,6 +187,8 @@ def _put(tree: dict, path, value) -> None:
 
 
 def _zeros_like(leaf):
+    if hasattr(leaf, "zeros_like"):  # checkpoint_io.ShardedLeaf
+        return leaf.zeros_like()
     return torch.zeros_like(leaf) if isinstance(leaf, torch.Tensor) else np.zeros_like(leaf)
 
 

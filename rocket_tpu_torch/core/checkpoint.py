@@ -13,15 +13,28 @@
 * state: ``iter_idx`` and ``saved_steps``.
 
 Layout per step, the reference's: ``model_{k}/`` for each prepared model
-(``checkpoint_io``: ``index.json`` + ``shard_p0.npz`` of
+(``checkpoint_io``: ``index.json`` + ``shard_p{rank}.npz`` of
 ``PreparedModule.checkpoint_state()``), ``capsules.pkl`` (the stateful
 capsules' states in setup order) and ``rng.json`` (the runtime's seed
 counter), written last: its presence marks a complete step
-(``resilience.supervisor.is_complete_checkpoint``).
+(``resilience.supervisor.is_complete_checkpoint``, which also wants
+every shard file the index names).
+
+Over several processes every rank runs the save path: each writes the
+chunks it owns (the shards of a sharded layout; process 0 the whole
+tensors), and only the main process writes the index, ``capsules.pkl``,
+``rng.json`` and ``drain.json`` and prunes; the barriers before a
+snapshot and at ``destroy`` are global. ``resume_from="latest"`` resumes
+the step the main process chose, broadcast to every rank (a stale view
+of the directory elsewhere cannot pick another). A restore reads every
+chunk and each rank keeps its part (any process count reads any
+other's). The emergency and drain saves stay barrier-free, one shard
+file per rank.
 
 Saves are non-blocking: the device-to-host snapshot is synchronous, the
 file writes run on a background thread, drained by the next save and by
-``destroy``. Each save's times are kept in :attr:`Checkpointer.save_times`.
+``destroy``. Each save's times, and the array bytes this rank wrote, are
+kept in :attr:`Checkpointer.save_times`.
 ``capsules.pkl`` is pickle: resume only from checkpoints you wrote.
 
 With the health sentinels on, the Checkpointer attaches itself to the
@@ -108,6 +121,8 @@ class Checkpointer(Capsule):
                     break
                 self.log_warning("skipping incomplete checkpoint "
                                  f"{os.path.join(self._output_dir, str(skipped))}")
+        if self._runtime is not None:  # every rank restores the main process's choice
+            chosen = self._runtime.broadcast_int(chosen)
         if chosen < 0:
             self.log_info(f"resume_from='latest': no complete checkpoint under "
                           f"{self._output_dir!r} — starting fresh.")
@@ -140,27 +155,33 @@ class Checkpointer(Capsule):
         # entry survives a resume and is pruned later.
         self._saved_steps.append(step)
         runtime.wait_for_everyone()
+        main = runtime.is_main_process
         t0 = time.perf_counter()
         with explicit_transfer():
-            plans = [checkpoint_io.snapshot(prepared.checkpoint_state())
+            plans = [checkpoint_io.snapshot(prepared.checkpoint_state(), runtime.process_index)
                      for prepared in runtime.models.values()]
-            capsule_states = [obj.state_dict() for obj in runtime.checkpoint_stack]
+            capsule_states = ([obj.state_dict() for obj in runtime.checkpoint_stack]
+                              if main else None)
         rng_state = runtime.rng_state_dict()
-        timing = {"step": step, "snapshot_s": time.perf_counter() - t0}
+        timing = {"step": step, "snapshot_s": time.perf_counter() - t0,
+                  "shard_bytes": sum(a.nbytes for plan in plans for a in plan["local"].values())}
         self.save_times.append(timing)
         prune = []
         if self._keep_last is not None:
             while len(self._saved_steps) > self._keep_last:
-                prune.append(os.path.join(self._output_dir, str(self._saved_steps.pop(0))))
+                old = os.path.join(self._output_dir, str(self._saved_steps.pop(0)))
+                if main:
+                    prune.append(old)
 
         def write():
             t1 = time.perf_counter()
             for k, plan in enumerate(plans):
                 checkpoint_io.write_snapshot(os.path.join(path, f"model_{k}"), plan)
-            checkpoint_io.atomic_write(os.path.join(path, "capsules.pkl"),
-                                       pickle.dumps(capsule_states))
-            checkpoint_io.atomic_write(os.path.join(path, "rng.json"),
-                                       json.dumps(rng_state).encode("utf-8"))
+            if main:
+                checkpoint_io.atomic_write(os.path.join(path, "capsules.pkl"),
+                                           pickle.dumps(capsule_states))
+                checkpoint_io.atomic_write(os.path.join(path, "rng.json"),
+                                           json.dumps(rng_state).encode("utf-8"))
             for old in prune:
                 shutil.rmtree(old, ignore_errors=True)
             timing["write_s"] = time.perf_counter() - t1
@@ -198,18 +219,20 @@ class Checkpointer(Capsule):
         dump leaves it out. Under a gated anomaly action the state is the
         last finite one: the anomalous update was held."""
         runtime = self._runtime
+        main = runtime.is_main_process
         with explicit_transfer():
-            plans = [checkpoint_io.snapshot(prepared.checkpoint_state())
+            plans = [checkpoint_io.snapshot(prepared.checkpoint_state(), runtime.process_index)
                      for prepared in runtime.models.values()]
             capsule_states = ([obj.state_dict() for obj in runtime.checkpoint_stack]
-                              if include_capsules else None)
+                              if include_capsules and main else None)
         for k, plan in enumerate(plans):
             checkpoint_io.write_snapshot(os.path.join(path, f"model_{k}"), plan)
         if capsule_states is not None:
             checkpoint_io.atomic_write(os.path.join(path, "capsules.pkl"),
                                        pickle.dumps(capsule_states))
-        checkpoint_io.atomic_write(os.path.join(path, "rng.json"),
-                                   json.dumps(runtime.rng_state_dict()).encode("utf-8"))
+        if main:
+            checkpoint_io.atomic_write(os.path.join(path, "rng.json"),
+                                       json.dumps(runtime.rng_state_dict()).encode("utf-8"))
         return path
 
     def save_drain(self) -> str:
@@ -233,8 +256,9 @@ class Checkpointer(Capsule):
                 self.save_emergency(path, include_capsules=True)
             self.log_info(f"drain checkpoint written at {path}")
         self.save_times.append({"step": step, "drain_s": time.perf_counter() - t0})
-        checkpoint_io.atomic_write(os.path.join(path, "drain.json"), json.dumps(
-            {"reason": "drain", "step": step, "unix": time.time()}).encode("utf-8"))
+        if self._runtime.is_main_process:
+            checkpoint_io.atomic_write(os.path.join(path, "drain.json"), json.dumps(
+                {"reason": "drain", "step": step, "unix": time.time()}).encode("utf-8"))
         return path
 
     # -- restore -----------------------------------------------------------

@@ -12,6 +12,9 @@
   device-resident copy is shared by every loader over one dataset (the
   train and the val Looper upload once). This is the reference's rule, not
   a fallback: an upload that fails raises;
+* with more than one process the device cache is off and each rank
+  streams its stripe of every global batch (``process_index`` and
+  ``process_count`` from the Runtime), as in the reference;
 * streaming reads and collates on the host (``data/loader.py``; in
   ``num_workers`` processes with ``data/workers.py``), ``prefetch``
   batches ahead on a thread (``data/prefetch.py``), and copies each batch
@@ -40,7 +43,7 @@ import torch
 
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import Capsule
-from rocket_tpu_torch.data.collate import default_collate, default_move
+from rocket_tpu_torch.data.collate import default_collate
 from rocket_tpu_torch.data.device_cache import DeviceCachedLoader, pytree_nbytes, tree_leaves
 from rocket_tpu_torch.data.loader import DataLoader, num_batches
 
@@ -116,6 +119,11 @@ class Dataset(Capsule):
 
     def _make_loader(self, runtime):
         kw = self._loader_kwargs
+        # The device cache holds the whole dataset on each rank's card; with
+        # several processes the striped streaming loader runs instead, as
+        # in the reference.
+        if runtime.process_count > 1:
+            self._device_cache = False
         if self._device_cache in ("auto", True):
             store_key = (id(self._raw_dataset), str(self._cache_dtype))
             data = runtime.device_cache_store.get(store_key)
@@ -133,7 +141,9 @@ class Dataset(Capsule):
                 "Dataset(cache_dtype=%s) has no effect on the streaming loader path "
                 "(device_cache off, or the dataset does not fit or cannot be collated); "
                 "inputs stay at their source dtype.", self._cache_dtype)
-        return DataLoader(self._raw_dataset, seed=runtime.seed, **kw)
+        return DataLoader(self._raw_dataset, seed=runtime.seed,
+                          process_index=runtime.process_index,
+                          process_count=runtime.process_count, **kw)
 
     def _materialize(self):
         """The whole dataset as one collated host pytree whose every leaf is
@@ -202,7 +212,7 @@ class Dataset(Capsule):
             from rocket_tpu_torch.runtime import explicit_transfer
 
             with telemetry.span("data/h2d", cat="data_wait"), explicit_transfer():
-                data = default_move(data, self._runtime.device)
+                data = self._runtime.shard_batch(data)
         attrs.batch = data
         attrs.batch_info = Attributes(size=batch.size, index=batch.index)
         if attrs.looper is not None:

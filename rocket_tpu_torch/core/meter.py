@@ -1,15 +1,19 @@
 """Meter / Metric — evaluation metrics over the batches of a phase
-(counterpart of ``rocket_tpu/core/meter.py``, for one process).
+(counterpart of ``rocket_tpu/core/meter.py``).
 
-* ``Meter`` selects batch keys, trims the padding of a short last batch
-  (``attrs.batch_info.size`` is the real sample count) and dispatches its
-  children — the ``Metric`` capsules — on that batch. One process holds
-  the whole batch, so the cross-replica gather is the identity.
+* ``Meter`` selects batch keys, gathers them across the processes (each
+  rank holds its stripe of the global batch; an ``all_gather`` of each key
+  tensor lays the stripes end to end in rank order, the global batch),
+  trims the padding of a short last batch (``attrs.batch_info.size`` is
+  the global batch's real sample count) and dispatches its children — the
+  ``Metric`` capsules — on that batch. One process gathers nothing.
 * A ``Metric`` that overrides :meth:`Metric.device_reduce` gets the
-  device path: the Meter hands it the (untrimmed) key tensors and the real
-  size, it returns a few device scalars that :meth:`Metric.consume`
-  accumulates on the device, and ``reset`` reads them on the host once per
-  epoch. Other metrics get the trimmed batch in ``launch``.
+  device path: the Meter hands it the (untrimmed) key tensors of this
+  rank's stripe and the stripe's real size; it returns a few scalars (sums
+  over the rows), which are all-reduced over the ranks, and
+  :meth:`Metric.consume` accumulates them on the device; ``reset`` reads
+  them on the host once per epoch. Other metrics get the trimmed batch in
+  ``launch``.
 * Errors inside metric children propagate — the reference's deliberate fix
   of ``rocket/core/meter.py:91-93``, whose bare ``except:`` masked them as
   "keys not found".
@@ -26,6 +30,8 @@ import numbers
 from collections.abc import Mapping
 from typing import Iterable, Optional, Sequence
 
+import torch
+
 from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.capsule import Capsule
 from rocket_tpu_torch.core.dispatcher import Dispatcher
@@ -34,9 +40,12 @@ __all__ = ["Meter", "Metric"]
 
 
 class Meter(Dispatcher):
-    """``keys``: the batch keys the metrics read. ``gather_on`` ("all" or
-    "main") is the reference's choice of which hosts keep the gathered
-    batch; one process is both, so the two behave alike."""
+    """``keys``: the batch keys the metrics read. ``gather_on``: where the
+    host-path metrics run in a multi-process run — ``"all"`` (every rank
+    keeps the gathered global batch and dispatches its children) or
+    ``"main"`` (every rank joins the gather, which is collective, but only
+    the main process keeps the batch and accumulates). Device-path metrics
+    run on every rank either way."""
 
     def __init__(self, keys: Sequence[str], capsules: Iterable[Capsule] = (),
                  gather_on: str = "all", statefull: bool = False, priority: int = 1000,
@@ -47,12 +56,46 @@ class Meter(Dispatcher):
         self._keys = tuple(keys)
         self._gather_on = gather_on
 
-    @staticmethod
-    def gather_for_metrics(value, real_size: Optional[int]):
-        """The value with the padding rows past ``real_size`` trimmed."""
+    def gather_for_metrics(self, value, real_size: Optional[int]):
+        """The value gathered over the processes (a tensor with a leading
+        batch dim), with the padding rows past ``real_size`` trimmed."""
+        runtime = self._runtime
+        if (runtime is not None and runtime.process_count > 1
+                and isinstance(value, torch.Tensor) and value.ndim >= 1):
+            import torch.distributed as dist
+
+            local = value.contiguous()
+            out = local.new_empty((runtime.process_count * local.shape[0],)
+                                  + tuple(local.shape[1:]))
+            dist.all_gather_into_tensor(out, local)
+            value = out
         if real_size is not None and getattr(value, "ndim", 0) >= 1 and len(value) > real_size:
             return value[:real_size]
         return value
+
+    def _reduce_over_ranks(self, reduced):
+        """A :meth:`Metric.device_reduce` result summed over the ranks:
+        tensors stay on the device; host numbers ride one f64 all-reduce
+        and are read back once."""
+        import torch.distributed as dist
+
+        from rocket_tpu_torch.runtime import explicit_transfer
+
+        out, host = {}, {}
+        for key, value in reduced.items():
+            if isinstance(value, torch.Tensor):
+                out[key] = value.clone()
+                dist.all_reduce(out[key])
+            else:
+                host[key] = value
+        if host:
+            with explicit_transfer():
+                totals = torch.tensor([float(v) for v in host.values()], dtype=torch.float64,
+                                      device=self._runtime.device)
+                dist.all_reduce(totals)
+                values = totals.tolist()
+            out.update({key: type(v)(total) for (key, v), total in zip(host.items(), values)})
+        return {key: out[key] for key in reduced}
 
     def launch(self, attrs: Attributes | None = None) -> None:
         if attrs is None or attrs.batch is None:
@@ -66,16 +109,27 @@ class Meter(Dispatcher):
                            f"(available: {sorted(batch.keys())})")
         real_size = attrs.batch_info.size if attrs.batch_info is not None else None
         subset = {k: batch[k] for k in self._keys}
-        size = len(subset[self._keys[0]]) if real_size is None else real_size
+        stripe = len(subset[self._keys[0]])
+        procs = self._runtime.process_count if self._runtime is not None else 1
+        size = stripe if real_size is None else real_size
+        if procs > 1 and real_size is not None:
+            # This rank's real rows: its stripe is rows [lo, lo + stripe)
+            # of the global batch.
+            size = min(max(real_size - self._runtime.process_index * stripe, 0), stripe)
         host_kids = []
         for child in self._capsules:
             if isinstance(child, Metric) and type(child).device_reduce is not Metric.device_reduce:
-                child.consume(child.device_reduce(subset, size))
+                reduced = child.device_reduce(subset, size)
+                if procs > 1:
+                    reduced = self._reduce_over_ranks(reduced)
+                child.consume(reduced)
             else:
                 host_kids.append(child)
         if not host_kids:
             return
         gathered = {k: self.gather_for_metrics(v, real_size) for k, v in subset.items()}
+        if procs > 1 and self._gather_on == "main" and not self._runtime.is_main_process:
+            return  # joined the gather; only the main process keeps it
         from rocket_tpu_torch.runtime import explicit_transfer
 
         original = attrs.batch

@@ -47,11 +47,28 @@ are dropped from the window, whose boundary update applies the finite
 rest — the reference's ``lax.cond`` structure (``rocket_tpu/core/
 module.py:672-790``).
 
-Not ported yet, and raising ``NotImplementedError``: ``param_sharding``
-(ROADMAP Queue A 6).
-Bucketed gradient sync and the pipelined value-and-grad belong to Queue A
-6 as well (``Optimizer(grad_sync=...)`` and ``TransformerConfig.
-pipeline_axis`` raise there).
+Data parallelism (a Runtime over several processes, ``parallel/``):
+each rank runs the step on its stripe of the global batch under
+``keys.data_shard`` (its dropout draws its rows of the global masks) and
+the gradients are reduced to the global mean before the update, as the
+reference's ``_grad_sync_plan`` routes them (``rocket_tpu/core/
+module.py:232-280``): the bucketed asynchronous reduction of
+``parallel.grad_sync`` on a pure data mesh without accumulation (the
+accumulator holds reduced gradients) and without model state, when the
+Optimizer asks for ``grad_sync="bucketed"`` or the rule set carries the
+``fsdp_axis`` marker under ``"auto"``; otherwise a plain f32 mean
+all-reduce per leaf. ``param_sharding`` (``parallel.sharding``; specs over
+the data axis only) holds each matched leaf as this rank's shard of its
+spec's dim: the optimizer, its moments, the EMA shadow and the
+accumulator live on the shard, the leaf is all-gathered at step entry (and
+for the eval forward), and its gradient reduce-scatters back onto the
+shard. Global norms (``clip_norm``, the health sentinels' gradient,
+update and param norms) sum the shards over the ranks, so every rank
+takes the same skip decision. A model with state (BatchNorm) raises in a
+multi-process run: its statistics would be per-rank where the
+reference's are global (sync-BN is ROADMAP Queue A 6). The pipelined
+value-and-grad is Queue A 6 as well (``TransformerConfig.pipeline_axis``
+raises there).
 """
 
 from __future__ import annotations
@@ -69,6 +86,7 @@ from rocket_tpu_torch.core.attributes import Attributes
 from rocket_tpu_torch.core.dispatcher import Dispatcher
 from rocket_tpu_torch.nn import keys
 from rocket_tpu_torch.nn.module import map_params
+from rocket_tpu_torch.runtime import explicit_transfer
 
 __all__ = ["Module", "PreparedModule"]
 
@@ -124,6 +142,43 @@ class PreparedModule:
         self.opt_chain = None
         self.accum = 1
         self.gated = False
+        #: Under a ``param_sharding`` rule: the rule, and per param leaf
+        #: the dim it is sharded on over the ``world`` ranks (None:
+        #: replicated); this process holds shard ``rank`` of each.
+        self.sharded_by = None
+        self.shard_dims = None
+        self.world, self.rank = 1, 0
+
+    def sharded(self) -> bool:
+        return self.shard_dims is not None and any(d is not None for d in self.shard_dims)
+
+    def _wrap(self, leaves, values) -> list:
+        """``values`` (one per param of ``leaves``) as the checkpoint sees
+        them: a sharded param's shard-shaped value as its
+        ``checkpoint_io.ShardedLeaf``."""
+        if not self.sharded():
+            return list(values)
+        from rocket_tpu_torch.runtime.checkpoint_io import ShardedLeaf
+
+        dim_of = dict(zip(map(id, optim_lib.param_leaves(self.state["params"])),
+                          self.shard_dims))
+        out = []
+        for p, v in zip(leaves, values):
+            dim = dim_of.get(id(p))
+            if dim is not None and isinstance(v, torch.Tensor) and v.shape == p.shape:
+                shape = list(p.shape)
+                shape[dim] *= self.world
+                v = ShardedLeaf(v, tuple(shape), dim, self.rank, self.world)
+            out.append(v)
+        return out
+
+    def _local(self, value, like: torch.Tensor, dim) -> torch.Tensor:
+        """This rank's part of a saved whole value for a live leaf ``like``
+        (sharded on ``dim``, or None): the resharding restore."""
+        t = _host(value)
+        if dim is not None and t.dim() == like.dim() and t.shape != like.shape:
+            t = t.chunk(self.world, dim)[self.rank]
+        return t
 
     def _count(self):
         """The optimizer's count of applied updates: torch's per-param
@@ -152,12 +207,14 @@ class PreparedModule:
         leaves = optim_lib.param_leaves(params)
         key = state["base_key"]
         data = state.get("base_key_data")
-        view = {"params": map_params(lambda t: t.detach(), params), "step": int(state["step"]),
+        view = {"params": _nest(zip(paths, self._wrap(leaves, [t.detach() for t in leaves]))),
+                "step": int(state["step"]),
                 "base_key": data if data is not None and keys.from_data(data) == key else key}
         if state.get("model_state"):
             view["model_state"] = map_params(lambda t: t.detach(), state["model_state"])
         if "ema_params" in state:
-            view["ema_params"] = state["ema_params"]
+            view["ema_params"] = _nest(zip(paths, self._wrap(
+                leaves, optim_lib.param_leaves(state["ema_params"]))))
         if "health" in state:
             view["health"] = dict(state["health"])
         opt = state.get("optimizer")
@@ -167,11 +224,12 @@ class PreparedModule:
             for p, path in zip(leaves, paths):
                 for k, value in opt.state.get(p, {}).items():
                     if value is not None and not (k == "step" and self.opt_chain is not None):
-                        per_key.setdefault(k, []).append((path, value))
+                        per_key.setdefault(k, []).append((path, self._wrap([p], [value])[0]
+                                                          if self.sharded() else value))
             view["optimizer"] = {k: _nest(items) for k, items in per_key.items()}
             count = self._count()
         if "grad_accum" in state:
-            view["grad_accum"] = _nest(zip(paths, state["grad_accum"]))
+            view["grad_accum"] = _nest(zip(paths, self._wrap(leaves, state["grad_accum"])))
             view["loss_acc"] = state["loss_acc"]
         return bridge.train_state_to_jax(view, self.opt_chain, count)
 
@@ -194,9 +252,11 @@ class PreparedModule:
         params = state["params"]
         paths = list(_paths(params))
         leaves = optim_lib.param_leaves(params)
+        dims = self.shard_dims or [None] * len(leaves)
+        dim_of = {id(p): d for p, d in zip(leaves, dims)}
         with torch.no_grad():
-            for p, path in zip(leaves, paths):
-                p.copy_(_host(_at(view["params"], path)))
+            for p, path, dim in zip(leaves, paths, dims):
+                p.copy_(self._local(_at(view["params"], path), p, dim))
             if state.get("model_state") and "model_state" in view:
                 mstate = state["model_state"]
                 for t, path in zip(optim_lib.param_leaves(mstate), _paths(mstate)):
@@ -204,8 +264,8 @@ class PreparedModule:
             if "ema_params" in state:
                 # A pre-EMA checkpoint arrives with the shadow seeded from
                 # its params (checkpoint_io.seed_optional).
-                for e, path in zip(optim_lib.param_leaves(state["ema_params"]), paths):
-                    e.copy_(_host(_at(view["ema_params"], path)))
+                for e, path, dim in zip(optim_lib.param_leaves(state["ema_params"]), paths, dims):
+                    e.copy_(self._local(_at(view["ema_params"], path), e, dim))
             if "health" in state and view.get("health"):
                 # A pre-health checkpoint keeps the fresh sentinels.
                 for k, t in state["health"].items():
@@ -238,13 +298,14 @@ class PreparedModule:
             order = [p for group in opt.param_groups for p in group["params"]]
             saved = opt.state_dict()
             saved["state"] = {
-                i: {k: _host(_at(tree, path_of[id(p)])) for k, tree in saved_opt.items()}
+                i: {k: self._local(_at(tree, path_of[id(p)]), p, dim_of.get(id(p)))
+                    for k, tree in saved_opt.items()}
                 for i, p in enumerate(order)
             }
             opt.load_state_dict(saved)
         if "grad_accum" in state and "grad_accum" in view:
-            for buf, path in zip(state["grad_accum"], paths):
-                buf.copy_(_host(_at(view["grad_accum"], path)))
+            for buf, path, dim in zip(state["grad_accum"], paths, dims):
+                buf.copy_(self._local(_at(view["grad_accum"], path), buf, dim))
             state["loss_acc"] = _host(view["loss_acc"]).to(state["loss_acc"].device)
 
 
@@ -266,6 +327,9 @@ class Module(Dispatcher):
     update and checkpointed with the model. ``use_ema``: this (eval)
     Module forwards with that shadow instead of the params; it raises
     when no train Module sharing the model set ``ema_decay``.
+    ``param_sharding``: a rule set ``(path, leaf) -> spec`` of
+    ``parallel.sharding`` (``fsdp_rules()``) over the data axis: each
+    matched leaf is held as this rank's shard (module docstring).
     ``return_outputs``: ``"eval"``
     (default) replaces ``attrs.batch`` with the forward's output in eval
     only; ``"always"`` in train too. ``batch_transform``: ``fn(batch,
@@ -278,9 +342,6 @@ class Module(Dispatcher):
                  ema_decay: Optional[float] = None, use_ema: bool = False,
                  batch_transform=None, statefull: bool = False, priority: int = 1000,
                  runtime=None) -> None:
-        if param_sharding is not None:
-            raise NotImplementedError("Module(param_sharding=...) needs multi-device "
-                                      "parallelism, not ported yet (ROADMAP Queue A 6)")
         if ema_decay is not None and not 0.0 < ema_decay < 1.0:
             raise ValueError(f"Module: ema_decay must be in (0, 1), got {ema_decay}")
         if return_outputs not in ("eval", "always", "never"):
@@ -289,6 +350,7 @@ class Module(Dispatcher):
         self._model = model
         self._compute_dtype = compute_dtype
         self._remat = remat
+        self._param_sharding = param_sharding
         self._ema_decay = ema_decay
         self._use_ema = use_ema
         self._batch_transform = batch_transform
@@ -299,6 +361,10 @@ class Module(Dispatcher):
         #: Under the health gate: the lr (a 0-dim tensor on the card) of
         #: the last update step, read from the optimizer's count.
         self.last_lr = None
+        #: Over several ranks: the bucketed reduction
+        #: (``parallel.grad_sync.GradSync``) when the step takes it.
+        self.grad_sync = None
+        self._split_masks: dict = {}
 
     @property
     def prepared(self) -> Optional[PreparedModule]:
@@ -331,6 +397,12 @@ class Module(Dispatcher):
             prepared = PreparedModule(self._model, {"params": params})
             runtime.models.add(self._model, prepared)
         state = prepared.state
+        if hasattr(self._model, "init_state") and runtime.process_count > 1:
+            raise NotImplementedError(
+                f"Module: {type(self._model).__name__} keeps model state (BatchNorm statistics), "
+                f"which a {runtime.process_count}-process run would compute per rank where the "
+                "reference computes them over the global batch: sync-BN is not ported yet "
+                "(ROADMAP Queue A 6)")
         if hasattr(self._model, "init_state"):
             if "model_state" not in state:
                 state["model_state"] = self._model.init_state(device=runtime.device)
@@ -357,6 +429,7 @@ class Module(Dispatcher):
                 state["params"] = map_params(
                     lambda t: t.detach().to(runtime.device).requires_grad_(t.is_floating_point()),
                     state["params"])
+                self._shard(prepared)
                 state["optimizer"] = optim_lib.resolve(opt.opt, state["params"])
                 if runtime.gradient_accumulation_steps > 1:
                     state["grad_accum"] = [torch.zeros_like(p) for p in
@@ -369,6 +442,7 @@ class Module(Dispatcher):
                 self._lr_fn = optim_lib.constant_lr(lr)
             self._objective = loss.objective
             self._clip_norm = opt.clip_norm
+            self._setup_grad_sync(prepared, opt)
             self._setup_health(state)
             prepared.opt_chain = bridge.opt_chain(state["optimizer"], schedule=sched is not None,
                                                   clip=opt.clip_norm is not None)
@@ -389,6 +463,111 @@ class Module(Dispatcher):
                                "Loss + Optimizer children (eval is never transformed).")
         else:
             state["params"] = map_params(lambda t: t.to(runtime.device), state["params"])
+            self._shard(prepared)
+
+    # -- data parallelism ------------------------------------------------------
+
+    def _shard(self, prepared: PreparedModule) -> None:
+        """Hold each leaf this Module's rule shards as this rank's shard,
+        once per prepared model: a second capsule wrapping the model (the
+        eval Module) finds the layout in place; two rules are an error."""
+        rule = self._param_sharding
+        if rule is None:
+            return
+        if prepared.sharded_by is not None:
+            if prepared.sharded_by is not rule:
+                raise RuntimeError("Module: model already placed by another capsule's "
+                                   "param_sharding rule; only one rule per model.")
+            return
+        runtime = self._runtime
+        from rocket_tpu_torch.parallel import grad_sync as gs
+
+        params = prepared.state["params"]
+        leaves = optim_lib.param_leaves(params)
+        world, rank = runtime.data_axis_size, runtime.process_index
+        dims = gs.shard_dims(zip(_paths(params), leaves), rule, world, runtime.DATA_AXES)
+        prepared.sharded_by, prepared.shard_dims = rule, dims
+        prepared.world, prepared.rank = world, rank
+        shards = iter([t if d is None else
+                       t.detach().chunk(world, d)[rank].clone().requires_grad_(t.requires_grad)
+                       for t, d in zip(leaves, dims)])
+        prepared.state["params"] = map_params(lambda t: next(shards), params)
+
+    def _setup_grad_sync(self, prepared: PreparedModule, opt) -> None:
+        """The reference's ``_grad_sync_plan`` gate: the bucketed reduction
+        on a pure data mesh of several ranks, without accumulation (the
+        accumulator holds reduced gradients) and without model state, under
+        ``grad_sync="bucketed"``, or ``"auto"`` with the ``fsdp_axis``
+        marker; else (over several ranks) the plain per-leaf reduction."""
+        runtime = self._runtime
+        self.grad_sync = None
+        if runtime.data_axis_size <= 1 or opt.grad_sync == "off":
+            return
+        if runtime.gradient_accumulation_steps > 1 or prepared.state.get("model_state"):
+            return
+        if opt.grad_sync == "auto" and getattr(self._param_sharding, "fsdp_axis", None) is None:
+            return
+        from rocket_tpu_torch.parallel.grad_sync import GradSync
+
+        leaves = optim_lib.param_leaves(prepared.state["params"])
+        dims = prepared.shard_dims or [None] * len(leaves)
+        shapes = []
+        for t, d in zip(leaves, dims):
+            shape = list(t.shape)
+            if d is not None:
+                shape[d] *= prepared.world
+            shapes.append(tuple(shape))
+        self.grad_sync = GradSync(shapes, [t.dtype for t in leaves], dims,
+                                  runtime.data_axis_size, bucket_bytes=opt.grad_bucket_bytes,
+                                  wire_dtype=opt.grad_wire_dtype)
+        self.log_info(f"train step: bucketed async gradient reduction (wire="
+                      f"{opt.grad_wire_dtype}, bucket={opt.grad_bucket_bytes >> 20}MiB, "
+                      f"{len(self.grad_sync.buckets)} buckets)")
+
+    def _full_params(self, params, grad: bool = False):
+        """The params the forward reads: under a sharded layout each shard
+        all-gathered whole (every gather started before the first wait);
+        with ``grad`` the gathered tensors are fresh leaves that need a
+        gradient. Returns ``(params, leaves in param order)``."""
+        prepared = self._prepared
+        leaves = optim_lib.param_leaves(params)
+        if not prepared.sharded():
+            return params, leaves
+        from rocket_tpu_torch.parallel.grad_sync import gather_full
+
+        pending = [None if d is None else gather_full(t.detach(), d, prepared.world,
+                                                      async_op=True)
+                   for t, d in zip(leaves, prepared.shard_dims)]
+        full = []
+        for t, item in zip(leaves, pending):
+            if item is None:
+                full.append(t)
+                continue
+            whole, work = item
+            work.wait()
+            full.append(whole.requires_grad_(True) if grad else whole)
+        it = iter(full)
+        return map_params(lambda t: next(it), params), full
+
+    def _sumsq(self, params, tensors) -> torch.Tensor:
+        """Σ ||t||² over ``tensors`` (one per param of ``params``, in its
+        layout): a sharded param's shards summed over the ranks."""
+        import torch.distributed as dist
+
+        if not params:
+            return torch.zeros((), device=self._runtime.device)
+        squares = torch.stack(torch._foreach_norm(list(tensors))).float().square()
+        key = tuple(map(id, params))
+        split = self._split_masks.get(key)
+        if split is None:
+            dims = dict(zip(map(id, optim_lib.param_leaves(self._prepared.state["params"])),
+                            self._prepared.shard_dims))
+            with explicit_transfer():
+                split = self._split_masks[key] = torch.tensor(
+                    [dims.get(id(p)) is not None for p in params], device=squares.device)
+        sharded = torch.where(split, squares, 0.0).sum()
+        dist.all_reduce(sharded)
+        return torch.where(split, 0.0, squares).sum() + sharded
 
     def _setup_health(self, state: dict) -> None:
         """With the health monitor on: the sentinel state, the step's label
@@ -454,16 +633,19 @@ class Module(Dispatcher):
         None."""
         opt = self._prepared.state["optimizer"]
         decay = None if self._ema_decay is None else 1.0 - self._ema_decay
+        sharded = self._prepared.sharded()
         if ok is not None:
             update_norm, self.last_lr, norm = optim_lib.gated_step(
-                opt, dict(zip(leaves, grads)), ok, self._lr_fn, self._clip_norm)
+                opt, dict(zip(leaves, grads)), ok, self._lr_fn, self._clip_norm,
+                sumsq=self._sumsq if sharded else None)
             if decay is not None:
                 self._ema_step(leaves, torch.where(ok, decay, 0.0))
             return norm, update_norm
         norm = None
         if self._clip_norm is not None:
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            # Under a sharded layout the global norm sums over every rank's shards.
+            norm = (self._sumsq(leaves, grads).sqrt() if sharded else torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads])))
             factor = self._clip_norm / torch.clamp(norm, min=self._clip_norm)
             grads = [g * factor for g in grads]
         # The sentinels' ||update|| is the params' move: torch.optim's step
@@ -481,7 +663,9 @@ class Module(Dispatcher):
         if before is not None:
             with torch.no_grad():
                 torch._foreach_sub_(before, leaves)
-                update_norm = torch.stack(torch._foreach_norm(before)).float().square().sum().sqrt()
+                update_norm = (self._sumsq(leaves, before).sqrt() if sharded else
+                               torch.stack(torch._foreach_norm(before)).float().square().sum()
+                               .sqrt())
         if decay is not None:
             self._ema_step(leaves, decay)
         return norm, update_norm
@@ -505,20 +689,39 @@ class Module(Dispatcher):
             # A profiler range, so a trace can tell augmentation's kernels apart.
             with torch.profiler.record_function("Module.batch_transform"):
                 batch = self._batch_transform(dict(batch), keys.fold_in(rng, 0xA9517))
-        with torch.enable_grad():
-            out = self._forward(state["params"], batch, "train", rng)
+        runtime = self._runtime
+        ranks = runtime.data_axis_size
+        with torch.enable_grad(), keys.data_shard(runtime.process_index if ranks > 1 else 0):
+            params, compute = self._full_params(state["params"], grad=True)
+            if self.grad_sync is not None:
+                self.grad_sync.begin(compute)
+            out = self._forward(params, batch, "train", rng)
             if "model_state" in state:
                 out, mstate = out
                 state["model_state"] = map_params(lambda t: t.detach(), mstate)
             loss = self._objective(out).float()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            # The backward runs inside the block: a remat recompute draws
+            # this rank's dropout masks.
+            grads = torch.autograd.grad(loss, compute, allow_unused=True)
         loss = loss.detach()
+        if self.grad_sync is not None:
+            grads, loss = self.grad_sync.finish(grads, loss)
+        else:
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(compute, grads)]
+            if ranks > 1:
+                from rocket_tpu_torch.parallel.grad_sync import plain_reduce
+
+                grads, loss = plain_reduce(grads, self._prepared.shard_dims or [None] * len(grads),
+                                           ranks, loss)
         h = self._health
         keep = None  # the gate's predicate: None off the gate
         if h is not None:
             tree = {name: [grads[i] for i in idx] for name, idx in h["branches"].items()}
-            flags = h["lib"].step_flags(loss, tree)
+            g_sq = None
+            if self._prepared.sharded():
+                g_sq = torch.stack([self._sumsq([leaves[i] for i in idx], tree[name])
+                                    for name, idx in h["branches"].items()])
+            flags = h["lib"].step_flags(loss, tree, g_sq=g_sq)
             if h["config"].gated:
                 keep = flags[0]
                 if h["config"].action == "dump_and_halt":
@@ -562,6 +765,10 @@ class Module(Dispatcher):
         if h is not None:
             step_ok, loss_ok, grad_branch_ok, health_grad_norm = flags
             with torch.no_grad():
+                p_sq = None
+                if self._prepared.sharded():
+                    p_sq = torch.stack([self._sumsq(*([leaves[i] for i in idx],) * 2)
+                                        for idx in h["branches"].values()])
                 state["health"], word, extras = h["lib"].update_sentinels(
                     state["health"], loss=loss, step=step, step_ok=step_ok, loss_ok=loss_ok,
                     grad_branch_ok=grad_branch_ok, grad_norm=health_grad_norm,
@@ -569,7 +776,7 @@ class Module(Dispatcher):
                                  else torch.zeros_like(loss)),
                     new_params=state["params"], gated=h["config"].gated,
                     ema_decay=h["config"].ema_decay, zscore_max=h["config"].zscore_max,
-                    zscore_warmup=h["config"].zscore_warmup)
+                    zscore_warmup=h["config"].zscore_warmup, p_sq=p_sq)
             metrics["health/update_ratio"] = extras["update_ratio"]
             metrics["health/param_norm"] = extras["param_norm"]
             metrics["health_word"] = word
@@ -615,7 +822,7 @@ class Module(Dispatcher):
                                    "the train Module wrapping this model must set ema_decay.")
             params = state["ema_params"] if self._use_ema else state["params"]
             with torch.no_grad():
-                out = self._forward(params, batch, "eval", None)
+                out = self._forward(self._full_params(params)[0], batch, "eval", None)
             attrs.batch = out[0] if "model_state" in state else out
             attrs.step_metrics = None
             attrs.sync_gradients = None

@@ -1,19 +1,24 @@
 """Host-side batching with the reference's epoch order and resume
 (counterpart of ``rocket_tpu/data/loader.py``).
 
-* ``batch_size`` is the whole batch: this port runs one process, so
-  ``process_index`` and ``process_count`` must stay 0 and 1 (a process
-  group is ROADMAP Queue A 3) and anything else raises;
+* ``batch_size`` is the global batch: each of ``process_count``
+  processes reads only its stripe, rows ``[lo, lo + stripe)`` of every
+  global batch (``stripe = batch_size // process_count``, ``lo =
+  process_index * stripe``; ``batch_size`` must divide), so the ranks'
+  stripes laid end to end are the one-process batch;
 * the epoch's order is ``np.arange(n)``, shuffled (when asked) by
   ``default_rng(SeedSequence([seed, epoch, 0x90C3E7]))`` — the same order
   both packages and both loaders here (streaming and device-resident) use;
 * a short last batch (``drop_last=False``) is filled up to ``batch_size``
   with the first rows of the epoch's order, tiled when the dataset is
-  shorter than the fill, and its ``size`` says how many rows are real;
+  shorter than the fill, so every rank's stripe has one shape, and its
+  ``size`` says how many rows of the global batch are real;
 * ``skip(n)`` makes the next pass start at batch ``n`` (a mid-epoch
   resume), ``set_epoch`` picks the epoch's order;
 * an iterable dataset (no ``__len__``/``__getitem__``) is batched in the
-  order it yields, its short last batch filled by repeating its own rows.
+  order it yields, striped over the processes sample by sample; its short
+  last batch is filled by repeating its own rows in one process and
+  dropped with several (the ranks could not agree on it).
 """
 
 from __future__ import annotations
@@ -54,16 +59,21 @@ def num_batches(n: int, batch_size: int, drop_last: bool) -> int:
     return n // batch_size if drop_last else -(-n // batch_size)
 
 
-def batch_indices(order: np.ndarray, batch_size: int, drop_last: bool, skip: int = 0):
-    """``(indices, real, b)`` for each batch ``b`` from ``skip`` on: every
-    ``indices`` has ``batch_size`` rows, a short last one filled from the
-    start of ``order`` (tiled by ``np.resize``)."""
+def batch_indices(order: np.ndarray, batch_size: int, drop_last: bool, skip: int = 0,
+                  process_index: int = 0, process_count: int = 1):
+    """``(indices, real, b)`` for each batch ``b`` from ``skip`` on: the
+    rows of process ``process_index``'s stripe of a global batch of
+    ``batch_size`` rows, a short last one filled from the start of
+    ``order`` (tiled by ``np.resize``); ``real`` counts the global batch's
+    real rows."""
+    stripe = batch_size // process_count
+    lo = process_index * stripe
     for b in range(skip, num_batches(len(order), batch_size, drop_last)):
         idx = order[b * batch_size:(b + 1) * batch_size]
         real = len(idx)
         if real < batch_size:
             idx = np.concatenate([idx, np.resize(order, batch_size - real)])
-        yield idx, real, b
+        yield idx[lo:lo + stripe], real, b
 
 
 class DataLoader:
@@ -78,15 +88,19 @@ class DataLoader:
 
     def __init__(self, dataset: Any, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False,
-                 collate_fn: Optional[Callable[[Sequence[Any]], Any]] = None, seed: int = 0, process_index: int = 0, process_count: int = 1,
+                 collate_fn: Optional[Callable[[Sequence[Any]], Any]] = None, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1,
                  num_workers: int = 0, worker_start_method: Optional[str] = None) -> None:
         if batch_size < 1:
             raise ValueError(f"DataLoader: batch_size must be >= 1, got {batch_size}")
-        if (process_index, process_count) != (0, 1):
-            raise NotImplementedError(
-                f"DataLoader: process_index={process_index}, process_count={process_count}: "
-                "striping a batch over processes needs the process group, not ported yet "
-                "(ROADMAP Queue A 3)")
+        if process_count > 1 and batch_size % process_count != 0:
+            raise ValueError(f"DataLoader: global batch_size {batch_size} must divide evenly "
+                             f"over {process_count} processes.")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"DataLoader: process_index {process_index} is not one of "
+                             f"{process_count} processes")
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -132,7 +146,8 @@ class DataLoader:
         if not self.map_style:
             return self._iterable_batches(skip)
         order = epoch_order(len(self.dataset), self.seed, self._epoch, self.shuffle)
-        plan = batch_indices(order, self.batch_size, self.drop_last, skip)
+        plan = batch_indices(order, self.batch_size, self.drop_last, skip, self.process_index,
+                             self.process_count)
         if self.num_workers:
             return self._worker_batches(plan)
         return self._serial_batches(plan)
@@ -165,15 +180,20 @@ class DataLoader:
             yield Batch(data, real, b)
 
     def _iterable_batches(self, skip: int) -> Iterator[Batch]:
+        stripe = self.batch_size // self.process_count
         rows: list = []
         b = 0
-        for sample in self.dataset:
-            rows.append(sample)
-            if len(rows) == self.batch_size:
+        trailing = 0  # samples of the (possibly partial) last batch
+        for item, sample in enumerate(self.dataset):
+            slot = item % self.batch_size
+            trailing = slot + 1
+            if slot // stripe == self.process_index:
+                rows.append(sample)
+            if slot == self.batch_size - 1:
                 if b >= skip:
                     yield Batch(self.collate_fn(rows), self.batch_size, b)
-                rows, b = [], b + 1
-        if rows and not self.drop_last and b >= skip:
+                rows, b, trailing = [], b + 1, 0
+        if trailing and not self.drop_last and self.process_count == 1 and b >= skip:
             real = len(rows)
             rows = [rows[i % real] for i in range(self.batch_size)]
             yield Batch(self.collate_fn(rows), real, b)

@@ -6,11 +6,14 @@ AdamW (weight decay 0.1) under warmup-cosine from 6e-4, gradient
 accumulation (``--accum``), a ``Checkpointer`` every 1000 steps keeping
 the last three (``--resume`` restarts from the newest), the ``Profiler``
 (steps/s and MFU; ``--trace-at`` opens a trace window) and a jsonl
-``Tracker`` (``runs/gpt2.jsonl``). One device: ``--data-axis`` and
-``--model-axis`` above 1 need multi-device parallelism, not ported yet
-(ROADMAP Queue A 6).
+``Tracker`` (``runs/gpt2.jsonl``). Data parallel over the processes of
+``python -m rocket_tpu_torch.launch``: ``--batch`` is the global batch,
+each rank trains on its stripe, and ``--data-axis`` (default: every
+rank) must equal the world size; ``--model-axis`` above 1 needs tensor
+parallelism, not ported yet (ROADMAP Queue A 6).
 
     python -m rocket_tpu_torch.examples.gpt2                       # on the GPU
+    PYTHONPATH=. python -m rocket_tpu_torch.launch -n 2 rocket_tpu_torch/examples/gpt2.py
     python -m rocket_tpu_torch.examples.gpt2 --small --seq-len 64 --device cpu
 """
 
@@ -44,21 +47,27 @@ def flops_per_sample(config: TransformerConfig, seq_len: int) -> float:
 
 def build(config: TransformerConfig, data, *, batch_size: int, runtime, num_epochs: int = 1,
           steps=None, remat: bool = True, record: bool = True, out_dir: str = "checkpoints/gpt2",
-          resume: bool = False, trace_at=None, capsules=(), return_outputs: str = "eval") -> dict:
+          resume: bool = False, trace_at=None, capsules=(), return_outputs: str = "eval",
+          param_sharding=None, grad_sync: str = "auto",
+          grad_wire_dtype="bfloat16") -> dict:
     """The example's capsule tree over ``data``. ``steps`` fixes the Looper's
     iterations and the schedule's length (default: ``num_epochs`` passes
     over ``data``); ``record=False`` leaves out the Checkpointer, Profiler,
     Tracker and progress bar (a timed run); ``capsules`` join the Looper
-    after the Module. Returns
+    after the Module; ``param_sharding`` goes to the Module
+    (``parallel.sharding.fsdp_rules()``), ``grad_sync`` and
+    ``grad_wire_dtype`` to the Optimizer capsule. Returns
     ``{"launcher", "model", "module", "dataset", "total_steps"}``."""
     model = TransformerLM(config)
     total = steps or max(1, len(data) // batch_size * num_epochs)
     module = rt.Module(model, [
         rt.Loss(next_token_loss()),
-        rt.Optimizer(optim.adamw(weight_decay=0.1)),
+        rt.Optimizer(optim.adamw(weight_decay=0.1), grad_sync=grad_sync,
+                     grad_wire_dtype=grad_wire_dtype),
         rt.Scheduler(optim.warmup_cosine_lr(6e-4, warmup_steps=max(1, total // 50),
                                             decay_steps=total)),
-    ], compute_dtype=torch.bfloat16, remat=remat, return_outputs=return_outputs)
+    ], compute_dtype=torch.bfloat16, remat=remat, return_outputs=return_outputs,
+        param_sharding=param_sharding)
     dataset = rt.Dataset(data, batch_size=batch_size, shuffle=True, drop_last=True)
     tree = [dataset, module, *capsules]
     if record:
@@ -90,11 +99,14 @@ def main(argv=None) -> dict:
                         help="resume from the newest checkpoint")
     parser.add_argument("--device", default=None, help="default: the GPU")
     args = parser.parse_args(argv)
-    for flag, value in (("--data-axis", args.data_axis), ("--model-axis", args.model_axis)):
-        if value is not None and value > 1:
-            raise SystemExit(f"{flag} {value}: a device mesh needs multi-device parallelism, "
-                             "not ported yet (ROADMAP Queue A 6)")
+    if args.model_axis > 1:
+        raise SystemExit(f"--model-axis {args.model_axis}: tensor parallelism is not ported yet "
+                         "(ROADMAP Queue A 6)")
     runtime = rt.Runtime(seed=0, gradient_accumulation_steps=args.accum, device=args.device)
+    if args.data_axis is not None and args.data_axis != runtime.process_count:
+        raise SystemExit(f"--data-axis {args.data_axis}: the data axis is the world size, "
+                         f"{runtime.process_count} here (one device a rank; start the ranks "
+                         "with python -m rocket_tpu_torch.launch -n N)")
     if args.small:
         config = TransformerConfig(vocab_size=512, max_seq_len=args.seq_len, dim=128,
                                    num_layers=2, num_heads=4, dropout=0.0)

@@ -6,8 +6,9 @@ copies of the script with torch.distributed's environment
 ``LOCAL_RANK``) pointing at a localhost rendezvous port. Each worker's
 output is prefixed with its rank; the launcher exits non-zero if any
 worker does, terminating the stragglers (SIGTERM, then SIGKILL after a
-bounded grace). The launcher opens no process group and its workers open
-none yet (ROADMAP Queue A 3): one worker per card is what runs today.
+bounded grace). The launcher itself opens no process group: each
+worker's ``Runtime`` opens it from that environment (NCCL on
+``cuda:LOCAL_RANK``, gloo on the CPU), one card a rank.
 
 ``--supervise`` makes it the elastic supervisor
 (``rocket_tpu_torch.resilience``): a lost worker restarts the generation

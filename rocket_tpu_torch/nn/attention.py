@@ -195,7 +195,8 @@ class MultiHeadAttention(Layer):
         if rng is None:
             raise ValueError("MultiHeadAttention: dropout needs rng in train")
         keep = 1.0 - self.dropout
-        mask = keys.bernoulli(keys.fold_in(rng, 1), keep, out.shape, out.device)
+        mask = keys.bernoulli(keys.fold_in(rng, 1), keep, out.shape, out.device,
+                              keys.shard_offset(out.numel()))
         return torch.where(mask, out / keep, torch.zeros((), dtype=out.dtype, device=out.device))
 
     def apply(self, params, x: torch.Tensor, *, mode: str = "train", rng=None) -> torch.Tensor:

@@ -12,6 +12,14 @@ generator-drawn mask would differ between the forward and its
 recompute and the gradients would be silently wrong. A counter hash
 gives the recompute the same mask by construction.
 
+Under data parallelism each rank's dropout draws the elements of its
+stripe of the global batch: the Module's train step runs under
+:func:`data_shard`, and :func:`shard_offset` moves a rank's element
+indices to those of its rows in the global array (rank times the local
+element count; the stripes are equal), so two ranks draw the masks of
+the one-rank run of the same global batch, as the reference draws those
+of the global array.
+
 The bits cannot match JAX's; the tests compare distributions and the
 forward/recompute identity, and run the JAX comparisons with dropout 0.
 
@@ -25,12 +33,15 @@ unchanged, so a key crosses the packages both ways with the same bits.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from rocket_tpu_torch.models.sampling import _mix, _mix_int
 
-__all__ = ["key", "fold_in", "split", "uniform", "bernoulli", "to_data", "from_data"]
+__all__ = ["key", "fold_in", "split", "uniform", "bernoulli", "to_data", "from_data",
+           "data_shard", "shard_offset"]
 
 _M32 = 0xFFFFFFFF
 
@@ -63,17 +74,41 @@ def split(k: int, num: int = 2) -> list:
     return [fold_in(k, 0x5B11_7000 + i) for i in range(num)]
 
 
-def uniform(k: int, shape, device) -> torch.Tensor:
+#: The data-parallel rank of the train step running in this process. One
+#: value for the whole process, not per thread: a CUDA backward (and the
+#: remat recompute inside it) runs on autograd's device threads.
+_DATA_SHARD = [0]
+
+
+@contextlib.contextmanager
+def data_shard(index: int):
+    """Run the block as data-parallel rank ``index`` (see the module
+    docstring); the previous rank is put back after."""
+    previous, _DATA_SHARD[0] = _DATA_SHARD[0], int(index)
+    try:
+        yield
+    finally:
+        _DATA_SHARD[0] = previous
+
+
+def shard_offset(numel: int) -> int:
+    """The global index of this rank's first element of a batch-led tensor
+    of ``numel`` local elements (0 outside :func:`data_shard`)."""
+    return _DATA_SHARD[0] * int(numel)
+
+
+def uniform(k: int, shape, device, offset: int = 0) -> torch.Tensor:
     """f32 uniforms in (0, 1) of ``shape``: element ``i`` (row-major) is a
-    hash of ``(k, i)``, so one key gives the same values on any call."""
+    hash of ``(k, offset + i)``, so one key gives the same values on any
+    call."""
     n = 1
     for s in shape:
         n *= int(s)
-    idx = torch.arange(n, device=device, dtype=torch.int64)
+    idx = torch.arange(offset, offset + n, device=device, dtype=torch.int64)
     bits = _mix((idx * 0x61C88647 + _mix_int(k)) & _M32)
     return (((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))).reshape(shape)
 
 
-def bernoulli(k: int, p: float, shape, device) -> torch.Tensor:
+def bernoulli(k: int, p: float, shape, device, offset: int = 0) -> torch.Tensor:
     """A boolean mask of ``shape``, True with probability ``p``."""
-    return uniform(k, shape, device) < p
+    return uniform(k, shape, device, offset) < p

@@ -395,7 +395,8 @@ class Dropout(Layer):
     ``1 - rate`` and scales the kept ones by ``1 / (1 - rate)``; the
     identity otherwise. The mask comes from the counter-hash key ``rng``
     (``nn/keys.py``), never from a generator, so a checkpointed forward
-    and its recompute drop the same elements."""
+    and its recompute drop the same elements; under data parallelism a
+    rank hashes its rows' global element indices (``keys.shard_offset``)."""
 
     def __init__(self, rate: float):
         self.rate = rate
@@ -406,7 +407,7 @@ class Dropout(Layer):
         if rng is None:
             raise ValueError("Dropout needs an rng in train mode")
         keep = 1.0 - self.rate
-        mask = keys.bernoulli(rng, keep, x.shape, x.device)
+        mask = keys.bernoulli(rng, keep, x.shape, x.device, keys.shard_offset(x.numel()))
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def __repr__(self):

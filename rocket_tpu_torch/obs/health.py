@@ -165,13 +165,16 @@ def branch_sumsq(tree) -> torch.Tensor:
     return torch.stack(sums)
 
 
-def step_flags(loss, grads):
+def step_flags(loss, grads, g_sq=None):
     """The pre-update predicates: ``(step_ok, loss_ok, grad_branch_ok,
     grad_norm)``, ``grad_branch_ok`` f32 per branch (1.0 finite). The gate
     keys on ``step_ok`` (finite loss and gradients); param flags come after
-    the update (:func:`update_sentinels`) and flag but never gate."""
+    the update (:func:`update_sentinels`) and flag but never gate. ``g_sq``:
+    the branches' sums of squares when the caller made them (a sharded
+    layout sums its shards over the ranks), else :func:`branch_sumsq`."""
     loss_ok = torch.isfinite(loss.float())
-    g_sq = branch_sumsq(grads)
+    if g_sq is None:
+        g_sq = branch_sumsq(grads)
     grad_branch_ok = torch.isfinite(g_sq).float()
     step_ok = loss_ok & (grad_branch_ok > 0.5).all()
     return step_ok, loss_ok, grad_branch_ok, g_sq.sum().sqrt()
@@ -179,7 +182,7 @@ def step_flags(loss, grads):
 
 def update_sentinels(h_state: dict, *, loss, step: int, step_ok, loss_ok, grad_branch_ok,
                      grad_norm, update_norm, new_params, gated: bool, ema_decay: float,
-                     zscore_max: float, zscore_warmup: int):
+                     zscore_max: float, zscore_warmup: int, p_sq=None):
     """The post-update half: fold this step into the sentinel state and pack
     the word. Returns ``(new_h_state, word, {"update_ratio", "param_norm"})``.
     ``update_norm`` is ||update|| of the step (0 for a held one); ``step``
@@ -201,7 +204,8 @@ def update_sentinels(h_state: dict, *, loss, step: int, step_ok, loss_ok, grad_b
                                                ema_decay * ema + (1.0 - ema_decay) * safe), ema)
     new_sq = torch.where(loss_ok, torch.where(first, safe * safe, ema_decay * sq_ema
                                               + (1.0 - ema_decay) * safe * safe), sq_ema)
-    p_sq = branch_sumsq(new_params)
+    if p_sq is None:  # else the caller's, summed over a sharded layout's ranks
+        p_sq = branch_sumsq(new_params)
     param_branch_ok = torch.isfinite(p_sq).float()
     param_norm = p_sq.sum().sqrt()
     update_ratio = update_norm.float() / (param_norm + 1e-12)

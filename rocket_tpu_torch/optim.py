@@ -328,14 +328,16 @@ def _count(opt, params, device) -> torch.Tensor:
 
 @torch.no_grad()
 def gated_step(opt: torch.optim.Optimizer, grads: dict, ok: torch.Tensor, schedule,
-               clip_norm=None) -> tuple:
+               clip_norm=None, sumsq=None) -> tuple:
     """One update of ``opt`` with the gradients ``grads`` (param -> tensor)
     if the 0-dim bool ``ok`` is true, and none at all if it is false, with
     no host read. ``clip_norm``: clip to that global norm first (optax's
     ``clip_by_global_norm``, as the Module's plain path). Returns
     ``(update_norm, lr, grad_norm)`` as 0-dim f32 tensors: ||update|| of the
     applied update (0 when held), the lr it used, and the pre-clip norm of
-    the gradients it took (those of a held step are zeros).
+    the gradients it took (those of a held step are zeros). ``sumsq``:
+    ``fn(params, tensors) -> Σ ||t||²`` for the two global norms, where the
+    params are shards summed over the ranks (default: the local sum).
 
     The lr is ``schedule(count)``, count being the optimizer's applied
     updates (a device tensor, :func:`_count`). On a held step the gradients
@@ -349,7 +351,11 @@ def gated_step(opt: torch.optim.Optimizer, grads: dict, ok: torch.Tensor, schedu
         raise ValueError("gated_step: no gradient for any of the optimizer's params")
     device = order[0].device
     safe = dict(zip(order, (torch.where(ok, grads[p], 0.0) for p in order)))
-    grad_norm = torch.stack(torch._foreach_norm(list(safe.values()))).float().square().sum().sqrt()
+    if sumsq is None:
+        grad_norm = (torch.stack(torch._foreach_norm(list(safe.values()))).float().square().sum()
+                     .sqrt())
+    else:
+        grad_norm = sumsq(order, list(safe.values())).sqrt()
     if clip_norm is not None:
         torch._foreach_mul_(list(safe.values()),
                             clip_norm / torch.clamp(grad_norm, min=clip_norm))
@@ -362,7 +368,7 @@ def gated_step(opt: torch.optim.Optimizer, grads: dict, ok: torch.Tensor, schedu
     def decayed(beta):  # (decay, gradient weight): (1, 0) on a held step
         return torch.where(ok, beta, 1.0), torch.where(ok, 1.0 - beta, 0.0)
 
-    norms = []
+    norms, stepped, moved = [], [], []
     for group in opt.param_groups:
         params = [p for p in group["params"] if p in safe]
         if not params:
@@ -411,12 +417,18 @@ def gated_step(opt: torch.optim.Optimizer, grads: dict, ok: torch.Tensor, schedu
                 upd = (torch._foreach_add(upd, torch._foreach_mul(bufs, beta))
                        if group.get("nesterov") else bufs)
         step = torch._foreach_mul(upd, lr_eff)
-        norms += torch._foreach_norm(step)
+        if sumsq is None:
+            norms += torch._foreach_norm(step)
+        else:
+            stepped += params
+            moved += step
         torch._foreach_sub_(params, step)
         # A list of the 0-dim increment: foreach add with one tensor
         # operand reads it on the host (a sync); tensor lists do not.
         steps = [s["step"] for s in states]
         torch._foreach_add_(steps, [okf] * len(steps))
+    if sumsq is not None:
+        return sumsq(stepped, moved).sqrt(), lr, grad_norm
     return torch.stack(norms).float().square().sum().sqrt(), lr, grad_norm
 
 

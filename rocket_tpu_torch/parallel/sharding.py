@@ -1,0 +1,202 @@
+"""Param-sharding rule builders: map param-tree paths to partition specs
+(counterpart of ``rocket_tpu/parallel/sharding.py``; the same paths give
+the same specs).
+
+A rule set is a list of ``(glob_pattern, spec)`` pairs matched against the
+'/'-joined param path, first match wins; a spec is a tuple naming, per
+dim, the mesh axis that dim is split over (or None). Pass the resulting
+function as ``Module(..., param_sharding=rule_fn)``. The port's Module
+applies specs over the data axis only (``fsdp_rules``, or a
+``make_rules`` table naming ``"data"``): a spec naming any other axis
+raises there, since tensor, expert and pipeline parallelism are not
+ported yet (ROADMAP Queue A 6). The builders for those axes are here all
+the same, as pure functions.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+from typing import Callable, Optional, Sequence, Tuple
+
+__all__ = [
+    "ShardingRuleError",
+    "make_rules",
+    "gpt2_tp_rules",
+    "fsdp_rules",
+    "moe_rules",
+    "pipeline_rules",
+    "pipeline_over",
+    "combine_rules",
+]
+
+Spec = Optional[Tuple]
+RuleFn = Callable[[Tuple[str, ...], object], Spec]
+
+
+def _numel(leaf) -> int:
+    """Element count of a torch tensor, a numpy array or any object with a
+    ``shape`` (``Tensor.size`` is a method, numpy's an int)."""
+    numel = getattr(leaf, "numel", None)
+    if callable(numel):
+        return int(numel())
+    n = 1
+    for dim in getattr(leaf, "shape", ()) or ():
+        n *= int(dim)
+    return n
+
+
+class ShardingRuleError(ValueError):
+    """A sharding rule matched a param it cannot describe: its spec names
+    more dims than the param has. Raised when the rule set is applied to
+    the param tree, carrying the matched glob."""
+
+    def __init__(self, pattern: str, path: Tuple[str, ...], spec: Tuple,
+                 shape: Tuple[int, ...]) -> None:
+        self.pattern = pattern
+        self.path = tuple(path)
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+        super().__init__(
+            f"sharding rule {pattern!r} matched param "
+            f"{'/'.join(self.path)} with shape {self.shape} but its spec "
+            f"{self.spec} names {len(self.spec)} dims — a PartitionSpec "
+            "cannot be longer than the param rank (is the rule written "
+            "for the scan-over-layers 'blocks_stacked' layout, or is the "
+            "glob matching the wrong leaf?)"
+        )
+
+
+def make_rules(rules: Sequence[Tuple[str, Spec]],
+               stacked_prefixes: Tuple[str, ...] = ("blocks_stacked",)) -> RuleFn:
+    """A param_sharding fn from ``[(glob, spec), ...]``; first match wins;
+    no match -> replicated (None). Only leaves under a ``stacked_prefixes``
+    subtree (the scan-over-layers layout, with a leading layer dim) get a
+    short spec left-padded with None; elsewhere a short spec leaves its
+    trailing dims replicated. A spec longer than the leaf's rank raises
+    :class:`ShardingRuleError`. The fn exposes its table as
+    ``rule_fn.patterns``."""
+
+    def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
+        joined = "/".join(path)
+        for pattern, spec in rules:
+            if fnmatch.fnmatch(joined, pattern):
+                shape = getattr(leaf, "shape", None)
+                if (spec is not None and shape is not None and len(shape) > len(spec)
+                        and path and path[0] in stacked_prefixes):
+                    spec = (None,) * (len(shape) - len(spec)) + tuple(spec)
+                if spec is not None and shape is not None and len(spec) > len(shape):
+                    raise ShardingRuleError(pattern, path, spec, tuple(shape))
+                return spec
+        return None
+
+    rule_fn.patterns = tuple((pattern, spec) for pattern, spec in rules)
+    return rule_fn
+
+
+def gpt2_tp_rules(axis: str = "model") -> RuleFn:
+    """Megatron-style tensor parallelism for :class:`TransformerLM` params:
+    QKV and MLP-in kernels and biases column-parallel, the attention
+    projection and MLP-out kernels row-parallel, the embedding table over
+    the vocab dim. The fn carries the ``tp_axis`` and ``tp_vocab_sharded``
+    markers."""
+    rule_fn = make_rules([
+        ("*/attn/qkv/w", (None, axis)),
+        ("*/attn/qkv/b", (axis,)),
+        ("*/attn/proj/w", (axis, None)),
+        ("*/mlp/fc_in/w", (None, axis)),
+        ("*/mlp/fc_in/b", (axis,)),
+        ("*/mlp/fc_gate/w", (None, axis)),
+        ("*/mlp/fc_gate/b", (axis,)),
+        ("*/mlp/fc_out/w", (axis, None)),
+        ("wte/table", (axis, None)),
+        ("head/w", (None, axis)),
+    ])
+    rule_fn.tp_axis = axis
+    rule_fn.tp_vocab_sharded = True
+    return rule_fn
+
+
+def fsdp_rules(axis: str = "data", min_size: int = 2**16,
+               stacked_prefixes: Tuple[str, ...] = ("blocks_stacked",)) -> RuleFn:
+    """ZeRO-3-style fully-sharded layout: every param of at least
+    ``min_size`` elements sharded on its first natural dim (under a
+    ``stacked_prefixes`` subtree, the dim after the layer dim). The fn
+    carries the ``fsdp_axis`` and ``fsdp_min_size`` markers: the first
+    routes the Module's step through the bucketed gradient sync
+    (``parallel.grad_sync``)."""
+
+    def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
+        shape = getattr(leaf, "shape", ())
+        if not shape or _numel(leaf) < min_size:
+            return None
+        spec = (axis,) + (None,) * (len(shape) - 1)
+        if path and path[0] in stacked_prefixes and len(shape) > 1:
+            spec = (None, axis) + (None,) * (len(shape) - 2)
+        return spec
+
+    rule_fn.fsdp_axis = axis
+    rule_fn.fsdp_min_size = min_size
+    return rule_fn
+
+
+def moe_rules(axis: str = "expert",
+              stacked_prefixes: Tuple[str, ...] = ("blocks_stacked",)) -> RuleFn:
+    """Expert parallelism: stacked expert params (leading E dim) sharded
+    over an 'expert' axis. Composes with :func:`combine_rules`."""
+
+    def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
+        if "experts" not in path:
+            return None
+        shape = getattr(leaf, "shape", ())
+        offset = 1 if path and path[0] in stacked_prefixes else 0
+        if len(shape) <= offset:
+            return None
+        return (None,) * offset + (axis,) + (None,) * (len(shape) - offset - 1)
+
+    return rule_fn
+
+
+def pipeline_over(inner: RuleFn, axis: str = "pipe",
+                  stacked_prefix: str = "blocks_stacked") -> RuleFn:
+    """Pipeline-stage sharding on top of another rule set: stacked-layer
+    leaves get their leading layer dim over ``axis`` beside whatever
+    ``inner`` gives the layer's own dims (a short inner spec is left-padded);
+    other leaves follow ``inner``."""
+
+    def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
+        spec = inner(path, leaf)
+        if not (path and path[0] == stacked_prefix):
+            return spec
+        shape = getattr(leaf, "shape", ())
+        if spec is None:
+            spec = (None,) * len(shape)
+        spec = (None,) * (len(shape) - len(spec)) + tuple(spec)
+        return (axis,) + tuple(spec[1:])
+
+    return rule_fn
+
+
+def combine_rules(*fns: RuleFn) -> RuleFn:
+    """The first rule set returning a non-None spec wins."""
+
+    def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
+        for fn in fns:
+            spec = fn(path, leaf)
+            if spec is not None:
+                return spec
+        return None
+
+    return rule_fn
+
+
+def pipeline_rules(axis: str = "pipe", stacked_prefix: str = "blocks_stacked") -> RuleFn:
+    """Pipeline parallelism: the stacked layer dim sharded over a 'pipe'
+    axis; everything else replicated."""
+
+    def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
+        if path and path[0] == stacked_prefix:
+            shape = getattr(leaf, "shape", ())
+            return (axis,) + (None,) * (len(shape) - 1)
+        return None
+
+    return rule_fn

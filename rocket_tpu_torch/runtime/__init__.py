@@ -1,16 +1,16 @@
 """The port's runtime: device resolution for the entry points, the
-single-process :class:`Runtime` shared by a capsule tree with its ops
-plane (telemetry, health, flight recorder, :class:`StrictMode`), and the
-one helper every deliberate host transfer goes through
-(:func:`explicit_transfer`) — the counterpart of
-``rocket_tpu/runtime/context.py`` without the mesh and the process group
-(ROADMAP Queue A 3 and 6). The Runtime also holds the resilience plumbing
-(the drain flag, the fault injector, the live Checkpointers) and starts
-the live export plane. ``checkpoint_io`` holds the checkpoint file
+:class:`Runtime` shared by a capsule tree with its process group and data
+mesh, its ops plane (telemetry, health, flight recorder,
+:class:`StrictMode`), and the one helper every deliberate host transfer
+goes through (:func:`explicit_transfer`) — the counterpart of
+``rocket_tpu/runtime/context.py``. The Runtime also holds the resilience
+plumbing (the drain flag, the fault injector, the live Checkpointers) and
+starts the live export plane. ``checkpoint_io`` holds the checkpoint file
 format."""
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import logging
 import os
@@ -227,16 +227,36 @@ class IdentityRegistry:
         return [prepared for _, prepared in self._entries.values()]
 
 
+def _close_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 class Runtime:
-    """Execution context shared by every capsule of a tree: the device,
-    the seeds, gradient accumulation, the models and dataloaders
-    registries, the device-resident datasets, the checkpoint stack of
-    stateful capsules and the tracker backends. One process: it is always
-    the main process and its barrier is a no-op (the process group is
-    ROADMAP Queue A 3).
+    """Execution context shared by every capsule of a tree: the process
+    group and data mesh, the device, the seeds, gradient accumulation, the
+    models and dataloaders registries, the device-resident datasets, the
+    checkpoint stack of stateful capsules and the tracker backends.
+
+    The process group (the reference's ``context.py:243-262``): a group
+    the caller already opened (``torch.distributed.init_process_group``)
+    is adopted; else, when ``MASTER_ADDR`` and ``WORLD_SIZE`` are set (as
+    ``python -m rocket_tpu_torch.launch`` sets them, with ``RANK`` and
+    ``LOCAL_RANK``), one is opened: NCCL on a CUDA device, gloo on the CPU.
+    Without either the Runtime is one process. ``mesh_shape`` (default
+    ``{"data": world size}``) must cover the ranks, one device each, and
+    builds the ``DeviceMesh`` (``device_mesh``); an axis other than the
+    data axes that is larger than 1 raises (tensor, pipeline and expert
+    parallelism are ROADMAP Queue A 6). Each rank holds its stripe of the
+    global batch (:meth:`shard_batch`) and starts from the same params,
+    made from the same seed. :meth:`wait_for_everyone` is a barrier over
+    every rank.
 
     ``device`` resolves through :func:`resolve_device` (CUDA unless
-    ``"cpu"`` is asked for). Every seed a capsule takes derives from
+    ``"cpu"`` is asked for; ``cuda:LOCAL_RANK`` when the launcher set
+    ``LOCAL_RANK``). Every seed a capsule takes derives from
     ``seed`` and the number of earlier draws (:meth:`next_seed`).
     ``device_placement``: the default of ``Dataset(device_placement=)``,
     whether streamed batches are copied to ``device``.
@@ -281,6 +301,9 @@ class Runtime:
     def current(cls) -> Optional["Runtime"]:
         return cls._current
 
+    #: The mesh axes a batch is split over (the reference's ``DATA_AXES``).
+    DATA_AXES: tuple = ("data",)
+
     def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
                  device_placement: bool = True, device_cache_bytes: int = 1 << 30,
                  project_dir: str = ".", strict: Optional[bool] = None,
@@ -290,10 +313,13 @@ class Runtime:
                  anomaly_action: Optional[str] = None, blackbox_steps: int = 256,
                  health_fetch_lag: int = 2, export: Optional[bool] = None,
                  export_interval_s: Optional[float] = None, metrics_port: Optional[int] = None,
-                 slo: Optional[str] = None) -> None:
+                 slo: Optional[str] = None, mesh_shape: Optional[dict] = None) -> None:
         if gradient_accumulation_steps < 1:
             raise RuntimeError("gradient_accumulation_steps must be >= 1")
+        if device is None and os.environ.get("LOCAL_RANK", "").isdigit():
+            device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
         self.device = resolve_device(device)
+        self._init_process_group(mesh_shape)
         self._seed = int(seed)
         self._seed_counter = 0
         self.gradient_accumulation_steps = int(gradient_accumulation_steps)
@@ -397,22 +423,124 @@ class Runtime:
         if self.supervised or env_truthy(DRAIN_ENV):
             install_signal_drain(self.drain, logger=logger)
 
-    # -- processes ------------------------------------------------------------
+    # -- processes and the data mesh ----------------------------------------------
+
+    def _init_process_group(self, mesh_shape) -> None:
+        """Adopt or open the process group, then check ``mesh_shape`` and
+        build the data mesh over the ranks."""
+        import torch.distributed as dist
+
+        self.grouped = dist.is_available() and dist.is_initialized()
+        env = os.environ
+        if not self.grouped and env.get("MASTER_ADDR") and env.get("WORLD_SIZE"):
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            # A rank that cannot reach the rendezvous raises here, after
+            # torch's timeout: no rank runs alone.
+            dist.init_process_group("nccl" if self.device.type == "cuda" else "gloo",
+                                    init_method="env://", world_size=int(env["WORLD_SIZE"]),
+                                    rank=int(env.get("RANK", "0")))
+            self.grouped = True
+            # The group this Runtime opened closes before the interpreter's
+            # teardown, which can abort a process whose gloo group is open.
+            atexit.register(_close_group)
+        self._world = dist.get_world_size() if self.grouped else 1
+        self._rank = dist.get_rank() if self.grouped else 0
+        self.backend = dist.get_backend() if self.grouped else None
+        shape = dict(mesh_shape) if mesh_shape is not None else {"data": self._world}
+        size = 1
+        for axis, n in shape.items():
+            size *= int(n)
+            if axis not in self.DATA_AXES and int(n) > 1:
+                raise NotImplementedError(
+                    f"Runtime: mesh axis {axis!r} of size {n}: only the data axes "
+                    f"{self.DATA_AXES} are ported, tensor, pipeline and expert parallelism "
+                    "are not yet (ROADMAP Queue A 6)")
+        if size != self._world:
+            raise RuntimeError(f"Runtime: mesh_shape {shape} needs {size} ranks (one device "
+                               f"each), the process group has {self._world}")
+        self._mesh_shape = shape
+        self.device_mesh = None
+        if self.grouped and self._world > 1:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            self.device_mesh = DeviceMesh(self.device.type, torch.arange(self._world).reshape(
+                tuple(int(n) for n in shape.values())), mesh_dim_names=tuple(shape))
+
+    @property
+    def mesh(self) -> dict:
+        """The mesh's axes and sizes (``{"data": ranks}``); the torch
+        ``DeviceMesh`` over the ranks is :attr:`device_mesh`."""
+        return dict(self._mesh_shape)
+
+    @property
+    def data_axis_size(self) -> int:
+        size = 1
+        for axis in self.DATA_AXES:
+            size *= int(self._mesh_shape.get(axis, 1))
+        return size
 
     @property
     def is_main_process(self) -> bool:
-        return True
+        return self._rank == 0
+
+    @property
+    def is_local_main_process(self) -> bool:
+        local = os.environ.get("LOCAL_RANK", "")
+        return (int(local) if local.isdigit() else self._rank) == 0
 
     @property
     def process_index(self) -> int:
-        return 0
+        return self._rank
 
     @property
     def process_count(self) -> int:
-        return 1
+        return self._world
 
     def wait_for_everyone(self) -> None:
-        """The cross-process barrier; one process has nothing to wait for."""
+        """A barrier over every rank (the reference's runs on all ranks
+        too); nothing to wait for without a process group. A deliberate
+        host wait, so it is legal under strict mode."""
+        if not self.grouped:
+            return
+        import torch.distributed as dist
+
+        with explicit_transfer():
+            if self.backend == "nccl":
+                dist.barrier(device_ids=[self.device.index or 0])
+            else:
+                dist.barrier()
+
+    def broadcast_int(self, value: int, src: int = 0) -> int:
+        """``value`` as rank ``src`` has it, on every rank (the
+        reference's ``broadcast_one_to_all``)."""
+        if self._world <= 1:
+            return int(value)
+        import torch.distributed as dist
+
+        with explicit_transfer():
+            t = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+            dist.broadcast(t, src=src)
+            return int(t.item())
+
+    def shard_batch(self, batch):
+        """A host batch, this rank's stripe of the global batch, on the
+        device (the reference's ``shard_batch``: each rank holds its
+        stripe). Stripes that do not divide over the data axis raise in a
+        multi-process run, as there; one process places the batch as it
+        is. Strings and other opaque leaves pass through."""
+        from rocket_tpu_torch.data.collate import default_move
+
+        procs, n = self._world, self.data_axis_size
+        if procs > 1:
+            from rocket_tpu_torch.data.device_cache import tree_leaves
+
+            for leaf in tree_leaves(batch):
+                if getattr(leaf, "ndim", 0) >= 1 and (leaf.shape[0] * procs) % n:
+                    raise RuntimeError(f"shard_batch: global batch {leaf.shape[0] * procs} not "
+                                       f"divisible over data axis ({n}) in a {procs}-process "
+                                       "run.")
+        return default_move(batch, self.device)
 
     # -- seeds ----------------------------------------------------------------
 

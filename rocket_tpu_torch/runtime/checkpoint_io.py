@@ -1,15 +1,20 @@
-"""Checkpoint I/O — the single-process counterpart of
+"""Checkpoint I/O — the counterpart of
 ``rocket_tpu/runtime/checkpoint_io.py``, with the same on-disk layout, so
-each package reads what the other writes:
+each package reads what the other writes, at any process count:
 
 * ``index.json`` maps each leaf path (the nested keys joined by ``/``) to
   ``{"kind": "array", "shape", "dtype", "chunks": [{"file", "key",
   "index"}]}`` or ``{"kind": "json", "value"}`` for ``None``, bools, ints,
   floats and strings;
-* arrays live in ``shard_p0.npz`` (no pickle); one process owns every
-  chunk, so each array is one chunk covering it whole. The reader
-  assembles any chunk layout, so a checkpoint the JAX package wrote under
-  a sharding reads here too.
+* each process writes only the chunks it owns to ``shard_p{process}.npz``
+  (no pickle), and the main process writes the index, which is a pure
+  function of the leaves' layouts, so no rank exchanges metadata: a whole
+  tensor is one chunk owned by process 0; a :class:`ShardedLeaf` (one
+  rank's shard of a leaf split evenly on a dim) is one chunk per rank,
+  chunk ``j`` owned by process ``j``, as the reference lays out a leaf
+  sharded over the data axis. The reader assembles any chunk layout
+  (the resharding restore): a checkpoint written by any number of
+  processes, in either package, reads here.
 
 Write protocol: :func:`snapshot` pulls every tensor to host synchronously
 (after it returns the live tensors may change), :func:`write_snapshot`
@@ -44,14 +49,40 @@ import numpy as np
 import torch
 
 __all__ = [
-    "HostFS", "use_fs", "atomic_write", "snapshot", "write_snapshot", "save_pytree",
-    "load_leaf", "load_pytree", "unflatten", "AsyncWriter", "seed_optional",
+    "HostFS", "use_fs", "atomic_write", "ShardedLeaf", "snapshot", "write_snapshot",
+    "save_pytree", "load_leaf", "load_pytree", "unflatten", "AsyncWriter", "seed_optional",
 ]
 
 logger = logging.getLogger(__name__)
 
 _INDEX = "index.json"
-_SHARD = "shard_p0.npz"
+
+
+def _shard_file(process: int) -> str:
+    return f"shard_p{process}.npz"
+
+
+class ShardedLeaf:
+    """One process's shard of a leaf of shape ``shape`` split evenly on
+    ``dim`` over ``count`` processes: ``local`` is shard ``index``. In a
+    tree given to :func:`snapshot` it is saved as ``count`` chunks."""
+
+    __slots__ = ("local", "shape", "dim", "index", "count")
+
+    def __init__(self, local, shape, dim: int, index: int, count: int) -> None:
+        self.local, self.shape, self.dim = local, tuple(int(d) for d in shape), int(dim)
+        self.index, self.count = int(index), int(count)
+
+    def region(self, j: int) -> list:
+        """``[lo, hi]`` per dim of shard ``j``."""
+        step = self.shape[self.dim] // self.count
+        return [[j * step, (j + 1) * step] if d == self.dim else [0, n]
+                for d, n in enumerate(self.shape)]
+
+    def zeros_like(self) -> "ShardedLeaf":
+        local = (torch.zeros_like(self.local) if isinstance(self.local, torch.Tensor)
+                 else np.zeros_like(self.local))
+        return ShardedLeaf(local, self.shape, self.dim, self.index, self.count)
 
 
 class HostFS:
@@ -146,40 +177,57 @@ def _to_numpy(name: str, leaf) -> np.ndarray:
     return arr
 
 
-def snapshot(tree: Any) -> dict:
-    """Phase 1: the index and every array pulled to host (synchronous).
-    Tensors and numpy arrays become npz entries; ``None``, bools, ints,
-    floats and strings stay inline as JSON."""
+def snapshot(tree: Any, process: int = 0) -> dict:
+    """Phase 1: the whole index and this ``process``'s chunks pulled to
+    host (synchronous). Tensors and numpy arrays become npz entries (one
+    chunk, process 0's), a :class:`ShardedLeaf` one chunk per process;
+    ``None``, bools, ints, floats and strings stay inline as JSON."""
     index: dict = {}
     local: dict = {}
     for path, leaf in _leaves(tree):
         name = "/".join(path)
         if name in index:
             raise ValueError(f"checkpoint: duplicate leaf path {name!r}")
-        if isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
-            arr = _to_numpy(name, leaf)
-            key = f"{name}:0"
+        if isinstance(leaf, ShardedLeaf):
+            arr = _to_numpy(name, leaf.local)
             index[name] = {
-                "kind": "array", "shape": list(arr.shape), "dtype": arr.dtype.name,
-                "chunks": [{"file": _SHARD, "key": key, "index": [[0, d] for d in arr.shape]}],
+                "kind": "array", "shape": list(leaf.shape), "dtype": arr.dtype.name,
+                "chunks": [{"file": _shard_file(j), "key": f"{name}:{j}",
+                            "index": leaf.region(j)} for j in range(leaf.count)],
             }
-            local[key] = arr
+            if leaf.index == process:
+                local[f"{name}:{process}"] = arr
+        elif isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
+            key = f"{name}:0"
+            arr = _to_numpy(name, leaf) if process == 0 else None
+            shape = tuple(leaf.shape)
+            dtype = (arr.dtype.name if arr is not None else
+                     _to_numpy(name, leaf.reshape(-1)[:0]).dtype.name)
+            index[name] = {
+                "kind": "array", "shape": list(shape), "dtype": dtype,
+                "chunks": [{"file": _shard_file(0), "key": key,
+                            "index": [[0, d] for d in shape]}],
+            }
+            if arr is not None:
+                local[key] = arr
         elif leaf is None or isinstance(leaf, (bool, int, float, str)):
             index[name] = {"kind": "json", "value": leaf}
         else:
             raise TypeError(f"checkpoint leaf {name!r} has unsupported type "
                             f"{type(leaf).__name__}; convert it to a tensor or a scalar")
-    return {"process": 0, "index": index, "local": local}
+    return {"process": int(process), "index": index, "local": local}
 
 
 def write_snapshot(path: str, plan: dict) -> None:
-    """Phase 2: file I/O only (safe on a background thread). The shard
-    first, then ``index.json``, whose presence marks a complete write."""
+    """Phase 2: file I/O only (safe on a background thread). This
+    process's shard file first, then (main process) ``index.json``, whose
+    presence marks a complete main-process write."""
     _FS.makedirs(path)
     buf = io.BytesIO()
     np.savez(buf, **plan["local"])
-    atomic_write(os.path.join(path, _SHARD), buf.getvalue())
-    atomic_write(os.path.join(path, _INDEX), json.dumps(plan["index"]).encode("utf-8"))
+    atomic_write(os.path.join(path, _shard_file(plan["process"])), buf.getvalue())
+    if plan["process"] == 0:
+        atomic_write(os.path.join(path, _INDEX), json.dumps(plan["index"]).encode("utf-8"))
 
 
 def save_pytree(path: str, tree: Any) -> None:
@@ -208,7 +256,8 @@ class _ChunkReader:
 
 
 def _assemble(meta: dict, reader: _ChunkReader) -> np.ndarray:
-    """The whole array from the saved chunks (any chunk layout)."""
+    """The whole array from the saved chunks (any chunk layout: one per
+    process of any process count)."""
     shape = tuple(meta["shape"])
     out = np.empty(shape, dtype=np.dtype(meta["dtype"]))
     filled = 0

@@ -191,8 +191,14 @@ def test_capsule_tree_guards():
     ds.bind(rt.Runtime(device="cpu"))
     with pytest.raises(RuntimeError, match="different runtime"):
         ds.bind(rt.Runtime(device="cpu"))
+    # A sharding rule over a non-data axis (tensor parallelism) is refused
+    # when the Module lays the params out.
+    tree = rt.Launcher([rt.Looper([rt.Dataset(data, batch_size=2), rt.Module(
+        model, [rt.Loss(tt.next_token_loss()), rt.Optimizer(toptim.adamw())],
+        param_sharding=lambda path, leaf: ("model",))], progress=False)],
+        runtime=rt.Runtime(device="cpu"))
     with pytest.raises(NotImplementedError, match="Queue A 6"):
-        rt.Module(model, param_sharding=lambda path, leaf: None)
+        tree.launch()
     with pytest.raises(ValueError, match="ema_decay"):  # EMA is ported; its decay is checked
         rt.Module(model, ema_decay=1.5)
 

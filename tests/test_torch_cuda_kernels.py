@@ -29,7 +29,9 @@ their f32 sum. Rows 3-8 in bf16 run on the tensor cores and are held to
 the same bounds, plus two launches bitwise; so do bf16 ``gmm`` and row
 11, on wgmma. Rows 3-7 also run at head dim 128 and at D's the wrappers
 zero-pad to 128 (96, 80; 40 to 64), against their plain versions at the
-true D.
+true D. The bucketed gradient reduction of ``parallel/grad_sync.py`` runs
+on CUDA tensors over a two-rank gloo group and equals the f32 all-reduce
+bitwise under ``wire_dtype=None``.
 """
 
 import pytest
@@ -1417,3 +1419,59 @@ def test_a_poisoned_cuda_batch_stays_on_the_card_and_is_all_nan(cuda):
         assert out[key].device == batch[key].device and out[key].dtype == batch[key].dtype
         assert out[key].shape == batch[key].shape and bool(torch.isnan(out[key]).all())
     assert out["label"] is batch["label"] and inj.fired == ("poison@batch[1]",)
+
+
+_GLOO_CUDA_WORKER = r'''
+import os, sys
+import torch
+import torch.distributed as dist
+
+rank, world = int(sys.argv[1]), 2
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[2]}", rank=rank,
+                        world_size=world)
+from rocket_tpu_torch.parallel.grad_sync import GradSync
+from rocket_tpu_torch.runtime import Runtime
+
+runtime = Runtime(device="cuda")  # adopts the caller's group
+assert (runtime.process_index, runtime.process_count, runtime.backend) == (rank, world, "gloo")
+gen = torch.Generator().manual_seed(7)
+shapes = [(300, 7), (64,), (5, 3, 2), (1000,)]
+leaves = [torch.randn(*s, generator=gen).cuda().requires_grad_(True) for s in shapes]
+x = torch.randn(16, generator=gen).cuda() * (rank + 1)
+sync = GradSync(shapes, [torch.float32] * 4, [None] * 4, world, bucket_bytes=4096,
+                wire_dtype=None)
+sync.begin(leaves)
+loss = sum((t.sum() * x[i]) ** 2 for i, t in enumerate(leaves))
+grads = torch.autograd.grad(loss, leaves)
+reduced, _ = sync.finish(grads, loss.detach())
+for g, r in zip(grads, reduced):
+    want = g / world
+    dist.all_reduce(want)
+    assert r.is_cuda and torch.equal(r, want), (r - want).abs().max()
+dist.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_gloo_bucketed_reduction_on_cuda_equals_the_f32_all_reduce(cuda, tmp_path):
+    """Two ranks on the card over a caller-opened gloo group: under
+    ``wire_dtype=None`` the bucketed reduction is the f32 all-reduce."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = tmp_path / "worker.py"
+    script.write_text(_GLOO_CUDA_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]

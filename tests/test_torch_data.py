@@ -158,8 +158,11 @@ def test_iterable_dataset_batches_match_the_reference(n, drop_last):
 
 
 def test_loader_refuses_other_processes_and_bad_datasets():
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
-        DataLoader(_Rows(4), batch_size=2, process_index=1, process_count=2)
+    # Other processes stripe a global batch that divides over them.
+    with pytest.raises(ValueError, match="divide evenly"):
+        DataLoader(_Rows(4), batch_size=3, process_index=1, process_count=2)
+    with pytest.raises(ValueError, match="not one of 2 processes"):
+        DataLoader(_Rows(4), batch_size=2, process_index=2, process_count=2)
     with pytest.raises(TypeError):
         DataLoader(object())
     with pytest.raises(ValueError, match="map-style"):
