@@ -4788,6 +4788,12 @@ DP_WIRE_SUM_TOL, DP_WIRE_TOL = 1e-6, 2.0 ** -7
 #: split flips moves it 2 lr apart: 4 steps, 5e-3.
 DP_PARAM_TOL = 5e-3
 DP_STEPS, DP_SAVE_AT = 8, 4
+#: tp_train: the bf16 wire's step-1 gradients against the f32 wire's, both
+#: at f32 compute, relative to the largest element. Unlike the data
+#: reduction's one rounding at the end, the TP wire rounds the activation
+#: gradient at every collective of every layer (4 a layer, 12 layers), and
+#: each rounding (2^-9) flows on through the layers below it.
+TP_WIRE_TOL = 3e-2
 
 DP_WORKER = r"""
 import dataclasses, hashlib, json, os, sys, time
@@ -4810,7 +4816,9 @@ from rocket_tpu_torch.core.module import PreparedModule
 from rocket_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.ops import flash_native as fa
-from rocket_tpu_torch.parallel.sharding import fsdp_rules
+from rocket_tpu_torch import bridge
+from rocket_tpu_torch.parallel import collectives as coll
+from rocket_tpu_torch.parallel.sharding import fsdp_rules, gpt2_tp_rules
 
 model_cfg = TransformerConfig.gpt2_124m()
 data = TokenDataset(np.load(os.path.join(root, "tokens.npy")) % model_cfg.vocab_size,
@@ -4831,7 +4839,7 @@ class Clock(rt.Capsule):
     def __init__(self):
         super().__init__(priority=10)
         self.module, self.prepared = None, None
-        self.losses, self.stamps, self.waits = [], [], []
+        self.losses, self.stamps, self.waits, self.coll = [], [], [], []
 
     def set(self, attrs=None):
         super().set(attrs)
@@ -4845,6 +4853,25 @@ class Clock(rt.Capsule):
         self.stamps.append(time.perf_counter())
         if self.module.grad_sync is not None:
             self.waits.append(self.module.grad_sync.stats["wait_s"])
+        # The model group's collectives, cumulative.
+        self.coll.append((coll.STATS["wait_s"], coll.STATS["wire_bytes"]))
+
+
+def whole_grads(module, grads):
+    # Under tensor parallelism a rank's gradients are its shards: the
+    # model group's shards gathered whole, in param order (every rank calls).
+    prepared = module.prepared
+    if prepared.shard_axes is None or "model" not in prepared.shard_axes:
+        return grads
+    out = []
+    for i, g in enumerate(grads):
+        lay = prepared.layout(i)
+        if lay is not None and prepared.shard_axes[i] == "model":
+            parts = [torch.empty_like(g) for _ in range(lay[1])]
+            dist.all_gather(parts, g.contiguous(), group=module._runtime.axis_group("model"))
+            g = torch.cat(parts, lay[0])
+        out.append(g)
+    return out
 
 
 class GradTap(rt.Capsule):
@@ -4859,8 +4886,9 @@ class GradTap(rt.Capsule):
         self.done, module, update = True, self.module, self.module._update
 
         def tap(leaves, grads, *args, **kw):
+            whole = whole_grads(module, grads)
             if rank == 0:
-                np.save(self.path, torch.cat([g.float().reshape(-1) for g in grads]).cpu().numpy())
+                np.save(self.path, torch.cat([g.float().reshape(-1) for g in whole]).cpu().numpy())
             module._update = update
             return update(leaves, grads, *args, **kw)
 
@@ -4882,7 +4910,11 @@ if cfg.get("probe"):
 for job in cfg["jobs"]:
     if job.get("needs_probe") and results.get("probe") != "ok":
         continue
-    runtime = rt.Runtime(seed=0, strict=job.get("strict", False))
+    for key in ("ROCKET_TPU_OVERLAP", "ROCKET_TPU_OVERLAP_WIRE"):
+        os.environ.pop(key, None)
+    os.environ.update(job.get("env", {}))
+    runtime = rt.Runtime(seed=0, strict=job.get("strict", False), mesh_shape=job.get("mesh"))
+    coll.reset_stats()
     clock, caps = Clock(), []
     tap = GradTap(os.path.join(root, job["name"] + "_grads.npy")) if job.get("tap") else None
     caps += [tap] if tap is not None else []
@@ -4899,7 +4931,8 @@ for job in cfg["jobs"]:
     run = gpt2.build(job_cfg, data, batch_size=8, runtime=runtime, steps=job["steps"],
                      record=False, capsules=tuple(caps), grad_sync=job.get("grad_sync", "auto"),
                      grad_wire_dtype=job.get("wire", "bfloat16"),
-                     param_sharding=fsdp_rules() if job.get("fsdp") else None)
+                     param_sharding=gpt2_tp_rules() if job.get("tp") else
+                     fsdp_rules() if job.get("fsdp") else None)
     module = clock.module = run["module"]
     runtime.models.add(run["model"], PreparedModule(
         run["model"], {"params": map_params(lambda t: t.clone(), init_params)}))
@@ -4931,9 +4964,23 @@ for job in cfg["jobs"]:
             out["sizes"] = [t.numel() for t in leaves]
     if ckpt is not None:
         out["saves"] = ckpt.save_times
-    if job.get("keep_params") and rank == 0:
-        np.save(os.path.join(root, job["name"] + "_params.npy"),
-                torch.cat([t.detach().reshape(-1) for t in leaves]).cpu().numpy())
+    if job.get("tp"):
+        cum = [(0.0, 0)] + clock.coll
+        out.update(coll_calls=coll.STATS["calls"], staged=coll.STATS["staged"],
+                   coll_wait_ms=[1e3 * (b[0] - a[0]) for a, b in zip(cum, cum[1:])],
+                   coll_wire_bytes=[b[1] - a[1] for a, b in zip(cum, cum[1:])],
+                   model_index=runtime.axis_index("model"),
+                   replicated_sha256=digest([t for i, t in enumerate(leaves)
+                                             if clock.prepared.layout(i) is None]),
+                   replicated_leaves=sum(clock.prepared.layout(i) is None
+                                         for i in range(len(leaves))))
+    if job.get("keep_params"):
+        kept = leaves
+        if job.get("tp"):  # the whole params, gathered on every rank
+            kept = list(bridge.gather_params(clock.prepared, runtime).values())
+        if rank == 0:
+            np.save(os.path.join(root, job["name"] + "_params.npy"),
+                    torch.cat([t.detach().reshape(-1) for t in kept]).cpu().numpy())
     results["jobs"][job["name"]] = out
     del run, leaves
     clock.prepared = None
@@ -5018,13 +5065,16 @@ def dp_phases(card):
         wire_job = {"name": "dp_wire", "steps": 2, "tap": True, "activation_dtype": "float32",
                     "grad_sync": "bucketed"}
         fsdp_job = {"name": "fsdp", "steps": steps, "fsdp": True, "needs_probe": True}
-        ranks = _dp_ranks(root, "gloo2", [dp_job, f32_job, wire_job, fsdp_job], 2, "gloo",
-                          probe=True)
+        # The tensor-parallel jobs run on the same two processes.
+        ranks = _dp_ranks(root, "gloo2", [dp_job, f32_job, wire_job, fsdp_job, *TP_JOBS], 2,
+                          "gloo", probe=True)
         one = _dp_ranks(root, "one", [
             {"name": "one", "steps": steps},
             {"name": "one_f32", "steps": 2, "tap": True, "activation_dtype": "float32"},
             {"name": "one_resumed", "steps": steps, "keep_params": True,
-             "resume_from": str(root / "dp_ck" / str(DP_SAVE_AT))}], 1, "none")[0]["jobs"]
+             "resume_from": str(root / "dp_ck" / str(DP_SAVE_AT))},
+            {"name": "one_tp_resumed", "steps": steps, "keep_params": True,
+             "resume_from": str(root / "tp_ck" / str(DP_SAVE_AT))}], 1, "none")[0]["jobs"]
         ref = one["one"]
         # -- dp_train: the record first, then its checks.
         dp = [r["jobs"]["dp"] for r in ranks]
@@ -5118,10 +5168,117 @@ def dp_phases(card):
         require(all(j["param_bytes"] < whole for j in fsdp) if len(fsdp) > 1
                 else fsdp[0]["param_bytes"] == whole, f"dp_fsdp: shard bytes "
                 f"{[j['param_bytes'] for j in fsdp]} of {whole}")
+        tp_phases(root, ranks, one, card)
         # -- dp_launch
         dp_launch_phase(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+#: The tensor-parallel jobs of the two gloo ranks, at ``{"data": 1,
+#: "model": 2}`` under ``gpt2_tp_rules()``: ``tp`` (the 8 steps of
+#: ``dp_train``'s tree, a save at step 4, the whole params kept), ``tp_f32``
+#: (step 1 at f32 compute and the f32 wire, its gradients tapped whole) and
+#: ``tp_wire`` (the same on the default bf16 wire).
+TP_MESH = {"data": 1, "model": 2}
+TP_JOBS = [
+    {"name": "tp", "steps": DP_STEPS, "tp": True, "mesh": TP_MESH, "save_every": DP_SAVE_AT,
+     "keep_params": True},
+    {"name": "tp_f32", "steps": 2, "tp": True, "mesh": TP_MESH, "tap": True,
+     "activation_dtype": "float32", "env": {"ROCKET_TPU_OVERLAP_WIRE": "fp32"}},
+    {"name": "tp_wire", "steps": 2, "tp": True, "mesh": TP_MESH, "tap": True,
+     "activation_dtype": "float32"},
+]
+
+
+def _tp_param_bytes(cfg) -> int:
+    """A rank's param bytes at ``--model-axis 2`` under ``gpt2_tp_rules``:
+    the blocks' QKV, MLP-in (kernels and biases) and the two row-parallel
+    kernels halve; ``wte`` stays whole where the vocab does not divide."""
+    d, h = cfg.dim, cfg.mlp_ratio * cfg.dim
+    whole = (cfg.vocab_size + cfg.max_seq_len) * d + 2 * d + cfg.num_layers * (
+        4 * d + 3 * d * d + 3 * d + d * d + d + 2 * d * h + h + d)
+    split = cfg.num_layers * (3 * d * d + 3 * d + d * d + 2 * d * h + h)
+    if cfg.vocab_size % 2 == 0:
+        split += cfg.vocab_size * d
+    return 4 * (whole - split // 2)
+
+
+def tp_phases(root: Path, ranks: list, one: dict, card) -> None:
+    """``tp_train`` and ``tp_checkpoint``: GPT-2 124M at full width (B=8,
+    T=1024, bf16, remat, dropout 0.1, AdamW) on two ranks sharing the card
+    over gloo at ``{"data": 1, "model": 2}`` (each rank 6 of the 12 heads,
+    half the blocks' projections, the residual stream sequence-sharded),
+    against the one-rank jobs of ``dp_phases``."""
+    cfg = TransformerConfig.gpt2_124m()
+    layers, steps = cfg.num_layers, DP_STEPS
+    ref = one["one"]
+    tp = [r["jobs"]["tp"] for r in ranks]
+    f32_g = np.load(root / "tp_f32_grads.npy")
+    one_g = np.load(root / "one_f32_grads.npy")
+    grad_err = float(np.abs(f32_g - one_g).max() / np.abs(one_g).max())
+    wire_g = np.load(root / "tp_wire_grads.npy")
+    wire_err = float(np.abs(wire_g - f32_g).max() / np.abs(f32_g).max())
+    gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in tp]
+    per_step = {name: {mode: n / steps for mode, n in modes.items()}
+                for name, modes in tp[0]["coll_calls"].items()}
+    want_bytes = _tp_param_bytes(cfg)
+    emit("tp_train", model="gpt2_124m", dtype="bfloat16", batch=8, seq_len=cfg.max_seq_len,
+         steps=steps, ranks=2, mesh=TP_MESH, backend=tp[0]["backend"],
+         heads_per_rank=cfg.num_heads // 2, losses=tp[0]["losses"],
+         one_rank_losses=ref["losses"], loss_gap_per_rank=gaps,
+         step_ms_median_per_rank=[float(np.median(j["step_ms"][1:])) for j in tp],
+         step_ms_spread_per_rank=[[float(min(j["step_ms"][1:])), float(max(j["step_ms"][1:]))]
+                                  for j in tp],
+         step_ms_per_rank=[j["step_ms"] for j in tp],
+         one_rank_step_ms_median=float(np.median(ref["step_ms"][1:])),
+         coll_wait_ms_median_per_rank=[float(np.median(j["coll_wait_ms"][1:])) for j in tp],
+         grad_sync_wait_ms_median_per_rank=[float(np.median(j["wait_ms"][1:])) for j in tp],
+         coll_wire_bytes_per_step_per_rank=[int(np.median(j["coll_wire_bytes"][1:]))
+                                            for j in tp],
+         grad_sync_wire_bytes_per_step=tp[0].get("wire_bytes_per_step"),
+         calls_per_step=per_step, ring_hops_staged_through_host=tp[0]["staged"],
+         param_bytes_per_rank=[j["param_bytes"] for j in tp], expected_param_bytes=want_bytes,
+         whole_param_bytes=ref["param_bytes"],
+         replicated_leaves=tp[0]["replicated_leaves"],
+         replicated_sha256=[j["replicated_sha256"] for j in tp],
+         step1_grad_err_f32=grad_err, step1_wire_vs_f32_grad_err=wire_err,
+         launches_per_rank=[j["launches"] for j in tp], one_rank_launches=ref["launches"],
+         peak_memory_gb_per_rank=[j["peak_memory_gb"] for j in tp], card=card)
+    for r, job in enumerate(tp):
+        require(job["backend"] == "gloo" and job["world"] == 2 and job["model_index"] == r,
+                f"tp_train: rank {r} ran on {job['backend']} x {job['world']}")
+        require(_dp_launches_ok(job, layers, steps),
+                f"tp_train: rank {r} launches {job['launches']} over {steps} steps")
+        require(len(job["losses"]) == steps and gaps[r] <= DP_LOSS_TOL,
+                f"tp_train: rank {r} losses {job['losses']} vs one rank {ref['losses']}")
+        require(job["param_bytes"] == want_bytes,
+                f"tp_train: rank {r} holds {job['param_bytes']} param bytes, not {want_bytes}")
+    require(tp[0]["replicated_sha256"] == tp[1]["replicated_sha256"],
+            "tp_train: the model group's replicated leaves differ across the ranks")
+    require(all(modes["ring"] > 0 for name, modes in per_step.items()
+                if name in ("all_gather_matmul", "matmul_reduce_scatter")),
+            f"tp_train: the collective matmuls never took the ring: {per_step}")
+    require(grad_err <= DP_GRAD_TOL, f"tp_train: step-1 gradients {grad_err} of the largest")
+    require(wire_err <= TP_WIRE_TOL and not np.array_equal(wire_g, f32_g),
+            f"tp_train: bf16-wire gradients {wire_err} of the largest from the f32 wire's "
+            "(or not rounded)")
+    # -- tp_checkpoint
+    resumed = one["one_tp_resumed"]
+    tail = tp[0]["losses"][DP_SAVE_AT:]
+    param_gap = float(np.abs(np.load(root / "one_tp_resumed_params.npy")
+                             - np.load(root / "tp_params.npy")).max())
+    files = sorted(os.listdir(root / "tp_ck" / str(DP_SAVE_AT) / "model_0"))
+    emit("tp_checkpoint", saved_at=DP_SAVE_AT, ranks_saving=2, ranks_resuming=1, files=files,
+         write_s_per_rank=[[s.get("write_s") for s in j["saves"]] for j in tp],
+         bytes_per_rank=[[s["shard_bytes"] for s in j["saves"]] for j in tp],
+         resumed_losses=resumed["losses"], uninterrupted_losses=tail,
+         end_param_max_abs_gap=param_gap, card=card)
+    require(files == ["index.json", "shard_p0.npz", "shard_p1.npz"], f"tp_checkpoint: {files}")
+    require(len(resumed["losses"]) == steps - DP_SAVE_AT
+            and max(abs(a - b) for a, b in zip(resumed["losses"], tail)) <= DP_LOSS_TOL,
+            f"tp_checkpoint: resumed losses {resumed['losses']} vs {tail}")
+    require(param_gap <= DP_PARAM_TOL, f"tp_checkpoint: end params {param_gap} apart")
 
 
 def dp_launch_phase(root: Path, card):

@@ -152,6 +152,28 @@ def _train_flash_long_parts():
     return _gpt2_parts(2048)
 
 
+def _train_flash_tp_parts():
+    """Rows 3-4 on one rank of GPT-2 124M's tensor-parallel train step at
+    ``--model-axis 2``: each of the 12 layers' attention runs on the rank's
+    6 of 12 heads (``MultiHeadAttention._apply_tp``'s ``flash_bthd`` on
+    the gathered sequence, B=8, T=1024, D=64), forward and backward
+    (``chip_smoke.py`` tp_train phase). The collectives around it launch no
+    hand kernel."""
+    from rocket_tpu_torch.ops.flash_native import flash_bthd
+
+    heads = 12 // 2
+    q, k, v = (_meta(8, 1024, heads * 64).requires_grad_() for _ in range(3))
+
+    def step(q, k, v):
+        grads = ()
+        for _ in range(12):
+            grads += torch.autograd.grad(flash_bthd(q, k, v, heads, heads).float().sum(),
+                                         (q, k, v))
+        return grads
+
+    return step, (q, k, v)
+
+
 def _qkv_flash_parts():
     """Rows 6-7: forward and backward of the stacked (3, 8, 12, 1024, 64)
     bf16 operand at both square tile pairs, 128 and 64 (the shapes
@@ -333,6 +355,8 @@ SCHED_TARGETS = {target.name: target for target in (
     SchedTarget("train_flash", _train_flash_parts, "GPT-2 124M train step, B=8 T=1024 (rows 3-4)"),
     SchedTarget("train_flash_long", _train_flash_long_parts,
                 "GPT-2 124M train step, B=8 T=2048 (rows 3-5)"),
+    SchedTarget("train_flash_tp", _train_flash_tp_parts, "GPT-2 124M tensor-parallel train "
+                "step, one rank at --model-axis 2: 6 of 12 heads, B=8 T=1024 (rows 3-4)"),
     SchedTarget("qkv_flash", _qkv_flash_parts, "stacked-qkv flash, (3, 8, 12, 1024, 64), "
                 "tiles 128 and 64 (rows 6-7)"),
     SchedTarget("fused_kernels", _fused_kernels_parts, "BN epilogue, fused block, gather-GMM, "

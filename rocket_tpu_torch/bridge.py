@@ -25,6 +25,12 @@ layout's ``checkpoint_io.ShardedLeaf`` shards (params and optimizer state
 alike; a param without state gets zero shards) pass through.
 :class:`OptChain` says where optax keeps each piece of one optimizer's
 state; :func:`opt_chain` names it for a ``torch.optim`` optimizer.
+
+Across ranks (data or tensor parallel): :func:`local_params` cuts a whole
+param tree into the slices one rank holds under a ``param_sharding`` rule
+on the Runtime's mesh, and :func:`gather_params` gathers a prepared
+model's slices back whole on every rank, for comparison. A TP run's train
+state crosses as any other: its shards are ``ShardedLeaf`` chunks.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 from rocket_tpu_torch.nn import keys
 
 __all__ = ["params_from_jax", "tensor_from_numpy", "variables_from_jax", "OptChain", "opt_chain",
-           "train_state_to_jax", "train_state_from_jax"]
+           "train_state_to_jax", "train_state_from_jax", "local_params", "gather_params"]
 
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
@@ -276,3 +282,41 @@ def train_state_from_jax(tree: dict, chain) -> dict:
         opt["step"] = steps
     view["optimizer"] = opt
     return view
+
+
+def local_params(params: dict, rule, runtime) -> dict:
+    """The slices of the whole ``params`` (torch tensors, or numpy from
+    :func:`params_from_jax`'s input) that this rank holds under ``rule``
+    on ``runtime``'s mesh: a leaf sharded over an axis is cut into that
+    axis's size on its dim, and the rank keeps its coordinate's chunk."""
+    from rocket_tpu_torch.parallel.grad_sync import shard_layout
+
+    items = list(_paths(params))
+    layouts = shard_layout([(path, leaf) for path, leaf in items], rule, runtime.mesh,
+                           runtime.DATA_AXES)
+    out: dict = {}
+    for (path, leaf), lay in zip(items, layouts):
+        t = leaf if isinstance(leaf, torch.Tensor) else tensor_from_numpy(np.asarray(leaf))
+        if lay is not None:
+            t = t.chunk(int(runtime.mesh[lay[1]]), lay[0])[runtime.axis_index(lay[1])].clone()
+        _put(out, path, t)
+    return out
+
+
+def gather_params(prepared, runtime) -> dict:
+    """``{path: tensor}`` of a prepared model's whole params, copies on
+    their device: each sharded leaf all-gathered over its axis's group, so
+    every rank calls it at the same point."""
+    import torch.distributed as dist
+
+    out = {}
+    for i, (path, t) in enumerate(_paths(prepared.state["params"])):
+        t = t.detach()
+        lay = prepared.layout(i) if prepared.shard_dims is not None else None
+        if lay is not None:
+            parts = [torch.empty_like(t) for _ in range(lay[1])]
+            dist.all_gather(parts, t.contiguous(),
+                            group=runtime.axis_group(prepared.shard_axes[i]))
+            t = torch.cat(parts, lay[0])
+        out["/".join(path)] = t.clone() if lay is None else t
+    return out

@@ -142,8 +142,8 @@ class Dataset(Capsule):
                 "(device_cache off, or the dataset does not fit or cannot be collated); "
                 "inputs stay at their source dtype.", self._cache_dtype)
         return DataLoader(self._raw_dataset, seed=runtime.seed,
-                          process_index=runtime.process_index,
-                          process_count=runtime.process_count, **kw)
+                          process_index=runtime.data_index,
+                          process_count=runtime.data_axis_size, **kw)
 
     def _materialize(self):
         """The whole dataset as one collated host pytree whose every leaf is

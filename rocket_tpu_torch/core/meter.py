@@ -1,16 +1,17 @@
 """Meter / Metric — evaluation metrics over the batches of a phase
 (counterpart of ``rocket_tpu/core/meter.py``).
 
-* ``Meter`` selects batch keys, gathers them across the processes (each
-  rank holds its stripe of the global batch; an ``all_gather`` of each key
-  tensor lays the stripes end to end in rank order, the global batch),
+* ``Meter`` selects batch keys, gathers them across the data axis (each
+  rank holds its stripe of the global batch, the ranks of one model group
+  the same one; an ``all_gather`` over the data group lays the stripes end
+  to end in order, the global batch, so no batch counts twice),
   trims the padding of a short last batch (``attrs.batch_info.size`` is
   the global batch's real sample count) and dispatches its children — the
   ``Metric`` capsules — on that batch. One process gathers nothing.
 * A ``Metric`` that overrides :meth:`Metric.device_reduce` gets the
   device path: the Meter hands it the (untrimmed) key tensors of this
   rank's stripe and the stripe's real size; it returns a few scalars (sums
-  over the rows), which are all-reduced over the ranks, and
+  over the rows), which are all-reduced over the data group, and
   :meth:`Metric.consume` accumulates them on the device; ``reset`` reads
   them on the host once per epoch. Other metrics get the trimmed batch in
   ``launch``.
@@ -60,14 +61,14 @@ class Meter(Dispatcher):
         """The value gathered over the processes (a tensor with a leading
         batch dim), with the padding rows past ``real_size`` trimmed."""
         runtime = self._runtime
-        if (runtime is not None and runtime.process_count > 1
+        if (runtime is not None and runtime.data_axis_size > 1
                 and isinstance(value, torch.Tensor) and value.ndim >= 1):
             import torch.distributed as dist
 
             local = value.contiguous()
-            out = local.new_empty((runtime.process_count * local.shape[0],)
+            out = local.new_empty((runtime.data_axis_size * local.shape[0],)
                                   + tuple(local.shape[1:]))
-            dist.all_gather_into_tensor(out, local)
+            dist.all_gather_into_tensor(out, local, group=runtime.axis_group("data"))
             value = out
         if real_size is not None and getattr(value, "ndim", 0) >= 1 and len(value) > real_size:
             return value[:real_size]
@@ -81,18 +82,19 @@ class Meter(Dispatcher):
 
         from rocket_tpu_torch.runtime import explicit_transfer
 
+        group = self._runtime.axis_group("data")
         out, host = {}, {}
         for key, value in reduced.items():
             if isinstance(value, torch.Tensor):
                 out[key] = value.clone()
-                dist.all_reduce(out[key])
+                dist.all_reduce(out[key], group=group)
             else:
                 host[key] = value
         if host:
             with explicit_transfer():
                 totals = torch.tensor([float(v) for v in host.values()], dtype=torch.float64,
                                       device=self._runtime.device)
-                dist.all_reduce(totals)
+                dist.all_reduce(totals, group=group)
                 values = totals.tolist()
             out.update({key: type(v)(total) for (key, v), total in zip(host.items(), values)})
         return {key: out[key] for key in reduced}
@@ -110,12 +112,12 @@ class Meter(Dispatcher):
         real_size = attrs.batch_info.size if attrs.batch_info is not None else None
         subset = {k: batch[k] for k in self._keys}
         stripe = len(subset[self._keys[0]])
-        procs = self._runtime.process_count if self._runtime is not None else 1
+        procs = self._runtime.data_axis_size if self._runtime is not None else 1
         size = stripe if real_size is None else real_size
         if procs > 1 and real_size is not None:
             # This rank's real rows: its stripe is rows [lo, lo + stripe)
-            # of the global batch.
-            size = min(max(real_size - self._runtime.process_index * stripe, 0), stripe)
+            # of the global batch (the ranks of one model group hold the same).
+            size = min(max(real_size - self._runtime.data_index * stripe, 0), stripe)
         host_kids = []
         for child in self._capsules:
             if isinstance(child, Metric) and type(child).device_reduce is not Metric.device_reduce:

@@ -50,25 +50,32 @@ module.py:672-790``).
 Data parallelism (a Runtime over several processes, ``parallel/``):
 each rank runs the step on its stripe of the global batch under
 ``keys.data_shard`` (its dropout draws its rows of the global masks) and
-the gradients are reduced to the global mean before the update, as the
-reference's ``_grad_sync_plan`` routes them (``rocket_tpu/core/
-module.py:232-280``): the bucketed asynchronous reduction of
-``parallel.grad_sync`` on a pure data mesh without accumulation (the
-accumulator holds reduced gradients) and without model state, when the
-Optimizer asks for ``grad_sync="bucketed"`` or the rule set carries the
-``fsdp_axis`` marker under ``"auto"``; otherwise a plain f32 mean
-all-reduce per leaf. ``param_sharding`` (``parallel.sharding``; specs over
-the data axis only) holds each matched leaf as this rank's shard of its
-spec's dim: the optimizer, its moments, the EMA shadow and the
-accumulator live on the shard, the leaf is all-gathered at step entry (and
-for the eval forward), and its gradient reduce-scatters back onto the
-shard. Global norms (``clip_norm``, the health sentinels' gradient,
-update and param norms) sum the shards over the ranks, so every rank
-takes the same skip decision. A model with state (BatchNorm) raises in a
-multi-process run: its statistics would be per-rank where the
-reference's are global (sync-BN is ROADMAP Queue A 6). The pipelined
-value-and-grad is Queue A 6 as well (``TransformerConfig.pipeline_axis``
-raises there).
+the gradients are reduced to the global mean before the update by
+``parallel.grad_sync.GradSync``, every multi-rank step's one reduction:
+bucketed and asynchronous, on the ``grad_wire_dtype`` wire where the
+reference's ``_grad_sync_plan`` (``rocket_tpu/core/module.py:232-280``)
+would take its bucketed path (``grad_sync="bucketed"``, or the rule set's
+``fsdp_axis`` marker under ``"auto"``), else an f32 mean all-reduce.
+``param_sharding`` (``parallel.sharding``) holds each matched leaf as this
+rank's shard of its spec's dim: the optimizer, its moments, the EMA shadow
+and the accumulator live on the shard. A data-axis shard is all-gathered
+at step entry (and for the eval forward) and its gradient reduce-scatters
+back onto the shard. Global norms (``clip_norm``, the health sentinels'
+gradient, update and param norms) sum each shard over its axis's group
+and count each replicated leaf once, so every rank takes the same skip
+decision. A model with state (BatchNorm) raises in a multi-process run:
+its statistics would be per-rank where the reference's are global
+(sync-BN is ROADMAP Queue A 6 item 2). The pipelined value-and-grad is
+Queue A 6 item 3 (``TransformerConfig.pipeline_axis`` raises there).
+
+Tensor parallelism (a ``model`` mesh axis and a rule with the
+``tp_axis`` marker, ``gpt2_tp_rules``): a model-axis shard is never
+gathered; the forward and its backward run under the rule's
+``parallel.collectives.tp_overlap`` context (reference ``core/module.py:
+511-535``), whose layers read their shards and communicate themselves;
+the model's ``tp_partial`` names the replicated leaves whose gradients are
+partial sums over the sequence shards, which ``GradSync`` reduces over
+every rank. All ranks of one model group read the same stripe.
 """
 
 from __future__ import annotations
@@ -143,14 +150,32 @@ class PreparedModule:
         self.accum = 1
         self.gated = False
         #: Under a ``param_sharding`` rule: the rule, and per param leaf
-        #: the dim it is sharded on over the ``world`` ranks (None:
-        #: replicated); this process holds shard ``rank`` of each.
+        #: the dim it is sharded on (None: replicated) and the mesh axis
+        #: (``shard_axes``: a data axis or ``"model"``); this process holds
+        #: shard ``axis_index[axis]`` of ``axis_size[axis]`` of each, and
+        #: chunk ``j`` of a leaf sharded over an axis is saved by the rank
+        #: ``owners[axis][j]`` (coordinate 0 on the other axes). ``world``
+        #: and ``rank`` are the data axis's.
         self.sharded_by = None
         self.shard_dims = None
+        self.shard_axes = None
+        self.axis_size, self.axis_index, self.owners = {}, {}, {}
         self.world, self.rank = 1, 0
 
     def sharded(self) -> bool:
         return self.shard_dims is not None and any(d is not None for d in self.shard_dims)
+
+    def layout(self, i: int):
+        """Leaf ``i``'s ``(dim, count, index, owners)``, or None."""
+        if self.shard_dims is None or self.shard_dims[i] is None:
+            return None
+        axis = self.shard_axes[i]
+        return (self.shard_dims[i], self.axis_size[axis], self.axis_index[axis],
+                self.owners[axis])
+
+    def _layout_of(self) -> dict:
+        leaves = optim_lib.param_leaves(self.state["params"])
+        return {id(p): self.layout(i) for i, p in enumerate(leaves)}
 
     def _wrap(self, leaves, values) -> list:
         """``values`` (one per param of ``leaves``) as the checkpoint sees
@@ -160,24 +185,24 @@ class PreparedModule:
             return list(values)
         from rocket_tpu_torch.runtime.checkpoint_io import ShardedLeaf
 
-        dim_of = dict(zip(map(id, optim_lib.param_leaves(self.state["params"])),
-                          self.shard_dims))
+        layout_of = self._layout_of()
         out = []
         for p, v in zip(leaves, values):
-            dim = dim_of.get(id(p))
-            if dim is not None and isinstance(v, torch.Tensor) and v.shape == p.shape:
+            lay = layout_of.get(id(p))
+            if lay is not None and isinstance(v, torch.Tensor) and v.shape == p.shape:
+                dim, count, index, owners = lay
                 shape = list(p.shape)
-                shape[dim] *= self.world
-                v = ShardedLeaf(v, tuple(shape), dim, self.rank, self.world)
+                shape[dim] *= count
+                v = ShardedLeaf(v, tuple(shape), dim, index, count, owners)
             out.append(v)
         return out
 
-    def _local(self, value, like: torch.Tensor, dim) -> torch.Tensor:
+    def _local(self, value, like: torch.Tensor, lay) -> torch.Tensor:
         """This rank's part of a saved whole value for a live leaf ``like``
-        (sharded on ``dim``, or None): the resharding restore."""
+        (of layout ``lay``, or None): the resharding restore."""
         t = _host(value)
-        if dim is not None and t.dim() == like.dim() and t.shape != like.shape:
-            t = t.chunk(self.world, dim)[self.rank]
+        if lay is not None and t.dim() == like.dim() and t.shape != like.shape:
+            t = t.chunk(lay[1], lay[0])[lay[2]]
         return t
 
     def _count(self):
@@ -252,7 +277,7 @@ class PreparedModule:
         params = state["params"]
         paths = list(_paths(params))
         leaves = optim_lib.param_leaves(params)
-        dims = self.shard_dims or [None] * len(leaves)
+        dims = [self.layout(i) for i in range(len(leaves))]
         dim_of = {id(p): d for p, d in zip(leaves, dims)}
         with torch.no_grad():
             for p, path, dim in zip(leaves, paths, dims):
@@ -328,8 +353,9 @@ class Module(Dispatcher):
     Module forwards with that shadow instead of the params; it raises
     when no train Module sharing the model set ``ema_decay``.
     ``param_sharding``: a rule set ``(path, leaf) -> spec`` of
-    ``parallel.sharding`` (``fsdp_rules()``) over the data axis: each
-    matched leaf is held as this rank's shard (module docstring).
+    ``parallel.sharding`` (``fsdp_rules()`` over the data axis,
+    ``gpt2_tp_rules()`` over the model axis): each matched leaf is held as
+    this rank's shard (module docstring).
     ``return_outputs``: ``"eval"``
     (default) replaces ``attrs.batch`` with the forward's output in eval
     only; ``"always"`` in train too. ``batch_transform``: ``fn(batch,
@@ -402,7 +428,7 @@ class Module(Dispatcher):
                 f"Module: {type(self._model).__name__} keeps model state (BatchNorm statistics), "
                 f"which a {runtime.process_count}-process run would compute per rank where the "
                 "reference computes them over the global batch: sync-BN is not ported yet "
-                "(ROADMAP Queue A 6)")
+                "(ROADMAP Queue A 6 item 2)")
         if hasattr(self._model, "init_state"):
             if "model_state" not in state:
                 state["model_state"] = self._model.init_state(device=runtime.device)
@@ -484,60 +510,111 @@ class Module(Dispatcher):
 
         params = prepared.state["params"]
         leaves = optim_lib.param_leaves(params)
-        world, rank = runtime.data_axis_size, runtime.process_index
-        dims = gs.shard_dims(zip(_paths(params), leaves), rule, world, runtime.DATA_AXES)
-        prepared.sharded_by, prepared.shard_dims = rule, dims
-        prepared.world, prepared.rank = world, rank
-        shards = iter([t if d is None else
-                       t.detach().chunk(world, d)[rank].clone().requires_grad_(t.requires_grad)
-                       for t, d in zip(leaves, dims)])
+        model_axis = getattr(rule, "tp_axis", None) or "model"
+        if model_axis != "model":
+            raise NotImplementedError(f"Module: tp_axis {model_axis!r}: the port's model axis is "
+                                      "'model'")
+        layouts = gs.shard_layout(zip(_paths(params), leaves), rule, runtime.mesh,
+                                  runtime.DATA_AXES)
+        prepared.sharded_by = rule
+        prepared.shard_dims = [None if lay is None else lay[0] for lay in layouts]
+        prepared.shard_axes = [None if lay is None else lay[1] for lay in layouts]
+        for axis in runtime.mesh:
+            prepared.axis_size[axis] = int(runtime.mesh[axis])
+            prepared.axis_index[axis] = runtime.axis_index(axis)
+            prepared.owners[axis] = tuple(runtime.axis_owners(axis))
+        prepared.world, prepared.rank = runtime.data_axis_size, runtime.data_index
+        local = bridge.local_params(map_params(lambda t: t.detach(), params), rule, runtime)
+        shards = iter([t if lay is None else s.requires_grad_(t.requires_grad) for t, s, lay
+                       in zip(leaves, optim_lib.param_leaves(local), layouts)])
         prepared.state["params"] = map_params(lambda t: next(shards), params)
 
     def _setup_grad_sync(self, prepared: PreparedModule, opt) -> None:
-        """The reference's ``_grad_sync_plan`` gate: the bucketed reduction
-        on a pure data mesh of several ranks, without accumulation (the
-        accumulator holds reduced gradients) and without model state, under
-        ``grad_sync="bucketed"``, or ``"auto"`` with the ``fsdp_axis``
-        marker; else (over several ranks) the plain per-leaf reduction."""
+        """The one reduction of a multi-rank step (``parallel.grad_sync``):
+        over several ranks every step goes through :class:`GradSync`. It
+        narrows to ``grad_wire_dtype`` under ``grad_sync="bucketed"``, or
+        ``"auto"`` with the ``fsdp_axis`` marker (the reference's
+        ``_grad_sync_plan``); otherwise (``"off"``, ``"auto"`` without it)
+        it is an f32 mean all-reduce, the reference's GSPMD reduction. The
+        port reduces every micro-step before it accumulates, and a
+        multi-process run refuses model state, so the reference's
+        accumulation and model-state conditions have no cause here. Under
+        tensor parallelism the model declares which replicated leaves carry
+        partial gradients (``tp_partial``), which then reduce over every
+        rank."""
         runtime = self._runtime
         self.grad_sync = None
-        if runtime.data_axis_size <= 1 or opt.grad_sync == "off":
-            return
-        if runtime.gradient_accumulation_steps > 1 or prepared.state.get("model_state"):
-            return
-        if opt.grad_sync == "auto" and getattr(self._param_sharding, "fsdp_axis", None) is None:
+        if runtime.process_count <= 1:
             return
         from rocket_tpu_torch.parallel.grad_sync import GradSync
 
         leaves = optim_lib.param_leaves(prepared.state["params"])
-        dims = prepared.shard_dims or [None] * len(leaves)
+        n = len(leaves)
+        dims = [prepared.shard_dims[i] if prepared.shard_axes[i] != "model" else None
+                for i in range(n)] if prepared.shard_dims is not None else [None] * n
+        partial = [False] * n
+        if runtime.model_axis_size > 1:
+            declare = getattr(self._model, "tp_partial", None)
+            if declare is None:
+                raise NotImplementedError(f"Module: {type(self._model).__name__} declares no "
+                                          "tp_partial, the leaves whose gradients are partial "
+                                          "sums under tensor parallelism")
+            axes = prepared.shard_axes or [None] * n
+            partial = [axes[i] is None and bool(declare(path))
+                       for i, path in enumerate(_paths(prepared.state["params"]))]
+        if runtime.data_axis_size <= 1 and not any(partial):
+            return  # one data rank, every gradient complete: nothing to reduce
         shapes = []
         for t, d in zip(leaves, dims):
             shape = list(t.shape)
             if d is not None:
                 shape[d] *= prepared.world
             shapes.append(tuple(shape))
+        narrow = opt.grad_sync == "bucketed" or (
+            opt.grad_sync == "auto" and getattr(self._param_sharding, "fsdp_axis", None))
+        wire = opt.grad_wire_dtype if narrow else None
         self.grad_sync = GradSync(shapes, [t.dtype for t in leaves], dims,
-                                  runtime.data_axis_size, bucket_bytes=opt.grad_bucket_bytes,
-                                  wire_dtype=opt.grad_wire_dtype)
-        self.log_info(f"train step: bucketed async gradient reduction (wire="
-                      f"{opt.grad_wire_dtype}, bucket={opt.grad_bucket_bytes >> 20}MiB, "
-                      f"{len(self.grad_sync.buckets)} buckets)")
+                                  runtime.data_axis_size, group=runtime.axis_group("data"),
+                                  bucket_bytes=opt.grad_bucket_bytes, wire_dtype=wire,
+                                  partial=partial)
+        self.log_info(f"train step: bucketed async gradient reduction (wire={wire}, "
+                      f"bucket={opt.grad_bucket_bytes >> 20}MiB, "
+                      f"{len(self.grad_sync.buckets)} buckets, {sum(partial)} leaves summed over "
+                      "the model group)")
+
+    def _tp(self):
+        """The tensor-parallel context of the ``tp_axis`` marker of the rule
+        that laid the model out (an eval Module sharing it reads the same
+        shards), around a forward and its backward; a null context without
+        one."""
+        import contextlib
+
+        rule = self._prepared.sharded_by if self._prepared is not None else None
+        axis = getattr(rule, "tp_axis", None)
+        if axis is None or self._runtime.model_axis_size <= 1:
+            return contextlib.nullcontext()
+        from rocket_tpu_torch.parallel.collectives import tp_overlap
+
+        return tp_overlap(self._runtime, axis=axis,
+                          vocab_sharded_embed=bool(getattr(rule, "tp_vocab_sharded", False)))
 
     def _full_params(self, params, grad: bool = False):
-        """The params the forward reads: under a sharded layout each shard
-        all-gathered whole (every gather started before the first wait);
-        with ``grad`` the gathered tensors are fresh leaves that need a
-        gradient. Returns ``(params, leaves in param order)``."""
+        """The params the forward reads: under a data-sharded layout each
+        shard all-gathered whole over the data group (every gather started
+        before the first wait; a model shard stays this rank's, the
+        tensor-parallel layers read it as it is); with ``grad`` the
+        gathered tensors are fresh leaves that need a gradient. Returns
+        ``(params, leaves in param order)``."""
         prepared = self._prepared
         leaves = optim_lib.param_leaves(params)
-        if not prepared.sharded():
+        if not prepared.sharded() or "data" not in prepared.shard_axes:
             return params, leaves
         from rocket_tpu_torch.parallel.grad_sync import gather_full
 
-        pending = [None if d is None else gather_full(t.detach(), d, prepared.world,
-                                                      async_op=True)
-                   for t, d in zip(leaves, prepared.shard_dims)]
+        group = self._runtime.axis_group("data")
+        pending = [None if a != "data" else gather_full(t.detach(), d, prepared.world,
+                                                        group=group, async_op=True)
+                   for t, d, a in zip(leaves, prepared.shard_dims, prepared.shard_axes)]
         full = []
         for t, item in zip(leaves, pending):
             if item is None:
@@ -551,23 +628,33 @@ class Module(Dispatcher):
 
     def _sumsq(self, params, tensors) -> torch.Tensor:
         """Σ ||t||² over ``tensors`` (one per param of ``params``, in its
-        layout): a sharded param's shards summed over the ranks."""
+        layout): a sharded param's shards summed over its axis's group,
+        each replicated param counted once."""
         import torch.distributed as dist
 
         if not params:
             return torch.zeros((), device=self._runtime.device)
         squares = torch.stack(torch._foreach_norm(list(tensors))).float().square()
         key = tuple(map(id, params))
-        split = self._split_masks.get(key)
-        if split is None:
-            dims = dict(zip(map(id, optim_lib.param_leaves(self._prepared.state["params"])),
-                            self._prepared.shard_dims))
+        masks = self._split_masks.get(key)
+        if masks is None:
+            prepared = self._prepared
+            axis_of = dict(zip(map(id, optim_lib.param_leaves(prepared.state["params"])),
+                               prepared.shard_axes))
+            axes = [axis_of.get(id(p)) for p in params]
             with explicit_transfer():
-                split = self._split_masks[key] = torch.tensor(
-                    [dims.get(id(p)) is not None for p in params], device=squares.device)
-        sharded = torch.where(split, squares, 0.0).sum()
-        dist.all_reduce(sharded)
-        return torch.where(split, 0.0, squares).sum() + sharded
+                masks = self._split_masks[key] = [
+                    (axis, torch.tensor([a == axis for a in axes], device=squares.device))
+                    for axis in sorted({a for a in axes if a is not None})]
+        total = squares
+        out = None
+        for axis, mask in masks:
+            part = torch.where(mask, squares, 0.0).sum()
+            dist.all_reduce(part, group=self._runtime.axis_group(axis))
+            total = torch.where(mask, 0.0, total)
+            out = part if out is None else out + part
+        total = total.sum()
+        return total if out is None else total + out
 
     def _setup_health(self, state: dict) -> None:
         """With the health monitor on: the sentinel state, the step's label
@@ -691,7 +778,8 @@ class Module(Dispatcher):
                 batch = self._batch_transform(dict(batch), keys.fold_in(rng, 0xA9517))
         runtime = self._runtime
         ranks = runtime.data_axis_size
-        with torch.enable_grad(), keys.data_shard(runtime.process_index if ranks > 1 else 0):
+        with torch.enable_grad(), keys.data_shard(runtime.data_index if ranks > 1 else 0), \
+                self._tp():
             params, compute = self._full_params(state["params"], grad=True)
             if self.grad_sync is not None:
                 self.grad_sync.begin(compute)
@@ -701,18 +789,14 @@ class Module(Dispatcher):
                 state["model_state"] = map_params(lambda t: t.detach(), mstate)
             loss = self._objective(out).float()
             # The backward runs inside the block: a remat recompute draws
-            # this rank's dropout masks.
+            # this rank's dropout masks and issues the forward's
+            # tensor-parallel collectives again.
             grads = torch.autograd.grad(loss, compute, allow_unused=True)
         loss = loss.detach()
         if self.grad_sync is not None:
             grads, loss = self.grad_sync.finish(grads, loss)
         else:
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(compute, grads)]
-            if ranks > 1:
-                from rocket_tpu_torch.parallel.grad_sync import plain_reduce
-
-                grads, loss = plain_reduce(grads, self._prepared.shard_dims or [None] * len(grads),
-                                           ranks, loss)
         h = self._health
         keep = None  # the gate's predicate: None off the gate
         if h is not None:
@@ -821,7 +905,7 @@ class Module(Dispatcher):
                 raise RuntimeError("Module(use_ema=True): no EMA shadow in the model state — "
                                    "the train Module wrapping this model must set ema_decay.")
             params = state["ema_params"] if self._use_ema else state["params"]
-            with torch.no_grad():
+            with torch.no_grad(), self._tp():
                 out = self._forward(self._full_params(params)[0], batch, "eval", None)
             attrs.batch = out[0] if "model_state" in state else out
             attrs.step_metrics = None

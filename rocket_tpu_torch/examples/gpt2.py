@@ -6,14 +6,18 @@ AdamW (weight decay 0.1) under warmup-cosine from 6e-4, gradient
 accumulation (``--accum``), a ``Checkpointer`` every 1000 steps keeping
 the last three (``--resume`` restarts from the newest), the ``Profiler``
 (steps/s and MFU; ``--trace-at`` opens a trace window) and a jsonl
-``Tracker`` (``runs/gpt2.jsonl``). Data parallel over the processes of
-``python -m rocket_tpu_torch.launch``: ``--batch`` is the global batch,
-each rank trains on its stripe, and ``--data-axis`` (default: every
-rank) must equal the world size; ``--model-axis`` above 1 needs tensor
-parallelism, not ported yet (ROADMAP Queue A 6).
+``Tracker`` (``runs/gpt2.jsonl``). Over the processes of ``python -m
+rocket_tpu_torch.launch`` the mesh is ``{"data": d, "model": m}``, as in
+the reference: ``--model-axis`` m (default 1) trains tensor parallel
+under ``gpt2_tp_rules()`` (each rank holds its column or row shard of the
+blocks' projections, the residual stream sequence-sharded), and the data
+axis ``--data-axis`` (default: the world size over m) splits the global
+batch ``--batch`` into stripes; ``d * m`` must equal the world size.
 
     python -m rocket_tpu_torch.examples.gpt2                       # on the GPU
     PYTHONPATH=. python -m rocket_tpu_torch.launch -n 2 rocket_tpu_torch/examples/gpt2.py
+    PYTHONPATH=. python -m rocket_tpu_torch.launch -n 2 rocket_tpu_torch/examples/gpt2.py \
+        --small --seq-len 64 --device cpu --model-axis 2
     python -m rocket_tpu_torch.examples.gpt2 --small --seq-len 64 --device cpu
 """
 
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -28,6 +33,7 @@ import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim
 from rocket_tpu_torch.data.text import CharTokenizer, TokenDataset, synthetic_corpus
 from rocket_tpu_torch.models.transformer import TransformerConfig, TransformerLM, next_token_loss
+from rocket_tpu_torch.parallel.sharding import gpt2_tp_rules
 
 
 def corpus(seq_len: int, vocab_size: int, num_chars: int = 2_000_000) -> TokenDataset:
@@ -55,7 +61,7 @@ def build(config: TransformerConfig, data, *, batch_size: int, runtime, num_epoc
     over ``data``); ``record=False`` leaves out the Checkpointer, Profiler,
     Tracker and progress bar (a timed run); ``capsules`` join the Looper
     after the Module; ``param_sharding`` goes to the Module
-    (``parallel.sharding.fsdp_rules()``), ``grad_sync`` and
+    (``parallel.sharding.fsdp_rules()`` or ``gpt2_tp_rules()``), ``grad_sync`` and
     ``grad_wire_dtype`` to the Optimizer capsule. Returns
     ``{"launcher", "model", "module", "dataset", "total_steps"}``."""
     model = TransformerLM(config)
@@ -90,6 +96,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--seq-len", type=int, default=1024)
     parser.add_argument("--accum", type=int, default=1)
     parser.add_argument("--epochs", type=int, default=1)
+    parser.add_argument("--steps", type=int, default=None,
+                        help="stop after this many steps (default: the epochs' batches)")
     parser.add_argument("--small", action="store_true", help="tiny dims for smoke runs")
     parser.add_argument("--trace-at", type=int, default=None,
                         help="open a profiler trace window of 3 steps at this step")
@@ -99,14 +107,23 @@ def main(argv=None) -> dict:
                         help="resume from the newest checkpoint")
     parser.add_argument("--device", default=None, help="default: the GPU")
     args = parser.parse_args(argv)
-    if args.model_axis > 1:
-        raise SystemExit(f"--model-axis {args.model_axis}: tensor parallelism is not ported yet "
-                         "(ROADMAP Queue A 6)")
-    runtime = rt.Runtime(seed=0, gradient_accumulation_steps=args.accum, device=args.device)
-    if args.data_axis is not None and args.data_axis != runtime.process_count:
-        raise SystemExit(f"--data-axis {args.data_axis}: the data axis is the world size, "
-                         f"{runtime.process_count} here (one device a rank; start the ranks "
-                         "with python -m rocket_tpu_torch.launch -n N)")
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+    else:
+        world = int(os.environ.get("WORLD_SIZE", "1")) if os.environ.get("MASTER_ADDR") else 1
+    if world % args.model_axis:
+        raise SystemExit(f"--model-axis {args.model_axis} does not divide the world size, "
+                         f"{world} here (one device a rank; start the ranks with python -m "
+                         "rocket_tpu_torch.launch -n N)")
+    data_axis = args.data_axis or world // args.model_axis
+    if data_axis * args.model_axis != world:
+        raise SystemExit(f"--data-axis {data_axis} x --model-axis {args.model_axis}: the "
+                         f"mesh's size is the world size, {world} here (one device a rank; "
+                         "start the ranks with python -m rocket_tpu_torch.launch -n N)")
+    runtime = rt.Runtime(seed=0, gradient_accumulation_steps=args.accum, device=args.device,
+                         mesh_shape={"data": data_axis, "model": args.model_axis})
     if args.small:
         config = TransformerConfig(vocab_size=512, max_seq_len=args.seq_len, dim=128,
                                    num_layers=2, num_heads=4, dropout=0.0)
@@ -115,8 +132,9 @@ def main(argv=None) -> dict:
     if args.scan_layers:
         config = dataclasses.replace(config, scan_layers=True)
     run = build(config, corpus(args.seq_len, config.vocab_size), batch_size=args.batch,
-                runtime=runtime, num_epochs=args.epochs, remat=not args.small,
-                resume=args.resume, trace_at=args.trace_at)
+                runtime=runtime, num_epochs=args.epochs, steps=args.steps, remat=not args.small,
+                resume=args.resume, trace_at=args.trace_at,
+                param_sharding=gpt2_tp_rules() if args.model_axis > 1 else None)
     print(run["launcher"])
     run["launcher"].launch()
     return run

@@ -74,7 +74,7 @@ def main(num_epochs: int = 2, batch_size: int = 64, seq_len: int = 128, device=N
     args, _ = parser.parse_known_args()
     if args.expert_axis not in (None, 1):
         raise SystemExit(f"--expert-axis {args.expert_axis}: an 'expert' mesh axis needs "
-                         "multi-device parallelism, not ported yet (ROADMAP Queue A 6)")
+                         "expert parallelism, not ported yet (ROADMAP Queue A 6 item 5)")
 
     text = tiny_shakespeare()
     tok = CharTokenizer(text)

@@ -12,9 +12,14 @@ block's FFN is the routed MoE (``nn/moe.py``, params under ``moe``): the
 training forward surfaces the layers' summed, pre-weighted load-balancing
 loss as ``batch["moe_aux_loss"]`` (which :func:`next_token_loss` adds) and
 their mean dropped fraction as ``batch["moe_frac_dropped"]``; the decode
-paths route each position as the reference does. Not ported yet, and
-raising ``NotImplementedError`` where a config asks for them: pipeline and
-tensor parallelism and ring attention (ROADMAP Queue A 6). ``scan_layers``
+paths route each position as the reference does. Under a
+tensor-parallel context (``parallel/collectives.py``, installed by the
+Module for ``gpt2_tp_rules``) :meth:`TransformerLM.apply` runs the
+residual stream sequence-sharded over the model group (reference
+``rocket_tpu/models/transformer.py:948-1097``). Not ported yet, and
+raising ``NotImplementedError`` where a config asks for them: pipeline
+parallelism, ring attention, and MoE under tensor parallelism (ROADMAP
+Queue A 6 items 3, 4 and 5). ``scan_layers``
 keeps the blocks a Python loop (a scanned JAX tree's ``blocks_stacked``
 is unstacked on load); with ``scan_remat`` the train forward checkpoints
 each block under ``scan_remat_policy``, as the reference's scanned body
@@ -70,8 +75,9 @@ __all__ = [
 #: Unported config fields, each group with the ROADMAP Queue A item that
 #: brings it: ``validate`` raises when one is set off its default.
 _UNPORTED = (
-    (("seq_axis",), "sequence parallelism", 6),
-    (("pipeline_axis", "pipeline_microbatches", "pipeline_schedule"), "pipeline parallelism", 6),
+    (("seq_axis",), "sequence parallelism", "6 item 4"),
+    (("pipeline_axis", "pipeline_microbatches", "pipeline_schedule"), "pipeline parallelism",
+     "6 item 3"),
 )
 
 
@@ -167,7 +173,7 @@ class TransformerConfig:
         if self.attention_impl == "ring":
             raise NotImplementedError(
                 "TransformerConfig: attention_impl='ring' (sequence parallelism) is not ported "
-                "yet (ROADMAP Queue A 6)"
+                "yet (ROADMAP Queue A 6 item 4)"
             )
         if self.scan_remat_policy not in (None, "dots", "block_io"):
             raise ValueError(f"TransformerConfig: unknown scan_remat_policy "
@@ -295,10 +301,31 @@ class Block(Layer):
 
     def _ffn(self, params, h):
         """The FFN half on ``ln2(x)``: ``(out, aux)``, with ``aux`` the MoE's
-        ``{"aux_loss", "frac_dropped"}`` or None for the dense MLP."""
+        ``{"aux_loss", "frac_dropped"}`` or None for the dense MLP. Under a
+        tensor-parallel context the MLP takes the collective matmuls
+        (reference ``transformer.py:520-560``): one gather feeds the
+        column-parallel projection(s) (swiglu's two share it), the
+        activation runs on this rank's hidden shard, and ``fc_out``
+        reduce-scatters onto the sequence shards."""
         if self.moe is not None:
             return self.moe.apply(params["moe"], h)
         p = params["mlp"]
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        spec = coll.current_tp()
+        if spec is not None:
+            dt = h.dtype
+            ws = [p["fc_in"]["w"].to(dt)]
+            if self.fc_gate is not None:
+                ws.append(p["fc_gate"]["w"].to(dt))
+            outs = coll.all_gather_matmul(spec, h, ws)
+            up = outs[0] + p["fc_in"]["b"].to(dt)
+            if self.fc_gate is not None:
+                hid = silu_fn(outs[1] + p["fc_gate"]["b"].to(dt)) * up
+            else:
+                hid = gelu_fn(up)
+            return coll.matmul_reduce_scatter(spec, hid, p["fc_out"]["w"].to(dt),
+                                              bias=p["fc_out"]["b"].to(dt)), None
         up = self.fc_in(p["fc_in"], h)
         if self.fc_gate is not None:
             h = silu_fn(self.fc_gate(p["fc_gate"], h)) * up
@@ -318,18 +345,27 @@ class Block(Layer):
             return (None, None, None)
         return keys.split(keys.fold_in(rng, self.layer_idx), 3)
 
+    @staticmethod
+    def _split():
+        """Under tensor parallelism the residual stream is this rank's
+        sequence shard: its dropout masks' place in the global array."""
+        from rocket_tpu_torch.parallel.collectives import current_tp
+
+        spec = current_tp()
+        return None if spec is None else (1, spec.index, spec.tp_size)
+
     def _attn_residual(self, params, x, mode, rngs):
         """``x + dropout(attn(ln1(x)))``: the attention half and its residual."""
         h = self._attn_half(params, x, mode, rngs[0])
         if self.dropout is not None:
-            h = self.dropout.apply({}, h, mode=mode, rng=rngs[1])
+            h = self.dropout.apply({}, h, mode=mode, rng=rngs[1], split=self._split())
         return x + h
 
     def _ffn_residual(self, params, x, mode, rngs):
         """``(x + dropout(ffn(ln2(x))), aux)``: the FFN half and its residual."""
         h, aux = self._ffn(params, self.ln2(params["ln2"], x))
         if self.dropout is not None:
-            h = self.dropout.apply({}, h, mode=mode, rng=rngs[2])
+            h = self.dropout.apply({}, h, mode=mode, rng=rngs[2], split=self._split())
         return x + h, aux
 
     def apply_aux(self, params, x, *, mode="train", rng=None):
@@ -363,8 +399,9 @@ class Block(Layer):
         it runs on the CPU too, through the kernel's plain version (the
         reference's interpret mode). Shapes past
         :func:`block_attn_supported` or the kernel's own limits stay on
-        the per-op chain."""
-        if not self._block_attn_ok or x.dim() != 3:
+        the per-op chain, and so does every block under tensor parallelism
+        (reference ``transformer.py:422``)."""
+        if not self._block_attn_ok or x.dim() != 3 or self._split() is not None:
             return None
         b, t, d = x.shape
         h = self.attn.num_heads
@@ -468,6 +505,18 @@ class TransformerLM:
             params["head"] = self.head.init_params(gen)
         return map_params(lambda t: t.to(device), params)
 
+    @staticmethod
+    def tp_partial(path) -> bool:
+        """Whether the replicated leaf at ``path`` gets a partial gradient
+        under tensor parallelism: the norms, which run on the sequence
+        shards (the Module sums these over the model group). Every other
+        replicated leaf is used on a whole sequence repeated on every rank
+        (the embeddings before :func:`seq_shard`, the head after
+        :func:`seq_all_gather`, the row-parallel biases whose gradient the
+        collective computes from the gathered ``dy``), so its gradient is
+        complete on each."""
+        return len(path) >= 2 and path[-2] in ("ln1", "ln2", "ln_f")
+
     def num_params(self, params: dict) -> int:
         """The number of parameter elements."""
         sizes = []
@@ -476,24 +525,100 @@ class TransformerLM:
 
     # -- the training forward ----------------------------------------------
 
+    def _tp_spec(self, t: int):
+        """The active tensor-parallel spec for this forward, or None. The
+        port has no GSPMD to fall back on (the reference runs the plain
+        program where a width does not divide): the sequence, the query and
+        key/value heads and the MLP width must divide the model group, and
+        an MoE config raises."""
+        from rocket_tpu_torch.parallel.collectives import current_tp
+
+        spec = current_tp()
+        if spec is None:
+            return None
+        c, n = self.config, spec.tp_size
+        if c.num_experts > 0:
+            raise NotImplementedError(
+                "TransformerLM: MoE under tensor parallelism (the TP context's sequence gather "
+                "and expert parallelism) is not ported yet (ROADMAP Queue A 6 item 5)")
+        widths = {"the sequence": t, "num_heads": c.num_heads,
+                  "num_kv_heads": c.num_kv_heads or c.num_heads,
+                  "the MLP width": c.mlp_ratio * c.dim}
+        bad = [f"{name} {v}" for name, v in widths.items() if v % n]
+        if bad:
+            raise NotImplementedError(
+                f"TransformerLM: tensor parallelism over {n} ranks needs {', '.join(bad)} to "
+                "divide the model axis (the reference's plain GSPMD program for such shapes has "
+                "no counterpart in the port)")
+        return spec
+
+    def _embed_tp(self, spec, params, tokens):
+        """The TP embedding -> this rank's ``(B, T/n, D)`` rows: the
+        vocab-parallel lookup reduce-scattered onto the sequence shards
+        where the table is vocab-sharded and there are no learned
+        positions (the Llama-style path); else the whole lookup (a
+        vocab-sharded table summed over the group) plus ``wpe``, then
+        :func:`seq_shard` (GPT-2's path)."""
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        c = self.config
+        table = params["wte"]["table"]
+        sharded = table.shape[0] != c.vocab_size
+        if spec.vocab_sharded_embed and sharded and self.wpe is None:
+            return coll.embed_lookup_sharded(spec, table, tokens,
+                                             compute_dtype=c.dtype if c.activation_dtype else None)
+        x = coll.vocab_lookup(spec, table, tokens) if sharded else self.wte(params["wte"], tokens)
+        if self.wpe is not None:
+            x = x + params["wpe"]["table"][:tokens.shape[1]]
+        return coll.seq_shard(spec, x)
+
+    def _whole_head(self, spec, params) -> dict:
+        """``params`` with a vocab-sharded head (or tied table) gathered
+        whole, for a head repeated on every rank of the group over the
+        gathered sequence (its gradient is then complete on each)."""
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        v = self.config.vocab_size
+        params = dict(params)
+        if self.head is not None and params["head"]["w"].shape[1] != v:
+            params["head"] = {"w": coll.gather_replicated(spec, params["head"]["w"], 1)}
+        elif self.head is None and params["wte"]["table"].shape[0] != v:
+            params["wte"] = {"table": coll.gather_replicated(spec, params["wte"]["table"], 0)}
+        return params
+
     def apply(self, params, batch: dict, *, mode: str = "train", rng=None) -> dict:
         """The full-sequence forward -> a copy of ``batch`` with ``logits``
         (or, fused, ``nll``) added. ``rng`` is the step's counter-hash key
         (``nn/keys.py``); train-mode dropout needs it. The embedding's key
         is ``fold_in(rng, 0x0E0BED)``, a domain apart from the blocks'
-        ``fold_in(rng, layer_idx)``, as in the reference."""
+        ``fold_in(rng, layer_idx)``, as in the reference.
+
+        Under a tensor-parallel context the residual stream runs
+        sequence-sharded from the embedding to ``ln_f`` (:meth:`_embed_tp`);
+        then the vocab-parallel head gathers the sequence into this rank's
+        logit columns where the vocab divides and the loss is not fused,
+        else :func:`seq_all_gather` gives every rank the whole sequence for
+        the head (GPT-2: 50257 rows do not divide). The outputs are whole
+        on every rank of the group."""
         c = self.config
         tokens = batch[self.tokens_key]
         b, t = tokens.shape
         if t > c.max_seq_len:
             raise ValueError(f"sequence length {t} > max_seq_len {c.max_seq_len}")
-        x = self.wte(params["wte"], tokens)
-        if self.wpe is not None:
-            x = x + params["wpe"]["table"][:t]
+        spec = self._tp_spec(t)
+        split = None
+        if spec is not None:
+            x = self._embed_tp(spec, params, tokens)
+            split = (1, spec.index, spec.tp_size)
+        else:
+            x = self.wte(params["wte"], tokens)
+            if self.wpe is not None:
+                x = x + params["wpe"]["table"][:t]
         x = x.to(c.dtype)
         if self.drop is not None:
             x = self.drop.apply({}, x, mode=mode,
-                                rng=None if rng is None else keys.fold_in(rng, 0x0E0BED))
+                                rng=None if rng is None else keys.fold_in(rng, 0x0E0BED),
+                                split=split)
         aux_total = dropped_total = None
         remat = (c.scan_layers and c.scan_remat and mode == "train"
                  and torch.is_grad_enabled())
@@ -517,7 +642,21 @@ class TransformerLM:
             out["moe_frac_dropped"] = dropped_total / c.num_layers
         if c.label_smoothing and mode == "train":
             out["label_smoothing"] = c.label_smoothing
-        if c.loss_chunk > 0 and mode == "train" and t > 1 and t % c.loss_chunk == 0:
+        fused = c.loss_chunk > 0 and mode == "train" and t > 1 and t % c.loss_chunk == 0
+        if spec is not None:
+            from rocket_tpu_torch.parallel import collectives as coll
+
+            if not fused and c.vocab_size % spec.tp_size == 0:
+                # The head as a collective matmul into this rank's logit
+                # columns, then the columns gathered for the loss.
+                w = (params["head"]["w"] if self.head is not None
+                     else params["wte"]["table"].t())
+                (logits,) = coll.all_gather_matmul(spec, x, (w.to(x.dtype),))
+                out[self.logits_key] = coll.gather_replicated(spec, logits, 2)
+                return out
+            x = coll.seq_all_gather(spec, x)
+            params = self._whole_head(spec, params)
+        if fused:
             # The head weight is cast once, outside the chunk loop.
             if self.head is not None:
                 w = params["head"]["w"].to(x.dtype)

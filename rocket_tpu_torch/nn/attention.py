@@ -1,12 +1,13 @@
 """Multi-head attention (counterpart of ``rocket_tpu/nn/attention.py``):
 the fused QKV projection, RoPE, the training forward
 (:meth:`MultiHeadAttention.apply`: the flash kernels of
-``ops/flash_native.py`` or the plain path), the dense-cache decode step
-(:meth:`MultiHeadAttention.apply_cached`) and the paged-pool step
-(:meth:`MultiHeadAttention.apply_paged`).
+``ops/flash_native.py`` or the plain path), its tensor-parallel form
+(:meth:`MultiHeadAttention._apply_tp`: one gather feeding q, k and v on
+this rank's heads, the output projection reduce-scattered), the
+dense-cache decode step (:meth:`MultiHeadAttention.apply_cached`) and the
+paged-pool step (:meth:`MultiHeadAttention.apply_paged`).
 
-Ring attention and the tensor-parallel paths are not ported yet (ROADMAP
-Queue A 6).
+Ring attention is not ported yet (ROADMAP Queue A 6 item 4).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ def resolve_impl(impl: str, d: int, device) -> str:
     wrapper); "ring" is not ported yet."""
     if impl == "ring":
         raise NotImplementedError(
-            "attention impl='ring' (sequence parallelism) is not ported yet (ROADMAP Queue A 6)"
+            "attention impl='ring' (sequence parallelism) is not ported yet (ROADMAP Queue A 6 "
+            "item 4)"
         )
     if impl != "auto":
         return impl
@@ -188,49 +190,99 @@ class MultiHeadAttention(Layer):
         v = fused[..., hw + kvw:].reshape(*lead, self.num_kv_heads, self.head_dim)
         return q, k, v
 
-    def _attn_dropout(self, out, mode, rng):
-        """Attention-output dropout, salted ``fold_in(rng, 1)``."""
+    def _attn_dropout(self, out, mode, rng, split=None):
+        """Attention-output dropout, salted ``fold_in(rng, 1)``; ``split``
+        places a head shard in the global ``(B, T, H, D)`` array."""
         if not (self.dropout and mode == "train"):
             return out
         if rng is None:
             raise ValueError("MultiHeadAttention: dropout needs rng in train")
         keep = 1.0 - self.dropout
-        mask = keys.bernoulli(keys.fold_in(rng, 1), keep, out.shape, out.device,
-                              keys.shard_offset(out.numel()))
+        mask = keys.dropout_mask(keys.fold_in(rng, 1), keep, out.shape, out.device, split)
         return torch.where(mask, out / keep, torch.zeros((), dtype=out.dtype, device=out.device))
 
+    def _rotate(self, q2, k2, h, h_kv):
+        """RoPE on feature-major ``(B, T, h*D)`` q and ``(B, T, h_kv*D)`` k
+        (as they are without ``rope``)."""
+        if not self.rope:
+            return q2, k2
+        b, t, d = q2.shape[0], q2.shape[1], self.head_dim
+        return (apply_rope_bthd(q2.reshape(b, t, h, d), 0, self.rope_base).reshape(b, t, h * d),
+                apply_rope_bthd(k2.reshape(b, t, h_kv, d), 0,
+                                self.rope_base).reshape(b, t, h_kv * d))
+
+    def _core(self, q2, k2, v2, h, h_kv, device):
+        """Attention over feature-major ``(B, T, h*D)`` q and ``(B, T,
+        h_kv*D)`` k/v (RoPE applied) -> ``(B, T, h, D)``: the flash kernels
+        (``flash_bthd``) or the plain path, as :func:`resolve_impl` says."""
+        b, t = q2.shape[:2]
+        d = self.head_dim
+        if resolve_impl(self.impl, d, device) == "flash":
+            return flash_bthd(q2, k2, v2, h, h_kv, causal=self.causal).reshape(b, t, h, d)
+        q = q2.reshape(b, t, h, d).transpose(1, 2)
+        k = k2.reshape(b, t, h_kv, d).transpose(1, 2)
+        v = v2.reshape(b, t, h_kv, d).transpose(1, 2)
+        if h_kv != h:
+            out = grouped_dot_product_attention(q, k, v, causal=self.causal)
+        else:
+            out = dot_product_attention(q, k, v, causal=self.causal)
+        return out.transpose(1, 2)
+
+    def _tp_spec(self):
+        """The active tensor-parallel spec, or None (reference
+        ``attention.py:420-438``). The shapes are checked once for the whole
+        model, by ``TransformerLM``, which has no fallback to offer."""
+        from rocket_tpu_torch.parallel.collectives import current_tp
+
+        return current_tp()
+
+    def _apply_tp(self, spec, params, x: torch.Tensor, mode: str, rng) -> torch.Tensor:
+        """The tensor-parallel path (reference ``rocket_tpu/nn/attention.py:
+        448-503``): ``x`` arrives as this rank's sequence shard ``(B, T/n,
+        D)``; one gather feeds its heads' q, k and v (``qkv_fused_views``
+        rebuilds the head-aligned columns from the contiguous shard), the
+        attention runs on the ``H/n`` (and ``Hkv/n``) local heads, and the
+        output projection reduce-scatters back onto the sequence shards."""
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        n = spec.tp_size
+        b, t = x.shape[0], x.shape[1] * n
+        dt, d = x.dtype, self.head_dim
+        h, h_kv = self.num_heads // n, self.num_kv_heads // n
+        pq, pp = params["qkv"], params["proj"]
+        wq, wk, wv, bq, bk, bv = coll.qkv_fused_views(
+            spec, pq["w"].to(dt), pq["b"].to(dt) if "b" in pq else None,
+            self.num_heads * d, self.num_kv_heads * d)
+        q2, k2, v2 = coll.all_gather_matmul(spec, x, (wq, wk, wv))
+        if bq is not None:
+            q2, k2, v2 = q2 + bq, k2 + bk, v2 + bv
+        q2, k2 = self._rotate(q2, k2, h, h_kv)
+        out = self._core(q2, k2, v2, h, h_kv, x.device)
+        out = self._attn_dropout(out, mode, rng, split=(2, spec.index, n))
+        return coll.matmul_reduce_scatter(spec, out.reshape(b, t, h * d), pp["w"].to(dt),
+                                          bias=pp["b"].to(dt) if "b" in pp else None)
+
     def apply(self, params, x: torch.Tensor, *, mode: str = "train", rng=None) -> torch.Tensor:
-        """Full-sequence attention ``(B, T, D) -> (B, T, D)``.
+        """Full-sequence attention ``(B, T, D) -> (B, T, D)``; under an
+        active tensor-parallel context, :meth:`_apply_tp` on the sequence
+        shard.
 
         The flash path keeps operands feature-major: MHA without RoPE runs
         :func:`flash_fused` on the QKV projection output itself; RoPE or
         GQA slice it into ``(B, T, Hq*D)`` / ``(B, T, Hkv*D)`` operands for
         :func:`flash_bthd`. The plain path is head-major einsums."""
+        spec = self._tp_spec()
+        if spec is not None:
+            return self._apply_tp(spec, params, x, mode, rng)
         b, t, _ = x.shape
         fused = self.qkv(params["qkv"], x)
-        impl = resolve_impl(self.impl, self.head_dim, x.device)
         h, h_kv, d = self.num_heads, self.num_kv_heads, self.head_dim
-        if impl == "flash":
-            if self.rope or h_kv != h:
-                hw, kvw = h * d, h_kv * d
-                q2, k2, v2 = fused[..., :hw], fused[..., hw:hw + kvw], fused[..., hw + kvw:]
-                if self.rope:
-                    q2 = apply_rope_bthd(q2.reshape(b, t, h, d), 0, self.rope_base).reshape(b, t, hw)
-                    k2 = apply_rope_bthd(k2.reshape(b, t, h_kv, d), 0,
-                                         self.rope_base).reshape(b, t, kvw)
-                out = flash_bthd(q2, k2, v2, h, h_kv, causal=self.causal)
-            else:
-                out = flash_fused(fused, h, causal=self.causal)
+        if resolve_impl(self.impl, d, x.device) == "flash" and not self.rope and h_kv == h:
+            out = flash_fused(fused, h, causal=self.causal)
         else:
-            q, k, v = (u.transpose(1, 2) for u in self._split(fused))
-            if self.rope:
-                q = apply_rope(q, 0, self.rope_base)
-                k = apply_rope(k, 0, self.rope_base)
-            if h_kv != h:
-                out = grouped_dot_product_attention(q, k, v, causal=self.causal)
-            else:
-                out = dot_product_attention(q, k, v, causal=self.causal)
-            out = out.transpose(1, 2)                          # (B, T, H, D)
+            hw, kvw = h * d, h_kv * d
+            q2, k2 = self._rotate(fused[..., :hw], fused[..., hw:hw + kvw], h, h_kv)
+            out = self._core(q2, k2, fused[..., hw + kvw:], h, h_kv, x.device)
         out = self._attn_dropout(out, mode, rng)
         return self.proj(params["proj"], out.reshape(b, t, self.features))
 

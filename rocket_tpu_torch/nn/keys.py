@@ -18,7 +18,11 @@ stripe of the global batch: the Module's train step runs under
 indices to those of its rows in the global array (rank times the local
 element count; the stripes are equal), so two ranks draw the masks of
 the one-rank run of the same global batch, as the reference draws those
-of the global array.
+of the global array. Under tensor parallelism a rank holds a sequence
+shard ``(B, T/n, D)`` or a head shard ``(B, T, H/n, Dh)``, not a
+contiguous run of the global elements: :func:`dropout_mask` with a
+``split`` maps each local element to its global index, so the ranks of a
+model group together draw exactly the one-rank run's masks.
 
 The bits cannot match JAX's; the tests compare distributions and the
 forward/recompute identity, and run the JAX comparisons with dropout 0.
@@ -41,7 +45,7 @@ import torch
 from rocket_tpu_torch.models.sampling import _mix, _mix_int
 
 __all__ = ["key", "fold_in", "split", "uniform", "bernoulli", "to_data", "from_data",
-           "data_shard", "shard_offset"]
+           "data_shard", "shard_offset", "global_index", "dropout_mask"]
 
 _M32 = 0xFFFFFFFF
 
@@ -97,6 +101,11 @@ def shard_offset(numel: int) -> int:
     return _DATA_SHARD[0] * int(numel)
 
 
+def _uniform_at(k: int, idx: torch.Tensor) -> torch.Tensor:
+    bits = _mix((idx * 0x61C88647 + _mix_int(k)) & _M32)
+    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
 def uniform(k: int, shape, device, offset: int = 0) -> torch.Tensor:
     """f32 uniforms in (0, 1) of ``shape``: element ``i`` (row-major) is a
     hash of ``(k, offset + i)``, so one key gives the same values on any
@@ -105,8 +114,42 @@ def uniform(k: int, shape, device, offset: int = 0) -> torch.Tensor:
     for s in shape:
         n *= int(s)
     idx = torch.arange(offset, offset + n, device=device, dtype=torch.int64)
-    bits = _mix((idx * 0x61C88647 + _mix_int(k)) & _M32)
-    return (((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))).reshape(shape)
+    return _uniform_at(k, idx).reshape(shape)
+
+
+def global_index(shape, device, split) -> torch.Tensor:
+    """The global row-major index of each element of a batch-led local
+    tensor of ``shape`` that is chunk ``index`` of ``count`` on dim ``dim``
+    of the global array (``split = (dim, index, count)``), in this
+    process's data stripe (:func:`data_shard`): int64 of ``shape``."""
+    dim, index, count = (int(v) for v in split)
+    shape = tuple(int(s) for s in shape)
+    gshape = list(shape)
+    gshape[dim] *= count
+    strides = [1] * len(gshape)
+    for d in range(len(gshape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * gshape[d + 1]
+    idx = torch.full((1,) * len(shape), _DATA_SHARD[0] * shape[0] * strides[0],
+                     dtype=torch.int64, device=device)
+    for d, n in enumerate(shape):
+        start = index * n if d == dim else 0
+        view = [1] * len(shape)
+        view[d] = n
+        idx = idx + (torch.arange(start, start + n, dtype=torch.int64, device=device)
+                     * strides[d]).reshape(view)
+    return idx
+
+
+def dropout_mask(k: int, p: float, shape, device, split=None) -> torch.Tensor:
+    """The keep mask (True with probability ``p``) of this process's part
+    of the global array: its data stripe's run of elements, or with
+    ``split = (dim, index, count)`` its chunk on ``dim`` of that stripe."""
+    if split is None:
+        n = 1
+        for s in shape:
+            n *= int(s)
+        return bernoulli(k, p, shape, device, shard_offset(n))
+    return _uniform_at(k, global_index(shape, device, split)) < p
 
 
 def bernoulli(k: int, p: float, shape, device, offset: int = 0) -> torch.Tensor:

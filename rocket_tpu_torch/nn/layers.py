@@ -81,12 +81,27 @@ def softmax() -> Lambda:
 
 
 class Dense(Layer):
-    """``y = x @ w + b`` with ``w`` (in, out); lecun-normal init."""
+    """``y = x @ w + b`` with ``w`` (in, out); lecun-normal init.
 
-    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
+    ``tp_role`` opts the layer into the collective matmuls of
+    ``parallel/collectives.py`` while a tensor-parallel context is active
+    (reference ``rocket_tpu/nn/layers.py:44-116``): ``"column"`` (``w``
+    this rank's output columns; the sequence-sharded input is gathered
+    into the matmul), ``"row"`` (``w`` this rank's input rows; the output
+    reduce-scatters onto the sequence shards). Off the context, or where
+    the sharded width or (row) the sequence does not divide the group, the
+    layer is the plain matmul. The transformer's projections use the
+    grouped primitives directly (one gather for the fused QKV and for
+    swiglu's pair), so their Dense layers keep ``tp_role=None``."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
+                 tp_role=None):
+        if tp_role not in (None, "column", "row"):
+            raise ValueError(f"Dense: tp_role must be None|'column'|'row', got {tp_role!r}")
         self.in_features = in_features
         self.out_features = out_features
         self.use_bias = use_bias
+        self.tp_role = tp_role
 
     def init_params(self, gen):
         std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
@@ -97,8 +112,36 @@ class Dense(Layer):
             params["b"] = torch.zeros(self.out_features)
         return params
 
+    def _tp_spec(self, x):
+        """The active TP spec when this layer's role engages on ``x``: a
+        ``(B, T, F)`` activation (the local sequence shard for a column
+        layer, the whole sequence for a row layer, whose T must divide the
+        group) and a sharded width that divides the group."""
+        if self.tp_role is None or x.dim() != 3:
+            return None
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        spec = coll.current_tp()
+        if spec is None:
+            return None
+        n = spec.tp_size
+        width = self.out_features if self.tp_role == "column" else self.in_features
+        if width % n or (self.tp_role == "row" and x.shape[1] % n):
+            return None
+        return spec
+
     def apply(self, params, x):
-        y = x @ params["w"].to(x.dtype)
+        w = params["w"].to(x.dtype)
+        spec = self._tp_spec(x)
+        if spec is None:
+            y = x @ w
+        else:
+            from rocket_tpu_torch.parallel import collectives as coll
+
+            if self.tp_role == "column":
+                (y,) = coll.all_gather_matmul(spec, x, (w,))
+            else:
+                y = coll.matmul_reduce_scatter(spec, x, w)
         if self.use_bias:
             y = y + params["b"].to(x.dtype)
         return y
@@ -396,18 +439,20 @@ class Dropout(Layer):
     identity otherwise. The mask comes from the counter-hash key ``rng``
     (``nn/keys.py``), never from a generator, so a checkpointed forward
     and its recompute drop the same elements; under data parallelism a
-    rank hashes its rows' global element indices (``keys.shard_offset``)."""
+    rank hashes its rows' global element indices, and under tensor
+    parallelism ``split = (dim, index, count)`` says which chunk of the
+    global activation ``x`` is (``keys.dropout_mask``)."""
 
     def __init__(self, rate: float):
         self.rate = rate
 
-    def apply(self, params, x, *, mode="eval", rng=None):
+    def apply(self, params, x, *, mode="eval", rng=None, split=None):
         if mode != "train" or self.rate == 0.0:
             return x
         if rng is None:
             raise ValueError("Dropout needs an rng in train mode")
         keep = 1.0 - self.rate
-        mask = keys.bernoulli(rng, keep, x.shape, x.device, keys.shard_offset(x.numel()))
+        mask = keys.dropout_mask(rng, keep, x.shape, x.device, split)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def __repr__(self):

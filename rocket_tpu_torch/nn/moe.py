@@ -26,8 +26,9 @@ The load-balancing aux loss (GShard eq. 4) and the dropped fraction
 come back beside the output, for the model to surface in its batch.
 
 Not ported: the sequence-sharded TP-context gather in the reference's
-``apply`` (``:153-174``) waits for tensor parallelism (ROADMAP Queue A 6);
-the port has no TP context, so nothing can ask for it.
+``apply`` (``:153-174``), which goes with expert parallelism (ROADMAP
+Queue A 6 item 5); ``TransformerLM`` refuses an MoE config under a
+tensor-parallel context, so nothing reaches it.
 """
 
 from __future__ import annotations

@@ -35,8 +35,8 @@ arguments win, pinned forward blocks suppress the backward table, and
 reference's entry contract. Head dims: :data:`HEAD_DIMS`.
 
 The reference's mesh seam (``flash_attention_qkv_sharded``,
-``in_manual_axes``, ``shardable_axes``) waits for multi-device parallelism
-(ROADMAP Queue A 6).
+``in_manual_axes``, ``shardable_axes``) waits for the flash mesh seams
+(ROADMAP Queue A 6 item 6).
 
 On CPU tensors every kernel wrapper takes its plain version; on CUDA
 tensors it launches its kernel (counted in ``<wrapper>.launches``) or

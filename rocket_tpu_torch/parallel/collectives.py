@@ -1,0 +1,625 @@
+"""Overlapped collective matmuls for tensor parallelism (counterpart of
+``rocket_tpu/parallel/collectives.py``).
+
+The Megatron layout with sequence parallelism over the model group of the
+Runtime's mesh: between blocks each rank holds its sequence shard of the
+residual stream ``(B, T/n, D)``; a column-parallel projection (QKV, the
+MLP's input) all-gathers that shard into its matmul against the rank's
+column shard of the weight, and a row-parallel projection (attention out,
+the MLP's output) reduce-scatters its partial product back onto the
+sequence shards. Every piece is a ``torch.autograd.Function`` whose
+backward is the reference's transposed collective:
+
+* **bulk**: one ``all_gather_into_tensor``; a reduce-scatter as one
+  ``all_to_all_single`` of the ``n`` chunks and a local sum in rank order
+  (the reference's gradient form, and gloo's reduce-scatter would round a
+  narrow dtype twice);
+* **ring**: ``n - 1`` ``batch_isend_irecv`` hops, each overlapping the
+  product of the chunk before it (``ops/ring.py`` holds the index math);
+  ``"auto"`` rings a collective whose per-hop chunk holds at least
+  ``min_ring_bytes`` (1 MiB).
+* **wire**: values that flow into gradients cross in
+  ``ROCKET_TPU_OVERLAP_WIRE`` (bf16 by default; ``fp32``/``off`` keep
+  them whole); forward activations always cross at their own dtype. A
+  narrowed payload crosses as its bytes (a uint8 view), so no backend
+  reassociates it.
+
+``ROCKET_TPU_OVERLAP=0`` restores the plain program in the reference,
+where GSPMD then places the collectives. The port has no GSPMD: its
+params stay in the TP layout, so ``0`` runs the same layout with one bulk
+collective each and no wire narrowing, which is the function GSPMD's
+program computes. ``ROCKET_TPU_OVERLAP=ring`` or ``=bulk`` forces the
+mode (the port's own values; unset or ``1`` is ``"auto"``).
+
+Gloo's point-to-point ops take host tensors only. Over gloo a ring hop
+of a CUDA chunk stages it through host memory explicitly (logged once,
+and ``STATS["staged"]`` says so); it never turns into a bulk collective.
+
+The context (:func:`tp_overlap`) is installed by ``core/module.py`` when
+the Module's ``param_sharding`` rule carries the ``tp_axis`` marker
+(``gpt2_tp_rules``), around the forward and the backward (a remat
+recompute issues the forward's collectives again, in the same order on
+every rank). It is process-wide, not per thread: a CUDA backward runs on
+autograd's device thread. ``pvary_compat`` is JAX typing and has no
+counterpart here.
+
+``STATS`` counts, per process, the seconds spent waiting on the model
+group's collectives, the bytes a rank sends into them, and each
+collective's calls by mode; :func:`reset_stats` zeroes it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+from rocket_tpu_torch.ops import ring as ring_lib
+
+__all__ = [
+    "OverlapSpec", "overlap_enabled", "overlap_mode", "grad_wire_dtype", "tp_overlap",
+    "current_tp", "all_gather_matmul", "matmul_reduce_scatter", "qkv_fused_views",
+    "embed_lookup_sharded", "vocab_lookup", "seq_all_gather", "seq_shard", "gather_replicated",
+    "STATS", "reset_stats",
+]
+
+logger = logging.getLogger(__name__)
+
+#: Per-process collective counters (module docstring).
+STATS: dict = {"wait_s": 0.0, "wire_bytes": 0, "calls": {}, "staged": False}
+
+
+def reset_stats() -> None:
+    STATS.update(wait_s=0.0, wire_bytes=0, calls={})
+
+
+def overlap_enabled() -> bool:
+    """False under ``ROCKET_TPU_OVERLAP=0`` (the plain program: bulk
+    collectives, no wire narrowing)."""
+    return os.environ.get("ROCKET_TPU_OVERLAP", "1") != "0"
+
+
+def overlap_mode() -> str:
+    """The ring mode ``ROCKET_TPU_OVERLAP`` asks for: ``"ring"``,
+    ``"bulk"`` (also under ``0``) or ``"auto"``."""
+    value = os.environ.get("ROCKET_TPU_OVERLAP", "1").strip().lower()
+    return {"ring": "ring", "bulk": "bulk", "0": "bulk"}.get(value, "auto")
+
+
+def grad_wire_dtype() -> Optional[torch.dtype]:
+    """The wire dtype of gradient-carrying collectives, from
+    ``ROCKET_TPU_OVERLAP_WIRE`` (default bf16; ``fp32``/``off`` disable the
+    narrowing)."""
+    name = os.environ.get("ROCKET_TPU_OVERLAP_WIRE", "bfloat16").lower()
+    if name in ("fp32", "f32", "float32", "off", "none", ""):
+        return None
+    return getattr(torch, name)
+
+
+@dataclass(frozen=True)
+class OverlapSpec:
+    """One active TP configuration: ``group`` the model group's process
+    group, ``ranks`` its global ranks in model-coordinate order, ``index``
+    this rank's model coordinate; ``wire`` the gradient wire dtype's name
+    (None: no narrowing), ``mode`` / ``min_ring_bytes`` ring or bulk per
+    collective (``ops.ring.use_ring``), ``vocab_sharded_embed`` the rule's
+    ``tp_vocab_sharded`` marker."""
+
+    group: Any
+    ranks: Tuple[int, ...]
+    index: int
+    axis: str = "model"
+    wire: Optional[str] = "bfloat16"
+    mode: str = "auto"
+    min_ring_bytes: int = 1 << 20
+    vocab_sharded_embed: bool = False
+
+    @property
+    def tp_size(self) -> int:
+        return len(self.ranks)
+
+    def wire_dtype(self) -> Optional[torch.dtype]:
+        return None if self.wire is None else getattr(torch, self.wire)
+
+
+#: The active spec, process-wide (module docstring).
+_ACTIVE: list = [None]
+
+
+@contextlib.contextmanager
+def tp_overlap(runtime, axis: str = "model", wire: Optional[str] = "__env__",
+               mode: Optional[str] = None, min_ring_bytes: int = 1 << 20,
+               vocab_sharded_embed: bool = False):
+    """Activate the TP context over ``runtime``'s ``axis`` group for the
+    block (None when the mesh has no such axis larger than 1). ``mode``
+    None reads ``ROCKET_TPU_OVERLAP`` (:func:`overlap_mode`); under
+    ``ROCKET_TPU_OVERLAP=0`` the wire is never narrowed. The reference's
+    ``data_axes`` has no use here: each rank's batch is its stripe, and
+    ``GradSync`` reduces the weights' gradients over the data group."""
+    size = int(runtime.mesh.get(axis, 1))
+    if size <= 1:
+        yield None
+        return
+    if wire == "__env__":
+        wd = grad_wire_dtype()
+        wire = None if wd is None else str(wd).replace("torch.", "")
+    if not overlap_enabled():
+        wire = None
+    spec = OverlapSpec(group=runtime.axis_group(axis), ranks=tuple(runtime.axis_ranks(axis)),
+                       index=runtime.axis_index(axis), axis=axis, wire=wire,
+                       mode=mode or overlap_mode(), min_ring_bytes=min_ring_bytes,
+                       vocab_sharded_embed=vocab_sharded_embed)
+    previous, _ACTIVE[0] = _ACTIVE[0], spec
+    try:
+        yield spec
+    finally:
+        _ACTIVE[0] = previous
+
+
+def current_tp() -> Optional[OverlapSpec]:
+    """The active :class:`OverlapSpec`, or None."""
+    return _ACTIVE[0]
+
+
+# -- the wire and the transport ----------------------------------------------------
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def _note(name: str, ring: bool) -> None:
+    calls = STATS["calls"].setdefault(name, {"ring": 0, "bulk": 0})
+    calls["ring" if ring else "bulk"] += 1
+
+
+def _wait(work) -> None:
+    t0 = time.perf_counter()
+    work.wait()
+    STATS["wait_s"] += time.perf_counter() - t0
+
+
+def _sent(t: torch.Tensor, copies: int = 1) -> None:
+    STATS["wire_bytes"] += t.numel() * t.element_size() * copies
+
+
+def _narrow(spec: OverlapSpec, t: torch.Tensor) -> torch.Tensor:
+    """A gradient payload in the wire dtype (never widened)."""
+    wd = spec.wire_dtype()
+    if wd is None or wd.itemsize >= t.element_size():
+        return t
+    return t.to(wd)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A 2-byte float payload as its bytes (a relayout moves bits; gloo
+    takes no 16-bit integer type): the last dim doubles."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+def _unbits(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t.view(dtype) if t.dtype == torch.uint8 and dtype != torch.uint8 else t
+
+
+def _use_ring(spec: OverlapSpec, shard_bytes: int) -> bool:
+    return ring_lib.use_ring(shard_bytes, spec.mode, spec.min_ring_bytes)
+
+
+def _all_gather(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's shards of ``t`` laid end to end on ``dim``, in
+    model-coordinate order (one bulk all-gather)."""
+    dim = dim % t.dim()
+    src = _bits(t.movedim(dim, 0))
+    out = torch.empty((spec.tp_size * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    _sent(src, spec.tp_size - 1)
+    _wait(_dist().all_gather_into_tensor(out, src, group=spec.group, async_op=True))
+    return _unbits(out, t.dtype).movedim(0, dim)
+
+
+def _own(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``t`` on ``dim`` (no communication)."""
+    return t.chunk(spec.tp_size, dim)[spec.index].contiguous()
+
+
+class _Hop:
+    """One ring hop started: send ``t`` to the next rank and receive the
+    previous rank's chunk of the same shape; :meth:`wait` returns it. Gloo's
+    point-to-point ops take host tensors only (a CUDA pointer reaches its
+    socket write and breaks the pair), so over gloo a CUDA chunk crosses
+    through host memory, explicitly."""
+
+    def __init__(self, spec: OverlapSpec, t: torch.Tensor) -> None:
+        dist = _dist()
+        n, d = spec.tp_size, spec.index
+        self.dtype, self.device = t.dtype, t.device
+        payload = _bits(t)
+        if payload.is_cuda and dist.get_backend(spec.group) == "gloo":
+            if not STATS["staged"]:
+                STATS["staged"] = True
+                logger.warning("tensor parallelism: gloo takes no point-to-point CUDA tensors; "
+                               "the ring's hops are staged through host memory")
+            payload = payload.cpu()
+        self.buf = torch.empty_like(payload)
+        _sent(payload)
+        ops = [dist.P2POp(dist.isend, payload, spec.ranks[(d + 1) % n], group=spec.group),
+               dist.P2POp(dist.irecv, self.buf, spec.ranks[(d - 1) % n], group=spec.group)]
+        self.works = dist.batch_isend_irecv(ops)
+
+    def wait(self) -> torch.Tensor:
+        for work in self.works:
+            _wait(work)
+        out = _unbits(self.buf, self.dtype)
+        return out.to(self.device) if out.device != self.device else out
+
+
+def _ring_gather(spec: OverlapSpec, chunk: torch.Tensor, on_chunk) -> list:
+    """Drive the all-gather ring: ``on_chunk(j, chunk)`` for every global
+    chunk ``j`` as it arrives (each product overlaps the next hop);
+    returns the chunks in global order."""
+    n, d = spec.tp_size, spec.index
+    arrival = []
+    for s in range(n):
+        hop = _Hop(spec, chunk) if s < n - 1 else None
+        arrival.append(chunk)
+        on_chunk((d - s) % n, chunk)
+        if hop is not None:
+            chunk = hop.wait()
+    return [arrival[i] for i in ring_lib.gather_order(d, n)]
+
+
+def _ring_reduce_scatter(spec: OverlapSpec, chunk_of, acc_dtype, wire: bool) -> torch.Tensor:
+    """The ring reduce-scatter: ``chunk_of(j)`` is this rank's partial for
+    global chunk ``j``, computed while the accumulator is on the wire; the
+    accumulator crosses in the wire dtype when ``wire`` and adds in
+    ``acc_dtype``. Returns this rank's summed chunk."""
+    n, d = spec.tp_size, spec.index
+    acc = chunk_of(ring_lib.rs_seed_index(d, n)).to(acc_dtype)
+    for s in range(1, n):
+        hop = _Hop(spec, _narrow(spec, acc) if wire else acc)
+        mine = chunk_of(ring_lib.rs_chunk_index(d, s, n)).to(acc_dtype)
+        acc = hop.wait().to(acc_dtype) + mine
+    return acc
+
+
+def _bulk_reduce_scatter(spec: OverlapSpec, t: torch.Tensor, wire: bool) -> torch.Tensor:
+    """``(B, T, ...)`` partials -> this rank's ``(B, T/n, ...)`` sum: the
+    ``n`` chunks cross as one all-to-all (in the wire dtype when ``wire``)
+    and are summed locally in ``t``'s dtype, in rank order."""
+    n = spec.tp_size
+    chunks = torch.stack(t.chunk(n, 1))                      # (n, B, T/n, ...)
+    payload = _bits(_narrow(spec, chunks) if wire else chunks)
+    out = torch.empty_like(payload)
+    _sent(payload, (n - 1) / n)
+    _wait(_dist().all_to_all_single(out, payload, group=spec.group, async_op=True))
+    pieces = _unbits(out, (_narrow(spec, chunks) if wire else chunks).dtype).to(t.dtype)
+    acc = pieces[0]
+    for piece in pieces[1:]:
+        acc = acc + piece
+    return acc
+
+
+def _reduce_scatter(spec, name, chunk_of, full, dtype, wire, chunk_bytes):
+    """Ring (``chunk_of``) or bulk (``full()``) reduce-scatter by size."""
+    ring = _use_ring(spec, chunk_bytes)
+    _note(name, ring)
+    if ring:
+        return _ring_reduce_scatter(spec, chunk_of, dtype, wire)
+    return _bulk_reduce_scatter(spec, full(), wire)
+
+
+def _gather_with(spec, name, t, wire, on_chunk=None):
+    """All-gather ``t`` on dim 1 (in the wire dtype when ``wire``), ring or
+    bulk by the chunk's size -> ``(gathered in t's dtype, ring)``. On the
+    ring ``on_chunk(j, chunk)`` sees each global chunk as it arrives, so
+    its product overlaps the next hop."""
+    payload = _narrow(spec, t) if wire else t
+    ring = _use_ring(spec, payload.numel() * payload.element_size())
+    _note(name, ring)
+    if ring:
+        def widen(j, c):
+            if on_chunk is not None:
+                on_chunk(j, c.to(t.dtype))
+
+        return torch.cat(_ring_gather(spec, payload, widen), 1).to(t.dtype), True
+    return _all_gather(spec, payload, 1).to(t.dtype), False
+
+
+# -- all_gather_matmul -----------------------------------------------------------------
+
+
+class _AllGatherMatmul(torch.autograd.Function):
+    """``tuple(gather_seq(x) @ w for w in ws)`` with one shared gather; the
+    backward reduce-scatters ``Σ dy_i @ w_iᵀ`` onto the sequence shards at
+    the wire dtype, and each ``dw_i`` is local (complete for this rank's
+    columns of its data stripe)."""
+
+    @staticmethod
+    def forward(ctx, spec, x, *ws):
+        parts = [[None] * spec.tp_size for _ in ws]
+
+        def on_chunk(j, chunk):
+            for i, w in enumerate(ws):
+                parts[i][j] = chunk @ w
+
+        xg, ring = _gather_with(spec, "all_gather_matmul", x, False, on_chunk)
+        ctx.spec = spec
+        ctx.save_for_backward(xg, *ws)
+        if ring:
+            return tuple(torch.cat(p, 1) for p in parts)
+        return tuple(xg @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        spec = ctx.spec
+        xg, *ws = ctx.saved_tensors
+        dys = [torch.zeros(xg.shape[:2] + (w.shape[1],), dtype=xg.dtype, device=xg.device)
+               if dy is None else dy for dy, w in zip(dys, ws)]
+        n, t = spec.tp_size, xg.shape[1]
+        tc = t // n
+
+        def chunk_of(j):
+            sl = slice(j * tc, (j + 1) * tc)
+            out = None
+            for dy, w in zip(dys, ws):
+                term = dy[:, sl] @ w.t()
+                out = term if out is None else out + term
+            return out
+
+        dx = _reduce_scatter(spec, "all_gather_matmul.bwd", chunk_of,
+                             lambda: torch.cat([chunk_of(j) for j in range(n)], 1), xg.dtype,
+                             True, xg.shape[0] * tc * xg.shape[2] * xg.element_size())
+        k = xg.shape[-1]
+        dws = [xg.reshape(-1, k).t() @ dy.reshape(-1, dy.shape[-1]) for dy in dys]
+        return (None, dx, *dws)
+
+
+def all_gather_matmul(spec: OverlapSpec, x: torch.Tensor, ws: Sequence[torch.Tensor]):
+    """``x`` ``(B, T/n, K)`` this rank's sequence shard, each ``w`` ``(K,
+    F/n)`` its column shard -> ``tuple`` of ``(B, T, F/n)``: one gather
+    (ring above the threshold, else bulk) feeding every product."""
+    return _AllGatherMatmul.apply(spec, x, *ws)
+
+
+# -- matmul_reduce_scatter ---------------------------------------------------------------
+
+
+class _MatmulReduceScatter(torch.autograd.Function):
+    """``reduce_scatter_seq(x @ w) (+ bias)``: the forward sums at the
+    activation dtype; the backward gathers ``dy`` at the wire dtype and
+    computes ``dx``, ``dw`` and the bias gradient from the one gathered
+    copy (the bias gradient is then complete on every rank)."""
+
+    @staticmethod
+    def forward(ctx, spec, x, w, bias):
+        n, t = spec.tp_size, x.shape[1]
+        tc = t // n
+
+        def chunk_of(j):
+            return x[:, j * tc:(j + 1) * tc] @ w
+
+        out = _reduce_scatter(spec, "matmul_reduce_scatter", chunk_of, lambda: x @ w, x.dtype,
+                              False, x.shape[0] * tc * w.shape[1] * x.element_size())
+        if bias is not None:
+            out = out + bias
+        ctx.spec, ctx.bias_dtype = spec, None if bias is None else bias.dtype
+        ctx.save_for_backward(x, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        spec = ctx.spec
+        x, w = ctx.saved_tensors
+        parts = [None] * spec.tp_size
+
+        def on_chunk(j, chunk):
+            parts[j] = chunk @ w.t()
+
+        dy_full, ring = _gather_with(spec, "matmul_reduce_scatter.bwd", dy.contiguous(), True,
+                                     on_chunk)
+        dx = torch.cat(parts, 1) if ring else dy_full @ w.t()
+        dw = x.reshape(-1, x.shape[-1]).t() @ dy_full.reshape(-1, dy_full.shape[-1])
+        db = None
+        if ctx.bias_dtype is not None:
+            db = dy_full.sum((0, 1)).to(ctx.bias_dtype)
+        return None, dx, dw, db
+
+
+def matmul_reduce_scatter(spec: OverlapSpec, x: torch.Tensor, w: torch.Tensor, bias=None):
+    """``x`` ``(B, T, K/n)`` this rank's column shard, ``w`` ``(K/n, D)``
+    its row shard -> ``(B, T/n, D)`` summed over the group (ring or bulk),
+    plus the replicated ``bias`` once, after the sum."""
+    return _MatmulReduceScatter.apply(spec, x, w, bias)
+
+
+# -- fused-QKV weight views ---------------------------------------------------------------
+
+
+class _QKVViews(torch.autograd.Function):
+    """The contiguous column shard of a fused ``[q | k | v]`` weight (bias
+    riding as a last row) -> this rank's head-aligned q, k, v columns: one
+    all-gather forward; the backward places the three gradients in the
+    full width and returns each rank its contiguous columns by one
+    all-to-all (each column has one contributor: placement, not
+    arithmetic)."""
+
+    @staticmethod
+    def forward(ctx, spec, fused, hw, kvw):
+        n, d = spec.tp_size, spec.index
+        full = _all_gather(spec, fused, 1)
+        _note("qkv_fused_views", False)
+        hq, hkv = hw // n, kvw // n
+        ctx.spec, ctx.hw, ctx.kvw, ctx.rows = spec, hw, kvw, fused.shape[0]
+        return (full[:, d * hq:(d + 1) * hq].contiguous(),
+                full[:, hw + d * hkv:hw + (d + 1) * hkv].contiguous(),
+                full[:, hw + kvw + d * hkv:hw + kvw + (d + 1) * hkv].contiguous())
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        spec, hw, kvw = ctx.spec, ctx.hw, ctx.kvw
+        n, d = spec.tp_size, spec.index
+        hq, hkv = hw // n, kvw // n
+        like = next(g for g in (dq, dk, dv) if g is not None)
+        full = torch.zeros((ctx.rows, hw + 2 * kvw), dtype=like.dtype, device=like.device)
+        for g, lo, width in ((dq, d * hq, hq), (dk, hw + d * hkv, hkv),
+                             (dv, hw + kvw + d * hkv, hkv)):
+            if g is not None:
+                full[:, lo:lo + width] = g
+        chunks = torch.stack(full.chunk(n, 1))                  # (n, rows, W/n)
+        out = torch.empty_like(_bits(chunks))
+        _sent(chunks, (n - 1) / n)
+        _wait(_dist().all_to_all_single(out, _bits(chunks), group=spec.group, async_op=True))
+        pieces = _unbits(out, chunks.dtype)
+        acc = pieces[0]
+        for piece in pieces[1:]:
+            acc = acc + piece
+        return None, acc, None, None
+
+
+def qkv_fused_views(spec: OverlapSpec, w: torch.Tensor, b, hw: int, kvw: int):
+    """Head-aligned views of a fused ``[q | k | v]`` projection: ``w``
+    ``(D, (hw + 2 kvw)/n)`` and ``b`` (or None) this rank's contiguous
+    column shards -> ``(wq, wk, wv, bq, bk, bv)``, this rank's ``hw/n``
+    query and ``kvw/n`` key and value columns (biases None without ``b``)."""
+    fused = w if b is None else torch.cat([w, b[None, :]], 0)
+    wq, wk, wv = _QKVViews.apply(spec, fused, hw, kvw)
+    if b is None:
+        return wq, wk, wv, None, None, None
+    return wq[:-1], wk[:-1], wv[:-1], wq[-1], wk[-1], wv[-1]
+
+
+# -- embeddings ------------------------------------------------------------------------------
+
+
+def _vocab_rows(spec: OverlapSpec, table: torch.Tensor, tokens: torch.Tensor):
+    """This rank's rows of its vocab shard for ``tokens`` (zero where the
+    token lies in another shard), and the local ids and their mask."""
+    vl = table.shape[0]
+    ids = tokens.long() - spec.index * vl
+    valid = (ids >= 0) & (ids < vl)
+    rows = table[ids.clamp(0, vl - 1)]
+    return torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device)), ids, valid
+
+
+def _scatter_rows(table_like: torch.Tensor, ids, valid, dy: torch.Tensor) -> torch.Tensor:
+    """The vocab shard's gradient: ``dy``'s rows added at their local ids."""
+    vl, width = table_like.shape
+    upd = torch.where(valid[..., None], dy.to(table_like.dtype),
+                      torch.zeros((), dtype=table_like.dtype, device=dy.device))
+    out = torch.zeros((vl, width), dtype=table_like.dtype, device=dy.device)
+    return out.index_add_(0, ids.clamp(0, vl - 1).reshape(-1), upd.reshape(-1, width))
+
+
+class _EmbedSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, table, tokens, compute_dtype):
+        rows, ids, valid = _vocab_rows(spec, table, tokens)
+        if compute_dtype is not None:
+            rows = rows.to(compute_dtype)
+        _note("embed_lookup_sharded", False)
+        out = _bulk_reduce_scatter(spec, rows, False)
+        ctx.spec = spec
+        ctx.save_for_backward(table, ids, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        table, ids, valid = ctx.saved_tensors
+        dfull, _ = _gather_with(ctx.spec, "embed_lookup_sharded.bwd", dy.contiguous(), True)
+        return None, _scatter_rows(table, ids, valid, dfull), None, None
+
+
+def embed_lookup_sharded(spec: OverlapSpec, table: torch.Tensor, tokens: torch.Tensor,
+                         compute_dtype=None) -> torch.Tensor:
+    """Vocab-parallel lookup onto the sequence shards: ``table`` ``(V/n,
+    D)`` this rank's vocab shard, ``tokens`` ``(B, T)`` the whole sequence
+    -> ``(B, T/n, D)``. Each rank's masked rows reduce-scatter (one
+    contributor per row: exact) in ``compute_dtype`` when given; the
+    backward gathers ``dy`` at the wire dtype and scatters its rows."""
+    return _EmbedSharded.apply(spec, table, tokens, compute_dtype)
+
+
+class _VocabLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, table, tokens):
+        rows, ids, valid = _vocab_rows(spec, table, tokens)
+        rows = rows.contiguous()
+        _note("vocab_lookup", False)
+        _sent(rows)
+        _wait(_dist().all_reduce(rows, group=spec.group, async_op=True))
+        ctx.save_for_backward(table, ids, valid)
+        return rows
+
+    @staticmethod
+    def backward(ctx, dy):
+        table, ids, valid = ctx.saved_tensors
+        return None, _scatter_rows(table, ids, valid, dy), None
+
+
+def vocab_lookup(spec: OverlapSpec, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """A vocab-sharded table's lookup, whole on every rank (``(B, T, D)``):
+    the masked rows summed over the group (exact). For a replicated
+    computation downstream (GPT-2's learned positions before
+    :func:`seq_shard`): the backward scatters the rank's rows of the
+    complete ``dy``, with no collective."""
+    return _VocabLookup.apply(spec, table, tokens)
+
+
+# -- relayouts ---------------------------------------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, t, dim, name):
+        ctx.spec, ctx.dim = spec, dim
+        _note(name, False)
+        return _all_gather(spec, t, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _own(ctx.spec, dy, ctx.dim), None, None
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, t, dim):
+        ctx.spec, ctx.dim, ctx.dtype = spec, dim, t.dtype
+        return _own(spec, t, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        spec = ctx.spec
+        _note("seq_shard.bwd", False)
+        full = _all_gather(spec, _narrow(spec, dy), ctx.dim).to(ctx.dtype)
+        return None, full, None
+
+
+def seq_all_gather(spec: OverlapSpec, x: torch.Tensor) -> torch.Tensor:
+    """``(B, T/n, ...)`` sequence shards -> ``(B, T, ...)`` on every rank
+    (a relayout: the backward keeps this rank's rows of the complete
+    gradient, with no collective)."""
+    return _Gather.apply(spec, x, 1, "seq_all_gather")
+
+
+def seq_shard(spec: OverlapSpec, x: torch.Tensor) -> torch.Tensor:
+    """``(B, T, ...)``, the same on every rank -> this rank's ``(B, T/n,
+    ...)`` rows (no communication); the backward gathers the gradient at
+    the wire dtype."""
+    return _Slice.apply(spec, x, 1)
+
+
+def gather_replicated(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A shard on ``dim`` -> the whole tensor on every rank, for a
+    computation repeated on every rank of the group (a vocab-sharded head
+    under the fused loss, the vocab-sharded logits for the loss): the
+    backward keeps this rank's part of the complete gradient."""
+    return _Gather.apply(spec, t, dim, "gather_replicated")

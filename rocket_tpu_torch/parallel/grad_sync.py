@@ -1,5 +1,6 @@
 """Bucketed asynchronous gradient reduction over the data axis
-(counterpart of ``rocket_tpu/parallel/grad_sync.py``).
+(counterpart of ``rocket_tpu/parallel/grad_sync.py``), the one reduction
+every multi-rank train step goes through.
 
 The reference runs the backward inside a manual data region, where the
 gradients are still per-device partials, and reduces them itself; here
@@ -17,12 +18,19 @@ reduces them over the process group as the backward retires them:
   backward retires them), and each bucket's all-reduce is issued
   ``async_op=True`` from the hook of its last leaf. An all-reduce computes
   the same function as the reference's reduce-scatter + all-gather pair;
+* **tensor parallelism** (a ``model`` axis): a leaf sharded over the model
+  axis is held as this rank's shard and reduces over the data group only,
+  like a replicated one. A replicated leaf whose gradient is a partial sum
+  over the sequence shards (``partial``: the norms under sequence
+  parallelism, which GSPMD sums for the reference) reduces over every rank
+  instead: the sum over the model group and the mean over the data group
+  in one all-reduce of its own buckets;
 * **wire precision**: payloads cross at ``wire_dtype`` (bf16 by default)
   while params stay f32 masters, and every bucket gets the **f32
   bucket-sum correction**: each bucket's true f32 sum rides one stacked
-  scalar all-reduce per step, and the wire-rounded bucket is shifted so
-  its sum is that true sum. Under ``wire_dtype=None`` nothing narrows and
-  the result is a plain f32 mean all-reduce.
+  scalar all-reduce per step and group, and the wire-rounded bucket is
+  shifted so its sum is that true sum. Under ``wire_dtype=None`` nothing
+  narrows and the result is a plain f32 mean all-reduce.
 
 Collectives are issued in one order on every rank, whatever order the
 backward retires the leaves in: a finished bucket waits for the ones
@@ -39,11 +47,15 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["bucket_plan", "shard_dims", "gather_full", "GradSync", "plain_reduce",
+__all__ = ["bucket_plan", "shard_layout", "shard_dims", "gather_full", "GradSync",
            "NOT_PORTED"]
 
-#: What a spec naming a non-data axis, or a mesh with one, points to.
+#: What a spec naming an unported axis points to.
 NOT_PORTED = "ROADMAP Queue A 6"
+
+#: The ROADMAP Queue A 6 item of each unported mesh axis.
+AXIS_ITEMS = {"pipe": "pipeline parallelism (item 3)", "seq": "ring attention (item 4)",
+               "expert": "expert parallelism (item 5)"}
 
 
 def _itemsize(dtype) -> int:
@@ -80,33 +92,49 @@ def bucket_plan(leaves: Sequence, bucket_bytes: int) -> list:
     return buckets
 
 
-def shard_dims(named_leaves, spec_fn, world: int, data_axes=("data",)) -> list:
-    """Per ``(path tuple, leaf)``: the dim the rule set ``spec_fn`` shards
-    the leaf on over the data axes, or None (replicated: no rule, no spec,
-    one rank, or a dim that does not divide over the ranks, as the
-    reference falls back). A spec naming any other axis raises."""
-    dims = []
+def shard_layout(named_leaves, spec_fn, mesh: dict, data_axes=("data",),
+                 model_axis: str = "model") -> list:
+    """Per ``(path tuple, leaf)``: ``(dim, axis)``, the dim the rule set
+    ``spec_fn`` shards the leaf on and the mesh axis (a data axis or
+    ``model_axis``), or None (replicated: no rule, no spec, an axis of size
+    1, or a dim that does not divide over it, as the reference falls back).
+    A spec naming another axis, an axis the mesh lacks, or two axes on one
+    leaf raises."""
+    out = []
     for path, leaf in named_leaves:
         spec = spec_fn(tuple(path), leaf) if spec_fn is not None else None
-        dim = None
+        found = []
         for d, entry in enumerate(spec or ()):
             if entry is None:
                 continue
-            axes = entry if isinstance(entry, (tuple, list)) else (entry,)
-            foreign = [a for a in axes if a not in data_axes]
-            if foreign:
-                raise NotImplementedError(
-                    f"param_sharding: {'/'.join(path)} is sharded over {foreign}: only the data "
-                    f"axes {tuple(data_axes)} are ported, tensor, expert and pipeline "
-                    f"parallelism are not yet ({NOT_PORTED})")
-            if dim is not None:
-                raise NotImplementedError(f"param_sharding: {'/'.join(path)} names the data axis "
-                                          "on two dims")
-            dim = d
-        if dim is not None and (world <= 1 or leaf.shape[dim] % world):
-            dim = None
-        dims.append(dim)
-    return dims
+            for axis in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+                name = "/".join(path)
+                if axis not in data_axes and axis != model_axis:
+                    raise NotImplementedError(
+                        f"param_sharding: {name} is sharded over {axis!r}: "
+                        f"{AXIS_ITEMS.get(axis, 'that axis')} is not ported yet ({NOT_PORTED})")
+                if axis not in mesh:
+                    raise NotImplementedError(
+                        f"param_sharding: {name} is sharded over {axis!r}, which the mesh "
+                        f"{dict(mesh)} lacks (tensor parallelism, {NOT_PORTED} item 1, needs "
+                        "mesh_shape={'data': d, 'model': m})")
+                found.append((d, axis))
+        if len(found) > 1:
+            raise NotImplementedError(f"param_sharding: {'/'.join(path)} names {len(found)} "
+                                      "mesh axes; the port shards a leaf over one axis")
+        layout = found[0] if found else None
+        if layout is not None:
+            n = int(mesh[layout[1]])
+            if n <= 1 or leaf.shape[layout[0]] % n:
+                layout = None
+        out.append(layout)
+    return out
+
+
+def shard_dims(named_leaves, spec_fn, world: int, data_axes=("data",)) -> list:
+    """:func:`shard_layout`'s dims over a data-only mesh of ``world`` ranks."""
+    return [None if lay is None else lay[0]
+            for lay in shard_layout(named_leaves, spec_fn, {data_axes[0]: world}, data_axes)]
 
 
 def _front(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -151,63 +179,53 @@ def _unfront(received: torch.Tensor, dim: int, dtype, world: int) -> torch.Tenso
     return out.movedim(0, dim).contiguous() if dim else out
 
 
-def plain_reduce(grads: list, dims: list, world: int, loss: torch.Tensor, group=None):
-    """The reduction outside the bucketed gate (GSPMD's): an f32 mean
-    all-reduce per replicated leaf, a mean reduce-scatter per sharded one,
-    in param order; returns ``(grads, global mean loss)``."""
-    import torch.distributed as dist
-
-    works, outs = [], []
-    for g, dim in zip(grads, dims):
-        if dim is None:
-            payload = g / world
-            works.append(dist.all_reduce(payload, group=group, async_op=True))
-        else:
-            payload, work = _scatter(g, dim, world, None, group)
-            works.append(work)
-        outs.append(payload)
-    total = (loss.float() / world).reshape(1)
-    works.append(dist.all_reduce(total, group=group, async_op=True))
-    for work in works:
-        work.wait()
-    out = [p if dim is None else _unfront(p, dim, g.dtype, world)
-           for p, g, dim in zip(outs, grads, dims)]
-    return out, total[0]
-
-
 class GradSync:
     """The bucketed reduction of one param list: ``shapes`` and ``dtypes``
-    of the leaves as the backward sees them (whole), ``dims`` their shard
-    dims (:func:`shard_dims`). Per step, :meth:`begin` hooks the leaves
-    the backward differentiates, and :meth:`finish` takes the backward's
+    of the leaves as the backward sees them (whole, or this rank's model
+    shard), ``dims`` their data-axis shard dims (:func:`shard_layout`),
+    ``world`` the data ranks (the mean's divisor) over ``group``, and
+    ``partial`` which replicated leaves reduce over every rank instead.
+    Per step, :meth:`begin` hooks the leaves the backward differentiates,
+    and :meth:`finish` takes the backward's
     gradients and the local loss and returns the reduced gradients (shard
-    shaped where sharded) and the global mean loss.
+    shaped where sharded) and the global mean loss. One data rank reduces
+    nothing but the partial leaves.
 
     ``stats`` after a step: ``buckets`` and ``wire_bytes`` (the payload
     bytes a rank sends into its collectives per step) and ``wait_s`` (host
     seconds spent waiting on the handles)."""
 
     def __init__(self, shapes: Sequence, dtypes: Sequence, dims: Sequence, world: int,
-                 group=None, bucket_bytes: int = 4 << 20, wire_dtype="bfloat16") -> None:
-        if world < 2:
-            raise ValueError("GradSync: needs at least two ranks")
+                 group=None, bucket_bytes: int = 4 << 20, wire_dtype="bfloat16",
+                 partial: Optional[Sequence[bool]] = None) -> None:
         self.world = int(world)
         self.group = group
         self.dims = list(dims)
         self.shapes = [tuple(s) for s in shapes]
         self.dtypes = list(dtypes)
+        self.partial = list(partial) if partial is not None else [False] * len(self.dims)
+        if self.world < 2 and not any(self.partial):
+            raise ValueError("GradSync: nothing to reduce on one data rank without partial "
+                             "leaves")
         self.wire = None if wire_dtype is None else (
             wire_dtype if isinstance(wire_dtype, torch.dtype) else getattr(torch, str(wire_dtype)))
 
+        def plan(indices):
+            return bucket_plan([(i, torch.empty(self.shapes[i], dtype=self.dtypes[i],
+                                                device="meta")) for i in reversed(indices)],
+                               bucket_bytes)
+
         repl = [i for i, d in enumerate(self.dims) if d is None]
-        self.buckets = bucket_plan([(i, torch.empty(self.shapes[i], dtype=self.dtypes[i],
-                                                    device="meta"))
-                                    for i in reversed(repl)], bucket_bytes)
-        units = [list(b) for b in self.buckets] + [[i] for i, d in enumerate(self.dims)
-                                                   if d is not None]
+        data = plan([i for i in repl if not self.partial[i]]) if self.world > 1 else []
+        part = plan([i for i in repl if self.partial[i]])
+        self.buckets = data + part
+        kinds = ([(list(b), "data") for b in data] + [(list(b), "partial") for b in part]
+                 + [([i], "scatter") for i, d in enumerate(self.dims) if d is not None])
         # Issue order: reverse param order of each unit's first (last
         # declared) leaf, the same on every rank.
-        self.units = sorted(units, key=lambda u: -u[0])
+        kinds.sort(key=lambda u: -u[0][0])
+        self.units = [u for u, _ in kinds]
+        self.kinds = [k for _, k in kinds]
         self._unit_of = {i: k for k, unit in enumerate(self.units) for i in unit}
         self.stats = {"buckets": len(self.buckets), "wire_bytes": 0, "wait_s": 0.0}
         self._reset()
@@ -235,8 +253,9 @@ class GradSync:
     def _on_grad(self, i: int, grad: torch.Tensor) -> None:
         if self._grads[i] is None:
             self._grads[i] = grad
-            self._left[self._unit_of[i]] -= 1
-            self._issue_ready()
+            if i in self._unit_of:
+                self._left[self._unit_of[i]] -= 1
+                self._issue_ready()
 
     def _issue_ready(self) -> None:
         while self._next < len(self.units) and self._left[self._next] == 0:
@@ -248,7 +267,7 @@ class GradSync:
 
         unit = self.units[k]
         first = unit[0]
-        if self.dims[first] is not None:
+        if self.kinds[k] == "scatter":
             out, work = _scatter(self._grads[first], self.dims[first], self.world, self.wire,
                                  self.group)
             self.stats["wire_bytes"] += out.numel() * out.element_size()
@@ -262,7 +281,8 @@ class GradSync:
         else:
             payload = flat
         self.stats["wire_bytes"] += payload.numel() * payload.element_size()
-        work = dist.all_reduce(payload, group=self.group, async_op=True)
+        group = None if self.kinds[k] == "partial" else self.group
+        work = dist.all_reduce(payload, group=group, async_op=True)
         self._pending[k] = (payload, work, true_sum)
 
     def finish(self, grads: Sequence[Optional[torch.Tensor]], loss: torch.Tensor):
@@ -278,34 +298,46 @@ class GradSync:
             if self._grads[i] is None:  # unused leaf, or hooked on no leaf
                 self._grads[i] = (g if g is not None else torch.zeros(
                     self.shapes[i], dtype=self.dtypes[i], device=loss.device))
-                self._left[self._unit_of[i]] -= 1
+                if i in self._unit_of:
+                    self._left[self._unit_of[i]] -= 1
         self._issue_ready()
-        sums = [p[2] for p in self._pending if p[2] is not None]
-        stacked = torch.stack(sums + [loss.float() / self.world])
-        scalar_work = dist.all_reduce(stacked, group=self.group, async_op=True)
+        # The f32 bucket sums and the loss, one stacked all-reduce per group.
+        scalars = {"data": [], "partial": []}
+        for kind, (_, _, true_sum) in zip(self.kinds, self._pending):
+            if true_sum is not None:
+                scalars[kind].append(true_sum)
+        works = []
+        stacked = {}
+        if self.world > 1:
+            stacked["data"] = torch.stack(scalars["data"] + [loss.float() / self.world])
+            works.append(dist.all_reduce(stacked["data"], group=self.group, async_op=True))
+        if scalars["partial"]:
+            stacked["partial"] = torch.stack(scalars["partial"])
+            works.append(dist.all_reduce(stacked["partial"], async_op=True))
         t0 = time.perf_counter()
         for _, work, _ in self._pending:
             work.wait()
-        scalar_work.wait()
+        for work in works:
+            work.wait()
         self.stats["wait_s"] = time.perf_counter() - t0
-        out: list = [None] * len(self.shapes)
-        s = 0
-        for unit, (payload, _, true_sum) in zip(self.units, self._pending):
+        out: list = [g if i not in self._unit_of else None for i, g in enumerate(self._grads)]
+        seen = {"data": 0, "partial": 0}
+        for unit, kind, (payload, _, true_sum) in zip(self.units, self.kinds, self._pending):
             first = unit[0]
-            if self.dims[first] is not None:
+            if kind == "scatter":
                 out[first] = _unfront(payload, self.dims[first], self.dtypes[first], self.world)
                 continue
             full = payload.to(self.dtypes[first])
             if true_sum is not None:
                 # The f32 bucket-sum correction: shift the wire-rounded
                 # bucket so that its sum is the true f32 sum.
-                delta = (stacked[s] - full.sum(dtype=torch.float32)) / full.numel()
+                delta = (stacked[kind][seen[kind]] - full.sum(dtype=torch.float32)) / full.numel()
                 full = full + delta.to(full.dtype)
-                s += 1
+                seen[kind] += 1
             offset = 0
             for i in unit:
                 size = _numel(self.shapes[i])
                 out[i] = full[offset:offset + size].reshape(self.shapes[i])
                 offset += size
         self._reset()
-        return out, stacked[-1]
+        return out, (stacked["data"][-1] if self.world > 1 else loss)

@@ -6,11 +6,11 @@ A rule set is a list of ``(glob_pattern, spec)`` pairs matched against the
 '/'-joined param path, first match wins; a spec is a tuple naming, per
 dim, the mesh axis that dim is split over (or None). Pass the resulting
 function as ``Module(..., param_sharding=rule_fn)``. The port's Module
-applies specs over the data axis only (``fsdp_rules``, or a
-``make_rules`` table naming ``"data"``): a spec naming any other axis
-raises there, since tensor, expert and pipeline parallelism are not
-ported yet (ROADMAP Queue A 6). The builders for those axes are here all
-the same, as pure functions.
+applies specs over the data axis (``fsdp_rules``) and the model axis
+(``gpt2_tp_rules``, tensor parallelism); a spec naming another axis raises
+there, since expert and pipeline parallelism are not ported yet (ROADMAP
+Queue A 6 items 3 and 5). The builders for those axes are here all the
+same, as pure functions.
 """
 
 from __future__ import annotations

@@ -227,11 +227,50 @@ class IdentityRegistry:
         return [prepared for _, prepared in self._entries.values()]
 
 
-def _close_group() -> None:
+#: Seconds the closing barrier waits for the other ranks: past it a peer
+#: is taken as gone and the group closes without it.
+CLOSE_TIMEOUT_S = 10.0
+
+
+def _close_group(device_ids=None) -> None:
+    """Close the group this process's Runtime opened, collectively: a
+    barrier under :data:`CLOSE_TIMEOUT_S`, then every rank but the store's
+    host (rank 0) closes, and rank 0 closes last, once the others said so
+    through the store. A rank that closed its pairs while a peer still
+    used them could abort that peer (SIGABRT from gloo's or the store's
+    threads) after its work was done. A barrier that fails or times out (a
+    dead peer) closes at once, so the process keeps its own exit code."""
+    import datetime
+    import time
+
     import torch.distributed as dist
 
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    if not dist.is_initialized():
+        return
+    world, rank = dist.get_world_size(), dist.get_rank()
+    together = world > 1
+    if together:
+        try:
+            work = (dist.barrier(async_op=True, device_ids=device_ids) if device_ids
+                    else dist.barrier(async_op=True))
+            work.wait(timeout=datetime.timedelta(seconds=CLOSE_TIMEOUT_S))
+        except Exception:  # noqa: BLE001 — a dead peer; close alone
+            together = False
+    if together:
+        try:
+            store = dist.distributed_c10d._get_default_store()
+            if rank:
+                store.add("rocket_tpu_torch/closed", 1)
+            else:
+                deadline = time.monotonic() + CLOSE_TIMEOUT_S
+                while (store.add("rocket_tpu_torch/closed", 0) < world - 1
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+                # The others' sockets close after their word.
+                time.sleep(0.05)
+        except Exception:  # noqa: BLE001 — the store's host is gone
+            pass
+    dist.destroy_process_group()
 
 
 class Runtime:
@@ -246,13 +285,19 @@ class Runtime:
     ``python -m rocket_tpu_torch.launch`` sets them, with ``RANK`` and
     ``LOCAL_RANK``), one is opened: NCCL on a CUDA device, gloo on the CPU.
     Without either the Runtime is one process. ``mesh_shape`` (default
-    ``{"data": world size}``) must cover the ranks, one device each, and
-    builds the ``DeviceMesh`` (``device_mesh``); an axis other than the
-    data axes that is larger than 1 raises (tensor, pipeline and expert
-    parallelism are ROADMAP Queue A 6). Each rank holds its stripe of the
-    global batch (:meth:`shard_batch`) and starts from the same params,
-    made from the same seed. :meth:`wait_for_everyone` is a barrier over
-    every rank.
+    ``{"data": world size}``; the axes ``data`` and ``model``, in the
+    reference's order, the last axis fastest) must cover the ranks, one
+    device each, and builds the ``DeviceMesh`` (``device_mesh``); with a
+    ``model`` axis larger than 1 every row of each axis also gets a
+    process group of its own (:meth:`axis_group`, :meth:`axis_ranks`,
+    :meth:`axis_index`; :attr:`data_index` is the rank's stripe). A
+    ``pipe``, ``seq`` or ``expert`` axis larger than 1 raises, naming its
+    ROADMAP Queue A 6 item. Each rank of one model group holds the same
+    stripe of the global batch (:meth:`shard_batch`) and every rank starts
+    from the same params, made from the same seed. :meth:`wait_for_everyone`
+    is a barrier over every rank. A group the Runtime opened closes
+    collectively at exit (:func:`_close_group`); one the caller opened
+    stays the caller's to close.
 
     ``device`` resolves through :func:`resolve_device` (CUDA unless
     ``"cpu"`` is asked for; ``cuda:LOCAL_RANK`` when the launcher set
@@ -303,6 +348,9 @@ class Runtime:
 
     #: The mesh axes a batch is split over (the reference's ``DATA_AXES``).
     DATA_AXES: tuple = ("data",)
+    #: The mesh axes the port lays out: the data axes and the model
+    #: (tensor-parallel) axis.
+    MESH_AXES: tuple = ("data", "model")
 
     def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
                  device_placement: bool = True, device_cache_bytes: int = 1 << 30,
@@ -441,31 +489,92 @@ class Runtime:
                                     init_method="env://", world_size=int(env["WORLD_SIZE"]),
                                     rank=int(env.get("RANK", "0")))
             self.grouped = True
-            # The group this Runtime opened closes before the interpreter's
-            # teardown, which can abort a process whose gloo group is open.
-            atexit.register(_close_group)
+            # The group this Runtime opened closes, collectively, before the
+            # interpreter's teardown, which can abort a process whose gloo
+            # group is open.
+            atexit.register(_close_group, [self.device.index or 0]
+                            if self.device.type == "cuda" else None)
         self._world = dist.get_world_size() if self.grouped else 1
         self._rank = dist.get_rank() if self.grouped else 0
         self.backend = dist.get_backend() if self.grouped else None
+        from rocket_tpu_torch.parallel.grad_sync import AXIS_ITEMS
+
         shape = dict(mesh_shape) if mesh_shape is not None else {"data": self._world}
         size = 1
         for axis, n in shape.items():
             size *= int(n)
-            if axis not in self.DATA_AXES and int(n) > 1:
+            if axis not in self.MESH_AXES and int(n) > 1:
                 raise NotImplementedError(
-                    f"Runtime: mesh axis {axis!r} of size {n}: only the data axes "
-                    f"{self.DATA_AXES} are ported, tensor, pipeline and expert parallelism "
-                    "are not yet (ROADMAP Queue A 6)")
+                    f"Runtime: mesh axis {axis!r} of size {n}: the port's mesh axes are "
+                    f"{self.MESH_AXES}; {AXIS_ITEMS.get(axis, 'this axis')} is not ported yet "
+                    "(ROADMAP Queue A 6)")
         if size != self._world:
             raise RuntimeError(f"Runtime: mesh_shape {shape} needs {size} ranks (one device "
                                f"each), the process group has {self._world}")
         self._mesh_shape = shape
+        # Mesh coordinates in the shape's axis order, the last axis fastest
+        # (the reference's device order): rank = data * model + model index.
+        self._coords, rest = {}, self._rank
+        for axis in reversed(list(shape)):
+            self._coords[axis] = rest % int(shape[axis])
+            rest //= int(shape[axis])
+        self._axis_groups: dict = {}
         self.device_mesh = None
         if self.grouped and self._world > 1:
             from torch.distributed.device_mesh import DeviceMesh
 
             self.device_mesh = DeviceMesh(self.device.type, torch.arange(self._world).reshape(
                 tuple(int(n) for n in shape.values())), mesh_dim_names=tuple(shape))
+            if int(shape.get("model", 1)) > 1:
+                self._init_axis_groups(dist)
+
+    def _init_axis_groups(self, dist) -> None:
+        """One process group per row of each axis larger than 1, every
+        rank taking part in every ``new_group`` in one order. The mesh's
+        own sub-groups are not used: torch hands out the default group
+        for an axis spanning every rank, which would put the model group's
+        collectives in one queue with the gradient reduction's."""
+        shape = self._mesh_shape
+        for axis, n in shape.items():
+            if int(n) <= 1:
+                continue
+            for ranks in self._rows(axis):
+                group = dist.new_group(ranks)
+                if self._rank in ranks:
+                    self._axis_groups[axis] = (group, tuple(ranks))
+
+    def _rows(self, axis: str) -> list:
+        """Every row of ``axis``: the global ranks that differ only in their
+        coordinate on it, in coordinate order."""
+        grid = torch.arange(self._world).reshape(tuple(int(n) for n in self._mesh_shape.values()))
+        dim = list(self._mesh_shape).index(axis)
+        return [row.tolist() for row in grid.movedim(dim, -1).reshape(-1, grid.shape[dim])]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on the mesh axis ``axis`` (0 off the mesh)."""
+        return int(self._coords.get(axis, 0))
+
+    def axis_ranks(self, axis: str) -> tuple:
+        """The global ranks of this rank's row of ``axis``, in coordinate order."""
+        if int(self._mesh_shape.get(axis, 1)) <= 1:
+            return (self._rank,)
+        if axis in self._axis_groups:
+            return self._axis_groups[axis][1]
+        return tuple(next(row for row in self._rows(axis) if self._rank in row))
+
+    def axis_owners(self, axis: str) -> tuple:
+        """The ranks that save the chunks of a leaf sharded over ``axis``:
+        the row of ``axis`` at coordinate 0 on every other axis."""
+        if int(self._mesh_shape.get(axis, 1)) <= 1:
+            return (0,)
+        return tuple(self._rows(axis)[0])
+
+    def axis_group(self, axis: str):
+        """The process group of this rank's row of ``axis``: its own group
+        under a model axis, else (a data-only mesh) the default group."""
+        if axis in self._axis_groups:
+            return self._axis_groups[axis][0]
+        return None
 
     @property
     def mesh(self) -> dict:
@@ -479,6 +588,16 @@ class Runtime:
         for axis in self.DATA_AXES:
             size *= int(self._mesh_shape.get(axis, 1))
         return size
+
+    @property
+    def model_axis_size(self) -> int:
+        return int(self._mesh_shape.get("model", 1))
+
+    @property
+    def data_index(self) -> int:
+        """This rank's stripe of the global batch: its data coordinate
+        (every rank of one model group reads the same rows)."""
+        return self.axis_index("data")
 
     @property
     def is_main_process(self) -> bool:

@@ -10,9 +10,10 @@ each package reads what the other writes, at any process count:
   (no pickle), and the main process writes the index, which is a pure
   function of the leaves' layouts, so no rank exchanges metadata: a whole
   tensor is one chunk owned by process 0; a :class:`ShardedLeaf` (one
-  rank's shard of a leaf split evenly on a dim) is one chunk per rank,
-  chunk ``j`` owned by process ``j``, as the reference lays out a leaf
-  sharded over the data axis. The reader assembles any chunk layout
+  rank's shard of a leaf split evenly on a dim) is one chunk per shard,
+  chunk ``j`` owned by process ``owners[j]`` (``j`` over a data-only
+  mesh; over a model axis the ranks at data coordinate 0, one writer per
+  model shard), as the reference lays out a sharded leaf. The reader assembles any chunk layout
   (the resharding restore): a checkpoint written by any number of
   processes, in either package, reads here.
 
@@ -64,14 +65,16 @@ def _shard_file(process: int) -> str:
 
 class ShardedLeaf:
     """One process's shard of a leaf of shape ``shape`` split evenly on
-    ``dim`` over ``count`` processes: ``local`` is shard ``index``. In a
-    tree given to :func:`snapshot` it is saved as ``count`` chunks."""
+    ``dim`` into ``count`` shards: ``local`` is shard ``index``. In a tree
+    given to :func:`snapshot` it is saved as ``count`` chunks, chunk ``j``
+    by process ``owners[j]`` (default ``j``)."""
 
-    __slots__ = ("local", "shape", "dim", "index", "count")
+    __slots__ = ("local", "shape", "dim", "index", "count", "owners")
 
-    def __init__(self, local, shape, dim: int, index: int, count: int) -> None:
+    def __init__(self, local, shape, dim: int, index: int, count: int, owners=None) -> None:
         self.local, self.shape, self.dim = local, tuple(int(d) for d in shape), int(dim)
         self.index, self.count = int(index), int(count)
+        self.owners = tuple(range(self.count)) if owners is None else tuple(int(o) for o in owners)
 
     def region(self, j: int) -> list:
         """``[lo, hi]`` per dim of shard ``j``."""
@@ -82,7 +85,7 @@ class ShardedLeaf:
     def zeros_like(self) -> "ShardedLeaf":
         local = (torch.zeros_like(self.local) if isinstance(self.local, torch.Tensor)
                  else np.zeros_like(self.local))
-        return ShardedLeaf(local, self.shape, self.dim, self.index, self.count)
+        return ShardedLeaf(local, self.shape, self.dim, self.index, self.count, self.owners)
 
 
 class HostFS:
@@ -192,11 +195,11 @@ def snapshot(tree: Any, process: int = 0) -> dict:
             arr = _to_numpy(name, leaf.local)
             index[name] = {
                 "kind": "array", "shape": list(leaf.shape), "dtype": arr.dtype.name,
-                "chunks": [{"file": _shard_file(j), "key": f"{name}:{j}",
+                "chunks": [{"file": _shard_file(leaf.owners[j]), "key": f"{name}:{j}",
                             "index": leaf.region(j)} for j in range(leaf.count)],
             }
-            if leaf.index == process:
-                local[f"{name}:{process}"] = arr
+            if leaf.owners[leaf.index] == process:
+                local[f"{name}:{leaf.index}"] = arr
         elif isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
             key = f"{name}:0"
             arr = _to_numpy(name, leaf) if process == 0 else None

@@ -31,7 +31,9 @@ the same bounds, plus two launches bitwise; so do bf16 ``gmm`` and row
 zero-pad to 128 (96, 80; 40 to 64), against their plain versions at the
 true D. The bucketed gradient reduction of ``parallel/grad_sync.py`` runs
 on CUDA tensors over a two-rank gloo group and equals the f32 all-reduce
-bitwise under ``wire_dtype=None``.
+bitwise under ``wire_dtype=None``; over such a group the tensor-parallel
+ring (its CUDA chunks staged through host memory) gives the bulk
+collectives' forward and gradients.
 """
 
 import pytest
@@ -1464,6 +1466,66 @@ def test_gloo_bucketed_reduction_on_cuda_equals_the_f32_all_reduce(cuda, tmp_pat
 
     script = tmp_path / "worker.py"
     script.write_text(_GLOO_CUDA_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+
+
+_TP_CUDA_WORKER = r'''
+import sys
+import torch
+import torch.distributed as dist
+
+rank, world = int(sys.argv[1]), 2
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[2]}", rank=rank,
+                        world_size=world)
+from rocket_tpu_torch.parallel import collectives as coll
+from rocket_tpu_torch.runtime import Runtime
+
+runtime = Runtime(device="cuda", mesh_shape={"data": 1, "model": world})
+gen = torch.Generator().manual_seed(11)
+x = torch.randn(2, 64, 32, generator=gen).cuda()
+w1 = torch.randn(32, 48, generator=gen).cuda()
+w2 = torch.randn(48, 32, generator=gen).cuda()
+d = runtime.axis_index("model")
+out = {}
+for mode in ("bulk", "ring"):
+    with coll.tp_overlap(runtime, mode=mode, wire=None) as spec:
+        xs = x.chunk(world, 1)[d].clone().requires_grad_(True)
+        a, b = w1.chunk(world, 1)[d].clone().requires_grad_(True), w2.chunk(world, 0)[d].clone()
+        b.requires_grad_(True)
+        (h,) = coll.all_gather_matmul(spec, xs, (a,))
+        y = coll.matmul_reduce_scatter(spec, torch.tanh(h), b)
+        out[mode] = (y,) + torch.autograd.grad((y ** 2).sum(), (xs, a, b))
+for got, want in zip(out["ring"], out["bulk"]):
+    assert got.is_cuda and torch.allclose(got, want, rtol=0, atol=1e-4), (got - want).abs().max()
+# The ring's hops crossed through host memory: gloo takes no CUDA pointer.
+assert coll.STATS["staged"] and coll.STATS["calls"]["all_gather_matmul"]["ring"] == 1
+dist.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_gloo_tp_ring_on_cuda_equals_the_bulk_collectives(cuda, tmp_path):
+    """Two ranks on the card over a caller-opened gloo group at
+    ``{"data": 1, "model": 2}``: the ring's staged hops give the bulk
+    collectives' forward and gradients."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = tmp_path / "worker.py"
+    script.write_text(_TP_CUDA_WORKER)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]

@@ -434,3 +434,32 @@ def test_model_state_refuses_a_multi_process_run(metered):
     ranks, _, _ = metered
     for r in ranks:
         assert "sync-BN" in r["refused"] and "ROADMAP Queue A 6" in r["refused"]
+
+
+TEARDOWN = r'''
+import time
+
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+from rocket_tpu_torch.runtime import Runtime
+
+runtime = Runtime(device="cpu")  # opens the gloo group from the environment
+t = torch.ones(4)
+dist.all_reduce(t)
+assert t.tolist() == [2.0] * 4
+if runtime.process_index == 1:
+    time.sleep(0.5)
+'''
+
+
+def test_ranks_that_leave_apart_both_exit_zero(tmp_path):
+    """The group a Runtime opened closes collectively (ROADMAP C5): rank 0
+    returns at once, rank 1 half a second later, and neither is aborted by
+    the other's teardown (``run_ranks`` fails on any exit code but 0),
+    five times in a row."""
+    for attempt in range(5):
+        work = tmp_path / f"run{attempt}"
+        work.mkdir()
+        run_ranks(work, TEARDOWN, 2, {}, timeout=60)

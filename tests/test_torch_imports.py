@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
         "data.collate", "data.loader", "data.prefetch", "data.workers", "data.device_cache",
         "nn.module", "models.mlp", "models.lenet", "models.vit", "examples.vit_cifar",
         "examples.mnist", "examples.llama_lm", "examples.gpt2",
-        "parallel", "parallel.sharding", "parallel.grad_sync",
+        "parallel", "parallel.sharding", "parallel.grad_sync", "parallel.collectives",
+        "ops.ring",
     )]
     code = (
         "import sys\n"

@@ -4,10 +4,10 @@ reference's spec on GPT-2's param paths (per-layer and scanned, and the
 MoE tree's), ``ShardingRuleError`` included; ``bucket_plan`` gives the
 reference's buckets on the same leaves; the port's ``DataLoader`` stripes
 are ``rocket_tpu.data.DataLoader``'s at 2 and 4 processes, wrap padding
-and fast-forward included; ``shard_dims`` refuses a non-data axis and
-falls back to replicated on an uneven dim; the Runtime refuses a mesh
-with a non-data axis, and ``examples.gpt2`` a data axis that is not its
-world size.
+and fast-forward included; ``shard_dims`` refuses an axis its data-only
+mesh lacks and falls back to replicated on an uneven dim; the Runtime
+refuses a mesh with an unported axis or more ranks than it has, and
+``examples.gpt2`` a mesh that is not its world size.
 """
 
 import dataclasses
@@ -165,8 +165,11 @@ def test_shard_dims_refuse_a_non_data_axis_and_replicate_uneven_dims():
 
 
 def test_runtime_refuses_a_model_axis_and_keeps_a_data_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6"):
+    # The model axis is ported: one process cannot hold a two-rank one.
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "model": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6"):
+        Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2})
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 2})
     runtime = Runtime(device="cpu", mesh_shape={"data": 1, "model": 1})
@@ -178,10 +181,10 @@ def test_runtime_refuses_a_model_axis_and_keeps_a_data_mesh():
 
 
 @pytest.mark.parametrize("flag,match", [("--data-axis", "is the world size"),
-                                        ("--model-axis", "ROADMAP Queue A 6")])
+                                        ("--model-axis", "does not divide the world size")])
 def test_gpt2_example_takes_the_data_axis_of_its_world(flag, match):
-    """``--data-axis`` must be the world size (one process here); a model
-    axis is not ported."""
+    """The mesh ``--data-axis`` x ``--model-axis`` must cover the world
+    (one process here)."""
     from rocket_tpu_torch.examples import gpt2
 
     with pytest.raises(SystemExit, match=match):

@@ -118,6 +118,7 @@ def test_rkt504_waives_full_dims_and_one_row_vectors_and_keeps_sector_rows():
 TARGET_KERNELS = {
     "train_flash": {"flash_fwd", "flash_bwd"},
     "train_flash_long": {"flash_fwd", "flash_bwd", "flash_dq"},
+    "train_flash_tp": {"flash_fwd", "flash_bwd"},
     "qkv_flash": {"flash_qkv_fwd", "flash_qkv_bwd"},
     "fused_kernels": {"bn_twopass", "bn_normalize", "fused_block", "gather_gmm", "gmm", "tgmm"},
     "serve": {"paged_decode", "paged_decode_combine", "decode_attention",
@@ -168,6 +169,16 @@ def test_train_step_launches_one_forward_and_backward_per_layer():
     assert fwd.grid == (16, 12, 8) and fwd.threads == 128
     long = run_sched_target(SCHED_TARGETS["train_flash_long"]).launches
     assert [f.name for f in long].count("flash_dq") == 12
+
+
+def test_tp_train_step_declares_rows_3_4_at_six_local_heads():
+    """One rank at --model-axis 2 runs each layer's attention on 6 of
+    GPT-2's 12 heads: half of train_flash's grid in heads."""
+    facts = run_sched_target(SCHED_TARGETS["train_flash_tp"]).launches
+    assert [f.name for f in facts].count("flash_fwd") == 12
+    assert [f.name for f in facts].count("flash_bwd") == 12
+    fwd = next(f for f in facts if f.name == "flash_fwd")
+    assert fwd.grid == (16, 6, 8) and fwd.threads == 128
 
 
 @pytest.mark.parametrize("d", tfa.HEAD_DIMS)
