@@ -105,7 +105,18 @@ from the two ranks' per-rank checkpoint shards (``dp_checkpoint``); the
 same tree under ``fsdp_rules`` (``dp_fsdp``: two ranks where gloo takes
 the FSDP collectives on CUDA, else NCCL at world size 1); and ``python -m
 rocket_tpu_torch.launch -n 1`` on ``examples/gpt2.py`` over NCCL under
-strict mode (``dp_launch``). Last, rows 9-10
+strict mode (``dp_launch``). The same workers run the sync-BN, ring and pipeline jobs: GPT-2 124M
+over two pipeline stages under GPipe and 1F1B against one rank's
+unpipelined run (losses, the step-1 gradients at f32, the dropout masks
+bitwise, the hops' bytes and waits, the peak memory at 4 and 8
+microbatches; ``pp_train``) and resumed on one rank from the stages'
+shards (``pp_checkpoint``); GPT-2 widths at T = 4096 over two seq ranks with
+ring attention against one rank's flash run (rows 3-5), its step 1 at f32
+against one rank's plain attention (``ring_train``);
+ResNet-18 with sync-BN over two ranks against one (no fused BN launch on
+the two; ``dp_cifar``); and ``examples/pipeline_lm.py --schedule 1f1b``
+and ``examples/long_context.py`` as two ranks each, beside ``dp_launch``
+(``examples_par``). Last, rows 9-10
 against their plain versions at f16, C = 3, C = 12 and C = 4096 (two
 channel chunks).
 
@@ -140,6 +151,7 @@ from torch.autograd import DeviceType
 import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim, tune
 from rocket_tpu_torch.core.capsule import Capsule
+from rocket_tpu_torch.core.module import PreparedModule
 from rocket_tpu_torch.data.augment import mixup, soft_cross_entropy
 from rocket_tpu_torch.data.text import (
     BPETokenizer,
@@ -1845,6 +1857,23 @@ class StepClock(Capsule):
             self.prof_wall = self.stamps[-1] - self.prof_t0
 
 
+#: Param trees drawn on the CPU from seed 0 and kept on the card, one per
+#: shape of model: GPT-2's and the MoE LM's CPU-side init takes 10-30 s a
+#: draw, and several phases train or serve the same model.
+_DRAWN: dict = {}
+
+
+def _drawn_params(cfg) -> dict:
+    """A copy of the seed-0 params of ``TransformerLM(cfg)`` on the card
+    (drawn once for every config of the same param shapes)."""
+    key = (cfg.vocab_size, cfg.max_seq_len, cfg.dim, cfg.num_layers, cfg.num_heads,
+           cfg.num_kv_heads, cfg.mlp_ratio, cfg.tied_embeddings, cfg.pos_embedding, cfg.norm,
+           cfg.mlp, cfg.num_experts)
+    if key not in _DRAWN:
+        _DRAWN[key] = TransformerLM(cfg).init(torch.Generator().manual_seed(0))
+    return map_params(lambda t: t.clone(), _DRAWN[key])
+
+
 def run_train(cfg, batch: int, steps: int, profile_last: int = 0, capsules=()):
     """``steps`` steps of ``examples.gpt2``'s capsule tree (``gpt2.build``
     over its corpus, remat on, without its Checkpointer, Profiler, Tracker
@@ -1854,10 +1883,15 @@ def run_train(cfg, batch: int, steps: int, profile_last: int = 0, capsules=()):
     too for an MoE config, whose train forward also hands the clock its
     outputs)."""
     clock = StepClock(profile_last)
+    runtime = rt.Runtime(seed=0)
     run = gpt2.build(cfg, _gpt2_corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=batch,
-                     runtime=rt.Runtime(seed=0), steps=steps, record=False,
+                     runtime=runtime, steps=steps, record=False,
                      capsules=(*capsules, clock),
                      return_outputs="always" if cfg.num_experts else "eval")
+    # The seed-0 params (the Module would draw its own from the Runtime's
+    # seed otherwise).
+    runtime.models.add(run["model"], PreparedModule(run["model"],
+                                                    {"params": _drawn_params(cfg)}))
     clock.module = run["module"]
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -3271,9 +3305,17 @@ def moe_gmm(value):
             os.environ["ROCKET_TPU_MOE_GMM"] = saved
 
 
+#: The MoE phases' depth: bench.py's ``moe_gpt2_e4`` widths at 6 of its 12
+#: layers (cut when the multi-process phases grew, to keep the
+#: script inside its time limit).
+MOE_LAYERS = 6
+
+
 def moe_config(activation_dtype="bfloat16", **over):
-    """bench.py's ``moe_gpt2_e4`` with ``expert_dispatch="dropless"``."""
+    """bench.py's ``moe_gpt2_e4`` with ``expert_dispatch="dropless"``, at
+    :data:`MOE_LAYERS` layers."""
     cfg = TransformerConfig.gpt2_124m()
+    cfg.num_layers = MOE_LAYERS
     cfg.dropout, cfg.activation_dtype = 0.0, activation_dtype
     cfg.num_experts, cfg.expert_top_k, cfg.expert_capacity_factor = 4, 2, 1.25
     cfg.expert_dispatch = "dropless"
@@ -3700,12 +3742,12 @@ def moe_serve_phase(card):
     ``generate()`` (batch 4, prompt 128, 32 tokens), each with the kernel
     counts zeroed before and read after. Dropless routes each token alone,
     so the engine and ``generate()`` must give the same greedy tokens: held
-    in f32 at full width (12 layers), where the paged and dense decode
+    in f32 at full width (MOE_LAYERS layers), where the paged and dense decode
     paths agree to f32 rounding; in bf16 their roundings differ, so the
     bf16 agreement is reported."""
     cfg = moe_config()
     model = TransformerLM(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = _drawn_params(cfg)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.integers(32, 513, size=16)]
@@ -4053,6 +4095,8 @@ def ops_train_phase(card, train_median_ms):
                              project_dir=str(root), telemetry_dir=str(root / "tel"))
         run = gpt2.build(cfg, _gpt2_corpus(cfg.max_seq_len, cfg.vocab_size), batch_size=b,
                          runtime=runtime, steps=OPS_STEPS, record=False)
+        runtime.models.add(run["model"], PreparedModule(run["model"],
+                                                        {"params": _drawn_params(cfg)}))
         module = run["module"]
         loss = module.find(rt.Loss)[0]
         loss._objective = _poisoned(loss.objective, OPS_NAN_STEP, runtime.device)
@@ -4323,6 +4367,12 @@ def watchdog_phase(card):
 #: files first (one write in flight), so at wave 11 step 5 is complete and
 #: step 10 is torn: the kill exercises both the skip and the resume.
 SUPERVISED_STEPS = 16
+#: Its depth: GPT-2 124M's widths at 6 of its 12 layers (cut when
+#: the multi-process phases grew, to keep the script inside its time limit;
+#: since then every process also loads the seed-0 params from a file the
+#: phase writes instead of drawing its own, so a restart's latency holds no
+#: CPU-side draw).
+SUPERVISED_LAYERS = 6
 SUPERVISED_FAULTS = "kill:step=11,gen=0;wedge:step=4,gen=1,secs=600;sigterm:step=4,gen=2"
 
 #: The worker of ``supervised_train``: examples.gpt2's tree with a
@@ -4342,6 +4392,7 @@ import torch
 
 import rocket_tpu_torch as rt
 from rocket_tpu_torch import optim
+from rocket_tpu_torch.core.module import PreparedModule
 from rocket_tpu_torch.data.text import TokenDataset
 from rocket_tpu_torch.examples import gpt2
 from rocket_tpu_torch.models.transformer import TransformerConfig
@@ -4354,6 +4405,7 @@ logging.basicConfig(level=logging.INFO, stream=sys.stdout,
 torch.backends.cuda.matmul.allow_tf32 = False
 gen = int(os.environ.get("ROCKET_TPU_GENERATION", "-1"))
 cfg = TransformerConfig.gpt2_124m()
+cfg.num_layers = int(os.environ["SUPERVISED_LAYERS"])
 data = TokenDataset(np.load(os.path.join(root, "tokens.npy")) % cfg.vocab_size,
                     seq_len=cfg.max_seq_len)
 # The supervised generations' shards in <run_dir>/telemetry, a plain run's
@@ -4387,6 +4439,10 @@ run = gpt2.build(cfg, data, batch_size=8, runtime=runtime, steps=steps, record=F
                  capsules=(rt.Profiler(flops_per_sample=gpt2.flops_per_sample(
                      cfg, cfg.max_seq_len)), ckpt, log))
 log.module = run["module"]
+# The seed-0 params the phase drew once, from a file (GPT-2's CPU-side draw
+# takes seconds, in every generation).
+runtime.models.add(run["model"], PreparedModule(run["model"], {"params": torch.load(
+    os.path.join(root, "init_params.pt"), map_location="cuda")}))
 print("START " + json.dumps({"gen": gen, "t": time.time(), "pid": os.getpid(), "t0": T0,
                              "t_imported": T_IMPORTED}), flush=True)
 try:
@@ -4493,15 +4549,15 @@ SUPERVISED_PROF = "6:9"
 def _supervised_prof_window(root):
     """The uninterrupted supervised run's trace window: its telemetry
     carries the ``obs/prof/*`` gauges of the parsed window, and the
-    window's trace holds 72 ``flash_fwd`` and 36 ``flash_bwd`` launches (3
-    steps of 12 layers; the forward twice under remat) launched inside its
+    window's trace holds 36 ``flash_fwd`` and 18 ``flash_bwd`` launches (3
+    steps of SUPERVISED_LAYERS = 6 layers; the forward twice under remat) launched inside its
     ``ProfilerStep`` ranges."""
     from rocket_tpu_torch.obs import prof as prof_lib
 
     traces = sorted((root / "traces").glob("window_*.json"))
     require(len(traces) == 1, f"supervised_train: trace windows {traces}")
     summary = prof_lib.parse_trace(prof_lib.load_trace_events(str(traces[0])))
-    layers = TransformerConfig.gpt2_124m().num_layers
+    layers = SUPERVISED_LAYERS
     got = {"flash_fwd": summary.step_launches("flash_fwd"),
            "flash_bwd": summary.step_launches("flash_bwd")}
     require(len(summary.steps) == 3 and got == {"flash_fwd": 3 * 2 * layers,
@@ -4538,8 +4594,11 @@ def supervised_train_phase(card, train_median_ms):
         text = _text(2_000_000)  # examples.gpt2.corpus's text
         np.save(root / "tokens.npy", CharTokenizer(text).encode(text))
         (root / "worker.py").write_text(SUPERVISED_WORKER)
+        sup_cfg = TransformerConfig.gpt2_124m()
+        sup_cfg.num_layers = SUPERVISED_LAYERS
+        torch.save(map_params(lambda t: t.cpu(), _drawn_params(sup_cfg)), root / "init_params.pt")
         env = {k: v for k, v in os.environ.items() if not k.startswith("ROCKET_TPU_")}
-        env.update(ROCKET_TPU_SLO="default:train",
+        env.update(ROCKET_TPU_SLO="default:train", SUPERVISED_LAYERS=str(SUPERVISED_LAYERS),
                    PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
         port = _free_port()
         worker = [str(root / "worker.py"), str(root)]
@@ -4602,7 +4661,7 @@ def supervised_train_phase(card, train_median_ms):
         steps["uninterrupted"] = _tagged(uninterrupted, "STEP")
         launches = {str(g): {k: s[-1][k] for k in ("flash_fwd", "flash_bwd", "flash_dq")}
                     if s else {} for g, s in steps.items()}
-        layers = TransformerConfig.gpt2_124m().num_layers
+        layers = SUPERVISED_LAYERS
         for g, s in steps.items():
             n = len(s)
             require(n > 0 and launches[str(g)]["flash_fwd"] == 2 * layers * n
@@ -4665,7 +4724,8 @@ def supervised_train_phase(card, train_median_ms):
         resume_setup["first_wave"] = next((e["dur"] / 1e6 for e in events
                                            if e.get("cat") == "compile"), None)
         last_slo = records[-1].get("slo") or []
-        emit("supervised_train", model="gpt2_124m", dtype="bfloat16", batch=8, seq_len=1024,
+        emit("supervised_train", model="gpt2_124m", layers=SUPERVISED_LAYERS, dtype="bfloat16",
+             batch=8, seq_len=1024,
              steps=SUPERVISED_STEPS, faults=SUPERVISED_FAULTS, prof_window=prof_window,
              outcomes=[g["outcome"] for g in gens], exit_codes=[g["exit_codes"] for g in gens],
              supervisor_rc=proc.returncode, restarts=sup["restarts"],
@@ -4787,7 +4847,9 @@ DP_WIRE_SUM_TOL, DP_WIRE_TOL = 1e-6, 2.0 ** -7
 #: a param at most ~lr (6e-4) a step, so a gradient whose sign the batch
 #: split flips moves it 2 lr apart: 4 steps, 5e-3.
 DP_PARAM_TOL = 5e-3
-DP_STEPS, DP_SAVE_AT = 8, 4
+#: Cut from 8 and 4 when the multi-process phases grew, to keep
+#: the script inside its time limit.
+DP_STEPS, DP_SAVE_AT = 6, 3
 #: tp_train: the bf16 wire's step-1 gradients against the f32 wire's, both
 #: at f32 compute, relative to the largest element. Unlike the data
 #: reduction's one rounding at the end, the TP wire rounds the activation
@@ -4795,7 +4857,281 @@ DP_STEPS, DP_SAVE_AT = 8, 4
 #: each rounding (2^-9) flows on through the layers below it.
 TP_WIRE_TOL = 3e-2
 
-DP_WORKER = r"""
+# -- sync-BN, ring attention and the pipeline -----------------------------------
+
+#: pp_train / pp_checkpoint: GPT-2 124M (scan_layers, dropout 0.1, bf16,
+#: AdamW) over ``{"data": 1, "pipe": 2}``, 6 layers a stage, B=8 in M=4
+#: microbatches of 2 rows, PP_STEPS steps a schedule, a save at PP_SAVE_AT;
+#: the peak memory at M = 4 is theirs, at M = 8 (2-row microbatches) that
+#: of a 2-step job each.
+PP_STEPS, PP_SAVE_AT, PP_M, PP_MB_ROWS = 8, 4, 4, 2
+PP_MESH = {"data": 1, "pipe": 2}
+#: The step-1 gradients at f32 compute, pipelined against unpipelined,
+#: relative to the largest element: the same f32 function with the batch's
+#: mean taken over microbatch means and the shared leaves' gradients summed
+#: over the stages (f32 rounding, as ``dp_train``'s DP_GRAD_TOL bounds).
+PP_GRAD_TOL = DP_GRAD_TOL
+#: 1F1B's peak may grow with M by the buffers whose size is the batch's
+#: (the embedding's output and its cotangent, the batch itself): 2 rows x
+#: 1024 x 768 x (2 + 4) bytes a microbatch, ~9.4 MB; GPipe's grows by its
+#: saved stage inputs and its head over the whole batch besides.
+PP_FLAT_BYTES = 64 << 20
+#: ring_train: GPT-2 124M widths at T = 4096 (``gpt2_124m(max_seq_len=
+#: 4096)``), ``attention_impl="ring"``, dropout 0, B=2, remat, over
+#: ``{"data": 1, "seq": 2}``; against one rank at ``attention_impl="auto"``
+#: (rows 3-5). The ring's probabilities are f32 where the flash kernels'
+#: are bf16, so the losses differ by bf16 rounding: 2.87e-4 over the 8
+#: steps on an H100 (PERF.md), bounded at 3.5 times that.
+RING_T, RING_B, RING_STEPS = 4096, 2, 8
+RING_MESH = {"data": 1, "seq": 2}
+RING_LOSS_TOL = 1e-3
+#: The step-1 loss at f32 compute, ring against one rank's plain attention:
+#: f32 reassociation (~1e-6), where a mean over B*T tokens instead of the
+#: B*(T-1) next-token targets moves it by ln(V)/T ~ 2.6e-3. The step-1
+#: gradients are held to PP_GRAD_TOL: a leaf left out of the seq group's
+#: sum is half its value.
+RING_F32_LOSS_TOL = 1e-4
+#: dp_cifar: ResNet-18 (CIFAR stem) on synthetic CIFAR-10 images, momentum
+#: SGD at lr 0.05, two ranks at B=256 each against one rank at B=512, 4
+#: steps, TF32 off, cuDNN deterministic. The ranks' statistics are the
+#: global batch's, summed over two halves: f32 reassociation, amplified by
+#: 4 steps (CIFAR_TOL's bound for a card-vs-CPU step, per element of
+#: ``|want|``).
+CIFAR_DP_STEPS, CIFAR_DP_BATCH, CIFAR_DP_TOL = 4, 512, 1e-3
+
+#: The jobs of the sync-BN, ring and pipeline phases; the data-parallel
+#: worker runs them too (a job with a ``kind``), after its own.
+PAR_DEFS = r"""
+def model_config(seq_len=1024, **over):
+    return dataclasses.replace(TransformerConfig.gpt2_124m(max_seq_len=seq_len), **over)
+
+
+_INIT = {1024: init_params}
+
+
+def par_init(seq_len):
+    # A longer context tiles the 1024 position rows.
+    if seq_len not in _INIT:
+        p = dict(init_params)
+        table = init_params["wpe"]["table"]
+        p["wpe"] = {"table": table.repeat(-(-seq_len // 1024), 1)[:seq_len].contiguous()}
+        _INIT[seq_len] = p
+    return map_params(lambda t: t.clone(), _INIT[seq_len])
+
+
+FP, FP_ON, draw = {}, [False], keys.dropout_mask
+
+
+def fingerprint(k, p, shape, dev, split=None):
+    # Each draw's mask as an order-free sum of its global indices' hashes
+    # over the kept elements; a recompute's draw overwrites its first.
+    mask = draw(k, p, shape, dev, split)
+    if FP_ON[0]:
+        n = int(np.prod(shape))
+        if split is None:
+            first = keys.shard_offset(n)
+            idx = torch.arange(first, first + n, device=dev)
+        else:
+            idx = keys.global_index(shape, dev, split).reshape(-1)
+            first = int(idx[0])
+        w = (idx * 2654435761) % 2147483647
+        FP[(int(k), int(first), n)] = int((mask.reshape(-1).long() * w).sum())
+    return mask
+
+
+keys.dropout_mask = fingerprint
+
+
+class ParClock(rt.Capsule):
+    def __init__(self):
+        super().__init__(priority=10)
+        self.module = self.prepared = None
+        self.losses, self.stamps, self.waits, self.marks = [], [], [], []
+
+    def set(self, attrs=None):
+        super().set(attrs)
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def launch(self, attrs=None):
+        self.prepared = self.module.prepared
+        self.losses.append(float(attrs.step_metrics["loss"]))
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        if self.module.grad_sync is not None:
+            self.waits.append(self.module.grad_sync.stats["wait_s"])
+        self.marks.append((pl.STATS["wait_s"], ra.STATS["wait_s"]))
+
+
+def par_whole(prepared, runtime, values):
+    # Per param of the whole tree (its order), this rank's value or, for
+    # another stage's layer, its stage's, broadcast over the pipe group.
+    local = dict(zip(_paths(prepared.state["params"]), values))
+    if not prepared.remote:
+        return [local[p] for p in _paths(prepared.state["params"])]
+    stage_of = {leaf[0]: leaf[3] for leaf in prepared.stage_leaves}
+    ranks, group = runtime.axis_ranks("pipe"), runtime.axis_group("pipe")
+    out = []
+    for path in prepared.full_paths:
+        if path in stage_of:
+            shape = next(leaf[1] for leaf in prepared.stage_leaves if leaf[0] == path)
+            buf = (local[path].detach().float().clone() if path in local
+                   else torch.empty(shape, dtype=torch.float32, device="cuda"))
+            dist.broadcast(buf, src=ranks[stage_of[path]], group=group)
+            out.append(buf)
+        else:
+            out.append(local[path].float())
+    return out
+
+
+class ParTap(rt.Capsule):
+    # Before the Module: its first update's (reduced) gradients, whole, flat.
+    def __init__(self, path, runtime):
+        super().__init__(priority=2000)
+        self.module, self.path, self.done, self.rt = None, path, False, runtime
+
+    def launch(self, attrs=None):
+        if self.done:
+            return
+        self.done, module, update = True, self.module, self.module._update
+
+        def tap(leaves, grads, *args, **kw):
+            flat = par_whole(module.prepared, self.rt, grads)
+            if rank == 0:
+                np.save(self.path, torch.cat([g.float().reshape(-1) for g in flat]).cpu().numpy())
+            module._update = update
+            return update(leaves, grads, *args, **kw)
+
+        module._update = tap
+
+
+def lm_job(job):
+    seq_len = job.get("seq_len", 1024)
+    over = dict(scan_layers=job.get("scan_layers", True), attention_impl=job.get("attention", "auto"))
+    if job.get("schedule"):
+        over.update(pipeline_axis="pipe", pipeline_schedule=job["schedule"],
+                    pipeline_microbatches=job.get("m", 4))
+    if "dropout" in job:
+        over["dropout"] = job["dropout"]
+    if job.get("f32"):
+        over["activation_dtype"] = "float32"
+    mcfg = model_config(seq_len, **over)
+    runtime = rt.Runtime(seed=0, mesh_shape=job.get("mesh"))
+    clock, caps = ParClock(), []
+    tap = ParTap(os.path.join(root, job["name"] + "_grads.npy"), runtime) if job.get("tap") else None
+    caps += [tap] if tap is not None else []
+    caps.append(clock)
+    ckpt = None
+    if job.get("save_every") or job.get("resume_from"):
+        ckpt = rt.Checkpointer(output_dir=os.path.join(root, job["name"] + "_ck"),
+                               save_every=job.get("save_every") or 1000,
+                               resume_from=job.get("resume_from"))
+        caps.append(ckpt)
+    data = TokenDataset(tokens % mcfg.vocab_size, seq_len=seq_len)
+    run = gpt2.build(mcfg, data, batch_size=job["batch"], runtime=runtime, steps=job["steps"],
+                     record=False, capsules=tuple(caps),
+                     param_sharding=pipeline_rules() if job.get("schedule") else None)
+    module = clock.module = run["module"]
+    runtime.models.add(run["model"], PreparedModule(run["model"],
+                                                    {"params": par_init(seq_len)}))
+    if tap is not None:
+        tap.module = module
+    for kernel in (fa.flash_fwd, fa.flash_bwd, fa.flash_dq):
+        kernel.launches = 0
+    pl.reset_stats()
+    ra.reset_stats()
+    FP.clear()
+    FP_ON[0] = bool(job.get("masks"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run["launcher"].launch()
+    wall = time.perf_counter() - t0
+    FP_ON[0] = False
+    prepared = clock.prepared
+    leaves = optim.param_leaves(prepared.state["params"])
+    marks = [(0.0, 0.0)] + clock.marks
+    out = {"losses": clock.losses, "step_ms": [1e3 * d for d in np.diff(clock.stamps)],
+           "wall_s": wall, "launches": {"flash_fwd": fa.flash_fwd.launches,
+                                        "flash_bwd": fa.flash_bwd.launches,
+                                        "flash_dq": fa.flash_dq.launches},
+           "grad_sync_wait_ms": [1e3 * w for w in clock.waits],
+           "pipe_wait_ms": [1e3 * (b[0] - a[0]) for a, b in zip(marks, marks[1:])],
+           "ring_wait_ms": [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])],
+           "pipe": dict(pl.STATS), "ring": dict(ra.STATS), "backend": runtime.backend,
+           "world": runtime.process_count, "mesh": runtime.mesh,
+           "stage": runtime.axis_index("pipe"), "seq_index": runtime.axis_index("seq"),
+           "held_leaves": len(leaves),
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "masks": [[k, first, n, fp] for (k, first, n), fp in FP.items()]}
+    if ckpt is not None:
+        out["saves"] = ckpt.save_times
+    if job.get("keep_params"):
+        kept = list(bridge.gather_params(prepared, runtime).values())
+        if rank == 0:
+            np.save(os.path.join(root, job["name"] + "_params.npy"),
+                    torch.cat([t.detach().float().reshape(-1) for t in kept]).cpu().numpy())
+    del run, leaves
+    clock.prepared = None
+    return out
+
+
+def cifar_job(job):
+    # ResNet-18 with sync-BN over the data ranks; the fused kernels forced,
+    # which the two-rank path must not launch.
+    os.environ.update(job.get("env", {}))
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = True, False, False
+    runtime = rt.Runtime(seed=0)
+    rng = np.random.default_rng(0)
+    n = job["batch"] * job["steps"]
+    images = rng.normal(size=(n, job.get("size", 32), job.get("size", 32), 3)).astype(np.float32)
+    labels = rng.integers(0, 10, n).astype(np.int32)
+    model = resnet18(num_classes=10, stem="cifar")
+    module = rt.Module(model, [rt.Loss(cifar_resnet.cross_entropy),
+                               rt.Optimizer(optim.momentum(0.9), learning_rate=0.05)])
+    clock = ParClock()
+    clock.module = module
+    fc.bn_twopass.launches = fc.bn_normalize.launches = 0
+    layers.SYNC_BN_STATS["all_reduces"] = 0
+    marks = []
+
+    class Count(rt.Capsule):
+        def __init__(self):
+            super().__init__(priority=5)
+
+        def launch(self, attrs=None):
+            marks.append(layers.SYNC_BN_STATS["all_reduces"])
+
+    rt.Launcher([rt.Looper([rt.Dataset(ArrayDataset(images, labels), batch_size=job["batch"]),
+                            module, clock, Count()], tag="train", repeats=job["steps"],
+                           progress=False)], runtime=runtime).launch()
+    state = clock.prepared.state
+    params = optim.param_leaves(state["params"])
+    stats = optim.param_leaves(state["model_state"])
+    if rank == 0:
+        np.save(os.path.join(root, job["name"] + "_params.npy"),
+                torch.cat([t.detach().reshape(-1) for t in params]).cpu().numpy())
+        np.save(os.path.join(root, job["name"] + "_stats.npy"),
+                torch.cat([t.detach().reshape(-1) for t in stats]).cpu().numpy())
+    for key in job.get("env", {}):
+        os.environ.pop(key, None)
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved
+    return {"losses": clock.losses, "step_ms": [1e3 * d for d in np.diff(clock.stamps)],
+            "grad_sync_wait_ms": [1e3 * w for w in clock.waits],
+            "all_reduces": marks, "bn_twopass": fc.bn_twopass.launches,
+            "bn_normalize": fc.bn_normalize.launches, "world": runtime.process_count,
+            "backend": runtime.backend, "stats_sha256": digest(stats),
+            "params_sha256": digest(params)}
+
+
+def par_job(job):
+    return (cifar_job if job.get("kind") == "cifar" else lm_job)(job)
+"""
+
+DP_WORKER = (r"""
 import dataclasses, hashlib, json, os, sys, time
 import numpy as np
 import torch
@@ -4809,23 +5145,29 @@ if cfg["backend"] == "gloo":
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=cfg["world"])
 import rocket_tpu_torch as rt
-from rocket_tpu_torch import optim
+from rocket_tpu_torch import bridge, optim
+from rocket_tpu_torch.core.module import PreparedModule, _paths
+from rocket_tpu_torch.data.datasets import ArrayDataset
 from rocket_tpu_torch.data.text import TokenDataset
-from rocket_tpu_torch.examples import gpt2
-from rocket_tpu_torch.core.module import PreparedModule
-from rocket_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from rocket_tpu_torch.examples import cifar_resnet, gpt2
+from rocket_tpu_torch.models.resnet import resnet18
+from rocket_tpu_torch.models.transformer import TransformerConfig
+from rocket_tpu_torch.nn import keys, layers
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.ops import flash_native as fa
-from rocket_tpu_torch import bridge
+from rocket_tpu_torch.ops import fused_conv as fc
 from rocket_tpu_torch.parallel import collectives as coll
-from rocket_tpu_torch.parallel.sharding import fsdp_rules, gpt2_tp_rules
+from rocket_tpu_torch.parallel import pipeline as pl
+import rocket_tpu_torch.parallel.ring_attention  # noqa: F401 (the module, not the function)
+ra = sys.modules["rocket_tpu_torch.parallel.ring_attention"]
+from rocket_tpu_torch.parallel.sharding import fsdp_rules, gpt2_tp_rules, pipeline_rules
 
 model_cfg = TransformerConfig.gpt2_124m()
-data = TokenDataset(np.load(os.path.join(root, "tokens.npy")) % model_cfg.vocab_size,
-                    seq_len=model_cfg.max_seq_len)
-# Every job of every rank starts from these params (drawn once a process:
-# GPT-2's CPU-side init takes ~10 s).
-init_params = TransformerLM(model_cfg).init(torch.Generator().manual_seed(0), device="cuda")
+tokens = np.load(os.path.join(root, "tokens.npy"))
+data = TokenDataset(tokens % model_cfg.vocab_size, seq_len=model_cfg.max_seq_len)
+# Every job of every rank starts from these params: the caller's seed-0 draw
+# (GPT-2's CPU-side init takes 10-13 s a process).
+init_params = torch.load(os.path.join(root, "init_params.pt"), map_location="cuda")
 
 
 def digest(tensors):
@@ -4895,6 +5237,7 @@ class GradTap(rt.Capsule):
         module._update = tap
 
 
+""" + PAR_DEFS + r"""
 results = {"rank": rank, "jobs": {}}
 if cfg.get("probe"):
     # Does this backend take FSDP's collectives on CUDA tensors?
@@ -4908,6 +5251,10 @@ if cfg.get("probe"):
     except (RuntimeError, NotImplementedError) as exc:
         results["probe"] = repr(exc)[:300]
 for job in cfg["jobs"]:
+    if job.get("kind"):
+        results["jobs"][job["name"]] = par_job(job)
+        torch.cuda.empty_cache()
+        continue
     if job.get("needs_probe") and results.get("probe") != "ok":
         continue
     for key in ("ROCKET_TPU_OVERLAP", "ROCKET_TPU_OVERLAP_WIRE"):
@@ -4989,7 +5336,7 @@ json.dump(results, open(os.path.join(root, f"rank{rank}.json"), "w"))
 if dist.is_initialized():
     dist.barrier()
     dist.destroy_process_group()
-"""
+""")
 
 
 def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
@@ -4999,7 +5346,7 @@ def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
     "env" (the launcher's environment, the Runtime opens NCCL) or "none"
     (one process, no group). Returns each rank's results; each rank's
     output goes to ``chiprun_out/dp_<tag>_rank<r>.log``."""
-    worker = root / "dp_worker.py"
+    worker = root / f"{tag}_worker.py"
     worker.write_text(DP_WORKER)
     job_file = root / f"{tag}.json"
     job_file.write_text(json.dumps({"world": world, "backend": backend, "probe": probe,
@@ -5055,6 +5402,7 @@ def dp_phases(card):
     try:
         text = _text(2_000_000)  # examples.gpt2.corpus's text
         np.save(root / "tokens.npy", CharTokenizer(text).encode(text))
+        torch.save(map_params(lambda t: t.cpu(), _drawn_params(cfg)), root / "init_params.pt")
         dp_job = {"name": "dp", "steps": steps, "grad_sync": "bucketed",
                   "save_every": DP_SAVE_AT, "keep_params": True}
         # The step-1 gradients: f32 compute and wire, so the two sides
@@ -5065,16 +5413,19 @@ def dp_phases(card):
         wire_job = {"name": "dp_wire", "steps": 2, "tap": True, "activation_dtype": "float32",
                     "grad_sync": "bucketed"}
         fsdp_job = {"name": "fsdp", "steps": steps, "fsdp": True, "needs_probe": True}
-        # The tensor-parallel jobs run on the same two processes.
-        ranks = _dp_ranks(root, "gloo2", [dp_job, f32_job, wire_job, fsdp_job, *TP_JOBS], 2,
-                          "gloo", probe=True)
+        # The tensor-parallel, pipeline, ring and sync-BN jobs run on the same
+        # two processes.
+        par_two, par_one = par_jobs(root)
+        ranks = _dp_ranks(root, "gloo2", [dp_job, f32_job, wire_job, fsdp_job, *TP_JOBS,
+                                          *par_two], 2, "gloo", probe=True)
         one = _dp_ranks(root, "one", [
             {"name": "one", "steps": steps},
             {"name": "one_f32", "steps": 2, "tap": True, "activation_dtype": "float32"},
             {"name": "one_resumed", "steps": steps, "keep_params": True,
              "resume_from": str(root / "dp_ck" / str(DP_SAVE_AT))},
             {"name": "one_tp_resumed", "steps": steps, "keep_params": True,
-             "resume_from": str(root / "tp_ck" / str(DP_SAVE_AT))}], 1, "none")[0]["jobs"]
+             "resume_from": str(root / "tp_ck" / str(DP_SAVE_AT))}, *par_one], 1,
+            "none")[0]["jobs"]
         ref = one["one"]
         # -- dp_train: the record first, then its checks.
         dp = [r["jobs"]["dp"] for r in ranks]
@@ -5169,14 +5520,20 @@ def dp_phases(card):
                 else fsdp[0]["param_bytes"] == whole, f"dp_fsdp: shard bytes "
                 f"{[j['param_bytes'] for j in fsdp]} of {whole}")
         tp_phases(root, ranks, one, card)
-        # -- dp_launch
+        # Sync-BN, ring attention and the pipeline.
+        pp_phases(root, ranks, one, card)
+        ring_phase(root, ranks, one, card)
+        dp_cifar_phase(root, ranks, one, card)
+        # -- dp_launch, with the pipeline and long-context examples beside it
+        examples = examples_par_start(root)
         dp_launch_phase(root, card)
+        examples_par_phase(examples, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 #: The tensor-parallel jobs of the two gloo ranks, at ``{"data": 1,
-#: "model": 2}`` under ``gpt2_tp_rules()``: ``tp`` (the 8 steps of
+#: "model": 2}`` under ``gpt2_tp_rules()``: ``tp`` (the DP_STEPS steps of
 #: ``dp_train``'s tree, a save at step 4, the whole params kept), ``tp_f32``
 #: (step 1 at f32 compute and the f32 wire, its gradients tapped whole) and
 #: ``tp_wire`` (the same on the default bf16 wire).
@@ -5308,6 +5665,317 @@ def dp_launch_phase(root: Path, card):
          wall_s=wall, card=card)
 
 
+
+
+
+def _masks_by_key(jobs) -> dict:
+    """The fingerprints of the ranks' dropout draws, each draw once (by
+    key, first global index and size), summed per key."""
+    draws = {}
+    for job in jobs:
+        for k, first, n, fp in job["masks"]:
+            draws[(k, first, n)] = fp
+    out: dict = {}
+    for (k, _, _), fp in draws.items():
+        out[k] = out.get(k, 0) + fp
+    return out
+
+
+def _median(values) -> float:
+    return float(np.median(values[1:] if len(values) > 1 else values))
+
+
+def par_jobs(root: Path) -> tuple:
+    """The sync-BN, ring and pipeline jobs (module docstring): ``(two-rank
+    jobs, one-rank jobs)``, run by the data-parallel workers after their
+    own. ``pp_*``: GPT-2 124M over two pipeline stages under each schedule,
+    the f32 step-1 taps with the dropout masks' fingerprints, the
+    peak-memory jobs at M = 8; ``ring``: T = 4096 over two seq ranks, and
+    its f32 step-1 tap; ``dp_cifar``: ResNet-18 with sync-BN; each against
+    its one-rank job."""
+    lm = {"kind": "lm"}
+    pp = {**lm, "mesh": PP_MESH, "batch": 8, "m": PP_M}
+    # The peak at M = 4 is the 8-step runs'; these hold the microbatch at 2
+    # rows at M = 8.
+    mem = [{**lm, "name": f"pp_mem_{s}_m8", "schedule": s, "steps": 2, "mesh": PP_MESH,
+            "batch": PP_MB_ROWS * 8, "m": 8} for s in ("gpipe", "1f1b")]
+    cifar = {"kind": "cifar", "batch": CIFAR_DP_BATCH, "steps": CIFAR_DP_STEPS,
+             "env": {"ROCKET_TPU_FUSED_CONV": "pallas"}}
+    ring = {**lm, "scan_layers": False, "dropout": 0.0, "seq_len": RING_T, "batch": RING_B,
+            "steps": RING_STEPS}
+    two = [{**pp, "name": "pp_gpipe", "schedule": "gpipe", "steps": PP_STEPS,
+            "save_every": PP_SAVE_AT, "keep_params": True},
+           {**pp, "name": "pp_1f1b", "schedule": "1f1b", "steps": PP_STEPS},
+           *[{**pp, "name": f"pp_{s}_f32", "schedule": s, "steps": 2, "f32": True, "tap": True,
+              "masks": True} for s in ("gpipe", "1f1b")],
+           *mem,
+           {**ring, "name": "ring", "attention": "ring", "mesh": RING_MESH},
+           {**ring, "name": "ring_f32", "attention": "ring", "mesh": RING_MESH, "steps": 2,
+            "f32": True, "tap": True},
+           {**cifar, "name": "dp_cifar"}]
+    one = [{**lm, "name": "pp_one", "batch": 8, "steps": PP_STEPS},
+           {**lm, "name": "pp_one_f32", "batch": 8, "steps": 2, "f32": True, "tap": True,
+            "masks": True},
+           {**lm, "name": "pp_one_resumed", "batch": 8, "steps": PP_STEPS, "keep_params": True,
+            "resume_from": str(root / "pp_gpipe_ck" / str(PP_SAVE_AT))},
+           {**ring, "name": "ring_one", "attention": "auto"},
+           {**ring, "name": "ring_one_f32", "attention": "plain", "steps": 2, "f32": True,
+            "tap": True},
+           {**cifar, "name": "cifar_one"}]
+    return two, one
+
+
+def pp_phases(root: Path, ranks: list, one: dict, card) -> None:
+    """``pp_train`` and ``pp_checkpoint``: GPT-2 124M over two pipeline
+    stages under each schedule, against one rank's unpipelined run of the
+    same config, params and batches."""
+    cfg = TransformerConfig.gpt2_124m()
+    per_stage = cfg.num_layers // 2
+    ref = one["pp_one"]
+    one_g = np.load(root / "pp_one_f32_grads.npy")
+    one_masks = _masks_by_key([one["pp_one_f32"]])
+    hop_bytes = PP_MB_ROWS * cfg.max_seq_len * cfg.dim * 2
+    out = {}
+    for s in ("gpipe", "1f1b"):
+        jobs = [r["jobs"][f"pp_{s}"] for r in ranks]
+        g = np.load(root / f"pp_{s}_f32_grads.npy")
+        grad_err = float(np.abs(g - one_g).max() / np.abs(one_g).max())
+        masks = _masks_by_key([r["jobs"][f"pp_{s}_f32"] for r in ranks])
+        peaks = {4: [r["jobs"][f"pp_{s}"]["peak_memory_bytes"] for r in ranks],
+                 8: [r["jobs"][f"pp_mem_{s}_m8"]["peak_memory_bytes"] for r in ranks]}
+        growth = [b - a for a, b in zip(peaks[4], peaks[8])]
+        gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in jobs]
+        sends = [j["pipe"]["sends"] for j in jobs]
+        out[s] = {"losses": jobs[0]["losses"], "loss_gap_per_rank": gaps,
+                  "step_ms_median_per_rank": [_median(j["step_ms"]) for j in jobs],
+                  "step_ms_per_rank": [j["step_ms"] for j in jobs],
+                  "hop_wait_ms_median_per_rank": [_median(j["pipe_wait_ms"]) for j in jobs],
+                  "grad_sync_wait_ms_median_per_rank": [_median(j["grad_sync_wait_ms"])
+                                                        for j in jobs],
+                  "bytes_per_send": [j["pipe"]["wire_bytes"] / max(1, n)
+                                     for j, n in zip(jobs, sends)],
+                  "sends_per_step_per_rank": [n / PP_STEPS for n in sends],
+                  "staged": jobs[0]["pipe"]["staged"],
+                  "live_inputs_max_per_rank": [j["pipe"]["live_max"] for j in jobs],
+                  "launches_per_rank": [j["launches"] for j in jobs],
+                  "param_bytes_per_rank": [j["param_bytes"] for j in jobs],
+                  "step1_grad_err_f32": grad_err, "masks_equal": masks == one_masks,
+                  "mask_keys": len(masks),
+                  "peak_memory_bytes_m4_per_rank": peaks[4],
+                  "peak_memory_bytes_m8_per_rank": peaks[8],
+                  "peak_growth_m4_to_m8_per_rank": growth}
+    emit("pp_train", model="gpt2_124m", dtype="bfloat16", batch=8, seq_len=cfg.max_seq_len,
+         microbatches=PP_M, microbatch_rows=PP_MB_ROWS, steps=PP_STEPS, ranks=2, mesh=PP_MESH,
+         layers_per_stage=per_stage, backend=ranks[0]["jobs"]["pp_gpipe"]["backend"],
+         one_rank_losses=ref["losses"], one_rank_step_ms_median=_median(ref["step_ms"]),
+         one_rank_launches=ref["launches"], expected_bytes_per_send=hop_bytes,
+         one_rank_peak_memory_bytes=ref["peak_memory_bytes"], schedules=out, card=card)
+    for s, rec in out.items():
+        jobs = [r["jobs"][f"pp_{s}"] for r in ranks]
+        for r, job in enumerate(jobs):
+            require(job["backend"] == "gloo" and job["world"] == 2 and job["stage"] == r,
+                    f"pp_train {s}: rank {r} ran on {job['backend']} x {job['world']}")
+            require(len(job["losses"]) == PP_STEPS and rec["loss_gap_per_rank"][r] <= DP_LOSS_TOL,
+                    f"pp_train {s}: rank {r} losses {job['losses']} vs one rank {ref['losses']}")
+            # Rows 3-4 on the stage's 6 layers, each microbatch: GPipe and a
+            # 1F1B stage before the last recompute their forward in the
+            # backward; 1F1B's last stage runs forward and backward once.
+            fwd = per_stage * PP_M * (1 if (s == "1f1b" and r == 1) else 2)
+            want = {"flash_fwd": fwd * PP_STEPS, "flash_bwd": per_stage * PP_M * PP_STEPS,
+                    "flash_dq": 0}
+            require(job["launches"] == want, f"pp_train {s}: rank {r} launches "
+                    f"{job['launches']}, not {want}")
+        require(all(b == hop_bytes for b in rec["bytes_per_send"]),
+                f"pp_train {s}: {rec['bytes_per_send']} bytes a send, not {hop_bytes}")
+        require(rec["step1_grad_err_f32"] <= PP_GRAD_TOL,
+                f"pp_train {s}: step-1 gradients {rec['step1_grad_err_f32']} of the largest")
+        require(rec["masks_equal"] and rec["mask_keys"] == 2 * (1 + 3 * cfg.num_layers),
+                f"pp_train {s}: dropout masks differ from the unpipelined run's "
+                f"({rec['mask_keys']} keys)")
+        if s == "1f1b":
+            require(rec["live_inputs_max_per_rank"] == [3, 0],
+                    f"pp_train 1f1b: live stage inputs {rec['live_inputs_max_per_rank']}")
+            require(max(rec["peak_growth_m4_to_m8_per_rank"]) <= PP_FLAT_BYTES,
+                    f"pp_train 1f1b: peak grows {rec['peak_growth_m4_to_m8_per_rank']} "
+                    "bytes from M=4 to M=8")
+    require(out["gpipe"]["peak_growth_m4_to_m8_per_rank"][1] > PP_FLAT_BYTES
+            and out["gpipe"]["peak_growth_m4_to_m8_per_rank"][1]
+            > out["1f1b"]["peak_growth_m4_to_m8_per_rank"][1],
+            f"pp_train: GPipe's peak does not grow with M: "
+            f"{out['gpipe']['peak_growth_m4_to_m8_per_rank']}")
+    # -- pp_checkpoint
+    saved = [r["jobs"]["pp_gpipe"] for r in ranks]
+    resumed = one["pp_one_resumed"]
+    tail = saved[0]["losses"][PP_SAVE_AT:]
+    param_gap = float(np.abs(np.load(root / "pp_one_resumed_params.npy")
+                             - np.load(root / "pp_gpipe_params.npy")).max())
+    files = sorted(os.listdir(root / "pp_gpipe_ck" / str(PP_SAVE_AT) / "model_0"))
+    emit("pp_checkpoint", saved_at=PP_SAVE_AT, ranks_saving=2, ranks_resuming=1, files=files,
+         write_s_per_rank=[[s.get("write_s") for s in j["saves"]] for j in saved],
+         bytes_per_rank=[[s["shard_bytes"] for s in j["saves"]] for j in saved],
+         resumed_losses=resumed["losses"], uninterrupted_losses=tail,
+         end_param_max_abs_gap=param_gap, card=card)
+    require(files == ["index.json", "shard_p0.npz", "shard_p1.npz"], f"pp_checkpoint: {files}")
+    require(len(resumed["losses"]) == PP_STEPS - PP_SAVE_AT
+            and max(abs(a - b) for a, b in zip(resumed["losses"], tail)) <= DP_LOSS_TOL,
+            f"pp_checkpoint: resumed losses {resumed['losses']} vs {tail}")
+    require(param_gap <= DP_PARAM_TOL, f"pp_checkpoint: end params {param_gap} apart")
+
+
+def ring_phase(root: Path, ranks: list, one: dict, card) -> None:
+    """``ring_train``: GPT-2 124M widths at T = 4096 over ``{"data": 1,
+    "seq": 2}`` with ring attention, against one rank's flash run; step 1
+    at f32 compute against one rank's plain attention (the loss across the
+    shard edge, its global denominator and every leaf's sum over the seq
+    group)."""
+    cfg = TransformerConfig.gpt2_124m(max_seq_len=RING_T)
+    jobs = [r["jobs"]["ring"] for r in ranks]
+    ref = one["ring_one"]
+    gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in jobs]
+    one_g = np.load(root / "ring_one_f32_grads.npy")
+    grad_err = float(np.abs(np.load(root / "ring_f32_grads.npy") - one_g).max()
+                     / np.abs(one_g).max())
+    f32_loss_gaps = [abs(r["jobs"]["ring_f32"]["losses"][0] - one["ring_one_f32"]["losses"][0])
+                     for r in ranks]
+    kv = RING_B * (RING_T // 2) * cfg.dim * 2
+    per_hop = [j["ring"]["kv_bytes"] / max(1, j["ring"]["kv_hops"]) for j in jobs]
+    emit("ring_train", model="gpt2_124m", dtype="bfloat16", batch=RING_B, seq_len=RING_T,
+         steps=RING_STEPS, ranks=2, mesh=RING_MESH, backend=jobs[0]["backend"],
+         losses=jobs[0]["losses"], one_rank_losses=ref["losses"], loss_gap_per_rank=gaps,
+         step_ms_median_per_rank=[_median(j["step_ms"]) for j in jobs],
+         step_ms_per_rank=[j["step_ms"] for j in jobs],
+         one_rank_step_ms_median=_median(ref["step_ms"]),
+         hop_wait_ms_median_per_rank=[_median(j["ring_wait_ms"]) for j in jobs],
+         grad_sync_wait_ms_median_per_rank=[_median(j["grad_sync_wait_ms"]) for j in jobs],
+         kv_bytes_per_hop=per_hop, expected_kv_bytes_per_hop=2 * kv,
+         kv_hops_per_step_per_rank=[j["ring"]["kv_hops"] / RING_STEPS for j in jobs],
+         hops_per_step_per_rank=[j["ring"]["hops"] / RING_STEPS for j in jobs],
+         wire_bytes_per_step_per_rank=[j["ring"]["wire_bytes"] / RING_STEPS for j in jobs],
+         staged=jobs[0]["ring"]["staged"],
+         peak_memory_bytes_per_rank=[j["peak_memory_bytes"] for j in jobs],
+         one_rank_peak_memory_bytes=ref["peak_memory_bytes"],
+         launches_per_rank=[j["launches"] for j in jobs], one_rank_launches=ref["launches"],
+         step1_grad_err_f32=grad_err, step1_loss_gap_f32_per_rank=f32_loss_gaps,
+         step1_loss_f32=one["ring_one_f32"]["losses"][0], card=card)
+    require(grad_err <= PP_GRAD_TOL, f"ring_train: step-1 gradients {grad_err} of the largest")
+    for r, job in enumerate(jobs):
+        require(job["backend"] == "gloo" and job["seq_index"] == r,
+                f"ring_train: rank {r} ran on {job['backend']} at seq {job['seq_index']}")
+        require(len(job["losses"]) == RING_STEPS and gaps[r] <= RING_LOSS_TOL,
+                f"ring_train: rank {r} losses {job['losses']} vs one rank {ref['losses']}")
+        require(f32_loss_gaps[r] <= RING_F32_LOSS_TOL,
+                f"ring_train: rank {r} step-1 f32 loss {f32_loss_gaps[r]} from one rank's")
+        require(per_hop[r] == 2 * kv, f"ring_train: {per_hop[r]} K/V bytes a hop, not {2 * kv}")
+        require(job["launches"] == {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0},
+                f"ring_train: rank {r} launched flash kernels {job['launches']}")
+    layers = cfg.num_layers
+    want = {"flash_fwd": 2 * layers * RING_STEPS, "flash_bwd": layers * RING_STEPS,
+            "flash_dq": layers * RING_STEPS}
+    require(ref["launches"] == want, f"ring_train: one rank launches {ref['launches']}, not "
+            f"{want} (row 5 at T = {RING_T})")
+
+
+def dp_cifar_phase(root: Path, ranks: list, one: dict, card) -> None:
+    """``dp_cifar``: ResNet-18 with sync-BN over two ranks at B=256 each
+    against one rank at B=512 (the fused kernels forced on both)."""
+    jobs = [r["jobs"]["dp_cifar"] for r in ranks]
+    ref = one["cifar_one"]
+    stats = np.load(root / "dp_cifar_stats.npy")
+    params = np.load(root / "dp_cifar_params.npy")
+    want_stats = np.load(root / "cifar_one_stats.npy")
+    want_params = np.load(root / "cifar_one_params.npy")
+    stats_err = float((np.abs(stats - want_stats) / (1 + np.abs(want_stats))).max())
+    params_err = float((np.abs(params - want_params) / (1 + np.abs(want_params))).max())
+    per_step = [[int(v) for v in np.diff([0] + j["all_reduces"])] for j in jobs]
+    gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in jobs]
+    emit("dp_cifar", model="resnet18_cifar", batch=CIFAR_DP_BATCH,
+         batch_per_rank=CIFAR_DP_BATCH // 2, steps=CIFAR_DP_STEPS, ranks=2,
+         backend=jobs[0]["backend"], losses=jobs[0]["losses"], one_rank_losses=ref["losses"],
+         loss_gap_per_rank=gaps, stats_rel_err=stats_err, params_rel_err=params_err,
+         stats_sha256=[j["stats_sha256"] for j in jobs],
+         collectives_per_step_per_rank=per_step,
+         step_ms_median_per_rank=[_median(j["step_ms"]) for j in jobs],
+         step_ms_per_rank=[j["step_ms"] for j in jobs],
+         one_rank_step_ms_median=_median(ref["step_ms"]),
+         grad_sync_wait_ms_median_per_rank=[_median(j["grad_sync_wait_ms"]) for j in jobs],
+         bn_twopass_launches_per_rank=[j["bn_twopass"] for j in jobs],
+         one_rank_bn_twopass_launches=ref["bn_twopass"], card=card)
+    for r, job in enumerate(jobs):
+        require(job["world"] == 2 and job["bn_twopass"] == 0 and job["bn_normalize"] == 0,
+                f"dp_cifar: rank {r} launched the fused BN kernels {job['bn_twopass']} / "
+                f"{job['bn_normalize']} times over two ranks")
+        require(per_step[r] == [2 * CIFAR_BN_LAYERS] * CIFAR_DP_STEPS,
+                f"dp_cifar: rank {r} ran {per_step[r]} sync-BN collectives a step")
+    require(ref["bn_twopass"] == CIFAR_BN_LAYERS * CIFAR_DP_STEPS,
+            f"dp_cifar: one rank launched row 9 {ref['bn_twopass']} times")
+    require(jobs[0]["stats_sha256"] == jobs[1]["stats_sha256"],
+            "dp_cifar: the ranks' running statistics differ")
+    require(stats_err <= CIFAR_DP_TOL and params_err <= CIFAR_DP_TOL,
+            f"dp_cifar: statistics {stats_err}, params {params_err} from one rank's")
+
+
+def _example_ranks(script: str, args: list, work: str) -> list:
+    """Start ``script`` of ``rocket_tpu_torch/examples`` as two ranks
+    sharing the card over gloo, spawned as the launcher does (one card:
+    ``LOCAL_RANK`` 0 for both)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0", "ROCKET_TPU_DIST_BACKEND": "gloo"}
+    env.pop("ROCKET_TPU_STRICT", None)
+    path = str(ROOT / "rocket_tpu_torch" / "examples" / script)
+    return [subprocess.Popen([sys.executable, path, *args], cwd=work, env={**env, "RANK": str(r)},
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+
+
+def examples_par_start(root: Path) -> dict:
+    """Start ``examples_par``'s two pairs of ranks in ``root`` (each pair at
+    once; :func:`examples_par_phase` waits for them)."""
+    runs = {"t0": time.perf_counter()}
+    for tag, script, args in (("pipeline_lm", "pipeline_lm.py", ["--schedule", "1f1b"]),
+                              ("long_context", "long_context.py", [])):
+        (root / tag).mkdir()
+        runs[tag] = _example_ranks(script, args, str(root / tag))
+    return runs
+
+
+def examples_par_phase(runs: dict, card) -> None:
+    """``examples_par``: ``pipeline_lm.py --schedule 1f1b`` and
+    ``long_context.py`` at their defaults, each as two ranks, the two pairs
+    started by :func:`examples_par_start` and running beside ``dp_launch``
+    (so their walls overlap)."""
+    procs = {tag: p for tag, p in runs.items() if tag != "t0"}
+    outs = {}
+    try:
+        for tag, pair in procs.items():
+            outs[tag] = [proc.communicate(timeout=600)[0] for proc in pair]
+    finally:
+        for pair in procs.values():
+            for proc in pair:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    wall = time.perf_counter() - runs["t0"]
+    for tag, texts in outs.items():
+        for r, text in enumerate(texts):
+            (ROOT / "chiprun_out" / f"examples_par_{tag}_rank{r}.log").write_text(text)
+            require(procs[tag][r].returncode == 0, f"examples_par {tag}: rank {r} exited "
+                    f"{procs[tag][r].returncode}: {text[-2000:]}")
+    lines = [ln for ln in outs["pipeline_lm"][0].splitlines() if "1f1b over 2 stages" in ln]
+    require(len(lines) == 1, f"examples_par: pipeline_lm printed {lines}")
+    first, last = (float(v) for v in lines[0].split("loss ")[1].split(" (")[0].split(" -> "))
+    losses = [float(x.split("loss=")[1].split(",")[0].rstrip("]"))
+              for x in outs["long_context"][0].replace("\r", "\n").split("\n") if "loss=" in x]
+    emit("examples_par", wall_s=wall,
+         pipeline_lm={"line": lines[0], "first": first, "last": last},
+         long_context={"first": losses[0] if losses else None,
+                       "last": losses[-1] if losses else None, "readings": len(losses)},
+         card=card)
+    require(last < first, f"examples_par: pipeline_lm loss {first} -> {last}")
+    require(losses and losses[-1] < losses[0],
+            f"examples_par: long_context losses {losses[:2]} ... {losses[-2:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5420,7 +6088,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     model = TransformerLM(TransformerConfig.gpt2_124m())
-    params = model.init(torch.Generator().manual_seed(0))
+    params = _drawn_params(model.config)
     paged["launches"] = serve_phase(model, params, card)
     # The serve half of the ops plane (PR 18): the same requests under
     # telemetry, the tracer, the exporter and a trace window; the CLI.
@@ -5479,6 +6147,9 @@ def main() -> int:
     # The data-parallel slice (PR 19): two ranks on the card over gloo, the
     # FSDP layout, the launcher's NCCL group; rows 3-4 on every rank.
     torch.cuda.empty_cache()
+    # Sync-BN, ring attention and the pipeline run in the same
+    # workers: rows 3-5 on the pipeline's stages and the one-rank T = 4096
+    # run, none on the two-rank BN path.
     dp_phases(card)
     timer = Timer()
     check_fused_conv_coverage(timer, torch.Generator().manual_seed(16), card)

@@ -30,7 +30,12 @@ Across ranks (data or tensor parallel): :func:`local_params` cuts a whole
 param tree into the slices one rank holds under a ``param_sharding`` rule
 on the Runtime's mesh, and :func:`gather_params` gathers a prepared
 model's slices back whole on every rank, for comparison. A TP run's train
-state crosses as any other: its shards are ``ShardedLeaf`` chunks.
+state crosses as any other: its shards are ``ShardedLeaf`` chunks. Under
+``pipeline_rules`` a stage holds only its own layers' ``blocks/<i>``
+(a JAX ``blocks_stacked`` tree is unstacked first, so each stage gets the
+right layers), and a pipe run's train state names the other stages'
+layers as ``checkpoint_io.OwnedLeaf`` placeholders, each saved by its
+stage.
 """
 
 from __future__ import annotations
@@ -288,14 +293,28 @@ def local_params(params: dict, rule, runtime) -> dict:
     """The slices of the whole ``params`` (torch tensors, or numpy from
     :func:`params_from_jax`'s input) that this rank holds under ``rule``
     on ``runtime``'s mesh: a leaf sharded over an axis is cut into that
-    axis's size on its dim, and the rank keeps its coordinate's chunk."""
+    axis's size on its dim, and the rank keeps its coordinate's chunk; a
+    layer placed on a pipeline stage is kept whole by that stage and left
+    out elsewhere. A ``blocks_stacked`` subtree is unstacked into
+    ``blocks/<i>`` first (:func:`params_from_jax`'s layout)."""
     from rocket_tpu_torch.parallel.grad_sync import shard_layout
 
+    if "blocks_stacked" in params:
+        params = dict(params)
+        stacked = params.pop("blocks_stacked")
+        leaf = stacked
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        params["blocks"] = {str(i): _unstack(stacked, i) for i in range(np.shape(leaf)[0])}
     items = list(_paths(params))
     layouts = shard_layout([(path, leaf) for path, leaf in items], rule, runtime.mesh,
                            runtime.DATA_AXES)
     out: dict = {}
     for (path, leaf), lay in zip(items, layouts):
+        if lay is not None and lay[0] is None:
+            if lay[2] != runtime.axis_index(lay[1]):
+                continue  # another stage's layer
+            lay = None
         t = leaf if isinstance(leaf, torch.Tensor) else tensor_from_numpy(np.asarray(leaf))
         if lay is not None:
             t = t.chunk(int(runtime.mesh[lay[1]]), lay[0])[runtime.axis_index(lay[1])].clone()
@@ -305,8 +324,9 @@ def local_params(params: dict, rule, runtime) -> dict:
 
 def gather_params(prepared, runtime) -> dict:
     """``{path: tensor}`` of a prepared model's whole params, copies on
-    their device: each sharded leaf all-gathered over its axis's group, so
-    every rank calls it at the same point."""
+    their device: each sharded leaf all-gathered over its axis's group and
+    each other stage's layers broadcast from their stage over the pipe
+    group, so every rank calls it at the same point."""
     import torch.distributed as dist
 
     out = {}
@@ -319,4 +339,16 @@ def gather_params(prepared, runtime) -> dict:
                             group=runtime.axis_group(prepared.shard_axes[i]))
             t = torch.cat(parts, lay[0])
         out["/".join(path)] = t.clone() if lay is None else t
+    if prepared.remote:
+        # Layer by layer: the stage holding a layer broadcasts it over the
+        # pipe group, every other stage receives it.
+        axis = prepared.pipe_axis
+        ranks, group = runtime.axis_ranks(axis), runtime.axis_group(axis)
+        mine = dict(_paths(prepared.state["params"]))
+        for path, shape, dtype, stage in prepared.stage_leaves:
+            buf = (mine[path].detach().clone() if stage == prepared.axis_index[axis]
+                   else torch.empty(shape, dtype=dtype, device=runtime.device))
+            dist.broadcast(buf, src=ranks[stage], group=group)
+            out["/".join(path)] = buf
+        out = {"/".join(path): out["/".join(path)] for path in prepared.full_paths}
     return out

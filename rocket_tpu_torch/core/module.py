@@ -63,10 +63,21 @@ at step entry (and for the eval forward) and its gradient reduce-scatters
 back onto the shard. Global norms (``clip_norm``, the health sentinels'
 gradient, update and param norms) sum each shard over its axis's group
 and count each replicated leaf once, so every rank takes the same skip
-decision. A model with state (BatchNorm) raises in a multi-process run:
-its statistics would be per-rank where the reference's are global
-(sync-BN is ROADMAP Queue A 6 item 2). The pipelined value-and-grad is
-Queue A 6 item 3 (``TransformerConfig.pipeline_axis`` raises there).
+decision. A model with state (BatchNorm) runs its train-mode statistics
+over the global batch (sync-BN, ``nn/layers.bn_act_train``), so the
+running statistics are the same on every rank.
+
+Ring attention (a ``seq`` mesh axis): each rank holds its slice of every
+sequence (``Runtime.shard_batch``), the model's objective is its share of
+the global mean, and ``GradSync`` sums every leaf and the loss over the
+sequence group.
+
+Pipeline parallelism (a ``pipe`` axis and ``pipeline_rules``): each stage
+holds its own layers (the other stages' are named in its checkpoint
+views, each saved by its stage), and the train step is the model's
+``pipelined_value_and_grad`` (GPipe or 1F1B, reference ``core/module.py:
+568-570``); the leaves every stage holds carry partial gradients, summed
+over the pipe group with the loss.
 
 Tensor parallelism (a ``model`` mesh axis and a rule with the
 ``tp_axis`` marker, ``gpt2_tp_rules``): a model-axis shard is never
@@ -120,6 +131,15 @@ def _nest(items) -> dict:
     return tree
 
 
+def _paths_leaves(tree, prefix=()):
+    """``(path tuple, leaf)`` of a nested param dict, in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths_leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
 def _at(tree: dict, path):
     for key in path:
         tree = tree[key]
@@ -161,9 +181,44 @@ class PreparedModule:
         self.shard_axes = None
         self.axis_size, self.axis_index, self.owners = {}, {}, {}
         self.world, self.rank = 1, 0
+        #: Under a pipeline rule: the pipe axis, every layer leaf of the
+        #: whole tree placed on a stage as ``(path, shape, dtype, stage)``,
+        #: and the whole tree's paths (this process holds its stage's).
+        self.pipe_axis = None
+        self.stage_leaves: list = []
+        self.full_paths: list = []
 
     def sharded(self) -> bool:
         return self.shard_dims is not None and any(d is not None for d in self.shard_dims)
+
+    def spread(self) -> bool:
+        """Whether some leaf lives on only some ranks (a shard, or a layer
+        on its pipeline stage): global norms then sum over the groups."""
+        return self.shard_axes is not None and any(a is not None for a in self.shard_axes)
+
+    @property
+    def remote(self) -> list:
+        """The stage leaves of the other stages (held elsewhere)."""
+        if self.pipe_axis is None:
+            return []
+        mine = self.axis_index.get(self.pipe_axis, 0)
+        return [leaf for leaf in self.stage_leaves if leaf[3] != mine]
+
+    def _owner(self, stage: int) -> int:
+        return self.owners[self.pipe_axis][stage]
+
+    def _placeholders(self, like=None) -> list:
+        """``(path, OwnedLeaf)`` of the other stages' layers, each saved by
+        its stage; ``like`` (a local stage leaf's optimizer value) gives a
+        0-dim value's shape and dtype instead of the param's."""
+        from rocket_tpu_torch.runtime.checkpoint_io import OwnedLeaf
+
+        out = []
+        for path, shape, dtype, stage in self.remote:
+            if like is not None and like.dim() == 0:
+                shape, dtype = (), like.dtype
+            out.append((path, OwnedLeaf(None, shape, dtype, self._owner(stage))))
+        return out
 
     def layout(self, i: int):
         """Leaf ``i``'s ``(dim, count, index, owners)``, or None."""
@@ -181,11 +236,16 @@ class PreparedModule:
         """``values`` (one per param of ``leaves``) as the checkpoint sees
         them: a sharded param's shard-shaped value as its
         ``checkpoint_io.ShardedLeaf``."""
-        if not self.sharded():
+        if not self.spread():
             return list(values)
-        from rocket_tpu_torch.runtime.checkpoint_io import ShardedLeaf
+        from rocket_tpu_torch.runtime.checkpoint_io import OwnedLeaf, ShardedLeaf
 
         layout_of = self._layout_of()
+        all_leaves = optim_lib.param_leaves(self.state["params"])
+        staged = {id(p) for p, a, d in zip(all_leaves, self.shard_axes, self.shard_dims)
+                  if a is not None and a == self.pipe_axis and d is None}
+        owner = (self._owner(self.axis_index[self.pipe_axis]) if self.pipe_axis is not None
+                 else 0)
         out = []
         for p, v in zip(leaves, values):
             lay = layout_of.get(id(p))
@@ -194,6 +254,8 @@ class PreparedModule:
                 shape = list(p.shape)
                 shape[dim] *= count
                 v = ShardedLeaf(v, tuple(shape), dim, index, count, owners)
+            elif id(p) in staged and isinstance(v, torch.Tensor):
+                v = OwnedLeaf(v, v.shape, v.dtype, owner)
             out.append(v)
         return out
 
@@ -232,29 +294,37 @@ class PreparedModule:
         leaves = optim_lib.param_leaves(params)
         key = state["base_key"]
         data = state.get("base_key_data")
-        view = {"params": _nest(zip(paths, self._wrap(leaves, [t.detach() for t in leaves]))),
+        remote = self._placeholders()
+        view = {"params": _nest(list(zip(paths, self._wrap(leaves, [t.detach() for t in leaves])))
+                                + remote),
                 "step": int(state["step"]),
                 "base_key": data if data is not None and keys.from_data(data) == key else key}
         if state.get("model_state"):
             view["model_state"] = map_params(lambda t: t.detach(), state["model_state"])
         if "ema_params" in state:
-            view["ema_params"] = _nest(zip(paths, self._wrap(
-                leaves, optim_lib.param_leaves(state["ema_params"]))))
+            view["ema_params"] = _nest(list(zip(paths, self._wrap(
+                leaves, optim_lib.param_leaves(state["ema_params"])))) + remote)
         if "health" in state:
             view["health"] = dict(state["health"])
         opt = state.get("optimizer")
         count = 0
         if opt is not None:
             per_key: dict = {}
+            example: dict = {}
             for p, path in zip(leaves, paths):
                 for k, value in opt.state.get(p, {}).items():
                     if value is not None and not (k == "step" and self.opt_chain is not None):
+                        example.setdefault(k, value)
                         per_key.setdefault(k, []).append((path, self._wrap([p], [value])[0]
-                                                          if self.sharded() else value))
+                                                          if self.spread() else value))
+            for k, value in example.items():
+                per_key[k] += self._placeholders(value if isinstance(value, torch.Tensor)
+                                                 else None)
             view["optimizer"] = {k: _nest(items) for k, items in per_key.items()}
             count = self._count()
         if "grad_accum" in state:
-            view["grad_accum"] = _nest(zip(paths, self._wrap(leaves, state["grad_accum"])))
+            view["grad_accum"] = _nest(list(zip(paths, self._wrap(leaves, state["grad_accum"])))
+                                       + remote)
             view["loss_acc"] = state["loss_acc"]
         return bridge.train_state_to_jax(view, self.opt_chain, count)
 
@@ -390,6 +460,8 @@ class Module(Dispatcher):
         #: Over several ranks: the bucketed reduction
         #: (``parallel.grad_sync.GradSync``) when the step takes it.
         self.grad_sync = None
+        #: A pipelined model's train step (``pipelined_value_and_grad``).
+        self._pipelined = None
         self._split_masks: dict = {}
 
     @property
@@ -423,12 +495,6 @@ class Module(Dispatcher):
             prepared = PreparedModule(self._model, {"params": params})
             runtime.models.add(self._model, prepared)
         state = prepared.state
-        if hasattr(self._model, "init_state") and runtime.process_count > 1:
-            raise NotImplementedError(
-                f"Module: {type(self._model).__name__} keeps model state (BatchNorm statistics), "
-                f"which a {runtime.process_count}-process run would compute per rank where the "
-                "reference computes them over the global batch: sync-BN is not ported yet "
-                "(ROADMAP Queue A 6 item 2)")
         if hasattr(self._model, "init_state"):
             if "model_state" not in state:
                 state["model_state"] = self._model.init_state(device=runtime.device)
@@ -514,20 +580,36 @@ class Module(Dispatcher):
         if model_axis != "model":
             raise NotImplementedError(f"Module: tp_axis {model_axis!r}: the port's model axis is "
                                       "'model'")
-        layouts = gs.shard_layout(zip(_paths(params), leaves), rule, runtime.mesh,
-                                  runtime.DATA_AXES)
+        paths = list(_paths(params))
+        layouts = gs.shard_layout(zip(paths, leaves), rule, runtime.mesh, runtime.DATA_AXES)
         prepared.sharded_by = rule
-        prepared.shard_dims = [None if lay is None else lay[0] for lay in layouts]
-        prepared.shard_axes = [None if lay is None else lay[1] for lay in layouts]
         for axis in runtime.mesh:
             prepared.axis_size[axis] = int(runtime.mesh[axis])
             prepared.axis_index[axis] = runtime.axis_index(axis)
             prepared.owners[axis] = tuple(runtime.axis_owners(axis))
         prepared.world, prepared.rank = runtime.data_axis_size, runtime.data_index
-        local = bridge.local_params(map_params(lambda t: t.detach(), params), rule, runtime)
-        shards = iter([t if lay is None else s.requires_grad_(t.requires_grad) for t, s, lay
-                       in zip(leaves, optim_lib.param_leaves(local), layouts)])
-        prepared.state["params"] = map_params(lambda t: next(shards), params)
+        staged = [(path, tuple(t.shape), t.dtype, lay[2]) for path, t, lay
+                  in zip(paths, leaves, layouts) if lay is not None and lay[0] is None]
+        if staged:
+            prepared.pipe_axis = next(lay[1] for lay in layouts
+                                      if lay is not None and lay[0] is None)
+            prepared.stage_leaves, prepared.full_paths = staged, paths
+        local = dict(_paths_leaves(bridge.local_params(
+            map_params(lambda t: t.detach(), params), rule, runtime)))
+        kept, dims, axes = [], [], []
+        for path, t, lay in zip(paths, leaves, layouts):
+            if path not in local:
+                continue  # another stage's layer
+            whole = lay is None or lay[0] is None
+            kept.append((path, t if whole else local[path].requires_grad_(t.requires_grad)))
+            dims.append(None if lay is None else lay[0])
+            axes.append(None if lay is None else lay[1])
+        prepared.shard_dims, prepared.shard_axes = dims, axes
+        if staged:
+            prepared.state["params"] = _nest(kept)
+        else:  # every leaf kept: map_params keeps the tree's empty subtrees too
+            values = iter([t for _, t in kept])
+            prepared.state["params"] = map_params(lambda t: next(values), params)
 
     def _setup_grad_sync(self, prepared: PreparedModule, opt) -> None:
         """The one reduction of a multi-rank step (``parallel.grad_sync``):
@@ -536,14 +618,24 @@ class Module(Dispatcher):
         ``"auto"`` with the ``fsdp_axis`` marker (the reference's
         ``_grad_sync_plan``); otherwise (``"off"``, ``"auto"`` without it)
         it is an f32 mean all-reduce, the reference's GSPMD reduction. The
-        port reduces every micro-step before it accumulates, and a
-        multi-process run refuses model state, so the reference's
-        accumulation and model-state conditions have no cause here. Under
-        tensor parallelism the model declares which replicated leaves carry
-        partial gradients (``tp_partial``), which then reduce over every
-        rank."""
+        port reduces every micro-step before it accumulates, and sync-BN
+        keeps the model state global, so the reference's accumulation and
+        model-state conditions have no cause here. Under tensor parallelism
+        the model declares which replicated leaves carry partial gradients
+        (``tp_partial``), which then reduce over every rank; under ring
+        attention every leaf and the loss are partial, and under the
+        pipeline every leaf not placed on a stage and the loss are."""
         runtime = self._runtime
         self.grad_sync = None
+        self._pipelined = None
+        cfg = getattr(self._model, "config", None)
+        pipe_axis = getattr(cfg, "pipeline_axis", None)
+        if pipe_axis and runtime.axis_size(pipe_axis) > 1 and prepared.pipe_axis != pipe_axis:
+            raise ValueError(f"Module: {type(self._model).__name__} runs pipelined over "
+                             f"{pipe_axis!r}: lay its params out by stage with "
+                             "param_sharding=parallel.sharding.pipeline_rules()")
+        if pipe_axis:
+            self._pipelined = self._model.pipelined_value_and_grad(self._objective)
         if runtime.process_count <= 1:
             return
         from rocket_tpu_torch.parallel.grad_sync import GradSync
@@ -553,6 +645,12 @@ class Module(Dispatcher):
         dims = [prepared.shard_dims[i] if prepared.shard_axes[i] != "model" else None
                 for i in range(n)] if prepared.shard_dims is not None else [None] * n
         partial = [False] * n
+        loss_partial = False
+        if runtime.seq_axis_size > 1:
+            partial, loss_partial = [True] * n, True
+        if pipe_axis and runtime.axis_size(pipe_axis) > 1:
+            axes = prepared.shard_axes or [None] * n
+            partial, loss_partial = [a is None for a in axes], True
         if runtime.model_axis_size > 1:
             declare = getattr(self._model, "tp_partial", None)
             if declare is None:
@@ -576,11 +674,11 @@ class Module(Dispatcher):
         self.grad_sync = GradSync(shapes, [t.dtype for t in leaves], dims,
                                   runtime.data_axis_size, group=runtime.axis_group("data"),
                                   bucket_bytes=opt.grad_bucket_bytes, wire_dtype=wire,
-                                  partial=partial)
+                                  partial=partial, loss_partial=loss_partial)
         self.log_info(f"train step: bucketed async gradient reduction (wire={wire}, "
                       f"bucket={opt.grad_bucket_bytes >> 20}MiB, "
                       f"{len(self.grad_sync.buckets)} buckets, {sum(partial)} leaves summed over "
-                      "the model group)")
+                      "the model, seq or pipe group)")
 
     def _tp(self):
         """The tensor-parallel context of the ``tp_axis`` marker of the rule
@@ -720,7 +818,7 @@ class Module(Dispatcher):
         None."""
         opt = self._prepared.state["optimizer"]
         decay = None if self._ema_decay is None else 1.0 - self._ema_decay
-        sharded = self._prepared.sharded()
+        sharded = self._prepared.spread()
         if ok is not None:
             update_norm, self.last_lr, norm = optim_lib.gated_step(
                 opt, dict(zip(leaves, grads)), ok, self._lr_fn, self._clip_norm,
@@ -781,17 +879,25 @@ class Module(Dispatcher):
         with torch.enable_grad(), keys.data_shard(runtime.data_index if ranks > 1 else 0), \
                 self._tp():
             params, compute = self._full_params(state["params"], grad=True)
-            if self.grad_sync is not None:
-                self.grad_sync.begin(compute)
-            out = self._forward(params, batch, "train", rng)
-            if "model_state" in state:
-                out, mstate = out
-                state["model_state"] = map_params(lambda t: t.detach(), mstate)
-            loss = self._objective(out).float()
-            # The backward runs inside the block: a remat recompute draws
-            # this rank's dropout masks and issues the forward's
-            # tensor-parallel collectives again.
-            grads = torch.autograd.grad(loss, compute, allow_unused=True)
+            if self._pipelined is not None:
+                # The pipeline computes its gradients over several backward
+                # passes (one a microbatch under 1F1B): the reduction takes
+                # the sums at the end, not the leaves' first hooks.
+                if self.grad_sync is not None:
+                    self.grad_sync.begin(compute, hook=False)
+                loss, out, grads = self._pipelined(params, batch, rng, compute)
+            else:
+                if self.grad_sync is not None:
+                    self.grad_sync.begin(compute)
+                out = self._forward(params, batch, "train", rng)
+                if "model_state" in state:
+                    out, mstate = out
+                    state["model_state"] = map_params(lambda t: t.detach(), mstate)
+                loss = self._objective(out).float()
+                # The backward runs inside the block: a remat recompute draws
+                # this rank's dropout masks and issues the forward's
+                # tensor-parallel and ring collectives again.
+                grads = torch.autograd.grad(loss, compute, allow_unused=True)
         loss = loss.detach()
         if self.grad_sync is not None:
             grads, loss = self.grad_sync.finish(grads, loss)
@@ -802,7 +908,7 @@ class Module(Dispatcher):
         if h is not None:
             tree = {name: [grads[i] for i in idx] for name, idx in h["branches"].items()}
             g_sq = None
-            if self._prepared.sharded():
+            if self._prepared.spread():
                 g_sq = torch.stack([self._sumsq([leaves[i] for i in idx], tree[name])
                                     for name, idx in h["branches"].items()])
             flags = h["lib"].step_flags(loss, tree, g_sq=g_sq)
@@ -850,7 +956,7 @@ class Module(Dispatcher):
             step_ok, loss_ok, grad_branch_ok, health_grad_norm = flags
             with torch.no_grad():
                 p_sq = None
-                if self._prepared.sharded():
+                if self._prepared.spread():
                     p_sq = torch.stack([self._sumsq(*([leaves[i] for i in idx],) * 2)
                                         for idx in h["branches"].values()])
                 state["health"], word, extras = h["lib"].update_sentinels(

@@ -16,10 +16,15 @@ paths route each position as the reference does. Under a
 tensor-parallel context (``parallel/collectives.py``, installed by the
 Module for ``gpt2_tp_rules``) :meth:`TransformerLM.apply` runs the
 residual stream sequence-sharded over the model group (reference
-``rocket_tpu/models/transformer.py:948-1097``). Not ported yet, and
-raising ``NotImplementedError`` where a config asks for them: pipeline
-parallelism, ring attention, and MoE under tensor parallelism (ROADMAP
-Queue A 6 items 3, 4 and 5). ``scan_layers``
+``rocket_tpu/models/transformer.py:948-1097``). On a Runtime with a seq
+axis, ``attention_impl="ring"`` runs each rank's block of every sequence
+(positions, dropout masks and the next-token loss across the blocks'
+edges at their global places). With ``pipeline_axis`` the blocks run as
+pipeline stages over that mesh axis (``parallel/pipeline.py``): GPipe for
+eval and both schedules' training through
+:meth:`TransformerLM.pipelined_value_and_grad`. MoE under tensor, sequence
+or pipeline parallelism raises ``NotImplementedError`` (ROADMAP Queue A 6
+item 5). ``scan_layers``
 keeps the blocks a Python loop (a scanned JAX tree's ``blocks_stacked``
 is unstacked on load); with ``scan_remat`` the train forward checkpoints
 each block under ``scan_remat_policy``, as the reference's scanned body
@@ -36,7 +41,7 @@ from __future__ import annotations
 
 import functools
 import os
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -72,15 +77,6 @@ __all__ = [
 ]
 
 
-#: Unported config fields, each group with the ROADMAP Queue A item that
-#: brings it: ``validate`` raises when one is set off its default.
-_UNPORTED = (
-    (("seq_axis",), "sequence parallelism", "6 item 4"),
-    (("pipeline_axis", "pipeline_microbatches", "pipeline_schedule"), "pipeline parallelism",
-     "6 item 3"),
-)
-
-
 #: The non-batched matrix products a ``"dots"`` remat saves.
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -109,9 +105,10 @@ class TransformerConfig:
     causal: bool = True
     tied_embeddings: bool = True
     #: "auto" | "plain" (alias "xla", the reference's name) | "flash"
-    #: (``nn.attention.resolve_impl``); "ring" is not ported yet and raises.
+    #: (``nn.attention.resolve_impl``) | "ring": the sequence sharded over
+    #: the Runtime's ``seq_axis`` (``parallel/ring_attention.py``).
     attention_impl: str = "auto"
-    #: Mesh axis of impl="ring": not ported yet (must stay "seq").
+    #: Mesh axis of impl="ring".
     seq_axis: str = "seq"
     #: The blocks run as a Python loop either way and a scanned JAX tree's
     #: ``blocks_stacked`` is unstacked on load (``bridge.py``). With
@@ -124,7 +121,11 @@ class TransformerConfig:
     scan_remat: bool = True
     scan_remat_policy: Optional[str] = None
     scan_unroll: int = 1
-    #: Pipeline parallelism: not ported yet (must stay at the defaults).
+    #: Pipeline parallelism: the blocks run as stages over this mesh axis
+    #: (``parallel/pipeline.py``; lay the params out with
+    #: ``parallel.sharding.pipeline_rules``; requires ``scan_layers``),
+    #: in ``pipeline_microbatches`` microbatches (default 2P), on the
+    #: "gpipe" or "1f1b" schedule (the latter's live activations O(P)).
     pipeline_axis: Optional[str] = None
     pipeline_microbatches: Optional[int] = None
     pipeline_schedule: str = "gpipe"
@@ -170,11 +171,6 @@ class TransformerConfig:
             )
         if self.attention_impl not in IMPLS:
             raise ValueError(f"TransformerConfig: unknown attention_impl {self.attention_impl!r}")
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "TransformerConfig: attention_impl='ring' (sequence parallelism) is not ported "
-                "yet (ROADMAP Queue A 6 item 4)"
-            )
         if self.scan_remat_policy not in (None, "dots", "block_io"):
             raise ValueError(f"TransformerConfig: unknown scan_remat_policy "
                              f"{self.scan_remat_policy!r} (None | 'dots' | 'block_io')")
@@ -184,14 +180,13 @@ class TransformerConfig:
         if self.pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"TransformerConfig: unknown pipeline_schedule "
                              f"{self.pipeline_schedule!r} ('gpipe' | '1f1b')")
-        defaults = {f.name: f.default for f in fields(self)}
-        for names, what, queue in _UNPORTED:
-            changed = [n for n in names if getattr(self, n) != defaults[n]]
-            if changed:
-                raise NotImplementedError(
-                    f"TransformerConfig: {what} ({', '.join(changed)} off its default) is not "
-                    f"ported yet (ROADMAP Queue A {queue})"
-                )
+        if self.pipeline_schedule == "1f1b" and self.num_experts > 0:
+            raise ValueError("TransformerConfig: pipeline_schedule='1f1b' does not carry the MoE "
+                             "aux-loss channel; use 'gpipe' for MoE pipelines.")
+        if self.pipeline_schedule == "1f1b" and not self.pipeline_axis:
+            raise ValueError("TransformerConfig: pipeline_schedule='1f1b' requires "
+                             "pipeline_axis — without it the model would silently train "
+                             "unpipelined on the standard O(M)-memory path.")
 
     def norm_cls(self):
         self.validate()
@@ -250,7 +245,7 @@ class Block(Layer):
         self.attn = MultiHeadAttention(
             c.dim, c.num_heads, num_kv_heads=c.num_kv_heads, causal=c.causal,
             dropout=c.dropout, impl=c.attention_impl,
-            rope=c.pos_embedding == "rope", rope_base=c.rope_base,
+            rope=c.pos_embedding == "rope", rope_base=c.rope_base, seq_axis=c.seq_axis,
         )
         self.ln2 = norm_cls(c.dim)
         hidden = c.mlp_ratio * c.dim
@@ -269,10 +264,11 @@ class Block(Layer):
         self.layer_idx = layer_idx
         # The fused ln1 + QKV + attention (+ proj) kernel covers exactly the
         # LayerNorm / learned-positions / MHA / causal / biased layer (the
-        # char-LM shape; ring attention, the reference's other exclusion,
-        # is refused by validate); anything else stays on the per-op chain.
+        # char-LM shape) outside ring attention; anything else stays on the
+        # per-op chain.
         self._block_attn_ok = (
-            c.norm == "layernorm"
+            c.attention_impl != "ring"
+            and c.norm == "layernorm"
             and c.pos_embedding != "rope"
             and c.causal
             and (c.num_kv_heads is None or c.num_kv_heads == c.num_heads)
@@ -347,12 +343,20 @@ class Block(Layer):
 
     @staticmethod
     def _split():
-        """Under tensor parallelism the residual stream is this rank's
-        sequence shard: its dropout masks' place in the global array."""
+        """Where the residual stream's dropout masks sit in the global
+        array: this rank's sequence shard under tensor parallelism or ring
+        attention, a pipeline microbatch's rows (``keys.current_split``),
+        or None."""
         from rocket_tpu_torch.parallel.collectives import current_tp
+        from rocket_tpu_torch.parallel.ring_attention import seq_spec
 
         spec = current_tp()
-        return None if spec is None else (1, spec.index, spec.tp_size)
+        if spec is not None:
+            return (1, spec.index, spec.tp_size)
+        seq = seq_spec()
+        if seq is not None and seq.size > 1:
+            return (1, seq.index, seq.size)
+        return keys.current_split()
 
     def _attn_residual(self, params, x, mode, rngs):
         """``x + dropout(attn(ln1(x)))``: the attention half and its residual."""
@@ -586,26 +590,34 @@ class TransformerLM:
             params["wte"] = {"table": coll.gather_replicated(spec, params["wte"]["table"], 0)}
         return params
 
-    def apply(self, params, batch: dict, *, mode: str = "train", rng=None) -> dict:
-        """The full-sequence forward -> a copy of ``batch`` with ``logits``
-        (or, fused, ``nll``) added. ``rng`` is the step's counter-hash key
-        (``nn/keys.py``); train-mode dropout needs it. The embedding's key
-        is ``fold_in(rng, 0x0E0BED)``, a domain apart from the blocks'
-        ``fold_in(rng, layer_idx)``, as in the reference.
+    def _seq_spec(self):
+        """The sequence group when the current Runtime shards the token dim
+        (a seq axis larger than 1), else None. Only ring attention runs on
+        such a batch here: the other impls' seams over a sharded sequence
+        are ROADMAP Queue A 6 item 6, MoE's item 5."""
+        from rocket_tpu_torch.parallel.ring_attention import seq_spec
 
-        Under a tensor-parallel context the residual stream runs
-        sequence-sharded from the embedding to ``ln_f`` (:meth:`_embed_tp`);
-        then the vocab-parallel head gathers the sequence into this rank's
-        logit columns where the vocab divides and the loss is not fused,
-        else :func:`seq_all_gather` gives every rank the whole sequence for
-        the head (GPT-2: 50257 rows do not divide). The outputs are whole
-        on every rank of the group."""
+        spec = seq_spec()
+        if spec is None or spec.size <= 1:
+            return None
         c = self.config
-        tokens = batch[self.tokens_key]
-        b, t = tokens.shape
-        if t > c.max_seq_len:
-            raise ValueError(f"sequence length {t} > max_seq_len {c.max_seq_len}")
-        spec = self._tp_spec(t)
+        if c.attention_impl != "ring":
+            raise NotImplementedError(
+                f"TransformerLM: attention_impl={c.attention_impl!r} on a batch whose tokens are "
+                "sharded over the seq axis needs the flash mesh seams (ROADMAP Queue A 6 item 6); "
+                "use attention_impl='ring'")
+        if c.num_experts > 0:
+            raise NotImplementedError("TransformerLM: MoE under sequence parallelism is not "
+                                      "ported yet (ROADMAP Queue A 6 item 5)")
+        return spec
+
+    def _embed(self, params, tokens, mode, rng, seq=None, spec=None):
+        """The embedding (tokens, positions, cast, dropout) -> ``(x,
+        split)``: under tensor parallelism this rank's sequence shard, under
+        ring attention this rank's block at its global positions; ``split``
+        places the rows' dropout masks."""
+        c = self.config
+        t = tokens.shape[1]
         split = None
         if spec is not None:
             x = self._embed_tp(spec, params, tokens)
@@ -613,33 +625,25 @@ class TransformerLM:
         else:
             x = self.wte(params["wte"], tokens)
             if self.wpe is not None:
-                x = x + params["wpe"]["table"][:t]
+                offset = 0 if seq is None else seq.index * t
+                x = x + params["wpe"]["table"][offset:offset + t]
+            if seq is not None:
+                split = (1, seq.index, seq.size)
         x = x.to(c.dtype)
         if self.drop is not None:
             x = self.drop.apply({}, x, mode=mode,
                                 rng=None if rng is None else keys.fold_in(rng, 0x0E0BED),
                                 split=split)
-        aux_total = dropped_total = None
-        remat = (c.scan_layers and c.scan_remat and mode == "train"
-                 and torch.is_grad_enabled())
-        for i, block in enumerate(self.blocks):
-            if remat:
-                x, aux = block.apply_remat(params["blocks"][str(i)], x, rng=rng,
-                                           policy=c.scan_remat_policy)
-            else:
-                x, aux = block.apply_aux(params["blocks"][str(i)], x, mode=mode, rng=rng)
-            if aux is not None:
-                aux_total = aux["aux_loss"] if aux_total is None else aux_total + aux["aux_loss"]
-                dropped_total = (aux["frac_dropped"] if dropped_total is None
-                                 else dropped_total + aux["frac_dropped"])
+        return x
+
+    def _head_out(self, params, x, tokens, out: dict, mode: str, spec=None, seq=None) -> dict:
+        """``ln_f``, then the head into ``out``: the fused chunked
+        cross-entropy (``nll``) in train mode with ``loss_chunk``, or under
+        ring attention always (each rank's share of the global mean,
+        across its block's edge), else the logits."""
+        c = self.config
+        t = tokens.shape[1]
         x = self.ln_f(params["ln_f"], x)
-        out = dict(batch)
-        if aux_total is not None:
-            # The pre-weighted router load-balancing loss (next_token_loss
-            # adds it) and the layer-mean fraction of routed pairs that
-            # overflowed expert capacity.
-            out["moe_aux_loss"] = aux_total * c.moe_aux_weight
-            out["moe_frac_dropped"] = dropped_total / c.num_layers
         if c.label_smoothing and mode == "train":
             out["label_smoothing"] = c.label_smoothing
         fused = c.loss_chunk > 0 and mode == "train" and t > 1 and t % c.loss_chunk == 0
@@ -656,6 +660,14 @@ class TransformerLM:
                 return out
             x = coll.seq_all_gather(spec, x)
             params = self._whole_head(spec, params)
+        edge = None
+        if seq is not None and mode == "train":
+            from rocket_tpu_torch.parallel.ring_attention import next_tokens
+
+            # Position T/n - 1 of this block predicts the next block's
+            # first token; the last block's last position has none.
+            edge = (next_tokens(seq, tokens), seq.index == seq.size - 1, t * seq.size)
+            fused = True
         if fused:
             # The head weight is cast once, outside the chunk loop.
             if self.head is not None:
@@ -664,14 +676,192 @@ class TransformerLM:
             else:
                 table = params["wte"]["table"].to(x.dtype)
                 proj = lambda xc: torch.einsum("bcd,vd->bcv", xc, table)  # noqa: E731
-            out["nll"] = _chunked_next_token_nll(x, tokens, c.loss_chunk, proj,
-                                                 c.label_smoothing)
+            chunk = c.loss_chunk if c.loss_chunk > 0 and t % c.loss_chunk == 0 else t
+            out["nll"] = _chunked_next_token_nll(x, tokens, chunk, proj, c.label_smoothing,
+                                                 edge=edge)
         elif self.head is not None:
             out[self.logits_key] = self.head(params["head"], x)
         else:
             out[self.logits_key] = torch.einsum(
                 "btd,vd->btv", x, params["wte"]["table"].to(x.dtype))
         return out
+
+    def apply(self, params, batch: dict, *, mode: str = "train", rng=None) -> dict:
+        """The full-sequence forward -> a copy of ``batch`` with ``logits``
+        (or, fused, ``nll``) added. ``rng`` is the step's counter-hash key
+        (``nn/keys.py``); train-mode dropout needs it. The embedding's key
+        is ``fold_in(rng, 0x0E0BED)``, a domain apart from the blocks'
+        ``fold_in(rng, layer_idx)``, as in the reference.
+
+        Under a tensor-parallel context the residual stream runs
+        sequence-sharded from the embedding to ``ln_f`` (:meth:`_embed_tp`);
+        then the vocab-parallel head gathers the sequence into this rank's
+        logit columns where the vocab divides and the loss is not fused,
+        else :func:`seq_all_gather` gives every rank the whole sequence for
+        the head (GPT-2: 50257 rows do not divide). The outputs are whole
+        on every rank of the group.
+
+        On a Runtime whose seq axis is larger than 1 the batch is this
+        rank's block of every sequence (``Runtime.shard_batch``): positions
+        start at the block's offset, and in train mode the model writes
+        ``nll``, its share of the global next-token mean (eval: the block's
+        logits). With ``pipeline_axis`` the blocks run as GPipe stages
+        (:meth:`_apply_pipelined`; every stage gets the trunk's output);
+        training goes through :meth:`pipelined_value_and_grad`."""
+        c = self.config
+        tokens = batch[self.tokens_key]
+        b, t = tokens.shape
+        spec = self._tp_spec(t)
+        seq = self._seq_spec() if spec is None else None
+        if t * (seq.size if seq is not None else 1) > c.max_seq_len:
+            raise ValueError(f"sequence length {t * (seq.size if seq else 1)} > max_seq_len "
+                             f"{c.max_seq_len}")
+        x = self._embed(params, tokens, mode, rng, seq=seq, spec=spec)
+        aux_total = dropped_total = None
+        if c.pipeline_axis:
+            x = self._apply_pipelined(params, x, mode=mode, rng=rng)
+        else:
+            remat = (c.scan_layers and c.scan_remat and mode == "train"
+                     and torch.is_grad_enabled())
+            for i, block in enumerate(self.blocks):
+                if remat:
+                    x, aux = block.apply_remat(params["blocks"][str(i)], x, rng=rng,
+                                               policy=c.scan_remat_policy)
+                else:
+                    x, aux = block.apply_aux(params["blocks"][str(i)], x, mode=mode, rng=rng)
+                if aux is not None:
+                    aux_total = (aux["aux_loss"] if aux_total is None
+                                 else aux_total + aux["aux_loss"])
+                    dropped_total = (aux["frac_dropped"] if dropped_total is None
+                                     else dropped_total + aux["frac_dropped"])
+        out = dict(batch)
+        if aux_total is not None:
+            # The pre-weighted router load-balancing loss (next_token_loss
+            # adds it) and the layer-mean fraction of routed pairs that
+            # overflowed expert capacity.
+            out["moe_aux_loss"] = aux_total * c.moe_aux_weight
+            out["moe_frac_dropped"] = dropped_total / c.num_layers
+        return self._head_out(params, x, tokens, out, mode, spec=spec, seq=seq)
+
+    # -- pipeline parallelism -----------------------------------------------
+
+    def _pipe_spec(self):
+        """The pipe group of the current Runtime's ``pipeline_axis`` (the
+        reference pins its Runtime's mesh the same way)."""
+        from rocket_tpu_torch.parallel.pipeline import pipe_spec
+        from rocket_tpu_torch.runtime import Runtime
+
+        c = self.config
+        if not c.scan_layers:
+            raise RuntimeError("TransformerConfig.pipeline_axis requires scan_layers=True "
+                               "(stacked block params are the pipeline stages).")
+        if c.num_experts > 0:
+            raise NotImplementedError("TransformerLM: MoE under the pipe axis (GPipe with the "
+                                      "aux channel) is not ported yet (ROADMAP Queue A 6 item 5)")
+        runtime = Runtime.current()
+        if runtime is None or c.pipeline_axis not in runtime.mesh:
+            raise RuntimeError(f"pipeline_axis={c.pipeline_axis!r} needs a live Runtime whose "
+                               "mesh has that axis (e.g. Runtime(mesh_shape={'data': 2, "
+                               "'pipe': 4})).")
+        return pipe_spec(runtime, c.pipeline_axis)
+
+    def _stage_layers(self, params, spec) -> list:
+        """``(layer index, params)`` of the stage's own blocks."""
+        c = self.config
+        if c.num_layers % spec.size:
+            raise ValueError(f"pipeline: {c.num_layers} layers must divide over {spec.size} "
+                             "pipeline stages.")
+        per = c.num_layers // spec.size
+        idx = range(spec.index * per, (spec.index + 1) * per)
+        missing = [i for i in idx if str(i) not in params["blocks"]]
+        if missing:
+            raise RuntimeError(f"pipeline: stage {spec.index} lacks blocks {missing}")
+        return [(i, params["blocks"][str(i)]) for i in idx]
+
+    def _block_apply(self, mode: str, rng):
+        """One block of the pipeline's stages: ``(params, layer index, h) ->
+        h`` (the stage, not the block, is the remat unit there)."""
+        def block_apply(p, i, h):
+            return self.blocks[i].apply_aux(p, h, mode=mode, rng=rng)[0]
+
+        return block_apply
+
+    def _apply_pipelined(self, params, x, *, mode, rng):
+        """The trunk as GPipe stages over ``pipeline_axis`` (reference
+        ``transformer.py:804``), every stage getting the last stage's
+        output. Training runs :meth:`pipelined_value_and_grad` instead."""
+        from rocket_tpu_torch.parallel.pipeline import pipeline_blocks
+
+        if torch.is_grad_enabled() and mode == "train":
+            raise RuntimeError("TransformerLM: a pipelined model trains through "
+                               "pipelined_value_and_grad (the Module's train step)")
+        spec = self._pipe_spec()
+        return pipeline_blocks(self._block_apply(mode, rng), self._stage_layers(params, spec), x,
+                               spec=spec, num_microbatches=self.config.pipeline_microbatches,
+                               remat=False)
+
+    def pipelined_value_and_grad(self, objective):
+        """The pipelined train step (``Module`` calls it when present;
+        reference ``transformer.py:832``) -> ``fn(params, batch, rng,
+        leaves) -> (loss, out, grads)``: the loss this rank holds (the last
+        stage's mean over its stripe, 0 elsewhere), a copy of ``batch``
+        with ``nll``, and the gradients of ``leaves`` (the step's param
+        leaves; None where a leaf got none). None without
+        ``pipeline_axis``.
+
+        The embedding runs on every stage (stage 0 differentiates it with
+        the cotangent its stage sends back); under ``"gpipe"`` the
+        microbatches flow through :func:`pipeline_blocks` and autograd
+        runs the reverse schedule from the last stage's loss; under
+        ``"1f1b"`` :func:`pipeline_train_1f1b` runs each microbatch's
+        ``ln_f`` + head + loss on the last stage and its backward inside
+        the schedule. The objective must read ``batch["nll"]``
+        (``next_token_loss`` does)."""
+        c = self.config
+        if not c.pipeline_axis:
+            return None
+        from rocket_tpu_torch.parallel import pipeline as pl
+
+        def vag(params, batch, rng, leaves):
+            spec = self._pipe_spec()
+            tokens = batch[self.tokens_key]
+            m = c.pipeline_microbatches or 2 * spec.size
+            leaves = list(leaves)
+            with torch.set_grad_enabled(spec.index == 0):
+                x = self._embed(params, tokens, "train", rng)
+            layers = self._stage_layers(params, spec)
+            block_apply = self._block_apply("train", rng)
+            if c.pipeline_schedule == "1f1b":
+                mb_tokens = tokens.chunk(m, 0)
+
+                def tail_fn(h, mb):
+                    out_mb = {self.tokens_key: mb_tokens[mb]}
+                    return objective(self._head_out(params, h, mb_tokens[mb], out_mb, "train"))
+
+                loss, grads, dx = pl.pipeline_train_1f1b(block_apply, layers, x, tail_fn, leaves,
+                                                         spec=spec, num_microbatches=m)
+                if dx is not None:
+                    emb = torch.autograd.grad(x, leaves, dx.to(x.dtype), allow_unused=True)
+                    grads = [g if e is None else (e if g is None else g + e)
+                             for g, e in zip(grads, emb)]
+            else:
+                anchor = torch.zeros((), device=x.device, requires_grad=True)
+                y = pl.pipeline_blocks(block_apply, layers, x, spec=spec, num_microbatches=m,
+                                       remat=c.scan_remat, anchor=anchor, broadcast=False)
+                if spec.last:
+                    loss = objective(self._head_out(params, y, tokens,
+                                                    {self.tokens_key: tokens}, "train")).float()
+                else:
+                    loss = y
+                grads = list(torch.autograd.grad(loss, leaves + [anchor],
+                                                 allow_unused=True))[:-1]
+                loss = loss.detach() if spec.last else torch.zeros_like(loss.detach())
+            pl.finish()
+            out = dict(batch)
+            out["nll"] = loss
+            return loss, out, grads
+
+        return vag
 
     # -- incremental decoding ---------------------------------------------
 
@@ -742,23 +932,36 @@ def _chunk_nll(x_c, y_c, m_c, proj, label_smoothing):
     return ((lse - lab) * m_c).sum()
 
 
-def _chunked_next_token_nll(x, tokens, chunk: int, proj, label_smoothing: float = 0.0):
+def _chunked_next_token_nll(x, tokens, chunk: int, proj, label_smoothing: float = 0.0,
+                            edge=None):
     """Mean next-token NLL without materializing (B, T, V) logits.
 
     Each T-chunk's head projection + f32 softmax-CE runs under
     ``torch.utils.checkpoint``, so the backward recomputes the chunk's
     logits and only x (B, T, D) is kept. Position i predicts tokens[i+1];
     the last position has no target and is masked, and the sum is divided
-    by ``b * (t - 1)`` — the mean of ``next_token_loss`` exactly."""
+    by ``b * (t - 1)`` — the mean of ``next_token_loss`` exactly.
+
+    ``edge = (next_first, last, t_total)`` for one block of a sequence
+    sharded over ring attention's ranks: the block's last position
+    predicts ``next_first`` (the next block's first tokens), unless the
+    block is the ``last``, and the sum is divided by ``b * (t_total - 1)``,
+    so the ranks' values add up to the global mean."""
     b, t, _ = x.shape
-    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
-    mask = (torch.arange(t, device=x.device) < t - 1).float()
+    if edge is None:
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+        valid, denom = t - 1, b * (t - 1)
+    else:
+        next_first, last, t_total = edge
+        targets = torch.cat([tokens[:, 1:], next_first[:, None].to(tokens.dtype)], dim=1).long()
+        valid, denom = (t - 1 if last else t), b * (t_total - 1)
+    mask = (torch.arange(t, device=x.device) < valid).float()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, t, chunk):
         sl = slice(c0, c0 + chunk)
         total = total + checkpoint(_chunk_nll, x[:, sl], targets[:, sl], mask[sl], proj,
                                    label_smoothing, use_reentrant=False)
-    return total / (b * (t - 1))
+    return total / denom
 
 
 def next_token_loss(logits_key: str = "logits", tokens_key: str = "tokens"):
@@ -837,6 +1040,8 @@ def generate(
     through :meth:`TransformerLM.apply` in eval mode (on CUDA: the flash
     kernels) — O(T^2) per token, but it exercises the training forward."""
     device = resolve_device(device)
+    if use_cache and model.config.attention_impl == "ring":
+        use_cache = False  # as the reference: the ring fills no dense KV cache
     prompt = torch.as_tensor(np.asarray(prompt_tokens, np.int32))
     if prompt.dim() == 1:
         prompt = prompt[None, :]

@@ -5,9 +5,10 @@ the fused QKV projection, RoPE, the training forward
 (:meth:`MultiHeadAttention._apply_tp`: one gather feeding q, k and v on
 this rank's heads, the output projection reduce-scattered), the
 dense-cache decode step (:meth:`MultiHeadAttention.apply_cached`) and the
-paged-pool step (:meth:`MultiHeadAttention.apply_paged`).
-
-Ring attention is not ported yet (ROADMAP Queue A 6 item 4).
+paged-pool step (:meth:`MultiHeadAttention.apply_paged`), and the ring
+path (:meth:`MultiHeadAttention._apply_ring`, ``impl="ring"``): the
+sequence sharded over the Runtime's seq axis, K/V rotating around its
+ring (``parallel/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -44,12 +45,7 @@ def resolve_impl(impl: str, d: int, device) -> str:
     where no kernel exists. T needs no rule: the kernels take any T (the
     reference's 128-multiple block rule is a TPU rule). Explicit impls pass
     through (an explicit "flash" past D = 128 raises in the kernel
-    wrapper); "ring" is not ported yet."""
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention impl='ring' (sequence parallelism) is not ported yet (ROADMAP Queue A 6 "
-            "item 4)"
-        )
+    wrapper; "ring" is :meth:`MultiHeadAttention._apply_ring`'s)."""
     if impl != "auto":
         return impl
     if torch.device(device).type == "cpu" or not flash_supported(d):
@@ -150,6 +146,7 @@ class MultiHeadAttention(Layer):
         impl: str = "auto",
         rope: bool = False,
         rope_base: float = 10000.0,
+        seq_axis: str = "seq",
     ):
         if features % num_heads:
             raise ValueError(
@@ -163,6 +160,8 @@ class MultiHeadAttention(Layer):
                 f"MultiHeadAttention: num_kv_heads {num_kv_heads} must be a positive "
                 f"divisor of num_heads {num_heads}"
             )
+        if num_kv_heads != num_heads and impl == "ring":
+            raise ValueError("MultiHeadAttention: impl='ring' requires num_kv_heads == num_heads")
         if rope and (features // num_heads) % 2:
             raise ValueError("MultiHeadAttention: rope needs an even head_dim")
         self.features = features
@@ -174,6 +173,7 @@ class MultiHeadAttention(Layer):
         self.impl = impl
         self.rope = rope
         self.rope_base = rope_base
+        self.seq_axis = seq_axis
         self.qkv = Dense(features, (num_heads + 2 * num_kv_heads) * self.head_dim, use_bias)
         self.proj = Dense(features, features, use_bias)
 
@@ -201,14 +201,16 @@ class MultiHeadAttention(Layer):
         mask = keys.dropout_mask(keys.fold_in(rng, 1), keep, out.shape, out.device, split)
         return torch.where(mask, out / keep, torch.zeros((), dtype=out.dtype, device=out.device))
 
-    def _rotate(self, q2, k2, h, h_kv):
+    def _rotate(self, q2, k2, h, h_kv, offset: int = 0):
         """RoPE on feature-major ``(B, T, h*D)`` q and ``(B, T, h_kv*D)`` k
-        (as they are without ``rope``)."""
+        (as they are without ``rope``) at positions ``offset ..
+        offset+T``."""
         if not self.rope:
             return q2, k2
         b, t, d = q2.shape[0], q2.shape[1], self.head_dim
-        return (apply_rope_bthd(q2.reshape(b, t, h, d), 0, self.rope_base).reshape(b, t, h * d),
-                apply_rope_bthd(k2.reshape(b, t, h_kv, d), 0,
+        return (apply_rope_bthd(q2.reshape(b, t, h, d), offset,
+                                self.rope_base).reshape(b, t, h * d),
+                apply_rope_bthd(k2.reshape(b, t, h_kv, d), offset,
                                 self.rope_base).reshape(b, t, h_kv * d))
 
     def _core(self, q2, k2, v2, h, h_kv, device):
@@ -262,10 +264,46 @@ class MultiHeadAttention(Layer):
         return coll.matmul_reduce_scatter(spec, out.reshape(b, t, h * d), pp["w"].to(dt),
                                           bias=pp["b"].to(dt) if "b" in pp else None)
 
+    def _ring_spec(self):
+        """The sequence group of ``impl="ring"``: the current Runtime's (a
+        group of one where its seq axis has size 1), as the reference pins
+        its Runtime's mesh."""
+        from rocket_tpu_torch.parallel.ring_attention import seq_spec
+        from rocket_tpu_torch.runtime import Runtime
+
+        runtime = Runtime.current()
+        if runtime is None or runtime.seq_axis != self.seq_axis:
+            raise RuntimeError("MultiHeadAttention(impl='ring') needs a live Runtime whose mesh "
+                               f"has a {self.seq_axis!r} axis (e.g. Runtime(mesh_shape="
+                               f"{{'data': 2, '{self.seq_axis}': 4}})).")
+        return seq_spec(runtime)
+
+    def _apply_ring(self, params, x: torch.Tensor, mode: str, rng) -> torch.Tensor:
+        """The sequence-parallel path (reference ``attention.py:391-420``):
+        ``x`` is this rank's block ``(B, T/n, D)`` of every sequence; RoPE
+        rotates at the block's global positions, K/V rotate around the seq
+        group's ring (``parallel/ring_attention.py``), and the output
+        dropout draws the block's part of the global mask."""
+        from rocket_tpu_torch.parallel.ring_attention import ring_attention
+
+        spec = self._ring_spec()
+        b, t, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        fused = self.qkv(params["qkv"], x)
+        q2, k2 = self._rotate(fused[..., :h * d], fused[..., h * d:2 * h * d], h, h,
+                              offset=spec.index * t)
+        q, k, v = (u.reshape(b, t, h, d).transpose(1, 2)
+                   for u in (q2, k2, fused[..., 2 * h * d:]))
+        out = ring_attention(q, k, v, spec, causal=self.causal).transpose(1, 2)
+        split = (1, spec.index, spec.size) if spec.size > 1 else None
+        out = self._attn_dropout(out, mode, rng, split=split)
+        return self.proj(params["proj"], out.reshape(b, t, self.features))
+
     def apply(self, params, x: torch.Tensor, *, mode: str = "train", rng=None) -> torch.Tensor:
         """Full-sequence attention ``(B, T, D) -> (B, T, D)``; under an
         active tensor-parallel context, :meth:`_apply_tp` on the sequence
-        shard.
+        shard; with ``impl="ring"``, :meth:`_apply_ring` on this rank's
+        block of the sequence.
 
         The flash path keeps operands feature-major: MHA without RoPE runs
         :func:`flash_fused` on the QKV projection output itself; RoPE or
@@ -274,6 +312,8 @@ class MultiHeadAttention(Layer):
         spec = self._tp_spec()
         if spec is not None:
             return self._apply_tp(spec, params, x, mode, rng)
+        if self.impl == "ring":
+            return self._apply_ring(params, x, mode, rng)
         b, t, _ = x.shape
         fused = self.qkv(params["qkv"], x)
         h, h_kv, d = self.num_heads, self.num_kv_heads, self.head_dim
@@ -283,7 +323,7 @@ class MultiHeadAttention(Layer):
             hw, kvw = h * d, h_kv * d
             q2, k2 = self._rotate(fused[..., :hw], fused[..., hw:hw + kvw], h, h_kv)
             out = self._core(q2, k2, fused[..., hw + kvw:], h, h_kv, x.device)
-        out = self._attn_dropout(out, mode, rng)
+        out = self._attn_dropout(out, mode, rng, split=keys.current_split())
         return self.proj(params["proj"], out.reshape(b, t, self.features))
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None) -> dict:

@@ -22,7 +22,12 @@ of the global array. Under tensor parallelism a rank holds a sequence
 shard ``(B, T/n, D)`` or a head shard ``(B, T, H/n, Dh)``, not a
 contiguous run of the global elements: :func:`dropout_mask` with a
 ``split`` maps each local element to its global index, so the ranks of a
-model group together draw exactly the one-rank run's masks.
+model group together draw exactly the one-rank run's masks. A sequence
+rank's activations are a chunk of dim 1 the same way, and a pipeline
+microbatch a chunk of dim 0 of its data stripe; the pipeline runs each
+microbatch under :func:`activation_split`, which the layers read
+(:func:`current_split`), so a pipelined run draws its unpipelined run's
+masks.
 
 The bits cannot match JAX's; the tests compare distributions and the
 forward/recompute identity, and run the JAX comparisons with dropout 0.
@@ -45,7 +50,8 @@ import torch
 from rocket_tpu_torch.models.sampling import _mix, _mix_int
 
 __all__ = ["key", "fold_in", "split", "uniform", "bernoulli", "to_data", "from_data",
-           "data_shard", "shard_offset", "global_index", "dropout_mask"]
+           "data_shard", "shard_offset", "global_index", "dropout_mask", "activation_split",
+           "current_split"]
 
 _M32 = 0xFFFFFFFF
 
@@ -95,6 +101,28 @@ def data_shard(index: int):
         _DATA_SHARD[0] = previous
 
 
+#: The chunk of the rank's activations a layer is running on, ``(dim,
+#: index, count)``, or None; process-wide, as :data:`_DATA_SHARD`.
+_SPLIT = [None]
+
+
+@contextlib.contextmanager
+def activation_split(split):
+    """Run the block on chunk ``split = (dim, index, count)`` of this
+    rank's activations (a pipeline microbatch: ``(0, m, M)``); None for the
+    whole. The previous split is put back after."""
+    previous, _SPLIT[0] = _SPLIT[0], None if split is None else tuple(int(v) for v in split)
+    try:
+        yield
+    finally:
+        _SPLIT[0] = previous
+
+
+def current_split():
+    """The :func:`activation_split` in force, or None."""
+    return _SPLIT[0]
+
+
 def shard_offset(numel: int) -> int:
     """The global index of this rank's first element of a batch-led tensor
     of ``numel`` local elements (0 outside :func:`data_shard`)."""
@@ -129,7 +157,7 @@ def global_index(shape, device, split) -> torch.Tensor:
     strides = [1] * len(gshape)
     for d in range(len(gshape) - 2, -1, -1):
         strides[d] = strides[d + 1] * gshape[d + 1]
-    idx = torch.full((1,) * len(shape), _DATA_SHARD[0] * shape[0] * strides[0],
+    idx = torch.full((1,) * len(shape), _DATA_SHARD[0] * gshape[0] * strides[0],
                      dtype=torch.int64, device=device)
     for d, n in enumerate(shape):
         start = index * n if d == dim else 0

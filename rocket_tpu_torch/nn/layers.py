@@ -295,9 +295,79 @@ def _fused_conv_config(n: int, c: int, dtype: torch.dtype) -> dict:
     return get_config("fused_conv", shape={"n": n, "c": c}, dtype=dtype) or {}
 
 
+#: Sync-BN's collectives in this process (:func:`bn_act_train` over
+#: several data ranks): one all-reduce per forward and per backward.
+SYNC_BN_STATS = {"all_reduces": 0}
+
+
+def _sync_group():
+    """``(group, data ranks)`` of the current Runtime when its data axis
+    spans more than one rank (sync-BN), else None."""
+    from rocket_tpu_torch.runtime import Runtime
+
+    runtime = Runtime.current()
+    if runtime is None or runtime.data_axis_size <= 1 or not runtime.grouped:
+        return None
+    return runtime.axis_group("data"), runtime.data_axis_size
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=group)
+    SYNC_BN_STATS["all_reduces"] += 1
+    return t
+
+
+class SyncBnAct(torch.autograd.Function):
+    """Train-mode BN(+relu) over the global batch of ``ranks`` data ranks
+    (``rocket_tpu/nn/layers.py:294``'s path under a data-sharded batch):
+    ``apply(x2, scale, bias, eps, act, group, ranks)`` -> ``(y, stats)``.
+    The forward all-reduces the stacked (C, 2) sums ``[Σx, Σx²]`` over
+    ``group`` and divides by the global row count, so ``stats`` (the
+    running averages' input) are the global batch's on every rank; the
+    backward all-reduces the stacked (C, 2) ``[Σdy, Σdy·x̂]`` and takes
+    ``dx`` from the global sums over the global count (the reference's
+    ``_bn_train_bwd``), while ``d_scale``/``d_bias`` are this rank's sums,
+    which the gradient reduction means over the ranks like any other
+    param's (each rank's loss is its stripe's mean)."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps, act, group, ranks):
+        xf = x2.float()
+        n = x2.shape[0] * ranks
+        sums = _all_reduce(torch.stack([xf.sum(0), xf.square().sum(0)], dim=-1), group)
+        stats = sums / n
+        mi = fused_conv.epilogue_rows(stats, scale, bias, eps)
+        y = fused_conv.bn_normalize_plain(x2, mi, act=act)
+        ctx.save_for_backward(x2, scale, bias, mi[0], mi[1])
+        ctx.act, ctx.group, ctx.n = act, group, n
+        ctx.mark_non_differentiable(stats)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, dy, _dstats):
+        x2, scale, bias, mean, inv = ctx.saved_tensors
+        dyf = dy.float()
+        xhat = (x2.float() - mean) * inv
+        if ctx.act:
+            dyf = torch.where(xhat * scale + bias > 0, dyf, torch.zeros((), device=dyf.device))
+        local = torch.stack([dyf.sum(0), (dyf * xhat).sum(0)], dim=-1)
+        sums = _all_reduce(local.clone(), ctx.group)
+        n = ctx.n
+        dx = (scale * inv) * (dyf - sums[:, 0] / n - xhat * (sums[:, 1] / n))
+        return dx.to(x2.dtype), local[:, 1], local[:, 0], None, None, None, None
+
+
 def bn_act_train(x, scale, bias, eps: float, act: bool = False):
     """Train-mode BN with an optionally fused relu — the conv stack's seam
     (the reference's gate, ``rocket_tpu/nn/layers.py:294-348``).
+
+    Over several data ranks (the current Runtime's data axis) the
+    statistics are the global batch's: sync-BN (:class:`SyncBnAct`), on
+    the reference path, whatever the table or ``ROCKET_TPU_FUSED_CONV``
+    say, as the reference's gate keeps multi-device traces off the fused
+    kernels (``rocket_tpu/ops/fused_conv.py:35-39``).
 
     The impl comes from the ``fused_conv`` tune table
     (:func:`_fused_conv_config`, shipped empty, as the reference's), so it is
@@ -313,6 +383,11 @@ def bn_act_train(x, scale, bias, eps: float, act: bool = False):
     like :func:`_bn_train`."""
     c = x.shape[-1]
     n = x.numel() // c
+    sync = _sync_group()
+    if sync is not None:
+        y, stats = SyncBnAct.apply(x.reshape(-1, c), scale.float(), bias.float(), float(eps),
+                                   bool(act), *sync)
+        return y.reshape(x.shape), stats
     config = _fused_conv_config(n, c, x.dtype)
     forced = os.environ.get("ROCKET_TPU_FUSED_CONV")
     impl = forced or config.get("impl", "reference")

@@ -34,6 +34,8 @@ mode (the port's own values; unset or ``1`` is ``"auto"``).
 Gloo's point-to-point ops take host tensors only. Over gloo a ring hop
 of a CUDA chunk stages it through host memory explicitly (logged once,
 and ``STATS["staged"]`` says so); it never turns into a bulk collective.
+:class:`Hop` is that staged transfer, which ring attention and the
+pipeline also send their blocks and activations through.
 
 The context (:func:`tp_overlap`) is installed by ``core/module.py`` when
 the Module's ``param_sharding`` rule carries the ``tp_axis`` marker
@@ -65,7 +67,7 @@ __all__ = [
     "OverlapSpec", "overlap_enabled", "overlap_mode", "grad_wire_dtype", "tp_overlap",
     "current_tp", "all_gather_matmul", "matmul_reduce_scatter", "qkv_fused_views",
     "embed_lookup_sharded", "vocab_lookup", "seq_all_gather", "seq_shard", "gather_replicated",
-    "STATS", "reset_stats",
+    "STATS", "reset_stats", "Hop",
 ]
 
 logger = logging.getLogger(__name__)
@@ -230,35 +232,71 @@ def _own(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.chunk(spec.tp_size, dim)[spec.index].contiguous()
 
 
-class _Hop:
-    """One ring hop started: send ``t`` to the next rank and receive the
-    previous rank's chunk of the same shape; :meth:`wait` returns it. Gloo's
+class Hop:
+    """Point-to-point transfers started together: each ``(tensor, rank)``
+    of ``sends`` goes to that global rank, and each ``(like, rank)`` of
+    ``recvs`` receives a tensor of ``like``'s shape, dtype and device from
+    it (a third item, a tag, matches a send to its receive whatever the
+    order); :meth:`wait` returns the received tensors in order. Gloo's
     point-to-point ops take host tensors only (a CUDA pointer reaches its
-    socket write and breaks the pair), so over gloo a CUDA chunk crosses
-    through host memory, explicitly."""
+    socket write and breaks the pair), so over gloo a CUDA tensor crosses
+    through host memory, explicitly. ``stats`` (default :data:`STATS`)
+    counts the bytes sent and the seconds waited; ``what`` names the path
+    in the one warning that staging logs."""
+
+    def __init__(self, group, sends=(), recvs=(), stats: Optional[dict] = None,
+                 what: str = "tensor parallelism") -> None:
+        dist = _dist()
+        self.stats = STATS if stats is None else stats
+        staged = dist.get_backend(group) == "gloo"
+        ops = []
+        for t, rank, *tag in sends:
+            payload = _bits(t)
+            if payload.is_cuda and staged:
+                self._note_staged(what)
+                # The staging copy is the transfer itself (module docstring).
+                payload = payload.cpu()  # rocketlint: disable=RKT103
+            self.stats["wire_bytes"] += payload.numel() * payload.element_size()
+            ops.append(dist.P2POp(dist.isend, payload, rank, group=group, tag=tag[0] if tag else 0))
+        self.bufs = []
+        for like, rank, *tag in recvs:
+            buf = _bits(torch.empty_like(like))
+            if buf.is_cuda and staged:
+                buf = torch.empty_like(buf, device="cpu")
+            self.bufs.append((buf, like.dtype, like.device))
+            ops.append(dist.P2POp(dist.irecv, buf, rank, group=group, tag=tag[0] if tag else 0))
+        self.works = dist.batch_isend_irecv(ops) if ops else []
+
+    def _note_staged(self, what: str) -> None:
+        if not self.stats.get("staged"):
+            self.stats["staged"] = True
+            logger.warning("%s: gloo takes no point-to-point CUDA tensors; its hops are staged "
+                           "through host memory", what)
+
+    def wait(self) -> list:
+        t0 = time.perf_counter()
+        for work in self.works:
+            work.wait()
+        self.stats["wait_s"] += time.perf_counter() - t0
+        out = []
+        for buf, dtype, device in self.bufs:
+            t = _unbits(buf, dtype)
+            out.append(t.to(device) if t.device != device else t)
+        return out
+
+
+class _Hop(Hop):
+    """One ring hop of the model group started: send ``t`` to the next
+    rank and receive the previous rank's chunk of the same shape;
+    :meth:`wait` returns it."""
 
     def __init__(self, spec: OverlapSpec, t: torch.Tensor) -> None:
-        dist = _dist()
         n, d = spec.tp_size, spec.index
-        self.dtype, self.device = t.dtype, t.device
-        payload = _bits(t)
-        if payload.is_cuda and dist.get_backend(spec.group) == "gloo":
-            if not STATS["staged"]:
-                STATS["staged"] = True
-                logger.warning("tensor parallelism: gloo takes no point-to-point CUDA tensors; "
-                               "the ring's hops are staged through host memory")
-            payload = payload.cpu()
-        self.buf = torch.empty_like(payload)
-        _sent(payload)
-        ops = [dist.P2POp(dist.isend, payload, spec.ranks[(d + 1) % n], group=spec.group),
-               dist.P2POp(dist.irecv, self.buf, spec.ranks[(d - 1) % n], group=spec.group)]
-        self.works = dist.batch_isend_irecv(ops)
+        super().__init__(spec.group, [(t, spec.ranks[(d + 1) % n])],
+                         [(t, spec.ranks[(d - 1) % n])])
 
     def wait(self) -> torch.Tensor:
-        for work in self.works:
-            _wait(work)
-        out = _unbits(self.buf, self.dtype)
-        return out.to(self.device) if out.device != self.device else out
+        return super().wait()[0]
 
 
 def _ring_gather(spec: OverlapSpec, chunk: torch.Tensor, on_chunk) -> list:

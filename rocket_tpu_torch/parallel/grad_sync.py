@@ -25,6 +25,13 @@ reduces them over the process group as the backward retires them:
   parallelism, which GSPMD sums for the reference) reduces over every rank
   instead: the sum over the model group and the mean over the data group
   in one all-reduce of its own buckets;
+* **ring attention** (a ``seq`` axis): every leaf is replicated and every
+  rank's gradient covers its own tokens, so every leaf is partial, and the
+  loss too (``loss_partial``: each rank's share of the global mean);
+* **pipeline** (a ``pipe`` axis): a stage's own layers reduce over the
+  data group only; the leaves every stage holds but only some use (the
+  embeddings, ``ln_f``, the head) are partial, and so is the loss, which
+  only the last stage computes;
 * **wire precision**: payloads cross at ``wire_dtype`` (bf16 by default)
   while params stay f32 masters, and every bucket gets the **f32
   bucket-sum correction**: each bucket's true f32 sum rides one stacked
@@ -54,8 +61,7 @@ __all__ = ["bucket_plan", "shard_layout", "shard_dims", "gather_full", "GradSync
 NOT_PORTED = "ROADMAP Queue A 6"
 
 #: The ROADMAP Queue A 6 item of each unported mesh axis.
-AXIS_ITEMS = {"pipe": "pipeline parallelism (item 3)", "seq": "ring attention (item 4)",
-               "expert": "expert parallelism (item 5)"}
+AXIS_ITEMS = {"expert": "expert parallelism (item 5)"}
 
 
 def _itemsize(dtype) -> int:
@@ -92,24 +98,56 @@ def bucket_plan(leaves: Sequence, bucket_bytes: int) -> list:
     return buckets
 
 
+def _stages(named_leaves, specs, mesh: dict) -> dict:
+    """``{layer: stage}`` of the :class:`~rocket_tpu_torch.parallel.sharding.
+    LayerStage` specs: L layers split evenly over the P stages of their
+    axis, layer ``i`` on stage ``i // (L / P)``."""
+    layers = sorted({spec.layer for spec in specs if hasattr(spec, "layer")})
+    if not layers:
+        return {}
+    axis = next(spec.axis for spec in specs if hasattr(spec, "layer"))
+    if axis not in mesh:
+        raise NotImplementedError(f"param_sharding: layers placed over {axis!r}, which the "
+                                  f"mesh {dict(mesh)} lacks (pipeline parallelism needs "
+                                  "mesh_shape={'data': d, 'pipe': p})")
+    n_stages = int(mesh[axis])
+    if len(layers) % n_stages:
+        raise ValueError(f"pipeline: {len(layers)} layers must divide over {n_stages} pipeline "
+                         "stages.")
+    per = len(layers) // n_stages
+    return {layer: k // per for k, layer in enumerate(layers)}
+
+
 def shard_layout(named_leaves, spec_fn, mesh: dict, data_axes=("data",),
                  model_axis: str = "model") -> list:
     """Per ``(path tuple, leaf)``: ``(dim, axis)``, the dim the rule set
     ``spec_fn`` shards the leaf on and the mesh axis (a data axis or
-    ``model_axis``), or None (replicated: no rule, no spec, an axis of size
-    1, or a dim that does not divide over it, as the reference falls back).
-    A spec naming another axis, an axis the mesh lacks, or two axes on one
-    leaf raises."""
+    ``model_axis``), ``(None, axis, stage)`` for a layer's leaf placed
+    whole on a pipeline stage (``sharding.layer_stage``), or None (replicated:
+    no rule, no spec, an axis of size 1, or a dim that does not divide over
+    it, as the reference falls back). A spec naming another axis, an axis
+    the mesh lacks, or two axes on one leaf raises."""
+    from rocket_tpu_torch.parallel.sharding import layer_stage
+
+    named_leaves = list(named_leaves)
+    specs = [spec_fn(tuple(path), leaf) if spec_fn is not None else None
+             for path, leaf in named_leaves]
+    specs = [spec if spec is not None else layer_stage(spec_fn, tuple(path))
+             for (path, _), spec in zip(named_leaves, specs)]
+    stage_of = _stages(named_leaves, specs, mesh)
     out = []
-    for path, leaf in named_leaves:
-        spec = spec_fn(tuple(path), leaf) if spec_fn is not None else None
+    for (path, leaf), spec in zip(named_leaves, specs):
+        if hasattr(spec, "layer"):
+            out.append((None, spec.axis, stage_of[spec.layer]) if int(mesh[spec.axis]) > 1
+                       else None)
+            continue
         found = []
         for d, entry in enumerate(spec or ()):
             if entry is None:
                 continue
             for axis in (entry if isinstance(entry, (tuple, list)) else (entry,)):
                 name = "/".join(path)
-                if axis not in data_axes and axis != model_axis:
+                if axis not in data_axes and axis not in (model_axis, "pipe"):
                     raise NotImplementedError(
                         f"param_sharding: {name} is sharded over {axis!r}: "
                         f"{AXIS_ITEMS.get(axis, 'that axis')} is not ported yet ({NOT_PORTED})")
@@ -183,8 +221,10 @@ class GradSync:
     """The bucketed reduction of one param list: ``shapes`` and ``dtypes``
     of the leaves as the backward sees them (whole, or this rank's model
     shard), ``dims`` their data-axis shard dims (:func:`shard_layout`),
-    ``world`` the data ranks (the mean's divisor) over ``group``, and
-    ``partial`` which replicated leaves reduce over every rank instead.
+    ``world`` the data ranks (the mean's divisor) over ``group``,
+    ``partial`` which replicated leaves reduce over every rank instead, and
+    ``loss_partial`` whether the loss does too (each rank's loss its share
+    of its data row's mean: a sequence slice's, or the last stage's).
     Per step, :meth:`begin` hooks the leaves the backward differentiates,
     and :meth:`finish` takes the backward's
     gradients and the local loss and returns the reduced gradients (shard
@@ -197,8 +237,9 @@ class GradSync:
 
     def __init__(self, shapes: Sequence, dtypes: Sequence, dims: Sequence, world: int,
                  group=None, bucket_bytes: int = 4 << 20, wire_dtype="bfloat16",
-                 partial: Optional[Sequence[bool]] = None) -> None:
+                 partial: Optional[Sequence[bool]] = None, loss_partial: bool = False) -> None:
         self.world = int(world)
+        self.loss_partial = bool(loss_partial)
         self.group = group
         self.dims = list(dims)
         self.shapes = [tuple(s) for s in shapes]
@@ -240,12 +281,15 @@ class GradSync:
     def _narrows(self, dtype) -> bool:
         return self.wire is not None and _itemsize(self.wire) < _itemsize(dtype)
 
-    def begin(self, leaves: Sequence[torch.Tensor]) -> None:
+    def begin(self, leaves: Sequence[torch.Tensor], hook: bool = True) -> None:
         """Hook each leaf that needs a gradient: the hook records the
         gradient and issues every unit that is complete and whose
-        predecessors were issued."""
+        predecessors were issued. ``hook=False``: the step's gradients all
+        arrive at :meth:`finish`."""
         self._reset()
         self.stats["wire_bytes"] = 0
+        if not hook:
+            return
         for i, t in enumerate(leaves):
             if t.requires_grad:
                 self._hooks.append(t.register_hook(partial(self._on_grad, i)))
@@ -308,8 +352,10 @@ class GradSync:
                 scalars[kind].append(true_sum)
         works = []
         stacked = {}
-        if self.world > 1:
-            stacked["data"] = torch.stack(scalars["data"] + [loss.float() / self.world])
+        share = loss.float() / self.world
+        scalars["partial" if self.loss_partial else "data"].append(share)
+        if self.world > 1 and scalars["data"]:
+            stacked["data"] = torch.stack(scalars["data"])
             works.append(dist.all_reduce(stacked["data"], group=self.group, async_op=True))
         if scalars["partial"]:
             stacked["partial"] = torch.stack(scalars["partial"])
@@ -340,4 +386,6 @@ class GradSync:
                 out[i] = full[offset:offset + size].reshape(self.shapes[i])
                 offset += size
         self._reset()
+        if self.loss_partial:
+            return out, stacked["partial"][-1]
         return out, (stacked["data"][-1] if self.world > 1 else loss)

@@ -6,11 +6,15 @@ A rule set is a list of ``(glob_pattern, spec)`` pairs matched against the
 '/'-joined param path, first match wins; a spec is a tuple naming, per
 dim, the mesh axis that dim is split over (or None). Pass the resulting
 function as ``Module(..., param_sharding=rule_fn)``. The port's Module
-applies specs over the data axis (``fsdp_rules``) and the model axis
-(``gpt2_tp_rules``, tensor parallelism); a spec naming another axis raises
-there, since expert and pipeline parallelism are not ported yet (ROADMAP
-Queue A 6 items 3 and 5). The builders for those axes are here all the
-same, as pure functions.
+applies specs over the data axis (``fsdp_rules``), the model axis
+(``gpt2_tp_rules``, tensor parallelism) and the pipe axis
+(``pipeline_rules``: its specs are the reference's, for the stacked
+layout; the port keeps a layer per ``blocks/<i>`` subtree, so its marker
+has ``grad_sync.shard_layout`` place each of them whole on its stage,
+:class:`LayerStage`); a
+spec naming the expert axis raises there, since expert parallelism is not
+ported yet (ROADMAP Queue A 6 item 5). ``moe_rules`` is here all the same,
+as a pure function.
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ from typing import Callable, Optional, Sequence, Tuple
 
 __all__ = [
     "ShardingRuleError",
+    "LayerStage",
     "make_rules",
     "gpt2_tp_rules",
     "fsdp_rules",
     "moe_rules",
     "pipeline_rules",
+    "layer_stage",
     "pipeline_over",
     "combine_rules",
 ]
@@ -64,6 +70,28 @@ class ShardingRuleError(ValueError):
             "for the scan-over-layers 'blocks_stacked' layout, or is the "
             "glob matching the wrong leaf?)"
         )
+
+
+class LayerStage:
+    """The placement of one layer's leaf under pipeline parallelism: the
+    whole leaf lives on the stage of ``axis`` that runs ``layer``, which is
+    ``layer // (L / P)`` of L layers over P stages (the reference's
+    ``blocks_stacked`` split evenly on its layer dim)."""
+
+    __slots__ = ("axis", "layer")
+
+    def __init__(self, axis: str, layer: int) -> None:
+        self.axis, self.layer = axis, int(layer)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, LayerStage)
+                and (self.axis, self.layer) == (other.axis, other.layer))
+
+    def __hash__(self) -> int:
+        return hash((self.axis, self.layer))
+
+    def __repr__(self) -> str:
+        return f"LayerStage({self.axis!r}, {self.layer})"
 
 
 def make_rules(rules: Sequence[Tuple[str, Spec]],
@@ -191,7 +219,9 @@ def combine_rules(*fns: RuleFn) -> RuleFn:
 
 def pipeline_rules(axis: str = "pipe", stacked_prefix: str = "blocks_stacked") -> RuleFn:
     """Pipeline parallelism: the stacked layer dim sharded over a 'pipe'
-    axis; everything else replicated."""
+    axis; everything else replicated. The fn carries the ``pipe_axis``
+    marker, under which the port places each per-layer ``blocks/<i>``
+    subtree whole on its layer's stage (:func:`layer_stage`)."""
 
     def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
         if path and path[0] == stacked_prefix:
@@ -199,4 +229,14 @@ def pipeline_rules(axis: str = "pipe", stacked_prefix: str = "blocks_stacked") -
             return (axis,) + (None,) * (len(shape) - 1)
         return None
 
+    rule_fn.pipe_axis = axis
     return rule_fn
+
+
+def layer_stage(rule_fn, path: Tuple[str, ...]) -> Optional[LayerStage]:
+    """The :class:`LayerStage` of a per-layer leaf ``blocks/<i>/...`` under
+    a rule set with the ``pipe_axis`` marker, else None."""
+    axis = getattr(rule_fn, "pipe_axis", None)
+    if axis is None or len(path) < 2 or path[0] != "blocks" or not str(path[1]).isdigit():
+        return None
+    return LayerStage(axis, int(path[1]))

@@ -273,6 +273,20 @@ def _close_group(device_ids=None) -> None:
     dist.destroy_process_group()
 
 
+def _seq_slice(tree, index: int, count: int):
+    """``tree`` with every array leaf of two or more dims whose dim 1
+    divides by ``count`` cut to chunk ``index`` of that dim."""
+    if isinstance(tree, dict):
+        return {k: _seq_slice(v, index, count) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_seq_slice(v, index, count) for v in tree)
+    shape = getattr(tree, "shape", ())
+    if len(shape) >= 2 and shape[1] % count == 0:
+        step = shape[1] // count
+        return tree[:, index * step:(index + 1) * step]
+    return tree
+
+
 class Runtime:
     """Execution context shared by every capsule of a tree: the process
     group and data mesh, the device, the seeds, gradient accumulation, the
@@ -283,18 +297,24 @@ class Runtime:
     the caller already opened (``torch.distributed.init_process_group``)
     is adopted; else, when ``MASTER_ADDR`` and ``WORLD_SIZE`` are set (as
     ``python -m rocket_tpu_torch.launch`` sets them, with ``RANK`` and
-    ``LOCAL_RANK``), one is opened: NCCL on a CUDA device, gloo on the CPU.
-    Without either the Runtime is one process. ``mesh_shape`` (default
-    ``{"data": world size}``; the axes ``data`` and ``model``, in the
-    reference's order, the last axis fastest) must cover the ranks, one
-    device each, and builds the ``DeviceMesh`` (``device_mesh``); with a
-    ``model`` axis larger than 1 every row of each axis also gets a
-    process group of its own (:meth:`axis_group`, :meth:`axis_ranks`,
-    :meth:`axis_index`; :attr:`data_index` is the rank's stripe). A
-    ``pipe``, ``seq`` or ``expert`` axis larger than 1 raises, naming its
-    ROADMAP Queue A 6 item. Each rank of one model group holds the same
-    stripe of the global batch (:meth:`shard_batch`) and every rank starts
-    from the same params, made from the same seed. :meth:`wait_for_everyone`
+    ``LOCAL_RANK``), one is opened: NCCL on a CUDA device, gloo on the CPU
+    (``ROCKET_TPU_DIST_BACKEND`` names another: gloo lets several ranks
+    share one card). Without either the Runtime is one process.
+    ``mesh_shape`` (default ``{"data": world size}``; the axes ``data``,
+    ``model``, ``seq`` and ``pipe``, in the shape's order, the last axis
+    fastest) must cover the ranks, one device each, and builds the
+    ``DeviceMesh`` (``device_mesh``); with a ``model``, ``seq`` or ``pipe``
+    axis larger than 1 every row of each axis also gets a process group of
+    its own (:meth:`axis_group`, :meth:`axis_ranks`, :meth:`axis_index`;
+    :attr:`data_index` is the rank's stripe). At most one of those three
+    axes may be larger than 1 (their combinations are ROADMAP Queue A 6
+    item 8); an ``expert`` axis larger than 1 raises, naming item 5.
+    ``seq_axis`` (default ``"seq"`` when the mesh has it, as in the
+    reference) is the axis a batch's token dim is sharded over. Each rank
+    of one model, seq or pipe row holds the same stripe of the global batch
+    (:meth:`shard_batch`; a seq rank keeps its slice of the tokens) and
+    every rank starts from the same params, made from the same seed.
+    :meth:`wait_for_everyone`
     is a barrier over every rank. A group the Runtime opened closes
     collectively at exit (:func:`_close_group`); one the caller opened
     stays the caller's to close.
@@ -348,9 +368,12 @@ class Runtime:
 
     #: The mesh axes a batch is split over (the reference's ``DATA_AXES``).
     DATA_AXES: tuple = ("data",)
-    #: The mesh axes the port lays out: the data axes and the model
-    #: (tensor-parallel) axis.
-    MESH_AXES: tuple = ("data", "model")
+    #: The mesh axes the port lays out: the data axes, the model
+    #: (tensor-parallel) axis, the sequence axis of ring attention and the
+    #: pipeline-stage axis.
+    MESH_AXES: tuple = ("data", "model", "seq", "pipe")
+    #: The axes of which one at most may be larger than 1.
+    SPLIT_AXES: tuple = ("model", "seq", "pipe")
 
     def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
                  device_placement: bool = True, device_cache_bytes: int = 1 << 30,
@@ -361,13 +384,20 @@ class Runtime:
                  anomaly_action: Optional[str] = None, blackbox_steps: int = 256,
                  health_fetch_lag: int = 2, export: Optional[bool] = None,
                  export_interval_s: Optional[float] = None, metrics_port: Optional[int] = None,
-                 slo: Optional[str] = None, mesh_shape: Optional[dict] = None) -> None:
+                 slo: Optional[str] = None, mesh_shape: Optional[dict] = None,
+                 seq_axis: Optional[str] = None) -> None:
         if gradient_accumulation_steps < 1:
             raise RuntimeError("gradient_accumulation_steps must be >= 1")
         if device is None and os.environ.get("LOCAL_RANK", "").isdigit():
             device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
         self.device = resolve_device(device)
         self._init_process_group(mesh_shape)
+        if seq_axis is None and "seq" in self._mesh_shape:
+            seq_axis = "seq"
+        if seq_axis is not None and seq_axis not in self._mesh_shape:
+            raise RuntimeError(f"Runtime: seq_axis {seq_axis!r} not in mesh axes "
+                               f"{tuple(self._mesh_shape)}.")
+        self.seq_axis = seq_axis
         self._seed = int(seed)
         self._seed_counter = 0
         self.gradient_accumulation_steps = int(gradient_accumulation_steps)
@@ -485,8 +515,9 @@ class Runtime:
                 torch.cuda.set_device(self.device)
             # A rank that cannot reach the rendezvous raises here, after
             # torch's timeout: no rank runs alone.
-            dist.init_process_group("nccl" if self.device.type == "cuda" else "gloo",
-                                    init_method="env://", world_size=int(env["WORLD_SIZE"]),
+            backend = env.get("ROCKET_TPU_DIST_BACKEND") or (
+                "nccl" if self.device.type == "cuda" else "gloo")
+            dist.init_process_group(backend, init_method="env://", world_size=int(env["WORLD_SIZE"]),
                                     rank=int(env.get("RANK", "0")))
             self.grouped = True
             # The group this Runtime opened closes, collectively, before the
@@ -508,6 +539,11 @@ class Runtime:
                     f"Runtime: mesh axis {axis!r} of size {n}: the port's mesh axes are "
                     f"{self.MESH_AXES}; {AXIS_ITEMS.get(axis, 'this axis')} is not ported yet "
                     "(ROADMAP Queue A 6)")
+        split = [axis for axis in self.SPLIT_AXES if int(shape.get(axis, 1)) > 1]
+        if len(split) > 1:
+            raise NotImplementedError(
+                f"Runtime: mesh {shape} splits over {', '.join(split)} at once; the port runs "
+                f"one of {self.SPLIT_AXES} beside the data axis (ROADMAP Queue A 6 item 8)")
         if size != self._world:
             raise RuntimeError(f"Runtime: mesh_shape {shape} needs {size} ranks (one device "
                                f"each), the process group has {self._world}")
@@ -525,7 +561,7 @@ class Runtime:
 
             self.device_mesh = DeviceMesh(self.device.type, torch.arange(self._world).reshape(
                 tuple(int(n) for n in shape.values())), mesh_dim_names=tuple(shape))
-            if int(shape.get("model", 1)) > 1:
+            if any(int(shape.get(axis, 1)) > 1 for axis in self.SPLIT_AXES):
                 self._init_axis_groups(dist)
 
     def _init_axis_groups(self, dist) -> None:
@@ -571,7 +607,8 @@ class Runtime:
 
     def axis_group(self, axis: str):
         """The process group of this rank's row of ``axis``: its own group
-        under a model axis, else (a data-only mesh) the default group."""
+        under a model, seq or pipe axis, else (a data-only mesh) the default
+        group (None)."""
         if axis in self._axis_groups:
             return self._axis_groups[axis][0]
         return None
@@ -594,9 +631,19 @@ class Runtime:
         return int(self._mesh_shape.get("model", 1))
 
     @property
+    def seq_axis_size(self) -> int:
+        """Ranks over which a batch's token dim is sharded (1 without a
+        sequence axis)."""
+        return int(self._mesh_shape.get(self.seq_axis, 1)) if self.seq_axis else 1
+
+    def axis_size(self, axis: str) -> int:
+        """The size of mesh axis ``axis`` (1 off the mesh)."""
+        return int(self._mesh_shape.get(axis, 1))
+
+    @property
     def data_index(self) -> int:
         """This rank's stripe of the global batch: its data coordinate
-        (every rank of one model group reads the same rows)."""
+        (every rank of one model, seq or pipe row reads the same rows)."""
         return self.axis_index("data")
 
     @property
@@ -647,7 +694,10 @@ class Runtime:
         device (the reference's ``shard_batch``: each rank holds its
         stripe). Stripes that do not divide over the data axis raise in a
         multi-process run, as there; one process places the batch as it
-        is. Strings and other opaque leaves pass through."""
+        is. Under a sequence axis larger than 1 a leaf of two or more dims
+        whose second dim divides over it keeps this rank's slice of that
+        dim (the reference shards the token dim over ``seq_axis``). Strings
+        and other opaque leaves pass through."""
         from rocket_tpu_torch.data.collate import default_move
 
         procs, n = self._world, self.data_axis_size
@@ -659,6 +709,9 @@ class Runtime:
                     raise RuntimeError(f"shard_batch: global batch {leaf.shape[0] * procs} not "
                                        f"divisible over data axis ({n}) in a {procs}-process "
                                        "run.")
+        seq_n = self.seq_axis_size
+        if seq_n > 1:
+            batch = _seq_slice(batch, self.axis_index(self.seq_axis), seq_n)
         return default_move(batch, self.device)
 
     # -- seeds ----------------------------------------------------------------

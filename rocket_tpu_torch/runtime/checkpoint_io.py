@@ -13,7 +13,10 @@ each package reads what the other writes, at any process count:
   rank's shard of a leaf split evenly on a dim) is one chunk per shard,
   chunk ``j`` owned by process ``owners[j]`` (``j`` over a data-only
   mesh; over a model axis the ranks at data coordinate 0, one writer per
-  model shard), as the reference lays out a sharded leaf. The reader assembles any chunk layout
+  model shard), as the reference lays out a sharded leaf; an
+  :class:`OwnedLeaf` (a pipeline stage's layer, whole) is one chunk owned
+  by its stage's writer, and every other rank names it by shape and dtype
+  alone. The reader assembles any chunk layout
   (the resharding restore): a checkpoint written by any number of
   processes, in either package, reads here.
 
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "HostFS", "use_fs", "atomic_write", "ShardedLeaf", "snapshot", "write_snapshot",
+    "HostFS", "use_fs", "atomic_write", "ShardedLeaf", "OwnedLeaf", "snapshot", "write_snapshot",
     "save_pytree", "load_leaf", "load_pytree", "unflatten", "AsyncWriter", "seed_optional",
 ]
 
@@ -86,6 +89,32 @@ class ShardedLeaf:
         local = (torch.zeros_like(self.local) if isinstance(self.local, torch.Tensor)
                  else np.zeros_like(self.local))
         return ShardedLeaf(local, self.shape, self.dim, self.index, self.count, self.owners)
+
+
+class OwnedLeaf:
+    """A whole leaf that process ``owner`` saves (a pipeline stage's own
+    layer): ``local`` is the value on the rank that holds it, None on the
+    others, which name the leaf by ``shape`` and ``dtype`` (a torch or
+    numpy dtype) so the main process can write its index entry."""
+
+    __slots__ = ("local", "shape", "dtype", "owner")
+
+    def __init__(self, local, shape, dtype, owner: int) -> None:
+        self.local, self.shape, self.dtype = local, tuple(int(d) for d in shape), dtype
+        self.owner = int(owner)
+
+    def zeros_like(self) -> "OwnedLeaf":
+        local = None
+        if isinstance(self.local, torch.Tensor):
+            local = torch.zeros_like(self.local)
+        elif self.local is not None:
+            local = np.zeros_like(self.local)
+        return OwnedLeaf(local, self.shape, self.dtype, self.owner)
+
+    def dtype_name(self) -> str:
+        if isinstance(self.dtype, torch.dtype):
+            return torch.empty((), dtype=self.dtype).numpy().dtype.name
+        return np.dtype(self.dtype).name
 
 
 class HostFS:
@@ -200,6 +229,15 @@ def snapshot(tree: Any, process: int = 0) -> dict:
             }
             if leaf.owners[leaf.index] == process:
                 local[f"{name}:{leaf.index}"] = arr
+        elif isinstance(leaf, OwnedLeaf):
+            key = f"{name}:0"
+            index[name] = {
+                "kind": "array", "shape": list(leaf.shape), "dtype": leaf.dtype_name(),
+                "chunks": [{"file": _shard_file(leaf.owner), "key": key,
+                            "index": [[0, d] for d in leaf.shape]}],
+            }
+            if leaf.owner == process and leaf.local is not None:
+                local[key] = _to_numpy(name, leaf.local)
         elif isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
             key = f"{name}:0"
             arr = _to_numpy(name, leaf) if process == 0 else None

@@ -233,8 +233,11 @@ def test_config_json_is_the_same_in_both_packages(tmp_path):
     tt.TransformerLM(loaded)  # validates
     moe = tt.TransformerLM(dataclasses.replace(loaded, num_experts=4))  # MoE is ported
     assert moe.blocks[0].moe.num_experts == 4
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        tt.TransformerLM(dataclasses.replace(loaded, pipeline_axis="pipe"))
+    # The pipeline is ported: its config builds, and 1F1B without a pipe
+    # axis raises as the reference's validate does.
+    tt.TransformerLM(dataclasses.replace(loaded, pipeline_axis="pipe", scan_layers=True))
+    with pytest.raises(ValueError, match="requires pipeline_axis"):
+        tt.TransformerLM(dataclasses.replace(loaded, pipeline_schedule="1f1b"))
     tt.TransformerLM(dataclasses.replace(loaded, scan_layers=True, attention_impl="xla"))
 
 

@@ -1537,3 +1537,114 @@ def test_gloo_tp_ring_on_cuda_equals_the_bulk_collectives(cuda, tmp_path):
     outs = [p.communicate(timeout=300)[0] for p in procs]
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
+
+
+# -- sync-BN, ring attention and the pipeline over gloo on the card --------------
+
+_PAR_CUDA_WORKER = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, world, out = int(sys.argv[1]), 2, sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[2]}", rank=rank,
+                        world_size=world)
+from rocket_tpu_torch.nn import layers
+from rocket_tpu_torch.nn.attention import dot_product_attention
+from rocket_tpu_torch.ops import fused_conv
+from rocket_tpu_torch.parallel.ring_attention import STATS, ring_attention, seq_spec
+from rocket_tpu_torch.runtime import Runtime
+
+res = {}
+gen = torch.Generator().manual_seed(5)
+# Sync-BN: the fused kernel forced, two data ranks, each its half of the rows.
+os.environ["ROCKET_TPU_FUSED_CONV"] = "pallas"
+Runtime(device="cuda")
+x = torch.randn(1024, 64, generator=gen).cuda() * 2 + 1
+scale, bias = torch.rand(64, generator=gen).cuda() + 0.5, torch.randn(64, generator=gen).cuda()
+dy = torch.randn(1024, 64, generator=gen).cuda()
+fused_conv.bn_twopass.launches = fused_conv.bn_normalize.launches = 0
+xs = x.chunk(world)[rank].clone().requires_grad_(True)
+y, stats = layers.bn_act_train(xs, scale, bias, 1e-5, act=True)
+(dx,) = torch.autograd.grad(y, xs, dy.chunk(world)[rank])
+xw = x.clone().requires_grad_(True)
+yw, stats_w = fused_conv.reference_bn_act(xw, scale, bias, 1e-5, True)
+(dxw,) = torch.autograd.grad(yw, xw, dy)
+res["bn"] = {"launches": fused_conv.bn_twopass.launches + fused_conv.bn_normalize.launches,
+             "all_reduces": layers.SYNC_BN_STATS["all_reduces"], "cuda": y.is_cuda,
+             "y": float((y - yw.chunk(world)[rank]).abs().max()),
+             "stats": float((stats - stats_w).abs().max()),
+             "dx": float((dx - dxw.chunk(world)[rank]).abs().max())}
+# Ring attention over the seq group, K/V blocks staged through the host.
+runtime = Runtime(device="cuda", mesh_shape={"data": 1, "seq": world})
+q, k, v, w = (torch.randn(2, 4, 256, 64, generator=gen).cuda() for _ in range(4))
+t = 256 // world
+for causal in (True, False):
+    ql, kl, vl = (a[:, :, rank * t:(rank + 1) * t].clone().requires_grad_(True) for a in (q, k, v))
+    o = ring_attention(ql, kl, vl, seq_spec(runtime), causal)
+    grads = torch.autograd.grad((o * w[:, :, rank * t:(rank + 1) * t]).sum(), (ql, kl, vl))
+    qf, kf, vf = (a.clone().requires_grad_(True) for a in (q, k, v))
+    full = dot_product_attention(qf, kf, vf, causal)
+    want = torch.autograd.grad((full * w).sum(), (qf, kf, vf))
+    sl = slice(rank * t, (rank + 1) * t)
+    res[f"ring{int(causal)}"] = {
+        "cuda": o.is_cuda, "out": float((o - full[:, :, sl]).abs().max()),
+        "grads": [float((g - wg[:, :, sl]).abs().max()) for g, wg in zip(grads, want)]}
+res["ring_staged"] = STATS["staged"]
+json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def par_cuda(tmp_path_factory):
+    """The two-rank gloo group on the card running :data:`_PAR_CUDA_WORKER`."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    tmp = tmp_path_factory.mktemp("par_cuda")
+    script = tmp / "worker.py"
+    script.write_text(_PAR_CUDA_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port), str(tmp)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+@pytest.mark.cuda
+def test_gloo_syncbn_on_cuda_never_launches_the_fused_kernels(par_cuda):
+    """Two data ranks with ``ROCKET_TPU_FUSED_CONV=pallas``: rows 9-10
+    launch no time (the reference's gate keeps multi-device traces on the
+    reference path), two all-reduces a forward and backward, and the
+    output, statistics and dx those of one BN over the whole batch (f32
+    ``1e-4``: sums over two halves)."""
+    for r in par_cuda:
+        bn = r["bn"]
+        assert bn["cuda"] and bn["launches"] == 0 and bn["all_reduces"] == 2, bn
+        assert max(bn["y"], bn["stats"], bn["dx"]) <= 1e-4, bn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_gloo_ring_attention_on_cuda_matches_full_attention(par_cuda, causal):
+    """Ring attention over two seq ranks on CUDA tensors (its K/V hops
+    staged through host memory): the output and the gradients of q, k and
+    v those of full attention, f32 ``1e-4``."""
+    for r in par_cuda:
+        ring = r[f"ring{int(causal)}"]
+        assert ring["cuda"] and r["ring_staged"]
+        assert ring["out"] <= 1e-4 and max(ring["grads"]) <= 1e-4, ring

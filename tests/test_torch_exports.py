@@ -26,12 +26,10 @@ _JAX = "JAX-only (ROADMAP Queue A: not queued, by design)"
 
 #: (reference module, name) -> label; name "*" covers the whole module.
 ALLOWED = {
-    ("parallel/__init__.py", "*"): _A6,
     # Marks a value device-varying for shard_map's vma typing; the port's
     # ranks hold plain local tensors, so there is nothing to mark.
     ("parallel/collectives.py", "pvary_compat"): _JAX,
-    ("parallel/grad_sync.py", "*"): _A6, ("parallel/pipeline.py", "*"): _A6,
-    ("parallel/ring_attention.py", "*"): _A6, ("parallel/sharding.py", "*"): _A6,
+    ("parallel/grad_sync.py", "*"): _A6, ("parallel/sharding.py", "*"): _A6,
     ("ops/flash_attention.py", "flash_attention_qkv_sharded"): _A6,
     ("ops/flash_attention.py", "in_manual_axes"): _A6,
     ("ops/flash_attention.py", "shardable_axes"): _A6,
@@ -102,7 +100,9 @@ def test_the_allow_list_holds_nothing_the_port_has():
                                     "resilience/supervisor.py", "launch.py", "obs/export.py",
                                     "obs/slo.py", "obs/reqtrace.py", "obs/prof.py",
                                     "serve/api.py", "serve/__init__.py", "serve/scheduler.py",
-                                    "parallel/collectives.py", "ops/ring.py"])
+                                    "parallel/collectives.py", "ops/ring.py",
+                                    "parallel/__init__.py", "parallel/pipeline.py",
+                                    "parallel/ring_attention.py"])
 def test_the_repaired_modules_export_every_reference_name(module):
     """The Queue C 1 repairs and this slice's modules, each in full."""
     reference, port = _exports(REFERENCE), _exports(PORT)

@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
         "nn.module", "models.mlp", "models.lenet", "models.vit", "examples.vit_cifar",
         "examples.mnist", "examples.llama_lm", "examples.gpt2",
         "parallel", "parallel.sharding", "parallel.grad_sync", "parallel.collectives",
-        "ops.ring",
+        "ops.ring", "parallel.ring_attention", "parallel.pipeline", "examples.long_context",
+        "examples.pipeline_lm",
     )]
     code = (
         "import sys\n"

@@ -168,8 +168,11 @@ def test_runtime_refuses_a_model_axis_and_keeps_a_data_mesh():
     # The model axis is ported: one process cannot hold a two-rank one.
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6"):
+    # The pipe axis is ported too; the expert axis still refuses.
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6"):
+        Runtime(device="cpu", mesh_shape={"data": 1, "expert": 2})
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 2})
     runtime = Runtime(device="cpu", mesh_shape={"data": 1, "model": 1})

@@ -317,14 +317,24 @@ def test_shard_masks_are_the_one_rank_masks(split_dim, shape, data_ranks):
 @pytest.mark.parametrize("axis,item", [("pipe", "item 3"), ("seq", "item 4"),
                                        ("expert", "item 5")])
 def test_unported_axes_still_refuse_naming_their_items(axis, item):
+    """The expert axis (item 5) still refuses; the pipe and seq axes
+    (items 3 and 4) are ported, so one process cannot hold a two-rank one
+    and a leaf's spec over the pipe axis lays out as a dim shard."""
     from rocket_tpu_torch.parallel import grad_sync as tgs
     from rocket_tpu_torch.runtime import Runtime
 
-    with pytest.raises(NotImplementedError, match=f"Queue A 6.*{item}|{item}.*Queue A 6"):
-        Runtime(device="cpu", mesh_shape={"data": 1, axis: 2})
     leaf = np.zeros((4, 4), np.float32)
-    with pytest.raises(NotImplementedError, match=item):
-        tgs.shard_layout([(("w",), leaf)], lambda p, l: (axis, None), {"data": 1, axis: 2})
+    if axis == "expert":
+        with pytest.raises(NotImplementedError, match=f"Queue A 6.*{item}|{item}.*Queue A 6"):
+            Runtime(device="cpu", mesh_shape={"data": 1, axis: 2})
+        with pytest.raises(NotImplementedError, match=item):
+            tgs.shard_layout([(("w",), leaf)], lambda p, l: (axis, None), {"data": 1, axis: 2})
+        return
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
+        Runtime(device="cpu", mesh_shape={"data": 1, axis: 2})
+    if axis == "pipe":
+        assert tgs.shard_layout([(("w",), leaf)], lambda p, l: (axis, None),
+                                {"data": 1, axis: 2}) == [(0, "pipe")]
 
 
 def test_shard_layout_reads_both_axes_and_refuses_two_on_one_leaf():

@@ -133,8 +133,13 @@ def test_sampling_generate_deterministic_and_unported_paths_raise(pair):
     torch.testing.assert_close(run(3, use_cache=False), run(3))
     with pytest.raises(ValueError, match="Generator"):
         tt.generate(tmodel, tparams, prompt, 4, temperature=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], attention_impl="ring")))
+    # Ring attention is ported: the config builds, its forward needs a
+    # Runtime whose mesh has the seq axis (the reference's rule), and GQA
+    # stays refused under it, as there.
+    ring = tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], attention_impl="ring")))
+    assert ring.blocks[0].attn.impl == "ring" and not ring.blocks[0]._block_attn_ok
+    with pytest.raises(ValueError, match="num_kv_heads == num_heads"):
+        tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["llama_lm"], attention_impl="ring")))
     # The MoE FFN is ported: a config with experts builds, its blocks route.
     moe = tt.TransformerLM(tt.TransformerConfig(**dict(CONFIGS["tiny_lm"], num_experts=4)))
     assert moe.blocks[0].moe is not None and moe.blocks[0].fc_in is None
