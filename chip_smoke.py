@@ -114,9 +114,16 @@ shards (``pp_checkpoint``); GPT-2 widths at T = 4096 over two seq ranks with
 ring attention against one rank's flash run (rows 3-5), its step 1 at f32
 against one rank's plain attention (``ring_train``);
 ResNet-18 with sync-BN over two ranks against one (no fused BN launch on
-the two; ``dp_cifar``); and ``examples/pipeline_lm.py --schedule 1f1b``
-and ``examples/long_context.py`` as two ranks each, beside ``dp_launch``
-(``examples_par``). Last, rows 9-10
+the two; ``dp_cifar``); the MoE LM (``moe_gpt2_e4`` at 6 layers) over two
+expert ranks, dropless with the fused kernels forced and einsum, against
+one rank (routing, losses, the f32 step-1 gradients, rows 11, ``gmm`` and
+``tgmm`` on each rank's two experts, the routed rows, the expert group's
+waits and bytes; ``ep_train``), resumed on one rank from the expert
+shards (``ep_checkpoint``), and at 2 layers and f32 under the model, seq
+and pipe axes against one rank (``moe_par``); and
+``examples/pipeline_lm.py --schedule 1f1b``, ``examples/long_context.py``
+and ``examples/moe_lm.py --expert-axis 2`` as two ranks each, beside
+``dp_launch`` (``examples_par``). Last, rows 9-10
 against their plain versions at f16, C = 3, C = 12 and C = 4096 (two
 channel chunks).
 
@@ -1670,8 +1677,13 @@ def serve_obs_cost(timer=None, gen=None):
     return out
 
 
+#: serve_cli: the requests of the CLI run (cut from 16 to keep the script
+#: inside its time limit).
+SERVE_CLI_REQUESTS = 8
+
+
 def serve_cli_phase(card):
-    """``python -m rocket_tpu_torch.serve run --config charlm --requests 16
+    """``python -m rocket_tpu_torch.serve run --config charlm --requests 8
     --export --metrics-port 0 --slo default:serve --trace-steps 4:8
     --out-dir <tmp>`` as a subprocess on the card, then ``serve report``,
     ``obs timeline --slowest 3`` and ``obs prof --format json`` over its
@@ -1686,7 +1698,8 @@ def serve_cli_phase(card):
     try:
         for name, argv in (
                 ("run", ["-m", "rocket_tpu_torch.serve", "run", "--config", "charlm",
-                         "--requests", "16", "--export", "--metrics-port", "0", "--slo",
+                         "--requests", str(SERVE_CLI_REQUESTS), "--export", "--metrics-port", "0",
+                         "--slo",
                          "default:serve", "--trace-steps", "4:8", "--out-dir", str(root / "run")]),
                 ("report", ["-m", "rocket_tpu_torch.serve", "report", str(root / "run")]),
                 ("timeline", ["-m", "rocket_tpu_torch.obs", "timeline", str(root / "run"),
@@ -1710,7 +1723,8 @@ def serve_cli_phase(card):
                 "serve_cli: obs timeline rendered fewer than 3 requests")
         text = runs["run"].pop("stdout")
         served = json.loads(text[text.index('{\n "serve_report"'):])["serve_report"]
-        require(served["requests"]["completed"] == 16, f"serve_cli: {served['requests']}")
+        require(served["requests"]["completed"] == SERVE_CLI_REQUESTS,
+                f"serve_cli: {served['requests']}")
         emit("serve_cli", runs=runs, n_steps=prof["n_steps"], n_slices=prof["n_slices"],
              categories_us=prof["categories_us"], paged_ops=sorted(
                  op["name"] for op in prof["top_ops"] if op["module"] == "paged_decode"),
@@ -1719,9 +1733,14 @@ def serve_cli_phase(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: profile_serve's new tokens a request (cut from 32 to keep the script
+#: inside its time limit: the trace's host-side parse grows with its ops).
+PROFILE_SERVE_TOKENS = 16
+
+
 def profile_serve(engine, vocab, card, phase="serve_profile"):
     """Where a serve run's time goes: a torch.profiler trace of 8 requests
-    (prompt 128, 32 new tokens) on the warm engine. Device busy share is the
+    (prompt 128, PROFILE_SERVE_TOKENS new tokens) on the warm engine. Device busy share is the
     summed kernel/copy time over the wall time (one stream, so no overlap);
     the host's share shows in the operators' own CPU time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1732,7 +1751,7 @@ def profile_serve(engine, vocab, card, phase="serve_profile"):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p in prompts:
-            engine.submit(p, max_new_tokens=32)
+            engine.submit(p, max_new_tokens=PROFILE_SERVE_TOKENS)
         engine.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1741,7 +1760,7 @@ def profile_serve(engine, vocab, card, phase="serve_profile"):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     host = sorted(((ev.key, ev.self_cpu_time_total * 1e-6, ev.count)
                    for ev in prof.key_averages()), key=lambda row: -row[1])[:10]
-    emit(phase, requests=8, prompt=128, new_tokens=32, wall_s=wall,
+    emit(phase, requests=8, prompt=128, new_tokens=PROFILE_SERVE_TOKENS, wall_s=wall,
          device_busy_s=busy, device_idle_share=(1.0 - busy / wall) if busy else None,
          device_time_measured=busy > 0,
          top_kernels=[{"name": n[:120], "s": t, "share_of_device": t / busy} for n, t in top],
@@ -2657,9 +2676,10 @@ def cifar_phases(card):
 
 #: vit_train: examples.vit_cifar at its full width (vit_tiny: D=192, 9 blocks,
 #: 3 heads, dropout 0.1, 65 tokens), bf16, B=512, on the synthetic CIFAR-10,
-#: 2 epochs (cut from the example's 5); vit_profile: a torch.profiler window
-#: of VIT_PROFILE_STEPS whole steps of the same tree over its first batches.
-VIT_EPOCHS, VIT_BATCH, VIT_LAYERS, VIT_TOKENS, VIT_PROFILE_STEPS = 2, 512, 9, 65, 3
+#: 1 epoch (cut from the example's 5, then from 2); vit_profile: a
+#: torch.profiler window of VIT_PROFILE_STEPS whole steps of the same tree
+#: over its first batches.
+VIT_EPOCHS, VIT_BATCH, VIT_LAYERS, VIT_TOKENS, VIT_PROFILE_STEPS = 1, 512, 9, 65, 3
 #: vit_model_check: ViT at full width (D=192, 3 heads, 32x32 in 4x4
 #: patches), depth 2, f32, dropout 0, B=32: the card (flash kernels, TF32
 #: off) against the CPU (plain attention), the logits absolutely and every
@@ -2670,7 +2690,7 @@ VIT_CHECK_TOL = {"logits": 1e-3, "grad": 1e-3}
 #: (cut from the example's 2), then its nucleus sample of 64 tokens;
 #: llama_profile: LLAMA_PROFILE_STEPS steps of the same tree under a step
 #: clock, the last 3 under torch.profiler.
-LLAMA_LAYERS, LLAMA_NEW_TOKENS, LLAMA_PROFILE_STEPS = 6, 64, 12
+LLAMA_LAYERS, LLAMA_NEW_TOKENS, LLAMA_PROFILE_STEPS = 6, 64, 8  # profile steps cut from 12
 
 
 def _flash_counts() -> dict:
@@ -4367,12 +4387,13 @@ def watchdog_phase(card):
 #: files first (one write in flight), so at wave 11 step 5 is complete and
 #: step 10 is torn: the kill exercises both the skip and the resume.
 SUPERVISED_STEPS = 16
-#: Its depth: GPT-2 124M's widths at 6 of its 12 layers (cut when
-#: the multi-process phases grew, to keep the script inside its time limit;
-#: since then every process also loads the seed-0 params from a file the
-#: phase writes instead of drawing its own, so a restart's latency holds no
-#: CPU-side draw).
-SUPERVISED_LAYERS = 6
+#: Its depth: GPT-2 124M's widths at 3 of its 12 layers (cut to 6, then to
+#: 3, when the multi-process phases grew, to keep the script inside its
+#: time limit; at 3 layers a save with both moments is ~0.73 GB, still
+#: seconds of background writing, so the kill still tears step 10's; every
+#: process loads the seed-0 params from a file the phase writes instead of
+#: drawing its own, so a restart's latency holds no CPU-side draw).
+SUPERVISED_LAYERS = 3
 SUPERVISED_FAULTS = "kill:step=11,gen=0;wedge:step=4,gen=1,secs=600;sigterm:step=4,gen=2"
 
 #: The worker of ``supervised_train``: examples.gpt2's tree with a
@@ -4549,8 +4570,8 @@ SUPERVISED_PROF = "6:9"
 def _supervised_prof_window(root):
     """The uninterrupted supervised run's trace window: its telemetry
     carries the ``obs/prof/*`` gauges of the parsed window, and the
-    window's trace holds 36 ``flash_fwd`` and 18 ``flash_bwd`` launches (3
-    steps of SUPERVISED_LAYERS = 6 layers; the forward twice under remat) launched inside its
+    window's trace holds 18 ``flash_fwd`` and 9 ``flash_bwd`` launches (3
+    steps of SUPERVISED_LAYERS = 3 layers; the forward twice under remat) launched inside its
     ``ProfilerStep`` ranges."""
     from rocket_tpu_torch.obs import prof as prof_lib
 
@@ -4847,9 +4868,9 @@ DP_WIRE_SUM_TOL, DP_WIRE_TOL = 1e-6, 2.0 ** -7
 #: a param at most ~lr (6e-4) a step, so a gradient whose sign the batch
 #: split flips moves it 2 lr apart: 4 steps, 5e-3.
 DP_PARAM_TOL = 5e-3
-#: Cut from 8 and 4 when the multi-process phases grew, to keep
-#: the script inside its time limit.
-DP_STEPS, DP_SAVE_AT = 6, 3
+#: Cut from 8 and 4, then from 6 and 3, when the multi-process phases grew,
+#: to keep the script inside its time limit.
+DP_STEPS, DP_SAVE_AT = 4, 2
 #: tp_train: the bf16 wire's step-1 gradients against the f32 wire's, both
 #: at f32 compute, relative to the largest element. Unlike the data
 #: reduction's one rounding at the end, the TP wire rounds the activation
@@ -4861,10 +4882,10 @@ TP_WIRE_TOL = 3e-2
 
 #: pp_train / pp_checkpoint: GPT-2 124M (scan_layers, dropout 0.1, bf16,
 #: AdamW) over ``{"data": 1, "pipe": 2}``, 6 layers a stage, B=8 in M=4
-#: microbatches of 2 rows, PP_STEPS steps a schedule, a save at PP_SAVE_AT;
-#: the peak memory at M = 4 is theirs, at M = 8 (2-row microbatches) that
-#: of a 2-step job each.
-PP_STEPS, PP_SAVE_AT, PP_M, PP_MB_ROWS = 8, 4, 4, 2
+#: microbatches of 2 rows, PP_STEPS steps a schedule (cut from 8), a save at
+#: PP_SAVE_AT (cut from 4); the peak memory at M = 4 is theirs, at M = 8
+#: (2-row microbatches) that of a 2-step job each.
+PP_STEPS, PP_SAVE_AT, PP_M, PP_MB_ROWS = 6, 3, 4, 2
 PP_MESH = {"data": 1, "pipe": 2}
 #: The step-1 gradients at f32 compute, pipelined against unpipelined,
 #: relative to the largest element: the same f32 function with the batch's
@@ -4882,7 +4903,7 @@ PP_FLAT_BYTES = 64 << 20
 #: (rows 3-5). The ring's probabilities are f32 where the flash kernels'
 #: are bf16, so the losses differ by bf16 rounding: 2.87e-4 over the 8
 #: steps on an H100 (PERF.md), bounded at 3.5 times that.
-RING_T, RING_B, RING_STEPS = 4096, 2, 8
+RING_T, RING_B, RING_STEPS = 4096, 2, 4  # steps cut from 8
 RING_MESH = {"data": 1, "seq": 2}
 RING_LOSS_TOL = 1e-3
 #: The step-1 loss at f32 compute, ring against one rank's plain attention:
@@ -4899,8 +4920,23 @@ RING_F32_LOSS_TOL = 1e-4
 #: ``|want|``).
 CIFAR_DP_STEPS, CIFAR_DP_BATCH, CIFAR_DP_TOL = 4, 512, 1e-3
 
-#: The jobs of the sync-BN, ring and pipeline phases; the data-parallel
-#: worker runs them too (a job with a ``kind``), after its own.
+#: ep_train / ep_checkpoint: bench.py's moe_gpt2_e4 (GPT-2 widths, 4
+#: experts, top-2) at MOE_LAYERS layers, B=8, T=1024, bf16, remat, AdamW,
+#: over ``{"data": 1, "expert": 2}`` (two experts a rank), EP_STEPS steps a
+#: dispatch (dropless with ROCKET_TPU_MOE_GMM=fused, and einsum), a save at
+#: EP_SAVE_AT; against one rank. The first resumed step's loss on one rank
+#: is held within EP_RESUME_TOL of the uninterrupted run's (the same
+#: params, a dropless forward that adds the same two rows onto zero).
+EP_MESH = {"data": 1, "expert": 2}
+EP_STEPS, EP_SAVE_AT, EP_RESUME_TOL = DP_STEPS, DP_SAVE_AT, 1e-4
+#: moe_par: the MoE LM at full width and MOE_PAR_LAYERS layers, two f32
+#: steps with the gradient tap under the model, seq and pipe axes (GPipe at
+#: PP_M microbatches of 2 rows), each against one rank (the pipe job's
+#: against one rank's microbatch mean, through gradient accumulation).
+MOE_PAR_LAYERS = 2
+
+#: The jobs of the sync-BN, ring, pipeline and expert phases; the
+#: data-parallel worker runs them too (a job with a ``kind``), after its own.
 PAR_DEFS = r"""
 def model_config(seq_len=1024, **over):
     return dataclasses.replace(TransformerConfig.gpt2_124m(max_seq_len=seq_len), **over)
@@ -4909,14 +4945,37 @@ def model_config(seq_len=1024, **over):
 _INIT = {1024: init_params}
 
 
-def par_init(seq_len):
-    # A longer context tiles the 1024 position rows.
+def par_init(seq_len, moe_layers=0):
+    # A longer context tiles the 1024 position rows; an MoE job's params are
+    # the first layers of the MoE phases' seed-0 draw.
+    if moe_layers:
+        if "moe" not in _INIT:
+            _INIT["moe"] = torch.load(os.path.join(root, "moe_init_params.pt"), map_location="cuda")
+        p = dict(_INIT["moe"])
+        p["blocks"] = {str(i): p["blocks"][str(i)] for i in range(moe_layers)}
+        return map_params(lambda t: t.clone(), p)
     if seq_len not in _INIT:
         p = dict(init_params)
         table = init_params["wpe"]["table"]
         p["wpe"] = {"table": table.repeat(-(-seq_len // 1024), 1)[:seq_len].contiguous()}
         _INIT[seq_len] = p
     return map_params(lambda t: t.clone(), _INIT[seq_len])
+
+
+ROUTE_FP, ROUTE_ON, _route = [], [False], moe_lib.MoE.route
+
+
+def routed(moe, params, x):
+    # Each routing's top-k ids as an order-sensitive hash, kept on the card.
+    gates, top_gates, top_idx = _route(moe, params, x)
+    if ROUTE_ON[0]:
+        ids = top_idx.reshape(-1).long()
+        w = (torch.arange(ids.numel(), device=ids.device) * 2654435761) % 2147483647
+        ROUTE_FP.append((ids * w).sum())
+    return gates, top_gates, top_idx
+
+
+moe_lib.MoE.route = routed
 
 
 FP, FP_ON, draw = {}, [False], keys.dropout_mask
@@ -4960,12 +5019,22 @@ class ParClock(rt.Capsule):
         self.stamps.append(time.perf_counter())
         if self.module.grad_sync is not None:
             self.waits.append(self.module.grad_sync.stats["wait_s"])
-        self.marks.append((pl.STATS["wait_s"], ra.STATS["wait_s"]))
+        self.marks.append((pl.STATS["wait_s"], ra.STATS["wait_s"], coll.STATS["wait_s"],
+                           coll.STATS["wire_bytes"]))
 
 
 def par_whole(prepared, runtime, values):
-    # Per param of the whole tree (its order), this rank's value or, for
-    # another stage's layer, its stage's, broadcast over the pipe group.
+    # Per param of the whole tree (its order), this rank's value (a model or
+    # expert shard gathered whole over its group) or, for another stage's
+    # layer, its stage's, broadcast over the pipe group.
+    values = list(values)
+    for i, v in enumerate(values):
+        lay = prepared.layout(i) if prepared.shard_dims is not None else None
+        if lay is not None:
+            parts = [torch.empty_like(v) for _ in range(lay[1])]
+            dist.all_gather(parts, v.contiguous(),
+                            group=runtime.axis_group(prepared.shard_axes[i]))
+            values[i] = torch.cat(parts, lay[0])
     local = dict(zip(_paths(prepared.state["params"]), values))
     if not prepared.remote:
         return [local[p] for p in _paths(prepared.state["params"])]
@@ -5005,6 +5074,9 @@ class ParTap(rt.Capsule):
         module._update = tap
 
 
+RULES = {"moe": moe_rules, "tp": gpt2_tp_rules, "pipe": pipeline_rules}
+
+
 def lm_job(job):
     seq_len = job.get("seq_len", 1024)
     over = dict(scan_layers=job.get("scan_layers", True), attention_impl=job.get("attention", "auto"))
@@ -5015,8 +5087,16 @@ def lm_job(job):
         over["dropout"] = job["dropout"]
     if job.get("f32"):
         over["activation_dtype"] = "float32"
+    moe_layers = job.get("moe_layers", 0)
+    if moe_layers:  # bench.py's moe_gpt2_e4 at moe_layers layers
+        over.update(num_layers=moe_layers, dropout=0.0, num_experts=4, expert_top_k=2,
+                    expert_capacity_factor=1.25, expert_dispatch=job["dispatch"])
     mcfg = model_config(seq_len, **over)
-    runtime = rt.Runtime(seed=0, mesh_shape=job.get("mesh"))
+    for key in ("ROCKET_TPU_MOE_GMM", "ROCKET_TPU_OVERLAP_WIRE"):
+        os.environ.pop(key, None)
+    os.environ.update(job.get("env", {}))
+    runtime = rt.Runtime(seed=0, mesh_shape=job.get("mesh"),
+                         gradient_accumulation_steps=job.get("accum", 1))
     clock, caps = ParClock(), []
     tap = ParTap(os.path.join(root, job["name"] + "_grads.npy"), runtime) if job.get("tap") else None
     caps += [tap] if tap is not None else []
@@ -5028,29 +5108,35 @@ def lm_job(job):
                                resume_from=job.get("resume_from"))
         caps.append(ckpt)
     data = TokenDataset(tokens % mcfg.vocab_size, seq_len=seq_len)
+    rule = job.get("rule") or ("pipe" if job.get("schedule") else None)
     run = gpt2.build(mcfg, data, batch_size=job["batch"], runtime=runtime, steps=job["steps"],
                      record=False, capsules=tuple(caps),
-                     param_sharding=pipeline_rules() if job.get("schedule") else None)
+                     param_sharding=RULES[rule]() if rule else None)
     module = clock.module = run["module"]
     runtime.models.add(run["model"], PreparedModule(run["model"],
-                                                    {"params": par_init(seq_len)}))
+                                                    {"params": par_init(seq_len, moe_layers)}))
     if tap is not None:
         tap.module = module
-    for kernel in (fa.flash_fwd, fa.flash_bwd, fa.flash_dq):
+    for kernel in (fa.flash_fwd, fa.flash_bwd, fa.flash_dq, gg.gather_gmm_fwd, gm.gmm, gm.tgmm):
         kernel.launches = 0
     pl.reset_stats()
     ra.reset_stats()
+    coll.reset_stats()
     FP.clear()
     FP_ON[0] = bool(job.get("masks"))
+    ROUTE_FP.clear()
+    ROUTE_ON[0] = bool(moe_layers)
+    moe_lib.ROWS["total"] = (torch.zeros((), dtype=torch.int64, device="cuda") if moe_layers
+                             else None)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run["launcher"].launch()
     wall = time.perf_counter() - t0
-    FP_ON[0] = False
+    FP_ON[0] = ROUTE_ON[0] = False
     prepared = clock.prepared
     leaves = optim.param_leaves(prepared.state["params"])
-    marks = [(0.0, 0.0)] + clock.marks
+    marks = [(0.0, 0.0, 0.0, 0)] + clock.marks
     out = {"losses": clock.losses, "step_ms": [1e3 * d for d in np.diff(clock.stamps)],
            "wall_s": wall, "launches": {"flash_fwd": fa.flash_fwd.launches,
                                         "flash_bwd": fa.flash_bwd.launches,
@@ -5058,6 +5144,9 @@ def lm_job(job):
            "grad_sync_wait_ms": [1e3 * w for w in clock.waits],
            "pipe_wait_ms": [1e3 * (b[0] - a[0]) for a, b in zip(marks, marks[1:])],
            "ring_wait_ms": [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])],
+           "coll_wait_ms": [1e3 * (b[2] - a[2]) for a, b in zip(marks, marks[1:])],
+           "coll_wire_bytes": [b[3] - a[3] for a, b in zip(marks, marks[1:])],
+           "coll_calls": coll.STATS["calls"], "expert_index": runtime.axis_index("expert"),
            "pipe": dict(pl.STATS), "ring": dict(ra.STATS), "backend": runtime.backend,
            "world": runtime.process_count, "mesh": runtime.mesh,
            "stage": runtime.axis_index("pipe"), "seq_index": runtime.axis_index("seq"),
@@ -5065,6 +5154,19 @@ def lm_job(job):
            "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "masks": [[k, first, n, fp] for (k, first, n), fp in FP.items()]}
+    if moe_layers:
+        out.update(moe_launches={"gather_gmm": gg.gather_gmm_fwd.launches,
+                                 "gmm": gm.gmm.launches, "tgmm": gm.tgmm.launches},
+                   routing=[int(v) for v in torch.stack(ROUTE_FP).tolist()],
+                   routed_rows=(int(moe_lib.ROWS["total"]) if job["dispatch"] == "dropless"
+                                else None),
+                   expert_param_bytes=sum(t.numel() * t.element_size() for p, t in
+                                          zip(_paths(prepared.state["params"]), leaves)
+                                          if "experts" in p),
+                   moment_bytes=prepared.held_bytes()["moments"])
+        moe_lib.ROWS["total"] = None
+    for key in job.get("env", {}):
+        os.environ.pop(key, None)
     if ckpt is not None:
         out["saves"] = ckpt.save_times
     if job.get("keep_params"):
@@ -5160,7 +5262,10 @@ from rocket_tpu_torch.parallel import collectives as coll
 from rocket_tpu_torch.parallel import pipeline as pl
 import rocket_tpu_torch.parallel.ring_attention  # noqa: F401 (the module, not the function)
 ra = sys.modules["rocket_tpu_torch.parallel.ring_attention"]
-from rocket_tpu_torch.parallel.sharding import fsdp_rules, gpt2_tp_rules, pipeline_rules
+from rocket_tpu_torch.parallel.sharding import fsdp_rules, gpt2_tp_rules, moe_rules, pipeline_rules
+from rocket_tpu_torch.nn import moe as moe_lib
+from rocket_tpu_torch.ops import gather_gmm as gg
+from rocket_tpu_torch.ops import grouped_matmul as gm
 
 model_cfg = TransformerConfig.gpt2_124m()
 tokens = np.load(os.path.join(root, "tokens.npy"))
@@ -5403,6 +5508,8 @@ def dp_phases(card):
         text = _text(2_000_000)  # examples.gpt2.corpus's text
         np.save(root / "tokens.npy", CharTokenizer(text).encode(text))
         torch.save(map_params(lambda t: t.cpu(), _drawn_params(cfg)), root / "init_params.pt")
+        torch.save(map_params(lambda t: t.cpu(), _drawn_params(moe_config())),
+                   root / "moe_init_params.pt")
         dp_job = {"name": "dp", "steps": steps, "grad_sync": "bucketed",
                   "save_every": DP_SAVE_AT, "keep_params": True}
         # The step-1 gradients: f32 compute and wire, so the two sides
@@ -5524,6 +5631,8 @@ def dp_phases(card):
         pp_phases(root, ranks, one, card)
         ring_phase(root, ranks, one, card)
         dp_cifar_phase(root, ranks, one, card)
+        # Expert parallelism and the MoE under the model, seq and pipe axes.
+        ep_phases(root, ranks, one, card)
         # -- dp_launch, with the pipeline and long-context examples beside it
         examples = examples_par_start(root)
         dp_launch_phase(root, card)
@@ -5686,13 +5795,15 @@ def _median(values) -> float:
 
 
 def par_jobs(root: Path) -> tuple:
-    """The sync-BN, ring and pipeline jobs (module docstring): ``(two-rank
-    jobs, one-rank jobs)``, run by the data-parallel workers after their
-    own. ``pp_*``: GPT-2 124M over two pipeline stages under each schedule,
-    the f32 step-1 taps with the dropout masks' fingerprints, the
-    peak-memory jobs at M = 8; ``ring``: T = 4096 over two seq ranks, and
-    its f32 step-1 tap; ``dp_cifar``: ResNet-18 with sync-BN; each against
-    its one-rank job."""
+    """The sync-BN, ring, pipeline and expert jobs (module docstring):
+    ``(two-rank jobs, one-rank jobs)``, run by the data-parallel workers
+    after their own. ``pp_*``: GPT-2 124M over two pipeline stages under
+    each schedule, the f32 step-1 taps with the dropout masks'
+    fingerprints, the peak-memory jobs at M = 8; ``ring``: T = 4096 over
+    two seq ranks, and its f32 step-1 tap; ``dp_cifar``: ResNet-18 with
+    sync-BN; ``ep_*``: the MoE LM over two expert ranks, both dispatches,
+    a save, the f32 step-1 tap; ``moe_*_f32``: the MoE LM under the model,
+    seq and pipe axes; each against its one-rank job."""
     lm = {"kind": "lm"}
     pp = {**lm, "mesh": PP_MESH, "batch": 8, "m": PP_M}
     # The peak at M = 4 is the 8-step runs'; these hold the microbatch at 2
@@ -5713,7 +5824,27 @@ def par_jobs(root: Path) -> tuple:
            {**ring, "name": "ring_f32", "attention": "ring", "mesh": RING_MESH, "steps": 2,
             "f32": True, "tap": True},
            {**cifar, "name": "dp_cifar"}]
-    one = [{**lm, "name": "pp_one", "batch": 8, "steps": PP_STEPS},
+    moe = {**lm, "moe_layers": MOE_LAYERS, "batch": 8, "dispatch": "dropless",
+           "env": {"ROCKET_TPU_MOE_GMM": "fused"}}
+    ep = {**moe, "mesh": EP_MESH, "rule": "moe"}
+    par = {**moe, "moe_layers": MOE_PAR_LAYERS, "steps": 2, "f32": True, "tap": True}
+    two += [{**ep, "name": "ep_dropless", "steps": EP_STEPS, "save_every": EP_SAVE_AT,
+             "keep_params": True},
+            {**ep, "name": "ep_einsum", "dispatch": "einsum", "env": {}, "steps": EP_STEPS},
+            {**ep, "name": "ep_f32", "steps": 2, "f32": True, "tap": True},
+            {**par, "name": "moe_tp_f32", "mesh": TP_MESH, "rule": "tp",
+             "env": {**moe["env"], "ROCKET_TPU_OVERLAP_WIRE": "fp32"}},
+            {**par, "name": "moe_seq_f32", "mesh": RING_MESH, "attention": "ring"},
+            {**par, "name": "moe_pipe_f32", "mesh": PP_MESH, "schedule": "gpipe", "m": PP_M}]
+    one = [{**moe, "name": "ep_one_dropless", "steps": EP_STEPS},
+           {**moe, "name": "ep_one_einsum", "dispatch": "einsum", "env": {}, "steps": EP_STEPS},
+           {**moe, "name": "ep_one_f32", "steps": 2, "f32": True, "tap": True},
+           {**moe, "name": "ep_one_resumed", "steps": EP_STEPS, "keep_params": True,
+            "resume_from": str(root / "ep_dropless_ck" / str(EP_SAVE_AT))},
+           {**par, "name": "moe_one_f32"},
+           {**par, "name": "moe_one_micro_f32", "batch": PP_MB_ROWS, "accum": PP_M,
+            "steps": 2 * PP_M}]
+    one += [{**lm, "name": "pp_one", "batch": 8, "steps": PP_STEPS},
            {**lm, "name": "pp_one_f32", "batch": 8, "steps": 2, "f32": True, "tap": True,
             "masks": True},
            {**lm, "name": "pp_one_resumed", "batch": 8, "steps": PP_STEPS, "keep_params": True,
@@ -5914,6 +6045,145 @@ def dp_cifar_phase(root: Path, ranks: list, one: dict, card) -> None:
             f"dp_cifar: statistics {stats_err}, params {params_err} from one rank's")
 
 
+def _grad_err(root: Path, two: str, one: str) -> float:
+    """The largest gap of two taps' step-1 gradients, relative to the
+    largest element of ``one``'s."""
+    want = np.load(root / f"{one}_grads.npy")
+    return float(np.abs(np.load(root / f"{two}_grads.npy") - want).max() / np.abs(want).max())
+
+
+def ep_phases(root: Path, ranks: list, one: dict, card) -> None:
+    """``ep_train``, ``ep_checkpoint`` and ``moe_par``: the MoE LM over two
+    expert ranks under both dispatches (rows 11, ``gmm`` and ``tgmm`` on
+    each rank's two experts under dropless), its checkpoint resumed on one
+    rank, and the MoE under the model, seq and pipe axes, each against one
+    rank of the same config, params and batches."""
+    cfg = moe_config()
+    layers = cfg.num_layers
+    two_layers = 2 * layers  # routings a step: the forward and the remat recompute
+    ep_out = {}
+    for dispatch in ("dropless", "einsum"):
+        jobs = [r["jobs"][f"ep_{dispatch}"] for r in ranks]
+        ref = one[f"ep_one_{dispatch}"]
+        gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in jobs]
+        routed = [j["routed_rows"] for j in jobs]
+        ep_out[dispatch] = {
+            "losses": jobs[0]["losses"], "one_rank_losses": ref["losses"],
+            "loss_gap_per_rank": gaps,
+            "step_ms_median_per_rank": [_median(j["step_ms"]) for j in jobs],
+            "step_ms_spread_per_rank": [float(np.ptp(j["step_ms"][1:])) for j in jobs],
+            "step_ms_per_rank": [j["step_ms"] for j in jobs],
+            "one_rank_step_ms_median": _median(ref["step_ms"]),
+            "expert_wait_ms_median_per_rank": [_median(j["coll_wait_ms"]) for j in jobs],
+            "wire_bytes_per_step_per_rank": [_median(j["coll_wire_bytes"]) for j in jobs],
+            "collective_calls_per_step": {k: v["bulk"] / EP_STEPS
+                                          for k, v in jobs[0]["coll_calls"].items()},
+            "expert_param_bytes_per_rank": [j["expert_param_bytes"] for j in jobs],
+            "one_rank_expert_param_bytes": ref["expert_param_bytes"],
+            "param_bytes_per_rank": [j["param_bytes"] for j in jobs],
+            "moment_bytes_per_rank": [j["moment_bytes"] for j in jobs],
+            "one_rank_param_bytes": ref["param_bytes"],
+            "one_rank_moment_bytes": ref["moment_bytes"],
+            "routed_rows_per_rank": routed, "one_rank_routed_rows": ref["routed_rows"],
+            "step1_routing_equal": all(j["routing"][:two_layers] == ref["routing"][:two_layers]
+                                       for j in jobs),
+            "routings_equal": [sum(a == b for a, b in zip(j["routing"], ref["routing"]))
+                               for j in jobs],
+            "routings": len(ref["routing"]),
+            "moe_launches_per_rank": [j["moe_launches"] for j in jobs],
+            "one_rank_moe_launches": ref["moe_launches"],
+            "launches_per_rank": [j["launches"] for j in jobs],
+            "peak_memory_bytes_per_rank": [j["peak_memory_bytes"] for j in jobs],
+            "one_rank_peak_memory_bytes": ref["peak_memory_bytes"]}
+    f32_err = _grad_err(root, "ep_f32", "ep_one_f32")
+    f32_routing = all(r["jobs"]["ep_f32"]["routing"] == one["ep_one_f32"]["routing"]
+                      for r in ranks)
+    emit("ep_train", model="moe_gpt2_e4", layers=layers, dtype="bfloat16", batch=8,
+         seq_len=cfg.max_seq_len, steps=EP_STEPS, ranks=2, mesh=EP_MESH,
+         backend=ranks[0]["jobs"]["ep_dropless"]["backend"], dispatches=ep_out,
+         step1_grad_err_f32=f32_err, f32_routing_equal=f32_routing, card=card)
+    for dispatch, rec in ep_out.items():
+        jobs = [r["jobs"][f"ep_{dispatch}"] for r in ranks]
+        for r, job in enumerate(jobs):
+            require(job["backend"] == "gloo" and job["expert_index"] == r,
+                    f"ep_train {dispatch}: rank {r} ran on {job['backend']} at expert "
+                    f"{job['expert_index']}")
+            require(len(job["losses"]) == EP_STEPS and rec["loss_gap_per_rank"][r]
+                    <= RING_LOSS_TOL, f"ep_train {dispatch}: rank {r} losses {job['losses']} "
+                    f"vs one rank {rec['one_rank_losses']}")
+            require(job["moe_launches"] == rec["one_rank_moe_launches"]
+                    and job["launches"] == one[f"ep_one_{dispatch}"]["launches"],
+                    f"ep_train {dispatch}: rank {r} launches {job['moe_launches']} "
+                    f"{job['launches']}, one rank {rec['one_rank_moe_launches']}")
+            require(2 * job["expert_param_bytes"] == rec["one_rank_expert_param_bytes"],
+                    f"ep_train {dispatch}: rank {r} holds {job['expert_param_bytes']} expert "
+                    f"bytes of {rec['one_rank_expert_param_bytes']}")
+        require(rec["step1_routing_equal"], f"ep_train {dispatch}: step-1 routing differs from "
+                f"one rank's ({rec['routings_equal']} of {rec['routings']} routings equal)")
+        if dispatch == "dropless":
+            want = {"gather_gmm": 2 * layers * EP_STEPS, "gmm": 4 * layers * EP_STEPS,
+                    "tgmm": 2 * layers * EP_STEPS}
+            require(rec["one_rank_moe_launches"] == want,
+                    f"ep_train: one rank launches {rec['one_rank_moe_launches']}, want {want}")
+            require(sum(rec["routed_rows_per_rank"]) == rec["one_rank_routed_rows"]
+                    and min(rec["routed_rows_per_rank"]) > 0,
+                    f"ep_train: routed rows {rec['routed_rows_per_rank']} vs one rank "
+                    f"{rec['one_rank_routed_rows']}")
+    require(f32_err <= PP_GRAD_TOL and f32_routing,
+            f"ep_train: step-1 f32 gradients {f32_err} of the largest (routing equal: "
+            f"{f32_routing})")
+    # -- ep_checkpoint
+    saved = [r["jobs"]["ep_dropless"] for r in ranks]
+    resumed = one["ep_one_resumed"]
+    tail = saved[0]["losses"][EP_SAVE_AT:]
+    param_gap = float(np.abs(np.load(root / "ep_one_resumed_params.npy")
+                             - np.load(root / "ep_dropless_params.npy")).max())
+    step_dir = root / "ep_dropless_ck" / str(EP_SAVE_AT) / "model_0"
+    files = sorted(os.listdir(step_dir))
+    expert_keys = [sum("experts" in k for k in np.load(step_dir / f"shard_p{r}.npz").files)
+                   for r in range(2)]
+    emit("ep_checkpoint", saved_at=EP_SAVE_AT, ranks_saving=2, ranks_resuming=1, files=files,
+         expert_chunks_per_file=expert_keys,
+         write_s_per_rank=[[s.get("write_s") for s in j["saves"]] for j in saved],
+         bytes_per_rank=[[s["shard_bytes"] for s in j["saves"]] for j in saved],
+         resumed_losses=resumed["losses"], uninterrupted_losses=tail,
+         end_param_max_abs_gap=param_gap, card=card)
+    require(files == ["index.json", "shard_p0.npz", "shard_p1.npz"]
+            and min(expert_keys) > 0, f"ep_checkpoint: {files}, expert chunks {expert_keys}")
+    require(len(resumed["losses"]) == EP_STEPS - EP_SAVE_AT
+            and abs(resumed["losses"][0] - tail[0]) <= EP_RESUME_TOL
+            and max(abs(a - b) for a, b in zip(resumed["losses"], tail)) <= RING_LOSS_TOL,
+            f"ep_checkpoint: resumed losses {resumed['losses']} vs {tail}")
+    require(param_gap <= DP_PARAM_TOL, f"ep_checkpoint: end params {param_gap} apart")
+    # -- moe_par
+    micro = one["moe_one_micro_f32"]["losses"][:PP_M]
+    par = {}
+    for axis, name, ref_name in (("model", "moe_tp_f32", "moe_one_f32"),
+                                 ("seq", "moe_seq_f32", "moe_one_f32"),
+                                 ("pipe", "moe_pipe_f32", "moe_one_micro_f32")):
+        want_loss = (float(np.mean(micro)) if axis == "pipe"
+                     else one[ref_name]["losses"][0])
+        jobs = [r["jobs"][name] for r in ranks]
+        par[axis] = {"loss": jobs[0]["losses"][0], "one_rank_loss": want_loss,
+                     "loss_gap_per_rank": [abs(j["losses"][0] - want_loss) for j in jobs],
+                     "step1_grad_err_f32": _grad_err(root, name, ref_name),
+                     "step_ms_per_rank": [j["step_ms"] for j in jobs],
+                     "moe_launches_per_rank": [j["moe_launches"] for j in jobs],
+                     "launches_per_rank": [j["launches"] for j in jobs],
+                     "peak_memory_bytes_per_rank": [j["peak_memory_bytes"] for j in jobs]}
+    emit("moe_par", model="moe_gpt2_e4", layers=MOE_PAR_LAYERS, dtype="float32", batch=8,
+         seq_len=cfg.max_seq_len, steps=2, meshes={"model": TP_MESH, "seq": RING_MESH,
+                                                   "pipe": PP_MESH},
+         microbatches=PP_M, one_rank_micro_losses=micro, axes=par, card=card)
+    for axis, rec in par.items():
+        require(max(rec["loss_gap_per_rank"]) <= RING_F32_LOSS_TOL * abs(rec["one_rank_loss"])
+                and rec["step1_grad_err_f32"] <= PP_GRAD_TOL,
+                f"moe_par {axis}: step-1 loss gaps {rec['loss_gap_per_rank']}, gradients "
+                f"{rec['step1_grad_err_f32']} of the largest")
+        require(all(sum(c.values()) > 0 for c in rec["moe_launches_per_rank"]),
+                f"moe_par {axis}: MoE kernel launches {rec['moe_launches_per_rank']}")
+
+
 def _example_ranks(script: str, args: list, work: str) -> list:
     """Start ``script`` of ``rocket_tpu_torch/examples`` as two ranks
     sharing the card over gloo, spawned as the launcher does (one card:
@@ -5928,12 +6198,19 @@ def _example_ranks(script: str, args: list, work: str) -> list:
             for r in range(2)]
 
 
+#: examples_par: the steps of ``moe_lm.py --expert-axis 2`` (its defaults
+#: otherwise: B=64, T=128, dim 128, 4 layers, einsum dispatch).
+MOE_LM_EP_STEPS = 40
+
+
 def examples_par_start(root: Path) -> dict:
     """Start ``examples_par``'s two pairs of ranks in ``root`` (each pair at
     once; :func:`examples_par_phase` waits for them)."""
     runs = {"t0": time.perf_counter()}
     for tag, script, args in (("pipeline_lm", "pipeline_lm.py", ["--schedule", "1f1b"]),
-                              ("long_context", "long_context.py", [])):
+                              ("long_context", "long_context.py", []),
+                              ("moe_lm", "moe_lm.py", ["--expert-axis", "2", "--epochs", "1",
+                                                       "--steps", str(MOE_LM_EP_STEPS)])):
         (root / tag).mkdir()
         runs[tag] = _example_ranks(script, args, str(root / tag))
     return runs
@@ -5941,9 +6218,10 @@ def examples_par_start(root: Path) -> dict:
 
 def examples_par_phase(runs: dict, card) -> None:
     """``examples_par``: ``pipeline_lm.py --schedule 1f1b`` and
-    ``long_context.py`` at their defaults, each as two ranks, the two pairs
-    started by :func:`examples_par_start` and running beside ``dp_launch``
-    (so their walls overlap)."""
+    ``long_context.py`` at their defaults and ``moe_lm.py --expert-axis 2``
+    for MOE_LM_EP_STEPS steps, each as two ranks, the three pairs started
+    by :func:`examples_par_start` and running beside ``dp_launch`` (so
+    their walls overlap)."""
     procs = {tag: p for tag, p in runs.items() if tag != "t0"}
     outs = {}
     try:
@@ -5966,12 +6244,17 @@ def examples_par_phase(runs: dict, card) -> None:
     first, last = (float(v) for v in lines[0].split("loss ")[1].split(" (")[0].split(" -> "))
     losses = [float(x.split("loss=")[1].split(",")[0].rstrip("]"))
               for x in outs["long_context"][0].replace("\r", "\n").split("\n") if "loss=" in x]
+    moe_lines = [ln for ln in outs["moe_lm"][0].splitlines() if "moe_lm over 2 expert" in ln]
+    require(len(moe_lines) == 1, f"examples_par: moe_lm printed {moe_lines}")
+    moe_first, moe_last = (float(v) for v in
+                           moe_lines[0].split("loss ")[1].split(" (")[0].split(" -> "))
     emit("examples_par", wall_s=wall,
          pipeline_lm={"line": lines[0], "first": first, "last": last},
          long_context={"first": losses[0] if losses else None,
                        "last": losses[-1] if losses else None, "readings": len(losses)},
-         card=card)
+         moe_lm={"line": moe_lines[0], "first": moe_first, "last": moe_last}, card=card)
     require(last < first, f"examples_par: pipeline_lm loss {first} -> {last}")
+    require(moe_last < moe_first, f"examples_par: moe_lm loss {moe_first} -> {moe_last}")
     require(losses and losses[-1] < losses[0],
             f"examples_par: long_context losses {losses[:2]} ... {losses[-2:]}")
 

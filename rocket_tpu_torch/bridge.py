@@ -293,7 +293,8 @@ def local_params(params: dict, rule, runtime) -> dict:
     """The slices of the whole ``params`` (torch tensors, or numpy from
     :func:`params_from_jax`'s input) that this rank holds under ``rule``
     on ``runtime``'s mesh: a leaf sharded over an axis is cut into that
-    axis's size on its dim, and the rank keeps its coordinate's chunk; a
+    axis's size on its dim, and the rank keeps its coordinate's chunk (an
+    expert leaf under ``moe_rules`` on E, its dim 0 once unstacked); a
     layer placed on a pipeline stage is kept whole by that stage and left
     out elsewhere. A ``blocks_stacked`` subtree is unstacked into
     ``blocks/<i>`` first (:func:`params_from_jax`'s layout)."""

@@ -79,6 +79,15 @@ views, each saved by its stage), and the train step is the model's
 568-570``); the leaves every stage holds carry partial gradients, summed
 over the pipe group with the loss.
 
+Expert parallelism (an ``expert`` mesh axis and ``moe_rules``, whose
+``expert_axis`` marker installs ``parallel.collectives.expert_parallel``
+around the forward and its backward): a rank holds E/n experts of every
+MoE layer (its params, gradients and moments), never gathered; every rank
+of an expert row reads the same stripe, routes it alike and computes its
+experts' share, and the MoE's collectives make every other gradient
+complete and equal on each, so every leaf reduces over the data group
+only, the loss too.
+
 Tensor parallelism (a ``model`` mesh axis and a rule with the
 ``tp_axis`` marker, ``gpt2_tp_rules``): a model-axis shard is never
 gathered; the forward and its backward run under the rule's
@@ -190,6 +199,18 @@ class PreparedModule:
 
     def sharded(self) -> bool:
         return self.shard_dims is not None and any(d is not None for d in self.shard_dims)
+
+    def held_bytes(self) -> dict:
+        """The bytes this rank holds: ``params`` and ``moments`` (the
+        optimizer's state tensors, once a step made them): under expert
+        parallelism E/n experts of every MoE layer."""
+        params = sum(t.numel() * t.element_size()
+                     for t in optim_lib.param_leaves(self.state["params"]))
+        opt = self.state.get("optimizer")
+        moments = 0 if opt is None else sum(
+            v.numel() * v.element_size() for st in opt.state.values() for v in st.values()
+            if isinstance(v, torch.Tensor) and v.dim() > 0)
+        return {"params": params, "moments": moments}
 
     def spread(self) -> bool:
         """Whether some leaf lives on only some ranks (a shard, or a layer
@@ -610,6 +631,9 @@ class Module(Dispatcher):
         else:  # every leaf kept: map_params keeps the tree's empty subtrees too
             values = iter([t for _, t in kept])
             prepared.state["params"] = map_params(lambda t: next(values), params)
+        self.log_info(f"param_sharding: {sum(a is not None for a in axes)} of {len(axes)} leaves "
+                      f"laid out over {sorted({a for a in axes if a is not None})}; this rank "
+                      f"holds {prepared.held_bytes()['params']} param bytes")
 
     def _setup_grad_sync(self, prepared: PreparedModule, opt) -> None:
         """The one reduction of a multi-rank step (``parallel.grad_sync``):
@@ -642,7 +666,9 @@ class Module(Dispatcher):
 
         leaves = optim_lib.param_leaves(prepared.state["params"])
         n = len(leaves)
-        dims = [prepared.shard_dims[i] if prepared.shard_axes[i] != "model" else None
+        # Only a data-axis shard reduce-scatters; a model or expert shard is
+        # held as it is and reduces over the data group like a whole leaf.
+        dims = [prepared.shard_dims[i] if prepared.shard_axes[i] in runtime.DATA_AXES else None
                 for i in range(n)] if prepared.shard_dims is not None else [None] * n
         partial = [False] * n
         loss_partial = False
@@ -681,20 +707,37 @@ class Module(Dispatcher):
                       "the model, seq or pipe group)")
 
     def _tp(self):
-        """The tensor-parallel context of the ``tp_axis`` marker of the rule
-        that laid the model out (an eval Module sharing it reads the same
-        shards), around a forward and its backward; a null context without
-        one."""
+        """The parallel contexts of the rule that laid the model out (an
+        eval Module sharing it reads the same shards), around a forward and
+        its backward: tensor parallelism for the ``tp_axis`` marker, expert
+        parallelism for ``expert_axis``, and for an MoE model over several
+        data ranks the global batch's aux loss (``collectives.data_mean``);
+        a null context without any."""
         import contextlib
 
         rule = self._prepared.sharded_by if self._prepared is not None else None
         axis = getattr(rule, "tp_axis", None)
-        if axis is None or self._runtime.model_axis_size <= 1:
-            return contextlib.nullcontext()
-        from rocket_tpu_torch.parallel.collectives import tp_overlap
+        experts = getattr(rule, "expert_axis", None)
+        stack = contextlib.ExitStack()
+        if axis is not None and self._runtime.model_axis_size > 1:
+            from rocket_tpu_torch.parallel.collectives import tp_overlap
 
-        return tp_overlap(self._runtime, axis=axis,
-                          vocab_sharded_embed=bool(getattr(rule, "tp_vocab_sharded", False)))
+            stack.enter_context(tp_overlap(
+                self._runtime, axis=axis,
+                vocab_sharded_embed=bool(getattr(rule, "tp_vocab_sharded", False))))
+        if experts is not None and self._runtime.axis_size(experts) > 1:
+            from rocket_tpu_torch.parallel.collectives import expert_parallel
+
+            stack.enter_context(expert_parallel(self._runtime, axis=experts))
+        cfg = getattr(self._model, "config", None)
+        if (getattr(cfg, "num_experts", 0) > 0 and not getattr(cfg, "pipeline_axis", None)
+                and self._runtime.data_axis_size > 1):
+            # The load-balancing loss over the global batch, as the
+            # reference's (a pipeline's aux is the microbatches' mean).
+            from rocket_tpu_torch.parallel.collectives import data_mean
+
+            stack.enter_context(data_mean(self._runtime))
+        return stack
 
     def _full_params(self, params, grad: bool = False):
         """The params the forward reads: under a data-sharded layout each

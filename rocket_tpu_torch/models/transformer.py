@@ -22,9 +22,14 @@ axis, ``attention_impl="ring"`` runs each rank's block of every sequence
 edges at their global places). With ``pipeline_axis`` the blocks run as
 pipeline stages over that mesh axis (``parallel/pipeline.py``): GPipe for
 eval and both schedules' training through
-:meth:`TransformerLM.pipelined_value_and_grad`. MoE under tensor, sequence
-or pipeline parallelism raises ``NotImplementedError`` (ROADMAP Queue A 6
-item 5). ``scan_layers``
+:meth:`TransformerLM.pipelined_value_and_grad`. The MoE runs under every
+axis: over an ``expert`` axis each rank computes its own experts
+(``nn/moe.py``); under tensor parallelism and ring attention it gathers
+the sequence at its boundary (its routing groups span the whole
+sequence), counting the aux loss ``1/n`` on each seq rank, whose loss is a
+share; under GPipe the aux loss rides the pipeline's aux channel (each
+stage's layers, the microbatch mean, in the stage's own loss share); 1F1B
+refuses MoE at config time, as the reference. ``scan_layers``
 keeps the blocks a Python loop (a scanned JAX tree's ``blocks_stacked``
 is unstacked on load); with ``scan_remat`` the train forward checkpoints
 each block under ``scan_remat_policy``, as the reference's scanned body
@@ -295,16 +300,17 @@ class Block(Layer):
         params["mlp"]["fc_out"]["w"] *= self._resid_scale
         return params
 
-    def _ffn(self, params, h):
+    def _ffn(self, params, h, seq=None):
         """The FFN half on ``ln2(x)``: ``(out, aux)``, with ``aux`` the MoE's
         ``{"aux_loss", "frac_dropped"}`` or None for the dense MLP. Under a
         tensor-parallel context the MLP takes the collective matmuls
         (reference ``transformer.py:520-560``): one gather feeds the
         column-parallel projection(s) (swiglu's two share it), the
         activation runs on this rank's hidden shard, and ``fc_out``
-        reduce-scatters onto the sequence shards."""
+        reduce-scatters onto the sequence shards; the MoE gathers the
+        sequence itself, as under ring attention (``seq``)."""
         if self.moe is not None:
-            return self.moe.apply(params["moe"], h)
+            return self.moe.apply(params["moe"], h, seq=seq)
         p = params["mlp"]
         from rocket_tpu_torch.parallel import collectives as coll
 
@@ -365,9 +371,19 @@ class Block(Layer):
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[1], split=self._split())
         return x + h
 
+    def _ring_seq(self):
+        """Ring attention's sequence group when the MoE must gather the
+        sequence (a seq axis larger than 1), else None."""
+        if self.moe is None or self.attn.impl != "ring":
+            return None
+        from rocket_tpu_torch.parallel.ring_attention import seq_spec
+
+        seq = seq_spec()
+        return seq if seq is not None and seq.size > 1 else None
+
     def _ffn_residual(self, params, x, mode, rngs):
         """``(x + dropout(ffn(ln2(x))), aux)``: the FFN half and its residual."""
-        h, aux = self._ffn(params, self.ln2(params["ln2"], x))
+        h, aux = self._ffn(params, self.ln2(params["ln2"], x), seq=self._ring_seq())
         if self.dropout is not None:
             h = self.dropout.apply({}, h, mode=mode, rng=rngs[2], split=self._split())
         return x + h, aux
@@ -533,21 +549,18 @@ class TransformerLM:
         """The active tensor-parallel spec for this forward, or None. The
         port has no GSPMD to fall back on (the reference runs the plain
         program where a width does not divide): the sequence, the query and
-        key/value heads and the MLP width must divide the model group, and
-        an MoE config raises."""
+        key/value heads and, for the dense MLP, its width must divide the
+        model group (the MoE's experts run whole on every model rank)."""
         from rocket_tpu_torch.parallel.collectives import current_tp
 
         spec = current_tp()
         if spec is None:
             return None
         c, n = self.config, spec.tp_size
-        if c.num_experts > 0:
-            raise NotImplementedError(
-                "TransformerLM: MoE under tensor parallelism (the TP context's sequence gather "
-                "and expert parallelism) is not ported yet (ROADMAP Queue A 6 item 5)")
         widths = {"the sequence": t, "num_heads": c.num_heads,
-                  "num_kv_heads": c.num_kv_heads or c.num_heads,
-                  "the MLP width": c.mlp_ratio * c.dim}
+                  "num_kv_heads": c.num_kv_heads or c.num_heads}
+        if c.num_experts == 0:
+            widths["the MLP width"] = c.mlp_ratio * c.dim
         bad = [f"{name} {v}" for name, v in widths.items() if v % n]
         if bad:
             raise NotImplementedError(
@@ -594,7 +607,7 @@ class TransformerLM:
         """The sequence group when the current Runtime shards the token dim
         (a seq axis larger than 1), else None. Only ring attention runs on
         such a batch here: the other impls' seams over a sharded sequence
-        are ROADMAP Queue A 6 item 6, MoE's item 5."""
+        are ROADMAP Queue A 6 item 6."""
         from rocket_tpu_torch.parallel.ring_attention import seq_spec
 
         spec = seq_spec()
@@ -606,9 +619,6 @@ class TransformerLM:
                 f"TransformerLM: attention_impl={c.attention_impl!r} on a batch whose tokens are "
                 "sharded over the seq axis needs the flash mesh seams (ROADMAP Queue A 6 item 6); "
                 "use attention_impl='ring'")
-        if c.num_experts > 0:
-            raise NotImplementedError("TransformerLM: MoE under sequence parallelism is not "
-                                      "ported yet (ROADMAP Queue A 6 item 5)")
         return spec
 
     def _embed(self, params, tokens, mode, rng, seq=None, spec=None):
@@ -720,6 +730,9 @@ class TransformerLM:
         aux_total = dropped_total = None
         if c.pipeline_axis:
             x = self._apply_pipelined(params, x, mode=mode, rng=rng)
+            if c.num_experts > 0:
+                # The pipelined aux channel carries the loss scalar only.
+                x, aux_total = x
         else:
             remat = (c.scan_layers and c.scan_remat and mode == "train"
                      and torch.is_grad_enabled())
@@ -738,9 +751,13 @@ class TransformerLM:
         if aux_total is not None:
             # The pre-weighted router load-balancing loss (next_token_loss
             # adds it) and the layer-mean fraction of routed pairs that
-            # overflowed expert capacity.
-            out["moe_aux_loss"] = aux_total * c.moe_aux_weight
-            out["moe_frac_dropped"] = dropped_total / c.num_layers
+            # overflowed expert capacity. A seq rank's train loss is its
+            # share of the sum over the group, so it counts 1/n of the aux
+            # loss every seq rank computed whole.
+            share = seq.size if seq is not None and mode == "train" else 1
+            out["moe_aux_loss"] = aux_total * (c.moe_aux_weight / share)
+            if dropped_total is not None:
+                out["moe_frac_dropped"] = dropped_total / c.num_layers
         return self._head_out(params, x, tokens, out, mode, spec=spec, seq=seq)
 
     # -- pipeline parallelism -----------------------------------------------
@@ -755,9 +772,6 @@ class TransformerLM:
         if not c.scan_layers:
             raise RuntimeError("TransformerConfig.pipeline_axis requires scan_layers=True "
                                "(stacked block params are the pipeline stages).")
-        if c.num_experts > 0:
-            raise NotImplementedError("TransformerLM: MoE under the pipe axis (GPipe with the "
-                                      "aux channel) is not ported yet (ROADMAP Queue A 6 item 5)")
         runtime = Runtime.current()
         if runtime is None or c.pipeline_axis not in runtime.mesh:
             raise RuntimeError(f"pipeline_axis={c.pipeline_axis!r} needs a live Runtime whose "
@@ -780,9 +794,13 @@ class TransformerLM:
 
     def _block_apply(self, mode: str, rng):
         """One block of the pipeline's stages: ``(params, layer index, h) ->
-        h`` (the stage, not the block, is the remat unit there)."""
+        h`` (the stage, not the block, is the remat unit there); for an MoE
+        config ``(h, the block's aux loss)``, the pipeline's aux channel."""
+        moe = self.config.num_experts > 0
+
         def block_apply(p, i, h):
-            return self.blocks[i].apply_aux(p, h, mode=mode, rng=rng)[0]
+            h, aux = self.blocks[i].apply_aux(p, h, mode=mode, rng=rng)
+            return (h, aux["aux_loss"]) if moe else h
 
         return block_apply
 
@@ -798,7 +816,7 @@ class TransformerLM:
         spec = self._pipe_spec()
         return pipeline_blocks(self._block_apply(mode, rng), self._stage_layers(params, spec), x,
                                spec=spec, num_microbatches=self.config.pipeline_microbatches,
-                               remat=False)
+                               remat=False, with_aux=self.config.num_experts > 0)
 
     def pipelined_value_and_grad(self, objective):
         """The pipelined train step (``Module`` calls it when present;
@@ -816,7 +834,11 @@ class TransformerLM:
         ``"1f1b"`` :func:`pipeline_train_1f1b` runs each microbatch's
         ``ln_f`` + head + loss on the last stage and its backward inside
         the schedule. The objective must read ``batch["nll"]``
-        (``next_token_loss`` does)."""
+        (``next_token_loss`` does). An MoE config (GPipe only) rides the
+        pipeline's aux channel: each stage's weighted share of the aux loss
+        joins its own loss, through the objective's ``moe_aux_loss`` on the
+        last stage and directly elsewhere; the losses sum over the pipe
+        group."""
         c = self.config
         if not c.pipeline_axis:
             return None
@@ -845,17 +867,23 @@ class TransformerLM:
                     grads = [g if e is None else (e if g is None else g + e)
                              for g, e in zip(grads, emb)]
             else:
+                moe = c.num_experts > 0
                 anchor = torch.zeros((), device=x.device, requires_grad=True)
                 y = pl.pipeline_blocks(block_apply, layers, x, spec=spec, num_microbatches=m,
-                                       remat=c.scan_remat, anchor=anchor, broadcast=False)
+                                       remat=c.scan_remat, anchor=anchor, broadcast=False,
+                                       with_aux=moe)
+                head_in = {self.tokens_key: tokens}
+                if moe:
+                    y, aux = y
+                    head_in["moe_aux_loss"] = aux.float() * c.moe_aux_weight
                 if spec.last:
-                    loss = objective(self._head_out(params, y, tokens,
-                                                    {self.tokens_key: tokens}, "train")).float()
+                    loss = objective(self._head_out(params, y, tokens, head_in, "train")).float()
                 else:
-                    loss = y
+                    # The send tokens are zeros: the loss is the aux share.
+                    loss = y + head_in["moe_aux_loss"] if moe else y
                 grads = list(torch.autograd.grad(loss, leaves + [anchor],
                                                  allow_unused=True))[:-1]
-                loss = loss.detach() if spec.last else torch.zeros_like(loss.detach())
+                loss = loss.detach()
             pl.finish()
             out = dict(batch)
             out["nll"] = loss

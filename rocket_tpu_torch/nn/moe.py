@@ -25,10 +25,38 @@ tree's names):
 The load-balancing aux loss (GShard eq. 4) and the dropped fraction
 come back beside the output, for the model to surface in its batch.
 
-Not ported: the sequence-sharded TP-context gather in the reference's
-``apply`` (``:153-174``), which goes with expert parallelism (ROADMAP
-Queue A 6 item 5); ``TransformerLM`` refuses an MoE config under a
-tensor-parallel context, so nothing reaches it.
+Expert parallelism (an ``expert`` mesh axis; the Module's
+``collectives.expert_parallel`` context, the experts laid out by
+``parallel.sharding.moe_rules``): a rank holds E/n experts of the layer
+(``experts/*`` shard on their E dim) and every rank of the expert row
+routes the same tokens with the replicated f32 router. A rank computes its
+own experts' rows only: ``einsum``/``scatter`` its ``(B, T, E/n, C)``
+slice of the dispatch and combine, ``dropless`` the sorted pairs ordered
+with its experts' rows first (the sort key is (not local, expert), so no
+host read), its group sizes summing below NK (the products give rows past
+the groups no work, and the other ranks' rows no padded row). The input
+and the top-k gates enter the local experts through
+``collectives.ep_enter`` (whose backward all-reduces their cotangents) and
+the partial output leaves through ``collectives.ep_combine`` (an
+all-reduce): the router, the aux loss and everything upstream get the
+same complete gradients on every rank, and each expert's gradient is
+complete on its rank. Capacity and the dropped fraction count every
+expert, as on one rank. With k = 2 the dropless output is the one-rank
+output bitwise (two adds onto zero commute).
+
+Over several data ranks (the Module's ``collectives.data_mean`` context)
+the aux loss is the global batch's: the routed fractions and mean gates
+are averaged over the data group first.
+
+Under a tensor-parallel context the residual stream arrives sequence
+sharded: the layer gathers it at its boundary and re-shards its output
+(the reference's ``apply``, ``:153-174``, through
+``collectives.seq_all_gather`` / ``seq_shard``: complete gradients on every
+model rank). Under ring attention (``seq``, a ``SeqSpec``) the routing
+groups span the whole sequence too: ``collectives.seq_gather_sum`` gathers
+it with a reduce-scatter backward and the layer keeps its block of the
+output, so its gradients stay partials, as every leaf's under ``seq``
+(the model counts the aux loss ``1/n`` on each rank).
 """
 
 from __future__ import annotations
@@ -43,9 +71,14 @@ from rocket_tpu_torch.nn.module import Layer
 from rocket_tpu_torch.ops.gather_gmm import gather_gmm, gather_gmm_supported, padded_group_layout
 from rocket_tpu_torch.ops.grouped_matmul import grouped_matmul
 
-__all__ = ["MoE", "DISPATCHES", "gmm_config"]
+__all__ = ["MoE", "DISPATCHES", "gmm_config", "ROWS"]
 
 DISPATCHES = ("einsum", "scatter", "dropless")
+
+#: The routed (token, choice) rows this process's experts computed in the
+#: dropless dispatch, summed on the device while ``ROWS["total"]`` is a
+#: tensor (None: not counted).
+ROWS: dict = {"total": None}
 
 
 def _expert_rows(table, expert):
@@ -55,6 +88,12 @@ def _expert_rows(table, expert):
     backward of an indexing gather adds a row's duplicates one after the
     other, and here each of the E rows has thousands."""
     return F.embedding(expert, table)
+
+
+def _mine(rows, mine):
+    """``rows`` with the other ranks' rows zeroed (no gradient reaches them)."""
+    return torch.where(mine[:, None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
 
 
 def gmm_config(m: int, k: int, n: int, dtype) -> dict:
@@ -113,17 +152,59 @@ class MoE(Layer):
         top_gates = top_gates / torch.clamp(top_gates.sum(-1, keepdim=True), min=1e-9)
         return gates, top_gates, top_idx
 
-    def apply(self, params, x, *, mode="train", rng=None):
+    def apply(self, params, x, *, mode="train", rng=None, seq=None):
+        """``x`` (B, T, D) -> ``(y, {"aux_loss", "frac_dropped"})``; under a
+        TP context, or with ``seq`` (ring attention's sequence group), ``x``
+        is this rank's sequence shard, gathered whole for the routing."""
         del mode, rng  # the routing is deterministic and has no dropout
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        tp = coll.current_tp()
+        if tp is not None:
+            x = coll.seq_all_gather(tp, x)
+        elif seq is not None:
+            x = coll.seq_gather_sum(seq, x)
+        y, aux = self._apply_whole(params, x)
+        if tp is not None:
+            y = coll.seq_shard(tp, y)
+        elif seq is not None:
+            y = y.chunk(seq.size, 1)[seq.index]
+        return y, aux
+
+    def _local(self, params):
+        """``(spec, first expert, experts held)`` under expert parallelism
+        with this rank's share of the experts, else None (every expert
+        here)."""
+        from rocket_tpu_torch.parallel.collectives import current_ep
+
+        held = params["experts"]["w_in"].shape[0]
+        spec = current_ep()
+        if spec is None or held == self.num_experts:
+            if held != self.num_experts:
+                raise ValueError(f"MoE: {held} of {self.num_experts} experts held outside an "
+                                 "expert-parallel context")
+            return None
+        if held * spec.size != self.num_experts:
+            raise ValueError(f"MoE: {held} experts a rank over {spec.size} expert ranks, not "
+                             f"the layer's {self.num_experts}")
+        return spec, spec.index * held, held
+
+    def _apply_whole(self, params, x):
         b, t, d = x.shape
         e, k = self.num_experts, self.top_k
         gates, top_gates, top_idx = self.route(params, x)
         aux = self._aux_loss(gates, top_idx, e)
+        local = self._local(params)
+        if local is not None:
+            from rocket_tpu_torch.parallel.collectives import ep_enter
+
+            x, top_gates = ep_enter(local[0], x), ep_enter(local[0], top_gates)
 
         if self.dispatch == "dropless":
-            y = self._apply_dropless(params, x, top_gates, top_idx)
+            y = self._apply_dropless(params, x, top_gates, top_idx, local)
             # No capacity, no drops: every routed pair is computed.
-            return y, {"aux_loss": aux, "frac_dropped": torch.zeros((), device=x.device)}
+            return self._combined(y, local), {"aux_loss": aux,
+                                              "frac_dropped": torch.zeros((), device=x.device)}
 
         # GShard grouped routing: each batch row is a routing group with its
         # own capacity. A pair's slot in its expert = the earlier pairs of
@@ -135,24 +216,31 @@ class MoE(Layer):
         position = torch.cumsum(choice_onehot, dim=1, dtype=torch.int32) - choice_onehot
         slot = (position * choice_onehot).sum(-1)  # (B, K*T)
         keep = slot < capacity
+        # The fraction of routed (token, choice) pairs that found no slot.
+        frac_dropped = 1.0 - keep.float().mean()
         ex = params["experts"]
         dt = x.dtype
+        lo, el = (0, e) if local is None else local[1:]
 
         if self.dispatch == "scatter":
             slot_c = torch.clamp(slot, max=capacity - 1)
             b_ix = torch.arange(b, device=x.device)[:, None].expand(b, k * t)
+            if local is not None:
+                # This rank's experts' pairs only, at their local ids.
+                keep = keep & (flat_idx >= lo) & (flat_idx < lo + el)
+                flat_idx = torch.clamp(flat_idx - lo, 0, el - 1)
             xk = x.repeat(1, k, 1)  # (B, K*T, D), k-major
             upd = torch.where(keep[..., None], xk, torch.zeros((), dtype=dt, device=x.device))
             # Dropped pairs add zeros into a kept pair's slot: order-free.
-            expert_in = torch.zeros((b, e, capacity, d), dtype=dt, device=x.device).index_put(
+            expert_in = torch.zeros((b, el, capacity, d), dtype=dt, device=x.device).index_put(
                 (b_ix, flat_idx, slot_c), upd, accumulate=True).transpose(0, 1)  # (E, B, C, D)
         else:
             # F.one_hot refuses out-of-range slots where jax.nn.one_hot
             # gives zeros; the keep mask zeroes those rows either way.
             slot_onehot = (F.one_hot(torch.clamp(slot, max=capacity - 1), capacity).to(dt)
                            * keep[..., None].to(dt))  # (B, K*T, C)
-            dispatch_kc = (choice_onehot.to(dt)[..., :, None]
-                           * slot_onehot[..., None, :]).reshape(b, k, t, e, capacity)
+            dispatch_kc = (choice_onehot[..., lo:lo + el].to(dt)[..., :, None]
+                           * slot_onehot[..., None, :]).reshape(b, k, t, el, capacity)
             dispatch = dispatch_kc.sum(1)  # (B, T, E, C) 0/1
             combine = (dispatch_kc * top_gates.transpose(1, 2)[..., None, None].to(dt)).sum(1)
             expert_in = torch.einsum("btec,btd->ebcd", dispatch, x)
@@ -172,39 +260,76 @@ class MoE(Layer):
             gates_k = top_gates.transpose(1, 2).reshape(b, k * t, 1).to(dt)
             y = (picked * gates_k).reshape(b, k, t, d).sum(1)
         else:
-            y = torch.einsum("btec,ebcd->btd", combine, out)
-        # The fraction of routed (token, choice) pairs that found no slot.
-        frac_dropped = 1.0 - keep.float().mean()
-        return y, {"aux_loss": aux, "frac_dropped": frac_dropped}
+            # In f32, rounded once after the sum over the expert group: a
+            # token's k products of bf16 values are exact there, so the
+            # output is the same bits on one rank and over several.
+            y = torch.einsum("btec,ebcd->btd", combine.float(), out.float())
+            return self._combined(y, local).to(dt), {"aux_loss": aux,
+                                                     "frac_dropped": frac_dropped}
+        return self._combined(y, local), {"aux_loss": aux, "frac_dropped": frac_dropped}
+
+    @staticmethod
+    def _combined(y, local):
+        """The local experts' partial output summed over the expert group."""
+        if local is None:
+            return y
+        from rocket_tpu_torch.parallel.collectives import ep_combine
+
+        return ep_combine(local[0], y)
 
     @staticmethod
     def _aux_loss(gates, top_idx, e: int):
         """GShard eq. 4 load-balancing loss: E * sum(fraction routed as
-        primary * mean gate)."""
-        primary = F.one_hot(top_idx[..., 0], e).float()
-        return e * (primary.mean((0, 1)) * gates.mean((0, 1))).sum()
+        primary * mean gate), both over the global batch under the data
+        context (``collectives.batch_mean``)."""
+        from rocket_tpu_torch.parallel.collectives import batch_mean, current_data
 
-    def _apply_dropless(self, params, x, top_gates, top_idx):
+        fraction = F.one_hot(top_idx[..., 0], e).float().mean((0, 1))
+        mean_gate = gates.mean((0, 1))
+        data = current_data()
+        if data is not None:
+            both = batch_mean(data, torch.cat([fraction, mean_gate]))
+            fraction, mean_gate = both[:e].detach(), both[e:]
+        return e * (fraction * mean_gate).sum()
+
+    def _apply_dropless(self, params, x, top_gates, top_idx, local=None):
         """Sort-based dropless dispatch: flatten to N = B*T tokens and NK =
         N*k (token, choice) pairs, stable-sort the pairs by expert, run both
         expert products as grouped matmuls over the sorted rows, and add
-        the gate-weighted outputs back per token."""
+        the gate-weighted outputs back per token. Under expert parallelism
+        (``local``) the sort puts this rank's experts' pairs first, the
+        products run over their groups only and the other pairs add
+        zeros."""
         b, t, d = x.shape
         e, k = self.num_experts, self.top_k
         n = b * t
         x_flat = x.reshape(n, d)
         pair_expert = top_idx.reshape(n * k)  # token-major pairs
         pair_token = torch.arange(n * k, device=x.device) // k
-        order = torch.argsort(pair_expert, stable=True)
-        sorted_expert = pair_expert[order]
+        mine = None
+        if local is None:
+            order = torch.argsort(pair_expert, stable=True)
+            sorted_expert = pair_expert[order]
+            ids, groups = pair_expert, e
+        else:
+            lo, groups = local[1:]
+            held = (pair_expert >= lo) & (pair_expert < lo + groups)
+            order = torch.argsort(torch.where(held, pair_expert, pair_expert + e), stable=True)
+            mine = held[order]
+            ids = torch.clamp(pair_expert - lo, 0, groups - 1)
+            sorted_expert = ids[order]  # the other ranks' pairs: any local id
         sorted_token = pair_token[order]
         # bincount on the card reads the largest id back to the host; an
         # int32 scatter-add counts on the device (exact in any order).
-        counts = torch.zeros((e,), dtype=torch.int32, device=x.device).scatter_add_(
-            0, pair_expert, torch.ones_like(pair_expert, dtype=torch.int32))
+        ones = (torch.ones_like(pair_expert, dtype=torch.int32) if mine is None
+                else held.to(torch.int32))
+        counts = torch.zeros((groups,), dtype=torch.int32, device=x.device).scatter_add_(
+            0, ids, ones)
+        if ROWS["total"] is not None:
+            ROWS["total"] = ROWS["total"] + counts.sum()
         gate_sorted = top_gates.reshape(n * k)[order].to(x.dtype)
         out = self._dropless_matmuls(params, x_flat, sorted_token, sorted_expert, counts,
-                                     x.dtype)
+                                     x.dtype, mine)
         # Each token receives its k gate-weighted rows. The CUDA index_add
         # adds them in no fixed order, which is exact for k = 2 (two adds
         # onto zero commute); a larger k could differ in its last bit.
@@ -212,11 +337,15 @@ class MoE(Layer):
             0, sorted_token, out * gate_sorted[:, None])
         return y.reshape(b, t, d)
 
-    def _dropless_matmuls(self, params, x_flat, sorted_token, sorted_expert, counts, dtype):
+    def _dropless_matmuls(self, params, x_flat, sorted_token, sorted_expert, counts, dtype,
+                          mine=None):
         """Both expert products over the sorted rows: gather-explicit
         (``"gmm"``) or gather-in-kernel (``"fused"``) per :func:`gmm_config`;
         ``ROCKET_TPU_MOE_GMM`` overrides it (forced, the fused path runs on
-        the CPU too, through the kernel's plain version)."""
+        the CPU too, through the kernel's plain version). ``mine`` (NK,)
+        bool marks the rows of this rank's experts (the first ones; the
+        groups ``counts`` cover them only): the other rows come out as
+        zeros."""
         nk = sorted_token.shape[0]
         ex = params["experts"]
         d, hidden = ex["w_in"].shape[1:]
@@ -229,24 +358,30 @@ class MoE(Layer):
             tn = min(config["tile_n"], hidden)
             if gather_gmm_supported(d, hidden, tn) and (bool(forced) or not on_cpu):
                 row_ids, gsz, padded_pos, m_pad = padded_group_layout(
-                    counts, sorted_token, tm, nk, sorted_expert=sorted_expert)
+                    counts, sorted_token, tm, nk, sorted_expert=sorted_expert, valid=mine)
+                # The other ranks' rows sit at padded row m_pad (none).
                 pos = padded_pos.long()
                 # Each padded row's expert, for the bias gathers. Pad rows
                 # read expert 0's bias; their outputs are never gathered back.
-                pexpert = torch.zeros((m_pad,), dtype=torch.long, device=x_flat.device)
+                pexpert = torch.zeros((m_pad + 1,), dtype=torch.long, device=x_flat.device)
                 pexpert[pos] = sorted_expert
+                pexpert = pexpert[:m_pad]
                 h = gather_gmm(x_flat, ex["w_in"].to(dtype), row_ids, gsz, tile_m=tm, tile_n=tn)
                 h = gelu_fn(h + _expert_rows(ex["b_in"].to(dtype), pexpert))
                 # The hidden rows are already in padded-group order: the
                 # out-projection needs no gather.
                 out = grouped_matmul(h, ex["w_out"].to(dtype), gsz)
                 out = out + _expert_rows(ex["b_out"].to(dtype), pexpert)
-                return out[pos]  # (NK, D)
+                if mine is None:
+                    return out[pos]  # (NK, D)
+                # Row m_pad - 1 lies past every group (module docstring).
+                return _mine(out[torch.clamp(pos, max=m_pad - 1)], mine)
         xs = x_flat[sorted_token]  # (NK, D)
         h = grouped_matmul(xs, ex["w_in"].to(dtype), counts)  # (NK, H)
         h = gelu_fn(h + _expert_rows(ex["b_in"].to(dtype), sorted_expert))
         out = grouped_matmul(h, ex["w_out"].to(dtype), counts)
-        return out + _expert_rows(ex["b_out"].to(dtype), sorted_expert)  # (NK, D)
+        out = out + _expert_rows(ex["b_out"].to(dtype), sorted_expert)  # (NK, D)
+        return out if mine is None else _mine(out, mine)
 
     def __repr__(self):
         return f"MoE(d={self.dim}, h={self.hidden}, E={self.num_experts}, k={self.top_k})"

@@ -75,7 +75,8 @@ def _exclusive_cumsum(v: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(v, 0, dtype=torch.int32) - v
 
 
-def padded_group_layout(counts, sorted_token, tile_m: int, nk: int, sorted_expert=None):
+def padded_group_layout(counts, sorted_token, tile_m: int, nk: int, sorted_expert=None,
+                        valid=None):
     """Tile-aligned padded layout for :func:`gather_gmm`.
 
     ``counts`` (E,) int per-expert row counts summing to ``nk``;
@@ -85,7 +86,13 @@ def padded_group_layout(counts, sorted_token, tile_m: int, nk: int, sorted_exper
     group_sizes (E,) int32, padded_pos (NK,) int32, M)``: every group
     padded to a ``tile_m`` multiple (the last one inflated to cover the
     tail, so the groups sum to M) and ``padded_pos`` mapping a sorted row
-    to its padded row."""
+    to its padded row.
+
+    ``valid`` (NK,) bool, for a rank that holds only some experts (expert
+    parallelism): the sorted rows of its experts come first and ``counts``
+    cover them only; the other rows get no padded row (``padded_pos`` M)
+    and the last group is not inflated, so the groups sum below M and the
+    rows past them belong to none (the kernels give them no work)."""
     e = counts.shape[0]
     m = ((nk + tile_m - 1) // tile_m + e) * tile_m  # static worst case
     counts = counts.to(torch.int32)
@@ -98,9 +105,14 @@ def padded_group_layout(counts, sorted_token, tile_m: int, nk: int, sorted_exper
                                            right=True)
     sorted_expert = sorted_expert.long()
     padded_pos = pofs[sorted_expert] + (rows - ofs[sorted_expert])
+    group_sizes = padded.clone()
+    if valid is not None:
+        padded_pos = torch.where(valid, padded_pos, m)
+        row_ids = torch.zeros((m + 1,), dtype=torch.int32, device=counts.device)
+        row_ids[padded_pos.long()] = sorted_token.to(torch.int32)
+        return row_ids[:m].contiguous(), group_sizes, padded_pos, m
     row_ids = torch.zeros((m,), dtype=torch.int32, device=counts.device)
     row_ids[padded_pos.long()] = sorted_token.to(torch.int32)
-    group_sizes = padded.clone()
     group_sizes[e - 1] += m - padded.sum(dtype=torch.int32)
     return row_ids, group_sizes, padded_pos, m
 
@@ -120,11 +132,15 @@ def expert_per_tile(group_sizes, tile_m: int, m: int):
 def gather_gmm_reference(x, rhs, row_ids, group_sizes, tile_m: int):
     """Plain version of the TPU kernel: tile ``i`` of ``tile_m`` rows is
     ``x[row_ids[tile]] @ rhs[expert_per_tile[i]]``, in f32, cast to
-    ``x.dtype``."""
+    ``x.dtype``. Rows past the groups (group sizes summing below M, as
+    :func:`padded_group_layout` lays them out for some of the experts)
+    come out as zeros, as from the kernel."""
     m = row_ids.shape[0]
     expert = expert_per_tile(group_sizes, tile_m, m).repeat_interleave(tile_m)
+    past = torch.arange(m, device=x.device) >= group_sizes.sum()
+    expert = torch.where(past, -1, expert)
     xs = x[row_ids.long()].float()
-    out = torch.empty((m, rhs.shape[2]), dtype=torch.float32, device=x.device)
+    out = torch.zeros((m, rhs.shape[2]), dtype=torch.float32, device=x.device)
     for g in range(rhs.shape[0]):
         rows = (expert == g).nonzero()[:, 0]
         if rows.numel():

@@ -45,9 +45,31 @@ every rank). It is process-wide, not per thread: a CUDA backward runs on
 autograd's device thread. ``pvary_compat`` is JAX typing and has no
 counterpart here.
 
+Expert parallelism (an ``expert`` axis, ``nn/moe.py``): the Module
+installs :func:`expert_parallel` around the forward and the backward when
+the rule that laid the model out carries the ``expert_axis`` marker
+(``sharding.moe_rules``). Every rank of an expert row routes the same
+tokens and computes its own experts' share of the output; two autograd
+Functions cross the group: :func:`ep_enter` (the identity, whose backward
+all-reduces the cotangent the local experts send back to a replicated
+tensor) and :func:`ep_combine` (an all-reduce of the local experts'
+partial output, whose backward is the identity). Both cross at the
+tensor's own dtype, as one all-reduce each over the expert group (CUDA
+tensors too over gloo, which stages a collective's payload itself).
+
+Over several data ranks the MoE's load-balancing loss is the global
+batch's, as the reference's GSPMD program computes it: under
+:func:`data_mean` (the Module's context for an MoE model that is not
+pipelined) :func:`batch_mean` averages each layer's routed fractions and
+mean gates over the data group (one all-reduce a layer).
+
+The MoE under a seq axis gathers the sequence with :func:`seq_gather_sum`
+(an all-gather whose backward reduce-scatters the partial cotangents:
+under ring attention every gradient is a partial that ``GradSync`` sums).
+
 ``STATS`` counts, per process, the seconds spent waiting on the model
-group's collectives, the bytes a rank sends into them, and each
-collective's calls by mode; :func:`reset_stats` zeroes it.
+group's collectives (and the expert group's), the bytes a rank sends into
+them, and each collective's calls by mode; :func:`reset_stats` zeroes it.
 """
 
 from __future__ import annotations
@@ -67,7 +89,8 @@ __all__ = [
     "OverlapSpec", "overlap_enabled", "overlap_mode", "grad_wire_dtype", "tp_overlap",
     "current_tp", "all_gather_matmul", "matmul_reduce_scatter", "qkv_fused_views",
     "embed_lookup_sharded", "vocab_lookup", "seq_all_gather", "seq_shard", "gather_replicated",
-    "STATS", "reset_stats", "Hop",
+    "STATS", "reset_stats", "Hop", "ExpertSpec", "expert_parallel", "current_ep", "ep_enter",
+    "ep_combine", "seq_gather_sum", "DataSpec", "data_mean", "current_data", "batch_mean",
 ]
 
 logger = logging.getLogger(__name__)
@@ -661,3 +684,167 @@ def gather_replicated(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Ten
     under the fused loss, the vocab-sharded logits for the loss): the
     backward keeps this rank's part of the complete gradient."""
     return _Gather.apply(spec, t, dim, "gather_replicated")
+
+
+def seq_gather_sum(seq, x: torch.Tensor) -> torch.Tensor:
+    """``(B, T/n, ...)`` blocks of the sequence group ``seq`` (a
+    ``ring_attention.SeqSpec``) -> ``(B, T, ...)`` on every rank, for a
+    computation over the whole sequence whose gradients stay partial (each
+    rank back-propagates only its own rows' output): the backward
+    reduce-scatters the partial cotangents onto the blocks, at their own
+    dtype."""
+    spec = OverlapSpec(group=seq.group, ranks=tuple(seq.ranks), index=seq.index, axis="seq",
+                       wire=None)
+    return _GatherSum.apply(spec, x)
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, t):
+        ctx.spec = spec
+        _note("seq_gather_sum", False)
+        return _all_gather(spec, t, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        _note("seq_gather_sum.bwd", False)
+        return None, _bulk_reduce_scatter(ctx.spec, dy.contiguous(), wire=False)
+
+
+# -- expert parallelism ---------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ExpertSpec:
+    """One rank's expert row: ``group`` its process group, ``ranks`` its
+    global ranks in expert-coordinate order, ``index`` this rank's
+    coordinate (it holds experts ``[index·E/n, (index+1)·E/n)`` of every MoE
+    layer)."""
+
+    group: Any
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+#: The active expert spec, process-wide (as the TP context).
+_EP: list = [None]
+
+
+@contextlib.contextmanager
+def expert_parallel(runtime, axis: str = "expert"):
+    """Activate expert parallelism over ``runtime``'s ``axis`` group for the
+    block (None when the mesh has no such axis larger than 1)."""
+    if runtime.axis_size(axis) <= 1:
+        yield None
+        return
+    spec = ExpertSpec(group=runtime.axis_group(axis), ranks=tuple(runtime.axis_ranks(axis)),
+                      index=runtime.axis_index(axis))
+    previous, _EP[0] = _EP[0], spec
+    try:
+        yield spec
+    finally:
+        _EP[0] = previous
+
+
+def current_ep() -> Optional[ExpertSpec]:
+    """The active :class:`ExpertSpec`, or None."""
+    return _EP[0]
+
+
+def _group_sum(spec, t: torch.Tensor, name: str) -> torch.Tensor:
+    """The sum of ``t`` over ``spec.group`` (a fresh tensor; the ring's
+    ``2(n-1)/n`` payloads a rank sends counted as its wire bytes)."""
+    _note(name, False)
+    out = t.contiguous().clone()
+    n = spec.size
+    _sent(out, 2 * (n - 1) / n)
+    _wait(_dist().all_reduce(out, group=spec.group, async_op=True))
+    return out
+
+
+class _EpEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, t):
+        ctx.spec = spec
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _group_sum(ctx.spec, dy, "ep_enter.bwd")
+
+
+class _SumForward(torch.autograd.Function):
+    """``scale`` times the sum over ``spec.group`` forward, the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, spec, t, name, scale):
+        out = _group_sum(spec, t, name)
+        return out if scale == 1 else out * scale
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, dy, None, None
+
+
+def ep_enter(spec: ExpertSpec, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (the same on every rank of the expert row) as it enters this
+    rank's experts: the identity, whose backward sums the experts' partial
+    cotangents over the group, so every rank's gradient is complete."""
+    return _EpEnter.apply(spec, t)
+
+
+def ep_combine(spec: ExpertSpec, t: torch.Tensor) -> torch.Tensor:
+    """This rank's experts' partial output -> the sum over the expert
+    group (every expert's share), the same on every rank; the backward
+    hands each rank the complete cotangent as it is."""
+    return _SumForward.apply(spec, t, "ep_combine", 1)
+
+
+# -- the global batch's statistics ---------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DataSpec:
+    """The data group of one rank (``group`` None: the default group) and
+    its ``size``."""
+
+    group: Any
+    size: int
+
+
+#: The active data spec, process-wide.
+_DATA: list = [None]
+
+
+@contextlib.contextmanager
+def data_mean(runtime):
+    """Activate :func:`batch_mean` over ``runtime``'s data group for the
+    block (None on one data rank)."""
+    if runtime.data_axis_size <= 1:
+        yield None
+        return
+    previous, _DATA[0] = _DATA[0], DataSpec(group=runtime.axis_group("data"),
+                                            size=runtime.data_axis_size)
+    try:
+        yield _DATA[0]
+    finally:
+        _DATA[0] = previous
+
+
+def current_data() -> Optional[DataSpec]:
+    """The active :class:`DataSpec`, or None."""
+    return _DATA[0]
+
+
+def batch_mean(spec: DataSpec, t: torch.Tensor) -> torch.Tensor:
+    """The mean over the data ranks of ``t`` (a statistic of this rank's
+    stripe -> the global batch's, for equal stripes), the same on every
+    rank. The backward hands the cotangent back as it is: every rank's loss
+    holds the same global term, and ``GradSync``'s mean over the data ranks
+    then gives its gradient."""
+    return _SumForward.apply(spec, t, "batch_mean", 1.0 / spec.size)

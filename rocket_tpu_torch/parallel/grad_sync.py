@@ -31,7 +31,14 @@ reduces them over the process group as the backward retires them:
 * **pipeline** (a ``pipe`` axis): a stage's own layers reduce over the
   data group only; the leaves every stage holds but only some use (the
   embeddings, ``ln_f``, the head) are partial, and so is the loss, which
-  only the last stage computes;
+  only the last stage computes (with each stage's share of the MoE aux
+  loss);
+* **expert parallelism** (an ``expert`` axis): a leaf sharded over the
+  expert axis is held as this rank's experts and reduces over the data
+  group only. Every other leaf is computed alike on every rank of an
+  expert row (the MoE all-reduces the cotangents that leave its local
+  experts, ``collectives.ep_enter``), and so is the loss: they reduce
+  over the data group only too;
 * **wire precision**: payloads cross at ``wire_dtype`` (bf16 by default)
   while params stay f32 masters, and every bucket gets the **f32
   bucket-sum correction**: each bucket's true f32 sum rides one stacked
@@ -60,8 +67,9 @@ __all__ = ["bucket_plan", "shard_layout", "shard_dims", "gather_full", "GradSync
 #: What a spec naming an unported axis points to.
 NOT_PORTED = "ROADMAP Queue A 6"
 
-#: The ROADMAP Queue A 6 item of each unported mesh axis.
-AXIS_ITEMS = {"expert": "expert parallelism (item 5)"}
+#: The ROADMAP Queue A 6 item of each unported mesh axis (every axis of
+#: the reference's mesh is ported).
+AXIS_ITEMS: dict = {}
 
 
 def _itemsize(dtype) -> int:
@@ -121,9 +129,10 @@ def _stages(named_leaves, specs, mesh: dict) -> dict:
 def shard_layout(named_leaves, spec_fn, mesh: dict, data_axes=("data",),
                  model_axis: str = "model") -> list:
     """Per ``(path tuple, leaf)``: ``(dim, axis)``, the dim the rule set
-    ``spec_fn`` shards the leaf on and the mesh axis (a data axis or
-    ``model_axis``), ``(None, axis, stage)`` for a layer's leaf placed
-    whole on a pipeline stage (``sharding.layer_stage``), or None (replicated:
+    ``spec_fn`` shards the leaf on and the mesh axis (a data axis,
+    ``model_axis`` or the expert axis), ``(None, axis, stage)`` for a
+    layer's leaf placed whole on a pipeline stage
+    (``sharding.layer_stage``), or None (replicated:
     no rule, no spec, an axis of size 1, or a dim that does not divide over
     it, as the reference falls back). A spec naming another axis, an axis
     the mesh lacks, or two axes on one leaf raises."""
@@ -147,15 +156,16 @@ def shard_layout(named_leaves, spec_fn, mesh: dict, data_axes=("data",),
                 continue
             for axis in (entry if isinstance(entry, (tuple, list)) else (entry,)):
                 name = "/".join(path)
-                if axis not in data_axes and axis not in (model_axis, "pipe"):
+                if axis not in data_axes and axis not in (model_axis, "pipe", "expert"):
                     raise NotImplementedError(
                         f"param_sharding: {name} is sharded over {axis!r}: "
                         f"{AXIS_ITEMS.get(axis, 'that axis')} is not ported yet ({NOT_PORTED})")
                 if axis not in mesh:
                     raise NotImplementedError(
                         f"param_sharding: {name} is sharded over {axis!r}, which the mesh "
-                        f"{dict(mesh)} lacks (tensor parallelism, {NOT_PORTED} item 1, needs "
-                        "mesh_shape={'data': d, 'model': m})")
+                        f"{dict(mesh)} lacks ({NOT_PORTED}: tensor parallelism needs "
+                        "mesh_shape={'data': d, 'model': m}, expert parallelism "
+                        "{'data': d, 'expert': e})")
                 found.append((d, axis))
         if len(found) > 1:
             raise NotImplementedError(f"param_sharding: {'/'.join(path)} names {len(found)} "

@@ -145,12 +145,18 @@ class _Recv(torch.autograd.Function):
         return torch.zeros((), device=dh.device), None, None, None, None
 
 
-def _stage(block_apply: Callable, layers: Sequence, h: torch.Tensor, m: int, count: int):
-    """This stage's layers on microbatch ``m`` of ``count``."""
+def _stage(block_apply: Callable, layers: Sequence, h: torch.Tensor, m: int, count: int,
+           with_aux: bool = False):
+    """This stage's layers on microbatch ``m`` of ``count``; ``with_aux``:
+    ``(h, the sum of the layers' aux scalars)``."""
+    aux = None
     with keys.activation_split((0, m, count) if count > 1 else None):
         for idx, params in layers:
             h = block_apply(params, idx, h)
-    return h
+            if with_aux:
+                h, a = h
+                aux = a if aux is None else aux + a
+    return (h, aux) if with_aux else h
 
 
 def _check(x: torch.Tensor, m: int, what: str) -> None:
@@ -162,7 +168,7 @@ def _check(x: torch.Tensor, m: int, what: str) -> None:
 def pipeline_blocks(block_apply: Callable, layers: Sequence, x: torch.Tensor, *,
                     spec: PipeSpec, num_microbatches: Optional[int] = None,
                     remat: bool = True, anchor: Optional[torch.Tensor] = None,
-                    broadcast: bool = True):
+                    broadcast: bool = True, with_aux: bool = False):
     """Run ``x`` (this rank's ``(B, T, D)`` stripe; read on stage 0, its
     shape and dtype elsewhere) through the pipelined layers, GPipe order.
     ``layers`` are this stage's ``(global layer index, params)``; the
@@ -173,7 +179,17 @@ def pipeline_blocks(block_apply: Callable, layers: Sequence, x: torch.Tensor, *,
     output and every other stage the sum of its send tokens (a zero whose
     backward receives the gradients), and ``anchor`` must be given to the
     backward's inputs: it keeps the receives' backward sends in the graph.
-    Call :func:`finish` after the backward."""
+    Call :func:`finish` after the backward.
+
+    ``with_aux`` (the reference's aux channel, an MoE's load-balancing
+    loss): ``block_apply`` returns ``(h, aux scalar)`` and the call returns
+    ``(output, aux)``. Training: ``aux`` is this stage's share, its layers'
+    sum over the microbatches divided by M, which the stage adds to its own
+    loss share (the stages' shares sum, as the losses do, over the pipe
+    group), so no aux crosses a hop. Eval: the sum of the shares over the
+    pipe group, the same on every stage. Each microbatch is its own routing
+    group, so the aux is the microbatches' mean (the unpipelined aux only
+    at M = 1)."""
     p, s = spec.size, spec.index
     m = num_microbatches or 2 * p
     _check(x, m, "pipeline")
@@ -181,27 +197,38 @@ def pipeline_blocks(block_apply: Callable, layers: Sequence, x: torch.Tensor, *,
     like = torch.empty_like(micro[0])
     if anchor is None:
         anchor = torch.zeros((), device=x.device, requires_grad=torch.is_grad_enabled())
-    outs, tokens = [], []
+    outs, tokens, aux = [], [], None
     for mb in range(m):
         h = micro[mb] if s == 0 else _Recv.apply(anchor, like, spec, mb, m)
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_stage, block_apply, layers, h, mb, m, use_reentrant=False)
+            h = checkpoint(_stage, block_apply, layers, h, mb, m, with_aux, use_reentrant=False)
         else:
-            h = _stage(block_apply, layers, h, mb, m)
+            h = _stage(block_apply, layers, h, mb, m, with_aux)
+        if with_aux:
+            h, a = h
+            aux = a if aux is None else aux + a
         if s < p - 1:
             tokens.append(_Send.apply(h, spec, mb, m))
         else:
             outs.append(h)
+    if with_aux:
+        aux = aux / m
     if not broadcast:
-        return torch.cat(outs, 0) if spec.last else torch.stack(tokens).sum()
+        out = torch.cat(outs, 0) if spec.last else torch.stack(tokens).sum()
+        return (out, aux) if with_aux else out
     finish()
+    if with_aux and p > 1:
+        import torch.distributed as dist
+
+        aux = aux.detach().clone()
+        dist.all_reduce(aux, group=spec.group)
     if spec.last:
         out = torch.cat(outs, 0)
         if p > 1:
             _hop(spec, sends=[(out, rank, 2 * m) for rank in spec.ranks[:-1]]).wait()
-        return out
-    (out,) = _hop(spec, recvs=[(x, spec.ranks[-1], 2 * m)]).wait()
-    return out
+    else:
+        (out,) = _hop(spec, recvs=[(x, spec.ranks[-1], 2 * m)]).wait()
+    return (out, aux) if with_aux else out
 
 
 def pipeline_train_1f1b(block_apply: Callable, layers: Sequence, x: torch.Tensor,

@@ -7,14 +7,13 @@ A rule set is a list of ``(glob_pattern, spec)`` pairs matched against the
 dim, the mesh axis that dim is split over (or None). Pass the resulting
 function as ``Module(..., param_sharding=rule_fn)``. The port's Module
 applies specs over the data axis (``fsdp_rules``), the model axis
-(``gpt2_tp_rules``, tensor parallelism) and the pipe axis
+(``gpt2_tp_rules``, tensor parallelism), the pipe axis
 (``pipeline_rules``: its specs are the reference's, for the stacked
 layout; the port keeps a layer per ``blocks/<i>`` subtree, so its marker
 has ``grad_sync.shard_layout`` place each of them whole on its stage,
-:class:`LayerStage`); a
-spec naming the expert axis raises there, since expert parallelism is not
-ported yet (ROADMAP Queue A 6 item 5). ``moe_rules`` is here all the same,
-as a pure function.
+:class:`LayerStage`) and the expert axis (``moe_rules``: in the port's
+``blocks/<i>`` layout E is dim 0 of ``experts/{w_in,b_in,w_out,b_out}``,
+and its ``expert_axis`` marker has the Module run the MoE expert-parallel).
 """
 
 from __future__ import annotations
@@ -169,8 +168,11 @@ def fsdp_rules(axis: str = "data", min_size: int = 2**16,
 
 def moe_rules(axis: str = "expert",
               stacked_prefixes: Tuple[str, ...] = ("blocks_stacked",)) -> RuleFn:
-    """Expert parallelism: stacked expert params (leading E dim) sharded
-    over an 'expert' axis. Composes with :func:`combine_rules`."""
+    """Expert parallelism: stacked expert params (leading E dim, after the
+    layer dim under a ``stacked_prefixes`` subtree) sharded over an
+    'expert' axis. Composes with :func:`combine_rules`. The fn carries the
+    ``expert_axis`` marker: the Module runs the MoE layers under
+    ``collectives.expert_parallel`` over that axis."""
 
     def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
         if "experts" not in path:
@@ -181,6 +183,7 @@ def moe_rules(axis: str = "expert",
             return None
         return (None,) * offset + (axis,) + (None,) * (len(shape) - offset - 1)
 
+    rule_fn.expert_axis = axis
     return rule_fn
 
 

@@ -301,18 +301,19 @@ class Runtime:
     (``ROCKET_TPU_DIST_BACKEND`` names another: gloo lets several ranks
     share one card). Without either the Runtime is one process.
     ``mesh_shape`` (default ``{"data": world size}``; the axes ``data``,
-    ``model``, ``seq`` and ``pipe``, in the shape's order, the last axis
-    fastest) must cover the ranks, one device each, and builds the
-    ``DeviceMesh`` (``device_mesh``); with a ``model``, ``seq`` or ``pipe``
-    axis larger than 1 every row of each axis also gets a process group of
-    its own (:meth:`axis_group`, :meth:`axis_ranks`, :meth:`axis_index`;
-    :attr:`data_index` is the rank's stripe). At most one of those three
-    axes may be larger than 1 (their combinations are ROADMAP Queue A 6
-    item 8); an ``expert`` axis larger than 1 raises, naming item 5.
+    ``model``, ``seq``, ``pipe`` and ``expert``, in the shape's order, the
+    last axis fastest) must cover the ranks, one device each, and builds the
+    ``DeviceMesh`` (``device_mesh``); with a ``model``, ``seq``, ``pipe``
+    or ``expert`` axis larger than 1 every row of each axis also gets a
+    process group of its own (:meth:`axis_group`, :meth:`axis_ranks`,
+    :meth:`axis_index`; :attr:`data_index` is the rank's stripe). At most
+    one of those four axes may be larger than 1 (their combinations are
+    ROADMAP Queue A 6 item 8).
     ``seq_axis`` (default ``"seq"`` when the mesh has it, as in the
     reference) is the axis a batch's token dim is sharded over. Each rank
-    of one model, seq or pipe row holds the same stripe of the global batch
-    (:meth:`shard_batch`; a seq rank keeps its slice of the tokens) and
+    of one model, seq, pipe or expert row holds the same stripe of the
+    global batch (:meth:`shard_batch`; a seq rank keeps its slice of the
+    tokens) and
     every rank starts from the same params, made from the same seed.
     :meth:`wait_for_everyone`
     is a barrier over every rank. A group the Runtime opened closes
@@ -369,11 +370,12 @@ class Runtime:
     #: The mesh axes a batch is split over (the reference's ``DATA_AXES``).
     DATA_AXES: tuple = ("data",)
     #: The mesh axes the port lays out: the data axes, the model
-    #: (tensor-parallel) axis, the sequence axis of ring attention and the
-    #: pipeline-stage axis.
-    MESH_AXES: tuple = ("data", "model", "seq", "pipe")
+    #: (tensor-parallel) axis, the sequence axis of ring attention, the
+    #: pipeline-stage axis and the expert axis (each rank of an expert row
+    #: holds its share of every MoE layer's experts).
+    MESH_AXES: tuple = ("data", "model", "seq", "pipe", "expert")
     #: The axes of which one at most may be larger than 1.
-    SPLIT_AXES: tuple = ("model", "seq", "pipe")
+    SPLIT_AXES: tuple = ("model", "seq", "pipe", "expert")
 
     def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
                  device_placement: bool = True, device_cache_bytes: int = 1 << 30,
@@ -528,8 +530,6 @@ class Runtime:
         self._world = dist.get_world_size() if self.grouped else 1
         self._rank = dist.get_rank() if self.grouped else 0
         self.backend = dist.get_backend() if self.grouped else None
-        from rocket_tpu_torch.parallel.grad_sync import AXIS_ITEMS
-
         shape = dict(mesh_shape) if mesh_shape is not None else {"data": self._world}
         size = 1
         for axis, n in shape.items():
@@ -537,8 +537,7 @@ class Runtime:
             if axis not in self.MESH_AXES and int(n) > 1:
                 raise NotImplementedError(
                     f"Runtime: mesh axis {axis!r} of size {n}: the port's mesh axes are "
-                    f"{self.MESH_AXES}; {AXIS_ITEMS.get(axis, 'this axis')} is not ported yet "
-                    "(ROADMAP Queue A 6)")
+                    f"{self.MESH_AXES} (ROADMAP Queue A 6)")
         split = [axis for axis in self.SPLIT_AXES if int(shape.get(axis, 1)) > 1]
         if len(split) > 1:
             raise NotImplementedError(
@@ -607,8 +606,8 @@ class Runtime:
 
     def axis_group(self, axis: str):
         """The process group of this rank's row of ``axis``: its own group
-        under a model, seq or pipe axis, else (a data-only mesh) the default
-        group (None)."""
+        under a model, seq, pipe or expert axis, else (a data-only mesh)
+        the default group (None)."""
         if axis in self._axis_groups:
             return self._axis_groups[axis][0]
         return None
@@ -643,7 +642,9 @@ class Runtime:
     @property
     def data_index(self) -> int:
         """This rank's stripe of the global batch: its data coordinate
-        (every rank of one model, seq or pipe row reads the same rows)."""
+        (every rank of one model, seq, pipe or expert row reads the same
+        rows: under an expert axis that is the reference's batch,
+        replicated over ``expert``)."""
         return self.axis_index("data")
 
     @property

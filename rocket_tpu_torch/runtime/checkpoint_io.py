@@ -12,8 +12,9 @@ each package reads what the other writes, at any process count:
   tensor is one chunk owned by process 0; a :class:`ShardedLeaf` (one
   rank's shard of a leaf split evenly on a dim) is one chunk per shard,
   chunk ``j`` owned by process ``owners[j]`` (``j`` over a data-only
-  mesh; over a model axis the ranks at data coordinate 0, one writer per
-  model shard), as the reference lays out a sharded leaf; an
+  mesh; over a model or expert axis the ranks at data coordinate 0, one
+  writer per model or expert shard), as the reference lays out a sharded
+  leaf; an
   :class:`OwnedLeaf` (a pipeline stage's layer, whole) is one chunk owned
   by its stage's writer, and every other rank names it by shape and dtype
   alone. The reader assembles any chunk layout

@@ -1648,3 +1648,181 @@ def test_gloo_ring_attention_on_cuda_matches_full_attention(par_cuda, causal):
         ring = r[f"ring{int(causal)}"]
         assert ring["cuda"] and r["ring_staged"]
         assert ring["out"] <= 1e-4 and max(ring["grads"]) <= 1e-4, ring
+
+
+# -- expert parallelism: a rank's local experts ----------------------------------------
+
+
+def _local_routing(gen, n_tok, e, lo, held, tile_m):
+    """A seeded top-2 routing of ``n_tok`` tokens over ``e`` experts, as a
+    rank holding experts ``[lo, lo + held)`` sorts it: its pairs first, by
+    local expert, its group sizes summing below NK (``nn/moe.py``)."""
+    pair_expert = torch.randint(0, e, (n_tok * 2,), generator=gen)
+    mine = (pair_expert >= lo) & (pair_expert < lo + held)
+    order = torch.argsort(torch.where(mine, pair_expert, pair_expert + e), stable=True)
+    ids = torch.clamp(pair_expert - lo, 0, held - 1)
+    counts = torch.zeros(held, dtype=torch.int32).scatter_add_(0, ids, mine.to(torch.int32))
+    sorted_token = (torch.arange(n_tok).repeat_interleave(2))[order]
+    return counts, sorted_token, ids[order], mine[order]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lo", [0, 2])
+def test_local_expert_groups_match_plain(cuda, dtype, lo):
+    """Rows 11, ``gmm`` and ``tgmm`` on one expert rank's two of four
+    experts at the MoE's widths (the group-size sum below M, the rows past
+    the groups zeros and no work), against their plain versions: the
+    gather-GMM over the layout without the other ranks' rows, ``gmm`` in
+    both modes and ``tgmm`` over the raw local counts; two launches
+    bitwise."""
+    gen = torch.Generator().manual_seed(40 + lo)
+    n_tok, d, h = 1024, 768, 3072
+    counts, sorted_token, sorted_expert, mine = _local_routing(gen, n_tok, 4, lo, 2, 128)
+    nk = n_tok * 2
+    assert 0 < int(counts.sum()) < nk
+    row_ids, gsz, padded_pos, m = tgg.padded_group_layout(
+        counts.cuda(), sorted_token.cuda(), 128, nk, sorted_expert=sorted_expert.cuda(),
+        valid=mine.cuda())
+    assert int(gsz.sum()) < m and int(padded_pos[~mine.cuda()].min()) == m
+    x = (torch.randn(n_tok, d, generator=gen) * 0.5).to(dtype).cuda()
+    w_in = (torch.randn(2, d, h, generator=gen) * d ** -0.5).to(dtype).cuda()
+    before = (tgg.gather_gmm_fwd.launches, tgm.gmm.launches, tgm.tgmm.launches)
+    got = tgg.gather_gmm_fwd(x, w_in, row_ids, gsz, 128)
+    _held(got, tgg.gather_gmm_reference(x, w_in, row_ids, gsz, 128), dtype)
+    assert not got[int(gsz.sum()):].any()
+    assert torch.equal(got, tgg.gather_gmm_fwd(x, w_in, row_ids, gsz, 128))
+    xs = x[sorted_token.cuda()]
+    lc = counts.cuda()
+    hid = tgm.gmm(xs, w_in, lc)
+    _held(hid, tgm.gmm_reference(xs, w_in, lc), dtype)
+    assert not hid[int(counts.sum()):].any()
+    back = tgm.gmm(hid, w_in, lc, transpose_rhs=True)  # the in-projection's dlhs
+    _held(back, tgm.gmm_reference(hid, w_in, lc, transpose_rhs=True), dtype)
+    assert not back[int(counts.sum()):].any()
+    dy = (torch.randn(nk, h, generator=gen) * 0.5).to(dtype).cuda()
+    dw = tgm.tgmm(xs, dy, lc)
+    _held(dw, tgm.tgmm_reference(xs, dy, lc), dtype)
+    assert torch.equal(dw, tgm.tgmm(xs, dy, lc))
+    assert (tgg.gather_gmm_fwd.launches, tgm.gmm.launches, tgm.tgmm.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+
+
+_EP_CUDA_WORKER = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, world, out = int(sys.argv[1]), 2, sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[2]}", rank=rank,
+                        world_size=world)
+torch.backends.cuda.matmul.allow_tf32 = False
+from rocket_tpu_torch.nn.moe import MoE
+from rocket_tpu_torch.ops import gather_gmm as tgg
+from rocket_tpu_torch.ops import grouped_matmul as tgm
+from rocket_tpu_torch.parallel import collectives as coll
+from rocket_tpu_torch.runtime import Runtime
+
+runtime = Runtime(device="cuda", mesh_shape={"data": 1, "expert": world})
+res = {}
+for dispatch, forced in (("dropless", "fused"), ("einsum", None)):
+    os.environ.pop("ROCKET_TPU_MOE_GMM", None)
+    if forced:
+        os.environ["ROCKET_TPU_MOE_GMM"] = forced
+    for dtype in (torch.float32, torch.bfloat16):
+        moe = MoE(768, 3072, 4, top_k=2, dispatch=dispatch)
+        gen = torch.Generator().manual_seed(7)
+        params = moe.init_params(gen)
+        x = (torch.randn(2, 512, 768, generator=gen) * 0.5).to(dtype).cuda()
+        cot = torch.randn(2, 512, 768, generator=gen).to(dtype).cuda()
+
+        def run(p, ep):
+            p = {"router": {"w": p["router"]["w"].cuda().requires_grad_(True)},
+                 "experts": {k: v.cuda().requires_grad_(True) for k, v in p["experts"].items()}}
+            xx = x.clone().requires_grad_(True)
+            launches = (tgg.gather_gmm_fwd.launches, tgm.gmm.launches, tgm.tgmm.launches)
+            inputs = [p["router"]["w"], xx] + list(p["experts"].values())
+            if ep:
+                with coll.expert_parallel(runtime):
+                    y, aux = moe.apply(p, xx)
+                    loss = (y.float() * cot.float()).sum() + aux["aux_loss"]
+                    grads = torch.autograd.grad(loss, inputs)
+            else:
+                y, aux = moe.apply(p, xx)
+                loss = (y.float() * cot.float()).sum() + aux["aux_loss"]
+                grads = torch.autograd.grad(loss, inputs)
+            now = (tgg.gather_gmm_fwd.launches, tgm.gmm.launches, tgm.tgmm.launches)
+            return y.detach(), grads[:2], [b - a for a, b in zip(launches, now)]
+
+        y1, g1, n1 = run(params, False)
+        local = {"router": params["router"],
+                 "experts": {k: v.chunk(world, 0)[rank] for k, v in params["experts"].items()}}
+        y2, g2, n2 = run(local, True)
+        name = f"{dispatch}_{str(dtype).removeprefix('torch.')}"
+        res[name] = {"cuda": y2.is_cuda, "bitwise": bool(torch.equal(y1, y2)),
+                     "y": float((y1.float() - y2.float()).abs().max()),
+                     "y_scale": float(y1.float().abs().max()),
+                     "grads": [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                               for a, b in zip(g2, g1)],
+                     "one_rank_launches": n1, "launches": n2}
+res["calls"] = coll.STATS["calls"]
+json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def ep_cuda(tmp_path_factory):
+    """Two expert ranks on the card over a gloo group, running
+    :data:`_EP_CUDA_WORKER`."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    tmp = tmp_path_factory.mktemp("ep_cuda")
+    script = tmp / "worker.py"
+    script.write_text(_EP_CUDA_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port), str(tmp)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dropless_float32", "dropless_bfloat16", "einsum_float32",
+                                  "einsum_bfloat16"])
+def test_gloo_expert_parallel_moe_on_cuda_matches_one_rank(ep_cuda, case):
+    """The MoE layer over two expert ranks on the card (gloo), dropless with
+    the fused kernels forced and einsum, against one rank's layer: the
+    output within the dtype's tolerance of its scale and bitwise where the
+    order of a token's k = 2 adds cannot matter: dropless (the two
+    gate-weighted rows add onto zero in either order, on one rank or
+    across the two) and einsum in bf16 (its two products of bf16 values are
+    exact in the f32 sum, rounded once); einsum in f32 rounds each rank's
+    product before the sum, one rank's inside it. The router's and the
+    input's gradients
+    (all-reduced over the expert group) within it; each rank launching
+    rows 11, ``gmm`` and ``tgmm`` as often as the one rank."""
+    dtype = torch.float32 if case.endswith("float32") else torch.bfloat16
+    for r in ep_cuda:
+        rec = r[case]
+        assert rec["cuda"] and rec["y"] <= TOL[dtype] * (1.0 + rec["y_scale"]), rec
+        assert max(rec["grads"]) <= TOL[dtype], rec
+        assert rec["launches"] == rec["one_rank_launches"], rec
+        assert rec["bitwise"] or case == "einsum_float32", rec
+        if case.startswith("dropless"):
+            assert rec["launches"] == [1, 3, 2], rec
+    assert ep_cuda[0]["calls"]["ep_combine"]["bulk"] == 4

@@ -168,11 +168,13 @@ def test_runtime_refuses_a_model_axis_and_keeps_a_data_mesh():
     # The model axis is ported: one process cannot hold a two-rank one.
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "model": 2})
-    # The pipe axis is ported too; the expert axis still refuses.
+    # The pipe and expert axes are ported too; two of them at once refuse.
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6"):
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "expert": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6 item 8"):
+        Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2, "expert": 2})
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 2})
     runtime = Runtime(device="cpu", mesh_shape={"data": 1, "model": 1})

@@ -317,24 +317,18 @@ def test_shard_masks_are_the_one_rank_masks(split_dim, shape, data_ranks):
 @pytest.mark.parametrize("axis,item", [("pipe", "item 3"), ("seq", "item 4"),
                                        ("expert", "item 5")])
 def test_unported_axes_still_refuse_naming_their_items(axis, item):
-    """The expert axis (item 5) still refuses; the pipe and seq axes
-    (items 3 and 4) are ported, so one process cannot hold a two-rank one
-    and a leaf's spec over the pipe axis lays out as a dim shard."""
+    """The pipe, seq and expert axes (items 3, 4 and 5) are ported, so one
+    process cannot hold a two-rank one, and a leaf's spec over the pipe or
+    the expert axis lays out as a dim shard."""
     from rocket_tpu_torch.parallel import grad_sync as tgs
     from rocket_tpu_torch.runtime import Runtime
 
     leaf = np.zeros((4, 4), np.float32)
-    if axis == "expert":
-        with pytest.raises(NotImplementedError, match=f"Queue A 6.*{item}|{item}.*Queue A 6"):
-            Runtime(device="cpu", mesh_shape={"data": 1, axis: 2})
-        with pytest.raises(NotImplementedError, match=item):
-            tgs.shard_layout([(("w",), leaf)], lambda p, l: (axis, None), {"data": 1, axis: 2})
-        return
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, axis: 2})
-    if axis == "pipe":
+    if axis in ("pipe", "expert"):
         assert tgs.shard_layout([(("w",), leaf)], lambda p, l: (axis, None),
-                                {"data": 1, axis: 2}) == [(0, "pipe")]
+                                {"data": 1, axis: 2}) == [(0, axis)]
 
 
 def test_shard_layout_reads_both_axes_and_refuses_two_on_one_leaf():
@@ -351,30 +345,51 @@ def test_shard_layout_reads_both_axes_and_refuses_two_on_one_leaf():
         tgs.shard_layout(leaves[:1], lambda p, l: ("data", "model"), mesh)
 
 
-def test_moe_under_tensor_parallelism_refuses_naming_item_5():
+MOE_TP_WORKER = r'''
+import json, sys
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from rocket_tpu_torch import bridge
+from rocket_tpu_torch.models import transformer as tt
+from rocket_tpu_torch.parallel import collectives as coll
+from rocket_tpu_torch.parallel.sharding import gpt2_tp_rules
+from rocket_tpu_torch.runtime import Runtime
+
+cfg = json.load(open(sys.argv[1]))
+runtime = Runtime(device="cpu", mesh_shape={"data": 1, "model": 2})
+model = tt.TransformerLM(tt.TransformerConfig(**cfg["model"]))
+params = bridge.local_params(model.init(torch.Generator().manual_seed(0), device="cpu"),
+                             gpt2_tp_rules(), runtime)
+tokens = torch.from_numpy(np.array(cfg["tokens"]))
+with coll.tp_overlap(runtime), torch.no_grad():
+    out = model.apply(params, {"tokens": tokens}, mode="eval")
+np.save(sys.argv[2] + f"/logits{runtime.process_index}.npy", out["logits"].numpy())
+'''
+
+
+def test_moe_under_tensor_parallelism_refuses_naming_item_5(tmp_path):
+    """MoE under tensor parallelism is ported (item 5): the TP forward of an
+    MoE LM over two model ranks gives the one-process logits on both; a
+    model axis beside an expert axis still refuses, naming item 8."""
     import torch
 
     from rocket_tpu_torch.models import transformer as tt
-    from rocket_tpu_torch.parallel import collectives as coll
+    from rocket_tpu_torch.runtime import Runtime
 
-    model = tt.TransformerLM(tt.TransformerConfig(vocab_size=32, max_seq_len=8, dim=32,
-                                                  num_layers=1, num_heads=2, num_experts=2))
+    cfg = dict(vocab_size=32, max_seq_len=8, dim=32, num_layers=1, num_heads=2, num_experts=2)
+    tokens = np.random.default_rng(0).integers(0, 32, (2, 8)).tolist()
+    run_ranks(tmp_path, MOE_TP_WORKER, 2, {"model": cfg, "tokens": tokens})
+    model = tt.TransformerLM(tt.TransformerConfig(**cfg))
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
-
-    class _Mesh:
-        mesh = {"model": 2}
-
-        def axis_group(self, axis):
-            return None
-
-        def axis_ranks(self, axis):
-            return (0, 1)
-
-        def axis_index(self, axis):
-            return 0
-
-    with coll.tp_overlap(_Mesh()), pytest.raises(NotImplementedError, match="item 5"):
-        model.apply(params, {"tokens": torch.zeros(1, 8, dtype=torch.long)})
+    with torch.no_grad():
+        want = model.apply(params, {"tokens": torch.tensor(tokens)}, mode="eval")["logits"]
+    for rank in range(2):
+        np.testing.assert_allclose(np.load(tmp_path / f"logits{rank}.npy"), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Runtime(device="cpu", mesh_shape={"data": 1, "model": 2, "expert": 2})
 
 
 def test_overlap_settings_read_the_environment(monkeypatch):
