@@ -120,7 +120,14 @@ one rank (routing, losses, the f32 step-1 gradients, rows 11, ``gmm`` and
 ``tgmm`` on each rank's two experts, the routed rows, the expert group's
 waits and bytes; ``ep_train``), resumed on one rank from the expert
 shards (``ep_checkpoint``), and at 2 layers and f32 under the model, seq
-and pipe axes against one rank (``moe_par``); and
+and pipe axes against one rank (``moe_par``); ring's job with the flash
+kernels on the seq-sharded batch, each attention gathering the sequence
+(rows 3-5 on both ranks; ``seq_flash``); ViT-Ti under ``gpt2_tp_rules()``
+over two model ranks, replicated (``tp_fallback``); in a four-rank world,
+GPT-2 124M over ``{"data": 1, "model": 2, "pipe": 2}`` under both
+schedules against one rank (``tp_pp_train``), resumed on one rank from its
+four writers' shards (``tp_pp_checkpoint``), and the MoE LM at the other
+pairs of split axes (``mesh_pairs``); and
 ``examples/pipeline_lm.py --schedule 1f1b``, ``examples/long_context.py``
 and ``examples/moe_lm.py --expert-axis 2`` as two ranks each, beside
 ``dp_launch`` (``examples_par``). Last, rows 9-10
@@ -1687,8 +1694,10 @@ def serve_cli_phase(card):
     --export --metrics-port 0 --slo default:serve --trace-steps 4:8
     --out-dir <tmp>`` as a subprocess on the card, then ``serve report``,
     ``obs timeline --slowest 3`` and ``obs prof --format json`` over its
-    outputs: all exit 0, and ``prof`` names the ``paged_decode`` kernels
-    among its compute ops."""
+    outputs, each through the ``main`` its ``python -m`` entry point runs,
+    in this process (since the script outgrew its time limit: a process
+    each cost ~10 s of start-up): all exit 0, and ``prof`` names the
+    ``paged_decode`` kernels among its compute ops."""
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="serve_cli_"))
@@ -1707,13 +1716,20 @@ def serve_cli_phase(card):
                 ("prof", ["-m", "rocket_tpu_torch.obs", "prof", str(root / "run" / "traces"),
                           "--format", "json", "--top", "200"])):
             t0 = time.perf_counter()
-            done = subprocess.run([sys.executable, *argv], env=env, cwd=str(root),
-                                  capture_output=True, text=True, timeout=300)
-            runs[name] = {"rc": done.returncode, "s": time.perf_counter() - t0}
-            (out / f"serve_cli_{name}.log").write_text(done.stdout + done.stderr)
-            require(done.returncode == 0, f"serve_cli: {name} exited {done.returncode}: "
-                    f"{(done.stdout + done.stderr)[-1500:]}")
-            runs[name]["stdout"] = done.stdout
+            if name == "run":
+                done = subprocess.run([sys.executable, *argv], env=env, cwd=str(root),
+                                      capture_output=True, text=True, timeout=300)
+                rc, stdout, text = done.returncode, done.stdout, done.stdout + done.stderr
+            else:
+                entry = serve_cli.main if argv[1] == "rocket_tpu_torch.serve" else obs_main
+                with contextlib.redirect_stdout(io.StringIO()) as captured:
+                    rc = entry(argv[2:])
+                stdout = text = captured.getvalue()
+            runs[name] = {"rc": rc, "s": time.perf_counter() - t0,
+                          "process": "subprocess" if name == "run" else "in-process"}
+            (out / f"serve_cli_{name}.log").write_text(text)
+            require(rc == 0, f"serve_cli: {name} exited {rc}: {text[-1500:]}")
+            runs[name]["stdout"] = stdout
         prof = json.loads(runs["prof"].pop("stdout"))
         compute = {op["name"] for op in prof["top_ops"] if op["category"] == "compute"}
         require({"paged_split_kernel", "paged_combine_kernel"} <= compute,
@@ -1733,9 +1749,10 @@ def serve_cli_phase(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
-#: profile_serve's new tokens a request (cut from 32 to keep the script
-#: inside its time limit: the trace's host-side parse grows with its ops).
-PROFILE_SERVE_TOKENS = 16
+#: profile_serve's new tokens a request (cut from 32, then 16, to keep the
+#: script inside its time limit: the trace's host-side parse grows with its
+#: ops).
+PROFILE_SERVE_TOKENS = 8
 
 
 def profile_serve(engine, vocab, card, phase="serve_profile"):
@@ -4624,30 +4641,54 @@ def supervised_train_phase(card, train_median_ms):
         port = _free_port()
         worker = [str(root / "worker.py"), str(root)]
 
-        def plain(run_dir, extra_env=None):
-            t0 = time.time()
-            done = subprocess.run([sys.executable, *worker, str(run_dir), str(SUPERVISED_STEPS),
-                                   str(port)], env=dict(env, **(extra_env or {})),
-                                  cwd=str(root), capture_output=True, text=True, timeout=300)
-            (out / f"supervised_{run_dir.name}.log").write_text(done.stdout + done.stderr)
-            require(done.returncode == 0, f"supervised_train: the {run_dir.name} run exited "
-                    f"{done.returncode}: {(done.stdout + done.stderr)[-1500:]}")
-            return done.stdout, time.time() - t0
+        def start_plain(run_dir, run_port, extra_env=None):
+            # Output to files: the run may write while nothing reads it.
+            files = [open(root / f"{run_dir.name}.{kind}", "w") for kind in ("out", "err")]
+            return time.time(), run_dir, files, subprocess.Popen(
+                [sys.executable, *worker, str(run_dir), str(SUPERVISED_STEPS), str(run_port)],
+                env=dict(env, **(extra_env or {})), cwd=str(root), stdout=files[0],
+                stderr=files[1])
+
+        def finish_plain(started):
+            t0, run_dir, files, proc = started
+            try:
+                proc.wait(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                for f in files:
+                    f.close()
+            stdout, stderr = (Path(f.name).read_text() for f in files)
+            (out / f"supervised_{run_dir.name}.log").write_text(stdout + stderr)
+            require(proc.returncode == 0, f"supervised_train: the {run_dir.name} run exited "
+                    f"{proc.returncode}: {(stdout + stderr)[-1500:]}")
+            return stdout, time.time() - t0
 
         torch.cuda.empty_cache()
-        # The uninterrupted run traces a window of 3 steps (ROCKET_TPU_PROF).
-        uninterrupted, plain_wall = plain(root / "plain", {"ROCKET_TPU_PROF": SUPERVISED_PROF})
+        # The uninterrupted run traces a window of 3 steps (ROCKET_TPU_PROF);
+        # it runs beside the supervised one, serving its own /metrics port.
+        plain_port = _free_port()
+        while plain_port == port:
+            plain_port = _free_port()
+        plain_run = start_plain(root / "plain", plain_port, {"ROCKET_TPU_PROF": SUPERVISED_PROF})
+        try:
+            scraper = _Scraper(port)
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "rocket_tpu_torch.launch", "--supervise", "-n", "1",
+                 "--backoff", "0.1", "--ckpt-dir", str(root / "sup" / "ck"), "--state-dir",
+                 str(root / "sup"), *worker, str(root / "sup"), str(SUPERVISED_STEPS),
+                 str(port)], env=dict(env, ROCKET_TPU_FAULTS=SUPERVISED_FAULTS), cwd=str(root),
+                capture_output=True, text=True, timeout=600)
+            sup_wall = time.time() - t0
+            scraper.stop()
+        except BaseException:
+            plain_run[3].kill()
+            plain_run[3].wait()
+            raise
+        uninterrupted, plain_wall = finish_plain(plain_run)
         prof_window = _supervised_prof_window(root)
-        scraper = _Scraper(port)
-        t0 = time.time()
-        proc = subprocess.run(
-            [sys.executable, "-m", "rocket_tpu_torch.launch", "--supervise", "-n", "1",
-             "--backoff", "0.1", "--ckpt-dir", str(root / "sup" / "ck"), "--state-dir",
-             str(root / "sup"), *worker, str(root / "sup"), str(SUPERVISED_STEPS), str(port)],
-            env=dict(env, ROCKET_TPU_FAULTS=SUPERVISED_FAULTS), cwd=str(root),
-            capture_output=True, text=True, timeout=600)
-        sup_wall = time.time() - t0
-        scraper.stop()
         log = proc.stdout + proc.stderr
         (out / "supervised_train.log").write_text(log)
         require(proc.returncode == 0, f"supervised_train: the supervisor exited "
@@ -4665,7 +4706,7 @@ def supervised_train_phase(card, train_median_ms):
         require((drain_dir / "drain.json").is_file(), f"supervised_train: no drain.json in "
                 f"{sorted(os.listdir(root / 'sup' / 'ck'))}")
         drain_bytes = sum(f.stat().st_size for f in drain_dir.rglob("*") if f.is_file())
-        resumed, resume_wall = plain(root / "sup")
+        resumed, resume_wall = finish_plain(start_plain(root / "sup", port))
 
         digests = {name: _tagged(text, "DIGEST") for name, text in
                    (("uninterrupted", uninterrupted), ("resumed", resumed))}
@@ -4699,19 +4740,20 @@ def supervised_train_phase(card, train_median_ms):
         records = shards.get(0, [])
         require(records and {r.get("pid") for r in records} and all(
             r.get("version") == 1 for r in records), f"supervised_train: shards {sorted(shards)}")
-        watch = subprocess.run([sys.executable, "-m", "rocket_tpu_torch.obs", "watch", "--slo",
-                                "default:train", str(root / "sup")], env=env, cwd=str(root),
-                               capture_output=True, text=True, timeout=120)
+        # ``obs watch`` through the main its ``python -m`` entry point runs,
+        # in this process (a process of its own cost ~10 s of start-up).
+        with contextlib.redirect_stdout(io.StringIO()) as watch:
+            watch_rc = obs_main(["watch", "--slo", "default:train", str(root / "sup")])
         with contextlib.redirect_stdout(io.StringIO()) as top:
             top_rc = obs_main(["top", "--once", str(root / "sup")])
         # The plain resume's own shards, judged alike (recorded, not held:
         # it is not the supervised run).
         with contextlib.redirect_stdout(io.StringIO()) as watch_resume:
             resume_rc = obs_main(["watch", "--slo", "default:train", str(root / "sup" / "plain")])
-        (out / "supervised_obs.log").write_text(watch.stdout + watch.stderr + top.getvalue()
+        (out / "supervised_obs.log").write_text(watch.getvalue() + top.getvalue()
                                                + watch_resume.getvalue())
-        require(watch.returncode == 0, f"supervised_train: obs watch exited {watch.returncode}: "
-                f"{(watch.stdout + watch.stderr)[-800:]}")
+        require(watch_rc == 0, f"supervised_train: obs watch exited {watch_rc}: "
+                f"{watch.getvalue()[-800:]}")
         require(top_rc == 0 and "obs top — 1 rank(s)" in top.getvalue(),
                 f"supervised_train: obs top returned {top_rc}")
 
@@ -4772,7 +4814,7 @@ def supervised_train_phase(card, train_median_ms):
              shard_records=len(records), shard_processes=len({r.get("pid") for r in records}),
              last_slo=[{k: s.get(k) for k in ("name", "value", "burn_rate", "violated")}
                        for s in last_slo],
-             obs_watch=watch.stdout.strip().splitlines()[-1:],
+             obs_watch=watch.getvalue().strip().splitlines()[-1:],
              obs_watch_resume={"rc": resume_rc,
                                "lines": watch_resume.getvalue().strip().splitlines()[-3:]},
              wall_s={"uninterrupted": plain_wall, "supervised": sup_wall,
@@ -4882,10 +4924,10 @@ TP_WIRE_TOL = 3e-2
 
 #: pp_train / pp_checkpoint: GPT-2 124M (scan_layers, dropout 0.1, bf16,
 #: AdamW) over ``{"data": 1, "pipe": 2}``, 6 layers a stage, B=8 in M=4
-#: microbatches of 2 rows, PP_STEPS steps a schedule (cut from 8), a save at
-#: PP_SAVE_AT (cut from 4); the peak memory at M = 4 is theirs, at M = 8
+#: microbatches of 2 rows, PP_STEPS steps a schedule (cut from 8, then 6), a
+#: save at PP_SAVE_AT (cut from 4, then 3); the peak memory at M = 4 is theirs, at M = 8
 #: (2-row microbatches) that of a 2-step job each.
-PP_STEPS, PP_SAVE_AT, PP_M, PP_MB_ROWS = 6, 3, 4, 2
+PP_STEPS, PP_SAVE_AT, PP_M, PP_MB_ROWS = 4, 2, 4, 2
 PP_MESH = {"data": 1, "pipe": 2}
 #: The step-1 gradients at f32 compute, pipelined against unpipelined,
 #: relative to the largest element: the same f32 function with the batch's
@@ -4934,6 +4976,31 @@ EP_STEPS, EP_SAVE_AT, EP_RESUME_TOL = DP_STEPS, DP_SAVE_AT, 1e-4
 #: PP_M microbatches of 2 rows), each against one rank (the pipe job's
 #: against one rank's microbatch mean, through gradient accumulation).
 MOE_PAR_LAYERS = 2
+
+# -- every mesh the reference runs: the flash seams and item 8's pairs -------------
+
+#: tp_pp_train / tp_pp_checkpoint: GPT-2 124M at full width and depth (B=8,
+#: T=1024, bf16, remat, dropout 0.1, AdamW) over ``{"data": 1, "model": 2,
+#: "pipe": 2}`` under ``pipeline_over(gpt2_tp_rules())``, four ranks sharing
+#: the card over gloo, PP_M microbatches of 2 rows, TP_PP_STEPS steps a
+#: schedule, a save at TP_PP_SAVE_AT; against ``pp_train``'s one rank at its
+#: bounds, and a 2-step f32 1F1B tap held to PP_GRAD_TOL. Each stage's
+#: model shards are gathered over its model group at step entry (the
+#: reference's stage body: its model axis gathered, TP off there).
+TP_PP_MESH = {"data": 1, "model": 2, "pipe": 2}
+TP_PP_STEPS, TP_PP_SAVE_AT = PP_STEPS, PP_SAVE_AT
+#: mesh_pairs: the MoE LM at MOE_PAR_LAYERS layers, f32, two steps with the
+#: gradient tap at each of the reference's other pairs of split axes, in
+#: the four-rank world, against ``moe_par``'s one rank.
+MESH_PAIRS = {"model_seq": ({"data": 1, "model": 2, "seq": 2}, "tp", "ring"),
+              "model_expert": ({"data": 1, "model": 2, "expert": 2}, "tp_moe", "auto"),
+              "seq_expert": ({"data": 1, "seq": 2, "expert": 2}, "moe", "ring")}
+#: tp_fallback: ViT-Ti (3 heads, 9 layers) at f32 on synthetic 32x32 images,
+#: gpt2_tp_rules at ``{"data": 1, "model": 2}`` (3 heads and the ViT's
+#: missing TP path: every layer replicated over the model group), AdamW,
+#: VIT_TP_STEPS steps of VIT_TP_BATCH images; its step-1 gradients against
+#: one rank's within PP_GRAD_TOL of the largest.
+VIT_TP_BATCH, VIT_TP_STEPS = 64, 2
 
 #: The jobs of the sync-BN, ring, pipeline and expert phases; the
 #: data-parallel worker runs them too (a job with a ``kind``), after its own.
@@ -5005,7 +5072,7 @@ class ParClock(rt.Capsule):
     def __init__(self):
         super().__init__(priority=10)
         self.module = self.prepared = None
-        self.losses, self.stamps, self.waits, self.marks = [], [], [], []
+        self.losses, self.stamps, self.waits, self.marks, self.wire = [], [], [], [], []
 
     def set(self, attrs=None):
         super().set(attrs)
@@ -5019,8 +5086,9 @@ class ParClock(rt.Capsule):
         self.stamps.append(time.perf_counter())
         if self.module.grad_sync is not None:
             self.waits.append(self.module.grad_sync.stats["wait_s"])
+            self.wire.append(self.module.grad_sync.stats["wire_bytes"])
         self.marks.append((pl.STATS["wait_s"], ra.STATS["wait_s"], coll.STATS["wait_s"],
-                           coll.STATS["wire_bytes"]))
+                           coll.STATS["wire_bytes"], pl.STATS["wire_bytes"]))
 
 
 def par_whole(prepared, runtime, values):
@@ -5038,7 +5106,7 @@ def par_whole(prepared, runtime, values):
     local = dict(zip(_paths(prepared.state["params"]), values))
     if not prepared.remote:
         return [local[p] for p in _paths(prepared.state["params"])]
-    stage_of = {leaf[0]: leaf[3] for leaf in prepared.stage_leaves}
+    stage_of = {leaf[0]: leaf[3].stage for leaf in prepared.stage_leaves}
     ranks, group = runtime.axis_ranks("pipe"), runtime.axis_group("pipe")
     out = []
     for path in prepared.full_paths:
@@ -5074,7 +5142,9 @@ class ParTap(rt.Capsule):
         module._update = tap
 
 
-RULES = {"moe": moe_rules, "tp": gpt2_tp_rules, "pipe": pipeline_rules}
+RULES = {"moe": moe_rules, "tp": gpt2_tp_rules, "pipe": pipeline_rules,
+         "tp_moe": lambda: combine_rules(moe_rules(), gpt2_tp_rules()),
+         "pp_tp": lambda: pipeline_over(gpt2_tp_rules())}
 
 
 def lm_job(job):
@@ -5109,6 +5179,7 @@ def lm_job(job):
         caps.append(ckpt)
     data = TokenDataset(tokens % mcfg.vocab_size, seq_len=seq_len)
     rule = job.get("rule") or ("pipe" if job.get("schedule") else None)
+    runtime_index = {axis: runtime.axis_index(axis) for axis in runtime.mesh}
     run = gpt2.build(mcfg, data, batch_size=job["batch"], runtime=runtime, steps=job["steps"],
                      record=False, capsules=tuple(caps),
                      param_sharding=RULES[rule]() if rule else None)
@@ -5136,7 +5207,7 @@ def lm_job(job):
     FP_ON[0] = ROUTE_ON[0] = False
     prepared = clock.prepared
     leaves = optim.param_leaves(prepared.state["params"])
-    marks = [(0.0, 0.0, 0.0, 0)] + clock.marks
+    marks = [(0.0, 0.0, 0.0, 0, 0)] + clock.marks
     out = {"losses": clock.losses, "step_ms": [1e3 * d for d in np.diff(clock.stamps)],
            "wall_s": wall, "launches": {"flash_fwd": fa.flash_fwd.launches,
                                         "flash_bwd": fa.flash_bwd.launches,
@@ -5146,6 +5217,10 @@ def lm_job(job):
            "ring_wait_ms": [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])],
            "coll_wait_ms": [1e3 * (b[2] - a[2]) for a, b in zip(marks, marks[1:])],
            "coll_wire_bytes": [b[3] - a[3] for a, b in zip(marks, marks[1:])],
+           "pipe_wire_bytes": [b[4] - a[4] for a, b in zip(marks, marks[1:])],
+           "grad_sync_wire_bytes": clock.wire, "coords": runtime_index,
+           "replicated_layers": coll.STATS["replicated_layers"],
+           "held_bytes": prepared.held_bytes(),
            "coll_calls": coll.STATS["calls"], "expert_index": runtime.axis_index("expert"),
            "pipe": dict(pl.STATS), "ring": dict(ra.STATS), "backend": runtime.backend,
            "world": runtime.process_count, "mesh": runtime.mesh,
@@ -5229,8 +5304,44 @@ def cifar_job(job):
             "params_sha256": digest(params)}
 
 
+def vit_job(job):
+    # ViT-Ti (3 heads) at f32 on synthetic CIFAR images, under a model axis
+    # with gpt2_tp_rules: no TP path, so its model shards are gathered at
+    # step entry and the model runs replicated (rows 3-4 on the whole heads).
+    runtime = rt.Runtime(seed=0, mesh_shape=job.get("mesh"))
+    rng = np.random.default_rng(0)
+    n = job["batch"] * job["steps"]
+    images = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, n).astype(np.int32)
+    model = ViT(32, 4, dim=192, depth=9, num_heads=3)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    runtime.models.add(model, PreparedModule(model, {"params": params}))
+    module = rt.Module(model, [rt.Loss(cifar_resnet.cross_entropy),
+                               rt.Optimizer(optim.adamw(), learning_rate=1e-3)],
+                       param_sharding=gpt2_tp_rules() if job.get("mesh") else None)
+    clock = ParClock()
+    clock.module = module
+    tap = ParTap(os.path.join(root, job["name"] + "_grads.npy"), runtime)
+    tap.module = module
+    for kernel in (fa.flash_fwd, fa.flash_bwd, fa.flash_dq):
+        kernel.launches = 0
+    coll.reset_stats()
+    rt.Launcher([rt.Looper([rt.Dataset(ArrayDataset(images, labels), batch_size=job["batch"]),
+                            tap, module, clock], tag="train", repeats=job["steps"],
+                           progress=False)], runtime=runtime).launch()
+    prepared = clock.prepared
+    return {"losses": clock.losses, "step_ms": [1e3 * d for d in np.diff(clock.stamps)],
+            "launches": {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
+                         "flash_dq": fa.flash_dq.launches},
+            "replicated_layers": coll.STATS["replicated_layers"],
+            "replicated": coll.STATS.get("replicated", {}), "world": runtime.process_count,
+            "backend": runtime.backend, "model_index": runtime.axis_index("model"),
+            "model_shards": sum(a == "model" for a in prepared.shard_axes or ()),
+            "held_bytes": prepared.held_bytes()}
+
+
 def par_job(job):
-    return (cifar_job if job.get("kind") == "cifar" else lm_job)(job)
+    return {"cifar": cifar_job, "vit": vit_job}.get(job.get("kind"), lm_job)(job)
 """
 
 DP_WORKER = (r"""
@@ -5254,6 +5365,7 @@ from rocket_tpu_torch.data.text import TokenDataset
 from rocket_tpu_torch.examples import cifar_resnet, gpt2
 from rocket_tpu_torch.models.resnet import resnet18
 from rocket_tpu_torch.models.transformer import TransformerConfig
+from rocket_tpu_torch.models.vit import ViT
 from rocket_tpu_torch.nn import keys, layers
 from rocket_tpu_torch.nn.module import map_params
 from rocket_tpu_torch.ops import flash_native as fa
@@ -5262,7 +5374,8 @@ from rocket_tpu_torch.parallel import collectives as coll
 from rocket_tpu_torch.parallel import pipeline as pl
 import rocket_tpu_torch.parallel.ring_attention  # noqa: F401 (the module, not the function)
 ra = sys.modules["rocket_tpu_torch.parallel.ring_attention"]
-from rocket_tpu_torch.parallel.sharding import fsdp_rules, gpt2_tp_rules, moe_rules, pipeline_rules
+from rocket_tpu_torch.parallel.sharding import (combine_rules, fsdp_rules, gpt2_tp_rules,
+                                                moe_rules, pipeline_over, pipeline_rules)
 from rocket_tpu_torch.nn import moe as moe_lib
 from rocket_tpu_torch.ops import gather_gmm as gg
 from rocket_tpu_torch.ops import grouped_matmul as gm
@@ -5343,6 +5456,10 @@ class GradTap(rt.Capsule):
 
 
 """ + PAR_DEFS + r"""
+# A world started while another runs waits here, its start-up done, until
+# the world before it has finished (its gate file appears).
+while cfg.get("gate") and not os.path.exists(cfg["gate"]):
+    time.sleep(0.2)
 results = {"rank": rank, "jobs": {}}
 if cfg.get("probe"):
     # Does this backend take FSDP's collectives on CUDA tensors?
@@ -5356,6 +5473,12 @@ if cfg.get("probe"):
     except (RuntimeError, NotImplementedError) as exc:
         results["probe"] = repr(exc)[:300]
 for job in cfg["jobs"]:
+    # A job that reads another world's output waits for that world's results.
+    while any(not os.path.exists(path) for path in job.get("after", ())):
+        time.sleep(0.2)
+    if rank == 0:  # the caller starts the next world at a given job
+        with open(os.path.join(root, f"{cfg['tag']}_progress"), "a") as f:
+            f.write(job["name"] + "\n")
     if job.get("kind"):
         results["jobs"][job["name"]] = par_job(job)
         torch.cuda.empty_cache()
@@ -5425,7 +5548,8 @@ for job in cfg["jobs"]:
                    replicated_sha256=digest([t for i, t in enumerate(leaves)
                                              if clock.prepared.layout(i) is None]),
                    replicated_leaves=sum(clock.prepared.layout(i) is None
-                                         for i in range(len(leaves))))
+                                         for i in range(len(leaves))),
+                   replicated_layers=coll.STATS["replicated_layers"])
     if job.get("keep_params"):
         kept = leaves
         if job.get("tp"):  # the whole params, gathered on every rank
@@ -5437,25 +5561,29 @@ for job in cfg["jobs"]:
     del run, leaves
     clock.prepared = None
     torch.cuda.empty_cache()
-json.dump(results, open(os.path.join(root, f"rank{rank}.json"), "w"))
+json.dump(results, open(os.path.join(root, f"{cfg['tag']}_rank{rank}.json"), "w"))
 if dist.is_initialized():
     dist.barrier()
     dist.destroy_process_group()
 """)
 
 
-def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
-              probe: bool = False, timeout: float = 600.0) -> list:
-    """Run :data:`DP_WORKER`'s ``jobs`` as ``world`` processes on the card:
+def _start_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
+                 probe: bool = False, gate=None) -> dict:
+    """Start :data:`DP_WORKER`'s ``jobs`` as ``world`` processes on the card:
     ``backend`` "gloo" (the caller opens the group, the Runtimes adopt it),
     "env" (the launcher's environment, the Runtime opens NCCL) or "none"
-    (one process, no group). Returns each rank's results; each rank's
-    output goes to ``chiprun_out/dp_<tag>_rank<r>.log``."""
+    (one process, no group). With ``gate`` the processes import, load the
+    params (and open their group), then wait until the file ``gate``
+    exists before their first job: a world started while another runs
+    does its start-up then and none of its jobs. :func:`_wait_ranks`
+    collects them."""
     worker = root / f"{tag}_worker.py"
     worker.write_text(DP_WORKER)
     job_file = root / f"{tag}.json"
     job_file.write_text(json.dumps({"world": world, "backend": backend, "probe": probe,
-                                    "jobs": jobs}))
+                                    "jobs": jobs, "tag": tag,
+                                    "gate": None if gate is None else str(gate)}))
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     env.pop("ROCKET_TPU_STRICT", None)
@@ -5468,15 +5596,40 @@ def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
         procs.append(subprocess.Popen([sys.executable, str(worker), str(r), str(port), str(root),
                                        str(job_file)], env=renv, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
+    return {"tag": tag, "world": world, "procs": procs}
+
+
+def _reach(root: Path, started: dict, job: str, timeout: float = 600.0) -> None:
+    """Wait until the world ``started`` begins ``job`` (or one of its
+    processes has exited)."""
+    progress = root / f"{started['tag']}_progress"
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        if progress.exists() and job in progress.read_text().split():
+            return
+        if any(proc.poll() is not None for proc in started["procs"]):
+            return
+        time.sleep(0.5)
+
+
+def _stop_ranks(started: dict) -> None:
+    for proc in started["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _wait_ranks(root: Path, started: dict, timeout: float = 600.0) -> list:
+    """Each rank's results of a world :func:`_start_ranks` started; each
+    rank's output goes to ``dp_<tag>_rank<r>.log`` in the output
+    directory."""
+    tag, world, procs = started["tag"], started["world"], started["procs"]
     outs = []
     try:
         for proc in procs:
             outs.append(proc.communicate(timeout=timeout)[0])
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        _stop_ranks(started)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     for r, text in enumerate(outs):
@@ -5484,10 +5637,16 @@ def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
     for r, (proc, text) in enumerate(zip(procs, outs)):
         require(proc.returncode == 0, f"dp {tag}: rank {r} exited {proc.returncode}: "
                 f"{text[-2000:]}")
-    results = [json.loads((root / f"rank{r}.json").read_text()) for r in range(world)]
+    results = [json.loads((root / f"{tag}_rank{r}.json").read_text()) for r in range(world)]
     for r, result in enumerate(results):
         (out_dir / f"dp_{tag}_rank{r}.json").write_text(json.dumps(result))
     return results
+
+
+def _dp_ranks(root: Path, tag: str, jobs: list, world: int, backend: str,
+              probe: bool = False, timeout: float = 600.0) -> list:
+    """:func:`_start_ranks` and :func:`_wait_ranks` in one."""
+    return _wait_ranks(root, _start_ranks(root, tag, jobs, world, backend, probe), timeout)
 
 
 def _dp_launches_ok(job, layers: int, steps: int) -> bool:
@@ -5504,6 +5663,7 @@ def dp_phases(card):
     cfg = TransformerConfig.gpt2_124m()
     layers, steps = cfg.num_layers, DP_STEPS
     root = Path(tempfile.mkdtemp(prefix="dp_"))
+    worlds: list = []
     try:
         text = _text(2_000_000)  # examples.gpt2.corpus's text
         np.save(root / "tokens.npy", CharTokenizer(text).encode(text))
@@ -5523,16 +5683,36 @@ def dp_phases(card):
         # The tensor-parallel, pipeline, ring and sync-BN jobs run on the same
         # two processes.
         par_two, par_one = par_jobs(root)
-        ranks = _dp_ranks(root, "gloo2", [dp_job, f32_job, wire_job, fsdp_job, *TP_JOBS,
-                                          *par_two], 2, "gloo", probe=True)
-        one = _dp_ranks(root, "one", [
+        # Three worlds: the two ranks, four (dp x tp x pp and the other pairs
+        # of split axes) and one rank (which resumes their checkpoints). The
+        # two ranks run their f32 taps last, whose seconds no phase reports;
+        # the later worlds start when the first tap does. The one rank runs
+        # its jobs beside the taps and then the four ranks (its resume of
+        # their checkpoint waits for their results); the four wait at a gate
+        # for the two, so their start-up overlaps the taps.
+        two = [dp_job, f32_job, wire_job, fsdp_job, *TP_JOBS, *par_two]
+        two = [j for j in two if not j.get("tap")] + [j for j in two if j.get("tap")]
+        gloo2 = _start_ranks(root, "gloo2", two, 2, "gloo", probe=True)
+        worlds.append(gloo2)
+        _reach(root, gloo2, next(j["name"] for j in two if j.get("tap")))
+        gloo4 = _start_ranks(root, "gloo4", mesh_jobs(), 4, "gloo", gate=root / "gate")
+        worlds.append(gloo4)
+        for job in par_one:
+            if job["name"] == "tp_pp_one_resumed":
+                job["after"] = [str(root / f"gloo4_rank{r}.json") for r in range(4)]
+        one_world = _start_ranks(root, "one", [
             {"name": "one", "steps": steps},
             {"name": "one_f32", "steps": 2, "tap": True, "activation_dtype": "float32"},
             {"name": "one_resumed", "steps": steps, "keep_params": True,
              "resume_from": str(root / "dp_ck" / str(DP_SAVE_AT))},
             {"name": "one_tp_resumed", "steps": steps, "keep_params": True,
              "resume_from": str(root / "tp_ck" / str(DP_SAVE_AT))}, *par_one], 1,
-            "none")[0]["jobs"]
+            "none")
+        worlds.append(one_world)
+        ranks = _wait_ranks(root, gloo2)
+        (root / "gate").touch()
+        ranks4 = _wait_ranks(root, gloo4)
+        one = _wait_ranks(root, one_world)[0]["jobs"]
         ref = one["one"]
         # -- dp_train: the record first, then its checks.
         dp = [r["jobs"]["dp"] for r in ranks]
@@ -5633,11 +5813,19 @@ def dp_phases(card):
         dp_cifar_phase(root, ranks, one, card)
         # Expert parallelism and the MoE under the model, seq and pipe axes.
         ep_phases(root, ranks, one, card)
+        # The flash seams on a seq-sharded batch, the replicated program over
+        # the model group, dp x tp x pp and the other pairs of split axes.
+        seq_flash_phase(root, ranks, one, card)
+        tp_fallback_phase(root, ranks, one, card)
+        tp_pp_phases(root, ranks4, one, card)
+        mesh_pairs_phase(root, ranks4, one, card)
         # -- dp_launch, with the pipeline and long-context examples beside it
         examples = examples_par_start(root)
         dp_launch_phase(root, card)
         examples_par_phase(examples, card)
     finally:
+        for started in worlds:  # a world left waiting at its gate by a failure
+            _stop_ranks(started)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -5707,6 +5895,7 @@ def tp_phases(root: Path, ranks: list, one: dict, card) -> None:
          param_bytes_per_rank=[j["param_bytes"] for j in tp], expected_param_bytes=want_bytes,
          whole_param_bytes=ref["param_bytes"],
          replicated_leaves=tp[0]["replicated_leaves"],
+         replicated_layers_per_rank=[j["replicated_layers"] for j in tp],
          replicated_sha256=[j["replicated_sha256"] for j in tp],
          step1_grad_err_f32=grad_err, step1_wire_vs_f32_grad_err=wire_err,
          launches_per_rank=[j["launches"] for j in tp], one_rank_launches=ref["launches"],
@@ -5722,6 +5911,9 @@ def tp_phases(root: Path, ranks: list, one: dict, card) -> None:
                 f"tp_train: rank {r} holds {job['param_bytes']} param bytes, not {want_bytes}")
     require(tp[0]["replicated_sha256"] == tp[1]["replicated_sha256"],
             "tp_train: the model group's replicated leaves differ across the ranks")
+    require(all(j["replicated_layers"] == 0 for j in tp),
+            f"tp_train: layers ran the replicated program: "
+            f"{[j['replicated_layers'] for j in tp]}")
     require(all(modes["ring"] > 0 for name, modes in per_step.items()
                 if name in ("all_gather_matmul", "matmul_reduce_scatter")),
             f"tp_train: the collective matmuls never took the ring: {per_step}")
@@ -5823,6 +6015,13 @@ def par_jobs(root: Path) -> tuple:
            {**ring, "name": "ring", "attention": "ring", "mesh": RING_MESH},
            {**ring, "name": "ring_f32", "attention": "ring", "mesh": RING_MESH, "steps": 2,
             "f32": True, "tap": True},
+           # A non-ring impl on the seq-sharded batch: each attention gathers
+           # the sequence and runs rows 3-5 whole on both seq ranks.
+           {**ring, "name": "seq_flash", "attention": "auto", "mesh": RING_MESH},
+           {**ring, "name": "seq_flash_f32", "attention": "auto", "mesh": RING_MESH, "steps": 2,
+            "f32": True, "tap": True},
+           {"kind": "vit", "name": "tp_fallback", "mesh": TP_MESH, "batch": VIT_TP_BATCH,
+            "steps": VIT_TP_STEPS},
            {**cifar, "name": "dp_cifar"}]
     moe = {**lm, "moe_layers": MOE_LAYERS, "batch": 8, "dispatch": "dropless",
            "env": {"ROCKET_TPU_MOE_GMM": "fused"}}
@@ -5852,8 +6051,33 @@ def par_jobs(root: Path) -> tuple:
            {**ring, "name": "ring_one", "attention": "auto"},
            {**ring, "name": "ring_one_f32", "attention": "plain", "steps": 2, "f32": True,
             "tap": True},
-           {**cifar, "name": "cifar_one"}]
+           {**cifar, "name": "cifar_one"},
+           {"kind": "vit", "name": "vit_one", "batch": VIT_TP_BATCH, "steps": VIT_TP_STEPS},
+           {**lm, "name": "tp_pp_one_resumed", "batch": 8, "steps": TP_PP_STEPS,
+            "keep_params": True,
+            "resume_from": str(root / "tp_pp_gpipe_ck" / str(TP_PP_SAVE_AT))}]
     return two, one
+
+
+def mesh_jobs() -> list:
+    """The four-rank world's jobs: ``tp_pp_*`` (dp x tp x pp under each
+    schedule, a save, the f32 1F1B tap) and ``pair_*`` (the MoE LM at the
+    other pairs of split axes, f32, tapped)."""
+    pp4 = {"kind": "lm", "mesh": TP_PP_MESH, "batch": 8, "m": PP_M, "rule": "pp_tp"}
+    jobs = [{**pp4, "name": "tp_pp_gpipe", "schedule": "gpipe", "steps": TP_PP_STEPS,
+             "save_every": TP_PP_SAVE_AT, "keep_params": True},
+            {**pp4, "name": "tp_pp_1f1b", "schedule": "1f1b", "steps": TP_PP_STEPS},
+            {**pp4, "name": "tp_pp_f32", "schedule": "1f1b", "steps": 2, "f32": True,
+             "tap": True}]
+    pair = {"kind": "lm", "moe_layers": MOE_PAR_LAYERS, "batch": 8, "dispatch": "dropless",
+            "steps": 2, "f32": True, "tap": True}
+    for name, (mesh, rule, attention) in MESH_PAIRS.items():
+        env = {"ROCKET_TPU_MOE_GMM": "fused"}
+        if "model" in mesh:
+            env["ROCKET_TPU_OVERLAP_WIRE"] = "fp32"
+        jobs.append({**pair, "name": f"pair_{name}", "mesh": mesh, "rule": rule,
+                     "attention": attention, "env": env})
+    return jobs
 
 
 def pp_phases(root: Path, ranks: list, one: dict, card) -> None:
@@ -6182,6 +6406,208 @@ def ep_phases(root: Path, ranks: list, one: dict, card) -> None:
                 f"{rec['step1_grad_err_f32']} of the largest")
         require(all(sum(c.values()) > 0 for c in rec["moe_launches_per_rank"]),
                 f"moe_par {axis}: MoE kernel launches {rec['moe_launches_per_rank']}")
+
+
+def seq_flash_phase(root: Path, ranks: list, one: dict, card) -> None:
+    """``seq_flash``: ``ring_train``'s job (GPT-2 124M widths at T = 4096,
+    B = 2, RING_STEPS steps) with ``attention="auto"`` over ``{"data": 1,
+    "seq": 2}``: each attention layer gathers the sequence over the seq
+    group and runs rows 3-5 on it whole (the backward reduce-scatters), on
+    both ranks; against ``ring_one`` (bf16 losses) and ``ring_one_f32``
+    (the f32 step-1 gradients and loss)."""
+    cfg = TransformerConfig.gpt2_124m(max_seq_len=RING_T)
+    jobs = [r["jobs"]["seq_flash"] for r in ranks]
+    ref = one["ring_one"]
+    gaps = [max(abs(a - b) for a, b in zip(j["losses"], ref["losses"])) for j in jobs]
+    grad_err = _grad_err(root, "seq_flash_f32", "ring_one_f32")
+    f32_gaps = [abs(r["jobs"]["seq_flash_f32"]["losses"][0] - one["ring_one_f32"]["losses"][0])
+                for r in ranks]
+    emit("seq_flash", model="gpt2_124m", dtype="bfloat16", batch=RING_B, seq_len=RING_T,
+         steps=RING_STEPS, ranks=2, mesh=RING_MESH, attention="auto",
+         backend=jobs[0]["backend"], losses=jobs[0]["losses"], one_rank_losses=ref["losses"],
+         loss_gap_per_rank=gaps, step_ms_median_per_rank=[_median(j["step_ms"]) for j in jobs],
+         step_ms_per_rank=[j["step_ms"] for j in jobs],
+         one_rank_step_ms_median=_median(ref["step_ms"]),
+         seq_wait_ms_median_per_rank=[_median(j["coll_wait_ms"]) for j in jobs],
+         seq_wire_bytes_per_step_per_rank=[_median(j["coll_wire_bytes"]) for j in jobs],
+         grad_sync_wait_ms_median_per_rank=[_median(j["grad_sync_wait_ms"]) for j in jobs],
+         coll_calls=jobs[0]["coll_calls"],
+         peak_memory_bytes_per_rank=[j["peak_memory_bytes"] for j in jobs],
+         launches_per_rank=[j["launches"] for j in jobs], one_rank_launches=ref["launches"],
+         step1_grad_err_f32=grad_err, step1_loss_gap_f32_per_rank=f32_gaps, card=card)
+    require(grad_err <= PP_GRAD_TOL, f"seq_flash: step-1 gradients {grad_err} of the largest")
+    for r, job in enumerate(jobs):
+        require(job["backend"] == "gloo" and job["seq_index"] == r,
+                f"seq_flash: rank {r} ran on {job['backend']} at seq {job['seq_index']}")
+        require(len(job["losses"]) == RING_STEPS and gaps[r] <= RING_LOSS_TOL,
+                f"seq_flash: rank {r} losses {job['losses']} vs one rank {ref['losses']}")
+        require(f32_gaps[r] <= RING_F32_LOSS_TOL,
+                f"seq_flash: rank {r} step-1 f32 loss {f32_gaps[r]} from one rank's")
+        # Rows 3-5 on the gathered sequence: the one rank's launches, each rank.
+        require(job["launches"] == ref["launches"] and job["launches"]["flash_dq"] > 0,
+                f"seq_flash: rank {r} launches {job['launches']}, one rank {ref['launches']}")
+
+
+def tp_fallback_phase(root: Path, ranks: list, one: dict, card) -> None:
+    """``tp_fallback``: ViT-Ti (3 heads) under ``gpt2_tp_rules()`` at
+    ``{"data": 1, "model": 2}``: no TP path, so its model shards are
+    gathered at step entry and every layer runs replicated over the model
+    group (``replicated_layers`` > 0, where ``tp_train`` counts 0); its
+    f32 step-1 gradients against one rank's."""
+    jobs = [r["jobs"]["tp_fallback"] for r in ranks]
+    ref = one["vit_one"]
+    grad_err = _grad_err(root, "tp_fallback", "vit_one")
+    emit("tp_fallback", model="vit_tiny", heads=3, layers=9, dtype="float32",
+         batch=VIT_TP_BATCH, steps=VIT_TP_STEPS, ranks=2, mesh=TP_MESH,
+         backend=jobs[0]["backend"], losses=jobs[0]["losses"], one_rank_losses=ref["losses"],
+         step_ms_per_rank=[j["step_ms"] for j in jobs], one_rank_step_ms=ref["step_ms"],
+         replicated_layers_per_rank=[j["replicated_layers"] for j in jobs],
+         replicated_per_rank=[j["replicated"] for j in jobs],
+         model_shards_per_rank=[j["model_shards"] for j in jobs],
+         held_bytes_per_rank=[j["held_bytes"] for j in jobs],
+         one_rank_held_bytes=ref["held_bytes"],
+         launches_per_rank=[j["launches"] for j in jobs], one_rank_launches=ref["launches"],
+         step1_grad_err_f32=grad_err,
+         tp_train_replicated_layers=RECORD["tp_train"][0]["replicated_layers_per_rank"],
+         card=card)
+    require(grad_err <= PP_GRAD_TOL, f"tp_fallback: step-1 gradients {grad_err} of the largest")
+    for r, job in enumerate(jobs):
+        require(job["backend"] == "gloo" and job["world"] == 2 and job["model_index"] == r,
+                f"tp_fallback: rank {r} ran on {job['backend']} x {job['world']}")
+        require(job["replicated_layers"] > 0 and job["model_shards"] > 0,
+                f"tp_fallback: rank {r} replicated {job['replicated_layers']} forwards over "
+                f"{job['model_shards']} model shards")
+        require(job["launches"] == ref["launches"] and job["launches"]["flash_fwd"] > 0,
+                f"tp_fallback: rank {r} launches {job['launches']}, one rank {ref['launches']}")
+
+
+def tp_pp_phases(root: Path, ranks: list, one: dict, card) -> None:
+    """``tp_pp_train`` and ``tp_pp_checkpoint``: GPT-2 124M over ``{"data": 1,
+    "model": 2, "pipe": 2}`` (four ranks: a stage's 6 layers on the two
+    ranks of its model row, each holding half of their model shards) under
+    each schedule, against ``pp_train``'s one rank; the save at step 2
+    resumed by one rank."""
+    cfg = TransformerConfig.gpt2_124m()
+    per_stage = cfg.num_layers // 2
+    ref = one["pp_one"]
+    want_losses = ref["losses"][:TP_PP_STEPS]
+    grad_err = _grad_err(root, "tp_pp_f32", "pp_one_f32")
+    out = {}
+    for s in ("gpipe", "1f1b"):
+        jobs = [r["jobs"][f"tp_pp_{s}"] for r in ranks]
+        out[s] = {"losses": jobs[0]["losses"],
+                  "loss_gap_per_rank": [max(abs(a - b) for a, b in zip(j["losses"],
+                                                                        want_losses))
+                                        for j in jobs],
+                  "coords_per_rank": [j["coords"] for j in jobs],
+                  "step_ms_median_per_rank": [_median(j["step_ms"]) for j in jobs],
+                  "step_ms_per_rank": [j["step_ms"] for j in jobs],
+                  "model_wait_ms_median_per_rank": [_median(j["coll_wait_ms"]) for j in jobs],
+                  "pipe_wait_ms_median_per_rank": [_median(j["pipe_wait_ms"]) for j in jobs],
+                  "grad_sync_wait_ms_median_per_rank": [_median(j["grad_sync_wait_ms"])
+                                                        for j in jobs],
+                  "model_wire_bytes_per_step_per_rank": [_median(j["coll_wire_bytes"])
+                                                         for j in jobs],
+                  "pipe_wire_bytes_per_step_per_rank": [_median(j["pipe_wire_bytes"])
+                                                        for j in jobs],
+                  "grad_sync_wire_bytes_per_step_per_rank": [
+                      _median(j["grad_sync_wire_bytes"]) for j in jobs],
+                  "held_bytes_per_rank": [j["held_bytes"] for j in jobs],
+                  "peak_memory_bytes_per_rank": [j["peak_memory_bytes"] for j in jobs],
+                  "replicated_layers_per_rank": [j["replicated_layers"] for j in jobs],
+                  "launches_per_rank": [j["launches"] for j in jobs]}
+    emit("tp_pp_train", model="gpt2_124m", dtype="bfloat16", batch=8, seq_len=cfg.max_seq_len,
+         microbatches=PP_M, steps=TP_PP_STEPS, ranks=4, mesh=TP_PP_MESH,
+         rule="pipeline_over(gpt2_tp_rules())", layers_per_stage=per_stage,
+         backend=ranks[0]["jobs"]["tp_pp_gpipe"]["backend"], one_rank_losses=want_losses,
+         one_rank_step_ms_median=_median(ref["step_ms"]),
+         one_rank_peak_memory_bytes=ref["peak_memory_bytes"], step1_grad_err_f32=grad_err,
+         schedules=out, card=card)
+    require(grad_err <= PP_GRAD_TOL, f"tp_pp_train: step-1 gradients {grad_err} of the largest")
+    for s, rec in out.items():
+        for r, job in enumerate([x["jobs"][f"tp_pp_{s}"] for x in ranks]):
+            stage = job["coords"]["pipe"]
+            require(job["backend"] == "gloo" and job["world"] == 4
+                    and job["coords"] == {"data": 0, "model": r // 2, "pipe": r % 2},
+                    f"tp_pp_train {s}: rank {r} at {job['coords']} on {job['backend']}")
+            require(len(job["losses"]) == TP_PP_STEPS
+                    and rec["loss_gap_per_rank"][r] <= DP_LOSS_TOL,
+                    f"tp_pp_train {s}: rank {r} losses {job['losses']} vs {want_losses}")
+            # Rows 3-4 on the stage's 6 layers (pp_train's counts): every
+            # stage's ranks launch them.
+            fwd = per_stage * PP_M * (1 if (s == "1f1b" and stage == 1) else 2)
+            want = {"flash_fwd": fwd * TP_PP_STEPS,
+                    "flash_bwd": per_stage * PP_M * TP_PP_STEPS, "flash_dq": 0}
+            require(job["launches"] == want, f"tp_pp_train {s}: rank {r} launches "
+                    f"{job['launches']}, not {want}")
+            require(job["replicated_layers"] >= TP_PP_STEPS,
+                    f"tp_pp_train {s}: rank {r} counted {job['replicated_layers']} replicated "
+                    "steps")
+    # -- tp_pp_checkpoint
+    saved = [r["jobs"]["tp_pp_gpipe"] for r in ranks]
+    resumed = one["tp_pp_one_resumed"]
+    tail = saved[0]["losses"][TP_PP_SAVE_AT:]
+    param_gap = float(np.abs(np.load(root / "tp_pp_one_resumed_params.npy")
+                             - np.load(root / "tp_pp_gpipe_params.npy")).max())
+    step_dir = root / "tp_pp_gpipe_ck" / str(TP_PP_SAVE_AT) / "model_0"
+    files = sorted(os.listdir(step_dir))
+    index = json.loads((step_dir / "index.json").read_text())
+    writers = sorted({c["file"] for c in index["params/blocks/0/attn/qkv/w"]["chunks"]}
+                     | {c["file"] for c in index["params/blocks/11/attn/qkv/w"]["chunks"]})
+    emit("tp_pp_checkpoint", saved_at=TP_PP_SAVE_AT, ranks_saving=4, ranks_resuming=1,
+         files=files, qkv_writers=writers,
+         write_s_per_rank=[[x.get("write_s") for x in j["saves"]] for j in saved],
+         bytes_per_rank=[[x["shard_bytes"] for x in j["saves"]] for j in saved],
+         resumed_losses=resumed["losses"], uninterrupted_losses=tail,
+         end_param_max_abs_gap=param_gap, card=card)
+    require(files == ["index.json"] + [f"shard_p{r}.npz" for r in range(4)]
+            and writers == [f"shard_p{r}.npz" for r in range(4)],
+            f"tp_pp_checkpoint: {files}, the stages' QKV written by {writers}")
+    require(len(resumed["losses"]) == TP_PP_STEPS - TP_PP_SAVE_AT
+            and max(abs(a - b) for a, b in zip(resumed["losses"], tail)) <= DP_LOSS_TOL,
+            f"tp_pp_checkpoint: resumed losses {resumed['losses']} vs {tail}")
+    require(param_gap <= DP_PARAM_TOL, f"tp_pp_checkpoint: end params {param_gap} apart")
+
+
+def mesh_pairs_phase(root: Path, ranks: list, one: dict, card) -> None:
+    """``mesh_pairs``: the MoE LM at MOE_PAR_LAYERS layers, f32, two steps
+    at ``{"model": 2, "seq": 2}`` (ring attention, the model axis
+    replicated), ``{"model": 2, "expert": 2}`` (TP attention on the model
+    group, two experts a rank on the expert group) and ``{"seq": 2,
+    "expert": 2}`` (ring attention, two experts a rank), four ranks each;
+    step-1 losses and gradients against ``moe_par``'s one rank, rows 11,
+    ``gmm`` and ``tgmm`` counted on every rank of the expert pairs."""
+    ref = one["moe_one_f32"]
+    pairs = {}
+    for name, (mesh, rule, attention) in MESH_PAIRS.items():
+        jobs = [r["jobs"][f"pair_{name}"] for r in ranks]
+        pairs[name] = {"mesh": mesh, "rule": rule, "attention": attention,
+                       "loss": jobs[0]["losses"][0], "one_rank_loss": ref["losses"][0],
+                       "loss_gap_per_rank": [abs(j["losses"][0] - ref["losses"][0])
+                                             for j in jobs],
+                       "step1_grad_err_f32": _grad_err(root, f"pair_{name}", "moe_one_f32"),
+                       "coords_per_rank": [j["coords"] for j in jobs],
+                       "step_ms_per_rank": [j["step_ms"] for j in jobs],
+                       "coll_wait_ms_per_rank": [j["coll_wait_ms"] for j in jobs],
+                       "coll_wire_bytes_per_rank": [j["coll_wire_bytes"] for j in jobs],
+                       "ring_wait_ms_per_rank": [j["ring_wait_ms"] for j in jobs],
+                       "grad_sync_wire_bytes_per_rank": [j["grad_sync_wire_bytes"]
+                                                         for j in jobs],
+                       "replicated_layers_per_rank": [j["replicated_layers"] for j in jobs],
+                       "moe_launches_per_rank": [j["moe_launches"] for j in jobs],
+                       "launches_per_rank": [j["launches"] for j in jobs],
+                       "peak_memory_bytes_per_rank": [j["peak_memory_bytes"] for j in jobs]}
+    emit("mesh_pairs", model="moe_gpt2_e4", layers=MOE_PAR_LAYERS, dtype="float32", batch=8,
+         steps=2, ranks=4, pairs=pairs, card=card)
+    for name, rec in pairs.items():
+        require(max(rec["loss_gap_per_rank"]) <= RING_F32_LOSS_TOL * abs(rec["one_rank_loss"])
+                and rec["step1_grad_err_f32"] <= PP_GRAD_TOL,
+                f"mesh_pairs {name}: step-1 loss gaps {rec['loss_gap_per_rank']}, gradients "
+                f"{rec['step1_grad_err_f32']} of the largest")
+        if "expert" in rec["mesh"]:
+            require(all(c["gmm"] > 0 and c["tgmm"] > 0 and c["gather_gmm"] > 0
+                        for c in rec["moe_launches_per_rank"]),
+                    f"mesh_pairs {name}: MoE kernel launches {rec['moe_launches_per_rank']}")
 
 
 def _example_ranks(script: str, args: list, work: str) -> list:

@@ -295,9 +295,10 @@ def local_params(params: dict, rule, runtime) -> dict:
     on ``runtime``'s mesh: a leaf sharded over an axis is cut into that
     axis's size on its dim, and the rank keeps its coordinate's chunk (an
     expert leaf under ``moe_rules`` on E, its dim 0 once unstacked); a
-    layer placed on a pipeline stage is kept whole by that stage and left
-    out elsewhere. A ``blocks_stacked`` subtree is unstacked into
-    ``blocks/<i>`` first (:func:`params_from_jax`'s layout)."""
+    layer placed on a pipeline stage is kept by that stage (cut on its
+    model dim too under ``pipeline_over``) and left out elsewhere. A
+    ``blocks_stacked`` subtree is unstacked into ``blocks/<i>`` first
+    (:func:`params_from_jax`'s layout)."""
     from rocket_tpu_torch.parallel.grad_sync import shard_layout
 
     if "blocks_stacked" in params:
@@ -312,13 +313,12 @@ def local_params(params: dict, rule, runtime) -> dict:
                            runtime.DATA_AXES)
     out: dict = {}
     for (path, leaf), lay in zip(items, layouts):
-        if lay is not None and lay[0] is None:
-            if lay[2] != runtime.axis_index(lay[1]):
-                continue  # another stage's layer
-            lay = None
+        if lay is not None and lay.stage is not None \
+                and lay.stage != runtime.axis_index(lay.pipe_axis):
+            continue  # another stage's layer
         t = leaf if isinstance(leaf, torch.Tensor) else tensor_from_numpy(np.asarray(leaf))
-        if lay is not None:
-            t = t.chunk(int(runtime.mesh[lay[1]]), lay[0])[runtime.axis_index(lay[1])].clone()
+        if lay is not None and lay.dim is not None:
+            t = t.chunk(int(runtime.mesh[lay.axis]), lay.dim)[runtime.axis_index(lay.axis)].clone()
         _put(out, path, t)
     return out
 
@@ -326,8 +326,9 @@ def local_params(params: dict, rule, runtime) -> dict:
 def gather_params(prepared, runtime) -> dict:
     """``{path: tensor}`` of a prepared model's whole params, copies on
     their device: each sharded leaf all-gathered over its axis's group and
-    each other stage's layers broadcast from their stage over the pipe
-    group, so every rank calls it at the same point."""
+    each other stage's layers broadcast (whole: a stage's model shards
+    are gathered first) from their stage over the pipe group, so every
+    rank calls it at the same point."""
     import torch.distributed as dist
 
     out = {}
@@ -345,11 +346,11 @@ def gather_params(prepared, runtime) -> dict:
         # pipe group, every other stage receives it.
         axis = prepared.pipe_axis
         ranks, group = runtime.axis_ranks(axis), runtime.axis_group(axis)
-        mine = dict(_paths(prepared.state["params"]))
-        for path, shape, dtype, stage in prepared.stage_leaves:
-            buf = (mine[path].detach().clone() if stage == prepared.axis_index[axis]
+        for path, shape, dtype, layout in prepared.stage_leaves:
+            name, stage = "/".join(path), layout.stage
+            buf = (out[name].clone() if stage == prepared.axis_index[axis]
                    else torch.empty(shape, dtype=dtype, device=runtime.device))
             dist.broadcast(buf, src=ranks[stage], group=group)
-            out["/".join(path)] = buf
+            out[name] = buf
         out = {"/".join(path): out["/".join(path)] for path in prepared.full_paths}
     return out

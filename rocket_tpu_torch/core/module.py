@@ -94,13 +94,30 @@ gathered; the forward and its backward run under the rule's
 ``parallel.collectives.tp_overlap`` context (reference ``core/module.py:
 511-535``), whose layers read their shards and communicate themselves;
 the model's ``tp_partial`` names the replicated leaves whose gradients are
-partial sums over the sequence shards, which ``GradSync`` reduces over
-every rank. All ranks of one model group read the same stripe.
+partial sums over the sequence shards, which ``GradSync`` sums over the
+model group. All ranks of one model group read the same stripe.
+
+The replicated program over the model group (the reference's plain GSPMD
+program): where the tensor-parallel path does not serve a step (a model
+without one, such as ViT or ResNet under ``gpt2_tp_rules``; a pipelined
+model, whose stage bodies run the model axis gathered, ``pipeline_over``;
+a seq axis beside the model axis; or a batch the model's ``tp_serves``
+refuses, a sequence that does not divide the group) the model shards are
+gathered whole at step entry, no TP context is entered, every rank of the
+group runs the whole model, and each keeps its chunk of the gradients
+(the same on every rank of the group; a ``tp_partial`` leaf contributes
+1/n of its complete gradient to the group's sum).
+
+Two split axes at once (``{"model", "seq"}``, ``{"model", "expert"}``,
+``{"seq", "expert"}``, ``{"model", "pipe"}``): each leaf's gradient is
+summed over the plane of the data axis and the axes it is partial over
+(``GradSync``'s planes), never twice over one group.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -190,12 +207,17 @@ class PreparedModule:
         self.shard_axes = None
         self.axis_size, self.axis_index, self.owners = {}, {}, {}
         self.world, self.rank = 1, 0
+        #: Per param leaf its ``grad_sync.Layout`` (None: replicated).
+        self.layouts: list = []
         #: Under a pipeline rule: the pipe axis, every layer leaf of the
-        #: whole tree placed on a stage as ``(path, shape, dtype, stage)``,
-        #: and the whole tree's paths (this process holds its stage's).
+        #: whole tree placed on a stage as ``(path, shape, dtype, Layout)``,
+        #: and the whole tree's paths (this process holds its stage's);
+        #: under ``pipeline_over`` (dp x tp x pp) per stage the ranks that
+        #: save its model shards.
         self.pipe_axis = None
         self.stage_leaves: list = []
         self.full_paths: list = []
+        self.stage_owners: dict = {}
 
     def sharded(self) -> bool:
         return self.shard_dims is not None and any(d is not None for d in self.shard_dims)
@@ -223,7 +245,7 @@ class PreparedModule:
         if self.pipe_axis is None:
             return []
         mine = self.axis_index.get(self.pipe_axis, 0)
-        return [leaf for leaf in self.stage_leaves if leaf[3] != mine]
+        return [leaf for leaf in self.stage_leaves if leaf[3].stage != mine]
 
     def _owner(self, stage: int) -> int:
         return self.owners[self.pipe_axis][stage]
@@ -232,22 +254,29 @@ class PreparedModule:
         """``(path, OwnedLeaf)`` of the other stages' layers, each saved by
         its stage; ``like`` (a local stage leaf's optimizer value) gives a
         0-dim value's shape and dtype instead of the param's."""
-        from rocket_tpu_torch.runtime.checkpoint_io import OwnedLeaf
+        from rocket_tpu_torch.runtime.checkpoint_io import OwnedLeaf, ShardedLeaf
 
         out = []
-        for path, shape, dtype, stage in self.remote:
+        for path, shape, dtype, lay in self.remote:
             if like is not None and like.dim() == 0:
                 shape, dtype = (), like.dtype
-            out.append((path, OwnedLeaf(None, shape, dtype, self._owner(stage))))
+            if lay.dim is not None and shape:
+                # Another stage's model shards, each saved by its own rank.
+                out.append((path, ShardedLeaf(torch.empty(0, dtype=dtype), shape, lay.dim, 0,
+                                              self.axis_size[lay.axis],
+                                              self.stage_owners[lay.stage])))
+            else:
+                out.append((path, OwnedLeaf(None, shape, dtype, self._owner(lay.stage))))
         return out
 
     def layout(self, i: int):
-        """Leaf ``i``'s ``(dim, count, index, owners)``, or None."""
+        """Leaf ``i``'s ``(dim, count, index, owners)``, or None (a stage's
+        model shard is saved by its stage's model row)."""
         if self.shard_dims is None or self.shard_dims[i] is None:
             return None
-        axis = self.shard_axes[i]
-        return (self.shard_dims[i], self.axis_size[axis], self.axis_index[axis],
-                self.owners[axis])
+        axis, stage = self.shard_axes[i], self.layouts[i].stage
+        owners = self.owners[axis] if stage is None else self.stage_owners[stage]
+        return (self.shard_dims[i], self.axis_size[axis], self.axis_index[axis], owners)
 
     def _layout_of(self) -> dict:
         leaves = optim_lib.param_leaves(self.state["params"])
@@ -609,23 +638,30 @@ class Module(Dispatcher):
             prepared.axis_index[axis] = runtime.axis_index(axis)
             prepared.owners[axis] = tuple(runtime.axis_owners(axis))
         prepared.world, prepared.rank = runtime.data_axis_size, runtime.data_index
-        staged = [(path, tuple(t.shape), t.dtype, lay[2]) for path, t, lay
-                  in zip(paths, leaves, layouts) if lay is not None and lay[0] is None]
+        staged = [(path, tuple(t.shape), t.dtype, lay) for path, t, lay
+                  in zip(paths, leaves, layouts) if lay is not None and lay.stage is not None]
         if staged:
-            prepared.pipe_axis = next(lay[1] for lay in layouts
-                                      if lay is not None and lay[0] is None)
+            prepared.pipe_axis = staged[0][3].pipe_axis
             prepared.stage_leaves, prepared.full_paths = staged, paths
+            axis = next((leaf[3].axis for leaf in staged if leaf[3].dim is not None), None)
+            if axis is not None:
+                prepared.stage_owners = {
+                    stage: tuple(runtime.axis_owners(axis, at={prepared.pipe_axis: stage}))
+                    for stage in range(runtime.axis_size(prepared.pipe_axis))}
         local = dict(_paths_leaves(bridge.local_params(
             map_params(lambda t: t.detach(), params), rule, runtime)))
-        kept, dims, axes = [], [], []
+        kept, kept_layouts = [], []
         for path, t, lay in zip(paths, leaves, layouts):
             if path not in local:
                 continue  # another stage's layer
-            whole = lay is None or lay[0] is None
+            whole = lay is None or lay.dim is None
             kept.append((path, t if whole else local[path].requires_grad_(t.requires_grad)))
-            dims.append(None if lay is None else lay[0])
-            axes.append(None if lay is None else lay[1])
-        prepared.shard_dims, prepared.shard_axes = dims, axes
+            kept_layouts.append(lay)
+        prepared.layouts = kept_layouts
+        prepared.shard_dims = [None if lay is None else lay.dim for lay in kept_layouts]
+        # A leaf's axis: the one its dim is cut over, else its stage's.
+        axes = [None if lay is None else lay.axis or lay.pipe_axis for lay in kept_layouts]
+        prepared.shard_axes = axes
         if staged:
             prepared.state["params"] = _nest(kept)
         else:  # every leaf kept: map_params keeps the tree's empty subtrees too
@@ -644,14 +680,17 @@ class Module(Dispatcher):
         it is an f32 mean all-reduce, the reference's GSPMD reduction. The
         port reduces every micro-step before it accumulates, and sync-BN
         keeps the model state global, so the reference's accumulation and
-        model-state conditions have no cause here. Under tensor parallelism
-        the model declares which replicated leaves carry partial gradients
-        (``tp_partial``), which then reduce over every rank; under ring
-        attention every leaf and the loss are partial, and under the
-        pipeline every leaf not placed on a stage and the loss are."""
+        model-state conditions have no cause here. Each leaf's gradient is
+        summed over the split axes it is partial over, with the mean over
+        the data axis, in one all-reduce over their plane: under tensor
+        parallelism the leaves the model declares (``tp_partial``) over the
+        model axis; under a seq axis every leaf and the loss over it; under
+        the pipeline every leaf not placed on a stage, and the loss, over
+        the pipe axis."""
         runtime = self._runtime
         self.grad_sync = None
         self._pipelined = None
+        self._model_partial = None
         cfg = getattr(self._model, "config", None)
         pipe_axis = getattr(cfg, "pipeline_axis", None)
         if pipe_axis and runtime.axis_size(pipe_axis) > 1 and prepared.pipe_axis != pipe_axis:
@@ -670,24 +709,30 @@ class Module(Dispatcher):
         # held as it is and reduces over the data group like a whole leaf.
         dims = [prepared.shard_dims[i] if prepared.shard_axes[i] in runtime.DATA_AXES else None
                 for i in range(n)] if prepared.shard_dims is not None else [None] * n
-        partial = [False] * n
-        loss_partial = False
+        axes = prepared.shard_axes or [None] * n
+        paths = list(_paths(prepared.state["params"]))
+        # Per leaf, the split axes its gradient is a partial sum over.
+        over = [set() for _ in range(n)]
+        loss_over = set()
         if runtime.seq_axis_size > 1:
-            partial, loss_partial = [True] * n, True
+            for sums in over:
+                sums.add(runtime.seq_axis)
+            loss_over.add(runtime.seq_axis)
         if pipe_axis and runtime.axis_size(pipe_axis) > 1:
-            axes = prepared.shard_axes or [None] * n
-            partial, loss_partial = [a is None for a in axes], True
-        if runtime.model_axis_size > 1:
-            declare = getattr(self._model, "tp_partial", None)
-            if declare is None:
-                raise NotImplementedError(f"Module: {type(self._model).__name__} declares no "
-                                          "tp_partial, the leaves whose gradients are partial "
-                                          "sums under tensor parallelism")
-            axes = prepared.shard_axes or [None] * n
-            partial = [axes[i] is None and bool(declare(path))
-                       for i, path in enumerate(_paths(prepared.state["params"]))]
+            for sums, lay in zip(over, prepared.layouts or [None] * n):
+                if lay is None or lay.stage is None:  # a leaf every stage holds
+                    sums.add(pipe_axis)
+            loss_over.add(pipe_axis)
+        if self._tp_path_possible(prepared):
+            for sums, a, path in zip(over, axes, paths):
+                if a is None and self._model.tp_partial(path):
+                    sums.add("model")
+        partial = [frozenset(sums) or None for sums in over]
+        self._model_partial = ["model" in sums for sums in over]
         if runtime.data_axis_size <= 1 and not any(partial):
             return  # one data rank, every gradient complete: nothing to reduce
+        groups = {key: runtime.plane_group(("data",) + tuple(sorted(key)))
+                  for key in set(partial) | {frozenset(loss_over)} if key}
         shapes = []
         for t, d in zip(leaves, dims):
             shape = list(t.shape)
@@ -700,26 +745,56 @@ class Module(Dispatcher):
         self.grad_sync = GradSync(shapes, [t.dtype for t in leaves], dims,
                                   runtime.data_axis_size, group=runtime.axis_group("data"),
                                   bucket_bytes=opt.grad_bucket_bytes, wire_dtype=wire,
-                                  partial=partial, loss_partial=loss_partial)
+                                  partial=partial, loss_partial=frozenset(loss_over) or None,
+                                  groups=groups)
         self.log_info(f"train step: bucketed async gradient reduction (wire={wire}, "
                       f"bucket={opt.grad_bucket_bytes >> 20}MiB, "
-                      f"{len(self.grad_sync.buckets)} buckets, {sum(partial)} leaves summed over "
-                      "the model, seq or pipe group)")
+                      f"{len(self.grad_sync.buckets)} buckets, "
+                      f"{sum(p is not None for p in partial)} leaves summed over the model, "
+                      "seq or pipe group)")
 
-    def _tp(self):
+    def _tp_path_possible(self, prepared) -> bool:
+        """Whether the model's tensor-parallel path can serve a step here:
+        a model axis larger than 1, a rule with the ``tp_axis`` marker, a
+        model that declares ``tp_partial`` (its TP layers), and neither a
+        pipeline nor a seq axis (whose programs run the model axis
+        replicated, as the reference's stage body and ring program do)."""
+        runtime = self._runtime
+        rule = prepared.sharded_by
+        cfg = getattr(self._model, "config", None)
+        return (runtime.model_axis_size > 1 and getattr(rule, "tp_axis", None) is not None
+                and getattr(self._model, "tp_partial", None) is not None
+                and not getattr(cfg, "pipeline_axis", None) and runtime.seq_axis_size <= 1)
+
+    def _replicated(self, batch) -> bool:
+        """Whether this step runs the replicated program over the model
+        group: a model axis larger than 1 where the tensor-parallel path
+        does not serve the batch (no TP path, a pipeline, a seq axis, or a
+        batch the model's ``tp_serves`` refuses). Its model shards are then
+        gathered whole at step entry and each rank keeps its part of their
+        complete gradients."""
+        if self._runtime.model_axis_size <= 1:
+            return False
+        if not self._tp_path_possible(self._prepared):
+            return True
+        serves = getattr(self._model, "tp_serves", None)
+        return serves is not None and not serves(batch, self._runtime.model_axis_size)
+
+    def _tp(self, replicated: bool = False):
         """The parallel contexts of the rule that laid the model out (an
         eval Module sharing it reads the same shards), around a forward and
-        its backward: tensor parallelism for the ``tp_axis`` marker, expert
-        parallelism for ``expert_axis``, and for an MoE model over several
-        data ranks the global batch's aux loss (``collectives.data_mean``);
-        a null context without any."""
+        its backward: tensor parallelism for the ``tp_axis`` marker (not
+        for a ``replicated`` step), expert parallelism for
+        ``expert_axis``, and for an MoE model over several data ranks the
+        global batch's aux loss (``collectives.data_mean``); a null context
+        without any."""
         import contextlib
 
         rule = self._prepared.sharded_by if self._prepared is not None else None
         axis = getattr(rule, "tp_axis", None)
         experts = getattr(rule, "expert_axis", None)
         stack = contextlib.ExitStack()
-        if axis is not None and self._runtime.model_axis_size > 1:
+        if axis is not None and self._runtime.model_axis_size > 1 and not replicated:
             from rocket_tpu_torch.parallel.collectives import tp_overlap
 
             stack.enter_context(tp_overlap(
@@ -739,23 +814,33 @@ class Module(Dispatcher):
             stack.enter_context(data_mean(self._runtime))
         return stack
 
-    def _full_params(self, params, grad: bool = False):
+    def _full_params(self, params, grad: bool = False, replicated: bool = False):
         """The params the forward reads: under a data-sharded layout each
-        shard all-gathered whole over the data group (every gather started
-        before the first wait; a model shard stays this rank's, the
-        tensor-parallel layers read it as it is); with ``grad`` the
-        gathered tensors are fresh leaves that need a gradient. Returns
-        ``(params, leaves in param order)``."""
+        shard all-gathered whole over the data group, and for a
+        ``replicated`` step each model shard over the model group (every
+        gather started before the first wait; otherwise a model shard stays
+        this rank's, the tensor-parallel layers read it as it is); with
+        ``grad`` the gathered tensors are fresh leaves that need a
+        gradient. Returns ``(params, leaves in param order)``."""
         prepared = self._prepared
         leaves = optim_lib.param_leaves(params)
-        if not prepared.sharded() or "data" not in prepared.shard_axes:
+        gathered = {"data"} | ({"model"} if replicated else set())
+        if not prepared.sharded() or not gathered & set(prepared.shard_axes):
             return params, leaves
         from rocket_tpu_torch.parallel.grad_sync import gather_full
 
-        group = self._runtime.axis_group("data")
-        pending = [None if a != "data" else gather_full(t.detach(), d, prepared.world,
-                                                        group=group, async_op=True)
-                   for t, d, a in zip(leaves, prepared.shard_dims, prepared.shard_axes)]
+        runtime = self._runtime
+        pending = [None if a not in gathered else gather_full(
+            t.detach(), d, prepared.axis_size[a], group=runtime.axis_group(a), async_op=True)
+            for t, d, a in zip(leaves, prepared.shard_dims, prepared.shard_axes)]
+        if replicated:
+            from rocket_tpu_torch.parallel import collectives as coll
+
+            # The model group's share of the step: counted with its other
+            # collectives.
+            coll.note_gather([t for t, a in zip(leaves, prepared.shard_axes) if a == "model"],
+                             prepared.axis_size.get("model", 1))
+        t0 = time.perf_counter()
         full = []
         for t, item in zip(leaves, pending):
             if item is None:
@@ -764,8 +849,32 @@ class Module(Dispatcher):
             whole, work = item
             work.wait()
             full.append(whole.requires_grad_(True) if grad else whole)
+        if replicated:
+            coll.STATS["wait_s"] += time.perf_counter() - t0
         it = iter(full)
         return map_params(lambda t: next(it), params), full
+
+    def _grad_maps(self, replicated: bool):
+        """Per param leaf, what turns the step's gradient into the one
+        :class:`GradSync` reduces (None: as it is). On a ``replicated``
+        step a gathered model shard's whole gradient, the same on every
+        rank of the model group, gives this rank's chunk, and a leaf the
+        tensor-parallel path sums over the model group (``tp_partial``)
+        contributes its 1/n share of the complete gradient."""
+        prepared = self._prepared
+        n = len(optim_lib.param_leaves(prepared.state["params"]))
+        if not replicated:
+            return [None] * n
+        m = self._runtime.model_axis_size
+        index = self._runtime.axis_index("model")
+        maps = [None] * n
+        for i in range(n):
+            if prepared.shard_axes is not None and prepared.shard_axes[i] == "model":
+                dim = prepared.shard_dims[i]
+                maps[i] = lambda g, d=dim: g.chunk(m, d)[index].contiguous()
+            elif self._model_partial is not None and self._model_partial[i]:
+                maps[i] = lambda g: g / m
+        return maps
 
     def _sumsq(self, params, tensors) -> torch.Tensor:
         """Σ ||t||² over ``tensors`` (one per param of ``params``, in its
@@ -780,18 +889,22 @@ class Module(Dispatcher):
         masks = self._split_masks.get(key)
         if masks is None:
             prepared = self._prepared
-            axis_of = dict(zip(map(id, optim_lib.param_leaves(prepared.state["params"])),
-                               prepared.shard_axes))
+            # A stage's model shard sums over the model and pipe plane.
+            kinds = [a if lay is None or lay.dim is None or lay.stage is None
+                     else (a, lay.pipe_axis)
+                     for a, lay in zip(prepared.shard_axes, prepared.layouts)]
+            axis_of = dict(zip(map(id, optim_lib.param_leaves(prepared.state["params"])), kinds))
             axes = [axis_of.get(id(p)) for p in params]
             with explicit_transfer():
                 masks = self._split_masks[key] = [
                     (axis, torch.tensor([a == axis for a in axes], device=squares.device))
-                    for axis in sorted({a for a in axes if a is not None})]
+                    for axis in sorted({a for a in axes if a is not None}, key=str)]
         total = squares
         out = None
         for axis, mask in masks:
             part = torch.where(mask, squares, 0.0).sum()
-            dist.all_reduce(part, group=self._runtime.axis_group(axis))
+            dist.all_reduce(part, group=self._runtime.axis_group(axis) if isinstance(axis, str)
+                            else self._runtime.plane_group(axis))
             total = torch.where(mask, 0.0, total)
             out = part if out is None else out + part
         total = total.sum()
@@ -919,19 +1032,26 @@ class Module(Dispatcher):
                 batch = self._batch_transform(dict(batch), keys.fold_in(rng, 0xA9517))
         runtime = self._runtime
         ranks = runtime.data_axis_size
+        replicated = self._replicated(batch)
+        maps = self._grad_maps(replicated)
+        if replicated:
+            from rocket_tpu_torch.parallel.collectives import note_replicated
+
+            note_replicated("model")
         with torch.enable_grad(), keys.data_shard(runtime.data_index if ranks > 1 else 0), \
-                self._tp():
-            params, compute = self._full_params(state["params"], grad=True)
+                self._tp(replicated):
+            params, compute = self._full_params(state["params"], grad=True,
+                                                replicated=replicated)
             if self._pipelined is not None:
                 # The pipeline computes its gradients over several backward
                 # passes (one a microbatch under 1F1B): the reduction takes
                 # the sums at the end, not the leaves' first hooks.
                 if self.grad_sync is not None:
-                    self.grad_sync.begin(compute, hook=False)
+                    self.grad_sync.begin(compute, hook=False, maps=maps)
                 loss, out, grads = self._pipelined(params, batch, rng, compute)
             else:
                 if self.grad_sync is not None:
-                    self.grad_sync.begin(compute)
+                    self.grad_sync.begin(compute, maps=maps)
                 out = self._forward(params, batch, "train", rng)
                 if "model_state" in state:
                     out, mstate = out
@@ -945,7 +1065,8 @@ class Module(Dispatcher):
         if self.grad_sync is not None:
             grads, loss = self.grad_sync.finish(grads, loss)
         else:
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(compute, grads)]
+            grads = [torch.zeros_like(p) if g is None else g if f is None else f(g)
+                     for p, g, f in zip(leaves, grads, maps)]
         h = self._health
         keep = None  # the gate's predicate: None off the gate
         if h is not None:
@@ -1054,8 +1175,10 @@ class Module(Dispatcher):
                 raise RuntimeError("Module(use_ema=True): no EMA shadow in the model state — "
                                    "the train Module wrapping this model must set ema_decay.")
             params = state["ema_params"] if self._use_ema else state["params"]
-            with torch.no_grad(), self._tp():
-                out = self._forward(self._full_params(params)[0], batch, "eval", None)
+            replicated = self._replicated(batch)
+            with torch.no_grad(), self._tp(replicated):
+                out = self._forward(self._full_params(params, replicated=replicated)[0], batch,
+                                    "eval", None)
             attrs.batch = out[0] if "model_state" in state else out
             attrs.step_metrics = None
             attrs.sync_gradients = None

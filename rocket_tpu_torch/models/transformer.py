@@ -307,14 +307,17 @@ class Block(Layer):
         (reference ``transformer.py:520-560``): one gather feeds the
         column-parallel projection(s) (swiglu's two share it), the
         activation runs on this rank's hidden shard, and ``fc_out``
-        reduce-scatters onto the sequence shards; the MoE gathers the
-        sequence itself, as under ring attention (``seq``)."""
+        reduce-scatters onto the sequence shards (a width that does not
+        divide the group runs :meth:`_ffn_replicated`); the MoE gathers the
+        sequence itself, as under a seq axis (``seq``)."""
         if self.moe is not None:
             return self.moe.apply(params["moe"], h, seq=seq)
         p = params["mlp"]
         from rocket_tpu_torch.parallel import collectives as coll
 
         spec = coll.current_tp()
+        if spec is not None and (self.fc_in.out_features % spec.tp_size):
+            return self._ffn_replicated(spec, p, h), None
         if spec is not None:
             dt = h.dtype
             ws = [p["fc_in"]["w"].to(dt)]
@@ -328,12 +331,29 @@ class Block(Layer):
                 hid = gelu_fn(up)
             return coll.matmul_reduce_scatter(spec, hid, p["fc_out"]["w"].to(dt),
                                               bias=p["fc_out"]["b"].to(dt)), None
+        return self._mlp(p, h), None
+
+    def _mlp(self, p, h):
+        """The dense MLP on ``h`` whole (off the mesh)."""
         up = self.fc_in(p["fc_in"], h)
         if self.fc_gate is not None:
             h = silu_fn(self.fc_gate(p["fc_gate"], h)) * up
         else:
             h = gelu_fn(up)
-        return self.fc_out(p["fc_out"], h), None
+        return self.fc_out(p["fc_out"], h)
+
+    def _ffn_replicated(self, spec, p, h):
+        """The dense MLP as the replicated program over the model group,
+        where its width does not divide it (the reference's plain GSPMD
+        program, ``transformer.py:522-532``): its leaves are whole (a rule
+        never shards a dim that does not divide), the sequence shards are
+        gathered, the MLP runs whole on every rank, and this rank's rows of
+        its output are kept (their gradient gathered whole, so each rank's
+        gradients are complete and equal)."""
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        coll.note_replicated("mlp")
+        return coll.seq_shard(spec, self._mlp(p, coll.seq_all_gather(spec, h)))
 
     def apply(self, params, x, *, mode="train", rng=None):
         """``(B, T, D)`` through the block (:meth:`apply_aux` without the
@@ -372,9 +392,9 @@ class Block(Layer):
         return x + h
 
     def _ring_seq(self):
-        """Ring attention's sequence group when the MoE must gather the
-        sequence (a seq axis larger than 1), else None."""
-        if self.moe is None or self.attn.impl != "ring":
+        """The sequence group when the MoE must gather the sequence (a seq
+        axis larger than 1), else None."""
+        if self.moe is None:
             return None
         from rocket_tpu_torch.parallel.ring_attention import seq_spec
 
@@ -545,28 +565,31 @@ class TransformerLM:
 
     # -- the training forward ----------------------------------------------
 
+    def tp_serves(self, batch: dict, n: int) -> bool:
+        """Whether the tensor-parallel path serves ``batch`` over ``n``
+        model ranks (reference ``transformer.py:946-957``): not for a
+        sequence that does not divide the group. Where it does not, the
+        Module runs the whole model's replicated program over the model
+        group. Heads or an MLP width that do not divide fall back per layer
+        inside the path."""
+        return batch[self.tokens_key].shape[1] % n == 0
+
     def _tp_spec(self, t: int):
-        """The active tensor-parallel spec for this forward, or None. The
-        port has no GSPMD to fall back on (the reference runs the plain
-        program where a width does not divide): the sequence, the query and
-        key/value heads and, for the dense MLP, its width must divide the
-        model group (the MoE's experts run whole on every model rank)."""
+        """The active tensor-parallel spec for this forward, or None. A
+        sequence that does not divide the group runs the replicated program
+        (:meth:`tp_serves`, the Module's), never this path; the query and
+        key/value heads and the dense MLP width may not divide it (those
+        layers run their replicated program)."""
         from rocket_tpu_torch.parallel.collectives import current_tp
 
         spec = current_tp()
         if spec is None:
             return None
-        c, n = self.config, spec.tp_size
-        widths = {"the sequence": t, "num_heads": c.num_heads,
-                  "num_kv_heads": c.num_kv_heads or c.num_heads}
-        if c.num_experts == 0:
-            widths["the MLP width"] = c.mlp_ratio * c.dim
-        bad = [f"{name} {v}" for name, v in widths.items() if v % n]
-        if bad:
-            raise NotImplementedError(
-                f"TransformerLM: tensor parallelism over {n} ranks needs {', '.join(bad)} to "
-                "divide the model axis (the reference's plain GSPMD program for such shapes has "
-                "no counterpart in the port)")
+        if t % spec.tp_size:
+            raise RuntimeError(
+                f"TransformerLM: the tensor-parallel path over {spec.tp_size} ranks needs the "
+                f"sequence ({t}) to divide the model axis; such a batch runs the replicated "
+                "program (Module asks tp_serves)")
         return spec
 
     def _embed_tp(self, spec, params, tokens):
@@ -605,20 +628,14 @@ class TransformerLM:
 
     def _seq_spec(self):
         """The sequence group when the current Runtime shards the token dim
-        (a seq axis larger than 1), else None. Only ring attention runs on
-        such a batch here: the other impls' seams over a sharded sequence
-        are ROADMAP Queue A 6 item 6."""
+        (a seq axis larger than 1), else None. Ring attention rotates K/V
+        around it; every other impl gathers the sequence in each attention
+        layer (``MultiHeadAttention._apply_seq``)."""
         from rocket_tpu_torch.parallel.ring_attention import seq_spec
 
         spec = seq_spec()
         if spec is None or spec.size <= 1:
             return None
-        c = self.config
-        if c.attention_impl != "ring":
-            raise NotImplementedError(
-                f"TransformerLM: attention_impl={c.attention_impl!r} on a batch whose tokens are "
-                "sharded over the seq axis needs the flash mesh seams (ROADMAP Queue A 6 item 6); "
-                "use attention_impl='ring'")
         return spec
 
     def _embed(self, params, tokens, mode, rng, seq=None, spec=None):

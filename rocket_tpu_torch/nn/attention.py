@@ -8,7 +8,13 @@ dense-cache decode step (:meth:`MultiHeadAttention.apply_cached`) and the
 paged-pool step (:meth:`MultiHeadAttention.apply_paged`), and the ring
 path (:meth:`MultiHeadAttention._apply_ring`, ``impl="ring"``): the
 sequence sharded over the Runtime's seq axis, K/V rotating around its
-ring (``parallel/ring_attention.py``).
+ring (``parallel/ring_attention.py``). Every other impl on a seq-sharded
+batch gathers the sequence (:meth:`MultiHeadAttention._apply_seq`), and
+under tensor parallelism heads that do not divide the model group run the
+replicated program (:meth:`MultiHeadAttention._apply_tp_replicated`). A
+rank holds its own stripe of the batch and its own heads, so the flash
+kernels run on them directly: the mesh seams of ``ops/flash_native.py``
+would call the same kernel on the same local heads.
 """
 
 from __future__ import annotations
@@ -43,9 +49,13 @@ def resolve_impl(impl: str, d: int, device) -> str:
     ``ops.flash_native.HEAD_DIMS`` runs its own kernel, any other D the
     next compiled one on zero-padded heads) and the plain path above 128,
     where no kernel exists. T needs no rule: the kernels take any T (the
-    reference's 128-multiple block rule is a TPU rule). Explicit impls pass
-    through (an explicit "flash" past D = 128 raises in the kernel
-    wrapper; "ring" is :meth:`MultiHeadAttention._apply_ring`'s)."""
+    reference's 128-multiple block rule is a TPU rule). Nor does the mesh:
+    the reference falls back to "xla" on a mesh where neither the batch nor
+    the heads shard, because GSPMD would gather a replicated kernel call's
+    batch; a rank of the port already holds its stripe, so nothing is
+    gathered (a known difference by design). Explicit impls pass through
+    (an explicit "flash" past D = 128 raises in the kernel wrapper; "ring"
+    is :meth:`MultiHeadAttention._apply_ring`'s)."""
     if impl != "auto":
         return impl
     if torch.device(device).type == "cpu" or not flash_supported(d):
@@ -232,8 +242,9 @@ class MultiHeadAttention(Layer):
 
     def _tp_spec(self):
         """The active tensor-parallel spec, or None (reference
-        ``attention.py:420-438``). The shapes are checked once for the whole
-        model, by ``TransformerLM``, which has no fallback to offer."""
+        ``attention.py:420-438``). Heads that do not divide the group take
+        :meth:`_apply_tp_replicated`; a sequence that does not divide it
+        runs the whole model's replicated program (the Module's)."""
         from rocket_tpu_torch.parallel.collectives import current_tp
 
         return current_tp()
@@ -248,6 +259,8 @@ class MultiHeadAttention(Layer):
         from rocket_tpu_torch.parallel import collectives as coll
 
         n = spec.tp_size
+        if self.num_heads % n or self.num_kv_heads % n:
+            return self._apply_tp_replicated(spec, params, x, mode, rng)
         b, t = x.shape[0], x.shape[1] * n
         dt, d = x.dtype, self.head_dim
         h, h_kv = self.num_heads // n, self.num_kv_heads // n
@@ -263,6 +276,45 @@ class MultiHeadAttention(Layer):
         out = self._attn_dropout(out, mode, rng, split=(2, spec.index, n))
         return coll.matmul_reduce_scatter(spec, out.reshape(b, t, h * d), pp["w"].to(dt),
                                           bias=pp["b"].to(dt) if "b" in pp else None)
+
+    def _apply_tp_replicated(self, spec, params, x: torch.Tensor, mode: str,
+                             rng) -> torch.Tensor:
+        """The replicated program over the model group, where the query or
+        key/value heads do not divide it (the reference's plain GSPMD
+        program for the layer): the sequence shards and the layer's
+        model-sharded leaves gathered whole, the attention run whole on
+        every rank, this rank's rows of its output kept. The output's
+        gradient is gathered whole (``seq_shard``), so every rank computes
+        the complete, equal gradients and keeps its own part of each."""
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        coll.note_replicated("attention")
+        width = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
+        pq, pp = params["qkv"], params["proj"]
+        whole = {"qkv": {"w": coll.gather_whole(spec, pq["w"], 1, width)},
+                 "proj": {"w": coll.gather_whole(spec, pp["w"], 0, self.features)}}
+        if "b" in pq:
+            whole["qkv"]["b"] = coll.gather_whole(spec, pq["b"], 0, width)
+        if "b" in pp:
+            whole["proj"]["b"] = pp["b"]
+        out = self._apply_whole(whole, coll.seq_all_gather(spec, x), mode, rng)
+        return coll.seq_shard(spec, out)
+
+    def _apply_seq(self, seq, params, x: torch.Tensor, mode: str, rng) -> torch.Tensor:
+        """A non-ring impl on a seq-sharded batch (the reference's seam
+        in-spec ``P(batch, None, heads)`` gathers the sequence): ``x`` is
+        this rank's block ``(B, T/n, D)``; its q, k and v are gathered
+        over the seq group (the flash kernels take one T for q and K/V),
+        the attention runs on the whole sequence, and this rank keeps its
+        block of the output. The gather's backward reduce-scatters the
+        partial cotangents onto the blocks (``seq_gather_sum``)."""
+        from rocket_tpu_torch.parallel import collectives as coll
+
+        b, t, _ = x.shape
+        whole = coll.seq_gather_sum(seq, self.qkv(params["qkv"], x))
+        out = self._attend(whole).chunk(seq.size, 1)[seq.index]
+        out = self._attn_dropout(out, mode, rng, split=(1, seq.index, seq.size))
+        return self.proj(params["proj"], out.reshape(b, t, self.features))
 
     def _ring_spec(self):
         """The sequence group of ``impl="ring"``: the current Runtime's (a
@@ -303,7 +355,8 @@ class MultiHeadAttention(Layer):
         """Full-sequence attention ``(B, T, D) -> (B, T, D)``; under an
         active tensor-parallel context, :meth:`_apply_tp` on the sequence
         shard; with ``impl="ring"``, :meth:`_apply_ring` on this rank's
-        block of the sequence.
+        block of the sequence, and with another impl on a seq-sharded batch
+        :meth:`_apply_seq`.
 
         The flash path keeps operands feature-major: MHA without RoPE runs
         :func:`flash_fused` on the QKV projection output itself; RoPE or
@@ -314,15 +367,28 @@ class MultiHeadAttention(Layer):
             return self._apply_tp(spec, params, x, mode, rng)
         if self.impl == "ring":
             return self._apply_ring(params, x, mode, rng)
-        b, t, _ = x.shape
-        fused = self.qkv(params["qkv"], x)
+        from rocket_tpu_torch.parallel.ring_attention import seq_spec
+
+        seq = seq_spec()
+        if seq is not None and seq.size > 1:
+            return self._apply_seq(seq, params, x, mode, rng)
+        return self._apply_whole(params, x, mode, rng)
+
+    def _attend(self, fused: torch.Tensor) -> torch.Tensor:
+        """The attention core on the whole sequence's fused projection
+        output ``(B, T, (H+2Hkv)*D)`` of every head -> ``(B, T, H, D)``."""
+        b, t, _ = fused.shape
         h, h_kv, d = self.num_heads, self.num_kv_heads, self.head_dim
-        if resolve_impl(self.impl, d, x.device) == "flash" and not self.rope and h_kv == h:
-            out = flash_fused(fused, h, causal=self.causal)
-        else:
-            hw, kvw = h * d, h_kv * d
-            q2, k2 = self._rotate(fused[..., :hw], fused[..., hw:hw + kvw], h, h_kv)
-            out = self._core(q2, k2, fused[..., hw + kvw:], h, h_kv, x.device)
+        if resolve_impl(self.impl, d, fused.device) == "flash" and not self.rope and h_kv == h:
+            return flash_fused(fused, h, causal=self.causal).reshape(b, t, h, d)
+        hw, kvw = h * d, h_kv * d
+        q2, k2 = self._rotate(fused[..., :hw], fused[..., hw:hw + kvw], h, h_kv)
+        return self._core(q2, k2, fused[..., hw + kvw:], h, h_kv, fused.device)
+
+    def _apply_whole(self, params, x: torch.Tensor, mode: str, rng) -> torch.Tensor:
+        """Every head on the whole sequence ``x`` (the path off the mesh)."""
+        b, t, _ = x.shape
+        out = self._attend(self.qkv(params["qkv"], x))
         out = self._attn_dropout(out, mode, rng, split=keys.current_split())
         return self.proj(params["proj"], out.reshape(b, t, self.features))
 

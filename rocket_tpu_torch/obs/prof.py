@@ -224,8 +224,14 @@ class TraceSession:
     failure to write either raises."""
 
     def __init__(self, trace_dir: str) -> None:
+        import torch
+
         self.trace_dir = trace_dir
         self.active = False
+        #: The card's ``name, power.limit`` for the sidecar, read when the
+        #: session is made: ``nvidia-smi`` is a process of its own, which
+        #: ``stop()`` inside a serving tick would wait for.
+        self.card = _card_power_limit() if torch.cuda.is_available() else None
         self.windows = 0
         self._prof = None
         #: The last closed window's ``torch.profiler.profile`` (its own
@@ -281,7 +287,7 @@ class TraceSession:
                 "cuda": torch.version.cuda}
         if cuda:
             meta.update(device_kind=torch.cuda.get_device_name(0),
-                        n_devices=torch.cuda.device_count(), card=_card_power_limit())
+                        n_devices=torch.cuda.device_count(), card=self.card)
         target = os.path.join(self.trace_dir, CAPTURE_META_FILE)
         tmp = target + ".tmp"
         with open(tmp, "w", encoding="utf-8") as f:

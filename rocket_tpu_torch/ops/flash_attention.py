@@ -34,9 +34,16 @@ arguments win, pinned forward blocks suppress the backward table, and
 :data:`DEFAULT_BLOCK` is the fallback. T must be a multiple of 128, the
 reference's entry contract. Head dims: :data:`HEAD_DIMS`.
 
-The reference's mesh seam (``flash_attention_qkv_sharded``,
-``in_manual_axes``, ``shardable_axes``) waits for the flash mesh seams
-(ROADMAP Queue A 6 item 6).
+The mesh seams (the reference's ``shard_map`` wrappers): in the port a
+rank already holds its stripe of the batch (and, under tensor
+parallelism, its heads), so :func:`flash_attention_qkv_sharded` takes the
+rank's local shard, the counterpart of the reference's in-spec, runs the
+kernel on it and returns the local shard of the out-spec, with no
+communication, as there. :func:`shardable_axes` is the reference's drop
+rule; :func:`in_manual_axes` is True inside a :func:`manual_axes` block,
+the counterpart of the reference's ``shard_map`` body. The port's own
+layers call the kernels directly on the rank's operands, which is what
+the seams would run.
 
 On CPU tensors every kernel wrapper takes its plain version; on CUDA
 tensors it launches its kernel (counted in ``<wrapper>.launches``) or
@@ -46,6 +53,7 @@ launches nothing.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional
@@ -67,7 +75,8 @@ from rocket_tpu_torch.ops.flash_native import flash_supported, kernel_dim
 __all__ = [
     "DEFAULT_BLOCK", "HEAD_DIMS", "TILES", "TILES_BY_D", "default_block", "flash_supported",
     "kernel_dim", "tiles_for",
-    "flash_attention", "flash_attention_qkv",
+    "flash_attention", "flash_attention_qkv", "flash_attention_qkv_sharded", "in_manual_axes",
+    "manual_axes", "shardable_axes",
     "flash_qkv_bwd", "flash_qkv_fwd", "pick_block", "resolve_tuned_blocks", "smem_bytes",
     "threads", "qkv_launch", "launch_info", "occupancy", "registers",
 ]
@@ -525,3 +534,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
         )
     return flash_attention_qkv(torch.stack([q, k, v]), causal=causal, block_q=block_q,
                                block_k=block_k)
+
+
+# -- the mesh seams ----------------------------------------------------------------------------
+
+#: The mesh axes bound by the stage bodies being run (process-wide, as the
+#: tensor-parallel context: a CUDA backward runs on autograd's thread).
+_MANUAL: list = []
+
+
+@contextlib.contextmanager
+def manual_axes(axis_names):
+    """Mark ``axis_names`` bound for the block, whose operands are then
+    the rank's own (the reference's ``shard_map`` body)."""
+    _MANUAL.append(tuple(axis_names))
+    try:
+        yield
+    finally:
+        _MANUAL.pop()
+
+
+def in_manual_axes(axis_names) -> bool:
+    """True inside a :func:`manual_axes` block that binds any of
+    ``axis_names``: there the operands are already the rank's own local
+    tensors and the kernel is called directly."""
+    bound = {name for names in _MANUAL for name in names}
+    return any(name in bound for name in axis_names)
+
+
+def _mesh_shape(mesh) -> dict:
+    """``{axis: size}`` of ``mesh``: a dict, a Runtime (``.mesh``) or a
+    mesh with a ``shape`` dict."""
+    if isinstance(mesh, dict):
+        return mesh
+    shape = getattr(mesh, "mesh", None)
+    if isinstance(shape, dict):
+        return shape
+    return dict(getattr(mesh, "shape", {}))
+
+
+def shardable_axes(mesh, b: int, h: int, batch_axes=("data",), head_axis: Optional[str] = "model"):
+    """``(batch axes tuple | None, head axis | None)`` usable by the seam,
+    the reference's drop rule: axes of ``mesh`` larger than 1 that divide
+    the global batch ``b`` (all of them together) and the head count ``h``.
+    An absent axis, an axis of size 1 or one that does not divide is
+    dropped."""
+    shape = _mesh_shape(mesh)
+    baxes = tuple(a for a in batch_axes if int(shape.get(a, 1)) > 1)
+    bsize = 1
+    for a in baxes:
+        bsize *= int(shape[a])
+    if not baxes or b % bsize:
+        baxes = None
+    haxis = head_axis if head_axis is not None and int(shape.get(head_axis, 1)) > 1 else None
+    if haxis is not None and h % int(shape[haxis]):
+        haxis = None
+    return baxes, haxis
+
+
+def flash_attention_qkv_sharded(qkv: torch.Tensor, causal: bool = True, *, mesh,
+                                batch_axes=("data",), head_axis: Optional[str] = "model",
+                                block_q: Optional[int] = None,
+                                block_k: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_attention_qkv` on this rank's shard of the stacked
+    ``(3, B, H, T, D)`` operand -> its shard of ``(B, H, T, D)``: the batch
+    is the rank's stripe, and where ``head_axis`` is usable (the heads
+    ``H · size`` of the whole operand divide it) the heads are the rank's
+    own. Each ``(b, h)`` pair is an independent softmax, so the kernel runs
+    on the local shard with no communication; the sequence stays whole
+    (sequence parallelism is ring attention's job)."""
+    if qkv.dim() != 5 or qkv.shape[0] != 3:
+        raise ValueError(f"flash_attention_qkv_sharded: expected stacked (3, B, H, T, D), "
+                         f"got {tuple(qkv.shape)}")
+    return flash_attention_qkv(qkv, causal=causal, block_q=block_q, block_k=block_k)

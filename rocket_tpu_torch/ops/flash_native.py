@@ -76,7 +76,7 @@ from rocket_tpu_torch.ops._launch import (
 
 __all__ = [
     "TILE", "flash_supported", "kernel_dim", "pad_heads", "unpad_heads", "flash_fused",
-    "flash_bthd",
+    "flash_bthd", "flash_fused_sharded", "flash_bthd_sharded",
     "flash_fwd", "flash_bwd", "flash_dq", "flash_launch", "launch_info", "occupancy",
     "registers", "tensor_cores",
 ]
@@ -640,3 +640,53 @@ def flash_bthd(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, num_heads: 
         raise ValueError("flash_bthd: k and v must share one shape")
     return _FlashBTHD.apply(q2.contiguous(), k2.contiguous(), v2.contiguous(), num_heads,
                             num_kv_heads, causal, dq_split)
+
+
+# -- the mesh seams ----------------------------------------------------------------------------
+
+
+def _local_heads(mesh, b: int, num_heads: int, num_kv_heads: int, batch_axes, head_axis):
+    """The seam's head split: ``(tp, heads, kv heads)`` of this rank's
+    shard, the head axis dropped where Hq or Hkv does not divide it (the
+    reference's rule)."""
+    from rocket_tpu_torch.ops.flash_attention import _mesh_shape, shardable_axes
+
+    _, haxis = shardable_axes(mesh, b, num_heads, batch_axes, head_axis)
+    tp = int(_mesh_shape(mesh)[haxis]) if haxis is not None else 1
+    if num_kv_heads % tp:
+        tp = 1  # the kv heads must split evenly too
+    return tp, num_heads // tp, num_kv_heads // tp
+
+
+def flash_fused_sharded(fused: torch.Tensor, num_heads: int, causal: bool = True, *, mesh,
+                        batch_axes=("data",), head_axis: Optional[str] = "model",
+                        dq_split: Optional[bool] = None) -> torch.Tensor:
+    """:func:`flash_fused` on this rank's shard -> its shard of ``(B, T,
+    H*D)``. ``num_heads`` is the whole model's H. The batch is the rank's
+    stripe; with a usable ``head_axis`` (H divides it) ``fused`` is ``(B,
+    T, 3*(H/n)*D)``, the rank's heads of each of q, k and v laid end to end
+    (the reference slices the three segments and shards each on its
+    features), and the output holds the rank's heads. No communication."""
+    b, t, f = fused.shape
+    tp, heads, _ = _local_heads(mesh, b, num_heads, num_heads, batch_axes, head_axis)
+    if f % (3 * heads):
+        raise ValueError(f"flash_fused_sharded: feature dim {f} is not 3*H*D for the "
+                         f"{heads} heads of this rank (H={num_heads} over {tp})")
+    return flash_fused(fused, heads, causal=causal, dq_split=dq_split)
+
+
+def flash_bthd_sharded(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, num_heads: int,
+                       num_kv_heads: Optional[int] = None, causal: bool = True, *, mesh,
+                       batch_axes=("data",), head_axis: Optional[str] = "model",
+                       dq_split: Optional[bool] = None) -> torch.Tensor:
+    """:func:`flash_bthd` on this rank's shard -> its shard of ``(B, T,
+    Hq*D)``. ``num_heads``/``num_kv_heads`` are the whole model's. The
+    batch is the rank's stripe; the features are the rank's contiguous
+    cut of ``Hq*D`` and ``Hkv*D`` (the Megatron activation layout: a cut at
+    ``H/n`` boundaries is a head split) where ``head_axis`` is usable, Hq
+    and Hkv both dividing it, and whole otherwise. No communication."""
+    if num_kv_heads is None:
+        num_kv_heads = num_heads
+    _, heads, kv_heads = _local_heads(mesh, q2.shape[0], num_heads, num_kv_heads, batch_axes,
+                                      head_axis)
+    return flash_bthd(q2, k2, v2, heads, kv_heads, causal=causal, dq_split=dq_split)

@@ -67,9 +67,16 @@ The MoE under a seq axis gathers the sequence with :func:`seq_gather_sum`
 (an all-gather whose backward reduce-scatters the partial cotangents:
 under ring attention every gradient is a partial that ``GradSync`` sums).
 
+Where a layer's width does not divide the model group it runs the
+replicated program (the reference's plain GSPMD program for it): its
+model-sharded leaves gathered whole (:func:`gather_whole`), the sequence
+gathered and this rank's rows of the output kept (``seq_all_gather`` /
+``seq_shard``); :func:`note_replicated` counts each such forward.
+
 ``STATS`` counts, per process, the seconds spent waiting on the model
 group's collectives (and the expert group's), the bytes a rank sends into
-them, and each collective's calls by mode; :func:`reset_stats` zeroes it.
+them, each collective's calls by mode and the forwards that ran the
+replicated program (``replicated_layers``); :func:`reset_stats` zeroes it.
 """
 
 from __future__ import annotations
@@ -91,16 +98,37 @@ __all__ = [
     "embed_lookup_sharded", "vocab_lookup", "seq_all_gather", "seq_shard", "gather_replicated",
     "STATS", "reset_stats", "Hop", "ExpertSpec", "expert_parallel", "current_ep", "ep_enter",
     "ep_combine", "seq_gather_sum", "DataSpec", "data_mean", "current_data", "batch_mean",
+    "gather_whole", "note_gather", "note_replicated",
 ]
 
 logger = logging.getLogger(__name__)
 
 #: Per-process collective counters (module docstring).
-STATS: dict = {"wait_s": 0.0, "wire_bytes": 0, "calls": {}, "staged": False}
+STATS: dict = {"wait_s": 0.0, "wire_bytes": 0, "calls": {}, "staged": False,
+               "replicated_layers": 0}
 
 
 def reset_stats() -> None:
-    STATS.update(wait_s=0.0, wire_bytes=0, calls={})
+    STATS.update(wait_s=0.0, wire_bytes=0, calls={}, replicated_layers=0)
+
+
+def note_gather(shards, n: int) -> None:
+    """Count the gathers of the model shards ``shards`` over a group of
+    ``n`` ranks that start a replicated step (the Module's), as one call of
+    ``replicated_gather`` and the bytes a rank sends into them."""
+    _note("replicated_gather", False)
+    for t in shards:
+        _sent(t, n - 1)
+
+
+def note_replicated(what: str) -> None:
+    """Count one forward of a layer (or a whole model: ``what``) that runs
+    the replicated program over the model group instead of its
+    tensor-parallel path, in ``STATS["replicated_layers"]`` (per process;
+    a remat recompute counts again)."""
+    STATS["replicated_layers"] += 1
+    calls = STATS.setdefault("replicated", {})
+    calls[what] = calls.get(what, 0) + 1
 
 
 def overlap_enabled() -> bool:
@@ -684,6 +712,16 @@ def gather_replicated(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Ten
     under the fused loss, the vocab-sharded logits for the loss): the
     backward keeps this rank's part of the complete gradient."""
     return _Gather.apply(spec, t, dim, "gather_replicated")
+
+
+def gather_whole(spec: OverlapSpec, t: torch.Tensor, dim: int, whole: int) -> torch.Tensor:
+    """``t`` whole on every rank of the group: :func:`gather_replicated` on
+    ``dim`` where it is this rank's shard (its ``dim`` is not ``whole``
+    long), else ``t`` itself (a width that does not divide the group is
+    held whole)."""
+    if t.shape[dim] == whole:
+        return t
+    return gather_replicated(spec, t, dim)
 
 
 def seq_gather_sum(seq, x: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,9 @@ reduces them over the process group as the backward retires them:
   axis is held as this rank's shard and reduces over the data group only,
   like a replicated one. A replicated leaf whose gradient is a partial sum
   over the sequence shards (``partial``: the norms under sequence
-  parallelism, which GSPMD sums for the reference) reduces over every rank
-  instead: the sum over the model group and the mean over the data group
-  in one all-reduce of its own buckets;
+  parallelism, which GSPMD sums for the reference) reduces over the plane
+  of the data and model axes instead: the sum over the model group and the
+  mean over the data group in one all-reduce of its own buckets;
 * **ring attention** (a ``seq`` axis): every leaf is replicated and every
   rank's gradient covers its own tokens, so every leaf is partial, and the
   loss too (``loss_partial``: each rank's share of the global mean);
@@ -39,6 +39,19 @@ reduces them over the process group as the backward retires them:
   expert row (the MoE all-reduces the cotangents that leave its local
   experts, ``collectives.ep_enter``), and so is the loss: they reduce
   over the data group only too;
+* **two split axes at once**: a leaf's gradient may be partial over one
+  of them and the same on every rank of the other (a norm under tensor
+  parallelism beside an expert axis, every leaf under ring attention beside
+  a model axis run replicated). ``partial`` names, per leaf, the plane it
+  is summed over (``groups`` maps each name to the process group of the
+  data axis and those axes: ``Runtime.plane_group``, the default group
+  where that plane is every rank), so no gradient is summed twice over
+  one group;
+* **gathered leaves** (a model-axis shard the step gathers whole, for the
+  replicated program of a model or layer that has no tensor-parallel
+  path): :meth:`GradSync.begin`'s ``maps`` turn the whole gradient, the
+  same on every rank of the model group, into this rank's shard before it
+  is reduced;
 * **wire precision**: payloads cross at ``wire_dtype`` (bf16 by default)
   while params stay f32 masters, and every bucket gets the **f32
   bucket-sum correction**: each bucket's true f32 sum rides one stacked
@@ -57,11 +70,11 @@ from __future__ import annotations
 
 import time
 from functools import partial
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-__all__ = ["bucket_plan", "shard_layout", "shard_dims", "gather_full", "GradSync",
+__all__ = ["bucket_plan", "Layout", "shard_layout", "shard_dims", "gather_full", "GradSync",
            "NOT_PORTED"]
 
 #: What a spec naming an unported axis points to.
@@ -126,30 +139,37 @@ def _stages(named_leaves, specs, mesh: dict) -> dict:
     return {layer: k // per for k, layer in enumerate(layers)}
 
 
+class Layout(NamedTuple):
+    """Where :func:`shard_layout` puts a leaf: ``dim`` cut over the mesh
+    ``axis`` (both None: the leaf's dims are whole), and a layer's leaf on
+    pipeline ``stage`` of ``pipe_axis`` (both None: on every stage)."""
+
+    dim: Optional[int] = None
+    axis: Optional[str] = None
+    stage: Optional[int] = None
+    pipe_axis: Optional[str] = None
+
+
 def shard_layout(named_leaves, spec_fn, mesh: dict, data_axes=("data",),
                  model_axis: str = "model") -> list:
-    """Per ``(path tuple, leaf)``: ``(dim, axis)``, the dim the rule set
+    """Per ``(path tuple, leaf)`` its :class:`Layout`: the dim the rule set
     ``spec_fn`` shards the leaf on and the mesh axis (a data axis,
-    ``model_axis`` or the expert axis), ``(None, axis, stage)`` for a
-    layer's leaf placed whole on a pipeline stage
-    (``sharding.layer_stage``), or None (replicated:
-    no rule, no spec, an axis of size 1, or a dim that does not divide over
-    it, as the reference falls back). A spec naming another axis, an axis
-    the mesh lacks, or two axes on one leaf raises."""
+    ``model_axis`` or the expert axis), and for a layer's leaf its
+    pipeline stage (``sharding.layer_stage``; under
+    ``sharding.pipeline_over`` its own dim may be sharded too: the stage,
+    and the model dim within it); or None (replicated: no rule, no spec, an
+    axis of size 1, or a dim that does not divide over it, as the reference
+    falls back). A spec naming another axis, an axis the mesh lacks, or two
+    axes on one leaf's dims raises."""
     from rocket_tpu_torch.parallel.sharding import layer_stage
 
     named_leaves = list(named_leaves)
     specs = [spec_fn(tuple(path), leaf) if spec_fn is not None else None
              for path, leaf in named_leaves]
-    specs = [spec if spec is not None else layer_stage(spec_fn, tuple(path))
-             for (path, _), spec in zip(named_leaves, specs)]
-    stage_of = _stages(named_leaves, specs, mesh)
+    staged = [layer_stage(spec_fn, tuple(path)) for path, _ in named_leaves]
+    stage_of = _stages(named_leaves, [s for s in staged if s is not None], mesh)
     out = []
-    for (path, leaf), spec in zip(named_leaves, specs):
-        if hasattr(spec, "layer"):
-            out.append((None, spec.axis, stage_of[spec.layer]) if int(mesh[spec.axis]) > 1
-                       else None)
-            continue
+    for (path, leaf), spec, stage in zip(named_leaves, specs, staged):
         found = []
         for d, entry in enumerate(spec or ()):
             if entry is None:
@@ -169,19 +189,23 @@ def shard_layout(named_leaves, spec_fn, mesh: dict, data_axes=("data",),
                 found.append((d, axis))
         if len(found) > 1:
             raise NotImplementedError(f"param_sharding: {'/'.join(path)} names {len(found)} "
-                                      "mesh axes; the port shards a leaf over one axis")
-        layout = found[0] if found else None
+                                      "mesh axes on its dims; the port shards a leaf's dims "
+                                      "over one axis (and a layer's leaf over its stage)")
+        layout = Layout(*found[0]) if found else None
         if layout is not None:
-            n = int(mesh[layout[1]])
-            if n <= 1 or leaf.shape[layout[0]] % n:
+            n = int(mesh[layout.axis])
+            if n <= 1 or leaf.shape[layout.dim] % n:
                 layout = None
+        if stage is not None and int(mesh[stage.axis]) > 1:
+            layout = (layout or Layout())._replace(stage=stage_of[stage.layer],
+                                                  pipe_axis=stage.axis)
         out.append(layout)
     return out
 
 
 def shard_dims(named_leaves, spec_fn, world: int, data_axes=("data",)) -> list:
     """:func:`shard_layout`'s dims over a data-only mesh of ``world`` ranks."""
-    return [None if lay is None else lay[0]
+    return [None if lay is None else lay.dim
             for lay in shard_layout(named_leaves, spec_fn, {data_axes[0]: world}, data_axes)]
 
 
@@ -232,9 +256,11 @@ class GradSync:
     of the leaves as the backward sees them (whole, or this rank's model
     shard), ``dims`` their data-axis shard dims (:func:`shard_layout`),
     ``world`` the data ranks (the mean's divisor) over ``group``,
-    ``partial`` which replicated leaves reduce over every rank instead, and
-    ``loss_partial`` whether the loss does too (each rank's loss its share
-    of its data row's mean: a sequence slice's, or the last stage's).
+    ``partial`` per leaf None or the key in ``groups`` of the plane a
+    replicated leaf is summed over instead (the data axis and the split
+    axes its gradient is partial over), and ``loss_partial`` the loss's
+    (each rank's loss its share of its data row's mean: a sequence
+    slice's, or the last stage's).
     Per step, :meth:`begin` hooks the leaves the backward differentiates,
     and :meth:`finish` takes the backward's
     gradients and the local loss and returns the reduced gradients (shard
@@ -247,15 +273,17 @@ class GradSync:
 
     def __init__(self, shapes: Sequence, dtypes: Sequence, dims: Sequence, world: int,
                  group=None, bucket_bytes: int = 4 << 20, wire_dtype="bfloat16",
-                 partial: Optional[Sequence[bool]] = None, loss_partial: bool = False) -> None:
+                 partial: Optional[Sequence] = None, loss_partial=None,
+                 groups: Optional[dict] = None) -> None:
         self.world = int(world)
-        self.loss_partial = bool(loss_partial)
         self.group = group
         self.dims = list(dims)
         self.shapes = [tuple(s) for s in shapes]
         self.dtypes = list(dtypes)
-        self.partial = list(partial) if partial is not None else [False] * len(self.dims)
-        if self.world < 2 and not any(self.partial):
+        self.partial = list(partial) if partial is not None else [None] * len(self.dims)
+        self.loss_partial = loss_partial
+        self.groups = dict(groups or {})
+        if self.world < 2 and not any(p is not None for p in self.partial):
             raise ValueError("GradSync: nothing to reduce on one data rank without partial "
                              "leaves")
         self.wire = None if wire_dtype is None else (
@@ -267,11 +295,16 @@ class GradSync:
                                bucket_bytes)
 
         repl = [i for i, d in enumerate(self.dims) if d is None]
-        data = plan([i for i in repl if not self.partial[i]]) if self.world > 1 else []
-        part = plan([i for i in repl if self.partial[i]])
-        self.buckets = data + part
-        kinds = ([(list(b), "data") for b in data] + [(list(b), "partial") for b in part]
-                 + [([i], "scatter") for i, d in enumerate(self.dims) if d is not None])
+        data = plan([i for i in repl if self.partial[i] is None]) if self.world > 1 else []
+        kinds = [(list(b), "data") for b in data]
+        self.buckets = list(data)
+        planes = sorted({self.partial[i] for i in repl if self.partial[i] is not None},
+                        key=lambda p: str(sorted(p)))
+        for plane in planes:
+            part = plan([i for i in repl if self.partial[i] == plane])
+            self.buckets += part
+            kinds += [(list(b), ("partial", plane)) for b in part]
+        kinds += [([i], "scatter") for i, d in enumerate(self.dims) if d is not None]
         # Issue order: reverse param order of each unit's first (last
         # declared) leaf, the same on every rank.
         kinds.sort(key=lambda u: -u[0][0])
@@ -279,7 +312,11 @@ class GradSync:
         self.kinds = [k for _, k in kinds]
         self._unit_of = {i: k for k, unit in enumerate(self.units) for i in unit}
         self.stats = {"buckets": len(self.buckets), "wire_bytes": 0, "wait_s": 0.0}
+        self._maps: list = [None] * len(self.shapes)
         self._reset()
+
+    def _group_of(self, kind):
+        return self.group if kind == "data" else self.groups[kind[1]]
 
     def _reset(self) -> None:
         self._grads: list = [None] * len(self.shapes)
@@ -291,12 +328,16 @@ class GradSync:
     def _narrows(self, dtype) -> bool:
         return self.wire is not None and _itemsize(self.wire) < _itemsize(dtype)
 
-    def begin(self, leaves: Sequence[torch.Tensor], hook: bool = True) -> None:
+    def begin(self, leaves: Sequence[torch.Tensor], hook: bool = True,
+              maps: Optional[Sequence] = None) -> None:
         """Hook each leaf that needs a gradient: the hook records the
         gradient and issues every unit that is complete and whose
         predecessors were issued. ``hook=False``: the step's gradients all
-        arrive at :meth:`finish`."""
+        arrive at :meth:`finish`. ``maps``: per leaf None or a function
+        applied to its gradient first (a gathered leaf's whole gradient ->
+        this rank's shard)."""
         self._reset()
+        self._maps = list(maps) if maps is not None else [None] * len(self.shapes)
         self.stats["wire_bytes"] = 0
         if not hook:
             return
@@ -306,7 +347,7 @@ class GradSync:
 
     def _on_grad(self, i: int, grad: torch.Tensor) -> None:
         if self._grads[i] is None:
-            self._grads[i] = grad
+            self._grads[i] = grad if self._maps[i] is None else self._maps[i](grad)
             if i in self._unit_of:
                 self._left[self._unit_of[i]] -= 1
                 self._issue_ready()
@@ -335,8 +376,7 @@ class GradSync:
         else:
             payload = flat
         self.stats["wire_bytes"] += payload.numel() * payload.element_size()
-        group = None if self.kinds[k] == "partial" else self.group
-        work = dist.all_reduce(payload, group=group, async_op=True)
+        work = dist.all_reduce(payload, group=self._group_of(self.kinds[k]), async_op=True)
         self._pending[k] = (payload, work, true_sum)
 
     def finish(self, grads: Sequence[Optional[torch.Tensor]], loss: torch.Tensor):
@@ -350,26 +390,30 @@ class GradSync:
         self._hooks = []
         for i, g in enumerate(grads):
             if self._grads[i] is None:  # unused leaf, or hooked on no leaf
+                if g is not None and self._maps[i] is not None:
+                    g = self._maps[i](g)
                 self._grads[i] = (g if g is not None else torch.zeros(
                     self.shapes[i], dtype=self.dtypes[i], device=loss.device))
                 if i in self._unit_of:
                     self._left[self._unit_of[i]] -= 1
         self._issue_ready()
         # The f32 bucket sums and the loss, one stacked all-reduce per group.
-        scalars = {"data": [], "partial": []}
+        scalars: dict = {"data": []}
+        for kind in self.kinds:
+            if kind != "scatter":
+                scalars.setdefault(kind, [])
         for kind, (_, _, true_sum) in zip(self.kinds, self._pending):
             if true_sum is not None:
                 scalars[kind].append(true_sum)
+        loss_kind = "data" if self.loss_partial is None else ("partial", self.loss_partial)
+        scalars.setdefault(loss_kind, []).append(loss.float() / self.world)
         works = []
         stacked = {}
-        share = loss.float() / self.world
-        scalars["partial" if self.loss_partial else "data"].append(share)
-        if self.world > 1 and scalars["data"]:
-            stacked["data"] = torch.stack(scalars["data"])
-            works.append(dist.all_reduce(stacked["data"], group=self.group, async_op=True))
-        if scalars["partial"]:
-            stacked["partial"] = torch.stack(scalars["partial"])
-            works.append(dist.all_reduce(stacked["partial"], async_op=True))
+        for kind, values in scalars.items():
+            if values and (kind != "data" or self.world > 1):
+                stacked[kind] = torch.stack(values)
+                works.append(dist.all_reduce(stacked[kind], group=self._group_of(kind),
+                                             async_op=True))
         t0 = time.perf_counter()
         for _, work, _ in self._pending:
             work.wait()
@@ -377,7 +421,7 @@ class GradSync:
             work.wait()
         self.stats["wait_s"] = time.perf_counter() - t0
         out: list = [g if i not in self._unit_of else None for i, g in enumerate(self._grads)]
-        seen = {"data": 0, "partial": 0}
+        seen = {kind: 0 for kind in stacked}
         for unit, kind, (payload, _, true_sum) in zip(self.units, self.kinds, self._pending):
             first = unit[0]
             if kind == "scatter":
@@ -396,6 +440,6 @@ class GradSync:
                 out[i] = full[offset:offset + size].reshape(self.shapes[i])
                 offset += size
         self._reset()
-        if self.loss_partial:
-            return out, stacked["partial"][-1]
-        return out, (stacked["data"][-1] if self.world > 1 else loss)
+        if loss_kind in stacked:
+            return out, stacked[loss_kind][-1]
+        return out, loss

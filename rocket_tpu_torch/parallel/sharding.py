@@ -187,12 +187,30 @@ def moe_rules(axis: str = "expert",
     return rule_fn
 
 
+#: The attributes a rule function may carry for the Module.
+_MARKERS = ("tp_axis", "tp_vocab_sharded", "expert_axis", "pipe_axis", "fsdp_axis",
+            "fsdp_min_size")
+
+
+def _carry(rule_fn: RuleFn, *inner: RuleFn) -> RuleFn:
+    """``rule_fn`` with the markers of ``inner`` (the first that has each)."""
+    for name in _MARKERS:
+        for fn in inner:
+            if hasattr(fn, name) and not hasattr(rule_fn, name):
+                setattr(rule_fn, name, getattr(fn, name))
+    return rule_fn
+
+
 def pipeline_over(inner: RuleFn, axis: str = "pipe",
                   stacked_prefix: str = "blocks_stacked") -> RuleFn:
     """Pipeline-stage sharding on top of another rule set: stacked-layer
     leaves get their leading layer dim over ``axis`` beside whatever
     ``inner`` gives the layer's own dims (a short inner spec is left-padded);
-    other leaves follow ``inner``."""
+    other leaves follow ``inner``. The fn carries the ``pipe_axis`` marker
+    and ``inner``'s markers: in the port's ``blocks/<i>`` layout a layer's
+    leaf lives on its stage and keeps ``inner``'s spec on its own dims
+    (dp x tp x pp: ``grad_sync.shard_layout``'s ``(dim, axis, stage,
+    pipe axis)``)."""
 
     def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
         spec = inner(path, leaf)
@@ -204,11 +222,14 @@ def pipeline_over(inner: RuleFn, axis: str = "pipe",
         spec = (None,) * (len(shape) - len(spec)) + tuple(spec)
         return (axis,) + tuple(spec[1:])
 
-    return rule_fn
+    rule_fn.pipe_axis = axis
+    return _carry(rule_fn, inner)
 
 
 def combine_rules(*fns: RuleFn) -> RuleFn:
-    """The first rule set returning a non-None spec wins."""
+    """The first rule set returning a non-None spec wins. The fn carries the
+    markers of the rule sets it combines (``combine_rules(moe_rules(),
+    gpt2_tp_rules())``: expert parallelism and tensor parallelism)."""
 
     def rule_fn(path: Tuple[str, ...], leaf) -> Spec:
         for fn in fns:
@@ -217,7 +238,7 @@ def combine_rules(*fns: RuleFn) -> RuleFn:
                 return spec
         return None
 
-    return rule_fn
+    return _carry(rule_fn, *fns)
 
 
 def pipeline_rules(axis: str = "pipe", stacked_prefix: str = "blocks_stacked") -> RuleFn:

@@ -306,9 +306,12 @@ class Runtime:
     ``DeviceMesh`` (``device_mesh``); with a ``model``, ``seq``, ``pipe``
     or ``expert`` axis larger than 1 every row of each axis also gets a
     process group of its own (:meth:`axis_group`, :meth:`axis_ranks`,
-    :meth:`axis_index`; :attr:`data_index` is the rank's stripe). At most
-    one of those four axes may be larger than 1 (their combinations are
-    ROADMAP Queue A 6 item 8).
+    :meth:`axis_index`; :attr:`data_index` is the rank's stripe), and so
+    does every plane of two or more of the axes larger than 1 that is not
+    the whole mesh (:meth:`plane_group`). Two of those four axes may be
+    larger than 1 at once, but ``seq`` with ``pipe`` and ``pipe`` with
+    ``expert`` refuse, naming what the reference raises for them
+    (:attr:`REFUSED_PAIRS`; ROADMAP Queue A 6 item 8).
     ``seq_axis`` (default ``"seq"`` when the mesh has it, as in the
     reference) is the axis a batch's token dim is sharded over. Each rank
     of one model, seq, pipe or expert row holds the same stripe of the
@@ -374,8 +377,26 @@ class Runtime:
     #: pipeline-stage axis and the expert axis (each rank of an expert row
     #: holds its share of every MoE layer's experts).
     MESH_AXES: tuple = ("data", "model", "seq", "pipe", "expert")
-    #: The axes of which one at most may be larger than 1.
+    #: The axes other than the data axis; two of them may be larger than 1
+    #: at once, but for the pairs of :attr:`REFUSED_PAIRS`.
     SPLIT_AXES: tuple = ("model", "seq", "pipe", "expert")
+    #: The pairs of split axes the reference itself cannot run on the JAX it
+    #: is tested with, and what it raises there.
+    REFUSED_PAIRS: dict = {
+        frozenset(("seq", "pipe")): (
+            "the reference's ring attention inside its 1F1B stages fails with 'The context "
+            "mesh ... should match the mesh passed to shard_map'"),
+        frozenset(("pipe", "expert")): (
+            "the reference's GPipe fails with 'psum is a variant->invariant collective' and "
+            "its 1F1B refuses the MoE"),
+    }
+
+    @classmethod
+    def _refused_pair(cls, split) -> Optional[str]:
+        """Why the port refuses these split axes together, or None."""
+        if len(split) > 2:
+            return "the port runs at most two of them beside the data axis"
+        return cls.REFUSED_PAIRS.get(frozenset(split)) if len(split) == 2 else None
 
     def __init__(self, device=None, seed: int = 0, gradient_accumulation_steps: int = 1,
                  device_placement: bool = True, device_cache_bytes: int = 1 << 30,
@@ -539,20 +560,18 @@ class Runtime:
                     f"Runtime: mesh axis {axis!r} of size {n}: the port's mesh axes are "
                     f"{self.MESH_AXES} (ROADMAP Queue A 6)")
         split = [axis for axis in self.SPLIT_AXES if int(shape.get(axis, 1)) > 1]
-        if len(split) > 1:
+        refused = self._refused_pair(split)
+        if refused:
             raise NotImplementedError(
-                f"Runtime: mesh {shape} splits over {', '.join(split)} at once; the port runs "
-                f"one of {self.SPLIT_AXES} beside the data axis (ROADMAP Queue A 6 item 8)")
+                f"Runtime: mesh {shape} splits over {', '.join(split)} at once: {refused} "
+                "(ROADMAP Queue A 6 item 8)")
         if size != self._world:
             raise RuntimeError(f"Runtime: mesh_shape {shape} needs {size} ranks (one device "
                                f"each), the process group has {self._world}")
         self._mesh_shape = shape
         # Mesh coordinates in the shape's axis order, the last axis fastest
         # (the reference's device order): rank = data * model + model index.
-        self._coords, rest = {}, self._rank
-        for axis in reversed(list(shape)):
-            self._coords[axis] = rest % int(shape[axis])
-            rest //= int(shape[axis])
+        self._coords = self._coords_of(self._rank)
         self._axis_groups: dict = {}
         self.device_mesh = None
         if self.grouped and self._world > 1:
@@ -564,26 +583,55 @@ class Runtime:
                 self._init_axis_groups(dist)
 
     def _init_axis_groups(self, dist) -> None:
-        """One process group per row of each axis larger than 1, every
+        """One process group per row of each axis larger than 1, and per
+        plane of each proper subset of two or more of those axes, every
         rank taking part in every ``new_group`` in one order. The mesh's
         own sub-groups are not used: torch hands out the default group
         for an axis spanning every rank, which would put the model group's
         collectives in one queue with the gradient reduction's."""
+        import itertools
+
         shape = self._mesh_shape
-        for axis, n in shape.items():
-            if int(n) <= 1:
-                continue
+        big = [axis for axis, n in shape.items() if int(n) > 1]
+        for axis in big:
             for ranks in self._rows(axis):
                 group = dist.new_group(ranks)
                 if self._rank in ranks:
                     self._axis_groups[axis] = (group, tuple(ranks))
+        for k in range(2, len(big)):
+            for axes in itertools.combinations(big, k):
+                for ranks in self._rows(axes):
+                    group = dist.new_group(ranks)
+                    if self._rank in ranks:
+                        self._axis_groups[frozenset(axes)] = (group, tuple(ranks))
 
-    def _rows(self, axis: str) -> list:
-        """Every row of ``axis``: the global ranks that differ only in their
-        coordinate on it, in coordinate order."""
+    def _rows(self, axes) -> list:
+        """Every row of ``axes`` (one axis name or several): the global
+        ranks that differ only in their coordinates on them, in coordinate
+        order (the mesh's order of the axes, the last fastest)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        names = list(self._mesh_shape)
         grid = torch.arange(self._world).reshape(tuple(int(n) for n in self._mesh_shape.values()))
-        dim = list(self._mesh_shape).index(axis)
-        return [row.tolist() for row in grid.movedim(dim, -1).reshape(-1, grid.shape[dim])]
+        dims = sorted(names.index(axis) for axis in axes)
+        rest = [d for d in range(len(names)) if d not in dims]
+        size = 1
+        for d in dims:
+            size *= grid.shape[d]
+        return [row.tolist() for row in grid.permute(rest + dims).reshape(-1, size)]
+
+    def plane_group(self, axes):
+        """The process group of this rank's plane over ``axes`` (the ranks
+        that differ only on them): the default group (None) where that
+        plane is every rank, an axis's own group where one of ``axes`` is
+        larger than 1, else the plane's group."""
+        big = frozenset(a for a in axes if int(self._mesh_shape.get(a, 1)) > 1)
+        if len(big) == len([n for n in self._mesh_shape.values() if int(n) > 1]):
+            return None
+        if len(big) == 1:
+            return self.axis_group(next(iter(big)))
+        if not big:
+            raise RuntimeError("Runtime.plane_group: a plane of one rank has no group")
+        return self._axis_groups[big][0]
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate on the mesh axis ``axis`` (0 off the mesh)."""
@@ -597,12 +645,25 @@ class Runtime:
             return self._axis_groups[axis][1]
         return tuple(next(row for row in self._rows(axis) if self._rank in row))
 
-    def axis_owners(self, axis: str) -> tuple:
+    def axis_owners(self, axis: str, at: Optional[dict] = None) -> tuple:
         """The ranks that save the chunks of a leaf sharded over ``axis``:
-        the row of ``axis`` at coordinate 0 on every other axis."""
+        the row of ``axis`` at coordinate 0 on every other axis, or at the
+        coordinates ``at`` gives (a pipeline stage's layer: ``{"pipe":
+        stage}``)."""
         if int(self._mesh_shape.get(axis, 1)) <= 1:
             return (0,)
-        return tuple(self._rows(axis)[0])
+        at = at or {}
+        return tuple(next(row for row in self._rows(axis)
+                          if all(c == int(at.get(a, 0)) for a, c in self._coords_of(row[0]).items()
+                                 if a != axis)))
+
+    def _coords_of(self, rank: int) -> dict:
+        """``rank``'s coordinate on every mesh axis."""
+        coords, rest = {}, rank
+        for axis in reversed(list(self._mesh_shape)):
+            coords[axis] = rest % int(self._mesh_shape[axis])
+            rest //= int(self._mesh_shape[axis])
+        return coords
 
     def axis_group(self, axis: str):
         """The process group of this rank's row of ``axis``: its own group

@@ -1826,3 +1826,113 @@ def test_gloo_expert_parallel_moe_on_cuda_matches_one_rank(ep_cuda, case):
         if case.startswith("dropless"):
             assert rec["launches"] == [1, 3, 2], rec
     assert ep_cuda[0]["calls"]["ep_combine"]["bulk"] == 4
+
+
+# -- a non-ring attention on a seq-sharded batch: rows 3-5 on the gathered sequence ----
+
+_SEQ_FLASH_CUDA_WORKER = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, world, out = int(sys.argv[1]), 2, sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{sys.argv[2]}", rank=rank,
+                        world_size=world)
+torch.backends.cuda.matmul.allow_tf32 = False
+from rocket_tpu_torch.nn.attention import MultiHeadAttention
+from rocket_tpu_torch.ops import flash_native as fa
+from rocket_tpu_torch.runtime import Runtime
+
+Runtime(device="cuda", mesh_shape={"data": 1, "seq": world})
+res = {}
+b, t, dim, h = 2, 512, 256, 4
+sl = slice(rank * t // world, (rank + 1) * t // world)
+for dtype in (torch.float32, torch.bfloat16):
+    for rope in (False, True):
+        for split in (False, True):
+            gen = torch.Generator().manual_seed(7)
+            # The dq strategy: row 4's partials, or row 5 past the byte bound.
+            fa.DQ_PARTIALS_MAX_BYTES = 0 if split else 1 << 30
+            attn = MultiHeadAttention(dim, h, impl="flash", rope=rope)
+            params = {k: {kk: vv.cuda() for kk, vv in v.items()}
+                      for k, v in attn.init_params(gen).items()}
+            leaves = [params[k][kk].requires_grad_(True) for k in ("qkv", "proj")
+                      for kk in ("w", "b")]
+            x = torch.randn(b, t, dim, generator=gen).cuda().to(dtype)
+            w = torch.randn(b, t, dim, generator=gen).cuda().to(dtype)
+            xl = x[:, sl].clone().requires_grad_(True)
+            for kernel in (fa.flash_fwd, fa.flash_bwd, fa.flash_dq):
+                kernel.launches = 0
+            y = attn.apply(params, xl, mode="eval")
+            got = torch.autograd.grad((y.float() * w[:, sl].float()).sum(), [xl] + leaves)
+            launches = [fa.flash_fwd.launches, fa.flash_bwd.launches, fa.flash_dq.launches]
+            # Each rank's param gradients are its rows' share: summed over the
+            # seq group they are the whole sequence's.
+            grads = [g.float().clone() for g in got[1:]]
+            for g in grads:
+                dist.all_reduce(g)
+            # The whole sequence on this rank alone, through the plain path.
+            plain = MultiHeadAttention(dim, h, impl="plain", rope=rope)
+            xw = x.clone().requires_grad_(True)
+            yw = plain._apply_whole(params, xw, "eval", None)
+            want = torch.autograd.grad((yw.float() * w.float()).sum(), [xw] + leaves)
+
+            def err(a, b):
+                a, b = a.detach().float(), b.detach().float()
+                return float(((a - b).abs() / (1 + b.abs())).max())
+
+            res[f"{dtype}/{rope}/{split}"] = {
+                "cuda": y.is_cuda, "launches": launches, "out": err(y, yw[:, sl]),
+                "dx": err(got[0], want[0][:, sl]),
+                "dparams": max(float((g - wg.float()).abs().max() / (1 + wg.float().abs().max()))
+                               for g, wg in zip(grads, want[1:]))}
+json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
+dist.destroy_process_group()
+'''
+
+
+@pytest.fixture(scope="module")
+def seq_flash_cuda(tmp_path_factory):
+    """The two-rank gloo group on the card running
+    :data:`_SEQ_FLASH_CUDA_WORKER`."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    tmp = tmp_path_factory.mktemp("seq_flash_cuda")
+    script = tmp / "worker.py"
+    script.write_text(_SEQ_FLASH_CUDA_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(port), str(tmp)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("split", [False, True])
+def test_gloo_seq_gathered_flash_on_cuda_matches_plain(seq_flash_cuda, dtype, rope, split):
+    """A flash attention on a seq-sharded batch over two gloo ranks: each
+    gathers the sequence's q, k and v and runs rows 3 and 4 (and row 5
+    past the dq byte bound) on it whole; the rank's rows of the output and
+    of dx, and the param gradients summed over the ranks, against the
+    plain path on the whole sequence (``tol * (1 + |want|)``). Row 3 on
+    the fused operand without RoPE, on q/k/v with it."""
+    for r in seq_flash_cuda:
+        rec = r[f"{dtype}/{rope}/{split}"]
+        assert rec["cuda"] and rec["launches"] == [1, 1, int(split)], rec
+        assert max(rec["out"], rec["dx"], rec["dparams"]) <= TOL[dtype], rec

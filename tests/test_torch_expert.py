@@ -510,9 +510,14 @@ def test_two_split_axes_refuse_naming_item_8_and_1f1b_refuses_moe():
     from rocket_tpu_torch.models import transformer as tt
     from rocket_tpu_torch.runtime import Runtime
 
-    for other in ("model", "seq", "pipe"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    # The model and seq axes beside an expert axis are item 8's pairs: one
+    # process cannot hold them; the pipe axis beside it still refuses, as
+    # the reference's GPipe fails there and its 1F1B refuses the MoE.
+    for other in ("model", "seq"):
+        with pytest.raises(RuntimeError, match="needs 4 ranks"):
             Runtime(device="cpu", mesh_shape={"data": 1, other: 2, "expert": 2})
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2, "expert": 2})
     msg = "pipeline_schedule='1f1b' does not carry the MoE aux-loss channel"
     with pytest.raises(ValueError, match=re.escape(msg)):
         tt.TransformerConfig(**dict(LM, scan_layers=True, pipeline_axis="pipe",

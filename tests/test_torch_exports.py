@@ -30,11 +30,6 @@ ALLOWED = {
     # ranks hold plain local tensors, so there is nothing to mark.
     ("parallel/collectives.py", "pvary_compat"): _JAX,
     ("parallel/grad_sync.py", "*"): _A6, ("parallel/sharding.py", "*"): _A6,
-    ("ops/flash_attention.py", "flash_attention_qkv_sharded"): _A6,
-    ("ops/flash_attention.py", "in_manual_axes"): _A6,
-    ("ops/flash_attention.py", "shardable_axes"): _A6,
-    ("ops/flash_native.py", "flash_bthd_sharded"): _A6,
-    ("ops/flash_native.py", "flash_fused_sharded"): _A6,
     ("analysis/*", "*"): _A9,
     ("data/device_cache.py", "materialize_marker"): _JAX,
     ("tune/space.py", "sublane_min"): _JAX,
@@ -102,7 +97,8 @@ def test_the_allow_list_holds_nothing_the_port_has():
                                     "serve/api.py", "serve/__init__.py", "serve/scheduler.py",
                                     "parallel/collectives.py", "ops/ring.py",
                                     "parallel/__init__.py", "parallel/pipeline.py",
-                                    "parallel/ring_attention.py"])
+                                    "parallel/ring_attention.py", "ops/flash_attention.py",
+                                    "ops/flash_native.py"])
 def test_the_repaired_modules_export_every_reference_name(module):
     """The Queue C 1 repairs and this slice's modules, each in full."""
     reference, port = _exports(REFERENCE), _exports(PORT)

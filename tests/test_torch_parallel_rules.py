@@ -168,13 +168,19 @@ def test_runtime_refuses_a_model_axis_and_keeps_a_data_mesh():
     # The model axis is ported: one process cannot hold a two-rank one.
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "model": 2})
-    # The pipe and expert axes are ported too; two of them at once refuse.
+    # The pipe and expert axes are ported too; the two together refuse.
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2})
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "expert": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6 item 8"):
         Runtime(device="cpu", mesh_shape={"data": 1, "pipe": 2, "expert": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 6 item 8"):
+        Runtime(device="cpu", mesh_shape={"data": 1, "seq": 2, "pipe": 2})
+    # The other pairs are ported (item 8): one process cannot hold them.
+    for pair in (("model", "pipe"), ("model", "seq"), ("model", "expert"), ("seq", "expert")):
+        with pytest.raises(RuntimeError, match="needs 4 ranks"):
+            Runtime(device="cpu", mesh_shape={"data": 1, pair[0]: 2, pair[1]: 2})
     with pytest.raises(RuntimeError, match="needs 2 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 2})
     runtime = Runtime(device="cpu", mesh_shape={"data": 1, "model": 1})

@@ -328,7 +328,7 @@ def test_unported_axes_still_refuse_naming_their_items(axis, item):
         Runtime(device="cpu", mesh_shape={"data": 1, axis: 2})
     if axis in ("pipe", "expert"):
         assert tgs.shard_layout([(("w",), leaf)], lambda p, l: (axis, None),
-                                {"data": 1, axis: 2}) == [(0, axis)]
+                                {"data": 1, axis: 2}) == [tgs.Layout(0, axis)]
 
 
 def test_shard_layout_reads_both_axes_and_refuses_two_on_one_leaf():
@@ -340,9 +340,18 @@ def test_shard_layout_reads_both_axes_and_refuses_two_on_one_leaf():
               (("wte", "table"), np.zeros((251, 8))), (("ln_f", "scale"), np.zeros(8))]
     mesh = {"data": 2, "model": 2}
     assert tgs.shard_layout(leaves, ts.gpt2_tp_rules(), mesh) == [
-        (1, "model"), (0, "model"), None, None]  # 251 rows do not divide: replicated
+        tgs.Layout(1, "model"), tgs.Layout(0, "model"), None,
+        None]  # 251 rows do not divide: replicated
     with pytest.raises(NotImplementedError, match="one axis"):
         tgs.shard_layout(leaves[:1], lambda p, l: ("data", "model"), mesh)
+    # dp x tp x pp: a layer's leaf on its stage, its own dim over the model
+    # axis (pipeline_over); the shared leaves follow the inner rule.
+    mesh = {"data": 2, "model": 2, "pipe": 2}
+    staged = leaves + [(("blocks", "1", "attn", "qkv", "w"), np.zeros((8, 24))),
+                       (("blocks", "1", "ln1", "scale"), np.zeros(8))]
+    assert tgs.shard_layout(staged, ts.pipeline_over(ts.gpt2_tp_rules()), mesh) == [
+        tgs.Layout(1, "model", 0, "pipe"), tgs.Layout(0, "model", 0, "pipe"), None, None,
+        tgs.Layout(1, "model", 1, "pipe"), tgs.Layout(stage=1, pipe_axis="pipe")]
 
 
 MOE_TP_WORKER = r'''
@@ -372,7 +381,8 @@ np.save(sys.argv[2] + f"/logits{runtime.process_index}.npy", out["logits"].numpy
 def test_moe_under_tensor_parallelism_refuses_naming_item_5(tmp_path):
     """MoE under tensor parallelism is ported (item 5): the TP forward of an
     MoE LM over two model ranks gives the one-process logits on both; a
-    model axis beside an expert axis still refuses, naming item 8."""
+    model axis beside an expert axis is item 8's pair (``tests/
+    test_torch_mesh.py``): one process cannot hold it."""
     import torch
 
     from rocket_tpu_torch.models import transformer as tt
@@ -388,7 +398,7 @@ def test_moe_under_tensor_parallelism_refuses_naming_item_5(tmp_path):
     for rank in range(2):
         np.testing.assert_allclose(np.load(tmp_path / f"logits{rank}.npy"), want.numpy(),
                                    rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="needs 4 ranks"):
         Runtime(device="cpu", mesh_shape={"data": 1, "model": 2, "expert": 2})
 
 
