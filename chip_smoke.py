@@ -532,17 +532,44 @@ def launch_audit_phase(card):
         require(report.clean, f"launch_audit: {name}: " + "; ".join(
             f.message for f in report.findings))
         targets[name] = {"launches": len(report.launches),
-                         "kernels": sorted({f.name for f in report.launches})}
+                         "kernels": sorted({f.name for f in report.launches}),
+                         **{k: report.record[k] for k in (
+                             "predicted_step_time_us", "compute_us", "memory_us",
+                             "exposed_comm_us", "predicted_mfu", "n_ops", "n_collectives")}}
     kernels = []
     for name, shapes, fact, built in _declared_launches():
         grid, threads, dynamic, static = built
         require(fact.geometry == built, f"launch_audit: {name} {shapes}: declared "
                 f"{fact.geometry}, library {built}")
+        # Every launch declares its work; a combine writes its output and
+        # does no arithmetic.
+        require(fact.bytes > 0 and (fact.flops > 0 or "combine" in name),
+                f"launch_audit: {name} {shapes}: no work declared ({fact.bytes} B, "
+                f"{fact.flops} flops)")
         kernels.append({"kernel": name, "shapes": shapes, "grid": list(grid), "threads": threads,
                         "dynamic_smem": dynamic, "static_smem": static,
-                        "headroom_bytes": spec.smem_bytes - dynamic - static})
+                        "headroom_bytes": spec.smem_bytes - dynamic - static,
+                        "bytes": fact.bytes, "flops": fact.flops})
+    # The bound helpers' work is the launch facts' own, at the main paths'
+    # shapes: GPT-2's rows 3-5 and 6, the char-LM block.
+    work = {}
+    gpt2 = (8, 1024, 12, 12, 64, torch.bfloat16)
+    for kernel, bound, fact in (
+            ("flash_fwd", flash_bounds(*gpt2, True)[0],
+             fa.flash_launch("flash_fwd", *gpt2, 768, 768)),
+            ("flash_bwd", flash_bounds(*gpt2, True)[1],
+             fa.flash_launch("flash_bwd", *gpt2, 768, 768)),
+            ("flash_dq", flash_bounds(8, 2048, 12, 12, 64, torch.bfloat16, True)[2],
+             fa.flash_launch("flash_dq", 8, 2048, 12, 12, 64, torch.bfloat16, 768, 768)),
+            ("flash_qkv_fwd", qkv_bounds(8, 12, 1024, 64, torch.bfloat16, True, 128)[0],
+             fqa.qkv_launch("fwd", 8, 12, 1024, 64, torch.bfloat16, 128, 128)),
+            ("fused_block", block_bounds(128, 256, 256, 4, torch.bfloat16, "separate"),
+             fb.fused_block_launch(128, 256, 256, 4, torch.bfloat16, "separate"))):
+        require(fact.bytes > 0 and bound == fact_bound(fact),
+                f"launch_audit: {kernel}: bound {bound} is not its fact's {fact_bound(fact)}")
+        work[kernel] = {"bytes": fact.bytes, "flops": fact.flops, "bound_ms": bound[0]}
     emit("launch_audit", device_kind=kind, smem_opt_in=spec.smem_bytes, targets=targets,
-         kernels=kernels, card=card)
+         kernels=kernels, work=work, card=card)
 
 
 # -- phase 3: kernels against their plain versions -------------------------
@@ -557,8 +584,10 @@ PAGED_POSITIONS = {64: [0, 15, 16, 17, 255, 511, 700, 1023],
 def paged_case(dtype, h_kv, gen, mb=64):
     """Operands of one decode wave over ``mb`` pages of 16 rows per slot
     (pages past each slot's live length point at the trash block 0), and
-    its bytes and flops: the live K and V rows read once, q read and out
-    written once, the live table entries and the positions."""
+    its bytes and flops as its launch facts declare them at these
+    positions (``paged_attention.paged_decode_work``: the live K and V rows
+    read once, q read and out written once, the live table entries and the
+    positions)."""
     s, bl, d, hq = 8, 16, 64, 12
     nb = 1 + s * mb
     positions = torch.tensor(PAGED_POSITIONS[mb], dtype=torch.int32)
@@ -569,12 +598,10 @@ def paged_case(dtype, h_kv, gen, mb=64):
     mk = lambda *shape: torch.randn(*shape, generator=gen).to(dtype).cuda()  # noqa: E731
     ops = dict(q=mk(s, hq, d), k_pages=mk(nb, bl, h_kv, d), v_pages=mk(nb, bl, h_kv, d),
                block_table=table.cuda(), positions=positions.cuda())
-    item = torch.empty((), dtype=dtype).element_size()
     rows = (positions + 1).double()
-    nbytes = float(2 * rows.sum() * h_kv * d * item + 2 * s * hq * d * item
-                   + 4 * (rows / bl).ceil().sum() + 4 * s)
-    flops = float(4 * rows.sum() * hq * d)
-    return ops, nbytes, flops
+    facts = pa.paged_decode_launches(s, hq, h_kv, d, nb, bl, mb, dtype, int(rows.sum()),
+                                     int((rows / bl).ceil().sum()))
+    return ops, sum(f.bytes for f in facts), sum(f.flops for f in facts)
 
 
 def check_paged(timer, gen):
@@ -684,9 +711,9 @@ def check_decode_attention(timer, gen):
         require(err <= TOL[dtype], f"decode_attention timing case B={b} T={t_max}: err {err}")
         q4 = ops["q"][:, :, None, :]
         kc, vc = ops["k_cache"][:, :, :pos + 1], ops["v_cache"][:, :, :pos + 1]
-        # Cache rows [0, pos) of K and V read; q, out, k_new, v_new and the
-        # written K/V row moved once each (bf16, 2 bytes).
-        nbytes = 2 * b * 12 * pos * 64 * 2 + 6 * b * 12 * 64 * 2
+        # The launch facts' work at this position (cache rows [0, pos) of K
+        # and V read; q, out, k_new, v_new and the written K/V row once).
+        facts = da.decode_attention_launches(b, 12, 12, t_max, 64, dtype, pos)
         row = {
             "dtype": "bfloat16", "b": b, "t": t_max, "pos": pos, "hq": 12, "hkv": 12, "d": 64,
             "n_split": da.num_splits(t_max), "max_abs_err": err, "tol": TOL[dtype],
@@ -694,7 +721,8 @@ def check_decode_attention(timer, gen):
             "plain_ms": timer.ms(lambda: da.decode_attention_plain(**twin)),
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q4, kc, vc)),
         }
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * 12 * 64 * (pos + 1), dtype)
+        row["bound_ms"], row["bound_by"] = bound_ms(sum(f.bytes for f in facts),
+                                                    sum(f.flops for f in facts), dtype)
         emit("timing_decode_attention", **row)
         rows.append(row)
     entry, long_row = rows
@@ -728,25 +756,25 @@ def _flash_err(got, want, dtype, what):
     return diff.max().item()
 
 
+def fact_bound(*facts) -> tuple:
+    """The least time of the work the launch facts declare (their summed
+    ``bytes`` and ``flops``, at the first one's ``flop_dtype`` rate)."""
+    dtype = getattr(torch, facts[0].flop_dtype)
+    return bound_ms(sum(f.bytes for f in facts), sum(f.flops for f in facts), dtype)
+
+
 def flash_bounds(b, t, hq, h_kv, d, dtype, causal):
-    """(fwd, bwd, dq, bwd without dq) least times of the functions: each
-    input read once, each output written once — fwd reads q/k/v and writes
-    out and lse; bwd reads q/k/v, dout, lse and delta and writes dq, dk and
-    dv (without dq: dk and dv); dq reads the same and writes dq — and 2*D
-    flops per visible (query, key) pair and product: 2 products forward, 5
-    in the fused backward (s, dp, dv, dk, dq), 4 without dq, 3 in the dq
-    pass. The f32 dq partials are the kernel's design, not the function's,
-    so they are left out (:func:`dq_partial_bytes`)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    qkv = b * t * (hq + 2 * h_kv) * d * item
-    act = b * t * hq * d * item                  # out, dout or dq
-    stats = b * hq * t * 4                       # lse or delta (f32)
-    pairs = b * hq * (t * (t + 1) / 2 if causal else t * t)
-    dkv = 2 * b * t * h_kv * d * item
-    return (bound_ms(qkv + act + stats, 4 * d * pairs, dtype),
-            bound_ms(qkv + 2 * act + 2 * stats + dkv, 10 * d * pairs, dtype),
-            bound_ms(qkv + 2 * act + 2 * stats, 6 * d * pairs, dtype),
-            bound_ms(qkv + act + 2 * stats + dkv, 8 * d * pairs, dtype))
+    """(fwd, bwd, dq, bwd without dq) least times of the functions, from
+    their launch facts' work (``flash_native.flash_work``: each input read
+    once, each output written once, 2*D flops per visible (query, key)
+    pair and product; the f32 dq partials are the kernel's design, not the
+    function's, so they are left out, :func:`dq_partial_bytes`)."""
+    def fact(kind, with_dq=True):
+        return fa.flash_launch(kind, b, t, hq, h_kv, d, dtype, hq * d, h_kv * d, with_dq,
+                               causal=causal)
+
+    return (fact_bound(fact("flash_fwd")), fact_bound(fact("flash_bwd")),
+            fact_bound(fact("flash_dq")), fact_bound(fact("flash_bwd", False)))
 
 
 def sdpa_backward_ms(timer, q, k, v, dout, causal):
@@ -954,16 +982,17 @@ def check_flash_examples(timer, gen):
     pos = c["positions"][-1]
     q4 = ops["q"][:, :, None, :]
     kc, vc = ops["k_cache"][:, :, :pos + 1], ops["v_cache"][:, :, :pos + 1]
-    # Cache rows [0, pos) of K and V read; q and out, k_new and v_new, and
-    # the written K/V row moved once each (bf16, 2 bytes).
-    nbytes = 2 * b * h_kv * pos * d * 2 + 2 * b * hq * d * 2 + 4 * b * h_kv * d * 2
+    # The launch facts' work at this position (cache rows [0, pos) of K and
+    # V read; q and out, k_new and v_new, and the written K/V row once).
+    facts = da.decode_attention_launches(b, hq, h_kv, t_max, d, dtype, pos)
     row = {"example": "llama", "dtype": "bfloat16", **c, "n_split": da.num_splits(t_max),
            "max_abs_err": worst, "tol": TOL[dtype], "deterministic": True,
            "ms": timer.ms(lambda: da.decode_attention(**ops)),
            "plain_ms": timer.ms(lambda: da.decode_attention_plain(**twin)),
            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(q4, kc, vc,
                                                                          enable_gqa=True))}
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * hq * d * (pos + 1), dtype)
+    row["bound_ms"], row["bound_by"] = bound_ms(sum(f.bytes for f in facts),
+                                                sum(f.flops for f in facts), dtype)
     emit("parity_flash_vit", **row)
     rows["llama_decode"] = row
     return rows
@@ -997,22 +1026,18 @@ QKV_CASES = [
 
 
 def qkv_bounds(b, h, t, d, dtype, causal, block_k):
-    """Least times of rows 6-7 as the kernels define them: the forward reads
-    the stacked qkv and writes out and lse, 2 products per visible pair; the
-    backward reads qkv, dout, lse and delta and writes its dq partials (one
-    (B, H, T, D) copy per block_k key rows in the operand dtype, the
-    reference's output), dk and dv, 5 products per visible pair. Returns
-    (fwd, bwd, bwd with dq written once instead of the partials, the
-    partials' bytes)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    act = b * h * t * d * item
-    stats = b * h * t * 4
-    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
+    """Least times of rows 6-7 as the kernels define them, from their launch
+    facts' work (``flash_attention.qkv_work``: the forward reads the stacked
+    qkv and writes out and lse; the backward reads qkv, dout, lse and delta
+    and writes its dq partials, one (B, H, T, D) copy per block_k key rows,
+    dk and dv). Returns (fwd, bwd, bwd with dq written once instead of the
+    partials, the partials' bytes)."""
+    fwd, bwd = (fqa.qkv_launch(kind, b, h, t, d, dtype, block_k, block_k, causal)
+                for kind in ("fwd", "bwd"))
+    act = b * h * t * d * torch.empty((), dtype=dtype).element_size()
     partials = (t // block_k) * act
-    bwd_in = 3 * act + act + 2 * stats
-    return (bound_ms(4 * act + stats, 4 * d * pairs, dtype),
-            bound_ms(bwd_in + partials + 2 * act, 10 * d * pairs, dtype),
-            bound_ms(bwd_in + 3 * act, 10 * d * pairs, dtype), partials)
+    return (fact_bound(fwd), fact_bound(bwd),
+            bound_ms(bwd.bytes - partials + act, bwd.flops, dtype), partials)
 
 
 def qkv_case(timer, gen, b, h, t, d, dtype, causal, bq, bk, time_it=False):
@@ -1239,17 +1264,11 @@ def tune_phase(card):
 
 
 def block_bounds(b, t, d, h, dtype, epilogue):
-    """Least time of the fused block function: x read and the output
-    written once, the weights it uses read once (ln in f32); 2 flops per
-    multiply-add of the QKV projection, the causal QK^T and PV products
-    and, fused, the output projection."""
-    item = torch.empty((), dtype=dtype).element_size()
-    weights = (d * 3 * d + 3 * d) * item + 2 * d * 4
-    flops = 2 * b * t * d * 3 * d + 2 * 2 * 64 * h * b * t * (t + 1) / 2
-    if epilogue == "fused":
-        weights += (d * d + d) * item
-        flops += 2 * b * t * d * d
-    return bound_ms(2 * b * t * d * item + weights, flops, dtype)
+    """Least time of the fused block function, from its launch fact's work
+    (``fused_block.fused_block_work``: x read and the output written once,
+    the weights it uses read once; the QKV projection, the causal QK^T and
+    PV products and, fused, the output projection)."""
+    return fact_bound(fb.fused_block_launch(b, t, d, h, dtype, epilogue))
 
 
 def _block_operands(gen, dtype, b, t, h):
@@ -1332,15 +1351,12 @@ BN_SHAPES = [(524288, 64, torch.float32), (131072, 128, torch.float32),
 
 
 def bn_bounds(n, c, dtype):
-    """(twopass, normalize) least times: x read once and y written once,
-    plus scale/bias and stats (twopass) or the (4, C) rows (normalize), all
-    bytes; 3 flops per element for the moments (add, multiply, add), 3 for
-    the epilogue (subtract, multiply, add) and 1 for the relu, at the f32
-    rate (the arithmetic is f32 for either operand type)."""
-    item = torch.empty((), dtype=dtype).element_size()
-    xy = 2 * n * c * item
-    return (bound_ms(xy + 2 * c * 4 + 2 * c * 4, 7.0 * n * c, torch.float32),
-            bound_ms(xy + 4 * c * 4, 4.0 * n * c, torch.float32))
+    """(twopass, normalize) least times, from the work their launch facts
+    carry (``fused_conv.bn_work`` over the whole C: x read once and y
+    written once, plus scale/bias and stats or the (4, C) rows; 7 and 4
+    flops an element at the f32 rate)."""
+    return tuple(bound_ms(*fc.bn_work(kind, n, c, dtype), torch.float32)
+                 for kind in ("twopass", "normalize"))
 
 
 def _bn_excess(got, want, dtype):
@@ -1852,7 +1868,8 @@ class StepClock(Capsule):
     """Runs after the Module in every iteration (priority 10): reads the
     step's loss (a device sync), stamps the host clock after a
     ``synchronize``, and keeps a ``torch.profiler`` window over the last
-    ``profile_last`` steps."""
+    ``profile_last`` steps, each step under its own ``ProfilerStep#N``
+    range (the profiler's step markers: the calibration joins per step)."""
 
     def __init__(self, profile_last: int = 0, module=None):
         super().__init__(priority=10)
@@ -1870,7 +1887,7 @@ class StepClock(Capsule):
         self.stamps.append(time.perf_counter())
 
     def launch(self, attrs=None):
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerAction, ProfilerActivity, profile
 
         self.losses.append(float(attrs.step_metrics["loss"]))
         if isinstance(attrs.batch, dict) and "moe_aux_loss" in attrs.batch:
@@ -1885,12 +1902,15 @@ class StepClock(Capsule):
         self.stamps.append(time.perf_counter())
         done = len(self.losses)
         if self.profile_last and done == self.repeats - self.profile_last:
-            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                schedule=lambda step: ProfilerAction.RECORD, acc_events=True)
             self.prof.start()
             self.prof_t0 = self.stamps[-1]
         elif self.prof is not None and done == self.repeats:
             self.prof.stop()
             self.prof_wall = self.stamps[-1] - self.prof_t0
+        elif self.prof is not None and done > self.repeats - self.profile_last:
+            self.prof.step()
 
 
 #: Param trees drawn on the CPU from seed 0 and kept on the card, one per
@@ -2019,10 +2039,60 @@ def train_phase(card):
     emit("train_profile", steps=PROFILE_STEPS, wall_s=clock.prof_wall, device_busy_s=busy,
          device_idle_share=idle, device_time_measured=busy > 0, top_kernels=top,
          device_s_by_group=groups, card=card)
-    return counts, clock.prepared
+    return counts, clock.prepared, clock.prof
+
+
+def calib_phase(prof, card):
+    """The roofline loop closed on the card (``analysis/calib.py``): the
+    ``train`` phase's own profiled window (its last PROFILE_STEPS GPT-2
+    124M steps, each under a ``ProfilerStep#N`` range) reconciled against
+    ``train_flash``'s step traced on meta tensors and priced as this card.
+    The join (launching aten op or hand kernel, ordinal in the step) must
+    cover RKT702's floor, the step's |calibration error| must stay under
+    RKT703's ceiling on the matched card, and rows 3-4 must join by their
+    ``LaunchFact`` names. No GPU step is added: the window is the phase's."""
+    from rocket_tpu_torch.analysis.calib import (
+        CALIB_TARGETS,
+        priced_ops_for_target,
+        reconcile_trace,
+    )
+    from rocket_tpu_torch.obs.prof import load_trace_events
+
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    target = dataclasses.replace(CALIB_TARGETS["train_flash"], device_kind=kind)
+    ops, priced = priced_ops_for_target(target)
+    t_priced = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_window.trace.json")
+        prof.export_chrome_trace(path)
+        trace_mb = os.path.getsize(path) / 2**20
+        events = load_trace_events(path)
+    t_loaded = time.perf_counter()
+    report = reconcile_trace(events, ops, priced, label="train_flash", measured_kind=kind,
+                             join_floor=target.join_floor, error_ceiling=target.error_ceiling)
+    del events
+    record = report.record
+    require(record, "calib: " + "; ".join(f.message for f in report.findings))
+    require(record["device_matched"], f"calib: priced for {record['priced_for']}, measured on "
+            f"{record['device_kind_measured']}")
+    require(record["n_steps"] == PROFILE_STEPS, f"calib: {record['n_steps']} steps joined")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "calib_train_flash.json").write_text(json.dumps(record, indent=1, sort_keys=True))
+    joined = {row["name"].split("#")[0] for row in report.rows}
+    emit("calib", **record, joined_kernels=sorted(n for n in joined if not n.startswith("aten")),
+         findings=[f.message for f in report.findings], price_s=t_priced - t0,
+         export_load_s=t_loaded - t_priced, join_s=time.perf_counter() - t_loaded,
+         seconds=time.perf_counter() - t0, trace_mb=trace_mb, card=card)
+    require(report.clean, "calib: " + "; ".join(f.message for f in report.findings))
+    require({"flash_fwd", "flash_bwd"} <= joined,
+            f"calib: rows 3-4 did not join by their LaunchFact names: {sorted(joined)[:20]}")
+    return record
 
 
 def train_long_phase(card):
+
     """GPT-2 124M at T=2048, B=8: the f32 dq partial buffer (nk * B * T *
     H * D * 4 bytes, nk = T / 64) passes DQ_PARTIALS_MAX_BYTES, so the
     backward takes flash_bwd without dq plus the accumulating flash_dq."""
@@ -3383,19 +3453,11 @@ def _rows_in_groups(sizes, m: int) -> int:
 
 
 def gmm_bounds(kind, m, k, n, e, rows, dtype, src_rows=0):
-    """Least time of one grouped product: its inputs read once and its
-    output written once (the int32 group sizes, and for gather_gmm the
-    row ids and the ``src_rows`` unsorted token rows), and 2*K*N flops per
-    row that lies in a group."""
-    item = torch.empty((), dtype=dtype).element_size()
-    flops = 2.0 * rows * k * n
-    if kind == "gather_gmm":
-        nbytes = src_rows * k * item + m * 4 + e * k * n * item + m * n * item
-    elif kind == "gmm":
-        nbytes = m * k * item + e * k * n * item + m * n * item
-    else:  # tgmm: lhs (m, k), dy (m, n) -> (e, k, n)
-        nbytes = m * k * item + m * n * item + e * k * n * item
-    return bound_ms(nbytes + e * 4, flops, dtype)
+    """Least time of one grouped product, from the work its launch fact
+    carries at these group sizes (``grouped_matmul.gmm_work``: its inputs
+    read once and its output written once, 2*K*N flops per row that lies
+    in a group)."""
+    return bound_ms(*gm.gmm_work(kind, m, k, n, e, dtype, rows, src_rows), dtype)
 
 
 def _library_grouped(kind, lhs, other, sizes, transpose=False):
@@ -3630,8 +3692,10 @@ def badpallas_phase(timer, gen, card):
         "plain_ms": timer.ms(lambda: bp.bad_scale_plain(x, BAD_BLOCKS[0], grid7)),
         "library_ms": timer.ms(lambda: x.mul(2)),
     }
-    # x read once and y written once, f32; one multiply per element.
-    row["bound_ms"], row["bound_by"] = bound_ms(2 * 4096 * 4096 * 4, 4096 * 4096, torch.float32)
+    # The timed launch's fact: x read once and y written once over its whole
+    # grid, f32; one multiply per element.
+    row["bound_ms"], row["bound_by"] = fact_bound(bp.bad_scale_launch((4096, 4096),
+                                                                      BAD_BLOCKS[0], grid7))
     emit("badpallas", **row, card=card)
     return row
 
@@ -6805,7 +6869,9 @@ def main() -> int:
     serve_cli_phase(card)
     decode["launches"] = generate_phase(model, params, card)
     del params
-    train, prepared = train_phase(card)
+    train, prepared, window = train_phase(card)
+    calib_phase(window, card)
+    del window
     checkpoint_gpt2_phase(prepared, card)
     del prepared
     flash["flash_fwd"]["launches"] = train["flash_fwd"]

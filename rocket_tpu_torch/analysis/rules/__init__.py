@@ -5,17 +5,22 @@ slug and a one-line contract, printed by ``--list-rules``.
 * ``AST_RULES`` — the source lint (``RKT1xx``), objects with ``check(ctx)``
   over a :class:`~rocket_tpu_torch.analysis.rocketlint.FileContext`, run
   in id order;
-* ``SCHED_RULES`` — the schedule audit's kernel-launch rule (``RKT5xx``),
-  applied by :mod:`rocket_tpu_torch.analysis.sched_audit` through
-  :func:`~rocket_tpu_torch.analysis.rules.sched_rules.check_launches`.
+* ``SCHED_RULES`` — the schedule audit (``RKT5xx``): the roofline legs
+  RKT501-503 and RKT505, the kernel-launch rule RKT504 and the budgets'
+  RKT506, applied by :mod:`rocket_tpu_torch.analysis.sched_audit` and the
+  CLI;
+* ``CALIB_RULES`` — the calibration (``RKT7xx``): RKT701 its budgets,
+  RKT702 the join, RKT703 the error ceiling
+  (:mod:`rocket_tpu_torch.analysis.calib`).
 
-The reference's other families (its jaxpr, SPMD, precision, roofline,
-serving, memory, determinism and fault audits, and lint rules RKT101,
-RKT102 and RKT108 to RKT114) have no torch counterpart yet.
+The reference's other families (its jaxpr, SPMD, precision, serving,
+memory, determinism, fault and trace audits, and lint rules RKT101, RKT102
+and RKT108 to RKT114) are ROADMAP Queue A 9's remainder.
 """
 
 from __future__ import annotations
 
+from rocket_tpu_torch.analysis.rules.calib_rules import CALIB_RULES
 from rocket_tpu_torch.analysis.rules.capsule_rules import (
     CapsuleSuperRule,
     HandlerSignatureRule,
@@ -24,7 +29,7 @@ from rocket_tpu_torch.analysis.rules.capsule_rules import (
 from rocket_tpu_torch.analysis.rules.host_rules import ForkStartMethodRule, SyncInLoopRule
 from rocket_tpu_torch.analysis.rules.sched_rules import SCHED_RULES
 
-__all__ = ["AST_RULES", "SCHED_RULES", "all_rules"]
+__all__ = ["AST_RULES", "SCHED_RULES", "CALIB_RULES", "all_rules"]
 
 AST_RULES = (
     SyncInLoopRule(),
@@ -38,4 +43,4 @@ AST_RULES = (
 def all_rules() -> tuple:
     """``(id, slug, contract)`` of every rule, in id order."""
     return tuple(sorted([(r.rule_id, r.slug, r.contract) for r in AST_RULES]
-                        + list(SCHED_RULES)))
+                        + list(SCHED_RULES) + list(CALIB_RULES)))

@@ -311,10 +311,15 @@ def _sync_group():
     return runtime.axis_group("data"), runtime.data_axis_size
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group, ranks: int) -> torch.Tensor:
+    """``t`` summed in place over the ``ranks`` of ``group`` (on meta
+    tensors, recorded for the schedule audit: ``collectives.collective``)."""
     import torch.distributed as dist
 
-    dist.all_reduce(t, group=group)
+    from rocket_tpu_torch.parallel.collectives import collective
+
+    collective("all_reduce", lambda: dist.all_reduce(t, group=group, async_op=True), (t,), (t,),
+               2 * (ranks - 1) / ranks * t.numel() * t.element_size(), ranks, "data").wait()
     SYNC_BN_STATS["all_reduces"] += 1
     return t
 
@@ -336,12 +341,12 @@ class SyncBnAct(torch.autograd.Function):
     def forward(ctx, x2, scale, bias, eps, act, group, ranks):
         xf = x2.float()
         n = x2.shape[0] * ranks
-        sums = _all_reduce(torch.stack([xf.sum(0), xf.square().sum(0)], dim=-1), group)
+        sums = _all_reduce(torch.stack([xf.sum(0), xf.square().sum(0)], dim=-1), group, ranks)
         stats = sums / n
         mi = fused_conv.epilogue_rows(stats, scale, bias, eps)
         y = fused_conv.bn_normalize_plain(x2, mi, act=act)
         ctx.save_for_backward(x2, scale, bias, mi[0], mi[1])
-        ctx.act, ctx.group, ctx.n = act, group, n
+        ctx.act, ctx.group, ctx.n, ctx.ranks = act, group, n, ranks
         ctx.mark_non_differentiable(stats)
         return y, stats
 
@@ -353,7 +358,7 @@ class SyncBnAct(torch.autograd.Function):
         if ctx.act:
             dyf = torch.where(xhat * scale + bias > 0, dyf, torch.zeros((), device=dyf.device))
         local = torch.stack([dyf.sum(0), (dyf * xhat).sum(0)], dim=-1)
-        sums = _all_reduce(local.clone(), ctx.group)
+        sums = _all_reduce(local.clone(), ctx.group, ctx.ranks)
         n = ctx.n
         dx = (scale * inv) * (dyf - sums[:, 0] / n - xhat * (sums[:, 1] / n))
         return dx.to(x2.dtype), local[:, 1], local[:, 0], None, None, None, None

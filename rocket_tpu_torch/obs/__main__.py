@@ -28,9 +28,12 @@ package render with either CLI).
   tail of the health history, and the emergency checkpoint.
 * ``prof``: a captured ``torch.profiler`` trace (a file, or the directory
   a capture wrote into) as the measured per-kernel attribution table
-  (``obs/prof.py``); ``--format json`` for the record. ``--target`` (the
-  join against the analysis' predictions) is ROADMAP Queue A 9 and
-  raises.
+  (``obs/prof.py``); ``--format json`` for the record. ``--target NAME``
+  also reconciles the trace against that calibration target's priced step
+  (``analysis/calib.py``: the join by launching op and ordinal, the error
+  per category, join coverage, RKT702/703), as the reference's ``obs prof
+  --target``; a CPU capture (the ``gpt2_sentinel`` target's) has no
+  device slices and renders the join alone.
 
 Exit codes: 0 rendered (``watch``: no violation), 1 a violation, 2 a usage
 or parse error.
@@ -430,10 +433,6 @@ def _prof(args) -> int:
         render_prof,
     )
 
-    if args.target:
-        raise NotImplementedError(
-            "obs prof --target: the join against the analysis' predicted per-op costs "
-            "(the reference's analysis calib) is not ported yet (ROADMAP Queue A 9)")
     trace_file = find_trace_file(args.path)
     if trace_file is None:
         print(f"error: no trace-event file under {args.path}", file=sys.stderr)
@@ -444,17 +443,49 @@ def _prof(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     summary = parse_trace(events, step_name=args.step_name)
-    if summary.n_slices == 0:
+    if summary.n_slices == 0 and not args.target:
         print(f"error: {trace_file} holds no device slices (kernel / gpu_memcpy / gpu_memset "
               "events)", file=sys.stderr)
         return 2
     record = prof_record(summary, top=args.top)
     record["trace_file"] = trace_file
+    calib = None
+    if args.target:
+        from rocket_tpu_torch.analysis.calib import (
+            CALIB_TARGETS,
+            priced_ops_for_target,
+            reconcile_trace,
+        )
+        from rocket_tpu_torch.obs.prof import capture_metadata
+
+        target = CALIB_TARGETS.get(args.target)
+        if target is None:
+            print(f"error: --target must be a calib target (one of: "
+                  f"{', '.join(sorted(CALIB_TARGETS))})", file=sys.stderr)
+            return 2
+        ops, priced_record = priced_ops_for_target(target)
+        # The sidecar names the machine that MEASURED; this host must not
+        # claim its own card.
+        meta = capture_metadata(trace_file)
+        calib = reconcile_trace(events, ops, priced_record, label=target.name,
+                                measured_kind=meta.get("device_kind") or meta.get("platform")
+                                or "cpu", join_floor=target.join_floor,
+                                error_ceiling=target.error_ceiling)
+        record["calib"] = calib.record
+        record["calib_findings"] = [f.render() for f in calib.findings]
     if args.format == "json":
         print(json.dumps(record, indent=1, sort_keys=True))
         return 0
     print(f"trace: {trace_file}")
-    print(render_prof(summary, record, top=args.top))
+    if summary.n_slices:
+        print(render_prof(summary, record, top=args.top))
+    if calib is not None:
+        from rocket_tpu_torch.analysis.calib import render_calib
+
+        if calib.record:
+            print(render_calib(calib.record))
+        for finding in calib.findings:
+            print(finding.render())
     return 0
 
 
@@ -500,8 +531,8 @@ def main(argv=None) -> int:
                                        "per-kernel attribution")
     prof.add_argument("path", help="trace file (*.trace.json[.gz]) or a capture directory")
     prof.add_argument("--target", default=None,
-                      help="join against an analysis target's predictions (ROADMAP Queue A 9; "
-                           "raises)")
+                      help="reconcile against this calibration target's priced step "
+                           "(python -m rocket_tpu_torch.analysis calib --list-targets)")
     prof.add_argument("--step-name", default=None, choices=("serve_tick", "ProfilerStep"),
                       help="only count steps of this annotation (default: all)")
     prof.add_argument("--top", type=int, default=15, help="rows in the per-kernel table")

@@ -28,9 +28,17 @@ Chrome trace where the reference reads XLA's).
   time no compute slice covers (0 on one card).
 * **surface**: ``python -m rocket_tpu_torch.obs prof <trace>`` renders
   the attribution table; :func:`publish_prof` lands the headline numbers
-  as ``obs/prof/*`` gauges. The join against the analysis' predictions
-  (``--target``, the reference's ``analysis calib``) is ROADMAP Queue A
-  9 and raises.
+  as ``obs/prof/*`` gauges. With ``--target`` it reconciles the trace
+  against the analysis' priced step (``analysis/calib.py``).
+* **join**: :func:`parse_op_trace` buckets the device time by the op
+  that launched it, for that reconciliation: a kernel's launch event
+  (joined by correlation id, as above) sits inside the host ranges of the
+  aten ops that issued it, and the outermost of them that the priced step
+  knows is its op; a hand kernel (:data:`KERNEL_FACTS`), launched through
+  ctypes under no aten op, is its own. The k-th such op of one name in a
+  step is ``<name>#<k>``, the priced op's name; the kernels of one op
+  (cuBLAS's split-K and its reduce) sum. A CPU trace has no device
+  slices: its outermost priced ops are measured as themselves.
 
 Categories (:func:`categorize`), first match wins:
 
@@ -84,7 +92,9 @@ __all__ = [
     "opcode_of",
     "categorize",
     "PORT_KERNELS",
+    "KERNEL_FACTS",
     "CAPTURE_META_FILE",
+    "parse_op_trace",
 ]
 
 #: The port's ``csrc`` kernel entry names -> the wrapper (``ops/``) that
@@ -114,6 +124,25 @@ PORT_KERNELS = {
     "grouped_wgmma_kernel": "grouped_gemm",
     "tgmm_kernel": "tgmm",
     "bad_scale_kernel": "badpallas",
+}
+
+#: The port's ``csrc`` kernel entry names -> the ``LaunchFact`` name its
+#: wrapper declares for that launch (``ops/*_launch``), the calibration's
+#: join key of a hand kernel. The grouped products share one wgmma kernel
+#: across three wrappers and are not named here.
+KERNEL_FACTS = {
+    "paged_split_kernel": "paged_decode", "paged_combine_kernel": "paged_decode_combine",
+    "decode_split_kernel": "decode_attention",
+    "decode_combine_kernel": "decode_attention_combine",
+    "flash_fwd_kernel": "flash_fwd", "flash_fwd_tc_kernel": "flash_fwd",
+    "flash_bwd_kernel": "flash_bwd", "flash_bwd_tc_kernel": "flash_bwd",
+    "flash_dq_kernel": "flash_dq", "flash_dq_tc_kernel": "flash_dq",
+    "qkv_fwd_kernel": "flash_qkv_fwd", "qkv_fwd_tc_kernel": "flash_qkv_fwd",
+    "qkv_bwd_kernel": "flash_qkv_bwd", "qkv_bwd_tc_kernel": "flash_qkv_bwd",
+    "fused_block_kernel": "fused_block", "fused_block_tc_kernel": "fused_block",
+    "twopass_kernel": "bn_twopass", "twopass_any_kernel": "bn_twopass_any",
+    "normalize_kernel": "bn_normalize", "normalize_any_kernel": "bn_normalize_any",
+    "tgmm_kernel": "tgmm", "bad_scale_kernel": "bad_scale",
 }
 
 #: Device-slice categories of torch's Chrome trace.
@@ -704,3 +733,136 @@ def render_prof(summary: TraceSummary, record: Optional[Mapping] = None, top: in
             lines.append(f"{op.name[:44]:<44} {op.category:<11} {op.count:>6} "
                          f"{op.total_us:>11.1f} {op.mean_us:>9.2f}")
     return "\n".join(lines)
+
+
+# -- the calibration's join ----------------------------------------------------------
+
+
+def _top_ops(ops: list, names) -> list:
+    """One thread's ``(start, end, name)`` host ranges -> the outermost of
+    them named in ``names`` (none of their enclosing ranges is), sorted."""
+    top, stack = [], []
+    for lo, hi, name in sorted(ops, key=lambda o: (o[0], -o[1])):
+        while stack and stack[-1][1] <= lo:
+            stack.pop()
+        if name in names and not any(entry[2] for entry in stack):
+            top.append((lo, hi, name))
+        stack.append((lo, hi, name in names))
+    return top
+
+
+def _enclosing(top: list, starts: list, t: float):
+    """The range of ``top`` (sorted, disjoint) holding ``t``, or None."""
+    import bisect
+
+    i = bisect.bisect_right(starts, t) - 1
+    return top[i] if i >= 0 and top[i][0] <= t < top[i][1] else None
+
+
+def parse_op_trace(events: Iterable[Mapping], op_names, step_name: Optional[str] = None
+                   ) -> TraceSummary:
+    """A trace's device time by the op that launched it (the module
+    docstring's join), per annotated step: each :class:`MeasuredOp` is one
+    op of the step named ``<op>#<k>`` (the k-th op of that name the step
+    issued, or the k-th launch of a hand kernel under its ``LaunchFact``
+    name), its ``total_us`` summed over the steps and ``count`` the steps
+    that ran it. ``op_names`` are the aten ops the priced step holds
+    (``"aten::mm"``, ...). A device slice whose launch sits under none of
+    them keeps its kernel's name and category (unjoined). Slices launched
+    outside every step are left out (``unattributed_us``). A trace with no
+    device slices (a CPU run) measures its outermost ``op_names`` ranges
+    as the slices."""
+    names = frozenset(op_names)
+    host: dict = {}          # (pid, tid) -> [(start, end, name)]
+    launches: dict = {}      # correlation id -> (pid, tid, ts)
+    device: list = []        # (correlation, name, cat, ts, dur)
+    windows: dict = {}
+    for event in events:
+        if event.get("ph") != "X":
+            continue
+        args = event.get("args") or {}
+        cat, name = str(event.get("cat", "")), str(event.get("name", ""))
+        ts, dur = float(event.get("ts", 0.0)), float(event.get("dur", 0.0))
+        if cat in DEVICE_CATS:
+            if dur > 0:
+                device.append((args.get("correlation"), name, cat, ts, dur))
+            continue
+        if cat.startswith("gpu_"):
+            continue
+        where = (event.get("pid"), event.get("tid"))
+        if cat == "cpu_op":
+            host.setdefault(where, []).append((ts, ts + dur, name))
+        if "correlation" in args:
+            launches.setdefault(args["correlation"], (where, ts))
+        match = _STEP_RE.match(name)
+        if match is not None and (step_name is None or match.group(1) == step_name):
+            window = windows.setdefault((match.group(1), int(match.group(2))), [ts, ts + dur])
+            window[0] = min(window[0], ts)
+            window[1] = max(window[1], ts + dur)
+    steps = [StepRecord(name=name, step=step, start_us=lo, end_us=hi, wall_us=hi - lo)
+             for (name, step), (lo, hi) in sorted(windows.items(), key=lambda kv: kv[0][1])]
+    tops = {where: _top_ops(ops, names) for where, ops in host.items()}
+    starts = {where: [lo for lo, _, _ in top] for where, top in tops.items()}
+
+    # (host time, instance, key name, category, device ts, dur) per slice.
+    measured: list = []
+    if device:
+        for corr, name, cat, ts, dur in device:
+            canon = canonical_op_name(name)
+            opcode = opcode_of(canon)
+            launch = launches.get(corr)
+            if launch is None:
+                continue
+            where, t = launch
+            category = categorize(name, cat)
+            if opcode in KERNEL_FACTS:
+                measured.append((t, ("launch", corr), KERNEL_FACTS[opcode], category, ts, dur))
+                continue
+            op = _enclosing(tops.get(where, []), starts.get(where, []), t)
+            if op is None:
+                measured.append((t, None, canon, category, ts, dur))
+            else:
+                measured.append((t, (where, op[0]), op[2], category, ts, dur))
+    else:
+        for where, top in tops.items():
+            for lo, hi, name in top:
+                measured.append((lo, (where, lo), name, categorize(name), lo, hi - lo))
+
+    ops: dict = {}
+    attributed = 0.0
+    total = sum(m[5] for m in measured)
+    for i, rec in enumerate(steps):
+        group = [m for m in measured if rec.start_us <= m[0] < rec.end_us]
+        if not group:
+            continue
+        intervals = [(m[4], m[4] + m[5]) for m in group]
+        rec.device_span_us = max(hi for _, hi in intervals) - min(lo for lo, _ in intervals)
+        rec.device_busy_us = _union_length(intervals)
+        comm = [(m[4], m[4] + m[5]) for m in group if m[3] == "collective"]
+        cover = [(m[4], m[4] + m[5]) for m in group if m[3] != "collective"]
+        rec.exposed_comm_us = _uncovered(comm, cover) if comm else 0.0
+        first: dict = {}     # instance -> host time of its first slice
+        for m in group:
+            if m[1] is not None:
+                first.setdefault((m[1], m[2]), m[0])
+        ordinal: dict = {}
+        key_of: dict = {}
+        for (instance, name), _t in sorted(first.items(), key=lambda kv: kv[1]):
+            k = ordinal.get(name, 0)
+            ordinal[name] = k + 1
+            key_of[(instance, name)] = f"{name}#{k}"
+        seen = set()
+        for m in group:
+            rec.categories[m[3]] = rec.categories.get(m[3], 0.0) + m[5]
+            key = key_of.get((m[1], m[2]), m[2])
+            op = ops.get(key)
+            if op is None:
+                op = ops[key] = MeasuredOp(name=key, opcode=m[2], category=m[3], module="")
+            op.total_us += m[5]
+            if key not in seen:
+                seen.add(key)
+                op.count += 1
+            attributed += m[5]
+    return TraceSummary(ops=sorted(ops.values(), key=lambda o: -o.total_us), steps=steps,
+                        modules={"": attributed}, n_slices=len(measured),
+                        unattributed_us=total - attributed)

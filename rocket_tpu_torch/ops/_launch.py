@@ -11,12 +11,20 @@ or serve step traces at full model width on the CPU; the schedule audit
 (``rocket_tpu_torch.analysis.sched_audit``) reads the facts under
 :func:`record_launches`. A meta launch is not a launch: it leaves every
 wrapper's ``launches`` count alone.
+
+Each fact also carries the work of its launch, ``flops`` and ``bytes``:
+the operations it does and the HBM bytes it moves, each input read once
+and each output written once, the quantities PERF.md's bound column is
+computed from. The schedule audit's cost model prices a hand kernel by
+them. The collectives (``parallel.collectives``, ``parallel.grad_sync``)
+record a :class:`CommFact` the same way on meta tensors.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import threading
 from dataclasses import dataclass
 from typing import Iterable, Iterator
@@ -24,8 +32,8 @@ from typing import Iterable, Iterator
 import torch
 
 __all__ = [
-    "DTYPE_CODES", "LaunchFact", "check_cuda_operands", "dtype_name", "query_launch",
-    "record", "record_launches", "sm_count", "stream_of", "tile",
+    "DTYPE_CODES", "CommFact", "LaunchFact", "check_cuda_operands", "dtype_name", "itemsize",
+    "query_launch", "record", "record_launches", "sm_count", "stream_of", "tile", "with_work",
 ]
 
 #: Operand dtypes the kernels are compiled for, and their code in the C ABI.
@@ -35,6 +43,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def dtype_name(dtype: torch.dtype) -> str:
     """``torch.bfloat16`` -> ``"bfloat16"``."""
     return str(dtype).removeprefix("torch.")
+
+
+def itemsize(dtype: torch.dtype) -> int:
+    """Bytes of one element of ``dtype``."""
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def tile(rows: int, cols: int, dtype: torch.dtype, full_rows: int, full_cols: int) -> tuple:
@@ -49,7 +62,10 @@ class LaunchFact:
     """What one kernel launch asks of the card: its grid (3 ints), threads
     per CTA, dynamic and static shared memory per CTA in bytes, and
     ``tiles``, a tuple of :func:`tile` entries for every operand tile a CTA
-    stages in shared memory or streams through its loops."""
+    stages in shared memory or streams through its loops; ``flops`` and
+    ``bytes``, the launch's work (module docstring), and ``flop_dtype``, the
+    dtype whose peak rate its operations run at (``"bfloat16"`` on the
+    tensor cores, ``"float32"`` on the CUDA cores)."""
 
     name: str
     grid: tuple
@@ -57,6 +73,9 @@ class LaunchFact:
     dynamic_smem: int
     static_smem: int
     tiles: tuple = ()
+    flops: float = 0.0
+    bytes: int = 0
+    flop_dtype: str = "float32"
 
     @property
     def smem_bytes(self) -> int:
@@ -67,6 +86,32 @@ class LaunchFact:
         """``(grid, threads, dynamic_smem, static_smem)``: what a library's
         launch-info query reports for the same launch."""
         return (tuple(self.grid), self.threads, self.dynamic_smem, self.static_smem)
+
+
+def with_work(fact: LaunchFact, nbytes: float, flops: float, dtype: torch.dtype) -> LaunchFact:
+    """``fact`` with its work: ``nbytes`` moved, ``flops`` done at the rate
+    of ``dtype``."""
+    return dataclasses.replace(fact, flops=float(flops), bytes=int(nbytes),
+                               flop_dtype=dtype_name(dtype))
+
+
+@dataclass(frozen=True)
+class CommFact:
+    """One collective a rank would issue: ``kind`` (``"all_gather"``,
+    ``"all_to_all"``, ``"all_reduce"`` or ``"send_recv"``), ``bytes``, what
+    the rank sends over its links (a
+    ring all-reduce 2 (n - 1) / n of its payload, an all-gather (n - 1)
+    shards, an all-to-all (n - 1) / n of its buffer, a hop its payload),
+    ``group``, the ranks taking part, and ``axis``, the mesh axis (or
+    plane, or path) it runs over. ``overlapped`` marks a collective whose
+    wait comes later than its issue (a ring hop, a gradient bucket): the
+    next op need not wait on it."""
+
+    kind: str
+    bytes: int
+    group: int
+    axis: str = ""
+    overlapped: bool = False
 
 
 _recorders = threading.local()
@@ -80,10 +125,11 @@ def _stack() -> list:
 
 
 @contextlib.contextmanager
-def record_launches() -> Iterator[list]:
-    """Collect the :class:`LaunchFact` of every meta launch made inside the
-    block (on this thread) into the yielded list, in launch order."""
-    facts: list = []
+def record_launches(sink=None) -> Iterator[list]:
+    """Collect the :class:`LaunchFact` of every meta launch (and the
+    :class:`CommFact` of every meta collective) made inside the block into
+    the yielded list (or ``sink``), in launch order, on this thread."""
+    facts: list = [] if sink is None else sink
     stack = _stack()
     stack.append(facts)
     try:
@@ -92,12 +138,19 @@ def record_launches() -> Iterator[list]:
         stack.pop()
 
 
-def record(facts: Iterable[LaunchFact]) -> None:
-    """A wrapper's meta route: hand the facts of the launches it would make
-    to every open :func:`record_launches` block."""
+def record(facts: Iterable, inputs: tuple = (), outputs: tuple = ()) -> None:
+    """A wrapper's (or a collective's) meta route: hand the facts of the
+    launches it would make to every open :func:`record_launches` block.
+    ``inputs`` and ``outputs``, the meta tensors the launches read and
+    write, go to a sink that tracks dataflow (one with a ``note`` method:
+    the schedule audit's tracer)."""
     facts = tuple(facts)
     for sink in _stack():
-        sink.extend(facts)
+        note = getattr(sink, "note", None)
+        if note is not None:
+            note(facts, tuple(inputs), tuple(outputs))
+        else:
+            sink.extend(facts)
 
 
 def check_cuda_operands(what: str, **tensors: torch.Tensor) -> None:

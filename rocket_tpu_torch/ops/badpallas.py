@@ -32,10 +32,12 @@ from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops._launch import (
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = ["THREADS", "bad_scale", "bad_scale_plain", "bad_scale_launch", "written_blocks",
@@ -83,7 +85,11 @@ def bad_scale_launch(shape, block, grid) -> LaunchFact:
     (br, bc), (gr, gc) = _block2(block), _grid2(grid)
     rows, cols = shape
     blk = tile(br, bc, torch.float32, rows, cols)
-    return LaunchFact("bad_scale", (gr, gc, 1), THREADS, 4 * br * bc, 0, (blk, blk))
+    fact = LaunchFact("bad_scale", (gr, gc, 1), THREADS, 4 * br * bc, 0, (blk, blk))
+    # Work: the elements its grid covers, each read and written once (4
+    # bytes each way) and multiplied once.
+    covered = min(gr * br, rows) * min(gc * bc, cols)
+    return with_work(fact, 8 * covered, covered, torch.float32)
 
 
 def _lib():
@@ -121,7 +127,7 @@ def bad_scale(x: torch.Tensor, block, grid=()) -> torch.Tensor:
     fact = bad_scale_launch(tuple(x.shape), block, grid)
     y = torch.empty_like(x)
     if x.device.type == "meta":
-        record([fact])
+        record([fact], (x,), (y,))
         return y
     (br, bc), (gr, gc) = _block2(block), _grid2(grid)
     lib = _lib()

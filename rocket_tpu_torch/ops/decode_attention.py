@@ -23,10 +23,12 @@ from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_attention_supported",
@@ -61,7 +63,19 @@ def _split_smem_bytes(g: int, d: int, dtype) -> int:
     return 2 * CHUNK * (d * item + _ROW_PAD) + 4 * (g * d + g * CHUNK + THREADS + 2 * g)
 
 
-def decode_attention_launches(b: int, hq: int, h_kv: int, t_max: int, d: int, dtype) -> tuple:
+def decode_attention_work(b: int, hq: int, h_kv: int, d: int, dtype, pos: int) -> tuple:
+    """``(split, combine)`` ``(bytes, flops)`` of one decode step at
+    position ``pos`` as a function: cache rows [0, pos) of K and V read,
+    q, k_new and v_new read and the written K/V row once each; 4*D flops
+    per visible row and query head. The split carries those, the combine
+    the output's write (the workspace records are the kernels' design)."""
+    item = itemsize(dtype)
+    split = 2 * b * h_kv * pos * d * item + b * hq * d * item + 4 * b * h_kv * d * item
+    return (split, 4.0 * b * hq * d * (pos + 1)), (b * hq * d * item, 0.0)
+
+
+def decode_attention_launches(b: int, hq: int, h_kv: int, t_max: int, d: int, dtype,
+                              pos: int = -1) -> tuple:
     """The two launches of :func:`decode_attention`. Split: CTA (row, kv
     head, split) stages the g query rows of its kv head (the whole (g, D)
     group) and the chunk's :data:`CHUNK` K and V rows out of its (T, D)
@@ -76,11 +90,13 @@ def decode_attention_launches(b: int, hq: int, h_kv: int, t_max: int, d: int, dt
     written = tile(1, d, dtype, t_max, d)
     record_f = g * (d + 2)
     rec = tile(1, record_f, torch.float32, b * h_kv * n_split, record_f)
+    split, combine = decode_attention_work(b, hq, h_kv, d, dtype, t_max - 1 if pos < 0 else pos)
     return (
-        LaunchFact("decode_attention", (b, h_kv, n_split), THREADS,
-                   _split_smem_bytes(g, d, dtype), 0,
-                   (group, kv, kv, new, new, written, written, rec)),
-        LaunchFact("decode_attention_combine", (b, h_kv, 1), THREADS, 0, 0, (rec, group)),
+        with_work(LaunchFact("decode_attention", (b, h_kv, n_split), THREADS,
+                             _split_smem_bytes(g, d, dtype), 0,
+                             (group, kv, kv, new, new, written, written, rec)), *split, dtype),
+        with_work(LaunchFact("decode_attention_combine", (b, h_kv, 1), THREADS, 0, 0,
+                             (rec, group)), *combine, dtype),
     )
 
 
@@ -194,7 +210,9 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos: int):
         raise ValueError(f"decode_attention: head dim {d} must be a multiple of 8 and <= 256")
     out = torch.empty_like(q)
     if q.device.type == "meta":
-        record(decode_attention_launches(b, hq, h_kv, t_max, d, q.dtype))
+        record(decode_attention_launches(b, hq, h_kv, t_max, d, q.dtype,
+                                         pos if isinstance(pos, int) else -1),
+               (q, k_new, v_new, k_cache, v_cache), (out, k_cache, v_cache))
         return out, k_cache, v_cache
     if any(t.data_ptr() % 16 for t in (k_new, v_new, k_cache, v_cache)):
         raise ValueError("decode_attention: k_new, v_new and the caches must be 16-byte "

@@ -65,10 +65,12 @@ from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     stream_of,
     tile,
+    with_work,
 )
 from rocket_tpu_torch.ops.flash_native import flash_supported, kernel_dim
 
@@ -166,14 +168,33 @@ def smem_bytes(kind: str, block_q: int, block_k: int, d: int, dtype) -> int:
     return 4 * (2 * (block_q + block_k) * (d + 1) + block_k * (block_q + 1) + 2 * block_q)
 
 
+def qkv_work(kind: str, b: int, h: int, t: int, d: int, dtype, causal: bool,
+             block_k: int) -> tuple:
+    """``(bytes, flops)`` of rows 6-7 as the kernels define them: the
+    forward reads the stacked qkv and writes out and lse, 2 products per
+    visible (query, key) pair; the backward reads qkv, dout, lse and delta
+    and writes its dq partials (one (B, H, T, D) copy per ``block_k`` key
+    rows in the operand dtype, the reference's output), dk and dv, 5
+    products per visible pair; 2*D flops a pair and product."""
+    item = itemsize(dtype)
+    act = b * h * t * d * item
+    stats = b * h * t * 4
+    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
+    if kind == "fwd":
+        return 4 * act + stats, 4 * d * pairs
+    partials = (t // block_k) * act
+    return 4 * act + 2 * stats + partials + 2 * act, 10 * d * pairs
+
+
 def qkv_launch(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
-               block_k: int) -> LaunchFact:
+               block_k: int, causal: bool = True) -> LaunchFact:
     """The launch of the ``"fwd"`` or ``"bwd"`` kernel on the stacked (3, B,
     H, T, D) operand: one CTA per (q tile forward, k tile backward; head;
     batch row) of :func:`threads` threads, every tile a run of rows of one
     (T, D) head plane, lse and delta runs of a (B*H, T) f32 plane (the bf16
     backward streams queries, lse and delta in 64-row steps whatever
-    ``block_q`` is); the dynamic shared memory is :func:`smem_bytes`."""
+    ``block_q`` is); the dynamic shared memory is :func:`smem_bytes`. Its
+    work is :func:`qkv_work`'s."""
     q_t, k_t = tile(block_q, d, dtype, t, d), tile(block_k, d, dtype, t, d)
     stat = tile(1, block_q, torch.float32, b * h, t)
     if kind == "fwd":
@@ -182,8 +203,9 @@ def qkv_launch(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
         if _tensor_cores(kind, dtype):
             q_t, stat = tile(_STEP, d, dtype, t, d), tile(1, _STEP, torch.float32, b * h, t)
         grid, tiles = t // block_k, (k_t, k_t, q_t, q_t, stat, stat, q_t, k_t, k_t)
-    return LaunchFact(f"flash_qkv_{kind}", (grid, h, b), threads(kind, block_q, dtype, block_k),
+    fact = LaunchFact(f"flash_qkv_{kind}", (grid, h, b), threads(kind, block_q, dtype, block_k),
                       smem_bytes(kind, block_q, block_k, d, dtype), 0, tiles)
+    return with_work(fact, *qkv_work(kind, b, h, t, d, dtype, causal, block_k), dtype)
 
 
 def _check_causal_blocks(block_q: int, block_k: int, causal: bool, where: str) -> None:
@@ -361,7 +383,8 @@ def _fwd_launch(qkv, causal, block_q, block_k, true_d):
     out = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, 1, t), dtype=torch.float32, device=qkv.device)
     if qkv.device.type == "meta":
-        record([qkv_launch("fwd", b, h, t, d, qkv.dtype, block_q, block_k)])
+        record([qkv_launch("fwd", b, h, t, d, qkv.dtype, block_q, block_k, causal)],
+               (qkv,), (out, lse))
         return out, lse
     err = _lib().rkt_flash_qkv_fwd(
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t, d, block_q, block_k,
@@ -401,7 +424,8 @@ def _bwd_launch(qkv, dout, lse, delta, causal, block_q, block_k, true_d):
     dk = torch.empty((b, h, t, d), dtype=qkv.dtype, device=qkv.device)
     dv = torch.empty_like(dk)
     if qkv.device.type == "meta":
-        record([qkv_launch("bwd", b, h, t, d, qkv.dtype, block_q, block_k)])
+        record([qkv_launch("bwd", b, h, t, d, qkv.dtype, block_q, block_k, causal)],
+               (qkv, dout, lse, delta), (dqp, dk, dv))
         return dqp, dk, dv
     err = _lib().rkt_flash_qkv_bwd(
         qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqp.data_ptr(),

@@ -68,10 +68,12 @@ from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = [
@@ -326,15 +328,41 @@ def _smem_bytes(kind: str, d: int, dtype) -> int:
     return 4 * (tiles * TILE * (d + 1) + scores * TILE * (TILE + 1) + stats * TILE)
 
 
+def flash_work(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype, causal: bool,
+               with_dq: bool = True) -> tuple:
+    """``(bytes, flops)`` of ``kind`` as a function: each input read once
+    and each output written once — the forward reads q, k, v and writes out
+    and lse; the backward reads q, k, v, dout, lse and delta and writes dq
+    (``with_dq``), dk and dv; the dq pass reads the same and writes dq — and
+    2*D flops per visible (query, key) pair and product: 2 products
+    forward, 5 in the fused backward (s, dp, dv, dk, dq), 4 without dq, 3 in
+    the dq pass. The f32 dq partials are the kernel's design, not the
+    function's, so they are left out."""
+    item = itemsize(dtype)
+    qkv = b * t * (h + 2 * h_kv) * d * item
+    act = b * t * h * d * item                   # out, dout or dq
+    stats = b * h * t * 4                        # lse or delta (f32)
+    pairs = b * h * (t * (t + 1) / 2 if causal else t * t)
+    dkv = 2 * b * t * h_kv * d * item
+    if kind == "flash_fwd":
+        return qkv + act + stats, 4 * d * pairs
+    if kind == "flash_bwd" and with_dq:
+        return qkv + 2 * act + 2 * stats + dkv, 10 * d * pairs
+    if kind == "flash_bwd":
+        return qkv + act + 2 * stats + dkv, 8 * d * pairs
+    return qkv + 2 * act + 2 * stats, 6 * d * pairs
+
+
 def flash_launch(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype, fq: int,
-                 fk: int, with_dq: bool = True) -> LaunchFact:
+                 fk: int, with_dq: bool = True, causal: bool = True) -> LaunchFact:
     """The launch of ``kind`` ("flash_fwd", "flash_bwd" or "flash_dq") on
     (B, T, F) operands of feature widths ``fq`` (q) and ``fk`` (k, v). A CTA
     owns one TILE-row tile (query rows; key rows for the backward) of one
     head of one batch row: it stages its own tile of each operand it owns
     and streams TILE-row tiles of the others, every tile the D-wide head
     slice of a (T, F) plane; lse and delta are TILE-long rows of a (B*H, T)
-    f32 plane."""
+    f32 plane. Its work is :func:`flash_work`'s (a launch on heads padded
+    to a compiled D does the padded work)."""
     f32 = torch.float32
     heads = h_kv if kind == "flash_bwd" else h
     q_t, kv_t = tile(TILE, d, dtype, t, fq), tile(TILE, d, dtype, t, fk)
@@ -349,8 +377,10 @@ def flash_launch(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype, fq
             tiles += (tile(TILE, d, f32, t, h * d),)
     else:
         tiles = (q_t, o_t, kv_t, kv_t, stat, stat, o_t)
-    return LaunchFact(kind, (_num_tiles(t), heads, b), THREADS, _smem_bytes(kind, d, dtype), 0,
+    fact = LaunchFact(kind, (_num_tiles(t), heads, b), THREADS, _smem_bytes(kind, d, dtype), 0,
                       tiles)
+    return with_work(fact, *flash_work(kind, b, t, h, h_kv, d, dtype, causal, with_dq),
+                     dtype)
 
 
 def launch_info(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype) -> tuple:
@@ -431,7 +461,8 @@ def _fwd_launch(q_arr, k_arr, v_arr, h, h_kv, d, offsets, causal, true_d):
     out = torch.empty((b, t, h * d), dtype=q_arr.dtype, device=q_arr.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q_arr.device)
     if q_arr.device.type == "meta":
-        record([flash_launch("flash_fwd", b, t, h, h_kv, d, q_arr.dtype, fq, k_arr.shape[2])])
+        record([flash_launch("flash_fwd", b, t, h, h_kv, d, q_arr.dtype, fq, k_arr.shape[2],
+                             causal=causal)], (q_arr, k_arr, v_arr), (out, lse))
         return out, lse
     err = _fn("flash_fwd")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -485,7 +516,8 @@ def _bwd_launch(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, caus
     dv = torch.empty_like(dk)
     if dev.type == "meta":
         record([flash_launch("flash_bwd", b, t, h, h_kv, d, q_arr.dtype, q_arr.shape[2],
-                             k_arr.shape[2], with_dq)])
+                             k_arr.shape[2], with_dq, causal=causal)],
+               (q_arr, k_arr, v_arr, dout, lse, delta), (dqp, dk, dv))
         return dqp, dk, dv
     err = _fn("flash_bwd")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -529,7 +561,8 @@ def _dq_launch(q_arr, k_arr, v_arr, dout, lse, delta, h, h_kv, d, offsets, causa
     dq = torch.empty((b, t, h * d), dtype=q_arr.dtype, device=q_arr.device)
     if q_arr.device.type == "meta":
         record([flash_launch("flash_dq", b, t, h, h_kv, d, q_arr.dtype, q_arr.shape[2],
-                             k_arr.shape[2])])
+                             k_arr.shape[2], causal=causal)],
+               (q_arr, k_arr, v_arr, dout, lse, delta), (dq,))
         return dq
     err = _fn("flash_dq")(
         q_arr.data_ptr(), k_arr.data_ptr(), v_arr.data_ptr(), dout.data_ptr(), lse.data_ptr(),

@@ -50,10 +50,12 @@ from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = [
@@ -164,6 +166,21 @@ def _out_cols(d: int, dtype) -> tuple:
     return (TC_OUT_COLS,) * (d // TC_OUT_COLS) + (HEAD_DIM,) * (d % TC_OUT_COLS // HEAD_DIM)
 
 
+def fused_block_work(b: int, t: int, d: int, num_heads: int, dtype,
+                     epilogue: str = "fused") -> tuple:
+    """``(bytes, flops)`` of the fused block as a function: x read and the
+    output written once, the weights it uses read once (the LayerNorm's in
+    f32); 2 flops per multiply-add of the QKV projection, the causal QK^T
+    and PV products and, fused, the output projection."""
+    item = itemsize(dtype)
+    weights = (d * 3 * d + 3 * d) * item + 2 * d * 4
+    flops = 2 * b * t * d * 3 * d + 2 * 2 * HEAD_DIM * num_heads * b * t * (t + 1) / 2
+    if epilogue == "fused":
+        weights += (d * d + d) * item
+        flops += 2 * b * t * d * d
+    return 2 * b * t * d * item + weights, flops
+
+
 def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
                        epilogue: str = "fused") -> LaunchFact:
     """The launch of :func:`fused_block`: one CTA per (head, batch row). It
@@ -184,8 +201,8 @@ def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
         for n in sorted(set(_out_cols(d, dtype)), reverse=True):
             tiles += (tile(CHUNK, n, dtype, hw, d), tile(1, n, dtype, 1, d),
                       tile(ROW_TILE, n, dtype, t, d))
-    return LaunchFact("fused_block", (num_heads, b, 1), THREADS, _smem_bytes(t, dtype), 0,
-                      tiles)
+    fact = LaunchFact("fused_block", (num_heads, b, 1), THREADS, _smem_bytes(t, dtype), 0, tiles)
+    return with_work(fact, *fused_block_work(b, t, d, num_heads, dtype, epilogue), dtype)
 
 
 def launch_info(b: int, t: int, num_heads: int, epilogue: str, dtype) -> tuple:
@@ -262,7 +279,8 @@ def fused_block(x, ln, wqkv, bqkv, wproj, bproj, *, num_heads: int, eps: float =
     heads = torch.empty((b, t, hw), dtype=x.dtype, device=x.device)
     out = torch.empty((b, t, d), dtype=x.dtype, device=x.device) if fused else heads
     if x.device.type == "meta":
-        record([fused_block_launch(b, t, d, num_heads, x.dtype, epilogue)])
+        record([fused_block_launch(b, t, d, num_heads, x.dtype, epilogue)],
+               (x, ln, wqkv, bqkv, wproj, bproj), (out,))
         return out
     err = _lib()(
         x.data_ptr(), ln.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),

@@ -52,11 +52,13 @@ from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops._launch import (
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     sm_count,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = [
@@ -249,9 +251,29 @@ def _stream(rows: int, cols: int, dtype, n: int, c: int) -> tuple:
     return tile(rows, cols, dtype, n, c)
 
 
+def bn_work(kind: str, n: int, width: int, dtype) -> tuple:
+    """``(bytes, flops)`` of one launch over ``width`` channels of N rows:
+    x read once and y written once, plus scale/bias and stats
+    (``"twopass"``) or the (4, C) rows (``"normalize"``), all bytes; 3
+    flops per element for the moments (add, multiply, add), 3 for the
+    epilogue (subtract, multiply, add) and 1 for the relu, at the f32 rate
+    (the arithmetic is f32 for either operand type)."""
+    xy = 2 * n * width * itemsize(dtype)
+    if kind == "normalize":
+        return xy + 4 * width * 4, 4.0 * n * width
+    return xy + 2 * width * 4 + 2 * width * 4, 7.0 * n * width
+
+
 def _launch_fact(kind: str, n: int, c: int, width: int, vec: bool, dtype, grid: int,
                  norm_grid: int, sms: int) -> LaunchFact:
-    """One launch over ``width`` channels of an (N, C) activation."""
+    """One launch over ``width`` channels of an (N, C) activation, with its
+    work (:func:`bn_work`)."""
+    return with_work(_launch_geometry(kind, n, c, width, vec, dtype, grid, norm_grid, sms),
+                     *bn_work(kind, n, width, dtype), torch.float32)
+
+
+def _launch_geometry(kind: str, n: int, c: int, width: int, vec: bool, dtype, grid: int,
+                     norm_grid: int, sms: int) -> LaunchFact:
     f32 = torch.float32
     mi_rows = tile(4, width, f32, 4, width)
     if not vec:  # the any form: one element a load, a row's elements across the lanes
@@ -381,8 +403,8 @@ def bn_twopass(x2, sc, *, eps: float, act: bool):
     stats = torch.empty((c, 2), dtype=torch.float32, device=x2.device)
     sms = sm_count(x2, "fused_conv")
     if x2.device.type == "meta":
-        record(fact for _, fact in bn_chunk_launches("twopass", n, c, x2.dtype, sms,
-                                                     _address(x2)))
+        record([fact for _, fact in bn_chunk_launches("twopass", n, c, x2.dtype, sms,
+                                                      _address(x2))], (x2, sc), (y, stats))
         return y, stats
     item, grid = x2.element_size(), _twopass_ctas(n)
     width0 = min(c, MAX_C)
@@ -417,8 +439,9 @@ def bn_normalize(x2, mi, *, act: bool):
         raise ValueError(f"bn_normalize: mi must be (4, {c}), got {tuple(mi.shape)}")
     y = torch.empty_like(x2)
     if x2.device.type == "meta":
-        record(fact for _, fact in bn_chunk_launches("normalize", n, c, x2.dtype,
-                                                     sm_count(x2, "fused_conv"), _address(x2)))
+        record([fact for _, fact in bn_chunk_launches("normalize", n, c, x2.dtype,
+                                                      sm_count(x2, "fused_conv"), _address(x2))],
+               (x2, mi), (y,))
         return y
     item = x2.element_size()
     for first, width in chunks(c):

@@ -43,11 +43,13 @@ from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
+    itemsize,
     query_launch,
     record,
     sm_count,
     stream_of,
     tile,
+    with_work,
 )
 from rocket_tpu_torch.ops.grouped_matmul import (
     BLOCK_M,
@@ -55,6 +57,7 @@ from rocket_tpu_torch.ops.grouped_matmul import (
     check_grouped,
     gmm,
     gmm_launch,
+    gmm_work,
     tgmm,
     wgmma_launch,
 )
@@ -149,19 +152,22 @@ def gather_gmm_reference(x, rhs, row_ids, group_sizes, tile_m: int):
 
 
 def gather_gmm_launch(m: int, k: int, n: int, e: int, dtype, src_rows: int,
-                      sms: int) -> LaunchFact:
+                      sms: int, rows: int = -1) -> LaunchFact:
     """The launch of :func:`gather_gmm_fwd` on a card of ``sms`` SMs. bf16:
     the persistent wgmma grid it shares with gmm
     (``grouped_matmul.wgmma_launch``), the producer gathering a (BLOCK_M,
     WG_SLICE) tile of source rows through its row ids per slice and TMA
     loading four (WG_SLICE, 64) boxes of the group's rhs, and reading a
     (1, BLOCK_M) tile of row ids per work tile. f32: the grouped
-    products' CUDA-core launch (``grouped_matmul.gmm_launch``)."""
+    products' CUDA-core launch (``grouped_matmul.gmm_launch``). Its work is
+    ``grouped_matmul.gmm_work``'s over ``rows`` grouped rows."""
     if dtype != torch.bfloat16:
-        return gmm_launch(m, k, n, e, dtype, name="gather_gmm", src_rows=src_rows)
-    return wgmma_launch("gather_gmm", m, k, n, e, sms, tile(BLOCK_M, WG_SLICE, dtype, src_rows, k),
+        return gmm_launch(m, k, n, e, dtype, name="gather_gmm", src_rows=src_rows, rows=rows)
+    fact = wgmma_launch("gather_gmm", m, k, n, e, sms,
+                        tile(BLOCK_M, WG_SLICE, dtype, src_rows, k),
                         tile(WG_SLICE, 64, dtype, k, n),
                         extra_tiles=(tile(1, BLOCK_M, torch.int32, 1, m),))
+    return with_work(fact, *gmm_work("gather_gmm", m, k, n, e, dtype, rows, src_rows), dtype)
 
 
 def _lib():
@@ -214,7 +220,8 @@ def gather_gmm_fwd(x, rhs, row_ids, group_sizes, tile_m: int):
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if x.device.type == "meta":
         record([gather_gmm_launch(m, k, n_out, e, x.dtype, x.shape[0],
-                                  sm_count(x, "gather_gmm"))])
+                                  sm_count(x, "gather_gmm"))], (x, rhs, row_ids, group_sizes),
+               (out,))
         return out
     if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or rhs.data_ptr() % 16):
         raise ValueError("gather_gmm: bf16 x and rhs must be 16-byte aligned (the kernel copies "

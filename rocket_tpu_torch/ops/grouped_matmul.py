@@ -41,11 +41,13 @@ from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     sm_count,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = [
@@ -111,6 +113,24 @@ def _static_smem(kind: str, transpose: bool = False) -> int:
     return tiles + 8 * (BLOCK_M + (BLOCK_N if transpose else SLICE))
 
 
+def gmm_work(kind: str, m: int, k: int, n: int, e: int, dtype, rows: int = -1,
+             src_rows: int = 0) -> tuple:
+    """``(bytes, flops)`` of one grouped product as a function: its inputs
+    read once and its output written once (the int32 group sizes, and for
+    the gather-GMM the row ids and the ``src_rows`` unsorted token rows),
+    and 2*K*N flops per row that lies in a group (``rows``; default all M:
+    the most a meta launch, which sees no group sizes, can count)."""
+    item = itemsize(dtype)
+    rows = m if rows < 0 else rows
+    if kind == "gather_gmm":
+        nbytes = src_rows * k * item + m * 4 + e * k * n * item + m * n * item
+    elif kind == "gmm":
+        nbytes = m * k * item + e * k * n * item + m * n * item
+    else:  # tgmm: lhs (m, k), dy (m, n) -> (e, k, n)
+        nbytes = m * k * item + m * n * item + e * k * n * item
+    return nbytes + e * 4, 2.0 * rows * k * n
+
+
 def wgmma_launch(name: str, m: int, k: int, n: int, e: int, sms: int, a_tile, b_tile,
                  block_n: int = WG_BLOCK_N, extra_tiles: tuple = (),
                  tgmm: bool = False) -> LaunchFact:
@@ -131,7 +151,16 @@ def wgmma_launch(name: str, m: int, k: int, n: int, e: int, sms: int, a_tile, b_
 
 
 def gmm_launch(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = False,
-               name: str = "gmm", src_rows: int = 0, sms: int = 0) -> LaunchFact:
+               name: str = "gmm", src_rows: int = 0, sms: int = 0,
+               rows: int = -1) -> LaunchFact:
+    """The launch of :func:`gmm` with its work (:func:`gmm_work` over
+    ``rows`` grouped rows); :func:`_gmm_geometry` describes it."""
+    fact = _gmm_geometry(m, k, n, e, dtype, transpose_rhs, name, src_rows, sms)
+    return with_work(fact, *gmm_work(name, m, k, n, e, dtype, rows, src_rows), dtype)
+
+
+def _gmm_geometry(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = False,
+                  name: str = "gmm", src_rows: int = 0, sms: int = 0) -> LaunchFact:
     """The launch of :func:`gmm` (or, in f32 with ``name="gather_gmm"`` and
     the source's ``src_rows``, of the gather-GMM). bf16: the persistent
     wgmma grid (:func:`wgmma_launch`) on a card of ``sms`` SMs, the
@@ -159,7 +188,15 @@ def gmm_launch(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = Fals
     return LaunchFact(name, grid, THREADS, 0, _static_smem("gmm", transpose_rhs), tiles)
 
 
-def tgmm_launch(m: int, k: int, n: int, e: int, dtype, sms: int = 0) -> LaunchFact:
+def tgmm_launch(m: int, k: int, n: int, e: int, dtype, sms: int = 0,
+                rows: int = -1) -> LaunchFact:
+    """The launch of :func:`tgmm` with its work (:func:`gmm_work` over
+    ``rows`` grouped rows); :func:`_tgmm_geometry` describes it."""
+    return with_work(_tgmm_geometry(m, k, n, e, dtype, sms),
+                     *gmm_work("tgmm", m, k, n, e, dtype, rows), dtype)
+
+
+def _tgmm_geometry(m: int, k: int, n: int, e: int, dtype, sms: int = 0) -> LaunchFact:
     """The launch of :func:`tgmm`. bf16: the persistent wgmma grid
     (:func:`wgmma_launch`) on a card of ``sms`` SMs over (BLOCK_M rows of K,
     :func:`tgmm_block_n` columns, group) slots; per WG_SLICE-row slice of
@@ -334,7 +371,8 @@ def gmm(lhs, rhs, group_sizes, transpose_rhs: bool = False):
         return out
     if lhs.device.type == "meta":
         sms = sm_count(lhs, "gmm") if lhs.dtype == torch.bfloat16 else 0
-        record([gmm_launch(m, k, n, e, lhs.dtype, transpose_rhs, sms=sms)])
+        record([gmm_launch(m, k, n, e, lhs.dtype, transpose_rhs, sms=sms)],
+               (lhs, rhs, group_sizes), (out,))
         return out
     err = _lib().rkt_gmm(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
                          m, k, n, e, int(transpose_rhs), DTYPE_CODES[lhs.dtype], stream_of(lhs))
@@ -365,7 +403,7 @@ def tgmm(lhs, dy, group_sizes):
     out = torch.empty((e, k, n), dtype=lhs.dtype, device=lhs.device)
     if lhs.device.type == "meta":
         sms = sm_count(lhs, "tgmm") if lhs.dtype == torch.bfloat16 else 0
-        record([tgmm_launch(m, k, n, e, lhs.dtype, sms)])
+        record([tgmm_launch(m, k, n, e, lhs.dtype, sms)], (lhs, dy, group_sizes), (out,))
         return out
     err = _lib().rkt_tgmm(lhs.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
                           m, k, n, e, DTYPE_CODES[lhs.dtype], stream_of(lhs))

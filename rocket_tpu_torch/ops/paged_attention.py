@@ -39,10 +39,12 @@ from rocket_tpu_torch.ops._launch import (
     DTYPE_CODES,
     LaunchFact,
     check_cuda_operands,
+    itemsize,
     query_launch,
     record,
     stream_of,
     tile,
+    with_work,
 )
 
 __all__ = [
@@ -169,8 +171,26 @@ def _split_smem_bytes(g: int, d: int, dtype) -> int:
         + 4 * (CHUNK + 4)
 
 
+def paged_decode_work(s: int, hq: int, h_kv: int, d: int, bl: int, mb: int, dtype,
+                      live_rows: int = -1, live_pages: int = -1) -> tuple:
+    """``(split, combine)`` ``(bytes, flops)`` of one decode wave as a
+    function: the live K and V rows read once, q read and out written once,
+    the live table entries and the positions; 4*D flops per live row and
+    query head. ``live_rows`` (the slots' positions + 1, summed) and
+    ``live_pages`` (their pages) default to every row of every slot's
+    ``mb`` pages: the most a meta launch, which sees no positions, can
+    count. The split carries the reads and the operations, the combine the
+    output's write (the workspace records are the kernels' design, not the
+    function's)."""
+    item = itemsize(dtype)
+    live_rows = s * mb * bl if live_rows < 0 else live_rows
+    live_pages = s * mb if live_pages < 0 else live_pages
+    split = 2 * live_rows * h_kv * d * item + s * hq * d * item + 4 * live_pages + 4 * s
+    return (split, 4.0 * live_rows * hq * d), (s * hq * d * item, 0.0)
+
+
 def paged_decode_launches(s: int, hq: int, h_kv: int, d: int, nb: int, bl: int, mb: int,
-                          dtype) -> tuple:
+                          dtype, live_rows: int = -1, live_pages: int = -1) -> tuple:
     """The two launches of :func:`paged_decode`. Split: CTA (slot, kv head,
     split) reads its slot's block-table row, stages the g query rows of its
     kv head (the whole (g, D) group) and the chunk's :data:`CHUNK` K and V
@@ -183,10 +203,13 @@ def paged_decode_launches(s: int, hq: int, h_kv: int, d: int, nb: int, bl: int, 
     record_f = g * (d + 2)
     rec = tile(1, record_f, torch.float32, s * h_kv * n_split, record_f)
     table_row = tile(1, mb, torch.int32, s, mb)
+    split, combine = paged_decode_work(s, hq, h_kv, d, bl, mb, dtype, live_rows, live_pages)
     return (
-        LaunchFact("paged_decode", (s, h_kv, n_split), THREADS, _split_smem_bytes(g, d, dtype),
-                   0, (group, kv, kv, table_row, rec)),
-        LaunchFact("paged_decode_combine", (s, h_kv, 1), THREADS, 0, 0, (rec, group)),
+        with_work(LaunchFact("paged_decode", (s, h_kv, n_split), THREADS,
+                             _split_smem_bytes(g, d, dtype), 0, (group, kv, kv, table_row, rec)),
+                  *split, dtype),
+        with_work(LaunchFact("paged_decode_combine", (s, h_kv, 1), THREADS, 0, 0, (rec, group)),
+                  *combine, dtype),
     )
 
 
@@ -255,7 +278,8 @@ def paged_decode(q, k_pages, v_pages, block_table, positions):
         raise ValueError(f"paged_decode: head dim {d} must be a multiple of 8 and <= 256")
     out = torch.empty_like(q)
     if q.device.type == "meta":
-        record(paged_decode_launches(s, hq, h_kv, d, nb, bl, mb, q.dtype))
+        record(paged_decode_launches(s, hq, h_kv, d, nb, bl, mb, q.dtype),
+               (q, k_pages, v_pages, block_table, positions), (out,))
         return out
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_decode: k_pages and v_pages must be 16-byte aligned (the "

@@ -77,6 +77,15 @@ gathered and this rank's rows of the output kept (``seq_all_gather`` /
 group's collectives (and the expert group's), the bytes a rank sends into
 them, each collective's calls by mode and the forwards that ran the
 replicated program (``replicated_layers``); :func:`reset_stats` zeroes it.
+
+On ``meta`` tensors every collective takes a meta route, as the kernel
+wrappers do (``ops/_launch.py``): :func:`collective` records a
+``CommFact`` (kind, the bytes counted into ``STATS["wire_bytes"]``, the
+group's size, the axis) where the card would issue it, needs no process
+group, and the caller's outputs stay empty meta tensors of the right
+shapes. So one rank's step of a multi-rank world traces on the CPU and the
+schedule audit prices its communication; every byte counted on the card is
+a byte priced there. A real tensor never takes the route.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 
 from rocket_tpu_torch.ops import ring as ring_lib
+from rocket_tpu_torch.ops._launch import CommFact, record
 
 __all__ = [
     "OverlapSpec", "overlap_enabled", "overlap_mode", "grad_wire_dtype", "tp_overlap",
@@ -98,7 +108,7 @@ __all__ = [
     "embed_lookup_sharded", "vocab_lookup", "seq_all_gather", "seq_shard", "gather_replicated",
     "STATS", "reset_stats", "Hop", "ExpertSpec", "expert_parallel", "current_ep", "ep_enter",
     "ep_combine", "seq_gather_sum", "DataSpec", "data_mean", "current_data", "batch_mean",
-    "gather_whole", "note_gather", "note_replicated",
+    "gather_whole", "note_gather", "note_replicated", "collective",
 ]
 
 logger = logging.getLogger(__name__)
@@ -233,14 +243,39 @@ def _note(name: str, ring: bool) -> None:
     calls["ring" if ring else "bulk"] += 1
 
 
+class _MetaWork:
+    """The handle of a collective recorded on meta tensors."""
+
+    def wait(self) -> None:
+        return None
+
+
+def collective(kind: str, issue, inputs, outputs, nbytes: float, group: int, axis: str = "",
+               overlapped: bool = False):
+    """Issue one collective: ``issue()`` (which returns its work) on real
+    tensors; on meta ``inputs`` record its ``CommFact`` instead — ``kind``,
+    ``nbytes`` (what the rank sends, ring model), ``group`` ranks over
+    ``axis``, ``overlapped`` when its wait comes later than the next op —
+    with the tensors it reads and writes, and return a handle with nothing
+    to wait for."""
+    if any(t.device.type == "meta" for t in inputs):
+        record([CommFact(kind, int(nbytes), int(group), axis, overlapped)], tuple(inputs),
+               tuple(outputs))
+        return _MetaWork()
+    return issue()
+
+
 def _wait(work) -> None:
     t0 = time.perf_counter()
     work.wait()
     STATS["wait_s"] += time.perf_counter() - t0
 
 
-def _sent(t: torch.Tensor, copies: int = 1) -> None:
-    STATS["wire_bytes"] += t.numel() * t.element_size() * copies
+def _sent(t: torch.Tensor, copies: float = 1) -> float:
+    """Count ``copies`` of ``t``'s bytes as sent; returns them."""
+    nbytes = t.numel() * t.element_size() * copies
+    STATS["wire_bytes"] += nbytes
+    return nbytes
 
 
 def _narrow(spec: OverlapSpec, t: torch.Tensor) -> torch.Tensor:
@@ -273,8 +308,10 @@ def _all_gather(spec: OverlapSpec, t: torch.Tensor, dim: int) -> torch.Tensor:
     src = _bits(t.movedim(dim, 0))
     out = torch.empty((spec.tp_size * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    _sent(src, spec.tp_size - 1)
-    _wait(_dist().all_gather_into_tensor(out, src, group=spec.group, async_op=True))
+    nbytes = _sent(src, spec.tp_size - 1)
+    _wait(collective("all_gather", lambda: _dist().all_gather_into_tensor(
+        out, src, group=spec.group, async_op=True), (src,), (out,), nbytes, spec.tp_size,
+        spec.axis))
     return _unbits(out, t.dtype).movedim(0, dim)
 
 
@@ -297,8 +334,12 @@ class Hop:
 
     def __init__(self, group, sends=(), recvs=(), stats: Optional[dict] = None,
                  what: str = "tensor parallelism") -> None:
-        dist = _dist()
         self.stats = STATS if stats is None else stats
+        if any(t.device.type == "meta" for t, *_ in sends) or any(
+                like.device.type == "meta" for like, *_ in recvs):
+            self._meta(sends, recvs, what)
+            return
+        dist = _dist()
         staged = dist.get_backend(group) == "gloo"
         ops = []
         for t, rank, *tag in sends:
@@ -317,6 +358,18 @@ class Hop:
             self.bufs.append((buf, like.dtype, like.device))
             ops.append(dist.P2POp(dist.irecv, buf, rank, group=group, tag=tag[0] if tag else 0))
         self.works = dist.batch_isend_irecv(ops) if ops else []
+
+    def _meta(self, sends, recvs, what: str) -> None:
+        """The meta route: one ``send_recv`` CommFact for the hop's sends
+        (their bytes counted as on the card), empty receive buffers."""
+        payloads = [_bits(t) for t, *_ in sends]
+        nbytes = sum(p.numel() * p.element_size() for p in payloads)
+        self.stats["wire_bytes"] += nbytes
+        self.bufs = [(_bits(torch.empty_like(like)), like.dtype, like.device)
+                     for like, *_ in recvs]
+        collective("send_recv", None, payloads or [b for b, _, _ in self.bufs],
+                   [b for b, _, _ in self.bufs], nbytes, 2, what, overlapped=True)
+        self.works = []
 
     def _note_staged(self, what: str) -> None:
         if not self.stats.get("staged"):
@@ -387,8 +440,9 @@ def _bulk_reduce_scatter(spec: OverlapSpec, t: torch.Tensor, wire: bool) -> torc
     chunks = torch.stack(t.chunk(n, 1))                      # (n, B, T/n, ...)
     payload = _bits(_narrow(spec, chunks) if wire else chunks)
     out = torch.empty_like(payload)
-    _sent(payload, (n - 1) / n)
-    _wait(_dist().all_to_all_single(out, payload, group=spec.group, async_op=True))
+    nbytes = _sent(payload, (n - 1) / n)
+    _wait(collective("all_to_all", lambda: _dist().all_to_all_single(
+        out, payload, group=spec.group, async_op=True), (payload,), (out,), nbytes, n, spec.axis))
     pieces = _unbits(out, (_narrow(spec, chunks) if wire else chunks).dtype).to(t.dtype)
     acc = pieces[0]
     for piece in pieces[1:]:
@@ -563,9 +617,12 @@ class _QKVViews(torch.autograd.Function):
             if g is not None:
                 full[:, lo:lo + width] = g
         chunks = torch.stack(full.chunk(n, 1))                  # (n, rows, W/n)
-        out = torch.empty_like(_bits(chunks))
-        _sent(chunks, (n - 1) / n)
-        _wait(_dist().all_to_all_single(out, _bits(chunks), group=spec.group, async_op=True))
+        payload = _bits(chunks)
+        out = torch.empty_like(payload)
+        nbytes = _sent(chunks, (n - 1) / n)
+        _wait(collective("all_to_all", lambda: _dist().all_to_all_single(
+            out, payload, group=spec.group, async_op=True), (payload,), (out,), nbytes, n,
+            spec.axis))
         pieces = _unbits(out, chunks.dtype)
         acc = pieces[0]
         for piece in pieces[1:]:
@@ -644,7 +701,10 @@ class _VocabLookup(torch.autograd.Function):
         rows = rows.contiguous()
         _note("vocab_lookup", False)
         _sent(rows)
-        _wait(_dist().all_reduce(rows, group=spec.group, async_op=True))
+        n = spec.tp_size
+        _wait(collective("all_reduce", lambda: _dist().all_reduce(
+            rows, group=spec.group, async_op=True), (rows,), (rows,),
+            2 * (n - 1) / n * rows.numel() * rows.element_size(), n, spec.axis))
         ctx.save_for_backward(table, ids, valid)
         return rows
 
@@ -799,8 +859,9 @@ def _group_sum(spec, t: torch.Tensor, name: str) -> torch.Tensor:
     _note(name, False)
     out = t.contiguous().clone()
     n = spec.size
-    _sent(out, 2 * (n - 1) / n)
-    _wait(_dist().all_reduce(out, group=spec.group, async_op=True))
+    nbytes = _sent(out, 2 * (n - 1) / n)
+    _wait(collective("all_reduce", lambda: _dist().all_reduce(
+        out, group=spec.group, async_op=True), (out,), (out,), nbytes, n, name))
     return out
 
 

@@ -64,6 +64,12 @@ backward retires the leaves in: a finished bucket waits for the ones
 before it in the plan. The step waits on every handle before it reads a
 gradient. The loss rides the stacked scalar all-reduce, so the step sees
 the global-batch mean, as the reference's ``pmean``.
+
+On ``meta`` tensors every collective here takes the meta route of
+``collectives.collective``: it records a ``CommFact`` and needs no process
+group, so one rank's reduction traces on the CPU for the schedule audit.
+``plane_sizes`` gives the ranks of each partial plane (the data group's
+size is ``world``).
 """
 
 from __future__ import annotations
@@ -219,10 +225,14 @@ def gather_full(shard: torch.Tensor, dim: int, world: int, group=None, async_op:
     ``work.wait()`` returns."""
     import torch.distributed as dist
 
+    from rocket_tpu_torch.parallel.collectives import collective
+
     src = _front(shard, dim)
     out = torch.empty((world * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    work = dist.all_gather_into_tensor(out, src, group=group, async_op=async_op)
+    work = collective("all_gather", lambda: dist.all_gather_into_tensor(
+        out, src, group=group, async_op=async_op), (src,), (out,),
+        (world - 1) * src.numel() * src.element_size(), world, "data", overlapped=async_op)
     return (out.movedim(0, dim) if dim else out), work
 
 
@@ -233,11 +243,15 @@ def _scatter(grad: torch.Tensor, dim: int, world: int, wire, group):
     :func:`_unfront` sums at full precision. Returns ``(received, work)``."""
     import torch.distributed as dist
 
+    from rocket_tpu_torch.parallel.collectives import collective
+
     src = _front(grad, dim) / world
     if wire is not None and _itemsize(wire) < _itemsize(src.dtype):
         src = src.to(wire)
     out = torch.empty_like(src)
-    return out, dist.all_to_all_single(out, src, group=group, async_op=True)
+    return out, collective("all_to_all", lambda: dist.all_to_all_single(
+        out, src, group=group, async_op=True), (src,), (out,),
+        (world - 1) / world * src.numel() * src.element_size(), world, "data", overlapped=True)
 
 
 def _unfront(received: torch.Tensor, dim: int, dtype, world: int) -> torch.Tensor:
@@ -274,7 +288,7 @@ class GradSync:
     def __init__(self, shapes: Sequence, dtypes: Sequence, dims: Sequence, world: int,
                  group=None, bucket_bytes: int = 4 << 20, wire_dtype="bfloat16",
                  partial: Optional[Sequence] = None, loss_partial=None,
-                 groups: Optional[dict] = None) -> None:
+                 groups: Optional[dict] = None, plane_sizes: Optional[dict] = None) -> None:
         self.world = int(world)
         self.group = group
         self.dims = list(dims)
@@ -283,6 +297,7 @@ class GradSync:
         self.partial = list(partial) if partial is not None else [None] * len(self.dims)
         self.loss_partial = loss_partial
         self.groups = dict(groups or {})
+        self.plane_sizes = dict(plane_sizes or {})
         if self.world < 2 and not any(p is not None for p in self.partial):
             raise ValueError("GradSync: nothing to reduce on one data rank without partial "
                              "leaves")
@@ -317,6 +332,19 @@ class GradSync:
 
     def _group_of(self, kind):
         return self.group if kind == "data" else self.groups[kind[1]]
+
+    def _all_reduce(self, payload: torch.Tensor, kind, overlapped: bool):
+        """Start the sum of ``payload`` over ``kind``'s group (its work)."""
+        import torch.distributed as dist
+
+        from rocket_tpu_torch.parallel.collectives import collective
+
+        n = self.world if kind == "data" else self.plane_sizes.get(kind[1], self.world)
+        axis = "data" if kind == "data" else "+".join(sorted(("data",) + tuple(kind[1])))
+        return collective("all_reduce", lambda: dist.all_reduce(
+            payload, group=self._group_of(kind), async_op=True), (payload,), (payload,),
+            2 * (n - 1) / n * payload.numel() * payload.element_size(), n, axis,
+            overlapped=overlapped)
 
     def _reset(self) -> None:
         self._grads: list = [None] * len(self.shapes)
@@ -358,8 +386,6 @@ class GradSync:
             self._next += 1
 
     def _issue(self, k: int) -> None:
-        import torch.distributed as dist
-
         unit = self.units[k]
         first = unit[0]
         if self.kinds[k] == "scatter":
@@ -376,15 +402,13 @@ class GradSync:
         else:
             payload = flat
         self.stats["wire_bytes"] += payload.numel() * payload.element_size()
-        work = dist.all_reduce(payload, group=self._group_of(self.kinds[k]), async_op=True)
+        work = self._all_reduce(payload, self.kinds[k], overlapped=True)
         self._pending[k] = (payload, work, true_sum)
 
     def finish(self, grads: Sequence[Optional[torch.Tensor]], loss: torch.Tensor):
         """The backward's gradients (None where a leaf got none) and the
         local loss -> ``(reduced grads, global mean loss)``, after every
         handle was waited on."""
-        import torch.distributed as dist
-
         for h in self._hooks:
             h.remove()
         self._hooks = []
@@ -412,8 +436,7 @@ class GradSync:
         for kind, values in scalars.items():
             if values and (kind != "data" or self.world > 1):
                 stacked[kind] = torch.stack(values)
-                works.append(dist.all_reduce(stacked[kind], group=self._group_of(kind),
-                                             async_op=True))
+                works.append(self._all_reduce(stacked[kind], kind, overlapped=False))
         t0 = time.perf_counter()
         for _, work, _ in self._pending:
             work.wait()

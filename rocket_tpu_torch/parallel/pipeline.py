@@ -220,8 +220,12 @@ def pipeline_blocks(block_apply: Callable, layers: Sequence, x: torch.Tensor, *,
     if with_aux and p > 1:
         import torch.distributed as dist
 
+        from rocket_tpu_torch.parallel.collectives import collective
+
         aux = aux.detach().clone()
-        dist.all_reduce(aux, group=spec.group)
+        nbytes = 2 * (p - 1) / p * aux.numel() * aux.element_size()
+        collective("all_reduce", lambda: dist.all_reduce(aux, group=spec.group, async_op=True),
+                   (aux,), (aux,), nbytes, p, "pipe").wait()
     if spec.last:
         out = torch.cat(outs, 0)
         if p > 1:

@@ -20,7 +20,16 @@ class DeviceSpec:
     opt into — the budget the tuner's legality rules and the schedule
     audit's RKT504 hold a kernel's tiles to (the reference's
     ``vmem_bytes``) — and ``sms``, the streaming multiprocessors, which
-    size the grids that fill the card."""
+    size the grids that fill the card.
+
+    For the schedule audit's cost model (the reference's ICI fields):
+    ``link_bw``, the bytes/s a card sends one way over its NVLink ports,
+    which prices every collective and point-to-point hop of a one-node
+    group (the NVSwitch fabric gives each card its whole link rate to any
+    peer), and ``collective_latency_s``, the fixed cost added to each
+    collective on top of its bytes (what makes a convoy of tiny
+    collectives cost what it does). ``ridge`` is the arithmetic intensity
+    (FLOP/byte) past which a bf16 op is compute-bound."""
 
     kind: str
     flops_bf16: float
@@ -28,11 +37,22 @@ class DeviceSpec:
     hbm_bw: float
     smem_bytes: int
     sms: int
+    link_bw: float = 450e9
+    collective_latency_s: float = 5e-6
+
+    @property
+    def ridge(self) -> float:
+        return self.flops_bf16 / self.hbm_bw
 
 
 #: Constants by ``torch.cuda.get_device_name()`` prefix: NVIDIA's data
-#: sheets (SXM parts, dense, at their full power limit) and the Hopper
+#: sheets (SXM parts, dense, at their full power limit; NVLink 4 at 900
+#: GB/s both ways per card, so 450e9 bytes/s one way) and the Hopper
 #: tuning guide's 227 KB (232,448 bytes) shared-memory opt-in per block.
+#: The collective latency is the cost model's constant, not a data-sheet
+#: figure: a few microseconds, the order of one small NCCL collective
+#: inside an NVLink node (PERF.md keeps it an open question: the card's
+#: ranks here share one card, so no run measures it).
 DEVICE_SPECS = {
     spec.kind: spec
     for spec in (

@@ -1936,3 +1936,117 @@ def test_gloo_seq_gathered_flash_on_cuda_matches_plain(seq_flash_cuda, dtype, ro
         rec = r[f"{dtype}/{rope}/{split}"]
         assert rec["cuda"] and rec["launches"] == [1, 1, int(split)], rec
         assert max(rec["out"], rec["dx"], rec["dparams"]) <= TOL[dtype], rec
+
+
+# -- the launches' declared work (PERF.md section 6's bound formulas) ---------
+
+
+def _declared(fn, *args, **kw) -> list:
+    """The LaunchFacts ``fn`` declares for these meta operands, on this card
+    (its SM count sizes the persistent grids)."""
+    from rocket_tpu_torch.ops._launch import record_launches
+    from rocket_tpu_torch.tune import priced_device_kind
+
+    with priced_device_kind(torch.cuda.get_device_name(0)), record_launches() as facts:
+        fn(*args, **kw)
+    return facts
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _work(facts) -> tuple:
+    return sum(f.bytes for f in facts), sum(f.flops for f in facts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,hq,hkv,d,dtype", [(8, 1024, 12, 12, 64, torch.bfloat16),
+                                                (4, 256, 8, 4, 32, torch.float32)])
+def test_flash_launch_facts_declare_the_bound_formulas_work(cuda, b, t, hq, hkv, d, dtype):
+    """Rows 3-5: the work each meta launch declares is PERF.md's bound
+    formula (each input read once, each output written once, 2*D flops per
+    visible pair and product), and a launch on the card counts one."""
+    item = torch.empty((), dtype=dtype).element_size()
+    q, k, v = _meta(b, t, hq * d, dtype=dtype), _meta(b, t, hkv * d, dtype=dtype), \
+        _meta(b, t, hkv * d, dtype=dtype)
+    qkv, act, stats = b * t * (hq + 2 * hkv) * d * item, b * t * hq * d * item, b * hq * t * 4
+    pairs = b * hq * t * (t + 1) / 2
+    dkv = 2 * b * t * hkv * d * item
+    fwd = _declared(tfn.flash_fwd, q, k, v, hq, hkv, d, (0, 0, 0), True)
+    assert _work(fwd) == (qkv + act + stats, 4 * d * pairs)
+    out, lse = _meta(b, t, hq * d, dtype=dtype), _meta(b, hq, t, dtype=torch.float32)
+    bwd = _declared(tfn.flash_bwd, q, k, v, out, lse, lse, hq, hkv, d, (0, 0, 0), True)
+    assert _work(bwd) == (qkv + 2 * act + 2 * stats + dkv, 10 * d * pairs)
+    dq = _declared(tfn.flash_dq, q, k, v, out, lse, lse, hq, hkv, d, (0, 0, 0), True)
+    assert _work(dq) == (qkv + 2 * act + 2 * stats, 6 * d * pairs)
+    gen = torch.Generator().manual_seed(b + t)
+    before = tfn.flash_fwd.launches
+    tfn.flash_fwd(_randn(gen, dtype, b, t, hq * d), _randn(gen, dtype, b, t, hkv * d),
+                  _randn(gen, dtype, b, t, hkv * d), hq, hkv, d, (0, 0, 0), True)
+    torch.cuda.synchronize()
+    assert tfn.flash_fwd.launches - before == len(fwd) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 12, 1024, 64, torch.bfloat16, 128),
+                                   (2, 4, 512, 32, torch.float32, 64)])
+def test_qkv_block_bn_facts_declare_the_bound_formulas_work(cuda, shape):
+    """Rows 6-10 at two shapes each."""
+    b, h, t, d, dtype, blk = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    act, stats, pairs = b * h * t * d * item, b * h * t * 4, b * h * t * (t + 1) / 2
+    qkv = _meta(3, b, h, t, d, dtype=dtype)
+    fwd = _declared(tfa.flash_qkv_fwd, qkv, True, blk, blk)
+    assert _work(fwd) == (4 * act + stats, 4 * d * pairs)
+    out, lse = _meta(b, h, t, d, dtype=dtype), _meta(b, h, 1, t, dtype=torch.float32)
+    bwd = _declared(tfa.flash_qkv_bwd, qkv, out, lse, out, lse, True, blk, blk)
+    assert _work(bwd) == (6 * act + 2 * stats + (t // blk) * act, 10 * d * pairs)
+    for bb, tt, dd, ep in ((128, 256, 256, "fused"), (3, 100, 256, "separate")):
+        w = (dd * 3 * dd + 3 * dd) * item + 2 * dd * 4 + ((dd * dd + dd) * item if ep == "fused"
+                                                         else 0)
+        flops = 2 * bb * tt * dd * 3 * dd + 4 * 64 * 4 * bb * tt * (tt + 1) / 2 + (
+            2 * bb * tt * dd * dd if ep == "fused" else 0)
+        fact = tfb.fused_block_launch(bb, tt, dd, 4, dtype, ep)
+        assert (fact.bytes, fact.flops) == (2 * bb * tt * dd * item + w, flops)
+    for n, c in ((524288, 64), (8192, 512)):
+        x, sc = _meta(n, c, dtype=dtype), _meta(2, c, dtype=torch.float32)
+        two = _declared(tfc.bn_twopass, x, sc, eps=1e-5, act=True)
+        norm = _declared(tfc.bn_normalize, x, _meta(4, c, dtype=torch.float32), act=True)
+        assert _work(two) == (2 * n * c * item + 16 * c, 7.0 * n * c)
+        assert _work(norm) == (2 * n * c * item + 16 * c, 4.0 * n * c)
+        assert all(f.flop_dtype == "float32" for f in two + norm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_and_grouped_facts_declare_the_bound_formulas_work(cuda, dtype):
+    """Rows 1-2 at a cache position and full pages, row 11, gmm and tgmm
+    with every row grouped (what a meta launch, which sees no data, counts)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for b, hq, hkv, d, t, pos in ((4, 12, 12, 64, 192, 191), (1, 8, 4, 32, 68, 67)):
+        cache = _meta(b, hkv, t, d, dtype=dtype)
+        facts = _declared(tda.decode_attention, _meta(b, hq, d, dtype=dtype),
+                          _meta(b, hkv, d, dtype=dtype), _meta(b, hkv, d, dtype=dtype), cache,
+                          cache, pos)
+        assert _work(facts) == (2 * b * hkv * pos * d * item + 2 * b * hq * d * item
+                                + 4 * b * hkv * d * item, 4.0 * b * hq * d * (pos + 1))
+    for s, hq, hkv, d, mb, bl in ((8, 12, 12, 64, 64, 16), (8, 12, 4, 64, 9, 16)):
+        pool = _meta(1 + s * mb, bl, hkv, d, dtype=dtype)
+        facts = _declared(tpa.paged_decode, _meta(s, hq, d, dtype=dtype), pool, pool,
+                          _meta(s, mb, dtype=torch.int32), _meta(s, dtype=torch.int32))
+        rows = s * mb * bl
+        assert _work(facts) == (2 * rows * hkv * d * item + 2 * s * hq * d * item
+                                + 4 * s * mb + 4 * s, 4.0 * rows * hq * d)
+    for m, k, n, e in ((18432, 768, 3072, 4), (2048, 256, 512, 8)):
+        sizes = _meta(e, dtype=torch.int32)
+        g = _declared(tgm.gmm, _meta(m, k, dtype=dtype), _meta(e, k, n, dtype=dtype), sizes)
+        assert _work(g) == (m * k * item + e * k * n * item + m * n * item + 4 * e,
+                            2.0 * m * k * n)
+        tg = _declared(tgm.tgmm, _meta(m, k, dtype=dtype), _meta(m, n, dtype=dtype), sizes)
+        assert _work(tg) == (m * k * item + m * n * item + e * k * n * item + 4 * e,
+                             2.0 * m * k * n)
+        gg = _declared(tgg.gather_gmm_fwd, _meta(m // 2, k, dtype=dtype),
+                       _meta(e, k, n, dtype=dtype), _meta(m, dtype=torch.int32), sizes, 128)
+        assert _work(gg) == ((m // 2) * k * item + 4 * m + e * k * n * item + m * n * item
+                             + 4 * e, 2.0 * m * k * n)

@@ -158,12 +158,19 @@ def test_meta_launches_leave_every_launch_count_alone():
     for name in ("serve", "fused_kernels", "qkv_flash", "badpallas"):
         assert run_sched_target(SCHED_TARGETS[name]).launches
     assert _launch_counts() == before
-    assert SCHED_TARGETS.keys() == set(TARGET_KERNELS) | {"badpallas"}
+    # The kernel targets, row 12's demo, and the reference's multi-rank
+    # roofline targets and schedule demos (tests/test_torch_sched_roofline.py).
+    assert SCHED_TARGETS.keys() == set(TARGET_KERNELS) | {"badpallas"} | {
+        "tp_2x4", "tp_1x8", "fsdp_1x8", "tp_2x4_eval", "dp_resnet_1x8", "tp_flash",
+        "badsched", "badoverlap"}
 
 
 def test_train_step_launches_one_forward_and_backward_per_layer():
+    # The whole step the train phase takes: under the whole-forward remat
+    # each layer's forward runs again in the backward (the phase's 24
+    # flash_fwd and 12 flash_bwd launches a step).
     facts = run_sched_target(SCHED_TARGETS["train_flash"]).launches
-    assert [f.name for f in facts].count("flash_fwd") == 12
+    assert [f.name for f in facts].count("flash_fwd") == 2 * 12
     assert [f.name for f in facts].count("flash_bwd") == 12
     fwd = next(f for f in facts if f.name == "flash_fwd")
     assert fwd.grid == (16, 12, 8) and fwd.threads == 128
