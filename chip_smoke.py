@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``rocket_tpu_torch/csrc`` with
 ``nvcc`` (into ``build/kernels/``, first use, all in parallel), audits
 their launches (every non-demo target of ``python -m rocket_tpu_torch.
-analysis sched`` clean on this card, and every kernel's declared grid,
-threads and shared memory equal to its library's query), holds
+analysis sched``, ``shard`` and ``mem`` clean on this card, and every
+kernel's declared grid, threads and shared memory equal to its library's
+query), holds
 each against its plain PyTorch version at its path's shapes (the paged
 decode kernel also at a 4096-row context, the dense-cache decode kernel
 over three cache lengths, two head counts and three head dims at positions
@@ -37,7 +38,9 @@ device-resident cache), with a ``torch.profiler`` window over its last steps; a
 longer-context run whose dq partial buffer passes the byte bound (the
 accumulating dq kernel); saving and restoring that GPT-2 train state
 (in the JAX package's layout: optax's ``opt_state``, int32 step, uint32[2]
-key data).
+key data); the memory audit's liveness peak of that step held to the
+caching allocator's measured peak at B=8 and at half the predicted H100
+frontier (``mem``).
 Then the char-LM slice with ``ROCKET_TPU_BLOCK_ATTN=fused``, in a temporary
 directory: ``examples.char_lm`` trains one epoch and checkpoints (the
 fused-block kernel, separate epilogue), a resumed run against an
@@ -198,7 +201,10 @@ from rocket_tpu_torch.nn.moe import MoE
 from rocket_tpu_torch.obs.__main__ import main as obs_main
 from rocket_tpu_torch.obs.export import read_telemetry_dir
 from rocket_tpu_torch.obs.spans import load_chrome_trace
+from rocket_tpu_torch.analysis.mem_audit import MEM_TARGETS, run_mem_target
 from rocket_tpu_torch.analysis.sched_audit import SCHED_TARGETS, run_sched_target
+from rocket_tpu_torch.analysis.shard_audit import BUILTIN_TARGETS as SHARD_TARGETS
+from rocket_tpu_torch.analysis.shard_audit import run_target as run_shard_target
 from rocket_tpu_torch.ops import _build
 from rocket_tpu_torch.ops import badpallas as bp
 from rocket_tpu_torch.ops import decode_attention as da
@@ -518,12 +524,16 @@ def launch_audit_phase(card):
     SM count the meta launches size grids with must be this card's, and
     every kernel's declared (grid, threads, dynamic, static shared memory)
     must equal its library's query, with each launch's headroom under the
-    card's shared-memory opt-in printed."""
+    card's shared-memory opt-in printed. Then every non-demo target of the
+    SPMD and memory audits (``shard``, ``mem``; meta traces on the host)
+    must report nothing priced as this card; the memory record of
+    ``train_flash`` is returned for the ``mem`` phase."""
     kind = torch.cuda.get_device_name(0)
     spec = device_spec(kind)
     require(spec is not None, f"launch_audit: no DeviceSpec for {kind!r}")
     require(spec.sms == torch.cuda.get_device_properties(0).multi_processor_count,
             f"launch_audit: DeviceSpec.sms {spec.sms} is not this card's")
+    t_sched = time.perf_counter()
     targets = {}
     for name, target in SCHED_TARGETS.items():
         if target.demo:
@@ -568,8 +578,33 @@ def launch_audit_phase(card):
         require(fact.bytes > 0 and bound == fact_bound(fact),
                 f"launch_audit: {kernel}: bound {bound} is not its fact's {fact_bound(fact)}")
         work[kernel] = {"bytes": fact.bytes, "flops": fact.flops, "bound_ms": bound[0]}
+    t_shard = time.perf_counter()
+    shard = {}
+    for name, target in SHARD_TARGETS.items():
+        if target.demo:
+            continue
+        report = run_shard_target(target, kind)
+        require(report.clean, f"launch_audit: shard {name}: " + "; ".join(
+            f.message for f in report.findings))
+        shard[name] = {k: report.record[k] for k in (
+            "collective_counts", "collective_bytes_per_step", "hbm_per_device_bytes")}
+    t_mem = time.perf_counter()
+    mem = {}
+    for name, target in MEM_TARGETS.items():
+        if target.demo:
+            continue
+        report = run_mem_target(target, kind)
+        require(report.clean, f"launch_audit: mem {name}: " + "; ".join(
+            f.message for f in report.findings))
+        mem[name] = report.record
     emit("launch_audit", device_kind=kind, smem_opt_in=spec.smem_bytes, targets=targets,
-         kernels=kernels, work=work, card=card)
+         kernels=kernels, work=work, shard=shard,
+         mem={name: {k: r[k] for k in ("predicted_peak_bytes", "saved_activation_bytes",
+                                         "peak_breakdown", "oom_frontier")}
+              for name, r in mem.items()},
+         sched_s=t_shard - t_sched, shard_s=t_mem - t_shard,
+         mem_s=time.perf_counter() - t_mem, card=card)
+    return mem["train_flash"]
 
 
 # -- phase 3: kernels against their plain versions -------------------------
@@ -2089,6 +2124,90 @@ def calib_phase(prof, card):
     require({"flash_fwd", "flash_bwd"} <= joined,
             f"calib: rows 3-4 did not join by their LaunchFact names: {sorted(joined)[:20]}")
     return record
+
+
+def _measured_step_peak(batch: int) -> dict:
+    """One ``train_flash`` step (``sched_audit._gpt2_parts`` on the card:
+    GPT-2 124M, T=1024, bf16, remat, AdamW, the aten sequence of
+    ``calib``'s measured leg) at ``batch``, after one warm step that creates
+    AdamW's moments: the allocator's peak over the step less what was
+    allocated before its params were built, the bytes resident after the
+    warm step (the state and the batch), the requested peak (no block
+    rounding) and the step's seconds. Its params are the seed-0 draw the
+    serve phase made (drawn once on the host)."""
+    from rocket_tpu_torch.analysis.sched_audit import _gpt2_parts
+
+    cfg = TransformerConfig.gpt2_124m()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    base_requested = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+    params = map_params(lambda t: t.to("cuda"), _drawn_params(cfg))
+    step, args = _gpt2_parts(cfg.max_seq_len, batch=batch, device="cuda", params=params)
+    del params
+    step(*args)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(*args))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = torch.cuda.memory_stats()
+    out = {"batch": batch, "measured_peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "requested_peak_bytes": stats.get("requested_bytes.all.peak", 0) - base_requested,
+           "resident_bytes": resident, "step_s": seconds, "loss": loss}
+    del step, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def mem_phase(record, card):
+    """The memory audit held to the card (RKT805): ``train_flash``'s
+    liveness peak, priced as this card by ``launch_audit`` (``record``), is
+    reconciled with the CUDA caching allocator's measured peak of the same
+    step within RKT805's floor, at B=8 and at half the H100 frontier the
+    record predicts (rounded down to a multiple of 8; the batch-proportional
+    part of the model, without risking an out-of-memory), the latter
+    priced by its own trace. ``DeviceSpec.hbm_bytes`` is checked against
+    the card's ``total_memory``. No profiler window is open."""
+    from rocket_tpu_torch.analysis.mem_audit import audit_memory, train_state
+    from rocket_tpu_torch.analysis.rules.mem_rules import check_reconciliation
+    from rocket_tpu_torch.analysis.sched_audit import _gpt2_parts
+
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    spec = device_spec(kind)
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(0.9 * spec.hbm_bytes <= total <= spec.hbm_bytes,
+            f"mem: DeviceSpec.hbm_bytes {spec.hbm_bytes} against total_memory {total}")
+    frontier = record["oom_frontier"][spec.kind]
+    half = frontier // 2 // 8 * 8
+    require(half > 8, f"mem: the predicted frontier {frontier} leaves no second batch")
+    step, args = _gpt2_parts(1024, batch=half)
+    predicted_half = audit_memory(step, *args, state=lambda: train_state(step), warmup=1,
+                                  device_kind=kind, slope=False, label="train_flash").record
+    del step, args
+    t_priced = time.perf_counter()
+    rows = []
+    for predicted in (record, predicted_half):
+        measured = _measured_step_peak(predicted["batch_size"])
+        findings = check_reconciliation(predicted["predicted_peak_bytes"],
+                                        measured["measured_peak_bytes"], label="train_flash")
+        rows.append({**measured, "predicted_peak_bytes": predicted["predicted_peak_bytes"],
+                     "peak_breakdown": predicted["peak_breakdown"],
+                     "saved_activation_bytes": predicted["saved_activation_bytes"],
+                     "expected_state_bytes": predicted["expected_state_bytes"],
+                     "error": (predicted["predicted_peak_bytes"] - measured["measured_peak_bytes"])
+                     / measured["measured_peak_bytes"],
+                     "findings": [f.message for f in findings]})
+    emit("mem", target="train_flash", device_kind=kind, hbm_bytes=spec.hbm_bytes,
+         total_memory=total, oom_frontier=record["oom_frontier"],
+         fixed_bytes=record["fixed_bytes"], per_sample_bytes=record["per_sample_bytes"],
+         rows=rows, price_s=t_priced - t0, seconds=time.perf_counter() - t0, card=card)
+    for row in rows:
+        require(not row["findings"], "mem: " + "; ".join(row["findings"]))
+        require(math.isfinite(row["loss"]), f"mem: non-finite loss at batch {row['batch']}")
 
 
 def train_long_phase(card):
@@ -6835,7 +6954,7 @@ def main() -> int:
              for t in (256, fb.MAX_T) for ep in fb.EPILOGUES
              for dt in (torch.float32, torch.bfloat16)})
 
-    launch_audit_phase(card)
+    mem_record = launch_audit_phase(card)
 
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
@@ -6874,6 +6993,10 @@ def main() -> int:
     del window
     checkpoint_gpt2_phase(prepared, card)
     del prepared
+    # The memory audit held to the allocator (PR 25), outside any profiler
+    # window, before the longer context allocates more.
+    torch.cuda.empty_cache()
+    mem_phase(mem_record, card)
     flash["flash_fwd"]["launches"] = train["flash_fwd"]
     flash["flash_bwd"]["launches"] = train["flash_bwd"]
     flash_long["flash_dq"]["launches"] = train_long_phase(card)["flash_dq"]

@@ -15,6 +15,18 @@ calibration that holds them to the card (counterpart of
 * :mod:`~rocket_tpu_torch.analysis.calib` — a measured ``torch.profiler``
   trace of the same step joined to the priced ops and reconciled
   (RKT701-703). CLI: ``python -m rocket_tpu_torch.analysis calib``.
+* :mod:`~rocket_tpu_torch.analysis.trace_audit` — a step function run on
+  meta tensors and audited: its in-place update, host reads, Python
+  scalars, wide dtypes, retraces (RKT201-206). Library entry
+  :func:`audit_step`.
+* :mod:`~rocket_tpu_torch.analysis.shard_audit` — a rule set's placement
+  and the collectives one rank's step issues under it (RKT301-306). CLI:
+  ``python -m rocket_tpu_torch.analysis shard``.
+* :mod:`~rocket_tpu_torch.analysis.mem_audit` — the liveness of an eager
+  step on meta tensors: its peak and split, the in-place update, the
+  saved set, the out-of-memory frontier, and on the card its
+  reconciliation with the allocator (RKT801-805). CLI: ``python -m
+  rocket_tpu_torch.analysis mem``.
 * :mod:`~rocket_tpu_torch.analysis.budgets` — the committed records the
   audits diff against (``tests/fixtures/torch_budgets/``).
 
@@ -25,7 +37,16 @@ for real, on the card unless its target is the CPU sentinel.
 
 from rocket_tpu_torch.analysis.findings import Finding, emit_findings, parse_suppressions
 from rocket_tpu_torch.analysis.rocketlint import lint_file, lint_paths, lint_source
-from rocket_tpu_torch.analysis.rules import AST_RULES, CALIB_RULES, SCHED_RULES, all_rules
+from rocket_tpu_torch.analysis.mem_audit import MemAuditReport, audit_memory, simulate_liveness
+from rocket_tpu_torch.analysis.rules import (
+    AST_RULES,
+    AUDIT_RULES,
+    CALIB_RULES,
+    MEM_RULES,
+    SCHED_RULES,
+    SPMD_RULES,
+    all_rules,
+)
 from rocket_tpu_torch.analysis.sched_audit import (
     SCHED_TARGETS,
     SchedAuditReport,
@@ -35,9 +56,14 @@ from rocket_tpu_torch.analysis.sched_audit import (
     run_sched_target,
     trace_step,
 )
+from rocket_tpu_torch.analysis.shard_audit import ShardAuditReport, audit_sharding, estimate_hbm
+from rocket_tpu_torch.analysis.trace_audit import audit_retraces, audit_step, trace_signature
 
 __all__ = [
     "Finding", "emit_findings", "parse_suppressions", "lint_file", "lint_paths", "lint_source",
-    "AST_RULES", "CALIB_RULES", "SCHED_RULES", "all_rules", "SCHED_TARGETS", "SchedAuditReport",
-    "audit_schedule", "collect_launch_facts", "predict", "run_sched_target", "trace_step",
+    "AST_RULES", "AUDIT_RULES", "SPMD_RULES", "CALIB_RULES", "SCHED_RULES", "MEM_RULES",
+    "all_rules", "SCHED_TARGETS", "SchedAuditReport", "audit_schedule", "collect_launch_facts",
+    "predict", "run_sched_target", "trace_step", "audit_step", "audit_retraces",
+    "trace_signature", "audit_sharding", "ShardAuditReport", "estimate_hbm", "audit_memory",
+    "MemAuditReport", "simulate_liveness",
 ]

@@ -7,6 +7,10 @@ the calibration (counterpart of ``rocket_tpu/analysis/__main__.py``).
     python -m rocket_tpu_torch.analysis calib [--target NAME ...] [--list-targets]
         [--device DEV] [--trace-root DIR] [--budgets-dir DIR | --no-budgets]
         [--update-budgets]
+    python -m rocket_tpu_torch.analysis shard [--target NAME ...] [--list-targets]
+        [--budgets-dir DIR | --no-budgets] [--update-budgets]
+    python -m rocket_tpu_torch.analysis mem [--target NAME ...] [--list-targets]
+        [--device-kind KIND] [--budgets-dir DIR | --no-budgets] [--update-budgets]
     python -m rocket_tpu_torch.analysis all [PATH ...] [--budgets-dir ROOT]
     python -m rocket_tpu_torch.analysis --list-rules
 
@@ -20,16 +24,23 @@ loop (:func:`_sweep_targets`): ``sched`` (``analysis/sched_audit.py``:
 the roofline legs RKT501-503/505 and the kernel-launch leg RKT504 of
 every target, priced as an H100 by default; RKT506 its budgets) and
 ``calib`` (``analysis/calib.py``: a measured trace reconciled against
-the priced step; RKT702/703, and RKT701 its budgets). Each diffs its
-records against the committed ``tests/fixtures/torch_budgets/<family>/``
-of the checkout unless ``--no-budgets`` (``--budgets-dir`` another
-directory; ``--update-budgets`` rewrites them). A demo target runs only
-when named and is never budgeted. ``calib``'s default sweep measures the
-targets whose device is present and names the others on stderr; a named
-target whose card is absent is a usage error, never measured on the CPU
-instead. ``all`` runs the lint and both families in one process. The
-reference's other families (shard, prec, serve, mem, repro, fault, the
-trace audit) are ROADMAP Queue A 9's remainder: asking for one exits 2.
+the priced step; RKT702/703, and RKT701 its budgets), ``shard``
+(``analysis/shard_audit.py``: a rule set's placement and one rank's
+collectives, RKT301-305; RKT306 its budgets) and ``mem``
+(``analysis/mem_audit.py``: the liveness of each target's step, its
+in-place update, saved set and frontier, RKT801/802/804; RKT803 its
+budgets; RKT805 needs the card's measured peak, ``chip_smoke.py``). Each
+diffs its records against the committed
+``tests/fixtures/torch_budgets/<family>/`` of the checkout unless
+``--no-budgets`` (``--budgets-dir`` another directory;
+``--update-budgets`` rewrites them). A demo target runs only when named
+and is never budgeted. ``calib``'s default sweep measures the targets
+whose device is present and names the others on stderr; a named target
+whose card is absent is a usage error, never measured on the CPU instead.
+``all`` runs the lint and every family in one process. The trace audit
+(RKT2xx) is a library entry, ``trace_audit.audit_step``, as the
+reference's is. The reference's other families (prec, serve, repro,
+fault) are ROADMAP Queue A 9's remainder: asking for one exits 2.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ from rocket_tpu_torch.analysis.rules import all_rules
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 #: The reference's audit families not ported yet (ROADMAP Queue A 9).
-UNPORTED = ("shard", "prec", "serve", "mem", "repro", "fault", "trace")
+UNPORTED = ("prec", "serve", "repro", "fault")
 
 
 def _ids(text):
@@ -102,6 +113,35 @@ def _load_calib():
     return CALIB_TARGETS, run
 
 
+def _load_shard():
+    from rocket_tpu_torch.analysis.shard_audit import BUILTIN_TARGETS, run_target
+
+    def run(target, args):
+        report = run_target(target)
+        if report.record and getattr(args, "format", "text") == "text":
+            record = report.record
+            counts = ", ".join(f"{k} {v}" for k, v in sorted(record["collective_counts"].items()))
+            print(f"{target.name}: {counts or 'no collectives'}; "
+                  f"{record['collective_bytes_per_step']:,} B a step; "
+                  f"{record['hbm_per_device_bytes']:,} B a device ({record['hbm']['method']})",
+                  file=sys.stderr)
+        return report
+
+    return BUILTIN_TARGETS, run
+
+
+def _load_mem():
+    from rocket_tpu_torch.analysis.mem_audit import MEM_TARGETS, render_mem, run_mem_target
+
+    def run(target, args):
+        report = run_mem_target(target, getattr(args, "device_kind", None))
+        if report.record and getattr(args, "format", "text") == "text":
+            print(render_mem(target.name, report.record), file=sys.stderr)
+        return report
+
+    return MEM_TARGETS, run
+
+
 #: The one audit-subcommand registry ``main`` dispatches on.
 AUDIT_SUBCOMMANDS = {cli.name: cli for cli in (
     AuditCLI("sched", "roofline cost model of each target's step traced on meta tensors "
@@ -114,6 +154,16 @@ AUDIT_SUBCOMMANDS = {cli.name: cli for cli in (
              "(RKT702, RKT703); RKT701 budgets",
              _load_calib, "CALIB_DIR", "CALIB_GATED_KEYS", "RKT701", "calib",
              lambda t: f"device={t.device} priced_for={t.device_kind} {t.doc}"),
+    AuditCLI("shard", "SPMD audit of each target's rule set and one rank's step traced on "
+             "meta tensors: dead globs, spec ranks, divisibility, replicated params, "
+             "collectives over the allowlist (RKT301-305); RKT306 budgets",
+             _load_shard, "SHARD_DIR", "GATED_KEYS", "RKT306", "spmd",
+             lambda t: f"mesh={dict(t.mesh_shape)} {t.doc}"),
+    AuditCLI("mem", "memory audit of each target's step traced on meta tensors: the "
+             "liveness peak and its split, the in-place update, the saved set, the OOM "
+             "frontier per card (RKT801, RKT802, RKT804); RKT803 budgets",
+             _load_mem, "MEM_DIR", "MEM_GATED_KEYS", "RKT803", "mem",
+             lambda t: f"mesh={dict(t.mesh_shape)} {t.doc}"),
 )}
 
 
@@ -189,7 +239,7 @@ def _audit_main(cli: AuditCLI, argv) -> int:
                         help="print the target catalog and exit")
     parser.add_argument("--budgets-dir", "--budgets", dest="budgets", default=None,
                         metavar="DIR", help="budget directory to diff against (default: the "
-                        "checkout's tests/fixtures/torch_budgets/" + cli.family + "/)")
+                        "checkout's " + getattr(budgets_mod, cli.budgets_dir_attr) + "/)")
     parser.add_argument("--no-budgets", action="store_true", help="findings only, no budget gate")
     parser.add_argument("--update-budgets", action="store_true",
                         help="rewrite the budget files from this run instead of diffing")
@@ -198,12 +248,12 @@ def _audit_main(cli: AuditCLI, argv) -> int:
     parser.add_argument("--format", choices=("text", "json"), default="text")
     parser.add_argument("--json-report", default=None, metavar="PATH",
                         help="also write the findings as JSON to PATH")
-    if cli.name == "sched":
+    if cli.name in ("sched", "mem"):
         from rocket_tpu_torch.analysis.sched_audit import DEFAULT_DEVICE_KIND
 
         parser.add_argument("--device-kind", default=DEFAULT_DEVICE_KIND,
                             help=f"the card to price against (default: {DEFAULT_DEVICE_KIND})")
-    else:
+    elif cli.name == "calib":
         parser.add_argument("--device", default=None,
                             help="measure on this device (default: the target's own)")
         parser.add_argument("--trace-root", default=None,
@@ -255,7 +305,8 @@ def _all_main(argv) -> int:
         family_dir = None
         if not args.no_budgets:
             root = args.budgets or os.path.join(_REPO, budgets_mod.DEFAULT_DIR)
-            family_dir = os.path.join(root, cli.family)
+            family_dir = os.path.join(root, os.path.basename(
+                getattr(budgets_mod, cli.budgets_dir_attr)))
             family_dir = family_dir if os.path.isdir(family_dir) else None
         findings.extend(_sweep_targets(
             cli, args, budgets_dir=family_dir,
@@ -279,7 +330,8 @@ def main(argv=None) -> int:
         return 2
     parser = argparse.ArgumentParser(
         prog="python -m rocket_tpu_torch.analysis",
-        description="rocketlint for the PyTorch port (see also the `sched`, `calib` and `all` "
+        description="rocketlint for the PyTorch port (see also the "
+                    + ", ".join(f"`{name}`" for name in AUDIT_SUBCOMMANDS) + " and `all` "
                     "subcommands)",
     )
     parser.add_argument("paths", nargs="*", help="files or directories to lint")

@@ -9,13 +9,18 @@ default diff mode fails when a gated metric grows more than ``TOLERANCE``
 (improvements re-baseline via ``--update-budgets``). A missing record is
 itself a finding: a new target lands with its baseline.
 
-The port gates two families today: the schedule audit's
-``SCHED_GATED_KEYS`` (RKT506: predicted step time and exposed
-communication, ``sched/``) and the calibration's ``CALIB_GATED_KEYS``
-(RKT701: the absolute calibration error and the unjoined measured
-fraction, ``calib/``). The other key sets are the reference's, kept whole
-for the audits still to be ported. ``tests/fixtures/budgets/`` is the
-reference's and is not read here.
+The port gates four families: the schedule audit's ``SCHED_GATED_KEYS``
+(RKT506: predicted step time and exposed communication, ``sched/``), the
+calibration's ``CALIB_GATED_KEYS`` (RKT701: the absolute calibration error
+and the unjoined measured fraction, ``calib/``), the SPMD audit's
+``GATED_KEYS`` (RKT306: collective bytes per step and per-device memory,
+``shard/``) and the memory audit's ``MEM_GATED_KEYS`` (RKT803: the
+predicted peak and the saved-activation bytes, ``mem/``). The other key
+sets are the reference's, kept whole for the audits still to be ported.
+``tests/fixtures/budgets/`` is the reference's and is not read here. The
+reference keeps its SPMD records at the top of its budgets directory; the
+port's top level holds one directory per family, so they sit in
+``shard/`` like every other family's.
 """
 
 from __future__ import annotations
@@ -110,6 +115,8 @@ FAULT_GATED_KEYS = ("crash_points", "states_explored",
 DEFAULT_DIR = os.path.join("tests", "fixtures", "torch_budgets")
 SCHED_DIR = os.path.join(DEFAULT_DIR, "sched")
 CALIB_DIR = os.path.join(DEFAULT_DIR, "calib")
+SHARD_DIR = os.path.join(DEFAULT_DIR, "shard")
+MEM_DIR = os.path.join(DEFAULT_DIR, "mem")
 
 
 def budget_path(budgets_dir: str, target: str) -> str:

@@ -11,11 +11,18 @@ slug and a one-line contract, printed by ``--list-rules``.
   CLI;
 * ``CALIB_RULES`` — the calibration (``RKT7xx``): RKT701 its budgets,
   RKT702 the join, RKT703 the error ceiling
-  (:mod:`rocket_tpu_torch.analysis.calib`).
+  (:mod:`rocket_tpu_torch.analysis.calib`);
+* ``AUDIT_RULES`` — the trace audit (``RKT2xx``) of a step run on meta
+  tensors (:mod:`rocket_tpu_torch.analysis.trace_audit`, a library entry);
+* ``SPMD_RULES`` — the SPMD audit (``RKT3xx``): a rule set's placement and
+  one rank's collectives (:mod:`rocket_tpu_torch.analysis.shard_audit`);
+* ``MEM_RULES`` — the memory audit (``RKT8xx``): the liveness of an eager
+  step, its in-place update, its frontier and its reconciliation with the
+  card's allocator (:mod:`rocket_tpu_torch.analysis.mem_audit`).
 
-The reference's other families (its jaxpr, SPMD, precision, serving,
-memory, determinism, fault and trace audits, and lint rules RKT101, RKT102
-and RKT108 to RKT114) are ROADMAP Queue A 9's remainder.
+The reference's other families (its precision, serving, determinism and
+fault audits, and lint rules RKT101, RKT102 and RKT108 to RKT114) are
+ROADMAP Queue A 9's remainder.
 """
 
 from __future__ import annotations
@@ -27,9 +34,12 @@ from rocket_tpu_torch.analysis.rules.capsule_rules import (
     LaunchHostSyncRule,
 )
 from rocket_tpu_torch.analysis.rules.host_rules import ForkStartMethodRule, SyncInLoopRule
+from rocket_tpu_torch.analysis.rules.mem_rules import MEM_RULES
 from rocket_tpu_torch.analysis.rules.sched_rules import SCHED_RULES
+from rocket_tpu_torch.analysis.rules.spmd_rules import SPMD_RULES
 
-__all__ = ["AST_RULES", "SCHED_RULES", "CALIB_RULES", "all_rules"]
+__all__ = ["AST_RULES", "AUDIT_RULES", "SPMD_RULES", "SCHED_RULES", "CALIB_RULES", "MEM_RULES",
+           "all_rules"]
 
 AST_RULES = (
     SyncInLoopRule(),
@@ -40,7 +50,34 @@ AST_RULES = (
 )
 
 
+#: The trace audit's rules (id, slug, contract), the reference's ids and
+#: slugs with contracts worded for torch; implemented in trace_audit.py.
+AUDIT_RULES = (
+    ("RKT201", "donation-unused",
+     "a leaf of an argument the step updates in place is never written by a "
+     "mutating op while the step produces a fresh tensor of its shape: the "
+     "update went out of place (a 2x copy of the state)"),
+    ("RKT202", "donation-duplicate",
+     "one storage appears at two leaves of the in-place arguments: an "
+     "in-place update of one writes the other"),
+    ("RKT203", "host-callback-in-step",
+     "a host read of a device tensor (.item(), float(), a copy to a CPU "
+     "tensor) inside the step: a device-to-host sync every step"),
+    ("RKT204", "weak-type-input",
+     "a Python float or int among the step's tensor arguments: a new "
+     "constant at every call, and a new capture under a CUDA graph"),
+    ("RKT205", "retrace-excess",
+     "the example inputs produce more distinct signatures (structure, shape, "
+     "dtype, device) than max_traces: every new one recompiles or recaptures "
+     "the step"),
+    ("RKT206", "wide-dtype",
+     "a float64/complex128 device tensor flows through the step: 64-bit "
+     "float math runs at a fraction of the card's f32 rate"),
+)
+
+
 def all_rules() -> tuple:
     """``(id, slug, contract)`` of every rule, in id order."""
     return tuple(sorted([(r.rule_id, r.slug, r.contract) for r in AST_RULES]
-                        + list(SCHED_RULES) + list(CALIB_RULES)))
+                        + list(AUDIT_RULES) + list(SPMD_RULES) + list(SCHED_RULES)
+                        + list(CALIB_RULES) + list(MEM_RULES)))

@@ -681,15 +681,16 @@ def _meta(*shape, dtype=torch.bfloat16) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _meta_params(model, device="meta"):
+def _meta_params(model, device="meta", params=None):
     """``model``'s params drawn on meta tensors (or from seed 0 on
-    ``device``), and their leaves in the Module's order, each needing a
-    gradient."""
+    ``device``; or ``params``, drawn already), and their leaves in the
+    Module's order, each needing a gradient."""
     from rocket_tpu_torch import optim
 
     device = torch.device(device)
-    with torch.device("meta") if device.type == "meta" else contextlib.nullcontext():
-        params = model.init(torch.Generator().manual_seed(0), device=device)
+    if params is None:
+        with torch.device("meta") if device.type == "meta" else contextlib.nullcontext():
+            params = model.init(torch.Generator().manual_seed(0), device=device)
     leaves = optim.param_leaves(params)
     for t in leaves:
         t.requires_grad_()
@@ -697,7 +698,7 @@ def _meta_params(model, device="meta"):
 
 
 def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = True,
-                 device="meta"):
+                 device="meta", params=None):
     """The Module's train step (``core/module.py``: ``_train_step``,
     ``_forward``, ``_update``) built from its pieces, since the Module
     itself needs a Runtime on a device: the forward (under the
@@ -708,12 +709,13 @@ def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = Tr
     ``torch.optim`` picks for CUDA params (on meta it would fall back to
     its per-param loop). The params live on ``device`` (meta for the
     audit, a real device for the calibration's measured leg: the same aten
-    sequence)."""
+    sequence; ``params`` drawn already, or seed 0's). The step carries
+    ``leaves`` and ``optimizer``, the train state the memory audit reads."""
     from torch.utils.checkpoint import checkpoint
 
     from rocket_tpu_torch.nn import keys
 
-    params, leaves = _meta_params(model, device)
+    params, leaves = _meta_params(model, device, params)
     opt = None if make_opt is None else make_opt(params)
     for group in opt.param_groups if opt is not None else ():
         group["foreach"] = True
@@ -740,15 +742,17 @@ def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = Tr
             p.grad = None
         return loss.detach()
 
+    step.leaves, step.optimizer = leaves, opt
     return step, (params, batch)
 
 
-def _gpt2_parts(seq_len: int, batch: int = 8, device="meta"):
+def _gpt2_parts(seq_len: int, batch: int = 8, device="meta", params=None):
     """GPT-2 124M at full width, B=8, bf16 compute, as ``chip_smoke.py``'s
     train phases take a step (``examples/gpt2.build``): dropout 0.1 and
     its counter-hash keys, the whole-forward remat (each layer's forward
     runs twice), the next-token loss, the backward and AdamW (weight decay
-    0.1 on the matrices)."""
+    0.1 on the matrices). ``params``: f32 params on ``device`` drawn
+    already (seed 0's are drawn otherwise)."""
     from rocket_tpu_torch import optim
     from rocket_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -759,7 +763,7 @@ def _gpt2_parts(seq_len: int, batch: int = 8, device="meta"):
     model = TransformerLM(TransformerConfig.gpt2_124m(max_seq_len=seq_len))
     tokens = torch.zeros((batch, seq_len), dtype=torch.int32, device=device)
     return _train_parts(model, {"tokens": tokens}, make_opt=optim.adamw(weight_decay=0.1),
-                        loss_fn=next_token_loss(), device=device)
+                        loss_fn=next_token_loss(), device=device, params=params)
 
 
 def _train_flash_parts():
@@ -959,21 +963,6 @@ def _flash_d128_parts():
     return step, (q, k, v, fused, qkv)
 
 
-def _badpallas_parts():
-    """Row 12, the seeded-bad demo: the fixture's two launches on a
-    (4096, 4096) f32 array, 2 * x in (7, 100) blocks over grid (4,) — a tile
-    misfit on both dims — and in one whole-array block, 64 MiB of shared
-    memory. Exactly RKT504, once of each kind, and nothing else."""
-    from rocket_tpu_torch.ops.badpallas import bad_scale
-
-    def step(x):
-        y = bad_scale(x, block=(7, 100), grid=(4,))
-        z = bad_scale(x, block=tuple(x.shape), grid=())
-        return y, z
-
-    return step, (_meta(4096, 4096, dtype=torch.float32),)
-
-
 # -- the reference's multi-rank roofline targets ---------------------------------------
 
 
@@ -1058,7 +1047,13 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
     backward's gradients reduced by ``GradSync`` (bucketed all-reduces, an
     FSDP leaf's reduce-scatter, the norms summed over the model group),
     then the reference's SGD update. ``train=False``: the eval forward's
-    logits. The batch is this rank's stripe of ``global_batch`` sequences."""
+    logits. The batch is this rank's stripe of ``global_batch`` sequences.
+    A rule set without the TP marker over a model axis runs the Module's
+    replicated program instead: each model shard gathered whole at step
+    entry as a data shard is, and this rank's chunk of its gradient kept
+    (``Module._full_params``, ``_grad_maps``). The step carries
+    ``leaves``, this rank's param leaves (the train state the memory audit
+    reads)."""
     from rocket_tpu_torch import bridge, optim
     from rocket_tpu_torch.core.module import _paths
     from rocket_tpu_torch.models.transformer import TransformerLM, next_token_loss
@@ -1078,8 +1073,14 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
     for t in leaves:
         t.requires_grad_()
     data, model_n = runtime.data_axis_size, runtime.model_axis_size
+    tp = model_n > 1 and getattr(rule, "tp_axis", None) is not None
     dims = [None if lay is None or lay.axis != "data" else lay.dim for lay in layouts]
-    partial = [frozenset({"model"}) if model_n > 1 and (lay is None or lay.dim is None)
+    # (dim, world) of each leaf gathered whole at step entry.
+    gathered = [(lay.dim, runtime.axis_size(lay.axis)) if lay is not None and (
+        lay.axis == "data" or (lay.axis == "model" and not tp)) else None for lay in layouts]
+    maps = [(lambda g, d=lay.dim: g.chunk(model_n, d)[0].contiguous())
+            if lay is not None and lay.axis == "model" and not tp else None for lay in layouts]
+    partial = [frozenset({"model"}) if tp and (lay is None or lay.dim is None)
                and model.tp_partial(path) else None for path, lay in zip(paths, layouts)]
     sync = None
     if train and (data > 1 or any(partial)):
@@ -1095,9 +1096,9 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
     rng = keys.fold_in(keys.key(0), 0)
 
     def full_params(local):
-        # Every data shard's gather started before the first wait.
-        pending = [None if d is None else gs.gather_full(t.detach(), d, data, async_op=True)
-                   for t, d in zip(optim.param_leaves(local), dims)]
+        # Every gather started before the first wait.
+        pending = [None if g is None else gs.gather_full(t.detach(), g[0], g[1], async_op=True)
+                   for t, g in zip(optim.param_leaves(local), gathered)]
         full = []
         for t, item in zip(optim.param_leaves(local), pending):
             if item is None:
@@ -1111,7 +1112,7 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
 
     def step(local, tokens):
         with contextlib.ExitStack() as stack:
-            if model_n > 1:
+            if tp:
                 stack.enter_context(coll.tp_overlap(
                     runtime, axis="model",
                     vocab_sharded_embed=bool(getattr(rule, "tp_vocab_sharded", False))))
@@ -1120,16 +1121,19 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
                 return model.apply(params, {"tokens": tokens}, mode="eval")["logits"]
             with torch.enable_grad():
                 if sync is not None:
-                    sync.begin(compute)
+                    sync.begin(compute, maps=maps)
                 out = model.apply(params, {"tokens": tokens}, mode="train", rng=rng)
                 loss = next_token_loss()(out).float()
                 grads = torch.autograd.grad(loss, compute, allow_unused=True)
         loss = loss.detach()
         if sync is not None:
             grads, loss = sync.finish(grads, loss)
+        else:
+            grads = [g if f is None or g is None else f(g) for f, g in zip(maps, grads)]
         _sgd_(leaves, [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)])
         return loss
 
+    step.leaves = leaves
     return step, (local, tokens)
 
 
@@ -1194,6 +1198,7 @@ def _dp_resnet_parts(global_batch: int = 64):
         _sgd_(leaves, grads)
         return loss
 
+    step.leaves, step.model_state = leaves, state
     return step, (params, _meta(b, 32, 32, 3, dtype=torch.float32),
                   _meta(b, dtype=torch.int32))
 

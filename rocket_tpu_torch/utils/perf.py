@@ -29,7 +29,10 @@ class DeviceSpec:
     peer), and ``collective_latency_s``, the fixed cost added to each
     collective on top of its bytes (what makes a convoy of tiny
     collectives cost what it does). ``ridge`` is the arithmetic intensity
-    (FLOP/byte) past which a bf16 op is compute-bound."""
+    (FLOP/byte) past which a bf16 op is compute-bound.
+
+    For the memory audit: ``hbm_bytes``, the card's memory capacity (the
+    reference's field), which its out-of-memory frontier and RKT804 read."""
 
     kind: str
     flops_bf16: float
@@ -39,6 +42,7 @@ class DeviceSpec:
     sms: int
     link_bw: float = 450e9
     collective_latency_s: float = 5e-6
+    hbm_bytes: int = 80 << 30
 
     @property
     def ridge(self) -> float:
@@ -52,12 +56,16 @@ class DeviceSpec:
 #: The collective latency is the cost model's constant, not a data-sheet
 #: figure: a few microseconds, the order of one small NCCL collective
 #: inside an NVLink node (PERF.md keeps it an open question: the card's
-#: ranks here share one card, so no run measures it).
+#: ranks here share one card, so no run measures it). The capacities are
+#: the data sheets' (NVIDIA H100 and H200 Tensor Core GPU, SXM): 80 GB of
+#: HBM3 and 141 GB of HBM3e, read as GiB (the H100's five 16 GiB stacks);
+#: the driver keeps part of it, so the card's ``total_memory`` reads
+#: somewhat less.
 DEVICE_SPECS = {
     spec.kind: spec
     for spec in (
-        DeviceSpec("NVIDIA H100", 989e12, 67e12, 3.35e12, 232448, 132),
-        DeviceSpec("NVIDIA H200", 989e12, 67e12, 4.8e12, 232448, 132),
+        DeviceSpec("NVIDIA H100", 989e12, 67e12, 3.35e12, 232448, 132, hbm_bytes=80 << 30),
+        DeviceSpec("NVIDIA H200", 989e12, 67e12, 4.8e12, 232448, 132, hbm_bytes=141 << 30),
     )
 }
 

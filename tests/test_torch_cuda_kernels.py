@@ -2050,3 +2050,40 @@ def test_decode_and_grouped_facts_declare_the_bound_formulas_work(cuda, dtype):
                        _meta(e, k, n, dtype=dtype), _meta(m, dtype=torch.int32), sizes, 128)
         assert _work(gg) == ((m // 2) * k * item + 4 * m + e * k * n * item + m * n * item
                              + 4 * e, 2.0 * m * k * n)
+
+
+@pytest.mark.cuda
+def test_small_lm_step_peak_reconciles_with_its_liveness(cuda):
+    """The memory audit held to the allocator (RKT805): one AdamW train step
+    of a small LM (the audit LM at T=256, flash attention, whole-forward
+    remat), its second (the moments exist), measured on the card by
+    ``max_memory_allocated`` against the liveness peak of the same step
+    traced on meta tensors and priced as this card, within the floor."""
+    from rocket_tpu_torch import optim
+    from rocket_tpu_torch.analysis.mem_audit import audit_memory, train_state
+    from rocket_tpu_torch.analysis.rules.mem_rules import check_reconciliation
+    from rocket_tpu_torch.analysis.sched_audit import _lm_config, _train_parts
+    from rocket_tpu_torch.models.transformer import TransformerLM, next_token_loss
+
+    cfg = _lm_config(max_seq_len=256, attention_impl="auto", dropout=0.1)
+
+    def parts(device):
+        tokens = torch.zeros((16, 256), dtype=torch.int32, device=device)
+        return _train_parts(TransformerLM(cfg), {"tokens": tokens},
+                            make_opt=optim.adamw(weight_decay=0.1), loss_fn=next_token_loss(),
+                            device=device)
+
+    step, args = parts("meta")
+    record = audit_memory(step, *args, state=lambda: train_state(step), warmup=1,
+                          device_kind=torch.cuda.get_device_name(0), slope=False).record
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    step, args = parts("cuda")
+    step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    assert check_reconciliation(record["predicted_peak_bytes"], measured) == []
