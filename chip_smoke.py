@@ -147,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -202,10 +203,13 @@ from rocket_tpu_torch.obs.__main__ import main as obs_main
 from rocket_tpu_torch.obs.export import read_telemetry_dir
 from rocket_tpu_torch.obs.spans import load_chrome_trace
 from rocket_tpu_torch.analysis.mem_audit import MEM_TARGETS, run_mem_target
+from rocket_tpu_torch.analysis import repro_audit
+from rocket_tpu_torch.analysis.repro_audit import REPRO_TARGETS
 from rocket_tpu_torch.analysis.sched_audit import SCHED_TARGETS, run_sched_target
 from rocket_tpu_torch.analysis.shard_audit import BUILTIN_TARGETS as SHARD_TARGETS
 from rocket_tpu_torch.analysis.shard_audit import run_target as run_shard_target
 from rocket_tpu_torch.ops import _build
+from rocket_tpu_torch.ops import accuracy
 from rocket_tpu_torch.ops import badpallas as bp
 from rocket_tpu_torch.ops import decode_attention as da
 from rocket_tpu_torch.ops import flash_attention as fqa
@@ -518,6 +522,57 @@ def _declared_launches() -> list:
     return rows
 
 
+#: The precision and determinism audits of every non-demo target (meta
+#: traces and the CPU replay sentinel: no card), run in a process of their
+#: own beside the schedule audit's tracing, their records written as JSON.
+NUMERICS_AUDITS = r'''
+import json, sys, time
+t0 = time.perf_counter()
+from rocket_tpu_torch.analysis.prec_audit import PREC_TARGETS, run_prec_target
+from rocket_tpu_torch.analysis.repro_audit import REPRO_TARGETS, run_repro_target
+out = {"prec": {}, "repro": {}}
+for family, targets, run in (("prec", PREC_TARGETS, run_prec_target),
+                             ("repro", REPRO_TARGETS, run_repro_target)):
+    for name, target in targets.items():
+        if target.demo:
+            continue
+        report = run(target)
+        rec = dict(report.record, findings=[f.message for f in report.findings])
+        if family == "repro":
+            rec["order_free_sites"] = sorted({f"{op}@{site}" for op, site, _ in report.nondet})
+        out[family][name] = rec
+out["seconds"] = time.perf_counter() - t0
+with open(sys.argv[1], "w") as fh:
+    json.dump(out, fh)
+'''
+
+
+def _start_numerics() -> tuple:
+    """Start :data:`NUMERICS_AUDITS` in a child process that sees no card."""
+    path = Path(tempfile.mkdtemp()) / "numerics.json"
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen([sys.executable, "-c", NUMERICS_AUDITS, str(path)], env=env,
+                            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, path
+
+
+def _join_numerics(started) -> dict:
+    proc, path = started
+    try:
+        log = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0, f"launch_audit: the prec/repro audits exited "
+            f"{proc.returncode}: {log[-3000:]}")
+    out = json.loads(path.read_text())
+    shutil.rmtree(path.parent, ignore_errors=True)
+    return out
+
+
 def launch_audit_phase(card):
     """The kernel-launch audit on this card: every non-demo schedule target
     traced on meta tensors and priced as this card must report nothing, the
@@ -526,13 +581,19 @@ def launch_audit_phase(card):
     must equal its library's query, with each launch's headroom under the
     card's shared-memory opt-in printed. Then every non-demo target of the
     SPMD and memory audits (``shard``, ``mem``; meta traces on the host)
-    must report nothing priced as this card; the memory record of
-    ``train_flash`` is returned for the ``mem`` phase."""
+    must report nothing priced as this card, and every non-demo target of
+    the precision and determinism audits (``prec``, ``repro``: meta
+    traces, and the replay sentinel on the host's CPU, in a child process
+    beside the schedule audit) must report nothing;
+    each kernel's declared accumulator (f32, in a fixed order) is printed
+    beside its geometry. The memory record of ``train_flash`` is returned
+    for the ``mem`` phase."""
     kind = torch.cuda.get_device_name(0)
     spec = device_spec(kind)
     require(spec is not None, f"launch_audit: no DeviceSpec for {kind!r}")
     require(spec.sms == torch.cuda.get_device_properties(0).multi_processor_count,
             f"launch_audit: DeviceSpec.sms {spec.sms} is not this card's")
+    numerics = _start_numerics()
     t_sched = time.perf_counter()
     targets = {}
     for name, target in SCHED_TARGETS.items():
@@ -556,9 +617,13 @@ def launch_audit_phase(card):
         require(fact.bytes > 0 and (fact.flops > 0 or "combine" in name),
                 f"launch_audit: {name} {shapes}: no work declared ({fact.bytes} B, "
                 f"{fact.flops} flops)")
+        require((fact.acc_dtype, fact.acc_order) == ("float32", "fixed"),
+                f"launch_audit: {name} {shapes}: declares accumulation {fact.acc_dtype} in "
+                f"{fact.acc_order} order")
         kernels.append({"kernel": name, "shapes": shapes, "grid": list(grid), "threads": threads,
                         "dynamic_smem": dynamic, "static_smem": static,
                         "headroom_bytes": spec.smem_bytes - dynamic - static,
+                        "acc_dtype": fact.acc_dtype, "acc_order": fact.acc_order,
                         "bytes": fact.bytes, "flops": fact.flops})
     # The bound helpers' work is the launch facts' own, at the main paths'
     # shapes: GPT-2's rows 3-5 and 6, the char-LM block.
@@ -597,13 +662,21 @@ def launch_audit_phase(card):
         require(report.clean, f"launch_audit: mem {name}: " + "; ".join(
             f.message for f in report.findings))
         mem[name] = report.record
+    t_numerics = time.perf_counter()
+    numerics = _join_numerics(numerics)
+    for family in ("prec", "repro"):
+        for name, rec in numerics[family].items():
+            require(not rec["findings"], f"launch_audit: {family} {name}: "
+                    + "; ".join(rec["findings"]))
     emit("launch_audit", device_kind=kind, smem_opt_in=spec.smem_bytes, targets=targets,
          kernels=kernels, work=work, shard=shard,
          mem={name: {k: r[k] for k in ("predicted_peak_bytes", "saved_activation_bytes",
                                          "peak_breakdown", "oom_frontier")}
               for name, r in mem.items()},
-         sched_s=t_shard - t_sched, shard_s=t_mem - t_shard,
-         mem_s=time.perf_counter() - t_mem, card=card)
+         prec=numerics["prec"], repro=numerics["repro"], sched_s=t_shard - t_sched,
+         shard_s=t_mem - t_shard, mem_s=t_numerics - t_mem,
+         numerics_s=numerics["seconds"], numerics_wait_s=time.perf_counter() - t_numerics,
+         card=card)
     return mem["train_flash"]
 
 
@@ -964,7 +1037,36 @@ def check_flash(timer, gen):
     # 4 heads), f32 as the example runs and bf16.
     for dtype in (torch.float32, torch.bfloat16):
         emit("parity_flash", **flash_case(timer, gen, 64, 128, 4, 4, 32, dtype, True, True))
+    prec_flash_bwd(gen)
     return timed
+
+
+def require_f32_accumulation(what: str, errs: dict) -> None:
+    """A kernel declaring an f32 accumulator must beat the same sum carried
+    in bf16 across its K tiles (``ops/accuracy.py``)."""
+    require(errs["kernel"] < errs["bf16_tiles"],
+            f"{what}: error {errs['kernel']} against the f64 sum is not below the "
+            f"bf16 tile-wise sum's {errs['bf16_tiles']} over {errs['contraction']}")
+
+
+def prec_flash_bwd(gen) -> dict:
+    """Row 4's dk and dv over GPT-2's T=1024 queries (B=2, H=12, D=64,
+    bf16, causal, the fused operand): the kernel's error against the f64
+    sums of the plain version's p and ds, beside the same sums carried in
+    bf16 one TILE of queries at a time (``ops/accuracy.py``)."""
+    b, t, h, d, dtype = 2, 1024, 12, 64, torch.bfloat16
+    (q, k, v), offs = _flash_operands(gen, dtype, b, t, h, h, d, True)
+    geo = (h, h, d, offs, True)
+    out, lse = fa.flash_fwd(q, k, v, *geo)
+    dout = torch.randn(b, t, h * d, generator=gen).to(dtype).cuda()
+    delta = (dout.float() * out.float()).reshape(b, t, h, d).sum(-1).transpose(1, 2).contiguous()
+    _, dk, dv = fa.flash_bwd(q, k, v, dout, lse, delta, *geo, with_dq=False)
+    p, ds, qf, _kf, do = fa._probs_and_ds(q, k, v, dout, lse, delta, h, h, d, offs, True)
+    errs = accuracy.flash_bwd_errors(p, ds, qf, do, dk, dv, fa.TILE)
+    emit("parity_prec", kernel="flash_bwd", b=b, t=t, h=h, d=d, tile=fa.TILE, **errs)
+    for name, e in errs.items():
+        require_f32_accumulation(f"flash_bwd {name}", e)
+    return errs
 
 
 #: Rows 3-4 at the examples' main-path shapes: vit_cifar's vit_tiny (B=512,
@@ -2208,6 +2310,199 @@ def mem_phase(record, card):
     for row in rows:
         require(not row["findings"], "mem: " + "; ".join(row["findings"]))
         require(math.isfinite(row["loss"]), f"mem: non-finite loss at batch {row['batch']}")
+
+
+#: The repro phase's MoE LM: ``moe_config()`` (GPT-2 widths, 4 experts,
+#: dropless top-2, the fused gather-GMM forced) at this many layers.
+REPRO_MOE_LAYERS = 2
+#: cuBLAS's bf16 reduced-precision reduction, checked at GPT-2's GEMMs
+#: (M, K, N): the MLP's in-projection at B=8 T=1024, the loss head's chunk
+#: (128 positions of 8 sequences over the vocab) and the in-projection's
+#: weight gradient (its contraction over the step's 8192 tokens).
+CUBLAS_SHAPES = ((8192, 768, 3072), (1024, 768, 50257), (768, 8192, 3072))
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _health_word(loss, params, grads) -> torch.Tensor:
+    """The step's health word as the Module's sentinels take it
+    (``obs/health.step_flags``, ``branch_sumsq``): the loss, the gradient
+    norm, the param norm, the step and loss flags."""
+    from rocket_tpu_torch.obs.health import branch_sumsq, step_flags
+
+    with torch.no_grad():
+        it = iter(grads)
+        step_ok, loss_ok, _branch_ok, grad_norm = step_flags(
+            loss.float(), map_params(lambda _t: next(it), params))
+        return torch.stack([loss.float(), grad_norm, branch_sumsq(params).sum().sqrt(),
+                            step_ok.float(), loss_ok.float()])
+
+
+def _repro_builders(device: str):
+    """``{name: build() -> (step, args)}``: GPT-2 124M's train step as the
+    ``mem`` phase builds it (``sched_audit._gpt2_parts``: B=8, T=1024, bf16,
+    remat, dropout 0.1 and its counter keys, AdamW, the serve phase's
+    seed-0 params), and the MoE LM at REPRO_MOE_LAYERS layers (seeded
+    tokens, the same AdamW), each from fresh identical state on
+    ``device`` (meta for the audit's trace)."""
+    from rocket_tpu_torch.analysis.sched_audit import _gpt2_parts, _train_parts
+
+    gpt2_cfg = TransformerConfig.gpt2_124m()
+    moe_cfg = moe_config(num_layers=REPRO_MOE_LAYERS)
+    tokens = torch.from_numpy(np.random.RandomState(26).randint(
+        0, moe_cfg.vocab_size, (8, moe_cfg.max_seq_len)).astype(np.int32)).to(device)
+
+    def params_of(cfg):
+        if device == "meta":
+            return None
+        return map_params(lambda t: t.to(device), _drawn_params(cfg))
+
+    def gpt2_step():
+        return _gpt2_parts(1024, batch=8, device=device, params=params_of(gpt2_cfg),
+                           keep_grads=True)
+
+    def moe_step():
+        return _train_parts(TransformerLM(moe_cfg), {"tokens": tokens},
+                            make_opt=optim.adamw(weight_decay=0.1), loss_fn=next_token_loss(),
+                            device=device, params=params_of(moe_cfg), keep_grads=True)
+
+    return {"gpt2": gpt2_step, "moe": moe_step}
+
+
+def _replay_run(build, steps: int = 2) -> dict:
+    """``steps`` steps (the first a warm one that creates AdamW's moments)
+    of the train step ``build()`` makes from fresh state on the card, the
+    launch counts zeroed just before: SHA-256 digests of the params, both
+    moments, the step counts, the last loss and the health word, and the
+    kernels launched."""
+    step, args = build()
+    require(all(t.is_cuda for t in step.leaves), "repro: the step's state is not on the card")
+    zero_launches()
+    for _ in range(steps):
+        loss = step(*args)
+    torch.cuda.synchronize()
+    leaves, opt = step.leaves, step.optimizer
+    word = _health_word(loss, args[0], step.grads)
+    return {"params": _digest(leaves),
+            "exp_avg": _digest([opt.state[p]["exp_avg"] for p in leaves]),
+            "exp_avg_sq": _digest([opt.state[p]["exp_avg_sq"] for p in leaves]),
+            "count": _digest([torch.as_tensor(opt.state[p]["step"]) for p in leaves]),
+            "loss": _digest([loss]), "word": _digest([word]), "loss_value": float(loss),
+            "word_value": word.tolist(),
+            "launches": {fn.__name__: fn.launches for fn in COUNTED if fn.launches}}
+
+
+def _deterministic_warnings(build) -> list:
+    """The warnings of one step of ``build()``'s train step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (restored
+    after), with uninitialised memory left unfilled so the program is the
+    replayed one."""
+    import warnings
+
+    from torch.utils import deterministic
+
+    step, args = build()
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = deterministic.fill_uninitialized_memory
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        deterministic.fill_uninitialized_memory = False
+        try:
+            step(*args)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+            deterministic.fill_uninitialized_memory = fill
+    return [str(w.message) for w in caught]
+
+
+def _cublas_reduction(gen) -> list:
+    """Each CUBLAS_SHAPES bf16 GEMM with cuBLAS's reduced-precision split-K
+    reduction on (torch's default) and off, on the same operands: whether
+    the two results are bitwise equal, how many elements differ, and each
+    one's max abs error against the f64 product."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    rows = []
+    try:
+        for m, k, n in CUBLAS_SHAPES:
+            a = torch.randn(m, k, generator=gen).to(torch.bfloat16).cuda()
+            b = (torch.randn(k, n, generator=gen) * k ** -0.5).to(torch.bfloat16).cuda()
+            outs = {}
+            for flag in (True, False):
+                matmul.allow_bf16_reduced_precision_reduction = flag
+                outs[flag] = a @ b
+            exact = a.double() @ b.double()
+            rows.append({"m_k_n": [m, k, n], "bitwise_equal": torch.equal(outs[True], outs[False]),
+                         "differing": int((outs[True] != outs[False]).sum()),
+                         "max_abs_err_on": float((outs[True].double() - exact).abs().max()),
+                         "max_abs_err_off": float((outs[False].double() - exact).abs().max())})
+            del a, b, outs, exact
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    return rows
+
+
+def repro_phase(card):
+    """The determinism audit held to the card (RKT902, RKT905): GPT-2
+    124M's train step and the REPRO_MOE_LAYERS-layer MoE LM (rows 11,
+    ``gmm`` and ``tgmm``, both index_adds) each run twice from identical
+    state, a warm step and one more; params, both moments, the step counts,
+    the loss and the health word must be byte-equal. Then one step of each
+    under torch's deterministic mode (warn only): every op torch warns about
+    must be an order-free op the audit traced in the same step (a finding
+    or a reviewed site); cuBLAS's workspace warnings (no
+    ``CUBLAS_WORKSPACE_CONFIG`` is set once CUDA has started) are counted
+    apart and the replay speaks for them. Last, cuBLAS's bf16
+    reduced-precision reduction on and off at GPT-2's GEMMs. On the card
+    only, outside any profiler window."""
+    t0 = time.perf_counter()
+    require(torch.cuda.is_available(), "repro: needs the card")
+    cards = _repro_builders("cuda")
+    metas = _repro_builders("meta")
+    # The reviewed sites of the audit's train targets of the same layers.
+    allow = {"gpt2": REPRO_TARGETS["fsdp_1x8"].allow, "moe": REPRO_TARGETS["moe"].allow}
+    out, want_kernels = {}, {"gpt2": ("flash_fwd", "flash_bwd"),
+                             "moe": ("flash_fwd", "flash_bwd", "gather_gmm_fwd", "gmm", "tgmm")}
+    for name in ("gpt2", "moe"):
+        with moe_gmm("fused" if name == "moe" else None):
+            runs = [_replay_run(cards[name]) for _ in range(2)]
+            torch.cuda.empty_cache()
+            messages = _deterministic_warnings(cards[name])
+            torch.cuda.empty_cache()
+            step, args = metas[name]()
+            tracer, _record, _ = repro_audit.trace_program(step, *args)
+        warned, cublas = repro_audit.warned_ops(messages)
+        findings = repro_audit.check_nondet_ops(tracer.nondet, allow=allow[name])
+        traced = sorted({f"{op}@{site}" for op, site, _ in tracer.nondet})
+        keys_ = ("params", "exp_avg", "exp_avg_sq", "count", "loss", "word")
+        out[name] = {"runs": runs, "equal": {k: runs[0][k] == runs[1][k] for k in keys_},
+                     "warned_ops": warned, "cublas_warnings": cublas, "warnings": len(messages),
+                     "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+                     "traced_order_free": traced,
+                     "findings": [f.message for f in findings],
+                     "unexplained": repro_audit.explained(warned, tracer.nondet)}
+    gen = torch.Generator().manual_seed(26)
+    cublas_rows = _cublas_reduction(gen)
+    emit("repro", gpt2=out["gpt2"], moe=out["moe"], moe_layers=REPRO_MOE_LAYERS,
+         cublas_reduction=cublas_rows, seconds=time.perf_counter() - t0, card=card)
+    for name, rec in out.items():
+        require(all(rec["equal"].values()), f"repro {name}: two runs from identical state "
+                f"differ at {[k for k, v in rec['equal'].items() if not v]}")
+        for run in rec["runs"]:
+            require(all(run["launches"].get(k, 0) > 0 for k in want_kernels[name]),
+                    f"repro {name}: launches {run['launches']}")
+            require(math.isfinite(run["loss_value"]), f"repro {name}: non-finite loss")
+        require(not rec["findings"], f"repro {name}: " + "; ".join(rec["findings"]))
+        require(not rec["unexplained"], f"repro {name}: torch warns about "
+                f"{rec['unexplained']}, which the audit did not trace")
 
 
 def train_long_phase(card):
@@ -3720,6 +4015,16 @@ def check_moe_kernels(timer, gen):
              counts=counts.tolist(), padded_group_sizes=gsz.tolist(), m_pad=m_pad)
         if dtype != torch.bfloat16:
             continue
+        # The f32 accumulators at the main path's longest contractions: gmm
+        # over K = 3072 (the out-projection), tgmm over each expert's routed
+        # rows of the 18,432 (the in-projection's weight gradient).
+        prec = {"gmm": accuracy.grouped_errors("gmm", h, w_out, gsz, gm.gmm(h, w_out, gsz),
+                                               gm.WG_SLICE),
+                "tgmm": accuracy.grouped_errors("tgmm", xg, dy_h, gsz, gm.tgmm(xg, dy_h, gsz),
+                                                gm.WG_SLICE)}
+        emit("parity_prec", kernel="grouped", m_pad=m_pad, tile=gm.WG_SLICE, **prec)
+        for kind, e in prec.items():
+            require_f32_accumulation(kind, e)
         # Timed at the main path's shapes (forced fused): the in-projection,
         # the out-projection forward, and both weight gradients (drhs).
         # Half of gmm's launches per step are the backward's transpose_rhs
@@ -6997,6 +7302,10 @@ def main() -> int:
     # window, before the longer context allocates more.
     torch.cuda.empty_cache()
     mem_phase(mem_record, card)
+    # The determinism audit held to the card: both replays and the
+    # deterministic-mode warnings, outside any profiler window.
+    torch.cuda.empty_cache()
+    repro_phase(card)
     flash["flash_fwd"]["launches"] = train["flash_fwd"]
     flash["flash_bwd"]["launches"] = train["flash_bwd"]
     flash_long["flash_dq"]["launches"] = train_long_phase(card)["flash_dq"]

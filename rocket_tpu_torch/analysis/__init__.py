@@ -27,22 +27,49 @@ calibration that holds them to the card (counterpart of
   saved set, the out-of-memory frontier, and on the card its
   reconciliation with the allocator (RKT801-805). CLI: ``python -m
   rocket_tpu_torch.analysis mem``.
+* :mod:`~rocket_tpu_torch.analysis.prec_audit` — the dtype flow of a step
+  on meta tensors: accumulation dtypes (cuBLAS's reduction flag and each
+  hand kernel's declared accumulator included), transcendentals, narrowed
+  state and collectives, cast churn, params cast at use (RKT401-406). CLI:
+  ``python -m rocket_tpu_torch.analysis prec``.
+* :mod:`~rocket_tpu_torch.analysis.repro_audit` — key discipline, the
+  order-free sums a step runs on the card, resume and decode-wave
+  identity, and the replay sentinel run twice on the CPU (RKT901-906).
+  CLI: ``python -m rocket_tpu_torch.analysis repro``.
 * :mod:`~rocket_tpu_torch.analysis.budgets` — the committed records the
   audits diff against (``tests/fixtures/torch_budgets/``).
 
 Every check reports :class:`~rocket_tpu_torch.analysis.findings.Finding`\\ s
-and honours ``# rocketlint: disable=RKTxxx``. Only ``calib`` runs a step
-for real, on the card unless its target is the CPU sentinel.
+and honours ``# rocketlint: disable=RKTxxx``. Only ``calib`` and the
+``repro`` sentinel run a step for real, the sentinel on the CPU.
 """
 
 from rocket_tpu_torch.analysis.findings import Finding, emit_findings, parse_suppressions
 from rocket_tpu_torch.analysis.rocketlint import lint_file, lint_paths, lint_source
 from rocket_tpu_torch.analysis.mem_audit import MemAuditReport, audit_memory, simulate_liveness
+from rocket_tpu_torch.analysis.prec_audit import (
+    PREC_TARGETS,
+    PrecAuditReport,
+    audit_precision,
+    certify_collectives,
+    collect_dtype_flow,
+    run_prec_target,
+)
+from rocket_tpu_torch.analysis.repro_audit import (
+    REPRO_TARGETS,
+    ReproAuditReport,
+    audit_serve_repro,
+    audit_train_repro,
+    run_replay_sentinel,
+    run_repro_target,
+)
 from rocket_tpu_torch.analysis.rules import (
     AST_RULES,
     AUDIT_RULES,
     CALIB_RULES,
     MEM_RULES,
+    PREC_RULES,
+    REPRO_RULES,
     SCHED_RULES,
     SPMD_RULES,
     all_rules,
@@ -65,5 +92,8 @@ __all__ = [
     "all_rules", "SCHED_TARGETS", "SchedAuditReport", "audit_schedule", "collect_launch_facts",
     "predict", "run_sched_target", "trace_step", "audit_step", "audit_retraces",
     "trace_signature", "audit_sharding", "ShardAuditReport", "estimate_hbm", "audit_memory",
-    "MemAuditReport", "simulate_liveness",
+    "MemAuditReport", "simulate_liveness", "PREC_RULES", "REPRO_RULES", "PREC_TARGETS",
+    "PrecAuditReport", "audit_precision", "certify_collectives", "collect_dtype_flow",
+    "run_prec_target", "REPRO_TARGETS", "ReproAuditReport", "audit_train_repro",
+    "audit_serve_repro", "run_replay_sentinel", "run_repro_target",
 ]

@@ -11,6 +11,10 @@ the calibration (counterpart of ``rocket_tpu/analysis/__main__.py``).
         [--budgets-dir DIR | --no-budgets] [--update-budgets]
     python -m rocket_tpu_torch.analysis mem [--target NAME ...] [--list-targets]
         [--device-kind KIND] [--budgets-dir DIR | --no-budgets] [--update-budgets]
+    python -m rocket_tpu_torch.analysis prec [--target NAME ...] [--list-targets]
+        [--budgets-dir DIR | --no-budgets] [--update-budgets]
+    python -m rocket_tpu_torch.analysis repro [--target NAME ...] [--list-targets]
+        [--budgets-dir DIR | --no-budgets] [--update-budgets]
     python -m rocket_tpu_torch.analysis all [PATH ...] [--budgets-dir ROOT]
     python -m rocket_tpu_torch.analysis --list-rules
 
@@ -29,7 +33,11 @@ the priced step; RKT702/703, and RKT701 its budgets), ``shard``
 collectives, RKT301-305; RKT306 its budgets) and ``mem``
 (``analysis/mem_audit.py``: the liveness of each target's step, its
 in-place update, saved set and frontier, RKT801/802/804; RKT803 its
-budgets; RKT805 needs the card's measured peak, ``chip_smoke.py``). Each
+budgets; RKT805 needs the card's measured peak, ``chip_smoke.py``),
+``prec`` (``analysis/prec_audit.py``: the dtype flow of each target's
+step, RKT401-405; RKT406 its budgets) and ``repro``
+(``analysis/repro_audit.py``: key discipline, order-free sums, resume and
+wave identity, the replay sentinel, RKT901-905; RKT906 its budgets). Each
 diffs its records against the committed
 ``tests/fixtures/torch_budgets/<family>/`` of the checkout unless
 ``--no-budgets`` (``--budgets-dir`` another directory;
@@ -39,8 +47,8 @@ whose device is present and names the others on stderr; a named target
 whose card is absent is a usage error, never measured on the CPU instead.
 ``all`` runs the lint and every family in one process. The trace audit
 (RKT2xx) is a library entry, ``trace_audit.audit_step``, as the
-reference's is. The reference's other families (prec, serve, repro,
-fault) are ROADMAP Queue A 9's remainder: asking for one exits 2.
+reference's is. The reference's other families (serve, fault) are ROADMAP
+Queue A 9's remainder: asking for one exits 2.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from rocket_tpu_torch.analysis.rules import all_rules
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 #: The reference's audit families not ported yet (ROADMAP Queue A 9).
-UNPORTED = ("prec", "serve", "repro", "fault")
+UNPORTED = ("serve", "fault")
 
 
 def _ids(text):
@@ -142,6 +150,34 @@ def _load_mem():
     return MEM_TARGETS, run
 
 
+def _load_prec():
+    from rocket_tpu_torch.analysis.prec_audit import PREC_TARGETS, render_prec, run_prec_target
+
+    def run(target, args):
+        report = run_prec_target(target)
+        if report.record and getattr(args, "format", "text") == "text":
+            print(render_prec(target.name, report.record), file=sys.stderr)
+        return report
+
+    return PREC_TARGETS, run
+
+
+def _load_repro():
+    from rocket_tpu_torch.analysis.repro_audit import (
+        REPRO_TARGETS,
+        render_repro,
+        run_repro_target,
+    )
+
+    def run(target, args):
+        report = run_repro_target(target)
+        if report.record and getattr(args, "format", "text") == "text":
+            print(render_repro(target.name, report.record), file=sys.stderr)
+        return report
+
+    return REPRO_TARGETS, run
+
+
 #: The one audit-subcommand registry ``main`` dispatches on.
 AUDIT_SUBCOMMANDS = {cli.name: cli for cli in (
     AuditCLI("sched", "roofline cost model of each target's step traced on meta tensors "
@@ -164,6 +200,16 @@ AUDIT_SUBCOMMANDS = {cli.name: cli for cli in (
              "frontier per card (RKT801, RKT802, RKT804); RKT803 budgets",
              _load_mem, "MEM_DIR", "MEM_GATED_KEYS", "RKT803", "mem",
              lambda t: f"mesh={dict(t.mesh_shape)} {t.doc}"),
+    AuditCLI("prec", "dtype-flow audit of each target's step traced on meta tensors: "
+             "low-precision accumulation, sub-f32 transcendentals, narrowed state and "
+             "collectives, cast churn, params never cast (RKT401-405); RKT406 budgets",
+             _load_prec, "PREC_DIR", "PREC_GATED_KEYS", "RKT406", "prec",
+             lambda t: t.doc),
+    AuditCLI("repro", "determinism audit: key reuse and unfolded loop keys, order-free "
+             "sums, resume identity through checkpoint_io, one decode-wave body for every "
+             "k, the replay sentinel run twice on the CPU (RKT901-905); RKT906 budgets",
+             _load_repro, "REPRO_DIR", "REPRO_GATED_KEYS", "RKT906", "repro",
+             lambda t: f"kind={t.kind} {t.doc}"),
 )}
 
 

@@ -9,14 +9,18 @@ default diff mode fails when a gated metric grows more than ``TOLERANCE``
 (improvements re-baseline via ``--update-budgets``). A missing record is
 itself a finding: a new target lands with its baseline.
 
-The port gates four families: the schedule audit's ``SCHED_GATED_KEYS``
+The port gates six families: the schedule audit's ``SCHED_GATED_KEYS``
 (RKT506: predicted step time and exposed communication, ``sched/``), the
 calibration's ``CALIB_GATED_KEYS`` (RKT701: the absolute calibration error
 and the unjoined measured fraction, ``calib/``), the SPMD audit's
 ``GATED_KEYS`` (RKT306: collective bytes per step and per-device memory,
 ``shard/``) and the memory audit's ``MEM_GATED_KEYS`` (RKT803: the
-predicted peak and the saved-activation bytes, ``mem/``). The other key
-sets are the reference's, kept whole for the audits still to be ported.
+predicted peak and the saved-activation bytes, ``mem/``), the precision
+audit's ``PREC_GATED_KEYS`` (RKT406: the f32-bytes fraction and the cast
+counts, ``prec/``) and the determinism audit's ``REPRO_GATED_KEYS``
+(RKT906: the program fingerprint, by equality, and the draw count,
+``repro/``). The other key sets are the reference's, kept whole for the
+audits still to be ported.
 ``tests/fixtures/budgets/`` is the reference's and is not read here. The
 reference keeps its SPMD records at the top of its budgets directory; the
 port's top level holds one directory per family, so they sit in
@@ -117,6 +121,8 @@ SCHED_DIR = os.path.join(DEFAULT_DIR, "sched")
 CALIB_DIR = os.path.join(DEFAULT_DIR, "calib")
 SHARD_DIR = os.path.join(DEFAULT_DIR, "shard")
 MEM_DIR = os.path.join(DEFAULT_DIR, "mem")
+PREC_DIR = os.path.join(DEFAULT_DIR, "prec")
+REPRO_DIR = os.path.join(DEFAULT_DIR, "repro")
 
 
 def budget_path(budgets_dir: str, target: str) -> str:

@@ -18,11 +18,16 @@ slug and a one-line contract, printed by ``--list-rules``.
   one rank's collectives (:mod:`rocket_tpu_torch.analysis.shard_audit`);
 * ``MEM_RULES`` — the memory audit (``RKT8xx``): the liveness of an eager
   step, its in-place update, its frontier and its reconciliation with the
-  card's allocator (:mod:`rocket_tpu_torch.analysis.mem_audit`).
+  card's allocator (:mod:`rocket_tpu_torch.analysis.mem_audit`);
+* ``PREC_RULES`` — the precision audit (``RKT4xx``): the dtype flow of a
+  step (:mod:`rocket_tpu_torch.analysis.prec_audit`);
+* ``REPRO_RULES`` — the determinism audit (``RKT9xx``): key discipline,
+  order-free sums, resume and wave identity, the replay sentinel
+  (:mod:`rocket_tpu_torch.analysis.repro_audit`).
 
-The reference's other families (its precision, serving, determinism and
-fault audits, and lint rules RKT101, RKT102 and RKT108 to RKT114) are
-ROADMAP Queue A 9's remainder.
+The reference's other families (its serving and fault audits, and lint
+rules RKT101, RKT102 and RKT108 to RKT114) are ROADMAP Queue A 9's
+remainder.
 """
 
 from __future__ import annotations
@@ -35,11 +40,13 @@ from rocket_tpu_torch.analysis.rules.capsule_rules import (
 )
 from rocket_tpu_torch.analysis.rules.host_rules import ForkStartMethodRule, SyncInLoopRule
 from rocket_tpu_torch.analysis.rules.mem_rules import MEM_RULES
+from rocket_tpu_torch.analysis.rules.prec_rules import PREC_RULES
+from rocket_tpu_torch.analysis.rules.repro_rules import REPRO_RULES
 from rocket_tpu_torch.analysis.rules.sched_rules import SCHED_RULES
 from rocket_tpu_torch.analysis.rules.spmd_rules import SPMD_RULES
 
 __all__ = ["AST_RULES", "AUDIT_RULES", "SPMD_RULES", "SCHED_RULES", "CALIB_RULES", "MEM_RULES",
-           "all_rules"]
+           "PREC_RULES", "REPRO_RULES", "all_rules"]
 
 AST_RULES = (
     SyncInLoopRule(),
@@ -80,4 +87,5 @@ def all_rules() -> tuple:
     """``(id, slug, contract)`` of every rule, in id order."""
     return tuple(sorted([(r.rule_id, r.slug, r.contract) for r in AST_RULES]
                         + list(AUDIT_RULES) + list(SPMD_RULES) + list(SCHED_RULES)
-                        + list(CALIB_RULES) + list(MEM_RULES)))
+                        + list(CALIB_RULES) + list(MEM_RULES) + list(PREC_RULES)
+                        + list(REPRO_RULES)))

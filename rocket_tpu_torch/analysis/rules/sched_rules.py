@@ -63,7 +63,7 @@ from rocket_tpu_torch.analysis.findings import Finding
 
 __all__ = [
     "SCHED_RULES", "SECTOR_BYTES", "ROW_MULTIPLE", "check_convoys", "check_exposed_comm",
-    "check_launches", "check_memory_bound", "check_mfu_floor",
+    "check_launches", "check_memory_bound", "check_mfu_floor", "check_numerics_declared",
 ]
 
 SCHED_RULES = (
@@ -146,6 +146,26 @@ def check_launches(facts: Iterable, spec, *, label: str = "step") -> list:
                 f"with the card ({'; '.join(faults)}): its rows straddle sectors or leave "
                 "fragment rows idle on every CTA; align the tile or use the full dim",
             ))
+    return findings
+
+
+def check_numerics_declared(facts: Iterable, *, label: str = "step") -> list:
+    """RKT504's declaration leg: a launch whose fact names no ``acc_dtype``
+    (``ops._launch.with_work``'s ``acc``). A ctypes launch shows the trace no
+    aten op, so the kernel's own declaration is the only record of what it
+    accumulates in; without it the precision audit cannot hold the kernel
+    to the f32-accumulation convention. One finding per kernel."""
+    findings, seen = [], set()
+    for fact in facts:
+        if getattr(fact, "acc_dtype", None) or fact.name in seen:
+            continue
+        seen.add(fact.name)
+        findings.append(Finding(
+            "RKT504", _path(label), 0,
+            f"kernel-launch-misfit: {fact.name} declares no accumulation dtype: its launch "
+            "fact must carry acc_dtype (ops._launch.with_work(..., acc=...)), what its .cu "
+            "accumulates products and sums in",
+        ))
     return findings
 
 

@@ -75,6 +75,7 @@ from rocket_tpu_torch.analysis.rules.sched_rules import (
     check_launches,
     check_memory_bound,
     check_mfu_floor,
+    check_numerics_declared,
 )
 from rocket_tpu_torch.ops._launch import CommFact, LaunchFact, record_launches
 from rocket_tpu_torch.utils.perf import device_spec
@@ -621,13 +622,15 @@ def audit_schedule(step_fn: Callable, *args, device_kind: str = DEFAULT_DEVICE_K
                    mesh: Optional[Mapping[str, int]] = None) -> SchedAuditReport:
     """Audit ``step_fn(*args)`` (meta tensors in ``args``) on
     ``device_kind``: trace it (:func:`trace_step`) and hold its launches
-    to the card (RKT504); with ``roofline`` (every target's audit) also
+    to the card (RKT504, each launch's declared accumulation dtype
+    included); with ``roofline`` (every target's audit) also
     price it (:func:`predict`) and run RKT501-503 and RKT505 with the
     reference's thresholds."""
     spec = _spec(device_kind)
     tracer = trace_step(step_fn, *args, device_kind=device_kind)
     report = SchedAuditReport(label=label, launches=list(tracer.launches), ops=tracer.ops)
     findings = check_launches(tracer.launches, spec, label=label)
+    findings += check_numerics_declared(tracer.launches, label=label)
     if roofline:
         scheduled, ideal, record = predict(tracer.ops, device_kind)
         report.scheduled, report.ideal = scheduled, ideal
@@ -698,7 +701,7 @@ def _meta_params(model, device="meta", params=None):
 
 
 def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = True,
-                 device="meta", params=None):
+                 device="meta", params=None, keep_grads: bool = False):
     """The Module's train step (``core/module.py``: ``_train_step``,
     ``_forward``, ``_update``) built from its pieces, since the Module
     itself needs a Runtime on a device: the forward (under the
@@ -710,7 +713,9 @@ def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = Tr
     its per-param loop). The params live on ``device`` (meta for the
     audit, a real device for the calibration's measured leg: the same aten
     sequence; ``params`` drawn already, or seed 0's). The step carries
-    ``leaves`` and ``optimizer``, the train state the memory audit reads."""
+    ``leaves`` and ``optimizer``, the train state the memory audit reads,
+    and with ``keep_grads`` ``grads``, the last step's gradients (for a
+    health word; off for the audits, whose liveness they would change)."""
     from torch.utils.checkpoint import checkpoint
 
     from rocket_tpu_torch.nn import keys
@@ -730,6 +735,8 @@ def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = Tr
             loss = loss_fn(out).float()
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if keep_grads:
+            step.grads = grads
         if opt is None:
             _sgd_(leaves, grads)
             return loss.detach()
@@ -746,13 +753,15 @@ def _train_parts(model, batch: dict, *, make_opt=None, loss_fn, remat: bool = Tr
     return step, (params, batch)
 
 
-def _gpt2_parts(seq_len: int, batch: int = 8, device="meta", params=None):
+def _gpt2_parts(seq_len: int, batch: int = 8, device="meta", params=None,
+                keep_grads: bool = False):
     """GPT-2 124M at full width, B=8, bf16 compute, as ``chip_smoke.py``'s
     train phases take a step (``examples/gpt2.build``): dropout 0.1 and
     its counter-hash keys, the whole-forward remat (each layer's forward
     runs twice), the next-token loss, the backward and AdamW (weight decay
     0.1 on the matrices). ``params``: f32 params on ``device`` drawn
-    already (seed 0's are drawn otherwise)."""
+    already (seed 0's are drawn otherwise); ``keep_grads`` as
+    :func:`_train_parts`."""
     from rocket_tpu_torch import optim
     from rocket_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -763,7 +772,8 @@ def _gpt2_parts(seq_len: int, batch: int = 8, device="meta", params=None):
     model = TransformerLM(TransformerConfig.gpt2_124m(max_seq_len=seq_len))
     tokens = torch.zeros((batch, seq_len), dtype=torch.int32, device=device)
     return _train_parts(model, {"tokens": tokens}, make_opt=optim.adamw(weight_decay=0.1),
-                        loss_fn=next_token_loss(), device=device, params=params)
+                        loss_fn=next_token_loss(), device=device, params=params,
+                        keep_grads=keep_grads)
 
 
 def _train_flash_parts():
@@ -1041,8 +1051,8 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
     """One rank's step of the audit LM at ``mesh`` under ``rule``, built
     as ``core/module.py`` builds it (``_shard``, ``_setup_grad_sync``,
     ``_full_params``, ``_tp``): the rank's shards of the params
-    (``bridge.local_params``), a data-sharded leaf all-gathered whole before
-    the forward, the forward under ``tp_overlap`` over a model axis (the
+    (``bridge.local_params``), the data-sharded leaves all-gathered whole
+    before the forward in the Module's buckets (``grad_sync.gather_buckets``), the forward under ``tp_overlap`` over a model axis (the
     collective matmuls, the sequence-sharded residual stream), and the
     backward's gradients reduced by ``GradSync`` (bucketed all-reduces, an
     FSDP leaf's reduce-scatter, the norms summed over the model group),
@@ -1075,8 +1085,8 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
     data, model_n = runtime.data_axis_size, runtime.model_axis_size
     tp = model_n > 1 and getattr(rule, "tp_axis", None) is not None
     dims = [None if lay is None or lay.axis != "data" else lay.dim for lay in layouts]
-    # (dim, world) of each leaf gathered whole at step entry.
-    gathered = [(lay.dim, runtime.axis_size(lay.axis)) if lay is not None and (
+    # (dim, world, axis) of each leaf gathered whole at step entry.
+    gathered = [(lay.dim, runtime.axis_size(lay.axis), lay.axis) if lay is not None and (
         lay.axis == "data" or (lay.axis == "model" and not tp)) else None for lay in layouts]
     maps = [(lambda g, d=lay.dim: g.chunk(model_n, d)[0].contiguous())
             if lay is not None and lay.axis == "model" and not tp else None for lay in layouts]
@@ -1096,17 +1106,16 @@ def _parallel_lm_parts(mesh: Mapping[str, int], rule, *, train: bool = True,
     rng = keys.fold_in(keys.key(0), 0)
 
     def full_params(local):
-        # Every gather started before the first wait.
-        pending = [None if g is None else gs.gather_full(t.detach(), g[0], g[1], async_op=True)
-                   for t, g in zip(optim.param_leaves(local), gathered)]
-        full = []
-        for t, item in zip(optim.param_leaves(local), pending):
-            if item is None:
-                full.append(t)
-                continue
-            whole_t, work = item
-            work.wait()
-            full.append(whole_t.requires_grad_(True) if train else whole_t)
+        # The Module's buckets, one flat all-gather each, every gather
+        # started before the first wait.
+        mine = optim.param_leaves(local)
+        started = [gs.gather_buckets([(i, t.detach(), g[0]) for i, (t, g) in enumerate(
+            zip(mine, gathered)) if g is not None and g[2] == axis], runtime.axis_size(axis))
+            for axis in sorted({g[2] for g in gathered if g is not None})]
+        full = list(mine)
+        for pending in started:
+            for i, whole_t in gs.gathered(pending):
+                full[i] = whole_t.requires_grad_(True) if train else whole_t
         it = iter(full)
         return map_params(lambda t: next(it), local), full
 
@@ -1332,13 +1341,8 @@ SCHED_TARGETS = {target.name: target for target in (
                 mesh_shape={"data": 2, "model": 4}, mfu_floor=0.0016),          # of 0.0024
     SchedTarget("tp_1x8", _tp_1x8_parts, "audit LM train step, one rank of model 8",
                 mesh_shape={"data": 1, "model": 8}, mfu_floor=0.0014),          # of 0.0022
-    # Each FSDP leaf is gathered on its own at step entry (the Module's
-    # _full_params): 12 latency-bound gathers in a row on the audit LM, a
-    # convoy RKT502 names truly (bucketing them is queued in ROADMAP); the
-    # gate sits one past today's run, so a longer convoy fails.
     SchedTarget("fsdp_1x8", _fsdp_1x8_parts, "audit LM train step, one rank of 8 FSDP ranks",
-                mesh_shape={"data": 8}, mfu_floor=0.0020,                        # of 0.0031
-                overrides={"convoy_min": 13}),
+                mesh_shape={"data": 8}, mfu_floor=0.0020),                       # of 0.0031
     SchedTarget("tp_2x4_eval", _tp_2x4_eval_parts, "audit LM eval forward, one rank of data 2 "
                 "x model 4", mesh_shape={"data": 2, "model": 4}, mfu_floor=0.0012),  # of 0.0018
     SchedTarget("dp_resnet_1x8", _dp_resnet_parts, "ResNet-18 CIFAR train step with sync-BN, "

@@ -821,18 +821,23 @@ class Module(Dispatcher):
         gather started before the first wait; otherwise a model shard stays
         this rank's, the tensor-parallel layers read it as it is); with
         ``grad`` the gathered tensors are fresh leaves that need a
-        gradient. Returns ``(params, leaves in param order)``."""
+        gradient. The gathers of one axis go in buckets, one flat
+        all-gather each (``grad_sync.gather_buckets``: the reductions'
+        bucket rule), not one a leaf. Returns ``(params, leaves in param
+        order)``."""
         prepared = self._prepared
         leaves = optim_lib.param_leaves(params)
-        gathered = {"data"} | ({"model"} if replicated else set())
-        if not prepared.sharded() or not gathered & set(prepared.shard_axes):
+        axes = sorted(({"data"} | ({"model"} if replicated else set()))
+                      & set(prepared.shard_axes or ()))
+        if not prepared.sharded() or not axes:
             return params, leaves
-        from rocket_tpu_torch.parallel.grad_sync import gather_full
+        from rocket_tpu_torch.parallel.grad_sync import gather_buckets, gathered
 
         runtime = self._runtime
-        pending = [None if a not in gathered else gather_full(
-            t.detach(), d, prepared.axis_size[a], group=runtime.axis_group(a), async_op=True)
-            for t, d, a in zip(leaves, prepared.shard_dims, prepared.shard_axes)]
+        started = [gather_buckets(
+            [(i, t.detach(), d) for i, (t, d, a) in enumerate(
+                zip(leaves, prepared.shard_dims, prepared.shard_axes)) if a == axis],
+            prepared.axis_size[axis], group=runtime.axis_group(axis)) for axis in axes]
         if replicated:
             from rocket_tpu_torch.parallel import collectives as coll
 
@@ -841,14 +846,10 @@ class Module(Dispatcher):
             coll.note_gather([t for t, a in zip(leaves, prepared.shard_axes) if a == "model"],
                              prepared.axis_size.get("model", 1))
         t0 = time.perf_counter()
-        full = []
-        for t, item in zip(leaves, pending):
-            if item is None:
-                full.append(t)
-                continue
-            whole, work = item
-            work.wait()
-            full.append(whole.requires_grad_(True) if grad else whole)
+        full = list(leaves)
+        for pending in started:
+            for i, whole in gathered(pending):
+                full[i] = whole.requires_grad_(True) if grad else whole
         if replicated:
             coll.STATS["wait_s"] += time.perf_counter() - t0
         it = iter(full)

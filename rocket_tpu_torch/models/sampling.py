@@ -112,6 +112,9 @@ def draw(scaled, seed: int, salt):
     ``salt`` is an int (shared by the batch; the row index separates the
     rows) or a per-row integer tensor (each row keyed by its own salt).
     Masked (``-inf``) entries are never drawn."""
+    from rocket_tpu_torch.nn import keys
+
+    keys.note_draw("sample", (int(seed), salt), ("range", 0, scaled.numel()), scaled.shape)
     squeeze = scaled.dim() == 1
     scaled = scaled.reshape(-1, scaled.shape[-1])
     rows, vocab = scaled.shape

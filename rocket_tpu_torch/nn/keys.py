@@ -32,6 +32,16 @@ masks.
 The bits cannot match JAX's; the tests compare distributions and the
 forward/recompute identity, and run the JAX comparisons with dropout 0.
 
+:func:`record_draws` is the determinism audit's view of all this
+(``analysis/repro_audit.py``, RKT901): inside it every key made by
+:func:`key`, every child derived by :func:`fold_in` (and :func:`split`,
+which folds), and every draw (:func:`uniform`, :func:`bernoulli`,
+:func:`dropout_mask`, and ``models.sampling.draw``'s Gumbel draws, keyed
+by their seed and salt) is noted with its key, the element indices it
+hashes, its shape and the code that drew it. A draw made while autograd
+runs a node is a checkpoint's recompute replaying the forward's draw (the
+identity this module exists for) and is marked so.
+
 A checkpoint carries the key as the reference's key data, two uint32
 words (``jax.random.key_data``): :func:`to_data` writes a key as ``(0,
 k)``, and :func:`from_data` derives the int from two words as ``w1 ^
@@ -43,6 +53,9 @@ unchanged, so a key crosses the packages both ways with the same bits.
 from __future__ import annotations
 
 import contextlib
+import os
+import sys
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -51,14 +64,94 @@ from rocket_tpu_torch.models.sampling import _mix, _mix_int
 
 __all__ = ["key", "fold_in", "split", "uniform", "bernoulli", "to_data", "from_data",
            "data_shard", "shard_offset", "global_index", "dropout_mask", "activation_split",
-           "current_split"]
+           "current_split", "Draw", "KeyRecord", "record_draws", "note_draw"]
 
 _M32 = 0xFFFFFFFF
 
 
+class Draw(NamedTuple):
+    """One random draw: ``kind`` (``"uniform"``, ``"dropout_mask"``,
+    ``"sample"``), its ``key`` (an int, or ``(seed, salt)`` for a sampling
+    draw, the salt an int or the salt tensor itself), ``domain``, the
+    element indices it hashes (``("range", first, end)``, or ``("split",
+    split, data rank, shape)`` for a chunk of a sharded array), its
+    ``shape``, ``site`` (``path:line (function)`` of the code that drew it) and
+    ``replay`` (made during a backward: a checkpoint's recompute)."""
+
+    kind: str
+    key: Any
+    domain: tuple
+    shape: tuple
+    site: str
+    replay: bool
+
+
+class KeyRecord:
+    """What :func:`record_draws` saw: ``creations`` (root keys made),
+    ``derivations`` (``child -> (parent, data)``) and ``draws``."""
+
+    def __init__(self) -> None:
+        self.creations: list = []
+        self.derivations: dict = {}
+        self.draws: list = []
+
+    def origin(self, k) -> tuple:
+        """The chain of (parent, data) folds that made ``k``, root first."""
+        chain = []
+        while k in self.derivations and len(chain) < 64:
+            parent, data = self.derivations[k]
+            chain.append((parent, data))
+            k = parent
+        return tuple(reversed(chain))
+
+
+#: The open recorders, process-wide (a CUDA backward runs on autograd's
+#: device threads).
+_RECORDERS: list = []
+_HERE = os.path.abspath(__file__)
+
+
+@contextlib.contextmanager
+def record_draws():
+    """Note every key made, derived and drawn inside the block (module
+    docstring); yields the :class:`KeyRecord`."""
+    record = KeyRecord()
+    _RECORDERS.append(record)
+    try:
+        yield record
+    finally:
+        _RECORDERS.remove(record)
+
+
+def _site() -> str:
+    frame = sys._getframe(2)
+    while frame is not None and (os.path.abspath(frame.f_code.co_filename) == _HERE
+                                 or frame.f_code.co_filename.endswith("sampling.py")):
+        frame = frame.f_back
+    if frame is None:
+        return ""
+    path = os.path.abspath(frame.f_code.co_filename)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
+    rel = os.path.relpath(path, root) if path.startswith(root) else os.path.basename(path)
+    return f"{rel}:{frame.f_lineno} ({frame.f_code.co_name})"
+
+
+def note_draw(kind: str, k, domain: tuple, shape) -> None:
+    """Hand one draw to every open :func:`record_draws` block."""
+    if not _RECORDERS:
+        return
+    replay = torch._C._current_autograd_node() is not None
+    draw = Draw(kind, k, tuple(domain), tuple(int(s) for s in shape), _site(), replay)
+    for record in _RECORDERS:
+        record.draws.append(draw)
+
+
 def key(seed: int) -> int:
     """The root key of a seed."""
-    return _mix_int(int(seed) ^ 0x5EED0001)
+    k = _mix_int(int(seed) ^ 0x5EED0001)
+    for record in _RECORDERS:
+        record.creations.append(k)
+    return k
 
 
 def to_data(k: int) -> np.ndarray:
@@ -75,7 +168,10 @@ def from_data(words) -> int:
 
 def fold_in(k: int, data: int) -> int:
     """A child key of ``k`` for the integer ``data`` (``jax.random.fold_in``)."""
-    return _mix_int(k ^ _mix_int((int(data) * 0x61C88647 + 0x7F4A7C15) & _M32))
+    child = _mix_int(k ^ _mix_int((int(data) * 0x61C88647 + 0x7F4A7C15) & _M32))
+    for record in _RECORDERS:
+        record.derivations.setdefault(child, (k, int(data)))
+    return child
 
 
 def split(k: int, num: int = 2) -> list:
@@ -141,6 +237,7 @@ def uniform(k: int, shape, device, offset: int = 0) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= int(s)
+    note_draw("uniform", k, ("range", int(offset), int(offset) + n), shape)
     idx = torch.arange(offset, offset + n, device=device, dtype=torch.int64)
     return _uniform_at(k, idx).reshape(shape)
 
@@ -177,6 +274,8 @@ def dropout_mask(k: int, p: float, shape, device, split=None) -> torch.Tensor:
         for s in shape:
             n *= int(s)
         return bernoulli(k, p, shape, device, shard_offset(n))
+    note_draw("dropout_mask", k, ("split", tuple(int(v) for v in split), _DATA_SHARD[0],
+                                  tuple(int(v) for v in shape)), shape)
     return _uniform_at(k, global_index(shape, device, split)) < p
 
 

@@ -81,13 +81,33 @@ DISPATCHES = ("einsum", "scatter", "dropless")
 ROWS: dict = {"total": None}
 
 
+class _ExpertRows(torch.autograd.Function):
+    """``table[expert]`` with a fixed-order backward: the forward is
+    ``F.embedding``'s gather; the backward sums each expert's rows in one
+    f32 GEMM, ``one_hot(expert).T @ grad``. ``F.embedding``'s CUDA backward
+    adds a row's duplicates in no fixed order (two runs of one MoE step
+    differed in the last bit of a bias gradient on the card), and an
+    indexing gather's backward adds them one after the other, slow when
+    each of the E rows has thousands."""
+
+    @staticmethod
+    def forward(ctx, table, expert):
+        ctx.save_for_backward(expert)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return F.embedding(expert, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (expert,) = ctx.saved_tensors
+        onehot = F.one_hot(expert, ctx.rows).to(torch.float32)
+        return (onehot.t() @ grad.float()).to(ctx.dtype), None
+
+
 def _expert_rows(table, expert):
     """``table[expert]``: each routed row's row of an (E, F) expert table
-    (the biases). The same gather as indexing, through ``F.embedding``,
-    whose backward sums each expert's rows as parallel segments; the
-    backward of an indexing gather adds a row's duplicates one after the
-    other, and here each of the E rows has thousands."""
-    return F.embedding(expert, table)
+    (the biases), gathered; its gradient summed per expert in a fixed order
+    (:class:`_ExpertRows`)."""
+    return _ExpertRows.apply(table, expert)
 
 
 def _mine(rows, mine):

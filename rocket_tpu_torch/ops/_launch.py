@@ -16,8 +16,15 @@ Each fact also carries the work of its launch, ``flops`` and ``bytes``:
 the operations it does and the HBM bytes it moves, each input read once
 and each output written once, the quantities PERF.md's bound column is
 computed from. The schedule audit's cost model prices a hand kernel by
-them. The collectives (``parallel.collectives``, ``parallel.grad_sync``)
-record a :class:`CommFact` the same way on meta tensors.
+them. And it declares its numerics, which no aten-op trace can see inside
+a ctypes launch: ``acc_dtype``, the dtype the kernel accumulates its
+products and sums in, and ``acc_order``, whether those sums run in a
+fixed order (``"fixed"``) or in whatever order the card's threads arrive
+(``"any"``: a float ``atomicAdd``). The precision audit reads the first,
+the determinism audit the second; the schedule audit refuses a fact that
+declares no ``acc_dtype``. The collectives (``parallel.collectives``,
+``parallel.grad_sync``) record a :class:`CommFact` the same way on meta
+tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import ctypes
 import dataclasses
 import threading
 from dataclasses import dataclass
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import torch
 
@@ -65,7 +72,8 @@ class LaunchFact:
     stages in shared memory or streams through its loops; ``flops`` and
     ``bytes``, the launch's work (module docstring), and ``flop_dtype``, the
     dtype whose peak rate its operations run at (``"bfloat16"`` on the
-    tensor cores, ``"float32"`` on the CUDA cores)."""
+    tensor cores, ``"float32"`` on the CUDA cores); ``acc_dtype`` and
+    ``acc_order``, its accumulation (module docstring; None: undeclared)."""
 
     name: str
     grid: tuple
@@ -76,6 +84,8 @@ class LaunchFact:
     flops: float = 0.0
     bytes: int = 0
     flop_dtype: str = "float32"
+    acc_dtype: Optional[str] = None
+    acc_order: str = "fixed"
 
     @property
     def smem_bytes(self) -> int:
@@ -88,11 +98,16 @@ class LaunchFact:
         return (tuple(self.grid), self.threads, self.dynamic_smem, self.static_smem)
 
 
-def with_work(fact: LaunchFact, nbytes: float, flops: float, dtype: torch.dtype) -> LaunchFact:
-    """``fact`` with its work: ``nbytes`` moved, ``flops`` done at the rate
-    of ``dtype``."""
+def with_work(fact: LaunchFact, nbytes: float, flops: float, dtype: torch.dtype, *,
+              acc: torch.dtype, order: str = "fixed") -> LaunchFact:
+    """``fact`` with its work, ``nbytes`` moved and ``flops`` done at the
+    rate of ``dtype``, and its numerics: accumulation in ``acc``, in a
+    ``"fixed"`` or ``"any"`` order."""
+    if order not in ("fixed", "any"):
+        raise ValueError(f"with_work: order must be 'fixed' or 'any', not {order!r}")
     return dataclasses.replace(fact, flops=float(flops), bytes=int(nbytes),
-                               flop_dtype=dtype_name(dtype))
+                               flop_dtype=dtype_name(dtype), acc_dtype=dtype_name(acc),
+                               acc_order=order)
 
 
 @dataclass(frozen=True)

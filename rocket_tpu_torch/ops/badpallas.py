@@ -89,7 +89,8 @@ def bad_scale_launch(shape, block, grid) -> LaunchFact:
     # Work: the elements its grid covers, each read and written once (4
     # bytes each way) and multiplied once.
     covered = min(gr * br, rows) * min(gc * bc, cols)
-    return with_work(fact, 8 * covered, covered, torch.float32)
+    # Numerics: one f32 product an element, nothing summed.
+    return with_work(fact, 8 * covered, covered, torch.float32, acc=torch.float32)
 
 
 def _lib():

@@ -94,9 +94,10 @@ def decode_attention_launches(b: int, hq: int, h_kv: int, t_max: int, d: int, dt
     return (
         with_work(LaunchFact("decode_attention", (b, h_kv, n_split), THREADS,
                              _split_smem_bytes(g, d, dtype), 0,
-                             (group, kv, kv, new, new, written, written, rec)), *split, dtype),
+                             (group, kv, kv, new, new, written, written, rec)), *split, dtype,
+                  acc=torch.float32),
         with_work(LaunchFact("decode_attention_combine", (b, h_kv, 1), THREADS, 0, 0,
-                             (rec, group)), *combine, dtype),
+                             (rec, group)), *combine, dtype, acc=torch.float32),
     )
 
 

@@ -205,7 +205,9 @@ def qkv_launch(kind: str, b: int, h: int, t: int, d: int, dtype, block_q: int,
         grid, tiles = t // block_k, (k_t, k_t, q_t, q_t, stat, stat, q_t, k_t, k_t)
     fact = LaunchFact(f"flash_qkv_{kind}", (grid, h, b), threads(kind, block_q, dtype, block_k),
                       smem_bytes(kind, block_q, block_k, d, dtype), 0, tiles)
-    return with_work(fact, *qkv_work(kind, b, h, t, d, dtype, causal, block_k), dtype)
+    # Scores, softmax statistics and P.V (dk, dv, dq) in f32 registers.
+    return with_work(fact, *qkv_work(kind, b, h, t, d, dtype, causal, block_k), dtype,
+                     acc=torch.float32)
 
 
 def _check_causal_blocks(block_q: int, block_k: int, causal: bool, where: str) -> None:

@@ -379,8 +379,10 @@ def flash_launch(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype, fq
         tiles = (q_t, o_t, kv_t, kv_t, stat, stat, o_t)
     fact = LaunchFact(kind, (_num_tiles(t), heads, b), THREADS, _smem_bytes(kind, d, dtype), 0,
                       tiles)
+    # mma.sync with f32 accumulators, f32 row statistics; dq's partials
+    # are summed in a fixed order (flash_dq.cu, or the wrapper's sum).
     return with_work(fact, *flash_work(kind, b, t, h, h_kv, d, dtype, causal, with_dq),
-                     dtype)
+                     dtype, acc=torch.float32)
 
 
 def launch_info(kind: str, b: int, t: int, h: int, h_kv: int, d: int, dtype) -> tuple:

@@ -202,7 +202,9 @@ def fused_block_launch(b: int, t: int, d: int, num_heads: int, dtype,
             tiles += (tile(CHUNK, n, dtype, hw, d), tile(1, n, dtype, 1, d),
                       tile(ROW_TILE, n, dtype, t, d))
     fact = LaunchFact("fused_block", (num_heads, b, 1), THREADS, _smem_bytes(t, dtype), 0, tiles)
-    return with_work(fact, *fused_block_work(b, t, d, num_heads, dtype, epilogue), dtype)
+    # LayerNorm moments, the products and the softmax in f32.
+    return with_work(fact, *fused_block_work(b, t, d, num_heads, dtype, epilogue), dtype,
+                     acc=torch.float32)
 
 
 def launch_info(b: int, t: int, num_heads: int, epilogue: str, dtype) -> tuple:

@@ -269,7 +269,11 @@ def _launch_fact(kind: str, n: int, c: int, width: int, vec: bool, dtype, grid: 
     """One launch over ``width`` channels of an (N, C) activation, with its
     work (:func:`bn_work`)."""
     return with_work(_launch_geometry(kind, n, c, width, vec, dtype, grid, norm_grid, sms),
-                     *bn_work(kind, n, width, dtype), torch.float32)
+                     *bn_work(kind, n, width, dtype), torch.float32, acc=torch.float32,
+                     # The moments' partials are combined in slab order; the
+                     # kernel's atomicAdd is the grid barrier's integer
+                     # arrival counter, not a float sum.
+                     order="fixed")
 
 
 def _launch_geometry(kind: str, n: int, c: int, width: int, vec: bool, dtype, grid: int,

@@ -167,7 +167,8 @@ def gather_gmm_launch(m: int, k: int, n: int, e: int, dtype, src_rows: int,
                         tile(BLOCK_M, WG_SLICE, dtype, src_rows, k),
                         tile(WG_SLICE, 64, dtype, k, n),
                         extra_tiles=(tile(1, BLOCK_M, torch.int32, 1, m),))
-    return with_work(fact, *gmm_work("gather_gmm", m, k, n, e, dtype, rows, src_rows), dtype)
+    return with_work(fact, *gmm_work("gather_gmm", m, k, n, e, dtype, rows, src_rows), dtype,
+                     acc=torch.float32)
 
 
 def _lib():

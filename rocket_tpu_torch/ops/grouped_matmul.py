@@ -156,7 +156,9 @@ def gmm_launch(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = Fals
     """The launch of :func:`gmm` with its work (:func:`gmm_work` over
     ``rows`` grouped rows); :func:`_gmm_geometry` describes it."""
     fact = _gmm_geometry(m, k, n, e, dtype, transpose_rhs, name, src_rows, sms)
-    return with_work(fact, *gmm_work(name, m, k, n, e, dtype, rows, src_rows), dtype)
+    # wgmma (bf16) or FMA (f32) into f32 accumulators, K in slice order.
+    return with_work(fact, *gmm_work(name, m, k, n, e, dtype, rows, src_rows), dtype,
+                     acc=torch.float32)
 
 
 def _gmm_geometry(m: int, k: int, n: int, e: int, dtype, transpose_rhs: bool = False,
@@ -193,7 +195,7 @@ def tgmm_launch(m: int, k: int, n: int, e: int, dtype, sms: int = 0,
     """The launch of :func:`tgmm` with its work (:func:`gmm_work` over
     ``rows`` grouped rows); :func:`_tgmm_geometry` describes it."""
     return with_work(_tgmm_geometry(m, k, n, e, dtype, sms),
-                     *gmm_work("tgmm", m, k, n, e, dtype, rows), dtype)
+                     *gmm_work("tgmm", m, k, n, e, dtype, rows), dtype, acc=torch.float32)
 
 
 def _tgmm_geometry(m: int, k: int, n: int, e: int, dtype, sms: int = 0) -> LaunchFact:

@@ -207,9 +207,9 @@ def paged_decode_launches(s: int, hq: int, h_kv: int, d: int, nb: int, bl: int, 
     return (
         with_work(LaunchFact("paged_decode", (s, h_kv, n_split), THREADS,
                              _split_smem_bytes(g, d, dtype), 0, (group, kv, kv, table_row, rec)),
-                  *split, dtype),
+                  *split, dtype, acc=torch.float32),
         with_work(LaunchFact("paged_decode_combine", (s, h_kv, 1), THREADS, 0, 0, (rec, group)),
-                  *combine, dtype),
+                  *combine, dtype, acc=torch.float32),
     )
 
 

@@ -657,12 +657,19 @@ def _vocab_rows(spec: OverlapSpec, table: torch.Tensor, tokens: torch.Tensor):
 
 
 def _scatter_rows(table_like: torch.Tensor, ids, valid, dy: torch.Tensor) -> torch.Tensor:
-    """The vocab shard's gradient: ``dy``'s rows added at their local ids."""
+    """The vocab shard's gradient: ``dy``'s rows added at their local ids.
+    A token repeats, so its rows meet: on the card they are summed by an
+    accumulating ``index_put_``, which sorts the ids and adds each row's
+    terms in that order (a CUDA ``index_add_`` adds them in whatever order
+    its threads arrive); the CPU's ``index_add_`` walks them in order."""
     vl, width = table_like.shape
     upd = torch.where(valid[..., None], dy.to(table_like.dtype),
                       torch.zeros((), dtype=table_like.dtype, device=dy.device))
     out = torch.zeros((vl, width), dtype=table_like.dtype, device=dy.device)
-    return out.index_add_(0, ids.clamp(0, vl - 1).reshape(-1), upd.reshape(-1, width))
+    rows = ids.clamp(0, vl - 1).reshape(-1)
+    if dy.device.type == "cpu":
+        return out.index_add_(0, rows, upd.reshape(-1, width))
+    return out.index_put_((rows,), upd.reshape(-1, width), accumulate=True)
 
 
 class _EmbedSharded(torch.autograd.Function):

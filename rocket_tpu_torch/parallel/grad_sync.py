@@ -8,7 +8,9 @@ each rank's backward gives its local gradients and :class:`GradSync`
 reduces them over the process group as the backward retires them:
 
 * **sharded params** (an ``fsdp_rules`` layout): the rank holds a shard
-  of the leaf, gathered whole at step entry (:func:`gather_full`); its
+  of the leaf, gathered whole at step entry (:func:`gather_buckets`: one
+  flat all-gather per :func:`bucket_plan` bucket of the leaves, the rule
+  the reductions use); its
   gradient reduce-scatters (mean over ranks) straight back onto the
   shard, so the update runs on the shard. As in the reference, the
   reduce-scatter is an all-to-all at the wire dtype plus a local sum at
@@ -80,8 +82,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-__all__ = ["bucket_plan", "Layout", "shard_layout", "shard_dims", "gather_full", "GradSync",
-           "NOT_PORTED"]
+__all__ = ["bucket_plan", "Layout", "shard_layout", "shard_dims", "gather_full",
+           "gather_buckets", "gathered", "GradSync", "NOT_PORTED"]
 
 #: What a spec naming an unported axis points to.
 NOT_PORTED = "ROADMAP Queue A 6"
@@ -234,6 +236,58 @@ def gather_full(shard: torch.Tensor, dim: int, world: int, group=None, async_op:
         out, src, group=group, async_op=async_op), (src,), (out,),
         (world - 1) * src.numel() * src.element_size(), world, "data", overlapped=async_op)
     return (out.movedim(0, dim) if dim else out), work
+
+
+class _Whole(NamedTuple):
+    """A leaf's gathered size, as :func:`bucket_plan` reads it."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def gather_buckets(shards: Sequence, world: int, group=None, bucket_bytes: int = 4 << 20):
+    """Start the step-entry gathers of ``shards``, ``(index, shard, dim)``
+    triples over ``world`` ranks: the leaves are bucketed by
+    :func:`bucket_plan` over their whole sizes, in the order given (at most
+    ``bucket_bytes`` a bucket, one dtype a bucket, an oversized leaf alone),
+    and each bucket is one flat ``all_gather_into_tensor``, started
+    ``async_op`` before any wait. Returns the pending buckets for
+    :func:`gathered`. A bucket moves the bytes its leaves' own gathers
+    would: (world - 1) shards of each."""
+    import torch.distributed as dist
+
+    from rocket_tpu_torch.parallel.collectives import collective
+
+    fronts = {i: (_front(t, d), d) for i, t, d in shards}
+    plan = bucket_plan([(i, _Whole((world * f.shape[0],) + tuple(f.shape[1:]), f.dtype))
+                        for i, (f, _) in fronts.items()], bucket_bytes)
+    pending = []
+    for bucket in plan:
+        parts = [fronts[i][0].reshape(-1) for i in bucket]
+        flat = parts[0] if len(parts) == 1 else torch.cat(parts)
+        out = torch.empty(world * flat.numel(), dtype=flat.dtype, device=flat.device)
+        work = collective("all_gather", lambda out=out, flat=flat: dist.all_gather_into_tensor(
+            out, flat, group=group, async_op=True), (flat,), (out,),
+            (world - 1) * flat.numel() * flat.element_size(), world, "data", overlapped=True)
+        pending.append((bucket, out, work))
+    return pending, fronts, world
+
+
+def gathered(started):
+    """``(index, whole leaf)`` of every leaf :func:`gather_buckets` started,
+    each bucket waited on in turn and split back into its leaves (bitwise
+    what the leaf's own gather gives)."""
+    pending, fronts, world = started
+    for bucket, out, work in pending:
+        work.wait()
+        out = out.view(world, -1)
+        offset = 0
+        for i in bucket:
+            front, dim = fronts[i]
+            n = front.numel()
+            whole = out[:, offset:offset + n].reshape((-1,) + tuple(front.shape[1:]))
+            offset += n
+            yield i, (whole.movedim(0, dim) if dim else whole)
 
 
 def _scatter(grad: torch.Tensor, dim: int, world: int, wire, group):

@@ -2087,3 +2087,44 @@ def test_small_lm_step_peak_reconciles_with_its_liveness(cuda):
     torch.cuda.synchronize()
     measured = torch.cuda.max_memory_allocated() - base
     assert check_reconciliation(record["predicted_peak_bytes"], measured) == []
+
+
+# -- the declared f32 accumulators at the main paths' longest contractions ----
+
+
+@pytest.mark.cuda
+def test_grouped_kernels_accumulate_in_f32(cuda):
+    """gmm over K = 3072 and tgmm over each group's rows of 18,432 routed
+    rows, bf16: each kernel's error against the f64 sum is below the same
+    sum carried in bf16 one WG_SLICE at a time (``ops/accuracy.py``)."""
+    from rocket_tpu_torch.ops import accuracy
+
+    gen = torch.Generator().manual_seed(26)
+    sizes = torch.tensor([4608, 4480, 4736, 4608], dtype=torch.int32, device="cuda")
+    h = (torch.randn(18432, 3072, generator=gen) * 0.5).to(torch.bfloat16).cuda()
+    w_out = (torch.randn(4, 3072, 768, generator=gen) * 3072 ** -0.5).to(torch.bfloat16).cuda()
+    x = (torch.randn(18432, 768, generator=gen) * 0.5).to(torch.bfloat16).cuda()
+    dy = (torch.randn(18432, 3072, generator=gen) * 0.5).to(torch.bfloat16).cuda()
+    for kind, args, out in (("gmm", (h, w_out), tgm.gmm(h, w_out, sizes)),
+                            ("tgmm", (x, dy), tgm.tgmm(x, dy, sizes))):
+        errs = accuracy.grouped_errors(kind, *args, sizes, out, tgm.WG_SLICE)
+        assert errs["kernel"] < errs["bf16_tiles"], (kind, errs)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_accumulates_dk_dv_in_f32(cuda):
+    """Row 4's dk and dv over T = 1024 queries (GPT-2's heads, bf16,
+    causal): below the bf16 tile-wise sum's error against f64."""
+    from rocket_tpu_torch.ops import accuracy
+
+    gen = torch.Generator().manual_seed(27)
+    b, t, h, d = 2, 1024, 12, 64
+    arr = _randn(gen, torch.bfloat16, b, t, 3 * h * d)
+    geo = (h, h, d, (0, h * d, 2 * h * d), True)
+    out, lse = tfn.flash_fwd(arr, arr, arr, *geo)
+    dout = _randn(gen, torch.bfloat16, b, t, h * d)
+    delta = (dout.float() * out.float()).reshape(b, t, h, d).sum(-1).transpose(1, 2).contiguous()
+    _, dk, dv = tfn.flash_bwd(arr, arr, arr, dout, lse, delta, *geo, with_dq=False)
+    p, ds, q, _k, do = tfn._probs_and_ds(arr, arr, arr, dout, lse, delta, h, h, d, geo[3], True)
+    for name, errs in accuracy.flash_bwd_errors(p, ds, q, do, dk, dv, tfn.TILE).items():
+        assert errs["kernel"] < errs["bf16_tiles"], (name, errs)

@@ -376,4 +376,4 @@ def test_sched_cli_gates_on_the_committed_budgets(tmp_path, capsys):
                      "--format", "json"]) == 1
     assert '"RKT506"' in capsys.readouterr().out
     assert cli.main(["sched", "--target", "badsched", "--no-budgets"]) == 1
-    assert cli.main(["prec"]) == 2
+    assert cli.main(["fault"]) == 2

@@ -13,8 +13,8 @@
 * ``badrules`` reports exactly the reference's ids (RKT301, RKT304,
   RKT305); ``shard`` exits 0 against the committed
   ``tests/fixtures/torch_budgets/shard/``, a shrunk budget fails RKT306,
-  ``--list-rules`` lists RKT201-206, 301-306 and 801-805, and ``prec``
-  still exits 2 naming A 9.
+  ``--list-rules`` lists RKT201-206, 301-306 and 801-805, and an unported
+  family (``fault``) still exits 2 naming A 9.
 
 Inputs are drawn from numpy seeds; torch runs on one thread.
 """
@@ -225,7 +225,7 @@ def test_list_rules_and_the_unported_families(capsys):
     listed = {line.split()[0] for line in capsys.readouterr().out.splitlines() if line}
     wanted = {f"RKT{n}" for n in (*range(201, 207), *range(301, 307), *range(801, 806))}
     assert wanted <= listed
-    assert cli.main(["prec"]) == 2
+    assert cli.main(["fault"]) == 2
     assert "A 9" in capsys.readouterr().err
     assert "trace" not in cli.UNPORTED and "shard" not in cli.UNPORTED
 
